@@ -1,0 +1,140 @@
+"""End to end: the port's InferenceEngine against the JAX engine
+(``device_geometry=True``) on the synthetic scene with the fake tokenizer,
+tiny model in float32. Greedy token ids and the jsonl answers must be
+identical. Also: the port runs without importing JAX."""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from video3d_tpu.config import DataConfig, ModelConfig
+from video3d_tpu.data.image_processor import SigLipImageProcessor
+from video3d_tpu.data.video_processor import VideoProcessor
+from video3d_tpu.eval import drivers as jdrv
+from video3d_tpu.models import llava_video3d as jlv
+from video3d_tpu_torch.eval import drivers as tdrv
+from video3d_tpu_torch.params import from_jax_params
+
+from fixtures import FakeTokenizer, make_fake_scene
+
+torch.set_num_threads(1)
+
+CFG = ModelConfig.tiny()
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def engine_kwargs(tok):
+    return dict(max_new_tokens=8, eos_token_id=tok.eos_token_id,
+                max_frames=3, buckets=(256,), stop_str="")
+
+
+def questions(info):
+    return [{
+        "id": f"q{i}",
+        "video": info["sample_idx"],
+        "conversations": [
+            {"from": "human", "value": f"<image>\nwhat color is chair {i}"},
+            {"from": "gpt", "value": "brown"},
+        ],
+        "metadata": {"dataset": "scanqa", "question_type": "what"},
+    } for i in range(2)]
+
+
+@pytest.fixture(scope="module")
+def engines(tmp_path_factory):
+    root = str(tmp_path_factory.mktemp("scene"))
+    info = make_fake_scene(root, n_frames=3)
+    data_cfg = DataConfig(video_folder=root,
+                          annotation_dir=os.path.join(root, "embodiedscan"),
+                          metadata_dir=os.path.join(root, "metadata"),
+                          frames_upbound=3)
+    tok = FakeTokenizer()
+    ip = SigLipImageProcessor(size=(CFG.vision.image_size,) * 2)
+    params = jlv.init_model(jax.random.PRNGKey(0), CFG)
+    jax_engine = jdrv.InferenceEngine(
+        params, CFG, tok, VideoProcessor(data_cfg), ip,
+        jdrv.EngineConfig(**engine_kwargs(tok)), device_geometry=True)
+    torch_engine = tdrv.InferenceEngine(
+        from_jax_params(jax.tree.map(np.asarray, params), CFG), CFG, tok,
+        VideoProcessor(data_cfg), ip, tdrv.EngineConfig(**engine_kwargs(tok)))
+    return info, jax_engine, torch_engine
+
+
+def test_greedy_tokens_identical(engines):
+    info, jax_engine, torch_engine = engines
+    for q in questions(info):
+        jres = jax_engine._generate(*jax_engine._prepare_generation(q))
+        tres = torch_engine._generate(torch_engine._prepare_generation(q))
+        np.testing.assert_array_equal(tres.tokens.numpy(),
+                                      np.asarray(jres.tokens))
+        np.testing.assert_array_equal(tres.lengths.numpy(),
+                                      np.asarray(jres.lengths))
+
+
+def test_scanqa_records_identical(engines, tmp_path):
+    info, jax_engine, torch_engine = engines
+    qs = questions(info)
+    jdrv.run_scanqa(jax_engine, qs, str(tmp_path / "jax.jsonl"))
+    times = tdrv.run_scanqa(torch_engine, qs, str(tmp_path / "torch.jsonl"))
+    assert len(times) == 2
+
+    def read(name):
+        with open(tmp_path / name) as f:
+            return [json.loads(line) for line in f]
+
+    assert read("torch.jsonl") == read("jax.jsonl")
+
+
+def test_port_runs_without_jax(tmp_path):
+    """Import the port, answer one question with a tiny random model, and
+    check that no JAX module was ever imported."""
+    script = textwrap.dedent(f"""
+        import os, sys
+        sys.path[:0] = [{REPO!r}, {os.path.join(REPO, "tests")!r}]
+        import torch
+        torch.set_num_threads(1)
+        from video3d_tpu_torch.config import DataConfig, ModelConfig
+        from video3d_tpu_torch.eval.drivers import (EngineConfig,
+                                                    InferenceEngine,
+                                                    VideoProcessor)
+        from video3d_tpu_torch.params import init_model
+        from fixtures import FakeTokenizer, make_fake_scene
+
+        root = {str(tmp_path)!r}
+        info = make_fake_scene(root, n_frames=2)
+        cfg = ModelConfig.tiny()
+        tok = FakeTokenizer()
+        params = init_model(cfg, "cpu", torch.Generator().manual_seed(0),
+                            torch.float32)
+        engine = InferenceEngine(
+            params, cfg, tok,
+            VideoProcessor(DataConfig(
+                video_folder=root,
+                annotation_dir=os.path.join(root, "embodiedscan"),
+                metadata_dir=os.path.join(root, "metadata"),
+                frames_upbound=2)),
+            engine_cfg=EngineConfig(max_new_tokens=3,
+                                    eos_token_id=tok.eos_token_id,
+                                    max_frames=2, buckets=(256,)))
+        answer = engine.generate_answer({{
+            "video": info["sample_idx"],
+            "conversations": [{{"from": "human", "value": "what is it"}},
+                              {{"from": "gpt", "value": "a chair"}}]}})
+        assert isinstance(answer, str)
+        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        assert not bad, bad
+        print("OK")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("OK")

@@ -1,0 +1,139 @@
+"""Build and load the hand-written Hopper kernels (``csrc/*.cu``).
+
+All kernels compile with ``nvcc`` into ONE shared library with a plain C
+interface, loaded through ``ctypes``. The library builds at first use from
+the package's own sources into ``video3d_tpu_torch/_build/`` (git-ignored),
+named by a hash of the sources, so an edited kernel never loads a stale
+binary. Nothing here runs at import time: the CPU tests import every module
+of the port on a host without ``nvcc``.
+
+Each C entry point launches on the stream it is given, allocates nothing and
+returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
+exception. :data:`LAUNCHES` counts kernel launches per wrapper, so a caller
+can show that a run really went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+#: launches per kernel wrapper; each wrapper adds one where it launches
+LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
+                            "decode_attention": 0}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+#: C signatures: name -> argtypes (every entry returns a cudaError_t as int)
+_SIGNATURES = {
+    # depths, scalars, out, V, H, W, crop, new_w, left, grid, patch,
+    # min xyz, max xyz, voxel, discretize, stream
+    "v3d_fused_geometry": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # q, k, v, lengths, out, B, L, S, H, KV, causal, sm_scale, stream
+    "v3d_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _F, _P],
+    # q, k_all, v_all, kv_len, out, part_m, part_l, part_acc,
+    # layer, B, S, H, KV, n_chunks, sm_scale, stream
+    "v3d_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _F, _P],
+}
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+#: seconds the last compile took (0.0 until this process compiled)
+build_seconds = 0.0
+#: compiler output of the last build (ptxas register / smem report)
+build_log = ""
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libv3d_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    global build_seconds, build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(SRC_DIR.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.v3d_error_string.argtypes = [ctypes.c_int]
+            lib.v3d_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if err != 0:
+        msg = library().v3d_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

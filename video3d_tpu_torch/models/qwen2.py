@@ -1,0 +1,203 @@
+"""Qwen2 decoder with 3-axis mRoPE, GQA and a stacked flat KV cache, in
+PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the prefill and
+stacked single-token decode branches; bf16 cache; dense weights).
+
+Parameter layout as in the JAX tree (matrices (in, out), used as
+``x @ w``): ``embed_tokens (vocab, D)``, ``layers[i] {input_layernorm,
+attn {wq, wk, wv, wo, bq, bk, bv}, post_attention_layernorm,
+mlp {w_gate, w_up, w_down}}``, ``norm``, ``lm_head (D, vocab)``.
+
+bf16 rounding points follow the JAX package: RMSNorm normalises in f32 and
+casts to the activation dtype BEFORE the weight multiply; mRoPE cos/sin are
+computed in f32 and cast to the query dtype inside ``apply_rotary``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from video3d_tpu.config import LLMConfig
+from video3d_tpu_torch.kernels.attention import mha, mha_cached_stacked
+
+Params = Dict[str, Any]
+
+
+@dataclass
+class KVCache:
+    """Stacked flat KV cache: k/v (num_layers, B, max_len, KV * hd).
+
+    The same layout as the JAX package's ``KVCache``; the port writes new
+    K/V into it IN PLACE (JAX returns an updated copy), and the decode
+    kernel reads a layer straight out of the stacked buffer by its strides.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg: LLMConfig, batch: int, max_len: int,
+              dtype=torch.bfloat16, device=None) -> "KVCache":
+        shape = (cfg.num_hidden_layers, batch, max_len,
+                 cfg.num_key_value_heads * cfg.head_dim)
+        return cls(torch.zeros(shape, dtype=dtype, device=device),
+                   torch.zeros(shape, dtype=dtype, device=device))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.to(torch.float32)
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return weight * (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def rope_inv_freq(cfg: LLMConfig) -> torch.Tensor:
+    """(head_dim // 2,) f32 rotary frequencies 1 / theta^(i / half). The
+    power is taken in f64 and rounded once to f32 (f32 ``pow`` differs
+    between libraries by an ulp)."""
+    half = cfg.head_dim // 2
+    expo = torch.arange(0, half, dtype=torch.float32) / half
+    return 1.0 / (cfg.rope_theta ** expo.to(torch.float64)).to(torch.float32)
+
+
+def compute_mrope_cos_sin(position_ids: torch.Tensor, cfg: LLMConfig,
+                          dtype=torch.float32
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, L, 3) position ids -> (cos, sin) each (B, L, head_dim): rotary
+    channel i reads axis 0, 1 or 2 by the mrope sections, e.g. [32, 16, 16]."""
+    half = cfg.head_dim // 2
+    if sum(cfg.mrope_section) != half:
+        raise ValueError(f"mrope_section {cfg.mrope_section} != head_dim/2")
+    dev = position_ids.device
+    s1, s2, s3 = cfg.mrope_section
+    axis_for_freq = torch.cat([torch.zeros(s1, dtype=torch.int64),
+                               torch.ones(s2, dtype=torch.int64),
+                               torch.full((s3,), 2, dtype=torch.int64)]).to(dev)
+    pos = position_ids.to(torch.float32)[..., axis_for_freq]   # (B, L, half)
+    freqs = pos * rope_inv_freq(cfg).to(dev)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rotary(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
+                 sin: torch.Tensor):
+    """q, k: (B, L, heads, hd); cos/sin: (B, L, hd)."""
+    cos = cos[:, :, None, :].to(q.dtype)
+    sin = sin[:, :, None, :].to(q.dtype)
+    return q * cos + rotate_half(q) * sin, k * cos + rotate_half(k) * sin
+
+
+def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor, cfg: LLMConfig, layer_idx: int,
+                  kv_cache: Optional[KVCache] = None,
+                  cache_positions: Optional[torch.Tensor] = None,
+                  kv_len: Optional[torch.Tensor] = None,
+                  prefill: bool = False) -> torch.Tensor:
+    """One decoder block on x (B, L, D).
+
+    With ``kv_cache``: ``prefill=True`` writes this chunk's K/V at slots
+    0..L-1 and attends the raw K/V (flash kernel); otherwise L == 1, the new
+    K/V land at ``cache_positions`` (B, 1) and attention reads the stacked
+    cache (decode kernel). ``kv_len`` (B,) counts valid keys after the write.
+    """
+    B, L, D = x.shape
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    a = p["attn"]
+    h = rms_norm(x, p["input_layernorm"], cfg.rms_norm_eps)
+    q = (h @ a["wq"] + a["bq"]).reshape(B, L, H, hd)
+    k = (h @ a["wk"] + a["bk"]).reshape(B, L, KV, hd)
+    v = (h @ a["wv"] + a["bv"]).reshape(B, L, KV, hd)
+    q, k = apply_rotary(q, k, cos, sin)
+
+    if kv_cache is None or prefill:
+        if kv_cache is not None:
+            kv_cache.k[layer_idx, :, :L] = k.reshape(B, L, KV * hd)
+            kv_cache.v[layer_idx, :, :L] = v.reshape(B, L, KV * hd)
+        attn = mha(q, k, v, kv_len=kv_len)
+    else:
+        rows = torch.arange(B, device=x.device)
+        pos = cache_positions[:, 0]
+        kv_cache.k[layer_idx, rows, pos] = k[:, 0].reshape(B, KV * hd).to(
+            kv_cache.k.dtype)
+        kv_cache.v[layer_idx, rows, pos] = v[:, 0].reshape(B, KV * hd).to(
+            kv_cache.v.dtype)
+        attn = mha_cached_stacked(q, kv_cache.k, kv_cache.v, layer_idx, KV,
+                                  q_positions=cache_positions, kv_len=kv_len)
+    x = x + attn.reshape(B, L, D) @ a["wo"]
+
+    h = rms_norm(x, p["post_attention_layernorm"], cfg.rms_norm_eps)
+    m = p["mlp"]
+    return x + (F.silu(h @ m["w_gate"]) * (h @ m["w_up"])) @ m["w_down"]
+
+
+def qwen2_forward(params: Params, cfg: LLMConfig,
+                  inputs_embeds: torch.Tensor, position_ids: torch.Tensor,
+                  kv_cache: Optional[KVCache] = None,
+                  cache_positions: Optional[torch.Tensor] = None,
+                  kv_len: Optional[torch.Tensor] = None,
+                  prefill: bool = False) -> torch.Tensor:
+    """Run the decoder stack on (B, L, D) embeddings with (B, L, 3) position
+    ids; returns the final-norm hidden states. ``kv_cache`` is updated in
+    place (see :func:`decoder_layer`)."""
+    if kv_cache is not None and prefill \
+            and inputs_embeds.shape[1] > kv_cache.k.shape[2]:
+        raise ValueError("prefill longer than the KV cache")
+    cos, sin = compute_mrope_cos_sin(position_ids, cfg)
+    x = inputs_embeds
+    for i, lp in enumerate(params["layers"]):
+        x = decoder_layer(lp, x, cos, sin, cfg, i, kv_cache, cache_positions,
+                          kv_len, prefill)
+    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+
+
+def lm_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
+    """(B, L, D) -> (B, L, vocab) logits."""
+    return hidden @ params["lm_head"]
+
+
+def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
+    return params["embed_tokens"][input_ids]
+
+
+def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
+               dtype=torch.float32) -> Params:
+    """Random init with the JAX package's distributions, made on ``device``:
+    N(0, 0.02) matrices and embeddings, zero biases, unit norms."""
+    D, I = cfg.hidden_size, cfg.intermediate_size
+    H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+
+    def normal(*shape):
+        return torch.empty(shape, device=device, dtype=dtype).normal_(
+            0.0, 0.02, generator=generator)
+
+    def zeros(n):
+        return torch.zeros(n, device=device, dtype=dtype)
+
+    def ones(n):
+        return torch.ones(n, device=device, dtype=dtype)
+
+    def layer():
+        return {
+            "input_layernorm": ones(D),
+            "attn": {"wq": normal(D, H * hd), "wk": normal(D, KV * hd),
+                     "wv": normal(D, KV * hd), "wo": normal(H * hd, D),
+                     "bq": zeros(H * hd), "bk": zeros(KV * hd),
+                     "bv": zeros(KV * hd)},
+            "post_attention_layernorm": ones(D),
+            "mlp": {"w_gate": normal(D, I), "w_up": normal(D, I),
+                    "w_down": normal(I, D)},
+        }
+
+    return {
+        "embed_tokens": normal(cfg.vocab_size, D),
+        "layers": [layer() for _ in range(cfg.num_hidden_layers)],
+        "norm": ones(D),
+        "lm_head": normal(D, cfg.vocab_size),
+    }

@@ -1,0 +1,83 @@
+"""Parameters of the port: random init on the device, and conversion of the
+JAX package's parameter tree.
+
+The port keeps the JAX tree's nesting and layout: nested dicts and lists of
+tensors, matrices stored (in, out) and applied as ``x @ w``. So a JAX tree
+whose leaves are numpy arrays converts leaf by leaf, and both packages then
+compute the same function (the parity tests rely on it).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from video3d_tpu.config import ModelConfig, PosEmbedType
+from video3d_tpu_torch.models import llava_video3d as lv3d
+from video3d_tpu_torch.models import qwen2, siglip
+
+Params = Dict[str, Any]
+
+#: the subtrees of the JAX tree the answer path reads (the grounding head
+#: and other optional heads are left out)
+_USED = ("vision", "projector", "image_newline", "llm")
+
+
+def check_config(cfg: ModelConfig) -> None:
+    """Raise for configuration features the port does not run yet."""
+    llm = cfg.llm
+    if (llm.moe is not None or llm.position_embedding != "rope"
+            or llm.norm_type != "rmsnorm" or llm.hidden_act != "silu"
+            or llm.embed_scale or llm.rms_norm_add_unit_offset
+            or not llm.attention_bias or llm.tie_word_embeddings):
+        raise NotImplementedError("only the Qwen2 decoder family is ported")
+    if cfg.world_3d.pos_embed not in (PosEmbedType.SIN3D, PosEmbedType.NONE) \
+            or cfg.world_3d.llava3d:
+        raise NotImplementedError("only the sin3d world PE is ported")
+
+
+def _convert(node, device, dtype):
+    if isinstance(node, dict):
+        return {k: _convert(v, device, dtype) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_convert(v, device, dtype) for v in node]
+    t = torch.from_numpy(np.array(node))       # a writable copy
+    if t.is_floating_point() and dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def from_jax_params(tree: Params, cfg: ModelConfig, device="cpu",
+                    dtype=None) -> Params:
+    """The JAX ``llava_video3d.init_model`` tree (numpy leaves; JAX linears
+    are (in, out) and used as ``x @ w``) -> the port's parameter dict on
+    ``device``. ``dtype`` casts floating leaves (None keeps theirs)."""
+    check_config(cfg)
+    out = {k: _convert(tree[k], device, dtype) for k in _USED}
+    if len(out["vision"]["layers"]) != cfg.vision.num_hidden_layers \
+            or len(out["llm"]["layers"]) != cfg.llm.num_hidden_layers:
+        raise ValueError("layer counts of the tree and the config differ")
+    return out
+
+
+def init_model(cfg: ModelConfig, device, generator: torch.Generator,
+               dtype=torch.bfloat16) -> Params:
+    """Random init of the answer path's parameters, made directly on
+    ``device`` from ``generator`` (a generator of that device). At full
+    width that is ~8 B parameters, 16 GB in bf16: built on the host it would
+    take minutes and ~30 GB of RAM."""
+    check_config(cfg)
+    return {
+        "vision": siglip.init_vision_tower(cfg.vision, device, generator,
+                                           dtype),
+        "projector": lv3d.init_projector(cfg.vision.hidden_size,
+                                         cfg.llm.hidden_size, device,
+                                         generator, dtype,
+                                         cfg.projector.projector_type),
+        "image_newline": torch.empty(cfg.llm.hidden_size, device=device,
+                                     dtype=dtype).normal_(
+                                         0.0, 0.02, generator=generator),
+        "llm": qwen2.init_qwen2(cfg.llm, device, generator, dtype),
+    }
