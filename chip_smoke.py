@@ -9,13 +9,27 @@ Phases, each of which raises on failure (the process then exits non-zero):
    off for float32 products and convolutions.
 2. Build: compiles ``video3d_tpu_torch/csrc/*.cu`` with nvcc (printed
    seconds, ptxas report in ``chiprun_out/ptxas.txt``).
-3. Kernels against their plain PyTorch versions at the main path's shapes:
-   fused geometry (B1), flash prefill attention (B2), split-K decode
-   attention (B3); max error and median times (CUDA events).
+3. Kernels against their plain PyTorch versions at the main paths' shapes:
+   fused geometry (B1), flash prefill attention (B2), GQA-folded cached-chunk
+   attention (B2 folded), split-K decode attention (B3), shared-prefix
+   attention (B5); max error and median times (CUDA events).
 4. Main path: the ScanQA answer path at full width (``ModelConfig()``:
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
    scene through ``run_scanqa``; kernel launch counts must match the path.
+5. Scene-prefix path: the same model and scene with the scene-feature and
+   scene-prefix caches on answers 16 questions through
+   ``run_generative(..., batch_size=8)`` (one miss with a full prefill, then
+   a B=7 and a B=8 suffix batch over the shared prefix) and one more through
+   ``generate_answer`` (a B=1 suffix over the cached prefix); launch counts
+   must match the path, and the first-step logits of the suffix paths must
+   agree with a full prefill of the same question.
+
+B2 folded and B5 are held against their plain versions run in float32 on
+the same bf16 values. Every accuracy check of B2 folded, B5 and phase 5
+also reads a control, a deliberately broken plain version, which must miss
+its bound by a wide margin: the check could otherwise not fail a wrong
+kernel.
 
 Prints a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -39,9 +53,38 @@ KERNEL_INFO = {
                        "video3d_tpu/kernels/fused_geometry.py:41"),
     "flash_attention": ("video3d_tpu_torch/csrc/flash_attention.cu",
                         "video3d_tpu/kernels/flash_attention.py:64"),
+    "flash_attention_folded": ("video3d_tpu_torch/csrc/flash_attention.cu",
+                               "video3d_tpu/kernels/flash_attention.py:64"),
     "decode_attention": ("video3d_tpu_torch/csrc/decode_attention.cu",
                          "video3d_tpu/kernels/decode_attention.py:68"),
+    "shared_prefix_attention": (
+        "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
+        "video3d_tpu/kernels/flash_attention.py:503"),
 }
+MAX_NEW = 32          # answer budget of both main paths
+BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
+# Inputs of the B2 folded and B5 checks. Queries at three times a unit
+# normal make attention peaked (scores of std ~3), so a skipped key tile
+# moves some output by the size of a value; FOCUS, added to channel 0 of every
+# query and of the keys a check is about (the chunk's own keys, the
+# suffix), gives those keys most of the softmax weight, so a wrong mask
+# there moves the output by O(1). The kernels are held against their plain
+# version run in float32 on the same bf16 values: the bf16 plain version
+# rounds the scores to bf16 before the softmax (as the JAX reference does),
+# which at peaked attention moves outputs by more than BF16_ATOL by itself;
+# its distance is printed. Each check also holds the float32 plain version
+# with one part broken against the correct one: such a control must read
+# at least CONTROL_MIN, or the check could not fail that kernel.
+Q_SCALE, FOCUS = 3.0, 11.0
+CONTROL_MIN = 4 * BF16_ATOL
+# first-step logits of a suffix over the cached prefix against a full
+# prefill of the same question (bf16 model, random weights). The two paths
+# round differently in every layer (other GEMM shapes, other attention
+# tiles). The control reads the logits one position early, as an
+# off-by-one last-token gather or a suffix one token short would; it must
+# read at least LOGIT_CONTROL_MIN.
+LOGIT_ATOL = 0.25
+LOGIT_CONTROL_MIN = 2 * LOGIT_ATOL
 
 
 def preconditions():
@@ -93,6 +136,21 @@ def _check(name: str, ok: bool, detail: str) -> None:
     print(f"  {name}: {detail}", flush=True)
     if not ok:
         raise AssertionError(f"{name} failed: {detail}")
+
+
+def _rows_err(a, b, rows) -> float:
+    """Max |a - b| over the first rows[i] query rows of batch row i."""
+    return max(float((a[i, :n].float() - b[i, :n].float()).abs().max())
+               for i, n in enumerate(rows))
+
+
+def _check_controls(name: str, ref, rows, controls: dict) -> None:
+    """Each broken plain version must differ from the correct one by at
+    least CONTROL_MIN on the rows the kernel check compares."""
+    for what, broken in controls.items():
+        err = _rows_err(broken, ref, rows)
+        _check(f"{name} control, {what}", err >= CONTROL_MIN,
+               f"max |d| {err:.2e} (must be >= {CONTROL_MIN:.0e})")
 
 
 def _random_poses(g, V: int):
@@ -207,6 +265,121 @@ def check_decode(dev):
                                                      layer, KV), 10))
 
 
+def check_folded(dev):
+    """B2 folded at the B=1 prefix-hit shape: a 64-token suffix bucket at
+    position ~6716 of a stacked 28-layer cache of 8224 slots; controls: the
+    chunk's causal mask dropped, the first key tile skipped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    NL, H, KV, hd, S, layer = 28, 28, 4, 128, 8224, 27
+    worst, timed = 0.0, None
+    for L, offs, lens in ((64, [6716], [6756]),
+                          (64, [6716, 5000], [6756, 5064]),
+                          (256, [6716], [6916])):
+        B = len(offs)
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+        k_all = torch.randn(NL, B, S, KV * hd, generator=g,
+                            device=dev).to(torch.bfloat16)
+        for b, (o, n) in enumerate(zip(offs, lens)):
+            k_all[layer, b, o:n, ::hd] += FOCUS       # the chunk's own keys
+        v_all = (0.5 * torch.randn(NL, B, S, KV * hd, generator=g,
+                                   device=dev)).to(torch.bfloat16)
+        offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, k_all, v_all, lens_t, offs_t, layer, KV)
+        rows = [n - o for o, n in zip(offs, lens)]
+        out = fa.flash_attention_gqa_folded(*args)
+        qf = q.float()          # the plain version on the same values in f32
+        ref = fa.flash_attention_gqa_folded_plain(qf, *args[1:])
+        err = _rows_err(out, ref, rows)
+        plain_err = _rows_err(fa.flash_attention_gqa_folded_plain(*args),
+                              ref, rows)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = f"B2 folded B={B} L={L} offsets={offs} kv_len={lens}"
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows below kv_len, finite={finite} "
+               f"(the bf16 plain version: {plain_err:.2e})")
+        _check_controls(name, ref, rows, {
+            # every row sees the whole chunk
+            "no causal mask in the chunk": fa.flash_attention_gqa_folded_plain(
+                qf, k_all, v_all, lens_t, lens_t - 1, layer, KV),
+            "first key tile skipped": fa.flash_attention_gqa_folded_plain(
+                qf, k_all[:, :, 64:], v_all[:, :, 64:], lens_t - 64,
+                offs_t - 64, layer, KV)})
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+    return worst, (
+        _median_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
+        _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10))
+
+
+def check_shared_prefix(dev):
+    """B5 at the B=8 suffix-batch shape (64-token bucket, ~6716-token
+    prefix, ragged suffix lengths), and B=3 with P not a multiple of 64;
+    controls: the suffix dropped, its causal mask dropped, the first prefix
+    tile skipped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+    from video3d_tpu_torch.kernels.attention import (
+        mha_reference, mha_shared_prefix_reference)
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    H, KV, hd, L = 28, 4, 128, 64
+    worst, timed = 0.0, None
+    for P, slens in ((6716, [64, 40, 17, 64, 33, 50, 8, 60]),
+                     (1000, [64, 1, 45])):
+        B = len(slens)
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+        pk = torch.randn(P, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+        pv = (0.5 * torch.randn(P, KV, hd, generator=g,
+                                device=dev)).to(torch.bfloat16)
+        sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+        sk[..., 0] += FOCUS
+        sk = sk.to(torch.bfloat16)
+        sv = (0.5 * torch.randn(B, L, KV, hd, generator=g,
+                                device=dev)).to(torch.bfloat16)
+        slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+        args = (q, pk, pv, sk, sv, slens_t)
+        out = fa.flash_attention_shared_prefix(*args)
+        qf = q.float()          # the plain version on the same values in f32
+        ref = mha_shared_prefix_reference(qf, *args[1:])
+        err = _rows_err(out, ref, slens)
+        plain_err = _rows_err(mha_shared_prefix_reference(*args), ref, slens)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = f"B5 B={B} L={L} P={P} suffix_lens={slens}"
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows below suffix_lens, "
+               f"finite={finite} (the bf16 plain version: {plain_err:.2e})")
+        k = torch.cat([pk.expand(B, P, KV, hd), sk], 1).float()
+        v = torch.cat([pv.expand(B, P, KV, hd), sv], 1).float()
+        _check_controls(name, ref, slens, {
+            "suffix dropped": mha_shared_prefix_reference(
+                qf, pk, pv, sk, sv, torch.zeros_like(slens_t)),
+            # every row sees its whole suffix
+            "no causal mask in the suffix": mha_reference(
+                qf, k, v, q_positions=torch.full((B, L), P + L - 1,
+                                                 device=dev),
+                kv_len=P + slens_t),
+            "first prefix tile skipped": mha_shared_prefix_reference(
+                qf, pk[64:], pv[64:], sk, sv, slens_t)})
+        del k, v
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+    return worst, (
+        _median_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
+        _median_ms(lambda: mha_shared_prefix_reference(*timed), 5))
+
+
 def check_kernels():
     import torch
 
@@ -214,7 +387,9 @@ def check_kernels():
     rows = {}
     for name, fn in (("fused_geometry", check_geometry),
                      ("flash_attention", check_flash),
-                     ("decode_attention", check_decode)):
+                     ("flash_attention_folded", check_folded),
+                     ("decode_attention", check_decode),
+                     ("shared_prefix_attention", check_shared_prefix)):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms) = fn(dev)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
@@ -224,141 +399,280 @@ def check_kernels():
     return rows
 
 
-def _scanqa_questions(video_id: str):
+SCANQA_TEXTS = ("What color is the chair next to the desk?",
+                "How many pillows are on the bed?")
+PREFIX_TEXTS = (
+    "Where is the lamp?", "What is on the table?", "Is the door open?",
+    "What is left of the sofa?", "How many chairs are there?",
+    "What is above the sink?", "Where is the trash can?",
+    "What color is the rug?", "What is behind the monitor?",
+    "How many windows are in the room?",
+    "What is next to the refrigerator?", "Where is the backpack?",
+    "What shape is the table?", "What is under the desk?",
+    "Which side of the bed is the nightstand on?",
+    "What is hanging on the wall?", "Is the blanket folded?")
+
+
+def _questions(video_id: str, texts, tag: str):
     return [{
-        "id": f"smoke{i}",
+        "id": f"{tag}{i}",
         "video": video_id,
         "conversations": [
             {"from": "human", "value": f"<image>\n{text}"},
             {"from": "gpt", "value": "a brown wooden chair"},
         ],
         "metadata": {"dataset": "scanqa", "question_type": "what"},
-    } for i, text in enumerate(("What color is the chair next to the desk?",
-                                "How many pillows are on the bed?"))]
+    } for i, text in enumerate(texts)]
 
 
-def run_main_path():
-    """Answer two questions at full width through ``run_scanqa``; returns the
-    kernel launch counts of that run."""
+def _make_engine(params, cfg, root: str, **ecfg):
+    """An InferenceEngine on the synthetic scene that keeps every
+    GenerateResult, and the first-step logits of each decode-state request,
+    so a run can be checked."""
     import torch
 
-    sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from fixtures import FakeTokenizer, make_fake_scene
+    from fixtures import FakeTokenizer
 
-    from video3d_tpu_torch.config import DataConfig, ModelConfig
+    from video3d_tpu_torch.config import DataConfig
     from video3d_tpu_torch.eval.drivers import (EngineConfig, InferenceEngine,
-                                                VideoProcessor, run_scanqa)
-    from video3d_tpu_torch.kernels import _build
-    from video3d_tpu_torch.models import generate as gen
-    from video3d_tpu_torch.models import llava_video3d as lv3d
-    from video3d_tpu_torch.params import init_model
+                                                VideoProcessor)
 
     class RecordingEngine(InferenceEngine):
-        """Keeps every GenerateResult so the run can be checked."""
-
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.results = []
+            self.first_logits = []
 
         def _generate(self, batch, vision_features=None):
             res = super()._generate(batch, vision_features)
             self.results.append(res)
             return res
 
-    dev = torch.device("cuda", 0)
-    cfg = ModelConfig()
-    t0 = time.perf_counter()
-    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
-                        torch.bfloat16)
+        def _generate_from_state(self, state):
+            self.first_logits.append(state.next_logits.float().clone())
+            res = super()._generate_from_state(state)
+            self.results.append(res)
+            return res
+
+    tok = FakeTokenizer()
+    return RecordingEngine(
+        params, cfg, tok,
+        VideoProcessor(DataConfig(
+            video_folder=root,
+            annotation_dir=os.path.join(root, "embodiedscan"),
+            metadata_dir=os.path.join(root, "metadata"),
+            frames_upbound=32)),
+        engine_cfg=EngineConfig(max_new_tokens=MAX_NEW,
+                                eos_token_id=tok.eos_token_id,
+                                max_frames=32, stop_str="", **ecfg),
+        device=torch.device("cuda", 0))
+
+
+def _decode_forwards(results, vocab: int) -> int:
+    """Check the emitted ids of every row and count the decode forwards the
+    generate calls made (a call stops after the step where its last row
+    finished, or after MAX_NEW steps)."""
+    forwards = 0
+    for res in results:
+        lengths = res.lengths.tolist()
+        ok = all(bool(((res.tokens[b, :n] >= 0)
+                       & (res.tokens[b, :n] < vocab)).all())
+                 for b, n in enumerate(lengths))
+        _check("emitted ids", ok, f"rows of {lengths} ids in [0, {vocab})")
+        forwards += min(max(lengths) + 1, MAX_NEW)
+    return forwards
+
+
+def _read_jsonl(path: str):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def run_main_path(params, cfg, root: str, info) -> dict:
+    """Answer two questions at full width through ``run_scanqa``; returns the
+    kernel launch counts of that run."""
+    import torch
+
+    from video3d_tpu_torch.eval.drivers import run_scanqa
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import llava_video3d as lv3d
+
+    engine = _make_engine(params, cfg, root)
+    qs = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")
+    engine.generate_answer(qs[0])                 # warm-up, not counted
+    engine.results.clear()
+    answer_file = os.path.join(root, "scanqa.jsonl")
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"main path: ModelConfig() {cfg.vision.num_hidden_layers}+"
-          f"{cfg.llm.num_hidden_layers} layers, {n_params / 1e9:.3f} B "
-          f"bf16 parameters initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    max_new = 32
-    with tempfile.TemporaryDirectory() as root:
-        info = make_fake_scene(root, n_frames=32, H=480, W=640)
-        tok = FakeTokenizer()
-        engine = RecordingEngine(
-            params, cfg, tok,
-            VideoProcessor(DataConfig(
-                video_folder=root,
-                annotation_dir=os.path.join(root, "embodiedscan"),
-                metadata_dir=os.path.join(root, "metadata"),
-                frames_upbound=32)),
-            engine_cfg=EngineConfig(max_new_tokens=max_new,
-                                    eos_token_id=tok.eos_token_id,
-                                    max_frames=32, stop_str=""),
-            device=dev)
-        qs = _scanqa_questions(info["sample_idx"])
-        engine.generate_answer(qs[0])                 # warm-up, not counted
-        engine.results.clear()
-        answer_file = os.path.join(root, "scanqa.jsonl")
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    times = run_scanqa(engine, qs, answer_file)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    records = _read_jsonl(answer_file)
+
+    # checks of what came out
+    _check("answer records", len(records) == 2 and all(
+        isinstance(r["pred_response"], str) for r in records),
+        f"{len(records)} jsonl records")
+    forwards = _decode_forwards(engine.results, cfg.llm.vocab_size)
+    L = cfg.llm.num_hidden_layers
+    expected = {"fused_geometry": 2, "flash_attention": 2 * L,
+                "flash_attention_folded": 0, "decode_attention": L * forwards,
+                "shared_prefix_attention": 0}
+    _check("launch counts", launches == expected,
+           f"{launches}, expected {expected} ({forwards} decode forwards)")
+    print(f"  per-request seconds (prep excluded): "
+          f"{[round(t, 4) for t in times]}; wall for 2 requests "
+          f"(prep included) {wall:.3f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+
+    # a separately timed request: vision, LLM prefill, decode
+    batch, _ = engine._prepare_generation(qs[1])
+    seq_len = int(batch.seq_len[0])
+    with torch.inference_mode():
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launches()
         t0 = time.perf_counter()
-        times = run_scanqa(engine, qs, answer_file)
-        wall = time.perf_counter() - t0
-        launches = dict(_build.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        with open(answer_file) as f:
-            records = [json.loads(line) for line in f]
+        vis = lv3d.encode_video(params, cfg, batch.images,
+                                batch.patch_coords).spliceable
+        torch.cuda.synchronize()
+        t_vis = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        logits, _, _ = gen.prefill_multimodal(
+            params, cfg, batch, batch.text_ids.shape[1] + MAX_NEW,
+            vision_features=vis)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+    _check("prefill logits", logits.shape == (1, cfg.llm.vocab_size)
+           and bool(torch.isfinite(logits.float()).all()),
+           f"shape {tuple(logits.shape)}, all finite")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = engine._generate(batch, vis)
+    steps = min(int(res.lengths[0]) + 1, MAX_NEW)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    decode_ms = (t_gen - t_pre) / steps * 1e3
+    print(f"  vision (tower+projector+pool+PE, {batch.images.shape[1]} "
+          f"frames) {t_vis * 1e3:.1f} ms; LLM prefill {seq_len} tokens "
+          f"(bucket {batch.text_ids.shape[1]}) {t_pre * 1e3:.1f} ms = "
+          f"{seq_len / t_pre:.0f} tokens/s; decode {decode_ms:.2f} "
+          f"ms/token over {steps} steps", flush=True)
+    return launches
 
-        # checks of what came out
-        _check("answer records", len(records) == 2 and all(
-            isinstance(r["pred_response"], str) for r in records),
-            f"{len(records)} jsonl records")
-        forwards = 0
-        for res in engine.results:
-            n = int(res.lengths[0])
-            toks = res.tokens[0, :n]
-            _check("emitted ids",
-                   bool(((toks >= 0) & (toks < cfg.llm.vocab_size)).all()),
-                   f"{n} ids in [0, {cfg.llm.vocab_size})")
-            forwards += min(n + 1, max_new)
-        L = cfg.llm.num_hidden_layers
-        expected = {"fused_geometry": 2, "flash_attention": 2 * L,
-                    "decode_attention": L * forwards}
-        _check("launch counts", launches == expected,
-               f"{launches}, expected {expected} ({forwards} decode forwards)")
-        print(f"  per-request seconds (prep excluded): "
-              f"{[round(t, 4) for t in times]}; wall for 2 requests "
-              f"(prep included) {wall:.3f} s; peak device memory "
-              f"{peak / 2**30:.2f} GiB", flush=True)
 
-        # a separately timed request: vision, LLM prefill, decode
-        batch = engine._prepare_generation(qs[1])
-        seq_len = int(batch.seq_len[0])
+def run_prefix_path(params, cfg, root: str, info) -> dict:
+    """Scene-prefix path: 16 same-scene questions through
+    ``run_generative(batch_size=8)`` (a miss that runs the full prefill and
+    stores the prefix, a B=7 and a B=8 suffix batch), then one B=1 hit;
+    returns the kernel launch counts of that run."""
+    import torch
+
+    from video3d_tpu_torch.eval.drivers import run_generative
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+
+    engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
+                          scene_cache_scenes=1)
+    qs = _questions(info["sample_idx"], PREFIX_TEXTS, "prefix")
+    batch_qs, hit_q = qs[:16], qs[16]
+    answer_file = os.path.join(root, "prefix.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    times = run_generative(engine, batch_qs, answer_file, batch_size=8)
+    wall = time.perf_counter() - t0
+    hit_prep = engine.prepare_request(hit_q)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine._answer_from_prep(hit_prep)
+    torch.cuda.synchronize()
+    t_hit = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    records = _read_jsonl(answer_file)
+
+    _check("prefix answer records", len(records) == 16 and all(
+        isinstance(r["pred_response"], str) for r in records),
+        f"{len(records)} jsonl records")
+    _check("prefix cache stats", engine.prefix_cache_stats == [16, 1],
+           f"[hits, misses] {engine.prefix_cache_stats}")
+    rows = [int(r.tokens.shape[0]) for r in engine.results]
+    _check("generate calls", rows == [1, 7, 8, 1],
+           f"batch rows {rows} (miss, suffix batches, B=1 hit)")
+    forwards = _decode_forwards(engine.results, cfg.llm.vocab_size)
+    L = cfg.llm.num_hidden_layers
+    expected = {"fused_geometry": 1, "flash_attention": L,
+                "flash_attention_folded": L, "decode_attention": L * forwards,
+                "shared_prefix_attention": 2 * L}
+    _check("launch counts", launches == expected,
+           f"{launches}, expected {expected} ({forwards} decode forwards)")
+
+    # first-step logits of a B=8 row and of the B=1 hit against a full
+    # prefill of the same question (vision features from the scene cache),
+    # and against the full prefill's logits one position early (control)
+    t_full, refs = None, []
+    pairs = (("B=8 row 0", batch_qs[8], engine.first_logits[2][0]),
+             ("B=1 hit", hit_q, engine.first_logits[3][0]))
+    for name, q, got in pairs:
+        batch, vis = engine._prepare_generation(q)
+        max_len = batch.text_ids.shape[1] + MAX_NEW
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            vis = lv3d.encode_video(params, cfg, batch.images,
-                                    batch.patch_coords).spliceable
+            ref, _, _ = gen.prefill_multimodal(params, cfg, batch, max_len,
+                                               vision_features=vis)
             torch.cuda.synchronize()
-            t_vis = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            logits, _, _ = gen.prefill_multimodal(
-                params, cfg, batch, batch.text_ids.shape[1] + max_new,
-                vision_features=vis)
-            torch.cuda.synchronize()
-            t_pre = time.perf_counter() - t0
-        _check("prefill logits", logits.shape == (1, cfg.llm.vocab_size)
-               and bool(torch.isfinite(logits.float()).all()),
-               f"shape {tuple(logits.shape)}, all finite")
+            t_full = time.perf_counter() - t0
+            early, _, _ = gen.prefill_multimodal(
+                params, cfg, batch._replace(seq_len=batch.seq_len - 1),
+                max_len, vision_features=vis)
+        ref = ref[0].float()
+        refs.append(ref)
+        diff = float((got - ref).abs().max())
+        _check(f"first-step logits vs full prefill ({name})",
+               diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
+               f"max |d| {diff:.4f} (bound {LOGIT_ATOL}; |logits| up to "
+               f"{float(ref.abs().max()):.2f})")
+        control = float((got - early[0].float()).abs().max())
+        _check(f"first-step logits control ({name}), one position early",
+               control >= LOGIT_CONTROL_MIN,
+               f"max |d| {control:.4f} (must be >= {LOGIT_CONTROL_MIN})")
+    # what a swap of two questions would read (printed, not checked)
+    print(f"  first-step logits of {pairs[0][0]} vs the full prefill of the "
+          f"other question: max |d| "
+          f"{float((pairs[0][2] - refs[1]).abs().max()):.4f}", flush=True)
+
+    # separately timed: the B=8 suffix prefill and its decode steps
+    prep = engine.prepare_answers_batch_prefix(batch_qs[8:])
+    entry = prep["entry"]
+    pre_ms = []
+    for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = engine._generate(batch, vis)
-        steps = min(int(res.lengths[0]) + 1, max_new)
+        state = gen.start_decode_prefix(
+            params, cfg, prep["batch"], entry.cache, entry.prefix_len,
+            prep["bucket"] + MAX_NEW)
         torch.cuda.synchronize()
-        t_gen = time.perf_counter() - t0
-        decode_ms = (t_gen - t_pre) / steps * 1e3
-        print(f"  vision (tower+projector+pool+PE, {batch.images.shape[1]} "
-              f"frames) {t_vis * 1e3:.1f} ms; LLM prefill {seq_len} tokens "
-              f"(bucket {batch.text_ids.shape[1]}) {t_pre * 1e3:.1f} ms = "
-              f"{seq_len / t_pre:.0f} tokens/s; decode {decode_ms:.2f} "
-              f"ms/token over {steps} steps", flush=True)
+        pre_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    res = engine._generate_from_state(state)
+    torch.cuda.synchronize()
+    steps = min(int(res.lengths.max()) + 1, MAX_NEW)
+    decode_ms = (time.perf_counter() - t0) / steps * 1e3
+    print(f"  seconds per question (prep excluded): miss chunk "
+          f"{times[0]:.4f} (1 full prefill + B=7 suffix batch), hit chunk "
+          f"{times[8]:.4f} (B=8 suffix batch), B=1 hit {t_hit:.4f}; wall "
+          f"for 16 questions {wall:.3f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"  prefix {entry.prefix_len} tokens; B=8 suffix prefill "
+          f"(bucket {prep['batch'].text_ids.shape[1]}) "
+          f"{sorted(pre_ms)[1]:.1f} ms (median of 3) against a B=1 full "
+          f"prefill {t_full * 1e3:.1f} ms; B=8 decode {decode_ms:.2f} "
+          f"ms/step over {steps} steps", flush=True)
     return launches
 
 
@@ -377,13 +691,37 @@ def main() -> None:
     preconditions()
     import torch
 
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from fixtures import make_fake_scene
+
+    from video3d_tpu_torch.config import ModelConfig
+    from video3d_tpu_torch.params import init_model
+
     build()
     rows = check_kernels()
-    launches = run_main_path()
+    dev = torch.device("cuda", 0)
+    cfg = ModelConfig()
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"main path: ModelConfig() {cfg.vision.num_hidden_layers}+"
+          f"{cfg.llm.num_hidden_layers} layers, {n_params / 1e9:.3f} B "
+          f"bf16 parameters initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as root:
+        info = make_fake_scene(root, n_frames=32, H=480, W=640)
+        scanqa = run_main_path(params, cfg, root, info)
+        print(f"  launches (ScanQA path): {scanqa}", flush=True)
+        print("scene-prefix path:", flush=True)
+        prefix = run_prefix_path(params, cfg, root, info)
+        print(f"  launches (scene-prefix path): {prefix}", flush=True)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
+                        "replaces": replaces,
+                        "launches": scanqa[name] + prefix[name],
                         **rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,20 @@ from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels import decode_attention as da
 from video3d_tpu_torch.kernels import flash_attention as fa
 from video3d_tpu_torch.kernels import fused_geometry as fg
+from video3d_tpu_torch.kernels.attention import mha_shared_prefix_reference
 
 pytestmark = pytest.mark.cuda
 
 BF16_ATOL = 2e-2   # bf16 outputs of magnitude < 4: about one ulp
+# peaked attention, and most of the weight on the keys under test (the
+# chunk's own keys, the suffix), as in chip_smoke.py: a wrong mask there
+# then moves the output by far more than BF16_ATOL
+Q_SCALE, FOCUS = 3.0, 11.0
+
+
+def _rows_err(a, b, rows):
+    return max(float((a[i, :n].float() - b[i, :n].float()).abs().max())
+               for i, n in enumerate(rows))
 
 
 @pytest.fixture(scope="module")
@@ -88,6 +98,70 @@ def test_decode_kernel(dev):
     assert float((got.float() - ref.float()).abs().max()) <= BF16_ATOL
 
 
+@pytest.mark.parametrize("H,KV,L,offs,lens", [
+    (28, 4, 64, [700], [740]),                 # the B=1 prefix-hit shape
+    (8, 2, 100, [300, 37], [400, 100]),        # ragged, rows over 3 tiles
+])
+def test_folded_kernel(dev, H, KV, L, offs, lens):
+    g = torch.Generator(device=dev).manual_seed(3)
+    NL, S, hd, layer = 2, 800, 128, 1
+    B = len(offs)
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.bfloat16()
+    k_all = torch.randn(NL, B, S, KV * hd, generator=g, device=dev).bfloat16()
+    for b, (o, n) in enumerate(zip(offs, lens)):
+        k_all[layer, b, o:n, ::hd] += FOCUS
+    v_all = (0.5 * torch.randn(NL, B, S, KV * hd, generator=g,
+                               device=dev)).bfloat16()
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = _launched("flash_attention_folded",
+                    lambda: fa.flash_attention_gqa_folded(
+                        q, k_all, v_all, lens_t, offs_t, layer, KV))
+    # the plain version on the same values in f32 (the bf16 one rounds the
+    # scores to bf16, by itself more than BF16_ATOL at peaked attention)
+    ref = fa.flash_attention_gqa_folded_plain(q.float(), k_all, v_all, lens_t,
+                                              offs_t, layer, KV)
+    rows = [min(L, n - o) for o, n in zip(offs, lens)]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, rows) <= BF16_ATOL
+    no_mask = fa.flash_attention_gqa_folded_plain(q.float(), k_all, v_all,
+                                                  lens_t, lens_t - 1, layer,
+                                                  KV)
+    assert _rows_err(no_mask, ref, rows) > 10 * BF16_ATOL
+
+
+@pytest.mark.parametrize("B,L,P,H,KV", [
+    (2, 64, 300, 28, 4),       # P not a multiple of 64
+    (8, 64, 1000, 28, 4),
+    (3, 20, 130, 8, 2),        # 64-row tiles cross batch rows
+])
+def test_shared_prefix_kernel(dev, B, L, P, H, KV):
+    g = torch.Generator(device=dev).manual_seed(4)
+    hd = 128
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.bfloat16()
+    pk = torch.randn(P, KV, hd, generator=g, device=dev).bfloat16()
+    pv = (0.5 * torch.randn(P, KV, hd, generator=g, device=dev)).bfloat16()
+    sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+    sk[..., 0] += FOCUS
+    sk = sk.bfloat16()
+    sv = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)).bfloat16()
+    slens = [L - (7 * b) % L for b in range(B)]
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    got = _launched("shared_prefix_attention",
+                    lambda: fa.flash_attention_shared_prefix(
+                        q, pk, pv, sk, sv, slens_t))
+    ref = mha_shared_prefix_reference(q.float(), pk, pv, sk, sv, slens_t)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, slens) <= BF16_ATOL
+    no_suffix = mha_shared_prefix_reference(q.float(), pk, pv, sk, sv,
+                                            torch.zeros_like(slens_t))
+    assert _rows_err(no_suffix, ref, slens) > 10 * BF16_ATOL
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 64, 4, 128, device=dev)             # float32
     kv = torch.zeros(1, 64, 2, 128, device=dev)
@@ -99,6 +173,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.flash_attention(qb, kvb, kvb)
     cache = torch.zeros(2, 1, 16, 256, device=dev, dtype=torch.bfloat16)
     q1 = torch.zeros(1, 1, 4, 128, device=dev, dtype=torch.bfloat16)
+    n = torch.ones(1, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):                        # no layer 2
-        da.decode_attention(q1, cache, cache,
-                            torch.ones(1, dtype=torch.int32, device=dev), 2, 2)
+        da.decode_attention(q1, cache, cache, n, 2, 2)
+    q64 = torch.zeros(1, 64, 4, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                        # no layer 2
+        fa.flash_attention_gqa_folded(q64, cache, cache, n, n, 2, 2)
+    pk = torch.zeros(16, 2, 128, device=dev, dtype=torch.bfloat16)
+    sk = torch.zeros(1, 32, 2, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                        # suffix L != 64
+        fa.flash_attention_shared_prefix(q64, pk, pk, sk, sk, n)

@@ -72,7 +72,7 @@ def test_greedy_tokens_identical(engines):
     info, jax_engine, torch_engine = engines
     for q in questions(info):
         jres = jax_engine._generate(*jax_engine._prepare_generation(q))
-        tres = torch_engine._generate(torch_engine._prepare_generation(q))
+        tres = torch_engine._generate(*torch_engine._prepare_generation(q))
         np.testing.assert_array_equal(tres.tokens.numpy(),
                                       np.asarray(jres.tokens))
         np.testing.assert_array_equal(tres.lengths.numpy(),

@@ -1,6 +1,7 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-All kernels compile with ``nvcc`` into ONE shared library with a plain C
+Each ``csrc/*.cu`` compiles with its own ``nvcc`` process, all started
+together, and the objects link into ONE shared library with a plain C
 interface, loaded through ``ctypes``. The library builds at first use from
 the package's own sources into ``video3d_tpu_torch/_build/`` (git-ignored),
 named by a hash of the sources, so an edited kernel never loads a stale
@@ -30,11 +31,13 @@ SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 #: launches per kernel wrapper; each wrapper adds one where it launches
 LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
-                            "decode_attention": 0}
+                            "flash_attention_folded": 0,
+                            "decode_attention": 0,
+                            "shared_prefix_attention": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,10 +51,17 @@ _SIGNATURES = {
     # q, k, v, lengths, out, B, L, S, H, KV, causal, sm_scale, stream
     "v3d_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P],
+    # q, k_all, v_all, lengths, q_off, out, layer, B, L, S, H, KV,
+    # sm_scale, stream
+    "v3d_flash_attention_folded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _F, _P],
     # q, k_all, v_all, kv_len, out, part_m, part_l, part_acc,
     # layer, B, S, H, KV, n_chunks, sm_scale, stream
     "v3d_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _P],
+    # q, pk, pv, sk, sv, out, B, L, P, H, KV, sm_scale, stream
+    "v3d_shared_prefix_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _F, _P],
 }
 
 _lock = threading.Lock()
@@ -88,21 +98,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library unless it exists."""
+    """Compile ``csrc/*.cu`` into the shared library unless it exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     global build_seconds, build_log
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(SRC_DIR.glob("*.cu"))]]
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append((src.name, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, proc in procs:
+        logs.append(f"== {name}\n{proc.communicate()[0]}")
+        if proc.returncode != 0:
+            failed.append(name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    build_log = "".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, out)
     return out
 

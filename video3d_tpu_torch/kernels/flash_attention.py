@@ -1,10 +1,14 @@
-"""Flash attention forward (kernel B2) and its plain PyTorch version.
+"""Flash attention forward (kernel B2, prefill and GQA-folded forms), the
+shared-prefix attention of kernel B5, and their plain PyTorch versions.
 
-:func:`flash_attention` dispatches on the device of ``q``: a CPU tensor runs
-:func:`flash_attention_plain` (``mha_reference`` with causal + key-length
-masking); a CUDA tensor launches ``csrc/flash_attention.cu`` or raises.
-Counterpart of ``video3d_tpu/kernels/flash_attention.py::flash_attention``
-in its prefill form (L == S, query offset 0, forward only).
+Each entry dispatches on the device of ``q``: a CPU tensor runs its plain
+version (``mha_reference`` with the same masks, or
+``mha_shared_prefix_reference``); a CUDA tensor launches its
+kernel (``csrc/flash_attention.cu``, ``csrc/shared_prefix_attention.cu``)
+or raises. Counterparts of ``video3d_tpu/kernels/flash_attention.py``:
+``flash_attention`` in its prefill form (L == S, query offset 0, forward
+only), ``flash_attention_gqa_folded`` and ``flash_attention_shared_prefix``
+(bf16, no int8 scales; one shared-prefix path, the fused one).
 """
 
 from __future__ import annotations
@@ -14,9 +18,26 @@ from typing import Optional
 import torch
 
 from video3d_tpu_torch.kernels import _build
-from video3d_tpu_torch.kernels.attention import mha_reference
+from video3d_tpu_torch.kernels.attention import (mha_reference,
+                                                 mha_shared_prefix_reference)
 
-HEAD_DIM = 128   # the kernel's compiled head dim
+HEAD_DIM = 128   # the kernels' compiled head dim
+
+
+def _check_bf16(name: str, device, **tensors) -> None:
+    for arg, t in tensors.items():
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != device or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
+                             f"aligned bf16 tensor on {device}")
+
+
+def _int32(t: torch.Tensor, device) -> torch.Tensor:
+    return t.to(device=device, dtype=torch.int32).contiguous()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,23 +60,111 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be a contiguous, "
-                             f"16-byte aligned bf16 tensor on {q.device}")
+    _check_bf16("flash_attention", q.device, q=q, k=k, v=v)
     if hd != HEAD_DIM or v.shape != k.shape or k.shape[0] != B \
             or S != L or H % KV:
         raise ValueError(f"flash_attention: unsupported shapes q "
                          f"{tuple(q.shape)} k {tuple(k.shape)}")
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    lengths = _int32(lengths, q.device)
     out = torch.empty_like(q)
     err = _build.library().v3d_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, L, S, H, KV, int(causal), float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _stream(q.device))
     _build.check(err, "flash_attention")
     _build.count_launch("flash_attention")
+    return out
+
+
+def flash_attention_gqa_folded_plain(q: torch.Tensor, k_all: torch.Tensor,
+                                     v_all: torch.Tensor,
+                                     lengths: torch.Tensor,
+                                     q_offsets: torch.Tensor, layer: int,
+                                     kv_heads: int) -> torch.Tensor:
+    B, L, H, hd = q.shape
+    S = k_all.shape[2]
+    kl = k_all[layer].reshape(B, S, kv_heads, hd).to(q.dtype)
+    vl = v_all[layer].reshape(B, S, kv_heads, hd).to(q.dtype)
+    q_positions = q_offsets.to(device=q.device, dtype=torch.long)[:, None] \
+        + torch.arange(L, device=q.device)
+    return mha_reference(q, kl, vl, q_positions=q_positions, kv_len=lengths)
+
+
+def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
+                               v_all: torch.Tensor, lengths: torch.Tensor,
+                               q_offsets: torch.Tensor, layer: int,
+                               kv_heads: int) -> torch.Tensor:
+    """Causal cached-chunk attention with the GQA group folded into the
+    query rows, so each kv head's cache streams once for all its query
+    heads.
+
+    q (B, L, H, hd): query r of row b sits at absolute position
+    ``q_offsets[b] + r``. Keys come from ``layer`` of the stacked flat
+    (layers, B, S, KV*hd) cache; slot s is valid when s <= the query's
+    position and s < ``lengths[b]``. Returns (B, L, H, hd) in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return flash_attention_gqa_folded_plain(q, k_all, v_all, lengths,
+                                                q_offsets, layer, kv_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_gqa_folded: no kernel for device "
+                         f"{q.device}")
+    B, L, H, hd = q.shape
+    NL, Bc, S, C = k_all.shape
+    _check_bf16("flash_attention_gqa_folded", q.device, q=q, k_all=k_all,
+                v_all=v_all)
+    if (hd != HEAD_DIM or Bc != B or C != kv_heads * hd
+            or v_all.shape != k_all.shape or H % kv_heads
+            or not 0 <= layer < NL):
+        raise ValueError(f"flash_attention_gqa_folded: unsupported shapes q "
+                         f"{tuple(q.shape)} cache {tuple(k_all.shape)} "
+                         f"layer {layer} kv_heads {kv_heads}")
+    lengths, q_offsets = _int32(lengths, q.device), _int32(q_offsets, q.device)
+    out = torch.empty_like(q)
+    err = _build.library().v3d_flash_attention_folded(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), lengths.data_ptr(),
+        q_offsets.data_ptr(), out.data_ptr(), layer, B, L, S, H, kv_heads,
+        float(hd ** -0.5), _stream(q.device))
+    _build.check(err, "flash_attention_gqa_folded")
+    _build.count_launch("flash_attention_folded")
+    return out
+
+
+def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
+                                  pv: torch.Tensor, sk: torch.Tensor,
+                                  sv: torch.Tensor,
+                                  suffix_lens: torch.Tensor) -> torch.Tensor:
+    """Suffix-over-shared-prefix attention: the suffix queries of every
+    batch row attend ONE prefix K/V, then their own suffix causally.
+
+    q (B, L, H, hd), query r of row b at position P + r; pk/pv (P, KV, hd)
+    with no batch dim; sk/sv (B, L, KV, hd) the chunk's own K/V; suffix_lens
+    (B,) valid suffix keys. Query rows r >= suffix_lens[b] are undefined by
+    contract (the kernel applies only the causal mask there). Returns
+    (B, L, H, hd) in q's dtype.
+    """
+    if q.device.type == "cpu":
+        return mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_shared_prefix: no kernel for "
+                         f"device {q.device}")
+    B, L, H, hd = q.shape
+    P, KV = pk.shape[0], pk.shape[1]
+    _check_bf16("flash_attention_shared_prefix", q.device, q=q, pk=pk, pv=pv,
+                sk=sk, sv=sv)
+    if (hd != HEAD_DIM or pk.shape != (P, KV, hd) or pv.shape != pk.shape
+            or sk.shape != (B, L, KV, hd) or sv.shape != sk.shape
+            or H % KV):
+        raise ValueError(f"flash_attention_shared_prefix: unsupported shapes "
+                         f"q {tuple(q.shape)} prefix {tuple(pk.shape)} "
+                         f"suffix {tuple(sk.shape)}")
+    out = torch.empty_like(q)
+    err = _build.library().v3d_shared_prefix_attention(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk.data_ptr(),
+        sv.data_ptr(), out.data_ptr(), B, L, P, H, KV, float(hd ** -0.5),
+        _stream(q.device))
+    _build.check(err, "flash_attention_shared_prefix")
+    _build.count_launch("shared_prefix_attention")
     return out

@@ -1,11 +1,15 @@
 """Greedy KV-cache decoding over the spliced multimodal prefill, in PyTorch:
-counterpart of ``video3d_tpu/models/generate.py`` (``prefill_multimodal``
-and the greedy form of ``generate_greedy``).
+counterpart of ``video3d_tpu/models/generate.py`` (``prefill_multimodal``,
+``DecodeState`` / ``start_decode`` / ``generate_from_state``, the greedy
+form of ``generate_greedy``, and the scene-prefix entry points
+``shared_prefix_view``, ``_write_prefix`` and ``start_decode_prefix``).
 
 The JAX ``lax.while_loop`` becomes a Python loop: one decoder forward per
 step, stopping once every row has emitted EOS or ``max_new_tokens`` steps
 ran. Like the JAX loop, the step that emits the last token still runs its
-forward, so a request makes exactly (steps) decode forwards.
+forward, so a request makes exactly (steps) decode forwards. The cache is
+written in place: ``generate_from_state`` consumes its state (the JAX
+function donates it).
 """
 
 from __future__ import annotations
@@ -22,6 +26,15 @@ from video3d_tpu_torch.models import qwen2
 class GenerateResult(NamedTuple):
     tokens: torch.Tensor    # (B, max_new_tokens) emitted ids (eos-padded)
     lengths: torch.Tensor   # (B,) tokens before EOS (exclusive)
+
+
+class DecodeState(NamedTuple):
+    """Carried decode state between a prefill and the decode loop."""
+
+    next_logits: torch.Tensor   # (B, vocab) logits for the next position
+    cache: qwen2.KVCache
+    pos: torch.Tensor           # (B,) next absolute position
+    done: torch.Tensor          # (B,) bool
 
 
 def _decode_position_ids(pos: torch.Tensor) -> torch.Tensor:
@@ -54,24 +67,99 @@ def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
     return next_logits, cache, batch.seq_len
 
 
+def _initial_state(next_logits, cache, pos) -> DecodeState:
+    return DecodeState(next_logits=next_logits, cache=cache, pos=pos.long(),
+                       done=torch.zeros(next_logits.shape[0], dtype=torch.bool,
+                                        device=next_logits.device))
+
+
 @torch.inference_mode()
-def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
-                    max_new_tokens: int = 512, eos_token_id: int = 151645,
-                    vision_features: Optional[torch.Tensor] = None
-                    ) -> GenerateResult:
-    """Greedy decode into a cache of L + max_new_tokens slots: argmax over
-    float32 logits (first maximum on ties, as ``jnp.argmax``)."""
-    B, L = batch.text_ids.shape
-    max_cache_len = L + max_new_tokens
+def start_decode(params, cfg: ModelConfig, batch: lv3d.Batch,
+                 max_cache_len: int,
+                 vision_features: Optional[torch.Tensor] = None
+                 ) -> DecodeState:
+    """Prefill and return the initial decode state."""
     next_logits, cache, start_pos = prefill_multimodal(
         params, cfg, batch, max_cache_len, vision_features)
+    return _initial_state(next_logits, cache, start_pos)
+
+
+def shared_prefix_view(prefix: qwen2.KVCache, prefix_len: int,
+                       B: int) -> Optional[qwen2.KVCache]:
+    """Batch-free (layers, P, KV*hd) view of a stored B=1 prefix for the
+    shared-prefix attention path, or None when the path does not apply
+    (B == 1: the folded kernel over the seeded cache reads the same bytes
+    once anyway). Sliced to ``prefix_len``: the shared path attends every
+    prefix slot unmasked."""
+    if not (prefix.k.shape[1] == 1 and B > 1):
+        return None
+    return qwen2.KVCache(prefix.k[:, 0, :prefix_len],
+                         prefix.v[:, 0, :prefix_len])
+
+
+def _write_prefix(cache: qwen2.KVCache, prefix: qwen2.KVCache) -> None:
+    """Copy a (layers, 1 or B, P, KV*hd) prefix into the head of a fresh
+    cache, in place; a B=1 prefix broadcasts into every row. The cache never
+    shares memory with the stored prefix, so decode cannot reach it."""
+    P = prefix.k.shape[2]
+    cache.k[:, :, :P] = prefix.k
+    cache.v[:, :, :P] = prefix.v
+
+
+@torch.inference_mode()
+def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
+                        prefix: qwen2.KVCache, prefix_len: int,
+                        max_cache_len: int) -> DecodeState:
+    """Prefill only a question SUFFIX against a cached scene-prefix KV.
+
+    ``batch`` is the suffix slice of the full splice plan
+    (``slice_suffix_plan``): (B, Ls) ids at spliced positions
+    [prefix_len, prefix_len + Ls), no vision tokens, and ``batch.seq_len``
+    the TOTAL true length. ``prefix`` is the stored (layers, 1, P, KV*hd)
+    entry. The cache is seeded with the prefix (broadcast to every row),
+    the suffix K/V are written after it, and the suffix attends the prefix
+    plus itself: through the cache and the folded kernel at B == 1, through
+    the shared-prefix kernel at B > 1. Decoding then proceeds unchanged.
+    """
+    B, Ls = batch.text_ids.shape
+    dev = batch.text_ids.device
+    if prefix_len + Ls > max_cache_len:
+        raise ValueError("prefix + suffix longer than the KV cache")
+    cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len,
+                                dtype=prefix.k.dtype, device=dev)
+    _write_prefix(cache, prefix)
+    emb = params["llm"]["embed_tokens"]
+    dummy_vis = torch.zeros((B, 1, emb.shape[-1]), dtype=emb.dtype,
+                            device=dev)
+    embeds = lv3d.assemble_embeds(params, cfg, dummy_vis, batch.text_ids,
+                                  batch.kind, batch.vision_index)
+    cache_positions = (prefix_len + torch.arange(Ls, device=dev))[None] \
+        .expand(B, Ls)
+    hidden = qwen2.qwen2_forward(
+        params["llm"], cfg.llm, embeds, lv3d._position_ids_3d(batch, cfg),
+        kv_cache=cache, cache_positions=cache_positions, kv_len=batch.seq_len,
+        contiguous_update=True,
+        shared_prefix=shared_prefix_view(prefix, prefix_len, B))
+    last = hidden[torch.arange(B, device=dev),
+                  batch.seq_len.long() - 1 - prefix_len]
+    next_logits = qwen2.lm_head(params["llm"], last[:, None])[:, 0]
+    return _initial_state(next_logits, cache, batch.seq_len)
+
+
+@torch.inference_mode()
+def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
+                        max_new_tokens: int = 512,
+                        eos_token_id: int = 151645) -> GenerateResult:
+    """Greedy decode from a prefilled state (full or prefix-cached):
+    argmax over float32 logits (first maximum on ties, as ``jnp.argmax``).
+    The state's cache is written in place."""
+    next_logits, cache, start_pos, done = state
+    B = next_logits.shape[0]
     dev = next_logits.device
-    start_pos = start_pos.long()
-    if int(start_pos.max()) + max_new_tokens > max_cache_len:
+    if int(start_pos.max()) + max_new_tokens > cache.k.shape[2]:
         raise ValueError("decode would write past the KV cache")
     tokens = torch.full((B, max_new_tokens), eos_token_id, dtype=torch.long,
                         device=dev)
-    done = torch.zeros(B, dtype=torch.bool, device=dev)
     lengths = torch.zeros(B, dtype=torch.long, device=dev)
     for step in range(max_new_tokens):
         tok = torch.argmax(next_logits.to(torch.float32), dim=-1)
@@ -90,3 +178,15 @@ def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
         if bool(done.all()):
             break
     return GenerateResult(tokens=tokens, lengths=lengths)
+
+
+def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
+                    max_new_tokens: int = 512, eos_token_id: int = 151645,
+                    vision_features: Optional[torch.Tensor] = None
+                    ) -> GenerateResult:
+    """Greedy decode into a cache of L + max_new_tokens slots."""
+    state = start_decode(params, cfg, batch,
+                         batch.text_ids.shape[1] + max_new_tokens,
+                         vision_features)
+    return generate_from_state(params, cfg, state, max_new_tokens,
+                               eos_token_id)

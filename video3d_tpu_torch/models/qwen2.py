@@ -1,6 +1,7 @@
 """Qwen2 decoder with 3-axis mRoPE, GQA and a stacked flat KV cache, in
-PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the prefill and
-stacked single-token decode branches; bf16 cache; dense weights).
+PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the prefill,
+stacked single-token decode, contiguous multi-token chunk and shared-prefix
+branches; bf16 cache; dense weights).
 
 Parameter layout as in the JAX tree (matrices (in, out), used as
 ``x @ w``): ``embed_tokens (vocab, D)``, ``layers[i] {input_layernorm,
@@ -21,7 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from video3d_tpu.config import LLMConfig
-from video3d_tpu_torch.kernels.attention import mha, mha_cached_stacked
+from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
+                                                 mha_shared_prefix)
 
 Params = Dict[str, Any]
 
@@ -99,13 +101,26 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
                   kv_cache: Optional[KVCache] = None,
                   cache_positions: Optional[torch.Tensor] = None,
                   kv_len: Optional[torch.Tensor] = None,
-                  prefill: bool = False) -> torch.Tensor:
+                  prefill: bool = False,
+                  cache_start: Optional[int] = None,
+                  shared_prefix: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]] = None
+                  ) -> torch.Tensor:
     """One decoder block on x (B, L, D).
 
-    With ``kv_cache``: ``prefill=True`` writes this chunk's K/V at slots
-    0..L-1 and attends the raw K/V (flash kernel); otherwise L == 1, the new
-    K/V land at ``cache_positions`` (B, 1) and attention reads the stacked
-    cache (decode kernel). ``kv_len`` (B,) counts valid keys after the write.
+    With ``kv_cache``:
+      * ``prefill=True`` writes this chunk's K/V at slots 0..L-1 and attends
+        the raw K/V (flash kernel);
+      * ``cache_start`` (the JAX ``contiguous_update``): the chunk's K/V land
+        at slots [cache_start, cache_start + L) of every row, and queries sit
+        at ``cache_positions`` (B, L) == cache_start + r;
+      * otherwise L == 1 and the new K/V land at ``cache_positions`` (B, 1).
+    Attention then reads the stacked cache (decode kernel for one token, the
+    GQA-folded flash kernel for a chunk), or, with ``shared_prefix`` = this
+    layer's (pk, pv) (P, KV, hd) view of a stored scene prefix (requires
+    ``cache_start`` == P), runs over the shared prefix plus this chunk's raw
+    K/V (shared-prefix kernel); the cache write happens all the same.
+    ``kv_len`` (B,) counts valid keys after the write.
     """
     B, L, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -122,14 +137,32 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
             kv_cache.v[layer_idx, :, :L] = v.reshape(B, L, KV * hd)
         attn = mha(q, k, v, kv_len=kv_len)
     else:
-        rows = torch.arange(B, device=x.device)
-        pos = cache_positions[:, 0]
-        kv_cache.k[layer_idx, rows, pos] = k[:, 0].reshape(B, KV * hd).to(
-            kv_cache.k.dtype)
-        kv_cache.v[layer_idx, rows, pos] = v[:, 0].reshape(B, KV * hd).to(
-            kv_cache.v.dtype)
-        attn = mha_cached_stacked(q, kv_cache.k, kv_cache.v, layer_idx, KV,
-                                  q_positions=cache_positions, kv_len=kv_len)
+        if cache_start is not None:
+            end = cache_start + L
+            kv_cache.k[layer_idx, :, cache_start:end] = k.reshape(
+                B, L, KV * hd)
+            kv_cache.v[layer_idx, :, cache_start:end] = v.reshape(
+                B, L, KV * hd)
+        elif L == 1:
+            rows = torch.arange(B, device=x.device)
+            pos = cache_positions[:, 0]
+            kv_cache.k[layer_idx, rows, pos] = k[:, 0].reshape(
+                B, KV * hd).to(kv_cache.k.dtype)
+            kv_cache.v[layer_idx, rows, pos] = v[:, 0].reshape(
+                B, KV * hd).to(kv_cache.v.dtype)
+        else:
+            raise NotImplementedError("per-row multi-token cache writes are "
+                                      "not ported (pass cache_start)")
+        if shared_prefix is not None:
+            pk, pv = shared_prefix
+            if cache_start != pk.shape[0]:
+                raise ValueError("a shared-prefix chunk starts at the prefix "
+                                 "length")
+            attn = mha_shared_prefix(q, pk, pv, k, v, kv_len - cache_start)
+        else:
+            attn = mha_cached_stacked(q, kv_cache.k, kv_cache.v, layer_idx,
+                                      KV, q_positions=cache_positions,
+                                      kv_len=kv_len)
     x = x + attn.reshape(B, L, D) @ a["wo"]
 
     h = rms_norm(x, p["post_attention_layernorm"], cfg.rms_norm_eps)
@@ -142,18 +175,42 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
                   kv_cache: Optional[KVCache] = None,
                   cache_positions: Optional[torch.Tensor] = None,
                   kv_len: Optional[torch.Tensor] = None,
-                  prefill: bool = False) -> torch.Tensor:
+                  prefill: bool = False,
+                  contiguous_update: bool = False,
+                  shared_prefix: Optional[KVCache] = None) -> torch.Tensor:
     """Run the decoder stack on (B, L, D) embeddings with (B, L, 3) position
     ids; returns the final-norm hidden states. ``kv_cache`` is updated in
-    place (see :func:`decoder_layer`)."""
-    if kv_cache is not None and prefill \
-            and inputs_embeds.shape[1] > kv_cache.k.shape[2]:
+    place (see :func:`decoder_layer`).
+
+    ``contiguous_update``: every row's ``cache_positions`` are the same
+    range [start, start + L) (suffix over a cached prefix); the chunk's K/V
+    are written there and attention reads the cache. ``shared_prefix``: a
+    KVCache with k/v (layers, P, KV*hd), the batch-free scene prefix, whose
+    start must be P (see :func:`decoder_layer`).
+    """
+    L = inputs_embeds.shape[1]
+    if kv_cache is not None and prefill and L > kv_cache.k.shape[2]:
         raise ValueError("prefill longer than the KV cache")
+    cache_start = None
+    if contiguous_update:
+        if kv_cache is None or prefill:
+            raise ValueError("contiguous_update needs a cache and no prefill")
+        cache_start = int(cache_positions[0, 0])
+        if cache_start < 0 or cache_start + L > kv_cache.k.shape[2]:
+            raise ValueError("chunk outside the KV cache")
+    elif shared_prefix is not None:
+        raise ValueError("shared_prefix needs contiguous_update")
     cos, sin = compute_mrope_cos_sin(position_ids, cfg)
+    KV, hd = cfg.num_key_value_heads, cfg.head_dim
     x = inputs_embeds
     for i, lp in enumerate(params["layers"]):
+        sp = None
+        if shared_prefix is not None:
+            P = shared_prefix.k.shape[1]
+            sp = (shared_prefix.k[i].reshape(P, KV, hd),
+                  shared_prefix.v[i].reshape(P, KV, hd))
         x = decoder_layer(lp, x, cos, sin, cfg, i, kv_cache, cache_positions,
-                          kv_len, prefill)
+                          kv_len, prefill, cache_start, sp)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
