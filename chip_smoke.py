@@ -12,7 +12,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
 3. Kernels against their plain PyTorch versions at the main paths' shapes:
    fused geometry (B1), flash prefill attention (B2), GQA-folded cached-chunk
    attention (B2 folded), split-K decode attention (B3), shared-prefix
-   attention (B5); max error and median times (CUDA events).
+   attention (B5), and the int8 configuration's kernels: the B=1 int8
+   weight matvec (B4) at the vocab head and the int8-cache forms of B3,
+   B2 folded and B5; max error and median times (CUDA events).
 4. Main path: the ScanQA answer path at full width (``ModelConfig()``:
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
@@ -24,12 +26,18 @@ Phases, each of which raises on failure (the process then exits non-zero):
    ``generate_answer`` (a B=1 suffix over the cached prefix); launch counts
    must match the path, and the first-step logits of the suffix paths must
    agree with a full prefill of the same question.
+6. The int8 configuration: the bf16 model is freed and the same model is
+   built with int8 LLM projections and lm_head (``init_model(bits=8)``);
+   phases 4 and 5 run again with ``kv_cache_dtype="int8"``, with exact
+   launch counts of B4 and the int8 kernels and the first-step logit check
+   at its own bound.
 
-B2 folded and B5 are held against their plain versions run in float32 on
-the same bf16 values. Every accuracy check of B2 folded, B5 and phase 5
-also reads a control, a deliberately broken plain version, which must miss
-its bound by a wide margin: the check could otherwise not fail a wrong
-kernel.
+B2 folded, B5 and the int8 kernels are held against their plain versions
+run in float32 on the same bf16 / int8 values. Every accuracy check of
+those kernels and of phases 5 and 6 also reads controls, deliberately
+broken plain versions (a mask dropped, scales read one position off or
+from the wrong kv head, ...), which must miss the bound by a wide margin:
+the check could otherwise not fail a wrong kernel.
 
 Prints a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -38,6 +46,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -60,7 +69,21 @@ KERNEL_INFO = {
     "shared_prefix_attention": (
         "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
         "video3d_tpu/kernels/flash_attention.py:503"),
+    "int8_matvec": ("video3d_tpu_torch/csrc/int8_matvec.cu",
+                    "video3d_tpu/kernels/quant_matvec.py:100"),
+    "decode_attention_int8": ("video3d_tpu_torch/csrc/decode_attention.cu",
+                              "video3d_tpu/kernels/decode_attention.py:68"),
+    "flash_attention_folded_int8": (
+        "video3d_tpu_torch/csrc/flash_attention.cu",
+        "video3d_tpu/kernels/flash_attention.py:64"),
+    "shared_prefix_attention_int8": (
+        "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
+        "video3d_tpu/kernels/flash_attention.py:503"),
 }
+#: kernels of the int8 configuration (phase 6); the others run in phases
+#: 4 and 5
+INT8_KERNELS = ("int8_matvec", "decode_attention_int8",
+                "flash_attention_folded_int8", "shared_prefix_attention_int8")
 MAX_NEW = 32          # answer budget of both main paths
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
 # Inputs of the B2 folded and B5 checks. Queries at three times a unit
@@ -82,9 +105,22 @@ CONTROL_MIN = 4 * BF16_ATOL
 # round differently in every layer (other GEMM shapes, other attention
 # tiles). The control reads the logits one position early, as an
 # off-by-one last-token gather or a suffix one token short would; it must
-# read at least LOGIT_CONTROL_MIN.
+# read at least twice the bound.
 LOGIT_ATOL = 0.25
-LOGIT_CONTROL_MIN = 2 * LOGIT_ATOL
+# the same with int8 weights and an int8 KV cache (phase 6): the suffix
+# paths attend the prefix as quantized in the cache, the full prefill
+# attends its raw K/V. On an H100 80GB HBM3 (700 W) the B=8 row and the
+# B=1 hit read 0.185 and 0.177, their controls 4.41 and 4.38.
+INT8_LOGIT_ATOL = 0.5
+# layers of the stacked caches of the B3 / B2 folded checks (the kernels
+# read the last one by strides)
+CACHE_LAYERS = 28
+# B4 against its plain version in f32: the kernel rounds its f32 sum once
+# to bf16, which moves it by up to half a bf16 ulp, 2^-8 of |ref| at worst;
+# the bound allows one ulp, |d| <= B4_REL * |ref| + B4_ABS. The check reads
+# max |d| / (B4_REL * |ref| + B4_ABS), which must be <= 1, and its
+# controls must read >= 4
+B4_REL, B4_ABS = 2.0 ** -7, 1e-4
 
 
 def preconditions():
@@ -380,6 +416,234 @@ def check_shared_prefix(dev):
         _median_ms(lambda: mha_shared_prefix_reference(*timed), 5))
 
 
+def _int8_cache(g, dev, lead, KV: int, hd: int, v_scale: float = 1.0,
+                edit=None):
+    """A flat (*lead, KV*hd) int8 cache and its (*lead, KV, 1) f32 scales,
+    quantized with the port's ``_quantize_kv`` from bf16 N(0, v_scale)
+    values, one leading index at a time (to bound the temporaries);
+    ``edit(i, x)`` may change the bf16 values x (lead[1:] + (KV, hd)) of
+    leading index i first."""
+    import torch
+
+    from video3d_tpu_torch.models.qwen2 import _quantize_kv
+
+    vals = torch.empty((*lead, KV * hd), dtype=torch.int8, device=dev)
+    scales = torch.empty((*lead, KV, 1), dtype=torch.float32, device=dev)
+    for i in range(lead[0]):
+        x = (v_scale * torch.randn(*lead[1:], KV, hd, generator=g,
+                                   device=dev)).to(torch.bfloat16)
+        if edit is not None:
+            edit(i, x)
+        xq, xs = _quantize_kv(x.reshape(-1, 1, KV, hd))
+        vals[i] = xq.reshape(*lead[1:], KV * hd)
+        scales[i] = xs.reshape(*lead[1:], KV, 1)
+    return vals, scales
+
+
+def check_int8_matvec(dev):
+    """B4 at the B=1 vocab head: x (1, 1, 3584) bf16 against the int8
+    (3584, 152064) weight and its bf16 (1, 152064) scale, from N(0, 0.02)
+    weights quantized by the port's ``quantize_weight``; controls: the
+    scale one column off, the last 1024 input rows dropped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+    from video3d_tpu_torch.models.quant import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    in_, out = 3584, 152064
+    d = quantize_weight((0.02 * torch.randn(in_, out, generator=g,
+                                             device=dev)).to(torch.bfloat16))
+    q, scale = d["q"], d["scale"]
+    x = torch.randn(1, 1, in_, generator=g, device=dev).to(torch.bfloat16)
+    y = qm.int8_matmul(x, q, scale)
+    ref = qm.int8_matmul_plain(x.float(), q, scale)
+
+    def ratio(a):
+        return float(((a.float() - ref).abs()
+                      / (B4_REL * ref.abs() + B4_ABS)).max())
+
+    err = float((y.float() - ref).abs().max())
+    finite = bool(torch.isfinite(y.float()).all())
+    name = f"B4 x {tuple(x.shape)} q {tuple(q.shape)}"
+    _check(name, ratio(y) <= 1.0 and finite,
+           f"max |d| {err:.2e}, max |d| / ({B4_REL:.2e} |ref| + {B4_ABS:.0e})"
+           f" {ratio(y):.3f} (bound 1), finite={finite}")
+    for what, broken in (
+            ("scale one column off", qm.int8_matmul_plain(
+                x.float(), q, torch.roll(scale, 1, dims=1))),
+            ("last 1024 input rows dropped", qm.int8_matmul_plain(
+                x[..., :-1024].float(), q[:-1024], scale))):
+        _check(f"{name} control, {what}", ratio(broken) >= 4.0,
+               f"max |d| / bound {ratio(broken):.1f} (must be >= 4)")
+    ms = _median_ms(lambda: qm.int8_matmul(x, q, scale), 50)
+    dequant_ms = _median_ms(lambda: (x @ q.to(x.dtype)) * scale, 10)
+    print(f"  B4 {q.numel() / ms / 1e6:.0f} GB/s of int8 weight; the "
+          f"dequantize-then-matmul path {dequant_ms:.4f} ms", flush=True)
+    return err, (ms, _median_ms(lambda: qm.int8_matmul_plain(x, q, scale),
+                                10))
+
+
+def check_decode_int8(dev):
+    """B3 int8 at B=1 and B=8 over layer 27 of a stacked int8 cache of
+    8704 slots with peaked queries; controls: the two scale controls."""
+    import torch
+
+    from video3d_tpu_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    NL, H, KV, hd, S = CACHE_LAYERS, 28, 4, 128, 8704
+    layer = NL - 1
+    worst, timed = 0.0, None
+    for lens in ([6812], [8704, 6812, 300, 4097, 6000, 2048, 7777, 1]):
+        B = len(lens)
+        q = (Q_SCALE * torch.randn(B, 1, H, hd, generator=g,
+                                   device=dev)).to(torch.bfloat16)
+        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd)
+        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, k8, v8, kv_len, layer, KV, ks, vs)
+        out = da.decode_attention(*args)
+        qf = q.float()          # the plain version on the same values in f32
+        ref = da.decode_attention_plain(qf, *args[1:])
+        rows = [1] * B
+        err = _rows_err(out, ref, rows)
+        plain_err = _rows_err(da.decode_attention_plain(*args), ref, rows)
+        name = f"B3 int8 B={B} kv_len={lens}"
+        _check(name, err <= BF16_ATOL,
+               f"max |d| {err:.2e} (the bf16 plain version: {plain_err:.2e})")
+        _check_controls(name, ref, rows, {
+            "scales one position off": da.decode_attention_plain(
+                qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
+                torch.roll(vs, 1, dims=2)),
+            "scales of the wrong kv head": da.decode_attention_plain(
+                qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=3),
+                torch.roll(vs, 1, dims=3))})
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+        del k8, v8
+    return worst, (
+        _median_ms(lambda: da.decode_attention(*timed), 50),
+        _median_ms(lambda: da.decode_attention_plain(*timed), 10))
+
+
+def check_folded_int8(dev):
+    """B2 folded int8 at the B=1 prefix-hit shapes of the bf16 check, over
+    an int8 stacked cache; controls: the two scale controls and the chunk's
+    causal mask dropped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    NL, H, KV, hd, S = CACHE_LAYERS, 28, 4, 128, 8224
+    layer = NL - 1
+    worst, timed = 0.0, None
+    for L, offs, lens in ((64, [6716], [6756]),
+                          (64, [6716, 5000], [6756, 5064]),
+                          (256, [6716], [6916])):
+        B = len(offs)
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+
+        def focus(i, x):       # the chunk's own keys, before quantization
+            if i == layer:
+                for b, (o, n) in enumerate(zip(offs, lens)):
+                    x[b, o:n, :, 0] += FOCUS
+
+        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, edit=focus)
+        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5)
+        offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, k8, v8, lens_t, offs_t, layer, KV, ks, vs)
+        rows = [n - o for o, n in zip(offs, lens)]
+        out = fa.flash_attention_gqa_folded(*args)
+        qf = q.float()          # the plain version on the same values in f32
+        ref = fa.flash_attention_gqa_folded_plain(qf, *args[1:])
+        err = _rows_err(out, ref, rows)
+        plain_err = _rows_err(fa.flash_attention_gqa_folded_plain(*args),
+                              ref, rows)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = f"B2 folded int8 B={B} L={L} offsets={offs} kv_len={lens}"
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows below kv_len, finite={finite} "
+               f"(the bf16 plain version: {plain_err:.2e})")
+        _check_controls(name, ref, rows, {
+            "scales one position off": fa.flash_attention_gqa_folded_plain(
+                qf, k8, v8, lens_t, offs_t, layer, KV,
+                torch.roll(ks, 1, dims=2), torch.roll(vs, 1, dims=2)),
+            "scales of the wrong kv head": fa.flash_attention_gqa_folded_plain(
+                qf, k8, v8, lens_t, offs_t, layer, KV,
+                torch.roll(ks, 1, dims=3), torch.roll(vs, 1, dims=3)),
+            "no causal mask in the chunk": fa.flash_attention_gqa_folded_plain(
+                qf, k8, v8, lens_t, lens_t - 1, layer, KV, ks, vs)})
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+    return worst, (
+        _median_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
+        _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10))
+
+
+def check_shared_prefix_int8(dev):
+    """B5 int8 at the B=8 suffix-batch shape (an int8 prefix of 6716
+    positions with scales, raw bf16 suffixes) and at B=3, P=1000; controls:
+    the two scale controls and the suffix dropped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+    from video3d_tpu_torch.kernels.attention import \
+        mha_shared_prefix_reference
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    H, KV, hd, L = 28, 4, 128, 64
+    worst, timed = 0.0, None
+    for P, slens in ((6716, [64, 40, 17, 64, 33, 50, 8, 60]),
+                     (1000, [64, 1, 45])):
+        B = len(slens)
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+        pk8, pks = _int8_cache(g, dev, (1, P), KV, hd)
+        pv8, pvs = _int8_cache(g, dev, (1, P), KV, hd, v_scale=0.5)
+        pk8, pks, pv8, pvs = (t[0].reshape(P, KV, -1)
+                              for t in (pk8, pks, pv8, pvs))
+        sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+        sk[..., 0] += FOCUS
+        sk = sk.to(torch.bfloat16)
+        sv = (0.5 * torch.randn(B, L, KV, hd, generator=g,
+                                device=dev)).to(torch.bfloat16)
+        slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+        args = (q, pk8, pv8, sk, sv, slens_t, pks, pvs)
+        out = fa.flash_attention_shared_prefix(*args)
+        qf = q.float()          # the plain version on the same values in f32
+        ref = mha_shared_prefix_reference(qf, *args[1:])
+        err = _rows_err(out, ref, slens)
+        plain_err = _rows_err(mha_shared_prefix_reference(*args), ref, slens)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = f"B5 int8 B={B} L={L} P={P} suffix_lens={slens}"
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows below suffix_lens, "
+               f"finite={finite} (the bf16 plain version: {plain_err:.2e})")
+        _check_controls(name, ref, slens, {
+            "scales one position off": mha_shared_prefix_reference(
+                qf, pk8, pv8, sk, sv, slens_t, torch.roll(pks, 1, dims=0),
+                torch.roll(pvs, 1, dims=0)),
+            "scales of the wrong kv head": mha_shared_prefix_reference(
+                qf, pk8, pv8, sk, sv, slens_t, torch.roll(pks, 1, dims=1),
+                torch.roll(pvs, 1, dims=1)),
+            "suffix dropped": mha_shared_prefix_reference(
+                qf, pk8, pv8, sk, sv, torch.zeros_like(slens_t), pks, pvs)})
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+    return worst, (
+        _median_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
+        _median_ms(lambda: mha_shared_prefix_reference(*timed), 5))
+
+
 def check_kernels():
     import torch
 
@@ -389,7 +653,12 @@ def check_kernels():
                      ("flash_attention", check_flash),
                      ("flash_attention_folded", check_folded),
                      ("decode_attention", check_decode),
-                     ("shared_prefix_attention", check_shared_prefix)):
+                     ("shared_prefix_attention", check_shared_prefix),
+                     ("int8_matvec", check_int8_matvec),
+                     ("decode_attention_int8", check_decode_int8),
+                     ("flash_attention_folded_int8", check_folded_int8),
+                     ("shared_prefix_attention_int8",
+                      check_shared_prefix_int8)):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms) = fn(dev)
         print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
@@ -468,19 +737,45 @@ def _make_engine(params, cfg, root: str, **ecfg):
         device=torch.device("cuda", 0))
 
 
+def _forwards(res) -> int:
+    """Decode forwards of one generate call: it stops after the step where
+    its last row finished, or after MAX_NEW steps."""
+    return min(int(res.lengths.max()) + 1, MAX_NEW)
+
+
 def _decode_forwards(results, vocab: int) -> int:
     """Check the emitted ids of every row and count the decode forwards the
-    generate calls made (a call stops after the step where its last row
-    finished, or after MAX_NEW steps)."""
-    forwards = 0
+    generate calls made."""
     for res in results:
         lengths = res.lengths.tolist()
         ok = all(bool(((res.tokens[b, :n] >= 0)
                        & (res.tokens[b, :n] < vocab)).all())
                  for b, n in enumerate(lengths))
         _check("emitted ids", ok, f"rows of {lengths} ids in [0, {vocab})")
-        forwards += min(max(lengths) + 1, MAX_NEW)
-    return forwards
+    return sum(_forwards(res) for res in results)
+
+
+def _expected_launches(params, kv_cache_dtype: str, layers: int,
+                       forwards: int, results, **per_path) -> dict:
+    """Launch counts a run must show: ``per_path`` gives the geometry and
+    attention kernels of the path under their bf16 names; an int8 cache
+    moves the decode, folded and shared-prefix counts to their ``*_int8``
+    kernels, and int8 weights add B4 once per B=1 lm_head (the prefill's
+    and one per decode forward of every one-row generate call)."""
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models.quant import is_quantized
+
+    expected = dict.fromkeys(_build.LAUNCHES, 0)
+    expected.update(per_path, decode_attention=layers * forwards)
+    if kv_cache_dtype == "int8":
+        for name in ("decode_attention", "flash_attention_folded",
+                     "shared_prefix_attention"):
+            expected[f"{name}_int8"] = expected.pop(name)
+            expected[name] = 0
+    if is_quantized(params["llm"]["lm_head"]):
+        expected["int8_matvec"] = sum(1 + _forwards(res) for res in results
+                                      if res.tokens.shape[0] == 1)
+    return expected
 
 
 def _read_jsonl(path: str):
@@ -488,7 +783,8 @@ def _read_jsonl(path: str):
         return [json.loads(line) for line in f]
 
 
-def run_main_path(params, cfg, root: str, info) -> dict:
+def run_main_path(params, cfg, root: str, info,
+                  kv_cache_dtype: str = "bfloat16") -> dict:
     """Answer two questions at full width through ``run_scanqa``; returns the
     kernel launch counts of that run."""
     import torch
@@ -498,11 +794,11 @@ def run_main_path(params, cfg, root: str, info) -> dict:
     from video3d_tpu_torch.models import generate as gen
     from video3d_tpu_torch.models import llava_video3d as lv3d
 
-    engine = _make_engine(params, cfg, root)
+    engine = _make_engine(params, cfg, root, kv_cache_dtype=kv_cache_dtype)
     qs = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")
     engine.generate_answer(qs[0])                 # warm-up, not counted
     engine.results.clear()
-    answer_file = os.path.join(root, "scanqa.jsonl")
+    answer_file = os.path.join(root, f"scanqa_{kv_cache_dtype}.jsonl")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -519,9 +815,9 @@ def run_main_path(params, cfg, root: str, info) -> dict:
         f"{len(records)} jsonl records")
     forwards = _decode_forwards(engine.results, cfg.llm.vocab_size)
     L = cfg.llm.num_hidden_layers
-    expected = {"fused_geometry": 2, "flash_attention": 2 * L,
-                "flash_attention_folded": 0, "decode_attention": L * forwards,
-                "shared_prefix_attention": 0}
+    expected = _expected_launches(params, kv_cache_dtype, L, forwards,
+                                  engine.results, fused_geometry=2,
+                                  flash_attention=2 * L)
     _check("launch counts", launches == expected,
            f"{launches}, expected {expected} ({forwards} decode forwards)")
     print(f"  per-request seconds (prep excluded): "
@@ -542,7 +838,7 @@ def run_main_path(params, cfg, root: str, info) -> dict:
         t0 = time.perf_counter()
         logits, _, _ = gen.prefill_multimodal(
             params, cfg, batch, batch.text_ids.shape[1] + MAX_NEW,
-            vision_features=vis)
+            vision_features=vis, cache_dtype=engine.cache_dtype)
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
     _check("prefill logits", logits.shape == (1, cfg.llm.vocab_size)
@@ -563,11 +859,15 @@ def run_main_path(params, cfg, root: str, info) -> dict:
     return launches
 
 
-def run_prefix_path(params, cfg, root: str, info) -> dict:
+def run_prefix_path(params, cfg, root: str, info,
+                    kv_cache_dtype: str = "bfloat16",
+                    logit_atol: float = LOGIT_ATOL) -> dict:
     """Scene-prefix path: 16 same-scene questions through
     ``run_generative(batch_size=8)`` (a miss that runs the full prefill and
     stores the prefix, a B=7 and a B=8 suffix batch), then one B=1 hit;
-    returns the kernel launch counts of that run."""
+    returns the kernel launch counts of that run. The first-step logits of
+    the suffix paths must be within ``logit_atol`` of a full prefill, and
+    their one-position-early control at least twice that far."""
     import torch
 
     from video3d_tpu_torch.eval.drivers import run_generative
@@ -575,10 +875,11 @@ def run_prefix_path(params, cfg, root: str, info) -> dict:
     from video3d_tpu_torch.models import generate as gen
 
     engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
-                          scene_cache_scenes=1)
+                          scene_cache_scenes=1,
+                          kv_cache_dtype=kv_cache_dtype)
     qs = _questions(info["sample_idx"], PREFIX_TEXTS, "prefix")
     batch_qs, hit_q = qs[:16], qs[16]
-    answer_file = os.path.join(root, "prefix.jsonl")
+    answer_file = os.path.join(root, f"prefix_{kv_cache_dtype}.jsonl")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -605,9 +906,10 @@ def run_prefix_path(params, cfg, root: str, info) -> dict:
            f"batch rows {rows} (miss, suffix batches, B=1 hit)")
     forwards = _decode_forwards(engine.results, cfg.llm.vocab_size)
     L = cfg.llm.num_hidden_layers
-    expected = {"fused_geometry": 1, "flash_attention": L,
-                "flash_attention_folded": L, "decode_attention": L * forwards,
-                "shared_prefix_attention": 2 * L}
+    expected = _expected_launches(
+        params, kv_cache_dtype, L, forwards, engine.results, fused_geometry=1,
+        flash_attention=L, flash_attention_folded=L,
+        shared_prefix_attention=2 * L)
     _check("launch counts", launches == expected,
            f"{launches}, expected {expected} ({forwards} decode forwards)")
 
@@ -623,24 +925,25 @@ def run_prefix_path(params, cfg, root: str, info) -> dict:
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ref, _, _ = gen.prefill_multimodal(params, cfg, batch, max_len,
-                                               vision_features=vis)
+            ref, _, _ = gen.prefill_multimodal(
+                params, cfg, batch, max_len, vision_features=vis,
+                cache_dtype=engine.cache_dtype)
             torch.cuda.synchronize()
             t_full = time.perf_counter() - t0
             early, _, _ = gen.prefill_multimodal(
                 params, cfg, batch._replace(seq_len=batch.seq_len - 1),
-                max_len, vision_features=vis)
+                max_len, vision_features=vis, cache_dtype=engine.cache_dtype)
         ref = ref[0].float()
         refs.append(ref)
         diff = float((got - ref).abs().max())
         _check(f"first-step logits vs full prefill ({name})",
-               diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
-               f"max |d| {diff:.4f} (bound {LOGIT_ATOL}; |logits| up to "
+               diff <= logit_atol and bool(torch.isfinite(got).all()),
+               f"max |d| {diff:.4f} (bound {logit_atol}; |logits| up to "
                f"{float(ref.abs().max()):.2f})")
         control = float((got - early[0].float()).abs().max())
         _check(f"first-step logits control ({name}), one position early",
-               control >= LOGIT_CONTROL_MIN,
-               f"max |d| {control:.4f} (must be >= {LOGIT_CONTROL_MIN})")
+               control >= 2 * logit_atol,
+               f"max |d| {control:.4f} (must be >= {2 * logit_atol})")
     # what a swap of two questions would read (printed, not checked)
     print(f"  first-step logits of {pairs[0][0]} vs the full prefill of the "
           f"other question: max |d| "
@@ -655,7 +958,7 @@ def run_prefix_path(params, cfg, root: str, info) -> dict:
         t0 = time.perf_counter()
         state = gen.start_decode_prefix(
             params, cfg, prep["batch"], entry.cache, entry.prefix_len,
-            prep["bucket"] + MAX_NEW)
+            prep["bucket"] + MAX_NEW, engine.cache_dtype)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
@@ -668,12 +971,47 @@ def run_prefix_path(params, cfg, root: str, info) -> dict:
           f"{times[8]:.4f} (B=8 suffix batch), B=1 hit {t_hit:.4f}; wall "
           f"for 16 questions {wall:.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
-    print(f"  prefix {entry.prefix_len} tokens; B=8 suffix prefill "
+    entry_bytes = sum(t.numel() * t.element_size() for t in entry.cache
+                      if t is not None)
+    print(f"  prefix {entry.prefix_len} tokens, {entry_bytes / 1e9:.3f} GB "
+          f"cached ({entry.cache.k.dtype}); B=8 suffix prefill "
           f"(bucket {prep['batch'].text_ids.shape[1]}) "
           f"{sorted(pre_ms)[1]:.1f} ms (median of 3) against a B=1 full "
           f"prefill {t_full * 1e3:.1f} ms; B=8 decode {decode_ms:.2f} "
           f"ms/step over {steps} steps", flush=True)
     return launches
+
+
+def run_int8_paths(cfg, root: str, info) -> dict:
+    """Phase 6: the int8 configuration at full width and depth (int8 LLM
+    projections and lm_head from ``init_model(bits=8)``, int8 KV cache)
+    through phase 4's and phase 5's paths; returns the launch counts of
+    both runs, summed."""
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, bits=8)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"int8 configuration: ModelConfig() {cfg.vision.num_hidden_layers}"
+          f"+{cfg.llm.num_hidden_layers} layers, int8 LLM projections and "
+          f"lm_head, {n_bytes / 2**30:.2f} GiB of parameters initialised "
+          f"on the card in {time.perf_counter() - t0:.1f} s (init peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); int8 KV "
+          f"cache", flush=True)
+    print("int8 ScanQA path:", flush=True)
+    scanqa = run_main_path(params, cfg, root, info, kv_cache_dtype="int8")
+    print(f"  launches (int8 ScanQA path): {scanqa}", flush=True)
+    print("int8 scene-prefix path:", flush=True)
+    prefix = run_prefix_path(params, cfg, root, info, kv_cache_dtype="int8",
+                             logit_atol=INT8_LOGIT_ATOL)
+    print(f"  launches (int8 scene-prefix path): {prefix}", flush=True)
+    return {k: scanqa[k] + prefix[k] for k in scanqa}
 
 
 def _leaves(tree):
@@ -717,11 +1055,16 @@ def main() -> None:
         print("scene-prefix path:", flush=True)
         prefix = run_prefix_path(params, cfg, root, info)
         print(f"  launches (scene-prefix path): {prefix}", flush=True)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        int8 = run_int8_paths(cfg, root, info)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
+        launches = int8[name] if name in INT8_KERNELS \
+            else scanqa[name] + prefix[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces,
-                        "launches": scanqa[name] + prefix[name],
+                        "replaces": replaces, "launches": launches,
                         **rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

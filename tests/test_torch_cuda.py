@@ -12,7 +12,10 @@ from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels import decode_attention as da
 from video3d_tpu_torch.kernels import flash_attention as fa
 from video3d_tpu_torch.kernels import fused_geometry as fg
+from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.attention import mha_shared_prefix_reference
+from video3d_tpu_torch.models.quant import quantize_weight
+from video3d_tpu_torch.models.qwen2 import _quantize_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +186,150 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     sk = torch.zeros(1, 32, 2, 128, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):                        # suffix L != 64
         fa.flash_attention_shared_prefix(q64, pk, pk, sk, sk, n)
+
+
+# ---- the int8 configuration: B4 and the int8-cache forms of B3, B2 folded
+# and B5, each against its plain version in f32 on the same int8 values and
+# scales; controls as in chip_smoke.py: scales one position off and of the
+# wrong kv head must miss the bound by far more than 4x
+
+def _int8(x):
+    """bf16 (..., S, KV, hd) -> flat int8 (..., S, KV*hd) and (..., S, KV, 1)
+    f32 scales, quantized by the port's _quantize_kv."""
+    *lead, S, KV, hd = x.shape
+    q, s = _quantize_kv(x.reshape(-1, S, KV, hd))
+    return (q.reshape(*lead, S, KV * hd).contiguous(),
+            s.reshape(*lead, S, KV, 1).contiguous())
+
+
+def _rolled(ks, vs, dim):
+    return torch.roll(ks, 1, dims=dim), torch.roll(vs, 1, dims=dim)
+
+
+@pytest.mark.parametrize("in_,out", [(3584, 4096), (1000, 1040)])
+def test_int8_matvec_kernel(dev, in_, out):
+    """B4: bf16 rounding of an f32 sum, so within one bf16 ulp of the f32
+    plain version; out 1040 ends inside a 512-column block."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    d = quantize_weight(0.02 * torch.randn(in_, out, generator=g, device=dev))
+    q, scale = d["q"], d["scale"]
+    x = torch.randn(1, 1, in_, generator=g, device=dev).bfloat16()
+    got = _launched("int8_matvec", lambda: qm.int8_matmul(x, q, scale))
+    ref = qm.int8_matmul_plain(x.float(), q, scale)
+    bound = 2.0 ** -7 * ref.abs() + 1e-4
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 1, out)
+    assert float(((got.float() - ref).abs() / bound).max()) <= 1.0
+    off = qm.int8_matmul_plain(x.float(), q, torch.roll(scale, 1, dims=1))
+    assert float(((off - ref).abs() / bound).max()) > 4.0
+
+
+def test_decode_int8_kernel(dev):
+    g = torch.Generator(device=dev).manual_seed(6)
+    NL, B, S, H, KV, hd, layer = 2, 3, 600, 8, 2, 128, 1
+    q = (Q_SCALE * torch.randn(B, 1, H, hd, generator=g, device=dev)).bfloat16()
+    k8, ks = _int8(torch.randn(NL, B, S, KV, hd, generator=g,
+                               device=dev).bfloat16())
+    v8, vs = _int8((0.5 * torch.randn(NL, B, S, KV, hd, generator=g,
+                                      device=dev)).bfloat16())
+    kv_len = torch.tensor([600, 257, 1], dtype=torch.int32, device=dev)
+    got = _launched("decode_attention_int8", lambda: da.decode_attention(
+        q, k8, v8, kv_len, layer, KV, ks, vs))
+    ref = da.decode_attention_plain(q.float(), k8, v8, kv_len, layer, KV, ks,
+                                    vs)
+    assert float((got.float() - ref).abs().max()) <= BF16_ATOL
+    for dim in (2, 3):                    # one position off, wrong kv head
+        broken = da.decode_attention_plain(q.float(), k8, v8, kv_len, layer,
+                                           KV, *_rolled(ks, vs, dim))
+        assert float((broken - ref).abs().max()) > 4 * BF16_ATOL
+
+
+@pytest.mark.parametrize("H,KV,L,offs,lens", [
+    (28, 4, 64, [700], [740]),                 # the B=1 prefix-hit shape
+    (8, 2, 100, [300, 37], [400, 100]),        # ragged, rows over 3 tiles
+])
+def test_folded_int8_kernel(dev, H, KV, L, offs, lens):
+    g = torch.Generator(device=dev).manual_seed(7)
+    NL, S, hd, layer = 2, 800, 128, 1
+    B = len(offs)
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.bfloat16()
+    k = torch.randn(NL, B, S, KV, hd, generator=g, device=dev)
+    for b, (o, n) in enumerate(zip(offs, lens)):
+        k[layer, b, o:n, :, 0] += FOCUS
+    k8, ks = _int8(k.bfloat16())
+    v8, vs = _int8((0.5 * torch.randn(NL, B, S, KV, hd, generator=g,
+                                      device=dev)).bfloat16())
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    got = _launched("flash_attention_folded_int8",
+                    lambda: fa.flash_attention_gqa_folded(
+                        q, k8, v8, lens_t, offs_t, layer, KV, ks, vs))
+    ref = fa.flash_attention_gqa_folded_plain(q.float(), k8, v8, lens_t,
+                                              offs_t, layer, KV, ks, vs)
+    rows = [min(L, n - o) for o, n in zip(offs, lens)]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, rows) <= BF16_ATOL
+    for dim in (2, 3):                    # one position off, wrong kv head
+        broken = fa.flash_attention_gqa_folded_plain(
+            q.float(), k8, v8, lens_t, offs_t, layer, KV,
+            *_rolled(ks, vs, dim))
+        assert _rows_err(broken, ref, rows) > 4 * BF16_ATOL
+
+
+@pytest.mark.parametrize("B,L,P,H,KV", [
+    (8, 64, 1000, 28, 4),
+    (3, 20, 130, 8, 2),        # 64-row tiles cross batch rows
+])
+def test_shared_prefix_int8_kernel(dev, B, L, P, H, KV):
+    g = torch.Generator(device=dev).manual_seed(8)
+    hd = 128
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.bfloat16()
+    pk8, pks = _int8(torch.randn(P, KV, hd, generator=g,
+                                 device=dev).bfloat16())
+    pv8, pvs = _int8((0.5 * torch.randn(P, KV, hd, generator=g,
+                                        device=dev)).bfloat16())
+    pk8, pv8 = pk8.reshape(P, KV, hd), pv8.reshape(P, KV, hd)
+    sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+    sk[..., 0] += FOCUS
+    sk = sk.bfloat16()
+    sv = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)).bfloat16()
+    slens = [L - (7 * b) % L for b in range(B)]
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    got = _launched("shared_prefix_attention_int8",
+                    lambda: fa.flash_attention_shared_prefix(
+                        q, pk8, pv8, sk, sv, slens_t, pks, pvs))
+    ref = mha_shared_prefix_reference(q.float(), pk8, pv8, sk, sv, slens_t,
+                                      pks, pvs)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, slens) <= BF16_ATOL
+    for dim in (0, 1):                    # one position off, wrong kv head
+        broken = mha_shared_prefix_reference(q.float(), pk8, pv8, sk, sv,
+                                             slens_t, *_rolled(pks, pvs, dim))
+        assert _rows_err(broken, ref, slens) > 4 * BF16_ATOL
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    cache = torch.zeros(2, 1, 16, 256, device=dev, dtype=torch.int8)
+    scale = torch.zeros(2, 1, 16, 2, 1, device=dev)
+    q1 = torch.zeros(1, 1, 4, 128, device=dev, dtype=torch.bfloat16)
+    n = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                        # no scales
+        da.decode_attention(q1, cache, cache, n, 1, 2)
+    with pytest.raises(ValueError):                        # scales per layer
+        da.decode_attention(q1, cache, cache, n, 1, 2, scale[1], scale[1])
+    q64 = torch.zeros(1, 64, 4, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                        # f64 scales
+        fa.flash_attention_gqa_folded(q64, cache, cache, n, n, 1, 2,
+                                      scale.double(), scale.double())
+    pk = torch.zeros(16, 2, 128, device=dev, dtype=torch.int8)
+    sk = torch.zeros(1, 64, 2, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                        # no prefix scales
+        fa.flash_attention_shared_prefix(q64, pk, pk, sk, sk, n)
+    w = torch.zeros(64, 1000, device=dev, dtype=torch.int8)
+    with pytest.raises(ValueError):                        # out % 16 != 0
+        qm.int8_matmul(torch.zeros(1, 64, device=dev, dtype=torch.bfloat16),
+                       w, torch.zeros(1, 1000, device=dev,
+                                      dtype=torch.bfloat16))

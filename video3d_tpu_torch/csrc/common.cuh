@@ -19,6 +19,17 @@ __device__ __forceinline__ float v3d_warp_max(float x) {
   return x;
 }
 
+// 4 packed int8 (one 32-bit word) -> 4 exact floats, without I2F: flip
+// the sign bit (b -> b + 128 as a byte), splice the byte under the
+// exponent of 2^23 (0x4B0000xx == 2^23 + b + 128) and subtract 2^23 + 128
+__device__ __forceinline__ void v3d_int8x4_to_float(unsigned w, float* f) {
+  const unsigned u = w ^ 0x80808080u;
+  f[0] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - 8388736.f;
+  f[1] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - 8388736.f;
+  f[2] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - 8388736.f;
+  f[3] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - 8388736.f;
+}
+
 // 8 packed bf16 (one 16-byte load) -> 8 floats
 __device__ __forceinline__ void v3d_bf16x8_to_float(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);

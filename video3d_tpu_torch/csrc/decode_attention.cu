@@ -3,11 +3,14 @@
 //
 // Replaces: video3d_tpu/kernels/decode_attention.py::_decode_kernel_blockdiag
 // (entry decode_attention with kv_heads given: the stacked
-// (layers, B, S, KV*hd) cache addressed at `layer`), bf16 cache, no scales.
+// (layers, B, S, KV*hd) cache addressed at `layer`), in two forms: a bf16
+// cache, and an int8 cache with per-position, per-kv-head f32 scales
+// (quantized=True; stacked scales (layers, B, S, KV, 1)).
 //
 // What bounds it on an H100: HBM. One step of one layer streams
 // 2 * kv_len * KV * hd * 2 bytes of K and V (17.8 MB at kv_len 8704, KV 4,
-// hd 128) for ~4 FLOP per byte, far below the card's ~295 FLOP/byte ridge.
+// hd 128) for ~4 FLOP per byte, far below the card's ~295 FLOP/byte ridge;
+// the int8 form streams half of it plus 2 * kv_len * KV * 4 bytes of scales.
 //
 // Design: the block-diagonal head packing of the TPU kernel is an MXU trick
 // and is not copied. Instead, pass 1 runs one 256-thread block per
@@ -23,6 +26,13 @@
 // length is never read. The query is pre-scaled by hd**-0.5 in bf16, as the
 // TPU kernel does; dots accumulate in f32. The layer and row offsets come
 // from the stacked cache's strides, so no per-layer copy is made.
+// int8 form: one template on the cache element type. Values convert to f32
+// exactly; as in the TPU kernel, a score is multiplied by its key's scale
+// after the dot, the chunk's sum is taken over the unscaled weights p, and
+// p is multiplied by its value's scale before P V. The scales of `layer`
+// are read by strides out of the stacked arrays.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -36,16 +46,39 @@ constexpr int kPosGroups = kThreads / (kHd / 2);
 
 typedef __nv_bfloat16 bf16;
 
+// 8 consecutive cache values -> f32 (read-only loads: the cache is
+// __restrict__ in the kernel, and these helpers keep the non-coherent path)
+__device__ __forceinline__ void load8(const bf16* p, float* f) {
+  v3d_bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(p)), f);
+}
+__device__ __forceinline__ void load8(const int8_t* p, float* f) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+  v3d_int8x4_to_float(u.x, f);
+  v3d_int8x4_to_float(u.y, f + 4);
+}
+// 2 consecutive cache values -> f32
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+}
+__device__ __forceinline__ float2 load2(const int8_t* p) {
+  const char2 c = __ldg(reinterpret_cast<const char2*>(p));
+  return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
-                      const bf16* __restrict__ k_all,   // (NL, B, S, KV*hd)
-                      const bf16* __restrict__ v_all,
+                      const T* __restrict__ k_all,      // (NL, B, S, KV*hd)
+                      const T* __restrict__ v_all,
+                      const float* __restrict__ k_scale,  // (NL, B, S, KV) or
+                      const float* __restrict__ v_scale,  // null (bf16)
                       const int* __restrict__ kv_len,   // (B,)
                       float* __restrict__ part_m,       // (B, H, NC)
                       float* __restrict__ part_l,       // (B, H, NC)
                       float* __restrict__ part_acc,     // (B, H, NC, hd)
                       int layer, int B, int S, int H, int KV, int NC,
                       float sm_scale) {
+  constexpr bool kQuant = std::is_same<T, int8_t>::value;
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = min(kv_len[b], S);
   const int start = c * kChunk;
@@ -69,6 +102,8 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long row_stride = (long long)KV * kHd;
   const long long cache_off = (((long long)layer * B + b) * S + start) * row_stride + kvh * kHd;
+  // scale of chunk position i: scale_off + i * KV
+  const long long scale_off = (((long long)layer * B + b) * S + start) * KV + kvh;
 
   // scores: half-warp per position, 8 dims per lane
   {
@@ -78,13 +113,14 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
     for (int g = 0; g < kMaxG; ++g)
 #pragma unroll
       for (int i = 0; i < 8; ++i) qreg[g][i] = g < G ? qs[g][sub * 8 + i] : 0.f;
-    const bf16* kbase = k_all + cache_off + sub * 8;
+    const T* kbase = k_all + cache_off + sub * 8;
     for (int base = warp * 2; base < n; base += 2 * kWarps) {
       const int pos = base + half;
       float kf[8];
+      float ks = 1.f;   // the key's scale (int8), loaded beside its values
       if (pos < n) {
-        const uint4 u = *reinterpret_cast<const uint4*>(kbase + pos * row_stride);
-        v3d_bf16x8_to_float(u, kf);
+        load8(kbase + pos * row_stride, kf);
+        if constexpr (kQuant) ks = __ldg(k_scale + scale_off + (long long)pos * KV);
       } else {
 #pragma unroll
         for (int i = 0; i < 8; ++i) kf[i] = 0.f;
@@ -97,7 +133,10 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
           for (int i = 0; i < 8; ++i) dot += qreg[g][i] * kf[i];
 #pragma unroll
           for (int o = 8; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
-          if (sub == 0 && pos < n) sc[g][pos] = dot;
+          if (sub == 0 && pos < n) {
+            if constexpr (kQuant) dot *= ks;
+            sc[g][pos] = dot;
+          }
         }
       }
     }
@@ -112,7 +151,10 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
     float sum = 0.f;
     for (int i = lane; i < n; i += 32) {
       const float p = expf(sc[warp][i] - mx);
-      sc[warp][i] = p;
+      if constexpr (kQuant)
+        sc[warp][i] = p * __ldg(v_scale + scale_off + (long long)i * KV);
+      else
+        sc[warp][i] = p;
       sum += p;
     }
     sum = v3d_warp_sum(sum);
@@ -129,10 +171,9 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
     float acc[kMaxG][2];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
-    const bf16* vbase = v_all + cache_off + 2 * dp;
+    const T* vbase = v_all + cache_off + 2 * dp;
     for (int pos = grp; pos < n; pos += kPosGroups) {
-      const float2 vv = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(vbase + pos * row_stride));
+      const float2 vv = load2(vbase + pos * row_stride);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) {
         if (g < G) {
@@ -187,22 +228,21 @@ decode_combine_kernel(const float* __restrict__ part_m,
   out[((long long)b * H + h) * kHd + d] = __float2bfloat16(o / fmaxf(lsum, 1e-30f));
 }
 
-}  // namespace
-
-extern "C" int v3d_decode_attention(const void* q, const void* k_all,
-                                    const void* v_all, const void* kv_len,
-                                    void* out, void* part_m, void* part_l,
-                                    void* part_acc, int layer, int B, int S,
-                                    int H, int KV, int n_chunks,
-                                    float sm_scale, void* stream) {
+template <typename T>
+int launch(const void* q, const void* k_all, const void* v_all,
+           const void* k_scale, const void* v_scale, const void* kv_len,
+           void* out, void* part_m, void* part_l, void* part_acc, int layer,
+           int B, int S, int H, int KV, int n_chunks, float sm_scale,
+           void* stream) {
   if (KV <= 0 || H % KV != 0 || H / KV > kMaxG ||
       n_chunks * kChunk < S)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_partial_kernel<<<dim3(n_chunks, KV, B), kThreads, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_all),
-      static_cast<const bf16*>(v_all), static_cast<const int*>(kv_len),
+  decode_partial_kernel<T><<<dim3(n_chunks, KV, B), kThreads, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(k_all),
+      static_cast<const T*>(v_all), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(kv_len),
       static_cast<float*>(part_m), static_cast<float*>(part_l),
       static_cast<float*>(part_acc), layer, B, S, H, KV, n_chunks, sm_scale);
   cudaError_t e = cudaGetLastError();
@@ -212,4 +252,27 @@ extern "C" int v3d_decode_attention(const void* q, const void* k_all,
       static_cast<const float*>(part_acc), static_cast<const int*>(kv_len),
       static_cast<bf16*>(out), S, H, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int v3d_decode_attention(const void* q, const void* k_all,
+                                    const void* v_all, const void* kv_len,
+                                    void* out, void* part_m, void* part_l,
+                                    void* part_acc, int layer, int B, int S,
+                                    int H, int KV, int n_chunks,
+                                    float sm_scale, void* stream) {
+  return launch<bf16>(q, k_all, v_all, nullptr, nullptr, kv_len, out, part_m,
+                      part_l, part_acc, layer, B, S, H, KV, n_chunks,
+                      sm_scale, stream);
+}
+
+extern "C" int v3d_decode_attention_int8(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* kv_len, void* out, void* part_m,
+    void* part_l, void* part_acc, int layer, int B, int S, int H, int KV,
+    int n_chunks, float sm_scale, void* stream) {
+  return launch<int8_t>(q, k_all, v_all, k_scale, v_scale, kv_len, out,
+                        part_m, part_l, part_acc, layer, B, S, H, KV,
+                        n_chunks, sm_scale, stream);
 }

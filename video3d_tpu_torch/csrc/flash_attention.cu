@@ -5,8 +5,10 @@
 //      _fwd_call (L == S, query offset 0, causal or not);
 //   2. GQA-folded cached-chunk form, reached from flash_attention_gqa_folded
 //      (pos_div = group, per-row query offsets, keys from one layer of the
-//      stacked flat (layers, B, S, KV*hd) cache);
-// no int8 scales, no logsumexp output: inference only.
+//      stacked flat (layers, B, S, KV*hd) cache), over a bf16 cache or an
+//      int8 one with per-position, per-kv-head f32 scales (quantized=True,
+//      scales :813-815; stacked scales (layers, B, S, KV, 1));
+// no logsumexp output: inference only.
 //
 // What bounds it on an H100: prefill is compute-bound (at L = 8192, 28
 // heads, hd 128, causal a layer is ~0.48 TFLOP against ~0.2 GB of q/k/v/o
@@ -27,8 +29,13 @@
 //   rows (row r*group + g is query r of head kvh*group + g, at position
 //   q_off[b] + r), so each K/V tile of the cache is read once for all the
 //   group's heads, which is the point of folding. K and V are read straight
-//   out of the stacked cache by strides, with no per-layer slice copy.
+//   out of the stacked cache by strides, with no per-layer slice copy. An
+//   int8 cache (one template on the element type) halves the stream; its
+//   tiles are converted to bf16 while staged and the scales of `layer` are
+//   read by strides (flash_tile.cuh, stage_kv_int8 / attend_tile<true>).
 // Simple first: no cp.async / TMA pipelining and no wgmma yet.
+#include <type_traits>
+
 #include "flash_tile.cuh"
 
 using namespace v3d_flash;
@@ -75,10 +82,13 @@ flash_fwd_kernel(const bf16* __restrict__ q,      // (B, L, H, hd)
     store_row(t, st, out + (((long long)b * L + row_pos) * H + h) * kHd);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_folded_kernel(const bf16* __restrict__ q,       // (B, L, H, hd)
-                    const bf16* __restrict__ k_all,   // (NL, B, S, KV*hd)
-                    const bf16* __restrict__ v_all,
+                    const T* __restrict__ k_all,      // (NL, B, S, KV*hd)
+                    const T* __restrict__ v_all,
+                    const float* __restrict__ k_scale,  // (NL, B, S, KV) or
+                    const float* __restrict__ v_scale,  // null (bf16)
                     const int* __restrict__ lengths,  // (B,) valid slots
                     const int* __restrict__ q_off,    // (B,) position of row 0
                     bf16* __restrict__ out,           // (B, L, H, hd)
@@ -94,6 +104,7 @@ flash_folded_kernel(const bf16* __restrict__ q,       // (B, L, H, hd)
   const int length = min(lengths[b], S);
   const long long stride = (long long)KV * kHd;
   const long long cache_off = ((long long)layer * B + b) * S * stride + kvh * kHd;
+  const long long scale_off = ((long long)layer * B + b) * S * KV + kvh;
   const long long head_off = ((long long)b * L * H + kvh * G) * kHd;
   // folded row i -> element offset of query i / G of head kvh * G + i % G
   auto row_off = [=](int i) -> long long {
@@ -113,11 +124,16 @@ flash_folded_kernel(const bf16* __restrict__ q,       // (B, L, H, hd)
 
   const int last = min(q0 + kBq, R) - 1;
   const int kend = min(off + last / G + 1, length);
+  auto ok = [&](int col) { return col < length && col <= row_pos; };
   for (int k0 = 0; k0 < kend; k0 += kBk) {
-    stage_kv(t, k_all + cache_off, v_all + cache_off, stride, k0, S);
-    attend_tile(t, qf, st, k0, sm_scale, [&](int col) {
-      return col < length && col <= row_pos;
-    });
+    if constexpr (std::is_same<T, int8_t>::value) {
+      stage_kv_int8(t, k_all + cache_off, v_all + cache_off, stride,
+                    k_scale + scale_off, v_scale + scale_off, KV, k0, S);
+      attend_tile<true>(t, qf, st, k0, sm_scale, ok);
+    } else {
+      stage_kv(t, k_all + cache_off, v_all + cache_off, stride, k0, S);
+      attend_tile(t, qf, st, k0, sm_scale, ok);
+    }
   }
   if (fr < R) store_row(t, st, out + row_off(fr));
 }
@@ -144,6 +160,34 @@ extern "C" int v3d_flash_attention(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+template <typename T>
+int launch_folded(const void* q, const void* k_all, const void* v_all,
+                  const void* k_scale, const void* v_scale,
+                  const void* lengths, const void* q_off, void* out,
+                  int layer, int B, int L, int S, int H, int KV,
+                  float sm_scale, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_folded_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || L <= 0) return 0;
+  const int R = L * (H / KV);
+  dim3 grid((R + kBq - 1) / kBq, B * KV);
+  flash_folded_kernel<T><<<grid, kThreads, kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(k_all),
+      static_cast<const T*>(v_all), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
+      static_cast<const int*>(q_off), static_cast<bf16*>(out), layer, B, L,
+      S, H, KV, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 extern "C" int v3d_flash_attention_folded(const void* q, const void* k_all,
                                           const void* v_all,
                                           const void* lengths,
@@ -151,19 +195,17 @@ extern "C" int v3d_flash_attention_folded(const void* q, const void* k_all,
                                           int layer, int B, int L, int S,
                                           int H, int KV, float sm_scale,
                                           void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_folded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || L <= 0) return 0;
-  const int R = L * (H / KV);
-  dim3 grid((R + kBq - 1) / kBq, B * KV);
-  flash_folded_kernel<<<grid, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k_all),
-      static_cast<const bf16*>(v_all), static_cast<const int*>(lengths),
-      static_cast<const int*>(q_off), static_cast<bf16*>(out), layer, B, L,
-      S, H, KV, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch_folded<bf16>(q, k_all, v_all, nullptr, nullptr, lengths,
+                             q_off, out, layer, B, L, S, H, KV, sm_scale,
+                             stream);
+}
+
+extern "C" int v3d_flash_attention_folded_int8(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* lengths, const void* q_off, void* out,
+    int layer, int B, int L, int S, int H, int KV, float sm_scale,
+    void* stream) {
+  return launch_folded<int8_t>(q, k_all, v_all, k_scale, v_scale, lengths,
+                               q_off, out, layer, B, L, S, H, KV, sm_scale,
+                               stream);
 }

@@ -14,6 +14,15 @@
 // to 0 once a row has a finite max, and a row that has seen no allowed key
 // yet takes p = 0 from one per-row guard, so its output stays finite. (A
 // per-key select instead cost 11% of B2's prefill time on the H100.)
+//
+// int8 keys and values (the int8 forms of B2 folded and B5): stage_kv_int8
+// converts a tile to bf16 while staging it (exact for |x| <= 127) and puts
+// its 64 key and 64 value scales where the Q tile was: Q is read only into
+// registers (load_q_frags) before the first key tile, so the shared-memory
+// budget stays kSmemBytes. attend_tile<true> then scales a score by its
+// key's scale after sm_scale, sums l over the unscaled p, and scales p by
+// its value's scale before rounding the P tile to bf16, as the TPU kernel
+// does. attend_tile<false> compiles to the bf16-only code.
 #pragma once
 
 #include <mma.h>
@@ -128,9 +137,59 @@ __device__ __forceinline__ void stage_kv(const Tiles& t, const bf16* k,
   __syncthreads();
 }
 
+// rows [r0, r0 + 64) of a (nrows, row_stride) int8 matrix -> shared bf16
+// tile, zero rows past nrows
+__device__ __forceinline__ void load_tile_int8(bf16* dst, const int8_t* src,
+                                               long long row_stride, int r0,
+                                               int nrows) {
+  for (int c = threadIdx.x; c < kBk * (kHd / 8); c += kThreads) {
+    const int r = c / (kHd / 8), col = (c % (kHd / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < nrows) {
+      const uint2 u = *reinterpret_cast<const uint2*>(
+          src + (long long)(r0 + r) * row_stride + col);
+      float f[8];
+      v3d_int8x4_to_float(u.x, f);
+      v3d_int8x4_to_float(u.y, f + 4);
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&val);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    }
+    *reinterpret_cast<uint4*>(dst + r * kLdq + col) = val;
+  }
+}
+
+// the key scales (64 floats) and then the value scales of the staged tile,
+// in the Q tile's space
+__device__ __forceinline__ float* tile_scales(const Tiles& t) {
+  return reinterpret_cast<float*>(t.q);
+}
+
+// stage_kv for an int8 K and V with per-key scales ks[key * sstride] and
+// vs[key * sstride] (zero past nkeys, where the mask drops the key anyway)
+__device__ __forceinline__ void stage_kv_int8(const Tiles& t, const int8_t* k,
+                                              const int8_t* v,
+                                              long long stride,
+                                              const float* ks,
+                                              const float* vs,
+                                              long long sstride, int k0,
+                                              int nkeys) {
+  __syncthreads();                       // every warp is done with K/V
+  load_tile_int8(t.k, k, stride, k0, nkeys);
+  load_tile_int8(t.v, v, stride, k0, nkeys);
+  float* sc = tile_scales(t);
+  for (int i = threadIdx.x; i < 2 * kBk; i += kThreads) {
+    const int key = k0 + i % kBk;
+    const float* src = i < kBk ? ks : vs;
+    sc[i] = key < nkeys ? src[(long long)key * sstride] : 0.f;
+  }
+  __syncthreads();
+}
+
 // One staged 64-key tile (keys k0 .. k0 + 63) of the online softmax.
-// ok(col) says whether this thread's row may attend key col.
-template <class Ok>
+// ok(col) says whether this thread's row may attend key col. kQuant: the
+// tile was staged by stage_kv_int8 and its scales apply.
+template <bool kQuant = false, class Ok>
 __device__ __forceinline__ void attend_tile(const Tiles& t, const QFrag* qf,
                                             RowState& st, int k0,
                                             float sm_scale, Ok ok) {
@@ -152,11 +211,17 @@ __device__ __forceinline__ void attend_tile(const Tiles& t, const QFrag* qf,
 
   const float* srow = t.s + st.row * kLds + st.half * 32;
   bf16* prow = t.p + st.row * kLdp + st.half * 32;
+  const float* kscale = tile_scales(t) + st.half * 32;
+  const float* vscale = kscale + kBk;
   float sv[32];
   float mx = V3D_NEG_INF;
 #pragma unroll
   for (int c = 0; c < 32; ++c) {
-    sv[c] = ok(k0 + st.half * 32 + c) ? srow[c] * sm_scale : V3D_NEG_INF;
+    if constexpr (kQuant)
+      sv[c] = ok(k0 + st.half * 32 + c) ? srow[c] * sm_scale * kscale[c]
+                                        : V3D_NEG_INF;
+    else
+      sv[c] = ok(k0 + st.half * 32 + c) ? srow[c] * sm_scale : V3D_NEG_INF;
     mx = fmaxf(mx, sv[c]);
   }
   mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -169,7 +234,10 @@ __device__ __forceinline__ void attend_tile(const Tiles& t, const QFrag* qf,
   for (int c = 0; c < 32; ++c) {
     const float p = expf(sv[c] - m_new) * live;
     sum += p;
-    prow[c] = __float2bfloat16(p);
+    if constexpr (kQuant)
+      prow[c] = __float2bfloat16(p * vscale[c]);
+    else
+      prow[c] = __float2bfloat16(p);
   }
   sum += __shfl_xor_sync(0xffffffffu, sum, 1);
   st.l = st.l * alpha + sum;

@@ -1,10 +1,12 @@
 // Suffix-over-shared-prefix attention, bf16 in, bf16 out (kernel B5).
 //
 // Replaces: video3d_tpu/kernels/flash_attention.py::_sp_fused_kernel (entry
-// flash_attention_shared_prefix -> _shared_prefix_fused), bf16 prefix, no
-// int8 scales. Scene-grouped batched suffix prefill: the suffix queries of
+// flash_attention_shared_prefix -> _shared_prefix_fused), with a bf16
+// prefix or an int8 one with (P, KV, 1) f32 scales (quantized=True, scales
+// :879-881). Scene-grouped batched suffix prefill: the suffix queries of
 // all B rows of a batch attend ONE scene prefix K/V (no batch dim), then
-// each row's own suffix K/V causally.
+// each row's own suffix K/V causally. The suffix K/V are always the
+// chunk's raw bf16 projections, never quantized.
 //
 // What bounds it on an H100: at the main path's shape (B = 8 questions of
 // 64 tokens, 28 heads, a 6.7k-key prefix) the prefix K/V of a layer is
@@ -32,16 +34,24 @@
 // KV, hd) projections. Query rows r >= suffix_lens[b] are undefined by
 // contract (finite garbage), so suffix_lens never reaches the kernel: the
 // causal mask already confines valid rows to cols <= r < suffix_lens[b].
+// An int8 prefix (one template on its element type) is staged as bf16 with
+// its scales and attended with attend_tile<true> (flash_tile.cuh); the
+// suffix tiles of the same pass take the bf16 path without scales.
+#include <type_traits>
+
 #include "flash_tile.cuh"
 
 using namespace v3d_flash;
 
 namespace {
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 shared_prefix_kernel(const bf16* __restrict__ q,    // (B, L, H, hd)
-                     const bf16* __restrict__ pk,   // (P, KV, hd)
-                     const bf16* __restrict__ pv,
+                     const T* __restrict__ pk,      // (P, KV, hd)
+                     const T* __restrict__ pv,
+                     const float* __restrict__ pks,  // (P, KV) or null (bf16)
+                     const float* __restrict__ pvs,
                      const bf16* __restrict__ sk,   // (B, L, KV, hd)
                      const bf16* __restrict__ sv,
                      bf16* __restrict__ out,        // (B, L, H, hd)
@@ -72,9 +82,16 @@ shared_prefix_kernel(const bf16* __restrict__ q,    // (B, L, H, hd)
   const int rb = fr / LG, rr = (fr % LG) / G;
 
   // 1. the shared prefix
+  auto in_prefix = [&](int col) { return col < P; };
   for (int k0 = 0; k0 < P; k0 += kBk) {
-    stage_kv(t, pk + kvh * kHd, pv + kvh * kHd, stride, k0, P);
-    attend_tile(t, qf, st, k0, sm_scale, [&](int col) { return col < P; });
+    if constexpr (std::is_same<T, int8_t>::value) {
+      stage_kv_int8(t, pk + kvh * kHd, pv + kvh * kHd, stride, pks + kvh,
+                    pvs + kvh, KV, k0, P);
+      attend_tile<true>(t, qf, st, k0, sm_scale, in_prefix);
+    } else {
+      stage_kv(t, pk + kvh * kHd, pv + kvh * kHd, stride, k0, P);
+      attend_tile(t, qf, st, k0, sm_scale, in_prefix);
+    }
   }
   // 2. each batch row's own suffix, block-diagonal causal
   const int last = min(q0 + kBq, R) - 1;
@@ -92,15 +109,12 @@ shared_prefix_kernel(const bf16* __restrict__ q,    // (B, L, H, hd)
   if (fr < R) store_row(t, st, out + row_off(fr));
 }
 
-}  // namespace
-
-extern "C" int v3d_shared_prefix_attention(const void* q, const void* pk,
-                                           const void* pv, const void* sk,
-                                           const void* sv, void* out, int B,
-                                           int L, int P, int H, int KV,
-                                           float sm_scale, void* stream) {
+template <typename T>
+int launch(const void* q, const void* pk, const void* pv, const void* pks,
+           const void* pvs, const void* sk, const void* sv, void* out, int B,
+           int L, int P, int H, int KV, float sm_scale, void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      shared_prefix_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared_prefix_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (KV <= 0 || H % KV != 0 || P < 0)
@@ -108,11 +122,31 @@ extern "C" int v3d_shared_prefix_attention(const void* q, const void* pk,
   if (B <= 0 || L <= 0) return 0;
   const int R = B * L * (H / KV);
   dim3 grid((R + kBq - 1) / kBq, KV);
-  shared_prefix_kernel<<<grid, kThreads, kSmemBytes,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pk),
-      static_cast<const bf16*>(pv), static_cast<const bf16*>(sk),
+  shared_prefix_kernel<T><<<grid, kThreads, kSmemBytes,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const T*>(pk),
+      static_cast<const T*>(pv), static_cast<const float*>(pks),
+      static_cast<const float*>(pvs), static_cast<const bf16*>(sk),
       static_cast<const bf16*>(sv), static_cast<bf16*>(out), B, L, P, H, KV,
       sm_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int v3d_shared_prefix_attention(const void* q, const void* pk,
+                                           const void* pv, const void* sk,
+                                           const void* sv, void* out, int B,
+                                           int L, int P, int H, int KV,
+                                           float sm_scale, void* stream) {
+  return launch<bf16>(q, pk, pv, nullptr, nullptr, sk, sv, out, B, L, P, H,
+                      KV, sm_scale, stream);
+}
+
+extern "C" int v3d_shared_prefix_attention_int8(
+    const void* q, const void* pk, const void* pv, const void* pk_scale,
+    const void* pv_scale, const void* sk, const void* sv, void* out, int B,
+    int L, int P, int H, int KV, float sm_scale, void* stream) {
+  return launch<int8_t>(q, pk, pv, pk_scale, pv_scale, sk, sv, out, B, L, P,
+                        H, KV, sm_scale, stream);
 }

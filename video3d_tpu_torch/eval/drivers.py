@@ -65,7 +65,7 @@ def pick_bucket(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
 
 @dataclass
 class EngineConfig:
-    """Generation settings of the answer path (greedy, bf16 KV cache)."""
+    """Generation settings of the answer path (greedy)."""
 
     max_new_tokens: int = 512
     eos_token_id: int = 151645          # <|im_end|>
@@ -78,16 +78,31 @@ class EngineConfig:
     # LRU of N scenes' spliceable vision features (0 = off)
     scene_cache_scenes: int = 0
     # LRU of N scenes' prefix KV (0 = off); device memory per scene:
-    # prefix_len * layers * 2 * KV * hd * 2 bytes (~0.39 GB at 7B, 6.7k)
+    # prefix_len * layers * 2 * KV * hd * 2 bytes with a bf16 cache (~0.39
+    # GB at 7B, 6.7k), with an int8 one prefix_len * layers * 2 * KV *
+    # (hd + 4) bytes (values and f32 scales, ~0.20 GB)
     prefix_cache_scenes: int = 0
     # suffix prefill buckets of the prefix path
     suffix_buckets: Tuple[int, ...] = (64, 128, 256, 512)
+    # KV cache storage: "bfloat16", or "int8" (values plus f32 scales per
+    # token and kv head; halves the cache's bytes)
+    kv_cache_dtype: str = "bfloat16"
+
+    def cache_dtype(self) -> torch.dtype:
+        if self.kv_cache_dtype == "int4":
+            raise NotImplementedError("an int4 KV cache is not ported "
+                                      "(ROADMAP B8, the int4 serving slice)")
+        dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+        if self.kv_cache_dtype not in dtypes:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: "
+                             f"expected one of {sorted(dtypes)}")
+        return dtypes[self.kv_cache_dtype]
 
 
 class _PrefixEntry(NamedTuple):
     """Scene-prefix KV cache entry (EngineConfig.prefix_cache_scenes)."""
 
-    cache: qwen2.KVCache   # k/v (layers, 1, P, KV*hd), owned by the entry
+    cache: qwen2.KVCache   # (layers, 1, P, ...) k/v[/scales], entry-owned
     prefix_len: int        # P: spliced index one past the vision block
     num_frames: int        # V used when the prefix was built
     ids_prefix: tuple      # prompt ids up to and including the <image> slot
@@ -114,6 +129,7 @@ class InferenceEngine:
         self.ip = image_processor or SigLipImageProcessor(
             size=(model_cfg.vision.image_size,) * 2)
         self.ecfg = engine_cfg or EngineConfig()
+        self.cache_dtype = self.ecfg.cache_dtype()
         self.device = torch.device(device)
         self.dtype = params["llm"]["embed_tokens"].dtype
         # scene LRUs keyed by video id; the lock guards both (a worker
@@ -244,7 +260,8 @@ class InferenceEngine:
         return generate_greedy(self.params, self.cfg, batch,
                                max_new_tokens=self.ecfg.max_new_tokens,
                                eos_token_id=self.ecfg.eos_token_id,
-                               vision_features=vision_features)
+                               vision_features=vision_features,
+                               cache_dtype=self.cache_dtype)
 
     def _generate_from_state(self, state: DecodeState) -> GenerateResult:
         return generate_from_state(self.params, self.cfg, state,
@@ -306,8 +323,8 @@ class InferenceEngine:
         if P == 0 or P >= cache.k.shape[2]:
             return
         V = int((kind0 == KIND_VISION).sum()) // self.cfg.tokens_per_frame
-        pre = qwen2.KVCache(cache.k[:, :, :P].clone(),
-                            cache.v[:, :, :P].clone())
+        pre = qwen2.KVCache(*(None if t is None else t[:, :, :P].clone()
+                              for t in cache))
         entry = _PrefixEntry(cache=pre, prefix_len=P, num_frames=V,
                              ids_prefix=tuple(ids[:img + 1]))
         with self._cache_lock:
@@ -361,9 +378,10 @@ class InferenceEngine:
             entry = prep["entry"]
             self.prefix_cache_stats[0] += 1
             return start_decode_prefix(self.params, self.cfg, prep["batch"],
-                                       entry.cache, entry.prefix_len, mcl)
+                                       entry.cache, entry.prefix_len, mcl,
+                                       self.cache_dtype)
         state = start_decode(self.params, self.cfg, prep["batch"], mcl,
-                             prep["vf"])
+                             prep["vf"], self.cache_dtype)
         if (self.ecfg.prefix_cache_scenes > 0 and prep["img"] >= 0
                 and isinstance(prep["key"], str)):
             self.prefix_cache_stats[1] += 1
@@ -446,7 +464,7 @@ class InferenceEngine:
         entry, batch = prep["entry"], prep["batch"]
         state = start_decode_prefix(
             self.params, self.cfg, batch, entry.cache, entry.prefix_len,
-            prep["bucket"] + self.ecfg.max_new_tokens)
+            prep["bucket"] + self.ecfg.max_new_tokens, self.cache_dtype)
         self.prefix_cache_stats[0] += int(batch.text_ids.shape[0])
         return self._texts(self._generate_from_state(state))
 

@@ -37,7 +37,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "flash_attention_folded": 0,
                             "decode_attention": 0,
-                            "shared_prefix_attention": 0}
+                            "shared_prefix_attention": 0,
+                            "int8_matvec": 0, "decode_attention_int8": 0,
+                            "flash_attention_folded_int8": 0,
+                            "shared_prefix_attention_int8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +65,20 @@ _SIGNATURES = {
     # q, pk, pv, sk, sv, out, B, L, P, H, KV, sm_scale, stream
     "v3d_shared_prefix_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _F, _P],
+    # x, q, scale, y, in, out, stream
+    "v3d_int8_matvec": [_P, _P, _P, _P, _I, _I, _P],
+    # q, k_all, v_all, k_scale, v_scale, kv_len, out, part_m, part_l,
+    # part_acc, layer, B, S, H, KV, n_chunks, sm_scale, stream
+    "v3d_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_all, v_all, k_scale, v_scale, lengths, q_off, out, layer, B, L,
+    # S, H, KV, sm_scale, stream
+    "v3d_flash_attention_folded_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _F, _P],
+    # q, pk, pv, pk_scale, pv_scale, sk, sv, out, B, L, P, H, KV, sm_scale,
+    # stream
+    "v3d_shared_prefix_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                         _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -61,30 +61,41 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                       sk: torch.Tensor, sv: torch.Tensor,
-                      suffix_lens: torch.Tensor) -> torch.Tensor:
+                      suffix_lens: torch.Tensor,
+                      pk_scale: Optional[torch.Tensor] = None,
+                      pv_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Suffix-over-SHARED-prefix attention (scene-grouped batched suffix
     prefill: every batch row attends the same scene prefix). Runs kernel B5
     on the GPU and :func:`mha_shared_prefix_reference` on the CPU.
 
     q (B, L, H, hd), query r of row b at absolute position P + r; pk/pv
-    (P, KV, hd) with no batch dim; sk/sv (B, L, KV, hd) the chunk's own K/V;
-    suffix_lens (B,) valid suffix keys. Rows r >= suffix_lens[b] are
-    undefined by contract.
+    (P, KV, hd) with no batch dim, bf16, or int8 with (P, KV, 1) f32 scales
+    ``pk_scale``/``pv_scale``; sk/sv (B, L, KV, hd) the chunk's own K/V, at
+    full precision whatever the prefix's type; suffix_lens (B,) valid suffix
+    keys. Rows r >= suffix_lens[b] are undefined by contract.
     """
     from video3d_tpu_torch.kernels.flash_attention import \
         flash_attention_shared_prefix
 
-    return flash_attention_shared_prefix(q, pk, pv, sk, sv, suffix_lens)
+    return flash_attention_shared_prefix(q, pk, pv, sk, sv, suffix_lens,
+                                         pk_scale, pv_scale)
 
 
-def mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens):
+def mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens,
+                                pk_scale=None, pv_scale=None):
     """Oracle of :func:`mha_shared_prefix`: broadcast the prefix to every
-    row, concatenate the suffix K/V, and run the plain cached path
+    row (an int8 prefix dequantized with its scales in q's dtype, as the JAX
+    oracle does), concatenate the suffix K/V, and run the plain cached path
     (q_positions = P + r, kv_len = P + suffix_lens)."""
     B, L = q.shape[0], q.shape[1]
     P = pk.shape[0]
-    k = torch.cat([pk.to(q.dtype).expand(B, *pk.shape), sk.to(q.dtype)], 1)
-    v = torch.cat([pv.to(q.dtype).expand(B, *pv.shape), sv.to(q.dtype)], 1)
+    pk, pv = pk.to(q.dtype), pv.to(q.dtype)
+    if pk_scale is not None:
+        pk = pk * pk_scale.to(q.dtype)
+        pv = pv * pv_scale.to(q.dtype)
+    k = torch.cat([pk.expand(B, *pk.shape), sk.to(q.dtype)], 1)
+    v = torch.cat([pv.expand(B, *pv.shape), sv.to(q.dtype)], 1)
     q_positions = (P + torch.arange(L, device=q.device))[None].expand(B, L)
     return mha_reference(q, k, v, q_positions=q_positions,
                          kv_len=P + suffix_lens.to(q.device))
@@ -92,23 +103,29 @@ def mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens):
 
 def mha_cached_stacked(q: torch.Tensor, k_all: torch.Tensor,
                        v_all: torch.Tensor, layer: int, kv_heads: int,
-                       q_positions: torch.Tensor,
-                       kv_len: torch.Tensor) -> torch.Tensor:
+                       q_positions: torch.Tensor, kv_len: torch.Tensor,
+                       k_scale: Optional[torch.Tensor] = None,
+                       v_scale: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Cache attention for ``layer`` of the stacked flat (layers, B, S,
-    KV*hd) cache. One token (L == 1): the decode kernel (B3), a slot valid
-    below ``min(q_position + 1, kv_len)``. A multi-token chunk (L > 1) whose
-    rows sit at contiguous positions ``q_positions[b, 0] + r``: the
-    GQA-folded flash kernel (B2 folded), a slot valid when it is <= the
-    query's position and < kv_len. The CPU takes each kernel's plain
-    version."""
+    KV*hd) cache: bf16, or int8 with the stacked (layers, B, S, KV, 1) f32
+    scales ``k_scale``/``v_scale`` (the kernels read the layer's scales by
+    stride; the JAX function takes them already sliced). One token
+    (L == 1): the decode kernel (B3), a slot valid below
+    ``min(q_position + 1, kv_len)``. A multi-token chunk (L > 1) whose rows
+    sit at contiguous positions ``q_positions[b, 0] + r``: the GQA-folded
+    flash kernel (B2 folded), a slot valid when it is <= the query's
+    position and < kv_len. The CPU takes each kernel's plain version."""
     if q.shape[1] > 1:
         from video3d_tpu_torch.kernels.flash_attention import \
             flash_attention_gqa_folded
 
         return flash_attention_gqa_folded(q, k_all, v_all, kv_len,
-                                          q_positions[:, 0], layer, kv_heads)
+                                          q_positions[:, 0], layer, kv_heads,
+                                          k_scale, v_scale)
     from video3d_tpu_torch.kernels.decode_attention import decode_attention
 
     eff_len = torch.minimum(q_positions[:, 0] + 1, kv_len)
     return decode_attention(q, k_all, v_all, eff_len, layer=layer,
-                            kv_heads=kv_heads)
+                            kv_heads=kv_heads, k_scale=k_scale,
+                            v_scale=v_scale)

@@ -7,8 +7,10 @@ version (``mha_reference`` with the same masks, or
 kernel (``csrc/flash_attention.cu``, ``csrc/shared_prefix_attention.cu``)
 or raises. Counterparts of ``video3d_tpu/kernels/flash_attention.py``:
 ``flash_attention`` in its prefill form (L == S, query offset 0, forward
-only), ``flash_attention_gqa_folded`` and ``flash_attention_shared_prefix``
-(bf16, no int8 scales; one shared-prefix path, the fused one).
+only, bf16), ``flash_attention_gqa_folded`` over a bf16 or an int8 cache
+and ``flash_attention_shared_prefix`` over a bf16 or an int8 prefix (one
+shared-prefix path, the fused one). An int8 cache or prefix launches the
+kernel's int8 instantiation and counts under its own ``*_int8`` name.
 """
 
 from __future__ import annotations
@@ -20,16 +22,21 @@ import torch
 from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels.attention import (mha_reference,
                                                  mha_shared_prefix_reference)
+from video3d_tpu_torch.kernels.decode_attention import check_cache, layer_kv
 
 HEAD_DIM = 128   # the kernels' compiled head dim
 
 
-def _check_bf16(name: str, device, **tensors) -> None:
+def _check_dtype(name: str, device, dtype, **tensors) -> None:
     for arg, t in tensors.items():
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+        if t.dtype != dtype or not t.is_contiguous() \
                 or t.device != device or t.data_ptr() % 16:
             raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
-                             f"aligned bf16 tensor on {device}")
+                             f"aligned {dtype} tensor on {device}")
+
+
+def _check_bf16(name: str, device, **tensors) -> None:
+    _check_dtype(name, device, torch.bfloat16, **tensors)
 
 
 def _int32(t: torch.Tensor, device) -> torch.Tensor:
@@ -82,11 +89,12 @@ def flash_attention_gqa_folded_plain(q: torch.Tensor, k_all: torch.Tensor,
                                      v_all: torch.Tensor,
                                      lengths: torch.Tensor,
                                      q_offsets: torch.Tensor, layer: int,
-                                     kv_heads: int) -> torch.Tensor:
-    B, L, H, hd = q.shape
-    S = k_all.shape[2]
-    kl = k_all[layer].reshape(B, S, kv_heads, hd).to(q.dtype)
-    vl = v_all[layer].reshape(B, S, kv_heads, hd).to(q.dtype)
+                                     kv_heads: int,
+                                     k_scale: Optional[torch.Tensor] = None,
+                                     v_scale: Optional[torch.Tensor] = None
+                                     ) -> torch.Tensor:
+    L = q.shape[1]
+    kl, vl = layer_kv(q, k_all, v_all, layer, kv_heads, k_scale, v_scale)
     q_positions = q_offsets.to(device=q.device, dtype=torch.long)[:, None] \
         + torch.arange(L, device=q.device)
     return mha_reference(q, kl, vl, q_positions=q_positions, kv_len=lengths)
@@ -95,26 +103,32 @@ def flash_attention_gqa_folded_plain(q: torch.Tensor, k_all: torch.Tensor,
 def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
                                v_all: torch.Tensor, lengths: torch.Tensor,
                                q_offsets: torch.Tensor, layer: int,
-                               kv_heads: int) -> torch.Tensor:
+                               kv_heads: int,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Causal cached-chunk attention with the GQA group folded into the
     query rows, so each kv head's cache streams once for all its query
     heads.
 
     q (B, L, H, hd): query r of row b sits at absolute position
     ``q_offsets[b] + r``. Keys come from ``layer`` of the stacked flat
-    (layers, B, S, KV*hd) cache; slot s is valid when s <= the query's
-    position and s < ``lengths[b]``. Returns (B, L, H, hd) in q's dtype.
+    (layers, B, S, KV*hd) cache, bf16, or int8 with the stacked (layers, B,
+    S, KV, 1) f32 scales ``k_scale``/``v_scale``; slot s is valid when
+    s <= the query's position and s < ``lengths[b]``. Returns (B, L, H, hd)
+    in q's dtype.
     """
     if q.device.type == "cpu":
         return flash_attention_gqa_folded_plain(q, k_all, v_all, lengths,
-                                                q_offsets, layer, kv_heads)
+                                                q_offsets, layer, kv_heads,
+                                                k_scale, v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_gqa_folded: no kernel for device "
                          f"{q.device}")
     B, L, H, hd = q.shape
     NL, Bc, S, C = k_all.shape
-    _check_bf16("flash_attention_gqa_folded", q.device, q=q, k_all=k_all,
-                v_all=v_all)
+    quantized = check_cache("flash_attention_gqa_folded", q, k_all, v_all,
+                            k_scale, v_scale, kv_heads)
     if (hd != HEAD_DIM or Bc != B or C != kv_heads * hd
             or v_all.shape != k_all.shape or H % kv_heads
             or not 0 <= layer < NL):
@@ -123,37 +137,64 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
                          f"layer {layer} kv_heads {kv_heads}")
     lengths, q_offsets = _int32(lengths, q.device), _int32(q_offsets, q.device)
     out = torch.empty_like(q)
-    err = _build.library().v3d_flash_attention_folded(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), lengths.data_ptr(),
-        q_offsets.data_ptr(), out.data_ptr(), layer, B, L, S, H, kv_heads,
-        float(hd ** -0.5), _stream(q.device))
-    _build.check(err, "flash_attention_gqa_folded")
-    _build.count_launch("flash_attention_folded")
+    lib = _build.library()
+    if quantized:
+        entry, name = (lib.v3d_flash_attention_folded_int8,
+                       "flash_attention_folded_int8")
+        scales = (k_scale.data_ptr(), v_scale.data_ptr())
+    else:
+        entry, name = lib.v3d_flash_attention_folded, "flash_attention_folded"
+        scales = ()
+    err = entry(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), *scales,
+        lengths.data_ptr(), q_offsets.data_ptr(), out.data_ptr(), layer, B, L,
+        S, H, kv_heads, float(hd ** -0.5), _stream(q.device))
+    _build.check(err, name)
+    _build.count_launch(name)
     return out
 
 
 def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
                                   pv: torch.Tensor, sk: torch.Tensor,
-                                  sv: torch.Tensor,
-                                  suffix_lens: torch.Tensor) -> torch.Tensor:
+                                  sv: torch.Tensor, suffix_lens: torch.Tensor,
+                                  pk_scale: Optional[torch.Tensor] = None,
+                                  pv_scale: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """Suffix-over-shared-prefix attention: the suffix queries of every
     batch row attend ONE prefix K/V, then their own suffix causally.
 
     q (B, L, H, hd), query r of row b at position P + r; pk/pv (P, KV, hd)
-    with no batch dim; sk/sv (B, L, KV, hd) the chunk's own K/V; suffix_lens
-    (B,) valid suffix keys. Query rows r >= suffix_lens[b] are undefined by
-    contract (the kernel applies only the causal mask there). Returns
-    (B, L, H, hd) in q's dtype.
+    with no batch dim, bf16, or int8 with (P, KV, 1) f32 scales
+    ``pk_scale``/``pv_scale``; sk/sv (B, L, KV, hd) the chunk's own bf16
+    K/V; suffix_lens (B,) valid suffix keys. Query rows r >= suffix_lens[b]
+    are undefined by contract (the kernel applies only the causal mask
+    there). Returns (B, L, H, hd) in q's dtype.
     """
     if q.device.type == "cpu":
-        return mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens)
+        return mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens,
+                                           pk_scale, pv_scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_shared_prefix: no kernel for "
                          f"device {q.device}")
     B, L, H, hd = q.shape
     P, KV = pk.shape[0], pk.shape[1]
-    _check_bf16("flash_attention_shared_prefix", q.device, q=q, pk=pk, pv=pv,
-                sk=sk, sv=sv)
+    quantized = pk.dtype == torch.int8
+    _check_bf16("flash_attention_shared_prefix", q.device, q=q, sk=sk, sv=sv)
+    if quantized:
+        if pk_scale is None or pv_scale is None \
+                or pk_scale.shape != (P, KV, 1) \
+                or pv_scale.shape != pk_scale.shape:
+            raise ValueError("flash_attention_shared_prefix: an int8 prefix "
+                             "needs (P, KV, 1) scales")
+        _check_dtype("flash_attention_shared_prefix", q.device, torch.int8,
+                     pk=pk, pv=pv)
+        _check_dtype("flash_attention_shared_prefix", q.device, torch.float32,
+                     pk_scale=pk_scale, pv_scale=pv_scale)
+    elif pk_scale is not None or pv_scale is not None:
+        raise ValueError("flash_attention_shared_prefix: scales given for a "
+                         "bf16 prefix")
+    else:
+        _check_bf16("flash_attention_shared_prefix", q.device, pk=pk, pv=pv)
     if (hd != HEAD_DIM or pk.shape != (P, KV, hd) or pv.shape != pk.shape
             or sk.shape != (B, L, KV, hd) or sv.shape != sk.shape
             or H % KV):
@@ -161,10 +202,18 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
                          f"q {tuple(q.shape)} prefix {tuple(pk.shape)} "
                          f"suffix {tuple(sk.shape)}")
     out = torch.empty_like(q)
-    err = _build.library().v3d_shared_prefix_attention(
-        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk.data_ptr(),
+    lib = _build.library()
+    if quantized:
+        entry, name = (lib.v3d_shared_prefix_attention_int8,
+                       "shared_prefix_attention_int8")
+        scales = (pk_scale.data_ptr(), pv_scale.data_ptr())
+    else:
+        entry, name = lib.v3d_shared_prefix_attention, "shared_prefix_attention"
+        scales = ()
+    err = entry(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), *scales, sk.data_ptr(),
         sv.data_ptr(), out.data_ptr(), B, L, P, H, KV, float(hd ** -0.5),
         _stream(q.device))
-    _build.check(err, "flash_attention_shared_prefix")
-    _build.count_launch("shared_prefix_attention")
+    _build.check(err, name)
+    _build.count_launch(name)
     return out

@@ -44,10 +44,12 @@ def _decode_position_ids(pos: torch.Tensor) -> torch.Tensor:
 
 def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
                        max_cache_len: int,
-                       vision_features: Optional[torch.Tensor] = None):
-    """Vision encode + splice + prefill into a fresh bf16 cache. Returns
-    (next_logits (B, vocab), cache, start_pos (B,)). ``vision_features``
-    (B, T, D) skips the vision encode."""
+                       vision_features: Optional[torch.Tensor] = None,
+                       cache_dtype=torch.bfloat16):
+    """Vision encode + splice + prefill into a fresh cache of
+    ``cache_dtype`` (bf16, or int8 with scales). Returns (next_logits
+    (B, vocab), cache, start_pos (B,)). ``vision_features`` (B, T, D) skips
+    the vision encode."""
     B, L = batch.text_ids.shape
     if vision_features is None:
         vision_features = lv3d.encode_video(params, cfg, batch.images,
@@ -56,7 +58,8 @@ def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
                                   batch.text_ids, batch.kind,
                                   batch.vision_index)
     dev = embeds.device
-    cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len, device=dev)
+    cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len, dtype=cache_dtype,
+                                device=dev)
     cache_positions = torch.arange(L, device=dev)[None].expand(B, L)
     hidden = qwen2.qwen2_forward(
         params["llm"], cfg.llm, embeds, lv3d._position_ids_3d(batch, cfg),
@@ -76,47 +79,53 @@ def _initial_state(next_logits, cache, pos) -> DecodeState:
 @torch.inference_mode()
 def start_decode(params, cfg: ModelConfig, batch: lv3d.Batch,
                  max_cache_len: int,
-                 vision_features: Optional[torch.Tensor] = None
-                 ) -> DecodeState:
+                 vision_features: Optional[torch.Tensor] = None,
+                 cache_dtype=torch.bfloat16) -> DecodeState:
     """Prefill and return the initial decode state."""
     next_logits, cache, start_pos = prefill_multimodal(
-        params, cfg, batch, max_cache_len, vision_features)
+        params, cfg, batch, max_cache_len, vision_features, cache_dtype)
     return _initial_state(next_logits, cache, start_pos)
 
 
 def shared_prefix_view(prefix: qwen2.KVCache, prefix_len: int,
                        B: int) -> Optional[qwen2.KVCache]:
-    """Batch-free (layers, P, KV*hd) view of a stored B=1 prefix for the
-    shared-prefix attention path, or None when the path does not apply
-    (B == 1: the folded kernel over the seeded cache reads the same bytes
-    once anyway). Sliced to ``prefix_len``: the shared path attends every
-    prefix slot unmasked."""
+    """Batch-free (layers, P, KV*hd) view of a stored B=1 prefix (with its
+    (layers, P, KV, 1) scales when int8) for the shared-prefix attention
+    path, or None when the path does not apply (B == 1: the folded kernel
+    over the seeded cache reads the same bytes once anyway). Sliced to
+    ``prefix_len``: the shared path attends every prefix slot unmasked."""
     if not (prefix.k.shape[1] == 1 and B > 1):
         return None
-    return qwen2.KVCache(prefix.k[:, 0, :prefix_len],
-                         prefix.v[:, 0, :prefix_len])
+    return qwen2.KVCache(*(None if t is None else t[:, 0, :prefix_len]
+                           for t in prefix))
 
 
 def _write_prefix(cache: qwen2.KVCache, prefix: qwen2.KVCache) -> None:
-    """Copy a (layers, 1 or B, P, KV*hd) prefix into the head of a fresh
-    cache, in place; a B=1 prefix broadcasts into every row. The cache never
-    shares memory with the stored prefix, so decode cannot reach it."""
+    """Copy a (layers, 1 or B, P, KV*hd) prefix (and its scales) into the
+    head of a fresh cache of the same dtype, in place; a B=1 prefix
+    broadcasts into every row. The cache never shares memory with the
+    stored prefix, so decode cannot reach it."""
     P = prefix.k.shape[2]
-    cache.k[:, :, :P] = prefix.k
-    cache.v[:, :, :P] = prefix.v
+    for dst, src in zip(cache, prefix):
+        if dst is not None:
+            dst[:, :, :P] = src
 
 
 @torch.inference_mode()
 def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
                         prefix: qwen2.KVCache, prefix_len: int,
-                        max_cache_len: int) -> DecodeState:
+                        max_cache_len: int,
+                        cache_dtype: Optional[torch.dtype] = None
+                        ) -> DecodeState:
     """Prefill only a question SUFFIX against a cached scene-prefix KV.
 
     ``batch`` is the suffix slice of the full splice plan
     (``slice_suffix_plan``): (B, Ls) ids at spliced positions
     [prefix_len, prefix_len + Ls), no vision tokens, and ``batch.seq_len``
     the TOTAL true length. ``prefix`` is the stored (layers, 1, P, KV*hd)
-    entry. The cache is seeded with the prefix (broadcast to every row),
+    entry (int8 with its scales); the new cache takes its dtype
+    (``cache_dtype``, when given, must be that dtype, as the JAX function
+    requires). The cache is seeded with the prefix (broadcast to every row),
     the suffix K/V are written after it, and the suffix attends the prefix
     plus itself: through the cache and the folded kernel at B == 1, through
     the shared-prefix kernel at B > 1. Decoding then proceeds unchanged.
@@ -125,6 +134,9 @@ def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
     dev = batch.text_ids.device
     if prefix_len + Ls > max_cache_len:
         raise ValueError("prefix + suffix longer than the KV cache")
+    if cache_dtype is not None and cache_dtype != prefix.k.dtype:
+        raise ValueError(f"a {prefix.k.dtype} prefix cannot seed a "
+                         f"{cache_dtype} cache")
     cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len,
                                 dtype=prefix.k.dtype, device=dev)
     _write_prefix(cache, prefix)
@@ -182,11 +194,11 @@ def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
 
 def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
                     max_new_tokens: int = 512, eos_token_id: int = 151645,
-                    vision_features: Optional[torch.Tensor] = None
-                    ) -> GenerateResult:
+                    vision_features: Optional[torch.Tensor] = None,
+                    cache_dtype=torch.bfloat16) -> GenerateResult:
     """Greedy decode into a cache of L + max_new_tokens slots."""
     state = start_decode(params, cfg, batch,
                          batch.text_ids.shape[1] + max_new_tokens,
-                         vision_features)
+                         vision_features, cache_dtype)
     return generate_from_state(params, cfg, state, max_new_tokens,
                                eos_token_id)

@@ -1,7 +1,8 @@
 """Qwen2 decoder with 3-axis mRoPE, GQA and a stacked flat KV cache, in
 PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the prefill,
 stacked single-token decode, contiguous multi-token chunk and shared-prefix
-branches; bf16 cache; dense weights).
+branches; a bf16 KV cache or an int8 one with per-token, per-head scales;
+dense weights or the int8 dicts of ``models/quant.py``).
 
 Parameter layout as in the JAX tree (matrices (in, out), used as
 ``x @ w``): ``embed_tokens (vocab, D)``, ``layers[i] {input_layernorm,
@@ -15,8 +16,7 @@ computed in f32 and cast to the query dtype inside ``apply_rotary``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,29 +24,65 @@ import torch.nn.functional as F
 from video3d_tpu.config import LLMConfig
 from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
                                                  mha_shared_prefix)
+from video3d_tpu_torch.models import quant
 
 Params = Dict[str, Any]
 
 
-@dataclass
-class KVCache:
+class KVCache(NamedTuple):
     """Stacked flat KV cache: k/v (num_layers, B, max_len, KV * hd).
 
     The same layout as the JAX package's ``KVCache``; the port writes new
-    K/V into it IN PLACE (JAX returns an updated copy), and the decode
-    kernel reads a layer straight out of the stacked buffer by its strides.
+    K/V into it IN PLACE (JAX returns an updated copy), and the attention
+    kernels read a layer straight out of the stacked buffer by its strides.
+    An int8 cache (``dtype=torch.int8``) also holds f32 scales k_scale /
+    v_scale (num_layers, B, max_len, KV, 1), per token and kv head; a bf16
+    or f32 one has None there.
     """
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
     @classmethod
     def zeros(cls, cfg: LLMConfig, batch: int, max_len: int,
               dtype=torch.bfloat16, device=None) -> "KVCache":
         shape = (cfg.num_hidden_layers, batch, max_len,
                  cfg.num_key_value_heads * cfg.head_dim)
-        return cls(torch.zeros(shape, dtype=dtype, device=device),
-                   torch.zeros(shape, dtype=dtype, device=device))
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
+        if dtype != torch.int8:
+            return cls(k, v)
+        sshape = shape[:-1] + (cfg.num_key_value_heads, 1)
+        return cls(k, v, torch.zeros(sshape, dtype=torch.float32,
+                                     device=device),
+                   torch.zeros(sshape, dtype=torch.float32, device=device))
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, L, KV, hd) -> int8 values and (B, L, KV, 1) f32 scales, symmetric
+    per token and head: scale = max(max|x| / 127, 1e-8) over hd. Bit for
+    bit the JAX ``_quantize_kv`` with int8 as it runs eagerly; under jit,
+    XLA may turn the divide by 127 into a multiply by its reciprocal, which
+    moves some scales by an ulp."""
+    xf = x.to(torch.float32)
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+                        min=1e-8)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _write_kv(cache: KVCache, layer: int, rows, cols, k: torch.Tensor,
+              v: torch.Tensor) -> None:
+    """cache[layer, rows, cols] = k / v (..., KV, hd), in place: cast to the
+    cache's dtype, or quantized with their scales into an int8 cache."""
+    for buf, sbuf, x in ((cache.k, cache.k_scale, k),
+                         (cache.v, cache.v_scale, v)):
+        if sbuf is not None:
+            x, scale = _quantize_kv(x)
+            sbuf[layer, rows, cols] = scale
+        buf[layer, rows, cols] = x.flatten(-2).to(buf.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -126,48 +162,46 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     a = p["attn"]
     h = rms_norm(x, p["input_layernorm"], cfg.rms_norm_eps)
-    q = (h @ a["wq"] + a["bq"]).reshape(B, L, H, hd)
-    k = (h @ a["wk"] + a["bk"]).reshape(B, L, KV, hd)
-    v = (h @ a["wv"] + a["bv"]).reshape(B, L, KV, hd)
+    mm = quant.matmul
+    q = (mm(h, a["wq"]) + a["bq"]).reshape(B, L, H, hd)
+    k = (mm(h, a["wk"]) + a["bk"]).reshape(B, L, KV, hd)
+    v = (mm(h, a["wv"]) + a["bv"]).reshape(B, L, KV, hd)
     q, k = apply_rotary(q, k, cos, sin)
 
     if kv_cache is None or prefill:
         if kv_cache is not None:
-            kv_cache.k[layer_idx, :, :L] = k.reshape(B, L, KV * hd)
-            kv_cache.v[layer_idx, :, :L] = v.reshape(B, L, KV * hd)
+            _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
+        # raw K/V, also with an int8 cache (as the JAX prefill)
         attn = mha(q, k, v, kv_len=kv_len)
     else:
         if cache_start is not None:
-            end = cache_start + L
-            kv_cache.k[layer_idx, :, cache_start:end] = k.reshape(
-                B, L, KV * hd)
-            kv_cache.v[layer_idx, :, cache_start:end] = v.reshape(
-                B, L, KV * hd)
+            _write_kv(kv_cache, layer_idx, slice(None),
+                      slice(cache_start, cache_start + L), k, v)
         elif L == 1:
-            rows = torch.arange(B, device=x.device)
-            pos = cache_positions[:, 0]
-            kv_cache.k[layer_idx, rows, pos] = k[:, 0].reshape(
-                B, KV * hd).to(kv_cache.k.dtype)
-            kv_cache.v[layer_idx, rows, pos] = v[:, 0].reshape(
-                B, KV * hd).to(kv_cache.v.dtype)
+            _write_kv(kv_cache, layer_idx, torch.arange(B, device=x.device),
+                      cache_positions[:, 0], k[:, 0], v[:, 0])
         else:
             raise NotImplementedError("per-row multi-token cache writes are "
                                       "not ported (pass cache_start)")
         if shared_prefix is not None:
-            pk, pv = shared_prefix
+            pk, pv = shared_prefix[:2]
             if cache_start != pk.shape[0]:
                 raise ValueError("a shared-prefix chunk starts at the prefix "
                                  "length")
-            attn = mha_shared_prefix(q, pk, pv, k, v, kv_len - cache_start)
+            # the suffix attends its own raw K/V, the prefix as stored
+            attn = mha_shared_prefix(q, pk, pv, k, v, kv_len - cache_start,
+                                     *shared_prefix[2:])
         else:
             attn = mha_cached_stacked(q, kv_cache.k, kv_cache.v, layer_idx,
                                       KV, q_positions=cache_positions,
-                                      kv_len=kv_len)
-    x = x + attn.reshape(B, L, D) @ a["wo"]
+                                      kv_len=kv_len, k_scale=kv_cache.k_scale,
+                                      v_scale=kv_cache.v_scale)
+    x = x + mm(attn.reshape(B, L, D), a["wo"])
 
     h = rms_norm(x, p["post_attention_layernorm"], cfg.rms_norm_eps)
     m = p["mlp"]
-    return x + (F.silu(h @ m["w_gate"]) * (h @ m["w_up"])) @ m["w_down"]
+    return x + mm(F.silu(mm(h, m["w_gate"])) * mm(h, m["w_up"]),
+                  m["w_down"])
 
 
 def qwen2_forward(params: Params, cfg: LLMConfig,
@@ -185,8 +219,9 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
     ``contiguous_update``: every row's ``cache_positions`` are the same
     range [start, start + L) (suffix over a cached prefix); the chunk's K/V
     are written there and attention reads the cache. ``shared_prefix``: a
-    KVCache with k/v (layers, P, KV*hd), the batch-free scene prefix, whose
-    start must be P (see :func:`decoder_layer`).
+    KVCache with k/v (layers, P, KV*hd) (and, int8, scales (layers, P, KV,
+    1)), the batch-free scene prefix, whose start must be P (see
+    :func:`decoder_layer`).
     """
     L = inputs_embeds.shape[1]
     if kv_cache is not None and prefill and L > kv_cache.k.shape[2]:
@@ -209,14 +244,17 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
             P = shared_prefix.k.shape[1]
             sp = (shared_prefix.k[i].reshape(P, KV, hd),
                   shared_prefix.v[i].reshape(P, KV, hd))
+            if shared_prefix.k_scale is not None:
+                sp += (shared_prefix.k_scale[i], shared_prefix.v_scale[i])
         x = decoder_layer(lp, x, cos, sin, cfg, i, kv_cache, cache_positions,
                           kv_len, prefill, cache_start, sp)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
 def lm_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """(B, L, D) -> (B, L, vocab) logits."""
-    return hidden @ params["lm_head"]
+    """(B, L, D) -> (B, L, vocab) logits; an int8 head at one row runs kernel
+    B4 on the GPU (``quant.matmul``)."""
+    return quant.matmul(hidden, params["lm_head"])
 
 
 def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
@@ -224,9 +262,12 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
-               dtype=torch.float32) -> Params:
+               dtype=torch.float32, bits: int = 16) -> Params:
     """Random init with the JAX package's distributions, made on ``device``:
-    N(0, 0.02) matrices and embeddings, zero biases, unit norms."""
+    N(0, 0.02) matrices and embeddings, zero biases, unit norms. ``bits=8``
+    quantizes the projections and lm_head (``quant.quantize_tree``'s
+    patterns), each layer right after its init, so the whole full-precision
+    decoder never exists at once."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -240,8 +281,13 @@ def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
     def ones(n):
         return torch.ones(n, device=device, dtype=dtype)
 
+    def quantized(llm):
+        if bits == 16:
+            return llm
+        return quant.quantize_tree({"llm": llm}, bits=bits)["llm"]
+
     def layer():
-        return {
+        return quantized({"layers": [{
             "input_layernorm": ones(D),
             "attn": {"wq": normal(D, H * hd), "wk": normal(D, KV * hd),
                      "wv": normal(D, KV * hd), "wo": normal(H * hd, D),
@@ -250,11 +296,11 @@ def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
             "post_attention_layernorm": ones(D),
             "mlp": {"w_gate": normal(D, I), "w_up": normal(D, I),
                     "w_down": normal(I, D)},
-        }
+        }]})["layers"][0]
 
-    return {
+    return quantized({
         "embed_tokens": normal(cfg.vocab_size, D),
         "layers": [layer() for _ in range(cfg.num_hidden_layers)],
         "norm": ones(D),
         "lm_head": normal(D, cfg.vocab_size),
-    }
+    })

@@ -16,7 +16,7 @@ import torch
 
 from video3d_tpu.config import ModelConfig, PosEmbedType
 from video3d_tpu_torch.models import llava_video3d as lv3d
-from video3d_tpu_torch.models import qwen2, siglip
+from video3d_tpu_torch.models import quant, qwen2, siglip
 
 Params = Dict[str, Any]
 
@@ -43,7 +43,14 @@ def _convert(node, device, dtype):
         return {k: _convert(v, device, dtype) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_convert(v, device, dtype) for v in node]
-    t = torch.from_numpy(np.array(node))       # a writable copy
+    quant.check_ported(node)
+    a = np.array(node)                          # a writable copy
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes' bfloat16, which torch.from_numpy rejects: carry the
+        # bits across as uint16 and reinterpret them
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
     if t.is_floating_point() and dtype is not None:
         t = t.to(dtype)
     return t.to(device)
@@ -53,7 +60,9 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device="cpu",
                     dtype=None) -> Params:
     """The JAX ``llava_video3d.init_model`` tree (numpy leaves; JAX linears
     are (in, out) and used as ``x @ w``) -> the port's parameter dict on
-    ``device``. ``dtype`` casts floating leaves (None keeps theirs)."""
+    ``device``. bf16 leaves carry across bit for bit, and so do the int8
+    ``{"q", "scale"}`` dicts of a ``quantize_tree``'d tree. ``dtype`` casts
+    floating leaves (None keeps theirs)."""
     check_config(cfg)
     out = {k: _convert(tree[k], device, dtype) for k in _USED}
     if len(out["vision"]["layers"]) != cfg.vision.num_hidden_layers \
@@ -63,11 +72,16 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device="cpu",
 
 
 def init_model(cfg: ModelConfig, device, generator: torch.Generator,
-               dtype=torch.bfloat16) -> Params:
+               dtype=torch.bfloat16, bits: int = 16) -> Params:
     """Random init of the answer path's parameters, made directly on
     ``device`` from ``generator`` (a generator of that device). At full
     width that is ~8 B parameters, 16 GB in bf16: built on the host it would
-    take minutes and ~30 GB of RAM."""
+    take minutes and ~30 GB of RAM.
+
+    ``bits=8`` gives what ``quantize_tree`` makes of the same tree (int8
+    LLM projections and lm_head), quantizing each decoder layer right after
+    its init, as the JAX ``builder.init_dummy_params`` does, so the full
+    bf16 LLM never exists next to the int8 one."""
     check_config(cfg)
     return {
         "vision": siglip.init_vision_tower(cfg.vision, device, generator,
@@ -79,5 +93,5 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
         "image_newline": torch.empty(cfg.llm.hidden_size, device=device,
                                      dtype=dtype).normal_(
                                          0.0, 0.02, generator=generator),
-        "llm": qwen2.init_qwen2(cfg.llm, device, generator, dtype),
+        "llm": qwen2.init_qwen2(cfg.llm, device, generator, dtype, bits),
     }
