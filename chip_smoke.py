@@ -14,7 +14,12 @@ Phases, each of which raises on failure (the process then exits non-zero):
    attention (B2 folded), split-K decode attention (B3), shared-prefix
    attention (B5), and the int8 configuration's kernels: the B=1 int8
    weight matvec (B4) at the vocab head and the int8-cache forms of B3,
-   B2 folded and B5; max error and median times (CUDA events).
+   B2 folded and B5; the training kernels at the training shapes: B2 with
+   the per-row logsumexp and the flash backward B6 (dQ, dK/dV); max error,
+   median times (CUDA events), each kernel's bound (the larger of its
+   operations over the card's peak and its bytes over the memory rate) and,
+   where one PyTorch call computes the same function
+   (``scaled_dot_product_attention``), that call's time.
 4. Main path: the ScanQA answer path at full width (``ModelConfig()``:
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
@@ -31,10 +36,20 @@ Phases, each of which raises on failure (the process then exits non-zero):
    phases 4 and 5 run again with ``kv_cache_dtype="int8"``, with exact
    launch counts of B4 and the int8 kernels and the first-step logit check
    at its own bound.
+7. Training: the int8 model is freed; ``ModelConfig()`` cut to
+   ``TRAIN_LAYERS`` decoder layers, f32 master weights from a seeded
+   generator, ``Trainer.train()`` with bf16 compute, remat and two
+   mini-steps per update for four mini-steps on ScanQA-style records of the
+   scene (~6.8k tokens each): finite losses and gradient norms, the master
+   tree bit for bit after the first update (learning rate 0), every leaf
+   moved after the second, exact launch counts; before it, one V=8
+   mini-step through the kernels against the same mini-step with the plain
+   attention swapped in.
 
-B2 folded, B5 and the int8 kernels are held against their plain versions
-run in float32 on the same bf16 / int8 values. Every accuracy check of
-those kernels and of phases 5 and 6 also reads controls, deliberately
+B2 folded, B5, the int8 kernels, B2 with the logsumexp and B6 are held
+against their plain versions run in float32 on the same bf16 / int8
+values. Every accuracy check of those kernels and of phases 5, 6 and 7
+also reads controls, deliberately
 broken plain versions (a mask dropped, scales read one position off or
 from the wrong kv head, ...), which must miss the bound by a wide margin:
 the check could otherwise not fail a wrong kernel.
@@ -46,8 +61,10 @@ and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -79,11 +96,21 @@ KERNEL_INFO = {
     "shared_prefix_attention_int8": (
         "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
         "video3d_tpu/kernels/flash_attention.py:503"),
+    "flash_attention_lse": ("video3d_tpu_torch/csrc/flash_attention.cu",
+                            "video3d_tpu/kernels/flash_attention.py:64"),
+    "flash_attention_bwd_dq": ("video3d_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "video3d_tpu/kernels/flash_attention.py:181"),
+    "flash_attention_bwd_dkv": (
+        "video3d_tpu_torch/csrc/flash_attention_bwd.cu",
+        "video3d_tpu/kernels/flash_attention.py:216"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4 and 5
 INT8_KERNELS = ("int8_matvec", "decode_attention_int8",
                 "flash_attention_folded_int8", "shared_prefix_attention_int8")
+#: kernels of the training path (phase 7)
+TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv")
 MAX_NEW = 32          # answer budget of both main paths
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
 # Inputs of the B2 folded and B5 checks. Queries at three times a unit
@@ -121,6 +148,16 @@ CACHE_LAYERS = 28
 # max |d| / (B4_REL * |ref| + B4_ABS), which must be <= 1, and its
 # controls must read >= 4
 B4_REL, B4_ABS = 2.0 ** -7, 1e-4
+# B6 against its plain version in f32: P and dS are rounded to bf16 before
+# the tensor-core products and each gradient once to bf16 at the end, so
+# the check reads max |kernel - plain| / max |plain| per gradient; its
+# controls must read >= 4x. B2's logsumexp: f32 in both, the scores' sums
+# in another order.
+B6_REL = 2e-2
+LSE_ATOL = 1e-3
+# B, L = S, H, KV, length of the B2-with-lse and B6 checks: one ~6.8k-token
+# training record in the 8192 bucket at Qwen2-7B's heads
+TRAIN_ATTENTION = (1, 8192, 28, 4, 6780)
 
 
 def preconditions():
@@ -189,6 +226,54 @@ def _check_controls(name: str, ref, rows, controls: dict) -> None:
                f"max |d| {err:.2e} (must be >= {CONTROL_MIN:.0e})")
 
 
+# peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W): a
+# kernel's bound is the larger of the
+# operations it must do over the peak rate of their type and the bytes it
+# must move (each input read once, each output written once) over the
+# memory rate
+H100_BF16_FLOPS = 989e12
+H100_F32_FLOPS = 67e12
+H100_HBM_BYTES = 3.35e12
+
+
+def _bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / H100_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _attn(pairs: int, H: int, hd: int = 128, products: int = 2) -> float:
+    """FLOPs of ``products`` (64-query, hd) x (hd, key) style products over
+    ``pairs`` allowed (query, key) pairs of each of H heads."""
+    return 2.0 * products * hd * H * pairs
+
+
+def _causal_pairs(L: int, lengths) -> int:
+    """(query, key) pairs the prefill mask allows over all L query rows:
+    key < length and key <= row."""
+    return sum(sum(min(r + 1, n) for r in range(L)) for n in lengths)
+
+
+def _sdpa_ms(q, k, v, iters: int, **kw) -> float:
+    """Median ms of one ``scaled_dot_product_attention`` call on (B, H, L,
+    hd) tensors: the library yardstick, used nowhere in the port."""
+    import torch.nn.functional as F
+
+    return _median_ms(lambda: F.scaled_dot_product_attention(q, k, v, **kw),
+                      iters)
+
+
+def _heads_first(x, H: int):
+    """(B, S, KV, hd) -> contiguous (B, H, S, hd), kv heads repeated."""
+    return x.repeat_interleave(H // x.shape[2], dim=2).transpose(1, 2) \
+        .contiguous()
+
+
 def _random_poses(g, V: int):
     """(V, 4, 4) rigid poses: random rotations, translations in [-2, 2] m."""
     import torch
@@ -228,11 +313,15 @@ def check_geometry(dev):
                                              discretize=False, **args)
     err = float((wc - wc_ref).abs().max())
     _check("B1 world coords", err <= 1e-3, f"max |d| {err:.2e} m")
+    # ~10 f32 operations per depth pixel (scale, camera x/y, patch sums)
+    bound = _bound(10.0 * depths.numel(),
+                   _nbytes(depths, intr, poses, ids), H100_F32_FLOPS)
     return err, (
         _median_ms(lambda: fg.fused_patch_voxel_coords(depths, intr, poses,
                                                        **args), 20),
         _median_ms(lambda: fg.reference_patch_voxel_coords(depths, intr,
-                                                           poses, **args), 5))
+                                                           poses, **args), 5)
+    ), bound, None
 
 
 def check_flash(dev):
@@ -263,9 +352,14 @@ def check_flash(dev):
     case(1, 1000, [1000])
     case(2, 2048, [2048, 1111])
     q, k, v, lens = main
+    H, L, n = q.shape[2], q.shape[1], int(lens[0])
+    bound = _bound(_attn(_causal_pairs(L, [n]), H),
+                   _nbytes(q, k, v) + _nbytes(q))
+    qh, kh, vh = (_heads_first(x[:, :n], H) for x in (q, k, v))
     return err, (
         _median_ms(lambda: fa.flash_attention(q, k, v, lengths=lens), 10),
-        _median_ms(lambda: fa.flash_attention_plain(q, k, v, lengths=lens), 3))
+        _median_ms(lambda: fa.flash_attention_plain(q, k, v, lengths=lens), 3)
+    ), bound, _sdpa_ms(qh, kh, vh, 10, is_causal=True)
 
 
 def check_decode(dev):
@@ -294,11 +388,17 @@ def check_decode(dev):
             timed = (q, k_all, v_all, kv_len)
         del k_all, v_all
     q, k_all, v_all, kv_len = timed
+    n = int(kv_len[0])
+    # the layer's first kv_len keys and values, the query, the output
+    bound = _bound(_attn(n, H), 2 * n * KV * hd * 2 + 2 * _nbytes(q))
+    kh, vh = (_heads_first(x[layer, :, :n].reshape(1, n, KV, hd), H)
+              for x in (k_all, v_all))
     return worst, (
         _median_ms(lambda: da.decode_attention(q, k_all, v_all, kv_len,
                                                layer, KV), 50),
         _median_ms(lambda: da.decode_attention_plain(q, k_all, v_all, kv_len,
-                                                     layer, KV), 10))
+                                                     layer, KV), 10)
+    ), bound, _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50)
 
 
 def check_folded(dev):
@@ -352,7 +452,38 @@ def check_folded(dev):
             timed = args
     return worst, (
         _median_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
-        _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10))
+        _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10)
+    ), _folded_bound(*timed), _folded_sdpa_ms(*timed)
+
+
+def _folded_bound(q, k_all, v_all, lens, offs, layer, KV, ks=None, vs=None):
+    """Rows below kv_len attend keys up to their position; the layer's
+    first kv_len keys and values (and int8 scales) are read once."""
+    H, L, hd = q.shape[2], q.shape[1], q.shape[3]
+    pairs = sum(sum(o + r + 1 for r in range(n - o))
+                for o, n in zip(offs.tolist(), lens.tolist()))
+    kv = sum(lens.tolist()) * KV * hd * k_all.element_size() * 2
+    if ks is not None:
+        kv += sum(lens.tolist()) * KV * 4 * 2
+    return _bound(_attn(pairs, H), kv + 2 * _nbytes(q))
+
+
+def _folded_sdpa_ms(q, k_all, v_all, lens, offs, layer, KV, ks=None,
+                    vs=None):
+    """SDPA over the bf16 cache's layer with an explicit mask (B=1); None
+    for an int8 cache (no single PyTorch call reads it)."""
+    import torch
+
+    if ks is not None or q.shape[0] != 1:
+        return None
+    H, L, hd = q.shape[2], q.shape[1], q.shape[3]
+    n, o = int(lens[0]), int(offs[0])
+    kh, vh = (_heads_first(x[layer, :, :n].reshape(1, n, KV, hd), H)
+              for x in (k_all, v_all))
+    pos = o + torch.arange(L, device=q.device)
+    mask = torch.arange(n, device=q.device)[None, :] <= pos[:, None]
+    return _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50,
+                    attn_mask=mask)
 
 
 def check_shared_prefix(dev):
@@ -413,7 +544,39 @@ def check_shared_prefix(dev):
             timed = args
     return worst, (
         _median_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
-        _median_ms(lambda: mha_shared_prefix_reference(*timed), 5))
+        _median_ms(lambda: mha_shared_prefix_reference(*timed), 5)
+    ), _prefix_bound(*timed), _prefix_sdpa_ms(*timed)
+
+
+def _prefix_bound(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
+    """Each row's suffix queries below suffix_lens attend the whole prefix
+    and their suffix causally; the prefix (and its int8 scales) is read
+    once."""
+    B, L, H, hd = q.shape
+    P = pk.shape[0]
+    pairs = sum(sum(P + r + 1 for r in range(n)) for n in slens.tolist())
+    nbytes = _nbytes(pk, pv, sk, sv) + 2 * _nbytes(q)
+    if pks is not None:
+        nbytes += _nbytes(pks, pvs)
+    return _bound(_attn(pairs, H), nbytes)
+
+
+def _prefix_sdpa_ms(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
+    """SDPA over the prefix broadcast to every row and the row's suffix,
+    with an explicit mask (prepared outside the timing); None for an int8
+    prefix."""
+    import torch
+
+    if pks is not None:
+        return None
+    B, L, H, hd = q.shape
+    P = pk.shape[0]
+    kh, vh = (_heads_first(torch.cat([p.expand(B, *p.shape), s], 1), H)
+              for p, s in ((pk, sk), (pv, sv)))
+    cols = torch.arange(P + L, device=q.device)
+    mask = cols[None, :] <= P + torch.arange(L, device=q.device)[:, None]
+    return _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 20,
+                    attn_mask=mask)
 
 
 def _int8_cache(g, dev, lead, KV: int, hd: int, v_scale: float = 1.0,
@@ -480,8 +643,10 @@ def check_int8_matvec(dev):
     dequant_ms = _median_ms(lambda: (x @ q.to(x.dtype)) * scale, 10)
     print(f"  B4 {q.numel() / ms / 1e6:.0f} GB/s of int8 weight; the "
           f"dequantize-then-matmul path {dequant_ms:.4f} ms", flush=True)
+    # bytes: the int8 weight, its scale, x and y; 2 * in * out operations
+    bound = _bound(2.0 * q.numel(), _nbytes(q, scale, x) + 2 * out)
     return err, (ms, _median_ms(lambda: qm.int8_matmul_plain(x, q, scale),
-                                10))
+                                10)), bound, None
 
 
 def check_decode_int8(dev):
@@ -523,9 +688,13 @@ def check_decode_int8(dev):
         if timed is None:
             timed = args
         del k8, v8
+    n = int(timed[3][0])
+    # the layer's first kv_len int8 keys and values and their f32 scales
+    bound = _bound(_attn(n, H), 2 * n * KV * (hd + 4) + 2 * _nbytes(timed[0]))
     return worst, (
         _median_ms(lambda: da.decode_attention(*timed), 50),
-        _median_ms(lambda: da.decode_attention_plain(*timed), 10))
+        _median_ms(lambda: da.decode_attention_plain(*timed), 10)
+    ), bound, None
 
 
 def check_folded_int8(dev):
@@ -584,7 +753,8 @@ def check_folded_int8(dev):
             timed = args
     return worst, (
         _median_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
-        _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10))
+        _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10)
+    ), _folded_bound(*timed), None
 
 
 def check_shared_prefix_int8(dev):
@@ -641,7 +811,8 @@ def check_shared_prefix_int8(dev):
             timed = args
     return worst, (
         _median_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
-        _median_ms(lambda: mha_shared_prefix_reference(*timed), 5))
+        _median_ms(lambda: mha_shared_prefix_reference(*timed), 5)
+    ), _prefix_bound(*timed), None
 
 
 def check_kernels():
@@ -660,12 +831,146 @@ def check_kernels():
                      ("shared_prefix_attention_int8",
                       check_shared_prefix_int8)):
         print(f"{name}:", flush=True)
-        err, (ms, plain_ms) = fn(dev)
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms",
-              flush=True)
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        err, (ms, plain_ms), bound, library_ms = fn(dev)
+        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), one "
+              f"PyTorch call {lib}", flush=True)
+        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      **bound, "library_ms": library_ms}
         torch.cuda.empty_cache()
+    rows.update(check_training_kernels(dev))
     return rows
+
+
+def check_training_kernels(dev) -> dict:
+    """B2 with the logsumexp and B6 at the training shapes (B=1, L=S=8192,
+    length 6780, H=28, KV=4, hd=128, causal), each against its plain
+    version in float32 on the same bf16 values; controls: the lse with the
+    causal mask dropped; dK/dV of one q head per group (no group sum),
+    delta left out, the causal mask dropped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, L, H, KV, n = TRAIN_ATTENTION
+    hd = 128
+    q = (Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+         ).to(torch.bfloat16)
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev).to(torch.bfloat16)
+    v = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)
+         ).to(torch.bfloat16)
+    do = torch.randn(B, L, H, hd, generator=g, device=dev).to(torch.bfloat16)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    print("flash_attention_lse:", flush=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens)
+    _check("B2 with lse: output == the inference instantiation's",
+           torch.equal(out, fa.flash_attention(q, k, v, lengths=lens)),
+           "bit for bit")
+    qf, kf, vf = q.float(), k.float(), v.float()
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(qf, kf, vf, lens)
+    err = _rows_err(out, ref_out, [n])
+    lse_err = float((lse - ref_lse).abs().max())
+    _check(f"B2 with lse L={L} length {n}",
+           err <= BF16_ATOL and lse_err <= LSE_ATOL,
+           f"output max |d| {err:.2e} on rows < length (bound "
+           f"{BF16_ATOL:.0e}), lse max |d| {lse_err:.2e} (bound "
+           f"{LSE_ATOL:.0e})")
+    _, broken = fa.flash_attention_fwd_plain(qf, kf, vf, lens, causal=False)
+    control = float((broken - ref_lse).abs().max())
+    _check("B2 with lse control, no causal mask", control >= 4 * LSE_ATOL,
+           f"lse max |d| {control:.2e} (must be >= {4 * LSE_ATOL:.0e})")
+    del ref_out, broken
+
+    print("flash_attention_bwd (B6):", flush=True)
+    delta = fa.bwd_delta(out, do)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, lens)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, lens)
+    of, dof = out.float(), do.float()
+    ref = fa.flash_attention_bwd_plain(qf, kf, vf, of, lse, dof, lens)
+    errs = {}
+    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        errs[name] = _rel_err(got, want)
+        finite = bool(torch.isfinite(got.float()).all())
+        _check(f"B6 {name} L={L} length {n}",
+               errs[name] <= B6_REL and finite,
+               f"max |d| / max |ref| {errs[name]:.2e} (bound {B6_REL:.0e}), "
+               f"finite={finite}")
+    G = H // KV
+    controls = {
+        "dK/dV of one q head per group": (
+            fa.flash_attention_bwd_plain(qf[:, :, ::G], kf, vf,
+                                         of[:, :, ::G], lse[:, ::G],
+                                         dof[:, :, ::G], lens), (1, 2)),
+        "delta left out": (
+            fa.flash_attention_bwd_plain(qf, kf, vf, torch.zeros_like(of),
+                                         lse, dof, lens), (0, 1)),
+        "no causal mask": (
+            fa.flash_attention_bwd_plain(qf, kf, vf, of, lse, dof, lens,
+                                         causal=False), (0, 1, 2))}
+    for what, (broken, which) in controls.items():
+        c = max(_rel_err(broken[i], ref[i]) for i in which)
+        _check(f"B6 control, {what}", c >= 4 * B6_REL,
+               f"max |d| / max |ref| {c:.2e} (must be >= {4 * B6_REL:.0e})")
+    del controls, broken
+
+    # times; bounds over the (query, key) pairs the mask allows on all rows
+    pairs = _causal_pairs(L, [n])
+    io = _nbytes(q, k, v, do, lse, delta)
+    rows = {
+        "flash_attention_lse": dict(
+            max_abs_err=max(err, lse_err),
+            ms=_median_ms(lambda: fa.flash_attention_fwd(q, k, v, lens), 10),
+            plain_ms=_median_ms(lambda: fa.flash_attention_fwd_plain(
+                q, k, v, lens), 3),
+            **_bound(_attn(pairs, H), _nbytes(q, k, v, out, lse))),
+        "flash_attention_bwd_dq": dict(
+            max_abs_err=float((dq.float() - ref[0]).abs().max()),
+            ms=_median_ms(lambda: fa.flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, lens), 10),
+            **_bound(_attn(pairs, H, products=3), io + _nbytes(dq))),
+        "flash_attention_bwd_dkv": dict(
+            max_abs_err=max(float((a.float() - b).abs().max())
+                            for a, b in zip((dk, dv), ref[1:])),
+            ms=_median_ms(lambda: fa.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, lens), 10),
+            **_bound(_attn(pairs, H, products=4), io + _nbytes(dk, dv)))}
+    plain_bwd = _median_ms(lambda: fa.flash_attention_bwd_plain(
+        q, k, v, out, lse, do, lens), 3)
+    del ref
+    # the yardstick: SDPA's forward, and its backward alone, on the valid
+    # rows (causal, the kv heads repeated outside the timing)
+    qh, kh, vh = (_heads_first(x[:, :n], H).requires_grad_(True)
+                  for x in (q, k, v))
+    doh = do[:, :n].transpose(1, 2).contiguous()
+    with torch.no_grad():
+        sdpa_fwd = _sdpa_ms(qh, kh, vh, 10, is_causal=True)
+    import torch.nn.functional as F
+
+    sout = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    sdpa_bwd = _median_ms(lambda: torch.autograd.grad(
+        sout, (qh, kh, vh), doh, retain_graph=True), 10)
+    rows["flash_attention_lse"]["library_ms"] = sdpa_fwd
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        rows[name].update(plain_ms=plain_bwd, library_ms=sdpa_bwd)
+    for name, r in rows.items():
+        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
+              f"{'forward' if name.endswith('lse') else 'backward'} "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    print(f"  SDPA forward + backward {sdpa_fwd + sdpa_bwd:.4f} ms against "
+          f"B2 with lse + B6 {sum(r['ms'] for r in rows.values()):.4f} ms",
+          flush=True)
+    del sout, qh, kh, vh
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| / max |b|."""
+    return float((a.float() - b.float()).abs().max()) \
+        / float(b.float().abs().max())
 
 
 SCANQA_TEXTS = ("What color is the chair next to the desk?",
@@ -1014,6 +1319,246 @@ def run_int8_paths(cfg, root: str, info) -> dict:
     return {k: scanqa[k] + prefix[k] for k in scanqa}
 
 
+TRAIN_LAYERS = 4        # decoder depth of phase 7 (widths are Qwen2-7B's)
+TRAIN_MINI_STEPS = 4    # at gradient_accumulation_steps 2: two updates
+# phase 7's V=8 mini-step through the kernels against the same mini-step
+# with the plain attention (B2 / B6's plain versions in f32 on the same
+# bf16 values) swapped in by this script: the loss and the global gradient
+# norm within these relative bounds, and the gradient tree within
+# TRAIN_GRAD_REL in relative L2 norm; a control (the plain attention
+# without its causal mask) must miss each by at least twice
+TRAIN_LOSS_REL = 2e-3
+TRAIN_GN_REL = 2e-2
+TRAIN_GRAD_REL = 5e-2
+
+
+def _plain_train_attention(causal: bool = True):
+    """``mha_train`` computed by the plain versions of B2 with the lse and
+    of B6 in f32 (the kernels' inputs are bf16), for the swap in phase 7."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, lengths):
+            f = [t.float() for t in (q, k, v)]
+            out, lse = fa.flash_attention_fwd_plain(*f, lengths, causal)
+            ctx.save_for_backward(q, k, v, out, lse, lengths)
+            return out.to(q.dtype)
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, out, lse, lengths = ctx.saved_tensors
+            grads = fa.flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), out, lse, do.float(),
+                lengths, causal)
+            return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))),
+                    None)
+
+    return lambda q, k, v, kv_len: PlainAttention.apply(q, k, v, kv_len)
+
+
+def _train_data(root: str, info, cfg, frames: int, max_len: int):
+    """SupervisedDataset + Collator on the synthetic scene's ScanQA-style
+    records (make_fake_annotations, FakeTokenizer)."""
+    from fixtures import FakeTokenizer, make_fake_annotations
+
+    from video3d_tpu_torch.config import DataConfig
+    from video3d_tpu_torch.data.dataset import (Collator, CollatorConfig,
+                                                SupervisedDataset)
+    from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
+
+    ann = make_fake_annotations(root, info["sample_idx"], n=TRAIN_MINI_STEPS)
+    ds = SupervisedDataset(ann, FakeTokenizer(), DataConfig(
+        video_folder=root, annotation_dir=os.path.join(root, "embodiedscan"),
+        metadata_dir=os.path.join(root, "metadata"), frames_upbound=frames),
+        image_processor=SigLipImageProcessor(
+            size=(cfg.vision.image_size,) * 2))
+    return ds, Collator(cfg, CollatorConfig(max_len=max_len,
+                                            frames_upbound=frames))
+
+
+def _loss_and_grads(params, cfg, batch):
+    """One mini-step's loss, global gradient norm and gradients (bf16
+    compute over the f32 master leaves, remat), without an update."""
+    import torch
+
+    from video3d_tpu_torch.train.optim import global_norm, tree_leaves
+    from video3d_tpu_torch.train.train_step import loss_fn
+
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    try:
+        loss, _ = loss_fn(params, cfg, batch, remat=True,
+                          compute_dtype=torch.bfloat16)
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for t in leaves:
+            t.requires_grad_(False)
+    return float(loss.detach()), float(global_norm(grads)), grads
+
+
+def _check_plain_swap(params, cfg, root: str, info, dev, frames: int,
+                      max_len: int) -> None:
+    """Phase 7's kernel-vs-plain check: one V=``frames`` mini-step through
+    the kernels, then with the plain attention swapped into
+    ``models.qwen2.mha_train`` (restored after); a control swaps in the
+    plain attention without its causal mask."""
+    import torch
+
+    from video3d_tpu_torch.models import qwen2
+    from video3d_tpu_torch.train.trainer import to_batch
+
+    ds, col = _train_data(root, info, cfg, frames, max_len)
+    batch = to_batch(col([ds[0]]), dev)
+    loss, gn, grads = _loss_and_grads(params, cfg, batch)
+    sq = sum(float((g.float() ** 2).sum()) for g in grads)
+    kernel = qwen2.mha_train
+    results = {}
+    try:
+        for name, causal in (("plain attention", True),
+                             ("plain attention, no causal mask", False)):
+            qwen2.mha_train = _plain_train_attention(causal)
+            p_loss, p_gn, p_grads = _loss_and_grads(params, cfg, batch)
+            diff = sum(float(((a.float() - b.float()) ** 2).sum())
+                       for a, b in zip(grads, p_grads))
+            results[name] = (abs(loss - p_loss) / abs(p_loss),
+                             abs(gn - p_gn) / p_gn, (diff / sq) ** 0.5)
+            del p_grads
+    finally:
+        qwen2.mha_train = kernel
+    del grads
+    n = int(batch.seq_len[0])
+    bounds = (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL)
+    got = results["plain attention"]
+    _check(f"V={frames} mini-step ({n} tokens), kernels vs plain attention",
+           all(g <= b for g, b in zip(got, bounds)),
+           f"loss {loss:.6f} rel |d| {got[0]:.2e} (bound {bounds[0]:.0e}), "
+           f"grad_norm {gn:.6f} rel |d| {got[1]:.2e} (bound "
+           f"{bounds[1]:.0e}), gradients rel L2 {got[2]:.2e} (bound "
+           f"{bounds[2]:.0e})")
+    ctl = results["plain attention, no causal mask"]
+    _check(f"V={frames} control, plain attention without its causal mask",
+           all(c >= 2 * b for c, b in zip(ctl, bounds)),
+           f"loss rel |d| {ctl[0]:.2e}, grad_norm {ctl[1]:.2e}, gradients "
+           f"{ctl[2]:.2e} (each must be >= 2x its bound)")
+    torch.cuda.empty_cache()
+
+
+def run_training(cfg, root: str, info, dev, frames: int = 32,
+                 max_len: int = 8192, swap_frames: int = 8,
+                 swap_len: int = 2048) -> dict:
+    """Phase 7: ``Trainer.train()`` at full width, ``TRAIN_LAYERS`` decoder
+    layers, f32 master weights with bf16 compute, remat, two mini-steps per
+    update, on the synthetic scene's ScanQA-style records; returns the
+    kernel launch counts of the run."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.params import init_model
+    from video3d_tpu_torch.train.optim import OptimConfig, tree_leaves
+    from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
+
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.float32)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"training: ModelConfig() widths, {cfg.vision.num_hidden_layers}"
+          f"+{cfg.llm.num_hidden_layers} layers, {n_params / 1e9:.3f} B f32 "
+          f"master parameters initialised on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    _check_plain_swap(params, cfg, root, info, dev, swap_frames, swap_len)
+
+    ds, col = _train_data(root, info, cfg, frames, max_len)
+    out_dir = os.path.join(root, "train")
+    metrics_file = os.path.join(out_dir, "metrics.jsonl")
+    trainer = Trainer(cfg, params, ds, col,
+                      OptimConfig(total_steps=TRAIN_MINI_STEPS),
+                      TrainingConfig(output_dir=out_dir, bf16=True,
+                                     master_f32=True, remat=True,
+                                     gradient_accumulation_steps=2,
+                                     group_by="none",
+                                     metrics_file=metrics_file), device=dev)
+    initial = [t.detach().to("cpu", copy=True)
+               for t in tree_leaves(trainer.state.params)]
+    steps = []
+    orig = trainer._step_fn
+
+    def step(state, batch):
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = orig(state, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        steps.append({"seconds": seconds, "tokens": int(batch.seq_len.sum()),
+                      "launches": {k: v - before[k]
+                                   for k, v in _build.LAUNCHES.items()}})
+        leaves = tree_leaves(state.params)
+        if len(steps) == 2:      # after update 1, at learning rate 0
+            same = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(leaves, initial))
+            _check("update 1 (learning rate 0): f32 master tree", same,
+                   "bit for bit the initial tree")
+        if len(steps) == 4:      # after update 2
+            moved = sum(not torch.equal(a.cpu(), b)
+                        for a, b in zip(leaves, initial))
+            _check("update 2: every tunable leaf moved",
+                   moved == len(initial), f"{moved} of {len(initial)} leaves")
+        return state, metrics
+
+    trainer._step_fn = step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.train(resume=False)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del initial
+
+    records = _read_jsonl(metrics_file)
+    _check("mini-steps", len(records) == TRAIN_MINI_STEPS
+           and state.step == TRAIN_MINI_STEPS
+           and state.opt_state.gradient_step == TRAIN_MINI_STEPS // 2,
+           f"{len(records)} logged, step {state.step}, "
+           f"{state.opt_state.gradient_step} optimizer updates")
+    for r in records:
+        _check(f"mini-step {r['step']} loss and grad_norm",
+               all(math.isfinite(r[k]) and r[k] > 0
+                   for k in ("lm_loss", "grad_norm")),
+               f"loss {r['lm_loss']:.6f}, grad_norm {r['grad_norm']:.6f}")
+    L = cfg.llm.num_hidden_layers
+    # per mini-step: B2 with the lse in the forward and again in each
+    # layer's remat recompute; each B6 kernel once per layer's backward
+    per_step = dict.fromkeys(_build.LAUNCHES, 0)
+    per_step.update(flash_attention_lse=2 * L, flash_attention_bwd_dq=L,
+                    flash_attention_bwd_dkv=L)
+    nonzero = [{k: v for k, v in s["launches"].items() if v} for s in steps]
+    _check("launch counts per mini-step",
+           all(s["launches"] == per_step for s in steps),
+           f"{nonzero}, expected {({k: v for k, v in per_step.items() if v})}"
+           f" (B2 with lse 2 x {L} layers, each B6 kernel {L})")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"  per-mini-step seconds {[round(s['seconds'], 4) for s in steps]}"
+          f"; tokens/s {[round(s['tokens'] / s['seconds']) for s in steps]} "
+          f"({steps[0]['tokens']} tokens per mini-step); wall for "
+          f"Trainer.train() {wall:.2f} s (data, checks of the master tree and "
+          f"the bf16 export included); peak device memory "
+          f"{peak / 2**30:.2f} GiB; {smi}", flush=True)
+    del trainer, state, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1059,10 +1604,20 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         int8 = run_int8_paths(cfg, root, info)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, num_hidden_layers=TRAIN_LAYERS))
+        train = run_training(train_cfg, root, info, dev)
+        print(f"  launches (training path): {train}", flush=True)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        launches = int8[name] if name in INT8_KERNELS \
-            else scanqa[name] + prefix[name]
+        if name in TRAIN_KERNELS:
+            launches = train[name]
+        elif name in INT8_KERNELS:
+            launches = int8[name]
+        else:
+            launches = scanqa[name] + prefix[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         **rows[name]})

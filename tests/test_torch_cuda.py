@@ -333,3 +333,95 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         qm.int8_matmul(torch.zeros(1, 64, device=dev, dtype=torch.bfloat16),
                        w, torch.zeros(1, 1000, device=dev,
                                       dtype=torch.bfloat16))
+
+
+# ---- training: B2 with the logsumexp and B6 (dQ, dK/dV), each against its
+# plain version in f32 on the same bf16 values; B6 within B6_REL of the
+# largest reference gradient, with controls (one q head per group, delta
+# left out, the causal mask dropped) that must miss it by 4x
+
+B6_REL = 2e-2
+LSE_ATOL = 1e-3
+
+
+def _train_inputs(dev, B, L, H, KV, lengths, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (Q_SCALE * torch.randn(B, L, H, 128, generator=g, device=dev)
+         ).bfloat16()
+    k = torch.randn(B, L, KV, 128, generator=g, device=dev).bfloat16()
+    v = (0.5 * torch.randn(B, L, KV, 128, generator=g, device=dev)).bfloat16()
+    do = torch.randn(B, L, H, 128, generator=g, device=dev).bfloat16()
+    return q, k, v, do, torch.tensor(lengths, dtype=torch.int32, device=dev)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()) \
+        / float(b.float().abs().max())
+
+
+@pytest.mark.parametrize("B,L,H,KV,lengths", [
+    (2, 300, 8, 2, [300, 150]), (1, 256, 28, 4, [200])])
+def test_flash_lse_kernel(dev, B, L, H, KV, lengths):
+    q, k, v, _, lens = _train_inputs(dev, B, L, H, KV, lengths, 11)
+    out, lse = _launched("flash_attention_lse",
+                         lambda: fa.flash_attention_fwd(q, k, v, lens))
+    # the same tile code as the inference instantiation: the same output
+    assert torch.equal(out, fa.flash_attention(q, k, v, lengths=lens))
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                    v.float(), lens)
+    assert _rows_err(out, ref_out, lengths) <= BF16_ATOL
+    assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+    _, no_causal = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                v.float(), lens, causal=False)
+    assert float((no_causal - ref_lse).abs().max()) > 4 * LSE_ATOL
+
+
+@pytest.mark.parametrize("B,L,H,KV,lengths", [
+    (2, 300, 8, 2, [300, 150]), (1, 256, 28, 4, [200])])
+def test_flash_bwd_kernels(dev, B, L, H, KV, lengths):
+    q, k, v, do, lens = _train_inputs(dev, B, L, H, KV, lengths, 12)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens)
+    delta = fa.bwd_delta(out, do)
+    dq = _launched("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, lens))
+    dk, dv = _launched("flash_attention_bwd_dkv",
+                       lambda: fa.flash_attention_bwd_dkv(
+                           q, k, v, do, lse, delta, lens))
+    f = [t.float() for t in (q, k, v, out)]
+    ref = fa.flash_attention_bwd_plain(*f, lse, do.float(), lens)
+    for got, want in zip((dq, dk, dv), ref):
+        assert bool(torch.isfinite(got.float()).all())
+        assert _rel(got, want) <= B6_REL
+    G = H // KV
+    one_head = fa.flash_attention_bwd_plain(
+        f[0][:, :, ::G], f[1], f[2], f[3][:, :, ::G], lse[:, ::G],
+        do.float()[:, :, ::G], lens)
+    no_delta = fa.flash_attention_bwd_plain(f[0], f[1], f[2],
+                                            torch.zeros_like(f[3]), lse,
+                                            do.float(), lens)
+    no_causal = fa.flash_attention_bwd_plain(*f, lse, do.float(), lens,
+                                             causal=False)
+    assert _rel(one_head[1], ref[1]) > 4 * B6_REL
+    assert _rel(no_delta[0], ref[0]) > 4 * B6_REL
+    assert max(_rel(a, b) for a, b in zip(no_causal, ref)) > 4 * B6_REL
+
+
+def test_flash_train_function_on_the_gpu(dev):
+    """mha_train on CUDA tensors: the forward launches B2 with the lse, the
+    backward both B6 kernels; gradients agree with the plain versions."""
+    from video3d_tpu_torch.kernels.attention import mha_train
+
+    q, k, v, do, lens = _train_inputs(dev, 1, 200, 8, 2, [170], 13)
+    before = dict(_build.LAUNCHES)
+    args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    mha_train(*args, lens).backward(do)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_lse", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    out, lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                            lens)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out,
+                                       lse, do.float(), lens)
+    for a, want in zip(args, ref):
+        assert _rel(a.grad, want) <= B6_REL

@@ -20,14 +20,20 @@ from video3d_tpu.data.image_processor import SigLipImageProcessor
 from video3d_tpu.data.video_processor import VideoProcessor
 from video3d_tpu.eval import drivers as jdrv
 from video3d_tpu.models import llava_video3d as jlv
+from video3d_tpu_torch.data.image_processor import \
+    SigLipImageProcessor as TSigLipImageProcessor
+from video3d_tpu_torch.data.video_processor import \
+    VideoProcessor as TVideoProcessor
 from video3d_tpu_torch.eval import drivers as tdrv
 from video3d_tpu_torch.params import from_jax_params
 
 from fixtures import FakeTokenizer, make_fake_scene
+from port_configs import port_config
 
 torch.set_num_threads(1)
 
 CFG = ModelConfig.tiny()
+TCFG = port_config(CFG)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -63,8 +69,10 @@ def engines(tmp_path_factory):
         params, CFG, tok, VideoProcessor(data_cfg), ip,
         jdrv.EngineConfig(**engine_kwargs(tok)), device_geometry=True)
     torch_engine = tdrv.InferenceEngine(
-        from_jax_params(jax.tree.map(np.asarray, params), CFG), CFG, tok,
-        VideoProcessor(data_cfg), ip, tdrv.EngineConfig(**engine_kwargs(tok)))
+        from_jax_params(jax.tree.map(np.asarray, params), TCFG), TCFG, tok,
+        TVideoProcessor(port_config(data_cfg)),
+        TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
+        tdrv.EngineConfig(**engine_kwargs(tok)))
     return info, jax_engine, torch_engine
 
 
@@ -129,7 +137,8 @@ def test_port_runs_without_jax(tmp_path):
             "conversations": [{{"from": "human", "value": "what is it"}},
                               {{"from": "gpt", "value": "a chair"}}]}})
         assert isinstance(answer, str)
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "video3d_tpu"))
         assert not bad, bad
         print("OK")
     """)

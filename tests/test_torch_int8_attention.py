@@ -27,6 +27,8 @@ from video3d_tpu_torch.kernels.flash_attention import \
 from video3d_tpu_torch.models import qwen2 as tqwen
 from video3d_tpu_torch.params import _convert
 
+from port_configs import port_config
+
 torch.set_num_threads(1)
 
 # The Pallas decode kernel runs an int8 cache through bf16 dots (the query
@@ -188,9 +190,10 @@ def _layer_case(branch):
     cache = tqwen.KVCache(t(k8.reshape(flat).copy()),
                           t(v8.reshape(flat).copy()), t(ks.copy()),
                           t(vs.copy()))
-    tcos, tsin = tqwen.compute_mrope_cos_sin(t(pos3), cfg)
+    tcfg = port_config(cfg)
+    tcos, tsin = tqwen.compute_mrope_cos_sin(t(pos3), tcfg)
     tout = tqwen.decoder_layer(
-        tl, t(x), tcos, tsin, cfg, layer, cache, t(cpos), t(kv_len),
+        tl, t(x), tcos, tsin, tcfg, layer, cache, t(cpos), t(kv_len),
         prefill=branch == "prefill",
         cache_start=P if branch in ("chunk", "shared") else None,
         shared_prefix=tsp)
@@ -218,12 +221,12 @@ def test_quantized_cache_dtypes():
     """KVCache.zeros(int8) carries f32 scales of shape (layers, B, S, KV,
     1), as the JAX cache; a bf16 cache carries none."""
     cfg = LLMConfig.tiny()
-    c8 = tqwen.KVCache.zeros(cfg, 2, 5, dtype=torch.int8)
+    c8 = tqwen.KVCache.zeros(port_config(cfg), 2, 5, dtype=torch.int8)
     j8 = jqwen.KVCache.zeros(cfg, 2, 5, dtype=jnp.int8)
     for got, want in zip(c8, j8):
         assert tuple(got.shape) == want.shape
         assert str(got.dtype).split(".")[-1] == str(want.dtype)
-    cb = tqwen.KVCache.zeros(cfg, 2, 5)
+    cb = tqwen.KVCache.zeros(port_config(cfg), 2, 5)
     assert cb.k.dtype == torch.bfloat16 and cb.k_scale is None
 
 

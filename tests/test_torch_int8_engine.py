@@ -23,14 +23,20 @@ from video3d_tpu.data.video_processor import VideoProcessor
 from video3d_tpu.eval import drivers as jdrv
 from video3d_tpu.models import llava_video3d as jlv
 from video3d_tpu.models import quant as jquant
+from video3d_tpu_torch.data.image_processor import \
+    SigLipImageProcessor as TSigLipImageProcessor
+from video3d_tpu_torch.data.video_processor import \
+    VideoProcessor as TVideoProcessor
 from video3d_tpu_torch.eval import drivers as tdrv
 from video3d_tpu_torch.params import from_jax_params
 
 from fixtures import FakeTokenizer, make_fake_scene
+from port_configs import port_config
 
 torch.set_num_threads(1)
 
 CFG = ModelConfig.tiny()
+TCFG = port_config(CFG)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUESTIONS = ["what color is the chair", "how many tables are there",
              "where is the lamp"]
@@ -70,9 +76,9 @@ def _torch_engine(scene, **kw):
     _, data_cfg, params = scene
     tok = FakeTokenizer()
     return tdrv.InferenceEngine(
-        from_jax_params(jax.tree.map(np.asarray, params), CFG), CFG, tok,
-        VideoProcessor(data_cfg),
-        SigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
+        from_jax_params(jax.tree.map(np.asarray, params), TCFG), TCFG, tok,
+        TVideoProcessor(port_config(data_cfg)),
+        TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
         _ecfg(tdrv, tok, **kw))
 
 
@@ -210,7 +216,8 @@ def test_int8_paths_run_without_jax(tmp_path):
         assert engine.prefix_cache_stats == [3, 1], engine.prefix_cache_stats
         entry = next(iter(engine._prefix_cache.values()))
         assert entry.cache.k.dtype == torch.int8
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "video3d_tpu"))
         assert not bad, bad
         print("OK")
     """)

@@ -21,9 +21,12 @@ from video3d_tpu_torch.models import qwen2 as tqwen
 from video3d_tpu_torch.models import siglip as tsig
 from video3d_tpu_torch.params import _convert, from_jax_params
 
+from port_configs import port_config
+
 torch.set_num_threads(1)
 
 CFG = ModelConfig.tiny()
+TCFG = port_config(CFG)
 ATOL = 1e-4     # f32, different matmul blockings and reduction orders
 
 
@@ -42,7 +45,7 @@ def test_siglip_tower_matches_jax():
         .astype(np.float32)
     ref = jsig.vision_tower_forward(params, jnp.asarray(px), CFG.vision)
     got = tsig.vision_tower_forward(to_torch(params), torch.from_numpy(px),
-                                    CFG.vision)
+                                    TCFG.vision)
     assert got.shape == (3, CFG.vision.num_patches, CFG.vision.hidden_size)
     close(got, ref)
 
@@ -50,7 +53,7 @@ def test_siglip_tower_matches_jax():
 @pytest.fixture(scope="module")
 def model_params():
     params = jlv.init_model(jax.random.PRNGKey(1), CFG)
-    return params, from_jax_params(jax.tree.map(np.asarray, params), CFG)
+    return params, from_jax_params(jax.tree.map(np.asarray, params), TCFG)
 
 
 def test_vision_tokens_and_embeds_match_jax(model_params):
@@ -61,7 +64,7 @@ def test_vision_tokens_and_embeds_match_jax(model_params):
     images = rng.normal(size=(1, V, 3, S, S)).astype(np.float32)
     coords = rng.integers(0, 301, size=(1, V, g, g, 3)).astype(np.float32)
     ref = jlv.encode_video(jp, CFG, jnp.asarray(images), jnp.asarray(coords))
-    got = tlv.encode_video(tp, CFG, torch.from_numpy(images),
+    got = tlv.encode_video(tp, TCFG, torch.from_numpy(images),
                            torch.from_numpy(coords))
     for name in ("raw", "pooled", "spliceable"):
         close(getattr(got, name), getattr(ref, name))
@@ -75,13 +78,14 @@ def test_vision_tokens_and_embeds_match_jax(model_params):
                                jnp.asarray(plan.kind),
                                jnp.asarray(plan.vision_index))
     temb = tlv.assemble_embeds(
-        tp, CFG, got.spliceable, torch.from_numpy(plan.text_ids).long(),
+        tp, TCFG, got.spliceable, torch.from_numpy(plan.text_ids).long(),
         torch.from_numpy(plan.kind), torch.from_numpy(plan.vision_index).long())
     close(temb, jemb)
 
 
 def test_qwen2_prefill_and_decode_match_jax():
     cfg = LLMConfig.tiny()
+    tcfg = port_config(cfg)
     jp = jqwen.init_qwen2(jax.random.PRNGKey(3), cfg)
     tp = to_torch(jp)
     rng = np.random.default_rng(4)
@@ -97,9 +101,9 @@ def test_qwen2_prefill_and_decode_match_jax():
         jp, cfg, jnp.asarray(embeds), jnp.asarray(pos), kv_cache=jcache,
         cache_positions=jnp.asarray(cpos), kv_len=jnp.asarray(seq_len),
         prefill=True)
-    tcache = tqwen.KVCache.zeros(cfg, B, S, dtype=torch.float32)
+    tcache = tqwen.KVCache.zeros(tcfg, B, S, dtype=torch.float32)
     th = tqwen.qwen2_forward(
-        tp, cfg, torch.from_numpy(embeds), torch.from_numpy(pos),
+        tp, tcfg, torch.from_numpy(embeds), torch.from_numpy(pos),
         kv_cache=tcache, cache_positions=torch.from_numpy(cpos),
         kv_len=torch.from_numpy(seq_len), prefill=True)
     close(tqwen.lm_head(tp, th), jqwen.lm_head(jp, jh))
@@ -114,7 +118,7 @@ def test_qwen2_prefill_and_decode_match_jax():
         jp, cfg, jnp.asarray(step), jnp.asarray(dpos3), kv_cache=jcache,
         cache_positions=jnp.asarray(dpos), kv_len=jnp.asarray(dpos[:, 0] + 1))
     th = tqwen.qwen2_forward(
-        tp, cfg, torch.from_numpy(step), torch.from_numpy(dpos3.copy()),
+        tp, tcfg, torch.from_numpy(step), torch.from_numpy(dpos3.copy()),
         kv_cache=tcache, cache_positions=torch.from_numpy(dpos),
         kv_len=torch.from_numpy(dpos[:, 0] + 1))
     close(tqwen.lm_head(tp, th), jqwen.lm_head(jp, jh))
@@ -126,6 +130,7 @@ def test_mrope_tables_match_jax():
     cfg = LLMConfig()                               # hd 128, [32, 16, 16]
     pos = np.random.default_rng(5).integers(0, 9000, size=(1, 7, 3))
     jc, js = jqwen.compute_mrope_cos_sin(jnp.asarray(pos), cfg)
-    tc, ts = tqwen.compute_mrope_cos_sin(torch.from_numpy(pos), cfg)
+    tc, ts = tqwen.compute_mrope_cos_sin(torch.from_numpy(pos),
+                                         port_config(cfg))
     close(tc, jc, 1e-5)
     close(ts, js, 1e-5)

@@ -25,6 +25,8 @@ from video3d_tpu_torch.kernels.flash_attention import (
 from video3d_tpu_torch.models import qwen2 as tqwen
 from video3d_tpu_torch.params import _convert
 
+from port_configs import port_config
+
 torch.set_num_threads(1)
 
 TOL = 2e-4     # f32, blocked online softmax vs one-pass softmax
@@ -146,8 +148,9 @@ def test_decoder_layer_chunk_matches_jax(shared):
     cache = tqwen.KVCache(t(k_all.copy()), t(v_all.copy()))
     tsp = (t(prefix_k[layer]).reshape(P, KV, hd),
            t(prefix_v[layer]).reshape(P, KV, hd)) if shared else None
-    tcos, tsin = tqwen.compute_mrope_cos_sin(t(pos3), cfg)
-    tout = tqwen.decoder_layer(tl, t(x), tcos, tsin, cfg, layer, cache,
+    tcfg = port_config(cfg)
+    tcos, tsin = tqwen.compute_mrope_cos_sin(t(pos3), tcfg)
+    tout = tqwen.decoder_layer(tl, t(x), tcos, tsin, tcfg, layer, cache,
                                t(cpos), t(kv_len), cache_start=P,
                                shared_prefix=tsp).numpy()
     for b in range(B):

@@ -27,6 +27,10 @@ from video3d_tpu.models import generate as jgen
 from video3d_tpu.models import llava_video3d as jlv
 from video3d_tpu.models import qwen2 as jqwen
 from video3d_tpu.models.splice import KIND_TEXT
+from video3d_tpu_torch.data.image_processor import \
+    SigLipImageProcessor as TSigLipImageProcessor
+from video3d_tpu_torch.data.video_processor import \
+    VideoProcessor as TVideoProcessor
 from video3d_tpu_torch.eval import drivers as tdrv
 from video3d_tpu_torch.models import generate as tgen
 from video3d_tpu_torch.models import llava_video3d as tlv
@@ -34,10 +38,12 @@ from video3d_tpu_torch.models import qwen2 as tqwen
 from video3d_tpu_torch.params import from_jax_params
 
 from fixtures import FakeTokenizer, make_fake_scene
+from port_configs import port_config
 
 torch.set_num_threads(1)
 
 CFG = ModelConfig.tiny()
+TCFG = port_config(CFG)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -78,9 +84,9 @@ def _torch_engine(scene, **kw):
     _, data_cfg, params = scene
     tok = FakeTokenizer()
     return tdrv.InferenceEngine(
-        from_jax_params(jax.tree.map(np.asarray, params), CFG), CFG, tok,
-        VideoProcessor(data_cfg),
-        SigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
+        from_jax_params(jax.tree.map(np.asarray, params), TCFG), TCFG, tok,
+        TVideoProcessor(port_config(data_cfg)),
+        TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
         _ecfg(tdrv, tok, **kw))
 
 
@@ -95,13 +101,13 @@ def _jax_engine(scene, **kw):
 
 def _count_video_io(monkeypatch):
     calls = {"io": 0}
-    orig = VideoProcessor.load_raw
+    orig = TVideoProcessor.load_raw
 
     def counting(*a, **k):
         calls["io"] += 1
         return orig(*a, **k)
 
-    monkeypatch.setattr(VideoProcessor, "load_raw", counting)
+    monkeypatch.setattr(TVideoProcessor, "load_raw", counting)
     return calls
 
 
@@ -176,7 +182,7 @@ def test_start_decode_prefix_matches_jax(scene, B):
     logits and cache contents against JAX ``start_decode_prefix``, then the
     greedy tokens of ``generate_from_state``."""
     params = scene[2]
-    tp = from_jax_params(jax.tree.map(np.asarray, params), CFG)
+    tp = from_jax_params(jax.tree.map(np.asarray, params), TCFG)
     lcfg = CFG.llm
     rng = np.random.default_rng(B)
     P, Ls, new = 12, 8, 4
@@ -207,7 +213,7 @@ def test_start_decode_prefix_matches_jax(scene, B):
         params, CFG, jbatch, jqwen.KVCache(jnp.asarray(pk), jnp.asarray(pv)),
         prefix_len=P, max_cache_len=mcl, cache_dtype=jnp.float32)
     tstate = tgen.start_decode_prefix(
-        tp, CFG, tbatch, tqwen.KVCache(torch.from_numpy(pk),
+        tp, TCFG, tbatch, tqwen.KVCache(torch.from_numpy(pk),
                                        torch.from_numpy(pv)), P, mcl)
     np.testing.assert_allclose(tstate.next_logits.numpy(),
                                np.asarray(jstate.next_logits), rtol=0,
@@ -218,7 +224,7 @@ def test_start_decode_prefix_matches_jax(scene, B):
                                np.asarray(jstate.cache.v), rtol=0, atol=1e-4)
     jres = jgen.generate_from_state(params, CFG, jstate, max_new_tokens=new,
                                     eos_token_id=101)
-    tres = tgen.generate_from_state(tp, CFG, tstate, max_new_tokens=new,
+    tres = tgen.generate_from_state(tp, TCFG, tstate, max_new_tokens=new,
                                     eos_token_id=101)
     np.testing.assert_array_equal(tres.tokens.numpy(),
                                   np.asarray(jres.tokens))
@@ -384,7 +390,8 @@ def test_prefix_path_runs_without_jax(tmp_path):
         answers += engine.generate_answers_batch_prefix(qs[2:])
         assert all(isinstance(a, str) for a in answers), answers
         assert engine.prefix_cache_stats == [3, 1], engine.prefix_cache_stats
-        bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "video3d_tpu"))
         assert not bad, bad
         print("OK")
     """)

@@ -23,9 +23,12 @@ from video3d_tpu_torch.models import quant as tquant
 from video3d_tpu_torch.models import qwen2 as tqwen
 from video3d_tpu_torch.params import _convert, from_jax_params, init_model
 
+from port_configs import port_config
+
 torch.set_num_threads(1)
 
 CFG = ModelConfig.tiny()
+TCFG = port_config(CFG)
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -69,9 +72,9 @@ def test_from_jax_params_bf16_and_int8_leaves():
     for bit."""
     params = jlv.init_model(jax.random.PRNGKey(0), CFG, dtype=jnp.bfloat16)
     host = jax.tree.map(np.asarray, params)
-    _assert_same_tree(from_jax_params(host, CFG), _used(host))
+    _assert_same_tree(from_jax_params(host, TCFG), _used(host))
     qhost = jax.tree.map(np.asarray, jquant.quantize_tree(params))
-    qtree = from_jax_params(qhost, CFG)
+    qtree = from_jax_params(qhost, TCFG)
     assert tquant.is_quantized(qtree["llm"]["lm_head"])
     assert qtree["llm"]["layers"][0]["attn"]["wq"]["q"].dtype == torch.int8
     _assert_same_tree(qtree, _used(qhost))
@@ -82,7 +85,7 @@ def test_from_jax_params_rejects_unported_weight_forms():
     for tree in (jquant.quantize_tree(params, bits=4),
                  jquant.quantize_tree(params, act="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            from_jax_params(tree, CFG)
+            from_jax_params(tree, TCFG)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -205,7 +208,7 @@ def test_init_model_int8_is_quantize_tree_of_the_bf16_init():
     """init_model(bits=8) draws the same random weights as the bf16 init
     and quantizes the LLM projections and lm_head layer by layer: the
     result equals quantize_tree of the bf16 tree."""
-    cfg = CFG
+    cfg = TCFG
     bf16 = init_model(cfg, "cpu", torch.Generator().manual_seed(3))
     int8 = init_model(cfg, "cpu", torch.Generator().manual_seed(3), bits=8)
     want = tquant.quantize_tree(bf16)

@@ -2,7 +2,9 @@
 NVIDIA H100.
 
 Layers (each module mirrors its ``video3d_tpu`` counterpart):
-  config.py  the JAX package's config dataclasses (no JAX in them)
+  config.py, constants.py, data/, models/splice.py, train/samplers.py,
+  train/prefetch.py
+             the port's own copies of the JAX package's host modules
   params.py  random init on the device; conversion of the JAX parameter tree
   ops/       geometry and sin3d position embedding (plain torch)
   kernels/   hand-written CUDA kernel wrappers (source in csrc/), each with
@@ -10,6 +12,6 @@ Layers (each module mirrors its ``video3d_tpu`` counterpart):
   models/    SigLIP tower, Qwen2 decoder, assembly, greedy generation
   eval/      ScanQA-style InferenceEngine and driver loop
 
-The package imports ``torch`` and never ``jax``; host code without JAX is
-imported from ``video3d_tpu``.
+The package imports ``torch`` and never ``jax``, and nothing of
+``video3d_tpu`` (``tests/test_torch_imports.py``).
 """

@@ -8,7 +8,10 @@
 //      stacked flat (layers, B, S, KV*hd) cache), over a bf16 cache or an
 //      int8 one with per-position, per-kv-head f32 scales (quantized=True,
 //      scales :813-815; stacked scales (layers, B, S, KV, 1));
-// no logsumexp output: inference only.
+// the prefill form also in a training instantiation (kLse) that writes the
+// per-row logsumexp (:141-143) for the backward kernels B6
+// (flash_attention_bwd.cu); the inference instantiation writes none and is
+// the same code as before the flag.
 //
 // What bounds it on an H100: prefill is compute-bound (at L = 8192, 28
 // heads, hd 128, causal a layer is ~0.48 TFLOP against ~0.2 GB of q/k/v/o
@@ -42,13 +45,16 @@ using namespace v3d_flash;
 
 namespace {
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q,      // (B, L, H, hd)
                  const bf16* __restrict__ k,      // (B, S, KV, hd)
                  const bf16* __restrict__ v,      // (B, S, KV, hd)
                  const int* __restrict__ lengths, // (B,) key lengths
                  bf16* __restrict__ out,          // (B, L, H, hd)
-                 int L, int S, int H, int KV, int causal, float sm_scale) {
+                 int L, int S, int H, int KV, int causal, float sm_scale,
+                 float* __restrict__ lse) {       // (B, H, L) f32, kLse
+
   extern __shared__ __align__(128) unsigned char smem[];
   const Tiles t = carve(smem);
 
@@ -78,8 +84,14 @@ flash_fwd_kernel(const bf16* __restrict__ q,      // (B, L, H, hd)
       return col < length && (!causal || col <= row_pos);
     });
   }
-  if (row_pos < L)
+  if (row_pos < L) {
     store_row(t, st, out + (((long long)b * L + row_pos) * H + h) * kHd);
+    // m + log(l), l floored as in the output's divide
+    if constexpr (kLse)
+      if (st.half == 0)
+        lse[((long long)b * H + h) * L + row_pos] =
+            st.m + logf(fmaxf(st.l, 1e-30f));
+  }
 }
 
 template <typename T>
@@ -140,24 +152,48 @@ flash_folded_kernel(const bf16* __restrict__ q,       // (B, L, H, hd)
 
 }  // namespace
 
-extern "C" int v3d_flash_attention(const void* q, const void* k,
-                                   const void* v, const void* lengths,
-                                   void* out, int B, int L, int S, int H,
-                                   int KV, int causal, float sm_scale,
-                                   void* stream) {
+namespace {
+
+template <bool kLse>
+int launch_fwd(const void* q, const void* k, const void* v,
+               const void* lengths, void* out, void* lse, int B, int L,
+               int S, int H, int KV, int causal, float sm_scale,
+               void* stream) {
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B <= 0 || L <= 0) return 0;
   dim3 grid((L + kBq - 1) / kBq, B * H);
-  flash_fwd_kernel<<<grid, kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<kLse><<<grid, kThreads, kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(lengths),
-      static_cast<bf16*>(out), L, S, H, KV, causal, sm_scale);
+      static_cast<bf16*>(out), L, S, H, KV, causal, sm_scale,
+      static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int v3d_flash_attention(const void* q, const void* k,
+                                   const void* v, const void* lengths,
+                                   void* out, int B, int L, int S, int H,
+                                   int KV, int causal, float sm_scale,
+                                   void* stream) {
+  return launch_fwd<false>(q, k, v, lengths, out, nullptr, B, L, S, H, KV,
+                           causal, sm_scale, stream);
+}
+
+// the training forward: also the f32 (B, H, L) per-row logsumexp
+extern "C" int v3d_flash_attention_lse(const void* q, const void* k,
+                                       const void* v, const void* lengths,
+                                       void* out, void* lse, int B, int L,
+                                       int S, int H, int KV, int causal,
+                                       float sm_scale, void* stream) {
+  return launch_fwd<true>(q, k, v, lengths, out, lse, B, L, S, H, KV,
+                          causal, sm_scale, stream);
 }
 
 namespace {

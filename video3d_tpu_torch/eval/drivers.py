@@ -19,8 +19,8 @@ shares its frames and its spliced prefix):
   ``run_generative(..., batch_size=B)``).
 
 Host code (tokenization, frame IO, image preprocessing, splice planning) is
-imported from ``video3d_tpu``; the JAX driver module itself imports
-``jax.numpy``, so this one stands alone.
+the port's own copy of the JAX package's (``video3d_tpu_torch/data``,
+``models/splice.py``): the port imports nothing of ``video3d_tpu``.
 """
 
 from __future__ import annotations
@@ -37,14 +37,11 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from video3d_tpu.config import ModelConfig
-from video3d_tpu.constants import DEFAULT_IMAGE_TOKEN, IMAGE_TOKEN_INDEX
-from video3d_tpu.data.image_processor import SigLipImageProcessor
-from video3d_tpu.data.tokenization import preprocess_qwen_eval
-from video3d_tpu.data.video_processor import VideoProcessor
-from video3d_tpu.models.splice import (KIND_VISION, build_splice_plan,
-                                       slice_suffix_plan,
-                                       vision_end_from_kind)
+from video3d_tpu_torch.config import ModelConfig
+from video3d_tpu_torch.constants import DEFAULT_IMAGE_TOKEN, IMAGE_TOKEN_INDEX
+from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
+from video3d_tpu_torch.data.tokenization import preprocess_qwen_eval
+from video3d_tpu_torch.data.video_processor import VideoProcessor
 from video3d_tpu_torch.kernels.fused_geometry import fused_patch_voxel_coords
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import qwen2
@@ -52,6 +49,9 @@ from video3d_tpu_torch.models.generate import (DecodeState, GenerateResult,
                                                generate_from_state,
                                                generate_greedy, start_decode,
                                                start_decode_prefix)
+from video3d_tpu_torch.models.splice import (KIND_VISION, build_splice_plan,
+                                             slice_suffix_plan,
+                                             vision_end_from_kind)
 
 DEFAULT_BUCKETS = (1024, 2048, 4096, 8192, 16384)
 

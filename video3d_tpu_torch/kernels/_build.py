@@ -40,7 +40,10 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "shared_prefix_attention": 0,
                             "int8_matvec": 0, "decode_attention_int8": 0,
                             "flash_attention_folded_int8": 0,
-                            "shared_prefix_attention_int8": 0}
+                            "shared_prefix_attention_int8": 0,
+                            "flash_attention_lse": 0,
+                            "flash_attention_bwd_dq": 0,
+                            "flash_attention_bwd_dkv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,6 +82,17 @@ _SIGNATURES = {
     # stream
     "v3d_shared_prefix_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                          _I, _I, _I, _I, _F, _P],
+    # q, k, v, lengths, out, lse, B, L, S, H, KV, causal, sm_scale, stream
+    "v3d_flash_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _F, _P],
+    # q, k, v, dout, lse, delta, lengths, dq, B, L, S, H, KV, causal,
+    # sm_scale, stream
+    "v3d_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, lse, delta, lengths, dk, dv, B, L, S, H, KV, causal,
+    # sm_scale, stream
+    "v3d_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -59,6 +59,17 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flash_attention(q, k, v, lengths=kv_len, causal=True)
 
 
+def mha_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              kv_len: torch.Tensor) -> torch.Tensor:
+    """:func:`mha` with gradients, the training forward (no cache): the
+    autograd Function of B2 with the logsumexp and B6 on the GPU, of their
+    plain versions on the CPU."""
+    from video3d_tpu_torch.kernels.flash_attention import \
+        flash_attention_train
+
+    return flash_attention_train(q, k, v, lengths=kv_len, causal=True)
+
+
 def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                       sk: torch.Tensor, sv: torch.Tensor,
                       suffix_lens: torch.Tensor,

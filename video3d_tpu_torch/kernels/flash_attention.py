@@ -1,5 +1,6 @@
-"""Flash attention forward (kernel B2, prefill and GQA-folded forms), the
-shared-prefix attention of kernel B5, and their plain PyTorch versions.
+"""Flash attention forward (kernel B2, prefill and GQA-folded forms), its
+backward (kernel B6), the shared-prefix attention of kernel B5, and their
+plain PyTorch versions.
 
 Each entry dispatches on the device of ``q``: a CPU tensor runs its plain
 version (``mha_reference`` with the same masks, or
@@ -11,16 +12,24 @@ only, bf16), ``flash_attention_gqa_folded`` over a bf16 or an int8 cache
 and ``flash_attention_shared_prefix`` over a bf16 or an int8 prefix (one
 shared-prefix path, the fused one). An int8 cache or prefix launches the
 kernel's int8 instantiation and counts under its own ``*_int8`` name.
+
+Training: :class:`FlashAttentionFunction` (entry :func:`flash_attention_train`)
+is the counterpart of the JAX custom VJP ``_flash_core``: its forward runs B2
+with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
+``flash_attention_lse``), its backward the two B6 kernels
+(:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
+``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``), on the CPU
+their plain versions.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from video3d_tpu_torch.kernels import _build
-from video3d_tpu_torch.kernels.attention import (mha_reference,
+from video3d_tpu_torch.kernels.attention import (NEG_INF, mha_reference,
                                                  mha_shared_prefix_reference)
 from video3d_tpu_torch.kernels.decode_attention import check_cache, layer_kv
 
@@ -217,3 +226,213 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
     _build.check(err, name)
     _build.count_launch(name)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Training: B2 with the logsumexp, B6, and the autograd Function
+# ---------------------------------------------------------------------------
+
+def _allowed(B: int, L: int, S: int, lengths: torch.Tensor, causal: bool,
+             device) -> torch.Tensor:
+    """(B, L, S) mask of the prefill form: key s < lengths[b] and, causal,
+    s <= query row (L == S, query offset 0)."""
+    slots = torch.arange(S, device=device)
+    allow = (slots[None, None, :] < lengths.to(device)[:, None, None]) \
+        .expand(B, L, S)
+    if causal:
+        allow = allow & (slots[None, :] <= torch.arange(L, device=device)[
+            :, None])[None]
+    return allow
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, lengths: torch.Tensor,
+                              causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the training forward: (out, lse). ``out`` is
+    ``mha_reference``'s; lse (B, H, L) f32 is the logsumexp of the masked
+    scaled scores, computed in f32 one head at a time."""
+    out = mha_reference(q, k, v, causal=causal, kv_len=lengths)
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    allow = _allowed(B, L, S, lengths, causal, q.device)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    for h in range(H):
+        s = torch.einsum("bld,bsd->bls", q[:, :, h].float(),
+                         k[:, :, h // (H // KV)].float()) * hd ** -0.5
+        lse[:, h] = torch.logsumexp(s.masked_fill(~allow, NEG_INF), dim=-1)
+    return out, lse
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward of the prefill form: q (B, L, H, hd), k/v (B, L, KV,
+    hd) -> (out (B, L, H, hd) in q's dtype, lse (B, H, L) f32). B2's
+    ``kLse`` instantiation on the GPU, the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, lengths, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd: no kernel for device "
+                         f"{q.device}")
+    B, L, H, hd = _check_train("flash_attention_fwd", q, k, v)
+    S, KV = k.shape[1], k.shape[2]
+    lengths = _int32(lengths, q.device)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    err = _build.library().v3d_flash_attention_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), B, L, S, H, KV, int(causal),
+        float(hd ** -0.5), _stream(q.device))
+    _build.check(err, "flash_attention_lse")
+    _build.count_launch("flash_attention_lse")
+    return out, lse
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor,
+                              lengths: torch.Tensor, causal: bool = True
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain version of B6: the JAX recurrences
+    (``video3d_tpu/kernels/flash_attention.py:7-11``, ``:332-408``) step by
+    step in f32, one query head at a time: delta = rowsum(dO * O),
+    P = exp(sm_scale Q K^T - lse) on the allowed keys, dP = dO V^T,
+    dS = P * (dP - delta) * sm_scale, dQ = dS K, per-head dK = dS^T Q and
+    dV = P^T dO, then the sum over each kv head's group. Returns (dq, dk,
+    dv) in the dtypes of q, k and v."""
+    B, L, H, hd = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = hd ** -0.5
+    allow = _allowed(B, L, S, lengths, causal, q.device)
+    delta = (do.float() * out.float()).sum(-1)            # (B, L, H)
+    dq = torch.empty(B, L, H, hd, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, S, KV, hd, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for h in range(H):
+        qh, doh = q[:, :, h].float(), do[:, :, h].float()
+        kh, vh = k[:, :, h // G].float(), v[:, :, h // G].float()
+        s = torch.einsum("bld,bsd->bls", qh, kh) * scale
+        p = torch.where(allow, torch.exp(s - lse[:, h, :, None]),
+                        torch.zeros((), device=q.device))
+        dp = torch.einsum("bld,bsd->bls", doh, vh)
+        ds = p * (dp - delta[:, :, h, None]) * scale
+        dq[:, :, h] = torch.einsum("bls,bsd->bld", ds, kh)
+        dk[:, :, h // G] += torch.einsum("bls,bld->bsd", ds, qh)
+        dv[:, :, h // G] += torch.einsum("bls,bld->bsd", p, doh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, lengths: torch.Tensor,
+                        causal: bool = True
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of :func:`flash_attention_fwd`: (dq, dk, dv). On the GPU,
+    delta = rowsum(dO * O) in f32 (outside the kernels, as JAX computes
+    it), then B6's dQ kernel and its dK/dV kernel, which sums each kv
+    head's group inside; the plain version on the CPU."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, lengths,
+                                         causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device "
+                         f"{q.device}")
+    delta = bwd_delta(out, do)
+    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, lengths, causal),
+            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, lengths,
+                                     causal))
+
+
+def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta (B, H, L) f32 = rowsum(dO * O) of (B, L, H, hd) tensors."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _bwd_args(name, q, k, v, do, lse, delta, lengths, causal):
+    B, L, H, hd = _check_train(name, q, k, v)
+    _check_bf16(name, q.device, do=do)
+    _check_dtype(name, q.device, torch.float32, lse=lse, delta=delta)
+    if do.shape != q.shape or lse.shape != (B, H, L) \
+            or delta.shape != lse.shape:
+        raise ValueError(f"{name}: do / lse / delta shapes")
+    lengths = _int32(lengths, q.device)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr())
+    dims = (B, L, k.shape[1], H, k.shape[2], int(causal), float(hd ** -0.5),
+            _stream(q.device))
+    # the lengths tensor must live until the launch is enqueued
+    return ptrs, dims, lengths
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, lengths,
+                           causal: bool = True) -> torch.Tensor:
+    """B6's dQ kernel: dq (B, L, H, hd) bf16 (CUDA tensors only)."""
+    ptrs, dims, _keep = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse,
+                                  delta, lengths, causal)
+    dq = torch.empty_like(q)
+    err = _build.library().v3d_flash_attention_bwd_dq(*ptrs, dq.data_ptr(),
+                                                      *dims)
+    _build.check(err, "flash_attention_bwd_dq")
+    _build.count_launch("flash_attention_bwd_dq")
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, lengths,
+                            causal: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6's dK/dV kernel, the GQA group summed inside: (dk, dv) (B, S, KV,
+    hd) bf16 (CUDA tensors only)."""
+    ptrs, dims, _keep = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
+                                  lse, delta, lengths, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.library().v3d_flash_attention_bwd_dkv(
+        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
+    _build.check(err, "flash_attention_bwd_dkv")
+    _build.count_launch("flash_attention_bwd_dkv")
+    return dk, dv
+
+
+def _check_train(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor):
+    B, L, H, hd = q.shape
+    _check_bf16(name, q.device, q=q, k=k, v=v)
+    if hd != HEAD_DIM or v.shape != k.shape or k.shape[0] != B \
+            or k.shape[1] != L or H % k.shape[2]:
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    return B, L, H, hd
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Causal / length-masked prefill attention with its gradient: B2 with
+    the logsumexp forward, B6 backward (plain versions on the CPU). The
+    counterpart of the JAX ``_flash_core`` custom VJP; ``lengths`` and
+    ``causal`` get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths, causal):
+        out, lse = flash_attention_fwd(q, k, v, lengths, causal)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(),
+                                         lengths, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          lengths: Optional[torch.Tensor] = None,
+                          causal: bool = True) -> torch.Tensor:
+    """Differentiable :func:`flash_attention`: q (B, L, H, hd), k/v (B, L,
+    KV, hd), keys at s >= lengths[b] masked -> (B, L, H, hd)."""
+    if lengths is None:
+        lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                             device=q.device)
+    return FlashAttentionFunction.apply(q, k, v, lengths, causal)

@@ -18,7 +18,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from video3d_tpu.config import ModelConfig
+from video3d_tpu_torch.config import ModelConfig
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import qwen2
 

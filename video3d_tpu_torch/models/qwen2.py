@@ -1,8 +1,12 @@
 """Qwen2 decoder with 3-axis mRoPE, GQA and a stacked flat KV cache, in
-PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the prefill,
-stacked single-token decode, contiguous multi-token chunk and shared-prefix
-branches; a bf16 KV cache or an int8 one with per-token, per-head scales;
-dense weights or the int8 dicts of ``models/quant.py``).
+PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the no-cache
+training branch, differentiable through B2 with the logsumexp and B6, with
+optional per-layer rematerialisation; the prefill, stacked single-token
+decode, contiguous multi-token chunk and shared-prefix branches; a bf16 KV
+cache or an int8 one with per-token, per-head scales; dense weights or the
+int8 dicts of ``models/quant.py``). JAX's ``scan_layers`` (one
+``lax.scan`` over stacked layers, a compile-time device) is not ported: the
+port runs the layers in a Python loop.
 
 Parameter layout as in the JAX tree (matrices (in, out), used as
 ``x @ w``): ``embed_tokens (vocab, D)``, ``layers[i] {input_layernorm,
@@ -20,10 +24,11 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from video3d_tpu.config import LLMConfig
+from video3d_tpu_torch.config import LLMConfig
 from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
-                                                 mha_shared_prefix)
+                                                 mha_shared_prefix, mha_train)
 from video3d_tpu_torch.models import quant
 
 Params = Dict[str, Any]
@@ -144,6 +149,10 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
                   ) -> torch.Tensor:
     """One decoder block on x (B, L, D).
 
+    Without ``kv_cache`` (training, JAX ``qwen2.py:429-431``): causal
+    attention over the block's own K/V, keys >= ``kv_len`` masked, through
+    the differentiable :func:`mha_train`.
+
     With ``kv_cache``:
       * ``prefill=True`` writes this chunk's K/V at slots 0..L-1 and attends
         the raw K/V (flash kernel);
@@ -168,9 +177,10 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     v = (mm(h, a["wv"]) + a["bv"]).reshape(B, L, KV, hd)
     q, k = apply_rotary(q, k, cos, sin)
 
-    if kv_cache is None or prefill:
-        if kv_cache is not None:
-            _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
+    if kv_cache is None:
+        attn = mha_train(q, k, v, kv_len)
+    elif prefill:
+        _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
         # raw K/V, also with an int8 cache (as the JAX prefill)
         attn = mha(q, k, v, kv_len=kv_len)
     else:
@@ -211,10 +221,16 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
                   kv_len: Optional[torch.Tensor] = None,
                   prefill: bool = False,
                   contiguous_update: bool = False,
-                  shared_prefix: Optional[KVCache] = None) -> torch.Tensor:
+                  shared_prefix: Optional[KVCache] = None,
+                  remat: bool = False) -> torch.Tensor:
     """Run the decoder stack on (B, L, D) embeddings with (B, L, 3) position
     ids; returns the final-norm hidden states. ``kv_cache`` is updated in
     place (see :func:`decoder_layer`).
+
+    ``remat`` (training, no cache): each decoder layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), which keeps only its input
+    and recomputes the layer in the backward pass, as JAX's
+    ``jax.checkpoint(..., nothing_saveable)`` per layer.
 
     ``contiguous_update``: every row's ``cache_positions`` are the same
     range [start, start + L) (suffix over a cached prefix); the chunk's K/V
@@ -235,6 +251,8 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
             raise ValueError("chunk outside the KV cache")
     elif shared_prefix is not None:
         raise ValueError("shared_prefix needs contiguous_update")
+    if remat and kv_cache is not None:
+        raise ValueError("remat is for the no-cache training forward")
     cos, sin = compute_mrope_cos_sin(position_ids, cfg)
     KV, hd = cfg.num_key_value_heads, cfg.head_dim
     x = inputs_embeds
@@ -246,8 +264,13 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
                   shared_prefix.v[i].reshape(P, KV, hd))
             if shared_prefix.k_scale is not None:
                 sp += (shared_prefix.k_scale[i], shared_prefix.v_scale[i])
-        x = decoder_layer(lp, x, cos, sin, cfg, i, kv_cache, cache_positions,
-                          kv_len, prefill, cache_start, sp)
+        if remat:
+            x = checkpoint(decoder_layer, lp, x, cos, sin, cfg, i,
+                           kv_len=kv_len, use_reentrant=False)
+        else:
+            x = decoder_layer(lp, x, cos, sin, cfg, i, kv_cache,
+                              cache_positions, kv_len, prefill, cache_start,
+                              sp)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 

@@ -5,7 +5,8 @@ Same parameter layout as the JAX tree (matrices stored (in, out), used as
 ``x @ w``): ``patch_embed {w (3*ps*ps, D), b}``, ``pos_embed (N, D)``,
 ``layers[i] {ln1, attn {wq,bq,wk,bk,wv,bv,wo,bo}, ln2, mlp {w1,b1,w2,b2}}``.
 The tower's attention is plain matmul + softmax, as the JAX package keeps
-it (a dense einsum, not a kernel).
+it (a dense einsum, not a kernel). ``vision_tower_forward(remat=True)``
+runs each encoder layer under ``torch.utils.checkpoint`` (training).
 """
 
 from __future__ import annotations
@@ -14,8 +15,9 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from video3d_tpu.config import VisionConfig
+from video3d_tpu_torch.config import VisionConfig
 
 Params = Dict[str, Any]
 
@@ -67,16 +69,22 @@ def encoder_layer(p: Params, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor
 
 
 def vision_tower_forward(params: Params, pixel_values: torch.Tensor,
-                         cfg: VisionConfig) -> torch.Tensor:
+                         cfg: VisionConfig, remat: bool = False
+                         ) -> torch.Tensor:
     """(B, 3, S, S) normalized pixels -> (B, num_patches, hidden) features of
-    the last kept encoder layer (no post-layernorm)."""
+    the last kept encoder layer (no post-layernorm). ``remat``: each encoder
+    layer under non-reentrant ``torch.utils.checkpoint``, recomputed in the
+    backward pass (JAX ``jax.checkpoint(encoder_layer)``)."""
     if cfg.tower_pad_seq is not None:
         raise NotImplementedError("tower_pad_seq is not ported")
     w = params["patch_embed"]["w"]
     x = patchify(pixel_values, cfg.patch_size).to(w.dtype)
     x = x @ w + params["patch_embed"]["b"] + params["pos_embed"]
     for lp in params["layers"]:
-        x = encoder_layer(lp, x, cfg)
+        if remat:
+            x = checkpoint(encoder_layer, lp, x, cfg, use_reentrant=False)
+        else:
+            x = encoder_layer(lp, x, cfg)
     return x
 
 

@@ -14,7 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from video3d_tpu.config import ModelConfig, PosEmbedType
+from video3d_tpu_torch.config import ModelConfig, PosEmbedType
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import quant, qwen2, siglip
 
@@ -81,7 +81,8 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
     ``bits=8`` gives what ``quantize_tree`` makes of the same tree (int8
     LLM projections and lm_head), quantizing each decoder layer right after
     its init, as the JAX ``builder.init_dummy_params`` does, so the full
-    bf16 LLM never exists next to the int8 one."""
+    bf16 LLM never exists next to the int8 one. ``dtype=torch.float32``
+    gives the f32 master tree that training updates."""
     check_config(cfg)
     return {
         "vision": siglip.init_vision_tower(cfg.vision, device, generator,

@@ -1,0 +1,296 @@
+"""Training loop on one device: task-aware batching, grad accumulation,
+logging, checkpoint / resume, preemption.
+
+Counterpart of ``video3d_tpu/train/trainer.py`` (the reference recipe,
+train_3d.py::train + LLaVATrainer) for generative batches trained on the LM
+cross-entropy: f32 master weights with bf16 compute, rematerialization,
+``MultiSteps`` accumulation, the epoch order of the samplers, resume that
+skips the batches already trained, ``use_pos_skipping``, a metrics jsonl,
+SIGTERM -> checkpoint -> exit, and the final bf16 export. Not ported, and
+raising ``NotImplementedError`` with their ROADMAP item: LoRA / QLoRA
+(``lora_r > 0``, A9), grounding batches (A7), and meshes (``dp``, ``tp``,
+``sp`` > 1, A12). The loop runs on the card unless the caller passes a CPU
+device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import signal
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from video3d_tpu_torch.config import ModelConfig
+from video3d_tpu_torch.models import llava_video3d as lv3d
+from video3d_tpu_torch.train import checkpoint as ckpt
+from video3d_tpu_torch.train.optim import (MultiSteps, OptimConfig,
+                                           build_optimizer)
+from video3d_tpu_torch.train.prefetch import BatchPrefetcher
+from video3d_tpu_torch.train.samplers import (
+    batches_from_order, get_length_grouped_indices,
+    get_modality_length_grouped_indices, get_task_length_grouped_indices)
+from video3d_tpu_torch.train.train_step import (TrainState,
+                                                create_train_state,
+                                                train_step)
+
+
+@dataclasses.dataclass
+class TrainingConfig:
+    output_dir: str = "checkpoints/run"
+    num_epochs: int = 1
+    per_device_batch_size: int = 1
+    gradient_accumulation_steps: int = 2
+    save_steps: int = 1000
+    logging_steps: int = 1
+    metrics_file: Optional[str] = None     # jsonl metrics log (wandb-free)
+    seed: int = 0
+    # task_length | length | modality_length | none
+    group_by: str = "task_length"
+    bf16: bool = True
+    # f32 MASTER weights with bf16 compute (the reference's DeepSpeed-bf16
+    # semantics, scripts/zero3.json: fp32 master/optimizer partitions).
+    # False stores params in bf16 outright, which at the recipe's lr=1e-5
+    # rounds away most AdamW updates.
+    master_f32: bool = True
+    remat: bool = True
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    # use_pos_skipping (llava_arch.py:823-829): during training, add random
+    # offsets to position ids before/after a random split point. 0 disables.
+    pos_skipping_range: int = 0
+    lora_r: int = 0
+
+
+def apply_pos_skipping(position_ids: np.ndarray, skip_range: int,
+                       rng: np.random.Generator) -> np.ndarray:
+    """use_pos_skipping (llava_arch.py:823-829): pick a random split point,
+    add ``left_add`` to ids before it and ``right_add >= left_add`` after."""
+    L = position_ids.shape[1]
+    split = int(rng.integers(0, L + 1))
+    left_add = int(rng.integers(0, skip_range + 1))
+    right_add = int(rng.integers(left_add, skip_range + 1))
+    out = position_ids.copy()
+    out[:, :split] += left_add
+    out[:, split:] += right_add
+    return out
+
+
+def to_batch(arrays: Dict[str, np.ndarray], device) -> lv3d.Batch:
+    """The collator's host arrays -> a model ``Batch`` on ``device``."""
+    if "ground_slot" in arrays:
+        raise NotImplementedError("grounding batches are not ported "
+                                  "(ROADMAP A7)")
+
+    def t(name, dtype=None):
+        x = torch.from_numpy(np.asarray(arrays[name]))
+        return x.to(device=device, dtype=dtype or x.dtype)
+
+    return lv3d.Batch(
+        images=t("images"), patch_coords=t("patch_coords"),
+        text_ids=t("text_ids", torch.long), kind=t("kind"),
+        vision_index=t("vision_index", torch.long),
+        position_ids=t("position_ids"), seq_len=t("seq_len"),
+        labels=t("labels", torch.long), coord_mask=t("coord_mask"),
+        box_input=t("box_input"))
+
+
+def _cast_tree(tree, src: torch.dtype, dst: torch.dtype, device):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, src, dst, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cast_tree(v, src, dst, device) for v in tree]
+    if isinstance(tree, torch.Tensor):
+        tree = tree.to(device)
+        return tree.to(dst) if tree.dtype == src else tree
+    return tree
+
+
+def _upcast_state(state, device):
+    """bf16 leaves of a restored state -> f32 (the master copy)."""
+    if isinstance(state, torch.Tensor):
+        return _cast_tree(state, torch.bfloat16, torch.float32, device)
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_upcast_state(x, device) for x in state))
+    if isinstance(state, dict):
+        return {k: _upcast_state(v, device) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return [_upcast_state(v, device) for v in state]
+    return state
+
+
+class Trainer:
+    def __init__(self, model_cfg: ModelConfig, params, dataset, collator,
+                 optim_cfg: OptimConfig, train_cfg: TrainingConfig,
+                 device=None):
+        if train_cfg.lora_r:
+            raise NotImplementedError("LoRA / QLoRA training is not ported "
+                                      "(ROADMAP A9)")
+        if max(train_cfg.dp, train_cfg.tp, train_cfg.sp) > 1:
+            raise NotImplementedError("data / tensor / sequence parallel "
+                                      "meshes are not ported (ROADMAP A12)")
+        self.cfg = model_cfg
+        self.tcfg = train_cfg
+        self.dataset = dataset
+        self.collator = collator
+        self.device = torch.device("cuda", 0) if device is None \
+            else torch.device(device)
+        # bf16 + master_f32 (default): params stay f32 (the optimizer's
+        # master copy; bf16 imports are upcast) and are cast to bf16 at use
+        # inside the step. bf16 alone: params stored bf16 outright.
+        self._compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
+        if train_cfg.bf16 and train_cfg.master_f32:
+            params = _cast_tree(params, torch.bfloat16, torch.float32,
+                                self.device)
+        elif train_cfg.bf16:
+            params = _cast_tree(params, torch.float32, torch.bfloat16,
+                                self.device)
+            self._compute_dtype = None      # params already bf16
+        else:
+            params = _cast_tree(params, None, None, self.device)
+        base_tx = build_optimizer(params, optim_cfg)
+        if train_cfg.gradient_accumulation_steps > 1:
+            self.tx = MultiSteps(base_tx,
+                                 train_cfg.gradient_accumulation_steps)
+        else:
+            self.tx = base_tx
+        self.state = create_train_state(params, self.tx)
+        self._step_fn = self._step
+
+    def _step(self, state: TrainState, batch: lv3d.Batch):
+        return train_step(state, batch, self.cfg, self.tx,
+                          remat=self.tcfg.remat,
+                          compute_dtype=self._compute_dtype)
+
+    # ------------- data order -------------
+
+    def _epoch_order(self, rng: np.random.Generator):
+        bs = self.tcfg.per_device_batch_size
+        if self.tcfg.group_by == "task_length":
+            order = get_task_length_grouped_indices(
+                self.dataset.task_lengths, bs, 1, rng)
+        elif self.tcfg.group_by == "length":
+            order = get_length_grouped_indices(self.dataset.lengths, bs, 1,
+                                               rng)
+        elif self.tcfg.group_by == "modality_length":
+            order = get_modality_length_grouped_indices(
+                self.dataset.modality_lengths, bs, 1, rng)
+        else:
+            order = list(rng.permutation(len(self.dataset)))
+        return batches_from_order(order, bs)
+
+    def _to_batch(self, arrays: Dict[str, np.ndarray]) -> lv3d.Batch:
+        return to_batch(arrays, self.device)
+
+    # ------------- main loop -------------
+
+    def train(self, resume: bool = True) -> TrainState:
+        start_step = 0
+        if resume:
+            latest = ckpt.latest_checkpoint(self.tcfg.output_dir)
+            if latest:
+                print(f"[trainer] resuming from {latest}")
+                self.state = ckpt.restore_checkpoint(latest, self.state)
+                if self.tcfg.bf16 and self.tcfg.master_f32:
+                    # a checkpoint of a pure-bf16 run restores bf16 leaves:
+                    # upcast them back to the f32 master copy
+                    self.state = _upcast_state(self.state, self.device)
+                start_step = int(self.state.step)
+
+        rng = np.random.default_rng(self.tcfg.seed)
+        global_step = start_step
+        consumed = 0        # batches drawn from the data order since epoch 0
+        metrics_f = None
+        if self.tcfg.metrics_file:
+            parent = os.path.dirname(os.path.abspath(self.tcfg.metrics_file))
+            os.makedirs(parent, exist_ok=True)
+            metrics_f = open(self.tcfg.metrics_file, "a")
+
+        # Preemption safety: the first SIGTERM / SIGINT requests a
+        # checkpoint at the next step boundary, then the loop returns so
+        # auto-resume continues.
+        preempted = {"flag": False}
+
+        def _on_term(signum, frame):
+            print(f"[trainer] signal {signum}: checkpoint at next step "
+                  "boundary, then exit")
+            preempted["flag"] = True
+
+        prev_handlers = {}
+        try:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, _on_term)
+        except ValueError:           # not the main thread
+            prev_handlers = {}
+
+        def restore_handlers():
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+            if metrics_f:
+                metrics_f.close()
+
+        for epoch in range(self.tcfg.num_epochs):
+            order = self._epoch_order(rng)
+            if not order:
+                print(f"[trainer] WARNING: epoch {epoch} has no batches "
+                      f"(dataset of {len(self.dataset)} < one "
+                      f"'{self.tcfg.group_by}' megabatch after drop-last)")
+            # skip already-trained batches on resume (HF Trainer's
+            # skip_first_batches, train_3d.py:1863-1864): `consumed` counts
+            # batches drawn from the seed-replayed epoch order across epochs
+            to_run = []
+            for batch_idx in order:
+                consumed += 1
+                if consumed > start_step:
+                    to_run.append(batch_idx)
+            prefetcher = BatchPrefetcher(self.dataset, self.collator, to_run)
+            for arrays in prefetcher:
+                if self.tcfg.pos_skipping_range:
+                    arrays = dict(arrays)
+                    # per-step derived rng (seed, step): a resumed run
+                    # applies the offsets an uninterrupted run would
+                    ps_rng = np.random.default_rng(
+                        (self.tcfg.seed, global_step))
+                    arrays["position_ids"] = apply_pos_skipping(
+                        arrays["position_ids"],
+                        self.tcfg.pos_skipping_range, ps_rng)
+                batch = self._to_batch(arrays)
+                t0 = time.time()
+                self.state, metrics = self._step_fn(self.state, batch)
+                global_step += 1
+                if global_step % self.tcfg.logging_steps == 0:
+                    vals = {k: float(v) for k, v in metrics.items()}
+                    step_time = time.time() - t0
+                    print(f"[trainer] step {global_step} "
+                          f"{vals} ({step_time:.2f}s)")
+                    if metrics_f:
+                        metrics_f.write(json.dumps(
+                            {"step": global_step, "epoch": epoch,
+                             "step_time_s": step_time, **vals}) + "\n")
+                        metrics_f.flush()
+                if preempted["flag"] or \
+                        global_step % self.tcfg.save_steps == 0:
+                    path = ckpt.save_checkpoint(self.tcfg.output_dir,
+                                                global_step, self.state)
+                    print(f"[trainer] saved {path}")
+                if preempted["flag"]:
+                    prefetcher.close()
+                    restore_handlers()
+                    print(f"[trainer] preempted at step {global_step}; "
+                          "checkpoint saved, exiting for resume")
+                    return self.state
+        restore_handlers()
+        # final export in bf16 (the reference's
+        # stage3_gather_16bit_weights_on_model_save, zero3.json:32): the f32
+        # master copy is an optimizer detail, not the published model
+        export = self.state.params
+        if self.tcfg.bf16 and self.tcfg.master_f32:
+            export = _cast_tree(export, torch.float32, torch.bfloat16,
+                                self.device)
+        ckpt.save_params_only(self.tcfg.output_dir, export)
+        return self.state
