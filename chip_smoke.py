@@ -14,7 +14,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    attention (B2 folded), split-K decode attention (B3), shared-prefix
    attention (B5), and the int8 configuration's kernels: the B=1 int8
    weight matvec (B4) at the vocab head and the int8-cache forms of B3,
-   B2 folded and B5; the training kernels at the training shapes: B2 with
+   B2 folded and B5; paged decode attention (B7, bf16 and int8 pools) at
+   the paged batcher's shapes (8 slots aliasing a 52-page scene prefix);
+   the training kernels at the training shapes: B2 with
    the per-row logsumexp and the flash backward B6 (dQ, dK/dV); max error,
    median times (CUDA events), each kernel's bound (the larger of its
    operations over the card's peak and its bytes over the memory rate) and,
@@ -31,9 +33,18 @@ Phases, each of which raises on failure (the process then exits non-zero):
    ``generate_answer`` (a B=1 suffix over the cached prefix); launch counts
    must match the path, and the first-step logits of the suffix paths must
    agree with a full prefill of the same question.
+8. Serving (runs after phase 5, and again inside phase 6): the paged
+   continuous batcher (``serve/batcher.py``: 8 slots, chunks of 8, pages
+   of 128, shared scene-prefix pages, a pool too small for eight full
+   footprints) serves 24 requests submitted from threads in three waves
+   over two scenes, budgets of 8 / 16 / 32 tokens, one cancelled
+   mid-stream; every request returns, the prefix-sharing counts and the
+   launch counts are exact (B7: 28 per decode step), every page is back
+   after the last eviction, and the first paged decode step equals the
+   dense one from the same admitted states (with a swapped-page control).
 6. The int8 configuration: the bf16 model is freed and the same model is
    built with int8 LLM projections and lm_head (``init_model(bits=8)``);
-   phases 4 and 5 run again with ``kv_cache_dtype="int8"``, with exact
+   phases 4, 5 and 8 run again with ``kv_cache_dtype="int8"``, with exact
    launch counts of B4 and the int8 kernels and the first-step logit check
    at its own bound.
 7. Training: the int8 model is freed; ``ModelConfig()`` cut to
@@ -46,9 +57,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    mini-step through the kernels against the same mini-step with the plain
    attention swapped in.
 
-B2 folded, B5, the int8 kernels, B2 with the logsumexp and B6 are held
-against their plain versions run in float32 on the same bf16 / int8
-values. Every accuracy check of those kernels and of phases 5, 6 and 7
+B2 folded, B5, B7, the int8 kernels, B2 with the logsumexp and B6 are
+held against their plain versions run in float32 on the same bf16 / int8
+values. Every accuracy check of those kernels and of phases 5-8
 also reads controls, deliberately
 broken plain versions (a mask dropped, scales read one position off or
 from the wrong kv head, ...), which must miss the bound by a wide margin:
@@ -103,11 +114,16 @@ KERNEL_INFO = {
     "flash_attention_bwd_dkv": (
         "video3d_tpu_torch/csrc/flash_attention_bwd.cu",
         "video3d_tpu/kernels/flash_attention.py:216"),
+    "paged_attention": ("video3d_tpu_torch/csrc/paged_attention.cu",
+                        "video3d_tpu/kernels/paged_attention.py:60"),
+    "paged_attention_int8": ("video3d_tpu_torch/csrc/paged_attention.cu",
+                             "video3d_tpu/kernels/paged_attention.py:60"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
-#: 4 and 5
+#: 4, 5 and 8
 INT8_KERNELS = ("int8_matvec", "decode_attention_int8",
-                "flash_attention_folded_int8", "shared_prefix_attention_int8")
+                "flash_attention_folded_int8", "shared_prefix_attention_int8",
+                "paged_attention_int8")
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -815,6 +831,130 @@ def check_shared_prefix_int8(dev):
     ), _prefix_bound(*timed), None
 
 
+# B7's checks at the paged batcher's serving shapes: 8 slots of Qwen2-7B
+# heads over 28-layer pools of 128-token pages, the last layer read by
+# strides; every slot aliases the same 52 scene-prefix pages (~6.7k tokens)
+# and owns a few private pages after them, so the live (slot, page) pairs
+# (~380) outnumber the pool (85 pages); one slot has kv_len 0 and one ends
+# mid-page. The last 16 keys of every slot carry most of the weight.
+PAGED_SLOTS, PAGED_PAGE, PAGED_PREFIX_PAGES, PAGED_MAXP = 8, 128, 52, 56
+PAGED_LENS = [6780, 6801, 0, 6750, 6912, 6790, 6760, 6845]
+
+
+def _paged_inputs(g, dev, int8: bool):
+    """q, stacked pools (bf16, or int8 with (NL, P, KV, 1, page) scales),
+    table and lengths of the B7 check (see PAGED_LENS)."""
+    import torch
+
+    from video3d_tpu_torch.models.qwen2 import _quantize_kv
+
+    NL, H, KV, hd = CACHE_LAYERS, 28, 4, 128
+    page, S, maxp = PAGED_PAGE, PAGED_SLOTS, PAGED_MAXP
+    P = 1 + PAGED_PREFIX_PAGES + S * (maxp - PAGED_PREFIX_PAGES)
+    own = maxp - PAGED_PREFIX_PAGES
+    table = torch.zeros((S, maxp), dtype=torch.int32)
+    table[:, :PAGED_PREFIX_PAGES] = torch.arange(1, 1 + PAGED_PREFIX_PAGES)
+    table[:, PAGED_PREFIX_PAGES:] = 1 + PAGED_PREFIX_PAGES + torch.arange(
+        S * own).reshape(S, own)
+    focus = [(int(table[b, s // page]), s % page)
+             for b, n in enumerate(PAGED_LENS)
+             for s in range(max(n - 16, 0), n)]
+    pid = torch.tensor([f[0] for f in focus], device=dev)
+    off = torch.tensor([f[1] for f in focus], device=dev)
+    shape = (P, page, KV, hd)
+    k = torch.empty((NL, P, page, KV * hd), device=dev,
+                    dtype=torch.int8 if int8 else torch.bfloat16)
+    v = torch.empty_like(k)
+    ks = vs = None
+    if int8:
+        ks = torch.empty((NL, P, KV, 1, page), device=dev)
+        vs = torch.empty_like(ks)
+    for layer in range(NL):             # one layer at a time: temporaries
+        kl = torch.randn(shape, generator=g, device=dev)
+        vl = 0.5 * torch.randn(shape, generator=g, device=dev)
+        if layer == NL - 1:
+            kl[pid, off, :, 0] += FOCUS
+        for dst, sdst, x in ((k, ks, kl), (v, vs, vl)):
+            if int8:
+                xq, xs = _quantize_kv(x.to(torch.bfloat16))
+                dst[layer] = xq.reshape(P, page, KV * hd)
+                sdst[layer] = xs.permute(0, 2, 3, 1)
+            else:
+                dst[layer] = x.reshape(P, page, KV * hd)
+    q = Q_SCALE * torch.randn(S, 1, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    kv_len = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    return (q.to(torch.bfloat16), k, v, table.to(dev), kv_len, NL - 1, KV,
+            ks, vs)
+
+
+def _paged_bound(q, k, v, table, kv_len, layer, KV, ks=None, vs=None):
+    """The least HBM traffic: the shared prefix pages once, each slot's
+    positions past them once (values and, int8, scales), q, the output,
+    the table and the lengths; 4 * hd FLOPs per (head, key) pair."""
+    H, hd = q.shape[2], q.shape[3]
+    lens = kv_len.tolist()
+    shared = PAGED_PREFIX_PAGES * PAGED_PAGE
+    unique = shared + sum(max(n - shared, 0) for n in lens)
+    per_pos = 2 * KV * hd * k.element_size() + (2 * KV * 4 if ks is not None
+                                                else 0)
+    return _bound(_attn(sum(lens), H),
+                  unique * per_pos + 2 * _nbytes(q) + _nbytes(table, kv_len))
+
+
+def check_paged(dev, int8: bool = False):
+    """B7 (bf16 or int8 pools) at the serving shapes against its plain
+    version in f32 on the same values; controls: one page-table entry
+    pointed at another slot's page, kv_len one short, and (int8) the scales
+    of the wrong kv head."""
+    import torch
+
+    from video3d_tpu_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(11 if int8 else 10)
+    args = _paged_inputs(g, dev, int8)
+    q, k, v, table, kv_len, layer, KV, ks, vs = args
+    live = sum(-(-n // PAGED_PAGE) for n in PAGED_LENS)
+    name = (f"B7 {'int8' if int8 else 'bf16'} S={q.shape[0]} kv_len="
+            f"{PAGED_LENS} ({live} live pages over a pool of {k.shape[1]})")
+    out = pa.paged_decode_attention(*args)
+    qf = q.float()          # the plain version on the same values in f32
+    ref = pa.paged_attention_plain(qf, *args[1:])
+    rows = [1] * q.shape[0]
+    err = _rows_err(out, ref, rows)
+    plain_err = _rows_err(pa.paged_attention_plain(*args), ref, rows)
+    finite = bool(torch.isfinite(out.float()).all())
+    zero = bool((out[PAGED_LENS.index(0)] == 0).all())
+    _check(name, err <= BF16_ATOL and finite and zero,
+           f"max |d| {err:.2e}, finite={finite}, kv_len 0 slot zero={zero} "
+           f"(the bf16 plain version: {plain_err:.2e})")
+    wrong_page = table.clone()
+    last = (PAGED_LENS[0] - 1) // PAGED_PAGE
+    wrong_page[0, last] = table[1, last]
+    controls = {
+        "a table entry pointed at another slot's page":
+            pa.paged_attention_plain(qf, k, v, wrong_page, kv_len, layer, KV,
+                                     ks, vs),
+        "kv_len one short": pa.paged_attention_plain(
+            qf, k, v, table, (kv_len - 1).clamp(min=0), layer, KV, ks, vs)}
+    if int8:
+        controls["scales of the wrong kv head"] = pa.paged_attention_plain(
+            qf, k, v, table, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
+            torch.roll(vs, 1, dims=2))
+    _check_controls(name, ref, rows, controls)
+    bound = _paged_bound(*args)
+    print(f"  B7 bound counts the {PAGED_PREFIX_PAGES} aliased prefix pages "
+          f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions)", flush=True)
+    return err, (
+        _median_ms(lambda: pa.paged_decode_attention(*args), 50),
+        _median_ms(lambda: pa.paged_attention_plain(*args), 5)
+    ), bound, None
+
+
+def check_paged_int8(dev):
+    return check_paged(dev, int8=True)
+
+
 def check_kernels():
     import torch
 
@@ -829,7 +969,9 @@ def check_kernels():
                      ("decode_attention_int8", check_decode_int8),
                      ("flash_attention_folded_int8", check_folded_int8),
                      ("shared_prefix_attention_int8",
-                      check_shared_prefix_int8)):
+                      check_shared_prefix_int8),
+                     ("paged_attention", check_paged),
+                     ("paged_attention_int8", check_paged_int8)):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
@@ -1287,11 +1429,313 @@ def run_prefix_path(params, cfg, root: str, info,
     return launches
 
 
-def run_int8_paths(cfg, root: str, info) -> dict:
+# phase 8: the paged continuous batcher at full width and depth
+SERVE_SLOTS, SERVE_CHUNK, SERVE_PAGE = 8, 8, 128
+SERVE_BUDGETS = (8, 16, 32)
+SERVE_TEXTS = PREFIX_TEXTS[:12]
+# requests of the three waves: 12 on scene A (one cancelled mid-stream),
+# 11 on scene B (storing B's prefix evicts A's, releasing its shared
+# pages), then 1 on scene A (evicting B's, so every page comes back)
+SERVE_WAVES = ((0, 12), (1, 11), (0, 1))
+SERVE_CANCEL = 5            # the request of wave 1 cancelled mid-stream
+# phase 8's paged step against the dense step from the same sub-states:
+# both read the same bf16 (int8) K/V through B7 and B3, whose split-K
+# arithmetic is the same, and run the same products, so they agree to
+# float32 summation order. LOGIT_ATOL could not see a wrong page: with
+# random weights attention is diffuse, and even a swapped question moves
+# the first-step logits by only ~0.2 (PERF.md section 7).
+PAGED_LOGIT_ATOL = 1e-3
+
+
+def _serve_footprints(engine, q):
+    """(bucket, pages of one request's full footprint at the largest
+    budget, full prefix pages) of a question, from its splice plan (host
+    only)."""
+    from video3d_tpu_torch.models.paged_kv import pages_needed
+    from video3d_tpu_torch.models.splice import vision_end_from_kind
+
+    frames = engine.ecfg.max_frames
+    plan, bucket = engine._splice_plan([engine._tokenize_prompt(q)],
+                                       [frames], frames)
+    prefix = vision_end_from_kind(plan.kind[0])
+    return (bucket, pages_needed(bucket + max(SERVE_BUDGETS) + SERVE_CHUNK,
+                                 SERVE_PAGE), prefix // SERVE_PAGE)
+
+
+def _timed_batcher(engine, total_pages: int):
+    """A ContinuousBatcher whose admissions and decode chunks this script
+    times (CUDA-synchronised host clock) and counts, with the pages in use
+    sampled after every chunk."""
+    import torch
+
+    from video3d_tpu_torch.serve import batcher as sb
+
+    log = {"admit": [], "defer": 0, "chunks": [], "in_use": 0}
+
+    class TimedBatcher(sb.ContinuousBatcher):
+        def _admit(self, slot, req, prepared):
+            before = engine.prefix_cache_stats[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super()._admit(slot, req, prepared)
+            torch.cuda.synchronize()
+            if out is self._DEFER:
+                log["defer"] += 1
+            elif out:
+                hit = engine.prefix_cache_stats[0] > before
+                log["admit"].append(("hit" if hit else "miss",
+                                     (time.perf_counter() - t0) * 1e3))
+            return out
+
+    decode = sb.paged_decode_chunk
+
+    def chunk_fn(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = decode(*args, **kwargs)
+        torch.cuda.synchronize()
+        log["chunks"].append((time.perf_counter() - t0) * 1e3)
+        b = batcher
+        log["in_use"] = max(log["in_use"],
+                            b.total_pages - 1 - b._alloc.available)
+        return out
+
+    batcher = TimedBatcher(engine, num_slots=SERVE_SLOTS, chunk=SERVE_CHUNK,
+                           paged=True, page_size=SERVE_PAGE,
+                           total_pages=total_pages)
+    return batcher, log, chunk_fn
+
+
+def _serve_wave(batcher, engine, questions, first: int, cancel=None):
+    """Submit each question from its own thread with budgets cycling
+    through SERVE_BUDGETS; the request ``cancel`` is cancelled after its
+    first streamed tokens. Returns [(budget, handle, cancelled)]."""
+    import threading
+
+    out, errors = [None] * len(questions), []
+
+    def run(i, q):
+        try:
+            budget = SERVE_BUDGETS[(first + i) % len(SERVE_BUDGETS)]
+            h = batcher.submit(q, max_new_tokens=budget)
+            if i == cancel:
+                stream = h.text_stream(engine._decode_text)
+                next(stream)
+                h.cancel()
+                for _ in stream:
+                    pass
+            else:
+                h.result(engine._decode_text, timeout=600)
+            out[i] = (budget, h, i == cancel)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {first + i}: {e!r}")
+
+    threads = [threading.Thread(target=run, args=(i, q))
+               for i, q in enumerate(questions)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    _check(f"requests {first}..{first + len(questions) - 1} returned",
+           not errors, "; ".join(errors) or "no errors")
+    return out
+
+
+def _check_paged_vs_dense(params, cfg, engine, questions, other):
+    """The first step of ``paged_decode_chunk`` against ``decode_chunk``
+    over a dense state, from the same admitted B=1 sub-states: two hits on
+    the cached scene (sharing its prefix pages) and a full prefill on the
+    other scene. Next logits within PAGED_LOGIT_ATOL; the control (slot
+    0's boundary page swapped with the other scene's slot's page) must
+    read at least twice that."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models.paged_kv import pages_needed
+
+    page = SERVE_PAGE
+    eos = engine.ecfg.eos_token_id
+    dev, dtype = engine.device, engine.cache_dtype
+    preps = [engine.prepare_request(q) for q in questions]
+    entry = preps[0]["entry"]
+    n_full = entry.prefix_len // page
+    batch, vf = engine._prepare_generation(other)
+    n_pages = [pages_needed(b, page) for b in
+               [p["bucket"] for p in preps] + [int(batch.text_ids.shape[1])]]
+    skips = [n_full] * len(preps) + [0]
+    M = max(n_pages) * page
+    with torch.inference_mode():
+        subs = [engine.start_request(p, max_cache_len=M) for p in preps]
+        subs.append(gen.start_decode(params, cfg, batch, M, vf, dtype))
+        S = len(subs)
+        own = [n + 1 - k for n, k in zip(n_pages, skips)]
+        dense = gen.empty_decode_state(cfg, S, M, dtype, device=dev)
+        paged = gen.empty_paged_state(cfg, S, 1 + n_full + sum(own), page,
+                                      max(n_pages) + 1, dtype, device=dev)
+        shared = list(range(1, 1 + n_full))
+        gen.write_shared_prefix(paged.cache, entry.cache, shared, n_full)
+        first = 1 + n_full
+        for s, sub in enumerate(subs):
+            gen.insert_decode_slot(dense, s, sub)
+            row = shared[:skips[s]] + list(range(first, first + own[s]))
+            row += [0] * (paged.cache.max_pages - len(row))
+            first += own[s]
+            gen.insert_paged_slot(
+                paged, s, sub, torch.tensor(row, dtype=torch.int32,
+                                            device=dev),
+                n_pages[s], skip_pages=skips[s])
+        del subs
+        control = gen.PagedDecodeState(
+            paged.next_logits.clone(),
+            paged.cache._replace(**{f: t.clone() for f, t in
+                                    paged.cache._asdict().items()
+                                    if t is not None}),
+            paged.done.clone())
+        table = control.cache.page_table
+        table[[0, S - 1], n_full] = table[[S - 1, 0], n_full]
+        d, _ = gen.decode_chunk(params, cfg, dense, 1, eos)
+        p, _ = gen.paged_decode_chunk(params, cfg, paged, 1, eos)
+        c, _ = gen.paged_decode_chunk(params, cfg, control, 1, eos)
+    diff = float((p.next_logits - d.next_logits).abs().max())
+    ctl = float((c.next_logits[0] - d.next_logits[0]).abs().max())
+    _check(f"paged vs dense first-step logits ({S} slots)",
+           diff <= PAGED_LOGIT_ATOL
+           and bool(torch.isfinite(p.next_logits).all()),
+           f"max |d| {diff:.2e} (bound {PAGED_LOGIT_ATOL:.0e})")
+    _check("paged vs dense control, slot 0's boundary page swapped with "
+           "the other scene's", ctl >= 2 * PAGED_LOGIT_ATOL,
+           f"max |d| {ctl:.2e} (must be >= {2 * PAGED_LOGIT_ATOL:.0e})")
+    del d, p, c, dense, paged, control
+    torch.cuda.empty_cache()
+
+
+def run_serving(params, cfg, root: str, infos,
+                kv_cache_dtype: str = "bfloat16") -> dict:
+    """Phase 8: the paged continuous batcher (8 slots, chunks of 8, pages
+    of 128) with shared prefix pages serves 24 requests in three waves
+    over two scenes (SERVE_WAVES) on a pool too small for eight full
+    footprints; returns the kernel launch counts of that run."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models.quant import is_quantized
+    from video3d_tpu_torch.serve import batcher as sb
+
+    engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
+                          scene_cache_scenes=1, kv_cache_dtype=kv_cache_dtype)
+    scenes = [_questions(info["sample_idx"], SERVE_TEXTS, f"serve{i}_")
+              for i, info in enumerate(infos)]
+    bucket, need, n_full = _serve_footprints(engine, scenes[0][0])
+    # the first miss, the shared prefix and three private remainders: the
+    # deferred FIFO holds the rest of each wave
+    total = 1 + need + n_full + 3 * (need - n_full)
+    batcher, log, chunk_fn = _timed_batcher(engine, total)
+    L = cfg.llm.num_hidden_layers
+    dense_pages = SERVE_SLOTS * batcher.max_pages
+    print(f"  pool {total} pages of {SERVE_PAGE} ({need} per full "
+          f"footprint at bucket {bucket}, {n_full} prefix pages) against "
+          f"{dense_pages} for {SERVE_SLOTS} dense-equivalent rows",
+          flush=True)
+    orig = sb.paged_decode_chunk
+    sb.paged_decode_chunk = chunk_fn
+    handles = []
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        n = 0
+        for scene, count in SERVE_WAVES:
+            handles += _serve_wave(batcher, engine, scenes[scene][:count], n,
+                                   SERVE_CANCEL if n == 0 else None)
+            n += count
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        drained = _wait_for(lambda: not batcher._shared and
+                            batcher._alloc.available == total - 1)
+    finally:
+        sb.paged_decode_chunk = orig
+        batcher.shutdown()
+    free = batcher._alloc.available
+    _check("every page back after the last eviction",
+           drained and free == total - 1,
+           f"available {free} of {total - 1}, shared entries "
+           f"{len(batcher._shared)}")
+    tokens = sum(len(h.tokens) for _, h, _ in handles)
+    early = [(b, len(h.tokens)) for b, h, c in handles if c]
+    over = [(b, len(h.tokens)) for b, h, c in handles
+            if len(h.tokens) > b or (not c and h.error is not None)]
+    _check("budgets and the cancelled request",
+           not over and len(early) == 1 and early[0][1] < early[0][0],
+           f"{tokens} tokens; cancelled request {early} (budget, tokens); "
+           f"over budget or failed {over}")
+    # each wave's first admission misses (the engine keeps one scene's
+    # prefix and the waves alternate scenes); the rest hit and share
+    misses = len(SERVE_WAVES)
+    hits = sum(c for _, c in SERVE_WAVES) - misses
+    _check("prefix sharing", batcher.prefix_share_stats == [hits, 2]
+           and engine.prefix_cache_stats == [hits, misses],
+           f"batcher [shared admissions, creations] "
+           f"{batcher.prefix_share_stats}, engine [hits, misses] "
+           f"{engine.prefix_cache_stats}")
+    _check("deferred admissions", log["defer"] > 0,
+           f"{log['defer']} admissions deferred for pages")
+    steps = SERVE_CHUNK * len(log["chunks"])
+    paged = "paged_attention_int8" if kv_cache_dtype == "int8" \
+        else "paged_attention"
+    expected = dict.fromkeys(_build.LAUNCHES, 0)
+    expected.update({paged: L * steps, "flash_attention": L * misses,
+                     "fused_geometry": launches["fused_geometry"]})
+    folded = "flash_attention_folded" + (
+        "_int8" if kv_cache_dtype == "int8" else "")
+    expected[folded] = L * hits
+    if is_quantized(params["llm"]["lm_head"]):
+        expected["int8_matvec"] = misses + hits      # one B=1 lm_head each
+    _check("launch counts", launches == expected
+           and misses <= launches["fused_geometry"] <= 2 * misses,
+           f"{launches}, expected {expected} ({steps} decode steps; B1 "
+           f"once or twice per wave)")
+    chunks = sorted(log["chunks"])
+    ms_chunk = chunks[len(chunks) // 2]
+    admit = {k: sorted(ms for kind, ms in log["admit"] if kind == k)
+             for k in ("miss", "hit")}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"  {len(handles)} requests, {tokens} output tokens in "
+          f"{wall:.3f} s = {tokens / wall:.1f} tokens/s over all slots; "
+          f"{len(chunks)} decode chunks, median {ms_chunk:.2f} ms per chunk"
+          f" = {ms_chunk / SERVE_CHUNK:.2f} ms per step of {SERVE_SLOTS} "
+          f"slots; admission median ms: miss "
+          f"{admit['miss'][len(admit['miss']) // 2]:.1f} "
+          f"({len(admit['miss'])}), hit "
+          f"{admit['hit'][len(admit['hit']) // 2]:.1f} "
+          f"({len(admit['hit'])}); pages in use at most {log['in_use']} "
+          f"against {dense_pages} dense-equivalent; peak device memory "
+          f"{peak / 2**30:.2f} GiB; {smi}", flush=True)
+    _check_paged_vs_dense(params, cfg, engine, scenes[0][:2], scenes[1][0])
+    del batcher, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _wait_for(pred, seconds: float = 30.0) -> bool:
+    deadline = time.time() + seconds
+    while time.time() < deadline:
+        if pred():
+            return True
+        time.sleep(0.05)
+    return pred()
+
+
+def run_int8_paths(cfg, root: str, infos) -> dict:
     """Phase 6: the int8 configuration at full width and depth (int8 LLM
     projections and lm_head from ``init_model(bits=8)``, int8 KV cache)
-    through phase 4's and phase 5's paths; returns the launch counts of
-    both runs, summed."""
+    through phase 4's, phase 5's and phase 8's paths; returns the launch
+    counts of the three runs, summed."""
     import torch
 
     from video3d_tpu_torch.params import init_model
@@ -1310,13 +1754,18 @@ def run_int8_paths(cfg, root: str, info) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); int8 KV "
           f"cache", flush=True)
     print("int8 ScanQA path:", flush=True)
-    scanqa = run_main_path(params, cfg, root, info, kv_cache_dtype="int8")
+    scanqa = run_main_path(params, cfg, root, infos[0],
+                           kv_cache_dtype="int8")
     print(f"  launches (int8 ScanQA path): {scanqa}", flush=True)
     print("int8 scene-prefix path:", flush=True)
-    prefix = run_prefix_path(params, cfg, root, info, kv_cache_dtype="int8",
+    prefix = run_prefix_path(params, cfg, root, infos[0],
+                             kv_cache_dtype="int8",
                              logit_atol=INT8_LOGIT_ATOL)
     print(f"  launches (int8 scene-prefix path): {prefix}", flush=True)
-    return {k: scanqa[k] + prefix[k] for k in scanqa}
+    print("int8 serving path:", flush=True)
+    serve = run_serving(params, cfg, root, infos, kv_cache_dtype="int8")
+    print(f"  launches (int8 serving path): {serve}", flush=True)
+    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}
 
 
 TRAIN_LAYERS = 4        # decoder depth of phase 7 (widths are Qwen2-7B's)
@@ -1594,16 +2043,22 @@ def main() -> None:
           f"bf16 parameters initialised on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     with tempfile.TemporaryDirectory() as root:
-        info = make_fake_scene(root, n_frames=32, H=480, W=640)
+        infos = [make_fake_scene(root, scene_id=f"scene{i:04d}_00",
+                                 n_frames=32, H=480, W=640, extend=i > 0)
+                 for i in range(2)]
+        info = infos[0]
         scanqa = run_main_path(params, cfg, root, info)
         print(f"  launches (ScanQA path): {scanqa}", flush=True)
         print("scene-prefix path:", flush=True)
         prefix = run_prefix_path(params, cfg, root, info)
         print(f"  launches (scene-prefix path): {prefix}", flush=True)
+        print("serving path (paged continuous batcher):", flush=True)
+        serve = run_serving(params, cfg, root, infos)
+        print(f"  launches (serving path): {serve}", flush=True)
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        int8 = run_int8_paths(cfg, root, info)
+        int8 = run_int8_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
         train_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
@@ -1617,7 +2072,7 @@ def main() -> None:
         elif name in INT8_KERNELS:
             launches = int8[name]
         else:
-            launches = scanqa[name] + prefix[name]
+            launches = scanqa[name] + prefix[name] + serve[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         **rows[name]})

@@ -12,6 +12,7 @@ from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels import decode_attention as da
 from video3d_tpu_torch.kernels import flash_attention as fa
 from video3d_tpu_torch.kernels import fused_geometry as fg
+from video3d_tpu_torch.kernels import paged_attention as pa
 from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.attention import mha_shared_prefix_reference
 from video3d_tpu_torch.models.quant import quantize_weight
@@ -425,3 +426,77 @@ def test_flash_train_function_on_the_gpu(dev):
                                        lse, do.float(), lens)
     for a, want in zip(args, ref):
         assert _rel(a.grad, want) <= B6_REL
+
+
+# ---- kernel B7: paged decode attention over stacked page pools (bf16 and
+# int8), against its plain version in f32 on the same values: three prefix
+# pages aliased by every slot (13 live pages over a pool of 12), a
+# kv_len == 0 slot, a slot ending mid-page; the last 4 keys of each slot
+# carry most of the weight, so the controls (a table entry pointed at
+# another slot's page, kv_len one short, int8 scales of the wrong kv head)
+# move the output by far more than the bound
+
+def _paged_case(dev, int8, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    NL, P, page, H, KV, hd, layer = 2, 12, 16, 8, 2, 128, 1
+    table = torch.tensor([[1, 2, 3, 4 + 2 * b, 5 + 2 * b]
+                          for b in range(4)], dtype=torch.int32, device=dev)
+    lens = [80, 70, 0, 45]
+    q = Q_SCALE * torch.randn(4, 1, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    k = torch.randn(NL, P, page, KV, hd, generator=g, device=dev)
+    v = 0.5 * torch.randn(NL, P, page, KV, hd, generator=g, device=dev)
+    for b, n in enumerate(lens):
+        for s_ in range(max(n - 4, 0), n):
+            k[layer, int(table[b, s_ // page]), s_ % page, :, 0] += FOCUS
+    ks = vs = None
+    if int8:
+        k, ks = _quantize_kv(k.bfloat16())
+        v, vs = _quantize_kv(v.bfloat16())
+        ks, vs = (x.permute(0, 1, 3, 4, 2).contiguous() for x in (ks, vs))
+    k, v = (x.reshape(NL, P, page, KV * hd).contiguous().to(
+        torch.int8 if int8 else torch.bfloat16) for x in (k, v))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q.bfloat16(), k, v, table, kv_len, layer, KV, ks, vs
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_kernel(dev, int8):
+    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, int8, 8)
+    name = "paged_attention_int8" if int8 else "paged_attention"
+    got = _launched(name, lambda: pa.paged_decode_attention(
+        q, k, v, table, kv_len, layer, KV, ks, vs))
+    ref = pa.paged_attention_plain(q.float(), k, v, table, kv_len, layer, KV,
+                                   ks, vs)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(
+        got.float()).all())
+    assert float((got.float() - ref).abs().max()) <= BF16_ATOL
+    assert bool((got[2] == 0).all())                 # the kv_len == 0 slot
+    wrong_page = table.clone()
+    wrong_page[0, 4] = table[1, 4]
+    controls = [
+        pa.paged_attention_plain(q.float(), k, v, wrong_page, kv_len, layer,
+                                 KV, ks, vs),
+        pa.paged_attention_plain(q.float(), k, v, table,
+                                 (kv_len - 1).clamp(min=0), layer, KV, ks,
+                                 vs)]
+    if int8:
+        controls.append(pa.paged_attention_plain(
+            q.float(), k, v, table, kv_len, layer, KV,
+            *_rolled(ks, vs, 2)))
+    for broken in controls:
+        assert float((broken - ref).abs().max()) > 4 * BF16_ATOL
+
+
+def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, True, 9)
+    with pytest.raises(ValueError):                  # f32 query
+        pa.paged_decode_attention(q.float(), k, v, table, kv_len, layer, KV,
+                                  ks, vs)
+    with pytest.raises(ValueError):                  # int8 pools, no scales
+        pa.paged_decode_attention(q, k, v, table, kv_len, layer, KV)
+    with pytest.raises(ValueError):                  # scales (.., page, KV)
+        pa.paged_decode_attention(q, k, v, table, kv_len, layer, KV,
+                                  ks.transpose(2, 4), vs.transpose(2, 4))
+    with pytest.raises(ValueError):                  # no layer 2
+        pa.paged_decode_attention(q, k, v, table, kv_len, 2, KV, ks, vs)

@@ -1,7 +1,8 @@
 """End to end: the port's InferenceEngine against the JAX engine
 (``device_geometry=True``) on the synthetic scene with the fake tokenizer,
 tiny model in float32. Greedy token ids and the jsonl answers must be
-identical. Also: the port runs without importing JAX."""
+identical. Also: the port runs without importing JAX, and its entry
+points default to the card."""
 
 import json
 import os
@@ -69,10 +70,11 @@ def engines(tmp_path_factory):
         params, CFG, tok, VideoProcessor(data_cfg), ip,
         jdrv.EngineConfig(**engine_kwargs(tok)), device_geometry=True)
     torch_engine = tdrv.InferenceEngine(
-        from_jax_params(jax.tree.map(np.asarray, params), TCFG), TCFG, tok,
+        from_jax_params(jax.tree.map(np.asarray, params), TCFG,
+                        device="cpu"), TCFG, tok,
         TVideoProcessor(port_config(data_cfg)),
         TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
-        tdrv.EngineConfig(**engine_kwargs(tok)))
+        tdrv.EngineConfig(**engine_kwargs(tok)), device="cpu")
     return info, jax_engine, torch_engine
 
 
@@ -99,6 +101,26 @@ def test_scanqa_records_identical(engines, tmp_path):
             return [json.loads(line) for line in f]
 
     assert read("torch.jsonl") == read("jax.jsonl")
+
+
+def test_entry_points_default_to_the_card(engines):
+    """``InferenceEngine`` and ``from_jax_params`` called without a device
+    resolve to the first CUDA card, as ``Trainer`` does; without one they
+    raise and never hand back a CPU engine or CPU parameters."""
+    _, _, torch_engine = engines
+    e = torch_engine
+    tree = jax.tree.map(np.asarray, jlv.init_model(jax.random.PRNGKey(0),
+                                                   CFG))
+    if torch.cuda.is_available():
+        engine = tdrv.InferenceEngine(e.params, TCFG, e.tokenizer, e.vp)
+        assert engine.device == torch.device("cuda", 0)
+        params = from_jax_params(tree, TCFG)
+        assert params["llm"]["norm"].device == torch.device("cuda", 0)
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdrv.InferenceEngine(e.params, TCFG, e.tokenizer, e.vp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        from_jax_params(tree, TCFG)
 
 
 def test_port_runs_without_jax(tmp_path):
@@ -131,7 +153,8 @@ def test_port_runs_without_jax(tmp_path):
                 frames_upbound=2)),
             engine_cfg=EngineConfig(max_new_tokens=3,
                                     eos_token_id=tok.eos_token_id,
-                                    max_frames=2, buckets=(256,)))
+                                    max_frames=2, buckets=(256,)),
+            device="cpu")
         answer = engine.generate_answer({{
             "video": info["sample_idx"],
             "conversations": [{{"from": "human", "value": "what is it"}},

@@ -23,7 +23,10 @@ def test_port_modules_are_listed():
     mods = _port_modules()
     for name in ("video3d_tpu_torch.config", "video3d_tpu_torch.data.dataset",
                  "video3d_tpu_torch.eval.drivers",
-                 "video3d_tpu_torch.train.trainer"):
+                 "video3d_tpu_torch.train.trainer",
+                 "video3d_tpu_torch.serve.batcher",
+                 "video3d_tpu_torch.models.paged_kv",
+                 "video3d_tpu_torch.kernels.paged_attention"):
         assert name in mods
 
 

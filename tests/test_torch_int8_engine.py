@@ -76,10 +76,11 @@ def _torch_engine(scene, **kw):
     _, data_cfg, params = scene
     tok = FakeTokenizer()
     return tdrv.InferenceEngine(
-        from_jax_params(jax.tree.map(np.asarray, params), TCFG), TCFG, tok,
+        from_jax_params(jax.tree.map(np.asarray, params), TCFG,
+                        device="cpu"), TCFG, tok,
         TVideoProcessor(port_config(data_cfg)),
         TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
-        _ecfg(tdrv, tok, **kw))
+        _ecfg(tdrv, tok, **kw), device="cpu")
 
 
 def _jax_engine(scene, **kw):
@@ -205,7 +206,8 @@ def test_int8_paths_run_without_jax(tmp_path):
                                     max_frames=2, buckets=(256,),
                                     prefix_cache_scenes=1,
                                     suffix_buckets=(32,),
-                                    kv_cache_dtype="int8"))
+                                    kv_cache_dtype="int8"),
+            device="cpu")
         qs = [{{"video": info["sample_idx"],
                 "conversations": [{{"from": "human", "value": text}},
                                   {{"from": "gpt", "value": "a chair"}}]}}

@@ -53,7 +53,8 @@ def test_siglip_tower_matches_jax():
 @pytest.fixture(scope="module")
 def model_params():
     params = jlv.init_model(jax.random.PRNGKey(1), CFG)
-    return params, from_jax_params(jax.tree.map(np.asarray, params), TCFG)
+    return params, from_jax_params(jax.tree.map(np.asarray, params), TCFG,
+                                   device="cpu")
 
 
 def test_vision_tokens_and_embeds_match_jax(model_params):

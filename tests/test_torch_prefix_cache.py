@@ -84,10 +84,11 @@ def _torch_engine(scene, **kw):
     _, data_cfg, params = scene
     tok = FakeTokenizer()
     return tdrv.InferenceEngine(
-        from_jax_params(jax.tree.map(np.asarray, params), TCFG), TCFG, tok,
+        from_jax_params(jax.tree.map(np.asarray, params), TCFG,
+                        device="cpu"), TCFG, tok,
         TVideoProcessor(port_config(data_cfg)),
         TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
-        _ecfg(tdrv, tok, **kw))
+        _ecfg(tdrv, tok, **kw), device="cpu")
 
 
 def _jax_engine(scene, **kw):
@@ -182,7 +183,7 @@ def test_start_decode_prefix_matches_jax(scene, B):
     logits and cache contents against JAX ``start_decode_prefix``, then the
     greedy tokens of ``generate_from_state``."""
     params = scene[2]
-    tp = from_jax_params(jax.tree.map(np.asarray, params), TCFG)
+    tp = from_jax_params(jax.tree.map(np.asarray, params), TCFG, device="cpu")
     lcfg = CFG.llm
     rng = np.random.default_rng(B)
     P, Ls, new = 12, 8, 4
@@ -381,7 +382,8 @@ def test_prefix_path_runs_without_jax(tmp_path):
                                     eos_token_id=tok.eos_token_id,
                                     max_frames=2, buckets=(256,),
                                     prefix_cache_scenes=1,
-                                    suffix_buckets=(32,)))
+                                    suffix_buckets=(32,)),
+            device="cpu")
         qs = [{{"video": info["sample_idx"],
                 "conversations": [{{"from": "human", "value": text}},
                                   {{"from": "gpt", "value": "a chair"}}]}}

@@ -72,9 +72,9 @@ def test_from_jax_params_bf16_and_int8_leaves():
     for bit."""
     params = jlv.init_model(jax.random.PRNGKey(0), CFG, dtype=jnp.bfloat16)
     host = jax.tree.map(np.asarray, params)
-    _assert_same_tree(from_jax_params(host, TCFG), _used(host))
+    _assert_same_tree(from_jax_params(host, TCFG, device="cpu"), _used(host))
     qhost = jax.tree.map(np.asarray, jquant.quantize_tree(params))
-    qtree = from_jax_params(qhost, TCFG)
+    qtree = from_jax_params(qhost, TCFG, device="cpu")
     assert tquant.is_quantized(qtree["llm"]["lm_head"])
     assert qtree["llm"]["layers"][0]["attn"]["wq"]["q"].dtype == torch.int8
     _assert_same_tree(qtree, _used(qhost))
@@ -85,7 +85,7 @@ def test_from_jax_params_rejects_unported_weight_forms():
     for tree in (jquant.quantize_tree(params, bits=4),
                  jquant.quantize_tree(params, act="int8")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            from_jax_params(tree, TCFG)
+            from_jax_params(tree, TCFG, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

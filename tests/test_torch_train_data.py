@@ -144,7 +144,8 @@ def test_forward_hidden_with_remat_matches_jax(data):
     jbatch = jlv.Batch(**{k: jnp.asarray(v) for k, v in arrays.items()
                           if k in jlv.Batch._fields and v is not None})
     jh, _ = jlv.forward_hidden(jparams, CFG, jbatch, remat=True)
-    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), TCFG)
+    tparams = from_jax_params(jax.tree.map(np.asarray, jparams), TCFG,
+                              device="cpu")
     th, _ = tlv.forward_hidden(tparams, TCFG, to_batch(arrays, "cpu"),
                                remat=True)
     np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh), rtol=0,

@@ -74,7 +74,8 @@ def _run(setup, steps, compute):
     jparams = jax.tree.map(jnp.array, params)     # the JAX step donates it
     jtx = joptim.build_optimizer(jparams, joptim.OptimConfig(**OPT))
     jstate = jts.create_train_state(jparams, jtx)
-    tparams = from_jax_params(jax.tree.map(np.asarray, params), TCFG)
+    tparams = from_jax_params(jax.tree.map(np.asarray, params), TCFG,
+                              device="cpu")
     ttx = toptim.build_optimizer(tparams, toptim.OptimConfig(**OPT))
     tstate = tts.create_train_state(tparams, ttx)
     tbatch = to_batch(arrays, "cpu")

@@ -9,8 +9,11 @@ Layers (each module mirrors its ``video3d_tpu`` counterpart):
   ops/       geometry and sin3d position embedding (plain torch)
   kernels/   hand-written CUDA kernel wrappers (source in csrc/), each with
              its plain PyTorch version; CPU tensors take the plain version
-  models/    SigLIP tower, Qwen2 decoder, assembly, greedy generation
+  models/    SigLIP tower, Qwen2 decoder, assembly, greedy generation,
+             the paged KV pool
   eval/      ScanQA-style InferenceEngine and driver loop
+  serve/     the continuous batcher (dense rows or paged, shared prefix
+             pages)
 
 The package imports ``torch`` and never ``jax``, and nothing of
 ``video3d_tpu`` (``tests/test_torch_imports.py``).

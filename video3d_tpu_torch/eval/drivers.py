@@ -52,6 +52,7 @@ from video3d_tpu_torch.models.generate import (DecodeState, GenerateResult,
 from video3d_tpu_torch.models.splice import (KIND_VISION, build_splice_plan,
                                              slice_suffix_plan,
                                              vision_end_from_kind)
+from video3d_tpu_torch.params import resolve_device
 
 DEFAULT_BUCKETS = (1024, 2048, 4096, 8192, 16384)
 
@@ -113,15 +114,17 @@ class InferenceEngine:
 
     ``params`` come from :func:`video3d_tpu_torch.params.init_model` or
     :func:`~video3d_tpu_torch.params.from_jax_params` and live on
-    ``device``. Voxel ids always come from the fused geometry kernel on the
-    raw depths (the JAX engine's ``device_geometry=True`` path).
+    ``device`` (default: the first CUDA card; without one the default
+    raises, see :func:`~video3d_tpu_torch.params.resolve_device`). Voxel
+    ids always come from the fused geometry kernel on the raw depths (the
+    JAX engine's ``device_geometry=True`` path).
     """
 
     def __init__(self, params, model_cfg: ModelConfig, tokenizer,
                  video_processor: VideoProcessor,
                  image_processor: Optional[SigLipImageProcessor] = None,
                  engine_cfg: Optional[EngineConfig] = None,
-                 device="cpu"):
+                 device=None):
         self.params = params
         self.cfg = model_cfg
         self.tokenizer = tokenizer
@@ -130,7 +133,7 @@ class InferenceEngine:
             size=(model_cfg.vision.image_size,) * 2)
         self.ecfg = engine_cfg or EngineConfig()
         self.cache_dtype = self.ecfg.cache_dtype()
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = params["llm"]["embed_tokens"].dtype
         # scene LRUs keyed by video id; the lock guards both (a worker
         # thread prepares the next request while the device runs this one)
@@ -139,6 +142,10 @@ class InferenceEngine:
         self.scene_cache_stats = [0, 0]                      # [hits, misses]
         self._prefix_cache: "OrderedDict" = OrderedDict()  # -> _PrefixEntry
         self.prefix_cache_stats = [0, 0]                     # [hits, misses]
+        # called with each evicted scene key after _cache_lock is released
+        # (the paged batcher drops its shared prefix pages on eviction,
+        # serve/batcher.py); a hook must not re-enter the engine's caches
+        self._prefix_evict_hooks: list = []
 
     # ------------- shared assembly -------------
 
@@ -327,10 +334,14 @@ class InferenceEngine:
                               for t in cache))
         entry = _PrefixEntry(cache=pre, prefix_len=P, num_frames=V,
                              ids_prefix=tuple(ids[:img + 1]))
+        evictions = []
         with self._cache_lock:
             self._prefix_cache[key] = entry
             while len(self._prefix_cache) > self.ecfg.prefix_cache_scenes:
-                self._prefix_cache.popitem(last=False)
+                evictions.append(self._prefix_cache.popitem(last=False)[0])
+        for evicted in evictions:
+            for hook in self._prefix_evict_hooks:
+                hook(evicted)
 
     def prepare_request(self, record):
         """Host half of the prefix-aware path: tokenize, look up the scene
@@ -368,12 +379,16 @@ class InferenceEngine:
         return {"mode": "prefix", "batch": built[0], "entry": entry,
                 "key": prep["key"], "bucket": built[1]}
 
-    def start_request(self, prep) -> DecodeState:
-        """Prefill a :meth:`prepare_request` result into a DecodeState
-        (cache of bucket + max_new_tokens slots). On a full-prefill miss the
-        scene prefix is stored for later questions."""
+    def start_request(self, prep,
+                      max_cache_len: Optional[int] = None) -> DecodeState:
+        """Prefill a :meth:`prepare_request` result into a DecodeState.
+        ``max_cache_len`` overrides the cache length (the continuous batcher
+        passes its row or page-rounded length); the default is bucket +
+        max_new_tokens. On a full-prefill miss the scene prefix is stored
+        for later questions."""
         prep = self._refresh_prep(prep)
-        mcl = prep["bucket"] + self.ecfg.max_new_tokens
+        mcl = (max_cache_len if max_cache_len is not None
+               else prep["bucket"] + self.ecfg.max_new_tokens)
         if prep["mode"] == "prefix":
             entry = prep["entry"]
             self.prefix_cache_stats[0] += 1

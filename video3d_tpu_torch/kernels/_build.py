@@ -43,7 +43,8 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "shared_prefix_attention_int8": 0,
                             "flash_attention_lse": 0,
                             "flash_attention_bwd_dq": 0,
-                            "flash_attention_bwd_dkv": 0}
+                            "flash_attention_bwd_dkv": 0,
+                            "paged_attention": 0, "paged_attention_int8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,9 +94,19 @@ _SIGNATURES = {
     # sm_scale, stream
     "v3d_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, table, kv_len, out, part_m, part_l, part_acc,
+    # layer, B, P, page, maxp, H, KV, n_chunks, sm_scale, stream
+    "v3d_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, k_scale, v_scale, table, kv_len, out, part_m,
+    # part_l, part_acc, layer, B, P, page, maxp, H, KV, n_chunks, sm_scale,
+    # stream
+    "v3d_paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()   # wrappers launch from several threads
 _lib: Optional[ctypes.CDLL] = None
 #: seconds the last compile took (0.0 until this process compiled)
 build_seconds = 0.0
@@ -193,7 +204,8 @@ def check(err: int, name: str) -> None:
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def reset_launches() -> None:

@@ -1,6 +1,6 @@
 """Attention entry points of the port (counterpart of
 ``video3d_tpu/kernels/attention.py``: prefill, stacked-cache decode and
-multi-token chunks, and suffix-over-shared-prefix attention).
+multi-token chunks, suffix-over-shared-prefix attention, and paged decode).
 
 Semantics, as in the JAX package: GQA broadcasts each kv head to H // KV
 query heads; softmax runs in float32 and the output keeps the query dtype;
@@ -140,3 +140,21 @@ def mha_cached_stacked(q: torch.Tensor, k_all: torch.Tensor,
     return decode_attention(q, k_all, v_all, eff_len, layer=layer,
                             kv_heads=kv_heads, k_scale=k_scale,
                             v_scale=v_scale)
+
+
+
+def paged_mha(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+              page_table: torch.Tensor, kv_len: torch.Tensor, layer: int,
+              k_scale: Optional[torch.Tensor] = None,
+              v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged decode attention (L == 1) for ``layer`` of the stacked
+    (layers, P, page, KV*hd) pools (and (layers, P, KV, 1, page) int8
+    scales), the dispatch of ``video3d_tpu/kernels/attention.py:372-415``:
+    kernel B7 on the GPU and its plain version on the CPU. The kv head
+    count is the flat last dim over q's head dim."""
+    from video3d_tpu_torch.kernels.paged_attention import \
+        paged_decode_attention
+
+    return paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
+                                  layer, k_pages.shape[-1] // q.shape[-1],
+                                  k_scale, v_scale)

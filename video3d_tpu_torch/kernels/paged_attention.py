@@ -1,0 +1,162 @@
+"""Paged single-token decode attention over stacked page pools (kernel B7)
+and its plain PyTorch version: counterpart of
+``video3d_tpu/kernels/paged_attention.py``.
+
+The pools are flat (layers, P, page, KV*hd), bf16, or int8 with f32 scale
+pools (layers, P, KV, 1, page); slot b's position s lives in pool page
+``page_table[b, s // page]``, row ``s % page``. The layer is an index into
+the stacked pools: the kernel reads it by strides, and no per-layer copy is
+made. :func:`paged_decode_attention` dispatches on the device of ``q``: a
+CPU tensor runs :func:`paged_attention_plain`, a CUDA tensor launches
+``csrc/paged_attention.cu`` or raises.
+
+Not ported: ``RAGGED_GRID`` (:139-143) and the cumsum / searchsorted
+live-page worklist with its ``lax.cond`` sizing (:198-281). They keep a
+TPU's sequential grid short; the CUDA grid is slots x splits, which covers
+aliased tables by construction. ``paged_attention_multi`` (:328, the
+speculative verify) waits for ROADMAP A8.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.kernels.attention import NEG_INF
+
+HEAD_DIM = 128      # the kernel's compiled head dim
+CHUNK = 256         # positions per split-K block (csrc kChunk)
+MAX_GROUP = 8       # query heads per kv head (csrc kMaxG)
+
+
+def _dense_from_pages(pool: torch.Tensor, spool: Optional[torch.Tensor],
+                      page_table: torch.Tensor, kv_heads: int
+                      ) -> torch.Tensor:
+    """One layer's flat pool (P, page, KV*hd) and its (P, KV, 1, page)
+    scales (or None) gathered into (B, maxp * page, KV, hd) f32 rows, as
+    ``_dense_from_pages`` (:290)."""
+    B, maxp = page_table.shape
+    _, page, C = pool.shape
+    idx = page_table.long()
+    g = pool[idx].reshape(B, maxp * page, kv_heads, C // kv_heads).float()
+    if spool is not None:
+        s = spool[idx].permute(0, 1, 4, 2, 3)      # (B, maxp, page, KV, 1)
+        g = g * s.reshape(B, maxp * page, kv_heads, 1)
+    return g
+
+
+def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_table: torch.Tensor,
+                          kv_len: torch.Tensor, layer: int, kv_heads: int,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The oracle ``paged_attention_reference`` (:303) on ``layer`` of the
+    stacked pools: gather each slot's pages densely, masked attention in
+    f32 (keys at positions >= kv_len get -1e30, so their weight is exactly
+    0), output in q's dtype. A slot with kv_len == 0 gets zeros, as the
+    kernel entry writes them (:282-286)."""
+    B, _, H, hd = q.shape
+    G = H // kv_heads
+    ks = None if k_scale is None else k_scale[layer]
+    vs = None if v_scale is None else v_scale[layer]
+    k = _dense_from_pages(k_pages[layer], ks, page_table, kv_heads)
+    v = _dense_from_pages(v_pages[layer], vs, page_table, kv_heads)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)     # (B, KV, S, hd)
+    qf = q[:, 0].float().reshape(B, kv_heads, G, hd) * hd ** -0.5
+    s = torch.einsum("bkgd,bksd->bkgs", qf, k)
+    lens = kv_len.to(q.device)[:, None, None, None]
+    pos = torch.arange(k.shape[2], device=q.device)
+    s = torch.where(pos < lens, s, torch.tensor(NEG_INF, device=q.device))
+    o = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1), v)
+    o = torch.where(lens > 0, o, torch.zeros((), device=q.device))
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def check_pools(q: torch.Tensor, k_pages: torch.Tensor,
+                v_pages: torch.Tensor, k_scale: Optional[torch.Tensor],
+                v_scale: Optional[torch.Tensor], kv_heads: int) -> bool:
+    """Raise unless q is bf16 and the stacked pools are bf16 without scales
+    or int8 with (layers, P, KV, 1, page) f32 scales, all contiguous,
+    16-byte aligned and on q's device. Returns whether the pools are
+    int8."""
+    quantized = k_pages.dtype == torch.int8
+    tensors = [("q", q, torch.bfloat16), ("k_pages", k_pages, k_pages.dtype),
+               ("v_pages", v_pages, k_pages.dtype)]
+    if quantized:
+        NL, P, page, _ = k_pages.shape
+        if k_scale is None or v_scale is None or \
+                k_scale.shape != (NL, P, kv_heads, 1, page) or \
+                v_scale.shape != k_scale.shape:
+            raise ValueError("paged_decode_attention: int8 pools need "
+                             "(layers, P, KV, 1, page) scales")
+        tensors += [("k_scale", k_scale, torch.float32),
+                    ("v_scale", v_scale, torch.float32)]
+    elif k_pages.dtype != torch.bfloat16 or k_scale is not None:
+        raise ValueError("paged_decode_attention: the pools must be bf16 "
+                         "without scales or int8 with scales")
+    for arg, t, dt in tensors:
+        if t.dtype != dt or not t.is_contiguous() or t.device != q.device \
+                or t.data_ptr() % 16:
+            raise ValueError(f"paged_decode_attention: {arg} must be a "
+                             f"contiguous, 16-byte aligned {dt} tensor on "
+                             f"{q.device}")
+    return quantized
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           kv_len: torch.Tensor, layer: int, kv_heads: int,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """q (B, 1, H, hd); k_pages/v_pages the stacked (layers, P, page,
+    KV*hd) pools, bf16, or int8 with the stacked (layers, P, KV, 1, page)
+    f32 scales; page_table (B, maxp) int32 page ids (entries past a slot's
+    pages must lie in [0, P) and are never read); kv_len (B,) valid
+    positions per slot after this step's append. Returns (B, 1, H, hd) in
+    q's dtype (:146-287)."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pages, v_pages, page_table, kv_len,
+                                     layer, kv_heads, k_scale, v_scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: no kernel for device "
+                         f"{q.device}")
+    B, L, H, hd = q.shape
+    NL, P, page, C = k_pages.shape
+    quantized = check_pools(q, k_pages, v_pages, k_scale, v_scale, kv_heads)
+    maxp = page_table.shape[1]
+    if (L != 1 or hd != HEAD_DIM or C != kv_heads * hd
+            or v_pages.shape != k_pages.shape or H % kv_heads
+            or H // kv_heads > MAX_GROUP or not 0 <= layer < NL
+            or page_table.shape != (B, maxp) or maxp < 1
+            or kv_len.shape != (B,)):
+        raise ValueError(f"paged_decode_attention: unsupported shapes q "
+                         f"{tuple(q.shape)} pools {tuple(k_pages.shape)} "
+                         f"table {tuple(page_table.shape)} layer {layer} "
+                         f"kv_heads {kv_heads}")
+    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
+    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    n_chunks = -(-maxp * page // CHUNK)
+    part_m = torch.empty((B, H, n_chunks), dtype=torch.float32,
+                         device=q.device)
+    part_l = torch.empty_like(part_m)
+    part_acc = torch.empty((B, H, n_chunks, hd), dtype=torch.float32,
+                           device=q.device)
+    out = torch.empty_like(q)
+    lib = _build.library()
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else ()
+    entry = lib.v3d_paged_attention_int8 if quantized \
+        else lib.v3d_paged_attention
+    err = entry(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
+        table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), layer, B,
+        P, page, maxp, H, kv_heads, n_chunks, float(hd ** -0.5),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    name = "paged_attention_int8" if quantized else "paged_attention"
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out

@@ -1,8 +1,9 @@
 """Greedy KV-cache decoding over the spliced multimodal prefill, in PyTorch:
 counterpart of ``video3d_tpu/models/generate.py`` (``prefill_multimodal``,
 ``DecodeState`` / ``start_decode`` / ``generate_from_state``, the greedy
-form of ``generate_greedy``, and the scene-prefix entry points
-``shared_prefix_view``, ``_write_prefix`` and ``start_decode_prefix``).
+form of ``generate_greedy``, the scene-prefix entry points
+``shared_prefix_view``, ``_write_prefix`` and ``start_decode_prefix``, and
+the slot API of the continuous batcher over dense rows and page pools).
 
 The JAX ``lax.while_loop`` becomes a Python loop: one decoder forward per
 step, stopping once every row has emitted EOS or ``max_new_tokens`` steps
@@ -20,7 +21,7 @@ import torch
 
 from video3d_tpu_torch.config import ModelConfig
 from video3d_tpu_torch.models import llava_video3d as lv3d
-from video3d_tpu_torch.models import qwen2
+from video3d_tpu_torch.models import paged_kv, qwen2
 
 
 class GenerateResult(NamedTuple):
@@ -158,6 +159,13 @@ def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
     return _initial_state(next_logits, cache, batch.seq_len)
 
 
+def _greedy(next_logits: torch.Tensor, done: torch.Tensor,
+            eos_token_id: int) -> torch.Tensor:
+    """argmax over float32 logits (first maximum), EOS for done rows."""
+    tok = torch.argmax(next_logits.to(torch.float32), dim=-1)
+    return torch.where(done, eos_token_id, tok)
+
+
 @torch.inference_mode()
 def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
                         max_new_tokens: int = 512,
@@ -174,8 +182,7 @@ def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
                         device=dev)
     lengths = torch.zeros(B, dtype=torch.long, device=dev)
     for step in range(max_new_tokens):
-        tok = torch.argmax(next_logits.to(torch.float32), dim=-1)
-        tok = torch.where(done, eos_token_id, tok)
+        tok = _greedy(next_logits, done, eos_token_id)
         tokens[:, step] = tok
         is_eos = tok == eos_token_id
         lengths = torch.where(done | is_eos, lengths, lengths + 1)
@@ -202,3 +209,168 @@ def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
                          vision_features, cache_dtype)
     return generate_from_state(params, cfg, state, max_new_tokens,
                                eos_token_id)
+
+
+# ---------------------------------------------------------------------------
+# The continuous batcher's slot API (JAX ``generate.py:482-682``): an S-slot
+# state whose rows are admitted, decoded together and released. Greedy only
+# (JAX's ``sample_token`` at temperature 0 is the argmax; sampling is
+# ROADMAP A4 / A8). The states are updated in place; a decode chunk makes no
+# host sync and returns its tokens on the device.
+# ---------------------------------------------------------------------------
+
+
+def empty_decode_state(cfg: ModelConfig, num_slots: int, max_cache_len: int,
+                       cache_dtype=torch.bfloat16,
+                       logits_dtype=torch.float32,
+                       device=None) -> DecodeState:
+    """All-done S-slot DecodeState of dense cache rows: the persistent state
+    of a continuous batcher. Slots are rows; admission is
+    :func:`insert_decode_slot` of a B=1 prefill."""
+    return DecodeState(
+        next_logits=torch.zeros((num_slots, cfg.llm.vocab_size),
+                                dtype=logits_dtype, device=device),
+        cache=qwen2.KVCache.zeros(cfg.llm, num_slots, max_cache_len,
+                                  dtype=cache_dtype, device=device),
+        pos=torch.zeros(num_slots, dtype=torch.long, device=device),
+        done=torch.ones(num_slots, dtype=torch.bool, device=device))
+
+
+@torch.inference_mode()
+def insert_decode_slot(state: DecodeState, slot: int,
+                       sub: DecodeState) -> DecodeState:
+    """Copy a freshly prefilled B=1 DecodeState into row ``slot``, in place;
+    the caches must have the same length."""
+    if sub.cache.k.shape[2] != state.cache.k.shape[2]:
+        raise ValueError("the prefilled cache and the slot rows differ in "
+                         "length")
+    for big, small in zip(state.cache, sub.cache):
+        if big is not None:
+            big[:, slot] = small[:, 0]
+    state.next_logits[slot] = sub.next_logits[0]
+    state.pos[slot] = sub.pos[0]
+    state.done[slot] = sub.done[0]
+    return state
+
+
+@torch.inference_mode()
+def release_decode_slot(state: DecodeState, slot: int) -> DecodeState:
+    """Force a slot done (finished, budget spent or cancelled); decode
+    chunks then emit EOS for it until it is reused."""
+    state.done[slot] = True
+    return state
+
+
+@torch.inference_mode()
+def decode_chunk(params, cfg: ModelConfig, state: DecodeState,
+                 chunk: int = 16, eos_token_id: int = 151645):
+    """Emit ``chunk`` greedy tokens from every row of a dense S-slot state
+    (done rows emit EOS); returns (state, tokens (S, chunk)), the state
+    updated in place.
+
+    As in JAX, done rows still run the step and their position advances.
+    A done row can so run past the end of its cache row: JAX drops such
+    writes; here they land in the row's last slot, which the next
+    :func:`insert_decode_slot` rewrites with the whole row."""
+    next_logits, cache, pos, done = state
+    last = cache.k.shape[2] - 1
+    toks = []
+    for _ in range(chunk):
+        tok = _greedy(next_logits, done, eos_token_id)
+        toks.append(tok)
+        done = done | (tok == eos_token_id)
+        hidden = qwen2.qwen2_forward(
+            params["llm"], cfg.llm,
+            qwen2.embed_tokens(params["llm"], tok[:, None]),
+            _decode_position_ids(pos[:, None]), kv_cache=cache,
+            cache_positions=pos.clamp(max=last)[:, None], kv_len=pos + 1)
+        # keep the state's logits dtype (f32 from empty_decode_state)
+        next_logits = qwen2.lm_head(params["llm"], hidden)[:, 0] \
+            .to(next_logits.dtype)
+        pos = pos + 1
+    return DecodeState(next_logits, cache, pos, done), torch.stack(toks, 1)
+
+
+class PagedDecodeState(NamedTuple):
+    """S-slot state over a shared page pool; the slots' lengths live in
+    ``cache.lens`` (the dense state's ``pos``)."""
+
+    next_logits: torch.Tensor   # (S, vocab)
+    cache: paged_kv.PagedKVCache
+    done: torch.Tensor          # (S,) bool
+
+
+def empty_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
+                      page_size: int, max_pages: int,
+                      cache_dtype=torch.bfloat16,
+                      logits_dtype=torch.float32,
+                      device=None) -> PagedDecodeState:
+    """All-done paged batcher state."""
+    return PagedDecodeState(
+        next_logits=torch.zeros((num_slots, cfg.llm.vocab_size),
+                                dtype=logits_dtype, device=device),
+        cache=paged_kv.PagedKVCache.zeros(cfg.llm, num_pages, page_size,
+                                          num_slots, max_pages,
+                                          dtype=cache_dtype, device=device),
+        done=torch.ones(num_slots, dtype=torch.bool, device=device))
+
+
+@torch.inference_mode()
+def insert_paged_slot(state: PagedDecodeState, slot: int, sub: DecodeState,
+                      page_row: torch.Tensor, n_pages: int,
+                      skip_pages: int = 0) -> PagedDecodeState:
+    """Copy a freshly prefilled B=1 dense DecodeState into paged slot
+    ``slot``, in place: its first ``n_pages`` pages (listed in the
+    (max_pages,) ``page_row``) take the dense cache's n_pages * page
+    positions (int8: values and scales verbatim), ``lens[slot]`` becomes
+    the prefill length. ``skip_pages``: the row's first entries are shared
+    scene-prefix pages written by :func:`write_shared_prefix`; only pages
+    ``skip_pages..n_pages`` are copied."""
+    paged_kv.transplant_dense(state.cache, sub.cache, slot, page_row,
+                              n_pages, sub.pos[0], skip_pages=skip_pages)
+    state.next_logits[slot] = sub.next_logits[0]
+    state.done[slot] = sub.done[0]
+    return state
+
+
+@torch.inference_mode()
+def write_shared_prefix(cache: paged_kv.PagedKVCache, prefix: qwen2.KVCache,
+                        pages, n_pages: int) -> paged_kv.PagedKVCache:
+    """Write a scene's prefix KV (the dense (layers, 1, P, ...) entry of the
+    engine's prefix cache, same dtype) into ``n_pages`` shared pool pages,
+    in place."""
+    return paged_kv.scatter_shared_prefix(cache, prefix, pages, n_pages)
+
+
+@torch.inference_mode()
+def release_paged_slot(state: PagedDecodeState,
+                       slot: int) -> PagedDecodeState:
+    """Force a slot done; the host frees its pages (done rows append to the
+    scratch page and their length is frozen, so the pages are not read
+    again)."""
+    state.done[slot] = True
+    return state
+
+
+@torch.inference_mode()
+def paged_decode_chunk(params, cfg: ModelConfig, state: PagedDecodeState,
+                       chunk: int = 16, eos_token_id: int = 151645):
+    """:func:`decode_chunk` over the page pools: the same emissions (EOS
+    for done rows), but dead slots neither advance their length nor touch
+    their pages (a slot's step still runs while it emits its EOS). The
+    caller guarantees pages for ``lens + chunk`` on every live slot (the
+    paged batcher reserves the whole budget at admission)."""
+    next_logits, cache, done = state
+    toks = []
+    for _ in range(chunk):
+        tok = _greedy(next_logits, done, eos_token_id)
+        toks.append(tok)
+        hidden = qwen2.qwen2_forward(
+            params["llm"], cfg.llm,
+            qwen2.embed_tokens(params["llm"], tok[:, None]),
+            _decode_position_ids(cache.lens.long()[:, None]),
+            paged_cache=cache, paged_active=~done)
+        done = done | (tok == eos_token_id)
+        next_logits = qwen2.lm_head(params["llm"], hidden)[:, 0] \
+            .to(next_logits.dtype)
+    return PagedDecodeState(next_logits, cache, done), torch.stack(toks, 1)

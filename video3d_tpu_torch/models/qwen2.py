@@ -2,7 +2,8 @@
 PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the no-cache
 training branch, differentiable through B2 with the logsumexp and B6, with
 optional per-layer rematerialisation; the prefill, stacked single-token
-decode, contiguous multi-token chunk and shared-prefix branches; a bf16 KV
+decode, contiguous multi-token chunk and shared-prefix branches, and the
+single-token paged decode over ``models/paged_kv.py``'s pools; a bf16 KV
 cache or an int8 one with per-token, per-head scales; dense weights or the
 int8 dicts of ``models/quant.py``). JAX's ``scan_layers`` (one
 ``lax.scan`` over stacked layers, a compile-time device) is not ported: the
@@ -28,8 +29,9 @@ from torch.utils.checkpoint import checkpoint
 
 from video3d_tpu_torch.config import LLMConfig
 from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
-                                                 mha_shared_prefix, mha_train)
-from video3d_tpu_torch.models import quant
+                                                 mha_shared_prefix, mha_train,
+                                                 paged_mha)
+from video3d_tpu_torch.models import paged_kv, quant
 
 Params = Dict[str, Any]
 
@@ -145,8 +147,8 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
                   prefill: bool = False,
                   cache_start: Optional[int] = None,
                   shared_prefix: Optional[Tuple[torch.Tensor,
-                                                torch.Tensor]] = None
-                  ) -> torch.Tensor:
+                                                torch.Tensor]] = None,
+                  paged: Optional[tuple] = None) -> torch.Tensor:
     """One decoder block on x (B, L, D).
 
     Without ``kv_cache`` (training, JAX ``qwen2.py:429-431``): causal
@@ -166,6 +168,11 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     ``cache_start`` == P), runs over the shared prefix plus this chunk's raw
     K/V (shared-prefix kernel); the cache write happens all the same.
     ``kv_len`` (B,) counts valid keys after the write.
+
+    ``paged`` = (PagedKVCache, pids, off, lens_after), the single-token
+    paged decode step (JAX ``qwen2.py:264-281``): this token's K/V are
+    appended into ``layer_idx`` of the stacked pools at (pids, off), then
+    attention reads each slot's pages up to ``lens_after`` (kernel B7).
     """
     B, L, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -177,7 +184,17 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     v = (mm(h, a["wv"]) + a["bv"]).reshape(B, L, KV, hd)
     q, k = apply_rotary(q, k, cos, sin)
 
-    if kv_cache is None:
+    if paged is not None:
+        if L != 1:
+            raise NotImplementedError("multi-token paged blocks (the "
+                                      "speculative verify) are not ported "
+                                      "(ROADMAP A8)")
+        cache, pids, off, lens_after = paged
+        paged_kv.append_layer_kv(cache, layer_idx, k[:, 0], v[:, 0], pids,
+                                 off)
+        attn = paged_mha(q, cache.k, cache.v, cache.page_table, lens_after,
+                         layer_idx, cache.k_scale, cache.v_scale)
+    elif kv_cache is None:
         attn = mha_train(q, k, v, kv_len)
     elif prefill:
         _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
@@ -222,7 +239,10 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
                   prefill: bool = False,
                   contiguous_update: bool = False,
                   shared_prefix: Optional[KVCache] = None,
-                  remat: bool = False) -> torch.Tensor:
+                  remat: bool = False,
+                  paged_cache: Optional[paged_kv.PagedKVCache] = None,
+                  paged_active: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """Run the decoder stack on (B, L, D) embeddings with (B, L, 3) position
     ids; returns the final-norm hidden states. ``kv_cache`` is updated in
     place (see :func:`decoder_layer`).
@@ -238,6 +258,13 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
     KVCache with k/v (layers, P, KV*hd) (and, int8, scales (layers, P, KV,
     1)), the batch-free scene prefix, whose start must be P (see
     :func:`decoder_layer`).
+
+    ``paged_cache`` (B == its slot count, no ``kv_cache``): one decode step
+    over the page pools (JAX ``qwen2.py:552-568, :627-631``). Each slot
+    appends at position ``lens``; ``paged_active`` (B,) bool sends dead
+    slots to the scratch page and keeps their length; ``lens`` advances
+    once, after the last layer. Multi-token blocks (the speculative
+    verify) raise.
     """
     L = inputs_embeds.shape[1]
     if kv_cache is not None and prefill and L > kv_cache.k.shape[2]:
@@ -253,6 +280,14 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
         raise ValueError("shared_prefix needs contiguous_update")
     if remat and kv_cache is not None:
         raise ValueError("remat is for the no-cache training forward")
+    paged = None
+    if paged_cache is not None:
+        if kv_cache is not None:
+            raise ValueError("paged_cache and kv_cache are exclusive")
+        pids, off = paged_kv.append_positions(paged_cache, paged_active)
+        inc = 1 if paged_active is None \
+            else paged_active.to(paged_cache.lens.dtype)
+        paged = (paged_cache, pids, off, paged_cache.lens + inc)
     cos, sin = compute_mrope_cos_sin(position_ids, cfg)
     KV, hd = cfg.num_key_value_heads, cfg.head_dim
     x = inputs_embeds
@@ -270,7 +305,9 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
         else:
             x = decoder_layer(lp, x, cos, sin, cfg, i, kv_cache,
                               cache_positions, kv_len, prefill, cache_start,
-                              sp)
+                              sp, paged)
+    if paged is not None:
+        paged_kv.advance_lens(paged_cache, paged_active)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 

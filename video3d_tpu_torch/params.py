@@ -38,6 +38,19 @@ def check_config(cfg: ModelConfig) -> None:
         raise NotImplementedError("only the sin3d world PE is ported")
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device``, or the first CUDA card when it is None. The port's entry
+    points run on the card unless the caller asks for the CPU
+    (``device="cpu"``): without a CUDA card the default raises and never
+    falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card by "
+                           "default; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
 def _convert(node, device, dtype):
     if isinstance(node, dict):
         return {k: _convert(v, device, dtype) for k, v in node.items()}
@@ -56,14 +69,16 @@ def _convert(node, device, dtype):
     return t.to(device)
 
 
-def from_jax_params(tree: Params, cfg: ModelConfig, device="cpu",
+def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
                     dtype=None) -> Params:
     """The JAX ``llava_video3d.init_model`` tree (numpy leaves; JAX linears
     are (in, out) and used as ``x @ w``) -> the port's parameter dict on
-    ``device``. bf16 leaves carry across bit for bit, and so do the int8
+    ``device`` (default: the first CUDA card, see :func:`resolve_device`).
+    bf16 leaves carry across bit for bit, and so do the int8
     ``{"q", "scale"}`` dicts of a ``quantize_tree``'d tree. ``dtype`` casts
     floating leaves (None keeps theirs)."""
     check_config(cfg)
+    device = resolve_device(device)
     out = {k: _convert(tree[k], device, dtype) for k in _USED}
     if len(out["vision"]["layers"]) != cfg.vision.num_hidden_layers \
             or len(out["llm"]["layers"]) != cfg.llm.num_hidden_layers:

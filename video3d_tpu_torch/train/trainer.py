@@ -27,6 +27,7 @@ import torch
 
 from video3d_tpu_torch.config import ModelConfig
 from video3d_tpu_torch.models import llava_video3d as lv3d
+from video3d_tpu_torch.params import resolve_device
 from video3d_tpu_torch.train import checkpoint as ckpt
 from video3d_tpu_torch.train.optim import (MultiSteps, OptimConfig,
                                            build_optimizer)
@@ -138,8 +139,7 @@ class Trainer:
         self.tcfg = train_cfg
         self.dataset = dataset
         self.collator = collator
-        self.device = torch.device("cuda", 0) if device is None \
-            else torch.device(device)
+        self.device = resolve_device(device)
         # bf16 + master_f32 (default): params stay f32 (the optimizer's
         # master copy; bf16 imports are upcast) and are cast to bf16 at use
         # inside the step. bf16 alone: params stored bf16 outright.
