@@ -17,11 +17,16 @@ Phases, each of which raises on failure (the process then exits non-zero):
    B2 folded and B5; paged decode attention (B7, bf16 and int8 pools) at
    the paged batcher's shapes (8 slots aliasing a 52-page scene prefix);
    the training kernels at the training shapes: B2 with
-   the per-row logsumexp and the flash backward B6 (dQ, dK/dV); max error,
+   the per-row logsumexp and the flash backward B6 (dQ, dK/dV); the
+   weight-streaming kernels at the decode projections' shapes: B4's B>1
+   form (int8, B=8 at w_gate and w_down) and B8 (int4, the B=1 vocab head,
+   w_gate at B=8, w_down at B=8 and B=32); max error,
    median times (CUDA events), each kernel's bound (the larger of its
    operations over the card's peak and its bytes over the memory rate) and,
    where one PyTorch call computes the same function
-   (``scaled_dot_product_attention``), that call's time.
+   (``scaled_dot_product_attention``; for B4 ``torch._weight_int8pack_mm``
+   where it runs on CUDA; for B8 ``torch._weight_int4pack_mm`` on the
+   weight converted to its layout), that call's time.
 4. Main path: the ScanQA answer path at full width (``ModelConfig()``:
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
@@ -45,9 +50,18 @@ Phases, each of which raises on failure (the process then exits non-zero):
 6. The int8 configuration: the bf16 model is freed and the same model is
    built with int8 LLM projections and lm_head (``init_model(bits=8)``);
    phases 4, 5 and 8 run again with ``kv_cache_dtype="int8"``, with exact
-   launch counts of B4 and the int8 kernels and the first-step logit check
-   at its own bound.
-7. Training: the int8 model is freed; ``ModelConfig()`` cut to
+   launch counts of B4 (its B>1 form on every decode projection and on
+   heads of 2-32 rows, its matvec on one-row heads) and the int8 kernels
+   and the first-step logit check at its own bound.
+9. The int4 configuration: the int8 model is freed and the same model is
+   built with int4 LLM projections and lm_head (``init_model(bits=4)``,
+   groups of 512 input rows); phases 4, 5 and 8 run again with the bf16
+   KV cache, with exact launch counts of B8 (every decode projection and
+   every head of at most 32 rows) and the first-step logit check at its
+   own bound; the first decode step of a B=8 suffix batch through B8 must
+   agree with the same step with every int4 product forced through the
+   dequantize-then-matmul path (control: scales read one group off).
+7. Training: the int4 model is freed; ``ModelConfig()`` cut to
    ``TRAIN_LAYERS`` decoder layers, f32 master weights from a seeded
    generator, ``Trainer.train()`` with bf16 compute, remat and two
    mini-steps per update for four mini-steps on ScanQA-style records of the
@@ -57,8 +71,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
    mini-step through the kernels against the same mini-step with the plain
    attention swapped in.
 
-B2 folded, B5, B7, the int8 kernels, B2 with the logsumexp and B6 are
-held against their plain versions run in float32 on the same bf16 / int8
+B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
+are held against their plain versions run in float32 on the same bf16 / int8
 values. Every accuracy check of those kernels and of phases 5-8
 also reads controls, deliberately
 broken plain versions (a mask dropped, scales read one position off or
@@ -118,12 +132,18 @@ KERNEL_INFO = {
                         "video3d_tpu/kernels/paged_attention.py:60"),
     "paged_attention_int8": ("video3d_tpu_torch/csrc/paged_attention.cu",
                              "video3d_tpu/kernels/paged_attention.py:60"),
+    "int8_matmul": ("video3d_tpu_torch/csrc/int8_matmul.cu",
+                    "video3d_tpu/kernels/quant_matvec.py:116"),
+    "int4_matmul": ("video3d_tpu_torch/csrc/int4_matmul.cu",
+                    "video3d_tpu/kernels/quant_matvec.py:33"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4, 5 and 8
 INT8_KERNELS = ("int8_matvec", "decode_attention_int8",
                 "flash_attention_folded_int8", "shared_prefix_attention_int8",
-                "paged_attention_int8")
+                "paged_attention_int8", "int8_matmul")
+#: kernels of the int4 configuration (phase 9)
+INT4_KERNELS = ("int4_matmul",)
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -164,6 +184,19 @@ CACHE_LAYERS = 28
 # max |d| / (B4_REL * |ref| + B4_ABS), which must be <= 1, and its
 # controls must read >= 4
 B4_REL, B4_ABS = 2.0 ** -7, 1e-4
+# (B4's B>1 form and B8 are held to the same bound and controls.)
+# Phase 9's first decode step of a B=8 suffix batch through B8 against the
+# same step with every int4 product forced through the dequantize path (a
+# bf16 dequantized weight, which rounds nibble x scale to bf16, and a cuBLAS
+# product); the control reads the scales one group off and must read at
+# least twice the bound. On an H100 80GB HBM3 (700 W), over the runs made
+# (|logits| up to 5.44), the step read at most 0.219 (0.219 with the first,
+# CUDA-core B8; 0.191 with the kept one) and the control at least 4.98.
+INT4_STEP_ATOL = 0.5
+# the suffix-vs-full-prefill first-step logit check with int4 weights and
+# a bf16 cache (phase 9); on an H100 80GB HBM3 (700 W) the B=8 row and the
+# B=1 hit read 0.112 and 0.133, their controls 5.01 and 4.89
+INT4_LOGIT_ATOL = 0.25
 # B6 against its plain version in f32: P and dS are rounded to bf16 before
 # the tensor-core products and each gradient once to bf16 at the end, so
 # the check reads max |kernel - plain| / max |plain| per gradient; its
@@ -203,6 +236,12 @@ def build():
           flush=True)
 
 
+# cycles of the spin kernel queued before each timed call (~1 ms): the
+# host enqueues the call while the device spins, so the events time the
+# device work and not the host's launch overhead
+SPIN_CYCLES = 2_000_000
+
+
 def _median_ms(fn, iters: int) -> float:
     import torch
 
@@ -212,6 +251,7 @@ def _median_ms(fn, iters: int) -> float:
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -619,6 +659,90 @@ def _int8_cache(g, dev, lead, KV: int, hd: int, v_scale: float = 1.0,
     return vals, scales
 
 
+def _ulp_ratio(a, ref) -> float:
+    """max |a - ref| / (B4_REL |ref| + B4_ABS): <= 1 is within one bf16
+    ulp of the f32 reference."""
+    return float(((a.float() - ref).abs()
+                  / (B4_REL * ref.abs() + B4_ABS)).max())
+
+
+def _stream_check(name: str, got, ref, controls: dict) -> float:
+    """A weight-streaming kernel's output against its plain version in f32
+    (one bf16 ulp), and each broken plain version at >= 4x the bound."""
+    import torch
+
+    err = float((got.float() - ref).abs().max())
+    finite = bool(torch.isfinite(got.float()).all())
+    _check(name, _ulp_ratio(got, ref) <= 1.0 and finite,
+           f"max |d| {err:.2e}, max |d| / ({B4_REL:.2e} |ref| + "
+           f"{B4_ABS:.0e}) {_ulp_ratio(got, ref):.3f} (bound 1), "
+           f"finite={finite}")
+    for what, broken in controls.items():
+        r = _ulp_ratio(broken, ref)
+        _check(f"{name} control, {what}", r >= 4.0,
+               f"max |d| / bound {r:.1f} (must be >= 4)")
+    return err
+
+
+def _int8pack_ms(x, q, scale, ref):
+    """``torch._weight_int8pack_mm`` (bf16 x, int8 (out, in), per-channel
+    scales) as B4's library yardstick, its distance from the plain version
+    printed in bf16 ulps: its median ms, or None where it does not run on
+    CUDA (the reason printed). Used nowhere in the port."""
+    import torch
+
+    x2 = x.reshape(-1, x.shape[-1])
+    try:
+        qt = q.t().contiguous()
+        sc = scale.reshape(-1).contiguous()
+        y = torch._weight_int8pack_mm(x2, qt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch._weight_int8pack_mm: none, not on CUDA "
+              f"({str(e).splitlines()[0][:160]})", flush=True)
+        return None
+    r = _ulp_ratio(y.reshape(ref.shape), ref)
+    ms = _median_ms(lambda: torch._weight_int8pack_mm(x2, qt, sc), 20)
+    print(f"  torch._weight_int8pack_mm runs on CUDA: {ms:.4f} ms, max |d| / "
+          f"bound {r:.3f} against the plain version", flush=True)
+    return ms
+
+
+def _int4pack_ms(x, q4, scales, ref):
+    """``torch._weight_int4pack_mm`` as B8's library yardstick: B8's
+    weight converted outside the timing to its layout (each nibble + 8 as
+    an unsigned nibble, the even input in the high nibble, zero points 0,
+    each 512-row scale repeated over two groups of 256, the largest group
+    it takes). It dequantizes each weight to bf16 before its product, so
+    it rounds nibble x scale where B8 does not; its distance from the
+    plain version is printed in bf16 ulps. Returns its median ms, or None
+    where it does not run on CUDA (the reason printed). Used nowhere in
+    the port."""
+    import torch
+
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+
+    x2 = x.reshape(-1, x.shape[-1])
+    try:
+        u = (qm.unpack_int4(q4) + 8).to(torch.uint8).t().contiguous()
+        w = torch._convert_weight_to_int4pack(
+            ((u[:, 0::2] << 4) | u[:, 1::2]).contiguous(), 8)
+        del u
+        s = scales.repeat_interleave(2, dim=0)
+        sz = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()
+        y = torch._weight_int4pack_mm(x2, w, 256, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"  torch._weight_int4pack_mm: none, not on CUDA "
+              f"({str(e).splitlines()[0][:160]})", flush=True)
+        return None
+    r = _ulp_ratio(y.reshape(ref.shape), ref)
+    ms = _median_ms(lambda: torch._weight_int4pack_mm(x2, w, 256, sz), 20)
+    print(f"  torch._weight_int4pack_mm: {ms:.4f} ms, max |d| / bound {r:.3f} "
+          f"against the plain version (bf16 dequantized weights)", flush=True)
+    return ms
+
+
 def check_int8_matvec(dev):
     """B4 at the B=1 vocab head: x (1, 1, 3584) bf16 against the int8
     (3584, 152064) weight and its bf16 (1, 152064) scale, from N(0, 0.02)
@@ -635,34 +759,128 @@ def check_int8_matvec(dev):
                                              device=dev)).to(torch.bfloat16))
     q, scale = d["q"], d["scale"]
     x = torch.randn(1, 1, in_, generator=g, device=dev).to(torch.bfloat16)
-    y = qm.int8_matmul(x, q, scale)
+    y = qm.int8_matvec(x, q, scale)
     ref = qm.int8_matmul_plain(x.float(), q, scale)
-
-    def ratio(a):
-        return float(((a.float() - ref).abs()
-                      / (B4_REL * ref.abs() + B4_ABS)).max())
-
-    err = float((y.float() - ref).abs().max())
-    finite = bool(torch.isfinite(y.float()).all())
-    name = f"B4 x {tuple(x.shape)} q {tuple(q.shape)}"
-    _check(name, ratio(y) <= 1.0 and finite,
-           f"max |d| {err:.2e}, max |d| / ({B4_REL:.2e} |ref| + {B4_ABS:.0e})"
-           f" {ratio(y):.3f} (bound 1), finite={finite}")
-    for what, broken in (
-            ("scale one column off", qm.int8_matmul_plain(
-                x.float(), q, torch.roll(scale, 1, dims=1))),
-            ("last 1024 input rows dropped", qm.int8_matmul_plain(
-                x[..., :-1024].float(), q[:-1024], scale))):
-        _check(f"{name} control, {what}", ratio(broken) >= 4.0,
-               f"max |d| / bound {ratio(broken):.1f} (must be >= 4)")
-    ms = _median_ms(lambda: qm.int8_matmul(x, q, scale), 50)
+    err = _stream_check(f"B4 x {tuple(x.shape)} q {tuple(q.shape)}", y, ref, {
+        "scale one column off": qm.int8_matmul_plain(
+            x.float(), q, torch.roll(scale, 1, dims=1)),
+        "last 1024 input rows dropped": qm.int8_matmul_plain(
+            x[..., :-1024].float(), q[:-1024], scale)})
+    ms = _median_ms(lambda: qm.int8_matvec(x, q, scale), 50)
     dequant_ms = _median_ms(lambda: (x @ q.to(x.dtype)) * scale, 10)
     print(f"  B4 {q.numel() / ms / 1e6:.0f} GB/s of int8 weight; the "
           f"dequantize-then-matmul path {dequant_ms:.4f} ms", flush=True)
+    # the same one-row head through B4's B>1 form (the one-row matvec's
+    # rival; the matvec stays the head's route)
+    _stream_check(f"B4 B>1 at the head x {tuple(x.shape)}",
+                  qm.int8_matmul(x, q, scale), ref, {})
+    stream_ms = _median_ms(lambda: qm.int8_matmul(x, q, scale), 50)
+    print(f"  the head: B4's matvec {ms:.4f} ms, B4's B>1 form "
+          f"{stream_ms:.4f} ms ({q.numel() / stream_ms / 1e6:.0f} GB/s)",
+          flush=True)
+    library_ms = _int8pack_ms(x, q, scale, ref)
     # bytes: the int8 weight, its scale, x and y; 2 * in * out operations
     bound = _bound(2.0 * q.numel(), _nbytes(q, scale, x) + 2 * out)
     return err, (ms, _median_ms(lambda: qm.int8_matmul_plain(x, q, scale),
-                                10)), bound, None
+                                10)), bound, library_ms
+
+
+def check_int8_matmul(dev):
+    """B4's B>1 form at the int8 decode projections, B=8: w_gate (3584 ->
+    18944) and w_down (18944 -> 3584), from N(0, 0.02) weights quantized by
+    the port's ``quantize_weight``; controls: the scale one column off, the
+    last 512-row input chunk dropped. Reports w_gate's numbers."""
+    import torch
+
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+    from video3d_tpu_torch.models.quant import quantize_weight
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    result = None
+    for what, in_, out in (("w_gate", 3584, 18944), ("w_down", 18944, 3584)):
+        d = quantize_weight((0.02 * torch.randn(
+            in_, out, generator=g, device=dev)).to(torch.bfloat16))
+        q, scale = d["q"], d["scale"]
+        x = torch.randn(8, 1, in_, generator=g, device=dev).to(torch.bfloat16)
+        y = qm.int8_matmul(x, q, scale)
+        ref = qm.int8_matmul_plain(x.float(), q, scale)
+        err = _stream_check(
+            f"B4 B>1 {what} x {tuple(x.shape)} q {tuple(q.shape)}", y, ref, {
+                "scale one column off": qm.int8_matmul_plain(
+                    x.float(), q, torch.roll(scale, 1, dims=1)),
+                "last input chunk dropped": qm.int8_matmul_plain(
+                    x[..., :-512].float(), q[:-512], scale)})
+        ms = _median_ms(lambda: qm.int8_matmul(x, q, scale), 50)
+        plain_ms = _median_ms(lambda: qm.int8_matmul_plain(x, q, scale), 10)
+        dequant_ms = _median_ms(lambda: (x @ q.to(x.dtype)) * scale, 20)
+        bound = _bound(2.0 * 8 * q.numel(),
+                       _nbytes(q, scale, x) + 2 * 8 * out)
+        print(f"  B4 B>1 {what}: kernel {ms:.4f} ms ({q.numel() / ms / 1e6:.0f}"
+              f" GB/s of int8 weight), plain {plain_ms:.4f} ms, the "
+              f"dequantize-then-matmul path {dequant_ms:.4f} ms, bound "
+              f"{bound['bound_ms']:.4f} ms", flush=True)
+        library_ms = _int8pack_ms(x, q, scale, ref)
+        if result is None:
+            result = err, (ms, plain_ms), bound, library_ms
+        del d, q, scale
+    return result
+
+
+def check_int4_matmul(dev):
+    """B8 at the int4 configuration's shapes (groups of 512): the B=1 vocab
+    head (3584 -> 152064, padded to 153600), w_gate at B=8 (3584 -> 18944,
+    padded to 20480), w_down at B=8 and B=32 (18944 -> 3584), from N(0,
+    0.02) weights quantized by the port's ``quantize_weight_int4``;
+    controls: scales one group off, low and high nibbles swapped, the last
+    group dropped. Reports the head's numbers; the library call is
+    ``torch._weight_int4pack_mm`` (see :func:`_int4pack_ms`)."""
+    import torch
+
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+    from video3d_tpu_torch.models.quant import (dequantize_int4,
+                                                quantize_weight_int4)
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    result = None
+    for what, in_, out, rows in (("lm_head", 3584, 152064, (1,)),
+                                 ("w_gate", 3584, 18944, (8,)),
+                                 ("w_down", 18944, 3584, (8, 32))):
+        w4 = quantize_weight_int4((0.02 * torch.randn(
+            in_, out, generator=g, device=dev)).to(torch.bfloat16))
+        q4, sc = w4.q4, w4.scale4
+        swapped = ((q4 >> 4) & 0x0F) | (q4 << 4)
+        for B in rows:
+            x = torch.randn(B, 1, in_, generator=g,
+                            device=dev).to(torch.bfloat16)
+            y = qm.int4_matmul(x, q4, sc)
+            ref = qm.int4_matmul_plain(x.float(), q4, sc)
+            err = _stream_check(
+                f"B8 {what} x {tuple(x.shape)} packed {tuple(q4.shape)}",
+                y, ref, {
+                    "scales one group off": qm.int4_matmul_plain(
+                        x.float(), q4, torch.roll(sc, 1, dims=0)),
+                    "nibbles swapped": qm.int4_matmul_plain(
+                        x.float(), swapped, sc),
+                    "last group dropped": qm.int4_matmul_plain(
+                        x[..., :-512].float(), q4[:-256], sc[:-1])})
+            library_ms = _int4pack_ms(x, q4, sc, ref)
+            del ref
+            ms = _median_ms(lambda: qm.int4_matmul(x, q4, sc), 50)
+            plain_ms = _median_ms(lambda: qm.int4_matmul_plain(x, q4, sc), 5)
+            dequant_ms = _median_ms(lambda: x @ dequantize_int4(
+                q4, sc, 512, torch.bfloat16), 10)
+            bound = _bound(2.0 * B * in_ * q4.shape[1],
+                           _nbytes(q4, sc, x) + 2 * B * q4.shape[1])
+            print(f"  B8 {what} B={B}: kernel {ms:.4f} ms "
+                  f"({q4.numel() / ms / 1e6:.0f} GB/s of packed weight), "
+                  f"plain {plain_ms:.4f} ms, the dequantize-then-matmul path "
+                  f"{dequant_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms",
+                  flush=True)
+            if result is None:
+                result = err, (ms, plain_ms), bound, library_ms
+        del w4, q4, sc, swapped
+        torch.cuda.empty_cache()
+    return result
 
 
 def check_decode_int8(dev):
@@ -971,7 +1189,9 @@ def check_kernels():
                      ("shared_prefix_attention_int8",
                       check_shared_prefix_int8),
                      ("paged_attention", check_paged),
-                     ("paged_attention_int8", check_paged_int8)):
+                     ("paged_attention_int8", check_paged_int8),
+                     ("int8_matmul", check_int8_matmul),
+                     ("int4_matmul", check_int4_matmul)):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
@@ -1207,10 +1427,13 @@ def _expected_launches(params, kv_cache_dtype: str, layers: int,
     """Launch counts a run must show: ``per_path`` gives the geometry and
     attention kernels of the path under their bf16 names; an int8 cache
     moves the decode, folded and shared-prefix counts to their ``*_int8``
-    kernels, and int8 weights add B4 once per B=1 lm_head (the prefill's
-    and one per decode forward of every one-row generate call)."""
+    kernels. Quantized weights add their kernels: every decode forward runs
+    7 projections per layer on at most 8 rows, and every generate call one
+    lm_head at its prefill and one per decode forward, on its B rows. int4
+    runs B8 on all of them; int8 runs B4's B>1 form on the projections and
+    on heads of 2-32 rows, B4's matvec on one-row heads."""
     from video3d_tpu_torch.kernels import _build
-    from video3d_tpu_torch.models.quant import is_quantized
+    from video3d_tpu_torch.models.quant import Int4Weight, is_quantized
 
     expected = dict.fromkeys(_build.LAUNCHES, 0)
     expected.update(per_path, decode_attention=layers * forwards)
@@ -1219,10 +1442,27 @@ def _expected_launches(params, kv_cache_dtype: str, layers: int,
                      "shared_prefix_attention"):
             expected[f"{name}_int8"] = expected.pop(name)
             expected[name] = 0
-    if is_quantized(params["llm"]["lm_head"]):
-        expected["int8_matvec"] = sum(1 + _forwards(res) for res in results
-                                      if res.tokens.shape[0] == 1)
+    head = params["llm"]["lm_head"]
+    heads = [(int(res.tokens.shape[0]), 1 + _forwards(res))
+             for res in results]
+    projections = 7 * layers * forwards
+    if isinstance(head, Int4Weight):
+        expected["int4_matmul"] = projections + sum(n for _, n in heads)
+    elif is_quantized(head):
+        expected["int8_matmul"] = projections + sum(n for b, n in heads
+                                                    if b > 1)
+        expected["int8_matvec"] = sum(n for b, n in heads if b == 1)
     return expected
+
+
+def _answer_file(root: str, path: str, params, kv_cache_dtype: str) -> str:
+    """A fresh answer file per configuration (the drivers append)."""
+    from video3d_tpu_torch.models.quant import Int4Weight, is_quantized
+
+    head = params["llm"]["lm_head"]
+    weights = "int4" if isinstance(head, Int4Weight) \
+        else "int8" if is_quantized(head) else "bf16"
+    return os.path.join(root, f"{path}_{weights}_{kv_cache_dtype}.jsonl")
 
 
 def _read_jsonl(path: str):
@@ -1245,7 +1485,7 @@ def run_main_path(params, cfg, root: str, info,
     qs = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")
     engine.generate_answer(qs[0])                 # warm-up, not counted
     engine.results.clear()
-    answer_file = os.path.join(root, f"scanqa_{kv_cache_dtype}.jsonl")
+    answer_file = _answer_file(root, "scanqa", params, kv_cache_dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1308,13 +1548,16 @@ def run_main_path(params, cfg, root: str, info,
 
 def run_prefix_path(params, cfg, root: str, info,
                     kv_cache_dtype: str = "bfloat16",
-                    logit_atol: float = LOGIT_ATOL) -> dict:
+                    logit_atol: float = LOGIT_ATOL,
+                    step_check=None) -> dict:
     """Scene-prefix path: 16 same-scene questions through
     ``run_generative(batch_size=8)`` (a miss that runs the full prefill and
     stores the prefix, a B=7 and a B=8 suffix batch), then one B=1 hit;
     returns the kernel launch counts of that run. The first-step logits of
     the suffix paths must be within ``logit_atol`` of a full prefill, and
-    their one-position-early control at least twice that far."""
+    their one-position-early control at least twice that far.
+    ``step_check(engine, prep)``, if given, runs last, on the prepared B=8
+    suffix batch."""
     import torch
 
     from video3d_tpu_torch.eval.drivers import run_generative
@@ -1326,7 +1569,7 @@ def run_prefix_path(params, cfg, root: str, info,
                           kv_cache_dtype=kv_cache_dtype)
     qs = _questions(info["sample_idx"], PREFIX_TEXTS, "prefix")
     batch_qs, hit_q = qs[:16], qs[16]
-    answer_file = os.path.join(root, f"prefix_{kv_cache_dtype}.jsonl")
+    answer_file = _answer_file(root, "prefix", params, kv_cache_dtype)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1426,6 +1669,9 @@ def run_prefix_path(params, cfg, root: str, info,
           f"{sorted(pre_ms)[1]:.1f} ms (median of 3) against a B=1 full "
           f"prefill {t_full * 1e3:.1f} ms; B=8 decode {decode_ms:.2f} "
           f"ms/step over {steps} steps", flush=True)
+    if step_check is not None:
+        del state, res
+        step_check(engine, prep)
     return launches
 
 
@@ -1618,7 +1864,7 @@ def run_serving(params, cfg, root: str, infos,
     import torch
 
     from video3d_tpu_torch.kernels import _build
-    from video3d_tpu_torch.models.quant import is_quantized
+    from video3d_tpu_torch.models.quant import Int4Weight, is_quantized
     from video3d_tpu_torch.serve import batcher as sb
 
     engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
@@ -1690,8 +1936,14 @@ def run_serving(params, cfg, root: str, infos,
     folded = "flash_attention_folded" + (
         "_int8" if kv_cache_dtype == "int8" else "")
     expected[folded] = L * hits
-    if is_quantized(params["llm"]["lm_head"]):
-        expected["int8_matvec"] = misses + hits      # one B=1 lm_head each
+    # each decode step: 7 projections per layer and the lm_head on the
+    # SERVE_SLOTS rows; each admission: one B=1 lm_head
+    head = params["llm"]["lm_head"]
+    if isinstance(head, Int4Weight):
+        expected["int4_matmul"] = (7 * L + 1) * steps + misses + hits
+    elif is_quantized(head):
+        expected["int8_matmul"] = (7 * L + 1) * steps
+        expected["int8_matvec"] = misses + hits
     _check("launch counts", launches == expected
            and misses <= launches["fused_geometry"] <= 2 * misses,
            f"{launches}, expected {expected} ({steps} decode steps; B1 "
@@ -1765,6 +2017,106 @@ def run_int8_paths(cfg, root: str, infos) -> dict:
     print("int8 serving path:", flush=True)
     serve = run_serving(params, cfg, root, infos, kv_cache_dtype="int8")
     print(f"  launches (int8 serving path): {serve}", flush=True)
+    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}
+
+
+def _check_int4_decode_step(params, cfg, engine, prep) -> None:
+    """Phase 9: the first decode step of the prepared B=8 suffix batch
+    through B8 against the same step from a copy of the same state with
+    every int4 product of at most 32 rows forced through the dequantize-
+    then-matmul path (the path B8 replaces); within INT4_STEP_ATOL, and the
+    control (the forced path reading each weight's scales one group off)
+    at least twice that."""
+    import torch
+
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+    from video3d_tpu_torch.models.quant import dequantize_int4
+
+    entry = prep["entry"]
+    eos = engine.ecfg.eos_token_id
+    with torch.inference_mode():
+        state = gen.start_decode_prefix(
+            params, cfg, prep["batch"], entry.cache, entry.prefix_len,
+            prep["bucket"] + MAX_NEW, engine.cache_dtype)
+
+    def dequantized(roll: int):
+        def product(x, packed, scales, group=512):
+            w = dequantize_int4(packed, torch.roll(scales, roll, dims=0),
+                                group, torch.bfloat16)
+            return (x.to(torch.bfloat16) @ w).to(x.dtype)
+        return product
+
+    def first_step(product=None):
+        copy = gen.DecodeState(
+            state.next_logits.clone(),
+            qwen2.KVCache(*(t.clone() if t is not None else None
+                            for t in state.cache)),
+            state.pos.clone(), state.done.clone())
+        kernel = qm.int4_matmul
+        if product is not None:
+            qm.int4_matmul = product
+        try:
+            with torch.inference_mode():
+                out, _ = gen.decode_chunk(params, cfg, copy, 1, eos)
+        finally:
+            qm.int4_matmul = kernel
+        logits = out.next_logits.float()
+        del copy, out
+        torch.cuda.empty_cache()
+        return logits
+
+    got = first_step()
+    ref = first_step(dequantized(0))
+    ctl = first_step(dequantized(1))
+    diff = float((got - ref).abs().max())
+    _check(f"first decode step through B8 vs the dequantize path "
+           f"(B={got.shape[0]})", diff <= INT4_STEP_ATOL
+           and bool(torch.isfinite(got).all()),
+           f"max |d| {diff:.4f} (bound {INT4_STEP_ATOL}; |logits| up to "
+           f"{float(ref.abs().max()):.2f})")
+    control = float((ctl - ref).abs().max())
+    _check("first decode step control, scales one group off",
+           control >= 2 * INT4_STEP_ATOL,
+           f"max |d| {control:.4f} (must be >= {2 * INT4_STEP_ATOL})")
+    del state
+
+
+def run_int4_paths(cfg, root: str, infos) -> dict:
+    """Phase 9: the int4 configuration at full width and depth (int4 LLM
+    projections and lm_head from ``init_model(bits=4)``, bf16 KV cache)
+    through phase 4's, phase 5's and phase 8's paths; returns the launch
+    counts of the three runs, summed."""
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16, bits=4)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"int4 configuration: ModelConfig() {cfg.vision.num_hidden_layers}"
+          f"+{cfg.llm.num_hidden_layers} layers, int4 LLM projections and "
+          f"lm_head (groups of 512), {n_bytes / 2**30:.2f} GiB of parameters "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s "
+          f"(init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB);"
+          f" bf16 KV cache", flush=True)
+    print("int4 ScanQA path:", flush=True)
+    scanqa = run_main_path(params, cfg, root, infos[0])
+    print(f"  launches (int4 ScanQA path): {scanqa}", flush=True)
+    print("int4 scene-prefix path:", flush=True)
+    prefix = run_prefix_path(
+        params, cfg, root, infos[0], logit_atol=INT4_LOGIT_ATOL,
+        step_check=lambda engine, prep: _check_int4_decode_step(
+            params, cfg, engine, prep))
+    print(f"  launches (int4 scene-prefix path): {prefix}", flush=True)
+    print("int4 serving path:", flush=True)
+    serve = run_serving(params, cfg, root, infos)
+    print(f"  launches (int4 serving path): {serve}", flush=True)
     return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}
 
 
@@ -2009,7 +2361,11 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
 
 
 def _leaves(tree):
-    if isinstance(tree, dict):
+    from video3d_tpu_torch.models.quant import Int4Weight
+
+    if isinstance(tree, Int4Weight):
+        yield from (tree.q4, tree.scale4)
+    elif isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, list):
@@ -2061,6 +2417,9 @@ def main() -> None:
         int8 = run_int8_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
+        int4 = run_int4_paths(cfg, root, infos)
+        gc.collect()
+        torch.cuda.empty_cache()
         train_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
             cfg.llm, num_hidden_layers=TRAIN_LAYERS))
         train = run_training(train_cfg, root, info, dev)
@@ -2071,6 +2430,8 @@ def main() -> None:
             launches = train[name]
         elif name in INT8_KERNELS:
             launches = int8[name]
+        elif name in INT4_KERNELS:
+            launches = int4[name]
         else:
             launches = scanqa[name] + prefix[name] + serve[name]
         kernels.append({"name": name, "route": "cuda", "source": source,

@@ -1,13 +1,14 @@
 """Where the time of a paged decode step goes, against the dense step, on
 one CUDA GPU:
 
-    python3 scripts/torch_port/profile_paged_decode.py [--bits 16|8]
-        [--slots 8] [--steps 8] [--device cuda]
+    python3 scripts/torch_port/profile_paged_decode.py [--bits 16|8|4]
+        [--slots 8] [--steps 8] [--device cuda] [--package DIR]
 
 The decode of ``chip_smoke.py`` phase 8: the Qwen2-7B decoder of
 ``ModelConfig()`` (random weights from a seeded generator; ``--bits 8``
-gives the int8 configuration, int8 projections and lm_head and an int8 KV
-cache), ``--slots`` slots of ~6.8k tokens that share a 52-page scene
+gives the int8 configuration, int8 projections and lm_head through B4's
+B>1 form and an int8 KV cache; ``--bits 4`` the int4 configuration, int4
+projections and lm_head through B8 and a bf16 KV cache), ``--slots`` slots of ~6.8k tokens that share a 52-page scene
 prefix (pages of 128). The same lengths go into a paged state (the pool
 of ``models/paged_kv.py``, read by B7) and a dense one (stacked cache rows
 of 8224 positions, read by B3), filled with random K/V. After a warm-up
@@ -18,8 +19,10 @@ step. Prints, for each, the wall ms per step without the profiler, kernels
 per step, the device busy share (the kernels' merged intervals over that
 wall time) and the device ms per step by kernel group (attention kernel,
 matrix products, index and copy kernels, other elementwise). Writes
-``chiprun_out/profile_paged_decode_<bits>.json``. ``--device cpu --tiny``
-rehearses the script (device times then read 0).
+``chiprun_out/profile_paged_decode_<bits>.json``. ``--package DIR`` imports
+the port from another tree (``DIR/video3d_tpu_torch``, for example an
+unpacked ``git archive`` of the parent commit; ``decode_ab.py`` runs it so).
+``--device cpu --tiny`` rehearses the script (device times then read 0).
 """
 
 from __future__ import annotations
@@ -32,11 +35,12 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-sys.path.insert(0, ROOT)
 
 GROUPS = (("B7 paged attention", ("paged_",)),
           ("B3 decode attention", ("decode_partial", "decode_combine")),
           ("B4 int8 matvec", ("int8_mv",)),
+          ("B4 B>1 (int8) / B8 (int4) weight streaming",
+           ("stream_kernel", "combine_kernel")),
           ("matrix products", ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                                "cublas", "sm90_")),
           ("index and copy kernels", ("index", "scatter", "gather",
@@ -54,13 +58,16 @@ def _group(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--bits", type=int, default=16, choices=(16, 8))
+    ap.add_argument("--bits", type=int, default=16, choices=(16, 8, 4))
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true",
                     help="ModelConfig.tiny() (a CPU rehearsal)")
+    ap.add_argument("--package", default=ROOT,
+                    help="the tree whose video3d_tpu_torch is profiled")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.package))
     import torch
     from torch.profiler import ProfilerActivity, profile
 

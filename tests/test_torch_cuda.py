@@ -15,7 +15,8 @@ from video3d_tpu_torch.kernels import fused_geometry as fg
 from video3d_tpu_torch.kernels import paged_attention as pa
 from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.attention import mha_shared_prefix_reference
-from video3d_tpu_torch.models.quant import quantize_weight
+from video3d_tpu_torch.models.quant import (quantize_weight,
+                                            quantize_weight_int4)
 from video3d_tpu_torch.models.qwen2 import _quantize_kv
 
 pytestmark = pytest.mark.cuda
@@ -215,13 +216,88 @@ def test_int8_matvec_kernel(dev, in_, out):
     d = quantize_weight(0.02 * torch.randn(in_, out, generator=g, device=dev))
     q, scale = d["q"], d["scale"]
     x = torch.randn(1, 1, in_, generator=g, device=dev).bfloat16()
-    got = _launched("int8_matvec", lambda: qm.int8_matmul(x, q, scale))
+    got = _launched("int8_matvec", lambda: qm.int8_matvec(x, q, scale))
     ref = qm.int8_matmul_plain(x.float(), q, scale)
     bound = 2.0 ** -7 * ref.abs() + 1e-4
     assert got.dtype == torch.bfloat16 and got.shape == (1, 1, out)
     assert float(((got.float() - ref).abs() / bound).max()) <= 1.0
     off = qm.int8_matmul_plain(x.float(), q, torch.roll(scale, 1, dims=1))
     assert float(((off - ref).abs() / bound).max()) > 4.0
+
+
+def _ulps(got, ref):
+    """max |got - ref| / (one bf16 ulp of |ref| + 1e-4)."""
+    return float(((got.float() - ref).abs()
+                  / (2.0 ** -7 * ref.abs() + 1e-4)).max())
+
+
+@pytest.mark.parametrize("rows,in_,out", [
+    (1, 1000, 1040),     # one row at a narrow output; ragged input chunk
+    (5, 3584, 4096),     # rows 5-15 of the block's 16 are zero, split chunks
+    (32, 2048, 712),     # two row tiles, out ends inside a 64-column tile
+])
+def test_int8_matmul_kernel(dev, rows, in_, out):
+    """B4's B>1 form within one bf16 ulp of the f32 plain version;
+    controls: the scale one column off, the last input chunk dropped."""
+    g = torch.Generator(device=dev).manual_seed(12)
+    d = quantize_weight(0.02 * torch.randn(in_, out, generator=g, device=dev))
+    q, scale = d["q"], d["scale"]
+    x = torch.randn(rows, in_, generator=g, device=dev).bfloat16()
+    got = _launched("int8_matmul", lambda: qm.int8_matmul(x, q, scale))
+    ref = qm.int8_matmul_plain(x.float(), q, scale)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, out)
+    assert _ulps(got, ref) <= 1.0
+    cut = (in_ - 1) // 512 * 512
+    for broken in (qm.int8_matmul_plain(x.float(), q,
+                                        torch.roll(scale, 1, dims=1)),
+                   qm.int8_matmul_plain(x[:, :cut].float(), q[:cut], scale)):
+        assert _ulps(broken, ref) >= 4.0
+
+
+@pytest.mark.parametrize("rows,in_,out", [
+    (1, 3584, 3584),     # a decode projection at B=1, split chunks
+    (8, 1000, 8200),     # padded in and out
+    (32, 2048, 512),     # two row tiles of 16
+])
+def test_int4_matmul_kernel(dev, rows, in_, out):
+    """B8 within one bf16 ulp of the f32 plain version, every value in
+    [-7, 7] in both nibbles; controls: scales one group off, the nibbles
+    swapped, the last group dropped."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    w4 = quantize_weight_int4(0.02 * torch.randn(in_, out, generator=g,
+                                                 device=dev))
+    q4, sc = w4.q4, w4.scale4
+    nib = qm.unpack_int4(q4)
+    assert set(nib.unique().tolist()) == set(range(-7, 8))
+    in_p = 2 * q4.shape[0]
+    x = torch.zeros(rows, in_p, device=dev, dtype=torch.bfloat16)
+    x[:, :in_] = torch.randn(rows, in_, generator=g, device=dev).bfloat16()
+    got = _launched("int4_matmul", lambda: qm.int4_matmul(x, q4, sc))
+    ref = qm.int4_matmul_plain(x.float(), q4, sc)
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, q4.shape[1])
+    assert _ulps(got, ref) <= 1.0
+    swapped = ((q4 >> 4) & 0x0F) | (q4 << 4)
+    controls = [qm.int4_matmul_plain(x.float(), swapped, sc)]
+    if sc.shape[0] > 1:
+        controls += [
+            qm.int4_matmul_plain(x.float(), q4, torch.roll(sc, 1, dims=0)),
+            qm.int4_matmul_plain(x[:, :-512].float(), q4[:-256], sc[:-1])]
+    for broken in controls:
+        assert _ulps(broken, ref) >= 4.0
+
+
+def test_stream_wrappers_reject_what_the_kernels_do_not_take(dev):
+    w4 = quantize_weight_int4(torch.randn(512, 512, device=dev))
+    x = torch.zeros(33, 512, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                        # 33 rows
+        qm.int4_matmul(x, w4.q4, w4.scale4)
+    with pytest.raises(ValueError):                        # f32 x
+        qm.int4_matmul(x[:2].float(), w4.q4, w4.scale4)
+    with pytest.raises(ValueError):                        # group 256
+        qm.int4_matmul(x[:2], w4.q4, w4.scale4, group=256)
+    d = quantize_weight(torch.randn(512, 1004, device=dev))
+    with pytest.raises(ValueError):                        # out % 8 != 0
+        qm.int8_matmul(x[:2], d["q"], d["scale"])
 
 
 def test_decode_int8_kernel(dev):
@@ -331,7 +407,7 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.flash_attention_shared_prefix(q64, pk, pk, sk, sk, n)
     w = torch.zeros(64, 1000, device=dev, dtype=torch.int8)
     with pytest.raises(ValueError):                        # out % 16 != 0
-        qm.int8_matmul(torch.zeros(1, 64, device=dev, dtype=torch.bfloat16),
+        qm.int8_matvec(torch.zeros(1, 64, device=dev, dtype=torch.bfloat16),
                        w, torch.zeros(1, 1000, device=dev,
                                       dtype=torch.bfloat16))
 

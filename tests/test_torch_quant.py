@@ -81,11 +81,16 @@ def test_from_jax_params_bf16_and_int8_leaves():
 
 
 def test_from_jax_params_rejects_unported_weight_forms():
+    """w8a8 weights raise naming their ROADMAP item; int4 weights convert
+    into the port's Int4Weight."""
     params = jlv.init_model(jax.random.PRNGKey(0), CFG)
-    for tree in (jquant.quantize_tree(params, bits=4),
-                 jquant.quantize_tree(params, act="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            from_jax_params(tree, TCFG, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+        from_jax_params(jquant.quantize_tree(params, act="int8"), TCFG,
+                        device="cpu")
+    int4 = from_jax_params(jquant.quantize_tree(params, bits=4), TCFG,
+                           device="cpu")
+    w = int4["llm"]["layers"][0]["mlp"]["w_up"]
+    assert isinstance(w, tquant.Int4Weight) and w.q4.dtype == torch.int8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -115,8 +120,10 @@ def test_quantize_tree_matches_jax():
     assert again["llm"]["lm_head"] is tq["llm"]["lm_head"]
     assert tquant.quantization_error({"llm": tree}, tq) == pytest.approx(
         jquant.quantization_error({"llm": jp}, jq), rel=1e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        tquant.quantize_tree(tree, bits=4)
+    int4 = tquant.quantize_tree({"llm": tree}, bits=4)["llm"]["layers"][0][
+        "attn"]["wq"]
+    assert isinstance(int4, tquant.Int4Weight)
+    assert int4.dims == tuple(tree["layers"][0]["attn"]["wq"].shape)
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):
         tquant.quantize_tree(tree, act="int8")
 
@@ -180,6 +187,30 @@ def test_int8_matmul_plain_matches_jax_kernel(in_, out):
         int8_matmul(torch.from_numpy(x), q, scale).numpy())
 
 
+@pytest.mark.parametrize("lead", [(5,), (2, 3)])
+def test_int8_matmul_b_gt_1_plain_matches_jax_kernel(lead):
+    """The plain version of B4's B>1 form (f32 sum, f32 scale, one
+    rounding) against the B>1 Pallas kernel (_int8_kernel) in interpret
+    mode, in f32 (summation order) and bf16 (one bf16 ulp)."""
+    in_, out = 256, 384
+    rng = np.random.default_rng(9)
+    w = rng.normal(size=(in_, out)).astype(np.float32)
+    x = rng.normal(size=(*lead, in_)).astype(np.float32)
+    d = jquant.quantize_weight(jnp.asarray(w))
+    q = torch.from_numpy(np.array(d["q"]))
+    scale = torch.from_numpy(_jnp(d["scale"]).copy()).view(torch.bfloat16)
+    for dtype, tol in (("float32", 1e-4), ("bfloat16", 1e-2)):
+        got = int8_matmul(torch.from_numpy(x).to(getattr(torch, dtype)), q,
+                          scale)
+        want = jax_int8_matmul(jnp.asarray(x, dtype), d["q"], d["scale"],
+                               interpret=True)
+        assert got.shape == want.shape == (*lead, out)
+        assert str(got.dtype).endswith(dtype)
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
+
+
 def test_b4_dispatch_rule():
     """B4 takes one row with at least 32768 outputs (the vocab head at
     B=1); a CPU tensor always takes the plain dequant path and launches
@@ -227,5 +258,8 @@ def test_init_model_int8_is_quantize_tree_of_the_bf16_init():
     same(int8, want)
     assert int8["llm"]["lm_head"]["q"].dtype == torch.int8
     assert int8["vision"]["layers"][0]["attn"]["wq"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        init_model(cfg, "cpu", torch.Generator().manual_seed(3), bits=4)
+    int4 = init_model(cfg, "cpu", torch.Generator().manual_seed(3), bits=4)
+    assert isinstance(int4["llm"]["lm_head"], tquant.Int4Weight)
+    assert torch.equal(int4["llm"]["lm_head"].q4,
+                       tquant.quantize_weight_int4(
+                           bf16["llm"]["lm_head"]).q4)

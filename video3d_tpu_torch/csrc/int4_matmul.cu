@@ -1,0 +1,24 @@
+// Weight-only int4 product for 1-32 rows, bf16 in, bf16 out (kernel B8):
+// y[r, c] = bf16(sum_g scale[g, c] * sum_{i in g} x[r, i] * nib(i, c)), the
+// sums in f32; nib(2p, c) is the low nibble of packed[p, c], nib(2p+1, c)
+// the high one, scale[g, c] the bf16 scale of input group g (512 rows).
+//
+// Replaces: video3d_tpu/kernels/quant_matvec.py::_int4_kernel (entry
+// int4_matmul), which models/quant.py runs for every int4 product of at
+// most 32 rows: each decode projection and the vocab head.
+//
+// What bounds it on an H100: HBM. A decode step streams ~3.7 GB of packed
+// weights (~122 MB per layer with padding, 275 MB of vocab head), ~1.1 ms
+// at 3.35 TB/s; at the head (3584 x 153600 padded) 0.083 ms for 2 FLOP per
+// weight nibble. The template (weight_stream.cuh) reads each packed byte
+// once per block of up to 16 rows and unpacks both nibbles in registers
+// into tensor-core products, one f32 partial per scale group.
+#include "weight_stream.cuh"
+
+extern "C" int v3d_int4_matmul(const void* x, const void* packed,
+                               const void* scales, void* y, void* ws,
+                               int rows, int in_p, int out_p, int group,
+                               int splits, void* stream) {
+  return stream_matmul<true>(x, packed, scales, y, ws, rows, in_p, out_p,
+                             group, splits, stream);
+}

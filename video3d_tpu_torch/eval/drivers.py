@@ -92,7 +92,7 @@ class EngineConfig:
     def cache_dtype(self) -> torch.dtype:
         if self.kv_cache_dtype == "int4":
             raise NotImplementedError("an int4 KV cache is not ported "
-                                      "(ROADMAP B8, the int4 serving slice)")
+                                      "(ROADMAP A3, the int4 KV cache)")
         dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8}
         if self.kv_cache_dtype not in dtypes:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: "

@@ -44,7 +44,8 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "flash_attention_lse": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkv": 0,
-                            "paged_attention": 0, "paged_attention_int8": 0}
+                            "paged_attention": 0, "paged_attention_int8": 0,
+                            "int8_matmul": 0, "int4_matmul": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -103,6 +104,11 @@ _SIGNATURES = {
     # stream
     "v3d_paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # x, q, scale, y, workspace, rows, in, out, splits, stream
+    "v3d_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, packed, scales, y, workspace, rows, in_p, out_p, group, splits,
+    # stream
+    "v3d_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -79,8 +79,8 @@ class PagedKVCache(NamedTuple):
 def _check_dtype(dtype) -> None:
     if dtype not in (torch.bfloat16, torch.float32, torch.int8):
         raise NotImplementedError(
-            f"a {dtype} paged cache is not ported (int4 pools: the int4 "
-            f"configuration slice, ROADMAP B8)")
+            f"a {dtype} paged cache is not ported (int4 pools: ROADMAP A3, "
+            f"the int4 KV cache)")
 
 
 class PageAllocator:
@@ -184,8 +184,8 @@ def _quantize_kv(x: torch.Tensor, dtype=torch.int8):
     """(..., hd) -> int8 values and (..., 1) f32 scales, the rule of
     ``models/qwen2.py:_quantize_kv`` (:198). int4 raises."""
     if dtype != torch.int8:
-        raise NotImplementedError("int4 pools are not ported (the int4 "
-                                  "configuration slice, ROADMAP B8)")
+        raise NotImplementedError("int4 pools are not ported (ROADMAP A3, "
+                                  "the int4 KV cache)")
     from video3d_tpu_torch.models.qwen2 import _quantize_kv as quantize
 
     return quantize(x)

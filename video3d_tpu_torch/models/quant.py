@@ -1,12 +1,20 @@
-"""Weight-only int8 quantization for serving, in PyTorch: counterpart of
-``video3d_tpu/models/quant.py`` (the int8 dict form, ``quantize_tree`` with
-bits 8 and ``act="none"``, and the ``matmul`` dispatch).
+"""Weight-only quantization for serving, in PyTorch: counterpart of
+``video3d_tpu/models/quant.py`` (the int8 dict form, the group-wise int4
+form ``Int4Weight``, ``quantize_tree`` with bits 8 or 4 and ``act="none"``,
+and the ``matmul`` dispatch).
 
-A quantized weight is the dict ``{"q": int8 (in, out), "scale": bf16
-(1, out)}``, symmetric per output channel: w ~= q * scale. ``matmul``
-dequantizes into the activation dtype and multiplies, as the JAX package
-leaves it to XLA, except for the B=1 vocab head on the GPU, which streams
-the int8 weight once through kernel B4 (``kernels/quant_matvec.py``).
+An int8 weight is the dict ``{"q": int8 (in, out), "scale": bf16 (1, out)}``,
+symmetric per output channel: w ~= q * scale. An int4 weight is an
+:class:`Int4Weight`: two input rows per byte, one bf16 scale per (group of
+512 input rows, output column).
+
+``matmul`` follows the JAX package's dispatch. On the CPU it runs the JAX
+CPU arithmetic (int8: dequantize into x's dtype and multiply; int4: the f32
+dequantized product). On the GPU, decode-sized products (at most
+``KERNEL_MAX_ROWS`` rows of x) stream the quantized weight once through a
+kernel (``kernels/quant_matvec.py``): int4 through B8, int8 through B4's
+B>1 form, or B4's one-row matvec at the vocab head; larger products
+(prefill, suffix chunks) dequantize into bf16 and run a dense matmul.
 """
 
 from __future__ import annotations
@@ -15,6 +23,9 @@ import re
 from typing import Any, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from video3d_tpu_torch.kernels import quant_matvec as qm
 
 # LLM projection matrices only: embeddings stay in the model dtype
 # (gathers), norms are tiny. The JAX package's DEFAULT_PATTERNS.
@@ -24,14 +35,15 @@ DEFAULT_PATTERNS = (
     r"llm/lm_head$",
 )
 
-#: smallest output width the B=1 matvec kernel takes (the vocab head);
-#: every other projection keeps the dequantize-then-matmul path
+#: smallest output width the B=1 matvec kernel takes (the vocab head)
 MATVEC_MIN_OUT = 32768
+#: most rows of x the weight-streaming kernels take (JAX ``quant.py:207``);
+#: more rows dequantize and run a dense matmul
+KERNEL_MAX_ROWS = qm.MAX_ROWS
 
 #: weight forms of the JAX package the port does not run yet -> the
 #: ROADMAP item that ports them
 _NOT_PORTED = {
-    "Int4Weight": "int4 weights, ROADMAP B8 (the int4 serving slice)",
     "W8A8Weight": "w8a8 int8 activations, ROADMAP A3",
     "LoraAdapted": "LoRA-adapted weights, ROADMAP A9 (training)",
 }
@@ -45,6 +57,21 @@ def check_ported(node) -> None:
                                   f"ported")
 
 
+class Int4Weight:
+    """An int4-packed (in, out) weight, as the JAX ``Int4Weight``:
+    ``q4`` int8 (in_p / 2, out_p), input row 2p in the low nibble of byte
+    p and row 2p + 1 in its high nibble (two's complement, [-7, 7]);
+    ``scale4`` bf16 (in_p / group, out_p); ``dims`` the unpadded (in,
+    out); ``group`` input rows per scale."""
+
+    def __init__(self, q4: torch.Tensor, scale4: torch.Tensor,
+                 dims: Tuple[int, int], group: int):
+        self.q4 = q4
+        self.scale4 = scale4
+        self.dims = tuple(dims)
+        self.group = group
+
+
 def quantize_weight(w: torch.Tensor) -> dict:
     """Symmetric per-output-channel int8 of an (in, out) matrix: the JAX
     arithmetic (absmax / 127 floored at 1e-12, round half to even, clip to
@@ -56,69 +83,129 @@ def quantize_weight(w: torch.Tensor) -> dict:
     return {"q": q, "scale": scale.to(torch.bfloat16)}
 
 
+def quantize_weight_int4(w: torch.Tensor, group: int = 512) -> Int4Weight:
+    """Group-wise symmetric int4 of an (in, out) matrix, bit for bit the
+    JAX ``quantize_weight_int4``: input rows zero-padded to a multiple of
+    ``group``; f32 absmax per (group, out) / 7 floored at 1e-12; round half
+    to even, clip to +-7; two rows per byte; output columns zero-padded to
+    a multiple of 2048 (out >= 8192) or 512; the scale stored in bf16
+    after q is computed with the f32 scale."""
+    in_, out = w.shape
+    w32 = w.to(torch.float32)
+    pad_in = (-in_) % group
+    if pad_in:
+        w32 = F.pad(w32, (0, 0, 0, pad_in))
+    in_p = in_ + pad_in
+    grouped = w32.reshape(in_p // group, group, out)
+    scale = torch.clamp(grouped.abs().amax(dim=1) / 7.0, min=1e-12)
+    q = torch.clamp(torch.round(grouped / scale[:, None, :]), -7, 7)
+    q = q.reshape(in_p, out).to(torch.int8)
+    packed = (q[0::2] & 0x0F) | (q[1::2] << 4)               # (in_p/2, out)
+    pad_out = (-out) % (2048 if out >= 8192 else 512)
+    if pad_out:
+        packed = F.pad(packed, (0, pad_out))
+        scale = F.pad(scale, (0, pad_out))
+    return Int4Weight(packed, scale.to(torch.bfloat16), (in_, out), group)
+
+
 def is_quantized(w) -> bool:
-    return isinstance(w, dict) and "q" in w
+    return isinstance(w, Int4Weight) or (isinstance(w, dict) and "q" in w)
+
+
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1]
 
 
 def routes_to_matvec(x: torch.Tensor, q: torch.Tensor) -> bool:
-    """Whether :func:`matmul` gives ``x @ q`` to kernel B4 on the GPU: one
-    row (the B=1 vocab head) and at least MATVEC_MIN_OUT outputs, as the
-    JAX package dispatches its TPU kernel."""
+    """Whether :func:`matmul` gives an int8 ``x @ q`` to kernel B4's
+    one-row matvec on the GPU: one row (the B=1 vocab head) and at least
+    MATVEC_MIN_OUT outputs, as the JAX package dispatches its TPU kernel."""
     return x.numel() == x.shape[-1] and q.shape[1] >= MATVEC_MIN_OUT
 
 
+def dequantize_int4(q4: torch.Tensor, scale4: torch.Tensor, group: int,
+                    dtype=torch.float32) -> torch.Tensor:
+    """(in_p, out_p) ``unpack(q4) * repeat(scale4, group)`` in ``dtype``
+    (each factor cast first, as the JAX package's dequantized products)."""
+    return qm.unpack_int4(q4).to(dtype) * \
+        scale4.to(dtype).repeat_interleave(group, dim=0)
+
+
+def _matmul_int4(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
+    """JAX ``quant.py:186-217``: x padded to the packed input width; the
+    CPU runs the f32 dequantized product; on the GPU at most
+    KERNEL_MAX_ROWS rows go to kernel B8, more rows dequantize into bf16
+    (nibbles are exact in bf16) and run a dense matmul."""
+    in_, out = w.dims
+    in_p = w.q4.shape[0] * 2
+    xp = F.pad(x, (0, in_p - in_)) if in_p != in_ else x
+    if x.device.type == "cpu" or _rows(x) > KERNEL_MAX_ROWS:
+        dt = torch.float32 if x.device.type == "cpu" else torch.bfloat16
+        y = (xp.to(dt) @ dequantize_int4(w.q4, w.scale4, w.group, dt)) \
+            .to(x.dtype)
+    else:
+        y = qm.int4_matmul(xp.contiguous(), w.q4, w.scale4, w.group)
+    return y if y.shape[-1] == out else y[..., :out]
+
+
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense or an int8 dict weight. The int8 product rounds as
-    the JAX package's does: ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``;
-    on a CUDA tensor with one row and at least MATVEC_MIN_OUT outputs it is
-    kernel B4 instead (f32 sum, f32 scale, one rounding at the end)."""
+    """x @ w for a dense, an int8 dict or an :class:`Int4Weight` weight.
+
+    int8 on the CPU and above KERNEL_MAX_ROWS rows rounds as the JAX
+    package's product does: ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``. On
+    the GPU at most KERNEL_MAX_ROWS rows run kernel B4 instead (its one-row
+    matvec at the vocab head, see :func:`routes_to_matvec`, else its B>1
+    form): f32 sum, f32 scale, one rounding at the end."""
     if isinstance(w, torch.Tensor):
         return x @ w
+    if isinstance(w, Int4Weight):
+        return _matmul_int4(x, w)
     if not is_quantized(w):
         check_ported(w)
         raise TypeError(f"matmul: unknown weight {type(w).__name__}")
     q, scale = w["q"], w["scale"]
-    if x.device.type == "cuda" and routes_to_matvec(x, q):
-        from video3d_tpu_torch.kernels.quant_matvec import int8_matmul
-
-        return int8_matmul(x, q, scale)
+    if x.device.type != "cpu" and _rows(x) <= KERNEL_MAX_ROWS:
+        kernel = qm.int8_matvec if routes_to_matvec(x, q) else qm.int8_matmul
+        return kernel(x.contiguous(), q, scale)
     return (x @ q.to(x.dtype)) * scale.to(x.dtype)
 
 
 def quantize_tree(params: Any, patterns: Tuple[str, ...] = DEFAULT_PATTERNS,
                   bits: int = 8, act: str = "none") -> Any:
     """Quantize the 2-D weights whose path ("llm/layers/3/attn/wq") matches
-    one of ``patterns``; already quantized dicts pass through. Only the
-    JAX package's default form is ported: bits 8, ``act="none"``."""
-    if bits != 8:
-        raise NotImplementedError(f"bits={bits}: {_NOT_PORTED['Int4Weight']}"
-                                  f" is not ported")
+    one of ``patterns`` to int8 dicts (bits 8) or :class:`Int4Weight`
+    (bits 4); already quantized weights pass through. ``act="int8"``
+    (w8a8) is not ported."""
+    if bits not in (8, 4):
+        raise ValueError(f"bits={bits}: expected 8 or 4")
     if act != "none":
         raise NotImplementedError(f"act={act!r}: {_NOT_PORTED['W8A8Weight']}"
                                   f" is not ported")
+    quantize = quantize_weight if bits == 8 else quantize_weight_int4
 
     def walk(tree, prefix=""):
+        if is_quantized(tree):
+            return tree
         if isinstance(tree, dict):
-            if is_quantized(tree):
-                return tree
             return {k: walk(v, f"{prefix}/{k}" if prefix else k)
                     for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, f"{prefix}/{i}") for i, v in enumerate(tree)]
         if isinstance(tree, torch.Tensor) and tree.ndim == 2 and any(
                 re.search(p, prefix) for p in patterns):
-            return quantize_weight(tree)
+            return quantize(tree)
         return tree
 
     return walk(params)
 
 
 def quantization_error(params: Any, quantized: Any) -> float:
-    """Max relative reconstruction error over quantized leaves."""
+    """Max relative reconstruction error over the int8 dict leaves (int4
+    leaves are skipped, as in the JAX package)."""
     errs = []
 
     def walk(a, b):
-        if is_quantized(b) and not isinstance(a, dict):
+        if isinstance(b, dict) and "q" in b and not isinstance(a, dict):
             a32 = a.to(torch.float32)
             recon = b["q"].to(torch.float32) * b["scale"].to(torch.float32)
             denom = torch.clamp(a32.abs().max(), min=1e-9)

@@ -4,8 +4,8 @@ training branch, differentiable through B2 with the logsumexp and B6, with
 optional per-layer rematerialisation; the prefill, stacked single-token
 decode, contiguous multi-token chunk and shared-prefix branches, and the
 single-token paged decode over ``models/paged_kv.py``'s pools; a bf16 KV
-cache or an int8 one with per-token, per-head scales; dense weights or the
-int8 dicts of ``models/quant.py``). JAX's ``scan_layers`` (one
+cache or an int8 one with per-token, per-head scales; dense weights, the
+int8 dicts or the ``Int4Weight`` of ``models/quant.py``). JAX's ``scan_layers`` (one
 ``lax.scan`` over stacked layers, a compile-time device) is not ported: the
 port runs the layers in a Python loop.
 
@@ -312,8 +312,9 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
 
 
 def lm_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """(B, L, D) -> (B, L, vocab) logits; an int8 head at one row runs kernel
-    B4 on the GPU (``quant.matmul``)."""
+    """(B, L, D) -> (B, L, vocab) logits; a quantized head at up to 32 rows
+    streams through kernel B4 (int8) or B8 (int4) on the GPU
+    (``quant.matmul``)."""
     return quant.matmul(hidden, params["lm_head"])
 
 
@@ -325,9 +326,9 @@ def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
                dtype=torch.float32, bits: int = 16) -> Params:
     """Random init with the JAX package's distributions, made on ``device``:
     N(0, 0.02) matrices and embeddings, zero biases, unit norms. ``bits=8``
-    quantizes the projections and lm_head (``quant.quantize_tree``'s
-    patterns), each layer right after its init, so the whole full-precision
-    decoder never exists at once."""
+    (int8) or ``bits=4`` (int4) quantizes the projections and lm_head
+    (``quant.quantize_tree``'s patterns), each layer right after its init,
+    so the whole full-precision decoder never exists at once."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 

@@ -56,6 +56,13 @@ def _convert(node, device, dtype):
         return {k: _convert(v, device, dtype) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
         return [_convert(v, device, dtype) for v in node]
+    if type(node).__name__ == "Int4Weight":
+        # packed bytes and bf16 scales bit for bit (the kernels take bf16
+        # scales, so ``dtype`` does not cast them)
+        return quant.Int4Weight(_convert(node.q4, device, None),
+                                _convert(node.scale4, device, None),
+                                tuple(int(d) for d in node.dims),
+                                int(node.group))
     quant.check_ported(node)
     a = np.array(node)                          # a writable copy
     if a.dtype.name == "bfloat16":
@@ -75,8 +82,9 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
     are (in, out) and used as ``x @ w``) -> the port's parameter dict on
     ``device`` (default: the first CUDA card, see :func:`resolve_device`).
     bf16 leaves carry across bit for bit, and so do the int8
-    ``{"q", "scale"}`` dicts of a ``quantize_tree``'d tree. ``dtype`` casts
-    floating leaves (None keeps theirs)."""
+    ``{"q", "scale"}`` dicts and the ``Int4Weight`` leaves of a
+    ``quantize_tree``'d tree (bits 8 or 4). ``dtype`` casts floating leaves
+    (None keeps theirs) except the int4 scales."""
     check_config(cfg)
     device = resolve_device(device)
     out = {k: _convert(tree[k], device, dtype) for k in _USED}
@@ -93,10 +101,11 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
     width that is ~8 B parameters, 16 GB in bf16: built on the host it would
     take minutes and ~30 GB of RAM.
 
-    ``bits=8`` gives what ``quantize_tree`` makes of the same tree (int8
-    LLM projections and lm_head), quantizing each decoder layer right after
-    its init, as the JAX ``builder.init_dummy_params`` does, so the full
-    bf16 LLM never exists next to the int8 one. ``dtype=torch.float32``
+    ``bits=8`` (``bits=4``) gives what ``quantize_tree`` makes of the same
+    tree (int8 dicts or ``Int4Weight`` for the LLM projections and
+    lm_head), quantizing each decoder layer right after its init, as the
+    JAX ``builder.init_dummy_params`` does, so the full bf16 LLM never
+    exists next to the quantized one. ``dtype=torch.float32``
     gives the f32 master tree that training updates."""
     check_config(cfg)
     return {
