@@ -14,8 +14,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    attention (B2 folded), split-K decode attention (B3), shared-prefix
    attention (B5), and the int8 configuration's kernels: the B=1 int8
    weight matvec (B4) at the vocab head and the int8-cache forms of B3,
-   B2 folded and B5; paged decode attention (B7, bf16 and int8 pools) at
-   the paged batcher's shapes (8 slots aliasing a 52-page scene prefix);
+   B2 folded and B5, and their int4-cache forms (values packed two per
+   byte) at the same shapes; paged decode attention (B7, bf16, int8 and
+   int4 pools) at the paged batcher's shapes (8 slots aliasing a 52-page
+   scene prefix);
    the training kernels at the training shapes: B2 with
    the per-row logsumexp and the flash backward B6 (dQ, dK/dV); the
    weight-streaming kernels at the decode projections' shapes: B4's B>1
@@ -61,6 +63,14 @@ Phases, each of which raises on failure (the process then exits non-zero):
    own bound; the first decode step of a B=8 suffix batch through B8 must
    agree with the same step with every int4 product forced through the
    dequantize-then-matmul path (control: scales read one group off).
+10. The int4 KV cache, on phase 9's int4 model before it is freed: phases 5
+   and 8 again with ``kv_cache_dtype="int4"`` (uint8 values, two channels
+   per byte, f32 scales per token and kv head), with exact launch counts
+   of the int4 forms of B3, B2 folded, B5 and B7; the first-step logits of
+   the B=8 suffix rows and the B=1 hit against the same first step with
+   the four int4 forms' plain versions swapped in (f32; control: scales
+   one position off), their distance to a full prefill over raw K/V
+   printed as the int4 cache's own error.
 7. Training: the int4 model is freed; ``ModelConfig()`` cut to
    ``TRAIN_LAYERS`` decoder layers, f32 master weights from a seeded
    generator, ``Trainer.train()`` with bf16 compute, remat and two
@@ -73,7 +83,7 @@ Phases, each of which raises on failure (the process then exits non-zero):
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
-values. Every accuracy check of those kernels and of phases 5-8
+/ int4 values. Every accuracy check of those kernels and of phases 5-8
 also reads controls, deliberately
 broken plain versions (a mask dropped, scales read one position off or
 from the wrong kv head, ...), which must miss the bound by a wide margin:
@@ -86,8 +96,10 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import inspect
 import json
 import math
 import os
@@ -95,6 +107,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "chiprun_out")
@@ -136,6 +149,16 @@ KERNEL_INFO = {
                     "video3d_tpu/kernels/quant_matvec.py:116"),
     "int4_matmul": ("video3d_tpu_torch/csrc/int4_matmul.cu",
                     "video3d_tpu/kernels/quant_matvec.py:33"),
+    "decode_attention_int4": ("video3d_tpu_torch/csrc/decode_attention.cu",
+                              "video3d_tpu/kernels/decode_attention.py:68"),
+    "flash_attention_folded_int4": (
+        "video3d_tpu_torch/csrc/flash_attention.cu",
+        "video3d_tpu/kernels/flash_attention.py:64"),
+    "shared_prefix_attention_int4": (
+        "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
+        "video3d_tpu/kernels/flash_attention.py:503"),
+    "paged_attention_int4": ("video3d_tpu_torch/csrc/paged_attention.cu",
+                             "video3d_tpu/kernels/paged_attention.py:60"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4, 5 and 8
@@ -144,6 +167,9 @@ INT8_KERNELS = ("int8_matvec", "decode_attention_int8",
                 "paged_attention_int8", "int8_matmul")
 #: kernels of the int4 configuration (phase 9)
 INT4_KERNELS = ("int4_matmul",)
+#: kernels of the int4 KV cache (phase 10)
+INT4_CACHE_KERNELS = ("decode_attention_int4", "flash_attention_folded_int4",
+                      "shared_prefix_attention_int4", "paged_attention_int4")
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -197,6 +223,14 @@ INT4_STEP_ATOL = 0.5
 # a bf16 cache (phase 9); on an H100 80GB HBM3 (700 W) the B=8 row and the
 # B=1 hit read 0.112 and 0.133, their controls 5.01 and 4.89
 INT4_LOGIT_ATOL = 0.25
+# phase 10: the first-step logits of the suffix paths over an int4 cache
+# (the B=8 suffix rows and the B=1 hit) against the same first step with the
+# four int4 forms' plain versions swapped in, run in f32 on the same packed
+# values; the control swaps in the plain versions reading the scales one
+# position off and must read at least twice the bound. Against a full
+# prefill over raw K/V the suffixes differ by the 4-bit quantization itself,
+# so that distance is printed, not held.
+INT4_CACHE_LOGIT_ATOL = 0.25
 # B6 against its plain version in f32: P and dS are rounded to bf16 before
 # the tensor-core products and each gradient once to bf16 at the end, so
 # the check reads max |kernel - plain| / max |plain| per gradient; its
@@ -514,11 +548,12 @@ def check_folded(dev):
 
 def _folded_bound(q, k_all, v_all, lens, offs, layer, KV, ks=None, vs=None):
     """Rows below kv_len attend keys up to their position; the layer's
-    first kv_len keys and values (and int8 scales) are read once."""
+    first kv_len keys and values (and the scales of a quantized cache) are
+    read once."""
     H, L, hd = q.shape[2], q.shape[1], q.shape[3]
     pairs = sum(sum(o + r + 1 for r in range(n - o))
                 for o, n in zip(offs.tolist(), lens.tolist()))
-    kv = sum(lens.tolist()) * KV * hd * k_all.element_size() * 2
+    kv = sum(lens.tolist()) * k_all.shape[-1] * k_all.element_size() * 2
     if ks is not None:
         kv += sum(lens.tolist()) * KV * 4 * 2
     return _bound(_attn(pairs, H), kv + 2 * _nbytes(q))
@@ -527,7 +562,7 @@ def _folded_bound(q, k_all, v_all, lens, offs, layer, KV, ks=None, vs=None):
 def _folded_sdpa_ms(q, k_all, v_all, lens, offs, layer, KV, ks=None,
                     vs=None):
     """SDPA over the bf16 cache's layer with an explicit mask (B=1); None
-    for an int8 cache (no single PyTorch call reads it)."""
+    for a quantized cache (no single PyTorch call reads it)."""
     import torch
 
     if ks is not None or q.shape[0] != 1:
@@ -606,8 +641,8 @@ def check_shared_prefix(dev):
 
 def _prefix_bound(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
     """Each row's suffix queries below suffix_lens attend the whole prefix
-    and their suffix causally; the prefix (and its int8 scales) is read
-    once."""
+    and their suffix causally; the prefix (and a quantized one's scales)
+    is read once."""
     B, L, H, hd = q.shape
     P = pk.shape[0]
     pairs = sum(sum(P + r + 1 for r in range(n)) for n in slens.tolist())
@@ -619,8 +654,8 @@ def _prefix_bound(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
 
 def _prefix_sdpa_ms(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
     """SDPA over the prefix broadcast to every row and the row's suffix,
-    with an explicit mask (prepared outside the timing); None for an int8
-    prefix."""
+    with an explicit mask (prepared outside the timing); None for a
+    quantized prefix."""
     import torch
 
     if pks is not None:
@@ -636,27 +671,33 @@ def _prefix_sdpa_ms(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
 
 
 def _int8_cache(g, dev, lead, KV: int, hd: int, v_scale: float = 1.0,
-                edit=None):
-    """A flat (*lead, KV*hd) int8 cache and its (*lead, KV, 1) f32 scales,
-    quantized with the port's ``_quantize_kv`` from bf16 N(0, v_scale)
-    values, one leading index at a time (to bound the temporaries);
-    ``edit(i, x)`` may change the bf16 values x (lead[1:] + (KV, hd)) of
-    leading index i first."""
+                edit=None, bits: int = 8):
+    """A flat (*lead, KV*hd) int8 cache, or (bits 4) an int4 one packed two
+    values per uint8 byte, (*lead, KV*hd / 2), and its (*lead, KV, 1) f32
+    scales, quantized with the port's cache write (``quantize_rows``) from
+    bf16 N(0, v_scale) values, one leading index at a time (to bound the
+    temporaries); ``edit(i, x)`` may change the bf16 values x (lead[1:] +
+    (KV, hd)) of leading index i first."""
     import torch
 
-    from video3d_tpu_torch.models.qwen2 import _quantize_kv
+    from video3d_tpu_torch.models.qwen2 import quantize_rows
 
-    vals = torch.empty((*lead, KV * hd), dtype=torch.int8, device=dev)
+    storage = torch.int8 if bits == 8 else torch.uint8
+    vals = torch.empty((*lead, KV * hd * bits // 8), dtype=storage,
+                       device=dev)
     scales = torch.empty((*lead, KV, 1), dtype=torch.float32, device=dev)
     for i in range(lead[0]):
         x = (v_scale * torch.randn(*lead[1:], KV, hd, generator=g,
                                    device=dev)).to(torch.bfloat16)
         if edit is not None:
             edit(i, x)
-        xq, xs = _quantize_kv(x.reshape(-1, 1, KV, hd))
-        vals[i] = xq.reshape(*lead[1:], KV * hd)
-        scales[i] = xs.reshape(*lead[1:], KV, 1)
+        vals[i], scales[i] = quantize_rows(x, storage)
     return vals, scales
+
+
+def _nibbles_swapped(x):
+    """Packed int4 bytes with their two nibbles swapped (a control)."""
+    return ((x >> 4) & 0x0F) | (x << 4)
 
 
 def _ulp_ratio(a, ref) -> float:
@@ -883,14 +924,15 @@ def check_int4_matmul(dev):
     return result
 
 
-def check_decode_int8(dev):
-    """B3 int8 at B=1 and B=8 over layer 27 of a stacked int8 cache of
-    8704 slots with peaked queries; controls: the two scale controls."""
+def check_decode_int8(dev, bits: int = 8):
+    """B3 int8 (bits 4: int4) at B=1 and B=8 over layer 27 of a stacked
+    quantized cache of 8704 slots with peaked queries; controls: the two
+    scale controls and (int4) the nibbles of each byte swapped."""
     import torch
 
     from video3d_tpu_torch.kernels import decode_attention as da
 
-    g = torch.Generator(device=dev).manual_seed(7)
+    g = torch.Generator(device=dev).manual_seed(7 if bits == 8 else 17)
     NL, H, KV, hd, S = CACHE_LAYERS, 28, 4, 128, 8704
     layer = NL - 1
     worst, timed = 0.0, None
@@ -898,8 +940,9 @@ def check_decode_int8(dev):
         B = len(lens)
         q = (Q_SCALE * torch.randn(B, 1, H, hd, generator=g,
                                    device=dev)).to(torch.bfloat16)
-        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd)
-        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5)
+        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, bits=bits)
+        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5,
+                             bits=bits)
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (q, k8, v8, kv_len, layer, KV, ks, vs)
         out = da.decode_attention(*args)
@@ -908,38 +951,48 @@ def check_decode_int8(dev):
         rows = [1] * B
         err = _rows_err(out, ref, rows)
         plain_err = _rows_err(da.decode_attention_plain(*args), ref, rows)
-        name = f"B3 int8 B={B} kv_len={lens}"
+        name = f"B3 int{bits} B={B} kv_len={lens}"
         _check(name, err <= BF16_ATOL,
                f"max |d| {err:.2e} (the bf16 plain version: {plain_err:.2e})")
-        _check_controls(name, ref, rows, {
+        controls = {
             "scales one position off": da.decode_attention_plain(
                 qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
                 torch.roll(vs, 1, dims=2)),
             "scales of the wrong kv head": da.decode_attention_plain(
                 qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=3),
-                torch.roll(vs, 1, dims=3))})
+                torch.roll(vs, 1, dims=3))}
+        if bits == 4:
+            controls["nibbles of each byte swapped"] = \
+                da.decode_attention_plain(qf, _nibbles_swapped(k8),
+                                          _nibbles_swapped(v8), kv_len,
+                                          layer, KV, ks, vs)
+        _check_controls(name, ref, rows, controls)
         worst = max(worst, err)
         if timed is None:
             timed = args
-        del k8, v8
+        del k8, v8, controls
     n = int(timed[3][0])
-    # the layer's first kv_len int8 keys and values and their f32 scales
-    bound = _bound(_attn(n, H), 2 * n * KV * (hd + 4) + 2 * _nbytes(timed[0]))
+    row_bytes = timed[1].shape[-1] * timed[1].element_size()
+    # the layer's first kv_len quantized keys and values and their f32
+    # scales, the query and the output
+    bound = _bound(_attn(n, H),
+                   2 * n * (row_bytes + KV * 4) + 2 * _nbytes(timed[0]))
     return worst, (
         _median_ms(lambda: da.decode_attention(*timed), 50),
         _median_ms(lambda: da.decode_attention_plain(*timed), 10)
     ), bound, None
 
 
-def check_folded_int8(dev):
-    """B2 folded int8 at the B=1 prefix-hit shapes of the bf16 check, over
-    an int8 stacked cache; controls: the two scale controls and the chunk's
-    causal mask dropped."""
+def check_folded_int8(dev, bits: int = 8):
+    """B2 folded int8 (bits 4: int4) at the B=1 prefix-hit shapes of the
+    bf16 check, over a quantized stacked cache; controls: the two scale
+    controls, the chunk's causal mask dropped and (int4) the nibbles of
+    each byte swapped."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
 
-    g = torch.Generator(device=dev).manual_seed(8)
+    g = torch.Generator(device=dev).manual_seed(8 if bits == 8 else 18)
     NL, H, KV, hd, S = CACHE_LAYERS, 28, 4, 128, 8224
     layer = NL - 1
     worst, timed = 0.0, None
@@ -956,8 +1009,10 @@ def check_folded_int8(dev):
                 for b, (o, n) in enumerate(zip(offs, lens)):
                     x[b, o:n, :, 0] += FOCUS
 
-        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, edit=focus)
-        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5)
+        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, edit=focus,
+                             bits=bits)
+        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5,
+                             bits=bits)
         offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
         lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (q, k8, v8, lens_t, offs_t, layer, KV, ks, vs)
@@ -969,11 +1024,12 @@ def check_folded_int8(dev):
         plain_err = _rows_err(fa.flash_attention_gqa_folded_plain(*args),
                               ref, rows)
         finite = bool(torch.isfinite(out.float()).all())
-        name = f"B2 folded int8 B={B} L={L} offsets={offs} kv_len={lens}"
+        name = (f"B2 folded int{bits} B={B} L={L} offsets={offs} "
+                f"kv_len={lens}")
         _check(name, err <= BF16_ATOL and finite,
                f"max |d| {err:.2e} on rows below kv_len, finite={finite} "
                f"(the bf16 plain version: {plain_err:.2e})")
-        _check_controls(name, ref, rows, {
+        controls = {
             "scales one position off": fa.flash_attention_gqa_folded_plain(
                 qf, k8, v8, lens_t, offs_t, layer, KV,
                 torch.roll(ks, 1, dims=2), torch.roll(vs, 1, dims=2)),
@@ -981,7 +1037,14 @@ def check_folded_int8(dev):
                 qf, k8, v8, lens_t, offs_t, layer, KV,
                 torch.roll(ks, 1, dims=3), torch.roll(vs, 1, dims=3)),
             "no causal mask in the chunk": fa.flash_attention_gqa_folded_plain(
-                qf, k8, v8, lens_t, lens_t - 1, layer, KV, ks, vs)})
+                qf, k8, v8, lens_t, lens_t - 1, layer, KV, ks, vs)}
+        if bits == 4:
+            controls["nibbles of each byte swapped"] = \
+                fa.flash_attention_gqa_folded_plain(
+                    qf, _nibbles_swapped(k8), _nibbles_swapped(v8), lens_t,
+                    offs_t, layer, KV, ks, vs)
+        _check_controls(name, ref, rows, controls)
+        del controls
         worst = max(worst, err)
         if timed is None:
             timed = args
@@ -991,17 +1054,18 @@ def check_folded_int8(dev):
     ), _folded_bound(*timed), None
 
 
-def check_shared_prefix_int8(dev):
-    """B5 int8 at the B=8 suffix-batch shape (an int8 prefix of 6716
-    positions with scales, raw bf16 suffixes) and at B=3, P=1000; controls:
-    the two scale controls and the suffix dropped."""
+def check_shared_prefix_int8(dev, bits: int = 8):
+    """B5 int8 (bits 4: int4) at the B=8 suffix-batch shape (a quantized
+    prefix of 6716 positions with scales, raw bf16 suffixes) and at B=3,
+    P=1000; controls: the two scale controls, the suffix dropped and (int4)
+    the nibbles of each byte swapped."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
     from video3d_tpu_torch.kernels.attention import \
         mha_shared_prefix_reference
 
-    g = torch.Generator(device=dev).manual_seed(9)
+    g = torch.Generator(device=dev).manual_seed(9 if bits == 8 else 19)
     H, KV, hd, L = 28, 4, 128, 64
     worst, timed = 0.0, None
     for P, slens in ((6716, [64, 40, 17, 64, 33, 50, 8, 60]),
@@ -1010,8 +1074,9 @@ def check_shared_prefix_int8(dev):
         q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
         q[..., 0] += FOCUS
         q = q.to(torch.bfloat16)
-        pk8, pks = _int8_cache(g, dev, (1, P), KV, hd)
-        pv8, pvs = _int8_cache(g, dev, (1, P), KV, hd, v_scale=0.5)
+        pk8, pks = _int8_cache(g, dev, (1, P), KV, hd, bits=bits)
+        pv8, pvs = _int8_cache(g, dev, (1, P), KV, hd, v_scale=0.5,
+                               bits=bits)
         pk8, pks, pv8, pvs = (t[0].reshape(P, KV, -1)
                               for t in (pk8, pks, pv8, pvs))
         sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
@@ -1027,11 +1092,11 @@ def check_shared_prefix_int8(dev):
         err = _rows_err(out, ref, slens)
         plain_err = _rows_err(mha_shared_prefix_reference(*args), ref, slens)
         finite = bool(torch.isfinite(out.float()).all())
-        name = f"B5 int8 B={B} L={L} P={P} suffix_lens={slens}"
+        name = f"B5 int{bits} B={B} L={L} P={P} suffix_lens={slens}"
         _check(name, err <= BF16_ATOL and finite,
                f"max |d| {err:.2e} on rows below suffix_lens, "
                f"finite={finite} (the bf16 plain version: {plain_err:.2e})")
-        _check_controls(name, ref, slens, {
+        controls = {
             "scales one position off": mha_shared_prefix_reference(
                 qf, pk8, pv8, sk, sv, slens_t, torch.roll(pks, 1, dims=0),
                 torch.roll(pvs, 1, dims=0)),
@@ -1039,7 +1104,14 @@ def check_shared_prefix_int8(dev):
                 qf, pk8, pv8, sk, sv, slens_t, torch.roll(pks, 1, dims=1),
                 torch.roll(pvs, 1, dims=1)),
             "suffix dropped": mha_shared_prefix_reference(
-                qf, pk8, pv8, sk, sv, torch.zeros_like(slens_t), pks, pvs)})
+                qf, pk8, pv8, sk, sv, torch.zeros_like(slens_t), pks, pvs)}
+        if bits == 4:
+            controls["nibbles of each byte swapped"] = \
+                mha_shared_prefix_reference(
+                    qf, _nibbles_swapped(pk8), _nibbles_swapped(pv8), sk, sv,
+                    slens_t, pks, pvs)
+        _check_controls(name, ref, slens, controls)
+        del controls
         worst = max(worst, err)
         if timed is None:
             timed = args
@@ -1059,12 +1131,12 @@ PAGED_SLOTS, PAGED_PAGE, PAGED_PREFIX_PAGES, PAGED_MAXP = 8, 128, 52, 56
 PAGED_LENS = [6780, 6801, 0, 6750, 6912, 6790, 6760, 6845]
 
 
-def _paged_inputs(g, dev, int8: bool):
-    """q, stacked pools (bf16, or int8 with (NL, P, KV, 1, page) scales),
-    table and lengths of the B7 check (see PAGED_LENS)."""
+def _paged_inputs(g, dev, form: str):
+    """q, stacked pools (bf16, or int8 / packed int4 with (NL, P, KV, 1,
+    page) scales), table and lengths of the B7 check (see PAGED_LENS)."""
     import torch
 
-    from video3d_tpu_torch.models.qwen2 import _quantize_kv
+    from video3d_tpu_torch.models.qwen2 import quantize_rows
 
     NL, H, KV, hd = CACHE_LAYERS, 28, 4, 128
     page, S, maxp = PAGED_PAGE, PAGED_SLOTS, PAGED_MAXP
@@ -1080,11 +1152,13 @@ def _paged_inputs(g, dev, int8: bool):
     pid = torch.tensor([f[0] for f in focus], device=dev)
     off = torch.tensor([f[1] for f in focus], device=dev)
     shape = (P, page, KV, hd)
-    k = torch.empty((NL, P, page, KV * hd), device=dev,
-                    dtype=torch.int8 if int8 else torch.bfloat16)
+    storage = {"bf16": torch.bfloat16, "int8": torch.int8,
+               "int4": torch.uint8}[form]
+    width = KV * hd // (2 if form == "int4" else 1)
+    k = torch.empty((NL, P, page, width), device=dev, dtype=storage)
     v = torch.empty_like(k)
     ks = vs = None
-    if int8:
+    if form != "bf16":
         ks = torch.empty((NL, P, KV, 1, page), device=dev)
         vs = torch.empty_like(ks)
     for layer in range(NL):             # one layer at a time: temporaries
@@ -1093,9 +1167,8 @@ def _paged_inputs(g, dev, int8: bool):
         if layer == NL - 1:
             kl[pid, off, :, 0] += FOCUS
         for dst, sdst, x in ((k, ks, kl), (v, vs, vl)):
-            if int8:
-                xq, xs = _quantize_kv(x.to(torch.bfloat16))
-                dst[layer] = xq.reshape(P, page, KV * hd)
+            if form != "bf16":
+                dst[layer], xs = quantize_rows(x.to(torch.bfloat16), storage)
                 sdst[layer] = xs.permute(0, 2, 3, 1)
             else:
                 dst[layer] = x.reshape(P, page, KV * hd)
@@ -1108,33 +1181,36 @@ def _paged_inputs(g, dev, int8: bool):
 
 def _paged_bound(q, k, v, table, kv_len, layer, KV, ks=None, vs=None):
     """The least HBM traffic: the shared prefix pages once, each slot's
-    positions past them once (values and, int8, scales), q, the output,
-    the table and the lengths; 4 * hd FLOPs per (head, key) pair."""
+    positions past them once (values and, quantized, scales), q, the
+    output, the table and the lengths; 4 * hd FLOPs per (head, key)
+    pair."""
     H, hd = q.shape[2], q.shape[3]
     lens = kv_len.tolist()
     shared = PAGED_PREFIX_PAGES * PAGED_PAGE
     unique = shared + sum(max(n - shared, 0) for n in lens)
-    per_pos = 2 * KV * hd * k.element_size() + (2 * KV * 4 if ks is not None
-                                                else 0)
+    per_pos = 2 * k.shape[-1] * k.element_size() + (
+        2 * KV * 4 if ks is not None else 0)
     return _bound(_attn(sum(lens), H),
                   unique * per_pos + 2 * _nbytes(q) + _nbytes(table, kv_len))
 
 
-def check_paged(dev, int8: bool = False):
-    """B7 (bf16 or int8 pools) at the serving shapes against its plain
-    version in f32 on the same values; controls: one page-table entry
-    pointed at another slot's page, kv_len one short, and (int8) the scales
-    of the wrong kv head."""
+def check_paged(dev, form: str = "bf16"):
+    """B7 (bf16, int8 or int4 pools) at the serving shapes against its
+    plain version in f32 on the same values; controls: one page-table
+    entry pointed at another slot's page, kv_len one short, (quantized) the
+    scales of the wrong kv head and (int4) the nibbles of each byte
+    swapped."""
     import torch
 
     from video3d_tpu_torch.kernels import paged_attention as pa
 
-    g = torch.Generator(device=dev).manual_seed(11 if int8 else 10)
-    args = _paged_inputs(g, dev, int8)
+    g = torch.Generator(device=dev).manual_seed(
+        {"bf16": 10, "int8": 11, "int4": 21}[form])
+    args = _paged_inputs(g, dev, form)
     q, k, v, table, kv_len, layer, KV, ks, vs = args
     live = sum(-(-n // PAGED_PAGE) for n in PAGED_LENS)
-    name = (f"B7 {'int8' if int8 else 'bf16'} S={q.shape[0]} kv_len="
-            f"{PAGED_LENS} ({live} live pages over a pool of {k.shape[1]})")
+    name = (f"B7 {form} S={q.shape[0]} kv_len={PAGED_LENS} ({live} live "
+            f"pages over a pool of {k.shape[1]})")
     out = pa.paged_decode_attention(*args)
     qf = q.float()          # the plain version on the same values in f32
     ref = pa.paged_attention_plain(qf, *args[1:])
@@ -1155,11 +1231,16 @@ def check_paged(dev, int8: bool = False):
                                      ks, vs),
         "kv_len one short": pa.paged_attention_plain(
             qf, k, v, table, (kv_len - 1).clamp(min=0), layer, KV, ks, vs)}
-    if int8:
+    if form != "bf16":
         controls["scales of the wrong kv head"] = pa.paged_attention_plain(
             qf, k, v, table, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
             torch.roll(vs, 1, dims=2))
+    if form == "int4":
+        controls["nibbles of each byte swapped"] = pa.paged_attention_plain(
+            qf, _nibbles_swapped(k), _nibbles_swapped(v), table, kv_len,
+            layer, KV, ks, vs)
     _check_controls(name, ref, rows, controls)
+    del controls
     bound = _paged_bound(*args)
     print(f"  B7 bound counts the {PAGED_PREFIX_PAGES} aliased prefix pages "
           f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions)", flush=True)
@@ -1167,10 +1248,6 @@ def check_paged(dev, int8: bool = False):
         _median_ms(lambda: pa.paged_decode_attention(*args), 50),
         _median_ms(lambda: pa.paged_attention_plain(*args), 5)
     ), bound, None
-
-
-def check_paged_int8(dev):
-    return check_paged(dev, int8=True)
 
 
 def check_kernels():
@@ -1189,9 +1266,18 @@ def check_kernels():
                      ("shared_prefix_attention_int8",
                       check_shared_prefix_int8),
                      ("paged_attention", check_paged),
-                     ("paged_attention_int8", check_paged_int8),
+                     ("paged_attention_int8",
+                      lambda d: check_paged(d, "int8")),
                      ("int8_matmul", check_int8_matmul),
-                     ("int4_matmul", check_int4_matmul)):
+                     ("int4_matmul", check_int4_matmul),
+                     ("decode_attention_int4",
+                      lambda d: check_decode_int8(d, bits=4)),
+                     ("flash_attention_folded_int4",
+                      lambda d: check_folded_int8(d, bits=4)),
+                     ("shared_prefix_attention_int4",
+                      lambda d: check_shared_prefix_int8(d, bits=4)),
+                     ("paged_attention_int4",
+                      lambda d: check_paged(d, "int4"))):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
@@ -1425,9 +1511,10 @@ def _decode_forwards(results, vocab: int) -> int:
 def _expected_launches(params, kv_cache_dtype: str, layers: int,
                        forwards: int, results, **per_path) -> dict:
     """Launch counts a run must show: ``per_path`` gives the geometry and
-    attention kernels of the path under their bf16 names; an int8 cache
-    moves the decode, folded and shared-prefix counts to their ``*_int8``
-    kernels. Quantized weights add their kernels: every decode forward runs
+    attention kernels of the path under their bf16 names; an int8 (int4)
+    cache moves the decode, folded and shared-prefix counts to their
+    ``*_int8`` (``*_int4``) kernels. Quantized weights add their kernels:
+    every decode forward runs
     7 projections per layer on at most 8 rows, and every generate call one
     lm_head at its prefill and one per decode forward, on its B rows. int4
     runs B8 on all of them; int8 runs B4's B>1 form on the projections and
@@ -1437,10 +1524,10 @@ def _expected_launches(params, kv_cache_dtype: str, layers: int,
 
     expected = dict.fromkeys(_build.LAUNCHES, 0)
     expected.update(per_path, decode_attention=layers * forwards)
-    if kv_cache_dtype == "int8":
+    if kv_cache_dtype in ("int8", "int4"):
         for name in ("decode_attention", "flash_attention_folded",
                      "shared_prefix_attention"):
-            expected[f"{name}_int8"] = expected.pop(name)
+            expected[f"{name}_{kv_cache_dtype}"] = expected.pop(name)
             expected[name] = 0
     head = params["llm"]["lm_head"]
     heads = [(int(res.tokens.shape[0]), 1 + _forwards(res))
@@ -1548,16 +1635,17 @@ def run_main_path(params, cfg, root: str, info,
 
 def run_prefix_path(params, cfg, root: str, info,
                     kv_cache_dtype: str = "bfloat16",
-                    logit_atol: float = LOGIT_ATOL,
+                    logit_atol: Optional[float] = LOGIT_ATOL,
                     step_check=None) -> dict:
     """Scene-prefix path: 16 same-scene questions through
     ``run_generative(batch_size=8)`` (a miss that runs the full prefill and
     stores the prefix, a B=7 and a B=8 suffix batch), then one B=1 hit;
     returns the kernel launch counts of that run. The first-step logits of
     the suffix paths must be within ``logit_atol`` of a full prefill, and
-    their one-position-early control at least twice that far.
-    ``step_check(engine, prep)``, if given, runs last, on the prepared B=8
-    suffix batch."""
+    their one-position-early control at least twice that far (``None``:
+    both distances printed, not held). ``step_check(engine, prep, hit_q)``,
+    if given, runs last, on the prepared B=8 suffix batch and the B=1 hit's
+    question."""
     import torch
 
     from video3d_tpu_torch.eval.drivers import run_generative
@@ -1626,11 +1714,18 @@ def run_prefix_path(params, cfg, root: str, info,
         ref = ref[0].float()
         refs.append(ref)
         diff = float((got - ref).abs().max())
+        control = float((got - early[0].float()).abs().max())
+        if logit_atol is None:
+            print(f"  first-step logits vs full prefill over raw K/V "
+                  f"({name}), the {kv_cache_dtype} cache's own error: max "
+                  f"|d| {diff:.4f} (|logits| up to "
+                  f"{float(ref.abs().max()):.2f}); one position early: "
+                  f"{control:.4f}", flush=True)
+            continue
         _check(f"first-step logits vs full prefill ({name})",
                diff <= logit_atol and bool(torch.isfinite(got).all()),
                f"max |d| {diff:.4f} (bound {logit_atol}; |logits| up to "
                f"{float(ref.abs().max()):.2f})")
-        control = float((got - early[0].float()).abs().max())
         _check(f"first-step logits control ({name}), one position early",
                control >= 2 * logit_atol,
                f"max |d| {control:.4f} (must be >= {2 * logit_atol})")
@@ -1671,7 +1766,7 @@ def run_prefix_path(params, cfg, root: str, info,
           f"ms/step over {steps} steps", flush=True)
     if step_check is not None:
         del state, res
-        step_check(engine, prep)
+        step_check(engine, prep, hit_q)
     return launches
 
 
@@ -1928,14 +2023,12 @@ def run_serving(params, cfg, root: str, infos,
     _check("deferred admissions", log["defer"] > 0,
            f"{log['defer']} admissions deferred for pages")
     steps = SERVE_CHUNK * len(log["chunks"])
-    paged = "paged_attention_int8" if kv_cache_dtype == "int8" \
-        else "paged_attention"
+    form = "" if kv_cache_dtype == "bfloat16" else f"_{kv_cache_dtype}"
     expected = dict.fromkeys(_build.LAUNCHES, 0)
-    expected.update({paged: L * steps, "flash_attention": L * misses,
+    expected.update({"paged_attention" + form: L * steps,
+                     "flash_attention": L * misses,
+                     "flash_attention_folded" + form: L * hits,
                      "fused_geometry": launches["fused_geometry"]})
-    folded = "flash_attention_folded" + (
-        "_int8" if kv_cache_dtype == "int8" else "")
-    expected[folded] = L * hits
     # each decode step: 7 projections per layer and the lm_head on the
     # SERVE_SLOTS rows; each admission: one B=1 lm_head
     head = params["llm"]["lm_head"]
@@ -2083,11 +2176,121 @@ def _check_int4_decode_step(params, cfg, engine, prep) -> None:
     del state
 
 
-def run_int4_paths(cfg, root: str, infos) -> dict:
+@contextlib.contextmanager
+def _plain_int4_forms(roll: int = 0):
+    """Swap the four int4-cache wrappers (B3, B2 folded, B5, B7) for their
+    plain versions run in f32 on the same packed values, output in q's
+    dtype, with the scales rolled ``roll`` positions along the positions
+    (a control when non-zero); other cache forms keep their kernels."""
+    import torch
+
+    from video3d_tpu_torch.kernels import decode_attention as da
+    from video3d_tpu_torch.kernels import flash_attention as fa
+    from video3d_tpu_torch.kernels import paged_attention as pa
+    from video3d_tpu_torch.kernels.attention import \
+        mha_shared_prefix_reference
+
+    def rolled(scale, dim):
+        return torch.roll(scale, roll, dims=dim)
+
+    def swap(module, name, plain, dim):
+        kernel = getattr(module, name)
+
+        def fn(q, k, v, *args, **kwargs):
+            if k.dtype != torch.uint8:
+                return kernel(q, k, v, *args, **kwargs)
+            # the plain version takes the wrapper's arguments, the two
+            # scales last
+            *rest, ks, vs = inspect.signature(plain).bind(
+                q.float(), k, v, *args, **kwargs).args
+            return plain(*rest, rolled(ks, dim), rolled(vs, dim)).to(q.dtype)
+        return module, name, kernel, fn
+
+    swaps = [swap(da, "decode_attention", da.decode_attention_plain, 2),
+             swap(fa, "flash_attention_gqa_folded",
+                  fa.flash_attention_gqa_folded_plain, 2),
+             swap(fa, "flash_attention_shared_prefix",
+                  mha_shared_prefix_reference, 0),
+             swap(pa, "paged_decode_attention", pa.paged_attention_plain, -1)]
+    for module, name, _, fn in swaps:
+        setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        for module, name, kernel, _ in swaps:
+            setattr(module, name, kernel)
+
+
+def _check_int4_cache_suffix(params, cfg, engine, prep, hit_q) -> None:
+    """Phase 10: the first-step logits of the prepared B=8 suffix batch and
+    of the B=1 hit over the int4 prefix, through the kernels, against the
+    same first step with the int4 forms' plain versions swapped in (f32);
+    within INT4_CACHE_LOGIT_ATOL, and the control (the plain versions
+    reading the scales one position off) at least twice that."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    hit = engine.prepare_request(hit_q)
+    _check("the B=1 question hits the int4 prefix", hit["mode"] == "prefix",
+           f"mode {hit['mode']}")
+
+    def first_steps():
+        out = []
+        for p in (prep, hit):
+            entry = p["entry"]
+            with torch.inference_mode():
+                state = gen.start_decode_prefix(
+                    params, cfg, p["batch"], entry.cache, entry.prefix_len,
+                    p["bucket"] + MAX_NEW, engine.cache_dtype)
+            out.append(state.next_logits.float())
+            del state
+            torch.cuda.empty_cache()
+        return out
+
+    got = first_steps()
+    with _plain_int4_forms():
+        ref = first_steps()
+    with _plain_int4_forms(roll=1):
+        ctl = first_steps()
+    diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    control = max(float((a - b).abs().max()) for a, b in zip(ctl, ref))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    _check(f"first-step logits over the int4 prefix, kernels vs their plain "
+           f"versions in f32 (B={got[0].shape[0]} suffix rows, B=1 hit)",
+           diff <= INT4_CACHE_LOGIT_ATOL and finite,
+           f"max |d| {diff:.4f} (bound {INT4_CACHE_LOGIT_ATOL}; |logits| up "
+           f"to {max(float(a.abs().max()) for a in ref):.2f})")
+    _check("first-step logits control, plain versions with the scales one "
+           "position off", control >= 2 * INT4_CACHE_LOGIT_ATOL,
+           f"max |d| {control:.4f} (must be >= {2 * INT4_CACHE_LOGIT_ATOL})")
+
+
+def run_int4_cache_paths(params, cfg, root: str, infos) -> dict:
+    """Phase 10: the int4 KV cache on phase 9's int4 model, through phase
+    5's and phase 8's paths with ``kv_cache_dtype="int4"``; returns the
+    launch counts of the two runs, summed."""
+    print("int4 KV cache (phase 10): the int4 model, kv_cache_dtype=int4 "
+          "(uint8, two channels per byte, f32 scales per token and kv "
+          "head)", flush=True)
+    print("int4-cache scene-prefix path:", flush=True)
+    prefix = run_prefix_path(
+        params, cfg, root, infos[0], kv_cache_dtype="int4", logit_atol=None,
+        step_check=lambda engine, prep, hit_q: _check_int4_cache_suffix(
+            params, cfg, engine, prep, hit_q))
+    print(f"  launches (int4-cache scene-prefix path): {prefix}", flush=True)
+    print("int4-cache serving path:", flush=True)
+    serve = run_serving(params, cfg, root, infos, kv_cache_dtype="int4")
+    print(f"  launches (int4-cache serving path): {serve}", flush=True)
+    return {k: prefix[k] + serve[k] for k in prefix}
+
+
+def run_int4_paths(cfg, root: str, infos):
     """Phase 9: the int4 configuration at full width and depth (int4 LLM
     projections and lm_head from ``init_model(bits=4)``, bf16 KV cache)
-    through phase 4's, phase 5's and phase 8's paths; returns the launch
-    counts of the three runs, summed."""
+    through phase 4's, phase 5's and phase 8's paths, then phase 10 on the
+    same model; returns the launch counts of phase 9's three runs, summed,
+    and phase 10's."""
     import torch
 
     from video3d_tpu_torch.params import init_model
@@ -2111,13 +2314,14 @@ def run_int4_paths(cfg, root: str, infos) -> dict:
     print("int4 scene-prefix path:", flush=True)
     prefix = run_prefix_path(
         params, cfg, root, infos[0], logit_atol=INT4_LOGIT_ATOL,
-        step_check=lambda engine, prep: _check_int4_decode_step(
+        step_check=lambda engine, prep, _: _check_int4_decode_step(
             params, cfg, engine, prep))
     print(f"  launches (int4 scene-prefix path): {prefix}", flush=True)
     print("int4 serving path:", flush=True)
     serve = run_serving(params, cfg, root, infos)
     print(f"  launches (int4 serving path): {serve}", flush=True)
-    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}
+    int4_cache = run_int4_cache_paths(params, cfg, root, infos)
+    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}, int4_cache
 
 
 TRAIN_LAYERS = 4        # decoder depth of phase 7 (widths are Qwen2-7B's)
@@ -2417,7 +2621,7 @@ def main() -> None:
         int8 = run_int8_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
-        int4 = run_int4_paths(cfg, root, infos)
+        int4, int4_cache = run_int4_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
         train_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
@@ -2432,6 +2636,8 @@ def main() -> None:
             launches = int8[name]
         elif name in INT4_KERNELS:
             launches = int4[name]
+        elif name in INT4_CACHE_KERNELS:
+            launches = int4_cache[name]
         else:
             launches = scanqa[name] + prefix[name] + serve[name]
         kernels.append({"name": name, "route": "cuda", "source": source,

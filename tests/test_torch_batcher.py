@@ -61,29 +61,29 @@ def scene(tmp_path_factory):
         jax.tree.map(np.asarray, params), TCFG, device="cpu")
 
 
-def _ecfg(module, tok, prefix_scenes):
+def _ecfg(module, tok, prefix_scenes, kv="bfloat16"):
     return module.EngineConfig(
         max_new_tokens=4, eos_token_id=tok.eos_token_id, max_frames=3,
         buckets=(256,), stop_str="", suffix_buckets=(32, 64),
-        prefix_cache_scenes=prefix_scenes)
+        prefix_cache_scenes=prefix_scenes, kv_cache_dtype=kv)
 
 
-def _engine(scene, prefix_scenes=0):
+def _engine(scene, prefix_scenes=0, kv="bfloat16"):
     _, data_cfg, _, tparams = scene
     tok = FakeTokenizer()
     return tdrv.InferenceEngine(
         tparams, TCFG, tok, TVideoProcessor(port_config(data_cfg)),
         TSigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
-        _ecfg(tdrv, tok, prefix_scenes), device="cpu")
+        _ecfg(tdrv, tok, prefix_scenes, kv), device="cpu")
 
 
-def _jax_engine(scene, prefix_scenes=0):
+def _jax_engine(scene, prefix_scenes=0, kv="bfloat16"):
     _, data_cfg, params, _ = scene
     tok = FakeTokenizer()
     return jdrv.InferenceEngine(
         params, CFG, tok, VideoProcessor(data_cfg),
         SigLipImageProcessor(size=(CFG.vision.image_size,) * 2),
-        _ecfg(jdrv, tok, prefix_scenes), device_geometry=True)
+        _ecfg(jdrv, tok, prefix_scenes, kv), device_geometry=True)
 
 
 def _record(info, question, i=0):
@@ -104,7 +104,8 @@ def _wait(pred, seconds=60):
 
 MODES = {"dense": dict(paged=False),
          "paged": dict(paged=True, page_size=PAGE),
-         "paged_shared": dict(paged=True, page_size=PAGE)}
+         "paged_shared": dict(paged=True, page_size=PAGE),
+         "paged_shared_int4": dict(paged=True, page_size=PAGE)}
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -113,26 +114,31 @@ def test_answers_match_jax_batcher_and_sequential(scene, mode):
     slot): the port's batcher answers as the port's sequential engine and
     as the JAX batcher in the same mode. With the scene-prefix cache on
     (paged_shared), the first request misses and stores the prefix, the
-    next two share its pool pages."""
+    next two share its pool pages; paged_shared_int4 does so over int4
+    pools (the port's packed uint8 pages, JAX's ``jnp.int4`` ones) and an
+    int4 prefix entry."""
     infos = scene[0]
-    prefix = 4 if mode == "paged_shared" else 0
+    prefix = 4 if mode.startswith("paged_shared") else 0
+    kv = "int4" if mode.endswith("int4") else "bfloat16"
     records = [_record(infos[0], q, i) for i, q in enumerate(QUESTIONS)]
-    plain = _engine(scene)
+    plain = _engine(scene, kv=kv)
     want = [plain.generate_answer(r) for r in records]
-    eng = _engine(scene, prefix)
-    jeng = _jax_engine(scene, prefix)
+    eng = _engine(scene, prefix, kv)
+    jeng = _jax_engine(scene, prefix, kv)
     for r in records:                  # the same word ids in both
         eng._tokenize_prompt(r)
         jeng._tokenize_prompt(r)
     answers = []
     for make, e in ((ContinuousBatcher, eng), (JaxBatcher, jeng)):
         b = make(e, num_slots=2, chunk=2, **MODES[mode])
+        if make is ContinuousBatcher and kv == "int4":
+            assert b.state.cache.k.dtype == torch.uint8
         try:
             first = b.generate(records[0])     # the miss stores the prefix
             handles = [b.submit(r) for r in records[1:]]
             answers.append([first] + [h.result(e._decode_text, timeout=300)
                                       for h in handles])
-            if mode == "paged_shared":
+            if prefix:
                 assert b.prefix_share_stats == [2, 1]
         finally:
             b.shutdown()

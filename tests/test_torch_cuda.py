@@ -17,7 +17,7 @@ from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.attention import mha_shared_prefix_reference
 from video3d_tpu_torch.models.quant import (quantize_weight,
                                             quantize_weight_int4)
-from video3d_tpu_torch.models.qwen2 import _quantize_kv
+from video3d_tpu_torch.models.qwen2 import quantize_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -190,22 +190,27 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fa.flash_attention_shared_prefix(q64, pk, pk, sk, sk, n)
 
 
-# ---- the int8 configuration: B4 and the int8-cache forms of B3, B2 folded
-# and B5, each against its plain version in f32 on the same int8 values and
-# scales; controls as in chip_smoke.py: scales one position off and of the
-# wrong kv head must miss the bound by far more than 4x
+# ---- the quantized caches: B4 and the int8- and int4-cache forms of B3, B2
+# folded and B5, each against its plain version in f32 on the same values
+# and scales; controls as in chip_smoke.py: scales one position off and of
+# the wrong kv head (int4: also the nibbles of each byte swapped) must miss
+# the bound by far more than 4x
 
-def _int8(x):
-    """bf16 (..., S, KV, hd) -> flat int8 (..., S, KV*hd) and (..., S, KV, 1)
-    f32 scales, quantized by the port's _quantize_kv."""
-    *lead, S, KV, hd = x.shape
-    q, s = _quantize_kv(x.reshape(-1, S, KV, hd))
-    return (q.reshape(*lead, S, KV * hd).contiguous(),
-            s.reshape(*lead, S, KV, 1).contiguous())
+def _int8(x, bits=8):
+    """bf16 (..., S, KV, hd) -> flat int8 (..., S, KV*hd), or int4 packed
+    two per uint8 byte (..., S, KV*hd / 2), and (..., S, KV, 1) f32 scales,
+    quantized by the port's cache write (``quantize_rows``)."""
+    q, s = quantize_rows(x, torch.int8 if bits == 8 else torch.uint8)
+    return q.contiguous(), s.contiguous()
 
 
 def _rolled(ks, vs, dim):
     return torch.roll(ks, 1, dims=dim), torch.roll(vs, 1, dims=dim)
+
+
+def _swapped(x):
+    """Packed int4 bytes with their two nibbles swapped."""
+    return ((x >> 4) & 0x0F) | (x << 4)
 
 
 @pytest.mark.parametrize("in_,out", [(3584, 4096), (1000, 1040)])
@@ -300,31 +305,38 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(dev):
         qm.int8_matmul(x[:2], d["q"], d["scale"])
 
 
-def test_decode_int8_kernel(dev):
+@pytest.mark.parametrize("bits", [8, 4])
+def test_decode_int8_kernel(dev, bits):
     g = torch.Generator(device=dev).manual_seed(6)
     NL, B, S, H, KV, hd, layer = 2, 3, 600, 8, 2, 128, 1
     q = (Q_SCALE * torch.randn(B, 1, H, hd, generator=g, device=dev)).bfloat16()
     k8, ks = _int8(torch.randn(NL, B, S, KV, hd, generator=g,
-                               device=dev).bfloat16())
+                               device=dev).bfloat16(), bits)
     v8, vs = _int8((0.5 * torch.randn(NL, B, S, KV, hd, generator=g,
-                                      device=dev)).bfloat16())
+                                      device=dev)).bfloat16(), bits)
     kv_len = torch.tensor([600, 257, 1], dtype=torch.int32, device=dev)
-    got = _launched("decode_attention_int8", lambda: da.decode_attention(
-        q, k8, v8, kv_len, layer, KV, ks, vs))
+    got = _launched(f"decode_attention_int{bits}",
+                    lambda: da.decode_attention(q, k8, v8, kv_len, layer, KV,
+                                                ks, vs))
     ref = da.decode_attention_plain(q.float(), k8, v8, kv_len, layer, KV, ks,
                                     vs)
     assert float((got.float() - ref).abs().max()) <= BF16_ATOL
-    for dim in (2, 3):                    # one position off, wrong kv head
-        broken = da.decode_attention_plain(q.float(), k8, v8, kv_len, layer,
-                                           KV, *_rolled(ks, vs, dim))
+    controls = [da.decode_attention_plain(q.float(), k8, v8, kv_len, layer,
+                                          KV, *_rolled(ks, vs, dim))
+                for dim in (2, 3)]        # one position off, wrong kv head
+    if bits == 4:
+        controls.append(da.decode_attention_plain(
+            q.float(), _swapped(k8), _swapped(v8), kv_len, layer, KV, ks, vs))
+    for broken in controls:
         assert float((broken - ref).abs().max()) > 4 * BF16_ATOL
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("H,KV,L,offs,lens", [
     (28, 4, 64, [700], [740]),                 # the B=1 prefix-hit shape
     (8, 2, 100, [300, 37], [400, 100]),        # ragged, rows over 3 tiles
 ])
-def test_folded_int8_kernel(dev, H, KV, L, offs, lens):
+def test_folded_int8_kernel(dev, H, KV, L, offs, lens, bits):
     g = torch.Generator(device=dev).manual_seed(7)
     NL, S, hd, layer = 2, 800, 128, 1
     B = len(offs)
@@ -334,12 +346,12 @@ def test_folded_int8_kernel(dev, H, KV, L, offs, lens):
     k = torch.randn(NL, B, S, KV, hd, generator=g, device=dev)
     for b, (o, n) in enumerate(zip(offs, lens)):
         k[layer, b, o:n, :, 0] += FOCUS
-    k8, ks = _int8(k.bfloat16())
+    k8, ks = _int8(k.bfloat16(), bits)
     v8, vs = _int8((0.5 * torch.randn(NL, B, S, KV, hd, generator=g,
-                                      device=dev)).bfloat16())
+                                      device=dev)).bfloat16(), bits)
     offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
-    got = _launched("flash_attention_folded_int8",
+    got = _launched(f"flash_attention_folded_int{bits}",
                     lambda: fa.flash_attention_gqa_folded(
                         q, k8, v8, lens_t, offs_t, layer, KV, ks, vs))
     ref = fa.flash_attention_gqa_folded_plain(q.float(), k8, v8, lens_t,
@@ -347,44 +359,54 @@ def test_folded_int8_kernel(dev, H, KV, L, offs, lens):
     rows = [min(L, n - o) for o, n in zip(offs, lens)]
     assert bool(torch.isfinite(got.float()).all())
     assert _rows_err(got, ref, rows) <= BF16_ATOL
-    for dim in (2, 3):                    # one position off, wrong kv head
-        broken = fa.flash_attention_gqa_folded_plain(
-            q.float(), k8, v8, lens_t, offs_t, layer, KV,
-            *_rolled(ks, vs, dim))
+    controls = [fa.flash_attention_gqa_folded_plain(
+        q.float(), k8, v8, lens_t, offs_t, layer, KV, *_rolled(ks, vs, dim))
+        for dim in (2, 3)]                # one position off, wrong kv head
+    if bits == 4:
+        controls.append(fa.flash_attention_gqa_folded_plain(
+            q.float(), _swapped(k8), _swapped(v8), lens_t, offs_t, layer, KV,
+            ks, vs))
+    for broken in controls:
         assert _rows_err(broken, ref, rows) > 4 * BF16_ATOL
 
 
+@pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("B,L,P,H,KV", [
     (8, 64, 1000, 28, 4),
     (3, 20, 130, 8, 2),        # 64-row tiles cross batch rows
 ])
-def test_shared_prefix_int8_kernel(dev, B, L, P, H, KV):
+def test_shared_prefix_int8_kernel(dev, B, L, P, H, KV, bits):
     g = torch.Generator(device=dev).manual_seed(8)
     hd = 128
     q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
     q[..., 0] += FOCUS
     q = q.bfloat16()
     pk8, pks = _int8(torch.randn(P, KV, hd, generator=g,
-                                 device=dev).bfloat16())
+                                 device=dev).bfloat16(), bits)
     pv8, pvs = _int8((0.5 * torch.randn(P, KV, hd, generator=g,
-                                        device=dev)).bfloat16())
-    pk8, pv8 = pk8.reshape(P, KV, hd), pv8.reshape(P, KV, hd)
+                                        device=dev)).bfloat16(), bits)
+    pk8, pv8 = pk8.reshape(P, KV, -1), pv8.reshape(P, KV, -1)
     sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
     sk[..., 0] += FOCUS
     sk = sk.bfloat16()
     sv = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)).bfloat16()
     slens = [L - (7 * b) % L for b in range(B)]
     slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
-    got = _launched("shared_prefix_attention_int8",
+    got = _launched(f"shared_prefix_attention_int{bits}",
                     lambda: fa.flash_attention_shared_prefix(
                         q, pk8, pv8, sk, sv, slens_t, pks, pvs))
     ref = mha_shared_prefix_reference(q.float(), pk8, pv8, sk, sv, slens_t,
                                       pks, pvs)
     assert bool(torch.isfinite(got.float()).all())
     assert _rows_err(got, ref, slens) <= BF16_ATOL
-    for dim in (0, 1):                    # one position off, wrong kv head
-        broken = mha_shared_prefix_reference(q.float(), pk8, pv8, sk, sv,
-                                             slens_t, *_rolled(pks, pvs, dim))
+    controls = [mha_shared_prefix_reference(q.float(), pk8, pv8, sk, sv,
+                                            slens_t, *_rolled(pks, pvs, dim))
+                for dim in (0, 1)]        # one position off, wrong kv head
+    if bits == 4:
+        controls.append(mha_shared_prefix_reference(
+            q.float(), _swapped(pk8), _swapped(pv8), sk, sv, slens_t, pks,
+            pvs))
+    for broken in controls:
         assert _rows_err(broken, ref, slens) > 4 * BF16_ATOL
 
 
@@ -410,6 +432,34 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         qm.int8_matvec(torch.zeros(1, 64, device=dev, dtype=torch.bfloat16),
                        w, torch.zeros(1, 1000, device=dev,
                                       dtype=torch.bfloat16))
+
+
+def test_int4_wrappers_reject_what_the_kernels_do_not_take(dev):
+    packed = torch.zeros(2, 1, 16, 128, device=dev, dtype=torch.uint8)
+    scale = torch.zeros(2, 1, 16, 2, 1, device=dev)
+    q1 = torch.zeros(1, 1, 4, 128, device=dev, dtype=torch.bfloat16)
+    n = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):                        # no scales
+        da.decode_attention(q1, packed, packed, n, 1, 2)
+    wide = torch.zeros(2, 1, 16, 256, device=dev, dtype=torch.uint8)
+    with pytest.raises(ValueError):                        # unpacked width
+        da.decode_attention(q1, wide, wide, n, 1, 2, scale, scale)
+    odd = torch.zeros(2 * 16 * 128 + 4, device=dev,
+                      dtype=torch.uint8)[4:].reshape(2, 1, 16, 128)
+    with pytest.raises(ValueError):                        # misaligned
+        da.decode_attention(q1, odd, odd, n, 1, 2, scale, scale)
+    q64 = torch.zeros(1, 64, 4, 128, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                        # unpacked width
+        fa.flash_attention_gqa_folded(q64, wide, wide, n, n, 1, 2, scale,
+                                      scale)
+    pk = torch.zeros(16, 2, 128, device=dev, dtype=torch.uint8)
+    sk = torch.zeros(1, 64, 2, 128, device=dev, dtype=torch.bfloat16)
+    ps = torch.zeros(16, 2, 1, device=dev)
+    with pytest.raises(ValueError):                        # no prefix scales
+        fa.flash_attention_shared_prefix(q64, pk[..., :64], pk[..., :64],
+                                         sk, sk, n)
+    with pytest.raises(ValueError):                        # unpacked width
+        fa.flash_attention_shared_prefix(q64, pk, pk, sk, sk, n, ps, ps)
 
 
 # ---- training: B2 with the logsumexp and B6 (dQ, dK/dV), each against its
@@ -504,15 +554,15 @@ def test_flash_train_function_on_the_gpu(dev):
         assert _rel(a.grad, want) <= B6_REL
 
 
-# ---- kernel B7: paged decode attention over stacked page pools (bf16 and
-# int8), against its plain version in f32 on the same values: three prefix
+# ---- kernel B7: paged decode attention over stacked page pools (bf16, int8
+# and int4), against its plain version in f32 on the same values: three prefix
 # pages aliased by every slot (13 live pages over a pool of 12), a
 # kv_len == 0 slot, a slot ending mid-page; the last 4 keys of each slot
 # carry most of the weight, so the controls (a table entry pointed at
-# another slot's page, kv_len one short, int8 scales of the wrong kv head)
-# move the output by far more than the bound
+# another slot's page, kv_len one short, scales of the wrong kv head, int4
+# nibbles swapped) move the output by far more than the bound
 
-def _paged_case(dev, int8, seed):
+def _paged_case(dev, form, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     NL, P, page, H, KV, hd, layer = 2, 12, 16, 8, 2, 128, 1
     table = torch.tensor([[1, 2, 3, 4 + 2 * b, 5 + 2 * b]
@@ -526,20 +576,22 @@ def _paged_case(dev, int8, seed):
         for s_ in range(max(n - 4, 0), n):
             k[layer, int(table[b, s_ // page]), s_ % page, :, 0] += FOCUS
     ks = vs = None
-    if int8:
-        k, ks = _quantize_kv(k.bfloat16())
-        v, vs = _quantize_kv(v.bfloat16())
+    if form == "bf16":
+        k, v = (x.reshape(NL, P, page, KV * hd).bfloat16().contiguous()
+                for x in (k, v))
+    else:
+        storage = torch.int8 if form == "int8" else torch.uint8
+        k, ks = quantize_rows(k.bfloat16(), storage)
+        v, vs = quantize_rows(v.bfloat16(), storage)
         ks, vs = (x.permute(0, 1, 3, 4, 2).contiguous() for x in (ks, vs))
-    k, v = (x.reshape(NL, P, page, KV * hd).contiguous().to(
-        torch.int8 if int8 else torch.bfloat16) for x in (k, v))
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     return q.bfloat16(), k, v, table, kv_len, layer, KV, ks, vs
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_paged_kernel(dev, int8):
-    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, int8, 8)
-    name = "paged_attention_int8" if int8 else "paged_attention"
+@pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
+def test_paged_kernel(dev, form):
+    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, form, 8)
+    name = "paged_attention" + ("" if form == "bf16" else f"_{form}")
     got = _launched(name, lambda: pa.paged_decode_attention(
         q, k, v, table, kv_len, layer, KV, ks, vs))
     ref = pa.paged_attention_plain(q.float(), k, v, table, kv_len, layer, KV,
@@ -556,16 +608,20 @@ def test_paged_kernel(dev, int8):
         pa.paged_attention_plain(q.float(), k, v, table,
                                  (kv_len - 1).clamp(min=0), layer, KV, ks,
                                  vs)]
-    if int8:
+    if form != "bf16":
         controls.append(pa.paged_attention_plain(
             q.float(), k, v, table, kv_len, layer, KV,
             *_rolled(ks, vs, 2)))
+    if form == "int4":
+        controls.append(pa.paged_attention_plain(
+            q.float(), _swapped(k), _swapped(v), table, kv_len, layer, KV,
+            ks, vs))
     for broken in controls:
         assert float((broken - ref).abs().max()) > 4 * BF16_ATOL
 
 
 def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
-    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, True, 9)
+    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, "int8", 9)
     with pytest.raises(ValueError):                  # f32 query
         pa.paged_decode_attention(q.float(), k, v, table, kv_len, layer, KV,
                                   ks, vs)

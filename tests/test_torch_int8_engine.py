@@ -1,9 +1,11 @@
 """The port's engine in the int8 serving configuration against the JAX
 engine (``device_geometry=True``): a tiny float32 model whose LLM
 projections and lm_head are ``quantize_tree``'d to int8 dicts, with
-``kv_cache_dtype="int8"``, on synthetic scenes with the fake tokenizer.
-Token ids (answers) must be identical at B=1 without caches, on B=1 prefix
-hits, on scene-grouped suffix batches and through ``run_generative``."""
+``kv_cache_dtype="int8"`` and, on the same weights, ``"int4"`` (JAX's
+``jnp.int4`` cache against the port's packed uint8 one), on synthetic
+scenes with the fake tokenizer. Token ids (answers) must be identical at
+B=1 without caches, on B=1 prefix hits, on scene-grouped suffix batches
+and through ``run_generative``."""
 
 import json
 import os
@@ -28,6 +30,7 @@ from video3d_tpu_torch.data.image_processor import \
 from video3d_tpu_torch.data.video_processor import \
     VideoProcessor as TVideoProcessor
 from video3d_tpu_torch.eval import drivers as tdrv
+from video3d_tpu_torch.models import qwen2 as tqwen
 from video3d_tpu_torch.params import from_jax_params
 
 from fixtures import FakeTokenizer, make_fake_scene
@@ -40,6 +43,8 @@ TCFG = port_config(CFG)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 QUESTIONS = ["what color is the chair", "how many tables are there",
              "where is the lamp"]
+#: the quantized KV caches the engine tests run, and the port's storage
+KV_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
 
 
 def _question(info, text, i):
@@ -92,49 +97,54 @@ def _jax_engine(scene, **kw):
         _ecfg(jdrv, tok, **kw), device_geometry=True)
 
 
-def test_int8_answers_match_jax_without_caches(scene):
+@pytest.mark.parametrize("kv", list(KV_DTYPES))
+def test_int8_answers_match_jax_without_caches(scene, kv):
     infos = scene[0]
     qs = [_question(infos[0], t, i) for i, t in enumerate(QUESTIONS)]
-    eng = _torch_engine(scene)
+    eng = _torch_engine(scene, kv_cache_dtype=kv)
     assert eng.params["llm"]["lm_head"]["q"].dtype == torch.int8
-    jeng = _jax_engine(scene)
+    jeng = _jax_engine(scene, kv_cache_dtype=kv)
     want = [jeng.generate_answer(q) for q in qs]
     assert [eng.generate_answer(q) for q in qs] == want
 
 
-def test_int8_prefix_hits_match_jax(scene):
-    """B=1: a miss stores the int8 prefix with its scales, two hits prefill
-    only their suffix through the cache (the folded kernel's int8 form)."""
+@pytest.mark.parametrize("kv", list(KV_DTYPES))
+def test_int8_prefix_hits_match_jax(scene, kv):
+    """B=1: a miss stores the quantized prefix with its scales, two hits
+    prefill only their suffix through the cache (the folded kernel's int8
+    or int4 form)."""
     infos = scene[0]
     qs = [_question(infos[0], t, i) for i, t in enumerate(QUESTIONS)]
-    jeng = _jax_engine(scene, prefix_cache_scenes=2)
+    jeng = _jax_engine(scene, prefix_cache_scenes=2, kv_cache_dtype=kv)
     want = [jeng.generate_answer(q) for q in qs]
-    eng = _torch_engine(scene, prefix_cache_scenes=2)
+    eng = _torch_engine(scene, prefix_cache_scenes=2, kv_cache_dtype=kv)
     assert [eng.generate_answer(q) for q in qs] == want
     assert eng.prefix_cache_stats == jeng.prefix_cache_stats == [2, 1]
     entry = eng._prefix_cache[infos[0]["sample_idx"]]
     P = entry.prefix_len
-    assert entry.cache.k.dtype == torch.int8
+    assert entry.cache.k.dtype == KV_DTYPES[kv]
     assert tuple(entry.cache.k_scale.shape) == (
         CFG.llm.num_hidden_layers, 1, P, CFG.llm.num_key_value_heads, 1)
 
 
-def test_int8_batch_prefix_matches_jax(scene):
+@pytest.mark.parametrize("kv", list(KV_DTYPES))
+def test_int8_batch_prefix_matches_jax(scene, kv):
     """A same-scene chunk without a prefix: one miss, then a B=2 suffix
-    batch over the shared int8 prefix (B5's int8 form, raw suffix K/V);
-    then a pure B=3 suffix batch."""
+    batch over the shared quantized prefix (B5's int8 or int4 form, raw
+    suffix K/V); then a pure B=3 suffix batch."""
     infos = scene[0]
     qs = [_question(infos[0], t, i) for i, t in enumerate(QUESTIONS)]
-    jeng = _jax_engine(scene, prefix_cache_scenes=2)
-    eng = _torch_engine(scene, prefix_cache_scenes=2)
+    jeng = _jax_engine(scene, prefix_cache_scenes=2, kv_cache_dtype=kv)
+    eng = _torch_engine(scene, prefix_cache_scenes=2, kv_cache_dtype=kv)
     for _ in range(2):
         assert eng.generate_answers_batch_prefix(qs) == \
             jeng.generate_answers_batch_prefix(qs)
     assert eng.prefix_cache_stats == jeng.prefix_cache_stats == [5, 1]
 
 
+@pytest.mark.parametrize("kv", list(KV_DTYPES))
 @pytest.mark.parametrize("batch_size", [1, 2])
-def test_int8_run_generative_matches_jax(scene, tmp_path, batch_size):
+def test_int8_run_generative_matches_jax(scene, tmp_path, batch_size, kv):
     """2 scenes x 2 questions with both scene caches on: the jsonl equals
     the JAX engine's record for record."""
     infos = scene[0]
@@ -144,7 +154,7 @@ def test_int8_run_generative_matches_jax(scene, tmp_path, batch_size):
             q = _question(infos[si], f"question {i} about it", i)
             q["id"] = f"s{si}_q{i}_0"
             qs.append(q)
-    kw = dict(prefix_cache_scenes=4, scene_cache_scenes=2)
+    kw = dict(prefix_cache_scenes=4, scene_cache_scenes=2, kv_cache_dtype=kv)
     jeng = _jax_engine(scene, **kw)
     jdrv.run_generative(jeng, qs, str(tmp_path / "jax.jsonl"),
                         batch_size=batch_size)
@@ -164,8 +174,10 @@ def test_kv_cache_dtype_choices(scene):
     assert tdrv.EngineConfig().cache_dtype() == torch.bfloat16
     assert tdrv.EngineConfig(kv_cache_dtype="int8").cache_dtype() == \
         torch.int8
-    with pytest.raises(NotImplementedError, match="int4"):
-        _torch_engine(scene, kv_cache_dtype="int4")
+    assert tdrv.EngineConfig(kv_cache_dtype="int4").cache_dtype() == \
+        tqwen.KV_INT4
+    assert _torch_engine(scene, kv_cache_dtype="int4").cache_dtype == \
+        tqwen.KV_INT4
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         tdrv.EngineConfig(kv_cache_dtype="fp8").cache_dtype()
 

@@ -5,7 +5,9 @@ tables whose live pages outnumber the pool), the pool writes
 (``append_layer_kv``, ``transplant_dense``, ``scatter_shared_prefix``,
 ``write_prefill``) bit for bit, ``PageAllocator``, the paged
 ``decoder_layer`` branch, and ``qwen2_forward`` over a paged cache against
-the dense decode of the same tokens."""
+the dense decode of the same tokens; each over bf16 (or f32), int8 and int4
+pools (JAX's ``jnp.int4`` pools against the port's packed uint8 ones, read
+back unpacked)."""
 
 import numpy as np
 import pytest
@@ -32,25 +34,41 @@ CFG = LLMConfig.tiny()
 TCFG = port_config(CFG)
 H, KV, HD = 4, 2, 128
 PAGE, MAXP = 16, 4
+FORMS = ["bf16", "int8", "int4"]
+QMAX = {"int8": 127.0, "int4": 7.0}
+#: cache dtypes of JAX and of the port per form
+DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16),
+          "int8": (jnp.int8, torch.int8),
+          "int4": (jnp.int4, tqwen.KV_INT4)}
 
 
 def t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _pools(rng, NL, P, int8):
-    """Stacked flat (NL, P, page, KV*hd) pools: f32, or int8 with
-    (NL, P, KV, 1, page) f32 scales."""
+def _port(a, form):
+    """Pool values for the port: int4 packed two per uint8 byte."""
+    return tqwen.pack_kv_int4(t(a)) if form == "int4" else t(a)
+
+
+def _jax(a, form):
+    return jnp.asarray(a, jnp.int4) if form == "int4" else jnp.asarray(a)
+
+
+def _pools(rng, NL, P, form):
+    """Stacked flat (NL, P, page, KV*hd) pools: f32, or int8 / int4 values
+    (as int8) with (NL, P, KV, 1, page) f32 scales."""
     shape = (NL, P, PAGE, KV, HD)
     k = rng.standard_normal(shape).astype(np.float32)
     v = rng.standard_normal(shape).astype(np.float32)
-    if not int8:
+    if form == "bf16":
         return k.reshape(NL, P, PAGE, KV * HD), \
             v.reshape(NL, P, PAGE, KV * HD), None, None
+    qmax = QMAX[form]
     out = []
     for x in (k, v):
-        s = np.abs(x).max(axis=-1, keepdims=True) / 127.0 + 1e-8
-        q = np.clip(np.round(x / s), -127, 127).astype(np.int8)
+        s = np.abs(x).max(axis=-1, keepdims=True) / qmax + 1e-8
+        q = np.clip(np.round(x / s), -qmax, qmax).astype(np.int8)
         out.append((q.reshape(NL, P, PAGE, KV * HD),
                     s.transpose(0, 1, 3, 4, 2).astype(np.float32)))
     return out[0][0], out[1][0], out[0][1], out[1][1]
@@ -74,38 +92,39 @@ def _tables(rng, case, B):
     return table.astype(np.int32), np.asarray(lens, np.int32), P
 
 
-@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("case", ["shuffled", "aliased"])
-def test_paged_plain_matches_jax_kernel_and_oracle(case, int8):
+def test_paged_plain_matches_jax_kernel_and_oracle(case, form):
     """Layer 1 of stacked pools. f32 pools: the plain version equals the
-    Pallas kernel in interpret mode and the oracle within 1e-5. int8 pools:
-    it equals the f32 oracle within 1e-5 relative; the Pallas kernel's int8
-    form rounds the query block and p to bf16 before its dots
-    (paged_attention.py:84-90), so against it the bound is bf16's."""
+    Pallas kernel in interpret mode and the oracle within 1e-5. int8 and
+    int4 pools: it equals the f32 oracle within 1e-5 relative; the Pallas
+    kernel's quantized form rounds the query block and p to bf16 before
+    its dots (paged_attention.py:84-90), so against it the bound is
+    bf16's."""
     rng = np.random.default_rng(3)
     B, NL, layer = 4, 2, 1
     table, lens, P = _tables(rng, case, B)
-    k, v, ks, vs = _pools(rng, NL, P, int8)
+    k, v, ks, vs = _pools(rng, NL, P, form)
     q = rng.standard_normal((B, 1, H, HD)).astype(np.float32)
     before = dict(_build.LAUNCHES)
     got = tpa.paged_decode_attention(
-        t(q), t(k), t(v), t(table), t(lens), layer, KV,
+        t(q), _port(k, form), _port(v, form), t(table), t(lens), layer, KV,
         None if ks is None else t(ks), None if vs is None else t(vs)).numpy()
     assert _build.LAUNCHES == before
     jscale = {} if ks is None else dict(k_scale=jnp.asarray(ks),
                                         v_scale=jnp.asarray(vs))
     kern = np.asarray(jpa.paged_decode_attention(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(table),
+        jnp.asarray(q), _jax(k, form), _jax(v, form), jnp.asarray(table),
         jnp.asarray(lens), layer=layer, kv_heads=KV, interpret=True,
         **jscale))
     lscale = {} if ks is None else dict(k_scale=jnp.asarray(ks[layer]),
                                         v_scale=jnp.asarray(vs[layer]))
     oracle = np.asarray(jpa.paged_attention_reference(
-        jnp.asarray(q), jnp.asarray(k[layer]), jnp.asarray(v[layer]),
+        jnp.asarray(q), _jax(k[layer], form), _jax(v[layer], form),
         jnp.asarray(table), jnp.asarray(lens), kv_heads=KV, **lscale))
     live = lens > 0
     assert np.all(got[~live] == 0) and np.all(kern[~live] == 0)
-    if int8:
+    if form != "bf16":
         np.testing.assert_allclose(got[live], oracle[live], rtol=1e-5,
                                    atol=1e-6)
         np.testing.assert_allclose(got, kern, rtol=2e-2, atol=2e-2)
@@ -121,7 +140,7 @@ def test_paged_plain_masks_stale_pages():
     the same."""
     rng = np.random.default_rng(4)
     table, lens, P = _tables(rng, "shuffled", 4)
-    k, v, _, _ = _pools(rng, 1, P, False)
+    k, v, _, _ = _pools(rng, 1, P, "bf16")
     q = t(rng.standard_normal((4, 1, H, HD)).astype(np.float32))
     got = tpa.paged_attention_plain(q, t(k), t(v), t(table), t(lens), 0, KV)
     k2, v2 = k.copy(), v.copy()
@@ -137,10 +156,22 @@ def test_paged_plain_masks_stale_pages():
     assert torch.equal(got, again)
 
 
-def _caches(int8, P=9, S=3, maxp=4):
-    dt = (jnp.int8, torch.int8) if int8 else (jnp.bfloat16, torch.bfloat16)
-    return (jpk.PagedKVCache.zeros(CFG, P, PAGE, S, maxp, dtype=dt[0]),
-            tpk.PagedKVCache.zeros(TCFG, P, PAGE, S, maxp, dtype=dt[1]))
+def _caches(form, P=9, S=3, maxp=4):
+    jdt, tdt = DTYPES[form]
+    return (jpk.PagedKVCache.zeros(CFG, P, PAGE, S, maxp, dtype=jdt),
+            tpk.PagedKVCache.zeros(TCFG, P, PAGE, S, maxp, dtype=tdt))
+
+
+def _np(a) -> np.ndarray:
+    """A JAX array or a port tensor as numpy: bf16 as f32, JAX int4 and the
+    port's packed int4 as int8 values."""
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.uint8:
+            a = tqwen.unpack_kv_int4(a)
+        return (a.float() if a.dtype == torch.bfloat16 else a).numpy()
+    if a.dtype in (jnp.bfloat16, jnp.int4):
+        a = a.astype(jnp.float32 if a.dtype == jnp.bfloat16 else jnp.int8)
+    return np.asarray(a)
 
 
 def _same(jcache, tcache):
@@ -149,55 +180,50 @@ def _same(jcache, tcache):
         if want is None:
             assert got is None, name
             continue
-        want = np.asarray(want.astype(jnp.float32) if want.dtype ==
-                          jnp.bfloat16 else want)
-        np.testing.assert_array_equal(got.float().numpy()
-                                      if got.dtype == torch.bfloat16
-                                      else got.numpy(), want, err_msg=name)
+        np.testing.assert_array_equal(_np(got), _np(want), err_msg=name)
 
 
-def _values(rng, shape, int8):
-    """+-32 integers for int8 caches (their scales, max / 127, and the
-    quantized values are then the same in both frameworks), bf16-exact
+def _values(rng, shape, form):
+    """+-32 integers for quantized caches (their scales, max / qmax, and
+    the quantized values are then the same in both frameworks), bf16-exact
     normals otherwise."""
-    if int8:
+    if form != "bf16":
         return rng.integers(-32, 33, shape).astype(np.float32)
     return np.asarray(jnp.asarray(rng.standard_normal(shape), jnp.bfloat16)
                       .astype(jnp.float32))
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_pool_writes_bit_identical_to_jax(int8):
+@pytest.mark.parametrize("form", FORMS)
+def test_pool_writes_bit_identical_to_jax(form):
     """write_prefill, transplant_dense (with and without skip_pages),
     scatter_shared_prefix, append_positions + append_layer_kv with a dead
-    slot and advance_lens: pools, scales, tables and lengths equal JAX's
-    bit for bit."""
+    slot and advance_lens: pools (int4 read back unpacked), scales, tables
+    and lengths equal JAX's bit for bit; the int4 copies carry the packed
+    bytes verbatim."""
     rng = np.random.default_rng(6)
     NL, C = CFG.num_hidden_layers, CFG.num_key_value_heads * CFG.head_dim
     KVc, hd = CFG.num_key_value_heads, CFG.head_dim
-    jc, tc = _caches(int8)
+    jc, tc = _caches(form)
     # slot 0: a two-page prefill written layer by layer
     jc = jpk.set_slot_pages(jc, 0, [5, 2])
     tpk.set_slot_pages(tc, 0, [5, 2])
     for layer in range(NL):
-        kseq = _values(rng, (2 * PAGE, KVc, hd), int8)
-        vseq = _values(rng, (2 * PAGE, KVc, hd), int8)
+        kseq = _values(rng, (2 * PAGE, KVc, hd), form)
+        vseq = _values(rng, (2 * PAGE, KVc, hd), form)
         jc = jpk.write_prefill(jc, layer, jnp.asarray(kseq),
                                jnp.asarray(vseq), 0)
         tpk.write_prefill(tc, layer, t(kseq), t(vseq), 0)
     _same(jc, tc)
     # a B=1 dense cache of 3 pages, and a scene prefix of 2 full pages
-    jd = jqwen.KVCache.zeros(CFG, 1, 3 * PAGE,
-                             dtype=jnp.int8 if int8 else jnp.bfloat16)
-    td = tqwen.KVCache.zeros(TCFG, 1, 3 * PAGE,
-                             dtype=torch.int8 if int8 else torch.bfloat16)
+    jd = jqwen.KVCache.zeros(CFG, 1, 3 * PAGE, dtype=DTYPES[form][0])
+    td = tqwen.KVCache.zeros(TCFG, 1, 3 * PAGE, dtype=DTYPES[form][1])
     for layer in range(NL):
-        x = _values(rng, (1, 3 * PAGE, KVc, hd), int8)
-        y = _values(rng, (1, 3 * PAGE, KVc, hd), int8)
+        x = _values(rng, (1, 3 * PAGE, KVc, hd), form)
+        y = _values(rng, (1, 3 * PAGE, KVc, hd), form)
         jk, jv = jnp.asarray(x), jnp.asarray(y)
-        if int8:
-            kq, kscale = jqwen._quantize_kv(jk, jnp.int8)
-            vq, vscale = jqwen._quantize_kv(jv, jnp.int8)
+        if form != "bf16":
+            kq, kscale = jqwen._quantize_kv(jk, DTYPES[form][0])
+            vq, vscale = jqwen._quantize_kv(jv, DTYPES[form][0])
             jd = jqwen.KVCache(
                 jd.k.at[layer].set(kq.reshape(1, -1, C)),
                 jd.v.at[layer].set(vq.reshape(1, -1, C)),
@@ -209,9 +235,8 @@ def test_pool_writes_bit_identical_to_jax(int8):
                 jd.v.at[layer].set(jv.reshape(1, -1, C).astype(jnp.bfloat16)))
     for dst, src in zip(td, jd):
         if dst is not None:
-            src = np.asarray(src.astype(jnp.float32) if src.dtype ==
-                             jnp.bfloat16 else src)
-            dst.copy_(t(src))
+            dst.copy_(_port(_np(src), form) if dst.dtype == torch.uint8
+                      else t(_np(src)))
     row = np.asarray([7, 1, 3, 0], np.int32)
     jc = jpk.transplant_dense(jc, jd, 1, jnp.asarray(row), 3, 40)
     tpk.transplant_dense(tc, td, 1, t(row), 3, 40)
@@ -230,8 +255,8 @@ def test_pool_writes_bit_identical_to_jax(int8):
     np.testing.assert_array_equal(tpids.numpy(), np.asarray(jpids))
     np.testing.assert_array_equal(toff.numpy(), np.asarray(joff))
     for layer in range(NL):
-        kn = _values(rng, (3, KVc, hd), int8)
-        vn = _values(rng, (3, KVc, hd), int8)
+        kn = _values(rng, (3, KVc, hd), form)
+        vn = _values(rng, (3, KVc, hd), form)
         pools = jpk.append_layer_kv(
             (jc.k, jc.v, jc.k_scale, jc.v_scale), jnp.asarray(kn),
             jnp.asarray(vn), jpids, joff, layer=layer)
@@ -261,14 +286,25 @@ def test_page_allocator_matches_jax():
     assert tpk.pages_needed(33, 16) == jpk.pages_needed(33, 16) == 3
 
 
-def test_int4_pools_raise():
-    with pytest.raises(NotImplementedError, match="int4"):
-        tpk._quantize_kv(torch.zeros(2, 16), dtype=torch.int4)
-    with pytest.raises(NotImplementedError, match="int4"):
-        tpk.PagedKVCache.zeros(TCFG, 4, PAGE, 2, 2, dtype=torch.int4)
+def test_int4_pools_shapes_and_dtypes():
+    """PagedKVCache.zeros(KV_INT4): uint8 pools of half JAX's int4 row
+    width, f32 (layers, P, KV, 1, page) scale pools, the table and lengths
+    as JAX's; a dtype the pools do not take raises."""
+    jc, tc = _caches("int4", P=4, S=2, maxp=2)
+    for name in ("k", "v"):
+        got, want = getattr(tc, name), getattr(jc, name)
+        assert got.dtype == torch.uint8 and want.dtype == jnp.int4
+        assert tuple(got.shape) == want.shape[:-1] + (want.shape[-1] // 2,)
+    for name in ("k_scale", "v_scale", "page_table", "lens"):
+        got, want = getattr(tc, name), getattr(jc, name)
+        assert tuple(got.shape) == want.shape
+        assert str(got.dtype).split(".")[-1] == str(want.dtype)
+    assert tc.page_size == PAGE and tc.num_pages == 4
+    with pytest.raises(ValueError, match="paged cache"):
+        tpk.PagedKVCache.zeros(TCFG, 4, PAGE, 2, 2, dtype=torch.int16)
 
 
-def _paged_layer_case(int8):
+def _paged_layer_case(form):
     """JAX and port ``decoder_layer`` (layer 1, one token per slot) over
     the same stacked pools with a dead slot: +-32 inputs at rotary angle 0
     keep K/V bit-identical across the frameworks."""
@@ -276,7 +312,7 @@ def _paged_layer_case(int8):
     jp = jqwen.init_qwen2(jax.random.PRNGKey(5), CFG)
     tl = _convert(jax.tree.map(np.asarray, jp["layers"][layer]), "cpu", None)
     rng = np.random.default_rng(8)
-    jc, tc = _caches(int8, P=P, S=S)
+    jc, tc = _caches(form, P=P, S=S)
     for slot, (pages, n) in enumerate((([3, 1], 20), ([2, 4], 9),
                                        ([5, 6, 7], 40))):
         jc = jpk.set_slot_pages(jc, slot, pages)
@@ -285,9 +321,9 @@ def _paged_layer_case(int8):
         tc.lens[slot] = n
     for layer_i in range(CFG.num_hidden_layers):
         for name in ("k", "v"):
-            x = _values(rng, (P, PAGE, KV, CFG.head_dim), int8)
-            if int8:
-                q, s = jpk._quantize_kv(jnp.asarray(x), jnp.int8)
+            x = _values(rng, (P, PAGE, KV, CFG.head_dim), form)
+            if form != "bf16":
+                q, s = jpk._quantize_kv(jnp.asarray(x), DTYPES[form][0])
                 jc = jc._replace(**{
                     name: getattr(jc, name).at[layer_i].set(
                         q.reshape(P, PAGE, -1)),
@@ -297,11 +333,11 @@ def _paged_layer_case(int8):
                 jc = jc._replace(**{name: getattr(jc, name).at[layer_i].set(
                     jnp.asarray(x.reshape(P, PAGE, -1), jnp.bfloat16))})
     for name in ("k", "v", "k_scale", "v_scale"):
-        if getattr(tc, name) is not None:
-            src = getattr(jc, name)
-            src = np.asarray(src.astype(jnp.float32) if src.dtype ==
-                             jnp.bfloat16 else src)
-            getattr(tc, name).copy_(t(src))
+        dst = getattr(tc, name)
+        if dst is not None:
+            src = _np(getattr(jc, name))
+            dst.copy_(_port(src, form) if dst.dtype == torch.uint8
+                      else t(src))
     active = np.asarray([True, False, True])
     x = rng.choice([-32.0, 32.0], size=(S, 1, CFG.hidden_size)).astype(
         np.float32)
@@ -321,39 +357,36 @@ def _paged_layer_case(int8):
     return np.asarray(jout), jpools, tout.numpy(), tc, active
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_decoder_layer_paged_matches_jax(int8):
-    """The single-token paged branch: the token's K/V (and int8 scales)
-    land in the stacked pools bit for bit as in JAX, and the layer output
-    of the live slots agrees within 1e-4 (the bf16 pools' rounding is the
-    same in both; the attention reads them in f32)."""
-    jout, jpools, tout, tc, active = _paged_layer_case(int8)
+@pytest.mark.parametrize("form", FORMS)
+def test_decoder_layer_paged_matches_jax(form):
+    """The single-token paged branch: the token's K/V (and int8 / int4
+    scales) land in the stacked pools bit for bit as in JAX (int4 read back
+    unpacked), and the layer output of the live slots agrees within 1e-4
+    (the pools' rounding is the same in both; the attention reads them in
+    f32)."""
+    jout, jpools, tout, tc, active = _paged_layer_case(form)
     np.testing.assert_allclose(tout[active], jout[active], rtol=0,
                                atol=1e-4)
     for got, want in zip((tc.k, tc.v, tc.k_scale, tc.v_scale), jpools):
         if want is None:
             assert got is None
             continue
-        want = np.asarray(want.astype(jnp.float32) if want.dtype ==
-                          jnp.bfloat16 else want)
-        np.testing.assert_array_equal(
-            got.float().numpy() if got.dtype == torch.bfloat16
-            else got.numpy(), want)
+        np.testing.assert_array_equal(_np(got), _np(want))
 
 
 def test_paged_multi_token_raises():
     """A multi-token paged block (the speculative verify) raises."""
     params = _convert(jax.tree.map(np.asarray, jqwen.init_qwen2(
         jax.random.PRNGKey(2), CFG)), "cpu", None)
-    _, tc = _caches(False)
+    _, tc = _caches("bf16")
     x = torch.zeros(3, 2, CFG.hidden_size)
     pos3 = torch.zeros(3, 2, 3, dtype=torch.long)
     with pytest.raises(NotImplementedError, match="A8"):
         tqwen.qwen2_forward(params, TCFG, x, pos3, paged_cache=tc)
 
 
-@pytest.mark.parametrize("int8", [False, True])
-def test_forward_paged_matches_dense_decode(int8):
+@pytest.mark.parametrize("form", FORMS)
+def test_forward_paged_matches_dense_decode(form):
     """Three slots prefilled into a dense cache, their rows transplanted
     into shuffled pool pages, then three decode steps of the same tokens
     through ``qwen2_forward`` over the dense cache and over the pools (slot
@@ -365,7 +398,7 @@ def test_forward_paged_matches_dense_decode(int8):
         jax.random.PRNGKey(2), CFG)), "cpu", None)
     S, L0, steps = 3, 20, 3
     D = CFG.hidden_size
-    dt = torch.int8 if int8 else torch.bfloat16
+    dt = DTYPES[form][1]
     dense = tqwen.KVCache.zeros(TCFG, S, L0 + steps + 9, dtype=dt)
     lens0 = torch.tensor([20, 13, 7])
     x0 = t(rng.standard_normal((S, L0, D)).astype(np.float32))

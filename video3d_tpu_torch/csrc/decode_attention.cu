@@ -3,9 +3,10 @@
 //
 // Replaces: video3d_tpu/kernels/decode_attention.py::_decode_kernel_blockdiag
 // (entry decode_attention with kv_heads given: the stacked
-// (layers, B, S, KV*hd) cache addressed at `layer`), in two forms: a bf16
-// cache, and an int8 cache with per-position, per-kv-head f32 scales
-// (quantized=True; stacked scales (layers, B, S, KV, 1)).
+// (layers, B, S, KV*hd) cache addressed at `layer`), in three forms: a
+// bf16 cache, and an int8 or an int4 cache with per-position, per-kv-head
+// f32 scales (quantized=True; stacked scales (layers, B, S, KV, 1)); the
+// int4 cache is packed two channels per byte, (layers, B, S, KV*hd / 2).
 //
 // What bounds it on an H100: HBM. One step of one layer streams
 // 2 * kv_len * KV * hd * 2 bytes of K and V (17.8 MB at kv_len 8704, KV 4,
@@ -31,6 +32,10 @@
 // after the dot, the chunk's sum is taken over the unscaled weights p, and
 // p is multiplied by its value's scale before P V. The scales of `layer`
 // are read by strides out of the stacked arrays.
+// int4 form: a third instantiation, on the tag type v3d_nib4 (one byte, two
+// channels; element offsets are halved into bytes). A lane's 8 key values
+// are one 4-byte word, unpacked exactly to bf16 and f32 by B8's nibble
+// splice (common.cuh); the arithmetic is the int8 form's.
 #include <type_traits>
 
 #include "common.cuh"
@@ -56,6 +61,9 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   v3d_int8x4_to_float(u.x, f);
   v3d_int8x4_to_float(u.y, f + 4);
 }
+__device__ __forceinline__ void load8(const v3d_nib4* p, float* f) {
+  v3d_int4x8_to_float(__ldg(reinterpret_cast<const unsigned*>(p)), f);
+}
 // 2 consecutive cache values -> f32
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
@@ -64,11 +72,16 @@ __device__ __forceinline__ float2 load2(const int8_t* p) {
   const char2 c = __ldg(reinterpret_cast<const char2*>(p));
   return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
 }
+__device__ __forceinline__ float2 load2(const v3d_nib4* p) {
+  float f[8];
+  v3d_int4x8_to_float(__ldg(reinterpret_cast<const unsigned char*>(p)), f);
+  return make_float2(f[0], f[1]);
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
-                      const T* __restrict__ k_all,      // (NL, B, S, KV*hd)
+                      const T* __restrict__ k_all,      // (NL, B, S, KV*hd / kPer)
                       const T* __restrict__ v_all,
                       const float* __restrict__ k_scale,  // (NL, B, S, KV) or
                       const float* __restrict__ v_scale,  // null (bf16)
@@ -78,7 +91,8 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
                       float* __restrict__ part_acc,     // (B, H, NC, hd)
                       int layer, int B, int S, int H, int KV, int NC,
                       float sm_scale) {
-  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  constexpr bool kQuant = !std::is_same<T, bf16>::value;
+  constexpr int kPer = v3d_per_element<T>();   // cache values per T
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = min(kv_len[b], S);
   const int start = c * kChunk;
@@ -100,8 +114,8 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long row_stride = (long long)KV * kHd;
-  const long long cache_off = (((long long)layer * B + b) * S + start) * row_stride + kvh * kHd;
+  const long long row_stride = (long long)KV * kHd / kPer;
+  const long long cache_off = (((long long)layer * B + b) * S + start) * row_stride + kvh * kHd / kPer;
   // scale of chunk position i: scale_off + i * KV
   const long long scale_off = (((long long)layer * B + b) * S + start) * KV + kvh;
 
@@ -113,11 +127,11 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
     for (int g = 0; g < kMaxG; ++g)
 #pragma unroll
       for (int i = 0; i < 8; ++i) qreg[g][i] = g < G ? qs[g][sub * 8 + i] : 0.f;
-    const T* kbase = k_all + cache_off + sub * 8;
+    const T* kbase = k_all + cache_off + sub * 8 / kPer;
     for (int base = warp * 2; base < n; base += 2 * kWarps) {
       const int pos = base + half;
       float kf[8];
-      float ks = 1.f;   // the key's scale (int8), loaded beside its values
+      float ks = 1.f;   // the key's scale (quantized), loaded beside its values
       if (pos < n) {
         load8(kbase + pos * row_stride, kf);
         if constexpr (kQuant) ks = __ldg(k_scale + scale_off + (long long)pos * KV);
@@ -171,7 +185,7 @@ decode_partial_kernel(const bf16* __restrict__ q,       // (B, 1, H, hd)
     float acc[kMaxG][2];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
-    const T* vbase = v_all + cache_off + 2 * dp;
+    const T* vbase = v_all + cache_off + 2 * dp / kPer;
     for (int pos = grp; pos < n; pos += kPosGroups) {
       const float2 vv = load2(vbase + pos * row_stride);
 #pragma unroll
@@ -275,4 +289,14 @@ extern "C" int v3d_decode_attention_int8(
   return launch<int8_t>(q, k_all, v_all, k_scale, v_scale, kv_len, out,
                         part_m, part_l, part_acc, layer, B, S, H, KV,
                         n_chunks, sm_scale, stream);
+}
+
+extern "C" int v3d_decode_attention_int4(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* kv_len, void* out, void* part_m,
+    void* part_l, void* part_acc, int layer, int B, int S, int H, int KV,
+    int n_chunks, float sm_scale, void* stream) {
+  return launch<v3d_nib4>(q, k_all, v_all, k_scale, v_scale, kv_len, out,
+                          part_m, part_l, part_acc, layer, B, S, H, KV,
+                          n_chunks, sm_scale, stream);
 }

@@ -5,9 +5,11 @@
 //      _fwd_call (L == S, query offset 0, causal or not);
 //   2. GQA-folded cached-chunk form, reached from flash_attention_gqa_folded
 //      (pos_div = group, per-row query offsets, keys from one layer of the
-//      stacked flat (layers, B, S, KV*hd) cache), over a bf16 cache or an
-//      int8 one with per-position, per-kv-head f32 scales (quantized=True,
-//      scales :813-815; stacked scales (layers, B, S, KV, 1));
+//      stacked flat (layers, B, S, KV*hd) cache), over a bf16 cache, or an
+//      int8 or an int4 one with per-position, per-kv-head f32 scales
+//      (quantized=True, scales :813-815; stacked scales (layers, B, S, KV,
+//      1)); the int4 cache packed two channels per byte, (layers, B, S,
+//      KV*hd / 2);
 // the prefill form also in a training instantiation (kLse) that writes the
 // per-row logsumexp (:141-143) for the backward kernels B6
 // (flash_attention_bwd.cu); the inference instantiation writes none and is
@@ -36,6 +38,9 @@
 //   int8 cache (one template on the element type) halves the stream; its
 //   tiles are converted to bf16 while staged and the scales of `layer` are
 //   read by strides (flash_tile.cuh, stage_kv_int8 / attend_tile<true>).
+//   An int4 cache (the tag type v3d_nib4: byte offsets are half the element
+//   offsets) quarters it and is staged by stage_kv_int4 into the same bf16
+//   tile.
 // Simple first: no cp.async / TMA pipelining and no wgmma yet.
 #include <type_traits>
 
@@ -142,6 +147,11 @@ flash_folded_kernel(const bf16* __restrict__ q,       // (B, L, H, hd)
       stage_kv_int8(t, k_all + cache_off, v_all + cache_off, stride,
                     k_scale + scale_off, v_scale + scale_off, KV, k0, S);
       attend_tile<true>(t, qf, st, k0, sm_scale, ok);
+    } else if constexpr (std::is_same<T, v3d_nib4>::value) {
+      stage_kv_int4(t, k_all + cache_off / 2, v_all + cache_off / 2,
+                    stride / 2, k_scale + scale_off, v_scale + scale_off, KV,
+                    k0, S);
+      attend_tile<true>(t, qf, st, k0, sm_scale, ok);
     } else {
       stage_kv(t, k_all + cache_off, v_all + cache_off, stride, k0, S);
       attend_tile(t, qf, st, k0, sm_scale, ok);
@@ -244,4 +254,14 @@ extern "C" int v3d_flash_attention_folded_int8(
   return launch_folded<int8_t>(q, k_all, v_all, k_scale, v_scale, lengths,
                                q_off, out, layer, B, L, S, H, KV, sm_scale,
                                stream);
+}
+
+extern "C" int v3d_flash_attention_folded_int4(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* lengths, const void* q_off, void* out,
+    int layer, int B, int L, int S, int H, int KV, float sm_scale,
+    void* stream) {
+  return launch_folded<v3d_nib4>(q, k_all, v_all, k_scale, v_scale, lengths,
+                                 q_off, out, layer, B, L, S, H, KV, sm_scale,
+                                 stream);
 }

@@ -17,7 +17,10 @@
 //
 // int8 keys and values (the int8 forms of B2 folded and B5): stage_kv_int8
 // converts a tile to bf16 while staging it (exact for |x| <= 127) and puts
-// its 64 key and 64 value scales where the Q tile was: Q is read only into
+// its 64 key and 64 value scales where the Q tile was; stage_kv_int4 does
+// the same for int4 keys and values packed two channels per byte (the int4
+// forms), each 4-byte word unpacked to 8 exact bf16 values by B8's nibble
+// splice (common.cuh), into the same bf16 tile. Q is read only into
 // registers (load_q_frags) before the first key tile, so the shared-memory
 // budget stays kSmemBytes. attend_tile<true> then scales a score by its
 // key's scale after sm_scale, sums l over the unscaled p, and scales p by
@@ -159,14 +162,44 @@ __device__ __forceinline__ void load_tile_int8(bf16* dst, const int8_t* src,
   }
 }
 
+// rows [r0, r0 + 64) of a (nrows, row_stride bytes) int4 matrix, packed
+// two channels per byte -> shared bf16 tile, zero rows past nrows
+__device__ __forceinline__ void load_tile_int4(bf16* dst, const v3d_nib4* src,
+                                               long long row_stride, int r0,
+                                               int nrows) {
+  for (int c = threadIdx.x; c < kBk * (kHd / 8); c += kThreads) {
+    const int r = c / (kHd / 8), col = (c % (kHd / 8)) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (r0 + r < nrows) {
+      const unsigned w = *reinterpret_cast<const unsigned*>(
+          src + (long long)(r0 + r) * row_stride + col / 2);
+      v3d_nibble_pairs(w, reinterpret_cast<unsigned*>(&val));
+    }
+    *reinterpret_cast<uint4*>(dst + r * kLdq + col) = val;
+  }
+}
+
 // the key scales (64 floats) and then the value scales of the staged tile,
 // in the Q tile's space
 __device__ __forceinline__ float* tile_scales(const Tiles& t) {
   return reinterpret_cast<float*>(t.q);
 }
 
-// stage_kv for an int8 K and V with per-key scales ks[key * sstride] and
-// vs[key * sstride] (zero past nkeys, where the mask drops the key anyway)
+// the per-key scales ks[key * sstride] and vs[key * sstride] of the tile
+// being staged (zero past nkeys, where the mask drops the key anyway)
+__device__ __forceinline__ void stage_scales(const Tiles& t, const float* ks,
+                                             const float* vs,
+                                             long long sstride, int k0,
+                                             int nkeys) {
+  float* sc = tile_scales(t);
+  for (int i = threadIdx.x; i < 2 * kBk; i += kThreads) {
+    const int key = k0 + i % kBk;
+    const float* src = i < kBk ? ks : vs;
+    sc[i] = key < nkeys ? src[(long long)key * sstride] : 0.f;
+  }
+}
+
+// stage_kv for an int8 K and V with per-key scales ks and vs
 __device__ __forceinline__ void stage_kv_int8(const Tiles& t, const int8_t* k,
                                               const int8_t* v,
                                               long long stride,
@@ -177,18 +210,30 @@ __device__ __forceinline__ void stage_kv_int8(const Tiles& t, const int8_t* k,
   __syncthreads();                       // every warp is done with K/V
   load_tile_int8(t.k, k, stride, k0, nkeys);
   load_tile_int8(t.v, v, stride, k0, nkeys);
-  float* sc = tile_scales(t);
-  for (int i = threadIdx.x; i < 2 * kBk; i += kThreads) {
-    const int key = k0 + i % kBk;
-    const float* src = i < kBk ? ks : vs;
-    sc[i] = key < nkeys ? src[(long long)key * sstride] : 0.f;
-  }
+  stage_scales(t, ks, vs, sstride, k0, nkeys);
+  __syncthreads();
+}
+
+// stage_kv for an int4 K and V (rows of `stride` bytes) with per-key
+// scales ks and vs
+__device__ __forceinline__ void stage_kv_int4(const Tiles& t,
+                                              const v3d_nib4* k,
+                                              const v3d_nib4* v,
+                                              long long stride,
+                                              const float* ks,
+                                              const float* vs,
+                                              long long sstride, int k0,
+                                              int nkeys) {
+  __syncthreads();                       // every warp is done with K/V
+  load_tile_int4(t.k, k, stride, k0, nkeys);
+  load_tile_int4(t.v, v, stride, k0, nkeys);
+  stage_scales(t, ks, vs, sstride, k0, nkeys);
   __syncthreads();
 }
 
 // One staged 64-key tile (keys k0 .. k0 + 63) of the online softmax.
 // ok(col) says whether this thread's row may attend key col. kQuant: the
-// tile was staged by stage_kv_int8 and its scales apply.
+// tile was staged by stage_kv_int8 or stage_kv_int4 and its scales apply.
 template <bool kQuant = false, class Ok>
 __device__ __forceinline__ void attend_tile(const Tiles& t, const QFrag* qf,
                                             RowState& st, int k0,

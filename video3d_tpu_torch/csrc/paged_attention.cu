@@ -3,9 +3,11 @@
 //
 // Replaces: video3d_tpu/kernels/paged_attention.py::_ragged_kernel (entry
 // paged_decode_attention with the stacked (layers, P, page, KV*hd) pools
-// addressed at `layer`), in two forms: bf16 pools, and int8 pools with
-// per-position, per-kv-head f32 scales (quantized=True; stacked scale pools
-// (layers, P, KV, 1, page), contiguous over a page's positions). Slot b
+// addressed at `layer`), in three forms: bf16 pools, and int8 or int4
+// pools with per-position, per-kv-head f32 scales (quantized=True; stacked
+// scale pools (layers, P, KV, 1, page), contiguous over a page's
+// positions); int4 pools are packed two channels per byte, (layers, P,
+// page, KV*hd / 2). Slot b
 // attends its first kv_len[b] positions; position s lives in pool page
 // table[b, s / page], row s % page.
 //
@@ -38,7 +40,9 @@
 // offsets come from the stacked pools' strides, so no per-layer copy is
 // made. int8 form: a score is multiplied by its key's scale after the dot,
 // the split's sum is taken over the unscaled weights p, and p is multiplied
-// by its value's scale before P V, as in the TPU kernel.
+// by its value's scale before P V, as in the TPU kernel. int4 form: B3's
+// (csrc/decode_attention.cu), per pool row: the tag type v3d_nib4 halves
+// the element offsets into bytes, and 8 key values are one 4-byte word.
 #include <type_traits>
 
 #include "common.cuh"
@@ -65,6 +69,9 @@ __device__ __forceinline__ void load8(const int8_t* p, float* f) {
   v3d_int8x4_to_float(u.x, f);
   v3d_int8x4_to_float(u.y, f + 4);
 }
+__device__ __forceinline__ void load8(const v3d_nib4* p, float* f) {
+  v3d_int4x8_to_float(__ldg(reinterpret_cast<const unsigned*>(p)), f);
+}
 // 2 consecutive pool values -> f32
 __device__ __forceinline__ float2 load2(const bf16* p) {
   return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
@@ -72,6 +79,11 @@ __device__ __forceinline__ float2 load2(const bf16* p) {
 __device__ __forceinline__ float2 load2(const int8_t* p) {
   const char2 c = __ldg(reinterpret_cast<const char2*>(p));
   return make_float2(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+__device__ __forceinline__ float2 load2(const v3d_nib4* p) {
+  float f[8];
+  v3d_int4x8_to_float(__ldg(reinterpret_cast<const unsigned char*>(p)), f);
+  return make_float2(f[0], f[1]);
 }
 
 template <typename T>
@@ -88,7 +100,8 @@ paged_partial_kernel(const bf16* __restrict__ q,         // (B, 1, H, hd)
                      float* __restrict__ part_acc,       // (B, H, NC, hd)
                      int layer, int P, int page, int maxp, int H, int KV,
                      int NC, float sm_scale) {
-  constexpr bool kQuant = std::is_same<T, int8_t>::value;
+  constexpr bool kQuant = !std::is_same<T, bf16>::value;
+  constexpr int kPer = v3d_per_element<T>();   // pool values per T
   const int c = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int len = min(kv_len[b], maxp * page);
   const int start = c * kChunk;
@@ -101,7 +114,7 @@ paged_partial_kernel(const bf16* __restrict__ q,         // (B, 1, H, hd)
   __shared__ float red[kPosGroups][kMaxG][kHd];
   __shared__ float ms[kMaxG], ls[kMaxG];
   // pool row of split position i, ((layer * P + pid) * page + s % page),
-  // and (int8) the index of its scale in the (NL, P, KV, 1, page) pools
+  // and (quantized) the index of its scale in the (NL, P, KV, 1, page) pools
   __shared__ long long rows[kChunk];
   __shared__ long long srows[kChunk];
 
@@ -121,7 +134,7 @@ paged_partial_kernel(const bf16* __restrict__ q,         // (B, 1, H, hd)
   __syncthreads();
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long row_stride = (long long)KV * kHd;
+  const long long row_stride = (long long)KV * kHd / kPer;
 
   // scores: half-warp per position, 8 dims per lane
   {
@@ -131,11 +144,11 @@ paged_partial_kernel(const bf16* __restrict__ q,         // (B, 1, H, hd)
     for (int g = 0; g < kMaxG; ++g)
 #pragma unroll
       for (int i = 0; i < 8; ++i) qreg[g][i] = g < G ? qs[g][sub * 8 + i] : 0.f;
-    const T* kbase = k_pages + kvh * kHd + sub * 8;
+    const T* kbase = k_pages + kvh * kHd / kPer + sub * 8 / kPer;
     for (int base = warp * 2; base < n; base += 2 * kWarps) {
       const int pos = base + half;
       float kf[8];
-      float ks = 1.f;   // the key's scale (int8), loaded beside its values
+      float ks = 1.f;   // the key's scale (quantized), loaded beside its values
       if (pos < n) {
         load8(kbase + rows[pos] * row_stride, kf);
         if constexpr (kQuant) ks = __ldg(k_scale + srows[pos]);
@@ -189,7 +202,7 @@ paged_partial_kernel(const bf16* __restrict__ q,         // (B, 1, H, hd)
     float acc[kMaxG][2];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) acc[g][0] = acc[g][1] = 0.f;
-    const T* vbase = v_pages + kvh * kHd + 2 * dp;
+    const T* vbase = v_pages + kvh * kHd / kPer + 2 * dp / kPer;
     for (int pos = grp; pos < n; pos += kPosGroups) {
       const float2 vv = load2(vbase + rows[pos] * row_stride);
 #pragma unroll
@@ -297,4 +310,15 @@ extern "C" int v3d_paged_attention_int8(
   return launch<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table, kv_len,
                         out, part_m, part_l, part_acc, layer, B, P, page,
                         maxp, H, KV, n_chunks, sm_scale, stream);
+}
+
+extern "C" int v3d_paged_attention_int4(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* kv_len, void* out, void* part_m, void* part_l,
+    void* part_acc, int layer, int B, int P, int page, int maxp, int H,
+    int KV, int n_chunks, float sm_scale, void* stream) {
+  return launch<v3d_nib4>(q, k_pages, v_pages, k_scale, v_scale, table,
+                          kv_len, out, part_m, part_l, part_acc, layer, B, P,
+                          page, maxp, H, KV, n_chunks, sm_scale, stream);
 }

@@ -2,8 +2,9 @@
 //
 // Replaces: video3d_tpu/kernels/flash_attention.py::_sp_fused_kernel (entry
 // flash_attention_shared_prefix -> _shared_prefix_fused), with a bf16
-// prefix or an int8 one with (P, KV, 1) f32 scales (quantized=True, scales
-// :879-881). Scene-grouped batched suffix prefill: the suffix queries of
+// prefix, or an int8 or an int4 one (packed two channels per byte, (P, KV,
+// hd / 2)) with (P, KV, 1) f32 scales (quantized=True, scales :879-881).
+// Scene-grouped batched suffix prefill: the suffix queries of
 // all B rows of a batch attend ONE scene prefix K/V (no batch dim), then
 // each row's own suffix K/V causally. The suffix K/V are always the
 // chunk's raw bf16 projections, never quantized.
@@ -36,7 +37,9 @@
 // causal mask already confines valid rows to cols <= r < suffix_lens[b].
 // An int8 prefix (one template on its element type) is staged as bf16 with
 // its scales and attended with attend_tile<true> (flash_tile.cuh); the
-// suffix tiles of the same pass take the bf16 path without scales.
+// suffix tiles of the same pass take the bf16 path without scales. An int4
+// prefix (the tag type v3d_nib4, byte offsets half the element offsets) is
+// staged through stage_kv_int4 into the same bf16 tile.
 #include <type_traits>
 
 #include "flash_tile.cuh"
@@ -48,7 +51,7 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 shared_prefix_kernel(const bf16* __restrict__ q,    // (B, L, H, hd)
-                     const T* __restrict__ pk,      // (P, KV, hd)
+                     const T* __restrict__ pk,      // (P, KV, hd), int4 hd / 2
                      const T* __restrict__ pv,
                      const float* __restrict__ pks,  // (P, KV) or null (bf16)
                      const float* __restrict__ pvs,
@@ -87,6 +90,10 @@ shared_prefix_kernel(const bf16* __restrict__ q,    // (B, L, H, hd)
     if constexpr (std::is_same<T, int8_t>::value) {
       stage_kv_int8(t, pk + kvh * kHd, pv + kvh * kHd, stride, pks + kvh,
                     pvs + kvh, KV, k0, P);
+      attend_tile<true>(t, qf, st, k0, sm_scale, in_prefix);
+    } else if constexpr (std::is_same<T, v3d_nib4>::value) {
+      stage_kv_int4(t, pk + kvh * kHd / 2, pv + kvh * kHd / 2, stride / 2,
+                    pks + kvh, pvs + kvh, KV, k0, P);
       attend_tile<true>(t, qf, st, k0, sm_scale, in_prefix);
     } else {
       stage_kv(t, pk + kvh * kHd, pv + kvh * kHd, stride, k0, P);
@@ -149,4 +156,12 @@ extern "C" int v3d_shared_prefix_attention_int8(
     int L, int P, int H, int KV, float sm_scale, void* stream) {
   return launch<int8_t>(q, pk, pv, pk_scale, pv_scale, sk, sv, out, B, L, P,
                         H, KV, sm_scale, stream);
+}
+
+extern "C" int v3d_shared_prefix_attention_int4(
+    const void* q, const void* pk, const void* pv, const void* pk_scale,
+    const void* pv_scale, const void* sk, const void* sv, void* out, int B,
+    int L, int P, int H, int KV, float sm_scale, void* stream) {
+  return launch<v3d_nib4>(q, pk, pv, pk_scale, pv_scale, sk, sv, out, B, L,
+                          P, H, KV, sm_scale, stream);
 }

@@ -33,8 +33,9 @@
 // of a B fragment register, so the TPU kernel's split of x into even and
 // odd rows (Mosaic rejects the interleave) is not needed. A nibble n
 // becomes bf16 128 + (n + 8) by splicing n ^ 8 under 0x43 and then 136 is
-// subtracted in bf16x2, both exact. The products of one scale group (512
-// inputs) accumulate in f32; at the group's end they are multiplied by
+// subtracted in bf16x2, both exact (v3d_nibble_pairs, common.cuh). The
+// products of one scale group (512 inputs) accumulate in f32; at the
+// group's end they are multiplied by
 // the group's f32 scale and added to the f32 total, as the TPU kernel
 // does. int8: each byte becomes an exact f32 (v3d_int8x4_to_float's
 // splice), whose upper half is its exact bf16; the per-column scale
@@ -65,28 +66,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// bf16x2 minus (136, 136), exact for the spliced nibbles
-__device__ __forceinline__ unsigned sub136(unsigned v) {
-  const unsigned k = 0x43084308u;
-  const __nv_bfloat162 r = __hsub2(
-      *reinterpret_cast<const __nv_bfloat162*>(&v),
-      *reinterpret_cast<const __nv_bfloat162*>(&k));
-  return *reinterpret_cast<const unsigned*>(&r);
-}
-
-// 4 packed int4 bytes -> per byte k the bf16 pair (low nibble, high
-// nibble): the B fragment register of n-tile k for this row pair
-__device__ __forceinline__ void nibble_pairs(unsigned w, unsigned* p) {
-  const unsigned l = (w & 0x0F0F0F0Fu) ^ 0x08080808u;          // n + 8
-  const unsigned h = ((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
-  const unsigned lo2 = __byte_perm(l, h, 0x5140);               // l0 h0 l1 h1
-  const unsigned hi2 = __byte_perm(l, h, 0x7362);               // l2 h2 l3 h3
-  p[0] = sub136(__byte_perm(lo2, 0x43434343u, 0x4140));
-  p[1] = sub136(__byte_perm(lo2, 0x43434343u, 0x4342));
-  p[2] = sub136(__byte_perm(hi2, 0x43434343u, 0x4140));
-  p[3] = sub136(__byte_perm(hi2, 0x43434343u, 0x4342));
 }
 
 // byte k of two int8 rows -> the bf16 pair (row a, row b), exact
@@ -172,10 +151,10 @@ stream_kernel(const bf16* __restrict__ x,        // (rows, in)
       if (s + u >= s_end) break;
       unsigned b0[kTiles], b1[kTiles];
       if constexpr (kInt4) {
-        nibble_pairs(wv[u][0].x, b0);
-        nibble_pairs(wv[u][0].y, b0 + 4);
-        nibble_pairs(wv[u][1].x, b1);
-        nibble_pairs(wv[u][1].y, b1 + 4);
+        v3d_nibble_pairs(wv[u][0].x, b0);
+        v3d_nibble_pairs(wv[u][0].y, b0 + 4);
+        v3d_nibble_pairs(wv[u][1].x, b1);
+        v3d_nibble_pairs(wv[u][1].y, b1 + 4);
       } else {
 #pragma unroll
         for (int j = 0; j < kTiles; ++j) {

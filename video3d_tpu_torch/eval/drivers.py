@@ -81,19 +81,21 @@ class EngineConfig:
     # LRU of N scenes' prefix KV (0 = off); device memory per scene:
     # prefix_len * layers * 2 * KV * hd * 2 bytes with a bf16 cache (~0.39
     # GB at 7B, 6.7k), with an int8 one prefix_len * layers * 2 * KV *
-    # (hd + 4) bytes (values and f32 scales, ~0.20 GB)
+    # (hd + 4) bytes (values and f32 scales, ~0.20 GB), with an int4 one
+    # prefix_len * layers * 2 * KV * (hd / 2 + 4) bytes (~0.10 GB)
     prefix_cache_scenes: int = 0
     # suffix prefill buckets of the prefix path
     suffix_buckets: Tuple[int, ...] = (64, 128, 256, 512)
-    # KV cache storage: "bfloat16", or "int8" (values plus f32 scales per
-    # token and kv head; halves the cache's bytes)
+    # KV cache storage: "bfloat16", "int8" (values plus f32 scales per
+    # token and kv head; halves the cache's bytes) or "int4" (values packed
+    # two per byte, the same scales; halves them again)
     kv_cache_dtype: str = "bfloat16"
 
-    def cache_dtype(self) -> torch.dtype:
-        if self.kv_cache_dtype == "int4":
-            raise NotImplementedError("an int4 KV cache is not ported "
-                                      "(ROADMAP A3, the int4 KV cache)")
-        dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8}
+    def cache_dtype(self):
+        """The cache form the models take: a torch dtype, or the int4 tag
+        ``qwen2.KV_INT4``."""
+        dtypes = {"bfloat16": torch.bfloat16, "int8": torch.int8,
+                  "int4": qwen2.KV_INT4}
         if self.kv_cache_dtype not in dtypes:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r}: "
                              f"expected one of {sorted(dtypes)}")

@@ -45,7 +45,11 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "flash_attention_bwd_dq": 0,
                             "flash_attention_bwd_dkv": 0,
                             "paged_attention": 0, "paged_attention_int8": 0,
-                            "int8_matmul": 0, "int4_matmul": 0}
+                            "int8_matmul": 0, "int4_matmul": 0,
+                            "decode_attention_int4": 0,
+                            "flash_attention_folded_int4": 0,
+                            "shared_prefix_attention_int4": 0,
+                            "paged_attention_int4": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -110,6 +114,10 @@ _SIGNATURES = {
     # stream
     "v3d_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
+# the int4-cache instantiations take the int8 ones' arguments
+_SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]
+                    for n in ("decode_attention", "flash_attention_folded",
+                              "shared_prefix_attention", "paged_attention")})
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()   # wrappers launch from several threads

@@ -14,7 +14,16 @@ from typing import Optional
 
 import torch
 
+from video3d_tpu_torch.kernels.quant_matvec import unpack_int4
+
 NEG_INF = -1e30
+
+
+def cache_values(t: torch.Tensor) -> torch.Tensor:
+    """A cache's stored values with one entry per channel: a packed int4
+    cache (uint8, two channels per byte along the last dim) unpacked to
+    int8 in [-7, 7]; any other cache as it is."""
+    return unpack_int4(t, dim=-1) if t.dtype == torch.uint8 else t
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -81,8 +90,9 @@ def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     on the GPU and :func:`mha_shared_prefix_reference` on the CPU.
 
     q (B, L, H, hd), query r of row b at absolute position P + r; pk/pv
-    (P, KV, hd) with no batch dim, bf16, or int8 with (P, KV, 1) f32 scales
-    ``pk_scale``/``pv_scale``; sk/sv (B, L, KV, hd) the chunk's own K/V, at
+    (P, KV, hd) with no batch dim, bf16, or int8 (or packed int4, (P, KV,
+    hd / 2) uint8) with (P, KV, 1) f32 scales ``pk_scale``/``pv_scale``;
+    sk/sv (B, L, KV, hd) the chunk's own K/V, at
     full precision whatever the prefix's type; suffix_lens (B,) valid suffix
     keys. Rows r >= suffix_lens[b] are undefined by contract.
     """
@@ -96,12 +106,13 @@ def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
 def mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens,
                                 pk_scale=None, pv_scale=None):
     """Oracle of :func:`mha_shared_prefix`: broadcast the prefix to every
-    row (an int8 prefix dequantized with its scales in q's dtype, as the JAX
-    oracle does), concatenate the suffix K/V, and run the plain cached path
-    (q_positions = P + r, kv_len = P + suffix_lens)."""
+    row (a quantized prefix, int4 unpacked first, dequantized with its
+    scales in q's dtype, as the JAX oracle does), concatenate the suffix
+    K/V, and run the plain cached path (q_positions = P + r, kv_len = P +
+    suffix_lens)."""
     B, L = q.shape[0], q.shape[1]
     P = pk.shape[0]
-    pk, pv = pk.to(q.dtype), pv.to(q.dtype)
+    pk, pv = cache_values(pk).to(q.dtype), cache_values(pv).to(q.dtype)
     if pk_scale is not None:
         pk = pk * pk_scale.to(q.dtype)
         pv = pv * pv_scale.to(q.dtype)
@@ -119,8 +130,9 @@ def mha_cached_stacked(q: torch.Tensor, k_all: torch.Tensor,
                        v_scale: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Cache attention for ``layer`` of the stacked flat (layers, B, S,
-    KV*hd) cache: bf16, or int8 with the stacked (layers, B, S, KV, 1) f32
-    scales ``k_scale``/``v_scale`` (the kernels read the layer's scales by
+    KV*hd) cache: bf16, or int8 (or packed int4, KV*hd / 2 uint8 bytes per
+    row) with the stacked (layers, B, S, KV, 1) f32 scales
+    ``k_scale``/``v_scale`` (the kernels read the layer's scales by
     stride; the JAX function takes them already sliced). One token
     (L == 1): the decode kernel (B3), a slot valid below
     ``min(q_position + 1, kv_len)``. A multi-token chunk (L > 1) whose rows
@@ -148,13 +160,15 @@ def paged_mha(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
               k_scale: Optional[torch.Tensor] = None,
               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Paged decode attention (L == 1) for ``layer`` of the stacked
-    (layers, P, page, KV*hd) pools (and (layers, P, KV, 1, page) int8
-    scales), the dispatch of ``video3d_tpu/kernels/attention.py:372-415``:
-    kernel B7 on the GPU and its plain version on the CPU. The kv head
-    count is the flat last dim over q's head dim."""
+    (layers, P, page, KV*hd) pools (packed int4: KV*hd / 2 uint8 bytes per
+    row; quantized: (layers, P, KV, 1, page) scales), the dispatch of
+    ``video3d_tpu/kernels/attention.py:372-415``: kernel B7 on the GPU and
+    its plain version on the CPU. The kv head count is the scale pools'
+    kv dim, or the flat last dim over q's head dim."""
     from video3d_tpu_torch.kernels.paged_attention import \
         paged_decode_attention
 
+    kv_heads = k_pages.shape[-1] // q.shape[-1] if k_scale is None \
+        else k_scale.shape[2]
     return paged_decode_attention(q, k_pages, v_pages, page_table, kv_len,
-                                  layer, k_pages.shape[-1] // q.shape[-1],
-                                  k_scale, v_scale)
+                                  layer, kv_heads, k_scale, v_scale)

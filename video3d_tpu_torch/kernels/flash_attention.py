@@ -8,10 +8,11 @@ version (``mha_reference`` with the same masks, or
 kernel (``csrc/flash_attention.cu``, ``csrc/shared_prefix_attention.cu``)
 or raises. Counterparts of ``video3d_tpu/kernels/flash_attention.py``:
 ``flash_attention`` in its prefill form (L == S, query offset 0, forward
-only, bf16), ``flash_attention_gqa_folded`` over a bf16 or an int8 cache
-and ``flash_attention_shared_prefix`` over a bf16 or an int8 prefix (one
-shared-prefix path, the fused one). An int8 cache or prefix launches the
-kernel's int8 instantiation and counts under its own ``*_int8`` name.
+only, bf16), ``flash_attention_gqa_folded`` over a bf16, an int8 or a
+packed int4 cache and ``flash_attention_shared_prefix`` over a bf16, an
+int8 or a packed int4 prefix (one shared-prefix path, the fused one). A
+quantized cache or prefix launches the kernel's int8 or int4
+instantiation and counts under its own ``*_int8`` / ``*_int4`` name.
 
 Training: :class:`FlashAttentionFunction` (entry :func:`flash_attention_train`)
 is the counterpart of the JAX custom VJP ``_flash_core``: its forward runs B2
@@ -31,7 +32,8 @@ import torch
 from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels.attention import (NEG_INF, mha_reference,
                                                  mha_shared_prefix_reference)
-from video3d_tpu_torch.kernels.decode_attention import check_cache, layer_kv
+from video3d_tpu_torch.kernels.decode_attention import (CACHE_FORMS,
+                                                        check_cache, layer_kv)
 
 HEAD_DIM = 128   # the kernels' compiled head dim
 
@@ -122,8 +124,9 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
 
     q (B, L, H, hd): query r of row b sits at absolute position
     ``q_offsets[b] + r``. Keys come from ``layer`` of the stacked flat
-    (layers, B, S, KV*hd) cache, bf16, or int8 with the stacked (layers, B,
-    S, KV, 1) f32 scales ``k_scale``/``v_scale``; slot s is valid when
+    (layers, B, S, KV*hd) cache, bf16, or int8 (or packed int4, KV*hd / 2
+    uint8 bytes per row) with the stacked (layers, B, S, KV, 1) f32 scales
+    ``k_scale``/``v_scale``; slot s is valid when
     s <= the query's position and s < ``lengths[b]``. Returns (B, L, H, hd)
     in q's dtype.
     """
@@ -135,10 +138,10 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
         raise ValueError(f"flash_attention_gqa_folded: no kernel for device "
                          f"{q.device}")
     B, L, H, hd = q.shape
-    NL, Bc, S, C = k_all.shape
-    quantized = check_cache("flash_attention_gqa_folded", q, k_all, v_all,
-                            k_scale, v_scale, kv_heads)
-    if (hd != HEAD_DIM or Bc != B or C != kv_heads * hd
+    NL, Bc, S, _ = k_all.shape
+    form = check_cache("flash_attention_gqa_folded", q, k_all, v_all,
+                       k_scale, v_scale, kv_heads)
+    if (hd != HEAD_DIM or Bc != B
             or v_all.shape != k_all.shape or H % kv_heads
             or not 0 <= layer < NL):
         raise ValueError(f"flash_attention_gqa_folded: unsupported shapes q "
@@ -146,15 +149,9 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
                          f"layer {layer} kv_heads {kv_heads}")
     lengths, q_offsets = _int32(lengths, q.device), _int32(q_offsets, q.device)
     out = torch.empty_like(q)
-    lib = _build.library()
-    if quantized:
-        entry, name = (lib.v3d_flash_attention_folded_int8,
-                       "flash_attention_folded_int8")
-        scales = (k_scale.data_ptr(), v_scale.data_ptr())
-    else:
-        entry, name = lib.v3d_flash_attention_folded, "flash_attention_folded"
-        scales = ()
-    err = entry(
+    name = "flash_attention_folded" + form
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
+    err = getattr(_build.library(), "v3d_" + name)(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), *scales,
         lengths.data_ptr(), q_offsets.data_ptr(), out.data_ptr(), layer, B, L,
         S, H, kv_heads, float(hd ** -0.5), _stream(q.device))
@@ -173,8 +170,9 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
     batch row attend ONE prefix K/V, then their own suffix causally.
 
     q (B, L, H, hd), query r of row b at position P + r; pk/pv (P, KV, hd)
-    with no batch dim, bf16, or int8 with (P, KV, 1) f32 scales
-    ``pk_scale``/``pv_scale``; sk/sv (B, L, KV, hd) the chunk's own bf16
+    with no batch dim, bf16, or int8 (or packed int4, (P, KV, hd / 2)
+    uint8) with (P, KV, 1) f32 scales ``pk_scale``/``pv_scale``; sk/sv (B,
+    L, KV, hd) the chunk's own bf16
     K/V; suffix_lens (B,) valid suffix keys. Query rows r >= suffix_lens[b]
     are undefined by contract (the kernel applies only the causal mask
     there). Returns (B, L, H, hd) in q's dtype.
@@ -187,39 +185,35 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
                          f"device {q.device}")
     B, L, H, hd = q.shape
     P, KV = pk.shape[0], pk.shape[1]
-    quantized = pk.dtype == torch.int8
+    form = CACHE_FORMS.get(pk.dtype)
     _check_bf16("flash_attention_shared_prefix", q.device, q=q, sk=sk, sv=sv)
-    if quantized:
+    if form is None:
+        raise ValueError(f"flash_attention_shared_prefix: a {pk.dtype} "
+                         f"prefix")
+    if form:
         if pk_scale is None or pv_scale is None \
                 or pk_scale.shape != (P, KV, 1) \
                 or pv_scale.shape != pk_scale.shape:
-            raise ValueError("flash_attention_shared_prefix: an int8 prefix "
-                             "needs (P, KV, 1) scales")
-        _check_dtype("flash_attention_shared_prefix", q.device, torch.int8,
-                     pk=pk, pv=pv)
+            raise ValueError("flash_attention_shared_prefix: a quantized "
+                             "prefix needs (P, KV, 1) scales")
         _check_dtype("flash_attention_shared_prefix", q.device, torch.float32,
                      pk_scale=pk_scale, pv_scale=pv_scale)
     elif pk_scale is not None or pv_scale is not None:
         raise ValueError("flash_attention_shared_prefix: scales given for a "
                          "bf16 prefix")
-    else:
-        _check_bf16("flash_attention_shared_prefix", q.device, pk=pk, pv=pv)
-    if (hd != HEAD_DIM or pk.shape != (P, KV, hd) or pv.shape != pk.shape
+    _check_dtype("flash_attention_shared_prefix", q.device, pk.dtype, pk=pk,
+                 pv=pv)
+    width = hd // 2 if form == "_int4" else hd
+    if (hd != HEAD_DIM or pk.shape != (P, KV, width) or pv.shape != pk.shape
             or sk.shape != (B, L, KV, hd) or sv.shape != sk.shape
             or H % KV):
         raise ValueError(f"flash_attention_shared_prefix: unsupported shapes "
                          f"q {tuple(q.shape)} prefix {tuple(pk.shape)} "
                          f"suffix {tuple(sk.shape)}")
     out = torch.empty_like(q)
-    lib = _build.library()
-    if quantized:
-        entry, name = (lib.v3d_shared_prefix_attention_int8,
-                       "shared_prefix_attention_int8")
-        scales = (pk_scale.data_ptr(), pv_scale.data_ptr())
-    else:
-        entry, name = lib.v3d_shared_prefix_attention, "shared_prefix_attention"
-        scales = ()
-    err = entry(
+    name = "shared_prefix_attention" + form
+    scales = (pk_scale.data_ptr(), pv_scale.data_ptr()) if form else ()
+    err = getattr(_build.library(), "v3d_" + name)(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), *scales, sk.data_ptr(),
         sv.data_ptr(), out.data_ptr(), B, L, P, H, KV, float(hd ** -0.5),
         _stream(q.device))

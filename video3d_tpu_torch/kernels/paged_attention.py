@@ -2,8 +2,9 @@
 and its plain PyTorch version: counterpart of
 ``video3d_tpu/kernels/paged_attention.py``.
 
-The pools are flat (layers, P, page, KV*hd), bf16, or int8 with f32 scale
-pools (layers, P, KV, 1, page); slot b's position s lives in pool page
+The pools are flat (layers, P, page, KV*hd), bf16, or int8 (or packed int4,
+uint8 (layers, P, page, KV*hd / 2)) with f32 scale pools (layers, P, KV, 1,
+page); slot b's position s lives in pool page
 ``page_table[b, s // page]``, row ``s % page``. The layer is an index into
 the stacked pools: the kernel reads it by strides, and no per-layer copy is
 made. :func:`paged_decode_attention` dispatches on the device of ``q``: a
@@ -24,7 +25,8 @@ from typing import Optional
 import torch
 
 from video3d_tpu_torch.kernels import _build
-from video3d_tpu_torch.kernels.attention import NEG_INF
+from video3d_tpu_torch.kernels.attention import NEG_INF, cache_values
+from video3d_tpu_torch.kernels.decode_attention import CACHE_FORMS
 
 HEAD_DIM = 128      # the kernel's compiled head dim
 CHUNK = 256         # positions per split-K block (csrc kChunk)
@@ -34,13 +36,13 @@ MAX_GROUP = 8       # query heads per kv head (csrc kMaxG)
 def _dense_from_pages(pool: torch.Tensor, spool: Optional[torch.Tensor],
                       page_table: torch.Tensor, kv_heads: int
                       ) -> torch.Tensor:
-    """One layer's flat pool (P, page, KV*hd) and its (P, KV, 1, page)
-    scales (or None) gathered into (B, maxp * page, KV, hd) f32 rows, as
-    ``_dense_from_pages`` (:290)."""
+    """One layer's flat pool (P, page, KV*hd) (packed int4: KV*hd / 2
+    bytes) and its (P, KV, 1, page) scales (or None) gathered into (B,
+    maxp * page, KV, hd) f32 rows, as ``_dense_from_pages`` (:290)."""
     B, maxp = page_table.shape
-    _, page, C = pool.shape
+    page = pool.shape[1]
     idx = page_table.long()
-    g = pool[idx].reshape(B, maxp * page, kv_heads, C // kv_heads).float()
+    g = cache_values(pool[idx]).reshape(B, maxp * page, kv_heads, -1).float()
     if spool is not None:
         s = spool[idx].permute(0, 1, 4, 2, 3)      # (B, maxp, page, KV, 1)
         g = g * s.reshape(B, maxp * page, kv_heads, 1)
@@ -77,33 +79,39 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
 
 def check_pools(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor, k_scale: Optional[torch.Tensor],
-                v_scale: Optional[torch.Tensor], kv_heads: int) -> bool:
-    """Raise unless q is bf16 and the stacked pools are bf16 without scales
-    or int8 with (layers, P, KV, 1, page) f32 scales, all contiguous,
-    16-byte aligned and on q's device. Returns whether the pools are
-    int8."""
-    quantized = k_pages.dtype == torch.int8
+                v_scale: Optional[torch.Tensor], kv_heads: int) -> str:
+    """Raise unless q is bf16 and the stacked pools are bf16 without
+    scales, or int8 or packed int4 (uint8) with (layers, P, KV, 1, page)
+    f32 scales, all contiguous, 16-byte aligned and on q's device, and
+    their rows are KV * hd values wide (KV * hd / 2 bytes packed). Returns
+    the kernel's name suffix (``decode_attention.CACHE_FORMS``)."""
+    form = CACHE_FORMS.get(k_pages.dtype)
     tensors = [("q", q, torch.bfloat16), ("k_pages", k_pages, k_pages.dtype),
                ("v_pages", v_pages, k_pages.dtype)]
-    if quantized:
-        NL, P, page, _ = k_pages.shape
-        if k_scale is None or v_scale is None or \
+    if form is None or (form == "") != (k_scale is None):
+        raise ValueError("paged_decode_attention: the pools must be bf16 "
+                         "without scales, or int8 or packed int4 (uint8) "
+                         "with scales")
+    NL, P, page, C = k_pages.shape
+    if form:
+        if v_scale is None or \
                 k_scale.shape != (NL, P, kv_heads, 1, page) or \
                 v_scale.shape != k_scale.shape:
-            raise ValueError("paged_decode_attention: int8 pools need "
+            raise ValueError("paged_decode_attention: quantized pools need "
                              "(layers, P, KV, 1, page) scales")
         tensors += [("k_scale", k_scale, torch.float32),
                     ("v_scale", v_scale, torch.float32)]
-    elif k_pages.dtype != torch.bfloat16 or k_scale is not None:
-        raise ValueError("paged_decode_attention: the pools must be bf16 "
-                         "without scales or int8 with scales")
+    if C != kv_heads * q.shape[-1] // (2 if form == "_int4" else 1):
+        raise ValueError(f"paged_decode_attention: pool rows of {C} entries "
+                         f"for {kv_heads} kv heads of {q.shape[-1]} "
+                         f"({k_pages.dtype})")
     for arg, t, dt in tensors:
         if t.dtype != dt or not t.is_contiguous() or t.device != q.device \
                 or t.data_ptr() % 16:
             raise ValueError(f"paged_decode_attention: {arg} must be a "
                              f"contiguous, 16-byte aligned {dt} tensor on "
                              f"{q.device}")
-    return quantized
+    return form
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -113,8 +121,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """q (B, 1, H, hd); k_pages/v_pages the stacked (layers, P, page,
-    KV*hd) pools, bf16, or int8 with the stacked (layers, P, KV, 1, page)
-    f32 scales; page_table (B, maxp) int32 page ids (entries past a slot's
+    KV*hd) pools, bf16, or int8 (or packed int4: KV*hd / 2 uint8 bytes per
+    row) with the stacked (layers, P, KV, 1, page) f32 scales; page_table
+    (B, maxp) int32 page ids (entries past a slot's
     pages must lie in [0, P) and are never read); kv_len (B,) valid
     positions per slot after this step's append. Returns (B, 1, H, hd) in
     q's dtype (:146-287)."""
@@ -125,10 +134,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"paged_decode_attention: no kernel for device "
                          f"{q.device}")
     B, L, H, hd = q.shape
-    NL, P, page, C = k_pages.shape
-    quantized = check_pools(q, k_pages, v_pages, k_scale, v_scale, kv_heads)
+    NL, P, page, _ = k_pages.shape
+    form = check_pools(q, k_pages, v_pages, k_scale, v_scale, kv_heads)
     maxp = page_table.shape[1]
-    if (L != 1 or hd != HEAD_DIM or C != kv_heads * hd
+    if (L != 1 or hd != HEAD_DIM
             or v_pages.shape != k_pages.shape or H % kv_heads
             or H // kv_heads > MAX_GROUP or not 0 <= layer < NL
             or page_table.shape != (B, maxp) or maxp < 1
@@ -146,17 +155,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     part_acc = torch.empty((B, H, n_chunks, hd), dtype=torch.float32,
                            device=q.device)
     out = torch.empty_like(q)
-    lib = _build.library()
-    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if quantized else ()
-    entry = lib.v3d_paged_attention_int8 if quantized \
-        else lib.v3d_paged_attention
-    err = entry(
+    name = "paged_attention" + form
+    scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
+    err = getattr(_build.library(), "v3d_" + name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
         table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), layer, B,
         P, page, maxp, H, kv_heads, n_chunks, float(hd ** -0.5),
         torch.cuda.current_stream(q.device).cuda_stream)
-    name = "paged_attention_int8" if quantized else "paged_attention"
     _build.check(err, name)
     _build.count_launch(name)
     return out

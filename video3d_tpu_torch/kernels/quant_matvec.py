@@ -35,16 +35,27 @@ _entries = {}        # C entry point -> ctypes function
 _split_counts = {}   # (device, rows, out, chunks) -> splits
 
 
-def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
-    """(in/2, out) packed bytes -> (in, out) int8 values in [-7, 7], as the
-    JAX ``unpack_int4``: row 2p from the low nibble of byte p, row 2p + 1
-    from its high nibble, each sign-extended."""
+def pack_int4(q: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """int8 values in [-7, 7] -> int8 bytes with ``dim`` halved: byte p
+    holds index 2p in its low nibble and 2p + 1 in its high nibble, each
+    two's complement. ``dim=0``: the (in, out) int4 weights (JAX
+    ``quantize_weight_int4``); ``dim=-1``: the int4 KV cache, two channels
+    of a token row per byte."""
+    d = dim % q.dim()
+    pairs = q.unflatten(d, (q.shape[d] // 2, 2))
+    return (pairs.select(d + 1, 0) & 0x0F) | (pairs.select(d + 1, 1) << 4)
+
+
+def unpack_int4(packed: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """The inverse of :func:`pack_int4` (int8 or uint8 bytes) -> int8
+    values in [-7, 7] with ``dim`` doubled, as the JAX ``unpack_int4``
+    along dim 0: index 2p from the low nibble of byte p, 2p + 1 from its
+    high nibble, each sign-extended."""
     c = packed.to(torch.int32)
     lo = (c << 28) >> 28
-    hi = c >> 4
-    half, out = packed.shape
-    return torch.stack([lo, hi], dim=1).reshape(2 * half, out) \
-        .to(torch.int8)
+    hi = (c << 24) >> 28
+    d = dim % packed.dim()
+    return torch.stack([lo, hi], dim=d + 1).flatten(d, d + 1).to(torch.int8)
 
 
 def int8_matmul_plain(x: torch.Tensor, q: torch.Tensor,

@@ -48,9 +48,9 @@ def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
                        vision_features: Optional[torch.Tensor] = None,
                        cache_dtype=torch.bfloat16):
     """Vision encode + splice + prefill into a fresh cache of
-    ``cache_dtype`` (bf16, or int8 with scales). Returns (next_logits
-    (B, vocab), cache, start_pos (B,)). ``vision_features`` (B, T, D) skips
-    the vision encode."""
+    ``cache_dtype`` (bf16, or int8 or ``qwen2.KV_INT4`` with scales).
+    Returns (next_logits (B, vocab), cache, start_pos (B,)).
+    ``vision_features`` (B, T, D) skips the vision encode."""
     B, L = batch.text_ids.shape
     if vision_features is None:
         vision_features = lv3d.encode_video(params, cfg, batch.images,
@@ -91,10 +91,11 @@ def start_decode(params, cfg: ModelConfig, batch: lv3d.Batch,
 def shared_prefix_view(prefix: qwen2.KVCache, prefix_len: int,
                        B: int) -> Optional[qwen2.KVCache]:
     """Batch-free (layers, P, KV*hd) view of a stored B=1 prefix (with its
-    (layers, P, KV, 1) scales when int8) for the shared-prefix attention
-    path, or None when the path does not apply (B == 1: the folded kernel
-    over the seeded cache reads the same bytes once anyway). Sliced to
-    ``prefix_len``: the shared path attends every prefix slot unmasked."""
+    (layers, P, KV, 1) scales when quantized; int4 values stay packed) for
+    the shared-prefix attention path, or None when the path does not apply
+    (B == 1: the folded kernel over the seeded cache reads the same bytes
+    once anyway). Sliced to ``prefix_len``: the shared path attends every
+    prefix slot unmasked."""
     if not (prefix.k.shape[1] == 1 and B > 1):
         return None
     return qwen2.KVCache(*(None if t is None else t[:, 0, :prefix_len]
@@ -102,10 +103,11 @@ def shared_prefix_view(prefix: qwen2.KVCache, prefix_len: int,
 
 
 def _write_prefix(cache: qwen2.KVCache, prefix: qwen2.KVCache) -> None:
-    """Copy a (layers, 1 or B, P, KV*hd) prefix (and its scales) into the
-    head of a fresh cache of the same dtype, in place; a B=1 prefix
-    broadcasts into every row. The cache never shares memory with the
-    stored prefix, so decode cannot reach it."""
+    """Copy a (layers, 1 or B, P, KV*hd) prefix (and its scales; int4
+    values as packed bytes) into the head of a fresh cache of the same
+    dtype, in place; a B=1 prefix broadcasts into every row. The cache
+    never shares memory with the stored prefix, so decode cannot reach
+    it."""
     P = prefix.k.shape[2]
     for dst, src in zip(cache, prefix):
         if dst is not None:
@@ -124,18 +126,20 @@ def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
     (``slice_suffix_plan``): (B, Ls) ids at spliced positions
     [prefix_len, prefix_len + Ls), no vision tokens, and ``batch.seq_len``
     the TOTAL true length. ``prefix`` is the stored (layers, 1, P, KV*hd)
-    entry (int8 with its scales); the new cache takes its dtype
-    (``cache_dtype``, when given, must be that dtype, as the JAX function
-    requires). The cache is seeded with the prefix (broadcast to every row),
-    the suffix K/V are written after it, and the suffix attends the prefix
-    plus itself: through the cache and the folded kernel at B == 1, through
-    the shared-prefix kernel at B > 1. Decoding then proceeds unchanged.
+    entry (int8 or packed int4 with its scales); the new cache takes its
+    form (``cache_dtype``, when given, must be that form, as the JAX
+    function requires). The cache is seeded with the prefix (broadcast to
+    every row), the suffix K/V are written after it, and the suffix attends
+    the prefix plus itself: through the cache and the folded kernel at
+    B == 1, through the shared-prefix kernel at B > 1. Decoding then
+    proceeds unchanged.
     """
     B, Ls = batch.text_ids.shape
     dev = batch.text_ids.device
     if prefix_len + Ls > max_cache_len:
         raise ValueError("prefix + suffix longer than the KV cache")
-    if cache_dtype is not None and cache_dtype != prefix.k.dtype:
+    if cache_dtype is not None and \
+            qwen2.kv_storage_dtype(cache_dtype) != prefix.k.dtype:
         raise ValueError(f"a {prefix.k.dtype} prefix cannot seed a "
                          f"{cache_dtype} cache")
     cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len,
@@ -322,10 +326,10 @@ def insert_paged_slot(state: PagedDecodeState, slot: int, sub: DecodeState,
     """Copy a freshly prefilled B=1 dense DecodeState into paged slot
     ``slot``, in place: its first ``n_pages`` pages (listed in the
     (max_pages,) ``page_row``) take the dense cache's n_pages * page
-    positions (int8: values and scales verbatim), ``lens[slot]`` becomes
-    the prefill length. ``skip_pages``: the row's first entries are shared
-    scene-prefix pages written by :func:`write_shared_prefix`; only pages
-    ``skip_pages..n_pages`` are copied."""
+    positions (quantized: values and scales verbatim), ``lens[slot]``
+    becomes the prefill length. ``skip_pages``: the row's first entries are
+    shared scene-prefix pages written by :func:`write_shared_prefix`; only
+    pages ``skip_pages..n_pages`` are copied."""
     paged_kv.transplant_dense(state.cache, sub.cache, slot, page_row,
                               n_pages, sub.pos[0], skip_pages=skip_pages)
     state.next_logits[slot] = sub.next_logits[0]

@@ -7,7 +7,9 @@ Device side: :class:`PagedKVCache` (stacked flat pools, table, lengths).
 Host side: :class:`PageAllocator`, a free list over the page ids that the
 batcher's scheduler thread owns. Pool layout as in the JAX package: values
 (layers, P, page, KV*hd), heads flat per token row; int8 pools add f32
-scale pools (layers, P, KV, 1, page), the page's positions contiguous.
+scale pools (layers, P, KV, 1, page), the page's positions contiguous;
+int4 pools hold uint8 (layers, P, page, KV*hd / 2), two channels per byte
+(``models/qwen2.py``, ``pack_kv_int4``), with the same scale pools.
 
 The port writes IN PLACE: a decode step writes each layer's new K/V (and
 scales) straight into the stacked pools at (layer, page id, offset); dead
@@ -28,8 +30,9 @@ from video3d_tpu_torch.config import LLMConfig
 
 
 class PagedKVCache(NamedTuple):
-    """k/v: (layers, P, page, KV*hd) flat pools; int8 pools add
-    (layers, P, KV, 1, page) f32 scale pools. page_table: (S, maxp) int32
+    """k/v: (layers, P, page, KV*hd) flat pools (int4: uint8, KV*hd / 2
+    bytes per row); quantized pools add (layers, P, KV, 1, page) f32 scale
+    pools. page_table: (S, maxp) int32
     (entries past a slot's pages stay in [0, P) and are never read).
     lens: (S,) int32 valid tokens per slot. Updated in place."""
 
@@ -60,27 +63,27 @@ class PagedKVCache(NamedTuple):
     def zeros(cls, cfg: LLMConfig, num_pages: int, page_size: int,
               num_slots: int, max_pages: int, dtype=torch.bfloat16,
               device=None) -> "PagedKVCache":
-        _check_dtype(dtype)
-        shape = (cfg.num_hidden_layers, num_pages, page_size,
-                 cfg.num_key_value_heads * cfg.head_dim)
+        """Empty pools of ``dtype``: bf16, f32, int8 or the int4 tag
+        ``models.qwen2.KV_INT4``."""
+        from video3d_tpu_torch.models.qwen2 import kv_layout
+
+        storage, width, quantized = kv_layout(cfg, dtype)
+        if storage not in (torch.bfloat16, torch.float32, torch.int8,
+                           torch.uint8):
+            raise ValueError(f"a {dtype} paged cache: expected bf16, f32, "
+                             f"int8 or int4")
+        shape = (cfg.num_hidden_layers, num_pages, page_size, width)
         table = torch.zeros((num_slots, max_pages), dtype=torch.int32,
                             device=device)
         lens = torch.zeros((num_slots,), dtype=torch.int32, device=device)
-        k = torch.zeros(shape, dtype=dtype, device=device)
-        v = torch.zeros(shape, dtype=dtype, device=device)
-        if dtype != torch.int8:
+        k = torch.zeros(shape, dtype=storage, device=device)
+        v = torch.zeros(shape, dtype=storage, device=device)
+        if not quantized:
             return cls(k, v, table, lens)
         sshape = shape[:2] + (cfg.num_key_value_heads, 1, page_size)
         return cls(k, v, table, lens,
                    torch.zeros(sshape, dtype=torch.float32, device=device),
                    torch.zeros(sshape, dtype=torch.float32, device=device))
-
-
-def _check_dtype(dtype) -> None:
-    if dtype not in (torch.bfloat16, torch.float32, torch.int8):
-        raise NotImplementedError(
-            f"a {dtype} paged cache is not ported (int4 pools: ROADMAP A3, "
-            f"the int4 KV cache)")
 
 
 class PageAllocator:
@@ -128,8 +131,9 @@ def _scatter_dense_pages(cache: PagedKVCache, dense, pages,
                          n_pages: int, skip_pages: int = 0) -> None:
     """Copy dense positions [skip * page, n_pages * page) of a B=1 dense
     cache (``models/qwen2.py`` KVCache) into the ``n_pages - skip_pages``
-    pool pages listed in ``pages``, in place: values, and int8 scales
-    verbatim (no requantization). Table and lengths untouched."""
+    pool pages listed in ``pages``, in place: values (int4: packed bytes)
+    and scales verbatim (no requantization). Table and lengths
+    untouched."""
     page = cache.page_size
     if dense.k.shape[2] < n_pages * page:
         raise ValueError(f"dense cache of {dense.k.shape[2]} positions is "
@@ -157,11 +161,11 @@ def transplant_dense(cache: PagedKVCache, dense, slot: int,
                      page_row: torch.Tensor, n_pages: int, length,
                      skip_pages: int = 0) -> PagedKVCache:
     """Copy a freshly prefilled B=1 dense cache into ``slot``'s pages
-    ``skip_pages..n_pages`` (int8: values and scales verbatim), install the
-    (maxp,) page row and set ``lens[slot] = length`` (a 0-d tensor or an
-    int), in place (:163). ``skip_pages > 0`` is the shared-prefix path:
-    the row's first entries reference scene-prefix pages that already hold
-    the same K/V (:func:`scatter_shared_prefix`)."""
+    ``skip_pages..n_pages`` (quantized: values and scales verbatim),
+    install the (maxp,) page row and set ``lens[slot] = length`` (a 0-d
+    tensor or an int), in place (:163). ``skip_pages > 0`` is the
+    shared-prefix path: the row's first entries reference scene-prefix
+    pages that already hold the same K/V (:func:`scatter_shared_prefix`)."""
     _scatter_dense_pages(cache, dense, page_row[skip_pages:n_pages],
                          n_pages, skip_pages)
     cache.page_table[slot] = page_row.to(cache.page_table.device)
@@ -180,28 +184,22 @@ def scatter_shared_prefix(cache: PagedKVCache, prefix, pages,
     return cache
 
 
-def _quantize_kv(x: torch.Tensor, dtype=torch.int8):
-    """(..., hd) -> int8 values and (..., 1) f32 scales, the rule of
-    ``models/qwen2.py:_quantize_kv`` (:198). int4 raises."""
-    if dtype != torch.int8:
-        raise NotImplementedError("int4 pools are not ported (ROADMAP A3, "
-                                  "the int4 KV cache)")
-    from video3d_tpu_torch.models.qwen2 import _quantize_kv as quantize
-
-    return quantize(x)
-
-
 def _write_rows(cache: PagedKVCache, layer: int, pids, off, k: torch.Tensor,
                 v: torch.Tensor) -> None:
     """pools[layer, pids, off] = k / v (..., KV, hd), quantized with their
-    scales into int8 pools, in place."""
+    scales into int8 or packed int4 pools (the rule of JAX
+    ``paged_kv._quantize_kv``, :198), in place."""
+    from video3d_tpu_torch.models.qwen2 import quantize_rows
+
     for buf, sbuf, x in ((cache.k, cache.k_scale, k),
                          (cache.v, cache.v_scale, v)):
         if sbuf is not None:
-            x, scale = _quantize_kv(x, buf.dtype)
+            x, scale = quantize_rows(x, buf.dtype)
             # (layers, P, KV, 1, page)[layer, pids, :, 0, off] -> (..., KV)
             sbuf[layer, pids, :, 0, off] = scale[..., 0]
-        buf[layer, pids, off] = x.flatten(-2).to(buf.dtype)
+            buf[layer, pids, off] = x
+        else:
+            buf[layer, pids, off] = x.flatten(-2).to(buf.dtype)
 
 
 def write_prefill(cache: PagedKVCache, layer: int, k_seq: torch.Tensor,

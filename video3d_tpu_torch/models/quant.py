@@ -100,7 +100,7 @@ def quantize_weight_int4(w: torch.Tensor, group: int = 512) -> Int4Weight:
     scale = torch.clamp(grouped.abs().amax(dim=1) / 7.0, min=1e-12)
     q = torch.clamp(torch.round(grouped / scale[:, None, :]), -7, 7)
     q = q.reshape(in_p, out).to(torch.int8)
-    packed = (q[0::2] & 0x0F) | (q[1::2] << 4)               # (in_p/2, out)
+    packed = qm.pack_int4(q)                                 # (in_p/2, out)
     pad_out = (-out) % (2048 if out >= 8192 else 512)
     if pad_out:
         packed = F.pad(packed, (0, pad_out))

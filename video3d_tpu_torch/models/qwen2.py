@@ -4,10 +4,11 @@ training branch, differentiable through B2 with the logsumexp and B6, with
 optional per-layer rematerialisation; the prefill, stacked single-token
 decode, contiguous multi-token chunk and shared-prefix branches, and the
 single-token paged decode over ``models/paged_kv.py``'s pools; a bf16 KV
-cache or an int8 one with per-token, per-head scales; dense weights, the
-int8 dicts or the ``Int4Weight`` of ``models/quant.py``). JAX's ``scan_layers`` (one
-``lax.scan`` over stacked layers, a compile-time device) is not ported: the
-port runs the layers in a Python loop.
+cache, or an int8 or a packed int4 one with per-token, per-head scales;
+dense weights, the int8 dicts or the ``Int4Weight`` of
+``models/quant.py``). JAX's ``scan_layers`` (one ``lax.scan`` over stacked
+layers, a compile-time device) is not ported: the port runs the layers in
+a Python loop.
 
 Parameter layout as in the JAX tree (matrices (in, out), used as
 ``x @ w``): ``embed_tokens (vocab, D)``, ``layers[i] {input_layernorm,
@@ -28,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from video3d_tpu_torch.config import LLMConfig
+from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
                                                  mha_shared_prefix, mha_train,
                                                  paged_mha)
@@ -36,15 +38,55 @@ from video3d_tpu_torch.models import paged_kv, quant
 Params = Dict[str, Any]
 
 
+#: the int4 KV cache's tag, asked for where a torch dtype asks for the
+#: others (``KVCache.zeros``, ``PagedKVCache.zeros``, the engine's
+#: ``cache_dtype``): torch has no int4 storage the kernels can use, so the
+#: values are stored packed, two per uint8 byte along the channels
+#: (:func:`pack_kv_int4`), beside f32 scales shaped as int8's
+KV_INT4 = "int4"
+
+
+def kv_storage_dtype(cache_dtype) -> torch.dtype:
+    """The torch dtype a cache of ``cache_dtype`` stores its values in:
+    uint8 for :data:`KV_INT4` (or uint8 itself), else the dtype."""
+    return torch.uint8 if cache_dtype == KV_INT4 else cache_dtype
+
+
+def kv_layout(cfg: LLMConfig, cache_dtype) -> Tuple[torch.dtype, int, bool]:
+    """(storage dtype, entries per token row, whether f32 scales go with
+    the values) of a dense cache or a page pool of ``cache_dtype``: a row
+    holds KV * hd values, or KV * hd / 2 bytes of packed int4."""
+    storage = kv_storage_dtype(cache_dtype)
+    width = cfg.num_key_value_heads * cfg.head_dim
+    if storage == torch.uint8:
+        width //= 2
+    return storage, width, storage in (torch.int8, torch.uint8)
+
+
+def pack_kv_int4(q: torch.Tensor) -> torch.Tensor:
+    """(..., C) int8 values in [-7, 7] -> (..., C / 2) uint8: byte j holds
+    channel 2j in its low nibble and 2j + 1 in its high nibble (the nibble
+    order of the int4 weights, ``kernels/quant_matvec.py``)."""
+    return qm.pack_int4(q, dim=-1).view(torch.uint8)
+
+
+def unpack_kv_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., C / 2) uint8 -> (..., C) int8 values: the inverse of
+    :func:`pack_kv_int4`."""
+    return qm.unpack_int4(packed, dim=-1)
+
+
 class KVCache(NamedTuple):
     """Stacked flat KV cache: k/v (num_layers, B, max_len, KV * hd).
 
     The same layout as the JAX package's ``KVCache``; the port writes new
     K/V into it IN PLACE (JAX returns an updated copy), and the attention
     kernels read a layer straight out of the stacked buffer by its strides.
-    An int8 cache (``dtype=torch.int8``) also holds f32 scales k_scale /
-    v_scale (num_layers, B, max_len, KV, 1), per token and kv head; a bf16
-    or f32 one has None there.
+    A quantized cache also holds f32 scales k_scale / v_scale (num_layers,
+    B, max_len, KV, 1), per token and kv head: int8 (``dtype=torch.int8``)
+    stores one value per byte; int4 (``dtype=KV_INT4``) stores k/v as
+    uint8 (num_layers, B, max_len, KV * hd / 2), two channels per byte
+    (:func:`pack_kv_int4`). A bf16 or f32 cache has None there.
     """
 
     k: torch.Tensor
@@ -55,11 +97,11 @@ class KVCache(NamedTuple):
     @classmethod
     def zeros(cls, cfg: LLMConfig, batch: int, max_len: int,
               dtype=torch.bfloat16, device=None) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, max_len,
-                 cfg.num_key_value_heads * cfg.head_dim)
-        k = torch.zeros(shape, dtype=dtype, device=device)
-        v = torch.zeros(shape, dtype=dtype, device=device)
-        if dtype != torch.int8:
+        storage, width, quantized = kv_layout(cfg, dtype)
+        shape = (cfg.num_hidden_layers, batch, max_len, width)
+        k = torch.zeros(shape, dtype=storage, device=device)
+        v = torch.zeros(shape, dtype=storage, device=device)
+        if not quantized:
             return cls(k, v)
         sshape = shape[:-1] + (cfg.num_key_value_heads, 1)
         return cls(k, v, torch.zeros(sshape, dtype=torch.float32,
@@ -67,29 +109,46 @@ class KVCache(NamedTuple):
                    torch.zeros(sshape, dtype=torch.float32, device=device))
 
 
-def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_kv(x: torch.Tensor, form=torch.int8
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, L, KV, hd) -> int8 values and (B, L, KV, 1) f32 scales, symmetric
-    per token and head: scale = max(max|x| / 127, 1e-8) over hd. Bit for
-    bit the JAX ``_quantize_kv`` with int8 as it runs eagerly; under jit,
-    XLA may turn the divide by 127 into a multiply by its reciprocal, which
-    moves some scales by an ulp."""
+    per token and head: scale = max(max|x| / qmax, 1e-8) over hd, qmax 127
+    for ``form`` int8 and 7 for :data:`KV_INT4` (values then in [-7, 7],
+    unpacked). Bit for bit the JAX ``_quantize_kv`` with int8 / int4 as it
+    runs eagerly; under jit, XLA may turn the divide by qmax into a
+    multiply by its reciprocal, which moves some scales by an ulp."""
+    qmax = 7.0 if form == KV_INT4 else 127.0
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0,
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / qmax,
                         min=1e-8)
-    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
     return q, scale
+
+
+def quantize_rows(x: torch.Tensor, storage: torch.dtype
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., KV, hd) -> the flat (..., KV*hd) values as a cache of
+    ``storage`` dtype holds them (int8, or uint8 for packed int4:
+    (..., KV*hd / 2)) and their (..., KV, 1) f32 scales."""
+    int4 = storage == torch.uint8
+    q, scale = _quantize_kv(x, KV_INT4 if int4 else torch.int8)
+    q = q.flatten(-2)
+    return (pack_kv_int4(q) if int4 else q), scale
 
 
 def _write_kv(cache: KVCache, layer: int, rows, cols, k: torch.Tensor,
               v: torch.Tensor) -> None:
     """cache[layer, rows, cols] = k / v (..., KV, hd), in place: cast to the
-    cache's dtype, or quantized with their scales into an int8 cache."""
+    cache's dtype, or quantized with their scales into an int8 or a packed
+    int4 cache."""
     for buf, sbuf, x in ((cache.k, cache.k_scale, k),
                          (cache.v, cache.v_scale, v)):
         if sbuf is not None:
-            x, scale = _quantize_kv(x)
+            x, scale = quantize_rows(x, buf.dtype)
             sbuf[layer, rows, cols] = scale
-        buf[layer, rows, cols] = x.flatten(-2).to(buf.dtype)
+            buf[layer, rows, cols] = x
+        else:
+            buf[layer, rows, cols] = x.flatten(-2).to(buf.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -198,7 +257,7 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
         attn = mha_train(q, k, v, kv_len)
     elif prefill:
         _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
-        # raw K/V, also with an int8 cache (as the JAX prefill)
+        # raw K/V, also with a quantized cache (as the JAX prefill)
         attn = mha(q, k, v, kv_len=kv_len)
     else:
         if cache_start is not None:
@@ -255,9 +314,9 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
     ``contiguous_update``: every row's ``cache_positions`` are the same
     range [start, start + L) (suffix over a cached prefix); the chunk's K/V
     are written there and attention reads the cache. ``shared_prefix``: a
-    KVCache with k/v (layers, P, KV*hd) (and, int8, scales (layers, P, KV,
-    1)), the batch-free scene prefix, whose start must be P (see
-    :func:`decoder_layer`).
+    KVCache with k/v (layers, P, KV*hd) (int4: KV*hd / 2 bytes; quantized:
+    scales (layers, P, KV, 1)), the batch-free scene prefix, whose start
+    must be P (see :func:`decoder_layer`).
 
     ``paged_cache`` (B == its slot count, no ``kv_cache``): one decode step
     over the page pools (JAX ``qwen2.py:552-568, :627-631``). Each slot
@@ -289,14 +348,14 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
             else paged_active.to(paged_cache.lens.dtype)
         paged = (paged_cache, pids, off, paged_cache.lens + inc)
     cos, sin = compute_mrope_cos_sin(position_ids, cfg)
-    KV, hd = cfg.num_key_value_heads, cfg.head_dim
+    KV = cfg.num_key_value_heads
     x = inputs_embeds
     for i, lp in enumerate(params["layers"]):
         sp = None
         if shared_prefix is not None:
             P = shared_prefix.k.shape[1]
-            sp = (shared_prefix.k[i].reshape(P, KV, hd),
-                  shared_prefix.v[i].reshape(P, KV, hd))
+            sp = (shared_prefix.k[i].reshape(P, KV, -1),
+                  shared_prefix.v[i].reshape(P, KV, -1))
             if shared_prefix.k_scale is not None:
                 sp += (shared_prefix.k_scale[i], shared_prefix.v_scale[i])
         if remat:
