@@ -9,8 +9,12 @@ Phases, each of which raises on failure (the process then exits non-zero):
    off for float32 products and convolutions.
 2. Build: compiles ``video3d_tpu_torch/csrc/*.cu`` with nvcc (printed
    seconds, ptxas report in ``chiprun_out/ptxas.txt``).
-3. Kernels against their plain PyTorch versions at the main paths' shapes:
-   fused geometry (B1), flash prefill attention (B2), GQA-folded cached-chunk
+3. Kernels against their plain PyTorch versions at the main paths' shapes,
+   first the HBM stream probes (B9, at the probe scripts' default shapes:
+   rows and per-block checksums equal to the plain version, a checksum
+   skipping each block's last row and, for the split form, columns one
+   block late as controls; the best L2-flushed rate printed as the
+   measured read ceiling), then fused geometry (B1), flash prefill attention (B2), GQA-folded cached-chunk
    attention (B2 folded), split-K decode attention (B3), shared-prefix
    attention (B5), and the int8 configuration's kernels: the B=1 int8
    weight matvec (B4) at the vocab head and the int8-cache forms of B3,
@@ -28,7 +32,14 @@ Phases, each of which raises on failure (the process then exits non-zero):
    where one PyTorch call computes the same function
    (``scaled_dot_product_attention``; for B4 ``torch._weight_int8pack_mm``
    where it runs on CUDA; for B8 ``torch._weight_int4pack_mm`` on the
-   weight converted to its layout), that call's time.
+   weight converted to its layout; for B9 the checksums as one ``sum``),
+   that call's time. The kernels whose inputs fit in the 50 MB L2 (B1, B2
+   folded, B3, B5, B7, B9a) are timed warm and with the L2 flushed before
+   each call; each byte-bound row also prints its bytes over the measured
+   read ceiling. Then, untimed, the int8 forms of B2 folded, B3 and B7 at
+   phase 11's 32k shapes (4096-query chunks at offsets 0 and 28672 of a
+   32768-slot cache, kv_len 32760, the 1 x 32k + 7 x 512 page mix), with
+   the same bound and controls.
 4. Main path: the ScanQA answer path at full width (``ModelConfig()``:
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
@@ -71,6 +82,16 @@ Phases, each of which raises on failure (the process then exits non-zero):
    the four int4 forms' plain versions swapped in (f32; control: scales
    one position off), their distance to a full prefill over raw K/V
    printed as the int4 cache's own error.
+11. The benchmark (``video3d_tpu_torch/bench``), inside phase 6 on its
+   int8 model: the HBM probes (the bench line's read rate through B9b-d,
+   and B9a at 4096-token blocks), the bench line (steady
+   state and cold frames/s at V=8 with 4 bf16 decoder layers on a model of
+   its own, the V=32 chain and the B=8 scene-prefix steady state, the live
+   CPU baseline, the measured read ceiling), the flagship's stages,
+   mc-chain (its picks on the card equal to a CPU run on the same voxels)
+   and ctx32k, and the paged batcher's dense 1 x 32k and paged 1 x 32k + 7
+   x 512 int8 decode rows; each prints its JSON line, and every kernel of
+   those paths (B9's four forms among them) must launch.
 7. Training: the int4 model is freed; ``ModelConfig()`` cut to
    ``TRAIN_LAYERS`` decoder layers, f32 master weights from a seeded
    generator, ``Trainer.train()`` with bf16 compute, remat and two
@@ -90,7 +111,8 @@ from the wrong kv head, ...), which must miss the bound by a wide margin:
 the check could otherwise not fail a wrong kernel.
 
 Prints a ``{"kernels": [...]}`` line and, last, the result line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
+``{"ok": true, "device": {...}}``; the whole output also goes to
+``chiprun_out/chip_smoke.log``. Without a CUDA device it exits non-zero
 and prints no result.
 """
 
@@ -159,6 +181,14 @@ KERNEL_INFO = {
         "video3d_tpu/kernels/flash_attention.py:503"),
     "paged_attention_int4": ("video3d_tpu_torch/csrc/paged_attention.cu",
                              "video3d_tpu/kernels/paged_attention.py:60"),
+    "stream_probe_kv": ("video3d_tpu_torch/csrc/stream_probe.cu",
+                        "scripts/bench/kv_probe.py:42"),
+    "stream_probe_one": ("video3d_tpu_torch/csrc/stream_probe.cu",
+                         "scripts/bench/int8_matvec.py:55"),
+    "stream_probe_multi": ("video3d_tpu_torch/csrc/stream_probe.cu",
+                           "scripts/bench/stream_probe.py:73"),
+    "stream_probe_split": ("video3d_tpu_torch/csrc/stream_probe.cu",
+                           "scripts/bench/stream_probe.py:113"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4, 5 and 8
@@ -170,6 +200,9 @@ INT4_KERNELS = ("int4_matmul",)
 #: kernels of the int4 KV cache (phase 10)
 INT4_CACHE_KERNELS = ("decode_attention_int4", "flash_attention_folded_int4",
                       "shared_prefix_attention_int4", "paged_attention_int4")
+#: the HBM stream probes, B9 (their main path: phase 11, the benchmark)
+PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
+                 "stream_probe_split")
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd_dq",
                  "flash_attention_bwd_dkv")
@@ -270,29 +303,23 @@ def build():
           flush=True)
 
 
-# cycles of the spin kernel queued before each timed call (~1 ms): the
-# host enqueues the call while the device spins, so the events time the
-# device work and not the host's launch overhead
-SPIN_CYCLES = 2_000_000
+def _median_ms(fn, iters: int, flush_l2: bool = False) -> float:
+    """Median device ms of ``fn()``: CUDA events around each call, each
+    queued behind a ~1 ms spin kernel so the events time the device work
+    and not the host's launch overhead; ``flush_l2``: 256 MB written before
+    each call, so it reads its inputs from HBM and not from the 50 MB L2
+    (``video3d_tpu_torch/bench/timing.py``)."""
+    from video3d_tpu_torch.bench import timing
+
+    return timing.median_ms(fn, iters, flush_l2_cache=flush_l2)
 
 
-def _median_ms(fn, iters: int) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    times.sort()
-    return times[len(times) // 2]
+def _kernel_ms(fn, iters: int):
+    """(warm ms, L2-flushed ms) of a kernel whose inputs fit in the L2: the
+    warm time reads them from the L2 after the first call, as a loop over
+    the same inputs does; a decode step over 28 layers' caches finds them
+    in HBM."""
+    return _median_ms(fn, iters), _median_ms(fn, iters, flush_l2=True)
 
 
 def _check(name: str, ok: bool, detail: str) -> None:
@@ -330,7 +357,8 @@ def _bound(flops: float, nbytes: float, peak: float = H100_BF16_FLOPS):
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / H100_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes": nbytes}
 
 
 def _nbytes(*tensors) -> int:
@@ -407,7 +435,7 @@ def check_geometry(dev):
     bound = _bound(10.0 * depths.numel(),
                    _nbytes(depths, intr, poses, ids), H100_F32_FLOPS)
     return err, (
-        _median_ms(lambda: fg.fused_patch_voxel_coords(depths, intr, poses,
+        _kernel_ms(lambda: fg.fused_patch_voxel_coords(depths, intr, poses,
                                                        **args), 20),
         _median_ms(lambda: fg.reference_patch_voxel_coords(depths, intr,
                                                            poses, **args), 5)
@@ -484,7 +512,7 @@ def check_decode(dev):
     kh, vh = (_heads_first(x[layer, :, :n].reshape(1, n, KV, hd), H)
               for x in (k_all, v_all))
     return worst, (
-        _median_ms(lambda: da.decode_attention(q, k_all, v_all, kv_len,
+        _kernel_ms(lambda: da.decode_attention(q, k_all, v_all, kv_len,
                                                layer, KV), 50),
         _median_ms(lambda: da.decode_attention_plain(q, k_all, v_all, kv_len,
                                                      layer, KV), 10)
@@ -541,7 +569,7 @@ def check_folded(dev):
         if timed is None:
             timed = args
     return worst, (
-        _median_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
+        _kernel_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
         _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10)
     ), _folded_bound(*timed), _folded_sdpa_ms(*timed)
 
@@ -634,7 +662,7 @@ def check_shared_prefix(dev):
         if timed is None:
             timed = args
     return worst, (
-        _median_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
+        _kernel_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
         _median_ms(lambda: mha_shared_prefix_reference(*timed), 5)
     ), _prefix_bound(*timed), _prefix_sdpa_ms(*timed)
 
@@ -978,7 +1006,7 @@ def check_decode_int8(dev, bits: int = 8):
     bound = _bound(_attn(n, H),
                    2 * n * (row_bytes + KV * 4) + 2 * _nbytes(timed[0]))
     return worst, (
-        _median_ms(lambda: da.decode_attention(*timed), 50),
+        _kernel_ms(lambda: da.decode_attention(*timed), 50),
         _median_ms(lambda: da.decode_attention_plain(*timed), 10)
     ), bound, None
 
@@ -1049,7 +1077,7 @@ def check_folded_int8(dev, bits: int = 8):
         if timed is None:
             timed = args
     return worst, (
-        _median_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
+        _kernel_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
         _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10)
     ), _folded_bound(*timed), None
 
@@ -1116,7 +1144,7 @@ def check_shared_prefix_int8(dev, bits: int = 8):
         if timed is None:
             timed = args
     return worst, (
-        _median_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
+        _kernel_ms(lambda: fa.flash_attention_shared_prefix(*timed), 20),
         _median_ms(lambda: mha_shared_prefix_reference(*timed), 5)
     ), _prefix_bound(*timed), None
 
@@ -1131,23 +1159,31 @@ PAGED_SLOTS, PAGED_PAGE, PAGED_PREFIX_PAGES, PAGED_MAXP = 8, 128, 52, 56
 PAGED_LENS = [6780, 6801, 0, 6750, 6912, 6790, 6760, 6845]
 
 
-def _paged_inputs(g, dev, form: str):
+def _paged_inputs(g, dev, form: str, lens=PAGED_LENS,
+                  prefix_pages: int = PAGED_PREFIX_PAGES,
+                  maxp: int = PAGED_MAXP, own=None):
     """q, stacked pools (bf16, or int8 / packed int4 with (NL, P, KV, 1,
-    page) scales), table and lengths of the B7 check (see PAGED_LENS)."""
+    page) scales), table and lengths of the B7 check: one slot per entry of
+    ``lens``, every slot aliasing the same ``prefix_pages`` pages, then
+    ``own[b]`` pages of its own (default: the rest of its ``maxp``), all
+    in order of slot."""
     import torch
 
     from video3d_tpu_torch.models.qwen2 import quantize_rows
 
     NL, H, KV, hd = CACHE_LAYERS, 28, 4, 128
-    page, S, maxp = PAGED_PAGE, PAGED_SLOTS, PAGED_MAXP
-    P = 1 + PAGED_PREFIX_PAGES + S * (maxp - PAGED_PREFIX_PAGES)
-    own = maxp - PAGED_PREFIX_PAGES
+    page, S = PAGED_PAGE, len(lens)
+    own = own or [maxp - prefix_pages] * S
+    P = 1 + prefix_pages + sum(own)
     table = torch.zeros((S, maxp), dtype=torch.int32)
-    table[:, :PAGED_PREFIX_PAGES] = torch.arange(1, 1 + PAGED_PREFIX_PAGES)
-    table[:, PAGED_PREFIX_PAGES:] = 1 + PAGED_PREFIX_PAGES + torch.arange(
-        S * own).reshape(S, own)
+    table[:, :prefix_pages] = torch.arange(1, 1 + prefix_pages)
+    first = 1 + prefix_pages
+    for b, n in enumerate(own):
+        table[b, prefix_pages:prefix_pages + n] = torch.arange(first,
+                                                               first + n)
+        first += n
     focus = [(int(table[b, s // page]), s % page)
-             for b, n in enumerate(PAGED_LENS)
+             for b, n in enumerate(lens)
              for s in range(max(n - 16, 0), n)]
     pid = torch.tensor([f[0] for f in focus], device=dev)
     off = torch.tensor([f[1] for f in focus], device=dev)
@@ -1174,7 +1210,7 @@ def _paged_inputs(g, dev, form: str):
                 dst[layer] = x.reshape(P, page, KV * hd)
     q = Q_SCALE * torch.randn(S, 1, H, hd, generator=g, device=dev)
     q[..., 0] += FOCUS
-    kv_len = torch.tensor(PAGED_LENS, dtype=torch.int32, device=dev)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
     return (q.to(torch.bfloat16), k, v, table.to(dev), kv_len, NL - 1, KV,
             ks, vs)
 
@@ -1245,16 +1281,183 @@ def check_paged(dev, form: str = "bf16"):
     print(f"  B7 bound counts the {PAGED_PREFIX_PAGES} aliased prefix pages "
           f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions)", flush=True)
     return err, (
-        _median_ms(lambda: pa.paged_decode_attention(*args), 50),
+        _kernel_ms(lambda: pa.paged_decode_attention(*args), 50),
         _median_ms(lambda: pa.paged_attention_plain(*args), 5)
     ), bound, None
+
+
+# phase 11's 32k int8 shapes, held in phase 3 (not timed): ctx32k's
+# 4096-query chunks of B2 folded over a 32768-slot cache, at the first and
+# the last offset (keys valid to 32768, the causal mask alone bounds a
+# chunk); B3 at the dense B=1 row's kv_len; B7 over the paged row's
+# 1 x 32k + 7 x 512 mix (pages for len + 16 positions, at most 256: the
+# benchmark's 292-page pool). The plain version of a 4096-query chunk runs on its first
+# and last LONG_ROWS queries (its scores: 28 x 512 x 32768 f32, 1.9 GB).
+LONG_S, LONG_CHUNK, LONG_ROWS = 32768, 4096, 512
+LONG_DECODE_LEN = 32760
+LONG_PAGED_LENS = [32760, 520, 513, 527, 512, 521, 515, 524]
+
+
+def check_long_context_int8(dev) -> None:
+    """B2 folded int8, B3 int8 and B7 int8 at phase 11's 32k shapes
+    against their plain versions in f32 on the same values, with the
+    controls of phase 3's checks at the same bound."""
+    import torch
+
+    from video3d_tpu_torch.kernels import decode_attention as da
+    from video3d_tpu_torch.kernels import flash_attention as fa
+    from video3d_tpu_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    NL, H, KV, hd, S, L = CACHE_LAYERS, 28, 4, 128, LONG_S, LONG_CHUNK
+    layer = NL - 1
+    offsets = (0, S - L)
+
+    def focus(i, x):           # each checked chunk's own keys
+        if i == layer:
+            for o in offsets:
+                x[0, o:o + L, :, 0] += FOCUS
+
+    k8, ks = _int8_cache(g, dev, (NL, 1, S), KV, hd, edit=focus)
+    v8, vs = _int8_cache(g, dev, (NL, 1, S), KV, hd, v_scale=0.5)
+    lens_t = torch.tensor([S], dtype=torch.int32, device=dev)
+    for off in offsets:
+        q = Q_SCALE * torch.randn(1, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+        offs_t = torch.tensor([off], dtype=torch.int32, device=dev)
+        out = fa.flash_attention_gqa_folded(q, k8, v8, lens_t, offs_t,
+                                            layer, KV, ks, vs)
+        finite = bool(torch.isfinite(out.float()).all())
+        for first in (0, L - LONG_ROWS):
+            rows = slice(first, first + LONG_ROWS)
+            qf = q[:, rows].float()
+            o_t = offs_t + first
+
+            def plain(o=o_t, kk=ks, vv=vs):
+                return fa.flash_attention_gqa_folded_plain(
+                    qf, k8, v8, lens_t, o, layer, KV, kk, vv)
+
+            ref = plain()
+            err = _rows_err(out[:, rows], ref, [LONG_ROWS])
+            name = (f"B2 folded int8 L={L} offset={off} kv_len={S} of "
+                    f"({NL}, 1, {S}, 512), queries {first}-"
+                    f"{first + LONG_ROWS - 1}")
+            _check(name, err <= BF16_ATOL and finite,
+                   f"max |d| {err:.2e}, finite={finite}")
+            _check_controls(name, ref, [LONG_ROWS], {
+                "scales one position off": plain(
+                    kk=torch.roll(ks, 1, dims=2),
+                    vv=torch.roll(vs, 1, dims=2)),
+                "scales of the wrong kv head": plain(
+                    kk=torch.roll(ks, 1, dims=3),
+                    vv=torch.roll(vs, 1, dims=3)),
+                "no causal mask in the chunk": plain(o=lens_t - 1)})
+            del ref
+        del out, q
+    torch.cuda.empty_cache()
+    q = (Q_SCALE * torch.randn(1, 1, H, hd, generator=g,
+                               device=dev)).to(torch.bfloat16)
+    kv_len = torch.tensor([LONG_DECODE_LEN], dtype=torch.int32, device=dev)
+    out = da.decode_attention(q, k8, v8, kv_len, layer, KV, ks, vs)
+    qf = q.float()
+    ref = da.decode_attention_plain(qf, k8, v8, kv_len, layer, KV, ks, vs)
+    err = _rows_err(out, ref, [1])
+    name = f"B3 int8 B=1 kv_len={LONG_DECODE_LEN} of S={S}"
+    _check(name, err <= BF16_ATOL, f"max |d| {err:.2e}")
+    _check_controls(name, ref, [1], {
+        "scales one position off": da.decode_attention_plain(
+            qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
+            torch.roll(vs, 1, dims=2)),
+        "scales of the wrong kv head": da.decode_attention_plain(
+            qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=3),
+            torch.roll(vs, 1, dims=3))})
+    del k8, v8, ks, vs
+    torch.cuda.empty_cache()
+    lens = LONG_PAGED_LENS
+    own = [min(S // PAGED_PAGE, -(-(n + 16) // PAGED_PAGE)) for n in lens]
+    args = _paged_inputs(g, dev, "int8", lens=lens, prefix_pages=0,
+                         maxp=S // PAGED_PAGE, own=own)
+    q, k, v, table, kv_len, layer, KV, ks, vs = args
+    out = pa.paged_decode_attention(*args)
+    qf = q.float()
+    ref = pa.paged_attention_plain(qf, *args[1:])
+    err = _rows_err(out, ref, [1] * len(lens))
+    name = (f"B7 int8 S={len(lens)} kv_len={lens} ({sum(own)} pages of "
+            f"{PAGED_PAGE})")
+    _check(name, err <= BF16_ATOL and bool(torch.isfinite(out.float()).all()),
+           f"max |d| {err:.2e}")
+    wrong_page = table.clone()
+    wrong_page[0, (lens[0] - 1) // PAGED_PAGE] = table[1, 0]
+    _check_controls(name, ref, [1] * len(lens), {
+        "a table entry pointed at another slot's page":
+            pa.paged_attention_plain(qf, k, v, wrong_page, kv_len, layer, KV,
+                                     ks, vs),
+        "kv_len one short": pa.paged_attention_plain(
+            qf, k, v, table, kv_len - 1, layer, KV, ks, vs),
+        "scales of the wrong kv head": pa.paged_attention_plain(
+            qf, k, v, table, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
+            torch.roll(vs, 1, dims=2))})
+    del args, q, k, v, ks, vs
+    torch.cuda.empty_cache()
+
+
+def check_stream_probes(dev):
+    """B9 at the probe scripts' default shapes, through the probe CLI's
+    functions with their checks (``bench/probes.py``, ``--check``): every
+    row and checksum equal to the plain version's, and each control
+    caught; int8 K and V (32768, 4, 128) in blocks of 4096, 8192 and 16384
+    tokens; the (3584, 152064) vocab-head weight in 1536-column blocks,
+    int8 and bf16; K = 1-4 such int8 weights strided, K = 4 as contiguous
+    slabs; K = 1-4 streams over one weight. Returns the kernel rows (bs
+    4096, int8, K = 4 strided, K = 4 split) and the measured read ceiling
+    (GB/s, the best L2-flushed rate)."""
+    import torch
+
+    from video3d_tpu_torch.bench import probes
+
+    runs = {"stream_probe_kv": (probes.probe_kv(dev, iters=20, check=True),
+                                0),
+            "stream_probe_one": (
+                probes.probe_matvec(dev, iters=20, check=True)
+                + probes.probe_matvec(dev, "bfloat16", iters=20, check=True),
+                0)}
+    torch.cuda.empty_cache()
+    runs["stream_probe_multi"] = (
+        probes.probe_stream(dev, iters=20, check=True)
+        + probes.probe_stream(dev, ks=(4,), contig=True, iters=20,
+                              check=True), 3)
+    torch.cuda.empty_cache()
+    runs["stream_probe_split"] = (
+        probes.probe_stream(dev, iters=20, split_same=True, check=True), 3)
+    torch.cuda.empty_cache()
+    rows, rates = {}, []
+    for name, (lines, kernel_row) in runs.items():
+        for line in lines:
+            for what, caught in line["caught"].items():
+                _check(f"B9 {line['probe']} control, {what}", caught > 0,
+                       f"{caught} rows and checksums differ (must be > 0)")
+            rates.append(line["gbps"])
+        r = lines[kernel_row]
+        rows[name] = {"max_abs_err": r["max_abs_err"], "ms": r["ms_warm"],
+                      "ms_l2_flushed": r["ms"], "plain_ms": r["plain_ms"],
+                      **_bound(0.0, r["io_bytes"]),
+                      "library_ms": r["library_ms"]}
+        print(f"  {name}: the kernels line reads '{r['probe']}'",
+              flush=True)
+    ceiling = max(rates)
+    print(f"measured read ceiling: {ceiling:.0f} GB/s (best L2-flushed B9 "
+          f"rate; data sheet {H100_HBM_BYTES / 1e9:.0f} GB/s)", flush=True)
+    return rows, ceiling
 
 
 def check_kernels():
     import torch
 
     dev = torch.device("cuda", 0)
-    rows = {}
+    print("stream probes (B9):", flush=True)
+    rows, ceiling = check_stream_probes(dev)
+    torch.cuda.empty_cache()
     for name, fn in (("fused_geometry", check_geometry),
                      ("flash_attention", check_flash),
                      ("flash_attention_folded", check_folded),
@@ -1280,15 +1483,29 @@ def check_kernels():
                       lambda d: check_paged(d, "int4"))):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
+        flushed = None
+        if isinstance(ms, tuple):
+            ms, flushed = ms
         lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), one "
+        fl = "" if flushed is None else f" ({flushed:.4f} ms L2 flushed)"
+        print(f"  {name}: kernel {ms:.4f} ms{fl}, plain {plain_ms:.4f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}), one "
               f"PyTorch call {lib}", flush=True)
-        rows[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                      **bound, "library_ms": library_ms}
+        if bound["bound_by"] == "bytes":
+            at_ceiling = bound["bytes"] / ceiling / 1e6
+            print(f"  {name}: its bytes at the measured ceiling "
+                  f"{at_ceiling:.4f} ms (kernel {ms / at_ceiling:.1f}x"
+                  + ("" if flushed is None
+                     else f", flushed {flushed / at_ceiling:.1f}x") + ")",
+                  flush=True)
+        rows[name] = {"max_abs_err": err, "ms": ms, "ms_l2_flushed": flushed,
+                      "plain_ms": plain_ms, **bound, "library_ms": library_ms}
         torch.cuda.empty_cache()
+    print("the int8 kernels at phase 11's 32k shapes (not timed):",
+          flush=True)
+    check_long_context_int8(dev)
     rows.update(check_training_kernels(dev))
-    return rows
+    return rows, ceiling
 
 
 def check_training_kernels(dev) -> dict:
@@ -2110,7 +2327,91 @@ def run_int8_paths(cfg, root: str, infos) -> dict:
     print("int8 serving path:", flush=True)
     serve = run_serving(params, cfg, root, infos, kv_cache_dtype="int8")
     print(f"  launches (int8 serving path): {serve}", flush=True)
-    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}
+    print("benchmark paths (phase 11, on the int8 model):", flush=True)
+    bench = run_bench_paths(params, cfg)
+    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}, bench
+
+
+# phase 11: the benchmark's iterations (few: the call's time limit is
+# shared with every other phase) and its 32k decode rows' chunk
+BENCH_ITERS = 3
+BENCH_DECODE_CHUNK = 8
+#: kernels phase 11 must launch: B9's four forms, and the kernels of the
+#: benchmark's modes (steady state and chain: B1, B2; prefix: B5 int8;
+#: ctx32k: B2 folded int8; the 32k decode rows: B3 int8, B7 int8, B4)
+BENCH_KERNELS = PROBE_KERNELS + (
+    "fused_geometry", "flash_attention", "shared_prefix_attention_int8",
+    "flash_attention_folded_int8", "decode_attention_int8",
+    "paged_attention_int8", "int8_matvec", "int8_matmul")
+
+
+def run_bench_paths(params, cfg) -> dict:
+    """Phase 11: the port's benchmark on the card, on phase 6's int8 model
+    (``video3d_tpu_torch/bench``): the HBM probes (B9: the bench line's
+    ``measured_read_gbps``, which runs B9b-d, and B9a at 4096-token
+    blocks), the bench line (steady-state and cold frames/s at
+    V=8 with 4 bf16 decoder layers on a model of its own, the V=32 chain and
+    the B=8 prefix on the int8 model, the live CPU baseline, the measured
+    read ceiling), the flagship's stages, mc-chain (picks on the card equal
+    to a CPU run on the same voxels) and ctx32k (one iteration, no warm-up),
+    and the paged batcher's two 32k int8 rows with a short chunk; each
+    prints its JSON line. Returns the launch counts of the run."""
+    import torch
+
+    from video3d_tpu_torch.bench import __main__ as bench
+    from video3d_tpu_torch.bench import flagship, paged_batcher, probes, timing
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.params import init_model
+
+    dev = params["llm"]["norm"].device
+    t0 = time.perf_counter()
+    _build.reset_launches()
+    print("HBM probes (module 3: the bench line's read rate, and the K/V "
+          "probe at 4096-token blocks; phase 3 ran every form with its "
+          "controls):", flush=True)
+    hbm = probes.measured_read_gbps(dev, iters=BENCH_ITERS)
+    probes.probe_kv(dev, bss=(4096,), iters=BENCH_ITERS)
+    torch.cuda.empty_cache()
+    info = timing.device_info(dev)
+    bcfg = bench.bench_config()
+    bparams = init_model(bcfg, dev, torch.Generator(device=dev).manual_seed(0),
+                         torch.bfloat16)
+    warm, cold = bench.bench_device(bparams, bcfg, dev, iters=BENCH_ITERS)
+    del bparams
+    torch.cuda.empty_cache()
+    flag = bench.bench_flagship(params, cfg, dev, chain_iters=2,
+                                prefix_iters=BENCH_ITERS)
+    line = bench.bench_line(warm, cold, flag, bench.bench_reference_cpu(),
+                            info, hbm)
+    print(json.dumps(line), flush=True)
+    _check("bench line", all(math.isfinite(x) for x in (
+        warm, cold, line["vs_baseline"],
+        flag["chain32_int8"]["frames_per_s"],
+        flag["prefix32_int8_b8"]["question_ms"])),
+        f"{warm:.2f} f/s steady, {cold:.2f} cold, chain "
+        f"{flag['chain32_int8']['frames_per_s']:.2f} f/s (MFU "
+        f"{flag['chain32_int8']['mfu_pct_bf16peak']:.2f}% of 989 TFLOP/s), "
+        f"B=8 prefix {flag['prefix32_int8_b8']['question_ms']:.3f} ms per "
+        f"question, HBM read {hbm} GB/s")
+    for res in (flagship.run_stages(params, cfg, dev, iters=2),
+                flagship.run_mc_chain(params, cfg, dev, iters=1),
+                flagship.run_ctx32k(params, cfg, dev, warmup=0)):
+        res["device"] = info
+        print(json.dumps(res), flush=True)
+    torch.cuda.empty_cache()
+    for mode, slots in (("dense", 1), ("paged", 8)):
+        res = paged_batcher.run(params, cfg, mode, dev, slots=slots,
+                                cache_len=32768, chunk=BENCH_DECODE_CHUNK,
+                                int8=True)
+        res["device"] = info
+        print(json.dumps(res), flush=True)
+        torch.cuda.empty_cache()
+    counts = dict(_build.LAUNCHES)
+    missing = [k for k in BENCH_KERNELS if counts[k] == 0]
+    _check("phase 11 launches", not missing,
+           f"{ {k: counts[k] for k in BENCH_KERNELS} } (not launched: "
+           f"{missing}); {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def _check_int4_decode_step(params, cfg, engine, prep) -> None:
@@ -2579,7 +2880,27 @@ def _leaves(tree):
         yield tree
 
 
+class _Tee:
+    """Standard output copied to a file as well, for consoles that keep
+    only the end of a long output."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text):
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self):
+        for st in self.streams:
+            st.flush()
+
+
 def main() -> None:
+    os.makedirs(OUT_DIR, exist_ok=True)
+    sys.stdout = _Tee(sys.__stdout__,
+                      open(os.path.join(OUT_DIR, "chip_smoke.log"), "w"))
     preconditions()
     import torch
 
@@ -2590,7 +2911,7 @@ def main() -> None:
     from video3d_tpu_torch.params import init_model
 
     build()
-    rows = check_kernels()
+    rows, ceiling = check_kernels()
     dev = torch.device("cuda", 0)
     cfg = ModelConfig()
     t0 = time.perf_counter()
@@ -2618,7 +2939,7 @@ def main() -> None:
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        int8 = run_int8_paths(cfg, root, infos)
+        int8, bench = run_int8_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
         int4, int4_cache = run_int4_paths(cfg, root, infos)
@@ -2630,7 +2951,9 @@ def main() -> None:
         print(f"  launches (training path): {train}", flush=True)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        if name in TRAIN_KERNELS:
+        if name in PROBE_KERNELS:
+            launches = bench[name]
+        elif name in TRAIN_KERNELS:
             launches = train[name]
         elif name in INT8_KERNELS:
             launches = int8[name]
@@ -2642,7 +2965,7 @@ def main() -> None:
             launches = scanqa[name] + prefix[name] + serve[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
-                        **rows[name]})
+                        "ms_l2_flushed": None, **rows[name]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

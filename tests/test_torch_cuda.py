@@ -632,3 +632,64 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
                                   ks.transpose(2, 4), vs.transpose(2, 4))
     with pytest.raises(ValueError):                  # no layer 2
         pa.paged_decode_attention(q, k, v, table, kv_len, 2, KV, ks, vs)
+
+
+@pytest.mark.parametrize("form", ["kv", "one_int8", "one_bf16", "multi",
+                                  "contig", "split"])
+def test_stream_probe_kernel(dev, form):
+    """B9 against its plain version: rows and checksums equal; the controls
+    (a checksum skipping each block's last row; B9d one block late) differ."""
+    from video3d_tpu_torch.kernels import stream_probe as sp
+
+    g = torch.Generator(device=dev).manual_seed(40)
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8,
+                             device=dev)
+
+    t = torch.full((1, 1), 3e-6, device=dev)
+    IN, OUT, bo = 96, 3072, 256
+    if form == "kv":
+        k, v = int8(1024, 4, 128), int8(1024, 4, 128)
+        th = torch.linspace(-1, 1, 128, device=dev)
+        name, args = "stream_probe_kv", (k, v, th, 256)
+        fn, plain = sp.kv_probe, sp.kv_probe_plain
+    elif form.startswith("one"):
+        q = int8(IN, OUT).to(torch.int8 if form == "one_int8"
+                             else torch.bfloat16)
+        name, args = "stream_probe_one", (q, t, bo)
+        fn, plain = sp.matvec_probe, sp.matvec_probe_plain
+    elif form in ("multi", "contig"):
+        qs = [int8(IN, OUT) for _ in range(3)]
+        if form == "contig":
+            qs = [sp.tile_contig(q, bo) for q in qs]
+        name, args = "stream_probe_multi", (qs, t, bo, form == "contig")
+        fn, plain = sp.stream_probe, sp.stream_probe_plain
+    else:
+        name, args = "stream_probe_split", (int8(IN, OUT), t, bo, 4)
+        fn, plain = sp.split_probe, sp.split_probe_plain
+    out, sums = _launched(name, lambda: fn(*args))
+    ref_out, ref_sums = plain(*args)
+    assert torch.equal(out, ref_out) and torch.equal(sums, ref_sums)
+    _, bad = plain(*args, skip_last_row=True)
+    assert bool((bad != sums).all())
+    if form == "split":
+        shifted, _ = plain(*args, shift=1)
+        assert not torch.equal(shifted, out)
+
+
+def test_stream_probe_wrappers_reject_what_the_kernel_does_not_take(dev):
+    from video3d_tpu_torch.kernels import stream_probe as sp
+
+    q = torch.zeros(64, 1024, dtype=torch.int8, device=dev)
+    t = torch.zeros(1, 1, device=dev)
+    with pytest.raises(ValueError):
+        sp.matvec_probe(q.float(), t, 256)
+    with pytest.raises(ValueError):
+        sp.matvec_probe(q.t().contiguous().t(), t, 256)
+    with pytest.raises(ValueError):
+        sp.matvec_probe(q[:, 8:1016], t, 252)
+    with pytest.raises(ValueError):
+        sp.split_probe(q, t, 256, 3)
+    with pytest.raises(ValueError):
+        sp.matvec_probe(q, t.double(), 256)

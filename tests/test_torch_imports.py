@@ -26,7 +26,11 @@ def test_port_modules_are_listed():
                  "video3d_tpu_torch.train.trainer",
                  "video3d_tpu_torch.serve.batcher",
                  "video3d_tpu_torch.models.paged_kv",
-                 "video3d_tpu_torch.kernels.paged_attention"):
+                 "video3d_tpu_torch.kernels.paged_attention",
+                 "video3d_tpu_torch.kernels.stream_probe",
+                 "video3d_tpu_torch.ops.mc_select",
+                 "video3d_tpu_torch.bench.__main__",
+                 "video3d_tpu_torch.bench.flagship"):
         assert name in mods
 
 

@@ -6,7 +6,8 @@ Layers (each module mirrors its ``video3d_tpu`` counterpart):
   train/prefetch.py
              the port's own copies of the JAX package's host modules
   params.py  random init on the device; conversion of the JAX parameter tree
-  ops/       geometry and sin3d position embedding (plain torch)
+  ops/       geometry, sin3d position embedding and max-coverage frame
+             selection (plain torch)
   kernels/   hand-written CUDA kernel wrappers (source in csrc/), each with
              its plain PyTorch version; CPU tensors take the plain version
   models/    SigLIP tower, Qwen2 decoder, assembly, greedy generation,
@@ -14,6 +15,9 @@ Layers (each module mirrors its ``video3d_tpu`` counterpart):
   eval/      ScanQA-style InferenceEngine and driver loop
   serve/     the continuous batcher (dense rows or paged, shared prefix
              pages)
+  train/     f32-master fine-tuning
+  bench/     the benchmark (``python -m video3d_tpu_torch.bench``), the
+             flagship modes, dense vs paged decode, the HBM probes
 
 The package imports ``torch`` and never ``jax``, and nothing of
 ``video3d_tpu`` (``tests/test_torch_imports.py``).

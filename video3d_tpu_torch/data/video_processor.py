@@ -2,9 +2,11 @@
 pose IO, world-coordinate computation, RGB+coord alignment.
 
 The port's own copy of ``video3d_tpu/data/video_processor.py``: uniform
-sampling and the offline max-coverage JSON as there; on-device max-coverage
-selection for scenes missing from the JSON and packed scene bundles are not
-ported (ROADMAP A11) and raise. Depth PNGs are read with PIL.
+sampling, the offline max-coverage JSON and, for scenes missing from it,
+exact greedy max-coverage selection on the device (``ops/mc_select.py``,
+on ``device``: the first CUDA card unless the caller names one) as there;
+packed scene bundles are not ported (ROADMAP A11) and raise. Depth PNGs are
+read with PIL.
 
 Semantics mirror the reference ``VideoProcessor``
 (the reference llava/video_utils.py:71-358) with a typed config instead of
@@ -85,8 +87,10 @@ class VideoProcessor:
       {metadata_dir}/pcd_discrete_0.1.pkl             (mc 'norm' clamping)
     """
 
-    def __init__(self, cfg: DataConfig, splits=("train", "val", "test")):
+    def __init__(self, cfg: DataConfig, splits=("train", "val", "test"),
+                 device=None):
         self.cfg = cfg
+        self.device = device     # of the on-device mc fallback (None: cuda:0)
         self.scene: Dict[str, dict] = {}
         for split in splits:
             path = os.path.join(cfg.annotation_dir, f"embodiedscan_infos_{split}.pkl")
@@ -148,11 +152,59 @@ class VideoProcessor:
         return [frame_files[i] for i in idx]
 
     def _mc_on_device(self, video_id: str, max_frames: int = 32) -> dict:
-        """The JAX package's on-device exact greedy max-coverage selection
-        for a scene with no offline select-frames entry: not ported."""
-        raise NotImplementedError(
-            f"{video_id}: no select-frames entry; on-device max-coverage "
-            f"selection (ops/mc_select.py) is not ported (ROADMAP A11)")
+        """Exact greedy max-coverage ordering computed on ``self.device``
+        for a scene with no offline select-frames entry (ops/mc_select.py).
+        Same contract as the offline artifact: candidate pool is every
+        2nd frame (all frames when that yields < 32,
+        max_coverage_sampling.py:30-33), per-frame voxels are full-res
+        round(xyz / 0.1) with no clamp, the cover universe is the scene
+        point cloud's voxel set, ties break to the lowest frame index (the
+        offline tool's random tie-break is the one documented deviation);
+        the pool is padded to a multiple of 16 frames outside every scene
+        grid, as the JAX package pads it for its compile cache."""
+        import torch
+
+        from video3d_tpu_torch.ops import geometry
+        from video3d_tpu_torch.ops.mc_select import greedy_select_frames
+        from video3d_tpu_torch.params import resolve_device
+
+        scene_id = video_id.split("/")[-1]
+        if self._pc_voxels is None or scene_id not in self._pc_voxels:
+            raise KeyError(
+                f"{video_id}: no select-frames entry and no scene voxel "
+                f"set in pcd_discrete_0.1.pkl — run "
+                f"scripts/preprocessing/prepare_data.sh step 4")
+        dev = resolve_device(self.device)
+        meta = self.scene[video_id]
+        frame_files = [os.path.join(self.cfg.video_folder, img["img_path"])
+                       for img in meta["images"]][::2]
+        if len(frame_files) < 32:
+            frame_files = [os.path.join(self.cfg.video_folder,
+                                        img["img_path"])
+                           for img in meta["images"]]
+        V = len(frame_files)
+        depths, intr, poses = self.load_frame_geometry(video_id, frame_files)
+        wc = geometry.unproject(torch.from_numpy(intr).to(dev),
+                                torch.from_numpy(poses).to(dev),
+                                torch.from_numpy(depths).to(dev))
+        # 0.1 m: the voxel size of the artifact pair (pcd_discrete_0.1.pkl /
+        # select_frames; the reference's --voxel_size default)
+        fv = torch.round(wc / 0.1).to(torch.int32).reshape(V, -1, 3)
+        Vp = -(-V // 16) * 16
+        if Vp != V:
+            fv = torch.cat([fv, torch.full((Vp - V, fv.shape[1], 3), 2 ** 28,
+                                           dtype=torch.int32, device=dev)])
+        scene_vox = torch.from_numpy(np.asarray(
+            list(self._pc_voxels[scene_id]), dtype=np.int32)).to(dev)
+        order, gains, num_all = greedy_select_frames(
+            fv, scene_vox, max_frames=min(max_frames, Vp))
+        keep = [(int(i), int(g)) for i, g in zip(order.tolist(),
+                                                  gains.tolist())
+                if 0 <= int(i) < V]
+        return {"video_id": video_id,
+                "frame_files": [frame_files[i] for i, _ in keep],
+                "voxel_nums": [g for _, g in keep],
+                "num_all_voxels": int(num_all)}
 
     def sample_frame_files_mc(self, video_id: str,
                               frames_upbound: int = 32) -> List[str]:

@@ -49,11 +49,15 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "decode_attention_int4": 0,
                             "flash_attention_folded_int4": 0,
                             "shared_prefix_attention_int4": 0,
-                            "paged_attention_int4": 0}
+                            "paged_attention_int4": 0,
+                            "stream_probe_kv": 0, "stream_probe_one": 0,
+                            "stream_probe_multi": 0,
+                            "stream_probe_split": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signatures: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
     # depths, scalars, out, V, H, W, crop, new_w, left, grid, patch,
@@ -113,6 +117,10 @@ _SIGNATURES = {
     # x, packed, scales, y, workspace, rows, in_p, out_p, group, splits,
     # stream
     "v3d_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # p0, p1, p2, p3, t, out, checksum, K, step_bytes, stride, rows, vecs,
+    # rows_per_cta, nsteps, nout, rep, sum_form, t_len, elem_bf16, stream
+    "v3d_stream_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]

@@ -212,7 +212,8 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
 
     Without ``kv_cache`` (training, JAX ``qwen2.py:429-431``): causal
     attention over the block's own K/V, keys >= ``kv_len`` masked, through
-    the differentiable :func:`mha_train`.
+    the differentiable :func:`mha_train`, or :func:`mha` where grad mode is
+    off (the benchmark's prefill without a cache).
 
     With ``kv_cache``:
       * ``prefill=True`` writes this chunk's K/V at slots 0..L-1 and attends
@@ -254,7 +255,8 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
         attn = paged_mha(q, cache.k, cache.v, cache.page_table, lens_after,
                          layer_idx, cache.k_scale, cache.v_scale)
     elif kv_cache is None:
-        attn = mha_train(q, k, v, kv_len)
+        attn = (mha_train if torch.is_grad_enabled() else mha)(q, k, v,
+                                                               kv_len)
     elif prefill:
         _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
         # raw K/V, also with a quantized cache (as the JAX prefill)
