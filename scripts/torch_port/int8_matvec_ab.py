@@ -34,7 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 sys.path[:0] = [ROOT, os.path.dirname(os.path.abspath(__file__))]
 
-from flash_prefill_ab import _pick, _sass_functions  # noqa: E402
+from sass_ab import _pick, _sass_functions  # noqa: E402
 
 
 def _build_tree(csrc: str, out_dir: str, tag: str, nvcc: str, flags):

@@ -11,7 +11,7 @@ mini-steps through ``train_step`` (the first a warm-up), then profiles an
 accumulating mini-step and an emitting one (the optimizer update) with
 ``torch.profiler``. Prints, for each, the wall time of its two halves
 (``train_step/loss_and_grads`` and ``train_step/optimizer``), the device
-time per kernel group (B2 with the logsumexp, B6 dQ, B6 dK/dV, matrix
+time per kernel group (B2 with the logsumexp, B6, matrix
 products, softmax, reductions, copies, other elementwise kernels) and the
 device busy share (the kernels' merged intervals over the mini-step's wall
 time). Writes ``chiprun_out/profile_train_step.json``.
@@ -34,8 +34,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
 GROUPS = (("B2 with lse", ("flash_fwd_kernel",)),
-          ("B6 dQ", ("flash_bwd_dq_kernel",)),
-          ("B6 dK/dV", ("flash_bwd_dkv_kernel",)),
+          ("B6", ("flash_bwd_kernel",)),
           ("matrix products", ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                                "cublas", "sm90_")),
           ("softmax", ("softmax", "Softmax")),

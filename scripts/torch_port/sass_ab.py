@@ -29,9 +29,34 @@ import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-sys.path[:0] = [ROOT, os.path.dirname(os.path.abspath(__file__))]
+sys.path.insert(0, ROOT)
 
-from flash_prefill_ab import _sass_functions  # noqa: E402
+
+def _sass_functions(cubin: str, cuobjdump: str) -> dict:
+    """Function name -> list of opcodes of its SASS."""
+    text = subprocess.run([cuobjdump, "-sass", cubin], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(
+            r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and m:
+            funcs[name].append(m.group(2))
+    return funcs
+
+
+def _pick(funcs: dict, pattern: str) -> list:
+    """The opcodes of the one function whose name matches ``pattern``."""
+    names = [n for n in funcs if re.search(pattern, n)]
+    if len(names) != 1:
+        raise RuntimeError(f"{pattern}: {len(names)} of the functions "
+                           f"{sorted(funcs)}")
+    return funcs[names[0]]
 
 
 def _ptxas(log: str) -> dict:

@@ -28,9 +28,11 @@ def normal(rng, *shape):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("L,lengths", [(200, [200, 137]), (128, [128, 1])])
+@pytest.mark.parametrize("L,lengths", [(200, [200, 137]), (128, [128, 1]),
+                                       (129, [129, 128]), (257, [1, 129])])
 def test_flash_plain_matches_jax_kernel(causal, L, lengths):
-    """L not a multiple of the 64-row tile; per-row key lengths."""
+    """L not a multiple of the 64-row tile, or one past the kernel's
+    128-row tile; per-row key lengths at a tile's edges."""
     rng = np.random.default_rng(0)
     B, H, KV, hd = 2, 4, 2, 16
     q, k, v = normal(rng, B, L, H, hd), normal(rng, B, L, KV, hd), \

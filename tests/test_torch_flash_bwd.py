@@ -4,8 +4,8 @@ of B6 (``flash_attention_bwd_plain``) against the JAX package's Pallas
 kernel in interpret mode (its forward's lse and ``jax.grad`` of its custom
 VJP), and ``FlashAttentionFunction`` against autograd through
 ``mha_reference``. All in float32; dQ/dK/dV and lse within 1e-4 of the
-largest reference magnitude (f32 sums in other orders, over up to 200 keys
-and a group of up to 4 heads)."""
+largest reference magnitude (f32 sums in other orders, over up to 257 keys
+and a group of up to 7 heads)."""
 
 import numpy as np
 import pytest
@@ -24,6 +24,10 @@ REL = 1e-4
 CASES = [  # B, L, H, KV, hd, lengths
     (2, 200, 4, 2, 32, [200, 137]),       # L not a block multiple
     (1, 150, 4, 1, 32, [150]),            # a GQA group of 4
+    # one past the kernels' 128-row / 128-key tiles; groups of 1, 7, 4
+    (1, 129, 2, 2, 32, [129]),
+    (2, 257, 7, 1, 32, [1, 128]),
+    (1, 257, 4, 1, 32, [129]),
 ]
 
 

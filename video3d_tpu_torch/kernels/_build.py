@@ -8,6 +8,11 @@ named by a hash of the sources, so an edited kernel never loads a stale
 binary. Nothing here runs at import time: the CPU tests import every module
 of the port on a host without ``nvcc``.
 
+The Hopper kernels that read through TMA (``flash_sm90.cuh``) encode their
+tensor maps with the driver's ``cuTensorMapEncodeTiled``, which they get
+from ``cudaGetDriverEntryPoint``: the library links the CUDA runtime only,
+no ``-lcuda``.
+
 Each C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception. :data:`LAUNCHES` counts kernel launches per wrapper, so a caller
@@ -42,8 +47,7 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "flash_attention_folded_int8": 0,
                             "shared_prefix_attention_int8": 0,
                             "flash_attention_lse": 0,
-                            "flash_attention_bwd_dq": 0,
-                            "flash_attention_bwd_dkv": 0,
+                            "flash_attention_bwd": 0,
                             "paged_attention": 0, "paged_attention_int8": 0,
                             "int8_matmul": 0, "int4_matmul": 0,
                             "decode_attention_int4": 0,
@@ -95,14 +99,10 @@ _SIGNATURES = {
     # q, k, v, lengths, out, lse, B, L, S, H, KV, causal, sm_scale, stream
     "v3d_flash_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _P],
-    # q, k, v, dout, lse, delta, lengths, dq, B, L, S, H, KV, causal,
-    # sm_scale, stream
-    "v3d_flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _I, _I, _F, _P],
-    # q, k, v, dout, lse, delta, lengths, dk, dv, B, L, S, H, KV, causal,
-    # sm_scale, stream
-    "v3d_flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, dout, rows (lse and delta), lengths, dq (f32 scratch), dk,
+    # dv, B, L, S, H, KV, causal, sm_scale, stream
+    "v3d_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _F, _P],
     # q, k_pages, v_pages, table, kv_len, out, part_m, part_l, part_acc,
     # layer, B, P, page, maxp, H, KV, n_chunks, sm_scale, stream
     "v3d_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

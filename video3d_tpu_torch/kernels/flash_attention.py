@@ -17,14 +17,18 @@ instantiation and counts under its own ``*_int8`` / ``*_int4`` name.
 Training: :class:`FlashAttentionFunction` (entry :func:`flash_attention_train`)
 is the counterpart of the JAX custom VJP ``_flash_core``: its forward runs B2
 with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
-``flash_attention_lse``), its backward the two B6 kernels
+``flash_attention_lse``), its backward the fused B6 kernel
 (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
-``flash_attention_bwd_dq`` and ``flash_attention_bwd_dkv``), on the CPU
-their plain versions.
+``flash_attention_bwd``), on the CPU their plain versions.
+
+B2's prefill form and B6 are Hopper kernels fed by TMA: their C entries
+take the shapes, encode the tensor maps from the kernels' own tile sizes
+and plan the grids.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -36,6 +40,7 @@ from video3d_tpu_torch.kernels.decode_attention import (CACHE_FORMS,
                                                         check_cache, layer_kv)
 
 HEAD_DIM = 128   # the kernels' compiled head dim
+LOG2E = math.log2(math.e)
 
 
 def _check_dtype(name: str, device, dtype, **tensors) -> None:
@@ -64,6 +69,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return mha_reference(q, k, v, causal=causal, kv_len=lengths)
 
 
+def rows_len(L: int) -> int:
+    """L rounded up to 4: f32 rows of a TMA map need 16-byte strides (B6's
+    C entry assumes the same length)."""
+    return -(-L // 4) * 4
+
+
+def bwd_rows(lse: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """B6's per-row inputs in one f32 (B, H, 2, rows_len(L)) tensor: lse *
+    log2(e) (the kernel's exponentials are base 2), then delta; zero past
+    L."""
+    B, H, L = lse.shape
+    rows = torch.zeros(B, H, 2, rows_len(L), dtype=torch.float32,
+                       device=lse.device)
+    rows[:, :, 0, :L] = lse * LOG2E
+    rows[:, :, 1, :L] = delta
+    return rows
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None,
                     causal: bool = True) -> torch.Tensor:
@@ -76,24 +99,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, lengths, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    B, L, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
-    _check_bf16("flash_attention", q.device, q=q, k=k, v=v)
-    if hd != HEAD_DIM or v.shape != k.shape or k.shape[0] != B \
-            or S != L or H % KV:
-        raise ValueError(f"flash_attention: unsupported shapes q "
-                         f"{tuple(q.shape)} k {tuple(k.shape)}")
     if lengths is None:
-        lengths = torch.full((B,), S, dtype=torch.int32, device=q.device)
+        lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                             device=q.device)
+    out, _ = _fwd_launch(_build.library(), _stream(q.device), q, k, v,
+                         lengths, causal, with_lse=False)
+    return out
+
+
+def _fwd_launch(lib, stream: int, q, k, v, lengths, causal: bool,
+                with_lse: bool):
+    """Launch B2's prefill form (``with_lse``: its training instantiation)
+    through ``lib``: (out, lse or None)."""
+    name = "flash_attention_lse" if with_lse else "flash_attention"
+    B, L, H, hd = _check_train(name, q, k, v)
+    KV = k.shape[2]
     lengths = _int32(lengths, q.device)
     out = torch.empty_like(q)
-    err = _build.library().v3d_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, L, S, H, KV, int(causal), float(hd ** -0.5),
-        _stream(q.device))
-    _build.check(err, "flash_attention")
-    _build.count_launch("flash_attention")
-    return out
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr()) + ((lse.data_ptr(),) if with_lse else ())
+    err = getattr(lib, "v3d_" + name)(
+        *ptrs, B, L, L, H, KV, int(causal),
+        float(hd ** -0.5), stream)
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out, lse
 
 
 def flash_attention_gqa_folded_plain(q: torch.Tensor, k_all: torch.Tensor,
@@ -269,18 +301,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device "
                          f"{q.device}")
-    B, L, H, hd = _check_train("flash_attention_fwd", q, k, v)
-    S, KV = k.shape[1], k.shape[2]
-    lengths = _int32(lengths, q.device)
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
-    err = _build.library().v3d_flash_attention_lse(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), B, L, S, H, KV, int(causal),
-        float(hd ** -0.5), _stream(q.device))
-    _build.check(err, "flash_attention_lse")
-    _build.count_launch("flash_attention_lse")
-    return out, lse
+    return _fwd_launch(_build.library(), _stream(q.device), q, k, v, lengths,
+                       causal, with_lse=True)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -325,68 +347,52 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`flash_attention_fwd`: (dq, dk, dv). On the GPU,
-    delta = rowsum(dO * O) in f32 (outside the kernels, as JAX computes
-    it), then B6's dQ kernel and its dK/dV kernel, which sums each kv
-    head's group inside; the plain version on the CPU."""
+    delta = rowsum(dO * O) in f32 (outside the kernel, as JAX computes
+    it), then B6, one kernel that sums each kv head's group inside; the
+    plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, lengths,
                                          causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
-    delta = bwd_delta(out, do)
-    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, lengths, causal),
-            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, lengths,
-                                     causal))
+    return _bwd_launch(_build.library(), _stream(q.device), q, k, v, do, lse,
+                       bwd_delta(out, do), lengths, causal)
 
 
 def bwd_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """delta (B, H, L) f32 = rowsum(dO * O) of (B, L, H, hd) tensors."""
-    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    """delta (B, H, L) f32 = rowsum(dO * O) of (B, L, H, hd) tensors, the
+    products in f32 (one f32 copy of dO, multiplied in place)."""
+    prod = do.to(torch.float32, copy=True)
+    prod.mul_(out)
+    return prod.sum(-1).transpose(1, 2).contiguous()
 
 
-def _bwd_args(name, q, k, v, do, lse, delta, lengths, causal):
+def _bwd_launch(lib, stream: int, q, k, v, do, lse, delta, lengths,
+                causal: bool):
+    """Launch B6 through ``lib``: (dq, dk, dv) bf16. dQ is summed over the
+    key tiles by TMA reduce-adds into a zeroed (B, L, H, hd) f32 scratch,
+    rounded to bf16 after."""
+    name = "flash_attention_bwd"
     B, L, H, hd = _check_train(name, q, k, v)
+    KV = k.shape[2]
     _check_bf16(name, q.device, do=do)
     _check_dtype(name, q.device, torch.float32, lse=lse, delta=delta)
     if do.shape != q.shape or lse.shape != (B, H, L) \
             or delta.shape != lse.shape:
         raise ValueError(f"{name}: do / lse / delta shapes")
     lengths = _int32(lengths, q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), lengths.data_ptr())
-    dims = (B, L, k.shape[1], H, k.shape[2], int(causal), float(hd ** -0.5),
-            _stream(q.device))
-    # the lengths tensor must live until the launch is enqueued
-    return ptrs, dims, lengths
-
-
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, lengths,
-                           causal: bool = True) -> torch.Tensor:
-    """B6's dQ kernel: dq (B, L, H, hd) bf16 (CUDA tensors only)."""
-    ptrs, dims, _keep = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse,
-                                  delta, lengths, causal)
-    dq = torch.empty_like(q)
-    err = _build.library().v3d_flash_attention_bwd_dq(*ptrs, dq.data_ptr(),
-                                                      *dims)
-    _build.check(err, "flash_attention_bwd_dq")
-    _build.count_launch("flash_attention_bwd_dq")
-    return dq
-
-
-def flash_attention_bwd_dkv(q, k, v, do, lse, delta, lengths,
-                            causal: bool = True
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B6's dK/dV kernel, the GQA group summed inside: (dk, dv) (B, S, KV,
-    hd) bf16 (CUDA tensors only)."""
-    ptrs, dims, _keep = _bwd_args("flash_attention_bwd_dkv", q, k, v, do,
-                                  lse, delta, lengths, causal)
+    rows = bwd_rows(lse, delta)
+    dq = torch.zeros(B, L, H, hd, dtype=torch.float32, device=q.device)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.library().v3d_flash_attention_bwd_dkv(
-        *ptrs, dk.data_ptr(), dv.data_ptr(), *dims)
-    _build.check(err, "flash_attention_bwd_dkv")
-    _build.count_launch("flash_attention_bwd_dkv")
-    return dk, dv
+    err = lib.v3d_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        rows.data_ptr(), lengths.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, L, L, H, KV, int(causal),
+        float(hd ** -0.5), stream)
+    _build.check(err, name)
+    _build.count_launch(name)
+    return dq.to(q.dtype), dk, dv
 
 
 def _check_train(name: str, q: torch.Tensor, k: torch.Tensor,
