@@ -22,6 +22,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    byte) at the same shapes; paged decode attention (B7, bf16, int8 and
    int4 pools) at the paged batcher's shapes (8 slots aliasing a 52-page
    scene prefix);
+   B2 folded and B5 (all three forms) also at the cases that exercise their
+   splits over keys (a split boundary inside the chunk's own keys, a batch
+   row with empty splits, B5 at B=2) and 128-row tiles that straddle batch
+   rows, each case called twice and held to the same bits;
    the training kernels at the training shapes: B2 with
    the per-row logsumexp and the fused flash backward B6; the
    weight-streaming kernels at the decode projections' shapes: B4's B>1
@@ -139,22 +143,22 @@ KERNEL_INFO = {
                        "video3d_tpu/kernels/fused_geometry.py:41"),
     "flash_attention": ("video3d_tpu_torch/csrc/flash_attention.cu",
                         "video3d_tpu/kernels/flash_attention.py:64"),
-    "flash_attention_folded": ("video3d_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_folded": ("video3d_tpu_torch/csrc/chunk_sm90.cuh",
                                "video3d_tpu/kernels/flash_attention.py:64"),
     "decode_attention": ("video3d_tpu_torch/csrc/decode_attention.cu",
                          "video3d_tpu/kernels/decode_attention.py:68"),
     "shared_prefix_attention": (
-        "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
+        "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:503"),
     "int8_matvec": ("video3d_tpu_torch/csrc/int8_matvec.cu",
                     "video3d_tpu/kernels/quant_matvec.py:100"),
     "decode_attention_int8": ("video3d_tpu_torch/csrc/decode_attention.cu",
                               "video3d_tpu/kernels/decode_attention.py:68"),
     "flash_attention_folded_int8": (
-        "video3d_tpu_torch/csrc/flash_attention.cu",
+        "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:64"),
     "shared_prefix_attention_int8": (
-        "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
+        "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:503"),
     "flash_attention_lse": ("video3d_tpu_torch/csrc/flash_attention.cu",
                             "video3d_tpu/kernels/flash_attention.py:64"),
@@ -172,10 +176,10 @@ KERNEL_INFO = {
     "decode_attention_int4": ("video3d_tpu_torch/csrc/decode_attention.cu",
                               "video3d_tpu/kernels/decode_attention.py:68"),
     "flash_attention_folded_int4": (
-        "video3d_tpu_torch/csrc/flash_attention.cu",
+        "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:64"),
     "shared_prefix_attention_int4": (
-        "video3d_tpu_torch/csrc/shared_prefix_attention.cu",
+        "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:503"),
     "paged_attention_int4": ("video3d_tpu_torch/csrc/paged_attention.cu",
                              "video3d_tpu/kernels/paged_attention.py:60"),
@@ -576,10 +580,34 @@ def check_decode(dev):
     ), bound, _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50)
 
 
+# B2 folded's cases (L, offsets, kv_len): the B=1 prefix-hit shape; two
+# batch rows; a 256-query bucket; a chunk whose own keys hold a boundary
+# between two splits over keys (8 splits of 3 key tiles: key 256); a batch
+# row so short that some of its splits hold no key tile
+FOLDED_CASES = ((64, [6716], [6756]), (64, [6716, 5000], [6756, 5064]),
+                (256, [6716], [6916]), (64, [200], [264]),
+                (64, [6716, 100], [6756, 164]))
+# B5's cases (P, suffix_lens) at L=64: B=8, whose 128-row CTAs straddle
+# batch rows (448 rows per batch row); B=3 with P not a multiple of the key
+# tile; B=2, whose prefix pass splits over keys
+PREFIX_CASES = ((6716, [64, 40, 17, 64, 33, 50, 8, 60]), (1000, [64, 1, 45]),
+                (6716, [64, 23]))
+
+
+def _check_repeat(name: str, fn, out) -> None:
+    """A second call on the same inputs gives the same bits (the splits
+    merge in a fixed order)."""
+    import torch
+
+    same = bool(torch.equal(fn(), out))
+    _check(f"{name} repeat", same, f"bit-identical to the first call: {same}")
+
+
 def check_folded(dev):
     """B2 folded at the B=1 prefix-hit shape: a 64-token suffix bucket at
-    position ~6716 of a stacked 28-layer cache of 8224 slots; controls: the
-    chunk's causal mask dropped, the first key tile skipped."""
+    position ~6716 of a stacked 28-layer cache of 8224 slots, and the other
+    FOLDED_CASES; controls: the chunk's causal mask dropped, the first key
+    tile skipped; each case called twice, bit for bit."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
@@ -587,9 +615,7 @@ def check_folded(dev):
     g = torch.Generator(device=dev).manual_seed(4)
     NL, H, KV, hd, S, layer = 28, 28, 4, 128, 8224, 27
     worst, timed = 0.0, None
-    for L, offs, lens in ((64, [6716], [6756]),
-                          (64, [6716, 5000], [6756, 5064]),
-                          (256, [6716], [6916])):
+    for L, offs, lens in FOLDED_CASES:
         B = len(offs)
         q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
         q[..., 0] += FOCUS
@@ -615,6 +641,7 @@ def check_folded(dev):
         _check(name, err <= BF16_ATOL and finite,
                f"max |d| {err:.2e} on rows below kv_len, finite={finite} "
                f"(the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: fa.flash_attention_gqa_folded(*args), out)
         _check_controls(name, ref, rows, {
             # every row sees the whole chunk
             "no causal mask in the chunk": fa.flash_attention_gqa_folded_plain(
@@ -664,9 +691,9 @@ def _folded_sdpa_ms(q, k_all, v_all, lens, offs, layer, KV, ks=None,
 
 def check_shared_prefix(dev):
     """B5 at the B=8 suffix-batch shape (64-token bucket, ~6716-token
-    prefix, ragged suffix lengths), and B=3 with P not a multiple of 64;
-    controls: the suffix dropped, its causal mask dropped, the first prefix
-    tile skipped."""
+    prefix, ragged suffix lengths), and the other PREFIX_CASES; controls:
+    the suffix dropped, its causal mask dropped, the first prefix tile
+    skipped; each case called twice, bit for bit."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
@@ -676,8 +703,7 @@ def check_shared_prefix(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     H, KV, hd, L = 28, 4, 128, 64
     worst, timed = 0.0, None
-    for P, slens in ((6716, [64, 40, 17, 64, 33, 50, 8, 60]),
-                     (1000, [64, 1, 45])):
+    for P, slens in PREFIX_CASES:
         B = len(slens)
         q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
         q[..., 0] += FOCUS
@@ -702,6 +728,8 @@ def check_shared_prefix(dev):
         _check(name, err <= BF16_ATOL and finite,
                f"max |d| {err:.2e} on rows below suffix_lens, "
                f"finite={finite} (the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: fa.flash_attention_shared_prefix(*args),
+                      out)
         k = torch.cat([pk.expand(B, P, KV, hd), sk], 1).float()
         v = torch.cat([pv.expand(B, P, KV, hd), sv], 1).float()
         _check_controls(name, ref, slens, {
@@ -1069,10 +1097,10 @@ def check_decode_int8(dev, bits: int = 8):
 
 
 def check_folded_int8(dev, bits: int = 8):
-    """B2 folded int8 (bits 4: int4) at the B=1 prefix-hit shapes of the
-    bf16 check, over a quantized stacked cache; controls: the two scale
-    controls, the chunk's causal mask dropped and (int4) the nibbles of
-    each byte swapped."""
+    """B2 folded int8 (bits 4: int4) at the bf16 check's FOLDED_CASES,
+    over a quantized stacked cache; controls: the two scale controls, the
+    chunk's causal mask dropped and (int4) the nibbles of each byte
+    swapped; each case called twice, bit for bit."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
@@ -1081,9 +1109,7 @@ def check_folded_int8(dev, bits: int = 8):
     NL, H, KV, hd, S = CACHE_LAYERS, 28, 4, 128, 8224
     layer = NL - 1
     worst, timed = 0.0, None
-    for L, offs, lens in ((64, [6716], [6756]),
-                          (64, [6716, 5000], [6756, 5064]),
-                          (256, [6716], [6916])):
+    for L, offs, lens in FOLDED_CASES:
         B = len(offs)
         q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
         q[..., 0] += FOCUS
@@ -1114,6 +1140,7 @@ def check_folded_int8(dev, bits: int = 8):
         _check(name, err <= BF16_ATOL and finite,
                f"max |d| {err:.2e} on rows below kv_len, finite={finite} "
                f"(the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: fa.flash_attention_gqa_folded(*args), out)
         controls = {
             "scales one position off": fa.flash_attention_gqa_folded_plain(
                 qf, k8, v8, lens_t, offs_t, layer, KV,
@@ -1140,10 +1167,10 @@ def check_folded_int8(dev, bits: int = 8):
 
 
 def check_shared_prefix_int8(dev, bits: int = 8):
-    """B5 int8 (bits 4: int4) at the B=8 suffix-batch shape (a quantized
-    prefix of 6716 positions with scales, raw bf16 suffixes) and at B=3,
-    P=1000; controls: the two scale controls, the suffix dropped and (int4)
-    the nibbles of each byte swapped."""
+    """B5 int8 (bits 4: int4) at the bf16 check's PREFIX_CASES (a
+    quantized prefix with scales, raw bf16 suffixes); controls: the two
+    scale controls, the suffix dropped and (int4) the nibbles of each byte
+    swapped; each case called twice, bit for bit."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
@@ -1153,8 +1180,7 @@ def check_shared_prefix_int8(dev, bits: int = 8):
     g = torch.Generator(device=dev).manual_seed(9 if bits == 8 else 19)
     H, KV, hd, L = 28, 4, 128, 64
     worst, timed = 0.0, None
-    for P, slens in ((6716, [64, 40, 17, 64, 33, 50, 8, 60]),
-                     (1000, [64, 1, 45])):
+    for P, slens in PREFIX_CASES:
         B = len(slens)
         q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
         q[..., 0] += FOCUS
@@ -1181,6 +1207,8 @@ def check_shared_prefix_int8(dev, bits: int = 8):
         _check(name, err <= BF16_ATOL and finite,
                f"max |d| {err:.2e} on rows below suffix_lens, "
                f"finite={finite} (the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: fa.flash_attention_shared_prefix(*args),
+                      out)
         controls = {
             "scales one position off": mha_shared_prefix_reference(
                 qf, pk8, pv8, sk, sv, slens_t, torch.roll(pks, 1, dims=0),

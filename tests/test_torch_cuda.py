@@ -110,10 +110,15 @@ def test_decode_kernel(dev):
     assert float((got.float() - ref.float()).abs().max()) <= BF16_ATOL
 
 
-@pytest.mark.parametrize("H,KV,L,offs,lens", [
+FOLDED_PARAMS = [
     (28, 4, 64, [700], [740]),                 # the B=1 prefix-hit shape
     (8, 2, 100, [300, 37], [400, 100]),        # ragged, rows over 3 tiles
-])
+    (28, 4, 64, [200], [264]),        # a split boundary in the chunk's keys
+    (28, 4, 64, [700, 100], [740, 164]),       # a row with empty splits
+]
+
+
+@pytest.mark.parametrize("H,KV,L,offs,lens", FOLDED_PARAMS)
 def test_folded_kernel(dev, H, KV, L, offs, lens):
     g = torch.Generator(device=dev).manual_seed(3)
     NL, S, hd, layer = 2, 800, 128, 1
@@ -131,6 +136,9 @@ def test_folded_kernel(dev, H, KV, L, offs, lens):
     got = _launched("flash_attention_folded",
                     lambda: fa.flash_attention_gqa_folded(
                         q, k_all, v_all, lens_t, offs_t, layer, KV))
+    # the splits merge in a fixed order: a second call gives the same bits
+    assert torch.equal(got, fa.flash_attention_gqa_folded(
+        q, k_all, v_all, lens_t, offs_t, layer, KV))
     # the plain version on the same values in f32 (the bf16 one rounds the
     # scores to bf16, by itself more than BF16_ATOL at peaked attention)
     ref = fa.flash_attention_gqa_folded_plain(q.float(), k_all, v_all, lens_t,
@@ -146,8 +154,9 @@ def test_folded_kernel(dev, H, KV, L, offs, lens):
 
 @pytest.mark.parametrize("B,L,P,H,KV", [
     (2, 64, 300, 28, 4),       # P not a multiple of 64
-    (8, 64, 1000, 28, 4),
+    (8, 64, 1000, 28, 4),      # 128-row CTAs straddle batch rows
     (3, 20, 130, 8, 2),        # 64-row tiles cross batch rows
+    (2, 64, 2000, 28, 4),      # the prefix split over keys
 ])
 def test_shared_prefix_kernel(dev, B, L, P, H, KV):
     g = torch.Generator(device=dev).manual_seed(4)
@@ -166,6 +175,8 @@ def test_shared_prefix_kernel(dev, B, L, P, H, KV):
     got = _launched("shared_prefix_attention",
                     lambda: fa.flash_attention_shared_prefix(
                         q, pk, pv, sk, sv, slens_t))
+    assert torch.equal(got, fa.flash_attention_shared_prefix(
+        q, pk, pv, sk, sv, slens_t))
     ref = mha_shared_prefix_reference(q.float(), pk, pv, sk, sv, slens_t)
     assert bool(torch.isfinite(got.float()).all())
     assert _rows_err(got, ref, slens) <= BF16_ATOL
@@ -339,10 +350,7 @@ def test_decode_int8_kernel(dev, bits):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("H,KV,L,offs,lens", [
-    (28, 4, 64, [700], [740]),                 # the B=1 prefix-hit shape
-    (8, 2, 100, [300, 37], [400, 100]),        # ragged, rows over 3 tiles
-])
+@pytest.mark.parametrize("H,KV,L,offs,lens", FOLDED_PARAMS)
 def test_folded_int8_kernel(dev, H, KV, L, offs, lens, bits):
     g = torch.Generator(device=dev).manual_seed(7)
     NL, S, hd, layer = 2, 800, 128, 1
@@ -361,6 +369,8 @@ def test_folded_int8_kernel(dev, H, KV, L, offs, lens, bits):
     got = _launched(f"flash_attention_folded_int{bits}",
                     lambda: fa.flash_attention_gqa_folded(
                         q, k8, v8, lens_t, offs_t, layer, KV, ks, vs))
+    assert torch.equal(got, fa.flash_attention_gqa_folded(
+        q, k8, v8, lens_t, offs_t, layer, KV, ks, vs))
     ref = fa.flash_attention_gqa_folded_plain(q.float(), k8, v8, lens_t,
                                               offs_t, layer, KV, ks, vs)
     rows = [min(L, n - o) for o, n in zip(offs, lens)]
@@ -379,8 +389,9 @@ def test_folded_int8_kernel(dev, H, KV, L, offs, lens, bits):
 
 @pytest.mark.parametrize("bits", [8, 4])
 @pytest.mark.parametrize("B,L,P,H,KV", [
-    (8, 64, 1000, 28, 4),
+    (8, 64, 1000, 28, 4),      # 128-row CTAs straddle batch rows
     (3, 20, 130, 8, 2),        # 64-row tiles cross batch rows
+    (2, 64, 2000, 28, 4),      # the prefix split over keys
 ])
 def test_shared_prefix_int8_kernel(dev, B, L, P, H, KV, bits):
     g = torch.Generator(device=dev).manual_seed(8)
@@ -402,6 +413,8 @@ def test_shared_prefix_int8_kernel(dev, B, L, P, H, KV, bits):
     got = _launched(f"shared_prefix_attention_int{bits}",
                     lambda: fa.flash_attention_shared_prefix(
                         q, pk8, pv8, sk, sv, slens_t, pks, pvs))
+    assert torch.equal(got, fa.flash_attention_shared_prefix(
+        q, pk8, pv8, sk, sv, slens_t, pks, pvs))
     ref = mha_shared_prefix_reference(q.float(), pk8, pv8, sk, sv, slens_t,
                                       pks, pvs)
     assert bool(torch.isfinite(got.float()).all())

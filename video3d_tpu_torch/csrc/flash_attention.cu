@@ -41,26 +41,18 @@
 // stores it by TMA, which skips rows past L. GQA by kv head = h / (H / KV);
 // rows >= length give finite garbage, the JAX contract.
 //
-// Folded design (tile machinery in flash_tile.cuh): one 128-thread block
-// per (64-row query tile, batch row, kv head); the `group` = H / KV query
-// heads of one kv head fold into the rows (row r*group + g is query r of
-// head kvh*group + g, at position q_off[b] + r), so each K/V tile of the
-// cache is read once for all the group's heads, which is the point of
-// folding. K and V are read straight out of the stacked cache by strides,
-// with no per-layer slice copy, staged in shared memory once for all 64
-// rows and zero-filled past the last key. An int8 cache (one template on
-// the element type) halves the stream; its tiles are converted to bf16
-// while staged and the scales of `layer` are read by strides
-// (flash_tile.cuh, stage_kv_int8 / attend_tile<true>). An int4 cache (the
-// tag type v3d_nib4: byte offsets are half the element offsets) quarters
-// it and is staged by stage_kv_int4 into the same bf16 tile. The folded
-// form still runs on WMMA with synchronous staging.
+// Folded design (chunk_sm90.cuh, shared with B5): the `group` = H / KV
+// query heads of one kv head fold into the rows (row r*group + g is query
+// r of head kvh*group + g, at position q_off[b] + r), so each K/V tile of
+// the cache is read once for all the group's heads, which is the point of
+// folding; 128 rows per CTA, K and V by TMA straight out of the stacked
+// cache (an int8 or int4 tile converted to bf16 by the producer
+// warpgroup), wgmma with softmax and O in registers, and a split over keys
+// planned by the wrapper where the row tiles alone do not fill the card.
 #include <type_traits>
 
+#include "chunk_sm90.cuh"
 #include "flash_sm90.cuh"
-#include "flash_tile.cuh"
-
-using namespace v3d_flash;
 
 namespace {
 
@@ -309,67 +301,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,   // (B, L, H, hd)
 
 }  // namespace pf
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_folded_kernel(const bf16* __restrict__ q,       // (B, L, H, hd)
-                    const T* __restrict__ k_all,      // (NL, B, S, KV*hd)
-                    const T* __restrict__ v_all,
-                    const float* __restrict__ k_scale,  // (NL, B, S, KV) or
-                    const float* __restrict__ v_scale,  // null (bf16)
-                    const int* __restrict__ lengths,  // (B,) valid slots
-                    const int* __restrict__ q_off,    // (B,) position of row 0
-                    bf16* __restrict__ out,           // (B, L, H, hd)
-                    int layer, int B, int L, int S, int H, int KV,
-                    float sm_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Tiles t = carve(smem);
-
-  const int G = H / KV, R = L * G;
-  const int b = blockIdx.y / KV, kvh = blockIdx.y % KV;
-  const int q0 = blockIdx.x * kBq;
-  const int off = q_off[b];
-  const int length = min(lengths[b], S);
-  const long long stride = (long long)KV * kHd;
-  const long long cache_off = ((long long)layer * B + b) * S * stride + kvh * kHd;
-  const long long scale_off = ((long long)layer * B + b) * S * KV + kvh;
-  const long long head_off = ((long long)b * L * H + kvh * G) * kHd;
-  // folded row i -> element offset of query i / G of head kvh * G + i % G
-  auto row_off = [=](int i) -> long long {
-    return head_off + ((long long)(i / G) * H + i % G) * kHd;
-  };
-
-  load_rows(t.q, [&](int r) -> const bf16* {
-    return q0 + r < R ? q + row_off(q0 + r) : nullptr;
-  });
-  zero_output(t);
-  __syncthreads();
-  QFrag qf[kHd / 16];
-  load_q_frags(t, qf);
-  RowState st = row_state();
-  const int fr = q0 + st.row;
-  const int row_pos = off + fr / G;
-
-  const int last = min(q0 + kBq, R) - 1;
-  const int kend = min(off + last / G + 1, length);
-  auto ok = [&](int col) { return col < length && col <= row_pos; };
-  for (int k0 = 0; k0 < kend; k0 += kBk) {
-    if constexpr (std::is_same<T, int8_t>::value) {
-      stage_kv_int8(t, k_all + cache_off, v_all + cache_off, stride,
-                    k_scale + scale_off, v_scale + scale_off, KV, k0, S);
-      attend_tile<true>(t, qf, st, k0, sm_scale, ok);
-    } else if constexpr (std::is_same<T, v3d_nib4>::value) {
-      stage_kv_int4(t, k_all + cache_off / 2, v_all + cache_off / 2,
-                    stride / 2, k_scale + scale_off, v_scale + scale_off, KV,
-                    k0, S);
-      attend_tile<true>(t, qf, st, k0, sm_scale, ok);
-    } else {
-      stage_kv(t, k_all + cache_off, v_all + cache_off, stride, k0, S);
-      attend_tile(t, qf, st, k0, sm_scale, ok);
-    }
-  }
-  if (fr < R) store_row(t, st, out + row_off(fr));
-}
-
 }  // namespace
 
 namespace {
@@ -428,55 +359,63 @@ int launch_folded(const void* q, const void* k_all, const void* v_all,
                   const void* k_scale, const void* v_scale,
                   const void* lengths, const void* q_off, void* out,
                   int layer, int B, int L, int S, int H, int KV,
-                  float sm_scale, void* stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_folded_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  if (KV <= 0 || H % KV != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || L <= 0) return 0;
-  const int R = L * (H / KV);
-  dim3 grid((R + kBq - 1) / kBq, B * KV);
-  flash_folded_kernel<T><<<grid, kThreads, kSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const T*>(k_all),
-      static_cast<const T*>(v_all), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
-      static_cast<const int*>(q_off), static_cast<bf16*>(out), layer, B, L,
-      S, H, KV, sm_scale);
-  return static_cast<int>(cudaGetLastError());
+                  float sm_scale, void* ws, long long ws_bytes,
+                  void* counters, int splits, void* stream) {
+  if (layer < 0) return static_cast<int>(cudaErrorInvalidValue);
+  v3d_chunk::Params p{};
+  p.q = static_cast<const v3d_sm90::bf16*>(q);
+  p.out = static_cast<v3d_sm90::bf16*>(out);
+  p.ks = static_cast<const float*>(k_scale);
+  p.vs = static_cast<const float*>(v_scale);
+  p.lengths = static_cast<const int*>(lengths);
+  p.q_off = static_cast<const int*>(q_off);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
+  p.B = B;
+  p.L = L;
+  p.H = H;
+  p.KV = KV;
+  p.S = S;
+  p.layer = layer;
+  p.splits = splits;
+  p.scale_log2 = sm_scale * v3d_chunk::kLog2e;
+  // the stacked cache: layer `layer` of (NL, B, S, KV * hd) by strides
+  return v3d_chunk::launch<false, T>(p, k_all, v_all, nullptr, nullptr,
+                                     static_cast<long long>(layer + 1) * B,
+                                     ws_bytes, stream);
 }
 
 }  // namespace
 
-extern "C" int v3d_flash_attention_folded(const void* q, const void* k_all,
-                                          const void* v_all,
-                                          const void* lengths,
-                                          const void* q_off, void* out,
-                                          int layer, int B, int L, int S,
-                                          int H, int KV, float sm_scale,
-                                          void* stream) {
-  return launch_folded<bf16>(q, k_all, v_all, nullptr, nullptr, lengths,
-                             q_off, out, layer, B, L, S, H, KV, sm_scale,
-                             stream);
+// ws: splits > 1, the workspace of v3d_chunk::workspace_floats, ws_bytes
+// its size; counters: splits > 1, one zeroed int per row tile (the kernel
+// leaves them zeroed); splits: over keys (1: none)
+extern "C" int v3d_flash_attention_folded(
+    const void* q, const void* k_all, const void* v_all, const void* lengths,
+    const void* q_off, void* out, int layer, int B, int L, int S, int H,
+    int KV, float sm_scale, void* ws, long long ws_bytes, void* counters,
+    int splits, void* stream) {
+  return launch_folded<v3d_sm90::bf16>(
+      q, k_all, v_all, nullptr, nullptr, lengths, q_off, out, layer, B, L, S,
+      H, KV, sm_scale, ws, ws_bytes, counters, splits, stream);
 }
 
 extern "C" int v3d_flash_attention_folded_int8(
     const void* q, const void* k_all, const void* v_all, const void* k_scale,
     const void* v_scale, const void* lengths, const void* q_off, void* out,
-    int layer, int B, int L, int S, int H, int KV, float sm_scale,
-    void* stream) {
+    int layer, int B, int L, int S, int H, int KV, float sm_scale, void* ws,
+    long long ws_bytes, void* counters, int splits, void* stream) {
   return launch_folded<int8_t>(q, k_all, v_all, k_scale, v_scale, lengths,
                                q_off, out, layer, B, L, S, H, KV, sm_scale,
-                               stream);
+                               ws, ws_bytes, counters, splits, stream);
 }
 
 extern "C" int v3d_flash_attention_folded_int4(
     const void* q, const void* k_all, const void* v_all, const void* k_scale,
     const void* v_scale, const void* lengths, const void* q_off, void* out,
-    int layer, int B, int L, int S, int H, int KV, float sm_scale,
-    void* stream) {
+    int layer, int B, int L, int S, int H, int KV, float sm_scale, void* ws,
+    long long ws_bytes, void* counters, int splits, void* stream) {
   return launch_folded<v3d_nib4>(q, k_all, v_all, k_scale, v_scale, lengths,
                                  q_off, out, layer, B, L, S, H, KV, sm_scale,
-                                 stream);
+                                 ws, ws_bytes, counters, splits, stream);
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) machinery shared by the flash kernels B2 (prefill and
-// with the logsumexp, flash_attention.cu) and B6 (flash_attention_bwd.cu):
+// with the logsumexp, flash_attention.cu), B6 (flash_attention_bwd.cu) and
+// the cached-chunk kernels, B2 folded and B5 (chunk_sm90.cuh):
 // TMA tensor maps (host) and tile copies, mbarriers, named barriers,
 // register reallocation between warpgroups, and warpgroup MMAs (wgmma)
 // with their shared-memory descriptors.
@@ -71,16 +72,16 @@ inline EncodeTiled encode_tiled() {
 
 // The 4-D tensor map of the contiguous tensor at `base`, with `dims`
 // innermost first (its byte strides follow from them), read or written in
-// boxes of `box` (innermost first): elem_bytes 2 (bf16) or 4 (f32);
-// swizzled: the 128-byte swizzle of the layout convention above, whose box
-// rows are 128 bytes. Elements past the tensor read as zeros and are not
-// written. 0 or a cudaError_t.
+// boxes of `box` (innermost first): elem_bytes 1 (bytes of an int8 or a
+// packed int4 cache), 2 (bf16) or 4 (f32); swizzled: the 128-byte swizzle
+// of the layout convention above, whose box rows are 128 bytes. Elements
+// past the tensor read as zeros and are not written. 0 or a cudaError_t.
 inline int encode_map(CUtensorMap* map, const void* base, int elem_bytes,
                       bool swizzled, const long long (&dims)[4],
                       const int (&box)[4]) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  if ((elem_bytes != 2 && elem_bytes != 4) ||
+  if ((elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4) ||
       (swizzled && box[0] * elem_bytes != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   cuuint64_t gdims[4], strides[3];
@@ -92,8 +93,9 @@ inline int encode_map(CUtensorMap* map, const void* base, int elem_bytes,
     if (i < 3) strides[i] = step *= gdims[i];
   }
   const CUresult r = fn(
-      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                           : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+      map, elem_bytes == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+           : elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
       4, const_cast<void*>(base), gdims, strides, gbox, ones,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,

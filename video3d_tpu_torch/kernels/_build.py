@@ -72,16 +72,17 @@ _SIGNATURES = {
     "v3d_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P],
     # q, k_all, v_all, lengths, q_off, out, layer, B, L, S, H, KV,
-    # sm_scale, stream
+    # sm_scale, workspace, workspace bytes, counters, splits, stream
     "v3d_flash_attention_folded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                   _I, _I, _F, _P],
+                                   _I, _I, _F, _P, _L, _P, _I, _P],
     # q, k_all, v_all, kv_len, out, part_m, part_l, part_acc,
     # layer, B, S, H, KV, n_chunks, sm_scale, stream
     "v3d_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _F, _P],
-    # q, pk, pv, sk, sv, out, B, L, P, H, KV, sm_scale, stream
+    # q, pk, pv, sk, sv, out, B, L, P, H, KV, sm_scale, workspace,
+    # workspace bytes, counters, splits, stream
     "v3d_shared_prefix_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _I, _F, _P],
+                                    _I, _F, _P, _L, _P, _I, _P],
     # x, q, scale, y, in, out, stream
     "v3d_int8_matvec": [_P, _P, _P, _P, _I, _I, _P],
     # q, k_all, v_all, k_scale, v_scale, kv_len, out, part_m, part_l,
@@ -89,13 +90,16 @@ _SIGNATURES = {
     "v3d_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_all, v_all, k_scale, v_scale, lengths, q_off, out, layer, B, L,
-    # S, H, KV, sm_scale, stream
-    "v3d_flash_attention_folded_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                        _I, _I, _I, _I, _I, _F, _P],
-    # q, pk, pv, pk_scale, pv_scale, sk, sv, out, B, L, P, H, KV, sm_scale,
+    # S, H, KV, sm_scale, workspace, workspace bytes, counters, splits,
     # stream
+    "v3d_flash_attention_folded_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _I, _F, _P, _L, _P,
+                                        _I, _P],
+    # q, pk, pv, pk_scale, pv_scale, sk, sv, out, B, L, P, H, KV, sm_scale,
+    # workspace, workspace bytes, counters, splits, stream
     "v3d_shared_prefix_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                         _I, _I, _I, _I, _F, _P],
+                                         _I, _I, _I, _I, _F, _P, _L, _P, _I,
+                                         _P],
     # q, k, v, lengths, out, lse, B, L, S, H, KV, causal, sm_scale, stream
     "v3d_flash_attention_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _I, _F, _P],

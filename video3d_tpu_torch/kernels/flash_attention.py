@@ -21,14 +21,20 @@ with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
 (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
 ``flash_attention_bwd``), on the CPU their plain versions.
 
-B2's prefill form and B6 are Hopper kernels fed by TMA: their C entries
-take the shapes, encode the tensor maps from the kernels' own tile sizes
-and plan the grids.
+Every form runs on Hopper kernels fed by TMA: their C entries take the
+shapes, encode the tensor maps from the kernels' own tile sizes and plan
+the grids. B2 folded and B5 (``csrc/chunk_sm90.cuh``) split over keys where
+their row tiles alone do not fill the card; :func:`chunk_plan` picks the
+split count from the shapes and the SM count, and the wrapper allocates
+the workspace the splits merge through.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -41,6 +47,106 @@ from video3d_tpu_torch.kernels.decode_attention import (CACHE_FORMS,
 
 HEAD_DIM = 128   # the kernels' compiled head dim
 LOG2E = math.log2(math.e)
+# B2 folded / B5 (csrc/chunk_sm90.cuh): folded query rows per CTA, keys per
+# tile, and the f32 partial of one split of a CTA (O, then m and l per row)
+CHUNK_ROWS = 128
+CHUNK_KEYS = 128
+PART_FLOATS = CHUNK_ROWS * HEAD_DIM + 2 * CHUNK_ROWS
+MAX_SPLITS = 64   # the merge's per-row weights fill one CTA's Q tile
+
+
+@dataclass(frozen=True)
+class ChunkPlan:
+    """The grid of a B2 folded or B5 launch: ``groups`` row tiles (times
+    kv heads, times batch rows for B2 folded), each split over keys into
+    ``splits`` CTAs; ``workspace_floats`` f32 of their partials (0 for one
+    split) and one arrival counter per group."""
+    groups: int
+    key_tiles: int
+    splits: int
+
+    @property
+    def ctas(self) -> int:
+        return self.groups * self.splits
+
+    @property
+    def workspace_floats(self) -> int:
+        if self.splits == 1:
+            return 0
+        return self.groups * self.splits * PART_FLOATS
+
+
+@functools.lru_cache(maxsize=None)
+def chunk_plan(groups: int, key_tiles: int, sms: int) -> ChunkPlan:
+    """Split count of a grid of ``groups`` row tiles over ``key_tiles`` key
+    tiles (an upper bound: the kernel splits each tile's real extent) on
+    ``sms`` SMs, one CTA per SM (their shared memory allows no second):
+    the count that minimises waves x (key tiles per split + one tile's time
+    to fill the ring + two more to write and merge the partials of a
+    split), the fewest on a tie. A grid that fills the card alone gets 1; a
+    split count never exceeds the key tiles, so no split is empty of them
+    by construction, nor MAX_SPLITS."""
+    best, splits = None, 1
+    for s in range(1, min(max(key_tiles, 1), MAX_SPLITS) + 1
+                   if groups < sms else 2):
+        cost = -(-groups * s // sms) \
+            * (-(-max(key_tiles, 1) // s) + 1 + 2 * (s > 1))
+        if best is None or cost < best:
+            best, splits = cost, s
+    return ChunkPlan(groups, key_tiles, splits)
+
+
+def folded_plan(B: int, L: int, H: int, KV: int, S: int,
+                sms: int) -> ChunkPlan:
+    """B2 folded: row tiles of L * (H / KV) rows per (batch row, kv head),
+    over the S slots of the cache."""
+    return chunk_plan(B * KV * -(-L * (H // KV) // CHUNK_ROWS),
+                      -(-S // CHUNK_KEYS), sms)
+
+
+def shared_prefix_plan(B: int, L: int, H: int, KV: int, P: int,
+                       sms: int) -> ChunkPlan:
+    """B5: row tiles of B * L * (H / KV) rows per kv head; the P prefix
+    keys split (the suffix walks with the last split)."""
+    return chunk_plan(KV * -(-B * L * (H // KV) // CHUNK_ROWS),
+                      -(-P // CHUNK_KEYS), sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_counters = {}
+_counters_lock = threading.Lock()
+
+
+def _arrival_counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least n zeroed int32 arrival counters for split launches on one
+    stream: zeroed once, then left zeroed by every launch (the last CTA of
+    each row tile resets its own), so a launch needs no memset. Launches on
+    one stream run in order, so they can share them."""
+    key = (str(device), stream)
+    with _counters_lock:
+        buf = _counters.get(key)
+        if buf is None or buf.numel() < n:
+            buf = _counters[key] = torch.zeros(max(n, 1024),
+                                               dtype=torch.int32,
+                                               device=device)
+    return buf
+
+
+def _split_args(plan: ChunkPlan, device, stream: int):
+    """(workspace, C arguments) of a launch: for a split launch the f32
+    partials (written before they are read; the caller holds the tensor
+    until it has launched) and the arguments workspace, its bytes and the
+    counters; for one split (None, zeros)."""
+    if plan.splits == 1:
+        return None, (0, 0, 0)
+    ws = torch.empty(plan.workspace_floats, dtype=torch.float32,
+                     device=device)
+    counters = _arrival_counters(device, stream, plan.groups)
+    return ws, (ws.data_ptr(), ws.numel() * 4, counters.data_ptr())
 
 
 def _check_dtype(name: str, device, dtype, **tensors) -> None:
@@ -169,6 +275,16 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_gqa_folded: no kernel for device "
                          f"{q.device}")
+    return _folded_launch(_build.library(), _stream(q.device),
+                          _sm_count(q.device.index or 0), q, k_all, v_all,
+                          lengths, q_offsets, layer, kv_heads, k_scale,
+                          v_scale)
+
+
+def _folded_launch(lib, stream: int, sms: int, q, k_all, v_all, lengths,
+                   q_offsets, layer: int, kv_heads: int, k_scale, v_scale):
+    """Launch B2 folded through ``lib`` on ``sms`` SMs: the form the cache
+    asks for, its split plan and workspace."""
     B, L, H, hd = q.shape
     NL, Bc, S, _ = k_all.shape
     form = check_cache("flash_attention_gqa_folded", q, k_all, v_all,
@@ -180,13 +296,15 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
                          f"{tuple(q.shape)} cache {tuple(k_all.shape)} "
                          f"layer {layer} kv_heads {kv_heads}")
     lengths, q_offsets = _int32(lengths, q.device), _int32(q_offsets, q.device)
+    plan = folded_plan(B, L, H, kv_heads, S, sms)
+    ws, split_args = _split_args(plan, q.device, stream)
     out = torch.empty_like(q)
     name = "flash_attention_folded" + form
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
-    err = getattr(_build.library(), "v3d_" + name)(
+    err = getattr(lib, "v3d_" + name)(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), *scales,
         lengths.data_ptr(), q_offsets.data_ptr(), out.data_ptr(), layer, B, L,
-        S, H, kv_heads, float(hd ** -0.5), _stream(q.device))
+        S, H, kv_heads, float(hd ** -0.5), *split_args, plan.splits, stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out
@@ -215,6 +333,15 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_shared_prefix: no kernel for "
                          f"device {q.device}")
+    return _shared_prefix_launch(_build.library(), _stream(q.device),
+                                 _sm_count(q.device.index or 0), q, pk, pv,
+                                 sk, sv, pk_scale, pv_scale)
+
+
+def _shared_prefix_launch(lib, stream: int, sms: int, q, pk, pv, sk, sv,
+                          pk_scale, pv_scale):
+    """Launch B5 through ``lib`` on ``sms`` SMs: the form the prefix asks
+    for, its split plan and workspace."""
     B, L, H, hd = q.shape
     P, KV = pk.shape[0], pk.shape[1]
     form = CACHE_FORMS.get(pk.dtype)
@@ -242,13 +369,15 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
         raise ValueError(f"flash_attention_shared_prefix: unsupported shapes "
                          f"q {tuple(q.shape)} prefix {tuple(pk.shape)} "
                          f"suffix {tuple(sk.shape)}")
+    plan = shared_prefix_plan(B, L, H, KV, P, sms)
+    ws, split_args = _split_args(plan, q.device, stream)
     out = torch.empty_like(q)
     name = "shared_prefix_attention" + form
     scales = (pk_scale.data_ptr(), pv_scale.data_ptr()) if form else ()
-    err = getattr(_build.library(), "v3d_" + name)(
+    err = getattr(lib, "v3d_" + name)(
         q.data_ptr(), pk.data_ptr(), pv.data_ptr(), *scales, sk.data_ptr(),
         sv.data_ptr(), out.data_ptr(), B, L, P, H, KV, float(hd ** -0.5),
-        _stream(q.device))
+        *split_args, plan.splits, stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out
