@@ -28,9 +28,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    rows, each case called twice and held to the same bits;
    the training kernels at the training shapes: B2 with
    the per-row logsumexp and the fused flash backward B6; the
-   weight-streaming kernels at the decode projections' shapes: B4's B>1
-   form (int8, B=8 at w_gate and w_down) and B8 (int4, the B=1 vocab head,
-   w_gate at B=8, w_down at B=8 and B=32); max error,
+   weight-streaming kernels, B4's B>1 form (int8) and B8 (int4), at every
+   decode projection shape of Qwen2-7B and the vocab head at 1, 8 and 32
+   rows, each case called twice and held to the same bits; max error,
    median times (CUDA events), each kernel's bound (the larger of its
    operations over the card's peak and its bytes over the memory rate) and,
    where one PyTorch call computes the same function
@@ -38,9 +38,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    where it runs on CUDA; for B8 ``torch._weight_int4pack_mm`` on the
    weight converted to its layout; for B9 the checksums as one ``sum``),
    that call's time. The kernels whose inputs fit in the 50 MB L2 (B1, B2
-   folded, B3, B5, B7, B9a) are timed warm and with the L2 flushed before
-   each call; each byte-bound row also prints its bytes over the measured
-   read ceiling. Then, untimed, the int8 forms of B2 folded, B3 and B7 at
+   folded, B3, B4's B>1 form, B5, B7, B8, B9a) are timed warm and with the
+   L2 flushed before each call; each byte-bound row also prints its bytes
+   over the measured read ceiling. Then, untimed, the int8 forms of B2 folded, B3 and B7 at
    phase 11's 32k shapes (4096-query chunks at offsets 0 and 28672 of a
    32768-slot cache, kv_len 32760, the 1 x 32k + 7 x 512 page mix), with
    the same bound and controls.
@@ -169,9 +169,9 @@ KERNEL_INFO = {
                         "video3d_tpu/kernels/paged_attention.py:60"),
     "paged_attention_int8": ("video3d_tpu_torch/csrc/paged_attention.cu",
                              "video3d_tpu/kernels/paged_attention.py:60"),
-    "int8_matmul": ("video3d_tpu_torch/csrc/int8_matmul.cu",
+    "int8_matmul": ("video3d_tpu_torch/csrc/weight_stream.cuh",
                     "video3d_tpu/kernels/quant_matvec.py:116"),
-    "int4_matmul": ("video3d_tpu_torch/csrc/int4_matmul.cu",
+    "int4_matmul": ("video3d_tpu_torch/csrc/weight_stream.cuh",
                     "video3d_tpu/kernels/quant_matvec.py:33"),
     "decode_attention_int4": ("video3d_tpu_torch/csrc/decode_attention.cu",
                               "video3d_tpu/kernels/decode_attention.py:68"),
@@ -838,45 +838,47 @@ def _stream_check(name: str, got, ref, controls: dict) -> float:
     return err
 
 
-def _int8pack_ms(x, q, scale, ref):
-    """``torch._weight_int8pack_mm`` (bf16 x, int8 (out, in), per-channel
-    scales) as B4's library yardstick, its distance from the plain version
-    printed in bf16 ulps: its median ms, or None where it does not run on
-    CUDA (the reason printed). Used nowhere in the port."""
+def _library_ms(what: str, call, ref):
+    """Median ms of one PyTorch library call (a yardstick, used nowhere in
+    the port), its distance from the plain version printed in bf16 ulps;
+    None where it does not run on CUDA (the reason printed)."""
     import torch
 
-    x2 = x.reshape(-1, x.shape[-1])
     try:
-        qt = q.t().contiguous()
-        sc = scale.reshape(-1).contiguous()
-        y = torch._weight_int8pack_mm(x2, qt, sc)
+        y = call()
         torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError) as e:
-        print(f"  torch._weight_int8pack_mm: none, not on CUDA "
-              f"({str(e).splitlines()[0][:160]})", flush=True)
+        print(f"  {what}: none, not on CUDA ({str(e).splitlines()[0][:160]})",
+              flush=True)
         return None
     r = _ulp_ratio(y.reshape(ref.shape), ref)
-    ms = _median_ms(lambda: torch._weight_int8pack_mm(x2, qt, sc), 20)
-    print(f"  torch._weight_int8pack_mm runs on CUDA: {ms:.4f} ms, max |d| / "
-          f"bound {r:.3f} against the plain version", flush=True)
+    ms = _median_ms(call, 20)
+    print(f"  {what}: {ms:.4f} ms, max |d| / bound {r:.3f} against the "
+          f"plain version", flush=True)
     return ms
 
 
-def _int4pack_ms(x, q4, scales, ref):
-    """``torch._weight_int4pack_mm`` as B8's library yardstick: B8's
-    weight converted outside the timing to its layout (each nibble + 8 as
-    an unsigned nibble, the even input in the high nibble, zero points 0,
-    each 512-row scale repeated over two groups of 256, the largest group
-    it takes). It dequantizes each weight to bf16 before its product, so
-    it rounds nibble x scale where B8 does not; its distance from the
-    plain version is printed in bf16 ulps. Returns its median ms, or None
-    where it does not run on CUDA (the reason printed). Used nowhere in
-    the port."""
+def _int8pack(q, scale):
+    """B4's weight in ``torch._weight_int8pack_mm``'s layout (int8 (out,
+    in), per-channel scales), converted once; the call takes bf16 x."""
+    import torch
+
+    qt, sc = q.t().contiguous(), scale.reshape(-1).contiguous()
+    return lambda x2: torch._weight_int8pack_mm(x2, qt, sc)
+
+
+def _int4pack(q4, scales):
+    """B8's weight converted once to ``torch._weight_int4pack_mm``'s layout
+    (each nibble + 8 as an unsigned nibble, the even input in the high
+    nibble, zero points 0, each 512-row scale repeated over two groups of
+    256, the largest group it takes), as a call on bf16 x; None where the
+    conversion does not run on CUDA. The library call dequantizes each
+    weight to bf16 before its product, so it rounds nibble x scale where B8
+    does not."""
     import torch
 
     from video3d_tpu_torch.kernels import quant_matvec as qm
 
-    x2 = x.reshape(-1, x.shape[-1])
     try:
         u = (qm.unpack_int4(q4) + 8).to(torch.uint8).t().contiguous()
         w = torch._convert_weight_to_int4pack(
@@ -884,17 +886,11 @@ def _int4pack_ms(x, q4, scales, ref):
         del u
         s = scales.repeat_interleave(2, dim=0)
         sz = torch.stack([s, torch.zeros_like(s)], dim=-1).contiguous()
-        y = torch._weight_int4pack_mm(x2, w, 256, sz)
-        torch.cuda.synchronize()
     except (RuntimeError, NotImplementedError) as e:
-        print(f"  torch._weight_int4pack_mm: none, not on CUDA "
+        print(f"  torch._convert_weight_to_int4pack: none, not on CUDA "
               f"({str(e).splitlines()[0][:160]})", flush=True)
         return None
-    r = _ulp_ratio(y.reshape(ref.shape), ref)
-    ms = _median_ms(lambda: torch._weight_int4pack_mm(x2, w, 256, sz), 20)
-    print(f"  torch._weight_int4pack_mm: {ms:.4f} ms, max |d| / bound {r:.3f} "
-          f"against the plain version (bf16 dequantized weights)", flush=True)
-    return ms
+    return lambda x2: torch._weight_int4pack_mm(x2, w, 256, sz)
 
 
 def check_int8_matvec(dev):
@@ -932,109 +928,127 @@ def check_int8_matvec(dev):
     print(f"  the head: B4's matvec {ms:.4f} ms, B4's B>1 form "
           f"{stream_ms:.4f} ms ({q.numel() / stream_ms / 1e6:.0f} GB/s)",
           flush=True)
-    library_ms = _int8pack_ms(x, q, scale, ref)
+    pack = _int8pack(q, scale)
+    library_ms = _library_ms("torch._weight_int8pack_mm",
+                             lambda: pack(x.reshape(1, in_)), ref)
+    del pack
     # bytes: the int8 weight, its scale, x and y; 2 * in * out operations
     bound = _bound(2.0 * q.numel(), _nbytes(q, scale, x) + 2 * out)
     return err, (ms, _median_ms(lambda: qm.int8_matmul_plain(x, q, scale),
                                 10)), bound, library_ms
 
 
-def check_int8_matmul(dev):
-    """B4's B>1 form at the int8 decode projections, B=8: w_gate (3584 ->
-    18944) and w_down (18944 -> 3584), from N(0, 0.02) weights quantized by
-    the port's ``quantize_weight``; controls: the scale one column off, the
-    last 512-row input chunk dropped. Reports w_gate's numbers."""
+# Qwen2-7B's decode projections by distinct (in, out), and the vocab head:
+# B4's B>1 form and B8 are checked and timed at each at STREAM_ROWS rows
+STREAM_SHAPES = (("wq / wo", 3584, 3584), ("wk / wv", 3584, 512),
+                 ("w_gate / w_up", 3584, 18944), ("w_down", 18944, 3584),
+                 ("lm_head", 3584, 152064))
+STREAM_ROWS = (1, 8, 32)
+
+
+def _check_stream(dev, bits: int, report):
+    """B4's B>1 form (bits 8) or B8 (bits 4) at every STREAM_SHAPES shape
+    and STREAM_ROWS row count, from N(0, 0.02) weights quantized by the
+    port's ``quantize_weight`` / ``quantize_weight_int4`` (int4: padded as
+    the model pads them): within one bf16 ulp of the plain version in f32,
+    bit for bit over two calls, each control at >= 4x the bound (int8: the
+    scale one column off, the last 512 inputs dropped; int4: scales one
+    group off, the nibbles swapped, the last group dropped). One line per
+    case: kernel ms warm and with the L2 flushed (the small weights fit in
+    the 50 MB L2; a decode step reads them from HBM), plain ms, library ms
+    (``torch._weight_int8pack_mm`` / ``_weight_int4pack_mm``) and the
+    bound. Returns the numbers of the ``report`` = (shape, rows) case."""
     import torch
 
     from video3d_tpu_torch.kernels import quant_matvec as qm
-    from video3d_tpu_torch.models.quant import quantize_weight
+    from video3d_tpu_torch.models.quant import (quantize_weight,
+                                                quantize_weight_int4)
 
-    g = torch.Generator(device=dev).manual_seed(12)
+    g = torch.Generator(device=dev).manual_seed(12 if bits == 8 else 13)
+    label = "B4 B>1" if bits == 8 else "B8"
     result = None
-    for what, in_, out in (("w_gate", 3584, 18944), ("w_down", 18944, 3584)):
-        d = quantize_weight((0.02 * torch.randn(
-            in_, out, generator=g, device=dev)).to(torch.bfloat16))
-        q, scale = d["q"], d["scale"]
-        x = torch.randn(8, 1, in_, generator=g, device=dev).to(torch.bfloat16)
-        y = qm.int8_matmul(x, q, scale)
-        ref = qm.int8_matmul_plain(x.float(), q, scale)
-        err = _stream_check(
-            f"B4 B>1 {what} x {tuple(x.shape)} q {tuple(q.shape)}", y, ref, {
-                "scale one column off": qm.int8_matmul_plain(
-                    x.float(), q, torch.roll(scale, 1, dims=1)),
-                "last input chunk dropped": qm.int8_matmul_plain(
-                    x[..., :-512].float(), q[:-512], scale)})
-        ms = _median_ms(lambda: qm.int8_matmul(x, q, scale), 50)
-        plain_ms = _median_ms(lambda: qm.int8_matmul_plain(x, q, scale), 10)
-        dequant_ms = _median_ms(lambda: (x @ q.to(x.dtype)) * scale, 20)
-        bound = _bound(2.0 * 8 * q.numel(),
-                       _nbytes(q, scale, x) + 2 * 8 * out)
-        print(f"  B4 B>1 {what}: kernel {ms:.4f} ms ({q.numel() / ms / 1e6:.0f}"
-              f" GB/s of int8 weight), plain {plain_ms:.4f} ms, the "
-              f"dequantize-then-matmul path {dequant_ms:.4f} ms, bound "
-              f"{bound['bound_ms']:.4f} ms", flush=True)
-        library_ms = _int8pack_ms(x, q, scale, ref)
-        if result is None:
-            result = err, (ms, plain_ms), bound, library_ms
-        del d, q, scale
+    for what, in_, out in STREAM_SHAPES:
+        w = (0.02 * torch.randn(in_, out, generator=g,
+                                device=dev)).to(torch.bfloat16)
+        if bits == 8:
+            d = quantize_weight(w)
+            q, scale = d["q"], d["scale"]
+            del d
+
+            def kernel(x):
+                return qm.int8_matmul(x, q, scale)
+
+            def plain(x, q=q, scale=scale):
+                return qm.int8_matmul_plain(x, q, scale)
+
+            def controls(xf):
+                return {"scale one column off": plain(
+                            xf, scale=torch.roll(scale, 1, dims=1)),
+                        "last input chunk dropped": plain(
+                            xf[..., :-512], q[:-512])}
+            weight = (q, scale)
+            pack = _int8pack(q, scale)
+        else:
+            w4 = quantize_weight_int4(w)
+            q, scale = w4.q4, w4.scale4
+            del w4
+            swapped = _nibbles_swapped(q)
+
+            def kernel(x):
+                return qm.int4_matmul(x, q, scale)
+
+            def plain(x, q=q, scale=scale):
+                return qm.int4_matmul_plain(x, q, scale)
+
+            def controls(xf):
+                return {"scales one group off": plain(
+                            xf, scale=torch.roll(scale, 1, dims=0)),
+                        "nibbles swapped": plain(xf, swapped),
+                        "last group dropped": plain(
+                            xf[..., :-512], q[:-256], scale[:-1])}
+            weight = (q, scale)
+            pack = _int4pack(q, scale)
+        del w
+        in_p, out_p = 2 * q.shape[0] if bits == 4 else in_, q.shape[1]
+        for B in STREAM_ROWS:
+            x = torch.randn(B, 1, in_p, generator=g,
+                            device=dev).to(torch.bfloat16)
+            y = kernel(x)
+            ref = plain(x.float())
+            name = f"{label} {what} x {tuple(x.shape)} w {tuple(q.shape)}"
+            err = _stream_check(name, y, ref, controls(x.float()))
+            _check_repeat(name, lambda: kernel(x), y)
+            library_ms = None if pack is None else _library_ms(
+                f"{label} {what} B={B} library", lambda: pack(
+                    x.reshape(B, in_p)), ref)
+            del ref
+            ms, flushed = _kernel_ms(lambda: kernel(x), 50)
+            plain_ms = _median_ms(lambda: plain(x), 5)
+            bound = _bound(2.0 * B * in_p * out_p,
+                           _nbytes(*weight, x) + 2 * B * out_p)
+            lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+            print(f"  {label} {what} B={B}: kernel {ms:.4f} ms ({flushed:.4f} "
+                  f"L2 flushed; {bound['bound_ms'] / ms:.0%} / "
+                  f"{bound['bound_ms'] / flushed:.0%} of the bound), plain "
+                  f"{plain_ms:.4f} ms, library {lib}, bound "
+                  f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})",
+                  flush=True)
+            if (what, B) == report:
+                result = err, ((ms, flushed), plain_ms), bound, library_ms
+        torch.cuda.empty_cache()
     return result
+
+
+def check_int8_matmul(dev):
+    """B4's B>1 form at the decode shapes (:func:`_check_stream`); reports
+    w_gate at B=8."""
+    return _check_stream(dev, 8, ("w_gate / w_up", 8))
 
 
 def check_int4_matmul(dev):
-    """B8 at the int4 configuration's shapes (groups of 512): the B=1 vocab
-    head (3584 -> 152064, padded to 153600), w_gate at B=8 (3584 -> 18944,
-    padded to 20480), w_down at B=8 and B=32 (18944 -> 3584), from N(0,
-    0.02) weights quantized by the port's ``quantize_weight_int4``;
-    controls: scales one group off, low and high nibbles swapped, the last
-    group dropped. Reports the head's numbers; the library call is
-    ``torch._weight_int4pack_mm`` (see :func:`_int4pack_ms`)."""
-    import torch
-
-    from video3d_tpu_torch.kernels import quant_matvec as qm
-    from video3d_tpu_torch.models.quant import (dequantize_int4,
-                                                quantize_weight_int4)
-
-    g = torch.Generator(device=dev).manual_seed(13)
-    result = None
-    for what, in_, out, rows in (("lm_head", 3584, 152064, (1,)),
-                                 ("w_gate", 3584, 18944, (8,)),
-                                 ("w_down", 18944, 3584, (8, 32))):
-        w4 = quantize_weight_int4((0.02 * torch.randn(
-            in_, out, generator=g, device=dev)).to(torch.bfloat16))
-        q4, sc = w4.q4, w4.scale4
-        swapped = ((q4 >> 4) & 0x0F) | (q4 << 4)
-        for B in rows:
-            x = torch.randn(B, 1, in_, generator=g,
-                            device=dev).to(torch.bfloat16)
-            y = qm.int4_matmul(x, q4, sc)
-            ref = qm.int4_matmul_plain(x.float(), q4, sc)
-            err = _stream_check(
-                f"B8 {what} x {tuple(x.shape)} packed {tuple(q4.shape)}",
-                y, ref, {
-                    "scales one group off": qm.int4_matmul_plain(
-                        x.float(), q4, torch.roll(sc, 1, dims=0)),
-                    "nibbles swapped": qm.int4_matmul_plain(
-                        x.float(), swapped, sc),
-                    "last group dropped": qm.int4_matmul_plain(
-                        x[..., :-512].float(), q4[:-256], sc[:-1])})
-            library_ms = _int4pack_ms(x, q4, sc, ref)
-            del ref
-            ms = _median_ms(lambda: qm.int4_matmul(x, q4, sc), 50)
-            plain_ms = _median_ms(lambda: qm.int4_matmul_plain(x, q4, sc), 5)
-            dequant_ms = _median_ms(lambda: x @ dequantize_int4(
-                q4, sc, 512, torch.bfloat16), 10)
-            bound = _bound(2.0 * B * in_ * q4.shape[1],
-                           _nbytes(q4, sc, x) + 2 * B * q4.shape[1])
-            print(f"  B8 {what} B={B}: kernel {ms:.4f} ms "
-                  f"({q4.numel() / ms / 1e6:.0f} GB/s of packed weight), "
-                  f"plain {plain_ms:.4f} ms, the dequantize-then-matmul path "
-                  f"{dequant_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms",
-                  flush=True)
-            if result is None:
-                result = err, (ms, plain_ms), bound, library_ms
-        del w4, q4, sc, swapped
-        torch.cuda.empty_cache()
-    return result
+    """B8 at the decode shapes (:func:`_check_stream`); reports the vocab
+    head at B=1."""
+    return _check_stream(dev, 4, ("lm_head", 1))
 
 
 def check_decode_int8(dev, bits: int = 8):

@@ -47,7 +47,8 @@ def _turn(package: str, bits: int, steps: int, extra) -> dict:
             "kernels_per_step": r["kernels_per_step"],
             "device_busy_share": r["device_busy_share"],
             "device_ms_per_step": sum(
-                r["device_ms_per_step_by_group"].values())}
+                r["device_ms_per_step_by_group"].values()),
+            "device_ms_per_step_by_group": r["device_ms_per_step_by_group"]}
     return out
 
 

@@ -39,8 +39,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 GROUPS = (("B7 paged attention", ("paged_",)),
           ("B3 decode attention", ("decode_partial", "decode_combine")),
           ("B4 int8 matvec", ("int8_mv",)),
+          # weight_stream_kernel; a parent tree's stream_kernel and
+          # combine_kernel (decode_ab.py profiles other trees too)
           ("B4 B>1 (int8) / B8 (int4) weight streaming",
-           ("stream_kernel", "combine_kernel")),
+           ("weight_stream_kernel", "stream_kernel", "combine_kernel")),
           ("matrix products", ("gemm", "gemv", "xmma", "cutlass", "nvjet",
                                "cublas", "sm90_")),
           ("index and copy kernels", ("index", "scatter", "gather",

@@ -9,9 +9,11 @@ At the decode projections' shapes (x of 8 rows; w_gate, w_down, wq of
 ``ModelConfig()``), each call is timed on the host clock: 200 calls
 issued while a spin kernel keeps the device busy, so that no call waits on
 the device, the median of three such runs. For a tree whose wrappers have
-them, the pieces of a call are timed too: the argument checks, the output
-and workspace allocations, the stream lookup, the ctypes call that
-launches the kernels and the launch count. ``--package DIR`` imports the port from another tree
+them (``stream_plan``), the pieces of a call are timed too: the argument
+checks, the plan (cached), the output allocation, the stream's workspace
+and counters (allocated once per stream), the stream lookup, the ctypes
+call that encodes the tensor maps and launches the kernel, and the launch
+count. ``--package DIR`` imports the port from another tree
 (for example an unpacked ``git archive`` of another commit), so two trees
 are compared by running the script once per tree, in turns.
 
@@ -83,30 +85,35 @@ def main() -> None:
                  x, w4.q4, w4.scale4)),
              "quant.matmul int4": _host_us(lambda: quant.matmul(x, w4)),
              "bf16 x @ w": _host_us(lambda: x @ w)}
-        if hasattr(qm, "_entry"):              # the pieces of one call
+        if hasattr(qm, "stream_plan"):         # the pieces of one call
+            from video3d_tpu_torch.kernels import _launch
+
             args8 = (("x", x, torch.bfloat16), ("q", d["q"], torch.int8),
                      ("scale", d["scale"], torch.bfloat16))
-            splits = qm._splits(0, 8, out, -(-in_ // qm.STREAM_CHUNK))
-            y = torch.empty((8, 1, out), dtype=x.dtype, device=dev)
-            ws = torch.empty((splits, 8, out), dtype=torch.float32,
-                             device=dev)
-            fn = qm._entry("v3d_int8_matmul")
             stream = qm._stream(0)
+            sms = _launch.sm_count(0)
+            plan = qm.stream_plan(8, in_, out, sms, 8)
+            y = torch.empty((8, 1, out), dtype=x.dtype, device=dev)
+            ws = _launch.workspace(dev, stream, plan.workspace_bytes)
+            ctr = _launch.arrival_counters(dev, stream,
+                                           plan.tiles * qm.STREAM_PAIRS)
+            fn = _build.library().v3d_int8_matmul
             r.update({
-                "splits": splits,
+                "ctas": plan.ctas,
                 "checks": _host_us(lambda: qm._device_checks(
                     "int8_matmul", x, args8)),
-                "allocate y and workspace": _host_us(lambda: (
-                    torch.empty((8, 1, out), dtype=x.dtype, device=dev),
-                    torch.empty((splits, 8, out), dtype=torch.float32,
-                                device=dev))),
-                "torch.cuda.current_stream": _host_us(
-                    lambda: torch.cuda.current_stream(dev).cuda_stream),
+                "stream_plan (cached)": _host_us(
+                    lambda: qm.stream_plan(8, in_, out, sms, 8)),
+                "allocate y": _host_us(lambda: torch.empty(
+                    (8, 1, out), dtype=x.dtype, device=dev)),
+                "workspace and counters (per stream)": _host_us(lambda: (
+                    _launch.workspace(dev, stream, plan.workspace_bytes),
+                    _launch.arrival_counters(dev, stream, plan.tiles * 4))),
                 "raw stream": _host_us(lambda: qm._stream(0)),
-                "ctypes call (launches)": _host_us(lambda: fn(
+                "ctypes call (maps, launch)": _host_us(lambda: fn(
                     x.data_ptr(), d["q"].data_ptr(), d["scale"].data_ptr(),
-                    y.data_ptr(), ws.data_ptr(), 8, in_, out, splits,
-                    stream)),
+                    y.data_ptr(), ws.data_ptr(), ws.numel() * 4,
+                    ctr.data_ptr(), 8, in_, out, plan.ctas, stream)),
                 "count_launch": _host_us(
                     lambda: _build.count_launch("int8_matmul"))})
         result[what] = r

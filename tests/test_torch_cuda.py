@@ -255,13 +255,21 @@ def _ulps(got, ref):
 
 
 @pytest.mark.parametrize("rows,in_,out", [
-    (1, 1000, 1040),     # one row at a narrow output; ragged input chunk
-    (5, 3584, 4096),     # rows 5-15 of the block's 16 are zero, split chunks
-    (32, 2048, 712),     # two row tiles, out ends inside a 64-column tile
+    (1, 1000, 1040),     # one row at a narrow output; ragged last stage
+    (5, 3584, 4096),     # rows 5-7 of the n-tile are zero, split tiles
+    (32, 2048, 720),     # four n-tiles, out ends inside a 128-column
+                         # subtile of a 512-column tile
+    (1, 3584, 512),      # wk / wv at B = 1, 8, 16, 32: the tile cut into
+    (8, 3584, 512),      # K-slices, edges in the middle of the input
+    (16, 3584, 512),
+    (32, 3584, 512),
+    (9, 1000, 1040),     # two n-tiles, slices over a ragged input
+    (8, 18944, 3584),    # w_down's input
 ])
 def test_int8_matmul_kernel(dev, rows, in_, out):
-    """B4's B>1 form within one bf16 ulp of the f32 plain version;
-    controls: the scale one column off, the last input chunk dropped."""
+    """B4's B>1 form within one bf16 ulp of the f32 plain version, the
+    same bits on a second call; controls: the scale one column off, the
+    last input chunk dropped."""
     g = torch.Generator(device=dev).manual_seed(12)
     d = quantize_weight(0.02 * torch.randn(in_, out, generator=g, device=dev))
     q, scale = d["q"], d["scale"]
@@ -270,6 +278,7 @@ def test_int8_matmul_kernel(dev, rows, in_, out):
     ref = qm.int8_matmul_plain(x.float(), q, scale)
     assert got.dtype == torch.bfloat16 and got.shape == (rows, out)
     assert _ulps(got, ref) <= 1.0
+    assert torch.equal(qm.int8_matmul(x, q, scale), got)
     cut = (in_ - 1) // 512 * 512
     for broken in (qm.int8_matmul_plain(x.float(), q,
                                         torch.roll(scale, 1, dims=1)),
@@ -278,14 +287,19 @@ def test_int8_matmul_kernel(dev, rows, in_, out):
 
 
 @pytest.mark.parametrize("rows,in_,out", [
-    (1, 3584, 3584),     # a decode projection at B=1, split chunks
+    (1, 3584, 3584),     # a decode projection at B=1, split tiles
     (8, 1000, 8200),     # padded in and out
-    (32, 2048, 512),     # two row tiles of 16
+    (32, 2048, 512),     # four n-tiles of 8 rows
+    (1, 3584, 512),      # wk / wv at B = 1, 8, 16, 32: the tile cut into
+    (8, 3584, 512),      # 7 K-slices (one group each)
+    (16, 3584, 512),
+    (32, 3584, 512),
+    (8, 18944, 3584),    # w_down's input
 ])
 def test_int4_matmul_kernel(dev, rows, in_, out):
     """B8 within one bf16 ulp of the f32 plain version, every value in
-    [-7, 7] in both nibbles; controls: scales one group off, the nibbles
-    swapped, the last group dropped."""
+    [-7, 7] in both nibbles, the same bits on a second call; controls:
+    scales one group off, the nibbles swapped, the last group dropped."""
     g = torch.Generator(device=dev).manual_seed(13)
     w4 = quantize_weight_int4(0.02 * torch.randn(in_, out, generator=g,
                                                  device=dev))
@@ -299,6 +313,7 @@ def test_int4_matmul_kernel(dev, rows, in_, out):
     ref = qm.int4_matmul_plain(x.float(), q4, sc)
     assert got.dtype == torch.bfloat16 and got.shape == (rows, q4.shape[1])
     assert _ulps(got, ref) <= 1.0
+    assert torch.equal(qm.int4_matmul(x, q4, sc), got)
     swapped = ((q4 >> 4) & 0x0F) | (q4 << 4)
     controls = [qm.int4_matmul_plain(x.float(), swapped, sc)]
     if sc.shape[0] > 1:
@@ -321,6 +336,15 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(dev):
     d = quantize_weight(torch.randn(512, 1004, device=dev))
     with pytest.raises(ValueError):                        # out % 8 != 0
         qm.int8_matmul(x[:2], d["q"], d["scale"])
+    # weights whose TMA maps cannot be encoded: rows of 712 and 520 bytes
+    # (strides and first columns must be 16-byte multiples)
+    d = quantize_weight(torch.randn(512, 712, device=dev))
+    with pytest.raises(ValueError):
+        qm.int8_matmul(x[:2], d["q"], d["scale"])
+    packed = torch.zeros(256, 520, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        qm.int4_matmul(x[:2], packed,
+                       torch.ones(1, 520, dtype=torch.bfloat16, device=dev))
 
 
 @pytest.mark.parametrize("bits", [8, 4])

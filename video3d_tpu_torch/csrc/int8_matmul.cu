@@ -11,14 +11,20 @@
 // What bounds it on an H100: HBM. A decode step streams ~7.07 GB of int8
 // weights, ~2.1 ms at 3.35 TB/s; w_gate (3584 x 18944, 67.9 MB) alone
 // takes 0.020 ms for 2 * rows FLOP per weight byte. The template
-// (weight_stream.cuh) reads each byte once per block of up to 16 rows and
-// feeds it, exact in bf16, to tensor-core products with f32 sums.
+// (weight_stream.cuh) keeps 64 KB or more of each SM's weight bytes in
+// flight through a TMA ring, reads each byte once for all rows and feeds
+// it, exact in bf16, to tensor-core products with f32 sums, split inputs
+// merged inside the kernel.
 #include "weight_stream.cuh"
 
+// ws / ws_bytes / counters: the workspace and the per-tile arrival
+// counters of a plan whose CTAs split tiles (kernels/quant_matvec.py,
+// stream_plan); ctas: the plan's grid
 extern "C" int v3d_int8_matmul(const void* x, const void* q,
                                const void* scale, void* y, void* ws,
-                               int rows, int in, int out, int splits,
-                               void* stream) {
-  return stream_matmul<false>(x, q, scale, y, ws, rows, in, out, 0, splits,
-                              stream);
+                               long long ws_bytes, void* counters, int rows,
+                               int in, int out, int ctas, void* stream) {
+  return v3d_wstream::stream_matmul<false>(x, q, scale, y, ws, ws_bytes,
+                                           counters, rows, in, out, 0, ctas,
+                                           stream);
 }

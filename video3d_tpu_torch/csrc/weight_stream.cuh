@@ -1,62 +1,169 @@
-// Weight-streaming product for decode-sized batches, shared by kernel B8
-// (int4 weights, int4_matmul.cu) and kernel B4's B>1 form (int8 weights,
-// int8_matmul.cu): y (rows, out) = x (rows, in) @ W (in, out), bf16 x and
-// y, 1-32 rows, every sum in f32 and one rounding at the end.
+// Weight-streaming product for decode-sized batches on Hopper, shared by
+// kernel B8 (int4 weights, int4_matmul.cu) and kernel B4's B>1 form (int8
+// weights, int8_matmul.cu): y (rows, out) = x (rows, in) @ W (in, out),
+// bf16 x and y, 1-32 rows, every sum in f32 and one rounding at the end.
 //
 // What bounds it on an H100: HBM. A decode projection reads its whole
 // quantized weight for a few rows of x: 2 * rows FLOP per weight element,
 // far under the ~295 FLOP per byte where the tensor cores would bind. So
-// each weight byte is read from HBM once for up to 16 rows, and the weight
-// is never widened in memory: int8 bytes and int4 nibbles are unpacked in
+// each weight byte is read from HBM once for all rows, in runs long enough
+// for the memory to stream them (512 contiguous bytes of a weight row), with
+// enough in flight to cover its latency on every SM, and the weight is
+// never widened in memory: int8 bytes and int4 nibbles are unpacked in
 // registers straight into tensor-core fragments.
 //
-// Design (simple first: mma.sync, no TMA, no wgmma, no shared-memory
-// staging). A 128-thread block owns 64 output columns and a tile of 16 rows
-// of x (more rows take more blocks, adjacent in launch order, so a weight
-// byte's second read is an L2 hit); its 4 warps split the block's input
-// rows. Each warp runs bf16 m16n8k16 products with f32 accumulators: A is
-// 16 rows of x by 16 inputs, loaded as bf16 pairs from global memory
-// (x is small and stays in L1 / L2); B is 16 inputs by 8 columns of the
-// unpacked weight. The columns of n-tile j are chosen as col0 + 8 n + j
-// (n = the mma column), so lane (g, t) (g = lane / 4, t = lane % 4) needs
-// columns col0 + 8 g .. + 7 of each weight row it reads: one 8-byte load
-// per row serves its B fragments of all 8 n-tiles, and a warp reads 64
-// contiguous bytes of 4-8 rows at once. Its sums then sit at columns
-// col0 + 16 t .. + 15. The 4 warps are summed in a fixed order in shared
-// memory; narrow outputs also split the input over grid z, each split
-// writing f32 partials to a workspace that combine_kernel sums in split
-// order, then scales (int8) and rounds: no atomics, so a result never
-// depends on scheduling.
+// Work. The output columns are cut into tiles of kTileCols (512), the
+// inputs of a tile into stages (int8: 64 inputs; int4: 128, so a stage
+// lies inside one scale group of 512 or more), and the stages of all
+// tiles, tile-major, into `ctas` even contiguous ranges, one per CTA of a
+// grid of at most one CTA per SM (kernels/quant_matvec.py, stream_plan,
+// picks `ctas`; no CTA holds more than one stage over another). A CTA
+// walks its range as segments, one per tile it touches: the whole tile, or
+// a K-slice of it where its range begins or ends inside the tile.
 //
-// int4: byte p of a packed row holds input row 2p (low nibble) and 2p + 1
-// (high nibble), two's complement in [-7, 7]: exactly the (k, k + 1) pair
-// of a B fragment register, so the TPU kernel's split of x into even and
-// odd rows (Mosaic rejects the interleave) is not needed. A nibble n
-// becomes bf16 128 + (n + 8) by splicing n ^ 8 under 0x43 and then 136 is
-// subtracted in bf16x2, both exact (v3d_nibble_pairs, common.cuh). The
-// products of one scale group (512 inputs) accumulate in f32; at the
-// group's end they are multiplied by
-// the group's f32 scale and added to the f32 total, as the TPU kernel
-// does. int8: each byte becomes an exact f32 (v3d_int8x4_to_float's
-// splice), whose upper half is its exact bf16; the per-column scale
-// multiplies the f32 sum once at the end.
+// A CTA is a producer warp and four pairs of consumer warps; pair p owns
+// columns 128 p .. 128 p + 127 of every tile (its subtile). One producer
+// thread walks the CTA's stages through a ring of kSlots slots, each with a
+// full and an empty mbarrier, and loads by TMA, per stage, the four pairs'
+// boxes of the same inputs, so a weight row is read 512 contiguous bytes
+// at a time, and x's rows for those inputs (x is small; from L2). The
+// weight's tensor map reads it in pair rows, inputs 2p and 2p + 1 in row
+// p: int4, the packed (in / 2, out) bytes as they are; int8, the (in, out)
+// bytes viewed as (in / 2, 2 out), whose row p holds input 2p's columns,
+// then input 2p + 1's. A pair's part of a stage is one box of 128 columns
+// x 64 pair rows (int4) or two boxes of 128 columns x 32 pair rows (int8:
+// the even inputs at column c, the odd ones at out + c of the view), 8 KB;
+// x's part is one or two boxes of 64 inputs x 8 kNT rows (rows past `rows`
+// read as zeros). Every box is 128-byte swizzled: 16-byte chunk j of box
+// row r lands at chunk j ^ (r % 8). TMA takes row strides and first
+// columns of 16-byte multiples: in % 8 == 0 and out % 16 == 0.
+//
+// Products: bf16 mma.sync m16n8k16 with the weight as the A operand (16
+// output columns x 16 inputs) and x as B (16 inputs x 8 rows of x), so at
+// up to 8 rows every product is full; 9-16 and 17-32 rows take kNT = 2
+// and 4 n-tiles. Warp h of a pair takes 64 of its 128 columns in 4 m-tiles:
+// lane (g, t) (g = lane / 4, t = lane % 4) holds A rows g and g + 8 of
+// m-tile i at columns 16 g + 8 h + i and 16 g + 8 h + 4 + i, so its 8 bytes
+// of a box row feed all 4 m-tiles and its sums are 8 consecutive columns.
+// The inputs of one mma step (16) are pair rows 8 j .. 8 j + 7 of the
+// stage; k-slots (2t, 2t + 1) of the mma are pair row 8 j + 2t and slots
+// (2t + 8, 2t + 9) pair row 8 j + 2t + 1, so the 8 lanes of a quarter-warp
+// read 8 distinct swizzled chunks and a lane's x fragment is the 4
+// consecutive inputs 16 j + 4t .. + 3 of a row (one 8-byte load, also
+// conflict-free). An int4 byte is exactly the (2p, 2p + 1) bf16 pair of
+// an A register (v3d_nibble_pairs, common.cuh: a nibble n becomes bf16
+// 128 + (n + 8), then 136 is subtracted, both exact); an int8 pair is the
+// same column's byte of the even and the odd box, each v = l - 128 b (b its
+// top bit) made exactly as bf16 (128 + l) + bf16 (-128 - 128 b) by one
+// bf16x2 add (int8_pairs).
+//
+// Order of the sums (fixed, no float atomics: bit-identical from run to
+// run). A warp adds its columns' products over the segment's stages in
+// input order in the mma accumulators; int4 multiplies the f32 sum of each
+// stage (at 17-32 rows: of each 16-input step, so the partials fit the
+// registers) by the group's f32 scale (a stage lies inside one group) and
+// adds it to an f32 total in input order: the TPU kernel multiplies each
+// whole group's sum instead. A whole tile is then scaled (int8: the f32
+// column scale), rounded once and written from registers. A K-slice writes
+// each pair's f32 sums to one of its CTA's two workspace slots (lanes
+// whose rows are all past `rows` skip theirs); when the CTA's stream has
+// ended (a gpu-scope fence waits for the SM's loads in flight), one thread
+// per pair announces its slices on an arrival counter per subtile, and the
+// last CTA to arrive (it resets the counter, so the wrapper zeroes the
+// counters once per stream) adds the slices in slice (input) order, then
+// scales, rounds and writes. No sum crosses warps.
+
 #pragma once
 
-#include "common.cuh"
+#include "flash_sm90.cuh"
 
-namespace {
+namespace v3d_wstream {
 
-constexpr int kWarps = 4;                  // input slices per block
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 64;                  // output columns per block
-constexpr int kTiles = kTile / 8;          // mma n-tiles per warp
-constexpr int kRows = 16;                  // rows of x per block
+using namespace v3d_sm90;
+
+constexpr int kSubCols = 128;        // a pair's columns: one box row
+constexpr int kPairs = 4;
+constexpr int kTileCols = kPairs * kSubCols;   // 512 contiguous bytes a row
+constexpr int kStageBytes = 8192;    // one pair's weights of a stage
+constexpr int kRegionBytes = 4096;   // int8: each of its two boxes
+constexpr int kXBytes = 8192;        // x's boxes of a stage, at most
+constexpr int kSlotBytes = kPairs * kStageBytes + kXBytes;
+constexpr int kSlots = 5;            // ring depth: 200 KB per SM
+constexpr int kXBox = 64;            // inputs of an x box: 128 bytes a row
+constexpr int kConsumers = 64 * kPairs;       // threads of the 8 warps
+constexpr int kThreads = kConsumers + 32;     // and the producer warp
 constexpr int kMaxRows = 32;
-constexpr int kChunk = 512;                // inputs per split unit (and group)
-constexpr int kStep = 16;                  // inputs per mma
-constexpr int kUnroll = 4;                 // steps whose loads go out together
 
-typedef __nv_bfloat16 bf16;
+// pair rows (two inputs each) of one stage
+template <bool kInt4>
+__host__ __device__ constexpr int stage_pairs() {
+  return kInt4 ? kStageBytes / kSubCols : kRegionBytes / kSubCols;
+}
+
+// f32 sums of one pair over a K-slice of its columns: its share of a
+// workspace slot (slice_at)
+template <int kNT>
+__host__ __device__ constexpr int frag_floats() {
+  return 2 * 4 * kNT * 4 * 32;
+}
+
+constexpr int smem_bytes() {
+  return 1024 + kSlots * kSlotBytes + 2 * kSlots * 8 + 8 * 4;
+}
+
+struct Params {
+  const bf16* x;          // (rows, in)
+  const bf16* scale;      // int8 (1, out); int4 (in / group, out)
+  bf16* y;                // (rows, out)
+  float* ws;              // split tiles: two slots per CTA, kPairs
+                          // frag_floats each
+  int* counters;          // split tiles: kPairs per tile, left zeroed
+  int rows, in, out, group;
+  int tile_stages;        // stages of a tile's inputs: its units
+  int ctas;
+  int units;              // tiles x tile_stages; ctas x units < 2^31
+};
+
+__host__ __device__ __forceinline__ int unit_begin(const Params& p, int c) {
+  return c * p.units / p.ctas;
+}
+
+// the CTA whose range holds unit u
+__device__ __forceinline__ int cta_of(const Params& p, int u) {
+  return ((u + 1) * p.ctas - 1) / p.units;
+}
+
+// workspace slot of CTA c's K-slice of `tile`: its first tile's slice, or
+// the one it ends in
+__device__ __forceinline__ int slot_of(const Params& p, int c, int tile) {
+  return 2 * c + (unit_begin(p, c) / p.tile_stages == tile ? 0 : 1);
+}
+
+struct Segment {
+  int tile, s0, s1;       // stages [s0, s1) of tile
+};
+
+// This CTA's segments, in order.
+struct Segments {
+  const Params& p;
+  int u, end;
+  __device__ explicit Segments(const Params& params)
+      : p(params), u(unit_begin(params, blockIdx.x)),
+        end(unit_begin(params, blockIdx.x + 1)) {}
+  __device__ bool next(Segment& sg) {
+    if (u >= end) return false;
+    sg.tile = u / p.tile_stages;
+    const int t0 = sg.tile * p.tile_stages;
+    sg.s0 = u - t0;
+    sg.s1 = min(end, t0 + p.tile_stages) - t0;
+    u = t0 + sg.s1;
+    return true;
+  }
+};
+
+__device__ __forceinline__ void fence_gpu() {
+  asm volatile("fence.acq_rel.gpu;" ::: "memory");
+}
 
 // d += a (16 x 16 bf16, row-major) * b (16 x 8 bf16, column-major)
 __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
@@ -68,202 +175,463 @@ __device__ __forceinline__ void mma_bf16(float* d, const unsigned* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// byte k of two int8 rows -> the bf16 pair (row a, row b), exact
-__device__ __forceinline__ unsigned int8_pair(unsigned a, unsigned b, int k) {
-  const unsigned sel = 0x7440u + k;
-  const float fa = __int_as_float(
-      __byte_perm(a ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
-  const float fb = __int_as_float(
-      __byte_perm(b ^ 0x80808080u, 0x4B000000u, sel)) - 8388736.f;
-  return __byte_perm(__float_as_uint(fa), __float_as_uint(fb), 0x7632);
+// byte i of the even word e and the odd word o -> register r of m-tile i:
+// the exact bf16 pair (even, odd). A byte v = l - 128 b (b its top bit, l
+// its low 7) is bf16 0x4300 | l = 128 + l plus bf16 0xC300 | (b << 7) =
+// -128 - 128 b, a sum that bf16 holds exactly.
+__device__ __forceinline__ void int8_pairs(unsigned e, unsigned o,
+                                           unsigned (&a)[4][4], int r) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned v = __byte_perm(e, o, 0x4400 + 0x1100 * i + 0x0011 * i);
+    const unsigned l = (v & 0x007F007Fu) | 0x43004300u;
+    const unsigned b = (v & 0x00800080u) | 0xC300C300u;
+    const __nv_bfloat162 sum = __hadd2(
+        *reinterpret_cast<const __nv_bfloat162*>(&l),
+        *reinterpret_cast<const __nv_bfloat162*>(&b));
+    a[i][r] = *reinterpret_cast<const unsigned*>(&sum);
+  }
 }
 
-__device__ __forceinline__ unsigned load_pair(const bf16* p, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const unsigned*>(p)) : 0u;
-}
-
-__device__ __forceinline__ uint2 load_row(const int8_t* p, bool ok) {
-  return ok ? __ldg(reinterpret_cast<const uint2*>(p)) : make_uint2(0u, 0u);
-}
-
-template <bool kInt4>
-__global__ void __launch_bounds__(kThreads)
-stream_kernel(const bf16* __restrict__ x,        // (rows, in)
-              const int8_t* __restrict__ w,      // (in, out) / (in/2, out)
-              const bf16* __restrict__ scale,    // (1, out) / (in/group, out)
-              bf16* __restrict__ y,              // (rows, out)
-              float* __restrict__ ws,            // (splits, rows, out)
-              int rows, int in, int out, int group, int per_split) {
-  __shared__ float red[kWarps][32][kTiles * 4];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int row0 = blockIdx.x * kRows;
-  const int col0 = blockIdx.y * kTile;
-  const bool live = col0 + 8 * g < out;    // out % 8 == 0: all 8 or none
-  const bool v0 = row0 + g < rows, v1 = row0 + g + 8 < rows;
-  const bf16* x0 = x + (long long)(row0 + g) * in + 2 * t;
-  const bf16* x1 = x0 + 8LL * in;
-  const int8_t* wl = w + col0 + 8 * g;
-  // this block's input steps, then this warp's contiguous share of them
-  const int steps = (in + kStep - 1) / kStep;
-  const int b_begin = min(steps, blockIdx.z * per_split * (kChunk / kStep));
-  const int b_end = min(steps, b_begin + per_split * (kChunk / kStep));
-  const int share = (b_end - b_begin + kWarps - 1) / kWarps;
-  const int s_begin = min(b_end, b_begin + warp * share);
-  const int s_end = min(b_end, s_begin + share);
-  const int group_steps = group / kStep;
-
-  float part[kTiles][4], total[kTiles][4];
+// The CTA's stages in order, each into the next ring slot: the four pairs'
+// boxes of the tile's column subtiles (int8: the even and the odd box) and
+// x's boxes of the stage's inputs (rows past `rows` read as zeros).
+template <bool kInt4, int kNT>
+__device__ void produce(const Params& p, const CUtensorMap* wmap,
+                        const CUtensorMap* xmap, unsigned char* ring,
+                        uint64_t* full, uint64_t* empty) {
+  constexpr int kXBoxes = 2 * stage_pairs<kInt4>() / kXBox;
+  constexpr int kXBoxBytes = 128 * 8 * kNT;
+  Segments segs(p);
+  Segment sg;
+  int q = 0;
+  while (segs.next(sg)) {
+    for (int s = sg.s0; s < sg.s1; ++s, ++q) {
+      const int slot = q % kSlots;
+      mbar_wait(empty + slot, ((q / kSlots) & 1) ^ 1);
+      mbar_arrive_tx(full + slot,
+                     kPairs * kStageBytes + kXBoxes * kXBoxBytes);
+      unsigned char* dst = ring + slot * kSlotBytes;
+      const int p0 = s * stage_pairs<kInt4>();
 #pragma unroll
-  for (int j = 0; j < kTiles; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) part[j][c] = total[j][c] = 0.f;
-
-  for (int s = s_begin; s < s_end; s += kUnroll) {
-    constexpr int kLoads = kInt4 ? 2 : 4;  // weight rows per lane and step
-    unsigned a[kUnroll][4];
-    uint2 wv[kUnroll][kLoads];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k0 = (s + u) * kStep;
-      const bool ok = s + u < s_end;
-      // inputs k0 + 2t (+1) and k0 + 8 + 2t (+1); in % 2 == 0
-      const bool k_lo = ok && k0 + 2 * t < in, k_hi = ok && k0 + 8 + 2 * t < in;
-      a[u][0] = load_pair(x0 + k0, k_lo && v0);
-      a[u][1] = load_pair(x1 + k0, k_lo && v1);
-      a[u][2] = load_pair(x0 + k0 + 8, k_hi && v0);
-      a[u][3] = load_pair(x1 + k0 + 8, k_hi && v1);
-      if constexpr (kInt4) {
-        // packed rows k0/2 + t (inputs k0 + 2t, +1) and + 4 (k0 + 8 + 2t)
-        const int8_t* p = wl + (long long)(k0 / 2 + t) * out;
-        wv[u][0] = load_row(p, ok && live);
-        wv[u][1] = load_row(p + 4LL * out, ok && live);
-      } else {
-        const int8_t* p = wl + (long long)(k0 + 2 * t) * out;
-        wv[u][0] = load_row(p, k_lo && live);
-        wv[u][1] = load_row(p + out, k_lo && live);
-        wv[u][2] = load_row(p + 8LL * out, k_hi && live);
-        wv[u][3] = load_row(p + 9LL * out, k_hi && live);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (s + u >= s_end) break;
-      unsigned b0[kTiles], b1[kTiles];
-      if constexpr (kInt4) {
-        v3d_nibble_pairs(wv[u][0].x, b0);
-        v3d_nibble_pairs(wv[u][0].y, b0 + 4);
-        v3d_nibble_pairs(wv[u][1].x, b1);
-        v3d_nibble_pairs(wv[u][1].y, b1 + 4);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kTiles; ++j) {
-          const int k = j % 4;
-          b0[j] = int8_pair(j < 4 ? wv[u][0].x : wv[u][0].y,
-                            j < 4 ? wv[u][1].x : wv[u][1].y, k);
-          b1[j] = int8_pair(j < 4 ? wv[u][2].x : wv[u][2].y,
-                            j < 4 ? wv[u][3].x : wv[u][3].y, k);
-        }
+      for (int pr = 0; pr < kPairs; ++pr) {
+        const int c0 = sg.tile * kTileCols + pr * kSubCols;
+        tma_load(dst + pr * kStageBytes, wmap, full + slot, c0, p0, 0, 0);
+        if (!kInt4)
+          tma_load(dst + pr * kStageBytes + kRegionBytes, wmap, full + slot,
+                   p.out + c0, p0, 0, 0);
       }
 #pragma unroll
-      for (int j = 0; j < kTiles; ++j) mma_bf16(part[j], a[u], b0[j], b1[j]);
-      if constexpr (kInt4) {
-        // at the end of a scale group (or of this warp's share): the
-        // group's sums times its f32 scales, columns col0 + 16t + j and
-        // col0 + 16t + 8 + j
-        const int next = s + u + 1;
-        if (next % group_steps == 0 || next == s_end) {
-          float sc[16];
-          const bf16* sp = scale + (long long)((s + u) * kStep / group) * out
-              + col0 + 16 * t;
-          v3d_bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(sp)), sc);
-          v3d_bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(sp + 8)),
-                              sc + 8);
-#pragma unroll
-          for (int j = 0; j < kTiles; ++j) {
-            total[j][0] = fmaf(part[j][0], sc[j], total[j][0]);
-            total[j][1] = fmaf(part[j][1], sc[8 + j], total[j][1]);
-            total[j][2] = fmaf(part[j][2], sc[j], total[j][2]);
-            total[j][3] = fmaf(part[j][3], sc[8 + j], total[j][3]);
-#pragma unroll
-            for (int c = 0; c < 4; ++c) part[j][c] = 0.f;
-          }
-        }
-      }
+      for (int xb = 0; xb < kXBoxes; ++xb)
+        tma_load(dst + kPairs * kStageBytes + xb * kXBoxBytes, xmap,
+                 full + slot, 2 * p0 + xb * kXBox, 0, 0, 0);
     }
   }
+}
 
-  // accumulator c of n-tile j sits at row g + 8 (c / 2), column
-  // col0 + 16 t + 8 (c % 2) + j; the 4 warps are summed in order
-#pragma unroll
-  for (int j = 0; j < kTiles; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      red[warp][lane][j * 4 + c] = kInt4 ? total[j][c] : part[j][c];
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < 32 * kTiles * 4; idx += kThreads) {
-    const int l = idx / (kTiles * 4), v = idx % (kTiles * 4);
-    const int j = v / 4, c = v % 4;
-    const int orow = row0 + l / 4 + 8 * (c / 2);
-    const int oc = col0 + 16 * (l % 4) + 8 * (c % 2) + j;
-    if (orow >= rows || oc >= out) continue;
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) sum += red[k][l][v];
-    if (gridDim.z == 1) {
-      if constexpr (!kInt4) sum *= __bfloat162float(scale[oc]);
-      y[(long long)orow * out + oc] = __float2bfloat16(sum);
+// A pair's warp over one stage (inputs k0 ..): the products go into acc
+// (int8), or, times the group's scales, into acc through f32 partials of
+// the stage (int4; at 17-32 rows partials of each 16-input step, so that
+// they fit the 168 registers a thread gets: 9 warps put 3 on some quarter
+// of the SM's register file). st: the pair's weights; xs: x's boxes
+// (128-byte rows of 64 inputs, swizzled, row 8 n + g of n-tile n); off0 /
+// off1: this lane's 8 bytes of pair rows 2t and 2t + 1 of mma step 0 (step
+// j is 1024 j bytes on: its rows 8 j + 2t (+1) keep the swizzle phase);
+// col: its first column (rows g take col + i, rows g + 8 col + 4 + i).
+template <bool kInt4, int kNT>
+__device__ __forceinline__ void stage_pass(const Params& p,
+                                           const unsigned char* st,
+                                           const unsigned char* xs, int k0,
+                                           int off0, int off1, int g, int t,
+                                           int col,
+                                           float (&acc)[4][kNT][4]) {
+  constexpr int kSteps = stage_pairs<kInt4>() / 8;
+  constexpr bool kStepFold = kInt4 && kNT > 2;
+  float sc[8];
+  if constexpr (kInt4) {
+    // the group's f32 scales of columns col .. col + 7; out % 16 == 0, so
+    // all of them or none
+    if (col < p.out) {
+      const bf16* sp =
+          p.scale + static_cast<long long>(k0 / p.group) * p.out + col;
+      v3d_bf16x8_to_float(__ldg(reinterpret_cast<const uint4*>(sp)), sc);
     } else {
-      ws[((long long)blockIdx.z * rows + orow) * out + oc] = sum;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) sc[i] = 0.f;
+    }
+  }
+  float part[4][kNT][4];
+  if constexpr (kInt4 && !kStepFold) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) part[i][n][c] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j) {
+    // inputs 16 j + 4t .. + 3 of the stage: box j / 4, bytes 32 (j % 4) + 8t
+    const unsigned char* xb = xs + (j / 4) * (128 * 8 * kNT);
+    unsigned b[kNT][2];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const uint2 v = *reinterpret_cast<const uint2*>(
+          xb + sw128(8 * n + g, 32 * (j % 4) + 8 * t));
+      b[n][0] = v.x;
+      b[n][1] = v.y;
+    }
+    const uint2 w0 = *reinterpret_cast<const uint2*>(st + off0 + 1024 * j);
+    const uint2 w1 = *reinterpret_cast<const uint2*>(st + off1 + 1024 * j);
+    unsigned a[4][4];
+    if constexpr (kInt4) {
+      unsigned lo[4], hi[4];
+      v3d_nibble_pairs(w0.x, lo);
+      v3d_nibble_pairs(w0.y, hi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i][0] = lo[i];
+        a[i][1] = hi[i];
+      }
+      v3d_nibble_pairs(w1.x, lo);
+      v3d_nibble_pairs(w1.y, hi);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[i][2] = lo[i];
+        a[i][3] = hi[i];
+      }
+    } else {
+      const uint2 o0 = *reinterpret_cast<const uint2*>(
+          st + kRegionBytes + off0 + 1024 * j);
+      const uint2 o1 = *reinterpret_cast<const uint2*>(
+          st + kRegionBytes + off1 + 1024 * j);
+      int8_pairs(w0.x, o0.x, a, 0);
+      int8_pairs(w0.y, o0.y, a, 1);
+      int8_pairs(w1.x, o1.x, a, 2);
+      int8_pairs(w1.y, o1.y, a, 3);
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      if constexpr (kStepFold) {
+        float d[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) d[i][c] = 0.f;
+          mma_bf16(d[i], a[i], b[n][0], b[n][1]);
+          acc[i][n][0] = fmaf(d[i][0], sc[i], acc[i][n][0]);
+          acc[i][n][1] = fmaf(d[i][1], sc[i], acc[i][n][1]);
+          acc[i][n][2] = fmaf(d[i][2], sc[4 + i], acc[i][n][2]);
+          acc[i][n][3] = fmaf(d[i][3], sc[4 + i], acc[i][n][3]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          mma_bf16(kInt4 ? part[i][n] : acc[i][n], a[i], b[n][0], b[n][1]);
+      }
+    }
+  }
+  if constexpr (kInt4 && !kStepFold) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        acc[i][n][0] = fmaf(part[i][n][0], sc[i], acc[i][n][0]);
+        acc[i][n][1] = fmaf(part[i][n][1], sc[i], acc[i][n][1]);
+        acc[i][n][2] = fmaf(part[i][n][2], sc[4 + i], acc[i][n][2]);
+        acc[i][n][3] = fmaf(part[i][n][3], sc[4 + i], acc[i][n][3]);
+      }
+  }
+}
+
+// Lane (g, t) of a pair's warp holds rows 2t, 2t + 1 (+ 8 n) of its
+// columns col .. col + 7: accumulator c of m-tile i sits at row 2t + c % 2,
+// column col + 4 (c / 2) + i. In the workspace a pair's slice is stored as
+// float4s (the four accumulators of one m-tile and n-tile) in the order
+// (warp h, m-tile i, n-tile n, lane): frag_floats per pair.
+template <int kNT>
+__device__ __forceinline__ float4* slice_at(const Params& p, int slot,
+                                            int pair, int h, int lane) {
+  constexpr int kF = frag_floats<kNT>();
+  return reinterpret_cast<float4*>(
+             p.ws + (static_cast<long long>(slot) * kPairs + pair) * kF +
+             h * (kF / 2)) + lane;
+}
+
+// Scales (int8), rounds and writes this lane's sums of columns col ..
+// col + 7, 16 bytes per row.
+template <bool kInt4, int kNT>
+__device__ __forceinline__ void write_y(const Params& p,
+                                        const float (&acc)[4][kNT][4],
+                                        int col, int t) {
+  if (col >= p.out) return;
+  float sc[8];
+  if constexpr (!kInt4)
+    v3d_bf16x8_to_float(
+        __ldg(reinterpret_cast<const uint4*>(p.scale + col)), sc);
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 8 * n + 2 * t + r;
+      if (row >= p.rows) continue;
+      float v[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        v[i] = acc[i][n][r];
+        v[4 + i] = acc[i][n][2 + r];
+      }
+      if constexpr (!kInt4) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[i] *= sc[i];
+      }
+      *reinterpret_cast<uint4*>(p.y + static_cast<long long>(row) * p.out +
+                                col) =
+          make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                     pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+    }
+}
+
+// The K-slices of `tile` held by CTAs first .. last, added in slice order
+// into acc (this lane's fragment positions); a batch of slices is loaded
+// before any of it is added, so their reads are in flight together. CTA
+// c > first holds its slice in its first slot (its range begins in the
+// tile).
+template <int kNT>
+__device__ __forceinline__ void merge(const Params& p, int tile, int first,
+                                      int last, int pair, int h, int lane,
+                                      float (&acc)[4][kNT][4]) {
+  constexpr int kBatch = 4 / kNT > 0 ? 4 / kNT : 1;
+  // lanes whose rows of n-tile n are all past `rows` neither store nor
+  // read (at one row of x, 8 of 32 lanes)
+  const int live = p.rows - 2 * (lane % 4);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+  for (int c0 = first; c0 <= last; c0 += kBatch) {
+    float4 v[kBatch][4][kNT];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 + k > last) break;
+      const int slot = c0 + k == first ? slot_of(p, first, tile)
+                                       : 2 * (c0 + k);
+      const float4* src = slice_at<kNT>(p, slot, pair, h, lane);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+          v[k][i][n] = 8 * n < live ? __ldcg(src + (i * kNT + n) * 32)
+                                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      if (c0 + k > last) break;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          acc[i][n][0] += v[k][i][n].x;
+          acc[i][n][1] += v[k][i][n].y;
+          acc[i][n][2] += v[k][i][n].z;
+          acc[i][n][3] += v[k][i][n].w;
+        }
     }
   }
 }
 
-// y = bf16(sum over splits of ws (times the int8 column scale))
-template <bool kScale>
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const float* __restrict__ ws, const bf16* __restrict__ scale,
-               bf16* __restrict__ y, int splits, int rows, int out) {
-  const long long n = (long long)rows * out;
-  for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
-       idx < n; idx += (long long)gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k) s += ws[k * n + idx];
-    if constexpr (kScale) s *= __bfloat162float(scale[idx % out]);
-    y[idx] = __float2bfloat16(s);
+template <bool kInt4, int kNT>
+__device__ void consume(const Params& p, const unsigned char* ring,
+                        uint64_t* full, uint64_t* empty, int* flags) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int pair = warp / 2, h = warp % 2, g = lane / 4, t = lane % 4;
+  const int off0 = sw128(2 * t, 16 * g) + 8 * h;
+  const int off1 = sw128(2 * t + 1, 16 * g) + 8 * h;
+  const int sub = pair * kSubCols + 16 * g + 8 * h;   // col within a tile
+  // K-slices (a CTA has at most two: its first and its last segment) are
+  // stored as they end and announced when the CTA's stream has ended: a
+  // gpu-scope fence waits for the SM's loads in flight
+  int pend_tile[2], pend_first[2], pend_last[2];
+  int pending = 0;
+  Segments segs(p);
+  Segment sg;
+  int q = 0;
+  while (segs.next(sg)) {
+    float acc[4][kNT][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+    const int col = sg.tile * kTileCols + sub;
+    for (int s = sg.s0; s < sg.s1; ++s, ++q) {
+      const int slot = q % kSlots;
+      mbar_wait(full + slot, (q / kSlots) & 1);
+      const unsigned char* st = ring + slot * kSlotBytes;
+      const unsigned char* ws = st + pair * kStageBytes;
+      const unsigned char* xs = st + kPairs * kStageBytes;
+      const int k0 = s * 2 * stage_pairs<kInt4>();
+      stage_pass<kInt4, kNT>(p, ws, xs, k0, off0, off1, g, t, col, acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+    const int tu0 = sg.tile * p.tile_stages;
+    const int first = cta_of(p, tu0);
+    const int last = cta_of(p, tu0 + p.tile_stages - 1);
+    if (first == last) {
+      write_y<kInt4, kNT>(p, acc, col, t);
+      continue;
+    }
+    float4* mine = slice_at<kNT>(p, slot_of(p, blockIdx.x, sg.tile), pair,
+                                 h, lane);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int n = 0; n < kNT; ++n)
+        if (8 * n < p.rows - 2 * t) mine[(i * kNT + n) * 32] =
+            make_float4(acc[i][n][0], acc[i][n][1], acc[i][n][2],
+                        acc[i][n][3]);
+    pend_tile[pending] = sg.tile;
+    pend_first[pending] = first;
+    pend_last[pending] = last;
+    ++pending;
+  }
+  if (pending == 0) return;
+  // the pair's stores come before the barrier; one thread's gpu-scope fence
+  // releases them all ahead of its arrivals (and acquires the other
+  // slices' stores for the pair where it arrives last)
+  named_sync(1 + pair, 64);
+  if (h == 0 && lane == 0) {
+    fence_gpu();
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (k >= pending) break;
+      int* counter = p.counters + pend_tile[k] * kPairs + pair;
+      const bool done =
+          atomicAdd(counter, 1) == pend_last[k] - pend_first[k];
+      if (done) *counter = 0;          // the next launch finds it zeroed
+      flags[2 * pair + k] = done;
+      any |= done;
+    }
+    if (any) fence_gpu();
+  }
+  named_sync(1 + pair, 64);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k >= pending) break;
+    if (!flags[2 * pair + k]) continue;
+    float acc[4][kNT][4];
+    merge<kNT>(p, pend_tile[k], pend_first[k], pend_last[k], pair, h, lane,
+               acc);
+    write_y<kInt4, kNT>(p, acc, pend_tile[k] * kTileCols + sub, t);
   }
 }
 
-// Checks the shapes, launches the streaming kernel (and the combine pass
-// when splits > 1) and returns cudaGetLastError().
-template <bool kInt4>
-int stream_matmul(const void* x, const void* w, const void* scale, void* y,
-                  void* ws, int rows, int in, int out, int group, int splits,
-                  void* stream) {
-  const int chunks = (in + kChunk - 1) / kChunk;
-  if (rows < 1 || rows > kMaxRows || in <= 0 || in % 2 != 0 || out <= 0 ||
-      out % 8 != 0 || splits < 1 || splits > chunks ||
-      (kInt4 && (out % kTile != 0 || group <= 0 || group % kChunk != 0 ||
-                 in % group != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int per_split = (chunks + splits - 1) / splits;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto* yp = static_cast<bf16*>(y);
-  auto* wsp = static_cast<float*>(ws);
-  const auto* sp = static_cast<const bf16*>(scale);
-  const dim3 grid((rows + kRows - 1) / kRows, (out + kTile - 1) / kTile,
-                  splits);
-  stream_kernel<kInt4><<<grid, kThreads, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w), sp, yp,
-      wsp, rows, in, out, kInt4 ? group : kChunk, per_split);
-  if (splits > 1) {
-    const long long n = (long long)rows * out;
-    const long long want = (n + kThreads - 1) / kThreads;
-    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-    combine_kernel<!kInt4><<<blocks, kThreads, 0, st>>>(wsp, sp, yp, splits,
-                                                        rows, out);
+template <bool kInt4, int kNT>
+__global__ void __launch_bounds__(kThreads, 1)
+weight_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t a = smem_u32(smem_raw);
+  unsigned char* ring = smem_raw + (((a + 1023) & ~1023u) - a);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSlots * kSlotBytes);
+  uint64_t* empty = full + kSlots;
+  int* flags = reinterpret_cast<int*>(empty + kSlots);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 2 * kPairs);    // every consumer warp
+    }
+    fence_barrier_init();
   }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    if (threadIdx.x == kConsumers) {
+      tma_prefetch(&wmap);
+      tma_prefetch(&xmap);
+      produce<kInt4, kNT>(p, &wmap, &xmap, ring, full, empty);
+    }
+    return;
+  }
+  consume<kInt4, kNT>(p, ring, full, empty, flags);
+}
+
+// Encodes x's tensor map ((in, rows) bf16 in swizzled boxes of kXBox
+// inputs x 8 kNT rows) and launches.
+template <bool kInt4, int kNT>
+int launch(const CUtensorMap& wmap, const Params& p, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      weight_stream_kernel<kInt4, kNT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes());
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  CUtensorMap xmap;
+  const int err = encode_map(&xmap, p.x, 2, true, {p.in, p.rows, 1, 1},
+                             {kXBox, 8 * kNT, 1, 1});
+  if (err) return err;
+  weight_stream_kernel<kInt4, kNT><<<p.ctas, kThreads, smem_bytes(),
+                                     stream>>>(wmap, xmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// Checks the shapes and the plan (`ctas`), encodes the weight's tensor
+// map and launches; returns a cudaError_t. The workspace (ws_bytes bytes)
+// and the counters (kPairs per output tile, zeroed) are needed when a
+// CTA's range begins inside a tile.
+template <bool kInt4>
+int stream_matmul(const void* x, const void* w, const void* scale, void* y,
+                  void* ws, long long ws_bytes, void* counters, int rows,
+                  int in, int out, int group, int ctas, void* stream) {
+  constexpr int kStageInputs = 2 * stage_pairs<kInt4>();
+  // TMA takes row strides and first columns of 16-byte multiples: x's
+  // rows (in % 8), the weight's rows (int4) and the odd box (int8, out %
+  // 16)
+  if (rows < 1 || rows > kMaxRows || in <= 0 || in % 8 != 0 || out <= 0 ||
+      out % 16 != 0 ||
+      (kInt4 && (group <= 0 || group % kStageInputs != 0 || in % group != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nt = rows <= 8 ? 1 : rows <= 16 ? 2 : 4;
+  Params p;
+  p.x = static_cast<const bf16*>(x);
+  p.scale = static_cast<const bf16*>(scale);
+  p.y = static_cast<bf16*>(y);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<int*>(counters);
+  p.rows = rows;
+  p.in = in;
+  p.out = out;
+  p.group = kInt4 ? group : 0;
+  p.tile_stages = (in + kStageInputs - 1) / kStageInputs;
+  const long long units =
+      static_cast<long long>((out + kTileCols - 1) / kTileCols) *
+      p.tile_stages;
+  if (units * (ctas + 1) >= (1LL << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.units = static_cast<int>(units);
+  p.ctas = ctas;
+  if (ctas < 1 || ctas > p.units)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool split = false;
+  for (int c = 1; c < ctas && !split; ++c)
+    split = unit_begin(p, c) % p.tile_stages != 0;
+  const long long need = 2LL * ctas * kPairs * nt * frag_floats<1>() * 4;
+  if (split && (ws == nullptr || counters == nullptr || ws_bytes < need))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap wmap;
+  const int err = kInt4
+      ? encode_map(&wmap, w, 1, true, {out, in / 2, 1, 1},
+                   {kSubCols, stage_pairs<true>(), 1, 1})
+      : encode_map(&wmap, w, 1, true, {2LL * out, in / 2, 1, 1},
+                   {kSubCols, stage_pairs<false>(), 1, 1});
+  if (err) return err;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (nt == 1) return launch<kInt4, 1>(wmap, p, st);
+  if (nt == 2) return launch<kInt4, 2>(wmap, p, st);
+  return launch<kInt4, 4>(wmap, p, st);
+}
+
+}  // namespace v3d_wstream

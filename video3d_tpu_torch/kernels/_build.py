@@ -116,11 +116,13 @@ _SIGNATURES = {
     # stream
     "v3d_paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # x, q, scale, y, workspace, rows, in, out, splits, stream
-    "v3d_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, packed, scales, y, workspace, rows, in_p, out_p, group, splits,
-    # stream
-    "v3d_int4_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, q, scale, y, workspace, workspace bytes, counters, rows, in, out,
+    # ctas, stream
+    "v3d_int8_matmul": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _P],
+    # x, packed, scales, y, workspace, workspace bytes, counters, rows,
+    # in_p, out_p, group, ctas, stream
+    "v3d_int4_matmul": [_P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _I, _I,
+                        _P],
     # p0, p1, p2, p3, t, out, checksum, K, step_bytes, stride, rows, vecs,
     # rows_per_cta, nsteps, nout, rep, sum_form, t_len, elem_bf16, stream
     "v3d_stream_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,

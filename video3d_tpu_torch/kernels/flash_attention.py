@@ -33,13 +33,15 @@ from __future__ import annotations
 
 import functools
 import math
-import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
 from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.kernels._launch import \
+    arrival_counters as _arrival_counters
+from video3d_tpu_torch.kernels._launch import sm_count as _sm_count
 from video3d_tpu_torch.kernels.attention import (NEG_INF, mha_reference,
                                                  mha_shared_prefix_reference)
 from video3d_tpu_torch.kernels.decode_attention import (CACHE_FORMS,
@@ -110,30 +112,6 @@ def shared_prefix_plan(B: int, L: int, H: int, KV: int, P: int,
     keys split (the suffix walks with the last split)."""
     return chunk_plan(KV * -(-B * L * (H // KV) // CHUNK_ROWS),
                       -(-P // CHUNK_KEYS), sms)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-_counters = {}
-_counters_lock = threading.Lock()
-
-
-def _arrival_counters(device, stream: int, n: int) -> torch.Tensor:
-    """At least n zeroed int32 arrival counters for split launches on one
-    stream: zeroed once, then left zeroed by every launch (the last CTA of
-    each row tile resets its own), so a launch needs no memset. Launches on
-    one stream run in order, so they can share them."""
-    key = (str(device), stream)
-    with _counters_lock:
-        buf = _counters.get(key)
-        if buf is None or buf.numel() < n:
-            buf = _counters[key] = torch.zeros(max(n, 1024),
-                                               dtype=torch.int32,
-                                               device=device)
-    return buf
 
 
 def _split_args(plan: ChunkPlan, device, stream: int):

@@ -13,26 +13,49 @@ version; a CUDA tensor launches the kernel or raises. Counterpart of
 * :func:`int4_matmul` -- B8 (``csrc/int4_matmul.cu``), 1-32 rows, every
   int4 decode projection and head.
 
-B4's B>1 form and B8 share one template (``csrc/weight_stream.cuh``) that
-reads each weight byte from HBM once for up to 16 rows of x and unpacks it
-in registers into bf16 tensor-core products.
+B4's B>1 form and B8 share one Hopper template (``csrc/weight_stream.cuh``)
+that streams the weight through a TMA ring in shared memory, reads each
+byte from HBM once for all rows of x and unpacks it in registers into the A
+operand of bf16 tensor-core products. :func:`stream_plan` cuts the work
+(column tiles x K-slices) evenly over at most one CTA per SM; the kernel
+merges split tiles itself, through a per-stream workspace and arrival
+counters (``_launch``).
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+from typing import List, Tuple
+
 import torch
 
-from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.kernels import _build, _launch
 
 COLS_PER_THREAD = 16     # int8 columns one thread of B4's matvec streams
-STREAM_COLS = 8          # weight columns per 8-byte load of the streaming kernels
-STREAM_TILE = 64         # output columns per block of the streaming kernels
-STREAM_CHUNK = 512       # inputs per split unit (and the int4 group) there
-MAX_ROWS = 32            # rows of x the streaming kernels take
-ROWS_PER_BLOCK = 16      # rows of x one block streams the weight for
+# The streaming template (csrc/weight_stream.cuh): output columns per tile,
+# warp pairs per tile (one 128-column subtile each, with its own arrival
+# counter), inputs per ring stage by weight bits, rows of x it takes, and
+# the f32 sums of one workspace slot per 8 rows of x
+STREAM_TILE = 512
+STREAM_PAIRS = 4
+STAGE_INPUTS = {8: 64, 4: 128}
+MAX_ROWS = 32
+SLOT_FLOATS = STREAM_PAIRS * 1024
+# The plan's cost model, in microseconds, measured on an H100 80GB HBM3 at
+# 700 W with a timestamped copy of the kernel: one SM's consumer warps take
+# about 30 (int8) / 22 (int4) KB of weight per us and the card about 2900
+# KB per us in all; a split tile costs its CTAs' arrivals (a gpu-scope
+# fence and an atomic, ~1.3 us) and its last CTA's reads of the K-slices,
+# ~100 KB per us.
+SM_KB_PER_US = {8: 30.0, 4: 22.0}
+CARD_KB_PER_US = 2900.0
+ARRIVE_US = 1.3
+MERGE_KB_PER_US = 100.0
+#: the plan takes the largest grid within this share of the least cost
+COST_SLACK = 0.05
 
 _entries = {}        # C entry point -> ctypes function
-_split_counts = {}   # (device, rows, out, chunks) -> splits
 
 
 def pack_int4(q: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -142,42 +165,125 @@ def int8_matvec(x: torch.Tensor, q: torch.Tensor,
     return y
 
 
-def _splits(index: int, rows: int, out: int, chunks: int) -> int:
-    """Input chunks are split over this many blocks per output tile (each
-    writes a float32 partial, summed in order by a second pass) until the
-    grid has about four 128-thread blocks per SM; 1 when the output tiles
-    alone fill the card. Computed once per (device, rows, out, chunks)."""
-    key = (index, rows, out, chunks)
-    splits = _split_counts.get(key)
-    if splits is None:
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        tiles = -(-rows // ROWS_PER_BLOCK) * -(-out // STREAM_TILE)
-        want = min(chunks, max(1, -(-4 * sms // tiles)))
-        per = -(-chunks // want)
-        splits = _split_counts[key] = -(-chunks // per)
-    return splits
+@dataclass(frozen=True)
+class StreamPlan:
+    """The grid of a weight-streaming launch: ``tiles`` column tiles of
+    STREAM_TILE outputs, each of ``units_per_tile`` K-slice units of
+    ``unit_k`` inputs (one ring stage: int8 64, int4 128, inside one scale
+    group), and the ``units`` (tile-major) cut into ``ctas`` even
+    contiguous ranges, as the kernel cuts them; ``rows`` rows of x, in
+    ``row_tiles`` n-tiles of 8."""
+    tiles: int
+    unit_k: int
+    units_per_tile: int
+    ctas: int
+    rows: int
+
+    @property
+    def row_tiles(self) -> int:
+        return 1 if self.rows <= 8 else 2 if self.rows <= 16 else 4
+
+    @property
+    def units(self) -> int:
+        return self.tiles * self.units_per_tile
+
+    def unit_begin(self, cta: int) -> int:
+        """First unit of CTA ``cta`` (``unit_begin`` in the kernel)."""
+        return cta * self.units // self.ctas
+
+    def slices(self) -> List[Tuple[int, int, int, int]]:
+        """(cta, tile, first unit, end unit) of every segment, units
+        counted within the tile, in CTA order."""
+        out = []
+        for c in range(self.ctas):
+            u, end = self.unit_begin(c), self.unit_begin(c + 1)
+            while u < end:
+                tile = u // self.units_per_tile
+                t0 = tile * self.units_per_tile
+                e = min(end, t0 + self.units_per_tile)
+                out.append((c, tile, u - t0, e - t0))
+                u = e
+        return out
+
+    @property
+    def split(self) -> bool:
+        """Whether some CTA's range begins inside a tile (its tile then
+        merges through the workspace)."""
+        return any(self.unit_begin(c) % self.units_per_tile
+                   for c in range(1, self.ctas))
+
+    @property
+    def workspace_bytes(self) -> int:
+        """f32 bytes of the workspace: two slots per CTA; 0 unsplit."""
+        if not self.split:
+            return 0
+        return self.ctas * 2 * SLOT_FLOATS * self.row_tiles * 4
+
+    def max_slices(self) -> int:
+        """Most K-slices (CTAs) of one tile."""
+        per_tile = {}
+        for _, tile, _, _ in self.slices():
+            per_tile[tile] = per_tile.get(tile, 0) + 1
+        return max(per_tile.values())
+
+    def cost_us(self, bits: int) -> float:
+        """The cost model's time: the most units a CTA streams at its
+        share of the card, then the arrivals and the longest merge."""
+        unit_kb = STREAM_TILE * self.unit_k * bits / 8 / 1024
+        rate = min(SM_KB_PER_US[bits], CARD_KB_PER_US / self.ctas)
+        stream = -(-self.units // self.ctas) * unit_kb / rate
+        if not self.split:
+            return stream
+        slice_kb = SLOT_FLOATS * self.row_tiles * 4 / 1024
+        return stream + ARRIVE_US + \
+            self.max_slices() * slice_kb / MERGE_KB_PER_US
 
 
-def _launch_stream(name: str, entry: str, index: int, x: torch.Tensor,
+@functools.lru_cache(maxsize=None)
+def stream_plan(rows: int, in_: int, out: int, sms: int,
+                bits: int) -> StreamPlan:
+    """Cut y (rows, out) = x (rows, in_) @ W into (column tile, K-slice)
+    work for at most one CTA per SM: every CTA streams the same number of
+    units, give or take one, so the same bytes within one K-slice; a unit
+    is one ring stage, so an int4 slice boundary never falls inside a
+    stage, and a stage never straddles two scale groups (groups are
+    multiples of 128 inputs). The grid is the largest whose cost
+    (``StreamPlan.cost_us``) is within COST_SLACK of the least: more CTAs
+    stream faster until the card's rate binds, but cut the tiles into more
+    K-slices for their merges to read (wk / wv: one tile)."""
+    tiles = -(-out // STREAM_TILE)
+    unit_k = STAGE_INPUTS[bits]
+    upt = -(-in_ // unit_k)
+    plans = [StreamPlan(tiles, unit_k, upt, c, rows)
+             for c in range(1, min(sms, tiles * upt) + 1)]
+    costs = [plan.cost_us(bits) for plan in plans]
+    least = min(costs)
+    return [plan for plan, cost in zip(plans, costs)
+            if cost <= least * (1 + COST_SLACK)][-1]
+
+
+def _launch_stream(lib, stream: int, sms: int, name: str, x: torch.Tensor,
                    w: torch.Tensor, scale: torch.Tensor, in_: int, out: int,
-                   extra=()):
-    """Launch a weight-streaming kernel on x (..., in_) -> (..., out); the
-    float32 partials of a split product go to a workspace, which a
-    product of one split does without."""
+                   bits: int, group: int = 512) -> torch.Tensor:
+    """Launch a weight-streaming kernel through ``lib`` on ``sms`` SMs: x
+    (..., in_) -> (..., out), its plan, and for a split plan the stream's
+    workspace and zeroed arrival counters (allocated once per stream)."""
     rows = x.numel() // max(in_, 1)
     if not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"{name}: {rows} rows of x; the kernel takes 1-"
                          f"{MAX_ROWS}")
-    splits = _splits(index, rows, out, -(-in_ // STREAM_CHUNK))
+    plan = stream_plan(rows, in_, out, sms, bits)
     y = torch.empty((*x.shape[:-1], out), dtype=x.dtype, device=x.device)
-    ws = None
-    if splits > 1:
-        ws = torch.empty((splits, rows, out), dtype=torch.float32,
-                         device=x.device)
-    err = _entry(entry)(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(), rows, in_, out, *extra,
-        splits, _stream(index))
+    split = (0, 0, 0)
+    if plan.workspace_bytes:
+        ws = _launch.workspace(x.device, stream, plan.workspace_bytes)
+        counters = _launch.arrival_counters(x.device, stream,
+                                            plan.tiles * STREAM_PAIRS)
+        split = (ws.data_ptr(), ws.numel() * 4, counters.data_ptr())
+    extra = (group,) if bits == 4 else ()
+    err = getattr(lib, f"v3d_{name}")(
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), *split,
+        rows, in_, out, *extra, plan.ctas, stream)
     _build.check(err, name)
     _build.count_launch(name)
     return y
@@ -190,8 +296,8 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale)
     in_, out = q.shape
-    if (x.shape[-1] != in_ or scale.shape != (1, out) or out % STREAM_COLS
-            or in_ % 2):
+    if (x.shape[-1] != in_ or scale.shape != (1, out) or out % 16
+            or in_ % 8):
         raise ValueError(f"int8_matmul: unsupported shapes x "
                          f"{tuple(x.shape)} q {tuple(q.shape)} scale "
                          f"{tuple(scale.shape)}")
@@ -199,8 +305,9 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
                                               ("q", q, torch.int8),
                                               ("scale", scale,
                                                torch.bfloat16)))
-    return _launch_stream("int8_matmul", "v3d_int8_matmul", index, x, q,
-                          scale, in_, out)
+    return _launch_stream(_build.library(), _stream(index),
+                          _launch.sm_count(index), "int8_matmul", x, q,
+                          scale, in_, out, 8)
 
 
 def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
@@ -211,9 +318,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
         return int4_matmul_plain(x, packed, scales, group)
     half, out_p = packed.shape
     in_p = 2 * half
-    if (x.shape[-1] != in_p or group % STREAM_CHUNK or in_p % group
-            or scales.shape != (in_p // group, out_p)
-            or out_p % STREAM_TILE):
+    if (x.shape[-1] != in_p or group <= 0 or group % 512 or in_p % group
+            or scales.shape != (in_p // group, out_p) or out_p % 16):
         raise ValueError(f"int4_matmul: unsupported shapes x "
                          f"{tuple(x.shape)} packed {tuple(packed.shape)} "
                          f"scales {tuple(scales.shape)} group {group}")
@@ -221,5 +327,6 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
                                               ("packed", packed, torch.int8),
                                               ("scales", scales,
                                                torch.bfloat16)))
-    return _launch_stream("int4_matmul", "v3d_int4_matmul", index, x, packed,
-                          scales, in_p, out_p, (group,))
+    return _launch_stream(_build.library(), _stream(index),
+                          _launch.sm_count(index), "int4_matmul", x, packed,
+                          scales, in_p, out_p, 4, group)
