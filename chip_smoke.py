@@ -25,7 +25,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    B2 folded and B5 (all three forms) also at the cases that exercise their
    splits over keys (a split boundary inside the chunk's own keys, a batch
    row with empty splits, B5 at B=2) and 128-row tiles that straddle batch
-   rows, each case called twice and held to the same bits;
+   rows, each case called twice and held to the same bits; B3 and B7 (all
+   three forms) each case called twice too, B3 also timed at phase 5's
+   B=8 rows and B7's DRAM and logical bytes (the aliased pages once, or
+   once per slot) printed;
    the training kernels at the training shapes: B2 with
    the per-row logsumexp and the fused flash backward B6; the
    weight-streaming kernels, B4's B>1 form (int8) and B8 (int4), at every
@@ -40,10 +43,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    that call's time. The kernels whose inputs fit in the 50 MB L2 (B1, B2
    folded, B3, B4's B>1 form, B5, B7, B8, B9a) are timed warm and with the
    L2 flushed before each call; each byte-bound row also prints its bytes
-   over the measured read ceiling. Then, untimed, the int8 forms of B2 folded, B3 and B7 at
-   phase 11's 32k shapes (4096-query chunks at offsets 0 and 28672 of a
-   32768-slot cache, kv_len 32760, the 1 x 32k + 7 x 512 page mix), with
-   the same bound and controls.
+   over the measured read ceiling. Then the int8 forms of B2 folded
+   (untimed), B3 and B7 (timed) at phase 11's 32k shapes (4096-query
+   chunks at offsets 0 and 28672 of a 32768-slot cache, kv_len 32760, the
+   1 x 32k + 7 x ~520 page mix), with the same bound and controls.
 4. Main path: the ScanQA answer path at full width (``ModelConfig()``:
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
@@ -145,14 +148,14 @@ KERNEL_INFO = {
                         "video3d_tpu/kernels/flash_attention.py:64"),
     "flash_attention_folded": ("video3d_tpu_torch/csrc/chunk_sm90.cuh",
                                "video3d_tpu/kernels/flash_attention.py:64"),
-    "decode_attention": ("video3d_tpu_torch/csrc/decode_attention.cu",
+    "decode_attention": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                          "video3d_tpu/kernels/decode_attention.py:68"),
     "shared_prefix_attention": (
         "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:503"),
     "int8_matvec": ("video3d_tpu_torch/csrc/int8_matvec.cu",
                     "video3d_tpu/kernels/quant_matvec.py:100"),
-    "decode_attention_int8": ("video3d_tpu_torch/csrc/decode_attention.cu",
+    "decode_attention_int8": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                               "video3d_tpu/kernels/decode_attention.py:68"),
     "flash_attention_folded_int8": (
         "video3d_tpu_torch/csrc/chunk_sm90.cuh",
@@ -165,15 +168,15 @@ KERNEL_INFO = {
     "flash_attention_bwd": (
         "video3d_tpu_torch/csrc/flash_attention_bwd.cu",
         "video3d_tpu/kernels/flash_attention.py:181, :216"),
-    "paged_attention": ("video3d_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                         "video3d_tpu/kernels/paged_attention.py:60"),
-    "paged_attention_int8": ("video3d_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention_int8": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                              "video3d_tpu/kernels/paged_attention.py:60"),
     "int8_matmul": ("video3d_tpu_torch/csrc/weight_stream.cuh",
                     "video3d_tpu/kernels/quant_matvec.py:116"),
     "int4_matmul": ("video3d_tpu_torch/csrc/weight_stream.cuh",
                     "video3d_tpu/kernels/quant_matvec.py:33"),
-    "decode_attention_int4": ("video3d_tpu_torch/csrc/decode_attention.cu",
+    "decode_attention_int4": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                               "video3d_tpu/kernels/decode_attention.py:68"),
     "flash_attention_folded_int4": (
         "video3d_tpu_torch/csrc/chunk_sm90.cuh",
@@ -181,7 +184,7 @@ KERNEL_INFO = {
     "shared_prefix_attention_int4": (
         "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:503"),
-    "paged_attention_int4": ("video3d_tpu_torch/csrc/paged_attention.cu",
+    "paged_attention_int4": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                              "video3d_tpu/kernels/paged_attention.py:60"),
     "stream_probe_kv": ("video3d_tpu_torch/csrc/stream_probe.cu",
                         "scripts/bench/kv_probe.py:42"),
@@ -329,6 +332,25 @@ def _kernel_ms(fn, iters: int):
     the same inputs does; a decode step over 28 layers' caches finds them
     in HBM."""
     return _median_ms(fn, iters), _median_ms(fn, iters, flush_l2=True)
+
+
+# the measured read ceiling (GB/s, the best L2-flushed B9 rate), set by
+# check_kernels before the other kernels' checks
+READ_CEILING_GBPS: Optional[float] = None
+
+
+def _timed_row(name: str, fn, nbytes: float, iters: int = 30) -> None:
+    """Warm and L2-flushed ms of one more call shape of a byte-bound
+    kernel, its share of the byte bound (nbytes at the data sheet's rate)
+    and its multiple of nbytes at the measured read ceiling."""
+    warm, flushed = _kernel_ms(fn, iters)
+    bound = nbytes / H100_HBM_BYTES * 1e3
+    at = "" if READ_CEILING_GBPS is None else (
+        f", {flushed / (nbytes / READ_CEILING_GBPS / 1e6):.1f}x its bytes "
+        f"at the measured ceiling")
+    print(f"  {name}: {warm:.4f} ms warm, {flushed:.4f} ms L2 flushed; "
+          f"{nbytes / 1e6:.2f} MB, bound {bound:.4f} ms ({bound / flushed:.1%}"
+          f" of it flushed){at}", flush=True)
 
 
 def _check(name: str, ok: bool, detail: str) -> None:
@@ -562,6 +584,8 @@ def check_decode(dev):
         ref = da.decode_attention_plain(q, k_all, v_all, kv_len, layer, KV)
         err = float((out.float() - ref.float()).abs().max())
         _check(f"B3 B={B} kv_len={lens}", err <= 2e-2, f"max |d| {err:.2e}")
+        _check_repeat(f"B3 B={B} kv_len={lens}", lambda: da.decode_attention(
+            q, k_all, v_all, kv_len, layer, KV), out)
         worst = max(worst, err)
         if timed is None:
             timed = (q, k_all, v_all, kv_len)
@@ -570,6 +594,7 @@ def check_decode(dev):
     n = int(kv_len[0])
     # the layer's first kv_len keys and values, the query, the output
     bound = _bound(_attn(n, H), 2 * n * KV * hd * 2 + 2 * _nbytes(q))
+    _time_decode_b8(dev, "bf16")
     kh, vh = (_heads_first(x[layer, :, :n].reshape(1, n, KV, hd), H)
               for x in (k_all, v_all))
     return worst, (
@@ -592,6 +617,44 @@ FOLDED_CASES = ((64, [6716], [6756]), (64, [6716, 5000], [6756, 5064]),
 # tile; B=2, whose prefix pass splits over keys
 PREFIX_CASES = ((6716, [64, 40, 17, 64, 33, 50, 8, 60]), (1000, [64, 1, 45]),
                 (6716, [64, 23]))
+
+
+# phase 5's B=8 rows (a scene prefix of 6716 positions, its suffix and the
+# answer so far) in a cache of 8704 slots
+B8_LENS = [6780, 6801, 6750, 6912, 6790, 6760, 6845, 6812]
+
+
+def _time_decode_b8(dev, form: str) -> None:
+    """B3 (``form``) timed at phase 5's B=8 shape: 8 rows of ~6.8k over
+    layer 27 of a stacked 28-layer cache of 8704 slots."""
+    import torch
+
+    from video3d_tpu_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device=dev).manual_seed(30)
+    NL, H, KV, hd, S, B = CACHE_LAYERS, 28, 4, 128, 8704, len(B8_LENS)
+    q = (Q_SCALE * torch.randn(B, 1, H, hd, generator=g,
+                               device=dev)).to(torch.bfloat16)
+    kv_len = torch.tensor(B8_LENS, dtype=torch.int32, device=dev)
+    ks = vs = None
+    if form == "bf16":
+        k = torch.randn(NL, B, S, KV * hd, generator=g,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn(NL, B, S, KV * hd, generator=g,
+                        device=dev).to(torch.bfloat16)
+    else:
+        bits = 8 if form == "int8" else 4
+        k, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, bits=bits)
+        v, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5,
+                            bits=bits)
+    args = (q, k, v, kv_len, NL - 1, KV, ks, vs)
+    per = 2 * k.shape[-1] * k.element_size() + (2 * KV * 4 if ks is not None
+                                                 else 0)
+    _timed_row(f"B3 {form} B=8 kv_len ~6.8k (phase 5's rows)",
+               lambda: da.decode_attention(*args),
+               sum(B8_LENS) * per + 2 * _nbytes(q))
+    del args, k, v, ks, vs
+    torch.cuda.empty_cache()
 
 
 def _check_repeat(name: str, fn, out) -> None:
@@ -1081,6 +1144,7 @@ def check_decode_int8(dev, bits: int = 8):
         name = f"B3 int{bits} B={B} kv_len={lens}"
         _check(name, err <= BF16_ATOL,
                f"max |d| {err:.2e} (the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: da.decode_attention(*args), out)
         controls = {
             "scales one position off": da.decode_attention_plain(
                 qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
@@ -1104,6 +1168,7 @@ def check_decode_int8(dev, bits: int = 8):
     # scales, the query and the output
     bound = _bound(_attn(n, H),
                    2 * n * (row_bytes + KV * 4) + 2 * _nbytes(timed[0]))
+    _time_decode_b8(dev, f"int{bits}")
     return worst, (
         _kernel_ms(lambda: da.decode_attention(*timed), 50),
         _median_ms(lambda: da.decode_attention_plain(*timed), 10)
@@ -1314,6 +1379,13 @@ def _paged_inputs(g, dev, form: str, lens=PAGED_LENS,
             ks, vs)
 
 
+def _paged_unique(lens) -> int:
+    """Positions of B7's serving shape read from DRAM: the shared prefix
+    pages once, each slot's positions past them once."""
+    shared = PAGED_PREFIX_PAGES * PAGED_PAGE
+    return shared + sum(max(n - shared, 0) for n in lens)
+
+
 def _paged_bound(q, k, v, table, kv_len, layer, KV, ks=None, vs=None):
     """The least HBM traffic: the shared prefix pages once, each slot's
     positions past them once (values and, quantized, scales), q, the
@@ -1321,8 +1393,7 @@ def _paged_bound(q, k, v, table, kv_len, layer, KV, ks=None, vs=None):
     pair."""
     H, hd = q.shape[2], q.shape[3]
     lens = kv_len.tolist()
-    shared = PAGED_PREFIX_PAGES * PAGED_PAGE
-    unique = shared + sum(max(n - shared, 0) for n in lens)
+    unique = _paged_unique(lens)
     per_pos = 2 * k.shape[-1] * k.element_size() + (
         2 * KV * 4 if ks is not None else 0)
     return _bound(_attn(sum(lens), H),
@@ -1357,6 +1428,7 @@ def check_paged(dev, form: str = "bf16"):
     _check(name, err <= BF16_ATOL and finite and zero,
            f"max |d| {err:.2e}, finite={finite}, kv_len 0 slot zero={zero} "
            f"(the bf16 plain version: {plain_err:.2e})")
+    _check_repeat(name, lambda: pa.paged_decode_attention(*args), out)
     wrong_page = table.clone()
     last = (PAGED_LENS[0] - 1) // PAGED_PAGE
     wrong_page[0, last] = table[1, last]
@@ -1377,8 +1449,15 @@ def check_paged(dev, form: str = "bf16"):
     _check_controls(name, ref, rows, controls)
     del controls
     bound = _paged_bound(*args)
+    per = 2 * k.shape[-1] * k.element_size() + (2 * KV * 4 if ks is not None
+                                                 else 0)
+    logical = sum(PAGED_LENS) * per + bound["bytes"] - _paged_unique(
+        PAGED_LENS) * per
     print(f"  B7 bound counts the {PAGED_PREFIX_PAGES} aliased prefix pages "
-          f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions)", flush=True)
+          f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions): DRAM bytes "
+          f"{bound['bytes'] / 1e6:.2f} MB; logical bytes, every slot's "
+          f"positions, {logical / 1e6:.2f} MB (the rest from the L2)",
+          flush=True)
     return err, (
         _kernel_ms(lambda: pa.paged_decode_attention(*args), 50),
         _median_ms(lambda: pa.paged_attention_plain(*args), 5)
@@ -1464,6 +1543,11 @@ def check_long_context_int8(dev) -> None:
     err = _rows_err(out, ref, [1])
     name = f"B3 int8 B=1 kv_len={LONG_DECODE_LEN} of S={S}"
     _check(name, err <= BF16_ATOL, f"max |d| {err:.2e}")
+    _check_repeat(name, lambda: da.decode_attention(q, k8, v8, kv_len, layer,
+                                                    KV, ks, vs), out)
+    _timed_row(name, lambda: da.decode_attention(q, k8, v8, kv_len, layer,
+                                                 KV, ks, vs),
+               LONG_DECODE_LEN * 2 * (k8.shape[-1] + KV * 4) + 2 * _nbytes(q))
     _check_controls(name, ref, [1], {
         "scales one position off": da.decode_attention_plain(
             qf, k8, v8, kv_len, layer, KV, torch.roll(ks, 1, dims=2),
@@ -1486,6 +1570,11 @@ def check_long_context_int8(dev) -> None:
             f"{PAGED_PAGE})")
     _check(name, err <= BF16_ATOL and bool(torch.isfinite(out.float()).all()),
            f"max |d| {err:.2e}")
+    _check_repeat(name, lambda: pa.paged_decode_attention(*args), out)
+    _timed_row(f"B7 int8 1 x {lens[0]} + 7 x ~520 (no shared pages)",
+               lambda: pa.paged_decode_attention(*args),
+               sum(lens) * 2 * (k.shape[-1] + KV * 4) + 2 * _nbytes(q)
+               + _nbytes(table, kv_len))
     wrong_page = table.clone()
     wrong_page[0, (lens[0] - 1) // PAGED_PAGE] = table[1, 0]
     _check_controls(name, ref, [1] * len(lens), {
@@ -1554,8 +1643,10 @@ def check_kernels():
     import torch
 
     dev = torch.device("cuda", 0)
+    global READ_CEILING_GBPS
     print("stream probes (B9):", flush=True)
     rows, ceiling = check_stream_probes(dev)
+    READ_CEILING_GBPS = ceiling
     torch.cuda.empty_cache()
     for name, fn in (("fused_geometry", check_geometry),
                      ("flash_attention", check_flash),
@@ -1600,8 +1691,8 @@ def check_kernels():
         rows[name] = {"max_abs_err": err, "ms": ms, "ms_l2_flushed": flushed,
                       "plain_ms": plain_ms, **bound, "library_ms": library_ms}
         torch.cuda.empty_cache()
-    print("the int8 kernels at phase 11's 32k shapes (not timed):",
-          flush=True)
+    print("the int8 kernels at phase 11's 32k shapes (B3 and B7 also "
+          "timed):", flush=True)
     check_long_context_int8(dev)
     rows.update(check_training_kernels(dev))
     return rows, ceiling

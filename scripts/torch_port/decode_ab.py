@@ -48,7 +48,9 @@ def _turn(package: str, bits: int, steps: int, extra) -> dict:
             "device_busy_share": r["device_busy_share"],
             "device_ms_per_step": sum(
                 r["device_ms_per_step_by_group"].values()),
-            "device_ms_per_step_by_group": r["device_ms_per_step_by_group"]}
+            "device_ms_per_step_by_group": r["device_ms_per_step_by_group"],
+            "attention_launches_per_step": r.get(
+                "attention_launches_per_step")}
     return out
 
 

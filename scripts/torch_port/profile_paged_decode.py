@@ -17,8 +17,9 @@ chunk of each, one ``paged_decode_chunk`` and one ``decode_chunk`` of
 each runs under ``torch.profiler``, whose host-side recording slows the
 step. Prints, for each, the wall ms per step without the profiler, kernels
 per step, the device busy share (the kernels' merged intervals over that
-wall time) and the device ms per step by kernel group (attention kernel,
-matrix products, index and copy kernels, other elementwise). Writes
+wall time), the device ms per step by kernel group (attention kernel,
+matrix products, index and copy kernels, other elementwise) and the B7 /
+B3 kernels' launches per step by name. Writes
 ``chiprun_out/profile_paged_decode_<bits>.json``. ``--package DIR`` imports
 the port from another tree (``DIR/video3d_tpu_torch``, for example an
 unpacked ``git archive`` of the parent commit; ``decode_ab.py`` runs it so).
@@ -36,8 +37,12 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-GROUPS = (("B7 paged attention", ("paged_",)),
-          ("B3 decode attention", ("decode_partial", "decode_combine")),
+# B7 and B3: split_decode_kernel over PagedRows / FlatRows; a parent tree's
+# paged_partial_kernel, paged_combine_kernel, decode_partial_kernel and
+# decode_combine_kernel (decode_ab.py profiles other trees too)
+GROUPS = (("B7 paged attention", ("paged_", "PagedRows")),
+          ("B3 decode attention", ("decode_partial", "decode_combine",
+                                   "FlatRows")),
           ("B4 int8 matvec", ("int8_mv",)),
           # weight_stream_kernel; a parent tree's stream_kernel and
           # combine_kernel (decode_ab.py profiles other trees too)
@@ -145,10 +150,14 @@ def main() -> None:
             toks.tolist()
             sync()
         groups, spans = {k: 0.0 for k, _ in GROUPS}, []
+        attention = {}      # the attention kernels' names: launches
         for ev in prof.events():
             if ev.device_type.name == "CUDA":
-                groups[_group(ev.name)] += ev.time_range.elapsed_us() / 1e3
+                group = _group(ev.name)
+                groups[group] += ev.time_range.elapsed_us() / 1e3
                 spans.append((ev.time_range.start, ev.time_range.end))
+                if group.startswith(("B7", "B3")):
+                    attention[ev.name] = attention.get(ev.name, 0) + 1
         busy, end = 0.0, float("-inf")
         for a, b in sorted(spans):
             if b > end:
@@ -160,7 +169,9 @@ def main() -> None:
             "kernels_per_step": len(spans) / n,
             "device_busy_share": busy / (wall * 1e3),
             "device_ms_per_step_by_group": {k: v / n
-                                            for k, v in groups.items()}}
+                                            for k, v in groups.items()},
+            "attention_launches_per_step": {k: v / n
+                                            for k, v in attention.items()}}
         print(f"{name}: {wall * 1e3 / n:.2f} ms per step of {S} slots; "
               f"{len(spans) / n:.0f} kernels per step, device busy "
               f"{busy / (wall * 1e3):.1%}", flush=True)

@@ -1,7 +1,8 @@
 """Host microseconds per call of the weight-streaming wrappers (B4's B>1
 form ``int8_matmul``, B8 ``int4_matmul``) and of ``quant.matmul`` around
-them, beside a bf16 ``x @ w`` (the bf16 configuration's call), on one CUDA
-GPU:
+them, beside a bf16 ``x @ w`` (the bf16 configuration's call), and of the
+decode-attention wrappers (B3 ``decode_attention``, B7
+``paged_decode_attention``, bf16 and int8 caches), on one CUDA GPU:
 
     python3 scripts/torch_port/wrapper_host_us.py [--package DIR] [--tag T]
 
@@ -13,7 +14,12 @@ them (``stream_plan``), the pieces of a call are timed too: the argument
 checks, the plan (cached), the output allocation, the stream's workspace
 and counters (allocated once per stream), the stream lookup, the ctypes
 call that encodes the tensor maps and launches the kernel, and the launch
-count. ``--package DIR`` imports the port from another tree
+count. The decode-attention wrappers are timed at chip_smoke.py phase 3's
+shapes (B3: B=1 over a 28-layer cache of 8704 slots; B7: 8 slots over the
+serving pools), with their pieces where the tree has them (``decode_plan``:
+the checks, the plan, the output, the stream's workspace and counters, the
+ctypes call, the launch count). ``--package DIR`` imports the port from
+another tree
 (for example an unpacked ``git archive`` of another commit), so two trees
 are compared by running the script once per tree, in turns.
 
@@ -53,6 +59,72 @@ def _host_us(fn, calls: int = 200, runs: int = 3) -> float:
         per.append((time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
     return sorted(per)[runs // 2]
+
+
+def _attention_wrappers(dev, g) -> dict:
+    """Host us per call of B3 and B7's wrappers (bf16 and int8 caches) at
+    phase 3's shapes, and of the pieces of a B3 call where the tree plans
+    its grid with ``decode_plan``."""
+    import torch
+
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.kernels import decode_attention as da
+    from video3d_tpu_torch.kernels import paged_attention as pa
+
+    out = {}
+    NL, H, KV, hd, S = 28, 28, 4, 128, 8704
+    q = torch.randn(1, 1, H, hd, generator=g, device=dev).bfloat16()
+    kv_len = torch.tensor([6812], dtype=torch.int32, device=dev)
+    for form in ("bf16", "int8"):
+        if form == "bf16":
+            k = torch.randn(NL, 1, S, KV * hd, generator=g,
+                            device=dev).bfloat16()
+            ks = None
+        else:
+            k, ks = cs._int8_cache(g, dev, (NL, 1, S), KV, hd)
+        args = (q, k, k, kv_len, NL - 1, KV, ks, ks)
+        r = {"decode_attention": _host_us(lambda: da.decode_attention(
+            *args))}
+        if hasattr(da, "decode_plan"):
+            from video3d_tpu_torch.kernels import _launch
+
+            stream = da._stream(dev)
+            sms = _launch.sm_count(0)
+            plan = da.decode_plan(1, KV, S, sms)
+            name = "decode_attention" + ("" if form == "bf16" else "_int8")
+            fn = getattr(_build.library(), "v3d_" + name)
+            o = torch.empty_like(q)
+            split = da.split_args(plan, dev, stream)
+            scales = (ks.data_ptr(), ks.data_ptr()) if ks is not None else ()
+            r.update({
+                "splits": plan.splits,
+                "checks": _host_us(lambda: da.check_cache(
+                    "decode_attention", q, k, k, ks, ks, KV)),
+                "decode_plan (cached)": _host_us(
+                    lambda: da.decode_plan(1, KV, S, sms)),
+                "allocate out": _host_us(lambda: torch.empty_like(q)),
+                "workspace and counters (per stream)": _host_us(
+                    lambda: da.split_args(plan, dev, stream)),
+                "raw stream": _host_us(lambda: da._stream(dev)),
+                "ctypes call (launch)": _host_us(lambda: fn(
+                    q.data_ptr(), k.data_ptr(), k.data_ptr(), *scales,
+                    kv_len.data_ptr(), o.data_ptr(), *split, NL - 1, 1, S,
+                    H, KV, plan.splits, float(hd ** -0.5), stream)),
+                "count_launch": _host_us(
+                    lambda: _build.count_launch(name))})
+        out[f"B3 {form} B=1"] = r
+        print("B3", form, json.dumps(r), flush=True)
+        del k, ks, args
+        pargs = cs._paged_inputs(g, dev, form)
+        r = {"paged_decode_attention": _host_us(
+            lambda: pa.paged_decode_attention(*pargs))}
+        out[f"B7 {form} 8 slots"] = r
+        print("B7", form, json.dumps(r), flush=True)
+        del pargs
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> None:
@@ -118,6 +190,7 @@ def main() -> None:
                     lambda: _build.count_launch("int8_matmul"))})
         result[what] = r
         print(args.tag, what, json.dumps(r), flush=True)
+    result.update(_attention_wrappers(dev, g))
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out",
                            f"wrapper_host_us_{args.tag}.json"), "w") as f:

@@ -97,17 +97,62 @@ def test_flash_kernel(dev, causal, B, L, lengths):
     assert _rows_err(got, ref, lengths) <= BF16_ATOL
 
 
-def test_decode_kernel(dev):
+# B3 / B7 cases: (H, KV, capacity, kv_len): G = 4 (the first case's
+# shapes), G = 7 (Qwen2-7B), G = 8 and G = 1; rows of 1, 255, 256, 257
+# positions (the tensor-core blocks hold 16, a stage 64) and at the
+# capacity. The last 4 keys of every row carry most of the weight, so a
+# dropped or misplaced key moves the output by far more than BF16_ATOL.
+DECODE_CASES = [(8, 2, 600, [600, 257, 1]), (28, 4, 600, [1, 255, 256, 257]),
+                (16, 2, 520, [520, 300]), (4, 4, 300, [256, 1, 299])]
+
+
+def _focus_last(k, lens, at):
+    """Channel 0 of the last 4 keys of each row gets FOCUS; ``at(b, s)``
+    indexes key s of row b in ``k``."""
+    for b, n in enumerate(lens):
+        for s_ in range(max(n - 4, 0), n):
+            k[at(b, s_) + (slice(None), 0)] += FOCUS
+
+
+def _peaked_q(g, dev, B, H, hd=128):
+    q = Q_SCALE * torch.randn(B, 1, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    return q.bfloat16()
+
+
+def _flat_kv(g, dev, NL, S, KV, lens, layer, hd=128):
+    """(NL, B, S, KV, hd) f32 keys (the last 4 of each row focused) and
+    values."""
+    B = len(lens)
+    k = torch.randn(NL, B, S, KV, hd, generator=g, device=dev)
+    _focus_last(k, lens, lambda b, s_: (layer, b, s_))
+    v = 0.5 * torch.randn(NL, B, S, KV, hd, generator=g, device=dev)
+    return k, v
+
+
+def _same_bits(fn, out):
+    """A second call gives the same bits (the splits merge in CTA order)."""
+    assert torch.equal(fn(), out)
+
+
+@pytest.mark.parametrize("H,KV,S,lens", DECODE_CASES)
+def test_decode_kernel(dev, H, KV, S, lens):
     g = torch.Generator(device=dev).manual_seed(2)
-    NL, B, S, H, KV, hd, layer = 2, 3, 600, 8, 2, 128, 1
-    q = torch.randn(B, 1, H, hd, generator=g, device=dev).bfloat16()
-    k_all = torch.randn(NL, B, S, KV * hd, generator=g, device=dev).bfloat16()
-    v_all = torch.randn(NL, B, S, KV * hd, generator=g, device=dev).bfloat16()
-    kv_len = torch.tensor([600, 257, 1], dtype=torch.int32, device=dev)
-    got = _launched("decode_attention", lambda: da.decode_attention(
-        q, k_all, v_all, kv_len, layer, KV))
-    ref = da.decode_attention_plain(q, k_all, v_all, kv_len, layer, KV)
-    assert float((got.float() - ref.float()).abs().max()) <= BF16_ATOL
+    NL, B, hd, layer = 2, len(lens), 128, 1
+    q = _peaked_q(g, dev, B, H)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer)
+    k_all, v_all = (x.reshape(NL, B, S, KV * hd).bfloat16() for x in (k, v))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k_all, v_all, kv_len, layer, KV)
+    got = _launched("decode_attention", call)
+    ref = da.decode_attention_plain(q.float(), k_all, v_all, kv_len, layer,
+                                    KV)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - ref).abs().max()) <= BF16_ATOL
+    _same_bits(call, got)
+    broken = da.decode_attention_plain(q.float(), k_all, v_all,
+                                       (kv_len - 1).clamp(min=1), layer, KV)
+    assert float((broken - ref).abs().max()) > 4 * BF16_ATOL
 
 
 FOLDED_PARAMS = [
@@ -348,21 +393,22 @@ def test_stream_wrappers_reject_what_the_kernels_do_not_take(dev):
 
 
 @pytest.mark.parametrize("bits", [8, 4])
-def test_decode_int8_kernel(dev, bits):
+@pytest.mark.parametrize("H,KV,S,lens", DECODE_CASES)
+def test_decode_int8_kernel(dev, bits, H, KV, S, lens):
     g = torch.Generator(device=dev).manual_seed(6)
-    NL, B, S, H, KV, hd, layer = 2, 3, 600, 8, 2, 128, 1
-    q = (Q_SCALE * torch.randn(B, 1, H, hd, generator=g, device=dev)).bfloat16()
-    k8, ks = _int8(torch.randn(NL, B, S, KV, hd, generator=g,
-                               device=dev).bfloat16(), bits)
-    v8, vs = _int8((0.5 * torch.randn(NL, B, S, KV, hd, generator=g,
-                                      device=dev)).bfloat16(), bits)
-    kv_len = torch.tensor([600, 257, 1], dtype=torch.int32, device=dev)
-    got = _launched(f"decode_attention_int{bits}",
-                    lambda: da.decode_attention(q, k8, v8, kv_len, layer, KV,
-                                                ks, vs))
+    NL, B, hd, layer = 2, len(lens), 128, 1
+    q = _peaked_q(g, dev, B, H)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer)
+    k8, ks = _int8(k.bfloat16(), bits)
+    v8, vs = _int8(v.bfloat16(), bits)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k8, v8, kv_len, layer, KV, ks, vs)
+    got = _launched(f"decode_attention_int{bits}", call)
     ref = da.decode_attention_plain(q.float(), k8, v8, kv_len, layer, KV, ks,
                                     vs)
+    assert bool(torch.isfinite(got.float()).all())
     assert float((got.float() - ref).abs().max()) <= BF16_ATOL
+    _same_bits(call, got)
     controls = [da.decode_attention_plain(q.float(), k8, v8, kv_len, layer,
                                           KV, *_rolled(ks, vs, dim))
                 for dim in (2, 3)]        # one position off, wrong kv head
@@ -622,19 +668,22 @@ def test_flash_train_function_on_the_gpu(dev):
 # another slot's page, kv_len one short, scales of the wrong kv head, int4
 # nibbles swapped) move the output by far more than the bound
 
-def _paged_case(dev, form, seed):
+def _paged_case(dev, form, seed, H=8, KV=2, page=16, lens=(80, 70, 0, 45),
+                table=None, P=12):
+    """Stacked (2, P, page, KV*hd) pools (quantized: with (2, P, KV, 1,
+    page) scales), layer 1 read; by default every slot aliases pages 1-3
+    and owns two pages after them."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    NL, P, page, H, KV, hd, layer = 2, 12, 16, 8, 2, 128, 1
-    table = torch.tensor([[1, 2, 3, 4 + 2 * b, 5 + 2 * b]
-                          for b in range(4)], dtype=torch.int32, device=dev)
-    lens = [80, 70, 0, 45]
-    q = Q_SCALE * torch.randn(4, 1, H, hd, generator=g, device=dev)
-    q[..., 0] += FOCUS
+    NL, hd, layer = 2, 128, 1
+    lens = list(lens)
+    if table is None:
+        table = [[1, 2, 3, 4 + 2 * b, 5 + 2 * b] for b in range(len(lens))]
+    table = torch.tensor(table, dtype=torch.int32, device=dev)
+    q = _peaked_q(g, dev, len(lens), H)
     k = torch.randn(NL, P, page, KV, hd, generator=g, device=dev)
     v = 0.5 * torch.randn(NL, P, page, KV, hd, generator=g, device=dev)
-    for b, n in enumerate(lens):
-        for s_ in range(max(n - 4, 0), n):
-            k[layer, int(table[b, s_ // page]), s_ % page, :, 0] += FOCUS
+    _focus_last(k, lens, lambda b, s_: (layer, int(table[b, s_ // page]),
+                                        s_ % page))
     ks = vs = None
     if form == "bf16":
         k, v = (x.reshape(NL, P, page, KV * hd).bfloat16().contiguous()
@@ -645,23 +694,48 @@ def _paged_case(dev, form, seed):
         v, vs = quantize_rows(v.bfloat16(), storage)
         ks, vs = (x.permute(0, 1, 3, 4, 2).contiguous() for x in (ks, vs))
     kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
-    return q.bfloat16(), k, v, table, kv_len, layer, KV, ks, vs
+    return q, k, v, table, kv_len, layer, KV, ks, vs
 
 
+# B7 cases beside the first (G = 4, pages of 16, a kv_len 0 slot, slots
+# ending mid-page): G = 7 over pages of 128 (the serving page), every slot
+# aliasing pages 1-2, at the capacity (384), 257, 0 and 1; G = 8 and G = 1
+# over pages of 16 with rows of 255 and 256 positions
+PAGED_CASES = [
+    {},
+    dict(H=28, KV=4, page=128, lens=(384, 257, 0, 1),
+         table=[[1, 2, 3 + b] for b in range(4)], P=8),
+    dict(H=16, KV=2, lens=(80, 255, 256, 3), P=44,
+         table=[[1, 2, 3] + list(range(4 + 13 * b, 17 + 13 * b))
+                for b in range(3)] + [[1, 2, 3] + [0] * 13]),
+    dict(H=4, KV=4, lens=(256, 0, 255, 17), P=44,
+         table=[[1, 2, 3] + list(range(4 + 13 * b, 17 + 13 * b))
+                for b in range(3)] + [[1, 2, 3] + [0] * 13])]
+
+
+@pytest.mark.parametrize("case", range(len(PAGED_CASES)))
 @pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
-def test_paged_kernel(dev, form):
-    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(dev, form, 8)
+def test_paged_kernel(dev, form, case):
+    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(
+        dev, form, 8 + case, **PAGED_CASES[case])
     name = "paged_attention" + ("" if form == "bf16" else f"_{form}")
-    got = _launched(name, lambda: pa.paged_decode_attention(
-        q, k, v, table, kv_len, layer, KV, ks, vs))
+    call = lambda: pa.paged_decode_attention(q, k, v, table, kv_len, layer,
+                                             KV, ks, vs)
+    got = _launched(name, call)
     ref = pa.paged_attention_plain(q.float(), k, v, table, kv_len, layer, KV,
                                    ks, vs)
     assert got.dtype == torch.bfloat16 and bool(torch.isfinite(
         got.float()).all())
     assert float((got.float() - ref).abs().max()) <= BF16_ATOL
-    assert bool((got[2] == 0).all())                 # the kv_len == 0 slot
+    for b in (kv_len == 0).nonzero().flatten().tolist():
+        assert bool((got[b] == 0).all())           # a kv_len == 0 slot
+    _same_bits(call, got)
+    b0 = int(kv_len.argmax())
+    last = (int(kv_len[b0]) - 1) // k.shape[2]
+    other = (b0 + 1) % len(kv_len)
     wrong_page = table.clone()
-    wrong_page[0, 4] = table[1, 4]
+    wrong_page[b0, last] = table[other, -1] if table[other, -1] != \
+        table[b0, last] else table[other, 0]
     controls = [
         pa.paged_attention_plain(q.float(), k, v, wrong_page, kv_len, layer,
                                  KV, ks, vs),
@@ -692,6 +766,15 @@ def test_paged_wrapper_rejects_what_the_kernel_does_not_take(dev):
                                   ks.transpose(2, 4), vs.transpose(2, 4))
     with pytest.raises(ValueError):                  # no layer 2
         pa.paged_decode_attention(q, k, v, table, kv_len, 2, KV, ks, vs)
+    with pytest.raises(ValueError):                  # a length per slot
+        pa.paged_decode_attention(q, k, v, table, kv_len[:3], layer, KV, ks,
+                                  vs)
+    with pytest.raises(ValueError):                  # a table row per slot
+        pa.paged_decode_attention(q, k, v, table[:3], kv_len, layer, KV, ks,
+                                  vs)
+    with pytest.raises(ValueError):                  # G = 16 > 8 heads
+        pa.paged_decode_attention(q.repeat(1, 1, 4, 1), k, v, table, kv_len,
+                                  layer, KV, ks, vs)
 
 
 @pytest.mark.parametrize("form", ["kv", "one_int8", "one_bf16", "multi",

@@ -75,9 +75,9 @@ _SIGNATURES = {
     # sm_scale, workspace, workspace bytes, counters, splits, stream
     "v3d_flash_attention_folded": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                    _I, _I, _F, _P, _L, _P, _I, _P],
-    # q, k_all, v_all, kv_len, out, part_m, part_l, part_acc,
-    # layer, B, S, H, KV, n_chunks, sm_scale, stream
-    "v3d_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+    # q, k_all, v_all, kv_len, out, workspace, workspace bytes, counters,
+    # layer, B, S, H, KV, splits, sm_scale, stream
+    "v3d_decode_attention": [_P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I,
                              _I, _I, _I, _F, _P],
     # q, pk, pv, sk, sv, out, B, L, P, H, KV, sm_scale, workspace,
     # workspace bytes, counters, splits, stream
@@ -85,9 +85,10 @@ _SIGNATURES = {
                                     _I, _F, _P, _L, _P, _I, _P],
     # x, q, scale, y, in, out, stream
     "v3d_int8_matvec": [_P, _P, _P, _P, _I, _I, _P],
-    # q, k_all, v_all, k_scale, v_scale, kv_len, out, part_m, part_l,
-    # part_acc, layer, B, S, H, KV, n_chunks, sm_scale, stream
-    "v3d_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    # q, k_all, v_all, k_scale, v_scale, kv_len, out, workspace,
+    # workspace bytes, counters, layer, B, S, H, KV, splits, sm_scale,
+    # stream
+    "v3d_decode_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _P,
                                   _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k_all, v_all, k_scale, v_scale, lengths, q_off, out, layer, B, L,
     # S, H, KV, sm_scale, workspace, workspace bytes, counters, splits,
@@ -107,14 +108,15 @@ _SIGNATURES = {
     # dv, B, L, S, H, KV, causal, sm_scale, stream
     "v3d_flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _F, _P],
-    # q, k_pages, v_pages, table, kv_len, out, part_m, part_l, part_acc,
-    # layer, B, P, page, maxp, H, KV, n_chunks, sm_scale, stream
-    "v3d_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _F, _P],
-    # q, k_pages, v_pages, k_scale, v_scale, table, kv_len, out, part_m,
-    # part_l, part_acc, layer, B, P, page, maxp, H, KV, n_chunks, sm_scale,
+    # q, k_pages, v_pages, table, kv_len, out, workspace, workspace
+    # bytes, counters, layer, B, P, page, maxp, H, KV, splits, sm_scale,
     # stream
-    "v3d_paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    "v3d_paged_attention": [_P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, k_scale, v_scale, table, kv_len, out,
+    # workspace, workspace bytes, counters, layer, B, P, page, maxp, H, KV,
+    # splits, sm_scale, stream
+    "v3d_paged_attention_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P,
                                  _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, q, scale, y, workspace, workspace bytes, counters, rows, in, out,
     # ctas, stream

@@ -8,23 +8,112 @@ raises. Counterpart of ``video3d_tpu/kernels/decode_attention.py`` with the
 stacked-cache input form (``kv_heads`` given), over a bf16 cache, or an int8
 or a packed int4 one with per-position scales (the kernel's int8 and int4
 instantiations, counted as ``decode_attention_int8`` / ``_int4``).
+
+B3 and B7 (``paged_attention.py``) share one Hopper kernel
+(``csrc/decode_sm90.cuh``): one launch per call, :func:`decode_plan` gives
+its grid from the shapes and the SM count alone (the kernel reads kv_len on
+the device and gives each CTA an even share of the live positions), and
+rows split over several CTAs merge in the kernel through the stream's
+workspace and arrival counters (``_launch``). The wrapper allocates only
+the output.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.kernels import _build, _launch
 from video3d_tpu_torch.kernels.attention import cache_values, mha_reference
 
 HEAD_DIM = 128      # the kernel's compiled head dim
-CHUNK = 256         # cache positions per split-K block (csrc kChunk)
 MAX_GROUP = 8       # query heads per kv head (csrc kMaxG)
+#: f32 of one split's (m, l, O) for MAX_GROUP heads (csrc kPartFloats)
+PART_FLOATS = 2 * MAX_GROUP + MAX_GROUP * HEAD_DIM
+MAX_SPLITS = 256    # CTAs per kv head (csrc kMaxSplits)
 #: a cache's storage dtype -> the name suffix of its kernel instantiation
 #: (int4 values are packed two per uint8 byte)
 CACHE_FORMS = {torch.bfloat16: "", torch.int8: "_int8", torch.uint8: "_int4"}
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """The grid of a B3 or B7 launch: ``splits`` CTAs for each of
+    ``kv_heads`` kv heads over ``batch`` rows of ``cap`` positions. The
+    kernel lays the rows' live positions (kv_len, clamped to [0, cap]) end
+    to end and gives CTA c positions [c T / splits, (c + 1) T / splits)
+    (:meth:`ranges`); a row touched by several CTAs merges through two
+    workspace slots per CTA and one arrival counter per (row, kv head)."""
+    batch: int
+    kv_heads: int
+    cap: int
+    splits: int
+
+    @property
+    def ctas(self) -> int:
+        return self.splits * self.kv_heads
+
+    @property
+    def workspace_bytes(self) -> int:
+        return 2 * self.ctas * PART_FLOATS * 4
+
+    @property
+    def counters(self) -> int:
+        return self.batch * self.kv_heads
+
+    def lens(self, kv_len: Sequence[int]) -> List[int]:
+        return [min(max(int(n), 0), self.cap) for n in kv_len]
+
+    def ranges(self, kv_len: Sequence[int]) -> List[Tuple[int, int]]:
+        """Each CTA's [p0, p1) of the line of live positions."""
+        total = sum(self.lens(kv_len))
+        return [(c * total // self.splits, (c + 1) * total // self.splits)
+                for c in range(self.splits)]
+
+    def cta_of(self, x: int, total: int) -> int:
+        """The CTA whose range holds position x of the line (the kernel's
+        ``Walk::cta_of``)."""
+        return ((x + 1) * self.splits - 1) // total
+
+    def segments(self, kv_len: Sequence[int]
+                 ) -> List[Tuple[int, int, int, int]]:
+        """(cta, row, s0, s1) of every segment, positions [s0, s1) of the
+        row, in CTA order: the kernel's walk."""
+        lens = self.lens(kv_len)
+        out = []
+        for c, (p0, p1) in enumerate(self.ranges(kv_len)):
+            acc = 0
+            for b, n in enumerate(lens):
+                s0, s1 = max(p0, acc), min(p1, acc + n)
+                if s0 < s1:
+                    out.append((c, b, s0 - acc, s1 - acc))
+                acc += n
+        return out
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(batch: int, kv_heads: int, cap: int, sms: int) -> DecodePlan:
+    """One CTA per SM (its ~165 KB of rings allows no second): sms //
+    kv_heads splits per kv head, at least one and no more than a full
+    cache's positions or MAX_SPLITS. Nothing here depends on kv_len, which
+    stays on the device."""
+    return DecodePlan(batch, kv_heads, cap,
+                      max(1, min(sms // kv_heads, batch * cap, MAX_SPLITS)))
+
+
+def split_args(plan: DecodePlan, device, stream: int):
+    """The C arguments workspace, its bytes and the counters of a launch:
+    the stream's buffers (``_launch``), allocated once per stream."""
+    ws = _launch.workspace(device, stream, plan.workspace_bytes)
+    counters = _launch.arrival_counters(device, stream, plan.counters)
+    return ws.data_ptr(), ws.numel() * 4, counters.data_ptr()
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def layer_kv(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -113,26 +202,34 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
                        v_scale, kv_heads)
     if (L != 1 or hd != HEAD_DIM or Bc != B
             or v_all.shape != k_all.shape or H % kv_heads
-            or H // kv_heads > MAX_GROUP or not 0 <= layer < NL):
+            or H // kv_heads > MAX_GROUP or not 0 <= layer < NL
+            or kv_len.shape != (B,)):
         raise ValueError(f"decode_attention: unsupported shapes q "
                          f"{tuple(q.shape)} cache {tuple(k_all.shape)} "
                          f"layer {layer} kv_heads {kv_heads}")
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    n_chunks = -(-S // CHUNK)
-    part_m = torch.empty((B, H, n_chunks), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, n_chunks, hd), dtype=torch.float32,
-                           device=q.device)
+    return _launch_decode(_build.library(), _stream(q.device),
+                          _launch.sm_count(q.device.index or 0), form, q,
+                          k_all, v_all, kv_len, layer, kv_heads, k_scale,
+                          v_scale)
+
+
+def _launch_decode(lib, stream: int, sms: int, form: str, q, k_all, v_all,
+                   kv_len, layer: int, kv_heads: int, k_scale, v_scale):
+    """Launch B3's ``form`` through ``lib`` on ``sms`` SMs: its plan, the
+    stream's workspace and zeroed counters; allocates only the output and
+    reads nothing of kv_len on the host."""
+    B, _, H, hd = q.shape
+    S = k_all.shape[2]
+    plan = decode_plan(B, kv_heads, S, sms)
     out = torch.empty_like(q)
     name = "decode_attention" + form
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
-    err = getattr(_build.library(), "v3d_" + name)(
+    err = getattr(lib, "v3d_" + name)(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), *scales,
-        kv_len.data_ptr(), out.data_ptr(), part_m.data_ptr(),
-        part_l.data_ptr(), part_acc.data_ptr(), layer, B, S, H, kv_heads,
-        n_chunks, float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        kv_len.data_ptr(), out.data_ptr(),
+        *split_args(plan, q.device, stream), layer, B, S, H, kv_heads,
+        plan.splits, float(hd ** -0.5), stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out

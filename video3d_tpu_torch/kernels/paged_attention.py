@@ -9,12 +9,17 @@ page); slot b's position s lives in pool page
 the stacked pools: the kernel reads it by strides, and no per-layer copy is
 made. :func:`paged_decode_attention` dispatches on the device of ``q``: a
 CPU tensor runs :func:`paged_attention_plain`, a CUDA tensor launches
-``csrc/paged_attention.cu`` or raises.
+``csrc/paged_attention.cu`` or raises. The kernel is B3's
+(``csrc/decode_sm90.cuh``) over the pools' page map, with B3's plan
+(``decode_attention.decode_plan``, over maxp * page positions per slot):
+one launch, only the output allocated, kv_len and the table read on the
+device alone.
 
 Not ported: ``RAGGED_GRID`` (:139-143) and the cumsum / searchsorted
 live-page worklist with its ``lax.cond`` sizing (:198-281). They keep a
-TPU's sequential grid short; the CUDA grid is slots x splits, which covers
-aliased tables by construction. ``paged_attention_multi`` (:328, the
+TPU's sequential grid short; the CUDA kernel gives each CTA an even share
+of the slots' live positions laid end to end, which covers aliased tables
+by construction. ``paged_attention_multi`` (:328, the
 speculative verify) waits for ROADMAP A8.
 """
 
@@ -24,12 +29,13 @@ from typing import Optional
 
 import torch
 
-from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.kernels import _build, _launch
 from video3d_tpu_torch.kernels.attention import NEG_INF, cache_values
-from video3d_tpu_torch.kernels.decode_attention import CACHE_FORMS
+from video3d_tpu_torch.kernels.decode_attention import (CACHE_FORMS,
+                                                        _stream, decode_plan,
+                                                        split_args)
 
 HEAD_DIM = 128      # the kernel's compiled head dim
-CHUNK = 256         # positions per split-K block (csrc kChunk)
 MAX_GROUP = 8       # query heads per kv head (csrc kMaxG)
 
 
@@ -148,21 +154,31 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                          f"kv_heads {kv_heads}")
     table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
     kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
-    n_chunks = -(-maxp * page // CHUNK)
-    part_m = torch.empty((B, H, n_chunks), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((B, H, n_chunks, hd), dtype=torch.float32,
-                           device=q.device)
+    return _launch_paged(_build.library(), _stream(q.device),
+                         _launch.sm_count(q.device.index or 0), form, q,
+                         k_pages, v_pages, table, kv_len, layer, kv_heads,
+                         k_scale, v_scale)
+
+
+def _launch_paged(lib, stream: int, sms: int, form: str, q, k_pages,
+                  v_pages, table, kv_len, layer: int, kv_heads: int,
+                  k_scale, v_scale):
+    """Launch B7's ``form`` through ``lib`` on ``sms`` SMs: B3's plan over
+    maxp * page positions per slot, the stream's workspace and zeroed
+    counters; allocates only the output and reads nothing of kv_len or the
+    table on the host."""
+    B, _, H, hd = q.shape
+    P, page = k_pages.shape[1], k_pages.shape[2]
+    maxp = table.shape[1]
+    plan = decode_plan(B, kv_heads, maxp * page, sms)
     out = torch.empty_like(q)
     name = "paged_attention" + form
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
-    err = getattr(_build.library(), "v3d_" + name)(
+    err = getattr(lib, "v3d_" + name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,
         table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(), layer, B,
-        P, page, maxp, H, kv_heads, n_chunks, float(hd ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        *split_args(plan, q.device, stream), layer, B, P, page, maxp, H,
+        kv_heads, plan.splits, float(hd ** -0.5), stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out
