@@ -14,10 +14,15 @@ Phases, each of which raises on failure (the process then exits non-zero):
    rows and per-block checksums equal to the plain version, a checksum
    skipping each block's last row and, for the split form, columns one
    block late as controls; the best L2-flushed rate printed as the
-   measured read ceiling), then fused geometry (B1), flash prefill attention (B2), GQA-folded cached-chunk
-   attention (B2 folded), split-K decode attention (B3), shared-prefix
-   attention (B5), and the int8 configuration's kernels: the B=1 int8
-   weight matvec (B4) at the vocab head and the int8-cache forms of B3,
+   measured read ceiling), then fused geometry (B1: voxel ids and world
+   coordinates at the main path's V=32 480x640 shape and at 240x320, with
+   controls: frame f's ids from frame f + 1's pose, the crop window one
+   patch to the right), flash prefill attention (B2), GQA-folded
+   cached-chunk attention (B2 folded), split-K decode attention (B3),
+   shared-prefix attention (B5), and the int8 configuration's kernels: the
+   B=1 int8 weight matvec (B4) at the vocab head (twice, the same bits;
+   timed beside B4's B>1 form on the same one-row head and B9b's read of
+   the same weight) and the int8-cache forms of B3,
    B2 folded and B5, and their int4-cache forms (values packed two per
    byte) at the same shapes; paged decode attention (B7, bf16, int8 and
    int4 pools) at the paged batcher's shapes (8 slots aliasing a 52-page
@@ -35,14 +40,16 @@ Phases, each of which raises on failure (the process then exits non-zero):
    decode projection shape of Qwen2-7B and the vocab head at 1, 8 and 32
    rows, each case called twice and held to the same bits; max error,
    median times (CUDA events), each kernel's bound (the larger of its
-   operations over the card's peak and its bytes over the memory rate) and,
+   operations over the card's peak and its bytes over the memory rate;
+   B1's bytes: the 32-byte sectors of depth its pooled crop reads) and,
    where one PyTorch call computes the same function
    (``scaled_dot_product_attention``; for B4 ``torch._weight_int8pack_mm``
    where it runs on CUDA; for B8 ``torch._weight_int4pack_mm`` on the
    weight converted to its layout; for B9 the checksums as one ``sum``),
-   that call's time. The kernels whose inputs fit in the 50 MB L2 (B1, B2
-   folded, B3, B4's B>1 form, B5, B7, B8, B9a) are timed warm and with the
-   L2 flushed before each call; each byte-bound row also prints its bytes
+   that call's time. The kernels are timed warm and with the L2 flushed
+   before each call (B2, B2 with the logsumexp and B6 warm only; B4's
+   matvec and B9b-d read more than the 50 MB L2 either way); each
+   byte-bound row also prints its bytes
    over the measured read ceiling. Then the int8 forms of B2 folded
    (untimed), B3 and B7 (timed) at phase 11's 32k shapes (4096-query
    chunks at offsets 0 and 28672 of a 32768-slot cache, kv_len 32760, the
@@ -153,7 +160,7 @@ KERNEL_INFO = {
     "shared_prefix_attention": (
         "video3d_tpu_torch/csrc/chunk_sm90.cuh",
         "video3d_tpu/kernels/flash_attention.py:503"),
-    "int8_matvec": ("video3d_tpu_torch/csrc/int8_matvec.cu",
+    "int8_matvec": ("video3d_tpu_torch/csrc/weight_stream.cuh",
                     "video3d_tpu/kernels/quant_matvec.py:100"),
     "decode_attention_int8": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                               "video3d_tpu/kernels/decode_attention.py:68"),
@@ -334,9 +341,11 @@ def _kernel_ms(fn, iters: int):
     return _median_ms(fn, iters), _median_ms(fn, iters, flush_l2=True)
 
 
-# the measured read ceiling (GB/s, the best L2-flushed B9 rate), set by
-# check_kernels before the other kernels' checks
+# the measured read ceiling (GB/s, the best L2-flushed B9 rate) and B9b's
+# (warm, L2-flushed) ms over the vocab-head weight, set by check_kernels
+# before the other kernels' checks
 READ_CEILING_GBPS: Optional[float] = None
+B9B_MS: Optional[tuple] = None
 
 
 def _timed_row(name: str, fn, nbytes: float, iters: int = 30) -> None:
@@ -436,41 +445,120 @@ def _random_poses(g, V: int):
     return poses.to(torch.float32)
 
 
+# B1 against its plain version: at most GEOMETRY_IDS of the voxel ids
+# differ (f32 sums in another order put a few on the other side of a .5),
+# by at most 1, and world coordinates within GEOMETRY_ATOL metres; each
+# control must miss by CONTROL_FACTOR x that
+GEOMETRY_IDS, GEOMETRY_ATOL, CONTROL_FACTOR = 1e-3, 1e-3, 4.0
+# (V, H, W, crop, grid): the main path's shape (32 frames of a ScanNet-size
+# depth map, crop 384, grid 14) and a second size the kernel takes
+GEOMETRY_SHAPES = ((32, 480, 640, 384, 14), (8, 240, 320, 224, 16))
+
+
+def _geometry_case(g, dev, V: int, H: int, W: int, crop: int, grid: int):
+    """Depths in [500, 5000) mm, a pinhole intrinsic and random rigid poses
+    of V frames; returns them and a call of B1 or its plain version."""
+    import torch
+
+    from video3d_tpu_torch.kernels import fused_geometry as fg
+
+    depths = torch.randint(500, 5000, (V, H, W), generator=g,
+                           dtype=torch.int32).to(dev)
+    intr = torch.eye(4)
+    intr[0, 0] = intr[1, 1] = 0.9 * W
+    intr[0, 2], intr[1, 2] = W / 2 - 0.5, H / 2 - 0.5
+    intr = intr.to(dev)
+    poses = _random_poses(g, V).to(dev)
+
+    def call(fn, d=depths, p=poses, **kw):
+        return fn(d, intr, p, crop=crop, grid=grid, **kw)
+    return depths, intr, poses, call
+
+
+def _geometry_misses(got, ref, discretize: bool) -> float:
+    """B1's distance from a plain result in units of its bound: the share
+    of ids that differ over GEOMETRY_IDS, or max |d| (m) over
+    GEOMETRY_ATOL."""
+    diff = (got - ref).abs()
+    if discretize:
+        return float((diff > 0).float().mean()) / GEOMETRY_IDS
+    return float(diff.max()) / GEOMETRY_ATOL
+
+
+def _geometry_source_bytes(plan, V: int) -> int:
+    """Bytes of the int32 depths that B1 must read: the 32-byte sectors
+    holding the source pixels of the pooled crop (its distinct source rows
+    x the sectors of its source columns), V frames."""
+    rows, cols = plan.source_maps()
+    n = plan.grid * plan.patch
+    sectors = len(set((cols[:n] * 4 // 32).tolist()))
+    return V * len(set(rows[:n].tolist())) * sectors * 32
+
+
 def check_geometry(dev):
+    """B1 at GEOMETRY_SHAPES, voxel ids and world coordinates, against the
+    plain version; controls: frame f's ids from frame f + 1's pose, and the
+    crop window one patch to the right (the depths read one patch's source
+    columns over). Timed at the main path's shape."""
     import torch
 
     from video3d_tpu_torch.kernels import fused_geometry as fg
 
     g = torch.Generator().manual_seed(1)
-    V, H, W = 32, 480, 640
-    depths = torch.randint(500, 5000, (V, H, W), generator=g,
-                           dtype=torch.int32).to(dev)
-    intr = torch.eye(4)
-    intr[0, 0], intr[1, 1], intr[0, 2], intr[1, 2] = 577.87, 577.87, 319.5, 239.5
-    intr = intr.to(dev)
-    poses = _random_poses(g, V).to(dev)
-    args = dict(crop=384, grid=14)
-    ids = fg.fused_patch_voxel_coords(depths, intr, poses, **args)
-    ref = fg.reference_patch_voxel_coords(depths, intr, poses, **args)
-    diff = (ids - ref).abs()
-    frac = float((diff > 0).float().mean())
-    _check("B1 voxel ids", frac <= 1e-3 and float(diff.max()) <= 1,
-           f"{frac:.2e} of ids differ, max |d| {float(diff.max()):.0f}")
-    wc = fg.fused_patch_voxel_coords(depths, intr, poses, discretize=False,
-                                     **args)
-    wc_ref = fg.reference_patch_voxel_coords(depths, intr, poses,
-                                             discretize=False, **args)
-    err = float((wc - wc_ref).abs().max())
-    _check("B1 world coords", err <= 1e-3, f"max |d| {err:.2e} m")
-    # ~10 f32 operations per depth pixel (scale, camera x/y, patch sums)
-    bound = _bound(10.0 * depths.numel(),
-                   _nbytes(depths, intr, poses, ids), H100_F32_FLOPS)
-    return err, (
-        _kernel_ms(lambda: fg.fused_patch_voxel_coords(depths, intr, poses,
-                                                       **args), 20),
-        _median_ms(lambda: fg.reference_patch_voxel_coords(depths, intr,
-                                                           poses, **args), 5)
-    ), bound, None
+    timed = None
+    for V, H, W, crop, grid in GEOMETRY_SHAPES:
+        depths, intr, poses, call = _geometry_case(g, dev, V, H, W, crop,
+                                                   grid)
+        shift = (crop // grid) * W // fg.geometry_plan(H, W, crop,
+                                                       grid).new_w
+        for discretize, what in ((True, "voxel ids"),
+                                 (False, "world coords")):
+            got = call(fg.fused_patch_voxel_coords, discretize=discretize)
+            ref = call(fg.reference_patch_voxel_coords,
+                       discretize=discretize)
+            miss = _geometry_misses(got, ref, discretize)
+            name = f"B1 {what} V={V} {H}x{W} crop {crop} grid {grid}"
+            diff = (got - ref).abs()
+            _check(name, miss <= 1.0 and float(diff.max()) <= (
+                1 if discretize else GEOMETRY_ATOL),
+                f"max |d| {float(diff.max()):.2e}, "
+                f"{float((diff > 0).float().mean()):.2e} differ; "
+                f"{miss:.3f} of the bound")
+            for control, broken in (
+                    ("frame f + 1's pose", call(
+                        fg.reference_patch_voxel_coords,
+                        p=torch.roll(poses, -1, dims=0),
+                        discretize=discretize)),
+                    ("crop one patch to the right", call(
+                        fg.reference_patch_voxel_coords,
+                        d=torch.roll(depths, -shift, dims=2),
+                        discretize=discretize))):
+                r = _geometry_misses(got, broken, discretize)
+                _check(f"{name} control, {control}", r >= CONTROL_FACTOR,
+                       f"{r:.1f} x the bound (must be >= "
+                       f"{CONTROL_FACTOR:.0f})")
+            if not discretize and timed is None:
+                err = float(diff.max())
+                # ~10 f32 operations per pooled pixel (scale, camera x/y,
+                # patch sums); bytes: the depths' sectors the pooled
+                # pixels lie in, the intrinsic, the poses and the output
+                plan = fg.geometry_plan(H, W, crop, grid)
+                pooled = V * (grid * plan.patch) ** 2
+                source = _geometry_source_bytes(plan, V)
+                bound = _bound(10.0 * pooled,
+                               source + _nbytes(intr, poses, got),
+                               H100_F32_FLOPS)
+                print(f"  B1 bound: {source / 1e6:.2f} MB of the "
+                      f"{_nbytes(depths) / 1e6:.2f} MB of depths (the "
+                      f"32-byte sectors its {pooled} pooled pixels' source "
+                      f"pixels lie in)", flush=True)
+                timed = err, (
+                    _kernel_ms(lambda: call(fg.fused_patch_voxel_coords),
+                               30),
+                    _median_ms(lambda: call(fg.reference_patch_voxel_coords),
+                               5)), bound, None
+        del depths, poses
+    return timed
 
 
 def _tile_dropped(q, k, v, lengths, a: int, b: int):
@@ -959,8 +1047,12 @@ def _int4pack(q4, scales):
 def check_int8_matvec(dev):
     """B4 at the B=1 vocab head: x (1, 1, 3584) bf16 against the int8
     (3584, 152064) weight and its bf16 (1, 152064) scale, from N(0, 0.02)
-    weights quantized by the port's ``quantize_weight``; controls: the
-    scale one column off, the last 1024 input rows dropped."""
+    weights quantized by the port's ``quantize_weight``; the same bits on a
+    second call; controls: the scale one column off, the last 1024 input
+    rows dropped. Timed warm and with the L2 flushed (the 546 MB weight
+    does not fit the L2, so both read HBM), beside B4's B>1 form on the
+    same one-row head and B9b's read of the same weight (phase 3's probe
+    rows, this run)."""
     import torch
 
     from video3d_tpu_torch.kernels import quant_matvec as qm
@@ -974,31 +1066,40 @@ def check_int8_matvec(dev):
     x = torch.randn(1, 1, in_, generator=g, device=dev).to(torch.bfloat16)
     y = qm.int8_matvec(x, q, scale)
     ref = qm.int8_matmul_plain(x.float(), q, scale)
-    err = _stream_check(f"B4 x {tuple(x.shape)} q {tuple(q.shape)}", y, ref, {
+    name = f"B4 x {tuple(x.shape)} q {tuple(q.shape)}"
+    err = _stream_check(name, y, ref, {
         "scale one column off": qm.int8_matmul_plain(
             x.float(), q, torch.roll(scale, 1, dims=1)),
         "last 1024 input rows dropped": qm.int8_matmul_plain(
             x[..., :-1024].float(), q[:-1024], scale)})
-    ms = _median_ms(lambda: qm.int8_matvec(x, q, scale), 50)
+    _check_repeat(name, lambda: qm.int8_matvec(x, q, scale), y)
+    ms, flushed = _kernel_ms(lambda: qm.int8_matvec(x, q, scale), 50)
     dequant_ms = _median_ms(lambda: (x @ q.to(x.dtype)) * scale, 10)
-    print(f"  B4 {q.numel() / ms / 1e6:.0f} GB/s of int8 weight; the "
-          f"dequantize-then-matmul path {dequant_ms:.4f} ms", flush=True)
+    print(f"  B4 {q.numel() / flushed / 1e6:.0f} GB/s of int8 weight "
+          f"(flushed); the dequantize-then-matmul path {dequant_ms:.4f} ms",
+          flush=True)
     # the same one-row head through B4's B>1 form (the one-row matvec's
-    # rival; the matvec stays the head's route)
+    # rival; the matvec stays the head's route) and B9b's read of it
     _stream_check(f"B4 B>1 at the head x {tuple(x.shape)}",
                   qm.int8_matmul(x, q, scale), ref, {})
-    stream_ms = _median_ms(lambda: qm.int8_matmul(x, q, scale), 50)
-    print(f"  the head: B4's matvec {ms:.4f} ms, B4's B>1 form "
-          f"{stream_ms:.4f} ms ({q.numel() / stream_ms / 1e6:.0f} GB/s)",
-          flush=True)
+    stream_ms, stream_flushed = _kernel_ms(
+        lambda: qm.int8_matmul(x, q, scale), 50)
+    probe = "" if B9B_MS is None else (
+        f"; B9b {B9B_MS[0]:.4f} / {B9B_MS[1]:.4f} (matvec flushed / B9b "
+        f"flushed {flushed / B9B_MS[1]:.3f})")
+    print(f"  the head, ms warm / L2 flushed: B4's matvec {ms:.4f} / "
+          f"{flushed:.4f}, B4's B>1 form {stream_ms:.4f} / "
+          f"{stream_flushed:.4f} (matvec / B>1 flushed "
+          f"{flushed / stream_flushed:.3f}){probe}", flush=True)
     pack = _int8pack(q, scale)
     library_ms = _library_ms("torch._weight_int8pack_mm",
                              lambda: pack(x.reshape(1, in_)), ref)
     del pack
     # bytes: the int8 weight, its scale, x and y; 2 * in * out operations
     bound = _bound(2.0 * q.numel(), _nbytes(q, scale, x) + 2 * out)
-    return err, (ms, _median_ms(lambda: qm.int8_matmul_plain(x, q, scale),
-                                10)), bound, library_ms
+    return err, ((ms, flushed),
+                 _median_ms(lambda: qm.int8_matmul_plain(x, q, scale), 10)), \
+        bound, library_ms
 
 
 # Qwen2-7B's decode projections by distinct (in, out), and the vocab head:
@@ -1643,10 +1744,12 @@ def check_kernels():
     import torch
 
     dev = torch.device("cuda", 0)
-    global READ_CEILING_GBPS
+    global READ_CEILING_GBPS, B9B_MS
     print("stream probes (B9):", flush=True)
     rows, ceiling = check_stream_probes(dev)
     READ_CEILING_GBPS = ceiling
+    B9B_MS = (rows["stream_probe_one"]["ms"],
+              rows["stream_probe_one"]["ms_l2_flushed"])
     torch.cuda.empty_cache()
     for name, fn in (("fused_geometry", check_geometry),
                      ("flash_attention", check_flash),
@@ -1912,6 +2015,19 @@ def _decode_forwards(results, vocab: int) -> int:
     return sum(_forwards(res) for res in results)
 
 
+def _tokens_digest(results) -> str:
+    """The first 12 hex digits of a sha1 over the ids every generate call
+    emitted, in order: runs of the same seeds answer alike iff it is
+    equal."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for res in results:
+        for b, n in enumerate(res.lengths.tolist()):
+            h.update(json.dumps(res.tokens[b, :n].tolist()).encode())
+    return h.hexdigest()[:12]
+
+
 def _expected_launches(params, kv_cache_dtype: str, layers: int,
                        forwards: int, results, **per_path) -> dict:
     """Launch counts a run must show: ``per_path`` gives the geometry and
@@ -1998,6 +2114,8 @@ def run_main_path(params, cfg, root: str, info,
                                   flash_attention=2 * L)
     _check("launch counts", launches == expected,
            f"{launches}, expected {expected} ({forwards} decode forwards)")
+    print(f"  answers' token ids: sha1 {_tokens_digest(engine.results)}",
+          flush=True)
     print(f"  per-request seconds (prep excluded): "
           f"{[round(t, 4) for t in times]}; wall for 2 requests "
           f"(prep included) {wall:.3f} s; peak device memory "

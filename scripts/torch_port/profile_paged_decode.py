@@ -43,7 +43,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 GROUPS = (("B7 paged attention", ("paged_", "PagedRows")),
           ("B3 decode attention", ("decode_partial", "decode_combine",
                                    "FlatRows")),
-          ("B4 int8 matvec", ("int8_mv",)),
+          # row_stream_kernel; a parent tree's int8_matvec_kernel
+          ("B4 int8 matvec", ("row_stream_kernel", "int8_matvec")),
           # weight_stream_kernel; a parent tree's stream_kernel and
           # combine_kernel (decode_ab.py profiles other trees too)
           ("B4 B>1 (int8) / B8 (int4) weight streaming",

@@ -49,28 +49,57 @@ def _launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize("discretize", [True, False])
-def test_fused_geometry_kernel(dev, discretize):
-    g = torch.Generator().manual_seed(0)
-    V, H, W = 3, 480, 640
+def _geometry_inputs(V, H, W, seed, focal):
+    g = torch.Generator().manual_seed(seed)
     depths = torch.randint(200, 8000, (V, H, W), generator=g,
-                           dtype=torch.int32).to(dev)
+                           dtype=torch.int32)
     intr = torch.eye(4)
-    intr[0, 0], intr[1, 1], intr[0, 2], intr[1, 2] = 577.87, 577.87, 319.5, 239.5
+    intr[0, 0] = intr[1, 1] = focal
+    intr[0, 2], intr[1, 2] = W / 2 - 0.5, H / 2 - 0.5
     a, _ = torch.linalg.qr(torch.randn(V, 3, 3, generator=g))
     poses = torch.eye(4).repeat(V, 1, 1)
     poses[:, :3, :3] = a
     poses[:, :3, 3] = torch.rand(V, 3, generator=g) * 4 - 2
-    args = (depths, intr.to(dev), poses.to(dev))
-    got = _launched("fused_geometry", lambda: fg.fused_patch_voxel_coords(
-        *args, discretize=discretize))
-    ref = fg.reference_patch_voxel_coords(*args, discretize=discretize)
+    return depths, intr, poses
+
+
+def _geometry_misses(got, ref, discretize):
+    """B1's distance from a plain result, in units of its bound: the share
+    of ids that differ over 1e-3 (ids) or max |d| over 1e-3 m (world
+    coordinates)."""
     diff = (got - ref).abs()
     if discretize:
-        assert float((diff > 0).float().mean()) <= 1e-3
-        assert float(diff.max()) <= 1
-    else:
-        assert float(diff.max()) <= 1e-3
+        return float((diff > 0).float().mean()) / 1e-3
+    return float(diff.max()) / 1e-3
+
+
+@pytest.mark.parametrize("discretize", [True, False])
+@pytest.mark.parametrize("V,H,W,crop,grid,seed,focal", [
+    (3, 480, 640, 384, 14, 0, 577.87), (32, 480, 640, 384, 14, 416, 576.0),
+    (4, 240, 320, 224, 16, 228, 288.0)])
+def test_fused_geometry_kernel(dev, discretize, V, H, W, crop, grid, seed,
+                               focal):
+    """B1 against its plain version: at most 1e-3 of the ids differ, by at
+    most 1, and world coordinates within 1e-3 m; controls (frame f with
+    frame f + 1's pose, the crop window one patch to the right) miss by
+    >= 4x."""
+    depths, intr, poses = _geometry_inputs(V, H, W, seed, focal)
+    args = (depths.to(dev), intr.to(dev), poses.to(dev))
+    kw = dict(crop=crop, grid=grid, discretize=discretize)
+    got = _launched("fused_geometry",
+                    lambda: fg.fused_patch_voxel_coords(*args, **kw))
+    assert got.shape == (V, grid, grid, 3)
+    ref = fg.reference_patch_voxel_coords(*args, **kw)
+    assert _geometry_misses(got, ref, discretize) <= 1.0
+    if discretize:
+        assert float((got - ref).abs().max()) <= 1
+    shift = (crop // grid) * W // fg.geometry_plan(H, W, crop, grid).new_w
+    for broken in (
+            fg.reference_patch_voxel_coords(
+                args[0], args[1], torch.roll(args[2], -1, dims=0), **kw),
+            fg.reference_patch_voxel_coords(
+                torch.roll(args[0], -shift, dims=2), args[1], args[2], **kw)):
+        assert _geometry_misses(got, broken, discretize) >= 4.0
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -276,21 +305,28 @@ def _swapped(x):
     return ((x >> 4) & 0x0F) | (x << 4)
 
 
-@pytest.mark.parametrize("in_,out", [(3584, 4096), (1000, 1040)])
+@pytest.mark.parametrize("in_,out", [(3584, 4096), (1000, 1040),
+                                     (3584, 32768), (3584, 152064)])
 def test_int8_matvec_kernel(dev, in_, out):
-    """B4: bf16 rounding of an f32 sum, so within one bf16 ulp of the f32
-    plain version; out 1040 ends inside a 512-column block."""
+    """B4's matvec: bf16 rounding of an f32 sum, so within one bf16 ulp of
+    the f32 plain version, and the same bits on a second call; out 1040
+    ends inside a 512-column tile, (3584, 32768) splits every tile over
+    two or three CTAs, (3584, 152064) is Qwen2-7B's vocab head."""
     g = torch.Generator(device=dev).manual_seed(5)
     d = quantize_weight(0.02 * torch.randn(in_, out, generator=g, device=dev))
     q, scale = d["q"], d["scale"]
+    del d
     x = torch.randn(1, 1, in_, generator=g, device=dev).bfloat16()
     got = _launched("int8_matvec", lambda: qm.int8_matvec(x, q, scale))
     ref = qm.int8_matmul_plain(x.float(), q, scale)
     bound = 2.0 ** -7 * ref.abs() + 1e-4
     assert got.dtype == torch.bfloat16 and got.shape == (1, 1, out)
     assert float(((got.float() - ref).abs() / bound).max()) <= 1.0
+    assert torch.equal(qm.int8_matvec(x, q, scale), got)
     off = qm.int8_matmul_plain(x.float(), q, torch.roll(scale, 1, dims=1))
     assert float(((off - ref).abs() / bound).max()) > 4.0
+    short = qm.int8_matmul_plain(x[..., :-64].float(), q[:-64], scale)
+    assert float(((short - ref).abs() / bound).max()) > 4.0
 
 
 def _ulps(got, ref):

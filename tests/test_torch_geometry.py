@@ -79,6 +79,40 @@ def test_world_coords_match_jax(V, H, W, crop, grid):
                                    atol=COORD_ATOL)
 
 
+@pytest.mark.parametrize("H,W,crop,grid", [(480, 640, 384, 14),
+                                            (240, 320, 224, 16),
+                                            (120, 160, 84, 6)])
+def test_source_maps_match_jax(H, W, crop, grid):
+    """The plan's source maps, a host mirror of the int32 formula the
+    kernel evaluates per block (fused_geometry.cu: the kernel's own tables
+    are checked only through its output, by the cuda tests), against JAX
+    ``_src_maps`` and the plain resize's indices."""
+    plan = tfg.geometry_plan(H, W, crop, grid)
+    rows, cols = plan.source_maps()
+    assert rows.dtype == cols.dtype == torch.int32
+    jrows, jcols = jfg._src_maps(H, W, crop)
+    np.testing.assert_array_equal(rows.numpy(), np.asarray(jrows))
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(jcols))
+    # the plain version's resize_nearest + center_crop pick the same pixels
+    idx = torch.arange(H * W, dtype=torch.float32).reshape(1, H, W, 1)
+    picked = tgeo.center_crop(tgeo.resize_nearest(idx, (crop, plan.new_w)),
+                              (crop, crop))[0, ..., 0].long()
+    np.testing.assert_array_equal(
+        picked.numpy(), (rows[:, None].long() * W + cols[None, :]).numpy())
+    assert plan.patch * grid <= crop and plan.left >= 0
+
+
+@pytest.mark.parametrize("H,W,crop,grid", [
+    (96, 128, 100, 2),            # crop taller than the image
+    (96, 128, 56, 57),            # patches of no pixel
+    (46341, 8, 46341, 1),         # crop x H past int32
+    (40000, 60000, 2048, 8)])     # a pixel's offset in its frame past int32
+def test_geometry_plan_refuses_what_the_kernel_does_not_take(H, W, crop,
+                                                             grid):
+    with pytest.raises(ValueError):
+        tfg.geometry_plan(H, W, crop, grid)
+
+
 def test_unproject_resize_crop_match_jax():
     depths, intr, poses = geometry_inputs(2, 24, 32, seed=2)
     wc = tgeo.unproject(torch.from_numpy(intr), torch.from_numpy(poses),

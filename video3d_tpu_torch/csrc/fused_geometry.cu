@@ -3,89 +3,121 @@
 // Replaces: video3d_tpu/kernels/fused_geometry.py::_fused_kernel (the Pallas
 // TPU kernel behind fused_patch_voxel_coords).
 //
-// What bounds it on an H100: nothing much. Per frame it reads the
-// crop x crop depth pixels it needs (4 bytes each, ~0.6 MB at crop 384) and
-// writes grid*grid*3 floats, so a 32-frame call moves ~19 MB: a few
-// microseconds of HBM time, dwarfed by the launch. It is memory-bound and
-// tiny.
+// What bounds it on an H100: not the launch. At the main path's shape (V
+// = 32 frames of 480 x 640, crop 384, grid 14, patch 27) it reads the
+// 4.57M depth pixels the pooled patches cover, which lie in 22.8 MB of
+// 32-byte sectors of the 39 MB of depths (0.0068 ms at 3.35 TB/s: the
+// bound chip_smoke.py counts), and runs three correctly rounded f32
+// divisions per pixel, ~40 lane instructions a pixel in all (~6 us at the
+// SMs' issue rate, estimated from the source). Measured on an H100 80GB
+// HBM3 at 700 W (scripts/torch_port/matvec_geometry_ab.py): 0.0206 ms
+// warm and 0.0238 with the L2 flushed, 3.0x and 3.5x its bound; the rest
+// is most likely the loads' latency (two dependent rounds of loads a warp,
+// 1.7 waves of blocks), which no profiler on that machine could confirm.
+// The one-block-per-patch kernel it replaced took 0.0538 and 0.0599
+// through its wrapper.
 //
-// Design: one thread block per (frame, patch). The block computes the cv2
-// INTER_NEAREST + center-crop source pixel of every pooled pixel in integer
-// arithmetic (src = floor(dst * size / new_size)) and reads the raw depth
-// through that map, so the (V, crop, crop) gathered depth tensor the TPU
-// path builds outside its kernel is never materialised. Camera x, y, z are
-// reduced over the patch in f32 (warp shuffles, then shared memory); the
-// affine 4x4 pose is applied to the patch MEAN (it commutes with the mean),
-// then the homogeneous divide, clip and round-half-to-even (rintf, as
-// jnp.round / torch.round). All arithmetic is true f32: no tensor cores, so
-// no TF32 truncation (the TPU kernel needed Precision.HIGHEST for the same
-// reason).
+// Design: a patch row of a frame is cut into `parts` blocks of at most
+// kMaxWarps patches (grid 14: 2 x 7), one warp a patch: 896 blocks at the
+// main shape, so the SMs' shares differ by at most one small block. A block
+// first computes, in 32-bit integers, the cv2 INTER_NEAREST + center-crop
+// source column of each of its pooled columns and the source row of each
+// of its patch rows (src = floor(dst * size / new_size), JAX's _src_maps;
+// the wrapper checks that the products fit in int32), with u - cx and
+// v - cy, into shared memory; the (V, crop, crop) gathered depth tensor the
+// TPU path builds outside its kernel is never made. Lane c of a warp takes
+// column c of its patch (c + 32, ... for patches wider than a warp) down
+// the patch's rows, kChunk rows' loads issued before any is used, so a
+// warp reads runs of source rows and keeps its sums in registers:
+// z = d / 1000, x = (u - cx) z / fx and y = (v - cy) z / fy in correctly
+// rounded f32 (no reciprocals, no tensor cores: the TPU kernel needed
+// Precision.HIGHEST for the same reason). The warp then adds its lanes'
+// sums, and its lane 0 applies the affine 4x4 pose to the patch MEAN (it
+// commutes with the mean), the homogeneous divide, the clip and the
+// round-half-to-even (rintf, as jnp.round / torch.round): a block's
+// epilogues run on as many lanes at once. fx, fy, cx, cy and the pose are
+// read from the caller's f32 intrinsic and poses, so a call is one launch.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxWarps = 8;   // patches of a block: one a warp
+constexpr int kChunk = 16;     // rows a lane loads before it computes them
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kMaxWarps)
 fused_geometry_kernel(const int32_t* __restrict__ depths,   // (V, H, W) mm
-                      const float* __restrict__ scalars,    // (V, 20)
+                      const float* __restrict__ intrinsic,  // (4, 4) or
+                      int intrinsic_stride,                 // (V, 4, 4)
+                      const float* __restrict__ poses,      // (V, 4, 4)
                       float* __restrict__ out,              // (V, g, g, 3)
                       int H, int W, int crop, int new_w, int left, int grid,
-                      int patch, float min_x, float min_y, float min_z,
-                      float max_x, float max_y, float max_z, float voxel,
-                      int discretize) {
-  const int f = blockIdx.x / (grid * grid);
-  const int cell = blockIdx.x % (grid * grid);
-  const int gy = cell / grid, gx = cell % grid;
-  const float* sc = scalars + f * 20;
-  const float fx = sc[0], fy = sc[1], cx = sc[2], cy = sc[3];
-  const int32_t* dep = depths + (size_t)f * H * W;
-
-  float sx = 0.f, sy = 0.f, sz = 0.f;
-  const int n = patch * patch;
-  for (int p = threadIdx.x; p < n; p += kThreads) {
-    const int i = gy * patch + p / patch;   // row in the cropped image
-    const int j = gx * patch + p % patch;   // column in the cropped image
-    const int v = min((int)(((long long)i * H) / crop), H - 1);
-    const int u = min((int)(((long long)(j + left) * W) / new_w), W - 1);
-    const float z = __fdiv_rn((float)dep[(size_t)v * W + u], 1000.0f);
-    sx += __fdiv_rn(__fmul_rn(__fsub_rn((float)u, cx), z), fx);
-    sy += __fdiv_rn(__fmul_rn(__fsub_rn((float)v, cy), z), fy);
-    sz += z;
+                      int patch, int parts, float min_x, float min_y,
+                      float min_z, float max_x, float max_y, float max_z,
+                      float voxel, int discretize) {
+  extern __shared__ int smem[];
+  const int per = blockDim.x / 32;
+  const int f = blockIdx.x / (grid * parts);
+  const int rest = blockIdx.x - f * grid * parts;
+  const int gy = rest / parts, gx0 = (rest - gy * parts) * per;
+  const int cols = min(per, grid - gx0) * patch;
+  int* src_col = smem;                                       // (cols,)
+  float* du = reinterpret_cast<float*>(src_col + cols);      // u - cx
+  int* row_off = reinterpret_cast<int*>(du + cols);          // (patch,)
+  float* dv = reinterpret_cast<float*>(row_off + patch);     // v - cy
+  const float* k = intrinsic + f * intrinsic_stride;
+  const float fx = k[0], fy = k[5], cx = k[2], cy = k[6];
+  for (int t = threadIdx.x; t < cols; t += blockDim.x) {
+    const int u = min((gx0 * patch + t + left) * W / new_w, W - 1);
+    src_col[t] = u;
+    du[t] = __fsub_rn(static_cast<float>(u), cx);
   }
-  __shared__ float red[3][kThreads / 32];
+  for (int t = threadIdx.x; t < patch; t += blockDim.x) {
+    const int v = min((gy * patch + t) * H / crop, H - 1);
+    row_off[t] = v * W;                  // the source row's offset
+    dv[t] = __fsub_rn(static_cast<float>(v), cy);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp * patch >= cols) return;      // past the last patch of the row
+  const int32_t* frame = depths + static_cast<size_t>(f) * H * W;
+  float sx = 0.f, sy = 0.f, sz = 0.f;
+  for (int c = lane; c < patch; c += 32) {
+    const int t = warp * patch + c;
+    const int32_t* col = frame + src_col[t];
+    const float dx = du[t];
+    for (int r0 = 0; r0 < patch; r0 += kChunk) {
+      int d[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i)
+        if (r0 + i < patch) d[i] = __ldg(col + row_off[r0 + i]);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        if (r0 + i >= patch) break;
+        const float z = __fdiv_rn(static_cast<float>(d[i]), 1000.0f);
+        sx += __fdiv_rn(__fmul_rn(dx, z), fx);
+        sy += __fdiv_rn(__fmul_rn(dv[r0 + i], z), fy);
+        sz += z;
+      }
+    }
+  }
   sx = v3d_warp_sum(sx);
   sy = v3d_warp_sum(sy);
   sz = v3d_warp_sum(sz);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) {
-    red[0][warp] = sx;
-    red[1][warp] = sy;
-    red[2][warp] = sz;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  for (int w = 0; w < kThreads / 32; ++w) {
-    px += red[0][w];
-    py += red[1][w];
-    pz += red[2][w];
-  }
-  const float count = (float)n;
-  px = __fdiv_rn(px, count);
-  py = __fdiv_rn(py, count);
-  pz = __fdiv_rn(pz, count);
-
-  const float* pose = sc + 4;   // row-major 4x4
+  if (lane != 0) return;
+  const float count = static_cast<float>(patch * patch);
+  const float px = __fdiv_rn(sx, count), py = __fdiv_rn(sy, count),
+              pz = __fdiv_rn(sz, count);
+  const float* pose = poses + f * 16;                        // row-major
   float world[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+  for (int r = 0; r < 4; ++r)
     world[r] = pose[4 * r + 0] * px + pose[4 * r + 1] * py +
                pose[4 * r + 2] * pz + pose[4 * r + 3];
-  }
   const float lo[3] = {min_x, min_y, min_z};
   const float hi[3] = {max_x, max_y, max_z};
-  float* o = out + (size_t)blockIdx.x * 3;
+  float* o = out +
+      ((static_cast<size_t>(f) * grid + gy) * grid + gx0 + warp) * 3;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     float w = __fdiv_rn(world[a], world[3]);
@@ -99,17 +131,32 @@ fused_geometry_kernel(const int32_t* __restrict__ depths,   // (V, H, W) mm
 
 }  // namespace
 
-extern "C" int v3d_fused_geometry(const void* depths, const void* scalars,
+// intrinsic_stride: 16 for per-frame (V, 4, 4) intrinsics, 0 for one
+// shared (4, 4); kernels/fused_geometry.py, geometry_plan, gives new_w,
+// left and patch and checks the shape (crop * H, new_w * W and H * W
+// below 2^31)
+extern "C" int v3d_fused_geometry(const void* depths, const void* intrinsic,
+                                  int intrinsic_stride, const void* poses,
                                   void* out, int V, int H, int W, int crop,
                                   int new_w, int left, int grid, int patch,
                                   float min_x, float min_y, float min_z,
                                   float max_x, float max_y, float max_z,
                                   float voxel, int discretize, void* stream) {
   if (V <= 0) return 0;
-  fused_geometry_kernel<<<V * grid * grid, kThreads, 0,
+  if (H <= 0 || W <= 0 || crop <= 0 || crop > H || new_w < crop ||
+      left < 0 || left + crop > new_w || grid <= 0 || patch <= 0 ||
+      grid * patch > crop)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // a patch row in `parts` blocks of at most kMaxWarps patches
+  const int parts = (grid + kMaxWarps - 1) / kMaxWarps;
+  const int per = (grid + parts - 1) / parts;
+  const size_t smem = static_cast<size_t>(per * patch + patch) * 8;
+  fused_geometry_kernel<<<V * grid * parts, 32 * per, smem,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(depths), static_cast<const float*>(scalars),
-      static_cast<float*>(out), H, W, crop, new_w, left, grid, patch, min_x,
-      min_y, min_z, max_x, max_y, max_z, voxel, discretize);
+      static_cast<const int32_t*>(depths),
+      static_cast<const float*>(intrinsic), intrinsic_stride,
+      static_cast<const float*>(poses), static_cast<float*>(out), H, W, crop,
+      new_w, left, grid, patch, parts, min_x, min_y, min_z, max_x, max_y,
+      max_z, voxel, discretize);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 // Weight-streaming product for decode-sized batches on Hopper, shared by
-// kernel B8 (int4 weights, int4_matmul.cu) and kernel B4's B>1 form (int8
-// weights, int8_matmul.cu): y (rows, out) = x (rows, in) @ W (in, out),
-// bf16 x and y, 1-32 rows, every sum in f32 and one rounding at the end.
+// kernel B8 (int4 weights, int4_matmul.cu), kernel B4's B>1 form (int8
+// weights, int8_matmul.cu) and B4's one-row matvec (int8_matvec.cu, the
+// B=1 vocab head; "One row" below): y (rows, out) = x (rows, in) @ W (in,
+// out), bf16 x and y, 1-32 rows, every sum in f32 and one rounding at the
+// end.
 //
 // What bounds it on an H100: HBM. A decode projection reads its whole
 // quantized weight for a few rows of x: 2 * rows FLOP per weight element,
@@ -23,7 +25,7 @@
 //
 // A CTA is a producer warp and four pairs of consumer warps; pair p owns
 // columns 128 p .. 128 p + 127 of every tile (its subtile). One producer
-// thread walks the CTA's stages through a ring of kSlots slots, each with a
+// thread walks the CTA's stages through a ring of kRing slots, each with a
 // full and an empty mbarrier, and loads by TMA, per stage, the four pairs'
 // boxes of the same inputs, so a weight row is read 512 contiguous bytes
 // at a time, and x's rows for those inputs (x is small; from L2). The
@@ -72,6 +74,25 @@
 // last CTA to arrive (it resets the counter, so the wrapper zeroes the
 // counters once per stream) adds the slices in slice (input) order, then
 // scales, rounds and writes. No sum crosses warps.
+//
+// One row (row_stream_kernel, RowParams): the same producer, ring, plan
+// walk, K-slices and merge, with three differences. The CTAs' ranges come
+// from the host (kernels/quant_matvec.py, matvec_plan: the same weight
+// bytes a CTA within one unit, a ragged tile or stage counted by its
+// bytes) in the parameters. The consumers multiply on the CUDA cores, not
+// the tensor cores, which would compute 8 rows of x to keep one: lane l
+// of warp h of a pair takes the 16 columns of chunk l % 8 of the pair's
+// subtile and inputs 8 G .. 8 G + 7 (G = 4 h + l / 8) of every stage, the
+// even box's rows 4 G .. 4 G + 3 and the odd box's (8 conflict-free
+// 16-byte loads: a quarter-warp reads one row's 8 chunks) and x's 8
+// inputs (one broadcast load); the bytes become exact floats
+// (v3d_int8x4_to_float) and bf16 x int8 products, exact in f32, are added
+// in input order. At a segment's end a warp adds its four input groups,
+// (G0 + G1) + (G2 + G3), by shuffles; the pair's two warps add theirs in
+// warp order through shared memory; and the sums go to row 0 of the mma
+// consumer's fragment, so write_y, the K-slices and merge are shared.
+// The ring is kRing = 3 slots deep: 3 read the head fastest of 2 to 5 on
+// an H100.
 
 #pragma once
 
@@ -88,11 +109,11 @@ constexpr int kStageBytes = 8192;    // one pair's weights of a stage
 constexpr int kRegionBytes = 4096;   // int8: each of its two boxes
 constexpr int kXBytes = 8192;        // x's boxes of a stage, at most
 constexpr int kSlotBytes = kPairs * kStageBytes + kXBytes;
-constexpr int kSlots = 5;            // ring depth: 200 KB per SM
 constexpr int kXBox = 64;            // inputs of an x box: 128 bytes a row
 constexpr int kConsumers = 64 * kPairs;       // threads of the 8 warps
 constexpr int kThreads = kConsumers + 32;     // and the producer warp
 constexpr int kMaxRows = 32;
+constexpr int kMaxCtas = 256;        // one row: the begins it takes
 
 // pair rows (two inputs each) of one stage
 template <bool kInt4>
@@ -107,11 +128,8 @@ __host__ __device__ constexpr int frag_floats() {
   return 2 * 4 * kNT * 4 * 32;
 }
 
-constexpr int smem_bytes() {
-  return 1024 + kSlots * kSlotBytes + 2 * kSlots * 8 + 8 * 4;
-}
-
 struct Params {
+  static constexpr int kRing = 5;     // ring slots: 200 KB per SM
   const bf16* x;          // (rows, in)
   const bf16* scale;      // int8 (1, out); int4 (in / group, out)
   bf16* y;                // (rows, out)
@@ -124,8 +142,32 @@ struct Params {
   int units;              // tiles x tile_stages; ctas x units < 2^31
 };
 
+// One row: x (1, in), int8 weights, the CTAs' ranges from the host
+struct RowParams : Params {
+  static constexpr int kRing = 3;
+  int begin[kMaxCtas + 1];   // CTA c's units: [begin[c], begin[c + 1])
+};
+
+template <class P>
+constexpr bool kOneRow = false;
+template <>
+constexpr bool kOneRow<RowParams> = true;
+
+// ring, its full and empty barriers, the merge flags; one row: the pairs'
+// exchange of their warps' sums (two buffers, 4 KB)
+template <class P>
+constexpr int smem_bytes() {
+  return 1024 + P::kRing * kSlotBytes + 2 * P::kRing * 8 + 8 * 4 +
+         (kOneRow<P> ? 2 * kPairs * 2 * 8 * 8 * 4 : 0);
+}
+
 __host__ __device__ __forceinline__ int unit_begin(const Params& p, int c) {
   return c * p.units / p.ctas;
+}
+
+__host__ __device__ __forceinline__ int unit_begin(const RowParams& p,
+                                                   int c) {
+  return p.begin[c];
 }
 
 // the CTA whose range holds unit u
@@ -133,9 +175,20 @@ __device__ __forceinline__ int cta_of(const Params& p, int u) {
   return ((u + 1) * p.ctas - 1) / p.units;
 }
 
+__device__ __forceinline__ int cta_of(const RowParams& p, int u) {
+  int lo = 0, hi = p.ctas - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (p.begin[mid] <= u) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo;
+}
+
 // workspace slot of CTA c's K-slice of `tile`: its first tile's slice, or
 // the one it ends in
-__device__ __forceinline__ int slot_of(const Params& p, int c, int tile) {
+template <class P>
+__device__ __forceinline__ int slot_of(const P& p, int c, int tile) {
   return 2 * c + (unit_begin(p, c) / p.tile_stages == tile ? 0 : 1);
 }
 
@@ -144,10 +197,11 @@ struct Segment {
 };
 
 // This CTA's segments, in order.
+template <class P>
 struct Segments {
-  const Params& p;
+  const P& p;
   int u, end;
-  __device__ explicit Segments(const Params& params)
+  __device__ explicit Segments(const P& params)
       : p(params), u(unit_begin(params, blockIdx.x)),
         end(unit_begin(params, blockIdx.x + 1)) {}
   __device__ bool next(Segment& sg) {
@@ -196,19 +250,19 @@ __device__ __forceinline__ void int8_pairs(unsigned e, unsigned o,
 // The CTA's stages in order, each into the next ring slot: the four pairs'
 // boxes of the tile's column subtiles (int8: the even and the odd box) and
 // x's boxes of the stage's inputs (rows past `rows` read as zeros).
-template <bool kInt4, int kNT>
-__device__ void produce(const Params& p, const CUtensorMap* wmap,
+template <bool kInt4, int kNT, class P>
+__device__ void produce(const P& p, const CUtensorMap* wmap,
                         const CUtensorMap* xmap, unsigned char* ring,
                         uint64_t* full, uint64_t* empty) {
   constexpr int kXBoxes = 2 * stage_pairs<kInt4>() / kXBox;
   constexpr int kXBoxBytes = 128 * 8 * kNT;
-  Segments segs(p);
+  Segments<P> segs(p);
   Segment sg;
   int q = 0;
   while (segs.next(sg)) {
     for (int s = sg.s0; s < sg.s1; ++s, ++q) {
-      const int slot = q % kSlots;
-      mbar_wait(empty + slot, ((q / kSlots) & 1) ^ 1);
+      const int slot = q % P::kRing;
+      mbar_wait(empty + slot, ((q / P::kRing) & 1) ^ 1);
       mbar_arrive_tx(full + slot,
                      kPairs * kStageBytes + kXBoxes * kXBoxBytes);
       unsigned char* dst = ring + slot * kSlotBytes;
@@ -349,8 +403,8 @@ __device__ __forceinline__ void stage_pass(const Params& p,
 // column col + 4 (c / 2) + i. In the workspace a pair's slice is stored as
 // float4s (the four accumulators of one m-tile and n-tile) in the order
 // (warp h, m-tile i, n-tile n, lane): frag_floats per pair.
-template <int kNT>
-__device__ __forceinline__ float4* slice_at(const Params& p, int slot,
+template <int kNT, class P>
+__device__ __forceinline__ float4* slice_at(const P& p, int slot,
                                             int pair, int h, int lane) {
   constexpr int kF = frag_floats<kNT>();
   return reinterpret_cast<float4*>(
@@ -360,8 +414,8 @@ __device__ __forceinline__ float4* slice_at(const Params& p, int slot,
 
 // Scales (int8), rounds and writes this lane's sums of columns col ..
 // col + 7, 16 bytes per row.
-template <bool kInt4, int kNT>
-__device__ __forceinline__ void write_y(const Params& p,
+template <bool kInt4, int kNT, class P>
+__device__ __forceinline__ void write_y(const P& p,
                                         const float (&acc)[4][kNT][4],
                                         int col, int t) {
   if (col >= p.out) return;
@@ -397,8 +451,8 @@ __device__ __forceinline__ void write_y(const Params& p,
 // before any of it is added, so their reads are in flight together. CTA
 // c > first holds its slice in its first slot (its range begins in the
 // tile).
-template <int kNT>
-__device__ __forceinline__ void merge(const Params& p, int tile, int first,
+template <int kNT, class P>
+__device__ __forceinline__ void merge(const P& p, int tile, int first,
                                       int last, int pair, int h, int lane,
                                       float (&acc)[4][kNT][4]) {
   constexpr int kBatch = 4 / kNT > 0 ? 4 / kNT : 1;
@@ -442,9 +496,93 @@ __device__ __forceinline__ void merge(const Params& p, int tile, int first,
   }
 }
 
-template <bool kInt4, int kNT>
-__device__ void consume(const Params& p, const unsigned char* ring,
-                        uint64_t* full, uint64_t* empty, int* flags) {
+// One row: a segment's stages on the CUDA cores (the header's "One row"),
+// then its sums in row 0 of the fragment acc. q: the CTA's stages so far;
+// xch: the pairs' exchange buffers, buffer `buf` this segment (the pair's
+// warps meet once a segment, so the other buffer is free).
+__device__ __forceinline__ void row_segment(const RowParams& p,
+                                            const Segment& sg, int& q,
+                                            const unsigned char* ring,
+                                            uint64_t* full, uint64_t* empty,
+                                            float* xch, int buf, int pair,
+                                            int h, int lane,
+                                            float (&acc)[4][1][4]) {
+  const int j = lane % 8, grp = 4 * h + lane / 8;
+  float f[16];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) f[i] = 0.f;
+  for (int s = sg.s0; s < sg.s1; ++s, ++q) {
+    const int slot = q % RowParams::kRing;
+    mbar_wait(full + slot, (q / RowParams::kRing) & 1);
+    const unsigned char* st = ring + slot * kSlotBytes;
+    const unsigned char* ws = st + pair * kStageBytes;
+    uint4 w[8];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int off = sw128(4 * grp + k, 16 * j);
+      w[2 * k] = *reinterpret_cast<const uint4*>(ws + off);
+      w[2 * k + 1] =
+          *reinterpret_cast<const uint4*>(ws + kRegionBytes + off);
+    }
+    float xf[8];     // inputs 8 grp ..: chunk grp of x's row 0
+    v3d_bf16x8_to_float(*reinterpret_cast<const uint4*>(
+        st + kPairs * kStageBytes + 16 * grp), xf);
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      float v[16];
+      v3d_int8x4_to_float(w[r].x, v);
+      v3d_int8x4_to_float(w[r].y, v + 4);
+      v3d_int8x4_to_float(w[r].z, v + 8);
+      v3d_int8x4_to_float(w[r].w, v + 12);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) f[i] = fmaf(xf[r], v[i], f[i]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + slot);
+  }
+  // the warp's input groups: (G0 + G1) + (G2 + G3), the same on all four
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    f[i] += __shfl_xor_sync(0xffffffffu, f[i], 8);
+    f[i] += __shfl_xor_sync(0xffffffffu, f[i], 16);
+  }
+  // lanes 0-7 hand the other warp its half of their chunk (warp h keeps
+  // columns 16 j + 8 h .. + 7: where the mma consumer keeps them)
+  float* x0 = xch + (buf * kPairs + pair) * 2 * 64;
+  if (lane < 8) {
+    float4* o = reinterpret_cast<float4*>(x0 + h * 64 + 8 * lane);
+    o[0] = h ? make_float4(f[0], f[1], f[2], f[3])
+             : make_float4(f[8], f[9], f[10], f[11]);
+    o[1] = h ? make_float4(f[4], f[5], f[6], f[7])
+             : make_float4(f[12], f[13], f[14], f[15]);
+  }
+  named_sync(1 + pair, 64);
+  // lane (g, t = 0) takes columns 16 g + 8 h .. + 7: its own warp's sums
+  // from lane g, the other warp's from shared memory, warp 0's first
+  const int g = lane / 4;
+  float mine[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    mine[i] = __shfl_sync(0xffffffffu, h ? f[8 + i] : f[i], g);
+  const float4* other =
+      reinterpret_cast<const float4*>(x0 + (1 - h) * 64 + 8 * g);
+  const float4 o0 = other[0], o1 = other[1];
+  const float theirs[8] = {o0.x, o0.y, o0.z, o0.w, o1.x, o1.y, o1.z, o1.w};
+  const bool row0 = lane % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[i][0][0] = !row0 ? 0.f : h ? theirs[i] + mine[i]
+                                   : mine[i] + theirs[i];
+    acc[i][0][2] = !row0 ? 0.f : h ? theirs[4 + i] + mine[4 + i]
+                                   : mine[4 + i] + theirs[4 + i];
+    acc[i][0][1] = acc[i][0][3] = 0.f;
+  }
+}
+
+template <bool kInt4, int kNT, class P>
+__device__ void consume(const P& p, const unsigned char* ring,
+                        uint64_t* full, uint64_t* empty, int* flags,
+                        float* xch) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int pair = warp / 2, h = warp % 2, g = lane / 4, t = lane % 4;
   const int off0 = sw128(2 * t, 16 * g) + 8 * h;
@@ -455,28 +593,33 @@ __device__ void consume(const Params& p, const unsigned char* ring,
   // gpu-scope fence waits for the SM's loads in flight
   int pend_tile[2], pend_first[2], pend_last[2];
   int pending = 0;
-  Segments segs(p);
+  Segments<P> segs(p);
   Segment sg;
-  int q = 0;
+  int q = 0, nseg = 0;
   while (segs.next(sg)) {
     float acc[4][kNT][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int n = 0; n < kNT; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
     const int col = sg.tile * kTileCols + sub;
-    for (int s = sg.s0; s < sg.s1; ++s, ++q) {
-      const int slot = q % kSlots;
-      mbar_wait(full + slot, (q / kSlots) & 1);
-      const unsigned char* st = ring + slot * kSlotBytes;
-      const unsigned char* ws = st + pair * kStageBytes;
-      const unsigned char* xs = st + kPairs * kStageBytes;
-      const int k0 = s * 2 * stage_pairs<kInt4>();
-      stage_pass<kInt4, kNT>(p, ws, xs, k0, off0, off1, g, t, col, acc);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(empty + slot);
+    if constexpr (kOneRow<P>) {
+      row_segment(p, sg, q, ring, full, empty, xch, nseg++ & 1, pair, h,
+                  lane, acc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int n = 0; n < kNT; ++n)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[i][n][c] = 0.f;
+      for (int s = sg.s0; s < sg.s1; ++s, ++q) {
+        const int slot = q % P::kRing;
+        mbar_wait(full + slot, (q / P::kRing) & 1);
+        const unsigned char* st = ring + slot * kSlotBytes;
+        const unsigned char* ws = st + pair * kStageBytes;
+        const unsigned char* xs = st + kPairs * kStageBytes;
+        const int k0 = s * 2 * stage_pairs<kInt4>();
+        stage_pass<kInt4, kNT>(p, ws, xs, k0, off0, off1, g, t, col, acc);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + slot);
+      }
     }
     const int tu0 = sg.tile * p.tile_stages;
     const int first = cta_of(p, tu0);
@@ -531,19 +674,20 @@ __device__ void consume(const Params& p, const unsigned char* ring,
   }
 }
 
-template <bool kInt4, int kNT>
-__global__ void __launch_bounds__(kThreads, 1)
-weight_stream_kernel(const __grid_constant__ CUtensorMap wmap,
-                     const __grid_constant__ CUtensorMap xmap,
-                     const __grid_constant__ Params p) {
+// The ring, the producer thread and the consumer warps of one CTA.
+template <bool kInt4, int kNT, class P>
+__device__ __forceinline__ void stream_cta(const CUtensorMap& wmap,
+                                           const CUtensorMap& xmap,
+                                           const P& p) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t a = smem_u32(smem_raw);
   unsigned char* ring = smem_raw + (((a + 1023) & ~1023u) - a);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kSlots * kSlotBytes);
-  uint64_t* empty = full + kSlots;
-  int* flags = reinterpret_cast<int*>(empty + kSlots);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + P::kRing * kSlotBytes);
+  uint64_t* empty = full + P::kRing;
+  int* flags = reinterpret_cast<int*>(empty + P::kRing);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kSlots; ++i) {
+    for (int i = 0; i < P::kRing; ++i) {
       mbar_init(full + i, 1);
       mbar_init(empty + i, 2 * kPairs);    // every consumer warp
     }
@@ -558,44 +702,65 @@ weight_stream_kernel(const __grid_constant__ CUtensorMap wmap,
     }
     return;
   }
-  consume<kInt4, kNT>(p, ring, full, empty, flags);
+  consume<kInt4, kNT>(p, ring, full, empty, flags,
+                      reinterpret_cast<float*>(flags + 8));
+}
+
+template <bool kInt4, int kNT>
+__global__ void __launch_bounds__(kThreads, 1)
+weight_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                     const __grid_constant__ CUtensorMap xmap,
+                     const __grid_constant__ Params p) {
+  stream_cta<kInt4, kNT>(wmap, xmap, p);
+}
+
+// P = RowParams; a template, so that only the source that launches it
+// (int8_matvec.cu) compiles it
+template <class P>
+__global__ void __launch_bounds__(kThreads, 1)
+row_stream_kernel(const __grid_constant__ CUtensorMap wmap,
+                  const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ P p) {
+  stream_cta<false, 1>(wmap, xmap, p);
 }
 
 // Encodes x's tensor map ((in, rows) bf16 in swizzled boxes of kXBox
 // inputs x 8 kNT rows) and launches.
-template <bool kInt4, int kNT>
-int launch(const CUtensorMap& wmap, const Params& p, cudaStream_t stream) {
+template <bool kInt4, int kNT, class P>
+int launch(const CUtensorMap& wmap, const P& p, cudaStream_t stream) {
+  const auto kernel = [] {
+    if constexpr (kOneRow<P>) return row_stream_kernel<P>;
+    else return weight_stream_kernel<kInt4, kNT>;
+  }();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      weight_stream_kernel<kInt4, kNT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes());
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<P>());
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap xmap;
   const int err = encode_map(&xmap, p.x, 2, true, {p.in, p.rows, 1, 1},
                              {kXBox, 8 * kNT, 1, 1});
   if (err) return err;
-  weight_stream_kernel<kInt4, kNT><<<p.ctas, kThreads, smem_bytes(),
-                                     stream>>>(wmap, xmap, p);
+  kernel<<<p.ctas, kThreads, smem_bytes<P>(), stream>>>(wmap, xmap, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks the shapes and the plan (`ctas`), encodes the weight's tensor
-// map and launches; returns a cudaError_t. The workspace (ws_bytes bytes)
-// and the counters (kPairs per output tile, zeroed) are needed when a
-// CTA's range begins inside a tile.
+// TMA takes row strides and first columns of 16-byte multiples: x's rows
+// (in % 8), the weight's rows (int4) and the odd box (int8, out % 16)
 template <bool kInt4>
-int stream_matmul(const void* x, const void* w, const void* scale, void* y,
-                  void* ws, long long ws_bytes, void* counters, int rows,
-                  int in, int out, int group, int ctas, void* stream) {
+bool shapes_ok(int rows, int in, int out, int group) {
   constexpr int kStageInputs = 2 * stage_pairs<kInt4>();
-  // TMA takes row strides and first columns of 16-byte multiples: x's
-  // rows (in % 8), the weight's rows (int4) and the odd box (int8, out %
-  // 16)
-  if (rows < 1 || rows > kMaxRows || in <= 0 || in % 8 != 0 || out <= 0 ||
-      out % 16 != 0 ||
-      (kInt4 && (group <= 0 || group % kStageInputs != 0 || in % group != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int nt = rows <= 8 ? 1 : rows <= 16 ? 2 : 4;
-  Params p;
+  return rows >= 1 && rows <= kMaxRows && in > 0 && in % 8 == 0 &&
+         out > 0 && out % 16 == 0 &&
+         (!kInt4 || (group > 0 && group % kStageInputs == 0 &&
+                     in % group == 0));
+}
+
+// Fills the parameters every form shares but the grid; returns the units
+// (tiles x tile_stages).
+template <bool kInt4>
+long long fill(Params& p, const void* x, const void* scale, void* y,
+               void* ws, void* counters, int rows, int in, int out,
+               int group) {
   p.x = static_cast<const bf16*>(x);
   p.scale = static_cast<const bf16*>(scale);
   p.y = static_cast<bf16*>(y);
@@ -605,33 +770,57 @@ int stream_matmul(const void* x, const void* w, const void* scale, void* y,
   p.in = in;
   p.out = out;
   p.group = kInt4 ? group : 0;
-  p.tile_stages = (in + kStageInputs - 1) / kStageInputs;
-  const long long units =
-      static_cast<long long>((out + kTileCols - 1) / kTileCols) *
-      p.tile_stages;
-  if (units * (ctas + 1) >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.units = static_cast<int>(units);
-  p.ctas = ctas;
-  if (ctas < 1 || ctas > p.units)
-    return static_cast<int>(cudaErrorInvalidValue);
+  p.tile_stages = (in + 2 * stage_pairs<kInt4>() - 1) /
+                  (2 * stage_pairs<kInt4>());
+  return static_cast<long long>((out + kTileCols - 1) / kTileCols) *
+         p.tile_stages;
+}
+
+// Checks the workspace (ws_bytes bytes) and the counters (kPairs per
+// output tile, zeroed) that a plan needs when a CTA's range begins inside
+// a tile, encodes the weight's tensor map and launches.
+template <bool kInt4, class P>
+int launch_plan(const P& p, const void* w, long long ws_bytes, int nt,
+                void* stream) {
   bool split = false;
-  for (int c = 1; c < ctas && !split; ++c)
+  for (int c = 1; c < p.ctas && !split; ++c)
     split = unit_begin(p, c) % p.tile_stages != 0;
-  const long long need = 2LL * ctas * kPairs * nt * frag_floats<1>() * 4;
-  if (split && (ws == nullptr || counters == nullptr || ws_bytes < need))
+  const long long need = 2LL * p.ctas * kPairs * nt * frag_floats<1>() * 4;
+  if (split && (p.ws == nullptr || p.counters == nullptr || ws_bytes < need))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap wmap;
   const int err = kInt4
-      ? encode_map(&wmap, w, 1, true, {out, in / 2, 1, 1},
+      ? encode_map(&wmap, w, 1, true, {p.out, p.in / 2, 1, 1},
                    {kSubCols, stage_pairs<true>(), 1, 1})
-      : encode_map(&wmap, w, 1, true, {2LL * out, in / 2, 1, 1},
+      : encode_map(&wmap, w, 1, true, {2LL * p.out, p.in / 2, 1, 1},
                    {kSubCols, stage_pairs<false>(), 1, 1});
   if (err) return err;
   auto st = static_cast<cudaStream_t>(stream);
   if (nt == 1) return launch<kInt4, 1>(wmap, p, st);
-  if (nt == 2) return launch<kInt4, 2>(wmap, p, st);
-  return launch<kInt4, 4>(wmap, p, st);
+  if constexpr (!kOneRow<P>) {
+    if (nt == 2) return launch<kInt4, 2>(wmap, p, st);
+    return launch<kInt4, 4>(wmap, p, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Checks the shapes and the plan (`ctas`) and launches; returns a
+// cudaError_t.
+template <bool kInt4>
+int stream_matmul(const void* x, const void* w, const void* scale, void* y,
+                  void* ws, long long ws_bytes, void* counters, int rows,
+                  int in, int out, int group, int ctas, void* stream) {
+  if (!shapes_ok<kInt4>(rows, in, out, group))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p;
+  const long long units =
+      fill<kInt4>(p, x, scale, y, ws, counters, rows, in, out, group);
+  if (units * (ctas + 1) >= (1LL << 31) || ctas < 1 || ctas > units)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.units = static_cast<int>(units);
+  p.ctas = ctas;
+  return launch_plan<kInt4>(p, w, ws_bytes,
+                            rows <= 8 ? 1 : rows <= 16 ? 2 : 4, stream);
 }
 
 }  // namespace v3d_wstream

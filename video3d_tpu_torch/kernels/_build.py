@@ -64,10 +64,10 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 #: C signatures: name -> argtypes (every entry returns a cudaError_t as int)
 _SIGNATURES = {
-    # depths, scalars, out, V, H, W, crop, new_w, left, grid, patch,
-    # min xyz, max xyz, voxel, discretize, stream
-    "v3d_fused_geometry": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    # depths, intrinsic, intrinsic stride, poses, out, V, H, W, crop,
+    # new_w, left, grid, patch, min xyz, max xyz, voxel, discretize, stream
+    "v3d_fused_geometry": [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     # q, k, v, lengths, out, B, L, S, H, KV, causal, sm_scale, stream
     "v3d_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _F, _P],
@@ -83,8 +83,9 @@ _SIGNATURES = {
     # workspace bytes, counters, splits, stream
     "v3d_shared_prefix_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _I, _F, _P, _L, _P, _I, _P],
-    # x, q, scale, y, in, out, stream
-    "v3d_int8_matvec": [_P, _P, _P, _P, _I, _I, _P],
+    # x, q, scale, y, workspace, workspace bytes, counters, the CTAs'
+    # first units (host), in, out, ctas, stream
+    "v3d_int8_matvec": [_P, _P, _P, _P, _P, _L, _P, _P, _I, _I, _I, _P],
     # q, k_all, v_all, k_scale, v_scale, kv_len, out, workspace,
     # workspace bytes, counters, layer, B, S, H, KV, splits, sm_scale,
     # stream

@@ -7,23 +7,26 @@ version; a CUDA tensor launches the kernel or raises. Counterpart of
 ``video3d_tpu/kernels/quant_matvec.py``:
 
 * :func:`int8_matvec` -- B4's one-row form (``csrc/int8_matvec.cu``), the
-  B=1 vocab head;
+  B=1 vocab head: the template's one-row instantiation, its units cut by
+  their bytes (:func:`matvec_plan`), f32 products on the CUDA cores;
 * :func:`int8_matmul` -- B4's B>1 form (``csrc/int8_matmul.cu``), 1-32
   rows, the int8 configuration's decode projections;
 * :func:`int4_matmul` -- B8 (``csrc/int4_matmul.cu``), 1-32 rows, every
   int4 decode projection and head.
 
-B4's B>1 form and B8 share one Hopper template (``csrc/weight_stream.cuh``)
-that streams the weight through a TMA ring in shared memory, reads each
-byte from HBM once for all rows of x and unpacks it in registers into the A
-operand of bf16 tensor-core products. :func:`stream_plan` cuts the work
-(column tiles x K-slices) evenly over at most one CTA per SM; the kernel
-merges split tiles itself, through a per-stream workspace and arrival
-counters (``_launch``).
+The three share one Hopper template (``csrc/weight_stream.cuh``) that
+streams the weight through a TMA ring in shared memory and reads each byte
+from HBM once for all rows of x; B4's B>1 form and B8 unpack it in
+registers into the A operand of bf16 tensor-core products.
+:func:`stream_plan` cuts the work (column tiles x K-slices) evenly over at
+most one CTA per SM; the kernel merges split tiles itself, through a
+per-stream workspace and arrival counters (``_launch``).
 """
 
 from __future__ import annotations
 
+import bisect
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import List, Tuple
@@ -32,7 +35,6 @@ import torch
 
 from video3d_tpu_torch.kernels import _build, _launch
 
-COLS_PER_THREAD = 16     # int8 columns one thread of B4's matvec streams
 # The streaming template (csrc/weight_stream.cuh): output columns per tile,
 # warp pairs per tile (one 128-column subtile each, with its own arrival
 # counter), inputs per ring stage by weight bits, rows of x it takes, and
@@ -54,8 +56,6 @@ ARRIVE_US = 1.3
 MERGE_KB_PER_US = 100.0
 #: the plan takes the largest grid within this share of the least cost
 COST_SLACK = 0.05
-
-_entries = {}        # C entry point -> ctypes function
 
 
 def pack_int4(q: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -126,43 +126,9 @@ def _device_checks(name: str, x: torch.Tensor, tensors) -> int:
     return index
 
 
-def _entry(name: str):
-    """The C entry point ``name`` of the kernel library (built on first
-    use), looked up once."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = _entries[name] = getattr(_build.library(), name)
-    return fn
-
-
 def _stream(index: int) -> int:
     """The current CUDA stream of device ``index``, as a raw handle."""
     return torch._C._cuda_getCurrentRawStream(index)
-
-
-def int8_matvec(x: torch.Tensor, q: torch.Tensor,
-                scale: torch.Tensor) -> torch.Tensor:
-    """B4's one-row matvec: x (..., in) with a single row, q (in, out)
-    int8, scale (1, out) -> (..., out) in x's dtype."""
-    if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, scale)
-    in_, out = q.shape
-    if (x.numel() != in_ or x.shape[-1] != in_ or scale.shape != (1, out)
-            or out % COLS_PER_THREAD):
-        raise ValueError(f"int8_matvec: unsupported shapes x "
-                         f"{tuple(x.shape)} q {tuple(q.shape)} scale "
-                         f"{tuple(scale.shape)}")
-    index = _device_checks("int8_matvec", x, (("x", x, torch.bfloat16),
-                                              ("q", q, torch.int8),
-                                              ("scale", scale,
-                                               torch.bfloat16)))
-    y = torch.empty((*x.shape[:-1], out), dtype=x.dtype, device=x.device)
-    err = _entry("v3d_int8_matvec")(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), in_, out,
-        _stream(index))
-    _build.check(err, "int8_matvec")
-    _build.count_launch("int8_matvec")
-    return y
 
 
 @dataclass(frozen=True)
@@ -172,12 +138,15 @@ class StreamPlan:
     ``unit_k`` inputs (one ring stage: int8 64, int4 128, inside one scale
     group), and the ``units`` (tile-major) cut into ``ctas`` even
     contiguous ranges, as the kernel cuts them; ``rows`` rows of x, in
-    ``row_tiles`` n-tiles of 8."""
+    ``row_tiles`` n-tiles of 8. ``begins``: B4's matvec's ranges, which it
+    takes from the host, as ``ctas + 1`` first units, the last one
+    ``units``; empty for the even cut, which the B>1 kernels compute."""
     tiles: int
     unit_k: int
     units_per_tile: int
     ctas: int
     rows: int
+    begins: Tuple[int, ...] = ()
 
     @property
     def row_tiles(self) -> int:
@@ -189,6 +158,8 @@ class StreamPlan:
 
     def unit_begin(self, cta: int) -> int:
         """First unit of CTA ``cta`` (``unit_begin`` in the kernel)."""
+        if self.begins:
+            return self.begins[cta]
         return cta * self.units // self.ctas
 
     def slices(self) -> List[Tuple[int, int, int, int]]:
@@ -272,7 +243,19 @@ def _launch_stream(lib, stream: int, sms: int, name: str, x: torch.Tensor,
     if not 1 <= rows <= MAX_ROWS:
         raise ValueError(f"{name}: {rows} rows of x; the kernel takes 1-"
                          f"{MAX_ROWS}")
-    plan = stream_plan(rows, in_, out, sms, bits)
+    extra = (group,) if bits == 4 else ()
+    return _launch_plan(lib, stream, name, stream_plan(rows, in_, out, sms,
+                                                       bits),
+                        x, w, scale, out, (rows, in_, out, *extra))
+
+
+def _launch_plan(lib, stream: int, name: str, plan: StreamPlan,
+                 x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 out: int, args: tuple) -> torch.Tensor:
+    """Launch ``v3d_<name>`` through ``lib`` at ``plan``'s grid: x (...,
+    in) -> (..., out), for a split plan the stream's workspace and zeroed
+    arrival counters (allocated once per stream), then ``args``, the
+    plan's CTAs and the stream."""
     y = torch.empty((*x.shape[:-1], out), dtype=x.dtype, device=x.device)
     split = (0, 0, 0)
     if plan.workspace_bytes:
@@ -280,13 +263,79 @@ def _launch_stream(lib, stream: int, sms: int, name: str, x: torch.Tensor,
         counters = _launch.arrival_counters(x.device, stream,
                                             plan.tiles * STREAM_PAIRS)
         split = (ws.data_ptr(), ws.numel() * 4, counters.data_ptr())
-    extra = (group,) if bits == 4 else ()
     err = getattr(lib, f"v3d_{name}")(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(), *split,
-        rows, in_, out, *extra, plan.ctas, stream)
+        *args, plan.ctas, stream)
     _build.check(err, name)
     _build.count_launch(name)
     return y
+
+
+def _unit_bytes(in_: int, out: int, unit_k: int, upt: int, u: int) -> int:
+    """Weight bytes of unit u: its tile's columns x its stage's inputs."""
+    tile, stage = divmod(u, upt)
+    return min(STREAM_TILE, out - tile * STREAM_TILE) * \
+        min(unit_k, in_ - stage * unit_k)
+
+
+@functools.lru_cache(maxsize=None)
+def matvec_plan(in_: int, out: int, sms: int) -> StreamPlan:
+    """Cut y (1, out) = x (1, in_) @ q into (column tile, K-slice) units
+    for one CTA per SM, each range holding the same weight bytes within one
+    unit (a ragged last tile or stage weighs its bytes): CTA c starts at
+    the first unit whose bytes before it reach ceil(c x total / ctas). The
+    CUDA-core consumers take the bytes faster than one SM's share of HBM
+    brings them, so every SM streams, unless the weight holds fewer than
+    ``sms`` whole units' bytes (then at least that much a CTA, so no range
+    is empty)."""
+    tiles = -(-out // STREAM_TILE)
+    unit_k = STAGE_INPUTS[8]
+    upt = -(-in_ // unit_k)
+    units = tiles * upt
+    total = in_ * out
+    ctas = max(1, min(sms, total // (STREAM_TILE * unit_k)))
+    before = [0]
+    for u in range(units):
+        before.append(before[-1] + _unit_bytes(in_, out, unit_k, upt, u))
+    begins = tuple(bisect.bisect_left(before, -(-c * total // ctas))
+                   for c in range(ctas + 1))
+    return StreamPlan(tiles, unit_k, upt, ctas, 1, begins)
+
+
+@functools.lru_cache(maxsize=None)
+def _begins_buffer(plan: StreamPlan):
+    """The plan's ``begins`` as a C int array (kept for the process)."""
+    return (ctypes.c_int * len(plan.begins))(*plan.begins)
+
+
+def _launch_matvec(lib, stream: int, sms: int, x: torch.Tensor,
+                   q: torch.Tensor, scale: torch.Tensor, in_: int,
+                   out: int) -> torch.Tensor:
+    """Launch B4's matvec through ``lib`` on ``sms`` SMs: x (..., in_) of
+    one row -> (..., out), at the byte-balanced ranges of its plan."""
+    plan = matvec_plan(in_, out, sms)
+    return _launch_plan(lib, stream, "int8_matvec", plan, x, q, scale, out,
+                        (ctypes.addressof(_begins_buffer(plan)), in_, out))
+
+
+def int8_matvec(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """B4's one-row matvec: x (..., in) with a single row, q (in, out)
+    int8, scale (1, out) -> (..., out) in x's dtype."""
+    if x.device.type == "cpu":
+        return int8_matmul_plain(x, q, scale)
+    in_, out = q.shape
+    if (x.numel() != in_ or x.shape[-1] != in_ or scale.shape != (1, out)
+            or out % 16 or in_ % 8):
+        raise ValueError(f"int8_matvec: unsupported shapes x "
+                         f"{tuple(x.shape)} q {tuple(q.shape)} scale "
+                         f"{tuple(scale.shape)}")
+    index = _device_checks("int8_matvec", x, (("x", x, torch.bfloat16),
+                                              ("q", q, torch.int8),
+                                              ("scale", scale,
+                                               torch.bfloat16)))
+    return _launch_matvec(_build.library(), _stream(index),
+                          _launch.sm_count(index), x, q, scale, in_, out)
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor,
