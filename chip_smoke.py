@@ -58,13 +58,20 @@ Phases, each of which raises on failure (the process then exits non-zero):
    26-layer SigLIP-so400m, 28-layer Qwen2-7B, bf16, random weights from a
    seeded generator) answers two questions on a synthetic 32-frame 480x640
    scene through ``run_scanqa``; kernel launch counts must match the path.
+   Decode runs as captured CUDA graphs (``models/decode_graph.py``), here
+   and in phases 5-10; the two answers again with the loop uncaptured
+   must give the same ids, one replayed step the same logits bit for bit
+   and an 8-step chunk the same tokens (captured and uncaptured walls
+   printed).
 5. Scene-prefix path: the same model and scene with the scene-feature and
    scene-prefix caches on answers 16 questions through
    ``run_generative(..., batch_size=8)`` (one miss with a full prefill, then
    a B=7 and a B=8 suffix batch over the shared prefix) and one more through
    ``generate_answer`` (a B=1 suffix over the cached prefix); launch counts
    must match the path, and the first-step logits of the suffix paths must
-   agree with a full prefill of the same question.
+   agree with a full prefill of the same question; the B=8 batch decoded
+   captured and uncaptured gives the same ids, and its decode chunk
+   replayed the same logits and tokens bit for bit.
 8. Serving (runs after phase 5, and again inside phase 6): the paged
    continuous batcher (``serve/batcher.py``: 8 slots, chunks of 8, pages
    of 128, shared scene-prefix pages, a pool too small for eight full
@@ -73,7 +80,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    mid-stream; every request returns, the prefix-sharing counts and the
    launch counts are exact (B7: 28 per decode step), every page is back
    after the last eviction, and the first paged decode step equals the
-   dense one from the same admitted states (with a swapped-page control).
+   dense one from the same admitted states (with a swapped-page control);
+   the batcher's chunks are replayed CUDA graphs, and a chunk from the
+   same admitted states replayed equals the uncaptured one bit for bit.
 6. The int8 configuration: the bf16 model is freed and the same model is
    built with int8 LLM projections and lm_head (``init_model(bits=8)``);
    phases 4, 5 and 8 run again with ``kv_cache_dtype="int8"``, with exact
@@ -218,6 +227,7 @@ PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
 MAX_NEW = 32          # answer budget of both main paths
+DECODE_STEPS = 8      # steps of the captured-vs-uncaptured chunks
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
 # Inputs of the B2 folded and B5 checks. Queries at three times a unit
 # normal make attention peaked (scores of std ~3), so a skipped key tile
@@ -1998,9 +2008,77 @@ def _make_engine(params, cfg, root: str, **ecfg):
 
 
 def _forwards(res) -> int:
-    """Decode forwards of one generate call: it stops after the step where
-    its last row finished, or after MAX_NEW steps."""
-    return min(int(res.lengths.max()) + 1, MAX_NEW)
+    """Decode forwards of one generate call: it runs chunks of
+    DECODE_CHUNK steps and stops after the chunk in which its last row
+    finished, or after MAX_NEW steps."""
+    from video3d_tpu_torch.models.decode_graph import DECODE_CHUNK
+
+    steps = int(res.lengths.max()) + 1
+    return min(-(-steps // DECODE_CHUNK) * DECODE_CHUNK, MAX_NEW)
+
+
+def _clone_state(state):
+    """A copy of a dense or paged decode state (every tensor cloned)."""
+    return type(state)(*(
+        type(x)(*(None if t is None else t.clone() for t in x))
+        if isinstance(x, tuple) else x.clone() for x in state))
+
+
+def _capture_vs_eager(name: str, chunk_fn, params, cfg, state, steps: int,
+                      eos: int) -> None:
+    """From copies of ``state``: one decode step replayed as a captured
+    CUDA graph against the same step uncaptured (next logits bit for bit),
+    then a chunk of ``steps`` steps both ways (tokens and next logits bit
+    for bit); prints both chunks' walls. ``state`` is left as it was."""
+    import torch
+
+    from video3d_tpu_torch.models.decode_graph import (DecodeGraphs,
+                                                       state_tensors)
+
+    graphs = DecodeGraphs(state.next_logits.device)
+    walls = {}
+    with torch.inference_mode():
+        work, eager = _clone_state(state), _clone_state(state)
+
+        def reset(dst):
+            for a, b in zip(state_tensors(dst), state_tensors(state)):
+                a.copy_(b)
+
+        chunk_fn(params, cfg, work, 1, eos, graphs=graphs)   # capture
+        capture_one = graphs.capture_seconds * 1e3
+        reset(work)
+        chunk_fn(params, cfg, work, 1, eos, graphs=graphs)   # replay
+        chunk_fn(params, cfg, eager, 1, eos, capture=False)
+        first = torch.equal(work.next_logits, eager.next_logits)
+        diff = float((work.next_logits.float()
+                      - eager.next_logits.float()).abs().max())
+        reset(work)
+        chunk_fn(params, cfg, work, steps, eos, graphs=graphs)
+        toks = {}
+        for tag, st, kw in (("captured", work, {"graphs": graphs}),
+                            ("uncaptured", eager, {"capture": False})):
+            reset(st)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, toks[tag] = chunk_fn(params, cfg, st, steps, eos, **kw)
+            toks[tag] = toks[tag].tolist()
+            walls[tag] = (time.perf_counter() - t0) * 1e3
+        same = toks["captured"] == toks["uncaptured"] and \
+            torch.equal(work.next_logits, eager.next_logits)
+    _check(f"{name}: first step replayed as a CUDA graph vs uncaptured",
+           first and graphs.replays >= 1,
+           f"next logits bit for bit: {first} (max |d| {diff:.3g}); "
+           f"{graphs.captures} captures, {graphs.replays} replays")
+    _check(f"{name}: a {steps}-step chunk replayed vs uncaptured", same,
+           f"tokens and next logits bit for bit: {same}")
+    print(f"  {name}: a {steps}-step chunk of {state.next_logits.shape[0]} "
+          f"rows {walls['captured']:.2f} ms captured, "
+          f"{walls['uncaptured']:.2f} ms uncaptured (host clock, "
+          f"synchronised); its capture took "
+          f"{graphs.capture_seconds * 1e3 - capture_one:.1f} ms of host "
+          f"time", flush=True)
+    del work, eager, graphs
+    torch.cuda.empty_cache()
 
 
 def _decode_forwards(results, vocab: int) -> int:
@@ -2121,6 +2199,19 @@ def run_main_path(params, cfg, root: str, info,
           f"(prep included) {wall:.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
 
+    # the two answers again with the decode loop uncaptured: the same ids
+    eos = engine.ecfg.eos_token_id
+    for i, q in enumerate(qs):
+        b, vf = engine._prepare_generation(q)
+        ref = gen.generate_greedy(params, cfg, b, MAX_NEW, eos, vf,
+                                  engine.cache_dtype, capture=False)
+        got = engine.results[i]
+        _check(f"answer {i}: captured decode vs uncaptured",
+               torch.equal(got.tokens, ref.tokens)
+               and torch.equal(got.lengths, ref.lengths),
+               f"ids bit for bit (lengths {got.lengths.tolist()} / "
+               f"{ref.lengths.tolist()})")
+
     # a separately timed request: vision, LLM prefill, decode
     batch, _ = engine._prepare_generation(qs[1])
     seq_len = int(batch.seq_len[0])
@@ -2140,18 +2231,32 @@ def run_main_path(params, cfg, root: str, info,
     _check("prefill logits", logits.shape == (1, cfg.llm.vocab_size)
            and bool(torch.isfinite(logits.float()).all()),
            f"shape {tuple(logits.shape)}, all finite")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = engine._generate(batch, vis)
-    steps = min(int(res.lengths[0]) + 1, MAX_NEW)
-    torch.cuda.synchronize()
-    t_gen = time.perf_counter() - t0
-    decode_ms = (t_gen - t_pre) / steps * 1e3
+    walls = {}
+    for tag, kw in (("captured", {"graphs": engine._graphs}),
+                    ("uncaptured", {"capture": False})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = gen.generate_greedy(params, cfg, batch, MAX_NEW,
+                                  engine.ecfg.eos_token_id, vis,
+                                  engine.cache_dtype, **kw)
+        steps = _forwards(res)
+        torch.cuda.synchronize()
+        walls[tag] = ((time.perf_counter() - t0) - t_pre) / steps * 1e3
     print(f"  vision (tower+projector+pool+PE, {batch.images.shape[1]} "
           f"frames) {t_vis * 1e3:.1f} ms; LLM prefill {seq_len} tokens "
           f"(bucket {batch.text_ids.shape[1]}) {t_pre * 1e3:.1f} ms = "
-          f"{seq_len / t_pre:.0f} tokens/s; decode {decode_ms:.2f} "
-          f"ms/token over {steps} steps", flush=True)
+          f"{seq_len / t_pre:.0f} tokens/s; B=1 decode "
+          f"{walls['captured']:.2f} ms/token captured, "
+          f"{walls['uncaptured']:.2f} uncaptured, over {steps} steps",
+          flush=True)
+    with torch.inference_mode():
+        logits, cache, pos = gen.prefill_multimodal(
+            params, cfg, batch, batch.text_ids.shape[1] + MAX_NEW,
+            vision_features=vis, cache_dtype=engine.cache_dtype)
+        state = gen._initial_state(logits, cache, pos)
+    _capture_vs_eager("B=1 decode (phase 4's path)", gen.decode_chunk,
+                      params, cfg, state, DECODE_STEPS, eos)
+    del state, cache
     return launches
 
 
@@ -2268,11 +2373,28 @@ def run_prefix_path(params, cfg, root: str, info,
             prep["bucket"] + MAX_NEW, engine.cache_dtype)
         torch.cuda.synchronize()
         pre_ms.append((time.perf_counter() - t0) * 1e3)
+    eos = engine.ecfg.eos_token_id
+    with torch.inference_mode():
+        spare = _clone_state(state)
+        second = _clone_state(state)
     t0 = time.perf_counter()
     res = engine._generate_from_state(state)
     torch.cuda.synchronize()
-    steps = min(int(res.lengths.max()) + 1, MAX_NEW)
+    steps = _forwards(res)
     decode_ms = (time.perf_counter() - t0) / steps * 1e3
+    t0 = time.perf_counter()
+    ref = gen.generate_from_state(params, cfg, second, MAX_NEW, eos,
+                                  capture=False)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / _forwards(ref) * 1e3
+    _check("B=8 suffix batch: captured decode vs uncaptured",
+           torch.equal(res.tokens, ref.tokens)
+           and torch.equal(res.lengths, ref.lengths),
+           f"ids bit for bit (lengths {res.lengths.tolist()})")
+    del second
+    _capture_vs_eager("B=8 decode (phase 5's batch)", gen.decode_chunk,
+                      params, cfg, spare, DECODE_STEPS, eos)
+    del spare
     print(f"  seconds per question (prep excluded): miss chunk "
           f"{times[0]:.4f} (1 full prefill + B=7 suffix batch), hit chunk "
           f"{times[8]:.4f} (B=8 suffix batch), B=1 hit {t_hit:.4f}; wall "
@@ -2285,7 +2407,8 @@ def run_prefix_path(params, cfg, root: str, info,
           f"(bucket {prep['batch'].text_ids.shape[1]}) "
           f"{sorted(pre_ms)[1]:.1f} ms (median of 3) against a B=1 full "
           f"prefill {t_full * 1e3:.1f} ms; B=8 decode {decode_ms:.2f} "
-          f"ms/step over {steps} steps", flush=True)
+          f"ms/step captured, {eager_ms:.2f} uncaptured, over {steps} "
+          f"steps", flush=True)
     if step_check is not None:
         del state, res
         step_check(engine, prep, hit_q)
@@ -2456,9 +2579,15 @@ def _check_paged_vs_dense(params, cfg, engine, questions, other):
             paged.done.clone())
         table = control.cache.page_table
         table[[0, S - 1], n_full] = table[[S - 1, 0], n_full]
-        d, _ = gen.decode_chunk(params, cfg, dense, 1, eos)
-        p, _ = gen.paged_decode_chunk(params, cfg, paged, 1, eos)
-        c, _ = gen.paged_decode_chunk(params, cfg, control, 1, eos)
+    _capture_vs_eager(f"paged chunk ({S} admitted slots)",
+                      gen.paged_decode_chunk, params, cfg, paged,
+                      SERVE_CHUNK, eos)
+    with torch.inference_mode():
+        d, _ = gen.decode_chunk(params, cfg, dense, 1, eos, capture=False)
+        p, _ = gen.paged_decode_chunk(params, cfg, paged, 1, eos,
+                                      capture=False)
+        c, _ = gen.paged_decode_chunk(params, cfg, control, 1, eos,
+                                      capture=False)
     diff = float((p.next_logits - d.next_logits).abs().max())
     ctl = float((c.next_logits[0] - d.next_logits[0]).abs().max())
     _check(f"paged vs dense first-step logits ({S} slots)",
@@ -2660,7 +2789,8 @@ def run_bench_paths(params, cfg) -> dict:
     read ceiling), the flagship's stages, mc-chain (picks on the card equal
     to a CPU run on the same voxels) and ctx32k (one iteration, no warm-up),
     and the paged batcher's two 32k int8 rows with a short chunk; each
-    prints its JSON line. Returns the launch counts of the run."""
+    prints its JSON line (the 32k rows captured and uncaptured). Returns
+    the launch counts of the run."""
     import torch
 
     from video3d_tpu_torch.bench import __main__ as bench
@@ -2705,12 +2835,14 @@ def run_bench_paths(params, cfg) -> dict:
         print(json.dumps(res), flush=True)
     torch.cuda.empty_cache()
     for mode, slots in (("dense", 1), ("paged", 8)):
-        res = paged_batcher.run(params, cfg, mode, dev, slots=slots,
-                                cache_len=32768, chunk=BENCH_DECODE_CHUNK,
-                                int8=True)
-        res["device"] = info
-        print(json.dumps(res), flush=True)
-        torch.cuda.empty_cache()
+        for capture in (True, False):
+            res = paged_batcher.run(params, cfg, mode, dev, slots=slots,
+                                    cache_len=32768,
+                                    chunk=BENCH_DECODE_CHUNK, int8=True,
+                                    capture=capture)
+            res["device"] = info
+            print(json.dumps(res), flush=True)
+            torch.cuda.empty_cache()
     counts = dict(_build.LAUNCHES)
     missing = [k for k in BENCH_KERNELS if counts[k] == 0]
     _check("phase 11 launches", not missing,
@@ -2758,7 +2890,8 @@ def _check_int4_decode_step(params, cfg, engine, prep) -> None:
             qm.int4_matmul = product
         try:
             with torch.inference_mode():
-                out, _ = gen.decode_chunk(params, cfg, copy, 1, eos)
+                out, _ = gen.decode_chunk(params, cfg, copy, 1, eos,
+                                          capture=False)
         finally:
             qm.int4_matmul = kernel
         logits = out.next_logits.float()

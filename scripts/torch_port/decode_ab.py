@@ -1,7 +1,7 @@
 """A/B of the 8-slot decode step between source trees, on one CUDA GPU:
 
     python3 scripts/torch_port/decode_ab.py --tree parent=DIR [--tree ...]
-        [--bits 8] [--steps 8] [profile_paged_decode.py options]
+        [--bits 8] [--steps 8] [--capture] [profile_paged_decode.py options]
 
 Each ``--tree NAME=DIR`` names another tree holding ``video3d_tpu_torch``
 (for example an unpacked ``git archive`` of the parent commit). The
@@ -9,7 +9,11 @@ decode step of ``profile_paged_decode.py`` (the paged step of
 ``chip_smoke.py`` phase 8 and the dense 8-slot step of phases 5 / 6, in
 the ``--bits`` configuration) runs in a fresh process per turn, in the
 order: the other trees, this tree twice, the other trees reversed (parent,
-change, change, parent for one tree). Each turn builds its tree's kernels
+change, change, parent for one tree). With ``--capture`` each of this
+tree's turns is followed by the same step replayed as captured CUDA graphs
+(``change captured``; the order then parent, change, change captured,
+change captured, change, parent), so captured and uncaptured steps are
+compared in one call. Each turn builds its tree's kernels
 and prints the wall ms per step (host clock, synchronised), the kernels per
 step, the device busy share and the device ms per step. Other options go
 to ``profile_paged_decode.py`` (``--device cpu --tiny`` rehearses the A/B).
@@ -60,14 +64,20 @@ def main() -> None:
                     help="NAME=DIR of another tree holding video3d_tpu_torch")
     ap.add_argument("--bits", type=int, default=8, choices=(16, 8, 4))
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--capture", action="store_true",
+                    help="also this tree's steps as captured CUDA graphs")
     args, extra = ap.parse_known_args()
     others = [t.split("=", 1) for t in args.tree]
     trees = dict(others, change=ROOT)
-    turns = ([n for n, _ in others] + ["change", "change"]
+    trees["change captured"] = ROOT
+    mine = ["change", "change captured"] if args.capture else ["change"]
+    turns = ([n for n, _ in others] + mine + mine[::-1]
              + [n for n, _ in reversed(others)])
     result = {"bits": args.bits, "steps": args.steps, "turns": []}
     for name in turns:
-        r = _turn(os.path.abspath(trees[name]), args.bits, args.steps, extra)
+        flags = ["--capture"] if name == "change captured" else []
+        r = _turn(os.path.abspath(trees[name]), args.bits, args.steps,
+                  extra + flags)
         print(f"{name}: paged {r['paged']['wall_ms_per_step']:.2f} ms/step "
               f"(device {r['paged']['device_ms_per_step']:.2f}), dense "
               f"{r['dense']['wall_ms_per_step']:.2f} ms/step (device "

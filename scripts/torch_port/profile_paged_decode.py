@@ -2,7 +2,7 @@
 one CUDA GPU:
 
     python3 scripts/torch_port/profile_paged_decode.py [--bits 16|8|4]
-        [--slots 8] [--steps 8] [--device cuda] [--package DIR]
+        [--slots 8] [--steps 8] [--capture] [--device cuda] [--package DIR]
 
 The decode of ``chip_smoke.py`` phase 8: the Qwen2-7B decoder of
 ``ModelConfig()`` (random weights from a seeded generator; ``--bits 8``
@@ -15,7 +15,10 @@ of 8224 positions, read by B3), filled with random K/V. After a warm-up
 chunk of each, one ``paged_decode_chunk`` and one ``decode_chunk`` of
 ``--steps`` steps are timed (host clock, synchronised), then one more of
 each runs under ``torch.profiler``, whose host-side recording slows the
-step. Prints, for each, the wall ms per step without the profiler, kernels
+step. The chunks run uncaptured (one launch per kernel from the host);
+with ``--capture``, each is the replay of a CUDA graph captured by the
+warm-up chunk (``models/decode_graph.py``; a tree without it raises), and
+the warm-up's wall (an eager chunk and the capture) is printed too. Prints, for each, the wall ms per step without the profiler, kernels
 per step, the device busy share (the kernels' merged intervals over that
 wall time), the device ms per step by kernel group (attention kernel,
 matrix products, index and copy kernels, other elementwise) and the B7 /
@@ -29,6 +32,7 @@ unpacked ``git archive`` of the parent commit; ``decode_ab.py`` runs it so).
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -69,6 +73,8 @@ def main() -> None:
     ap.add_argument("--bits", type=int, default=16, choices=(16, 8, 4))
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--capture", action="store_true",
+                    help="replay each chunk as a captured CUDA graph")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--tiny", action="store_true",
                     help="ModelConfig.tiny() (a CPU rehearsal)")
@@ -129,17 +135,33 @@ def main() -> None:
     eos = -1                               # no row finishes
     states = {"paged": paged, "dense": dense}
     chunk_fns = {"paged": gen.paged_decode_chunk, "dense": gen.decode_chunk}
-    for name, fn in chunk_fns.items():     # warm-up
-        states[name], _ = fn(params, cfg, states[name], 1, eos)
-    sync()
+    kw = {name: {} for name in chunk_fns}
+    if "capture" in inspect.signature(gen.decode_chunk).parameters:
+        from video3d_tpu_torch.models.decode_graph import DecodeGraphs
+        kw = {name: ({"graphs": DecodeGraphs(dev)} if args.capture
+                     else {"capture": False}) for name in chunk_fns}
+    elif args.capture:
+        raise SystemExit("--capture: this tree's decode chunks are not "
+                         "captured")
+    first_ms = {}
+    for name, fn in chunk_fns.items():     # warm-up (and the capture)
+        sync()
+        t0 = time.perf_counter()
+        states[name], _ = fn(params, cfg, states[name],
+                             args.steps if args.capture else 1, eos,
+                             **kw[name])
+        sync()
+        first_ms[name] = (time.perf_counter() - t0) * 1e3
     result = {"slots": S, "lens": lens, "bits": args.bits,
-              "kv_cache": str(dtype), "steps": args.steps}
+              "kv_cache": str(dtype), "steps": args.steps,
+              "captured": args.capture}
     if cuda:
         result["device"] = torch.cuda.get_device_name(0)
     for name, fn in chunk_fns.items():
         sync()
         t0 = time.perf_counter()
-        states[name], toks = fn(params, cfg, states[name], args.steps, eos)
+        states[name], toks = fn(params, cfg, states[name], args.steps, eos,
+                                **kw[name])
         toks.tolist()
         sync()
         wall = time.perf_counter() - t0
@@ -147,7 +169,7 @@ def main() -> None:
             [ProfilerActivity.CUDA] if cuda else [])
         with profile(activities=activities) as prof:
             states[name], toks = fn(params, cfg, states[name], args.steps,
-                                    eos)
+                                    eos, **kw[name])
             toks.tolist()
             sync()
         groups, spans = {k: 0.0 for k, _ in GROUPS}, []
@@ -165,7 +187,12 @@ def main() -> None:
                 busy += (b - max(a, end)) / 1e3
                 end = b
         n = args.steps
+        graphs = kw[name].get("graphs")
         result[name] = {
+            # the warm-up chunk's wall; captured: an eager chunk and the
+            # capture of the chunk's graph (its host time apart)
+            "first_chunk_ms": first_ms[name],
+            "capture_ms": getattr(graphs, "capture_seconds", 0.0) * 1e3,
             "wall_ms_per_step": wall * 1e3 / n,
             "kernels_per_step": len(spans) / n,
             "device_busy_share": busy / (wall * 1e3),
@@ -175,13 +202,16 @@ def main() -> None:
                                             for k, v in attention.items()}}
         print(f"{name}: {wall * 1e3 / n:.2f} ms per step of {S} slots; "
               f"{len(spans) / n:.0f} kernels per step, device busy "
-              f"{busy / (wall * 1e3):.1%}", flush=True)
+              f"{busy / (wall * 1e3):.1%}; first chunk "
+              f"{first_ms[name]:.1f} ms (capture "
+              f"{result[name]['capture_ms']:.1f})", flush=True)
         for k, v in groups.items():
             print(f"  {k}: {v / n:.3f} ms per step", flush=True)
     out = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out, exist_ok=True)
-    with open(os.path.join(out, f"profile_paged_decode_{args.bits}.json"),
-              "w") as f:
+    tag = "_graph" if args.capture else ""
+    with open(os.path.join(out, f"profile_paged_decode_{args.bits}{tag}"
+                                f".json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
 

@@ -872,3 +872,219 @@ def test_stream_probe_wrappers_reject_what_the_kernel_does_not_take(dev):
         sp.split_probe(q, t, 256, 3)
     with pytest.raises(ValueError):
         sp.matvec_probe(q, t.double(), 256)
+
+
+@pytest.mark.parametrize("bs", [4096, 8192, 16384])
+def test_kv_probe_bulk_ring(dev, bs):
+    """B9a's bulk-copy ring at the probe script's shape, every block size:
+    rows and checksums equal to the plain version in two calls (the same
+    bits); the checksum skipping each block's last row differs."""
+    from video3d_tpu_torch.kernels import stream_probe as sp
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    kv = torch.randint(-127, 128, (2, 32768, 4, 128), generator=g,
+                       dtype=torch.int8, device=dev)
+    k, v = kv[0], kv[1]
+    t = torch.linspace(-1, 1, 128, device=dev)
+    first = _launched("stream_probe_kv", lambda: sp.kv_probe(k, v, t, bs))
+    second = sp.kv_probe(k, v, t, bs)
+    ref = sp.kv_probe_plain(k, v, t, bs)
+    for a, b, c in zip(first, second, ref):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    _, bad = sp.kv_probe_plain(k, v, t, bs, skip_last_row=True)
+    assert bool((bad != first[1]).all())
+
+
+# ---- the decode loops as captured CUDA graphs (models/decode_graph.py)
+
+CAPTURE_LAYERS = 2
+CAPTURE_CASES = [(w, c) for w, c in ((16, "bf16"), (16, "int8"),
+                                     (16, "int4"), (8, "bf16"), (4, "bf16"))]
+
+
+@pytest.fixture(scope="module")
+def decoders(dev):
+    """Qwen2-7B's decoder at full width cut to CAPTURE_LAYERS layers, in
+    bf16, int8 and int4 weights, from one seed."""
+    import dataclasses
+
+    from video3d_tpu_torch.config import ModelConfig
+    from video3d_tpu_torch.models import qwen2
+
+    cfg = ModelConfig()
+    cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=CAPTURE_LAYERS))
+    out = {}
+    for bits in (16, 8, 4):
+        g = torch.Generator(device=dev).manual_seed(0)
+        out[bits] = {"llm": qwen2.init_qwen2(cfg.llm, dev, g,
+                                             torch.bfloat16, bits)}
+    return cfg, out
+
+
+def _decode_states(cfg, dev, slots, form, seed=1):
+    """A dense and a paged state of ``slots`` live rows over the same
+    random K/V (rows of ~600 positions, pages of 64)."""
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+
+    dtype = {"bf16": torch.bfloat16, "int8": torch.int8,
+             "int4": qwen2.KV_INT4}[form]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    page, maxp = 64, 12
+    lens = [600 + 13 * s for s in range(slots)]
+    dense = gen.empty_decode_state(cfg, slots, page * maxp, dtype,
+                                   device=dev)
+    paged = gen.empty_paged_state(cfg, slots, 1 + slots * maxp, page, maxp,
+                                  dtype, device=dev)
+    with torch.inference_mode():
+        for t in dense.cache:
+            if t is None:
+                continue
+            if t.dtype == torch.float32:
+                t.uniform_(0.005, 0.02, generator=g)
+            elif t.dtype == torch.bfloat16:
+                t.normal_(generator=g)
+            else:
+                t.copy_(torch.randint(-7 if form == "int4" else -127, 8
+                                      if form == "int4" else 128, t.shape,
+                                      generator=g, device=dev)
+                        .to(t.dtype))
+        for s, n in enumerate(lens):
+            row = torch.arange(1 + s * maxp, 1 + (s + 1) * maxp,
+                               dtype=torch.int32, device=dev)
+            sub = qwen2.KVCache(*(None if t is None else t[:, s:s + 1]
+                                  for t in dense.cache))
+            gen.insert_paged_slot(
+                paged, s, gen.DecodeState(
+                    torch.zeros(1, cfg.llm.vocab_size, device=dev), sub,
+                    torch.tensor([n], device=dev),
+                    torch.zeros(1, dtype=torch.bool, device=dev)),
+                row, maxp)
+            dense.pos[s] = n
+        logits = torch.randn(slots, cfg.llm.vocab_size, generator=g,
+                             device=dev)
+        for st in (dense, paged):
+            st.next_logits.copy_(logits)
+            st.done.fill_(False)
+    return dense, paged
+
+
+def _expected_step_launches(params, bits, form, layout, slots, layers):
+    from video3d_tpu_torch.kernels.decode_attention import CACHE_FORMS
+    from video3d_tpu_torch.models import qwen2
+
+    suffix = CACHE_FORMS[qwen2.kv_storage_dtype(
+        {"bf16": torch.bfloat16, "int8": torch.int8,
+         "int4": qwen2.KV_INT4}[form])]
+    name = ("paged_attention" if layout == "paged" else "decode_attention")
+    out = {name + suffix: layers}
+    if bits == 4:
+        out["int4_matmul"] = 7 * layers + 1
+    elif bits == 8:
+        out["int8_matmul"] = 7 * layers + (slots > 1)
+        if slots == 1:
+            out["int8_matvec"] = 1
+    return out
+
+
+@pytest.mark.parametrize("slots", [1, 8])
+@pytest.mark.parametrize("layout", ["dense", "paged"])
+@pytest.mark.parametrize("bits,form", CAPTURE_CASES)
+def test_captured_chunk_equals_uncaptured(dev, decoders, bits, form, layout,
+                                          slots):
+    """A 4-step decode chunk replayed as a CUDA graph against the same
+    chunk uncaptured, from copies of one state: tokens and next logits bit
+    for bit, the state's own tensors written; launch counts exact over the
+    warm-up and three replays."""
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models.decode_graph import (DecodeGraphs,
+                                                       state_tensors)
+
+    cfg, models = decoders
+    params = models[bits]
+    dense, paged = _decode_states(cfg, dev, slots, form)
+    state = dense if layout == "dense" else paged
+    fn = gen.decode_chunk if layout == "dense" else gen.paged_decode_chunk
+    eos, steps = -1, 4
+    with torch.inference_mode():
+        start = [t.clone() for t in state_tensors(state)]
+        eager = type(state)(*(
+            type(x)(*(None if t is None else t.clone() for t in x))
+            if isinstance(x, tuple) else x.clone() for x in state))
+        _, want = fn(params, cfg, eager, steps, eos, capture=False)
+        graphs = DecodeGraphs(dev)
+        ptrs = [t.data_ptr() for t in state_tensors(state)]
+        _build.reset_launches()
+        for i in range(4):
+            for t, s in zip(state_tensors(state), start):
+                t.copy_(s)
+            out, toks = fn(params, cfg, state, steps, eos, graphs=graphs)
+            assert out is state
+            assert torch.equal(toks, want), i
+            assert torch.equal(state.next_logits, eager.next_logits), i
+        torch.cuda.synchronize()
+    assert [t.data_ptr() for t in state_tensors(state)] == ptrs
+    assert graphs.captures == 1 and graphs.replays == 3
+    per_step = _expected_step_launches(params, bits, form, layout, slots,
+                                       CAPTURE_LAYERS)
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launched == {k: 4 * steps * v for k, v in per_step.items()}
+
+
+def test_captured_generate_equals_uncaptured(dev, decoders):
+    """generate_from_state in captured chunks of 8 (the last cut to 3) on
+    B=2, twice through one holder (the second call copied into the held
+    state, all replays): the uncaptured loop's tokens and lengths."""
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models.decode_graph import DecodeGraphs
+
+    cfg, models = decoders
+    graphs = DecodeGraphs(dev)
+    for seed, captures in ((1, 2), (2, 2)):
+        dense, _ = _decode_states(cfg, dev, 2, "int8", seed)
+        copy = type(dense)(dense.next_logits.clone(),
+                           type(dense.cache)(*(None if t is None else
+                                               t.clone()
+                                               for t in dense.cache)),
+                           dense.pos.clone(), dense.done.clone())
+        want = gen.generate_from_state(models[8], cfg, copy, 19, -1,
+                                       capture=False)
+        got = gen.generate_from_state(models[8], cfg, dense, 19, -1,
+                                      graphs=graphs)
+        assert torch.equal(got.tokens, want.tokens)
+        assert torch.equal(got.lengths, want.lengths)
+        assert graphs.captures == captures
+    assert graphs.replays == 3 + 1
+
+
+def test_reset_batcher_state_captures_anew(dev, decoders):
+    """After ``_reset_state`` the batcher's decode chunks capture into a
+    new holder over the new state: the old state's graphs never replay."""
+    import types
+
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.serve.batcher import ContinuousBatcher
+
+    cfg, models = decoders
+    engine = types.SimpleNamespace(
+        params=models[16], cfg=cfg, device=dev, cache_dtype=torch.bfloat16,
+        ecfg=types.SimpleNamespace(buckets=(64,), max_new_tokens=8,
+                                   eos_token_id=-1),
+        _prefix_evict_hooks=[])
+    b = ContinuousBatcher(engine, num_slots=2, chunk=2)
+    try:
+        with b._lock:
+            old, old_graphs = b.state, b._graphs
+            for _ in range(2):
+                gen.decode_chunk(models[16], cfg, b.state, 2, -1,
+                                 graphs=b._graphs)
+            assert (old_graphs.captures, old_graphs.replays) == (1, 1)
+            b._reset_state()
+            assert b.state is not old and b._graphs is not old_graphs
+            gen.decode_chunk(models[16], cfg, b.state, 2, -1,
+                             graphs=b._graphs)
+            assert (b._graphs.captures, b._graphs.replays) == (1, 0)
+            assert old_graphs.replays == 1
+    finally:
+        b.shutdown()

@@ -278,3 +278,68 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="bs"):
         sp.kv_probe(q.view(S, KV, HD), q.view(S, KV, HD),
                     torch.empty(HD, device=m), 100)
+
+
+# ---- B9a's cut of K and V over the SMs (kv_probe_plan), on the host
+
+PROBE_S, PROBE_KV = 32768, 4
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("bs", [4096, 8192, 16384])
+def test_kv_probe_plan_covers_every_byte_once(bs, sms):
+    """At the probe script's shape and every ``--bss`` size, for 132 and
+    114 SMs: the CTAs' ranges tile K then V, unit after unit, from the
+    first byte to the last; copy units divide a block; every range holds
+    the same units give or take one, and touches few enough blocks."""
+    plan = sp.kv_probe_plan(PROBE_S, PROBE_KV, HD, bs, sms)
+    nbytes = PROBE_S * PROBE_KV * HD
+    assert plan.ctas == sms
+    assert plan.unit == sp.KV_UNIT
+    assert plan.units_per_stream * plan.unit == nbytes
+    assert plan.units_per_block * plan.unit == bs * PROBE_KV * HD
+    assert plan.begins[0] == 0
+    assert plan.begins[-1] == 2 * plan.units_per_stream
+    covered = []
+    for c in range(plan.ctas):
+        covered += range(plan.begins[c], plan.begins[c + 1])
+        assert len(plan.blocks_touched(c)) <= sp.KV_MAX_TOUCHED
+    assert covered == list(range(2 * plan.units_per_stream))
+    sizes = [b - a for a, b in zip(plan.begins, plan.begins[1:])]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("bs", [4096, 8192, 16384])
+def test_kv_probe_split_sums_equal_the_plain_checksums(bs, sms):
+    """The ranges' per-block partial sums (the kernel's one atomic add per
+    block a range touches, mirrored on the host) add up to the plain
+    version's checksums; a range that crosses a block boundary splits its
+    sum there."""
+    plan = sp.kv_probe_plan(PROBE_S, PROBE_KV, HD, bs, sms)
+    k = torch.from_numpy(_int8(50, (PROBE_S, PROBE_KV, HD)))
+    v = torch.from_numpy(_int8(51, (PROBE_S, PROBE_KV, HD)))
+    _, want = sp.kv_probe_plain(k, v, torch.zeros(HD), bs)
+    assert torch.equal(sp.kv_probe_split_sums(k, v, plan), want)
+    # every block boundary either starts a range or splits one
+    starts = set(plan.begins)
+    upb = plan.units_per_block
+    for edge in range(upb, 2 * plan.units_per_stream, upb):
+        split = [c for c in range(plan.ctas)
+                 if plan.begins[c] < edge < plan.begins[c + 1]]
+        assert (edge in starts) != bool(split), edge
+
+
+@pytest.mark.parametrize("tval", [0.0, 0.375])
+def test_kv_probe_plain_rows_equal_the_script_body_in_numpy(tval):
+    """kv_probe.py:50-54's kernel body per grid step j, in numpy float32:
+    out[8j:8j + 8] = t + k[j bs, 0, :] + v[j bs, 0, :]."""
+    k, v = _int8(52, (S, KV, HD)), _int8(53, (S, KV, HD))
+    t = np.full((1, HD), tval, np.float32)
+    want = np.concatenate([
+        np.broadcast_to(t + k[j * BS, 0, :].astype(np.float32)[None]
+                        + v[j * BS, 0, :].astype(np.float32)[None], (8, HD))
+        for j in range(S // BS)])
+    out, _ = sp.kv_probe_plain(torch.from_numpy(k), torch.from_numpy(v),
+                               torch.from_numpy(t), BS)
+    np.testing.assert_array_equal(out.numpy(), want)

@@ -11,8 +11,11 @@ row of ``cache_len`` slots per slot (kernel B3); ``paged`` over a page pool
 sized for the mix, each slot holding the pages it needs (kernel B7), and
 prints the pool's size against the dense rows'. One warm-up chunk, then the
 slots are set back to their lengths and one timed chunk runs; ms per step
-and tokens/s over all slots, on the host clock around a synchronized chunk
-(a decode step is host-paced). ``--full-grid`` (the TPU kernel's grid A/B)
+and tokens/s over all slots, on the host clock around a synchronized chunk.
+On the card the chunk runs twice over: captured (the warm-up captures a
+CUDA graph of the chunk, the timed chunk replays it: ``models/
+decode_graph.py``) and uncaptured (one launch per kernel from the host),
+one line each (the CPU: the uncaptured line only). ``--full-grid`` (the TPU kernel's grid A/B)
 is not ported (ROADMAP A0b). The JAX script's two 32k rows:
 
     dense --slots 1 --cache-len 32768 --int8 --layers 28 --w-int8
@@ -33,6 +36,7 @@ import torch
 from video3d_tpu_torch.bench import timing
 from video3d_tpu_torch.config import ModelConfig
 from video3d_tpu_torch.models import generate, qwen2
+from video3d_tpu_torch.models.decode_graph import DecodeGraphs
 from video3d_tpu_torch.models.paged_kv import (PageAllocator, pages_needed,
                                                set_slot_pages)
 
@@ -93,21 +97,25 @@ def _gib(*ts) -> float:
 
 def run(params, cfg: ModelConfig, mode: str, device, slots: int = 8,
         cache_len: int = 4096, chunk: int = 256, int8: bool = False,
-        page: int = 128, long_slots: int = 1) -> Dict:
+        page: int = 128, long_slots: int = 1,
+        capture: bool = False) -> Dict:
+    """One row: ``capture`` replays the timed chunk as a CUDA graph."""
     cache_dtype = torch.int8 if int8 else torch.bfloat16
     lens = slot_lens(slots, cache_len, chunk, long_slots)
+    kw = ({"graphs": DecodeGraphs(device)} if capture
+          else {"capture": False})
     res = {"mode": f"{mode}{'_int8' if int8 else ''}"
                    f"{'_w8' if isinstance(params['llm']['lm_head'], dict) else ''}"
                    f"_{cfg.llm.num_hidden_layers}L_c{cache_len}"
-                   f"_long{long_slots}",
-           "slots": slots, "chunk": chunk}
+                   f"_long{long_slots}{'_graph' if capture else ''}",
+           "slots": slots, "chunk": chunk, "captured": capture}
     if mode == "dense":
         state = dense_state(cfg, lens, cache_len, cache_dtype, device)
         res["kv_hbm_gib"] = _gib(state.cache.k, state.cache.v)
 
         def step(st):
             return generate.decode_chunk(params, cfg, st, chunk=chunk,
-                                         eos_token_id=-1)
+                                         eos_token_id=-1, **kw)
 
         def rewind(st):
             st.pos.copy_(torch.from_numpy(lens))
@@ -120,11 +128,11 @@ def run(params, cfg: ModelConfig, mode: str, device, slots: int = 8,
 
         def step(st):
             return generate.paged_decode_chunk(params, cfg, st, chunk=chunk,
-                                               eos_token_id=-1)
+                                               eos_token_id=-1, **kw)
 
         def rewind(st):
             st.cache.lens.copy_(torch.from_numpy(lens))
-    state, _ = step(state)                       # warm-up chunk
+    state, _ = step(state)                       # warm-up (and capture)
     with torch.inference_mode():                 # the chunk's tensors are
         rewind(state)                            # inference tensors
     timing.synchronize(device)
@@ -160,10 +168,12 @@ def main(argv=None) -> None:
         raise SystemExit("paged_batcher: no CUDA device (pass --device cpu)")
     cfg = make_cfg(a.layers)
     params = init_llm(cfg, device, a.w_int8)
-    res = run(params, cfg, a.mode, device, a.slots, a.cache_len, a.chunk,
-              a.int8, a.page, a.long_slots)
-    res["device"] = timing.device_info(device)
-    print(json.dumps(res))
+    info = timing.device_info(device)
+    for capture in ([True, False] if device.type == "cuda" else [False]):
+        res = run(params, cfg, a.mode, device, a.slots, a.cache_len, a.chunk,
+                  a.int8, a.page, a.long_slots, capture)
+        res["device"] = info
+        print(json.dumps(res), flush=True)
 
 
 if __name__ == "__main__":

@@ -18,24 +18,42 @@
 //
 // What bounds it on an H100: HBM, by construction (one 32-bit add per
 // 4 bytes read). The point is to reach the card's read ceiling, which is
-// why this is CUDA and not Triton: explicit 16-byte streaming loads
-// (__ldcs: ld.global.cs, evict-first), kUnroll rows in flight per lane,
-// and a grid of several waves over the 132 SMs.
+// why this is CUDA and not Triton.
 //
-// Design: a block is `rows` rows of `vecs` 16-byte vectors at a row stride
-// of `stride` bytes (a contiguous block is viewed as rows of up to 2 KB).
-// The grid is (steps, splits): CTA (i, y) reads rows [y rpc, (y + 1) rpc)
-// of step i's block of each of the K streams, so blocks too few for the
-// card (99 column blocks of the vocab head) are split over their rows. A
-// warp reads whole rows (lane c: vectors c, c + 32, ...; 512 contiguous
-// bytes per warp-load), warp w rows w, w + 8, ..., kUnroll of them per
-// load batch. Per stream, the 32-bit sums reduce across the CTA and land
-// in the block's checksum with one atomicAdd (zeroed by the wrapper). The
-// CTAs of split 0 also write the step's row-0 outputs: acc = t, then
-// acc += float(row 0 of stream s) for s = 0..K-1 in order (sum form), or
-// out_s = t + row 0 of stream s (split form), so the plain version's sums
-// are equal bit for bit.
+// B9b-d (stream_probe_kernel): explicit 16-byte streaming loads (__ldcs:
+// ld.global.cs, evict-first), kUnroll rows in flight per lane, and a grid
+// of several waves over the 132 SMs. A block is `rows` rows of `vecs`
+// 16-byte vectors at a row stride of `stride` bytes (a contiguous block is
+// viewed as rows of up to 2 KB). The grid is (steps, splits): CTA (i, y)
+// reads rows [y rpc, (y + 1) rpc) of step i's block of each of the K
+// streams, so blocks too few for the card (99 column blocks of the vocab
+// head) are split over their rows. A warp reads whole rows (lane c:
+// vectors c, c + 32, ...; 512 contiguous bytes per warp-load), warp w rows
+// w, w + 8, ..., kUnroll of them per load batch. Per stream, the 32-bit
+// sums reduce across the CTA and land in the block's checksum with one
+// atomicAdd (zeroed by the wrapper). The CTAs of split 0 also write the
+// step's row-0 outputs: acc = t, then acc += float(row 0 of stream s) for
+// s = 0..K-1 in order (sum form), or out_s = t + row 0 of stream s (split
+// form), so the plain version's sums are equal bit for bit.
+//
+// B9a (kv_probe_kernel): K and V are contiguous, so the two streams are
+// one line of 2 S KV hd bytes cut into copy units of kUnit bytes, and each
+// of one CTA per SM takes an even range of units planned on the host
+// (`kv_probe_plan`: CTA c starts at unit c units / ctas, nothing divided
+// on the device but one 32-bit division per CTA). A producer warp streams
+// the range through a ring of kSlots shared-memory slots, one 1-D bulk
+// copy (cp.async.bulk, no tensor map) per unit completed on the slot's
+// mbarrier, its lines marked first to evict from the L2 (the stream is read
+// once; with the L2 full of dirty lines, as after a flush, its misses then
+// mostly evict its own clean lines, ~2 us less write-back at 33.6 MB);
+// 8 consumer warps sum each slot's 32-bit words and free it. A
+// range that crosses the end of a bs block splits its sum there: each warp
+// adds its part into a shared slot per block touched, and the CTA adds each
+// slot into that block's checksum with one atomicAdd. The CTA whose range
+// holds unit 0 of K block j writes the block's 8 output rows from global
+// memory: t + k[j bs, 0, :], then + v[j bs, 0, :], as the plain version.
 #include "common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -151,4 +169,203 @@ extern "C" int v3d_stream_probe(const void* p0, const void* p1,
         st, tp, op, cp, K, step_bytes, stride, rows, vecs, rows_per_cta,
         nsteps, nout, rep, sum_form, t_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- B9a
+namespace v3d_kvprobe {
+
+using namespace v3d_sm90;
+
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumers = kConsumerWarps * 32;
+constexpr int kThreads = kConsumers + 32;   // + the producer warp
+constexpr int kMaxCtas = 256;
+constexpr int kMaxTouched = 32;             // bs blocks one range may touch
+constexpr int kRep = 8;                     // output rows per block
+
+// the first unit of each CTA's range (the host's plan), by value
+struct Begins {
+  int unit[kMaxCtas + 1];
+};
+
+struct Args {
+  const char* k;
+  const char* v;
+  const float* t;
+  float* out;
+  unsigned* checksum;    // (2, nblocks): K's blocks, then V's
+  int units_per_stream;  // units of K (and of V)
+  int units_per_block;   // units of one bs block
+  int nblocks;           // bs blocks per stream
+  int hd;
+};
+
+// one contiguous copy of `bytes` (a multiple of 16) from global into
+// shared memory, counted in bytes on `bar`; with kEvictFirst its lines are
+// the L2's first to go (the stream is read once)
+template <bool kEvictFirst>
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          int bytes, uint64_t* bar,
+                                          uint64_t policy) {
+  if (kEvictFirst)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// a warp's wrapping sum, added to the shared slot of its block
+__device__ __forceinline__ void flush(unsigned acc, unsigned* slot,
+                                      int lane) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (lane == 0) atomicAdd(slot, acc);
+}
+
+template <int kSlots, int kUnit, bool kEvictFirst>
+__global__ void __launch_bounds__(kThreads, 1)
+kv_probe_kernel(Args a, Begins b) {
+  extern __shared__ __align__(128) unsigned char ring[];
+  __shared__ __align__(8) uint64_t full[kSlots], empty[kSlots];
+  __shared__ unsigned part[kMaxTouched];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int u0 = b.unit[blockIdx.x], u1 = b.unit[blockIdx.x + 1];
+  const int n = u1 - u0;
+  const int g0 = u0 / a.units_per_block;   // the first block touched
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    fence_barrier_init();
+  }
+  if (tid < kMaxTouched) part[tid] = 0u;
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {             // the producer
+    if (lane == 0) {
+      uint64_t policy = 0;
+      if (kEvictFirst)
+        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+                     : "=l"(policy));
+      for (int i = 0; i < n; ++i) {
+        const int s = i % kSlots;
+        if (i >= kSlots) mbar_wait(&empty[s], (i / kSlots - 1) & 1);
+        const int u = u0 + i;
+        const char* src =
+            u < a.units_per_stream
+                ? a.k + static_cast<long long>(u) * kUnit
+                : a.v + static_cast<long long>(u - a.units_per_stream) * kUnit;
+        mbar_arrive_tx(&full[s], kUnit);
+        bulk_load<kEvictFirst>(ring + s * kUnit, src, kUnit, &full[s],
+                               policy);
+      }
+    }
+    return;
+  }
+
+  // the output rows of the K blocks whose first unit lies in this range
+  for (int j = g0 + (u0 != g0 * a.units_per_block);
+       j < a.nblocks && j * a.units_per_block < u1; ++j) {
+    const long long off = static_cast<long long>(j) * a.units_per_block * kUnit;
+    for (int c = tid; c < a.hd; c += kConsumers) {
+      float x = a.t[c] + static_cast<float>(
+                             reinterpret_cast<const int8_t*>(a.k)[off + c]);
+      x += static_cast<float>(reinterpret_cast<const int8_t*>(a.v)[off + c]);
+#pragma unroll
+      for (int r = 0; r < kRep; ++r)
+        a.out[(static_cast<long long>(j) * kRep + r) * a.hd + c] = x;
+    }
+  }
+
+  constexpr int kPerThread = kUnit / 16 / kConsumers;
+  static_assert(kPerThread * 16 * kConsumers == kUnit, "unit / threads");
+  unsigned acc = 0u;
+  int g = g0, next = (g0 + 1) * a.units_per_block;
+  for (int i = 0; i < n; ++i) {
+    if (u0 + i == next) {                   // a block boundary
+      flush(acc, &part[g - g0], lane);
+      acc = 0u;
+      ++g;
+      next += a.units_per_block;
+    }
+    const int s = i % kSlots;
+    mbar_wait(&full[s], (i / kSlots) & 1);
+    const uint4* p = reinterpret_cast<const uint4*>(ring + s * kUnit);
+    uint4 w[kPerThread];
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) w[r] = p[tid + r * kConsumers];
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int r = 0; r < kPerThread; ++r) acc += w[r].x + w[r].y + w[r].z + w[r].w;
+  }
+  flush(acc, &part[g - g0], lane);
+  named_sync(1, kConsumers);
+  if (tid <= g - g0) atomicAdd(a.checksum + g0 + tid, part[tid]);
+}
+
+template <int kSlots, int kUnit, bool kEvictFirst>
+int launch(const Args& a, const Begins& b, int ctas, cudaStream_t stream) {
+  constexpr int smem = kSlots * kUnit;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kv_probe_kernel<kSlots, kUnit, kEvictFirst>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kv_probe_kernel<kSlots, kUnit, kEvictFirst>
+      <<<ctas, kThreads, smem, stream>>>(a, b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace v3d_kvprobe
+
+// B9a. k, v: int8 (S, KV, hd), 16-byte aligned; t (hd,) f32; out (S / bs
+// * 8, hd) f32; checksum (2, S / bs) uint32, zeroed; begins (host, ctas +
+// 1 ints): CTA c reads units [begins[c], begins[c + 1]) of unit_bytes
+// bytes, K's units_per_stream units first, then V's; a bs block holds
+// units_per_block units. slots, unit_bytes, evict_first: one of the
+// compiled rings.
+extern "C" int v3d_kv_probe(const void* k, const void* v, const void* t,
+                            void* out, void* checksum, const int* begins,
+                            int ctas, int units_per_stream,
+                            int units_per_block, int unit_bytes, int slots,
+                            int evict_first, int hd, void* stream) {
+  using namespace v3d_kvprobe;
+  if (ctas < 1 || ctas > kMaxCtas || units_per_block < 1 ||
+      units_per_stream < 1 || units_per_stream % units_per_block != 0 ||
+      hd < 1 || begins == nullptr || begins[0] != 0 ||
+      begins[ctas] != 2 * units_per_stream ||
+      reinterpret_cast<uintptr_t>(k) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(v) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Begins b;
+  for (int c = 0; c < ctas; ++c) {
+    if (begins[c + 1] <= begins[c] ||
+        (begins[c + 1] - 1) / units_per_block - begins[c] / units_per_block >=
+            kMaxTouched)
+      return static_cast<int>(cudaErrorInvalidValue);
+    b.unit[c] = begins[c];
+  }
+  b.unit[ctas] = begins[ctas];
+  const Args a{static_cast<const char*>(k), static_cast<const char*>(v),
+               static_cast<const float*>(t), static_cast<float*>(out),
+               static_cast<unsigned*>(checksum), units_per_stream,
+               units_per_block, units_per_stream / units_per_block, hd};
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  // the shipped ring (stream_probe.py KV_SLOTS, KV_UNIT, KV_EVICT_FIRST)
+  // and the two it was timed against (scripts/torch_port/kv_probe_ab.py)
+  if (slots == 4 && unit_bytes == 32768)
+    return evict_first ? launch<4, 32768, true>(a, b, ctas, cs)
+                       : launch<4, 32768, false>(a, b, ctas, cs);
+  if (slots == 2 && unit_bytes == 16384 && evict_first)
+    return launch<2, 16384, true>(a, b, ctas, cs);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

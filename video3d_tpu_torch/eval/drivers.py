@@ -45,6 +45,7 @@ from video3d_tpu_torch.data.video_processor import VideoProcessor
 from video3d_tpu_torch.kernels.fused_geometry import fused_patch_voxel_coords
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import qwen2
+from video3d_tpu_torch.models.decode_graph import DecodeGraphs
 from video3d_tpu_torch.models.generate import (DecodeState, GenerateResult,
                                                generate_from_state,
                                                generate_greedy, start_decode,
@@ -148,6 +149,10 @@ class InferenceEngine:
         # (the paged batcher drops its shared prefix pages on eviction,
         # serve/batcher.py); a hook must not re-enter the engine's caches
         self._prefix_evict_hooks: list = []
+        # the captured decode chunks of this engine's answers and the
+        # static states they run on (models/decode_graph.py), on the card
+        self._graphs = (DecodeGraphs(self.device)
+                        if self.device.type == "cuda" else None)
 
     # ------------- shared assembly -------------
 
@@ -270,12 +275,14 @@ class InferenceEngine:
                                max_new_tokens=self.ecfg.max_new_tokens,
                                eos_token_id=self.ecfg.eos_token_id,
                                vision_features=vision_features,
-                               cache_dtype=self.cache_dtype)
+                               cache_dtype=self.cache_dtype,
+                               graphs=self._graphs)
 
     def _generate_from_state(self, state: DecodeState) -> GenerateResult:
         return generate_from_state(self.params, self.cfg, state,
                                    max_new_tokens=self.ecfg.max_new_tokens,
-                                   eos_token_id=self.ecfg.eos_token_id)
+                                   eos_token_id=self.ecfg.eos_token_id,
+                                   graphs=self._graphs)
 
     def _decode_text(self, toks) -> str:
         text = self.tokenizer.decode(toks, skip_special_tokens=True).strip()

@@ -16,11 +16,15 @@ no ``-lcuda``.
 Each C entry point launches on the stream it is given, allocates nothing and
 returns ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception. :data:`LAUNCHES` counts kernel launches per wrapper, so a caller
-can show that a run really went through the kernels.
+can show that a run really went through the kernels. A wrapper called while
+its thread captures a CUDA graph launches nothing: its count goes to the
+capture (:func:`capturing_launches`), and every replay of the graph adds
+the capture's counts once (:func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -130,6 +134,10 @@ _SIGNATURES = {
     # rows_per_cta, nsteps, nout, rep, sum_form, t_len, elem_bf16, stream
     "v3d_stream_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
+    # k, v, t, out, checksum, begins (host), ctas, units_per_stream,
+    # units_per_block, unit_bytes, slots, evict_first, hd, stream
+    "v3d_kv_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                     _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]
@@ -138,6 +146,7 @@ _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()   # wrappers launch from several threads
+_capture = threading.local()     # .counts: this thread's capture, or None
 _lib: Optional[ctypes.CDLL] = None
 #: seconds the last compile took (0.0 until this process compiled)
 build_seconds = 0.0
@@ -235,8 +244,31 @@ def check(err: int, name: str) -> None:
 
 
 def count_launch(name: str) -> None:
+    counts = getattr(_capture, "counts", None)
+    if counts is not None:        # recorded into a graph, not launched
+        counts[name] = counts.get(name, 0) + 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def capturing_launches():
+    """Within the block, this thread's wrappers count into the yielded
+    dict (the launches a CUDA graph captures) instead of LAUNCHES."""
+    counts: Dict[str, int] = {}
+    _capture.counts = counts
+    try:
+        yield counts
+    finally:
+        _capture.counts = None
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches of one replay of a captured graph."""
+    with _count_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def reset_launches() -> None:

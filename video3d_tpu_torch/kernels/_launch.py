@@ -3,9 +3,13 @@
 launch on that stream: arrival counters that the split kernels leave
 zeroed, and f32 workspaces for split products.
 
-Launches on one stream run in order, so they can share a buffer; a later
-CUDA-graph capture finds it already allocated. Nothing here runs at import
-time (the CPU tests import every module of the port)."""
+Launches on one stream run in order, so they can share a buffer. A
+CUDA-graph capture must find its stream's buffers already at their largest
+size (:func:`reserve`): a graph keeps reading the addresses it was captured
+with, so a buffer grown during capture would be allocated from the graph's
+pool and the old one dropped while other graphs still read it; such a
+request raises instead. Nothing here runs at import time (the CPU tests
+import every module of the port)."""
 
 from __future__ import annotations
 
@@ -31,12 +35,24 @@ def _allocate(n: int, dtype, device, zeroed: bool) -> torch.Tensor:
     return make(n, dtype=dtype, device=device)
 
 
+def _capturing() -> bool:
+    """Whether this thread's current CUDA stream is being captured."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
 def _grown(buffers: dict, device, stream: int, n: int, dtype,
            zeroed: bool) -> torch.Tensor:
     key = (str(device), stream)
     with _lock:
         buf = buffers.get(key)
         if buf is None or buf.numel() < n:
+            if _capturing():
+                raise RuntimeError(
+                    f"a launch during CUDA-graph capture asks stream "
+                    f"{stream} for {n} elements of {dtype}, more than it "
+                    f"reserved ({0 if buf is None else buf.numel()}): "
+                    f"_launch.reserve the step's sizes before capturing")
             buf = buffers[key] = _allocate(max(n, 1024), dtype, device,
                                            zeroed)
     return buf
@@ -54,3 +70,13 @@ def workspace(device, stream: int, nbytes: int) -> torch.Tensor:
     on one stream (each launch writes what it reads)."""
     return _grown(_workspaces, device, stream, -(-nbytes // 4),
                   torch.float32, False)
+
+
+def reserve(device, stream: int, counters: int,
+            workspace_bytes: int) -> None:
+    """Make ``stream``'s arrival counters and workspace at least this
+    large, before a CUDA-graph capture on it (the sizes of the captured
+    launches' plans: ``decode_plan(...).counters`` / ``.workspace_bytes``,
+    the weight-streaming plans' tiles and workspace)."""
+    arrival_counters(device, stream, counters)
+    workspace(device, stream, workspace_bytes)

@@ -16,7 +16,9 @@ Forms, each with a launch count of its own in ``_build.LAUNCHES``:
 
 * :func:`kv_probe` (B9a, ``stream_probe_kv``): int8 K and V (S, KV, hd) in
   blocks of ``bs`` tokens; out (S / bs * 8, hd) = t + k[j bs, 0] + v[j bs, 0]
-  on the 8 rows of block j; checksum (2, S / bs).
+  on the 8 rows of block j; checksum (2, S / bs). Its kernel streams K then
+  V as one line of copy units, an even range per SM
+  (:func:`kv_probe_plan`), through a ring of bulk copies.
 * :func:`matvec_probe` (B9b, ``stream_probe_one``): one (IN, OUT) int8 or
   bf16 weight in (IN, bo) column blocks; out (1, OUT) = t + q[0];
   checksum (1, OUT / bo).
@@ -35,16 +37,28 @@ per output column (B9a: hd).
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+import ctypes
+import functools
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
 from video3d_tpu_torch.kernels import _build
+from video3d_tpu_torch.kernels._launch import sm_count
 
 KV_REP = 8            # output rows per block of B9a (the TPU's (8, hd) block)
 MAX_STREAMS = 4
 _CTA_TARGET = 2048    # CTAs a launch aims for: several waves over 132 SMs
 _WARPS = 8            # warps of a CTA (csrc/stream_probe.cu kThreads / 32)
+#: B9a's ring (csrc/stream_probe.cu kv_probe_kernel): bytes of one bulk
+#: copy, slots in flight per SM, and whether the copies' lines are the
+#: L2's first to evict (PERF.md: 2-4 slots of 16-64 KB read alike; evict
+#: first spares the dirty lines a flushed L2 holds)
+KV_UNIT = 32768
+KV_SLOTS = 4
+KV_EVICT_FIRST = 1
+KV_MAX_CTAS = 256     # csrc kMaxCtas
+KV_MAX_TOUCHED = 32   # csrc kMaxTouched: bs blocks one CTA's range touches
 
 
 def _wrap32(s: torch.Tensor) -> torch.Tensor:
@@ -85,6 +99,65 @@ def kv_probe_plain(k: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
         _block_sums(x.contiguous().view(torch.int32).view(nj, bs, -1),
                     skip_last_row) for x in (k, v)])
     return out, sums
+
+
+class KvProbePlan(NamedTuple):
+    """B9a's cut: K then V as one line of ``2 * units_per_stream`` copy
+    units of ``unit`` bytes (a bs block holds ``units_per_block``); CTA c
+    reads units [begins[c], begins[c + 1])."""
+    unit: int
+    units_per_stream: int
+    units_per_block: int
+    begins: Tuple[int, ...]
+
+    @property
+    def ctas(self) -> int:
+        return len(self.begins) - 1
+
+    def blocks_touched(self, c: int) -> range:
+        """The flat checksum indices (K's blocks, then V's) of CTA c's
+        range, one atomic add each."""
+        upb = self.units_per_block
+        return range(self.begins[c] // upb, (self.begins[c + 1] - 1) // upb
+                     + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def kv_probe_plan(S: int, KV: int, hd: int, bs: int, sms: int,
+                  unit: int = KV_UNIT) -> KvProbePlan:
+    """The even cut of B9a's K and V over at most ``sms`` CTAs: copy units
+    of ``unit`` bytes (halved until they divide a bs block), and CTA c
+    from unit c * total // ctas, so ranges differ by at most one unit.
+    Pure: computed on the host, the kernel divides nothing 64-bit."""
+    block = bs * KV * hd
+    while unit > 16 and block % unit:
+        unit //= 2
+    if S % bs or block % unit:
+        raise ValueError(f"kv_probe_plan: S {S} bs {bs} KV {KV} hd {hd}: "
+                         f"blocks must be whole multiples of 16 bytes")
+    ups = S * KV * hd // unit
+    total = 2 * ups
+    ctas = min(sms, total, KV_MAX_CTAS)
+    return KvProbePlan(unit, ups, block // unit,
+                       tuple(c * total // ctas for c in range(ctas + 1)))
+
+
+def kv_probe_split_sums(k: torch.Tensor, v: torch.Tensor,
+                        plan: KvProbePlan) -> torch.Tensor:
+    """A host mirror of the kernel's checksums: each CTA range's wrapping
+    sum per block touched (its one atomic add each), added up per block;
+    (2, S / bs) int32."""
+    words = torch.cat([k.reshape(-1), v.reshape(-1)]).view(torch.int32)
+    per_unit = words.view(2 * plan.units_per_stream, -1).sum(
+        1, dtype=torch.int64)
+    nb = 2 * plan.units_per_stream // plan.units_per_block
+    sums = torch.zeros(nb, dtype=torch.int64)
+    for c in range(plan.ctas):
+        for g in plan.blocks_touched(c):
+            lo = max(plan.begins[c], g * plan.units_per_block)
+            hi = min(plan.begins[c + 1], (g + 1) * plan.units_per_block)
+            sums[g] += int(_wrap32(per_unit[lo:hi].sum()[None])[0])
+    return _wrap32(sums).view(2, -1)
 
 
 def matvec_probe_plain(q: torch.Tensor, t: torch.Tensor, bo: int,
@@ -151,7 +224,8 @@ def _check(name: str, arrays, dtypes, t: torch.Tensor, t_len: int):
 
 def _launch(name: str, streams, t, out, K: int, step_bytes: int,
             stride: int, rows: int, row_bytes: int, nsteps: int, nout: int,
-            rep: int, sum_form: bool, bf16: bool) -> torch.Tensor:
+            sum_form: bool, bf16: bool) -> torch.Tensor:
+    """B9b-d's launch: one output row per step (the kernel's ``rep`` 1)."""
     if row_bytes % 16 or stride % 16 or step_bytes % 16:
         raise ValueError(f"{name}: rows and blocks must be multiples of 16 "
                          f"bytes (row {row_bytes}, stride {stride}, block "
@@ -164,12 +238,18 @@ def _launch(name: str, streams, t, out, K: int, step_bytes: int,
     ptrs += [ptrs[0]] * (MAX_STREAMS - len(ptrs))
     err = _build.library().v3d_stream_probe(
         *ptrs, t.data_ptr(), out.data_ptr(), checksum.data_ptr(), K,
-        step_bytes, stride, rows, row_bytes // 16, rpc, nsteps, nout, rep,
+        step_bytes, stride, rows, row_bytes // 16, rpc, nsteps, nout, 1,
         int(sum_form), t.numel(), int(bf16),
         torch.cuda.current_stream(t.device).cuda_stream)
     _build.check(err, name)
     _build.count_launch(name)
     return checksum
+
+
+@functools.lru_cache(maxsize=None)
+def _begins_buffer(plan: KvProbePlan):
+    """The plan's ``begins`` as a C int array (kept for the process)."""
+    return (ctypes.c_int * len(plan.begins))(*plan.begins)
 
 
 def kv_probe(k: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
@@ -183,13 +263,23 @@ def kv_probe(k: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
         raise ValueError(f"stream_probe_kv: k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} bs {bs}")
     _check("stream_probe_kv", (k, v), (torch.int8,), t, hd)
-    block = bs * KV * hd
-    width = _row_width(block)
+    plan = kv_probe_plan(S, KV, hd, bs, sm_count(k.device.index or 0),
+                         KV_UNIT)
+    if plan.unit != KV_UNIT:
+        raise ValueError(f"stream_probe_kv: blocks of {bs * KV * hd} bytes "
+                         f"are not whole {KV_UNIT}-byte copy units")
     out = torch.empty((S // bs * KV_REP, hd), dtype=torch.float32,
                       device=k.device)
-    sums = _launch("stream_probe_kv", (k, v), t, out, 2, block, width,
-                   block // width, width, S // bs, hd, KV_REP, True, False)
-    return out, sums
+    checksum = torch.zeros((2, S // bs), dtype=torch.int32, device=k.device)
+    err = _build.library().v3d_kv_probe(
+        k.data_ptr(), v.data_ptr(), t.data_ptr(), out.data_ptr(),
+        checksum.data_ptr(), ctypes.addressof(_begins_buffer(plan)),
+        plan.ctas, plan.units_per_stream, plan.units_per_block, plan.unit,
+        KV_SLOTS, KV_EVICT_FIRST, hd,
+        torch.cuda.current_stream(k.device).cuda_stream)
+    _build.check(err, "stream_probe_kv")
+    _build.count_launch("stream_probe_kv")
+    return out, checksum
 
 
 def matvec_probe(q: torch.Tensor, t: torch.Tensor,
@@ -205,7 +295,7 @@ def matvec_probe(q: torch.Tensor, t: torch.Tensor,
     es = q.element_size()
     out = torch.empty((1, OUT), dtype=torch.float32, device=q.device)
     sums = _launch("stream_probe_one", (q,), t, out, 1, bo * es, OUT * es,
-                   IN, bo * es, OUT // bo, bo, 1, True,
+                   IN, bo * es, OUT // bo, bo, True,
                    q.dtype == torch.bfloat16)
     return out, sums
 
@@ -237,8 +327,8 @@ def stream_probe(qs: Sequence[torch.Tensor], t: torch.Tensor, bo: int,
         args = (bo, OUT, IN, bo)
     _check("stream_probe_multi", qs, (torch.int8,), t, 1)
     out = torch.empty((1, G * bo), dtype=torch.float32, device=t.device)
-    sums = _launch("stream_probe_multi", qs, t, out, K, *args, G, bo, 1,
-                   True, False)
+    sums = _launch("stream_probe_multi", qs, t, out, K, *args, G, bo, True,
+                   False)
     return out, sums
 
 
@@ -257,5 +347,5 @@ def split_probe(q: torch.Tensor, t: torch.Tensor, bo: int,
     streams = [q[:, j * gk * bo:] for j in range(K)]
     out = torch.empty((K, OUT // K), dtype=torch.float32, device=q.device)
     sums = _launch("stream_probe_split", streams, t, out, K, bo, OUT, IN, bo,
-                   gk, bo, 1, False, False)
+                   gk, bo, False, False)
     return out, sums

@@ -5,23 +5,32 @@ form of ``generate_greedy``, the scene-prefix entry points
 ``shared_prefix_view``, ``_write_prefix`` and ``start_decode_prefix``, and
 the slot API of the continuous batcher over dense rows and page pools).
 
-The JAX ``lax.while_loop`` becomes a Python loop: one decoder forward per
-step, stopping once every row has emitted EOS or ``max_new_tokens`` steps
-ran. Like the JAX loop, the step that emits the last token still runs its
-forward, so a request makes exactly (steps) decode forwards. The cache is
-written in place: ``generate_from_state`` consumes its state (the JAX
-function donates it).
+The JAX ``lax.while_loop`` and ``lax.scan`` compile each loop to one device
+program; here the loops run chunks of decode steps, and on the card each
+chunk is one captured CUDA graph (``models/decode_graph.py``) replayed on a
+static state updated in place. ``generate_from_state`` checks on the host
+once per chunk whether every row has emitted EOS and stops after that
+chunk; its last chunk is cut short so no step runs past
+``max_new_tokens``. As in the JAX loop, done rows emit EOS and keep their
+lengths, so tokens and lengths equal the per-step loop's (``chunk=1``)
+whatever the chunk. ``capture=False`` runs the same chunks eagerly (the
+reference form; the CPU's). The cache is written in place:
+``generate_from_state`` consumes its state (the JAX function donates it).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
 
 from video3d_tpu_torch.config import ModelConfig
+from video3d_tpu_torch.kernels._launch import sm_count
+from video3d_tpu_torch.models import decode_graph as dg
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import paged_kv, qwen2
+from video3d_tpu_torch.models.decode_graph import DECODE_CHUNK
 
 
 class GenerateResult(NamedTuple):
@@ -170,49 +179,94 @@ def _greedy(next_logits: torch.Tensor, done: torch.Tensor,
     return torch.where(done, eos_token_id, tok)
 
 
+def _dense_steps(params, cfg: ModelConfig, state: DecodeState,
+                 toks: torch.Tensor, eos_token_id: int,
+                 lengths: Optional[torch.Tensor] = None) -> None:
+    """``toks.shape[1]`` greedy steps over a dense state, every tensor of
+    it updated in place (what a captured chunk records): step i writes its
+    ids into ``toks[:, i]`` and counts each row's ids before EOS into
+    ``lengths``. Writes of rows past the end of their cache row land in the
+    row's last slot."""
+    next_logits, cache, pos, done = state
+    last = cache.k.shape[2] - 1
+    for i in range(toks.shape[1]):
+        tok = _greedy(next_logits, done, eos_token_id)
+        toks[:, i] = tok
+        is_eos = tok == eos_token_id
+        if lengths is not None:
+            lengths.add_((~(done | is_eos)).long())
+        done.logical_or_(is_eos)
+        hidden = qwen2.qwen2_forward(
+            params["llm"], cfg.llm,
+            qwen2.embed_tokens(params["llm"], tok[:, None]),
+            _decode_position_ids(pos[:, None]), kv_cache=cache,
+            cache_positions=pos.clamp(max=last)[:, None], kv_len=pos + 1)
+        # keep the state's logits dtype (f32 from empty_decode_state)
+        next_logits.copy_(qwen2.lm_head(params["llm"], hidden)[:, 0])
+        pos.add_(1)
+
+
 @torch.inference_mode()
 def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
                         max_new_tokens: int = 512,
-                        eos_token_id: int = 151645) -> GenerateResult:
+                        eos_token_id: int = 151645,
+                        chunk: int = DECODE_CHUNK,
+                        capture: Optional[bool] = None,
+                        graphs: Optional[dg.DecodeGraphs] = None
+                        ) -> GenerateResult:
     """Greedy decode from a prefilled state (full or prefix-cached):
-    argmax over float32 logits (first maximum on ties, as ``jnp.argmax``).
-    The state's cache is written in place."""
+    argmax over float32 logits (first maximum on ties, as ``jnp.argmax``),
+    in chunks of ``chunk`` steps with one host sync each. ``capture``
+    (default: on a CUDA device) runs each chunk as a replayed CUDA graph of
+    ``graphs`` (a holder that keeps them across calls, e.g. the engine's;
+    default one for this call). The state's cache is written in place."""
     next_logits, cache, start_pos, done = state
     B = next_logits.shape[0]
     dev = next_logits.device
+    capture = dg.resolve_capture(capture, dev)
     if int(start_pos.max()) + max_new_tokens > cache.k.shape[2]:
         raise ValueError("decode would write past the KV cache")
     tokens = torch.full((B, max_new_tokens), eos_token_id, dtype=torch.long,
                         device=dev)
-    lengths = torch.zeros(B, dtype=torch.long, device=dev)
-    for step in range(max_new_tokens):
-        tok = _greedy(next_logits, done, eos_token_id)
-        tokens[:, step] = tok
-        is_eos = tok == eos_token_id
-        lengths = torch.where(done | is_eos, lengths, lengths + 1)
-        done = done | is_eos
-        pos = (start_pos + step)[:, None]
-        hidden = qwen2.qwen2_forward(
-            params["llm"], cfg.llm,
-            qwen2.embed_tokens(params["llm"], tok[:, None]),
-            _decode_position_ids(pos), kv_cache=cache, cache_positions=pos,
-            kv_len=pos[:, 0] + 1)
-        next_logits = qwen2.lm_head(params["llm"], hidden)[:, 0]
-        if bool(done.all()):
-            break
-    return GenerateResult(tokens=tokens, lengths=lengths)
+    if not capture:
+        st = DecodeState(next_logits.clone(), cache, start_pos.long().clone(),
+                         done.clone())
+        lengths = torch.zeros(B, dtype=torch.long, device=dev)
+        for s0 in range(0, max_new_tokens, chunk):
+            _dense_steps(params, cfg, st, tokens[:, s0:s0 + chunk],
+                         eos_token_id, lengths)
+            if bool(st.done.all()):
+                break
+        return GenerateResult(tokens=tokens, lengths=lengths)
+    graphs = graphs or dg.DecodeGraphs(dev)
+    with graphs.lock:
+        entry = graphs.bind(params, state, eos_token_id)
+        st = entry.state
+        for s0 in range(0, max_new_tokens, chunk):
+            n = min(chunk, max_new_tokens - s0)
+            toks = entry.tokens(n)
+            graphs.run(entry, n, functools.partial(
+                _dense_steps, params, cfg, st, toks, eos_token_id,
+                entry.lengths), lambda: dg.step_buffers(
+                    params, cfg, B, cache.k.shape[2],
+                    sm_count(dev.index or 0)))
+            tokens[:, s0:s0 + n] = toks
+            if bool(st.done.all()):
+                break
+        return GenerateResult(tokens=tokens, lengths=entry.lengths.clone())
 
 
 def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
                     max_new_tokens: int = 512, eos_token_id: int = 151645,
                     vision_features: Optional[torch.Tensor] = None,
-                    cache_dtype=torch.bfloat16) -> GenerateResult:
-    """Greedy decode into a cache of L + max_new_tokens slots."""
+                    cache_dtype=torch.bfloat16, **decode) -> GenerateResult:
+    """Greedy decode into a cache of L + max_new_tokens slots; ``decode``:
+    :func:`generate_from_state`'s ``chunk``, ``capture`` and ``graphs``."""
     state = start_decode(params, cfg, batch,
                          batch.text_ids.shape[1] + max_new_tokens,
                          vision_features, cache_dtype)
     return generate_from_state(params, cfg, state, max_new_tokens,
-                               eos_token_id)
+                               eos_token_id, **decode)
 
 
 # ---------------------------------------------------------------------------
@@ -220,7 +274,9 @@ def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
 # state whose rows are admitted, decoded together and released. Greedy only
 # (JAX's ``sample_token`` at temperature 0 is the argmax; sampling is
 # ROADMAP A4 / A8). The states are updated in place; a decode chunk makes no
-# host sync and returns its tokens on the device.
+# host sync and returns its tokens on the device. On the card a chunk is a
+# replayed CUDA graph over the state's own tensors, so admission and release
+# write the tensors the graphs read.
 # ---------------------------------------------------------------------------
 
 
@@ -265,34 +321,46 @@ def release_decode_slot(state: DecodeState, slot: int) -> DecodeState:
     return state
 
 
+def _run_chunk(kind: str, steps, params, cfg: ModelConfig, state,
+               chunk: int, eos_token_id: int, capture: Optional[bool],
+               graphs: Optional[dg.DecodeGraphs], cap: int):
+    """One chunk of ``steps`` over ``state`` in place, eagerly or as the
+    replay of ``graphs``' graph on the state's own tensors; returns (state,
+    tokens (S, chunk)), the tokens a copy of the graph's buffer."""
+    dev = state.next_logits.device
+    S = state.next_logits.shape[0]
+    if not dg.resolve_capture(capture, dev):
+        toks = torch.empty((S, chunk), dtype=torch.long, device=dev)
+        steps(params, cfg, state, toks, eos_token_id)
+        return state, toks
+    graphs = graphs or dg.DecodeGraphs(dev)
+    with graphs.lock:
+        entry = graphs.adopt(kind, params, state, eos_token_id)
+        toks = entry.tokens(chunk)
+        graphs.run(entry, chunk,
+                   functools.partial(steps, params, cfg, state, toks,
+                                     eos_token_id),
+                   lambda: dg.step_buffers(params, cfg, S, cap,
+                                           sm_count(dev.index or 0)))
+        return state, toks.clone()
+
+
 @torch.inference_mode()
 def decode_chunk(params, cfg: ModelConfig, state: DecodeState,
-                 chunk: int = 16, eos_token_id: int = 151645):
+                 chunk: int = 16, eos_token_id: int = 151645,
+                 capture: Optional[bool] = None,
+                 graphs: Optional[dg.DecodeGraphs] = None):
     """Emit ``chunk`` greedy tokens from every row of a dense S-slot state
-    (done rows emit EOS); returns (state, tokens (S, chunk)), the state
-    updated in place.
+    (done rows emit EOS); returns (state, tokens (S, chunk)): the same
+    state, its tensors updated in place. ``capture`` (default: on a CUDA
+    device) replays ``graphs``' captured chunk for this state.
 
     As in JAX, done rows still run the step and their position advances.
     A done row can so run past the end of its cache row: JAX drops such
     writes; here they land in the row's last slot, which the next
     :func:`insert_decode_slot` rewrites with the whole row."""
-    next_logits, cache, pos, done = state
-    last = cache.k.shape[2] - 1
-    toks = []
-    for _ in range(chunk):
-        tok = _greedy(next_logits, done, eos_token_id)
-        toks.append(tok)
-        done = done | (tok == eos_token_id)
-        hidden = qwen2.qwen2_forward(
-            params["llm"], cfg.llm,
-            qwen2.embed_tokens(params["llm"], tok[:, None]),
-            _decode_position_ids(pos[:, None]), kv_cache=cache,
-            cache_positions=pos.clamp(max=last)[:, None], kv_len=pos + 1)
-        # keep the state's logits dtype (f32 from empty_decode_state)
-        next_logits = qwen2.lm_head(params["llm"], hidden)[:, 0] \
-            .to(next_logits.dtype)
-        pos = pos + 1
-    return DecodeState(next_logits, cache, pos, done), torch.stack(toks, 1)
+    return _run_chunk("dense", _dense_steps, params, cfg, state, chunk,
+                      eos_token_id, capture, graphs, state.cache.k.shape[2])
 
 
 class PagedDecodeState(NamedTuple):
@@ -356,25 +424,35 @@ def release_paged_slot(state: PagedDecodeState,
     return state
 
 
-@torch.inference_mode()
-def paged_decode_chunk(params, cfg: ModelConfig, state: PagedDecodeState,
-                       chunk: int = 16, eos_token_id: int = 151645):
-    """:func:`decode_chunk` over the page pools: the same emissions (EOS
-    for done rows), but dead slots neither advance their length nor touch
-    their pages (a slot's step still runs while it emits its EOS). The
-    caller guarantees pages for ``lens + chunk`` on every live slot (the
-    paged batcher reserves the whole budget at admission)."""
+def _paged_steps(params, cfg: ModelConfig, state: PagedDecodeState,
+                 toks: torch.Tensor, eos_token_id: int) -> None:
+    """``toks.shape[1]`` greedy steps over the page pools, every tensor of
+    the state updated in place; dead slots neither advance their length
+    nor touch their pages."""
     next_logits, cache, done = state
-    toks = []
-    for _ in range(chunk):
+    for i in range(toks.shape[1]):
         tok = _greedy(next_logits, done, eos_token_id)
-        toks.append(tok)
+        toks[:, i] = tok
         hidden = qwen2.qwen2_forward(
             params["llm"], cfg.llm,
             qwen2.embed_tokens(params["llm"], tok[:, None]),
             _decode_position_ids(cache.lens.long()[:, None]),
             paged_cache=cache, paged_active=~done)
-        done = done | (tok == eos_token_id)
-        next_logits = qwen2.lm_head(params["llm"], hidden)[:, 0] \
-            .to(next_logits.dtype)
-    return PagedDecodeState(next_logits, cache, done), torch.stack(toks, 1)
+        done.logical_or_(tok == eos_token_id)
+        next_logits.copy_(qwen2.lm_head(params["llm"], hidden)[:, 0])
+
+
+@torch.inference_mode()
+def paged_decode_chunk(params, cfg: ModelConfig, state: PagedDecodeState,
+                       chunk: int = 16, eos_token_id: int = 151645,
+                       capture: Optional[bool] = None,
+                       graphs: Optional[dg.DecodeGraphs] = None):
+    """:func:`decode_chunk` over the page pools: the same emissions (EOS
+    for done rows), but dead slots neither advance their length nor touch
+    their pages (a slot's step still runs while it emits its EOS). The
+    caller guarantees pages for ``lens + chunk`` on every live slot (the
+    paged batcher reserves the whole budget at admission)."""
+    cache = state.cache
+    return _run_chunk("paged", _paged_steps, params, cfg, state, chunk,
+                      eos_token_id, capture, graphs,
+                      cache.max_pages * cache.page_size)

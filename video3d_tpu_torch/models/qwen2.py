@@ -22,6 +22,7 @@ computed in f32 and cast to the query dtype inside ``apply_rotary``.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -166,6 +167,20 @@ def rope_inv_freq(cfg: LLMConfig) -> torch.Tensor:
     return 1.0 / (cfg.rope_theta ** expo.to(torch.float64)).to(torch.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_tables(cfg: LLMConfig, device: torch.device):
+    """(half,) axis of each rotary channel and its f32 frequency, on
+    ``device``, made once: a host-to-device copy cannot run while a decode
+    step is captured into a CUDA graph. Plain tensors even when first
+    asked for under inference mode, so training can use them too."""
+    s1, s2, s3 = cfg.mrope_section
+    with torch.inference_mode(False):
+        axis = torch.cat([torch.zeros(s1, dtype=torch.int64),
+                          torch.ones(s2, dtype=torch.int64),
+                          torch.full((s3,), 2, dtype=torch.int64)])
+        return axis.to(device), rope_inv_freq(cfg).to(device)
+
+
 def compute_mrope_cos_sin(position_ids: torch.Tensor, cfg: LLMConfig,
                           dtype=torch.float32
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -174,13 +189,9 @@ def compute_mrope_cos_sin(position_ids: torch.Tensor, cfg: LLMConfig,
     half = cfg.head_dim // 2
     if sum(cfg.mrope_section) != half:
         raise ValueError(f"mrope_section {cfg.mrope_section} != head_dim/2")
-    dev = position_ids.device
-    s1, s2, s3 = cfg.mrope_section
-    axis_for_freq = torch.cat([torch.zeros(s1, dtype=torch.int64),
-                               torch.ones(s2, dtype=torch.int64),
-                               torch.full((s3,), 2, dtype=torch.int64)]).to(dev)
+    axis_for_freq, inv_freq = _mrope_tables(cfg, position_ids.device)
     pos = position_ids.to(torch.float32)[..., axis_for_freq]   # (B, L, half)
-    freqs = pos * rope_inv_freq(cfg).to(dev)
+    freqs = pos * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 

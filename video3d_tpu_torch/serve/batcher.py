@@ -13,6 +13,10 @@ and one decode chunk for every slot:
   * admission is a B=1 prefill (``engine.start_request``, or
     ``start_decode``) copied into a free slot (``insert_decode_slot`` /
     ``insert_paged_slot``);
+  * on the card the decode chunk is a replayed CUDA graph over the state's
+    own tensors (``models/decode_graph.py``), so admission and release
+    write what the graph reads; ``toks.tolist()`` is the chunk's one host
+    sync;
   * completion or cancellation releases the slot (``release_*_slot``: the
     row decodes EOS until reused) and, paged, returns its pages;
   * with the engine's scene-prefix cache on, paged mode writes each scene's
@@ -40,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from video3d_tpu_torch.models.decode_graph import DecodeGraphs
 from video3d_tpu_torch.models.generate import (decode_chunk,
                                                empty_decode_state,
                                                empty_paged_state,
@@ -178,8 +183,12 @@ class ContinuousBatcher:
         self._thread.start()
 
     def _reset_state(self) -> None:
-        """An all-done state (and, paged, an empty pool)."""
+        """An all-done state (and, paged, an empty pool), and on the card a
+        new holder for the decode chunk's graphs: the old state's graphs go
+        with it and never replay."""
         eng = self.engine
+        self._graphs = (DecodeGraphs(eng.device)
+                        if eng.device.type == "cuda" else None)
         if self.paged:
             self.state = empty_paged_state(
                 eng.cfg, self.num_slots, self.total_pages, self.page_size,
@@ -501,7 +510,8 @@ class ContinuousBatcher:
                 chunk_fn = paged_decode_chunk if self.paged else decode_chunk
                 self.state, toks = chunk_fn(eng.params, eng.cfg, self.state,
                                             chunk=self.chunk,
-                                            eos_token_id=eos)
+                                            eos_token_id=eos,
+                                            graphs=self._graphs)
                 rows = toks.tolist()              # the chunk's one host sync
             except Exception as e:  # noqa: BLE001 — keep the loop alive
                 # fail every in-flight request, reset the state, go on
