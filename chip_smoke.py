@@ -2298,6 +2298,7 @@ def run_prefix_path(params, cfg, root: str, info,
     torch.cuda.synchronize()
     t_hit = time.perf_counter() - t0
     launches = dict(_build.LAUNCHES)
+    graph_stats = engine._graphs.stats()
     peak = torch.cuda.max_memory_allocated()
     records = _read_jsonl(answer_file)
 
@@ -2400,6 +2401,12 @@ def run_prefix_path(params, cfg, root: str, info,
           f"{times[8]:.4f} (B=8 suffix batch), B=1 hit {t_hit:.4f}; wall "
           f"for 16 questions {wall:.3f} s; peak device memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"  the engine's decode graphs over the pass: {graph_stats['keys']} "
+          f"keys, {graph_stats['captures']} captures, "
+          f"{graph_stats['replays']} replays, {graph_stats['evictions']} "
+          f"evictions; its held states "
+          f"{graph_stats['held_state_bytes'] / 1e9:.3f} GB, the graphs' "
+          f"pools {graph_stats['pool_bytes'] / 1e9:.3f} GB", flush=True)
     entry_bytes = sum(t.numel() * t.element_size() for t in entry.cache
                       if t is not None)
     print(f"  prefix {entry.prefix_len} tokens, {entry_bytes / 1e9:.3f} GB "

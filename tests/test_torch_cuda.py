@@ -1032,6 +1032,50 @@ def test_captured_chunk_equals_uncaptured(dev, decoders, bits, form, layout,
     assert launched == {k: 4 * steps * v for k, v in per_step.items()}
 
 
+def test_replay_after_a_larger_key_grew_the_buffers(dev, decoders):
+    """A B=1 int8 chunk captured, then a B=16 chunk on the same holder
+    (its warm-up grows the capture stream's split buffers: more row tiles),
+    then the B=1 graph replayed over freed memory refilled with junk: the
+    uncaptured chunk's tokens and next logits bit for bit (the graph still
+    holds the buffers it was captured with)."""
+    from video3d_tpu_torch.kernels import _launch
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models.decode_graph import (DecodeGraphs,
+                                                       state_tensors)
+
+    cfg, models = decoders
+    params = models[8]
+    graphs = DecodeGraphs(dev)
+    key = (str(graphs.device), graphs.stream_id)
+    # a pooled stream id may come back with an earlier holder's buffers
+    _launch._counters.pop(key, None)
+    _launch._workspaces.pop(key, None)
+    small, _ = _decode_states(cfg, dev, 1, "int8")
+    big, _ = _decode_states(cfg, dev, 16, "int8", seed=2)
+    with torch.inference_mode():
+        start = [t.clone() for t in state_tensors(small)]
+        eager = type(small)(*(
+            type(x)(*(None if t is None else t.clone() for t in x))
+            if isinstance(x, tuple) else x.clone() for x in small))
+        _, want = gen.decode_chunk(params, cfg, eager, 4, -1, capture=False)
+        gen.decode_chunk(params, cfg, small, 4, -1, graphs=graphs)
+        before = [b.data_ptr() for b in _launch.held(dev, graphs.stream_id)]
+        gen.decode_chunk(params, cfg, big, 4, -1, graphs=graphs)
+        after = [b.data_ptr() for b in _launch.held(dev, graphs.stream_id)]
+        assert before[1] != after[1]          # the workspace grew
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        junk = torch.full((256 << 20,), -1, dtype=torch.int32, device=dev)
+        for t, s in zip(state_tensors(small), start):
+            t.copy_(s)
+        _, toks = gen.decode_chunk(params, cfg, small, 4, -1, graphs=graphs)
+        torch.cuda.synchronize()
+        del junk
+    assert graphs.captures == 2 and graphs.replays == 1
+    assert torch.equal(toks, want)
+    assert torch.equal(small.next_logits, eager.next_logits)
+
+
 def test_captured_generate_equals_uncaptured(dev, decoders):
     """generate_from_state in captured chunks of 8 (the last cut to 3) on
     B=2, twice through one holder (the second call copied into the held

@@ -265,7 +265,8 @@ def _fake_graphs():
 
 def _capture_on_the_cpu(monkeypatch):
     monkeypatch.setattr(dg, "resolve_capture",
-                        lambda capture, device: capture is not False)
+                        lambda capture, device, graphs: capture is not False
+                        and graphs is not None)
 
 
 def test_replays_add_the_captured_launches_once_each():
@@ -293,6 +294,66 @@ def test_replays_add_the_captured_launches_once_each():
     delta = {k: _build.LAUNCHES[k] - before[k] for k in before
              if _build.LAUNCHES[k] != before[k]}
     assert delta == {"paged_attention": 8, "int8_matmul": 4}
+
+
+def test_replays_keep_the_buffers_they_were_captured_with():
+    """A graph keeps the split buffers its stream had at its capture: a
+    later warm-up that grows them (a larger batch's key) replaces them for
+    the launches that follow, and the earlier graph still holds the old
+    ones, so nothing it reads is freed."""
+    holder = _fake_graphs()
+    holder.stream_id = 0x5EED0
+    small, large = dg.Entry(None, None), dg.Entry(None, None)
+    try:
+        holder.run(small, 2, lambda: None, lambda: (64, 4096))
+        old = _launch.held("cpu", holder.stream_id)
+        assert len(old) == 2
+        assert small.graphs[2].buffers == old
+        holder.run(large, 2, lambda: None, lambda: (100_000, 1 << 24))
+        new = _launch.held("cpu", holder.stream_id)
+        assert all(a is not b for a, b in zip(old, new))
+        assert all(a is b for a, b in zip(small.graphs[2].buffers, old))
+        assert large.graphs[2].buffers == new
+        assert new[0].numel() >= 100_000 and new[1].numel() >= 1 << 22
+    finally:
+        _launch._counters.pop(("cpu", 0x5EED0), None)
+        _launch._workspaces.pop(("cpu", 0x5EED0), None)
+
+
+def test_capture_needs_a_holder():
+    """By default a loop runs captured only on the card and with a holder
+    to keep its graphs; asked for without one, or off the card, it
+    raises."""
+    holder = _fake_graphs()
+    assert dg.resolve_capture(None, "cuda", holder)
+    assert not dg.resolve_capture(None, "cuda", None)
+    assert not dg.resolve_capture(None, "cpu", holder)
+    assert not dg.resolve_capture(False, "cuda", holder)
+    assert dg.resolve_capture(True, "cuda:0", holder)
+    with pytest.raises(ValueError, match="holder"):
+        dg.resolve_capture(True, "cuda", None)
+    with pytest.raises(ValueError, match="CUDA"):
+        dg.resolve_capture(True, "cpu", holder)
+
+
+def test_holder_keeps_max_entries_and_counts_keys(models):
+    """generate_from_state's entries, one per shape: the holder keeps the
+    MAX_ENTRIES most recent, counts every key asked for and each eviction,
+    and the bytes its own states hold."""
+    _, tp = models
+    holder = _fake_graphs()
+    n = dg.MAX_ENTRIES + 1
+    for B in range(1, n + 1):
+        holder.bind(tp, _state(B)[1](), EOS)
+    holder.bind(tp, _state(n)[1](), EOS)              # a hit
+    stats = holder.stats()
+    assert stats["keys"] == n and stats["entries"] == dg.MAX_ENTRIES
+    assert stats["evictions"] == 1
+    want = sum(t.numel() * t.element_size()
+               for e in holder._entries.values()
+               for t in dg.state_tensors(e.state))
+    assert stats["held_state_bytes"] == want > 0
+    assert min(k.slots for k in holder._entries) == 2
 
 
 def test_captured_generate_host_logic_with_a_stand_in_graph(models,

@@ -43,10 +43,7 @@
 // on the device but one 32-bit division per CTA). A producer warp streams
 // the range through a ring of kSlots shared-memory slots, one 1-D bulk
 // copy (cp.async.bulk, no tensor map) per unit completed on the slot's
-// mbarrier, its lines marked first to evict from the L2 (the stream is read
-// once; with the L2 full of dirty lines, as after a flush, its misses then
-// mostly evict its own clean lines, ~2 us less write-back at 33.6 MB);
-// 8 consumer warps sum each slot's 32-bit words and free it. A
+// mbarrier; 8 consumer warps sum each slot's 32-bit words and free it. A
 // range that crosses the end of a bs block splits its sum there: each warp
 // adds its part into a shared slot per block touched, and the CTA adds each
 // slot into that block's checksum with one atomicAdd. The CTA whose range
@@ -182,6 +179,10 @@ constexpr int kThreads = kConsumers + 32;   // + the producer warp
 constexpr int kMaxCtas = 256;
 constexpr int kMaxTouched = 32;             // bs blocks one range may touch
 constexpr int kRep = 8;                     // output rows per block
+// the ring: 4 slots of 32 KB copies in flight per SM (2-4 slots of
+// 16-64 KB read alike, PERF.md)
+constexpr int kSlots = 4;
+constexpr int kUnit = 32768;                // bytes of one copy
 
 // the first unit of each CTA's range (the host's plan), by value
 struct Begins {
@@ -201,24 +202,14 @@ struct Args {
 };
 
 // one contiguous copy of `bytes` (a multiple of 16) from global into
-// shared memory, counted in bytes on `bar`; with kEvictFirst its lines are
-// the L2's first to go (the stream is read once)
-template <bool kEvictFirst>
+// shared memory, counted in bytes on `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          int bytes, uint64_t* bar,
-                                          uint64_t policy) {
-  if (kEvictFirst)
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-        ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(smem_u32(dst)),
-        "l"(src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
-        : "memory");
-  else
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
-        "l"(src), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // a warp's wrapping sum, added to the shared slot of its block
@@ -229,7 +220,6 @@ __device__ __forceinline__ void flush(unsigned acc, unsigned* slot,
   if (lane == 0) atomicAdd(slot, acc);
 }
 
-template <int kSlots, int kUnit, bool kEvictFirst>
 __global__ void __launch_bounds__(kThreads, 1)
 kv_probe_kernel(Args a, Begins b) {
   extern __shared__ __align__(128) unsigned char ring[];
@@ -252,10 +242,6 @@ kv_probe_kernel(Args a, Begins b) {
 
   if (warp == kConsumerWarps) {             // the producer
     if (lane == 0) {
-      uint64_t policy = 0;
-      if (kEvictFirst)
-        asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-                     : "=l"(policy));
       for (int i = 0; i < n; ++i) {
         const int s = i % kSlots;
         if (i >= kSlots) mbar_wait(&empty[s], (i / kSlots - 1) & 1);
@@ -265,8 +251,7 @@ kv_probe_kernel(Args a, Begins b) {
                 ? a.k + static_cast<long long>(u) * kUnit
                 : a.v + static_cast<long long>(u - a.units_per_stream) * kUnit;
         mbar_arrive_tx(&full[s], kUnit);
-        bulk_load<kEvictFirst>(ring + s * kUnit, src, kUnit, &full[s],
-                               policy);
+        bulk_load(ring + s * kUnit, src, kUnit, &full[s]);
       }
     }
     return;
@@ -313,31 +298,17 @@ kv_probe_kernel(Args a, Begins b) {
   if (tid <= g - g0) atomicAdd(a.checksum + g0 + tid, part[tid]);
 }
 
-template <int kSlots, int kUnit, bool kEvictFirst>
-int launch(const Args& a, const Begins& b, int ctas, cudaStream_t stream) {
-  constexpr int smem = kSlots * kUnit;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kv_probe_kernel<kSlots, kUnit, kEvictFirst>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kv_probe_kernel<kSlots, kUnit, kEvictFirst>
-      <<<ctas, kThreads, smem, stream>>>(a, b);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace v3d_kvprobe
 
 // B9a. k, v: int8 (S, KV, hd), 16-byte aligned; t (hd,) f32; out (S / bs
 // * 8, hd) f32; checksum (2, S / bs) uint32, zeroed; begins (host, ctas +
-// 1 ints): CTA c reads units [begins[c], begins[c + 1]) of unit_bytes
-// bytes, K's units_per_stream units first, then V's; a bs block holds
-// units_per_block units. slots, unit_bytes, evict_first: one of the
-// compiled rings.
+// 1 ints): CTA c reads units [begins[c], begins[c + 1]) of kUnit bytes,
+// K's units_per_stream units first, then V's; a bs block holds
+// units_per_block units.
 extern "C" int v3d_kv_probe(const void* k, const void* v, const void* t,
                             void* out, void* checksum, const int* begins,
                             int ctas, int units_per_stream,
-                            int units_per_block, int unit_bytes, int slots,
-                            int evict_first, int hd, void* stream) {
+                            int units_per_block, int hd, void* stream) {
   using namespace v3d_kvprobe;
   if (ctas < 1 || ctas > kMaxCtas || units_per_block < 1 ||
       units_per_stream < 1 || units_per_stream % units_per_block != 0 ||
@@ -359,13 +330,12 @@ extern "C" int v3d_kv_probe(const void* k, const void* v, const void* t,
                static_cast<const float*>(t), static_cast<float*>(out),
                static_cast<unsigned*>(checksum), units_per_stream,
                units_per_block, units_per_stream / units_per_block, hd};
-  cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  // the shipped ring (stream_probe.py KV_SLOTS, KV_UNIT, KV_EVICT_FIRST)
-  // and the two it was timed against (scripts/torch_port/kv_probe_ab.py)
-  if (slots == 4 && unit_bytes == 32768)
-    return evict_first ? launch<4, 32768, true>(a, b, ctas, cs)
-                       : launch<4, 32768, false>(a, b, ctas, cs);
-  if (slots == 2 && unit_bytes == 16384 && evict_first)
-    return launch<2, 16384, true>(a, b, ctas, cs);
-  return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int smem = kSlots * kUnit;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kv_probe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kv_probe_kernel<<<ctas, v3d_kvprobe::kThreads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      a, b);
+  return static_cast<int>(cudaGetLastError());
 }

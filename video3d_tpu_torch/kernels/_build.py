@@ -135,9 +135,8 @@ _SIGNATURES = {
     "v3d_stream_probe": [_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _P],
     # k, v, t, out, checksum, begins (host), ctas, units_per_stream,
-    # units_per_block, unit_bytes, slots, evict_first, hd, stream
-    "v3d_kv_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                     _P],
+    # units_per_block, hd, stream
+    "v3d_kv_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]

@@ -4,12 +4,16 @@ launch on that stream: arrival counters that the split kernels leave
 zeroed, and f32 workspaces for split products.
 
 Launches on one stream run in order, so they can share a buffer. A
-CUDA-graph capture must find its stream's buffers already at their largest
-size (:func:`reserve`): a graph keeps reading the addresses it was captured
-with, so a buffer grown during capture would be allocated from the graph's
-pool and the old one dropped while other graphs still read it; such a
-request raises instead. Nothing here runs at import time (the CPU tests
-import every module of the port)."""
+CUDA graph keeps reading the addresses it was captured with, so:
+
+* a capture must find its stream's buffers already at their largest size
+  (:func:`reserve`); a request to grow one during a capture raises;
+* a buffer that grows later is replaced for the launches that follow, and
+  the graphs captured before keep the old one alive themselves
+  (:func:`held`, kept with each graph by ``models/decode_graph.py``).
+
+Nothing here runs at import time (the CPU tests import every module of the
+port)."""
 
 from __future__ import annotations
 
@@ -80,3 +84,12 @@ def reserve(device, stream: int, counters: int,
     the weight-streaming plans' tiles and workspace)."""
     arrival_counters(device, stream, counters)
     workspace(device, stream, workspace_bytes)
+
+
+def held(device, stream: int) -> tuple:
+    """The buffers launches on ``stream`` use now: what a graph captured
+    on it reads, so the graph keeps them for as long as it can replay."""
+    key = (str(device), stream)
+    with _lock:
+        return tuple(b for b in (_counters.get(key), _workspaces.get(key))
+                     if b is not None)

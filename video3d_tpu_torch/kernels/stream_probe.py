@@ -50,13 +50,7 @@ KV_REP = 8            # output rows per block of B9a (the TPU's (8, hd) block)
 MAX_STREAMS = 4
 _CTA_TARGET = 2048    # CTAs a launch aims for: several waves over 132 SMs
 _WARPS = 8            # warps of a CTA (csrc/stream_probe.cu kThreads / 32)
-#: B9a's ring (csrc/stream_probe.cu kv_probe_kernel): bytes of one bulk
-#: copy, slots in flight per SM, and whether the copies' lines are the
-#: L2's first to evict (PERF.md: 2-4 slots of 16-64 KB read alike; evict
-#: first spares the dirty lines a flushed L2 holds)
-KV_UNIT = 32768
-KV_SLOTS = 4
-KV_EVICT_FIRST = 1
+KV_UNIT = 32768       # bytes of one bulk copy of B9a (csrc kUnit)
 KV_MAX_CTAS = 256     # csrc kMaxCtas
 KV_MAX_TOUCHED = 32   # csrc kMaxTouched: bs blocks one CTA's range touches
 
@@ -123,22 +117,20 @@ class KvProbePlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def kv_probe_plan(S: int, KV: int, hd: int, bs: int, sms: int,
-                  unit: int = KV_UNIT) -> KvProbePlan:
+def kv_probe_plan(S: int, KV: int, hd: int, bs: int,
+                  sms: int) -> KvProbePlan:
     """The even cut of B9a's K and V over at most ``sms`` CTAs: copy units
-    of ``unit`` bytes (halved until they divide a bs block), and CTA c
-    from unit c * total // ctas, so ranges differ by at most one unit.
-    Pure: computed on the host, the kernel divides nothing 64-bit."""
+    of KV_UNIT bytes, and CTA c from unit c * total // ctas, so ranges
+    differ by at most one unit. Pure: computed on the host, the kernel
+    divides nothing 64-bit."""
     block = bs * KV * hd
-    while unit > 16 and block % unit:
-        unit //= 2
-    if S % bs or block % unit:
-        raise ValueError(f"kv_probe_plan: S {S} bs {bs} KV {KV} hd {hd}: "
-                         f"blocks must be whole multiples of 16 bytes")
-    ups = S * KV * hd // unit
+    if S % bs or block % KV_UNIT:
+        raise ValueError(f"stream_probe_kv: S {S} bs {bs} KV {KV} hd {hd}: "
+                         f"blocks must be whole {KV_UNIT}-byte copy units")
+    ups = S * KV * hd // KV_UNIT
     total = 2 * ups
     ctas = min(sms, total, KV_MAX_CTAS)
-    return KvProbePlan(unit, ups, block // unit,
+    return KvProbePlan(KV_UNIT, ups, block // KV_UNIT,
                        tuple(c * total // ctas for c in range(ctas + 1)))
 
 
@@ -263,19 +255,14 @@ def kv_probe(k: torch.Tensor, v: torch.Tensor, t: torch.Tensor,
         raise ValueError(f"stream_probe_kv: k {tuple(k.shape)} v "
                          f"{tuple(v.shape)} bs {bs}")
     _check("stream_probe_kv", (k, v), (torch.int8,), t, hd)
-    plan = kv_probe_plan(S, KV, hd, bs, sm_count(k.device.index or 0),
-                         KV_UNIT)
-    if plan.unit != KV_UNIT:
-        raise ValueError(f"stream_probe_kv: blocks of {bs * KV * hd} bytes "
-                         f"are not whole {KV_UNIT}-byte copy units")
+    plan = kv_probe_plan(S, KV, hd, bs, sm_count(k.device.index or 0))
     out = torch.empty((S // bs * KV_REP, hd), dtype=torch.float32,
                       device=k.device)
     checksum = torch.zeros((2, S // bs), dtype=torch.int32, device=k.device)
     err = _build.library().v3d_kv_probe(
         k.data_ptr(), v.data_ptr(), t.data_ptr(), out.data_ptr(),
         checksum.data_ptr(), ctypes.addressof(_begins_buffer(plan)),
-        plan.ctas, plan.units_per_stream, plan.units_per_block, plan.unit,
-        KV_SLOTS, KV_EVICT_FIRST, hd,
+        plan.ctas, plan.units_per_stream, plan.units_per_block, hd,
         torch.cuda.current_stream(k.device).cuda_stream)
     _build.check(err, "stream_probe_kv")
     _build.count_launch("stream_probe_kv")

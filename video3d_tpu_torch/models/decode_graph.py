@@ -25,14 +25,20 @@ cuBLAS's handle and workspace for that stream, the kernels' buffers), the
 stream's split buffers are reserved at the largest plans of the step
 (:func:`step_buffers`, ``_launch.reserve``), and the same chunk is
 captured, with ``capture_error_mode="thread_local"`` (the batcher decodes
-from its own thread). Every later chunk of that key replays. The warm-up's
-launches are real and count once; a capture launches nothing, and its
-launch counts, held with the graph, are added once per replay. A capture
-or replay failure raises: there is no eager retry.
+from its own thread). Every later chunk of that key replays, on the same
+stream, so all work that uses the stream's split buffers runs in its
+order; each graph keeps the buffers it was captured with
+(``_launch.held``), so a later warm-up that grows them frees nothing a
+graph reads. The warm-up's launches are real and count once; a capture
+launches nothing, and its launch counts, held with the graph, are added
+once per replay. A capture or replay failure raises: there is no eager
+retry.
 
-A holder serves one thread at a time (its ``lock``); graphs of one holder
-share its capture stream's split buffers (``_launch``), so they must not
-replay concurrently.
+A decode loop runs captured only when its caller passes a holder (the
+engine, the batcher and the benchmarks keep one); without one it runs
+eagerly, since a graph captured for one call would never replay. A holder
+serves one thread at a time (its ``lock``) and keeps at most MAX_ENTRIES
+static states, least recently used dropped first.
 """
 
 from __future__ import annotations
@@ -54,8 +60,12 @@ from video3d_tpu_torch.models import quant
 #: batcher's chunk; PERF.md records the choice)
 DECODE_CHUNK = 8
 #: entries (static states and their graphs) a holder keeps, least recently
-#: used dropped first
-MAX_ENTRIES = 4
+#: used dropped first: an engine's keys are its batch's rows (1 to 8 at
+#: ``run_generative``'s ``batch_size`` of 8; a scene's first question and
+#: its last chunk take the others) at one cache length (a 32-frame
+#: prompt's bucket), so 8 keeps every key of such a pass (PERF.md gives
+#: the keys a pass made and the memory the entries hold)
+MAX_ENTRIES = 8
 
 
 class GraphKey(NamedTuple):
@@ -166,6 +176,7 @@ class CudaGraph:
 class Replay(NamedTuple):
     graph: object
     launches: Dict[str, int]   # kernel launches of one replay
+    buffers: tuple             # the split buffers it reads (_launch.held)
 
 
 class Entry:
@@ -195,29 +206,49 @@ class DecodeGraphs:
     a benchmark), with the static states they run on. ``graph_type``
     stands in for :class:`CudaGraph` in tests."""
 
-    def __init__(self, device, max_entries: int = MAX_ENTRIES,
-                 graph_type=None):
+    def __init__(self, device, graph_type=None):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the kernels key their buffers by their tensors' "cuda:i"
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.stream = (torch.cuda.Stream(self.device)
                        if self.device.type == "cuda" else None)
-        self.max_entries = max_entries
+        # the key of the capture stream's split buffers in ``_launch``
+        self.stream_id = (self.stream.cuda_stream
+                          if self.stream is not None else None)
         self._graph_type = graph_type or CudaGraph
         self._entries: "OrderedDict[GraphKey, Entry]" = OrderedDict()
         self.lock = threading.RLock()
+        self.keys_seen = set()       # every entry key asked for
         self.captures = 0
         self.replays = 0
+        self.evictions = 0
         self.capture_seconds = 0.0   # host time of the captures
+        self.pool_bytes = 0          # device memory reserved by captures
+
+    def stats(self) -> dict:
+        """Keys asked for, captures (misses), replays (hits), evictions,
+        and the device bytes the held states and the graphs' pools keep."""
+        own = sum(t.numel() * t.element_size()
+                  for e in self._entries.values() if e.lengths is not None
+                  for t in state_tensors(e.state))
+        return {"keys": len(self.keys_seen), "entries": len(self._entries),
+                "captures": self.captures, "replays": self.replays,
+                "evictions": self.evictions, "held_state_bytes": own,
+                "pool_bytes": self.pool_bytes}
 
     def _put(self, key: GraphKey, entry: Entry) -> Entry:
         self._entries[key] = entry
-        while len(self._entries) > self.max_entries:
+        while len(self._entries) > MAX_ENTRIES:
             self._entries.popitem(last=False)   # its graphs go with it
+            self.evictions += 1
         return entry
 
     def adopt(self, kind: str, params, state, eos: int) -> Entry:
         """The entry whose static state is ``state`` itself (a decode
         chunk's persistent state)."""
         key = graph_key(kind, params, state, None, eos)
+        self.keys_seen.add(key)
         entry = self._entries.get(key)
         if entry is None:
             return self._put(key, Entry(state, params))
@@ -230,6 +261,7 @@ class DecodeGraphs:
         becomes the entry's own) and zeroed lengths."""
         key = graph_key("generate", params, state, None, eos)
         key = key._replace(storage=key.storage[-1:])
+        self.keys_seen.add(key)
         entry = self._entries.get(key)
         if entry is None:
             own = type(state)(state.next_logits.clone(), state.cache,
@@ -259,38 +291,58 @@ class DecodeGraphs:
             yield
         here.wait_stream(self.stream)
 
+    def _reserved(self, release: bool = False) -> int:
+        """Device bytes the caching allocator holds; ``release``: its free
+        cache returned first (as the capture itself does on entry), so the
+        growth across a capture is the graph's pool."""
+        if self.stream is None:
+            return 0
+        if release:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(self.device)
+
     def run(self, entry: Entry, n: int, body: Callable[[], None],
             buffers: Callable[[], Tuple[int, int]]) -> None:
-        """One n-step chunk of ``entry``: a replay of its graph, or, the
-        first time, the warm-up (``body()`` itself) and the capture.
-        ``buffers()``: :func:`step_buffers` of the step."""
+        """One n-step chunk of ``entry`` on the capture stream: a replay of
+        its graph, or, the first time, the warm-up (``body()`` itself) and
+        the capture. ``buffers()``: :func:`step_buffers` of the step."""
         replay = entry.graphs.get(n)
         if replay is not None:
-            replay.graph.replay()
+            with self._on_capture_stream():
+                replay.graph.replay()
             _build.add_launches(replay.launches)
             self.replays += 1
             return
         with self._on_capture_stream():
             body()
-            if self.stream is not None:
-                _launch.reserve(self.device, self.stream.cuda_stream,
-                                *buffers())
+            if self.stream_id is not None:
+                _launch.reserve(self.device, self.stream_id, *buffers())
         graph = self._graph_type(self.stream)
+        reserved = self._reserved(release=True)
         t0 = time.perf_counter()
         with _build.capturing_launches() as launches:
             graph.capture(body)
         self.capture_seconds += time.perf_counter() - t0
-        entry.graphs[n] = Replay(graph, launches)
+        self.pool_bytes += max(0, self._reserved() - reserved)
+        held = (_launch.held(self.device, self.stream_id)
+                if self.stream_id is not None else ())
+        entry.graphs[n] = Replay(graph, launches, held)
         self.captures += 1
 
 
-def resolve_capture(capture: Optional[bool], device) -> bool:
-    """Whether a decode loop runs captured: by default on a CUDA device;
-    asked for on another device, it raises."""
+def resolve_capture(capture: Optional[bool], device,
+                    graphs: Optional[DecodeGraphs]) -> bool:
+    """Whether a decode loop runs captured: by default when the caller
+    passes a holder (``graphs``) and the device is CUDA. Asked for on
+    another device, or without a holder to keep the graphs, it raises."""
     on_card = torch.device(device).type == "cuda"
     if capture is None:
-        return on_card
+        return on_card and graphs is not None
     if capture and not on_card:
         raise ValueError(f"a captured decode loop needs a CUDA device, not "
                          f"{device} (pass capture=False)")
+    if capture and graphs is None:
+        raise ValueError("a captured decode loop keeps its graphs in a "
+                         "holder: pass graphs=DecodeGraphs(device)")
     return bool(capture)

@@ -13,9 +13,12 @@ once per chunk whether every row has emitted EOS and stops after that
 chunk; its last chunk is cut short so no step runs past
 ``max_new_tokens``. As in the JAX loop, done rows emit EOS and keep their
 lengths, so tokens and lengths equal the per-step loop's (``chunk=1``)
-whatever the chunk. ``capture=False`` runs the same chunks eagerly (the
-reference form; the CPU's). The cache is written in place:
-``generate_from_state`` consumes its state (the JAX function donates it).
+whatever the chunk. A loop runs captured when its caller passes a holder
+of graphs (``graphs``, a ``DecodeGraphs`` that keeps them across calls:
+the engine's, the batcher's); without one, or with ``capture=False``, it
+runs the same chunks eagerly (the reference form; the CPU's). The cache
+is written in place: ``generate_from_state`` consumes its state (the JAX
+function donates it).
 """
 
 from __future__ import annotations
@@ -216,14 +219,15 @@ def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
                         ) -> GenerateResult:
     """Greedy decode from a prefilled state (full or prefix-cached):
     argmax over float32 logits (first maximum on ties, as ``jnp.argmax``),
-    in chunks of ``chunk`` steps with one host sync each. ``capture``
-    (default: on a CUDA device) runs each chunk as a replayed CUDA graph of
-    ``graphs`` (a holder that keeps them across calls, e.g. the engine's;
-    default one for this call). The state's cache is written in place."""
+    in chunks of ``chunk`` steps with one host sync each. On a CUDA device
+    with a holder ``graphs`` (e.g. the engine's), each chunk is a replayed
+    CUDA graph of it; without one, or with ``capture=False``, the chunks
+    run eagerly; ``capture=True`` without a holder or off the card raises.
+    The state's cache is written in place."""
     next_logits, cache, start_pos, done = state
     B = next_logits.shape[0]
     dev = next_logits.device
-    capture = dg.resolve_capture(capture, dev)
+    capture = dg.resolve_capture(capture, dev, graphs)
     if int(start_pos.max()) + max_new_tokens > cache.k.shape[2]:
         raise ValueError("decode would write past the KV cache")
     tokens = torch.full((B, max_new_tokens), eos_token_id, dtype=torch.long,
@@ -238,7 +242,6 @@ def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
             if bool(st.done.all()):
                 break
         return GenerateResult(tokens=tokens, lengths=lengths)
-    graphs = graphs or dg.DecodeGraphs(dev)
     with graphs.lock:
         entry = graphs.bind(params, state, eos_token_id)
         st = entry.state
@@ -329,11 +332,10 @@ def _run_chunk(kind: str, steps, params, cfg: ModelConfig, state,
     tokens (S, chunk)), the tokens a copy of the graph's buffer."""
     dev = state.next_logits.device
     S = state.next_logits.shape[0]
-    if not dg.resolve_capture(capture, dev):
+    if not dg.resolve_capture(capture, dev, graphs):
         toks = torch.empty((S, chunk), dtype=torch.long, device=dev)
         steps(params, cfg, state, toks, eos_token_id)
         return state, toks
-    graphs = graphs or dg.DecodeGraphs(dev)
     with graphs.lock:
         entry = graphs.adopt(kind, params, state, eos_token_id)
         toks = entry.tokens(chunk)
@@ -352,8 +354,10 @@ def decode_chunk(params, cfg: ModelConfig, state: DecodeState,
                  graphs: Optional[dg.DecodeGraphs] = None):
     """Emit ``chunk`` greedy tokens from every row of a dense S-slot state
     (done rows emit EOS); returns (state, tokens (S, chunk)): the same
-    state, its tensors updated in place. ``capture`` (default: on a CUDA
-    device) replays ``graphs``' captured chunk for this state.
+    state, its tensors updated in place. On a CUDA device with a holder
+    ``graphs`` (the batcher's), the chunk is a replay of its captured graph
+    for this state; without one, or with ``capture=False``, it runs
+    eagerly.
 
     As in JAX, done rows still run the step and their position advances.
     A done row can so run past the end of its cache row: JAX drops such
