@@ -85,7 +85,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
    same admitted states replayed equals the uncaptured one bit for bit.
 6. The int8 configuration: the bf16 model is freed and the same model is
    built with int8 LLM projections and lm_head (``init_model(bits=8)``);
-   phases 4, 5 and 8 run again with ``kv_cache_dtype="int8"``, with exact
+   phases 4, 5 and 8 run again with ``kv_cache_dtype="int8"``, and phase
+   12's ScanRefer prefix run (1 miss, 3 hits, B2 folded int8), with exact
    launch counts of B4 (its B>1 form on every decode projection and on
    heads of 2-32 rows, its matvec on one-row heads) and the int8 kernels
    and the first-step logit check at its own bound.
@@ -112,18 +113,36 @@ Phases, each of which raises on failure (the process then exits non-zero):
    its own, the V=32 chain and the B=8 scene-prefix steady state, the live
    CPU baseline, the measured read ceiling), the flagship's stages,
    mc-chain (its picks on the card equal to a CPU run on the same voxels)
-   and ctx32k, and the paged batcher's dense 1 x 32k and paged 1 x 32k + 7
-   x 512 int8 decode rows; each prints its JSON line, and every kernel of
-   those paths (B9's four forms among them) must launch.
+   and ctx32k, the paged batcher's dense 1 x 32k and paged 1 x 32k + 7
+   x 512 int8 decode rows, and the grounding benchmark's ``cold --batch 1``
+   and ``prefix --batch 8`` (``bench/grounding.py``); each prints its JSON
+   line, and every kernel of those paths (B9's four forms among them) must
+   launch.
+12. Grounding and Scan2Cap (after phase 8, on phase 4's bf16 model; its
+   INFONCE ground head drawn last from the same generator): a third
+   synthetic scene of 32 frames with GROUND_OBJECTS proposals;
+   ``run_scanrefer`` over 6 queries with the prefix cache (a miss through
+   ``grounding_forward_cached``, 5 hits through ``ground_suffix`` on B2
+   folded), the same 6 through ``ground`` without it (the full forward),
+   4 through ``run_scanrefer(batch_size=4)`` (one B=4 prefill),
+   ``run_multi3drefer`` over 4 (hits), ``run_scan2cap`` over 8 captions
+   with their ``<coord>`` boxes at ``batch_size=8`` (a B=8 suffix on B5)
+   and one B=1 hit. Launch counts exact; hit and batched scores within
+   GROUND_SCORE_ATOL of the full forward with the same argmax (control: the
+   query one position early); the cached object features equal a miss's
+   bit for bit; compacted scores finite in JAX's layout; the captions'
+   first-step logits within LOGIT_ATOL of a full prefill with the box, and
+   the box PE at its slot; the protocols' metrics, the seconds per query
+   and the peak memory (a full grounding call, the chunked masks) printed.
 7. Training: the int4 model is freed; ``ModelConfig()`` cut to
-   ``TRAIN_LAYERS`` decoder layers, f32 master weights from a seeded
-   generator, ``Trainer.train()`` with bf16 compute, remat and two
-   mini-steps per update for four mini-steps on ScanQA-style records of the
-   scene (~6.8k tokens each): finite losses and gradient norms, the master
-   tree bit for bit after the first update (learning rate 0), every leaf
-   moved after the second, exact launch counts; before it, one V=8
-   mini-step through the kernels against the same mini-step with the plain
-   attention swapped in.
+   ``TRAIN_LAYERS`` decoder layers and no ground head, f32 master weights
+   from a seeded generator, ``Trainer.train()`` with bf16 compute, remat
+   and two mini-steps per update for four mini-steps on ScanQA-style
+   records of the scene (~6.8k tokens each): finite losses and gradient
+   norms, the master tree bit for bit after the first update (learning
+   rate 0), every leaf moved after the second, exact launch counts; before
+   it, one V=8 mini-step through the kernels against the same mini-step
+   with the plain attention swapped in.
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -1966,8 +1985,8 @@ def _questions(video_id: str, texts, tag: str):
 
 def _make_engine(params, cfg, root: str, **ecfg):
     """An InferenceEngine on the synthetic scene that keeps every
-    GenerateResult, and the first-step logits of each decode-state request,
-    so a run can be checked."""
+    GenerateResult, the first-step logits of each decode-state request and
+    every grounding result, so a run can be checked."""
     import torch
 
     from fixtures import FakeTokenizer
@@ -1981,6 +2000,7 @@ def _make_engine(params, cfg, root: str, **ecfg):
             super().__init__(*args, **kwargs)
             self.results = []
             self.first_logits = []
+            self.grounded = []        # (compacted scores, objects) per query
 
         def _generate(self, batch, vision_features=None):
             res = super()._generate(batch, vision_features)
@@ -1992,6 +2012,16 @@ def _make_engine(params, cfg, root: str, **ecfg):
             res = super()._generate_from_state(state)
             self.results.append(res)
             return res
+
+        def ground(self, record, prepared_video=None):
+            out = super().ground(record, prepared_video)
+            self.grounded.append(out)
+            return out
+
+        def ground_from_prepared(self, prepared):
+            out = super().ground_from_prepared(prepared)
+            self.grounded.extend(out)
+            return out
 
     tok = FakeTokenizer()
     return RecordingEngine(
@@ -2725,6 +2755,362 @@ def run_serving(params, cfg, root: str, infos,
     return launches
 
 
+# phase 12: grounding (ScanRefer, Multi3DRefer) and Scan2Cap at full width
+GROUND_OBJECTS = 150       # the third scene's proposals: max_objects
+GROUND_TEXTS = (
+    "Find the brown chair next to the desk.",
+    "The lamp on the nightstand.", "The white door on the left.",
+    "Find the trash can under the sink near the wall.",
+    "The pillow on the bed near the window.",
+    "Find the monitor behind the keyboard.")
+M3DR_TEXTS = ("All the chairs around the table.", "The two lamps.",
+              "Every pillow on the sofa.", "The shelves on the wall.")
+CAPTION_TEXTS = (
+    "Describe the object at <coord> .", "What is at <coord> ?",
+    "Describe the object at <coord> in detail.",
+    "Tell me about the object at <coord> .",
+    "What does the object at <coord> look like?",
+    "Describe <coord> .", "What is the object located at <coord> ?",
+    "Give a caption for the object at <coord> .",
+    "Describe the thing at <coord> briefly.")
+# the grounding scores (INFONCE cosines, bf16 model) of a prefix hit, and
+# of a query in the B=4 batch, against the full grounding forward of the
+# same query: the hit attends the prefix K/V through B2 folded, the full
+# forward through B2 in another order. A control reads the full forward's
+# query one position before the <ground> slot; it must read at least 4x
+# the bound. On an H100 80GB HBM3 (700 W) the hits read 1.83e-3, the B=4
+# batch and the miss 0, the control 4.09e-2 (the objects in reversed
+# order 5.06e-2), with the 151 scores of a query spread over 0.062.
+GROUND_SCORE_ATOL = 5e-3
+# the <coord> box PE added to the bf16 embedding at its slot: the
+# embedding's change there against the PE in bf16, within a bf16 rounding
+# of |PE| <= 1 (every other slot must not change)
+BOX_PE_ATOL = 8e-3
+
+
+def _ground_queries(info, texts, tag: str, dataset: str):
+    import numpy as np
+
+    boxes = np.asarray(info["boxes"], np.float32)
+    out = []
+    for i, text in enumerate(texts):
+        box = boxes[i % len(boxes)].tolist()
+        out.append({
+            "id": f"{tag}{i}", "video": info["sample_idx"],
+            "box": [box] if dataset == "multi3drefer" else box,
+            "conversations": [
+                {"from": "human", "value": f"<image>\n{text}"},
+                {"from": "gpt", "value": "<ground>"}],
+            "metadata": {"dataset": dataset, "gt_box": box,
+                         "question_type": "st_w_d" if dataset ==
+                         "multi3drefer" else "unique"}})
+    return out
+
+
+def _caption_queries(info):
+    import numpy as np
+
+    boxes = np.asarray(info["boxes"], np.float32)
+    return [{
+        "id": f"cap{i}", "video": info["sample_idx"],
+        "box_input": boxes[3 * i].tolist(),
+        "conversations": [
+            {"from": "human", "value": f"<image>\n{text}"},
+            {"from": "gpt", "value": "a brown wooden chair"}],
+        "annotations": ["a brown wooden chair", "the chair by the desk"],
+        "metadata": {"dataset": "scan2cap"}}
+        for i, text in enumerate(CAPTION_TEXTS)]
+
+
+def _ground_inputs(engine, q):
+    """The device inputs of one grounding forward without the prefix
+    cache: (batch, coordinates, boxes, valid, <ground> slot, n)."""
+    ids, labels = engine._ground_tokenize(q)
+    batch, _, coords, boxes, valid, slot, _, n = engine._ground_inputs(
+        ids, labels, q["video"])
+    return batch, coords, boxes, valid, slot, n
+
+
+def _scores_diff(a, b) -> float:
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def _check_grounded(name: str, got, want, info) -> None:
+    """Compacted scores of the same queries two ways: finite, JAX's layout
+    (the N real objects + the zero target; the scene's boxes), within
+    GROUND_SCORE_ATOL of each other with the same argmax."""
+    import numpy as np
+
+    boxes = np.asarray(info["boxes"], np.float32)
+    ok = all(s.shape == (len(boxes) + 1,) and bool(np.isfinite(s).all())
+             and np.array_equal(o, boxes) for s, o in got + want)
+    _check(f"{name}: compacted scores", ok,
+           f"{len(got)} + {len(want)} results of {len(boxes)} objects + 1, "
+           f"finite, boxes the scene's")
+    diff = max(_scores_diff(a, b) for (a, _), (b, _) in zip(got, want))
+    same = all(int(np.argmax(a)) == int(np.argmax(b))
+               for (a, _), (b, _) in zip(got, want))
+    spread = max(float(b.max() - b.min()) for b, _ in want)
+    _check(name, diff <= GROUND_SCORE_ATOL and same,
+           f"max |d| {diff:.2e} (bound {GROUND_SCORE_ATOL:.0e}; scores "
+           f"spread over up to {spread:.3f}); argmax equal: {same}")
+
+
+def run_grounding(params, cfg, root: str, info,
+                  kv_cache_dtype: str = "bfloat16", full: bool = True
+                  ) -> dict:
+    """Phase 12 on the third scene (32 frames, GROUND_OBJECTS proposals):
+    ``run_scanrefer`` over 6 queries with the prefix cache (a miss through
+    ``grounding_forward_cached``, 5 hits through ``ground_suffix``, B2
+    folded), the same 6 through ``ground`` without it (the full forward,
+    B2), 4 of them through ``run_scanrefer(batch_size=4)`` without it (one
+    B=4 prefill), ``run_multi3drefer`` over 4 (hits), ``run_scan2cap`` over
+    8 captions with their boxes at ``batch_size=8`` (one B=8 suffix, B5)
+    and one more caption (a B=1 hit); returns the launch counts of those
+    runs, checked exactly, then holds the hits and the batch against the
+    full forward, the object cache against a recomputation, the caption
+    logits against a full prefill and the box PE at its slot, and prints
+    the protocols' metrics, the seconds and the peak memory.
+    ``full=False`` (phase 6, int8): the ScanRefer prefix run of 4 queries
+    (1 miss, 3 hits) and its launch counts only."""
+    import numpy as np
+    import torch
+
+    from fixtures import FakeTokenizer
+
+    from video3d_tpu_torch.eval import protocols
+    from video3d_tpu_torch.eval.drivers import (run_multi3drefer,
+                                                run_scan2cap, run_scanrefer)
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import llava_video3d as lv3d
+    from video3d_tpu_torch.ops.pos_embed import sin3d_position_embedding
+
+    vocab = FakeTokenizer().vocab
+    ground_id, coord_id = vocab["<ground>"], vocab["<coord>"]
+    kw = dict(kv_cache_dtype=kv_cache_dtype, ground_token_id=ground_id,
+              max_objects=GROUND_OBJECTS)
+    cached = _make_engine(params, cfg, root, prefix_cache_scenes=1, **kw)
+    gq = _ground_queries(info, GROUND_TEXTS, "ground", "scanrefer")
+    L = cfg.llm.num_hidden_layers
+    refer_file = _answer_file(root, "scanrefer", params, kv_cache_dtype)
+    dev = torch.device("cuda", 0)
+    if not full:
+        _build.reset_launches()
+        times = run_scanrefer(cached, gq[:4], refer_file)
+        launches = dict(_build.LAUNCHES)
+        expected = _expected_launches(params, kv_cache_dtype, L, 0, [],
+                                      flash_attention=L,
+                                      flash_attention_folded=3 * L)
+        _check("launch counts", launches == expected,
+               f"{launches}, expected {expected} (1 miss, 3 hits)")
+        _check("prefix cache stats", cached.prefix_cache_stats == [3, 1],
+               f"[hits, misses] {cached.prefix_cache_stats}")
+        plain = _make_engine(params, cfg, root, **kw)
+        want = [plain.ground(q) for q in gq[1:4]]
+        diff = max(_scores_diff(a, b) for (a, _), (b, _)
+                   in zip(cached.grounded[1:], want))
+        same = all(int(np.argmax(a)) == int(np.argmax(b)) for (a, _), (b, _)
+                   in zip(cached.grounded[1:], want))
+        print(f"  {kv_cache_dtype} cache: hits vs the full forward over raw "
+              f"K/V, max |d| {diff:.2e}, argmax equal: {same}; seconds: "
+              f"miss {times[0]:.4f}, hits "
+              f"{[round(t, 4) for t in times[1:]]}", flush=True)
+        return launches
+
+    plain = _make_engine(params, cfg, root, **kw)
+    mq = _ground_queries(info, M3DR_TEXTS, "m3dr", "multi3drefer")
+    cq = _caption_queries(info)
+    b4_file = _answer_file(root, "scanrefer_b4", params, kv_cache_dtype)
+    m3dr_file = _answer_file(root, "multi3drefer", params, kv_cache_dtype)
+    cap_file = _answer_file(root, "scan2cap", params, kv_cache_dtype)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    t_prefix = run_scanrefer(cached, gq, refer_file)
+    t_plain = []
+    for q in gq:
+        t = time.perf_counter()
+        plain.ground(q)
+        torch.cuda.synchronize()
+        t_plain.append(time.perf_counter() - t)
+    t_b4 = run_scanrefer(plain, gq[:4], b4_file, batch_size=4)
+    ground_peak = torch.cuda.max_memory_allocated()
+    t_m3dr = run_multi3drefer(cached, mq, m3dr_file)
+    t_cap = run_scan2cap(cached, cq[:8], cap_file, coord_id, batch_size=8)
+    hit_box = np.asarray(cq[8]["box_input"][:3], np.float32)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cached.generate_answer(cq[8], hit_box, coord_id)
+    torch.cuda.synchronize()
+    t_cap_hit = time.perf_counter() - t
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    # what came out, and the launches
+    records = {name: _read_jsonl(f) for name, f in (
+        ("scanrefer", refer_file), ("scanrefer_b4", b4_file),
+        ("multi3drefer", m3dr_file), ("scan2cap", cap_file))}
+    n_obj = len(info["boxes"])
+    _check("grounding and caption records", [len(r) for r in
+                                             records.values()] == [6, 4, 4, 8]
+           and all(len(r["pred_response"]) == 6
+                   for r in records["scanrefer"] + records["scanrefer_b4"])
+           and all(len(r["scores"]) == len(r["objects"]) + 1 == n_obj + 1
+                   for r in records["multi3drefer"])
+           and all(isinstance(r["pred_response"], str)
+                   for r in records["scan2cap"]),
+           f"{[len(r) for r in records.values()]} jsonl records")
+    _check("prefix cache stats", cached.prefix_cache_stats == [18, 1],
+           f"[hits, misses] {cached.prefix_cache_stats} (5 + 4 grounding "
+           f"hits, a B=8 and a B=1 caption suffix over the grounding miss's "
+           f"prefix)")
+    rows = [int(r.tokens.shape[0]) for r in cached.results]
+    _check("caption generate calls", rows == [8, 1],
+           f"batch rows {rows} (the B=8 suffix batch, the B=1 hit)")
+    forwards = _decode_forwards(cached.results, cfg.llm.vocab_size)
+    expected = _expected_launches(
+        params, kv_cache_dtype, L, forwards, cached.results,
+        flash_attention=8 * L, flash_attention_folded=10 * L,
+        shared_prefix_attention=L)
+    _check("launch counts", launches == expected,
+           f"{launches}, expected {expected} (B2: the miss, 6 full forwards "
+           f"and the B=4 prefill; B2 folded: 9 grounding hits and the B=1 "
+           f"caption; B5: the B=8 captions; {forwards} decode forwards)")
+
+    # the hits and the batch against the full forward of the same queries
+    _check_grounded("prefix hits vs the full forward",
+                    cached.grounded[1:6], plain.grounded[1:6], info)
+    _check_grounded("the miss (cached prefill) vs the full forward",
+                    cached.grounded[:1], plain.grounded[:1], info)
+    _check_grounded("the B=4 batch vs B=1", plain.grounded[6:10],
+                    plain.grounded[:4], info)
+    batch, coords, boxes, valid, slot, n = _ground_inputs(plain, gq[1])
+    with torch.inference_mode():
+        early = plain._compact(lv3d.grounding_forward(
+            params, cfg, batch, coords, boxes, valid, slot - 1), n)
+    hit, full_scores = cached.grounded[1][0], plain.grounded[1][0]
+    control = _scores_diff(hit, early)
+    reversed_ = _scores_diff(hit[:n], full_scores[:n][::-1])
+    _check("grounding control, the query one position before <ground>",
+           control >= 4 * GROUND_SCORE_ATOL,
+           f"max |d| {control:.2e} (must be >= {4 * GROUND_SCORE_ATOL:.0e}); "
+           f"the objects in reversed order read {reversed_:.2e}")
+
+    # the object cache against the features a miss recomputes; the mask's
+    # and one full grounding call's transient memory
+    batch, coords, boxes, valid, slot, n = _ground_inputs(cached, gq[0])
+    with torch.inference_mode():
+        _, _, again = lv3d.grounding_forward_cached(
+            params, cfg, batch, coords, boxes, valid, slot,
+            batch.text_ids.shape[1], cached.cache_dtype)
+    feats = cached._ground_obj_cache[info["sample_idx"]][0]
+    _check("object cache vs recomputed features", torch.equal(feats, again),
+           f"({tuple(feats.shape)} {feats.dtype}) bit for bit: "
+           f"{torch.equal(feats, again)}")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    side = cfg.vision.num_patches_per_side
+    masks = lv3d.object_patch_masks(coords, boxes,
+                                    cfg.world_3d.object_feature_type,
+                                    side=side,
+                                    patch_px=coords.shape[-3] // side)
+    mask_peak = torch.cuda.max_memory_allocated() - base
+    one_object = coords.shape[0] * side * side \
+        * (coords.shape[-3] // side) ** 2 * 3
+    del masks
+    torch.cuda.reset_peak_memory_stats()
+    plain.ground(gq[0])
+    torch.cuda.synchronize()
+    call_peak = torch.cuda.max_memory_allocated() - base
+
+    # the captions: first-step logits against a full prefill with the box,
+    # and the box PE at its slot
+    pairs = (("B=8 row 0", cq[0], cached.first_logits[0][0]),
+             ("B=1 hit", cq[8], cached.first_logits[1][0]))
+    for name, q, got in pairs:
+        box = np.asarray(q["box_input"][:3], np.float32)
+        fb, vf = cached._prepare_generation(q, box, coord_id)
+        max_len = fb.text_ids.shape[1] + MAX_NEW
+        with torch.inference_mode():
+            ref, _, _ = gen.prefill_multimodal(params, cfg, fb, max_len, vf,
+                                               cached.cache_dtype)
+            moved_b, _ = cached._prepare_generation(
+                q, box + np.float32(1.0), coord_id)
+            moved, _, _ = gen.prefill_multimodal(params, cfg, moved_b,
+                                                 max_len, vf,
+                                                 cached.cache_dtype)
+        diff = float((got - ref[0].float()).abs().max())
+        control = float((got - moved[0].float()).abs().max())
+        _check(f"caption first-step logits vs full prefill ({name})",
+               diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
+               f"max |d| {diff:.4f} (bound {LOGIT_ATOL}; |logits| up to "
+               f"{float(ref.abs().max()):.2f})")
+        # one token's PE moves the random model's logits less than the bound
+        # does: printed, and the PE itself is held at its slot below
+        print(f"  control ({name}), the box 1 m further on each axis: max "
+              f"|d| {control:.4f} ({control / LOGIT_ATOL:.1f}x the bound: "
+              f"too small to hold, so the box PE is checked at its slot)",
+              flush=True)
+    with torch.inference_mode():
+        emb = params["llm"]["embed_tokens"]
+        dummy = torch.zeros((1, 1, emb.shape[-1]), dtype=emb.dtype,
+                            device=dev)
+        args = (fb.text_ids, fb.kind, torch.zeros_like(fb.vision_index))
+        with_box = lv3d.assemble_embeds(params, cfg, dummy, *args,
+                                        fb.coord_mask, fb.box_input)
+        without = lv3d.assemble_embeds(params, cfg, dummy, *args)
+        pe = sin3d_position_embedding(fb.box_input[:, None].float(),
+                                      cfg.llm.hidden_size,
+                                      cfg.world_3d.pe_temperature)[0, 0]
+        moved_pe = sin3d_position_embedding(
+            moved_b.box_input[:, None].float(), cfg.llm.hidden_size,
+            cfg.world_3d.pe_temperature)[0, 0]
+    slot_c = int(fb.coord_mask[0].nonzero()[0, 0])
+    delta = (with_box - without)[0].float()
+    pe_err = float((delta[slot_c] - pe.to(emb.dtype).float()).abs().max())
+    pe_ctl = float((delta[slot_c] - moved_pe).abs().max())
+    others = bool((delta[torch.arange(delta.shape[0], device=dev)
+                         != slot_c] == 0).all())
+    _check("the box PE at the <coord> slot", pe_err <= BOX_PE_ATOL and others
+           and int(fb.coord_mask.sum()) == 1 and pe_ctl >= 4 * BOX_PE_ATOL,
+           f"max |d| {pe_err:.2e} (bound {BOX_PE_ATOL:.0e}), every other "
+           f"slot unchanged: {others}; control, the box moved 1 m: "
+           f"{pe_ctl:.3f} (must be >= {4 * BOX_PE_ATOL:.0e})")
+
+    # the scoring protocols on the jsonl files (random weights: printed)
+    print(f"  scanrefer_metrics: "
+          f"{protocols.scanrefer_metrics(records['scanrefer'])}", flush=True)
+    print(f"  multi3drefer_metrics: "
+          f"{protocols.multi3drefer_metrics(records['multi3drefer'])}",
+          flush=True)
+    cap = protocols.scan2cap_metrics(records["scan2cap"])
+    print(f"  scan2cap_metrics: "
+          f"{ {k: v for k, v in cap.items() if k != 'meteor_provenance'} }",
+          flush=True)
+    print(f"  seconds per query (prep excluded): ScanRefer miss "
+          f"{t_prefix[0]:.4f}, hits {[round(x, 4) for x in t_prefix[1:]]}; "
+          f"full forward (video IO and coordinates included) "
+          f"{[round(x, 4) for x in t_plain]}; B=4 batch {t_b4[0]:.4f} per "
+          f"query; Multi3DRefer hits {[round(x, 4) for x in t_m3dr]}; "
+          f"Scan2Cap {t_cap[0]:.4f} per caption at B=8 (32 tokens), the B=1 "
+          f"hit {t_cap_hit:.4f}; wall {wall:.2f} s", flush=True)
+    print(f"  peak device memory: grounding runs {ground_peak / 2**30:.2f} "
+          f"GiB, the phase {peak / 2**30:.2f} GiB; over the "
+          f"{base / 2**30:.2f} GiB held, one full grounding call "
+          f"{call_peak / 2**30:.2f} GiB, the {n} objects' masks "
+          f"{mask_peak / 2**30:.3f} GiB (one broadcast would hold "
+          f"{3 * n * one_object / 2**30:.2f} GiB of bool temporaries)",
+          flush=True)
+    return launches
+
+
 def _wait_for(pred, seconds: float = 30.0) -> bool:
     deadline = time.time() + seconds
     while time.time() < deadline:
@@ -2734,11 +3120,12 @@ def _wait_for(pred, seconds: float = 30.0) -> bool:
     return pred()
 
 
-def run_int8_paths(cfg, root: str, infos) -> dict:
+def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
     """Phase 6: the int8 configuration at full width and depth (int8 LLM
     projections and lm_head from ``init_model(bits=8)``, int8 KV cache)
-    through phase 4's, phase 5's and phase 8's paths; returns the launch
-    counts of the three runs, summed."""
+    through phase 4's, phase 5's and phase 8's paths and phase 12's
+    ScanRefer prefix run; returns the launch counts of the four runs,
+    summed, and phase 11's."""
     import torch
 
     from video3d_tpu_torch.params import init_model
@@ -2768,9 +3155,15 @@ def run_int8_paths(cfg, root: str, infos) -> dict:
     print("int8 serving path:", flush=True)
     serve = run_serving(params, cfg, root, infos, kv_cache_dtype="int8")
     print(f"  launches (int8 serving path): {serve}", flush=True)
+    print("int8 ScanRefer prefix path (phase 12's, 1 miss and 3 hits):",
+          flush=True)
+    ground = run_grounding(params, cfg, root, ground_info,
+                           kv_cache_dtype="int8", full=False)
+    print(f"  launches (int8 ScanRefer prefix path): {ground}", flush=True)
     print("benchmark paths (phase 11, on the int8 model):", flush=True)
     bench = run_bench_paths(params, cfg)
-    return {k: scanqa[k] + prefix[k] + serve[k] for k in scanqa}, bench
+    return {k: scanqa[k] + prefix[k] + serve[k] + ground[k]
+            for k in scanqa}, bench
 
 
 # phase 11: the benchmark's iterations (few: the call's time limit is
@@ -2795,13 +3188,15 @@ def run_bench_paths(params, cfg) -> dict:
     the B=8 prefix on the int8 model, the live CPU baseline, the measured
     read ceiling), the flagship's stages, mc-chain (picks on the card equal
     to a CPU run on the same voxels) and ctx32k (one iteration, no warm-up),
-    and the paged batcher's two 32k int8 rows with a short chunk; each
-    prints its JSON line (the 32k rows captured and uncaptured). Returns
-    the launch counts of the run."""
+    and the paged batcher's two 32k int8 rows with a short chunk, then
+    ``bench/grounding.py``'s ``cold --batch 1`` and ``prefix --batch 8``;
+    each prints its JSON line (the 32k rows captured and uncaptured).
+    Returns the launch counts of the run."""
     import torch
 
     from video3d_tpu_torch.bench import __main__ as bench
-    from video3d_tpu_torch.bench import flagship, paged_batcher, probes, timing
+    from video3d_tpu_torch.bench import (flagship, grounding, paged_batcher,
+                                         probes, timing)
     from video3d_tpu_torch.kernels import _build
     from video3d_tpu_torch.params import init_model
 
@@ -2850,6 +3245,11 @@ def run_bench_paths(params, cfg) -> dict:
             res["device"] = info
             print(json.dumps(res), flush=True)
             torch.cuda.empty_cache()
+    for run, B in ((grounding.run_cold, 1), (grounding.run_prefix, 8)):
+        res = run(params, cfg, dev, B=B, iters=BENCH_ITERS)
+        res["device"] = info
+        print(json.dumps(res), flush=True)
+        torch.cuda.empty_cache()
     counts = dict(_build.LAUNCHES)
     missing = [k for k in BENCH_KERNELS if counts[k] == 0]
     _check("phase 11 launches", not missing,
@@ -3351,7 +3751,7 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from fixtures import make_fake_scene
 
-    from video3d_tpu_torch.config import ModelConfig
+    from video3d_tpu_torch.config import GroundHeadType, ModelConfig
     from video3d_tpu_torch.params import init_model
 
     build()
@@ -3371,6 +3771,10 @@ def main() -> None:
         infos = [make_fake_scene(root, scene_id=f"scene{i:04d}_00",
                                  n_frames=32, H=480, W=640, extend=i > 0)
                  for i in range(2)]
+        ground_info = make_fake_scene(root, scene_id="scene0002_00",
+                                      n_frames=32, H=480, W=640,
+                                      n_objects=GROUND_OBJECTS, seed=2,
+                                      extend=True)
         info = infos[0]
         scanqa = run_main_path(params, cfg, root, info)
         print(f"  launches (ScanQA path): {scanqa}", flush=True)
@@ -3380,17 +3784,24 @@ def main() -> None:
         print("serving path (paged continuous batcher):", flush=True)
         serve = run_serving(params, cfg, root, infos)
         print(f"  launches (serving path): {serve}", flush=True)
+        print("grounding and Scan2Cap (phase 12):", flush=True)
+        ground = run_grounding(params, cfg, root, ground_info)
+        print(f"  launches (grounding and Scan2Cap): {ground}", flush=True)
         del params
         gc.collect()
         torch.cuda.empty_cache()
-        int8, bench = run_int8_paths(cfg, root, infos)
+        int8, bench = run_int8_paths(cfg, root, infos, ground_info)
         gc.collect()
         torch.cuda.empty_cache()
         int4, int4_cache = run_int4_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
-        train_cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
-            cfg.llm, num_hidden_layers=TRAIN_LAYERS))
+        # the grounding train step is not ported: the LM loss trains no
+        # ground head
+        train_cfg = dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm,
+                                         num_hidden_layers=TRAIN_LAYERS),
+            ground_head=GroundHeadType.NONE)
         train = run_training(train_cfg, root, info, dev)
         print(f"  launches (training path): {train}", flush=True)
     kernels = []
@@ -3406,7 +3817,8 @@ def main() -> None:
         elif name in INT4_CACHE_KERNELS:
             launches = int4_cache[name]
         else:
-            launches = scanqa[name] + prefix[name] + serve[name]
+            launches = scanqa[name] + prefix[name] + serve[name] \
+                + ground[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

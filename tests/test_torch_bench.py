@@ -358,3 +358,68 @@ def test_entry_point_without_cuda_exits_non_zero():
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert not res.stdout.strip()
+
+
+@pytest.mark.parametrize("mode,B", [("cold", 1), ("cold", 2),
+                                    ("prefix", 2)])
+def test_grounding_modes_match_jax(models, mode, B):
+    """``bench/grounding.py``'s scalars at iteration 1 against the JAX
+    script's loop body on the same inputs: ``grounding_forward`` (B=1) or
+    ``grounding_forward_batch``, and ``ground_suffix`` over the int8
+    prefix, on the int8 LLM."""
+    from video3d_tpu_torch.bench import grounding as tgr
+
+    _, qtree, _, qport = models
+    i = 1
+    if mode == "cold":
+        batch, plan = tgr.plan_batch(TCFG, V, B, "cpu")
+        arrays = tgr.scene_arrays(TCFG, V, B, "cpu")
+        slot = int(plan.seq_len[0]) - 1
+        got = tgr.cold_scalar(qport, TCFG, batch, *arrays, slot, i)
+        images, wc, patch, boxes, valid = (jnp.asarray(a.numpy())
+                                           for a in arrays)
+        kind = jnp.asarray(np.broadcast_to(plan.kind, (B, plan.kind.shape[1])))
+        ids = jnp.asarray(np.broadcast_to(plan.text_ids, kind.shape))
+        jb = jlv.Batch(
+            images=images + i * 1e-6, patch_coords=patch,
+            text_ids=jnp.where(kind == 1, (ids + i) % 997 + 20, ids),
+            kind=kind, vision_index=jnp.asarray(np.broadcast_to(
+                plan.vision_index, kind.shape)),
+            labels=None, position_ids=jnp.asarray(np.broadcast_to(
+                plan.position_ids, kind.shape)),
+            mrope_position_ids=None,
+            seq_len=jnp.asarray(np.broadcast_to(plan.seq_len, (B,))))
+        if B == 1:
+            s = jlv.grounding_forward(qtree, JCFG, jb, wc[0], boxes[0],
+                                      valid[0], jnp.asarray(slot))
+        else:
+            s = jlv.grounding_forward_batch(qtree, JCFG, jb, wc, boxes, valid,
+                                            jnp.full((B,), slot, jnp.int32))
+    else:
+        sbatch, prefix, P, slot, feats, valid = tgr.prefix_inputs(
+            TCFG, V, B, "cpu")
+        got = tgr.prefix_scalar(qport, TCFG, sbatch, prefix, P, slot, feats,
+                                valid, i)
+        eps = i * 1e-8
+        rows = jnp.arange(B)[:, None]
+        kind = jnp.asarray(sbatch.kind.numpy())
+        ids = jnp.asarray(sbatch.text_ids.numpy())
+        jb = jlv.Batch(
+            images=None, patch_coords=None,
+            text_ids=jnp.where(kind == 1, (ids + i + rows) % 997 + 20, ids),
+            kind=kind, vision_index=jnp.asarray(sbatch.vision_index.numpy()),
+            labels=None, position_ids=jnp.asarray(
+                sbatch.position_ids.numpy()),
+            mrope_position_ids=jnp.asarray(np.broadcast_to(
+                sbatch.position_ids.numpy()[..., None], kind.shape + (3,))),
+            seq_len=jnp.asarray(sbatch.seq_len.numpy()))
+        jpre = jqwen.KVCache(*(jnp.asarray(t.numpy()) for t in prefix[:2]),
+                             *(jnp.asarray(t.numpy()) + eps
+                               for t in prefix[2:]))
+        s = jgen.ground_suffix(
+            qtree, JCFG, jb, jpre, prefix_len=P,
+            max_cache_len=P + tfl.SUFFIX, cache_dtype=jnp.int8,
+            obj_feats=jnp.asarray(feats.numpy()) + eps,
+            object_valid=jnp.asarray(valid.numpy()),
+            ground_slot=jnp.asarray(slot))
+    _close(got, jnp.sum(s.astype(jnp.float32)) * 1e-6)

@@ -1,10 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the GPU
-at small shapes. Marked ``cuda``; they skip without a CUDA device. Run on a
-machine with one (no JAX needed there):
+at small shapes, and the grounding path through them. Marked ``cuda``; they
+skip without a CUDA device. Run on a machine with one (no JAX needed
+there):
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1132,3 +1134,106 @@ def test_reset_batcher_state_captures_anew(dev, decoders):
             assert old_graphs.replays == 1
     finally:
         b.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# grounding on the card at a small width (head_dim 128, the kernels' own)
+# ---------------------------------------------------------------------------
+
+#: grounding scores (cosines) of a prefix hit or a batched query against
+#: the full forward at this width in bf16
+GROUND_ATOL = 2e-2
+
+
+@pytest.fixture(scope="module")
+def grounding(dev, tmp_path_factory):
+    """A 2-layer decoder of head_dim 128 over the tiny tower, bf16, an
+    INFONCE head; a 3-frame synthetic scene with 8 proposals; a factory of
+    engines on the card."""
+    import dataclasses
+    import os
+
+    from fixtures import FakeTokenizer, make_fake_scene
+
+    from video3d_tpu_torch.config import DataConfig, ModelConfig
+    from video3d_tpu_torch.data.video_processor import VideoProcessor
+    from video3d_tpu_torch.eval import drivers
+    from video3d_tpu_torch.params import init_model
+
+    tiny = ModelConfig.tiny()
+    cfg = dataclasses.replace(tiny, llm=dataclasses.replace(
+        tiny.llm, hidden_size=512, intermediate_size=1024,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+        mrope_section=(32, 16, 16)))
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    root = str(tmp_path_factory.mktemp("ground"))
+    info = make_fake_scene(root, n_frames=3, n_objects=8)
+    data_cfg = DataConfig(video_folder=root,
+                          annotation_dir=os.path.join(root, "embodiedscan"),
+                          metadata_dir=os.path.join(root, "metadata"),
+                          frames_upbound=3)
+
+    def engine(**kw):
+        tok = FakeTokenizer()
+        return drivers.InferenceEngine(
+            params, cfg, tok, VideoProcessor(data_cfg),
+            engine_cfg=drivers.EngineConfig(
+                max_new_tokens=4, eos_token_id=tok.eos_token_id,
+                max_frames=3, buckets=(512,), stop_str="",
+                ground_token_id=tok.vocab["<ground>"], max_objects=8, **kw),
+            device=dev)
+
+    queries = [{
+        "id": f"g{i}", "video": info["sample_idx"],
+        "conversations": [
+            {"from": "human", "value": f"<image>\nfind object number {i}"},
+            {"from": "gpt", "value": "<ground>"}],
+        "metadata": {"dataset": "scanrefer", "question_type": "unique"}}
+        for i in range(4)]
+    return engine, queries
+
+
+def _same_grounding(got, want):
+    for (s1, o1), (s2, o2) in zip(got, want):
+        np.testing.assert_array_equal(o1, o2)
+        assert np.isfinite(s1).all() and s1.shape == s2.shape
+        np.testing.assert_allclose(s1, s2, rtol=0, atol=GROUND_ATOL)
+        assert int(np.argmax(s1)) == int(np.argmax(s2))
+
+
+def test_grounding_prefix_hits_match_the_full_forward(dev, grounding):
+    """A miss (cached prefill, B2), then hits through ``ground_suffix`` (B2
+    folded at B=1, each layer once): the full forward's scores."""
+    engine, queries = grounding
+    cached, plain = engine(prefix_cache_scenes=1), engine()
+    got = [cached.ground(queries[0])]
+    before = _build.LAUNCHES["flash_attention_folded"]
+    got += [cached.ground(q) for q in queries[1:]]
+    assert _build.LAUNCHES["flash_attention_folded"] - before == 2 * 3
+    assert cached.prefix_cache_stats == [3, 1]
+    _same_grounding(got, [plain.ground(q) for q in queries])
+
+
+def test_grounding_batch_matches_single(dev, grounding):
+    """``ground_batch`` at B=4 (one B2 prefill per layer) against ``ground``
+    at B=1 on the same queries."""
+    engine, queries = grounding
+    plain = engine()
+    single = [plain.ground(q) for q in queries]
+    before = _build.LAUNCHES["flash_attention"]
+    batched = plain.ground_batch(queries)
+    assert _build.LAUNCHES["flash_attention"] - before == 2
+    _same_grounding(batched, single)
+
+
+def test_grounding_object_cache_is_the_recomputed_features(dev, grounding):
+    """The object features a hit reads are those a miss on another engine
+    recomputes, bit for bit."""
+    engine, queries = grounding
+    first, second = engine(prefix_cache_scenes=1), engine(prefix_cache_scenes=1)
+    first.ground(queries[0])
+    second.ground(queries[1])
+    key = queries[0]["video"]
+    assert torch.equal(first._ground_obj_cache[key][0],
+                       second._ground_obj_cache[key][0])

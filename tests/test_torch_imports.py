@@ -30,7 +30,11 @@ def test_port_modules_are_listed():
                  "video3d_tpu_torch.kernels.stream_probe",
                  "video3d_tpu_torch.ops.mc_select",
                  "video3d_tpu_torch.bench.__main__",
-                 "video3d_tpu_torch.bench.flagship"):
+                 "video3d_tpu_torch.bench.flagship",
+                 "video3d_tpu_torch.bench.grounding",
+                 "video3d_tpu_torch.eval.protocols",
+                 "video3d_tpu_torch.eval.metrics.meteor15",
+                 "video3d_tpu_torch.ops.box"):
         assert name in mods
 
 

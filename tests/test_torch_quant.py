@@ -63,7 +63,7 @@ def _assert_same_tree(tp, jp, path=""):
 
 def _used(tree):
     return {k: tree[k] for k in ("vision", "projector", "image_newline",
-                                 "llm")}
+                                 "llm", "ground_head")}
 
 
 def test_from_jax_params_bf16_and_int8_leaves():

@@ -1,10 +1,18 @@
-"""ScanQA-style generative inference driver of the PyTorch port:
-counterpart of the generative half of ``video3d_tpu/eval/drivers.py``.
+"""Inference drivers of the PyTorch port for the paper's five benchmarks:
+counterpart of ``video3d_tpu/eval/drivers.py``.
 
-Per question: eval-style ChatML ids with an empty assistant turn, the
-scene's frames and raw depths, per-patch voxel ids through the fused
-geometry kernel, the static splice plan, greedy generation, and one jsonl
-record, in the same format as the JAX driver.
+Generative (ScanQA, SQA3D, Scan2Cap, free-form VQA), per question:
+eval-style ChatML ids with an empty assistant turn, the scene's frames and
+raw depths, per-patch voxel ids through the fused geometry kernel, the
+static splice plan, greedy generation, and one jsonl record, in the same
+format as the JAX driver. Scan2Cap adds the ``<coord>`` box input: the
+sin3d PE of the object's discretized center at the ``<coord>`` slot.
+
+Discriminative (ScanRefer, Multi3DRefer), per query: training-style ChatML
+ids with the ``<ground>`` answer, the frames and full per-pixel world
+coordinates (host geometry, zero-padded to ``max_frames`` as in JAX), the
+grounding forward (object patch masks, masked-mean object features, the
+hidden state at ``<ground>``, the ground head), and one jsonl record.
 
 Two scene-level caches, as in the JAX engine (every question on a scene
 shares its frames and its spliced prefix):
@@ -16,7 +24,9 @@ shares its frames and its spliced prefix):
   runs the full prefill and stores the prefix; later questions prefill only
   their suffix against it (``start_decode_prefix``), alone (B = 1) or as a
   scene-grouped batch (``generate_answers_batch_prefix``,
-  ``run_generative(..., batch_size=B)``).
+  ``run_generative(..., batch_size=B)``). Grounding keeps a companion LRU
+  of each scene's object features beside its prefix entry, so a hit
+  prefills only the query suffix (``ground_suffix``).
 
 Host code (tokenization, frame IO, image preprocessing, splice planning) is
 the port's own copy of the JAX package's (``video3d_tpu_torch/data``,
@@ -40,7 +50,8 @@ import torch
 from video3d_tpu_torch.config import ModelConfig
 from video3d_tpu_torch.constants import DEFAULT_IMAGE_TOKEN, IMAGE_TOKEN_INDEX
 from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
-from video3d_tpu_torch.data.tokenization import preprocess_qwen_eval
+from video3d_tpu_torch.data.tokenization import (preprocess_qwen,
+                                                 preprocess_qwen_eval)
 from video3d_tpu_torch.data.video_processor import VideoProcessor
 from video3d_tpu_torch.kernels.fused_geometry import fused_patch_voxel_coords
 from video3d_tpu_torch.models import llava_video3d as lv3d
@@ -48,11 +59,13 @@ from video3d_tpu_torch.models import qwen2
 from video3d_tpu_torch.models.decode_graph import DecodeGraphs
 from video3d_tpu_torch.models.generate import (DecodeState, GenerateResult,
                                                generate_from_state,
-                                               generate_greedy, start_decode,
+                                               generate_greedy, ground_suffix,
+                                               start_decode,
                                                start_decode_prefix)
 from video3d_tpu_torch.models.splice import (KIND_VISION, build_splice_plan,
                                              slice_suffix_plan,
                                              vision_end_from_kind)
+from video3d_tpu_torch.ops import geometry
 from video3d_tpu_torch.params import resolve_device
 
 DEFAULT_BUCKETS = (1024, 2048, 4096, 8192, 16384)
@@ -91,6 +104,10 @@ class EngineConfig:
     # token and kv head; halves the cache's bytes) or "int4" (values packed
     # two per byte, the same scales; halves them again)
     kv_cache_dtype: str = "bfloat16"
+    # grounding: the <ground> token's id (its hidden state is the query)
+    # and the proposals scored per scene (more are dropped, fewer padded)
+    ground_token_id: Optional[int] = None
+    max_objects: int = 150
 
     def cache_dtype(self):
         """The cache form the models take: a torch dtype, or the int4 tag
@@ -145,6 +162,10 @@ class InferenceEngine:
         self.scene_cache_stats = [0, 0]                      # [hits, misses]
         self._prefix_cache: "OrderedDict" = OrderedDict()  # -> _PrefixEntry
         self.prefix_cache_stats = [0, 0]                     # [hits, misses]
+        # grounding's companion LRU: video id -> (object features (N, D),
+        # valid (N,), objects (n0, 6) numpy, n), held only while the
+        # scene's prefix entry is
+        self._ground_obj_cache: "OrderedDict" = OrderedDict()
         # called with each evicted scene key after _cache_lock is released
         # (the paged batcher drops its shared prefix pages on eviction,
         # serve/batcher.py); a hook must not re-enter the engine's caches
@@ -189,6 +210,49 @@ class InferenceEngine:
             raise NotImplementedError("only avg coordinate pooling is ported")
         return self._video_arrays_device(video_id)
 
+    def _video_arrays_full(self, video_id: str):
+        """(video dict, V, images (1, Vmax, 3, S, S), per-pixel world
+        coordinates (1, Vmax, S, S, 3), patch voxel ids (1, Vmax, g, g, 3))
+        for the grounding route (JAX ``_video_arrays(need_full_coords=
+        True)``): the host geometry of ``process_3d_video``, then patch
+        means and the clip / round discretization, not B1. As in JAX the
+        frames and coordinates are zero-padded to ``max_frames``: the tower
+        runs on the pad frames too, and their patches (coordinates 0) count
+        towards the objects whose boxes hold the origin."""
+        mc = self.cfg
+        S = mc.vision.image_size
+        Vmax = self.ecfg.max_frames
+        vd = self.vp.process_3d_video(video_id, self.ip, force_sample=True,
+                                      frames_upbound=Vmax)
+        V = vd["video_size"]
+        images = np.zeros((1, Vmax, 3, S, S), np.float32)
+        images[0, :V] = vd["images"][:V]
+        coords_full = np.zeros((1, Vmax, S, S, 3), np.float32)
+        coords_full[0, :V] = vd["world_coords"][:V]
+        dev = self.device
+        coords = torch.from_numpy(coords_full).to(dev)
+        patch = geometry.average_coordinate_in_patch(
+            coords[0], patch_size=S // self._grid_side()).cpu().numpy()[None]
+        vox = mc.world_3d.voxel
+        if mc.world_3d.discrete:
+            patch = np.clip(patch, vox.min_xyz_range, vox.max_xyz_range)
+            patch = np.round((patch - np.asarray(vox.min_xyz_range,
+                                                 np.float32))
+                             / vox.voxel_size)
+        return (vd, V, torch.from_numpy(images).to(dev), coords,
+                torch.from_numpy(patch.astype(np.float32)).to(dev))
+
+    def _discretize_box(self, box_input):
+        """A Scan2Cap box center -> voxel ids, as the patch coordinates are
+        discretized (unchanged when the configuration is not discrete)."""
+        vox = self.cfg.world_3d.voxel
+        if box_input is None or not self.cfg.world_3d.discrete:
+            return box_input
+        box_input = np.clip(box_input, vox.min_xyz_range, vox.max_xyz_range)
+        return np.round((box_input - np.asarray(vox.min_xyz_range,
+                                                np.float32))
+                        / vox.voxel_size)
+
     def _question_text(self, record) -> str:
         qs = record["conversations"][0]["value"]
         qs = self.ecfg.extra_prompt + qs
@@ -204,44 +268,75 @@ class InferenceEngine:
         return preprocess_qwen_eval(
             [question, {"from": "gpt", "value": None}], self.tokenizer)
 
-    def _splice_plan(self, ids_list, frames, bucket_frames: int):
+    def _splice_plan(self, ids_list, frames, bucket_frames: Optional[int],
+                     labels_list=None, coord_token_id=None,
+                     answer_budget: bool = True):
         """Splice plan of B prompts with ``frames[b]`` frames each, at the
-        bucket fitting the longest prompt, ``bucket_frames`` frames and the
-        answer budget. Returns (plan, bucket)."""
+        bucket fitting the longest prompt with ``bucket_frames`` frames
+        (None: the longest of each prompt with its own frames) and, with
+        ``answer_budget``, the answer budget. Returns (plan, bucket)."""
         mc = self.cfg
         T = mc.tokens_per_frame
-        L = pick_bucket(max(len(i) for i in ids_list) + bucket_frames * T
-                        + self.ecfg.max_new_tokens, self.ecfg.buckets)
-        plan = build_splice_plan(ids_list, None, frames, tokens_per_frame=T,
-                                 max_len=L, grid_side=self._grid_side(),
+        if bucket_frames is None:
+            total = max(len(i) + v * T for i, v in zip(ids_list, frames))
+        else:
+            total = max(len(i) for i in ids_list) + bucket_frames * T
+        if answer_budget:
+            total += self.ecfg.max_new_tokens
+        L = pick_bucket(total, self.ecfg.buckets)
+        plan = build_splice_plan(ids_list, labels_list, frames,
+                                 tokens_per_frame=T, max_len=L,
+                                 grid_side=self._grid_side(),
+                                 coord_token_id=coord_token_id,
                                  truncate_to=mc.tokenizer_model_max_length)
         return plan, L
 
-    def _batch_from_plan(self, plan, images=None, patch=None) -> lv3d.Batch:
-        """SplicePlan (full or suffix slice) -> device Batch."""
+    def _batch_from_plan(self, plan, images=None, patch=None,
+                         box_inputs: Optional[Sequence] = None
+                         ) -> lv3d.Batch:
+        """SplicePlan (full or suffix slice) -> device Batch. ``box_inputs``:
+        per row, a Scan2Cap object's (3,) center in world coordinates or
+        None; the batch gets their discretized (B, 3) centers (zeros for
+        rows without one) when any row has one."""
         dev = self.device
 
-        def t(a):
+        def t(a, dtype=torch.long):
             return torch.from_numpy(np.asarray(a)).to(device=dev,
-                                                      dtype=torch.long)
+                                                      dtype=dtype)
 
+        boxes = None
+        if box_inputs is not None and any(b is not None for b in box_inputs):
+            boxes = np.stack([
+                self._discretize_box(np.asarray(b, np.float32))
+                if b is not None else np.zeros((3,), np.float32)
+                for b in box_inputs]).astype(np.float32)
         return lv3d.Batch(
             images=None if images is None else images.to(self.dtype),
             patch_coords=patch, text_ids=t(plan.text_ids), kind=t(plan.kind),
             vision_index=t(plan.vision_index),
-            position_ids=t(plan.position_ids), seq_len=t(plan.seq_len))
+            position_ids=t(plan.position_ids), seq_len=t(plan.seq_len),
+            # the <coord> mask matters only beside a box: no copy without
+            coord_mask=None if boxes is None
+            else t(plan.coord_mask, torch.bool),
+            box_input=None if boxes is None else t(boxes, torch.float32))
 
-    def _build_batch(self, ids, V: int, images, patch) -> lv3d.Batch:
-        plan, _ = self._splice_plan([ids], [V], V)
-        return self._batch_from_plan(plan, images, patch)
+    def _build_batch(self, ids, V: int, images, patch, box_input=None,
+                     coord_token_id=None) -> lv3d.Batch:
+        plan, _ = self._splice_plan([ids], [V], V,
+                                    coord_token_id=coord_token_id)
+        return self._batch_from_plan(plan, images, patch, [box_input])
 
-    def _prepare_generation(self, record):
+    def _prepare_generation(self, record, box_input=None,
+                            coord_token_id=None):
         """record -> (batch, vision_features): the host half of a request
-        (vision_features is None unless the scene cache holds the scene)."""
+        (vision_features is None unless the scene cache holds the scene).
+        ``box_input``: the Scan2Cap object's (3,) center in world
+        coordinates, its PE added at the ``coord_token_id`` slot."""
         return self._prepare_generation_ids(self._tokenize_prompt(record),
-                                            record)
+                                            record, box_input, coord_token_id)
 
-    def _prepare_generation_ids(self, ids, record):
+    def _prepare_generation_ids(self, ids, record, box_input=None,
+                                coord_token_id=None):
         """With ``scene_cache_scenes > 0`` the spliceable vision features
         (tower -> projector -> pool -> world PE -> newlines) are cached per
         scene: they depend only on the scene's frames, never the question.
@@ -255,10 +350,12 @@ class InferenceEngine:
                     self.scene_cache_stats[0] += 1
             if hit is not None:
                 spliceable, V = hit
-                return self._build_batch(ids, V, None, None), spliceable
+                return self._build_batch(ids, V, None, None, box_input,
+                                         coord_token_id), spliceable
         V, images, patch = self._video_arrays(record["video"])
         if not cache_on:
-            return self._build_batch(ids, V, images, patch), None
+            return self._build_batch(ids, V, images, patch, box_input,
+                                     coord_token_id), None
         self.scene_cache_stats[1] += 1
         with torch.inference_mode():
             spliceable = lv3d.encode_video(self.params, self.cfg,
@@ -268,7 +365,8 @@ class InferenceEngine:
             self._scene_cache[record["video"]] = (spliceable, V)
             while len(self._scene_cache) > self.ecfg.scene_cache_scenes:
                 self._scene_cache.popitem(last=False)
-        return self._build_batch(ids, V, None, None), spliceable
+        return self._build_batch(ids, V, None, None, box_input,
+                                 coord_token_id), spliceable
 
     def _generate(self, batch, vision_features=None) -> GenerateResult:
         return generate_greedy(self.params, self.cfg, batch,
@@ -319,16 +417,18 @@ class InferenceEngine:
             return None
         return slice_suffix_plan(plan, prefix_len, Ls)
 
-    def _build_suffix_batch(self, ids, entry: _PrefixEntry):
+    def _build_suffix_batch(self, ids, entry: _PrefixEntry, box_input=None,
+                            coord_token_id=None):
         """Full splice plan -> (suffix-only Batch, bucket) for
         start_decode_prefix, or None when the suffix doesn't fit (the caller
         falls back to a full prefill)."""
         V = entry.num_frames
-        plan, L = self._splice_plan([ids], [V], V)
+        plan, L = self._splice_plan([ids], [V], V,
+                                    coord_token_id=coord_token_id)
         suf = self._suffix_slice(plan, entry.prefix_len)
         if suf is None:
             return None
-        return self._batch_from_plan(suf), L
+        return self._batch_from_plan(suf, box_inputs=[box_input]), L
 
     def _store_prefix(self, key: str, ids, img: int, batch, cache) -> None:
         """Copy the scene prefix out of a freshly prefilled B=1 cache and
@@ -347,12 +447,15 @@ class InferenceEngine:
         with self._cache_lock:
             self._prefix_cache[key] = entry
             while len(self._prefix_cache) > self.ecfg.prefix_cache_scenes:
-                evictions.append(self._prefix_cache.popitem(last=False)[0])
+                evicted = self._prefix_cache.popitem(last=False)[0]
+                # a scene's object features go with its prefix entry
+                self._ground_obj_cache.pop(evicted, None)
+                evictions.append(evicted)
         for evicted in evictions:
             for hook in self._prefix_evict_hooks:
                 hook(evicted)
 
-    def prepare_request(self, record):
+    def prepare_request(self, record, box_input=None, coord_token_id=None):
         """Host half of the prefix-aware path: tokenize, look up the scene
         prefix, and either build the suffix batch (hit) or run the full
         preparation (miss). Device prefill happens in :meth:`start_request`."""
@@ -362,13 +465,16 @@ class InferenceEngine:
         if img >= 0:
             entry = self._lookup_prefix(key)
             if entry is not None and tuple(ids[:img + 1]) == entry.ids_prefix:
-                built = self._build_suffix_batch(ids, entry)
+                built = self._build_suffix_batch(ids, entry, box_input,
+                                                 coord_token_id)
                 if built is not None:
                     return {"mode": "prefix", "batch": built[0],
                             "entry": entry, "key": key, "bucket": built[1]}
-        batch, vision_features = self._prepare_generation_ids(ids, record)
+        batch, vision_features = self._prepare_generation_ids(
+            ids, record, box_input, coord_token_id)
         return {"mode": "full", "batch": batch, "vf": vision_features,
-                "ids": ids, "img": img, "key": key,
+                "ids": ids, "img": img, "key": key, "box_input": box_input,
+                "coord_token_id": coord_token_id,
                 "bucket": int(batch.text_ids.shape[1])}
 
     def _refresh_prep(self, prep):
@@ -382,7 +488,9 @@ class InferenceEngine:
         if entry is None or \
                 tuple(prep["ids"][:prep["img"] + 1]) != entry.ids_prefix:
             return prep
-        built = self._build_suffix_batch(prep["ids"], entry)
+        built = self._build_suffix_batch(prep["ids"], entry,
+                                         prep["box_input"],
+                                         prep["coord_token_id"])
         if built is None:
             return prep
         return {"mode": "prefix", "batch": built[0], "entry": entry,
@@ -418,15 +526,19 @@ class InferenceEngine:
         return self._texts(self._generate_from_state(
             self.start_request(prep)))[0]
 
-    def generate_answer(self, record) -> str:
+    def generate_answer(self, record, box_input=None,
+                        coord_token_id=None) -> str:
         if self._prefix_cache_on(record):
-            return self._answer_from_prep(self.prepare_request(record))
-        return self._texts(self._generate(
-            *self._prepare_generation(record)))[0]
+            return self._answer_from_prep(self.prepare_request(
+                record, box_input, coord_token_id))
+        return self._texts(self._generate(*self._prepare_generation(
+            record, box_input, coord_token_id)))[0]
 
     # ------------- batched generation -------------
 
-    def prepare_answers_batch(self, records: Sequence[dict]) -> lv3d.Batch:
+    def prepare_answers_batch(self, records: Sequence[dict],
+                              box_inputs: Optional[Sequence] = None,
+                              coord_token_id=None) -> lv3d.Batch:
         """Host half of :meth:`generate_answers_batch`: video IO, geometry,
         tokenization and one splice plan for B records. The bucket counts
         ``max_frames`` frames, as the JAX engine's; the frames of rows with
@@ -435,7 +547,8 @@ class InferenceEngine:
         ids_list = [self._tokenize_prompt(r) for r in records]
         arrays = [self._video_arrays(r["video"]) for r in records]
         frames = [V for V, _, _ in arrays]
-        plan, _ = self._splice_plan(ids_list, frames, self.ecfg.max_frames)
+        plan, _ = self._splice_plan(ids_list, frames, self.ecfg.max_frames,
+                                    coord_token_id=coord_token_id)
         Vc = max(frames)
         images = arrays[0][1].new_zeros((len(records), Vc,
                                          *arrays[0][1].shape[2:]))
@@ -444,19 +557,24 @@ class InferenceEngine:
         for b, (V, im, pc) in enumerate(arrays):
             images[b, :V] = im[0]
             patch[b, :V] = pc[0]
-        return self._batch_from_plan(plan, images, patch)
+        return self._batch_from_plan(plan, images, patch, box_inputs)
 
     def answers_from_batch(self, batch) -> List[str]:
         """Device half of :meth:`generate_answers_batch`."""
         return self._texts(self._generate(batch))
 
-    def generate_answers_batch(self, records: Sequence[dict]) -> List[str]:
+    def generate_answers_batch(self, records: Sequence[dict],
+                               box_inputs: Optional[Sequence] = None,
+                               coord_token_id=None) -> List[str]:
         """One prefill and one decode loop for B questions."""
-        return self.answers_from_batch(self.prepare_answers_batch(records))
+        return self.answers_from_batch(self.prepare_answers_batch(
+            records, box_inputs, coord_token_id))
 
     # ------------- scene-grouped batched suffix decode -------------
 
-    def prepare_answers_batch_prefix(self, records: Sequence[dict]):
+    def prepare_answers_batch_prefix(self, records: Sequence[dict],
+                                     box_inputs: Optional[Sequence] = None,
+                                     coord_token_id=None):
         """B-row SUFFIX batch for records that all sit on one scene with a
         cached prefix: every row shares the scene prefix, so one suffix
         prefill serves B questions. Returns None when the records span
@@ -476,11 +594,13 @@ class InferenceEngine:
                                 for ids, img in zip(ids_list, imgs)):
             return None
         V = entry.num_frames
-        plan, L = self._splice_plan(ids_list, [V] * len(records), V)
+        plan, L = self._splice_plan(ids_list, [V] * len(records), V,
+                                    coord_token_id=coord_token_id)
         suf = self._suffix_slice(plan, entry.prefix_len)
         if suf is None:
             return None
-        return {"mode": "prefix_batch", "batch": self._batch_from_plan(suf),
+        return {"mode": "prefix_batch",
+                "batch": self._batch_from_plan(suf, box_inputs=box_inputs),
                 "entry": entry, "bucket": L}
 
     def answers_from_prefix_batch(self, prep) -> List[str]:
@@ -492,14 +612,18 @@ class InferenceEngine:
         self.prefix_cache_stats[0] += int(batch.text_ids.shape[0])
         return self._texts(self._generate_from_state(state))
 
-    def generate_answers_batch_prefix(self, records: Sequence[dict]
-                                      ) -> List[str]:
+    def generate_answers_batch_prefix(self, records: Sequence[dict],
+                                      box_inputs: Optional[Sequence] = None,
+                                      coord_token_id=None) -> List[str]:
         """Batched answers with the scene-prefix fast path: a same-scene
         chunk with a cached prefix decodes as one B-row suffix batch; a
         same-scene chunk WITHOUT one answers its first record alone (full
         prefill, storing the prefix) and then suffix-batches the rest;
         anything else takes the plain batched path."""
-        prep = self.prepare_answers_batch_prefix(records)
+        if box_inputs is None:
+            box_inputs = [None] * len(records)
+        prep = self.prepare_answers_batch_prefix(records, box_inputs,
+                                                 coord_token_id)
         if prep is not None:
             return self.answers_from_prefix_batch(prep)
         key = records[0].get("video")
@@ -512,9 +636,171 @@ class InferenceEngine:
         # recursion would degrade the chunk to B sequential full prefills
         if same_scene and len(records) > 1 and not have_entry \
                 and self._prefix_cache_on(records[0]):
-            first = self.generate_answer(records[0])
-            return [first] + self.generate_answers_batch_prefix(records[1:])
-        return self.generate_answers_batch(records)
+            first = self.generate_answer(records[0], box_inputs[0],
+                                         coord_token_id)
+            return [first] + self.generate_answers_batch_prefix(
+                records[1:], box_inputs[1:], coord_token_id)
+        return self.generate_answers_batch(records, box_inputs,
+                                           coord_token_id)
+
+    # ------------- discriminative (grounding) -------------
+
+    def _ground_tokenize(self, record):
+        """Training-style ids and labels of the query and its ``<ground>``
+        answer (the reference grounds at the answer's token)."""
+        question = {"from": "human", "value": self._question_text(record)}
+        tok = preprocess_qwen([[question, record["conversations"][1]]],
+                              self.tokenizer, has_image=True)
+        return tok["input_ids"][0].tolist(), tok["labels"][0].tolist()
+
+    def _ground_slot(self, plan, b: int) -> int:
+        """Spliced index of row b's first ``<ground>`` label, else its last
+        token."""
+        hits = np.nonzero(plan.labels[b] == self.ecfg.ground_token_id)[0]
+        return int(hits[0]) if len(hits) else int(plan.seq_len[b]) - 1
+
+    def _proposals(self, vd):
+        """The scene's proposals padded to ``max_objects``: (boxes (N, 6),
+        valid (N,) on the device, the objects (n0, 6) numpy, n real)."""
+        objects = np.asarray(vd["objects"], np.float32).reshape(-1, 6)
+        N = self.ecfg.max_objects
+        n = min(len(objects), N)
+        obj = np.zeros((N, 6), np.float32)
+        obj[:n] = objects[:n]
+        valid = np.zeros((N,), bool)
+        valid[:n] = True
+        return (torch.from_numpy(obj).to(self.device),
+                torch.from_numpy(valid).to(self.device), objects, n)
+
+    @staticmethod
+    def _compact(scores: torch.Tensor, n: int) -> np.ndarray:
+        """The n real objects' scores and the last slot (the zero target),
+        the reference's layout."""
+        s = scores.float().cpu().numpy()
+        return np.concatenate([s[:n], s[-1:]])
+
+    def _check_ground(self) -> None:
+        if self.ecfg.ground_token_id is None:
+            raise ValueError("grounding needs EngineConfig.ground_token_id")
+
+    def _ground_inputs(self, ids, labels, video_id: str,
+                       prepared_video=None):
+        """One query's full grounding forward inputs: (batch, bucket,
+        coordinates (Vmax, S, S, 3), boxes, valid, <ground> slot, objects,
+        n). ``prepared_video``: a :meth:`_video_arrays_full` result loaded
+        beforehand."""
+        vd, V, images, coords, patch = (
+            prepared_video if prepared_video is not None
+            else self._video_arrays_full(video_id))
+        plan, L = self._splice_plan([ids], [V], V, [labels])
+        obj, valid, objects, n = self._proposals(vd)
+        return (self._batch_from_plan(plan, images, patch), L, coords[0],
+                obj, valid, self._ground_slot(plan, 0), objects, n)
+
+    def ground(self, record, prepared_video=None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores (n+1,), objects (n, 6)) for one query; through the
+        scene-prefix cache when it is on."""
+        self._check_ground()
+        if self._prefix_cache_on(record):
+            return self._ground_prefix(record, prepared_video)
+        ids, labels = self._ground_tokenize(record)
+        batch, _, coords, obj, valid, slot, objects, n = self._ground_inputs(
+            ids, labels, record["video"], prepared_video)
+        with torch.inference_mode():
+            scores = lv3d.grounding_forward(self.params, self.cfg, batch,
+                                            coords, obj, valid, slot)
+        return self._compact(scores, n), objects[:n]
+
+    def _ground_prefix(self, record, prepared_video=None
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`ground` through the scene-prefix cache. The prefix KV, the
+        proposals and their object features are question-independent, so
+        a hit prefills only the query suffix (which holds the ``<ground>``
+        token) and scores the cached features: no video IO, coordinates,
+        masks, tower or full prefill. A miss (or a suffix that does not
+        fit) runs the full forward through a cache and stores the prefix
+        and the object features."""
+        ids, labels = self._ground_tokenize(record)
+        img = ids.index(IMAGE_TOKEN_INDEX) if IMAGE_TOKEN_INDEX in ids else -1
+        key = record.get("video")
+        entry = obj_entry = None
+        if img >= 0:
+            with self._cache_lock:
+                entry = self._prefix_cache.get(key)
+                obj_entry = self._ground_obj_cache.get(key)
+                if entry is not None:
+                    self._prefix_cache.move_to_end(key)
+                if obj_entry is not None:
+                    self._ground_obj_cache.move_to_end(key)
+        if (entry is not None and obj_entry is not None
+                and tuple(ids[:img + 1]) == entry.ids_prefix):
+            P, V = entry.prefix_len, entry.num_frames
+            plan, _ = self._splice_plan([ids], [V], V, [labels],
+                                        answer_budget=False)
+            slot = self._ground_slot(plan, 0)
+            suf = self._suffix_slice(plan, P)
+            if suf is not None and slot >= P:
+                obj_feats, valid, objects, n = obj_entry
+                scores = ground_suffix(
+                    self.params, self.cfg, self._batch_from_plan(suf),
+                    entry.cache, P, P + suf.text_ids.shape[1],
+                    self.cache_dtype, obj_feats, valid, slot)
+                self.prefix_cache_stats[0] += 1
+                return self._compact(scores, n), objects[:n]
+        batch, L, coords, obj, valid, slot, objects, n = self._ground_inputs(
+            ids, labels, record["video"], prepared_video)
+        scores, cache, obj_feats = lv3d.grounding_forward_cached(
+            self.params, self.cfg, batch, coords, obj, valid, slot, L,
+            self.cache_dtype)
+        if img >= 0 and isinstance(key, str):
+            self.prefix_cache_stats[1] += 1
+            self._store_prefix(key, ids, img, batch, cache)
+            with self._cache_lock:
+                # features that can never hit (no prefix entry) hold no
+                # device memory
+                if key in self._prefix_cache:
+                    self._ground_obj_cache[key] = (obj_feats, valid, objects,
+                                                   n)
+                    while len(self._ground_obj_cache) > \
+                            self.ecfg.prefix_cache_scenes:
+                        self._ground_obj_cache.popitem(last=False)
+        return self._compact(scores, n), objects[:n]
+
+    def ground_batch(self, records: Sequence[dict]
+                     ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Batched :meth:`ground` without the prefix cache: one prefill
+        scores B queries."""
+        return self.ground_from_prepared(self.prepare_ground_batch(records))
+
+    def prepare_ground_batch(self, records: Sequence[dict]):
+        """Host half of :meth:`ground_batch`: video IO, coordinates,
+        tokenization, one splice plan and the padded proposals."""
+        self._check_ground()
+        toks = [self._ground_tokenize(r) for r in records]
+        videos = [self._video_arrays_full(r["video"]) for r in records]
+        plan, _ = self._splice_plan([i for i, _ in toks],
+                                    [v[1] for v in videos], None,
+                                    [lab for _, lab in toks],
+                                    answer_budget=False)
+        batch = self._batch_from_plan(plan, torch.cat([v[2] for v in videos]),
+                                      torch.cat([v[4] for v in videos]))
+        props = [self._proposals(v[0]) for v in videos]
+        return (batch, torch.cat([v[3] for v in videos]),
+                torch.stack([p[0] for p in props]),
+                torch.stack([p[1] for p in props]),
+                [self._ground_slot(plan, b) for b in range(len(records))],
+                [p[3] for p in props], [p[2] for p in props])
+
+    def ground_from_prepared(self, prepared
+                             ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Device half of :meth:`ground_batch`."""
+        batch, coords, obj, valid, slots, counts, objects_l = prepared
+        with torch.inference_mode():
+            scores = lv3d.grounding_forward_batch(
+                self.params, self.cfg, batch, coords, obj, valid, slots)
+        return [(self._compact(scores[b], n), objects_l[b][:n])
+                for b, n in enumerate(counts)]
 
 
 def _append_jsonl(path: str, record: dict) -> None:
@@ -532,15 +818,19 @@ def _append_jsonl(path: str, record: dict) -> None:
 
 
 def run_generative(engine: InferenceEngine, questions: Sequence[dict],
-                   answer_file: str, batch_size: int = 1) -> List[float]:
-    """ScanQA-style loop over chunks of ``batch_size`` questions. A worker
-    thread prepares chunk i+1 (frame IO, geometry, tokenization, splice
-    plan) while the device generates chunk i. With the prefix cache on and
-    ``batch_size > 1``, questions are sorted by scene so each chunk is one
-    scene-grouped suffix batch (records are keyed by sample_id, so the
-    changed order does not matter to the metrics). Returns seconds per
-    question (a chunk's time over its size), prep excluded, as the JAX
-    driver times it."""
+                   answer_file: str, gt_from_annotations: bool = False,
+                   coord_token_id=None, batch_size: int = 1) -> List[float]:
+    """ScanQA / SQA3D / Scan2Cap loop over chunks of ``batch_size``
+    questions. A worker thread prepares chunk i+1 (frame IO, geometry,
+    tokenization, splice plan) while the device generates chunk i. With
+    the prefix cache on and ``batch_size > 1``, questions are sorted by
+    scene so each chunk is one scene-grouped suffix batch (records are
+    keyed by sample_id, so the changed order does not matter to the
+    metrics). A record's ``box_input`` (its first three values, the
+    object's center) is added at the ``coord_token_id`` slot;
+    ``gt_from_annotations`` takes the record's ``annotations`` as the
+    ground truth (Scan2Cap). Returns seconds per question (a chunk's time
+    over its size), prep excluded, as the JAX driver times it."""
     if not questions:
         return []
     prefix_on = engine._prefix_cache_on(questions[0])
@@ -549,28 +839,34 @@ def run_generative(engine: InferenceEngine, questions: Sequence[dict],
 
     def prep(s):
         chunk = list(questions[s:s + batch_size])
+        boxes = [np.asarray(q["box_input"][:3], np.float32)
+                 if q.get("box_input") is not None else None for q in chunk]
         if prefix_on and batch_size == 1:
-            prepared = engine.prepare_request(chunk[0])
+            prepared = engine.prepare_request(chunk[0], boxes[0],
+                                              coord_token_id)
         elif prefix_on:
             # host-cheap on hits; the miss (once per scene) stores the
             # prefix inside the timed section
             prepared = None
         elif batch_size == 1:
-            prepared = engine._prepare_generation(chunk[0])
+            prepared = engine._prepare_generation(chunk[0], boxes[0],
+                                                  coord_token_id)
         else:
-            prepared = engine.prepare_answers_batch(chunk)
-        return chunk, prepared
+            prepared = engine.prepare_answers_batch(chunk, boxes,
+                                                    coord_token_id)
+        return chunk, boxes, prepared
 
     times = []
     with ThreadPoolExecutor(max_workers=1) as ex:
         fut = ex.submit(prep, 0)
         for s in range(0, len(questions), batch_size):
-            chunk, prepared = fut.result()
+            chunk, boxes, prepared = fut.result()
             if s + batch_size < len(questions):
                 fut = ex.submit(prep, s + batch_size)
             t0 = time.time()
             if prefix_on and batch_size > 1:
-                texts = engine.generate_answers_batch_prefix(chunk)
+                texts = engine.generate_answers_batch_prefix(
+                    chunk, boxes, coord_token_id)
             elif prefix_on:
                 texts = [engine._answer_from_prep(prepared)]
             elif batch_size == 1:
@@ -580,12 +876,16 @@ def run_generative(engine: InferenceEngine, questions: Sequence[dict],
             dt = (time.time() - t0) / len(chunk)
             for line, text in zip(chunk, texts):
                 times.append(dt)
+                gt = (line.get("annotations",
+                               [line["conversations"][1]["value"]])
+                      if gt_from_annotations
+                      else line["conversations"][1]["value"])
                 _append_jsonl(answer_file, {
                     "dataset": line["metadata"]["dataset"],
                     "sample_id": line["id"],
                     "prompt": line["conversations"][0]["value"],
                     "pred_response": text,
-                    "gt_response": line["conversations"][1]["value"],
+                    "gt_response": gt,
                     "question_type": line["metadata"].get("question_type"),
                 })
     return times
@@ -593,3 +893,116 @@ def run_generative(engine: InferenceEngine, questions: Sequence[dict],
 
 def run_scanqa(engine, questions, answer_file):
     return run_generative(engine, questions, answer_file)
+
+
+def run_sqa3d(engine, questions, answer_file):
+    return run_generative(engine, questions, answer_file)
+
+
+def run_scan2cap(engine, questions, answer_file, coord_token_id,
+                 batch_size: int = 1):
+    return run_generative(engine, questions, answer_file,
+                          gt_from_annotations=True,
+                          coord_token_id=coord_token_id,
+                          batch_size=batch_size)
+
+
+def run_vqa(engine: InferenceEngine, questions: Sequence[dict],
+            answer_file: str) -> List[float]:
+    """Free-form prompts over scenes, no ground-truth assumptions."""
+    times = []
+    for line in questions:
+        t0 = time.time()
+        text = engine.generate_answer(line)
+        times.append(time.time() - t0)
+        _append_jsonl(answer_file, {
+            "sample_id": line.get("id"),
+            "prompt": line["conversations"][0]["value"],
+            "pred_response": text,
+            "gt_response": (line["conversations"][1].get("value")
+                            if len(line["conversations"]) > 1 else None),
+        })
+    return times
+
+
+def _run_grounding(engine: InferenceEngine, questions: Sequence[dict],
+                   batch_size: int, emit) -> List[float]:
+    """ScanRefer / Multi3DRefer loop: one worker thread prepares chunk i+1
+    while the device scores chunk i. At ``batch_size`` 1 with the prefix
+    cache on each query goes through :meth:`InferenceEngine.ground` (a
+    scene miss has its video arrays loaded on the worker); otherwise
+    through one batched forward per chunk. Returns seconds per query,
+    prep excluded."""
+    if not questions:
+        return []
+
+    def prep(s0):
+        chunk = list(questions[s0:s0 + batch_size])
+        if batch_size == 1 and engine._prefix_cache_on(chunk[0]):
+            with engine._cache_lock:
+                have = chunk[0].get("video") in engine._prefix_cache
+            return chunk, "prefix", (None if have else
+                                     engine._video_arrays_full(
+                                         chunk[0]["video"]))
+        return chunk, "batch", engine.prepare_ground_batch(chunk)
+
+    times = []
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(prep, 0)
+        for s0 in range(0, len(questions), batch_size):
+            chunk, mode, prepared = fut.result()
+            if s0 + batch_size < len(questions):
+                fut = ex.submit(prep, s0 + batch_size)
+            t0 = time.time()
+            if mode == "prefix":
+                results = [engine.ground(chunk[0], prepared_video=prepared)]
+            else:
+                results = engine.ground_from_prepared(prepared)
+            dt = (time.time() - t0) / len(chunk)
+            for line, (scores, objects) in zip(chunk, results):
+                times.append(dt)
+                emit(line, scores, objects)
+    return times
+
+
+def run_scanrefer(engine: InferenceEngine, questions: Sequence[dict],
+                  answer_file: str, batch_size: int = 1) -> List[float]:
+    """The argmax proposal's box per query; ``batch_size > 1`` scores
+    several queries per prefill."""
+    return _run_grounding(
+        engine, questions, batch_size,
+        lambda line, scores, objects:
+            _emit_scanrefer(answer_file, line, scores, objects))
+
+
+def _emit_scanrefer(answer_file, line, scores, objects):
+    if len(objects) and int(np.argmax(scores)) < len(objects):
+        pred_box = objects[int(np.argmax(scores))].tolist()
+    elif len(objects):
+        pred_box = objects[int(np.argmax(scores[:-1]))].tolist()
+    else:
+        pred_box = [0.0] * 6
+    _append_jsonl(answer_file, {
+        "dataset": line["metadata"]["dataset"],
+        "sample_id": line["id"],
+        "pred_response": pred_box,
+        "gt_response": line["metadata"]["gt_box"]
+        if "gt_box" in line["metadata"] else line.get("box"),
+        "question_type": line["metadata"].get("question_type"),
+    })
+
+
+def run_multi3drefer(engine: InferenceEngine, questions: Sequence[dict],
+                     answer_file: str, batch_size: int = 1) -> List[float]:
+    """Every proposal's score and box per query (the protocol picks)."""
+    def emit(line, scores, objects):
+        _append_jsonl(answer_file, {
+            "dataset": line["metadata"]["dataset"],
+            "sample_id": line["id"],
+            "scores": scores.tolist(),
+            "objects": objects.tolist(),
+            "gt_response": line.get("box", []),
+            "question_type": line["metadata"].get("question_type"),
+        })
+
+    return _run_grounding(engine, questions, batch_size, emit)

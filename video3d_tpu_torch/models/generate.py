@@ -2,7 +2,8 @@
 counterpart of ``video3d_tpu/models/generate.py`` (``prefill_multimodal``,
 ``DecodeState`` / ``start_decode`` / ``generate_from_state``, the greedy
 form of ``generate_greedy``, the scene-prefix entry points
-``shared_prefix_view``, ``_write_prefix`` and ``start_decode_prefix``, and
+``shared_prefix_view``, ``_write_prefix``, ``start_decode_prefix`` and
+``ground_suffix``, and
 the slot API of the continuous batcher over dense rows and page pools).
 
 The JAX ``lax.while_loop`` and ``lax.scan`` compile each loop to one device
@@ -26,6 +27,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from video3d_tpu_torch.config import ModelConfig
@@ -63,22 +65,18 @@ def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
     ``cache_dtype`` (bf16, or int8 or ``qwen2.KV_INT4`` with scales).
     Returns (next_logits (B, vocab), cache, start_pos (B,)).
     ``vision_features`` (B, T, D) skips the vision encode."""
-    B, L = batch.text_ids.shape
+    B = batch.text_ids.shape[0]
     if vision_features is None:
         vision_features = lv3d.encode_video(params, cfg, batch.images,
                                             batch.patch_coords).spliceable
     embeds = lv3d.assemble_embeds(params, cfg, vision_features,
                                   batch.text_ids, batch.kind,
-                                  batch.vision_index)
-    dev = embeds.device
-    cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len, dtype=cache_dtype,
-                                device=dev)
-    cache_positions = torch.arange(L, device=dev)[None].expand(B, L)
-    hidden = qwen2.qwen2_forward(
-        params["llm"], cfg.llm, embeds, lv3d._position_ids_3d(batch, cfg),
-        kv_cache=cache, cache_positions=cache_positions, kv_len=batch.seq_len,
-        prefill=True)
-    last = hidden[torch.arange(B, device=dev), batch.seq_len.long() - 1]
+                                  batch.vision_index, batch.coord_mask,
+                                  batch.box_input)
+    hidden, cache = lv3d.prefill_cached(params, cfg, batch, embeds,
+                                        max_cache_len, cache_dtype)
+    last = hidden[torch.arange(B, device=embeds.device),
+                  batch.seq_len.long() - 1]
     next_logits = qwen2.lm_head(params["llm"], last[:, None])[:, 0]
     return next_logits, cache, batch.seq_len
 
@@ -126,26 +124,17 @@ def _write_prefix(cache: qwen2.KVCache, prefix: qwen2.KVCache) -> None:
             dst[:, :, :P] = src
 
 
-@torch.inference_mode()
-def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
-                        prefix: qwen2.KVCache, prefix_len: int,
-                        max_cache_len: int,
-                        cache_dtype: Optional[torch.dtype] = None
-                        ) -> DecodeState:
-    """Prefill only a question SUFFIX against a cached scene-prefix KV.
-
-    ``batch`` is the suffix slice of the full splice plan
-    (``slice_suffix_plan``): (B, Ls) ids at spliced positions
-    [prefix_len, prefix_len + Ls), no vision tokens, and ``batch.seq_len``
-    the TOTAL true length. ``prefix`` is the stored (layers, 1, P, KV*hd)
-    entry (int8 or packed int4 with its scales); the new cache takes its
-    form (``cache_dtype``, when given, must be that form, as the JAX
-    function requires). The cache is seeded with the prefix (broadcast to
-    every row), the suffix K/V are written after it, and the suffix attends
-    the prefix plus itself: through the cache and the folded kernel at
-    B == 1, through the shared-prefix kernel at B > 1. Decoding then
-    proceeds unchanged.
-    """
+def _suffix_forward(params, cfg: ModelConfig, batch: lv3d.Batch,
+                    prefix: qwen2.KVCache, prefix_len: int,
+                    max_cache_len: int,
+                    cache_dtype: Optional[torch.dtype] = None):
+    """The suffix forward shared by :func:`start_decode_prefix` and
+    :func:`ground_suffix`: a fresh cache of ``max_cache_len`` slots seeded
+    with ``prefix`` (broadcast to every row), the suffix's K/V written
+    after it, and the suffix attending the prefix plus itself: through the
+    cache and the folded kernel at B == 1, through the shared-prefix
+    kernel at B > 1. ``batch.coord_mask`` / ``batch.box_input`` add the
+    ``<coord>`` box PE. Returns (hidden (B, Ls, D), cache)."""
     B, Ls = batch.text_ids.shape
     dev = batch.text_ids.device
     if prefix_len + Ls > max_cache_len:
@@ -161,7 +150,8 @@ def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
     dummy_vis = torch.zeros((B, 1, emb.shape[-1]), dtype=emb.dtype,
                             device=dev)
     embeds = lv3d.assemble_embeds(params, cfg, dummy_vis, batch.text_ids,
-                                  batch.kind, batch.vision_index)
+                                  batch.kind, batch.vision_index,
+                                  batch.coord_mask, batch.box_input)
     cache_positions = (prefix_len + torch.arange(Ls, device=dev))[None] \
         .expand(B, Ls)
     hidden = qwen2.qwen2_forward(
@@ -169,10 +159,56 @@ def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
         kv_cache=cache, cache_positions=cache_positions, kv_len=batch.seq_len,
         contiguous_update=True,
         shared_prefix=shared_prefix_view(prefix, prefix_len, B))
-    last = hidden[torch.arange(B, device=dev),
+    return hidden, cache
+
+
+@torch.inference_mode()
+def start_decode_prefix(params, cfg: ModelConfig, batch: lv3d.Batch,
+                        prefix: qwen2.KVCache, prefix_len: int,
+                        max_cache_len: int,
+                        cache_dtype: Optional[torch.dtype] = None
+                        ) -> DecodeState:
+    """Prefill only a question SUFFIX against a cached scene prefix
+    (:func:`_suffix_forward`) and return the decode state.
+
+    ``batch`` is the suffix slice of the full splice plan
+    (``slice_suffix_plan``): (B, Ls) ids at spliced positions
+    [prefix_len, prefix_len + Ls), no vision tokens, and ``batch.seq_len``
+    the TOTAL true length. ``prefix`` is the stored (layers, 1, P, KV*hd)
+    entry (int8 or packed int4 with its scales); the new cache takes its
+    form (``cache_dtype``, when given, must be that form, as the JAX
+    function requires). Decoding then proceeds unchanged.
+    """
+    hidden, cache = _suffix_forward(params, cfg, batch, prefix, prefix_len,
+                                    max_cache_len, cache_dtype)
+    B = hidden.shape[0]
+    last = hidden[torch.arange(B, device=hidden.device),
                   batch.seq_len.long() - 1 - prefix_len]
     next_logits = qwen2.lm_head(params["llm"], last[:, None])[:, 0]
     return _initial_state(next_logits, cache, batch.seq_len)
+
+
+@torch.inference_mode()
+def ground_suffix(params, cfg: ModelConfig, batch: lv3d.Batch,
+                  prefix: qwen2.KVCache, prefix_len: int, max_cache_len: int,
+                  cache_dtype, obj_feats: torch.Tensor,
+                  object_valid: torch.Tensor, ground_slot) -> torch.Tensor:
+    """Grounding scores through the scene-prefix cache: the suffix forward
+    of :func:`start_decode_prefix` (the suffix holds the ``<ground>``
+    token), each row scored at its own ABSOLUTE spliced ``ground_slot``
+    (an int, or one per row) against the cached question-independent
+    (N, D) object features. Returns (N+1,) scores at B = 1, (B, N+1)
+    otherwise (N for the MLP and SCORE heads): the full grounding forward's
+    up to the cache's precision."""
+    hidden, _ = _suffix_forward(params, cfg, batch, prefix, prefix_len,
+                                max_cache_len, cache_dtype)
+    B = hidden.shape[0]
+    slots = np.broadcast_to(np.asarray(ground_slot).reshape(-1), (B,))
+    scores = torch.stack([
+        lv3d.ground_scores(params, hidden[b, int(slot) - prefix_len],
+                           obj_feats, object_valid, cfg)
+        for b, slot in enumerate(slots)])
+    return scores[0] if B == 1 else scores
 
 
 def _greedy(next_logits: torch.Tensor, done: torch.Tensor,

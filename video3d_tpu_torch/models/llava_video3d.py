@@ -1,24 +1,29 @@
 """Video-3D-LLM assembly in PyTorch: vision tower -> projector -> bilinear
 2D pool -> sin3d world position embedding -> grid-newline layout -> splice
 -> Qwen2. Counterpart of ``video3d_tpu/models/llava_video3d.py`` (the parts
-the ScanQA answer path and the LM training path run: mlpNx_gelu projector,
+the answer, grounding and LM training paths run: mlpNx_gelu projector,
 bilinear pool, sin3d PE, GRID newlines, the ``<coord>`` box-input PE, the
-video branch of ``forward_hidden``, ``forward``, and the LM losses, plain
-and chunked).
+video branch of ``forward_hidden``, ``forward``, the LM losses, plain and
+chunked, and the grounding forwards: object patch masks, masked-mean
+object features with their box-center PE, and the three ground heads).
 
 Parameter dict: ``vision`` (siglip), ``projector {w1, b1, ..., wN, bN}``,
-``image_newline (D,)``, ``llm`` (qwen2).
+``image_newline (D,)``, ``llm`` (qwen2), and where the configuration has
+one, ``ground_head`` (``{obj, query, zero_target}`` for INFONCE,
+``{query}`` for MLP, ``{obj, query, score}`` for SCORE; each MLP
+``{w1, b1, ln_scale, ln_bias, w2, b2}``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from video3d_tpu_torch.config import (ModelConfig, NewlinePosition,
+from video3d_tpu_torch.config import (GroundHeadType, ModelConfig,
+                                      NewlinePosition, ObjectFeatureType,
                                       PosEmbedType)
 from video3d_tpu_torch.constants import IGNORE_INDEX
 from video3d_tpu_torch.models import qwen2, siglip
@@ -196,6 +201,25 @@ def forward_hidden(params: Params, cfg: ModelConfig, batch: Batch,
     return hidden, vt
 
 
+def prefill_cached(params: Params, cfg: ModelConfig, batch: Batch,
+                   embeds: torch.Tensor, max_cache_len: int,
+                   cache_dtype=torch.bfloat16
+                   ) -> Tuple[torch.Tensor, qwen2.KVCache]:
+    """Prefill ``embeds`` (B, L, D) from position 0 into a fresh cache of
+    ``max_cache_len`` slots and ``cache_dtype`` (bf16, int8 or
+    ``qwen2.KV_INT4``); returns (final hidden states, cache)."""
+    B, L = batch.text_ids.shape
+    dev = embeds.device
+    cache = qwen2.KVCache.zeros(cfg.llm, B, max_cache_len, dtype=cache_dtype,
+                                device=dev)
+    hidden = qwen2.qwen2_forward(
+        params["llm"], cfg.llm, embeds, _position_ids_3d(batch, cfg),
+        kv_cache=cache,
+        cache_positions=torch.arange(L, device=dev)[None].expand(B, L),
+        kv_len=batch.seq_len, prefill=True)
+    return hidden, cache
+
+
 def forward(params: Params, cfg: ModelConfig, batch: Batch,
             remat: bool = False) -> torch.Tensor:
     """Training / eval forward -> (B, L, vocab) logits."""
@@ -246,3 +270,237 @@ def chunked_language_model_loss(params: Params, hidden: torch.Tensor,
         total = total + ds
         count = count + dc
     return total / torch.clamp(count, min=1)
+
+
+# ---------------------------------------------------------------------------
+# Grounding (object proposals)
+# ---------------------------------------------------------------------------
+
+#: elements of one chunk's (objects, V, P, px, 3) box comparison in
+#: :func:`object_patch_masks`. Each of the chunk's three bool temporaries
+#: then holds 256 MB; at 150 objects, V=32 and PATCH14 the unchunked
+#: comparison would hold ~2 GB in each.
+MASK_CHUNK_ELEMENTS = 1 << 28
+
+
+def object_patch_masks(world_coords: torch.Tensor, boxes: torch.Tensor,
+                       feature_type: ObjectFeatureType, side: int = 27,
+                       patch_px: int = 14, grid: int = 14, pool_px: int = 27
+                       ) -> torch.Tensor:
+    """(N, V, P) bool per-object patch membership from (V, H, W, 3) pixel
+    world coordinates and (N, 6) center+size boxes (JAX
+    ``object_patch_masks``): PATCH14, the side^2 tower patches of
+    patch_px^2 pixels each, a patch belonging to an object when >= 50% of
+    its pixels fall inside the box; PATCH27, the grid^2 pooled tokens of
+    pool_px^2 pixels each, at >= 25%. The comparison runs over chunks of
+    objects of at most MASK_CHUNK_ELEMENTS elements (at least one object);
+    the counts are integers, so the result is the unchunked one's bit for
+    bit."""
+    V = world_coords.shape[0]
+    if feature_type == ObjectFeatureType.PATCH14:
+        n, px, thresh = side, patch_px, int(patch_px * patch_px * 0.5)
+    else:
+        n, px, thresh = grid, pool_px, int(pool_px * pool_px * 0.25)
+    crop = n * px
+    wcp = world_coords[:, :crop, :crop, :].reshape(V, n, px, n, px, 3) \
+        .permute(0, 1, 3, 2, 4, 5).reshape(V, n * n, px * px, 3)
+    lo = (boxes[:, :3] - boxes[:, 3:] / 2)[:, None, None, None, :]
+    hi = (boxes[:, :3] + boxes[:, 3:] / 2)[:, None, None, None, :]
+    step = max(1, MASK_CHUNK_ELEMENTS // wcp.numel())
+    masks = torch.empty((boxes.shape[0], V, n * n), dtype=torch.bool,
+                        device=world_coords.device)
+    for s in range(0, boxes.shape[0], step):
+        inside = ((wcp >= lo[s:s + step]) & (wcp <= hi[s:s + step])).all(-1)
+        masks[s:s + step] = inside.sum(-1) >= thresh
+    return masks
+
+
+def object_features_from_masks(feats: torch.Tensor, masks: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean of (V, P, D) patch features per object: ((N, D)
+    features, (N,) valid), valid False where no patch matched (the feature
+    is then zeros). The mask and the counts are in the features' dtype,
+    as in JAX."""
+    m = masks.to(feats.dtype)
+    counts = m.sum(dim=(1, 2))
+    sums = torch.einsum("nvp,vpd->nd", m, feats)
+    return sums / torch.clamp(counts, min=1.0)[:, None], counts > 0
+
+
+def _layernorm(h: torch.Tensor, scale: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    h32 = h.float()
+    mean = h32.mean(-1, keepdim=True)
+    var = ((h32 - mean) ** 2).mean(-1, keepdim=True)
+    return ((h32 - mean) * torch.rsqrt(var + 1e-5) * scale
+            + bias).to(h.dtype)
+
+
+def _ground_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Linear -> ReLU -> LayerNorm -> Linear (INFONCE / MLP heads)."""
+    h = torch.relu(x @ p["w1"] + p["b1"])
+    return _layernorm(h, p["ln_scale"], p["ln_bias"]) @ p["w2"] + p["b2"]
+
+
+def _ground_mlp_ln_first(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Linear -> LayerNorm -> ReLU -> Linear (SCORE head)."""
+    h = torch.relu(_layernorm(x @ p["w1"] + p["b1"], p["ln_scale"],
+                              p["ln_bias"]))
+    return h @ p["w2"] + p["b2"]
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.linalg.vector_norm(x.float(), dim=-1,
+                                        keepdim=True).to(x.dtype)
+
+
+def ground_scores(params: Params, query_hidden: torch.Tensor,
+                  object_feats: torch.Tensor, object_valid: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """Scores of (N, D) object features against the (D,) hidden state at
+    the ``<ground>`` token: INFONCE (N+1,) cosines, slot N the learned
+    zero target; MLP and SCORE (N,) raw scores. Objects not
+    ``object_valid`` (padding) score -inf."""
+    gh = params["ground_head"]
+    if cfg.ground_head == GroundHeadType.INFONCE:
+        feats = torch.cat([object_feats,
+                           gh["zero_target"][None].to(object_feats.dtype)])
+        obj = _unit(_ground_mlp(gh["obj"], feats))
+        qry = _unit(_ground_mlp(gh["query"], query_hidden[None]))
+        scores = (obj * qry).sum(-1)
+        valid = torch.cat([object_valid, object_valid.new_ones(1)])
+    elif cfg.ground_head == GroundHeadType.MLP:
+        q = _ground_mlp(gh["query"], query_hidden[None])[0]
+        scores, valid = (object_feats * q).sum(-1), object_valid
+    elif cfg.ground_head == GroundHeadType.SCORE:
+        obj = _ground_mlp_ln_first(gh["obj"], object_feats)
+        qry = _ground_mlp_ln_first(gh["query"], query_hidden[None])
+        scores = _ground_mlp_ln_first(gh["score"], obj * qry)[:, 0]
+        valid = object_valid
+    else:
+        raise ValueError(cfg.ground_head)
+    return scores.masked_fill(~valid, float("-inf"))
+
+
+def init_ground_head(hidden: int, device, generator: torch.Generator,
+                     dtype=torch.float32,
+                     head_type: GroundHeadType = GroundHeadType.INFONCE
+                     ) -> Params:
+    """JAX ``init_ground_head``'s shapes and distributions: N(0, 0.02)
+    linears, zero biases, unit LayerNorm scales, an N(0, 1) zero target."""
+
+    def normal(*shape, std=0.02):
+        return torch.empty(shape, device=device, dtype=dtype).normal_(
+            0.0, std, generator=generator)
+
+    def mlp(din, dout, out2=None):
+        out2 = out2 or dout
+        return {"w1": normal(din, dout),
+                "b1": torch.zeros(dout, device=device, dtype=dtype),
+                "ln_scale": torch.ones(dout, device=device, dtype=dtype),
+                "ln_bias": torch.zeros(dout, device=device, dtype=dtype),
+                "w2": normal(dout, out2),
+                "b2": torch.zeros(out2, device=device, dtype=dtype)}
+
+    if head_type == GroundHeadType.INFONCE:
+        return {"obj": mlp(hidden, hidden), "query": mlp(hidden, hidden),
+                "zero_target": normal(hidden, std=1.0)}
+    if head_type == GroundHeadType.MLP:
+        return {"query": mlp(hidden, hidden)}
+    if head_type == GroundHeadType.SCORE:
+        # the scoring MLP projects to a single logit
+        return {"obj": mlp(hidden, 1024), "query": mlp(hidden, 1024),
+                "score": mlp(1024, 1024, out2=1)}
+    raise ValueError(head_type)
+
+
+def _grounding_object_features(params: Params, cfg: ModelConfig,
+                               vt: VisionTokens, world_coords: torch.Tensor,
+                               object_boxes: torch.Tensor,
+                               row: int = 0) -> torch.Tensor:
+    """(N, D) masked-mean object features of batch row ``row`` (+ the sin3d
+    PE of the box centers): question-independent, a function of the
+    scene's coordinates, features and proposals only. Objects covering no
+    patch keep a zero feature (and its PE) and are still scored. The
+    patch and pool pixel sizes derive from the coordinate image's
+    height, as in JAX."""
+    w3d = cfg.world_3d
+    side = cfg.vision.num_patches_per_side
+    g = _pooled_side(cfg)
+    H = world_coords.shape[-3]
+    masks = object_patch_masks(world_coords, object_boxes,
+                               w3d.object_feature_type, side=side,
+                               patch_px=H // side, grid=g, pool_px=H // g)
+    feats = vt.raw[row] if w3d.object_feature_type == \
+        ObjectFeatureType.PATCH14 else vt.pooled[row]
+    obj_feats, _ = object_features_from_masks(feats, masks)
+    if w3d.object_feature_use_pe and w3d.pos_embed == PosEmbedType.SIN3D:
+        centers = object_boxes[:, :3]
+        if w3d.discrete:
+            vox = w3d.voxel
+            centers = geometry.discrete_coords(
+                centers, vox.min_xyz_range, vox.max_xyz_range,
+                vox.voxel_size)
+        pe = sin3d_position_embedding(centers[None], cfg.llm.hidden_size,
+                                      w3d.pe_temperature)[0]
+        obj_feats = obj_feats + pe.to(obj_feats.dtype)
+    return obj_feats
+
+
+def grounding_forward(params: Params, cfg: ModelConfig, batch: Batch,
+                      world_coords: torch.Tensor, object_boxes: torch.Tensor,
+                      object_valid: torch.Tensor, ground_slot: int,
+                      remat: bool = False) -> torch.Tensor:
+    """Grounding scores of one sample (B = 1): the full forward without a
+    cache, then :func:`ground_scores` of the hidden state at spliced index
+    ``ground_slot`` against the (N, 6) padded proposals' features.
+    ``world_coords``: (V, H, W, 3) over the batch's V frames."""
+    hidden, vt = forward_hidden(params, cfg, batch, remat=remat)
+    obj_feats = _grounding_object_features(params, cfg, vt, world_coords,
+                                           object_boxes)
+    return ground_scores(params, hidden[0, ground_slot], obj_feats,
+                         object_valid, cfg)
+
+
+@torch.inference_mode()
+def grounding_forward_cached(params: Params, cfg: ModelConfig, batch: Batch,
+                             world_coords: torch.Tensor,
+                             object_boxes: torch.Tensor,
+                             object_valid: torch.Tensor, ground_slot: int,
+                             max_cache_len: int, cache_dtype=torch.bfloat16):
+    """:func:`grounding_forward` through a prefill into a fresh KV cache,
+    which it returns with the question-independent object features: the
+    scene-prefix harvest of the engine's grounding prefix cache. Returns
+    (scores, cache, obj_feats (N, D))."""
+    vt = encode_video(params, cfg, batch.images, batch.patch_coords)
+    embeds = assemble_embeds(params, cfg, vt.spliceable, batch.text_ids,
+                             batch.kind, batch.vision_index,
+                             batch.coord_mask, batch.box_input)
+    hidden, cache = prefill_cached(params, cfg, batch, embeds, max_cache_len,
+                                   cache_dtype)
+    obj_feats = _grounding_object_features(params, cfg, vt, world_coords,
+                                           object_boxes)
+    scores = ground_scores(params, hidden[0, ground_slot], obj_feats,
+                           object_valid, cfg)
+    return scores, cache, obj_feats
+
+
+def grounding_forward_batch(params: Params, cfg: ModelConfig, batch: Batch,
+                            world_coords: torch.Tensor,
+                            object_boxes: torch.Tensor,
+                            object_valid: torch.Tensor,
+                            ground_slot: Sequence[int],
+                            remat: bool = False) -> torch.Tensor:
+    """Batched :func:`grounding_forward`: B questions in one prefill, each
+    scored at its own ``ground_slot`` against its own proposals.
+    ``world_coords`` (B, V, H, W, 3), ``object_boxes`` (B, N, 6),
+    ``object_valid`` (B, N); returns (B, N+1) scores ((B, N) for the MLP
+    and SCORE heads)."""
+    hidden, vt = forward_hidden(params, cfg, batch, remat=remat)
+    return torch.stack([
+        ground_scores(params, hidden[b, int(slot)],
+                      _grounding_object_features(
+                          params, cfg, vt, world_coords[b], object_boxes[b],
+                          row=b),
+                      object_valid[b], cfg)
+        for b, slot in enumerate(ground_slot)])

@@ -14,15 +14,17 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from video3d_tpu_torch.config import ModelConfig, PosEmbedType
+from video3d_tpu_torch.config import GroundHeadType, ModelConfig, PosEmbedType
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import quant, qwen2, siglip
 
 Params = Dict[str, Any]
 
-#: the subtrees of the JAX tree the answer path reads (the grounding head
-#: and other optional heads are left out)
+#: the subtrees of the JAX tree the answer path reads, and the grounding
+#: head, which a tree has when its configuration has one (other optional
+#: heads are left out)
 _USED = ("vision", "projector", "image_newline", "llm")
+_OPTIONAL = ("ground_head",)
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -87,7 +89,8 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
     (None keeps theirs) except the int4 scales."""
     check_config(cfg)
     device = resolve_device(device)
-    out = {k: _convert(tree[k], device, dtype) for k in _USED}
+    out = {k: _convert(tree[k], device, dtype) for k in _USED
+           + tuple(k for k in _OPTIONAL if k in tree)}
     if len(out["vision"]["layers"]) != cfg.vision.num_hidden_layers \
             or len(out["llm"]["layers"]) != cfg.llm.num_hidden_layers:
         raise ValueError("layer counts of the tree and the config differ")
@@ -106,9 +109,12 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
     lm_head), quantizing each decoder layer right after its init, as the
     JAX ``builder.init_dummy_params`` does, so the full bf16 LLM never
     exists next to the quantized one. ``dtype=torch.float32``
-    gives the f32 master tree that training updates."""
+    gives the f32 master tree that training updates. The grounding head
+    (``cfg.ground_head`` other than NONE) is drawn last, from the same
+    generator, and stays in ``dtype`` whatever ``bits`` (JAX's
+    ``quantize_tree`` patterns touch only the LLM)."""
     check_config(cfg)
-    return {
+    params = {
         "vision": siglip.init_vision_tower(cfg.vision, device, generator,
                                            dtype),
         "projector": lv3d.init_projector(cfg.vision.hidden_size,
@@ -120,3 +126,7 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
                                          0.0, 0.02, generator=generator),
         "llm": qwen2.init_qwen2(cfg.llm, device, generator, dtype, bits),
     }
+    if cfg.ground_head != GroundHeadType.NONE:
+        params["ground_head"] = lv3d.init_ground_head(
+            cfg.llm.hidden_size, device, generator, dtype, cfg.ground_head)
+    return params
