@@ -89,7 +89,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    12's ScanRefer prefix run (1 miss, 3 hits, B2 folded int8), with exact
    launch counts of B4 (its B>1 form on every decode projection and on
    heads of 2-32 rows, its matvec on one-row heads) and the int8 kernels
-   and the first-step logit check at its own bound.
+   and the first-step logit check at its own bound; and one beam answer
+   (phase 13's K) over the int8 cache, launch counts exact, its score's
+   distance to a teacher-forced recompute printed.
 9. The int4 configuration: the int8 model is freed and the same model is
    built with int4 LLM projections and lm_head (``init_model(bits=4)``,
    groups of 512 input rows); phases 4, 5 and 8 run again with the bf16
@@ -134,15 +136,32 @@ Phases, each of which raises on failure (the process then exits non-zero):
    first-step logits within LOGIT_ATOL of a full prefill with the box, and
    the box PE at its slot; the protocols' metrics, the seconds per query
    and the peak memory (a full grounding call, the chunked masks) printed.
+13. Sampling, beam search and box inputs (after phase 12, on phase 4's bf16
+   model): the engine at temperature 0 with top-p / top-k set gives phase
+   4's greedy ids; sampled answers (temperature 0.7, top-p 0.9, top-k 50)
+   at B=1 and in a B=8 scene-prefix batch, captured, equal an uncaptured
+   per-step loop token for token with every draw inside its step's warped
+   support; beam search (K=BEAMS) at B=1 and B=2 on full prefills (the
+   prefix cache bypassed), each best score within BEAM_SCORE_ATOL of a
+   teacher-forced recompute (control: each id scored one position late);
+   8 Scan2Cap captions with their boxes through the paged batcher, each
+   admission's first-step logits within LOGIT_ATOL of the full prefill
+   with the box and bit for bit the same path's outside the batcher
+   (control: without the box, which must differ); launch counts exact for
+   the engine's runs; greedy against sampled ms per step, the token pick
+   alone, beam ms per step, the reorder's bytes and the peak memory
+   printed.
 7. Training: the int4 model is freed; ``ModelConfig()`` cut to
-   ``TRAIN_LAYERS`` decoder layers and no ground head, f32 master weights
-   from a seeded generator, ``Trainer.train()`` with bf16 compute, remat
-   and two mini-steps per update for four mini-steps on ScanQA-style
-   records of the scene (~6.8k tokens each): finite losses and gradient
-   norms, the master tree bit for bit after the first update (learning
-   rate 0), every leaf moved after the second, exact launch counts; before
-   it, one V=8 mini-step through the kernels against the same mini-step
-   with the plain attention swapped in.
+   ``TRAIN_LAYERS`` decoder layers with its INFONCE ground head, f32
+   master weights from a seeded generator, ``Trainer.train()`` with bf16
+   compute, remat and two mini-steps per update for four mini-steps on
+   phase 12's scene: two ScanQA-style records (LM mini-steps) and two
+   ScanRefer records (ground mini-steps), ~6.8k tokens each: finite
+   losses and gradient norms, the master tree bit for bit after the first
+   update (learning rate 0), every leaf moved after the second (the ground
+   head's too), exact launch counts; before it, one V=8 LM and one V=8
+   ground mini-step through the kernels against the same mini-steps with
+   the plain attention swapped in.
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -2186,9 +2205,11 @@ def _read_jsonl(path: str):
 
 
 def run_main_path(params, cfg, root: str, info,
-                  kv_cache_dtype: str = "bfloat16") -> dict:
+                  kv_cache_dtype: str = "bfloat16",
+                  results: Optional[list] = None) -> dict:
     """Answer two questions at full width through ``run_scanqa``; returns the
-    kernel launch counts of that run."""
+    kernel launch counts of that run (``results``, if given, receives the
+    two answers' GenerateResults)."""
     import torch
 
     from video3d_tpu_torch.eval.drivers import run_scanqa
@@ -2210,6 +2231,8 @@ def run_main_path(params, cfg, root: str, info,
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     records = _read_jsonl(answer_file)
+    if results is not None:
+        results.extend(engine.results)
 
     # checks of what came out
     _check("answer records", len(records) == 2 and all(
@@ -2613,7 +2636,7 @@ def _check_paged_vs_dense(params, cfg, engine, questions, other):
             paged.cache._replace(**{f: t.clone() for f, t in
                                     paged.cache._asdict().items()
                                     if t is not None}),
-            paged.done.clone())
+            paged.done.clone(), paged.step.clone())
         table = control.cache.page_table
         table[[0, S - 1], n_full] = table[[S - 1, 0], n_full]
     _capture_vs_eager(f"paged chunk ({S} admitted slots)",
@@ -3111,6 +3134,411 @@ def run_grounding(params, cfg, root: str, info,
     return launches
 
 
+# phase 13: sampling, beam search and the batcher's box inputs, on phase
+# 4's bf16 model (the reference's eval kwargs: temperature, top_p, top_k,
+# num_beams)
+SAMPLING = {"temperature": 0.7, "top_p": 0.9, "top_k": 50}
+BEAMS = 4
+# a beam's best hypothesis's score (its summed log-probabilities over its
+# generated length) against a teacher-forced recompute of the same tokens:
+# the prompt's full prefill and one cached forward of the hypothesis (B2
+# and B2 folded), where the beam scored them one step at a time at B*K
+# rows (B3). The control scores each token one position late and must read
+# at least 4x the bound. On an H100 80GB HBM3 (700 W) the B=1 answer read
+# 0.0000, the B=2 batch 0.0088, phase 6's over the int8 cache 0.0058, the
+# controls at least 0.97.
+BEAM_SCORE_ATOL = 0.05
+
+
+def _launch_delta(before: dict) -> dict:
+    from video3d_tpu_torch.kernels import _build
+
+    return {k: v - before.get(k, 0) for k, v in _build.LAUNCHES.items()}
+
+
+def _add_launches(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _sampled_steps(params, cfg, state, eos: int, steps: int):
+    """``steps`` sampled steps of ``state`` one uncaptured decode chunk at a
+    time: (tokens (B, steps), draws outside their step's warped support
+    among the live rows)."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    toks, outside = [], 0
+    with torch.inference_mode():
+        for _ in range(steps):
+            warped = gen.warp_logits(state.next_logits, **SAMPLING)
+            live = ~state.done
+            _, tok = gen.decode_chunk(params, cfg, state, 1, eos,
+                                      capture=False, **SAMPLING)
+            picked = warped[torch.arange(tok.shape[0], device=tok.device),
+                            tok[:, 0]]
+            outside += int((~torch.isfinite(picked) & live).sum())
+            toks.append(tok)
+    return torch.cat(toks, 1), outside
+
+
+def _teacher_forced(params, cfg, batch, vf, cache_dtype, seq):
+    """Log-probabilities of the ids ``seq`` after a B=1 prompt, by its full
+    prefill and one cached forward of ``seq``: (each id at its position,
+    each id one position late), both (len(seq),) float32."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+
+    n = len(seq)
+    chunk = -(-n // 64) * 64          # a suffix bucket's multiple
+    dev = batch.text_ids.device
+    with torch.inference_mode():
+        first, cache, pos = gen.prefill_multimodal(
+            params, cfg, batch, batch.text_ids.shape[1] + chunk, vf,
+            cache_dtype)
+        ids = torch.tensor([seq + seq[-1:] * (chunk - n)], device=dev)
+        at = (pos.long() + torch.arange(chunk, device=dev))[None]
+        hidden = qwen2.qwen2_forward(
+            params["llm"], cfg.llm, qwen2.embed_tokens(params["llm"], ids),
+            at[..., None].expand(1, chunk, 3), kv_cache=cache,
+            cache_positions=at, kv_len=pos + n, contiguous_update=True)
+        logits = torch.cat([first[:, None],
+                            qwen2.lm_head(params["llm"], hidden[:, :n])],
+                           1)[0]
+        logp = torch.log_softmax(logits.float(), -1)
+        rows = torch.arange(n, device=dev)
+        return logp[rows, ids[0, :n]], logp[rows + 1, ids[0, :n]]
+
+
+def _check_beam_scores(name, params, cfg, engine, questions, res,
+                       bound: Optional[float] = BEAM_SCORE_ATOL) -> None:
+    """Each row's best hypothesis against :func:`_teacher_forced`, held to
+    ``bound`` with its control at 4x (None: printed, not held)."""
+    import torch
+
+    eos = engine.ecfg.eos_token_id
+    lp = engine.ecfg.length_penalty
+    diffs, controls = [], []
+    for b, q in enumerate(questions):
+        n = int(res.lengths[b])
+        seq = res.tokens[b, :n].tolist()
+        if n < res.steps:
+            seq.append(eos)   # ended by EOS (finalized beams have `steps`)
+        batch, vf = engine._prepare_generation(q)
+        at, late = _teacher_forced(params, cfg, batch, vf,
+                                   engine.cache_dtype, seq)
+        norm = float(len(seq)) ** lp
+        want = float(at.sum()) / norm
+        diffs.append(abs(float(res.scores[b]) - want))
+        controls.append(abs(float(res.scores[b]) - float(late.sum()) / norm))
+        _check(f"{name} row {b}: score finite", bool(torch.isfinite(
+            res.scores[b])), f"{float(res.scores[b]):.4f} over {len(seq)} "
+            f"generated ids")
+    scores = [round(float(s), 4) for s in res.scores]
+    if bound is None:
+        print(f"  {name}: best hypotheses' scores {scores} vs a "
+              f"teacher-forced recompute, max |d| {max(diffs):.4f}; each id "
+              f"scored one position late, min |d| {min(controls):.4f}",
+              flush=True)
+        return
+    _check(f"{name}: best hypotheses' scores vs a teacher-forced recompute",
+           max(diffs) <= bound,
+           f"max |d| {max(diffs):.4f} (bound {bound}); scores {scores}")
+    _check(f"{name}: control, each id scored one position late",
+           min(controls) >= 4 * bound,
+           f"min |d| {min(controls):.4f} (must be >= {4 * bound})")
+
+
+def run_decode_modes(params, cfg, root: str, info, ground_info,
+                     greedy_results) -> dict:
+    """Phase 13 on phase 4's model: the engine's answers at temperature 0
+    with top-p / top-k set (phase 4's greedy ids), sampled answers at B=1
+    and in a B=8 scene-prefix batch (captured against an uncaptured
+    per-step loop, token for token, every draw inside its step's warped
+    support), beam search at K=BEAMS over B=1 and B=2 (scores against a
+    teacher-forced recompute), and 8 Scan2Cap captions with their boxes
+    through the paged batcher (first-step logits against the engine's full
+    prefill with the box). Returns the launch counts of those runs."""
+    import numpy as np
+    import torch
+
+    from fixtures import FakeTokenizer
+
+    from video3d_tpu_torch.eval.drivers import run_generative
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import beam_search as bs
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+    from video3d_tpu_torch.serve.batcher import ContinuousBatcher
+
+    L = cfg.llm.num_hidden_layers
+    vocab = cfg.llm.vocab_size
+    launches: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qs = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")
+
+    # temperature 0 with top-p / top-k set: phase 4's greedy ids
+    eng0 = _make_engine(params, cfg, root, temperature=0.0, top_p=0.9,
+                        top_k=50)
+    before = dict(_build.LAUNCHES)
+    for q in qs:
+        eng0.generate_answer(q)
+    _add_launches(launches, _launch_delta(before))
+    same = all(torch.equal(a.tokens, b.tokens)
+               and torch.equal(a.lengths, b.lengths)
+               for a, b in zip(eng0.results, greedy_results))
+    _check("temperature 0 (top_p 0.9, top_k 50): phase 4's greedy ids",
+           same and len(eng0.results) == len(greedy_results) == 2,
+           f"ids bit for bit: {same}")
+
+    # sampled answers at B=1 (no caches), captured
+    eng = _make_engine(params, cfg, root, **SAMPLING)
+    eos = eng.ecfg.eos_token_id
+    eng.generate_answer(qs[0])               # warm-up and capture
+    eng.results.clear()
+    before = dict(_build.LAUNCHES)
+    for q in qs:
+        eng.generate_answer(q)
+    part = _launch_delta(before)
+    _add_launches(launches, part)
+    forwards = _decode_forwards(eng.results, vocab)
+    expected = _expected_launches(params, "bfloat16", L, forwards,
+                                  eng.results, fused_geometry=2,
+                                  flash_attention=2 * L)
+    _check("sampled B=1 answers: launch counts", part == expected,
+           f"{part}, expected {expected} ({forwards} decode forwards)")
+    for i, q in enumerate(qs):
+        b, vf = eng._prepare_generation(q)
+        state = gen.start_decode(params, cfg, b, b.text_ids.shape[1]
+                                 + MAX_NEW, vf, eng.cache_dtype)
+        toks, outside = _sampled_steps(params, cfg, state, eos, MAX_NEW)
+        got = eng.results[i]
+        _check(f"sampled answer {i} (B=1): captured vs an uncaptured "
+               f"per-step loop", torch.equal(got.tokens, toks)
+               and outside == 0,
+               f"ids token for token: {torch.equal(got.tokens, toks)} "
+               f"(length {got.lengths.tolist()}); draws outside the warped "
+               f"support: {outside}")
+    differs = any(not torch.equal(a.tokens, b.tokens)
+                  for a, b in zip(eng.results, greedy_results))
+    print(f"  sampled B=1 answers differ from the greedy ones: {differs}",
+          flush=True)
+
+    # sampled in a B=8 scene-prefix batch: a miss stores the prefix, then 8
+    # questions as one B=8 suffix batch
+    peng = _make_engine(params, cfg, root, prefix_cache_scenes=1,
+                        scene_cache_scenes=1, **SAMPLING)
+    pq = _questions(info["sample_idx"], PREFIX_TEXTS, "sampled")
+    before = dict(_build.LAUNCHES)
+    peng.generate_answer(pq[0])
+    run_generative(peng, pq[1:9], os.path.join(root, "sampled_b8.jsonl"),
+                   batch_size=8)
+    part = _launch_delta(before)
+    _add_launches(launches, part)
+    rows = [int(r.tokens.shape[0]) for r in peng.results]
+    _check("sampled prefix run: generate calls", rows == [1, 8]
+           and peng.prefix_cache_stats == [8, 1],
+           f"batch rows {rows}, [hits, misses] {peng.prefix_cache_stats}")
+    forwards = _decode_forwards(peng.results, vocab)
+    expected = _expected_launches(params, "bfloat16", L, forwards,
+                                  peng.results, fused_geometry=1,
+                                  flash_attention=L,
+                                  shared_prefix_attention=L)
+    _check("sampled prefix run: launch counts", part == expected,
+           f"{part}, expected {expected} ({forwards} decode forwards)")
+    prep = peng.prepare_answers_batch_prefix(pq[1:9])
+    entry = prep["entry"]
+    state = gen.start_decode_prefix(
+        params, cfg, prep["batch"], entry.cache, entry.prefix_len,
+        prep["bucket"] + MAX_NEW, peng.cache_dtype)
+    with torch.inference_mode():
+        timing_state = _clone_state(state)
+        greedy_state = _clone_state(state)
+    toks, outside = _sampled_steps(params, cfg, state, eos, MAX_NEW)
+    got = peng.results[1]
+    _check("sampled B=8 suffix batch: captured vs an uncaptured per-step "
+           "loop", torch.equal(got.tokens, toks) and outside == 0,
+           f"ids token for token: {torch.equal(got.tokens, toks)} (lengths "
+           f"{got.lengths.tolist()}); draws outside the warped support: "
+           f"{outside}")
+    del state
+
+    # sampled against greedy decode, per step, captured, from one B=8 state;
+    # and the warpers and the draw alone against the greedy argmax
+    walls = {}
+    for tag, st, kw in (("greedy", greedy_state, {}),
+                        ("sampled", timing_state, SAMPLING)):
+        # the first call binds the state's cache as its entry's own (and
+        # captures a new key); the timed second call reads it in place
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = gen.generate_from_state(params, cfg, st, MAX_NEW, eos,
+                                          graphs=peng._graphs, **kw)
+            torch.cuda.synchronize()
+        walls[tag] = (time.perf_counter() - t0) / _forwards(res) * 1e3
+    pick_ms = {}
+    g = torch.Generator(device="cuda").manual_seed(13)
+    for rows_ in (1, 8):
+        logits = torch.randn(rows_, vocab, device="cuda", generator=g)
+        step = torch.zeros((), dtype=torch.long, device="cuda")
+        sampled = gen.Sampling(**SAMPLING)
+        pick_ms[rows_] = (
+            _median_ms(lambda: gen.sample_token(logits, gen.GREEDY, step),
+                       30),
+            _median_ms(lambda: gen.sample_token(logits, sampled, step), 30))
+    print(f"  B=8 decode, captured: greedy {walls['greedy']:.2f} ms/step, "
+          f"sampled {walls['sampled']:.2f} ms/step (temperature "
+          f"{SAMPLING['temperature']}, top_p {SAMPLING['top_p']}, top_k "
+          f"{SAMPLING['top_k']}); the token pick alone over ({{1, 8}}, "
+          f"{vocab}) f32 logits (median device ms): greedy argmax "
+          f"{pick_ms[1][0]:.4f} / {pick_ms[8][0]:.4f}, warpers + sort + "
+          f"draw {pick_ms[1][1]:.4f} / {pick_ms[8][1]:.4f}", flush=True)
+    del timing_state, greedy_state
+
+    # beam search at K=BEAMS: B=1 and a ragged B=2 batch, full prefills
+    beng = _make_engine(params, cfg, root, num_beams=BEAMS,
+                        prefix_cache_scenes=1)
+    before = dict(_build.LAUNCHES)
+    beng.generate_answer(qs[0])
+    beng.generate_answers_batch(qs)
+    part = _launch_delta(before)
+    _add_launches(launches, part)
+    r1, r2 = beng.results
+    expected = dict.fromkeys(part, 0)
+    expected.update(fused_geometry=3, flash_attention=2 * L,
+                    decode_attention=L * (r1.steps + r2.steps))
+    _check("beam answers: launch counts", part == expected
+           and beng.prefix_cache_stats == [0, 0],
+           f"{part}, expected {expected} ({r1.steps} + {r2.steps} beam "
+           f"steps at {BEAMS} and {2 * BEAMS} rows); the prefix cache "
+           f"bypassed: [hits, misses] {beng.prefix_cache_stats}")
+    _decode_forwards([r1, r2], vocab)
+    _check_beam_scores(f"beam K={BEAMS} B=1", params, cfg, beng, qs[:1], r1)
+    _check_beam_scores(f"beam K={BEAMS} B=2", params, cfg, beng, qs, r2)
+    # timed: the B=1 beam answer's prefill and its whole generate_beam
+    # (expansion, steps, finalize) on a prepared batch; the reorder alone
+    b1, vf1 = beng._prepare_generation(qs[0])
+    ecfg = beng.ecfg
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.prefill_multimodal(params, cfg, b1, b1.text_ids.shape[1]
+                               + MAX_NEW, vf1, beng.cache_dtype)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = bs.generate_beam(
+            params, cfg, b1, num_beams=BEAMS, max_new_tokens=MAX_NEW,
+            eos_token_id=eos, cache_dtype=beng.cache_dtype,
+            length_penalty=ecfg.length_penalty,
+            early_stopping=ecfg.early_stopping, vision_features=vf1)
+        torch.cuda.synchronize()
+        t_beam = time.perf_counter() - t0
+        cache = qwen2.KVCache.zeros(cfg.llm, BEAMS, b1.text_ids.shape[1]
+                                    + MAX_NEW, dtype=beng.cache_dtype,
+                                    device=b1.text_ids.device)
+        spare = qwen2.KVCache(*(None if t is None else torch.empty_like(t)
+                                for t in cache))
+        order = torch.tensor([0, 0, 1, 2], device=b1.text_ids.device)
+        reorder_ms = _median_ms(
+            lambda: bs._reorder_cache(cache, order, spare), 10)
+        nbytes = bs.reorder_nbytes(cache)
+        del cache, spare
+    _check(f"beam K={BEAMS} B=1 again on a prepared batch",
+           torch.equal(again.tokens, r1.tokens) and again.steps == r1.steps,
+           f"ids bit for bit: {torch.equal(again.tokens, r1.tokens)}")
+    print(f"  beam K={BEAMS} B=1: {(t_beam - t_pre) / again.steps * 1e3:.2f}"
+          f" ms/step eager over {again.steps} steps (generate_beam's "
+          f"{t_beam:.3f} s less a {t_pre * 1e3:.1f} ms prefill); each "
+          f"step's cache reorder reads and writes {nbytes / 1e9:.3f} GB "
+          f"({BEAMS} rows x {b1.text_ids.shape[1] + MAX_NEW} positions) in "
+          f"{reorder_ms:.3f} ms (median device ms, "
+          f"{nbytes / reorder_ms / 1e6:.0f} GB/s)", flush=True)
+
+    # Scan2Cap captions with their boxes through the paged batcher: each
+    # admission's first-step logits against the engine's full prefill with
+    # the box; the control, the full prefill without the box, must be
+    # further away
+    coord_id = FakeTokenizer().vocab["<coord>"]
+    ceng = _make_engine(params, cfg, root, prefix_cache_scenes=1)
+    firsts = {}
+    start = ceng.start_request
+
+    def recording_start(prep, max_cache_len=None):
+        state = start(prep, max_cache_len=max_cache_len)
+        key = tuple(prep["batch"].box_input[0].tolist())
+        firsts[key] = (prep["mode"], max_cache_len,
+                       state.next_logits[0].float().clone())
+        return state
+
+    ceng.start_request = recording_start
+    cq = _caption_queries(ground_info)[:8]
+    boxes = [np.asarray(q["box_input"][:3], np.float32) for q in cq]
+    bucket = _serve_footprints(ceng, cq[0])[0]
+    batcher = ContinuousBatcher(ceng, num_slots=SERVE_SLOTS,
+                                chunk=SERVE_CHUNK, paged=True,
+                                page_size=SERVE_PAGE,
+                                max_cache_len=bucket + MAX_NEW)
+    before = dict(_build.LAUNCHES)
+    try:
+        handles = [batcher.submit(q, box_input=bx, coord_token_id=coord_id)
+                   for q, bx in zip(cq, boxes)]
+        texts = [h.result(ceng._decode_text, timeout=600) for h in handles]
+    finally:
+        batcher.shutdown()
+    part = _launch_delta(before)
+    _add_launches(launches, part)
+    _check("box-input captions through the paged batcher",
+           len(texts) == 8 and all(isinstance(t, str) for t in texts)
+           and len(firsts) == 8 and part["paged_attention"] > 0,
+           f"{len(texts)} captions, {len(firsts)} admissions recorded; "
+           f"launches {({k: v for k, v in part.items() if v})}; [hits, "
+           f"misses] {ceng.prefix_cache_stats}")
+    # each admission against the engine's full prefill with the box
+    # (LOGIT_ATOL), and against the same path, the same cache length,
+    # outside the batcher, with the box (bit for bit) and without it (the
+    # control: it must differ). A suffix path lies ~0.15 from a full
+    # prefill by its own rounding, more than the box moves the logits, so
+    # the full prefill without the box cannot serve as the control.
+    diffs, same, controls = [], [], []
+    for q, bx in zip(cq, boxes):
+        fb, vf = ceng._prepare_generation(q, bx, coord_id)
+        nb, _ = ceng._prepare_generation(q)
+        mode, mcl, got = firsts[tuple(fb.box_input[0].tolist())]
+        max_len = fb.text_ids.shape[1] + MAX_NEW
+        with torch.inference_mode():
+            ref, _, _ = gen.prefill_multimodal(params, cfg, fb, max_len, vf,
+                                               ceng.cache_dtype)
+            nobox, _, _ = gen.prefill_multimodal(params, cfg, nb, max_len,
+                                                 vf, ceng.cache_dtype)
+            if mode == "prefix":
+                ref_same = start(ceng.prepare_request(q, bx, coord_id),
+                                 max_cache_len=mcl).next_logits
+                nobox = start(ceng.prepare_request(q),
+                              max_cache_len=mcl).next_logits
+            else:
+                ref_same = ref
+        diffs.append(float((got - ref[0].float()).abs().max()))
+        same.append(torch.equal(got, ref_same[0].float()))
+        controls.append(float((got - nobox[0].float()).abs().max()))
+    _check("batcher captions: first-step logits vs the full prefill with "
+           "the box", max(diffs) <= LOGIT_ATOL,
+           f"max |d| {max(diffs):.4f} (bound {LOGIT_ATOL})")
+    _check("batcher captions: the same path outside the batcher, with the "
+           "box and without it (control)", all(same) and min(controls) > 0,
+           f"with the box bit for bit: {same}; without it max |d| "
+           f"{[round(c, 4) for c in controls]} (each must be > 0)")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  phase 13 peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    return launches
+
+
 def _wait_for(pred, seconds: float = 30.0) -> bool:
     deadline = time.time() + seconds
     while time.time() < deadline:
@@ -3160,10 +3588,43 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
     ground = run_grounding(params, cfg, root, ground_info,
                            kv_cache_dtype="int8", full=False)
     print(f"  launches (int8 ScanRefer prefix path): {ground}", flush=True)
+    print(f"int8 beam search (K={BEAMS}, B=1, phase 13's):", flush=True)
+    beam = run_beam_int8(params, cfg, root, infos[0])
+    print(f"  launches (int8 beam answer): {beam}", flush=True)
     print("benchmark paths (phase 11, on the int8 model):", flush=True)
     bench = run_bench_paths(params, cfg)
-    return {k: scanqa[k] + prefix[k] + serve[k] + ground[k]
+    return {k: scanqa[k] + prefix[k] + serve[k] + ground[k] + beam[k]
             for k in scanqa}, bench
+
+
+def run_beam_int8(params, cfg, root: str, info) -> dict:
+    """One beam answer (K=BEAMS) over the int8 cache with int8 weights:
+    exact launch counts (B3 int8 at K rows per step, B4's B>1 form on
+    every projection and K-row head, its matvec on the prefill's one-row
+    head), a finite best score, and its distance to a teacher-forced
+    recompute printed (the recompute attends the cache as quantized by a
+    prefill and a chunk; the beam's steps attend it one step at a time)."""
+    from video3d_tpu_torch.kernels import _build
+
+    engine = _make_engine(params, cfg, root, kv_cache_dtype="int8",
+                          num_beams=BEAMS)
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "beam8")[0]
+    _build.reset_launches()
+    engine.generate_answer(q)
+    launches = dict(_build.LAUNCHES)
+    (res,) = engine.results
+    L = cfg.llm.num_hidden_layers
+    expected = dict.fromkeys(launches, 0)
+    expected.update(fused_geometry=1, flash_attention=L,
+                    decode_attention_int8=L * res.steps,
+                    int8_matmul=(7 * L + 1) * res.steps, int8_matvec=1)
+    _decode_forwards([res], cfg.llm.vocab_size)
+    _check("int8 beam answer: launch counts", launches == expected,
+           f"{launches}, expected {expected} ({res.steps} beam steps at "
+           f"{BEAMS} rows)")
+    _check_beam_scores(f"int8 beam K={BEAMS} B=1", params, cfg, engine,
+                       [q], res, bound=None)
+    return launches
 
 
 # phase 11: the benchmark's iterations (few: the call's time limit is
@@ -3291,7 +3752,7 @@ def _check_int4_decode_step(params, cfg, engine, prep) -> None:
             state.next_logits.clone(),
             qwen2.KVCache(*(t.clone() if t is not None else None
                             for t in state.cache)),
-            state.pos.clone(), state.done.clone())
+            state.pos.clone(), state.done.clone(), state.step.clone())
         kernel = qm.int4_matmul
         if product is not None:
             qm.int4_matmul = product
@@ -3472,20 +3933,37 @@ def run_int4_paths(cfg, root: str, infos):
 
 TRAIN_LAYERS = 4        # decoder depth of phase 7 (widths are Qwen2-7B's)
 TRAIN_MINI_STEPS = 4    # at gradient_accumulation_steps 2: two updates
-# phase 7's V=8 mini-step through the kernels against the same mini-step
+# phase 7's records: two ScanQA questions and two ScanRefer queries on the
+# grounding scene (object ids of its proposals), in the seeded order
+TRAIN_QA = ("What is object 0 ?", "What is object 1 ?")
+TRAIN_REFER = (("Find the brown chair next to the desk.", 3),
+               ("The lamp on the nightstand.", 17))
+# phase 7's V=8 mini-steps through the kernels against the same mini-steps
 # with the plain attention (B2 / B6's plain versions in f32 on the same
 # bf16 values) swapped in by this script: the loss and the global gradient
 # norm within these relative bounds, and the gradient tree within
-# TRAIN_GRAD_REL in relative L2 norm; a control (the plain attention
-# without its causal mask) must miss each by at least twice
+# TRAIN_GRAD_REL in relative L2 norm. The LM mini-step's control, the plain
+# attention without its causal mask, must miss each by at least twice.
 TRAIN_LOSS_REL = 2e-3
 TRAIN_GN_REL = 2e-2
 TRAIN_GRAD_REL = 5e-2
+# the ground mini-step's bounds (loss, grad_norm, gradients), measured: on
+# an H100 80GB HBM3 (700 W) it read 4.15e-4, 2.25e-3 and 8.86e-2 in two
+# runs (its gradient reaches the model through one query position, so B6's
+# bf16 P and dS weigh more than in the LM step's 9.2e-3). Its control must
+# miss each by 4x: the plain attention reading every query head's keys and
+# values from the next kv head (a GQA mapping off by one) read 7.94e-3,
+# 1.68e-1 and 1.32. Without the causal mask the loss moved only 2.9e-3:
+# the <ground> query sits at the end of the prompt and sees nearly every
+# key either way, and random weights' cosines barely move the loss.
+GROUND_TRAIN_REL = (1.5e-3, 1e-2, 2e-1)
 
 
-def _plain_train_attention(causal: bool = True):
+def _plain_train_attention(causal: bool = True, roll_kv: int = 0):
     """``mha_train`` computed by the plain versions of B2 with the lse and
-    of B6 in f32 (the kernels' inputs are bf16), for the swap in phase 7."""
+    of B6 in f32 (the kernels' inputs are bf16), for the swap in phase 7;
+    ``roll_kv`` (a control) reads each query head's keys and values from
+    the kv head that many further on."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
@@ -3493,6 +3971,7 @@ def _plain_train_attention(causal: bool = True):
     class PlainAttention(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, lengths):
+            k, v = k.roll(roll_kv, dims=2), v.roll(roll_kv, dims=2)
             f = [t.float() for t in (q, k, v)]
             out, lse = fa.flash_attention_fwd_plain(*f, lengths, causal)
             ctx.save_for_backward(q, k, v, out, lse, lengths)
@@ -3501,115 +3980,153 @@ def _plain_train_attention(causal: bool = True):
         @staticmethod
         def backward(ctx, do):
             q, k, v, out, lse, lengths = ctx.saved_tensors
-            grads = fa.flash_attention_bwd_plain(
+            dq, dk, dv = fa.flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), out, lse, do.float(),
                 lengths, causal)
-            return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))),
-                    None)
+            dk, dv = dk.roll(-roll_kv, dims=2), dv.roll(-roll_kv, dims=2)
+            return (*(g.to(t.dtype) for g, t in zip((dq, dk, dv),
+                                                    (q, k, v))), None)
 
     return lambda q, k, v, kv_len: PlainAttention.apply(q, k, v, kv_len)
 
 
 def _train_data(root: str, info, cfg, frames: int, max_len: int):
-    """SupervisedDataset + Collator on the synthetic scene's ScanQA-style
-    records (make_fake_annotations, FakeTokenizer)."""
-    from fixtures import FakeTokenizer, make_fake_annotations
+    """SupervisedDataset + Collator on the grounding scene: TRAIN_QA's
+    ScanQA records and TRAIN_REFER's ScanRefer records (FakeTokenizer; the
+    collator's grounding extras at GROUND_OBJECTS proposals)."""
+    from fixtures import FakeTokenizer
 
     from video3d_tpu_torch.config import DataConfig
     from video3d_tpu_torch.data.dataset import (Collator, CollatorConfig,
                                                 SupervisedDataset)
     from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
 
-    ann = make_fake_annotations(root, info["sample_idx"], n=TRAIN_MINI_STEPS)
-    ds = SupervisedDataset(ann, FakeTokenizer(), DataConfig(
+    records = [{"id": f"train_qa{i}", "video": info["sample_idx"],
+                "conversations": [
+                    {"from": "human", "value": f"<image>\n{text}"},
+                    {"from": "gpt", "value": f"a brown chair {i}"}],
+                "metadata": {"dataset": "scanqa"}}
+               for i, text in enumerate(TRAIN_QA)]
+    records += [{"id": f"train_refer{i}", "video": info["sample_idx"],
+                 "conversations": [
+                     {"from": "human", "value": f"<image>\n{text}"},
+                     {"from": "gpt", "value": "<ground>"}],
+                 "metadata": {"dataset": "scanrefer", "object_id": obj}}
+                for i, (text, obj) in enumerate(TRAIN_REFER)]
+    ann = os.path.join(root, "train_mix.json")
+    with open(ann, "w") as f:
+        json.dump(records, f)
+    tok = FakeTokenizer()
+    ds = SupervisedDataset(ann, tok, DataConfig(
         video_folder=root, annotation_dir=os.path.join(root, "embodiedscan"),
         metadata_dir=os.path.join(root, "metadata"), frames_upbound=frames),
         image_processor=SigLipImageProcessor(
             size=(cfg.vision.image_size,) * 2))
-    return ds, Collator(cfg, CollatorConfig(max_len=max_len,
-                                            frames_upbound=frames))
+    return ds, Collator(cfg, CollatorConfig(
+        max_len=max_len, frames_upbound=frames, max_objects=GROUND_OBJECTS,
+        ground_token_id=tok.vocab["<ground>"]))
 
 
-def _loss_and_grads(params, cfg, batch):
+def _loss_and_grads(params, cfg, batch, extras=None):
     """One mini-step's loss, global gradient norm and gradients (bf16
-    compute over the f32 master leaves, remat), without an update."""
+    compute over the f32 master leaves, remat), without an update: the LM
+    loss, or with the grounding ``extras`` the InfoNCE loss."""
     import torch
 
     from video3d_tpu_torch.train.optim import global_norm, tree_leaves
-    from video3d_tpu_torch.train.train_step import loss_fn
+    from video3d_tpu_torch.train.train_step import cast_to_compute, loss_fn
+    from video3d_tpu_torch.train.trainer import grounding_loss_fn
 
     leaves = tree_leaves(params)
     for t in leaves:
         t.requires_grad_(True)
     try:
-        loss, _ = loss_fn(params, cfg, batch, remat=True,
-                          compute_dtype=torch.bfloat16)
-        grads = torch.autograd.grad(loss, leaves)
+        if extras is None:
+            loss, _ = loss_fn(params, cfg, batch, remat=True,
+                              compute_dtype=torch.bfloat16)
+        else:
+            loss, _ = grounding_loss_fn(
+                cast_to_compute(params, torch.bfloat16), cfg, batch, extras,
+                remat=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     finally:
         for t in leaves:
             t.requires_grad_(False)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, leaves)]
     return float(loss.detach()), float(global_norm(grads)), grads
 
 
 def _check_plain_swap(params, cfg, root: str, info, dev, frames: int,
                       max_len: int) -> None:
-    """Phase 7's kernel-vs-plain check: one V=``frames`` mini-step through
-    the kernels, then with the plain attention swapped into
-    ``models.qwen2.mha_train`` (restored after); a control swaps in the
-    plain attention without its causal mask."""
+    """Phase 7's kernel-vs-plain checks: one V=``frames`` LM mini-step and
+    one ground mini-step through the kernels, then with the plain attention
+    swapped into ``models.qwen2.mha_train`` (restored after); a control
+    swaps in the plain attention without its causal mask."""
     import torch
 
     from video3d_tpu_torch.models import qwen2
-    from video3d_tpu_torch.train.trainer import to_batch
+    from video3d_tpu_torch.train.trainer import ground_extras, to_batch
 
     ds, col = _train_data(root, info, cfg, frames, max_len)
-    batch = to_batch(col([ds[0]]), dev)
-    loss, gn, grads = _loss_and_grads(params, cfg, batch)
-    sq = sum(float((g.float() ** 2).sum()) for g in grads)
-    kernel = qwen2.mha_train
-    results = {}
-    try:
-        for name, causal in (("plain attention", True),
-                             ("plain attention, no causal mask", False)):
-            qwen2.mha_train = _plain_train_attention(causal)
-            p_loss, p_gn, p_grads = _loss_and_grads(params, cfg, batch)
-            diff = sum(float(((a.float() - b.float()) ** 2).sum())
-                       for a, b in zip(grads, p_grads))
-            results[name] = (abs(loss - p_loss) / abs(p_loss),
-                             abs(gn - p_gn) / p_gn, (diff / sq) ** 0.5)
-            del p_grads
-    finally:
-        qwen2.mha_train = kernel
-    del grads
-    n = int(batch.seq_len[0])
-    bounds = (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL)
-    got = results["plain attention"]
-    _check(f"V={frames} mini-step ({n} tokens), kernels vs plain attention",
-           all(g <= b for g, b in zip(got, bounds)),
-           f"loss {loss:.6f} rel |d| {got[0]:.2e} (bound {bounds[0]:.0e}), "
-           f"grad_norm {gn:.6f} rel |d| {got[1]:.2e} (bound "
-           f"{bounds[1]:.0e}), gradients rel L2 {got[2]:.2e} (bound "
-           f"{bounds[2]:.0e})")
-    ctl = results["plain attention, no causal mask"]
-    _check(f"V={frames} control, plain attention without its causal mask",
-           all(c >= 2 * b for c, b in zip(ctl, bounds)),
-           f"loss rel |d| {ctl[0]:.2e}, grad_norm {ctl[1]:.2e}, gradients "
-           f"{ctl[2]:.2e} (each must be >= 2x its bound)")
-    torch.cuda.empty_cache()
+    cases = (("LM", 0, (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL), 2,
+              "plain attention without its causal mask", {"causal": False}),
+             ("ground", len(TRAIN_QA), GROUND_TRAIN_REL, 4,
+              "plain attention reading the next kv head", {"roll_kv": 1}))
+    for kind, index, bounds, factor, control, broken in cases:
+        arrays = col([ds[index]])
+        batch = to_batch(arrays, dev)
+        extras = ground_extras(arrays, dev)
+        _check(f"{kind} mini-step batch", (extras is None) == (kind == "LM"),
+               f"grounding extras: {extras is not None}")
+        loss, gn, grads = _loss_and_grads(params, cfg, batch, extras)
+        sq = sum(float((g.float() ** 2).sum()) for g in grads)
+        kernel = qwen2.mha_train
+        results = {}
+        try:
+            for name, kw in (("plain attention", {}), (control, broken)):
+                qwen2.mha_train = _plain_train_attention(**kw)
+                p_loss, p_gn, p_grads = _loss_and_grads(params, cfg, batch,
+                                                        extras)
+                diff = sum(float(((a.float() - b.float()) ** 2).sum())
+                           for a, b in zip(grads, p_grads))
+                results[name] = (abs(loss - p_loss) / abs(p_loss),
+                                 abs(gn - p_gn) / p_gn, (diff / sq) ** 0.5)
+                del p_grads
+        finally:
+            qwen2.mha_train = kernel
+        del grads
+        n = int(batch.seq_len[0])
+        got = results["plain attention"]
+        _check(f"V={frames} {kind} mini-step ({n} tokens), kernels vs plain "
+               f"attention", all(g <= b for g, b in zip(got, bounds)),
+               f"loss {loss:.6f} rel |d| {got[0]:.2e} (bound "
+               f"{bounds[0]:.2g}), grad_norm {gn:.6f} rel |d| {got[1]:.2e} "
+               f"(bound {bounds[1]:.2g}), gradients rel L2 {got[2]:.2e} "
+               f"(bound {bounds[2]:.2g})")
+        ctl = results[control]
+        _check(f"V={frames} {kind} control, {control}",
+               all(c >= factor * b for c, b in zip(ctl, bounds)),
+               f"loss rel |d| {ctl[0]:.2e}, grad_norm {ctl[1]:.2e}, "
+               f"gradients {ctl[2]:.2e} (each must be >= {factor}x its "
+               f"bound)")
+        torch.cuda.empty_cache()
 
 
 def run_training(cfg, root: str, info, dev, frames: int = 32,
                  max_len: int = 8192, swap_frames: int = 8,
                  swap_len: int = 2048) -> dict:
     """Phase 7: ``Trainer.train()`` at full width, ``TRAIN_LAYERS`` decoder
-    layers, f32 master weights with bf16 compute, remat, two mini-steps per
-    update, on the synthetic scene's ScanQA-style records; returns the
+    layers and the INFONCE ground head, f32 master weights with bf16
+    compute, remat, two mini-steps per update, on the grounding scene's
+    ScanQA and ScanRefer records (LM and ground mini-steps); returns the
     kernel launch counts of the run."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
     from video3d_tpu_torch.params import init_model
-    from video3d_tpu_torch.train.optim import OptimConfig, tree_leaves
+    from video3d_tpu_torch.train.optim import (OptimConfig, tree_leaves,
+                                               tree_leaves_with_path)
     from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
 
     t0 = time.perf_counter()
@@ -3618,9 +4135,10 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     print(f"training: ModelConfig() widths, {cfg.vision.num_hidden_layers}"
-          f"+{cfg.llm.num_hidden_layers} layers, {n_params / 1e9:.3f} B f32 "
-          f"master parameters initialised on the card in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"+{cfg.llm.num_hidden_layers} layers, the {cfg.ground_head.name} "
+          f"ground head, {n_params / 1e9:.3f} B f32 master parameters "
+          f"initialised on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     _check_plain_swap(params, cfg, root, info, dev, swap_frames, swap_len)
 
     ds, col = _train_data(root, info, cfg, frames, max_len)
@@ -3635,33 +4153,41 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
                                      metrics_file=metrics_file), device=dev)
     initial = [t.detach().to("cpu", copy=True)
                for t in tree_leaves(trainer.state.params)]
+    head = [i for i, (p, _) in enumerate(tree_leaves_with_path(
+        trainer.state.params)) if p.startswith("ground_head")]
     steps = []
-    orig = trainer._step_fn
 
-    def step(state, batch):
-        before = dict(_build.LAUNCHES)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        state, metrics = orig(state, batch)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t
-        steps.append({"seconds": seconds, "tokens": int(batch.seq_len.sum()),
-                      "launches": {k: v - before[k]
-                                   for k, v in _build.LAUNCHES.items()}})
-        leaves = tree_leaves(state.params)
-        if len(steps) == 2:      # after update 1, at learning rate 0
-            same = all(torch.equal(a.cpu(), b)
-                       for a, b in zip(leaves, initial))
-            _check("update 1 (learning rate 0): f32 master tree", same,
-                   "bit for bit the initial tree")
-        if len(steps) == 4:      # after update 2
-            moved = sum(not torch.equal(a.cpu(), b)
-                        for a, b in zip(leaves, initial))
-            _check("update 2: every tunable leaf moved",
-                   moved == len(initial), f"{moved} of {len(initial)} leaves")
-        return state, metrics
+    def timed(kind, fn):
+        def step(state, batch, *extras):
+            before = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = fn(state, batch, *extras)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            steps.append({"kind": kind, "seconds": seconds,
+                          "tokens": int(batch.seq_len.sum()),
+                          "launches": {k: v - before[k]
+                                       for k, v in _build.LAUNCHES.items()}})
+            leaves = tree_leaves(state.params)
+            if len(steps) == 2:      # after update 1, at learning rate 0
+                same = all(torch.equal(a.cpu(), b)
+                           for a, b in zip(leaves, initial))
+                _check("update 1 (learning rate 0): f32 master tree", same,
+                       "bit for bit the initial tree")
+            if len(steps) == 4:      # after update 2
+                moved = [not torch.equal(a.cpu(), b)
+                         for a, b in zip(leaves, initial)]
+                _check("update 2: every tunable leaf moved", all(moved),
+                       f"{sum(moved)} of {len(initial)} leaves")
+                _check("update 2: the ground head's leaves moved",
+                       len(head) == 13 and all(moved[i] for i in head),
+                       f"{sum(moved[i] for i in head)} of {len(head)}")
+            return state, metrics
+        return step
 
-    trainer._step_fn = step
+    trainer._step_fn = timed("lm", trainer._step_fn)
+    trainer._ground_step_fn = timed("ground", trainer._ground_step_fn)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -3673,19 +4199,24 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
     del initial
 
     records = _read_jsonl(metrics_file)
+    kinds = [s["kind"] for s in steps]
     _check("mini-steps", len(records) == TRAIN_MINI_STEPS
            and state.step == TRAIN_MINI_STEPS
-           and state.opt_state.gradient_step == TRAIN_MINI_STEPS // 2,
-           f"{len(records)} logged, step {state.step}, "
+           and state.opt_state.gradient_step == TRAIN_MINI_STEPS // 2
+           and sorted(kinds) == ["ground"] * len(TRAIN_REFER)
+           + ["lm"] * len(TRAIN_QA),
+           f"{len(records)} logged ({kinds}), step {state.step}, "
            f"{state.opt_state.gradient_step} optimizer updates")
-    for r in records:
-        _check(f"mini-step {r['step']} loss and grad_norm",
-               all(math.isfinite(r[k]) and r[k] > 0
-                   for k in ("lm_loss", "grad_norm")),
-               f"loss {r['lm_loss']:.6f}, grad_norm {r['grad_norm']:.6f}")
+    for r, kind in zip(records, kinds):
+        key = "lm_loss" if kind == "lm" else "ground_loss"
+        _check(f"mini-step {r['step']} ({kind}) loss and grad_norm",
+               key in r and all(math.isfinite(r[k]) and r[k] > 0
+                                for k in (key, "grad_norm")),
+               f"{key} {r.get(key, float('nan')):.6f}, grad_norm "
+               f"{r['grad_norm']:.6f}")
     L = cfg.llm.num_hidden_layers
-    # per mini-step: B2 with the lse in the forward and again in each
-    # layer's remat recompute; B6 once per layer's backward
+    # per mini-step, LM or ground: B2 with the lse in the forward and again
+    # in each layer's remat recompute; B6 once per layer's backward
     per_step = dict.fromkeys(_build.LAUNCHES, 0)
     per_step.update(flash_attention_lse=2 * L, flash_attention_bwd=L)
     nonzero = [{k: v for k, v in s["launches"].items() if v} for s in steps]
@@ -3697,9 +4228,10 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    print(f"  per-mini-step seconds {[round(s['seconds'], 4) for s in steps]}"
-          f"; tokens/s {[round(s['tokens'] / s['seconds']) for s in steps]} "
-          f"({steps[0]['tokens']} tokens per mini-step); wall for "
+    print(f"  per-mini-step seconds "
+          f"{[(s['kind'], round(s['seconds'], 4)) for s in steps]}; tokens/s "
+          f"{[round(s['tokens'] / s['seconds']) for s in steps]} "
+          f"({[s['tokens'] for s in steps]} tokens per mini-step); wall for "
           f"Trainer.train() {wall:.2f} s (data, checks of the master tree and "
           f"the bf16 export included); peak device memory "
           f"{peak / 2**30:.2f} GiB; {smi}", flush=True)
@@ -3751,7 +4283,7 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from fixtures import make_fake_scene
 
-    from video3d_tpu_torch.config import GroundHeadType, ModelConfig
+    from video3d_tpu_torch.config import ModelConfig
     from video3d_tpu_torch.params import init_model
 
     build()
@@ -3776,7 +4308,8 @@ def main() -> None:
                                       n_objects=GROUND_OBJECTS, seed=2,
                                       extend=True)
         info = infos[0]
-        scanqa = run_main_path(params, cfg, root, info)
+        greedy = []
+        scanqa = run_main_path(params, cfg, root, info, results=greedy)
         print(f"  launches (ScanQA path): {scanqa}", flush=True)
         print("scene-prefix path:", flush=True)
         prefix = run_prefix_path(params, cfg, root, info)
@@ -3787,7 +4320,12 @@ def main() -> None:
         print("grounding and Scan2Cap (phase 12):", flush=True)
         ground = run_grounding(params, cfg, root, ground_info)
         print(f"  launches (grounding and Scan2Cap): {ground}", flush=True)
-        del params
+        print("sampling, beam search and box-input captions (phase 13):",
+              flush=True)
+        decode = run_decode_modes(params, cfg, root, info, ground_info,
+                                  greedy)
+        print(f"  launches (phase 13): {decode}", flush=True)
+        del params, greedy
         gc.collect()
         torch.cuda.empty_cache()
         int8, bench = run_int8_paths(cfg, root, infos, ground_info)
@@ -3796,13 +4334,10 @@ def main() -> None:
         int4, int4_cache = run_int4_paths(cfg, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
-        # the grounding train step is not ported: the LM loss trains no
-        # ground head
         train_cfg = dataclasses.replace(
             cfg, llm=dataclasses.replace(cfg.llm,
-                                         num_hidden_layers=TRAIN_LAYERS),
-            ground_head=GroundHeadType.NONE)
-        train = run_training(train_cfg, root, info, dev)
+                                         num_hidden_layers=TRAIN_LAYERS))
+        train = run_training(train_cfg, root, ground_info, dev)
         print(f"  launches (training path): {train}", flush=True)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
@@ -3818,7 +4353,7 @@ def main() -> None:
             launches = int4_cache[name]
         else:
             launches = scanqa[name] + prefix[name] + serve[name] \
-                + ground[name]
+                + ground[name] + decode.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

@@ -3,8 +3,8 @@ the port's sequential engine, on the CPU: tiny float32 model, fake
 tokenizer, synthetic scenes. Answers in dense and paged mode, with and
 without shared prefix pages; slot reuse; deferred admission on a tight
 pool; the impossible footprint; cancellation in flight and while queued;
-eviction freeing shared pages; the page accounting under churn; and what
-is not ported raising.
+eviction freeing shared pages; the page accounting under churn; Scan2Cap
+captions submitted with their boxes; and what is not ported raising.
 
 FakeTokenizer numbers words in order of first use, so every engine first
 tokenizes the questions in one fixed order (the sequential answers, or
@@ -316,9 +316,51 @@ def test_what_is_not_ported_raises(scene):
         ContinuousBatcher(eng, draft_params={}, draft_cfg=TCFG)
     with pytest.raises(NotImplementedError, match="A4"):
         ContinuousBatcher(eng, chunked_prefill=64)
-    b = ContinuousBatcher(eng, num_slots=1)
-    try:
-        with pytest.raises(NotImplementedError, match="A5"):
-            b.submit(_record(scene[0][0], "hi"), box_input=[0.0] * 6)
-    finally:
-        b.shutdown()
+
+
+COORD = 302          # FakeTokenizer's <coord>
+
+
+@pytest.mark.parametrize("mode", ["dense", "paged_shared"])
+def test_box_input_captions_match_jax_and_engine(scene, mode):
+    """Scan2Cap captions submitted with their boxes: the port's batcher
+    gives the port's sequential engine's captions and the JAX batcher's
+    in the same mode (paged_shared: the first caption misses and stores
+    the prefix, the others are suffixes carrying the box PE)."""
+    infos = scene[0]
+    boxes = [np.asarray([0.4 * i, -0.3, 0.5 + 0.1 * i], np.float32)
+             for i in range(3)]
+    records = [_record(infos[0], f"describe the object at <coord> {q}", i)
+               for i, q in enumerate(QUESTIONS)]
+    prefix = 4 if mode == "paged_shared" else 0
+    plain = _engine(scene)
+    want = [plain.generate_answer(r, b, COORD)
+            for r, b in zip(records, boxes)]
+    eng = _engine(scene, prefix)
+    jeng = _jax_engine(scene, prefix)
+    for r in records:
+        eng._tokenize_prompt(r)
+        jeng._tokenize_prompt(r)
+    seen = []           # the boxes the port's engine prepared with
+    for name in ("prepare_request", "_prepare_generation"):
+        real = getattr(eng, name)
+
+        def spy(record, box_input=None, coord_token_id=None, _real=real):
+            seen.append((record["id"], tuple(box_input), coord_token_id))
+            return _real(record, box_input, coord_token_id)
+        setattr(eng, name, spy)
+    answers = []
+    for make, e in ((ContinuousBatcher, eng), (JaxBatcher, jeng)):
+        b = make(e, num_slots=2, chunk=2, **MODES[mode])
+        try:
+            first = b.generate(records[0], box_input=boxes[0],
+                               coord_token_id=COORD)
+            handles = [b.submit(r, box_input=bx, coord_token_id=COORD)
+                       for r, bx in zip(records[1:], boxes[1:])]
+            answers.append([first] + [h.result(e._decode_text, timeout=300)
+                                      for h in handles])
+        finally:
+            b.shutdown()
+    assert answers[0] == want == answers[1]
+    assert sorted(seen) == [(r["id"], tuple(b), COORD)
+                            for r, b in zip(records, boxes)]

@@ -961,7 +961,8 @@ def _decode_states(cfg, dev, slots, form, seed=1):
                 paged, s, gen.DecodeState(
                     torch.zeros(1, cfg.llm.vocab_size, device=dev), sub,
                     torch.tensor([n], device=dev),
-                    torch.zeros(1, dtype=torch.bool, device=dev)),
+                    torch.zeros(1, dtype=torch.bool, device=dev),
+                    torch.zeros((), dtype=torch.long, device=dev)),
                 row, maxp)
             dense.pos[s] = n
         logits = torch.randn(slots, cfg.llm.vocab_size, generator=g,
@@ -1093,7 +1094,8 @@ def test_captured_generate_equals_uncaptured(dev, decoders):
                            type(dense.cache)(*(None if t is None else
                                                t.clone()
                                                for t in dense.cache)),
-                           dense.pos.clone(), dense.done.clone())
+                           dense.pos.clone(), dense.done.clone(),
+                           dense.step.clone())
         want = gen.generate_from_state(models[8], cfg, copy, 19, -1,
                                        capture=False)
         got = gen.generate_from_state(models[8], cfg, dense, 19, -1,

@@ -76,7 +76,8 @@ def _state(B: int, seed: int = 0):
             torch.from_numpy(logits0.copy()),
             tqwen.KVCache(torch.from_numpy(k0.copy()),
                           torch.from_numpy(v0.copy())),
-            torch.from_numpy(pos0.copy()), torch.zeros(B, dtype=torch.bool))
+            torch.from_numpy(pos0.copy()), torch.zeros(B, dtype=torch.bool),
+            torch.zeros((), dtype=torch.long))
     return jstate, port
 
 

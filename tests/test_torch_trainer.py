@@ -20,7 +20,8 @@ from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
 from video3d_tpu_torch.params import init_model
 from video3d_tpu_torch.train import checkpoint as ckpt
 from video3d_tpu_torch.train.optim import OptimConfig, tree_leaves
-from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
+from video3d_tpu_torch.train.trainer import (Trainer, TrainingConfig,
+                                             ground_extras)
 
 from fixtures import FakeTokenizer, make_fake_annotations, make_fake_scene
 
@@ -139,7 +140,17 @@ def test_unported_paths_raise(data):
         _trainer(data, "unused", lora_r=8)
     with pytest.raises(NotImplementedError, match="A12"):
         _trainer(data, "unused", dp=2)
+    # a batch with a ground slot carries its extras to the ground step
+    # (tests/test_torch_ground_train.py trains on them)
     tr = _trainer(data, "unused")
     arrays = tr.collator([tr.dataset[0]])
-    with pytest.raises(NotImplementedError, match="A7"):
-        tr._to_batch(dict(arrays, ground_slot=np.zeros(1, np.int32)))
+    assert ground_extras(arrays, "cpu") is None
+    extras = ground_extras(dict(
+        arrays, ground_slot=np.full(1, 7, np.int32),
+        world_coords_full=np.zeros((1, 2, 56, 56, 3), np.float32),
+        objects=np.zeros((1, 3, 6), np.float32),
+        objects_valid=np.ones((1, 3), bool),
+        box_label_hot=np.eye(1, 4, 3, dtype=np.float32)), "cpu")
+    assert extras.ground_slot.dtype == torch.long
+    assert int(extras.ground_slot[0]) == 7
+    assert extras.box_label_hot.shape == (1, 4)

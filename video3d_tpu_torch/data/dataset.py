@@ -14,8 +14,9 @@ The port's own copy of ``video3d_tpu/data/dataset.py``: ``load_data_mix``,
 patch coordinates pooled by the port's torch ``average_coordinate_in_patch``
 on the CPU. Not ported, and raising ``NotImplementedError`` with their
 ROADMAP item when their inputs appear: real video files and 2D-image
-samples and batches (A11), grounding batches (A7), the min-max and sampled
-coordinate poolings (A1), mrope position ids (A2).
+samples and batches (A11), the min-max and sampled coordinate poolings
+(A1), mrope position ids (A2). Grounding batches carry the JAX collator's
+extras (objects, box labels, ground slots).
 """
 
 from __future__ import annotations
@@ -291,10 +292,39 @@ class Collator:
         return self._collate_grounding(samples, out, coords, plan)
 
     def _collate_grounding(self, samples, out, coords, plan):
-        """Grounding extras (ScanRefer / Multi3DRefer): not ported; an
-        ungrounded batch passes through unchanged."""
-        if any("box_label" in s for s in samples):
-            raise NotImplementedError("grounding batches (objects, box labels, "
-                                      "ground slots) are not ported "
-                                      "(ROADMAP A7)")
+        """Grounding extras (ScanRefer / Multi3DRefer; JAX
+        ``_collate_grounding``): the (B, N, 6) padded proposals and their
+        mask, the (B, N+1) multi-hot box labels (slot N, the zero target,
+        set when no label is below the sample's n objects,
+        llava_qwen.py:305-306), the per-pixel world coordinates and, with a
+        ``ground_token_id``, each row's first label position equal to it
+        (0 when none). An ungrounded batch passes through unchanged."""
+        B = len(samples)
+        if not any("box_label" in s for s in samples):
+            return out
+        N = self.cfg.max_objects
+        obj = np.zeros((B, N, 6), np.float32)
+        obj_valid = np.zeros((B, N), bool)
+        box_hot = np.zeros((B, N + 1), np.float32)
+        world = np.zeros_like(coords)
+        for b, s in enumerate(samples):
+            boxes = np.asarray(s.get("objects", []), np.float32).reshape(-1, 6)
+            n = min(len(boxes), N)
+            obj[b, :n] = boxes[:n]
+            obj_valid[b, :n] = True
+            labels = [l for l in s.get("box_label", []) if 0 <= l < n]
+            if labels:
+                box_hot[b, labels] = 1.0
+            else:
+                box_hot[b, N] = 1.0
+            v = int(s["video_size"])
+            world[b, :v] = s["world_coords"][:v]
+        out.update({"objects": obj, "objects_valid": obj_valid,
+                    "box_label_hot": box_hot, "world_coords_full": world})
+        if self.cfg.ground_token_id is not None:
+            slots = np.zeros((B,), np.int32)
+            for b in range(B):
+                hits = np.nonzero(plan.labels[b] == self.cfg.ground_token_id)[0]
+                slots[b] = hits[0] if len(hits) else 0
+            out["ground_slot"] = slots
         return out

@@ -4,7 +4,8 @@ counterpart of ``video3d_tpu/eval/drivers.py``.
 Generative (ScanQA, SQA3D, Scan2Cap, free-form VQA), per question:
 eval-style ChatML ids with an empty assistant turn, the scene's frames and
 raw depths, per-patch voxel ids through the fused geometry kernel, the
-static splice plan, greedy generation, and one jsonl record, in the same
+static splice plan, generation (greedy, sampled or beam search, as the
+JAX engine's ``EngineConfig`` says), and one jsonl record, in the same
 format as the JAX driver. Scan2Cap adds the ``<coord>`` box input: the
 sin3d PE of the object's discretized center at the ``<coord>`` slot.
 
@@ -24,7 +25,8 @@ shares its frames and its spliced prefix):
   runs the full prefill and stores the prefix; later questions prefill only
   their suffix against it (``start_decode_prefix``), alone (B = 1) or as a
   scene-grouped batch (``generate_answers_batch_prefix``,
-  ``run_generative(..., batch_size=B)``). Grounding keeps a companion LRU
+  ``run_generative(..., batch_size=B)``). As in JAX, beam search
+  (``num_beams > 1``) bypasses it: every answer is a full prefill. Grounding keeps a companion LRU
   of each scene's object features beside its prefix entry, so a hit
   prefills only the query suffix (``ground_suffix``).
 
@@ -56,6 +58,7 @@ from video3d_tpu_torch.data.video_processor import VideoProcessor
 from video3d_tpu_torch.kernels.fused_geometry import fused_patch_voxel_coords
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import qwen2
+from video3d_tpu_torch.models.beam_search import generate_beam
 from video3d_tpu_torch.models.decode_graph import DecodeGraphs
 from video3d_tpu_torch.models.generate import (DecodeState, GenerateResult,
                                                generate_from_state,
@@ -80,7 +83,7 @@ def pick_bucket(n: int, buckets: Sequence[int] = DEFAULT_BUCKETS) -> int:
 
 @dataclass
 class EngineConfig:
-    """Generation settings of the answer path (greedy)."""
+    """Generation settings of the answer path."""
 
     max_new_tokens: int = 512
     eos_token_id: int = 151645          # <|im_end|>
@@ -108,6 +111,20 @@ class EngineConfig:
     # and the proposals scored per scene (more are dropped, fewer padded)
     ground_token_id: Optional[int] = None
     max_objects: int = 150
+    # sampling (reference generate kwargs, model_scanqa.py:176-180:
+    # do_sample = temperature > 0); 0.0 -> greedy, the eval default
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    # beam search (model_scanqa.py:230 --num_beams; 1 = greedy / sampled)
+    num_beams: int = 1
+    length_penalty: float = 1.0
+    early_stopping: bool = False
+
+    def sampling(self) -> dict:
+        """The decode loops' sampling keywords."""
+        return {"temperature": self.temperature, "top_p": self.top_p,
+                "top_k": self.top_k}
 
     def cache_dtype(self):
         """The cache form the models take: a torch dtype, or the int4 tag
@@ -369,18 +386,31 @@ class InferenceEngine:
                                  coord_token_id), spliceable
 
     def _generate(self, batch, vision_features=None) -> GenerateResult:
+        """Beam search or greedy / sampled decode from a full prefill (JAX
+        ``_generate_impl`` without its speculative branch)."""
+        ecfg = self.ecfg
+        if ecfg.num_beams > 1:
+            return generate_beam(self.params, self.cfg, batch,
+                                 num_beams=ecfg.num_beams,
+                                 max_new_tokens=ecfg.max_new_tokens,
+                                 eos_token_id=ecfg.eos_token_id,
+                                 cache_dtype=self.cache_dtype,
+                                 length_penalty=ecfg.length_penalty,
+                                 early_stopping=ecfg.early_stopping,
+                                 vision_features=vision_features)
         return generate_greedy(self.params, self.cfg, batch,
-                               max_new_tokens=self.ecfg.max_new_tokens,
-                               eos_token_id=self.ecfg.eos_token_id,
+                               max_new_tokens=ecfg.max_new_tokens,
+                               eos_token_id=ecfg.eos_token_id,
                                vision_features=vision_features,
                                cache_dtype=self.cache_dtype,
-                               graphs=self._graphs)
+                               graphs=self._graphs, **ecfg.sampling())
 
     def _generate_from_state(self, state: DecodeState) -> GenerateResult:
         return generate_from_state(self.params, self.cfg, state,
                                    max_new_tokens=self.ecfg.max_new_tokens,
                                    eos_token_id=self.ecfg.eos_token_id,
-                                   graphs=self._graphs)
+                                   graphs=self._graphs,
+                                   **self.ecfg.sampling())
 
     def _decode_text(self, toks) -> str:
         text = self.tokenizer.decode(toks, skip_special_tokens=True).strip()
@@ -395,7 +425,11 @@ class InferenceEngine:
     # ------------- scene-prefix KV cache -------------
 
     def _prefix_cache_on(self, record) -> bool:
+        """The scene-prefix path applies: the cache is on, the record has a
+        scene, and no beam search (its prefill expands the cache to the
+        beams; JAX ``_prefix_cache_base``)."""
         return (self.ecfg.prefix_cache_scenes > 0
+                and self.ecfg.num_beams == 1
                 and isinstance(record.get("video"), str))
 
     def _lookup_prefix(self, key) -> Optional[_PrefixEntry]:

@@ -82,6 +82,7 @@ class GraphKey(NamedTuple):
                            # pools' and the page table's shapes
     storage: tuple         # data_ptr of every state tensor and the weights
     eos: int
+    warp: Optional[tuple] = None   # sampling settings (None: greedy)
 
 
 _CACHE_FORMS = {torch.bfloat16: "bf16", torch.int8: "int8",
@@ -110,7 +111,10 @@ def state_tensors(state):
 
 
 def graph_key(kind: str, params, state, chunk: Optional[int],
-              eos: int) -> GraphKey:
+              eos: int, warp: Optional[tuple] = None) -> GraphKey:
+    """``warp``: the decode's sampling settings, as JAX's static
+    ``temperature`` / ``top_p`` / ``top_k`` (and here the seed), or None
+    when greedy: a greedy and a sampled chunk never share a graph."""
     cache = state.cache
     paged = hasattr(cache, "page_table")
     shape = ((tuple(cache.k.shape), tuple(cache.page_table.shape)) if paged
@@ -121,7 +125,7 @@ def graph_key(kind: str, params, state, chunk: Optional[int],
                     _CACHE_FORMS.get(cache.k.dtype,
                                      _dtype_name(cache.k.dtype)),
                     "paged" if paged else "dense", weight_form(params),
-                    shape, storage, int(eos))
+                    shape, storage, int(eos), warp)
 
 
 def _weight_plan(w, rows: int, sms: int):
@@ -244,10 +248,11 @@ class DecodeGraphs:
             self.evictions += 1
         return entry
 
-    def adopt(self, kind: str, params, state, eos: int) -> Entry:
+    def adopt(self, kind: str, params, state, eos: int,
+              warp: Optional[tuple] = None) -> Entry:
         """The entry whose static state is ``state`` itself (a decode
         chunk's persistent state)."""
-        key = graph_key(kind, params, state, None, eos)
+        key = graph_key(kind, params, state, None, eos, warp)
         self.keys_seen.add(key)
         entry = self._entries.get(key)
         if entry is None:
@@ -255,17 +260,19 @@ class DecodeGraphs:
         self._entries.move_to_end(key)
         return entry
 
-    def bind(self, params, state, eos: int) -> Entry:
+    def bind(self, params, state, eos: int,
+             warp: Optional[tuple] = None) -> Entry:
         """The entry of ``generate_from_state`` for a dense state of these
         shapes, holding a copy of ``state`` (the first caller's cache
         becomes the entry's own) and zeroed lengths."""
-        key = graph_key("generate", params, state, None, eos)
+        key = graph_key("generate", params, state, None, eos, warp)
         key = key._replace(storage=key.storage[-1:])
         self.keys_seen.add(key)
         entry = self._entries.get(key)
         if entry is None:
             own = type(state)(state.next_logits.clone(), state.cache,
-                              state.pos.long().clone(), state.done.clone())
+                              state.pos.long().clone(), state.done.clone(),
+                              state.step.clone())
             return self._put(key, Entry(own, params, torch.zeros(
                 own.pos.shape, dtype=torch.long, device=own.pos.device)))
         self._entries.move_to_end(key)
@@ -277,6 +284,7 @@ class DecodeGraphs:
         own.next_logits.copy_(state.next_logits)
         own.pos.copy_(state.pos)
         own.done.copy_(state.done)
+        own.step.copy_(state.step)
         entry.lengths.zero_()
         return entry
 

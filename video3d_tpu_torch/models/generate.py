@@ -1,10 +1,19 @@
-"""Greedy KV-cache decoding over the spliced multimodal prefill, in PyTorch:
-counterpart of ``video3d_tpu/models/generate.py`` (``prefill_multimodal``,
-``DecodeState`` / ``start_decode`` / ``generate_from_state``, the greedy
-form of ``generate_greedy``, the scene-prefix entry points
-``shared_prefix_view``, ``_write_prefix``, ``start_decode_prefix`` and
-``ground_suffix``, and
-the slot API of the continuous batcher over dense rows and page pools).
+"""KV-cache decoding over the spliced multimodal prefill, greedy or
+sampled, in PyTorch: counterpart of ``video3d_tpu/models/generate.py``
+(``warp_logits`` / ``sample_token``, ``prefill_multimodal``,
+``DecodeState`` / ``start_decode`` / ``generate_from_state``,
+``generate_greedy``, the scene-prefix entry points ``shared_prefix_view``,
+``_write_prefix``, ``start_decode_prefix`` and ``ground_suffix``, and the
+slot API of the continuous batcher over dense rows and page pools).
+
+Sampling (temperature > 0) applies HF's warpers (temperature, top-k,
+top-p) and draws by Gumbel-max with a counter-based noise: each (row,
+token) uniform is a hash of the seed, the state's absolute step and the
+row and token indices, computed in tensor ops on the device. A draw is so
+a pure function of the state, and a replayed graph, an eager chunk and any
+split of the steps into chunks draw the same tokens. JAX draws with
+``jax.random.categorical`` from ``fold_in(rng_key, step)``: the two
+frameworks sample the same warped distribution, not the same tokens.
 
 The JAX ``lax.while_loop`` and ``lax.scan`` compile each loop to one device
 program; here the loops run chunks of decode steps, and on the card each
@@ -50,6 +59,102 @@ class DecodeState(NamedTuple):
     cache: qwen2.KVCache
     pos: torch.Tensor           # (B,) next absolute position
     done: torch.Tensor          # (B,) bool
+    step: torch.Tensor          # () int64 steps decoded (the draws' counter)
+
+
+class Sampling(NamedTuple):
+    """How a decode picks its tokens (JAX's static ``temperature``,
+    ``top_p``, ``top_k`` and its ``rng_key``, here a seed): greedy when
+    ``temperature <= 0``."""
+
+    temperature: float = 0.0
+    top_p: float = 1.0
+    top_k: int = 0
+    seed: int = 0
+
+    @property
+    def greedy(self) -> bool:
+        return self.temperature <= 0.0
+
+    def key(self) -> Optional[tuple]:
+        """What a captured graph of this decode depends on: None for every
+        greedy setting."""
+        return None if self.greedy else tuple(self)
+
+
+GREEDY = Sampling()
+
+
+def warp_logits(logits: torch.Tensor, temperature: float, top_p: float,
+                top_k: int = 0) -> torch.Tensor:
+    """HF's warper chain (temperature -> top_k -> top_p) on (B, V) logits in
+    float32; masked-out entries become -inf (JAX ``warp_logits``). top-k
+    keeps the logits >= the k-th largest (ties stay); top-p keeps the
+    logits >= the one at which the descending cumulative softmax first
+    reaches ``top_p`` (the smallest such set, the first logit always)."""
+    logits = logits.float() / temperature
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        ordered = torch.sort(logits, dim=-1, descending=True).values
+        cum = torch.cumsum(torch.softmax(ordered, dim=-1), dim=-1)
+        # a cumulative sum that rounds below top_p to the end keeps all
+        cutoff_idx = (cum < top_p).sum(-1, keepdim=True).clamp(
+            max=logits.shape[-1] - 1)
+        cutoff = torch.gather(ordered, -1, cutoff_idx)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2^32 for int64 x in [0, 2^32), without leaving int64."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of [0, 2^32) with full avalanche (Wellons' lowbias32)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Gumbel(0, 1) noise from 32-bit hashes (int64 in [0, 2^32)): the top
+    23 bits as a uniform in [2^-24, 1 - 2^-24], every value of which, and
+    its +0.5 offset, float32 holds exactly, so no hash gives u = 1 (an
+    infinite noise that would pick a masked token)."""
+    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(seed: int, step: torch.Tensor, shape,
+                 device) -> torch.Tensor:
+    """(B, V) float32 Gumbel(0, 1) noise, a pure function of (seed, step,
+    row, token) through a counter hash."""
+    B, V = shape
+    key = _mix32(_mix32(step.long() & _M32) ^ (seed & _M32))
+    rows = _mix32(key ^ torch.arange(B, device=device))[:, None]
+    return gumbel_from_bits(_mix32(rows ^ torch.arange(V, device=device)[None]))
+
+
+def sample_token(logits: torch.Tensor, sampling: Sampling = GREEDY,
+                 step: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(B,) ids from (B, V) logits: the argmax over float32 logits (first
+    maximum, as ``jnp.argmax``) when greedy, else a draw from the softmax
+    of :func:`warp_logits` by Gumbel-max at the state's ``step`` (the
+    reference's do_sample = temperature > 0, model_scanqa.py:176-180)."""
+    if sampling.greedy:
+        return torch.argmax(logits.to(torch.float32), dim=-1)
+    warped = warp_logits(logits, sampling.temperature, sampling.top_p,
+                         sampling.top_k)
+    return torch.argmax(warped + gumbel_noise(
+        sampling.seed, step, warped.shape, warped.device), dim=-1)
 
 
 def _decode_position_ids(pos: torch.Tensor) -> torch.Tensor:
@@ -82,9 +187,11 @@ def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
 
 
 def _initial_state(next_logits, cache, pos) -> DecodeState:
+    dev = next_logits.device
     return DecodeState(next_logits=next_logits, cache=cache, pos=pos.long(),
                        done=torch.zeros(next_logits.shape[0], dtype=torch.bool,
-                                        device=next_logits.device))
+                                        device=dev),
+                       step=torch.zeros((), dtype=torch.long, device=dev))
 
 
 @torch.inference_mode()
@@ -211,25 +318,29 @@ def ground_suffix(params, cfg: ModelConfig, batch: lv3d.Batch,
     return scores[0] if B == 1 else scores
 
 
-def _greedy(next_logits: torch.Tensor, done: torch.Tensor,
-            eos_token_id: int) -> torch.Tensor:
-    """argmax over float32 logits (first maximum), EOS for done rows."""
-    tok = torch.argmax(next_logits.to(torch.float32), dim=-1)
-    return torch.where(done, eos_token_id, tok)
+def _next_token(next_logits: torch.Tensor, done: torch.Tensor,
+                eos_token_id: int, sampling: Sampling,
+                step: torch.Tensor) -> torch.Tensor:
+    """:func:`sample_token`, EOS for done rows."""
+    return torch.where(done, eos_token_id,
+                       sample_token(next_logits, sampling, step))
 
 
 def _dense_steps(params, cfg: ModelConfig, state: DecodeState,
                  toks: torch.Tensor, eos_token_id: int,
+                 sampling: Sampling = GREEDY,
                  lengths: Optional[torch.Tensor] = None) -> None:
-    """``toks.shape[1]`` greedy steps over a dense state, every tensor of
+    """``toks.shape[1]`` decode steps over a dense state, every tensor of
     it updated in place (what a captured chunk records): step i writes its
     ids into ``toks[:, i]`` and counts each row's ids before EOS into
     ``lengths``. Writes of rows past the end of their cache row land in the
     row's last slot."""
-    next_logits, cache, pos, done = state
+    next_logits, cache, pos, done = (state.next_logits, state.cache,
+                                     state.pos, state.done)
     last = cache.k.shape[2] - 1
     for i in range(toks.shape[1]):
-        tok = _greedy(next_logits, done, eos_token_id)
+        tok = _next_token(next_logits, done, eos_token_id, sampling,
+                          state.step)
         toks[:, i] = tok
         is_eos = tok == eos_token_id
         if lengths is not None:
@@ -243,51 +354,56 @@ def _dense_steps(params, cfg: ModelConfig, state: DecodeState,
         # keep the state's logits dtype (f32 from empty_decode_state)
         next_logits.copy_(qwen2.lm_head(params["llm"], hidden)[:, 0])
         pos.add_(1)
+        state.step.add_(1)
 
 
 @torch.inference_mode()
 def generate_from_state(params, cfg: ModelConfig, state: DecodeState,
                         max_new_tokens: int = 512,
                         eos_token_id: int = 151645,
+                        temperature: float = 0.0, top_p: float = 1.0,
+                        top_k: int = 0, seed: int = 0,
                         chunk: int = DECODE_CHUNK,
                         capture: Optional[bool] = None,
                         graphs: Optional[dg.DecodeGraphs] = None
                         ) -> GenerateResult:
-    """Greedy decode from a prefilled state (full or prefix-cached):
-    argmax over float32 logits (first maximum on ties, as ``jnp.argmax``),
-    in chunks of ``chunk`` steps with one host sync each. On a CUDA device
+    """Decode from a prefilled state (full or prefix-cached): greedy at
+    ``temperature`` 0 (the argmax over float32 logits, first maximum on
+    ties, as ``jnp.argmax``), else sampled (:func:`sample_token`), in
+    chunks of ``chunk`` steps with one host sync each. On a CUDA device
     with a holder ``graphs`` (e.g. the engine's), each chunk is a replayed
     CUDA graph of it; without one, or with ``capture=False``, the chunks
     run eagerly; ``capture=True`` without a holder or off the card raises.
     The state's cache is written in place."""
-    next_logits, cache, start_pos, done = state
-    B = next_logits.shape[0]
-    dev = next_logits.device
+    sampling = Sampling(temperature, top_p, top_k, seed)
+    B = state.next_logits.shape[0]
+    dev = state.next_logits.device
     capture = dg.resolve_capture(capture, dev, graphs)
-    if int(start_pos.max()) + max_new_tokens > cache.k.shape[2]:
+    if int(state.pos.max()) + max_new_tokens > state.cache.k.shape[2]:
         raise ValueError("decode would write past the KV cache")
     tokens = torch.full((B, max_new_tokens), eos_token_id, dtype=torch.long,
                         device=dev)
     if not capture:
-        st = DecodeState(next_logits.clone(), cache, start_pos.long().clone(),
-                         done.clone())
+        st = DecodeState(state.next_logits.clone(), state.cache,
+                         state.pos.long().clone(), state.done.clone(),
+                         state.step.clone())
         lengths = torch.zeros(B, dtype=torch.long, device=dev)
         for s0 in range(0, max_new_tokens, chunk):
             _dense_steps(params, cfg, st, tokens[:, s0:s0 + chunk],
-                         eos_token_id, lengths)
+                         eos_token_id, sampling, lengths)
             if bool(st.done.all()):
                 break
         return GenerateResult(tokens=tokens, lengths=lengths)
     with graphs.lock:
-        entry = graphs.bind(params, state, eos_token_id)
+        entry = graphs.bind(params, state, eos_token_id, sampling.key())
         st = entry.state
         for s0 in range(0, max_new_tokens, chunk):
             n = min(chunk, max_new_tokens - s0)
             toks = entry.tokens(n)
             graphs.run(entry, n, functools.partial(
                 _dense_steps, params, cfg, st, toks, eos_token_id,
-                entry.lengths), lambda: dg.step_buffers(
-                    params, cfg, B, cache.k.shape[2],
+                sampling, entry.lengths), lambda: dg.step_buffers(
+                    params, cfg, B, state.cache.k.shape[2],
                     sm_count(dev.index or 0)))
             tokens[:, s0:s0 + n] = toks
             if bool(st.done.all()):
@@ -299,8 +415,10 @@ def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
                     max_new_tokens: int = 512, eos_token_id: int = 151645,
                     vision_features: Optional[torch.Tensor] = None,
                     cache_dtype=torch.bfloat16, **decode) -> GenerateResult:
-    """Greedy decode into a cache of L + max_new_tokens slots; ``decode``:
-    :func:`generate_from_state`'s ``chunk``, ``capture`` and ``graphs``."""
+    """Greedy (temperature 0, the eval default) or sampled decode into a
+    cache of L + max_new_tokens slots; ``decode``:
+    :func:`generate_from_state`'s ``temperature``, ``top_p``, ``top_k``,
+    ``seed``, ``chunk``, ``capture`` and ``graphs``."""
     state = start_decode(params, cfg, batch,
                          batch.text_ids.shape[1] + max_new_tokens,
                          vision_features, cache_dtype)
@@ -310,10 +428,9 @@ def generate_greedy(params, cfg: ModelConfig, batch: lv3d.Batch,
 
 # ---------------------------------------------------------------------------
 # The continuous batcher's slot API (JAX ``generate.py:482-682``): an S-slot
-# state whose rows are admitted, decoded together and released. Greedy only
-# (JAX's ``sample_token`` at temperature 0 is the argmax; sampling is
-# ROADMAP A4 / A8). The states are updated in place; a decode chunk makes no
-# host sync and returns its tokens on the device. On the card a chunk is a
+# state whose rows are admitted, decoded together and released, greedy or
+# sampled. The states are updated in place; a decode chunk makes no host
+# sync and returns its tokens on the device. On the card a chunk is a
 # replayed CUDA graph over the state's own tensors, so admission and release
 # write the tensors the graphs read.
 # ---------------------------------------------------------------------------
@@ -332,7 +449,8 @@ def empty_decode_state(cfg: ModelConfig, num_slots: int, max_cache_len: int,
         cache=qwen2.KVCache.zeros(cfg.llm, num_slots, max_cache_len,
                                   dtype=cache_dtype, device=device),
         pos=torch.zeros(num_slots, dtype=torch.long, device=device),
-        done=torch.ones(num_slots, dtype=torch.bool, device=device))
+        done=torch.ones(num_slots, dtype=torch.bool, device=device),
+        step=torch.zeros((), dtype=torch.long, device=device))
 
 
 @torch.inference_mode()
@@ -361,7 +479,8 @@ def release_decode_slot(state: DecodeState, slot: int) -> DecodeState:
 
 
 def _run_chunk(kind: str, steps, params, cfg: ModelConfig, state,
-               chunk: int, eos_token_id: int, capture: Optional[bool],
+               chunk: int, eos_token_id: int, sampling: Sampling,
+               capture: Optional[bool],
                graphs: Optional[dg.DecodeGraphs], cap: int):
     """One chunk of ``steps`` over ``state`` in place, eagerly or as the
     replay of ``graphs``' graph on the state's own tensors; returns (state,
@@ -370,14 +489,15 @@ def _run_chunk(kind: str, steps, params, cfg: ModelConfig, state,
     S = state.next_logits.shape[0]
     if not dg.resolve_capture(capture, dev, graphs):
         toks = torch.empty((S, chunk), dtype=torch.long, device=dev)
-        steps(params, cfg, state, toks, eos_token_id)
+        steps(params, cfg, state, toks, eos_token_id, sampling)
         return state, toks
     with graphs.lock:
-        entry = graphs.adopt(kind, params, state, eos_token_id)
+        entry = graphs.adopt(kind, params, state, eos_token_id,
+                             sampling.key())
         toks = entry.tokens(chunk)
         graphs.run(entry, chunk,
                    functools.partial(steps, params, cfg, state, toks,
-                                     eos_token_id),
+                                     eos_token_id, sampling),
                    lambda: dg.step_buffers(params, cfg, S, cap,
                                            sm_count(dev.index or 0)))
         return state, toks.clone()
@@ -386,10 +506,13 @@ def _run_chunk(kind: str, steps, params, cfg: ModelConfig, state,
 @torch.inference_mode()
 def decode_chunk(params, cfg: ModelConfig, state: DecodeState,
                  chunk: int = 16, eos_token_id: int = 151645,
+                 temperature: float = 0.0, top_p: float = 1.0,
+                 top_k: int = 0, seed: int = 0,
                  capture: Optional[bool] = None,
                  graphs: Optional[dg.DecodeGraphs] = None):
-    """Emit ``chunk`` greedy tokens from every row of a dense S-slot state
-    (done rows emit EOS); returns (state, tokens (S, chunk)): the same
+    """Emit ``chunk`` tokens, greedy or sampled (:func:`sample_token` at
+    the state's step), from every row of a dense S-slot state (done rows
+    emit EOS); returns (state, tokens (S, chunk)): the same
     state, its tensors updated in place. On a CUDA device with a holder
     ``graphs`` (the batcher's), the chunk is a replay of its captured graph
     for this state; without one, or with ``capture=False``, it runs
@@ -400,7 +523,8 @@ def decode_chunk(params, cfg: ModelConfig, state: DecodeState,
     writes; here they land in the row's last slot, which the next
     :func:`insert_decode_slot` rewrites with the whole row."""
     return _run_chunk("dense", _dense_steps, params, cfg, state, chunk,
-                      eos_token_id, capture, graphs, state.cache.k.shape[2])
+                      eos_token_id, Sampling(temperature, top_p, top_k, seed),
+                      capture, graphs, state.cache.k.shape[2])
 
 
 class PagedDecodeState(NamedTuple):
@@ -410,6 +534,7 @@ class PagedDecodeState(NamedTuple):
     next_logits: torch.Tensor   # (S, vocab)
     cache: paged_kv.PagedKVCache
     done: torch.Tensor          # (S,) bool
+    step: torch.Tensor          # () int64 steps decoded
 
 
 def empty_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
@@ -424,7 +549,8 @@ def empty_paged_state(cfg: ModelConfig, num_slots: int, num_pages: int,
         cache=paged_kv.PagedKVCache.zeros(cfg.llm, num_pages, page_size,
                                           num_slots, max_pages,
                                           dtype=cache_dtype, device=device),
-        done=torch.ones(num_slots, dtype=torch.bool, device=device))
+        done=torch.ones(num_slots, dtype=torch.bool, device=device),
+        step=torch.zeros((), dtype=torch.long, device=device))
 
 
 @torch.inference_mode()
@@ -465,13 +591,15 @@ def release_paged_slot(state: PagedDecodeState,
 
 
 def _paged_steps(params, cfg: ModelConfig, state: PagedDecodeState,
-                 toks: torch.Tensor, eos_token_id: int) -> None:
-    """``toks.shape[1]`` greedy steps over the page pools, every tensor of
+                 toks: torch.Tensor, eos_token_id: int,
+                 sampling: Sampling = GREEDY) -> None:
+    """``toks.shape[1]`` decode steps over the page pools, every tensor of
     the state updated in place; dead slots neither advance their length
     nor touch their pages."""
-    next_logits, cache, done = state
+    next_logits, cache, done = state.next_logits, state.cache, state.done
     for i in range(toks.shape[1]):
-        tok = _greedy(next_logits, done, eos_token_id)
+        tok = _next_token(next_logits, done, eos_token_id, sampling,
+                          state.step)
         toks[:, i] = tok
         hidden = qwen2.qwen2_forward(
             params["llm"], cfg.llm,
@@ -480,11 +608,14 @@ def _paged_steps(params, cfg: ModelConfig, state: PagedDecodeState,
             paged_cache=cache, paged_active=~done)
         done.logical_or_(tok == eos_token_id)
         next_logits.copy_(qwen2.lm_head(params["llm"], hidden)[:, 0])
+        state.step.add_(1)
 
 
 @torch.inference_mode()
 def paged_decode_chunk(params, cfg: ModelConfig, state: PagedDecodeState,
                        chunk: int = 16, eos_token_id: int = 151645,
+                       temperature: float = 0.0, top_p: float = 1.0,
+                       top_k: int = 0, seed: int = 0,
                        capture: Optional[bool] = None,
                        graphs: Optional[dg.DecodeGraphs] = None):
     """:func:`decode_chunk` over the page pools: the same emissions (EOS
@@ -494,5 +625,5 @@ def paged_decode_chunk(params, cfg: ModelConfig, state: PagedDecodeState,
     paged batcher reserves the whole budget at admission)."""
     cache = state.cache
     return _run_chunk("paged", _paged_steps, params, cfg, state, chunk,
-                      eos_token_id, capture, graphs,
-                      cache.max_pages * cache.page_size)
+                      eos_token_id, Sampling(temperature, top_p, top_k, seed),
+                      capture, graphs, cache.max_pages * cache.page_size)

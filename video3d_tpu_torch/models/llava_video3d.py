@@ -4,8 +4,9 @@
 the answer, grounding and LM training paths run: mlpNx_gelu projector,
 bilinear pool, sin3d PE, GRID newlines, the ``<coord>`` box-input PE, the
 video branch of ``forward_hidden``, ``forward``, the LM losses, plain and
-chunked, and the grounding forwards: object patch masks, masked-mean
-object features with their box-center PE, and the three ground heads).
+chunked, the grounding forwards: object patch masks, masked-mean object
+features with their box-center PE, and the three ground heads, and the
+grounding losses, InfoNCE and the weighted BCE).
 
 Parameter dict: ``vision`` (siglip), ``projector {w1, b1, ..., wN, bN}``,
 ``image_newline (D,)``, ``llm`` (qwen2), and where the configuration has
@@ -380,6 +381,38 @@ def ground_scores(params: Params, query_hidden: torch.Tensor,
     else:
         raise ValueError(cfg.ground_head)
     return scores.masked_fill(~valid, float("-inf"))
+
+
+def bce_ground_loss(scores: torch.Tensor,
+                    target_multi_hot: torch.Tensor) -> torch.Tensor:
+    """Weighted BCE for the MLP / SCORE heads (llava_qwen.py:313-322; JAX
+    ``bce_ground_loss``): positives reweighted by (N - P) / P over the
+    finite (valid) scores, mean over them."""
+    valid = torch.isfinite(scores)
+    s = torch.where(valid, scores, torch.zeros_like(scores)).float()
+    t = target_multi_hot[: scores.shape[0]].float()
+    n_pos = (t * valid).sum()
+    n = valid.sum()
+    one = torch.ones((), device=s.device)
+    pos_w = torch.where(n_pos > 0, (n - n_pos) / torch.clamp(n_pos, min=1),
+                        one)
+    weight = torch.where(t > 0, pos_w, one)
+    bce = torch.clamp(s, min=0) - s * t + torch.log1p(torch.exp(-s.abs()))
+    return (bce * weight * valid).sum() / torch.clamp(valid.sum(), min=1)
+
+
+def infonce_loss(scores: torch.Tensor, target_multi_hot: torch.Tensor,
+                 temperature: float) -> torch.Tensor:
+    """-log(sum_pos exp(s/t) / sum_all exp(s/t)) (llava_qwen.py:304-308;
+    JAX ``infonce_loss``) by logsumexps, excluded entries filled with
+    -1e30. ``target_multi_hot`` is (N+1,), the zero-target slot set when
+    no object is positive. A padded (-inf) score gets a zero gradient:
+    ``torch.where`` passes none to the branch it did not take."""
+    s = scores.float() / temperature
+    fill = torch.full_like(s, -1e30)
+    log_all = torch.logsumexp(torch.where(torch.isfinite(s), s, fill), -1)
+    log_pos = torch.logsumexp(torch.where(target_multi_hot > 0, s, fill), -1)
+    return log_all - log_pos
 
 
 def init_ground_head(hidden: int, device, generator: torch.Generator,

@@ -28,11 +28,13 @@ miss) runs on a small thread pool, off the scheduler thread. Answers equal
 the sequential engine's: prefill is per request, and the decode rows are
 independent.
 
-Not ported: speculative decoding (``draft_params``, the engine's
-self-draft; ROADMAP A8), Sarathi-style chunked prefill
-(``chunked_prefill``; ROADMAP A4), sampling (A4 / A8; the batcher is
-greedy), and the scan2cap inputs ``box_input`` / ``coord_token_id``
-(ROADMAP A5). Each raises.
+Every decode chunk draws with the engine's sampling settings
+(``EngineConfig.temperature`` / ``top_p`` / ``top_k``; greedy at
+temperature 0; as in JAX, ``num_beams`` does not apply to the batcher),
+and a request may carry a Scan2Cap ``box_input`` with its
+``coord_token_id``, as in JAX. Not ported: speculative decoding
+(``draft_params``, the engine's self-draft; ROADMAP A8) and Sarathi-style
+chunked prefill (``chunked_prefill``; ROADMAP A4). Each raises.
 """
 
 from __future__ import annotations
@@ -63,8 +65,12 @@ class BatchedRequest:
 
     _DONE = object()
 
-    def __init__(self, record, max_new_tokens: int):
+    def __init__(self, record, box_input, coord_token_id,
+                 max_new_tokens: int):
         self.record = record
+        # Scan2Cap: the object's (3,) center and the <coord> token's id
+        self.box_input = box_input
+        self.coord_token_id = coord_token_id
         self.max_new_tokens = max_new_tokens
         self._q: "queue.Queue" = queue.Queue()
         self.tokens: list = []
@@ -208,12 +214,11 @@ class ContinuousBatcher:
     def submit(self, record, box_input=None, coord_token_id=None,
                max_new_tokens: Optional[int] = None) -> BatchedRequest:
         """Queue a record; its preprocessing runs on the prep pool (JAX
-        :277)."""
-        if box_input is not None or coord_token_id is not None:
-            raise NotImplementedError("box inputs (scan2cap) are not ported "
-                                      "(ROADMAP A5)")
+        :277). ``box_input``: a Scan2Cap object's (3,) center in world
+        coordinates, its PE added at the ``coord_token_id`` slot."""
         req = BatchedRequest(
-            record, self.engine.ecfg.max_new_tokens if max_new_tokens is None
+            record, box_input, coord_token_id,
+            self.engine.ecfg.max_new_tokens if max_new_tokens is None
             else max(0, int(max_new_tokens)))   # 0 is a valid budget
 
         def prepare():
@@ -222,9 +227,11 @@ class ContinuousBatcher:
                 if eng._prefix_cache_on(req.record):
                     # scene-prefix path: a hit skips video IO, geometry and
                     # the tower here and most of the prefill in _admit
-                    prepared = eng.prepare_request(req.record)
+                    prepared = eng.prepare_request(
+                        req.record, req.box_input, req.coord_token_id)
                 else:
-                    prepared = eng._prepare_generation(req.record)
+                    prepared = eng._prepare_generation(
+                        req.record, req.box_input, req.coord_token_id)
                 if self._stop.is_set():
                     raise RuntimeError("batcher shut down")
                 self._pending.put((req, prepared))
@@ -511,7 +518,8 @@ class ContinuousBatcher:
                 self.state, toks = chunk_fn(eng.params, eng.cfg, self.state,
                                             chunk=self.chunk,
                                             eos_token_id=eos,
-                                            graphs=self._graphs)
+                                            graphs=self._graphs,
+                                            **eng.ecfg.sampling())
                 rows = toks.tolist()              # the chunk's one host sync
             except Exception as e:  # noqa: BLE001 — keep the loop alive
                 # fail every in-flight request, reset the state, go on

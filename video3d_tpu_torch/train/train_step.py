@@ -1,6 +1,8 @@
-"""Training step: LM loss with rematerialization, gradients, optimizer
+"""Training step: a loss with rematerialization, gradients, optimizer
 update. Counterpart of ``video3d_tpu/train/train_step.py`` on one device
-(no mesh, no grounding loss, no ``scan_layers``).
+(no mesh, no ``scan_layers``): :func:`optimizer_step` takes the loss as a
+function of the parameters, so the LM step (:func:`train_step`) and the
+trainer's grounding step share the gradient and optimizer code.
 
 The step mutates the state it is given: gradients are taken with
 ``torch.autograd.grad`` over the parameter leaves, the optimizer computes
@@ -11,7 +13,7 @@ get gradients; each leaf requires grad only inside the step.
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -67,25 +69,22 @@ def loss_fn(params, cfg: ModelConfig, batch: lv3d.Batch, remat: bool = True,
     return lm, {"lm_loss": lm}
 
 
-def train_step(state: TrainState, batch: lv3d.Batch, cfg: ModelConfig, tx,
-               remat: bool = True, force_chunked_ce: bool = False,
-               compute_dtype=None
-               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One optimizer (mini-)step. Returns (new_state, metrics); the state's
-    tensors are updated in place. ``compute_dtype=torch.bfloat16`` with f32
-    ``state.params`` gives mixed-precision training (f32 master weights,
-    bf16 compute; see :func:`cast_to_compute`). ``metrics["grad_norm"]`` is
-    the global norm of the raw gradients. The two halves run under
-    ``torch.profiler.record_function`` ranges ``train_step/loss_and_grads``
-    and ``train_step/optimizer`` (cheap when no profiler runs)."""
+def optimizer_step(state: TrainState, tx, objective: Callable
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One optimizer (mini-)step of ``objective(params) -> (loss,
+    metrics)``: the gradients of ``loss`` over the floating leaves (zeros
+    for leaves it does not reach), ``metrics["grad_norm"]`` their global
+    norm, and ``tx``'s update added to the parameters in place. The two
+    halves run under ``torch.profiler.record_function`` ranges
+    ``train_step/loss_and_grads`` and ``train_step/optimizer`` (cheap when
+    no profiler runs)."""
     leaves = tree_leaves(state.params)
     wants = [t.is_floating_point() for t in leaves]
     for t, w in zip(leaves, wants):
         t.requires_grad_(w)
     try:
         with record_function("train_step/loss_and_grads"):
-            loss, metrics = loss_fn(state.params, cfg, batch, remat,
-                                    force_chunked_ce, compute_dtype)
+            loss, metrics = objective(state.params)
             diff = [t for t, w in zip(leaves, wants) if w]
             got = iter(torch.autograd.grad(loss, diff, allow_unused=True))
     finally:
@@ -102,3 +101,17 @@ def train_step(state: TrainState, batch: lv3d.Batch, cfg: ModelConfig, tx,
                                        state.opt_state, state.params)
         params = apply_updates(state.params, updates)
     return TrainState(params, opt_state, state.step + 1), metrics
+
+
+def train_step(state: TrainState, batch: lv3d.Batch, cfg: ModelConfig, tx,
+               remat: bool = True, force_chunked_ce: bool = False,
+               compute_dtype=None
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One LM optimizer (mini-)step (:func:`optimizer_step` of
+    :func:`loss_fn`). Returns (new_state, metrics); the state's tensors
+    are updated in place. ``compute_dtype=torch.bfloat16`` with f32
+    ``state.params`` gives mixed-precision training (f32 master weights,
+    bf16 compute; see :func:`cast_to_compute`). ``metrics["grad_norm"]``
+    is the global norm of the raw gradients."""
+    return optimizer_step(state, tx, lambda p: loss_fn(
+        p, cfg, batch, remat, force_chunked_ce, compute_dtype))

@@ -2,15 +2,17 @@
 logging, checkpoint / resume, preemption.
 
 Counterpart of ``video3d_tpu/train/trainer.py`` (the reference recipe,
-train_3d.py::train + LLaVATrainer) for generative batches trained on the LM
-cross-entropy: f32 master weights with bf16 compute, rematerialization,
-``MultiSteps`` accumulation, the epoch order of the samplers, resume that
-skips the batches already trained, ``use_pos_skipping``, a metrics jsonl,
-SIGTERM -> checkpoint -> exit, and the final bf16 export. Not ported, and
-raising ``NotImplementedError`` with their ROADMAP item: LoRA / QLoRA
-(``lora_r > 0``, A9), grounding batches (A7), and meshes (``dp``, ``tp``,
-``sp`` > 1, A12). The loop runs on the card unless the caller passes a CPU
-device.
+train_3d.py::train + LLaVATrainer): generative batches train the LM
+cross-entropy, grounding batches (ScanRefer / Multi3DRefer) the InfoNCE
+ground head exactly like the reference's ``predict_box`` path
+(llava_qwen.py:302-331); f32 master weights with bf16 compute,
+rematerialization, ``MultiSteps`` accumulation over both kinds of
+mini-step, the epoch order of the samplers, resume that skips the batches
+already trained, ``use_pos_skipping``, a metrics jsonl, SIGTERM ->
+checkpoint -> exit, the final bf16 export, and ``evaluate()``. Not ported,
+and raising ``NotImplementedError`` with their ROADMAP item: LoRA / QLoRA
+(``lora_r > 0``, A9) and meshes (``dp``, ``tp``, ``sp`` > 1, A12). The
+loop runs on the card unless the caller passes a CPU device.
 """
 
 from __future__ import annotations
@@ -20,12 +22,12 @@ import json
 import os
 import signal
 import time
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from video3d_tpu_torch.config import ModelConfig
+from video3d_tpu_torch.config import GroundHeadType, ModelConfig
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.params import resolve_device
 from video3d_tpu_torch.train import checkpoint as ckpt
@@ -36,8 +38,9 @@ from video3d_tpu_torch.train.samplers import (
     batches_from_order, get_length_grouped_indices,
     get_modality_length_grouped_indices, get_task_length_grouped_indices)
 from video3d_tpu_torch.train.train_step import (TrainState,
-                                                create_train_state,
-                                                train_step)
+                                                cast_to_compute,
+                                                create_train_state, loss_fn,
+                                                optimizer_step, train_step)
 
 
 @dataclasses.dataclass
@@ -66,6 +69,8 @@ class TrainingConfig:
     # offsets to position ids before/after a random split point. 0 disables.
     pos_skipping_range: int = 0
     lora_r: int = 0
+    # the ground mini-step's loss is this times the InfoNCE loss
+    grounding_loss_weight: float = 1.0
 
 
 def apply_pos_skipping(position_ids: np.ndarray, skip_range: int,
@@ -82,15 +87,17 @@ def apply_pos_skipping(position_ids: np.ndarray, skip_range: int,
     return out
 
 
+def _tensor(arrays: Dict[str, np.ndarray], name: str, device, dtype=None):
+    x = torch.from_numpy(np.asarray(arrays[name]))
+    return x.to(device=device, dtype=dtype or x.dtype)
+
+
 def to_batch(arrays: Dict[str, np.ndarray], device) -> lv3d.Batch:
-    """The collator's host arrays -> a model ``Batch`` on ``device``."""
-    if "ground_slot" in arrays:
-        raise NotImplementedError("grounding batches are not ported "
-                                  "(ROADMAP A7)")
+    """The collator's host arrays -> a model ``Batch`` on ``device`` (a
+    grounding batch's extras: :func:`ground_extras`)."""
 
     def t(name, dtype=None):
-        x = torch.from_numpy(np.asarray(arrays[name]))
-        return x.to(device=device, dtype=dtype or x.dtype)
+        return _tensor(arrays, name, device, dtype)
 
     return lv3d.Batch(
         images=t("images"), patch_coords=t("patch_coords"),
@@ -99,6 +106,49 @@ def to_batch(arrays: Dict[str, np.ndarray], device) -> lv3d.Batch:
         position_ids=t("position_ids"), seq_len=t("seq_len"),
         labels=t("labels", torch.long), coord_mask=t("coord_mask"),
         box_input=t("box_input"))
+
+
+class GroundExtras(NamedTuple):
+    """A grounding batch's targets beside its ``Batch`` (JAX passes the
+    same five arrays to its ground step)."""
+
+    world_coords: torch.Tensor    # (B, V, S, S, 3) per-pixel coordinates
+    objects: torch.Tensor         # (B, N, 6) padded proposals
+    objects_valid: torch.Tensor   # (B, N) bool
+    ground_slot: torch.Tensor     # (B,) int64 spliced <ground> index
+    box_label_hot: torch.Tensor   # (B, N+1) multi-hot, slot N zero target
+
+
+def ground_extras(arrays: Dict[str, np.ndarray],
+                  device) -> Optional[GroundExtras]:
+    """The grounding extras of a collated batch on ``device``, or None for
+    a batch without a ``ground_slot`` (a generative batch)."""
+    if "ground_slot" not in arrays:
+        return None
+    return GroundExtras(*(
+        _tensor(arrays, name, device, torch.long if name == "ground_slot"
+                else None)
+        for name in ("world_coords_full", "objects", "objects_valid",
+                     "ground_slot", "box_label_hot")))
+
+
+def grounding_loss_fn(params, cfg: ModelConfig, batch: lv3d.Batch,
+                      extras: GroundExtras, remat: bool = True):
+    """InfoNCE grounding loss of batch row 0 (JAX ``grounding_loss_fn``,
+    llava_qwen.py:294-331): the full forward of the whole batch, then the
+    scores of row 0's objects at its ``<ground>`` slot. As in JAX, rows 1..
+    of a larger batch are computed and dropped. Only the INFONCE head has
+    this loss: the MLP and SCORE heads score (N,) objects against the
+    (N+1,) target, which JAX cannot trace either."""
+    if cfg.ground_head != GroundHeadType.INFONCE:
+        raise ValueError(f"the grounding train step needs the INFONCE "
+                         f"ground head, not {cfg.ground_head.name}")
+    scores = lv3d.grounding_forward(
+        params, cfg, batch, extras.world_coords[0], extras.objects[0],
+        extras.objects_valid[0], extras.ground_slot[0], remat=remat)
+    loss = lv3d.infonce_loss(scores, extras.box_label_hot[0],
+                             cfg.ground_head_temperature)
+    return loss, {"ground_loss": loss}
 
 
 def _cast_tree(tree, src: torch.dtype, dst: torch.dtype, device):
@@ -161,11 +211,30 @@ class Trainer:
             self.tx = base_tx
         self.state = create_train_state(params, self.tx)
         self._step_fn = self._step
+        self._ground_step_fn = self._ground_step
 
     def _step(self, state: TrainState, batch: lv3d.Batch):
         return train_step(state, batch, self.cfg, self.tx,
                           remat=self.tcfg.remat,
                           compute_dtype=self._compute_dtype)
+
+    def _ground_step(self, state: TrainState, batch: lv3d.Batch,
+                     extras: GroundExtras):
+        """A grounding mini-step (JAX ``_build_ground_step``): the weighted
+        InfoNCE loss through the same optimizer as the LM steps, so
+        ``MultiSteps`` counts both kinds of mini-step alike. Metrics: the
+        unweighted ``ground_loss`` and ``grad_norm``."""
+        w = self.tcfg.grounding_loss_weight
+        cdt = self._compute_dtype
+
+        def objective(p):
+            if cdt is not None:
+                p = cast_to_compute(p, cdt)
+            loss, metrics = grounding_loss_fn(p, self.cfg, batch, extras,
+                                              self.tcfg.remat)
+            return w * loss, metrics
+
+        return optimizer_step(state, self.tx, objective)
 
     # ------------- data order -------------
 
@@ -186,6 +255,28 @@ class Trainer:
 
     def _to_batch(self, arrays: Dict[str, np.ndarray]) -> lv3d.Batch:
         return to_batch(arrays, self.device)
+
+    # ------------- evaluation (llava_trainer_eval.py equivalent) -------------
+
+    @torch.no_grad()
+    def evaluate(self, eval_dataset=None,
+                 max_batches: Optional[int] = None) -> Dict[str, float]:
+        """Mean LM loss over ``eval_dataset`` (default the training set)
+        in consecutive batches of ``per_device_batch_size``, without
+        updates or remat (JAX ``evaluate``, its non-LoRA form)."""
+        dataset = eval_dataset or self.dataset
+        bs = self.tcfg.per_device_batch_size
+        losses = []
+        for s in range(0, len(dataset) - bs + 1, bs):
+            if max_batches is not None and len(losses) >= max_batches:
+                break
+            batch = self._to_batch(self.collator(
+                [dataset[i] for i in range(s, s + bs)]))
+            losses.append(float(loss_fn(
+                self.state.params, self.cfg, batch, remat=False,
+                compute_dtype=self._compute_dtype)[0]))
+        return {"eval_loss": float(np.mean(losses)) if losses
+                else float("nan"), "eval_batches": len(losses)}
 
     # ------------- main loop -------------
 
@@ -260,8 +351,13 @@ class Trainer:
                         arrays["position_ids"],
                         self.tcfg.pos_skipping_range, ps_rng)
                 batch = self._to_batch(arrays)
+                extras = ground_extras(arrays, self.device)
                 t0 = time.time()
-                self.state, metrics = self._step_fn(self.state, batch)
+                if extras is not None:
+                    self.state, metrics = self._ground_step_fn(
+                        self.state, batch, extras)
+                else:
+                    self.state, metrics = self._step_fn(self.state, batch)
                 global_step += 1
                 if global_step % self.tcfg.logging_steps == 0:
                     vals = {k: float(v) for k, v in metrics.items()}
