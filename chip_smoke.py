@@ -30,7 +30,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    B2 folded and B5 (all three forms) also at the cases that exercise their
    splits over keys (a split boundary inside the chunk's own keys, a batch
    row with empty splits, B5 at B=2) and 128-row tiles that straddle batch
-   rows, each case called twice and held to the same bits; B3 and B7 (all
+   rows, each case called twice and held to the same bits; B2 folded (all
+   three forms) also at the speculative verify shape (B=8, L = K+1 = 5,
+   each row at its own offset in 6716-6801, layer 27), held the same way
+   and timed beside its bound; B3 and B7 (all
    three forms) each case called twice too, B3 also timed at phase 5's
    B=8 rows and B7's DRAM and logical bytes (the aliased pages once, or
    once per slot) printed;
@@ -89,9 +92,12 @@ Phases, each of which raises on failure (the process then exits non-zero):
    12's ScanRefer prefix run (1 miss, 3 hits, B2 folded int8), with exact
    launch counts of B4 (its B>1 form on every decode projection and on
    heads of 2-32 rows, its matvec on one-row heads) and the int8 kernels
-   and the first-step logit check at its own bound; and one beam answer
+   and the first-step logit check at its own bound; one beam answer
    (phase 13's K) over the int8 cache, launch counts exact, its score's
-   distance to a teacher-forced recompute printed.
+   distance to a teacher-forced recompute printed; and phase 14's
+   speculation and chunked prefill over the int8 cache: one greedy
+   speculative answer (self-draft k=4) and one chunked admission, with
+   exact launch counts of B2 folded int8, B3 int8 and B4.
 9. The int4 configuration: the int8 model is freed and the same model is
    built with int4 LLM projections and lm_head (``init_model(bits=4)``,
    groups of 512 input rows); phases 4, 5 and 8 run again with the bf16
@@ -151,6 +157,33 @@ Phases, each of which raises on failure (the process then exits non-zero):
    the engine's runs; greedy against sampled ms per step, the token pick
    alone, beam ms per step, the reorder's bytes and the peak memory
    printed.
+14. Speculative decoding and chunked prefill (after phase 13, on phase 4's
+   bf16 model): greedy speculation (K = 4) through ``generate_answer`` on
+   phase 4's two questions, first with the full-depth self-draft (the
+   target its own draft), then with a 4-layer self-draft whose head is cut
+   to 32768 tokens, each answer equal to phase 4's greedy ids up to a
+   near-tie (the two ids' logits within twice the largest distance
+   between B3 steps and B2-folded verify blocks along phase 4's ids,
+   measured here); control: the full-depth run with every draft id moved
+   to the next vocabulary id must reject its first draft in >= 90% of
+   rounds; acceptance, target forwards and ms per emitted token beside
+   phase 4's. Sampled speculation (temperature 0.7, top-p 0.9, top-k 50):
+   every id inside its position's warped target support by a
+   teacher-forced recompute, budgets held; top_k = 1 gives the greedy ids.
+   The paged speculative batcher (8 slots, self-draft k=4, shared prefix
+   pages) on 16 requests over two scenes against the sequential
+   speculative engine, every page back. ``start_request_chunked`` at chunk
+   lengths 512 and 2048 against ``start_request``: first-step logits
+   within LOGIT_ATOL, the 32 greedy ids equal up to a near-tie. Phase 8's
+   requests and budgets, plus one LONG_BUDGET stream (EOS off; both
+   scenes' features and the first scene's prefix cached beforehand),
+   through the paged batcher with and without ``chunked_prefill=512``,
+   the second wave submitted once the first decodes: every request
+   returns, answers equal up to a near-tie, every page back, decode
+   chunks run inside a cold admission's job; the longest decode stall
+   over a cold admission printed for both. Launch
+   counts exact for the engine's runs; the phase's seconds and peak
+   memory printed.
 7. Training: the int4 model is freed; ``ModelConfig()`` cut to
    ``TRAIN_LAYERS`` decoder layers with its INFONCE ground head, f32
    master weights from a seeded generator, ``Trainer.train()`` with bf16
@@ -265,6 +298,8 @@ PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
 MAX_NEW = 32          # answer budget of both main paths
+#: numbers one phase measures for a later one to print beside its own
+MEASURED: dict = {}
 DECODE_STEPS = 8      # steps of the captured-vs-uncaptured chunks
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
 # Inputs of the B2 folded and B5 checks. Queries at three times a unit
@@ -748,6 +783,33 @@ def check_decode(dev):
 FOLDED_CASES = ((64, [6716], [6756]), (64, [6716, 5000], [6756, 5064]),
                 (256, [6716], [6916]), (64, [200], [264]),
                 (64, [6716, 100], [6756, 164]))
+# the speculative verify block (phase 14, K = SPEC_K drafts): L = K+1 = 5
+# query rows per batch row of B=8, each row at its own offset in 6.7k-6.8k
+SPEC_K = 4
+VERIFY_OFFSETS = [6716, 6731, 6745, 6752, 6768, 6779, 6790, 6801]
+VERIFY_CASE = (SPEC_K + 1, VERIFY_OFFSETS,
+               [o + SPEC_K + 1 for o in VERIFY_OFFSETS])
+FOLDED_CASES += (VERIFY_CASE,)
+#: B2 folded's times at the verify shape, by kernel name (phase 3)
+VERIFY_ROWS: dict = {}
+
+
+def _time_verify(name: str, args) -> None:
+    """B2 folded (any form) at the verify shape: warm and L2-flushed ms,
+    the plain version's ms and the bound, kept in VERIFY_ROWS."""
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    warm, flushed = _kernel_ms(lambda: fa.flash_attention_gqa_folded(*args),
+                               50)
+    plain = _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*args), 10)
+    bound = _folded_bound(*args)
+    VERIFY_ROWS[name] = {"ms": warm, "ms_l2_flushed": flushed,
+                         "plain_ms": plain, "bound_ms": bound["bound_ms"],
+                         "bound_by": bound["bound_by"]}
+    print(f"  {name} at the verify shape (B=8, L={SPEC_K + 1}): {warm:.4f} "
+          f"ms warm, {flushed:.4f} ms L2 flushed, plain {plain:.4f} ms, "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+          f"{bound['bytes'] / 1e6:.1f} MB)", flush=True)
 # B5's cases (P, suffix_lens) at L=64: B=8, whose 128-row CTAs straddle
 # batch rows (448 rows per batch row); B=3 with P not a multiple of the key
 # tile; B=2, whose prefix pass splits over keys
@@ -851,6 +913,8 @@ def check_folded(dev):
         worst = max(worst, err)
         if timed is None:
             timed = args
+        if (L, offs, lens) == VERIFY_CASE:
+            _time_verify("flash_attention_folded", args)
     return worst, (
         _kernel_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
         _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10)
@@ -1388,6 +1452,8 @@ def check_folded_int8(dev, bits: int = 8):
         worst = max(worst, err)
         if timed is None:
             timed = args
+        if (L, offs, lens) == VERIFY_CASE:
+            _time_verify(f"flash_attention_folded_int{bits}", args)
     return worst, (
         _kernel_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
         _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*timed), 10)
@@ -1841,6 +1907,8 @@ def check_kernels():
                   flush=True)
         rows[name] = {"max_abs_err": err, "ms": ms, "ms_l2_flushed": flushed,
                       "plain_ms": plain_ms, **bound, "library_ms": library_ms}
+        if name in VERIFY_ROWS:
+            rows[name]["verify_shape"] = VERIFY_ROWS[name]
         torch.cuda.empty_cache()
     print("the int8 kernels at phase 11's 32k shapes (B3 and B7 also "
           "timed):", flush=True)
@@ -2020,6 +2088,11 @@ def _make_engine(params, cfg, root: str, **ecfg):
             self.results = []
             self.first_logits = []
             self.grounded = []        # (compacted scores, objects) per query
+            self.decoded = []         # the id lists decoded to text
+
+        def _decode_text(self, toks):
+            self.decoded.append([int(t) for t in toks])
+            return super()._decode_text(toks)
 
         def _generate(self, batch, vision_features=None):
             res = super()._generate(batch, vision_features)
@@ -2295,6 +2368,9 @@ def run_main_path(params, cfg, root: str, info,
         steps = _forwards(res)
         torch.cuda.synchronize()
         walls[tag] = ((time.perf_counter() - t0) - t_pre) / steps * 1e3
+    if kv_cache_dtype == "bfloat16" and not isinstance(
+            params["llm"]["lm_head"], dict):
+        MEASURED.setdefault("b1_ms_per_token", walls["captured"])
     print(f"  vision (tower+projector+pool+PE, {batch.images.shape[1]} "
           f"frames) {t_vis * 1e3:.1f} ms; LLM prefill {seq_len} tokens "
           f"(bucket {batch.text_ids.shape[1]}) {t_pre * 1e3:.1f} ms = "
@@ -3193,24 +3269,41 @@ def _teacher_forced(params, cfg, batch, vf, cache_dtype, seq):
     from video3d_tpu_torch.models import qwen2
 
     n = len(seq)
-    chunk = -(-n // 64) * 64          # a suffix bucket's multiple
+    dev = batch.text_ids.device
+    logp = torch.log_softmax(_logits_along(params, cfg, batch, vf,
+                                           cache_dtype, seq), -1)
+    ids = torch.tensor(seq, device=dev)
+    rows = torch.arange(n, device=dev)
+    return logp[rows, ids], logp[rows + 1, ids]
+
+
+def _logits_along(params, cfg, batch, vf, cache_dtype, seq):
+    """(len(seq) + 1, V) float32 logits after a B=1 prompt and each prefix
+    of the ids ``seq``: its full prefill and one cached forward of ``seq``
+    (padded to a multiple of 64, B2 folded)."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+
+    n = len(seq)
+    chunk = max(64, -(-n // 64) * 64)     # a suffix bucket's multiple
     dev = batch.text_ids.device
     with torch.inference_mode():
         first, cache, pos = gen.prefill_multimodal(
             params, cfg, batch, batch.text_ids.shape[1] + chunk, vf,
             cache_dtype)
+        if n == 0:
+            return first.float()
         ids = torch.tensor([seq + seq[-1:] * (chunk - n)], device=dev)
         at = (pos.long() + torch.arange(chunk, device=dev))[None]
         hidden = qwen2.qwen2_forward(
             params["llm"], cfg.llm, qwen2.embed_tokens(params["llm"], ids),
             at[..., None].expand(1, chunk, 3), kv_cache=cache,
             cache_positions=at, kv_len=pos + n, contiguous_update=True)
-        logits = torch.cat([first[:, None],
-                            qwen2.lm_head(params["llm"], hidden[:, :n])],
-                           1)[0]
-        logp = torch.log_softmax(logits.float(), -1)
-        rows = torch.arange(n, device=dev)
-        return logp[rows, ids[0, :n]], logp[rows + 1, ids[0, :n]]
+        return torch.cat([first[:, None],
+                          qwen2.lm_head(params["llm"], hidden[:, :n])],
+                         1)[0].float()
 
 
 def _check_beam_scores(name, params, cfg, engine, questions, res,
@@ -3539,6 +3632,752 @@ def run_decode_modes(params, cfg, root: str, info, ground_info,
     return launches
 
 
+# phase 14: speculative decoding and chunked prefill, on phase 4's bf16
+# model. SPEC_K (phase 3's verify shape) drafted tokens per round; the
+# fast self-draft is the target's first SPEC_DRAFT_LAYERS layers with its
+# head cut to SPEC_DRAFT_VOCAB tokens
+SPEC_DRAFT_LAYERS = 4
+SPEC_DRAFT_VOCAB = 32768
+CHUNK_LENS = (512, 2048)       # start_request_chunked's chunk lengths
+SERVE_CHUNKED = 512            # the chunked batcher's chunk
+# phase 14's traffic adds to phase 8's requests one stream of this many
+# tokens, submitted first, so that decode still runs when the second
+# wave's cold admission comes (phase 8's answers are over by then); EOS is
+# off there, so every request runs to its budget
+LONG_BUDGET = 32 * MAX_NEW
+SPEC_SERVE_ROUNDS = 2          # speculative rounds per batcher chunk
+# the shifted-draft control: each draft id replaced by the next vocabulary
+# id, with the full-depth self-draft (whose drafts are the target's own
+# ids); at least this share of rounds must reject the first draft
+SHIFT_REJECT_MIN = 0.9
+# Greedy speculation against phase 4's greedy ids: the verify block runs B2
+# folded, a plain step B3, with other bf16 reduction orders. Phase 14
+# measures both paths' logits along phase 4's ids (one-token steps against
+# verify-shaped blocks of K+1) and takes twice their largest distance as
+# the near-tie bound: the ids may differ first only where the two ids'
+# logits lie within it. Two paths that round differently in every layer
+# (a suffix over the cached prefix or a chunked prefill against a full
+# prefill, the paged verify's plain gather against B2 folded) are held to
+# twice the suffix path's LOGIT_ATOL instead.
+CROSS_TIE = 2 * LOGIT_ATOL
+
+
+def _with_eos(ids, eos: int, budget: int):
+    """An answer's ids with its EOS when it ended before ``budget``."""
+    ids = [int(t) for t in ids][:budget]
+    return ids + [eos] if len(ids) < budget else ids
+
+
+def _first_mismatch(a, b) -> Optional[int]:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def _near_tie_check(name: str, params, cfg, engine, q, want, got,
+                    bound: float, logits=None) -> bool:
+    """``got`` equals ``want`` (id lists with their EOS) up to a near-tie:
+    at the first position where they differ, the two ids' logits,
+    recomputed along the common prefix by a full prefill and one cached
+    forward (or read from ``logits`` (n, V) along ``want``), lie within
+    ``bound``. Returns whether the ids were equal."""
+    m = _first_mismatch(want, got)
+    if m is None:
+        _check(name, len(want) == len(got),
+               f"the same {len(want)} ids")
+        return True
+    if logits is None:
+        batch, vf = engine._prepare_generation(q)
+        logits = _logits_along(params, cfg, batch, vf, engine.cache_dtype,
+                               want[:m])
+    row = logits[m]
+    gap = float((row[want[m]] - row[got[m]]).abs())
+    top2 = row.topk(2).values
+    _check(name, gap <= bound,
+           f"equal up to position {m}, where {want[m]} and {got[m]} lie "
+           f"{gap:.4f} apart (the near-tie bound {bound:.4f}; the top-2 gap "
+           f"there {float(top2[0] - top2[1]):.4f})")
+    return False
+
+
+def _b3_b2_logits(params, cfg, batch, vf, seq, K: int):
+    """Logits predicting each id of ``seq`` after a B=1 prompt, (n, V)
+    float32 twice: row 0 the prefill's, the rest by one-token steps (B3)
+    and by verify-shaped blocks of K+1 ids at the prompt's end (B2
+    folded), each over its own copy of the prefilled cache."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+
+    llm, n = params["llm"], len(seq)
+    dev = batch.text_ids.device
+    with torch.inference_mode():
+        first, cache, pos = gen.prefill_multimodal(
+            params, cfg, batch, batch.text_ids.shape[1] + n + K + 2, vf,
+            torch.bfloat16)
+        blocks = qwen2.KVCache(*(None if t is None else t.clone()
+                                 for t in cache))
+        ids = torch.tensor([seq + seq[-1:] * (K + 1)], device=dev)
+        steps, verify = [first.float()], [first.float()]
+        for t in range(n - 1):
+            p = pos.long()[:, None] + t
+            h = qwen2.qwen2_forward(
+                llm, cfg.llm, qwen2.embed_tokens(llm, ids[:, t:t + 1]),
+                gen._decode_position_ids(p), kv_cache=cache,
+                cache_positions=p, kv_len=p[:, 0] + 1)
+            steps.append(qwen2.lm_head(llm, h)[:, 0].float())
+        for s0 in range(0, n - 1, K + 1):
+            bpos = pos.long()[:, None] + s0 + torch.arange(K + 1, device=dev)
+            h = qwen2.qwen2_forward(
+                llm, cfg.llm, qwen2.embed_tokens(llm, ids[:, s0:s0 + K + 1]),
+                gen._decode_position_ids(bpos), kv_cache=blocks,
+                cache_positions=bpos, kv_len=bpos[:, -1] + 1)
+            verify.append(qwen2.lm_head(llm, h)[0, :min(K + 1, n - 1 - s0)]
+                          .float())
+    return torch.cat(steps), torch.cat(verify)
+
+
+@contextlib.contextmanager
+def _spec_recorder():
+    """Records every SpecResult of ``generate_speculative`` and the
+    acceptance count ``a`` of every verify round while active."""
+    from video3d_tpu_torch.models import speculative as spec
+
+    rec = {"results": [], "accepted": []}
+    gen_orig, acc_orig = spec.generate_speculative, spec._accept_block
+
+    def generate(*args, **kwargs):
+        res = gen_orig(*args, **kwargs)
+        rec["results"].append(res)
+        return res
+
+    def accept(*args, **kwargs):
+        emit, a = acc_orig(*args, **kwargs)
+        rec["accepted"].append(a.clone())
+        return emit, a
+
+    spec.generate_speculative, spec._accept_block = generate, accept
+    try:
+        yield rec
+    finally:
+        spec.generate_speculative, spec._accept_block = gen_orig, acc_orig
+
+
+def _spec_expected(params, kv_cache_dtype: str, L: int, k: int,
+                   results, answers: int) -> dict:
+    """Launch counts of ``answers`` speculative full-prefill answers (B=1)
+    whose SpecResults are ``results``: per answer B1 once and B2's prefill
+    per layer (the self-draft's cache is the target's first layers,
+    copied); per round K+1 draft steps of k layers (B3) and one verify
+    block of L layers (B2 folded); int8 weights add B4 on the prefill's
+    head, K draft heads (its matvec), the projections of the draft steps
+    and of the verify block and the verify's head (its B>1 form)."""
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models.quant import is_quantized
+
+    rounds = sum(r.target_forwards - 1 for r in results)
+    form = "" if kv_cache_dtype == "bfloat16" else f"_{kv_cache_dtype}"
+    expected = dict.fromkeys(_build.LAUNCHES, 0)
+    expected.update({"fused_geometry": answers, "flash_attention": L * answers,
+                     "decode_attention" + form: k * (SPEC_K + 1) * rounds,
+                     "flash_attention_folded" + form: L * rounds})
+    if is_quantized(params["llm"]["lm_head"]):
+        expected["int8_matvec"] = answers + SPEC_K * rounds
+        expected["int8_matmul"] = rounds * (7 * k * (SPEC_K + 1) + 7 * L + 1)
+    return expected
+
+
+def _chunk_expected(n_true: int, chunk_len: int, L: int, form: str,
+                    int8: bool) -> dict:
+    """Attention (and int8 projection) launches of a chunked prefill of
+    n_true tokens: B2 folded per layer for a chunk of more than one token,
+    B3 for a one-token chunk; chunks of at most 32 rows run the int8
+    projections through B4's B>1 form."""
+    sizes = [min(chunk_len, n_true - s) for s in range(0, n_true, chunk_len)]
+    out = {"flash_attention_folded" + form: L * sum(c > 1 for c in sizes),
+           "decode_attention" + form: L * sum(c == 1 for c in sizes)}
+    if int8:
+        out["int8_matmul"] = 7 * L * sum(c <= 32 for c in sizes)
+    return out
+
+
+def _spec_runs(name: str, params, cfg, engine, questions, k: int,
+               kv_cache_dtype: str = "bfloat16"):
+    """The engine's speculative answers to ``questions`` through
+    ``generate_answer``, launch counts exact; returns (the recorder, wall
+    seconds per answer)."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+
+    L = cfg.llm.num_hidden_layers
+    engine.results.clear()
+    with _spec_recorder() as rec:
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for q in questions:
+            engine.generate_answer(q)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / len(questions)
+        part = _launch_delta(before)
+    expected = _spec_expected(params, kv_cache_dtype, L, k, rec["results"],
+                              len(questions))
+    _check(f"{name}: launch counts", part == expected,
+           f"{part}, expected {expected} "
+           f"({sum(r.target_forwards - 1 for r in rec['results'])} rounds)")
+    _decode_forwards(engine.results, cfg.llm.vocab_size)
+    return rec, wall
+
+
+def _spec_ms_per_token(params, cfg, engine, q) -> tuple:
+    """(decode ms per emitted token, target forwards, acceptance) of one
+    speculative answer on a prepared batch: ``generate_speculative``'s wall
+    less its prefill's (``spec_prefill``), over the ids after the first."""
+    import torch
+
+    from video3d_tpu_torch.models import speculative as spec
+
+    batch, vf = engine._prepare_generation(q)
+    dp, dc = engine._draft()
+    ecfg = engine.ecfg
+    L = batch.text_ids.shape[1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spec.spec_prefill(params, dp, cfg, dc, batch,
+                      L + MAX_NEW + SPEC_K + 2, engine.cache_dtype, vf)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = spec.generate_speculative(
+        params, dp, cfg, dc, batch, SPEC_K, MAX_NEW, ecfg.eos_token_id,
+        cache_dtype=engine.cache_dtype, vision_features=vf,
+        **ecfg.sampling())
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    emitted = min(MAX_NEW, int(res.lengths[0]) + 1)
+    return ((t_all - t_pre) / max(emitted - 1, 1) * 1e3, res.target_forwards,
+            res.accepted_drafts / max(res.offered_drafts, 1))
+
+
+def _acceptance(rec) -> str:
+    acc = sum(r.accepted_drafts for r in rec["results"])
+    off = sum(r.offered_drafts for r in rec["results"])
+    fwd = [r.target_forwards for r in rec["results"]]
+    return (f"acceptance {acc}/{off} = {acc / max(off, 1):.3f}, target "
+            f"forwards {fwd} (the prefill counted)")
+
+
+def _spec_greedy(params, cfg, root, qs, greedy_results) -> float:
+    """Phase 14's greedy speculation through ``generate_answer``; returns
+    the near-tie bound it measured."""
+    import torch
+
+    from video3d_tpu_torch.models import speculative as spec
+
+    L = cfg.llm.num_hidden_layers
+    V = cfg.llm.vocab_size
+    ref = _make_engine(params, cfg, root)
+    eos = ref.ecfg.eos_token_id
+    wants, paths, deltas = [], [], []
+    for q, res in zip(qs, greedy_results):
+        batch, vf = ref._prepare_generation(q)
+        steps, verify = _b3_b2_logits(params, cfg, batch, vf,
+                                      res.tokens[0].tolist(), SPEC_K)
+        deltas.append(float((steps - verify).abs().max()))
+        paths.append(steps)
+        wants.append(_with_eos(res.tokens[0, :int(res.lengths[0])], eos,
+                               MAX_NEW))
+        del verify
+    tie = 2 * max(deltas)
+    print(f"  B3 steps against B2 folded verify blocks (K+1 = {SPEC_K + 1})"
+          f" along phase 4's greedy ids: max |d logits| {deltas} -> the "
+          f"near-tie bound {tie:.4f}", flush=True)
+
+    def held(tag, engine):
+        for i, (q, want) in enumerate(zip(qs, wants)):
+            res = engine.results[i]
+            got = _with_eos(res.tokens[0, :int(res.lengths[0])], eos,
+                            MAX_NEW)
+            _near_tie_check(f"{tag} answer {i} vs phase 4's greedy ids",
+                            params, cfg, ref, q, want, got, tie,
+                            logits=paths[i])
+
+    # the full-depth self-draft: the target is its own draft
+    full = _make_engine(params, cfg, root, speculative_draft_layers=L,
+                        speculative_k=SPEC_K)
+    rec, wall = _spec_runs("full-depth self-draft", params, cfg, full, qs, L)
+    held("full-depth self-draft", full)
+    print(f"  full-depth self-draft (k={L}, K={SPEC_K}): {_acceptance(rec)};"
+          f" {wall:.3f} s per answer (generate_answer)", flush=True)
+    # its control: every draft id shifted to the next vocabulary id
+    draft_orig = spec._draft_block
+
+    def shifted(*args, **kwargs):
+        d, probs = draft_orig(*args, **kwargs)
+        return (d + 1) % V, probs
+
+    spec._draft_block = shifted
+    try:
+        full.results.clear()
+        with _spec_recorder() as ctl:
+            full.generate_answer(qs[0])
+    finally:
+        spec._draft_block = draft_orig
+    first = [int(a[0]) for a in ctl["accepted"]]
+    share = sum(a == 0 for a in first) / max(len(first), 1)
+    _check("control: full-depth self-draft with each draft id shifted by "
+           "one", share >= SHIFT_REJECT_MIN,
+           f"{share:.1%} of {len(first)} rounds rejected the first draft "
+           f"(must be >= {SHIFT_REJECT_MIN:.0%}); {_acceptance(ctl)}")
+    res = full.results[0]
+    _near_tie_check("the shifted-draft run's ids vs phase 4's greedy ids",
+                    params, cfg, ref, qs[0], wants[0],
+                    _with_eos(res.tokens[0, :int(res.lengths[0])], eos,
+                              MAX_NEW), tie, logits=paths[0])
+    # the fast self-draft: 4 layers, the head cut to 32768 tokens
+    fast = _make_engine(params, cfg, root,
+                        speculative_draft_layers=SPEC_DRAFT_LAYERS,
+                        speculative_k=SPEC_K,
+                        speculative_draft_vocab=SPEC_DRAFT_VOCAB)
+    rec, wall = _spec_runs("self-draft k=4", params, cfg, fast, qs,
+                           SPEC_DRAFT_LAYERS)
+    held(f"self-draft k={SPEC_DRAFT_LAYERS}", fast)
+    print(f"  self-draft k={SPEC_DRAFT_LAYERS} (head cut to "
+          f"{SPEC_DRAFT_VOCAB}), K={SPEC_K}: {_acceptance(rec)}; {wall:.3f} s"
+          f" per answer (generate_answer)", flush=True)
+    b1 = MEASURED.get("b1_ms_per_token")
+    for tag, engine in ((f"full-depth self-draft k={L}", full),
+                        (f"self-draft k={SPEC_DRAFT_LAYERS}", fast)):
+        ms, fwd, acc = _spec_ms_per_token(params, cfg, engine, qs[1])
+        print(f"  {tag}: decode {ms:.2f} ms per emitted token ({fwd} target "
+              f"forwards, acceptance {acc:.3f}) beside phase 4's captured "
+              f"{b1 if b1 is None else round(b1, 2)} ms/token", flush=True)
+    del full, fast
+    torch.cuda.empty_cache()
+    return tie
+
+
+def _spec_sampled(params, cfg, root, qs, greedy_results, tie: float) -> None:
+    """Phase 14's sampled speculation: every emitted id inside its
+    position's warped target support (a teacher-forced recompute; an id
+    within ``tie`` of the support's edge is counted apart), budgets, and
+    top_k = 1 giving phase 4's greedy ids."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    eng = _make_engine(params, cfg, root,
+                       speculative_draft_layers=SPEC_DRAFT_LAYERS,
+                       speculative_k=SPEC_K, **SAMPLING)
+    eos = eng.ecfg.eos_token_id
+    rec, wall = _spec_runs("sampled self-draft", params, cfg, eng, qs,
+                           SPEC_DRAFT_LAYERS)
+    outside = edge = total = 0
+    for q, res in zip(qs, eng.results):
+        n = int(res.lengths[0])
+        _check("sampled answer within its budget", n <= MAX_NEW,
+               f"{n} ids (budget {MAX_NEW})")
+        seq = res.tokens[0, :n].tolist()
+        batch, vf = eng._prepare_generation(q)
+        raw = _logits_along(params, cfg, batch, vf, eng.cache_dtype, seq)[:n]
+        warped = gen.warp_logits(raw, **SAMPLING)
+        ids = torch.tensor(seq, device=raw.device)
+        rows = torch.arange(n, device=raw.device)
+        inside = torch.isfinite(warped[rows, ids])
+        kept_min = torch.where(torch.isfinite(warped), raw,
+                               torch.full_like(raw, float("inf"))).amin(-1)
+        near = ~inside & (raw[rows, ids] >= kept_min - tie)
+        outside += int((~inside & ~near).sum())
+        edge += int(near.sum())
+        total += n
+    _check("sampled speculation: every id inside its warped target support",
+           outside == 0,
+           f"{total} ids, {outside} outside, {edge} outside the recomputed "
+           f"support by less than the near-tie bound {tie:.4f}; "
+           f"{_acceptance(rec)}; {wall:.3f} s per answer")
+    top1 = _make_engine(params, cfg, root,
+                        speculative_draft_layers=SPEC_DRAFT_LAYERS,
+                        speculative_k=SPEC_K, temperature=0.7, top_k=1)
+    _spec_runs("sampled top_k = 1", params, cfg, top1, qs, SPEC_DRAFT_LAYERS)
+    for i, (q, g) in enumerate(zip(qs, greedy_results)):
+        res = top1.results[i]
+        _near_tie_check(f"top_k = 1 answer {i} vs phase 4's greedy ids",
+                        params, cfg, top1, q,
+                        _with_eos(g.tokens[0, :int(g.lengths[0])], eos,
+                                  MAX_NEW),
+                        _with_eos(res.tokens[0, :int(res.lengths[0])], eos,
+                                  MAX_NEW), tie)
+
+
+def _spec_batcher(params, cfg, root, infos) -> None:
+    """The paged speculative batcher (8 slots, self-draft k=4) on 16
+    requests over two scenes against the sequential speculative engine."""
+    import torch
+
+    from video3d_tpu_torch.serve.batcher import ContinuousBatcher
+
+    kw = dict(prefix_cache_scenes=1, scene_cache_scenes=1,
+              speculative_draft_layers=SPEC_DRAFT_LAYERS,
+              speculative_k=SPEC_K)
+    ref = _make_engine(params, cfg, root, **kw)
+    eng = _make_engine(params, cfg, root, **kw)
+    scenes = [_questions(info["sample_idx"], PREFIX_TEXTS[:8], f"spec{i}_")
+              for i, info in enumerate(infos)]
+    eos = ref.ecfg.eos_token_id
+    for e in (ref, eng):
+        for wave in scenes:
+            for q in wave:
+                e._tokenize_prompt(q)
+    wants = []
+    for wave in scenes:
+        for q in wave:
+            ref.generate_answer(q)
+            wants.append(_with_eos(ref.decoded[-1], eos, MAX_NEW))
+    batcher = ContinuousBatcher(eng, num_slots=SERVE_SLOTS,
+                                chunk=SPEC_SERVE_ROUNDS, paged=True,
+                                page_size=SERVE_PAGE)
+    got, tokens = [], 0
+    try:
+        _check("speculative paged batcher", batcher.spec and batcher.paged
+               and batcher.chunk_prefill == 0, f"spec {batcher.spec}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for wave in scenes:
+            handles = [batcher.submit(q) for q in wave]
+            for h in handles:
+                h.result(eng._decode_text, timeout=600)
+                got.append(_with_eos(h.tokens, eos, MAX_NEW))
+                tokens += len(h.tokens)
+        wall = time.perf_counter() - t0
+        drained = _wait_for(lambda: all(s is None for s in batcher.slots))
+        held = sum(len(sh["pages"]) for sh in batcher._shared.values())
+        free = batcher._alloc.available
+    finally:
+        batcher.shutdown()
+    _check("speculative batcher: every page back", drained
+           and free + held == batcher.total_pages - 1,
+           f"available {free} + {held} held by the cached scene's shared "
+           f"prefix of {batcher.total_pages - 1}")
+    _check("speculative batcher: [hits, misses], shared admissions",
+           eng.prefix_cache_stats == ref.prefix_cache_stats == [14, 2],
+           f"{eng.prefix_cache_stats} (sequential {ref.prefix_cache_stats}),"
+           f" shared {batcher.prefix_share_stats}")
+    equal = 0
+    for i, (q, want, g) in enumerate(zip(scenes[0] + scenes[1], wants, got)):
+        equal += _near_tie_check(
+            f"speculative batcher request {i} vs the sequential engine",
+            params, cfg, ref, q, want, g, CROSS_TIE)
+    print(f"  speculative paged batcher: 16 requests, {tokens} tokens in "
+          f"{wall:.3f} s ({tokens / wall:.1f} tokens/s over 8 slots); "
+          f"{equal} of 16 answers equal id for id", flush=True)
+    del batcher, ref, eng
+    torch.cuda.empty_cache()
+
+
+def _chunked_vs_atomic(params, cfg, root, info) -> float:
+    """start_request_chunked at CHUNK_LENS against start_request on one
+    question; returns the largest first-step distance."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+
+    L = cfg.llm.num_hidden_layers
+    eng = _make_engine(params, cfg, root)
+    eos = eng.ecfg.eos_token_id
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "chunked")[0]
+    prep = eng.prepare_request(q)
+    n_true = int(prep["batch"].seq_len[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = eng.start_request(prep)
+    torch.cuda.synchronize()
+    t_atomic = time.perf_counter() - t0
+    first = full.next_logits.float().clone()
+    res = gen.generate_from_state(params, cfg, full, MAX_NEW, eos,
+                                  graphs=eng._graphs)
+    want = _with_eos(res.tokens[0, :int(res.lengths[0])], eos, MAX_NEW)
+    worst = 0.0
+    for c in CHUNK_LENS:
+        before = dict(_build.LAUNCHES)
+        cp = eng.start_request_chunked(prep, chunk_len=c)
+        steps = []
+        done = False
+        while not done:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = cp.step()
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+        part = _launch_delta(before)
+        expected = dict.fromkeys(part, 0)
+        expected.update(_chunk_expected(n_true, c, L, "", False))
+        _check(f"chunk {c}: launch counts", part == expected,
+               f"{part}, expected {expected}")
+        state = cp.result()
+        diff = float((state.next_logits.float() - first).abs().max())
+        worst = max(worst, diff)
+        _check(f"chunk {c}: first-step logits vs start_request",
+               diff <= LOGIT_ATOL, f"max |d| {diff:.4f} (bound {LOGIT_ATOL})")
+        res = gen.generate_from_state(params, cfg, state, MAX_NEW, eos,
+                                      graphs=eng._graphs)
+        _near_tie_check(f"chunk {c}: {MAX_NEW} greedy ids vs start_request's",
+                        params, cfg, eng, q, want,
+                        _with_eos(res.tokens[0, :int(res.lengths[0])], eos,
+                                  MAX_NEW), CROSS_TIE)
+        print(f"  chunk {c}: {len(steps) - 1} chunks of {n_true} tokens; "
+              f"the tower and assembly {steps[0]:.1f} ms, the longest chunk "
+              f"{max(steps[1:]):.1f} ms, in all {sum(steps):.1f} ms against "
+              f"the atomic prefill's {t_atomic * 1e3:.1f} ms", flush=True)
+    return worst
+
+
+def _chunk_traffic(params, cfg, root, infos, chunked: int):
+    """Phase 8's questions and budgets through the paged batcher (8 slots,
+    pages of 128, prefix sharing, the default pool, both scenes' features
+    and the first scene's prefix cached) with one LONG_BUDGET stream
+    submitted first, the second wave submitted once the first streams, so
+    its cold admission meets running decode. Returns (ids by request, the
+    longest gap in ms between two decode chunks that share a waiting
+    request over a cold admission, the decode chunks inside cold
+    admissions, every page back, the engine)."""
+    import threading
+
+    import torch
+
+    from video3d_tpu_torch.serve.batcher import ContinuousBatcher
+
+    engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
+                          scene_cache_scenes=2)
+    engine.ecfg = dataclasses.replace(engine.ecfg, eos_token_id=-1)
+    scenes = [_questions(info["sample_idx"], SERVE_TEXTS, f"serve{i}_")
+              for i, info in enumerate(infos)]
+    waves = [scenes[s][:n] for s, n in SERVE_WAVES]
+    for wave in waves:
+        for q in wave:
+            engine._tokenize_prompt(q)
+    # both scenes' vision features and the first scene's prefix cached
+    # beforehand, so the preparations are cheap and a cold admission is
+    # the LLM prefill alone: otherwise the video loads and towers of the
+    # preparations (two prep threads, every request of a wave a miss until
+    # the first admission stores the scene) delay the second wave's cold
+    # admission until the running streams are over
+    engine.generate_answer(scenes[1][0])
+    engine.generate_answer(scenes[0][0])
+    log = {"chunks": [], "cold": []}
+    start_req, start_chunked = engine.start_request, \
+        engine.start_request_chunked
+    finish_chunked = engine.finish_chunked
+    open_jobs = {}
+
+    def timed_start(prep, max_cache_len=None):
+        misses = engine.prefix_cache_stats[1]
+        t0 = time.perf_counter()
+        state = start_req(prep, max_cache_len=max_cache_len)
+        if engine.prefix_cache_stats[1] > misses:
+            torch.cuda.synchronize()
+            log["cold"].append((t0, time.perf_counter()))
+        return state
+
+    def timed_chunked(prep, max_cache_len=None, chunk_len=256):
+        t0 = time.perf_counter()
+        out = start_chunked(prep, max_cache_len=max_cache_len,
+                            chunk_len=chunk_len)
+        open_jobs[id(prep)] = t0
+        return out
+
+    def timed_finish(prep, state):
+        out = finish_chunked(prep, state)
+        torch.cuda.synchronize()
+        log["cold"].append((open_jobs.pop(id(prep)), time.perf_counter()))
+        return out
+
+    engine.start_request = timed_start
+    engine.start_request_chunked = timed_chunked
+    engine.finish_chunked = timed_finish
+
+    class Batcher(ContinuousBatcher):
+        def _decode_rows(self):
+            active = {id(r) for r in self.slots if r is not None}
+            rows = super()._decode_rows()
+            log["chunks"].append((time.perf_counter(), active))
+            return rows
+
+    batcher = Batcher(engine, num_slots=SERVE_SLOTS, chunk=SERVE_CHUNK,
+                      paged=True, page_size=SERVE_PAGE,
+                      chunked_prefill=chunked)
+    answers, errors = {}, []
+
+    def run(w, i, q):
+        try:
+            budget = LONG_BUDGET if w == "long" \
+                else SERVE_BUDGETS[i % len(SERVE_BUDGETS)]
+            h = batcher.submit(q, max_new_tokens=budget)
+            h.result(engine._decode_text, timeout=600)
+            answers[(w, q["id"])] = (q, budget, list(h.tokens))
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"wave {w} {q['id']}: {e!r}")
+
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run,
+                                    args=("long", 0, scenes[0][0]))]
+        threads[0].start()
+        for w, wave in enumerate(waves):
+            if w == 2:
+                for t in threads:
+                    t.join()
+            threads_w = [threading.Thread(target=run, args=(w, i, q))
+                         for i, q in enumerate(wave)]
+            for t in threads_w:
+                t.start()
+            threads += threads_w
+            if w == 0:
+                # the second wave once the first has started decoding
+                _wait_for(lambda: len(log["chunks"]) >= 2, 300)
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        drained = _wait_for(lambda: all(s is None for s in batcher.slots))
+        held = sum(len(sh["pages"]) for sh in batcher._shared.values())
+        pages_back = drained and \
+            batcher._alloc.available + held == batcher.total_pages - 1
+    finally:
+        batcher.shutdown()
+    _check(f"traffic (chunked_prefill={chunked}): every request returned",
+           not errors and len(answers) == 1 + sum(map(len, waves)),
+           "; ".join(errors) or f"{len(answers)} requests")
+    # a stall: two consecutive decode chunks that share a waiting request,
+    # between whose ends a cold admission ran
+    chunks = log["chunks"]
+    gaps, inside, met = [], 0, set()
+    for (a, live_a), (b, live_b) in zip(chunks, chunks[1:]):
+        over = {i for i, (c0, c1) in enumerate(log["cold"])
+                if c0 < b and a < c1}
+        if live_a & live_b and over:
+            gaps.append((b - a) * 1e3)
+            met |= over
+    for t, _ in chunks:
+        inside += any(c0 < t < c1 for c0, c1 in log["cold"])
+    colds = [round(c0 - t0, 2) for c0, _ in log["cold"]]
+    print(f"  cold admissions at {colds} s, decode chunks ending from "
+          f"{chunks[0][0] - t0:.2f} to {chunks[-1][0] - t0:.2f} s"
+          if chunks else "  no decode chunk", flush=True)
+    tokens = sum(len(ids) for _, _, ids in answers.values())
+    print(f"  chunked_prefill={chunked}: {len(answers)} requests, {tokens} "
+          f"tokens in {wall:.3f} s; {len(log['cold'])} cold admissions, "
+          f"{len(met)} of them while requests decoded, the longest gap "
+          f"between decode chunks over one "
+          f"{max(gaps) if gaps else 0.0:.1f} ms, {inside} decode chunks "
+          f"inside them", flush=True)
+    del batcher
+    return answers, (max(gaps) if gaps else 0.0), inside, pages_back, engine
+
+
+def run_spec_chunked(params, cfg, root: str, info, infos,
+                     greedy_results) -> dict:
+    """Phase 14 on phase 4's model: greedy speculation through
+    ``generate_answer`` (the full-depth self-draft with its shifted-draft
+    control, then k=4 with a 32768-token head) against phase 4's ids by
+    the near-tie rule; sampled speculation inside the warped support and
+    top_k = 1 as greedy; the paged speculative batcher against the
+    sequential speculative engine; start_request_chunked against
+    start_request; phase 8's traffic through the paged batcher with and
+    without chunked prefill. Returns the launch counts of those runs."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    qs = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")
+    before = dict(_build.LAUNCHES)
+    tie = _spec_greedy(params, cfg, root, qs, greedy_results)
+    _spec_sampled(params, cfg, root, qs, greedy_results, tie)
+    print("  the paged speculative batcher:", flush=True)
+    _spec_batcher(params, cfg, root, infos)
+    print("  chunked prefill against the atomic prefill:", flush=True)
+    worst = _chunked_vs_atomic(params, cfg, root, info)
+    print(f"  phase 8's traffic, unchunked and chunked_prefill="
+          f"{SERVE_CHUNKED}:", flush=True)
+    plain, gap0, _, back0, eng0 = _chunk_traffic(params, cfg, root, infos, 0)
+    chunked, gap1, inside, back1, _ = _chunk_traffic(params, cfg, root, infos,
+                                                      SERVE_CHUNKED)
+    _check("traffic: every page back", back0 and back1,
+           f"unchunked {back0}, chunked {back1}")
+    _check("chunked traffic: decode chunks ran inside a cold admission's "
+           "job", inside > 0, f"{inside} decode chunks")
+    eos = eng0.ecfg.eos_token_id
+    equal = 0
+    for key, (q, budget, ids) in plain.items():
+        equal += _near_tie_check(
+            f"chunked traffic {key[1]} (wave {key[0]}) vs unchunked",
+            params, cfg, eng0, q, _with_eos(ids, eos, budget),
+            _with_eos(chunked[key][2], eos, budget), CROSS_TIE)
+    print(f"  {equal} of {len(plain)} answers equal id for id; the longest "
+          f"decode stall over a cold admission {gap0:.1f} ms unchunked, "
+          f"{gap1:.1f} ms with chunked_prefill={SERVE_CHUNKED}; chunked "
+          f"first-step logits within {worst:.4f} of the atomic prefill's",
+          flush=True)
+    total = _launch_delta(before)
+    peak = torch.cuda.max_memory_allocated()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB; {smi}", flush=True)
+    return total
+
+
+def run_spec_chunked_int8(params, cfg, root: str, info) -> dict:
+    """Phase 6's speculation and chunked admission over the int8 cache:
+    one greedy speculative answer (self-draft k=4) and one chunked
+    admission (start_request_chunked at SERVE_CHUNKED, then the captured
+    decode), launch counts of B2 folded int8, B3 int8 and B4 exact."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+
+    L = cfg.llm.num_hidden_layers
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")[0]
+    before = dict(_build.LAUNCHES)
+    eng = _make_engine(params, cfg, root, kv_cache_dtype="int8",
+                       speculative_draft_layers=SPEC_DRAFT_LAYERS,
+                       speculative_k=SPEC_K)
+    rec, wall = _spec_runs("int8 speculative answer", params, cfg, eng, [q],
+                           SPEC_DRAFT_LAYERS, "int8")
+    print(f"  int8 speculative answer (k={SPEC_DRAFT_LAYERS}, K={SPEC_K}): "
+          f"{_acceptance(rec)}; {wall:.3f} s", flush=True)
+    ceng = _make_engine(params, cfg, root, kv_cache_dtype="int8")
+    prep = ceng.prepare_request(q)
+    n_true = int(prep["batch"].seq_len[0])
+    mark = dict(_build.LAUNCHES)
+    cp = ceng.start_request_chunked(prep, chunk_len=SERVE_CHUNKED)
+    while not cp.step():
+        pass
+    state = ceng.finish_chunked(prep, cp.result())
+    first = state.next_logits.float().clone()
+    res = ceng._generate_from_state(state)
+    part = _launch_delta(mark)
+    forwards = _decode_forwards([res], cfg.llm.vocab_size)
+    expected = _expected_launches(params, "int8", L, forwards, [res])
+    for k, v in _chunk_expected(n_true, SERVE_CHUNKED, L, "_int8",
+                                True).items():
+        expected[k] = expected.get(k, 0) + v
+    _check("int8 chunked admission: launch counts", part == expected,
+           f"{part}, expected {expected} ({forwards} decode forwards)")
+    atomic = ceng.start_request(prep).next_logits.float()
+    diff = float((first - atomic).abs().max())
+    print(f"  int8 chunked admission (chunks of {SERVE_CHUNKED}): first-step "
+          f"logits within {diff:.4f} of the atomic prefill's", flush=True)
+    del eng, ceng, state
+    torch.cuda.empty_cache()
+    return _launch_delta(before)
+
+
 def _wait_for(pred, seconds: float = 30.0) -> bool:
     deadline = time.time() + seconds
     while time.time() < deadline:
@@ -3591,10 +4430,14 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
     print(f"int8 beam search (K={BEAMS}, B=1, phase 13's):", flush=True)
     beam = run_beam_int8(params, cfg, root, infos[0])
     print(f"  launches (int8 beam answer): {beam}", flush=True)
+    print("int8 speculation and chunked admission (phase 14's):", flush=True)
+    spec8 = run_spec_chunked_int8(params, cfg, root, infos[0])
+    print(f"  launches (int8 speculation and chunked admission): {spec8}",
+          flush=True)
     print("benchmark paths (phase 11, on the int8 model):", flush=True)
     bench = run_bench_paths(params, cfg)
     return {k: scanqa[k] + prefix[k] + serve[k] + ground[k] + beam[k]
-            for k in scanqa}, bench
+            + spec8.get(k, 0) for k in scanqa}, bench
 
 
 def run_beam_int8(params, cfg, root: str, info) -> dict:
@@ -4325,6 +5168,10 @@ def main() -> None:
         decode = run_decode_modes(params, cfg, root, info, ground_info,
                                   greedy)
         print(f"  launches (phase 13): {decode}", flush=True)
+        print("speculative decoding and chunked prefill (phase 14):",
+              flush=True)
+        spec14 = run_spec_chunked(params, cfg, root, info, infos, greedy)
+        print(f"  launches (phase 14): {spec14}", flush=True)
         del params, greedy
         gc.collect()
         torch.cuda.empty_cache()
@@ -4353,7 +5200,7 @@ def main() -> None:
             launches = int4_cache[name]
         else:
             launches = scanqa[name] + prefix[name] + serve[name] \
-                + ground[name] + decode.get(name, 0)
+                + ground[name] + decode.get(name, 0) + spec14.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

@@ -4,7 +4,8 @@ tokenizer, synthetic scenes. Answers in dense and paged mode, with and
 without shared prefix pages; slot reuse; deferred admission on a tight
 pool; the impossible footprint; cancellation in flight and while queued;
 eviction freeing shared pages; the page accounting under churn; Scan2Cap
-captions submitted with their boxes; and what is not ported raising.
+captions submitted with their boxes; and speculative mode and chunked
+prefill switched on through the constructor.
 
 FakeTokenizer numbers words in order of first use, so every engine first
 tokenizes the questions in one fixed order (the sequential answers, or
@@ -311,11 +312,34 @@ def test_churn_accounting_invariant(scene):
 
 
 def test_what_is_not_ported_raises(scene):
+    """Speculative mode and chunked prefill, which raised before they were
+    ported, now construct and answer: a draft given to the batcher (the
+    engine's own first layer) turns speculation on, its dense rows grow
+    by the verify's K+2 slack and chunking stays off; ``chunked_prefill``
+    alone turns chunking on. Both answer as the sequential engine."""
+    from video3d_tpu_torch.models import speculative as tspec
+
+    infos = scene[0]
     eng = _engine(scene)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ContinuousBatcher(eng, draft_params={}, draft_cfg=TCFG)
-    with pytest.raises(NotImplementedError, match="A4"):
-        ContinuousBatcher(eng, chunked_prefill=64)
+    rec = _record(infos[0], QUESTIONS[0])
+    want = eng.generate_answer(rec)
+    draft = tspec.self_draft_params(eng.params, 1)
+    b = ContinuousBatcher(eng, num_slots=1, chunk=2, draft_params=draft,
+                          draft_cfg=tspec.self_draft_config(TCFG.llm, 1),
+                          chunked_prefill=64)
+    try:
+        assert b.spec and b.chunk_prefill == 0
+        assert b.max_cache_len == max(eng.ecfg.buckets) \
+            + eng.ecfg.max_new_tokens + eng.ecfg.speculative_k + 2
+        assert b.submit(rec).result(eng._decode_text, timeout=300) == want
+    finally:
+        b.shutdown()
+    b = ContinuousBatcher(eng, num_slots=1, chunk=2, chunked_prefill=64)
+    try:
+        assert not b.spec and b.chunk_prefill == 64
+        assert b.submit(rec).result(eng._decode_text, timeout=300) == want
+    finally:
+        b.shutdown()
 
 
 COORD = 302          # FakeTokenizer's <coord>

@@ -375,14 +375,31 @@ def test_decoder_layer_paged_matches_jax(form):
 
 
 def test_paged_multi_token_raises():
-    """A multi-token paged block (the speculative verify) raises."""
+    """A multi-token paged block (the speculative verify), which raised
+    before it was ported, runs: each slot's 2 tokens land at (table[s,
+    lens // page], lens % page) per token, bit for bit JAX's
+    ``append_positions_multi`` coordinates, the hidden states are finite
+    and ``lens`` advances by 2 (tests/test_torch_paged_spec.py holds the
+    block against the dense path)."""
     params = _convert(jax.tree.map(np.asarray, jqwen.init_qwen2(
         jax.random.PRNGKey(2), CFG)), "cpu", None)
-    _, tc = _caches("bf16")
-    x = torch.zeros(3, 2, CFG.hidden_size)
-    pos3 = torch.zeros(3, 2, 3, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tqwen.qwen2_forward(params, TCFG, x, pos3, paged_cache=tc)
+    jc, tc = _caches("bf16")
+    table = np.asarray([[3, 1, 2, 4], [5, 6, 7, 8], [2, 3, 4, 5]], np.int32)
+    lens = np.asarray([PAGE - 1, 3, 2 * PAGE - 1], np.int32)
+    tc.page_table.copy_(t(table))
+    tc.lens.copy_(t(lens))
+    jc = jc._replace(page_table=jnp.asarray(table), lens=jnp.asarray(lens))
+    want = jpk.append_positions_multi(jc, 2)
+    got = tpk.append_positions_multi(tc, 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    x = torch.randn(3, 2, CFG.hidden_size,
+                    generator=torch.Generator().manual_seed(0))
+    pos3 = (t(lens).long()[:, None] + torch.arange(2))[..., None] \
+        .expand(3, 2, 3)
+    h = tqwen.qwen2_forward(params, TCFG, x, pos3, paged_cache=tc)
+    assert torch.isfinite(h).all()
+    assert tc.lens.tolist() == (lens + 2).tolist()
 
 
 @pytest.mark.parametrize("form", FORMS)

@@ -60,7 +60,9 @@ from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import qwen2
 from video3d_tpu_torch.models.beam_search import generate_beam
 from video3d_tpu_torch.models.decode_graph import DecodeGraphs
-from video3d_tpu_torch.models.generate import (DecodeState, GenerateResult,
+from video3d_tpu_torch.models import speculative as spec
+from video3d_tpu_torch.models.generate import (ChunkedPrefill, DecodeState,
+                                               GenerateResult,
                                                generate_from_state,
                                                generate_greedy, ground_suffix,
                                                start_decode,
@@ -120,6 +122,17 @@ class EngineConfig:
     num_beams: int = 1
     length_penalty: float = 1.0
     early_stopping: bool = False
+    # speculative decoding (models/speculative.py): draft layers > 0 turns
+    # on an early-exit self-draft of that many target layers (or attach a
+    # draft with InferenceEngine.set_draft_model); greedy answers are
+    # unchanged, sampled ones follow the same warped target distribution
+    speculative_draft_layers: int = 0
+    speculative_k: int = 4
+    # the self-draft's lm_head cut to its first N token columns (0: all)
+    speculative_draft_vocab: int = 0
+    # > 0: below this measured acceptance (after a few requests) fall back
+    # to plain decoding
+    speculative_min_acceptance: float = 0.0
 
     def sampling(self) -> dict:
         """The decode loops' sampling keywords."""
@@ -191,6 +204,19 @@ class InferenceEngine:
         # static states they run on (models/decode_graph.py), on the card
         self._graphs = (DecodeGraphs(self.device)
                         if self.device.type == "cuda" else None)
+        # speculative decoding: a draft attached by set_draft_model, the
+        # cumulative [accepted drafts, draft slots offered], and the
+        # min-acceptance guard's switch
+        self.draft_params = None
+        self.draft_cfg = None
+        self.spec_stats = [0, 0]
+        self._spec_disabled = False
+
+    def set_draft_model(self, draft_params, draft_cfg) -> None:
+        """Attach standalone draft weights (the target's hidden size and
+        vocabulary; an ``LLMConfig``) for speculative decoding."""
+        self.draft_params = draft_params
+        self.draft_cfg = draft_cfg
 
     # ------------- shared assembly -------------
 
@@ -385,10 +411,37 @@ class InferenceEngine:
         return self._build_batch(ids, V, None, None, box_input,
                                  coord_token_id), spliceable
 
+    def _speculative(self) -> bool:
+        """Speculation is on (a draft attached or self-draft layers set)
+        and the min-acceptance guard has not turned it off."""
+        return (self.draft_params is not None
+                or self.ecfg.speculative_draft_layers > 0) \
+            and not self._spec_disabled
+
+    def _draft(self):
+        """(draft params, draft LLMConfig): the attached draft, else the
+        self-draft."""
+        if self.draft_params is not None:
+            return self.draft_params, self.draft_cfg
+        return self._self_draft()
+
     def _generate(self, batch, vision_features=None) -> GenerateResult:
-        """Beam search or greedy / sampled decode from a full prefill (JAX
-        ``_generate_impl`` without its speculative branch)."""
+        """Speculative, beam search, or greedy / sampled decode from a full
+        prefill (JAX ``_generate_impl``); beams take precedence over
+        speculation."""
         ecfg = self.ecfg
+        if self._speculative() and ecfg.num_beams == 1:
+            dp, dc = self._draft()
+            res = spec.generate_speculative(
+                self.params, dp, self.cfg, dc, batch,
+                num_draft_tokens=ecfg.speculative_k,
+                max_new_tokens=ecfg.max_new_tokens,
+                eos_token_id=ecfg.eos_token_id, cache_dtype=self.cache_dtype,
+                vision_features=vision_features, **ecfg.sampling())
+            self.spec_stats[0] += res.accepted_drafts
+            self.spec_stats[1] += res.offered_drafts
+            self._check_spec_acceptance()
+            return GenerateResult(tokens=res.tokens, lengths=res.lengths)
         if ecfg.num_beams > 1:
             return generate_beam(self.params, self.cfg, batch,
                                  num_beams=ecfg.num_beams,
@@ -424,13 +477,29 @@ class InferenceEngine:
 
     # ------------- scene-prefix KV cache -------------
 
-    def _prefix_cache_on(self, record) -> bool:
-        """The scene-prefix path applies: the cache is on, the record has a
-        scene, and no beam search (its prefill expands the cache to the
+    def _prefix_cache_base(self, record) -> bool:
+        """The scene-prefix preconditions: the cache is on, the record has
+        a scene, and no beam search (its prefill expands the cache to the
         beams; JAX ``_prefix_cache_base``)."""
         return (self.ecfg.prefix_cache_scenes > 0
                 and self.ecfg.num_beams == 1
                 and isinstance(record.get("video"), str))
+
+    def _prefix_cache_on(self, record) -> bool:
+        """The scene-prefix path of plain decoding (no speculation: its
+        prefix path is :meth:`start_spec_request`)."""
+        return (self._prefix_cache_base(record)
+                and self.draft_params is None
+                and self.ecfg.speculative_draft_layers == 0)
+
+    def _prefix_cache_spec_on(self, record) -> bool:
+        """The scene-prefix path of self-draft speculation: the draft is the
+        target's first k layers, so both caches seed from the same stored
+        prefix. An attached draft cannot reuse the target's prefix."""
+        return (self._prefix_cache_base(record)
+                and self.draft_params is None
+                and self.ecfg.speculative_draft_layers > 0
+                and not self._spec_disabled)
 
     def _lookup_prefix(self, key) -> Optional[_PrefixEntry]:
         with self._cache_lock:
@@ -555,13 +624,146 @@ class InferenceEngine:
                                prep["batch"], state.cache)
         return state
 
+    def start_request_chunked(self, prep,
+                              max_cache_len: Optional[int] = None,
+                              chunk_len: int = 256):
+        """A :class:`ChunkedPrefill` of a full-mode prep (the continuous
+        batcher's cold admission: one chunk per scheduler iteration between
+        decode chunks). A prefix-mode prep, already about one decode step
+        of work, returns its finished DecodeState from
+        :meth:`start_request`."""
+        prep = self._refresh_prep(prep)
+        if prep["mode"] != "full":
+            return self.start_request(prep, max_cache_len=max_cache_len)
+        mcl = (max_cache_len if max_cache_len is not None
+               else prep["bucket"] + self.ecfg.max_new_tokens)
+        return ChunkedPrefill(self.params, self.cfg, prep["batch"], mcl,
+                              chunk_len=chunk_len,
+                              cache_dtype=self.cache_dtype,
+                              vision_features=prep["vf"])
+
+    def finish_chunked(self, prep, state: DecodeState) -> DecodeState:
+        """After a chunked prefill, what the atomic full path does: store
+        the scene prefix for later questions (before the state is copied
+        into a slot)."""
+        if (self.ecfg.prefix_cache_scenes > 0 and prep.get("img", -1) >= 0
+                and isinstance(prep.get("key"), str)):
+            self.prefix_cache_stats[1] += 1
+            self._store_prefix(prep["key"], prep["ids"], prep["img"],
+                               prep["batch"], state.cache)
+        return state
+
     def _answer_from_prep(self, prep) -> str:
         """Decode of a prepare_request result (the device half)."""
         return self._texts(self._generate_from_state(
             self.start_request(prep)))[0]
 
+    # ------------- speculative decoding -------------
+
+    def _self_draft(self):
+        """(params, LLMConfig) of the self-draft of
+        ``speculative_draft_layers`` layers: views of the target's tensors,
+        so nothing is copied (JAX caches its draft because its cut head is
+        a copy)."""
+        k = self.ecfg.speculative_draft_layers
+        return (spec.self_draft_params(
+                    self.params, k,
+                    draft_vocab=self.ecfg.speculative_draft_vocab),
+                spec.self_draft_config(self.cfg.llm, k))
+
+    def _check_spec_acceptance(self) -> None:
+        """The ``speculative_min_acceptance`` guard: after 5 K draft slots,
+        an acceptance below it turns speculation off (a bad draft makes
+        decoding slower, never wrong)."""
+        min_acc = self.ecfg.speculative_min_acceptance
+        if min_acc > 0 and not self._spec_disabled \
+                and self.spec_stats[1] >= 5 * self.ecfg.speculative_k:
+            rate = self.spec_stats[0] / max(self.spec_stats[1], 1)
+            if rate < min_acc:
+                print(f"[engine] speculative acceptance {rate:.2f} < "
+                      f"{min_acc}; falling back to plain decoding")
+                self._spec_disabled = True
+
+    def start_spec_request(self, prep, draft_params, draft_cfg,
+                           max_cache_len: Optional[int] = None,
+                           draft_max_cache_len: Optional[int] = None):
+        """Speculative :meth:`start_request`: both models' prefills into a
+        one-slot SpecSlots and the first token, suffix-only against the
+        stored prefix on a hit (self-drafts), a full prefill storing the
+        prefix on a miss. The cache holds bucket + max_new_tokens + K + 2
+        slots by default."""
+        ecfg = self.ecfg
+        prep = self._refresh_prep(prep)
+        mcl = (max_cache_len if max_cache_len is not None
+               else prep["bucket"] + ecfg.max_new_tokens
+               + ecfg.speculative_k + 2)
+        if prep["mode"] == "prefix":
+            entry = prep["entry"]
+            self.prefix_cache_stats[0] += 1
+            return spec.spec_start_prefix(
+                self.params, draft_params, self.cfg, draft_cfg,
+                prep["batch"], entry.cache, entry.prefix_len, mcl,
+                self.cache_dtype, draft_max_cache_len=draft_max_cache_len,
+                **ecfg.sampling())
+        sub, first = spec.spec_start(
+            self.params, draft_params, self.cfg, draft_cfg, prep["batch"],
+            mcl, self.cache_dtype, vision_features=prep["vf"],
+            draft_max_cache_len=draft_max_cache_len, **ecfg.sampling())
+        if (ecfg.prefix_cache_scenes > 0 and prep["img"] >= 0
+                and isinstance(prep["key"], str)):
+            self.prefix_cache_stats[1] += 1
+            self._store_prefix(prep["key"], prep["ids"], prep["img"],
+                               prep["batch"], sub.t_cache)
+        return sub, first
+
+    def _generate_answer_spec_prefix(self, record, box_input=None,
+                                     coord_token_id=None, prep=None) -> str:
+        """One speculative answer through the scene-prefix cache: the
+        self-draft's :meth:`start_spec_request`, then chunks of 4 rounds
+        (the batcher's ``spec_decode_chunk``), one host sync each."""
+        ecfg = self.ecfg
+        dp, dc = self._self_draft()
+        if prep is None:
+            prep = self.prepare_request(record, box_input, coord_token_id)
+        sub, first = self.start_spec_request(prep, dp, dc)
+        tok0 = int(first[0])
+        if tok0 == ecfg.eos_token_id or ecfg.max_new_tokens == 0:
+            return self._decode_text([])
+        emitted = [tok0]
+        K = ecfg.speculative_k
+        done = False
+        while not done and len(emitted) < ecfg.max_new_tokens:
+            sub, emit, keep = spec.spec_decode_chunk(
+                self.params, dp, self.cfg, dc, sub, iters=4,
+                num_draft_tokens=K, eos_token_id=ecfg.eos_token_id,
+                **ecfg.sampling())
+            emit0, keep0 = emit[0].tolist(), keep[0].tolist()
+            for row, kept in zip(emit0, keep0):
+                toks = [t for t, k in zip(row, kept) if k]
+                if not toks:             # the row finished in a round before
+                    break
+                self.spec_stats[0] += len(toks) - 1
+                self.spec_stats[1] += K
+                for t in toks:
+                    if t == ecfg.eos_token_id:
+                        done = True
+                        break
+                    emitted.append(t)
+                    if len(emitted) >= ecfg.max_new_tokens:
+                        done = True
+                        break
+                if done:
+                    break
+            if bool(sub.done[0]):
+                done = True
+        self._check_spec_acceptance()
+        return self._decode_text(emitted)
+
     def generate_answer(self, record, box_input=None,
                         coord_token_id=None) -> str:
+        if self._prefix_cache_spec_on(record):
+            return self._generate_answer_spec_prefix(record, box_input,
+                                                     coord_token_id)
         if self._prefix_cache_on(record):
             return self._answer_from_prep(self.prepare_request(
                 record, box_input, coord_token_id))
@@ -867,8 +1069,11 @@ def run_generative(engine: InferenceEngine, questions: Sequence[dict],
     over its size), prep excluded, as the JAX driver times it."""
     if not questions:
         return []
-    prefix_on = engine._prefix_cache_on(questions[0])
-    if prefix_on and batch_size > 1:
+    plain_prefix = engine._prefix_cache_on(questions[0])
+    spec_prefix = batch_size == 1 and \
+        engine._prefix_cache_spec_on(questions[0])
+    prefix_on = plain_prefix or spec_prefix
+    if plain_prefix and batch_size > 1:
         questions = sorted(questions, key=lambda q: str(q.get("video")))
 
     def prep(s):
@@ -901,7 +1106,12 @@ def run_generative(engine: InferenceEngine, questions: Sequence[dict],
             if prefix_on and batch_size > 1:
                 texts = engine.generate_answers_batch_prefix(
                     chunk, boxes, coord_token_id)
+            elif spec_prefix and not engine._spec_disabled:
+                texts = [engine._generate_answer_spec_prefix(
+                    chunk[0], boxes[0], coord_token_id, prep=prepared)]
             elif prefix_on:
+                # plain, or speculation turned off by the min-acceptance
+                # guard mid-run: the prep decodes through the prefix path
                 texts = [engine._answer_from_prep(prepared)]
             elif batch_size == 1:
                 texts = engine._texts(engine._generate(*prepared))

@@ -19,8 +19,9 @@ Not ported: ``RAGGED_GRID`` (:139-143) and the cumsum / searchsorted
 live-page worklist with its ``lax.cond`` sizing (:198-281). They keep a
 TPU's sequential grid short; the CUDA kernel gives each CTA an even share
 of the slots' live positions laid end to end, which covers aliased tables
-by construction. ``paged_attention_multi`` (:328, the
-speculative verify) waits for ROADMAP A8.
+by construction. ``paged_attention_multi`` (:328, the speculative
+verify's L-token block) is a plain gather and einsum in JAX, not a Pallas
+kernel, and stays plain PyTorch here on every device.
 """
 
 from __future__ import annotations
@@ -81,6 +82,37 @@ def paged_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
     o = torch.einsum("bkgs,bksd->bkgd", torch.softmax(s, dim=-1), v)
     o = torch.where(lens > 0, o, torch.zeros((), device=q.device))
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def paged_attention_multi(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_table: torch.Tensor,
+                          q_positions: torch.Tensor, layer: int,
+                          k_scale: Optional[torch.Tensor] = None,
+                          v_scale: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Multi-query paged attention over ``layer`` of the stacked pools
+    (:328-361): q (B, L, H, hd), query r of slot b at the global position
+    ``q_positions[b, r]``, attending the slot's keys 0..q_positions[b, r]
+    (the block was appended first, so that is the whole mask). Each slot's
+    pages are gathered densely and dequantized (int8, or packed int4
+    unpacked) in f32; the softmax runs in f32 and the output keeps q's
+    dtype. The same gather-and-einsum on the card as on the CPU."""
+    B, L, H, hd = q.shape
+    kv_heads = k_scale.shape[2] if k_scale is not None \
+        else k_pages.shape[-1] // hd
+    G = H // kv_heads
+    ks = None if k_scale is None else k_scale[layer]
+    vs = None if v_scale is None else v_scale[layer]
+    k = _dense_from_pages(k_pages[layer], ks, page_table, kv_heads)
+    v = _dense_from_pages(v_pages[layer], vs, page_table, kv_heads)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)     # (B, KV, S, hd)
+    qf = q.float().reshape(B, L, kv_heads, G, hd) * hd ** -0.5
+    s = torch.einsum("blkgd,bksd->blkgs", qf, k)
+    pos = torch.arange(k.shape[2], device=q.device)
+    ok = pos <= q_positions.to(q.device)[:, :, None, None, None]
+    s = torch.where(ok, s, torch.tensor(NEG_INF, device=q.device))
+    o = torch.einsum("blkgs,bksd->blkgd", torch.softmax(s, dim=-1), v)
+    return o.reshape(B, L, H, hd).to(q.dtype)
 
 
 def check_pools(q: torch.Tensor, k_pages: torch.Tensor,

@@ -2,7 +2,8 @@
 sampled, in PyTorch: counterpart of ``video3d_tpu/models/generate.py``
 (``warp_logits`` / ``sample_token``, ``prefill_multimodal``,
 ``DecodeState`` / ``start_decode`` / ``generate_from_state``,
-``generate_greedy``, the scene-prefix entry points ``shared_prefix_view``,
+``generate_greedy``, Sarathi-style ``ChunkedPrefill``, the scene-prefix
+entry points ``shared_prefix_view``,
 ``_write_prefix``, ``start_decode_prefix`` and ``ground_suffix``, and the
 slot API of the continuous batcher over dense rows and page pools).
 
@@ -124,37 +125,55 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Uniforms in [2^-24, 1 - 2^-24] from 32-bit hashes (int64 in [0,
+    2^32)): the top 23 bits, every value of which, and its +0.5 offset,
+    float32 holds exactly, so no hash gives u = 0 or u = 1."""
+    return ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
+
+
 def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Gumbel(0, 1) noise from 32-bit hashes (int64 in [0, 2^32)): the top
-    23 bits as a uniform in [2^-24, 1 - 2^-24], every value of which, and
-    its +0.5 offset, float32 holds exactly, so no hash gives u = 1 (an
-    infinite noise that would pick a masked token)."""
-    u = ((bits >> 9).float() + 0.5) * (1.0 / (1 << 23))
-    return -torch.log(-torch.log(u))
+    """Gumbel(0, 1) noise from 32-bit hashes: -log(-log u) of
+    :func:`uniform_from_bits`, finite for every hash (an infinite noise
+    would pick a masked token)."""
+    return -torch.log(-torch.log(uniform_from_bits(bits)))
 
 
-def gumbel_noise(seed: int, step: torch.Tensor, shape,
-                 device) -> torch.Tensor:
-    """(B, V) float32 Gumbel(0, 1) noise, a pure function of (seed, step,
-    row, token) through a counter hash."""
+def hash_bits(seed: int, step: torch.Tensor, shape, device,
+              tag: Optional[int] = None) -> torch.Tensor:
+    """(B, V) int64 32-bit hashes of (seed, step, ``tag``, row, column): a
+    counter-based stream. ``tag`` names a stream of its own at the same
+    step (the speculative draft's draws, its acceptance uniforms and its
+    residual draw); None is the decode loops' stream."""
     B, V = shape
     key = _mix32(_mix32(step.long() & _M32) ^ (seed & _M32))
+    if tag is not None:
+        key = _mix32(key ^ (tag & _M32))
     rows = _mix32(key ^ torch.arange(B, device=device))[:, None]
-    return gumbel_from_bits(_mix32(rows ^ torch.arange(V, device=device)[None]))
+    return _mix32(rows ^ torch.arange(V, device=device)[None])
+
+
+def gumbel_noise(seed: int, step: torch.Tensor, shape, device,
+                 tag: Optional[int] = None) -> torch.Tensor:
+    """(B, V) float32 Gumbel(0, 1) noise, a pure function of (seed, step,
+    ``tag``, row, token) through :func:`hash_bits`."""
+    return gumbel_from_bits(hash_bits(seed, step, shape, device, tag))
 
 
 def sample_token(logits: torch.Tensor, sampling: Sampling = GREEDY,
-                 step: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 step: Optional[torch.Tensor] = None,
+                 tag: Optional[int] = None) -> torch.Tensor:
     """(B,) ids from (B, V) logits: the argmax over float32 logits (first
     maximum, as ``jnp.argmax``) when greedy, else a draw from the softmax
     of :func:`warp_logits` by Gumbel-max at the state's ``step`` (the
-    reference's do_sample = temperature > 0, model_scanqa.py:176-180)."""
+    reference's do_sample = temperature > 0, model_scanqa.py:176-180) in
+    stream ``tag``."""
     if sampling.greedy:
         return torch.argmax(logits.to(torch.float32), dim=-1)
     warped = warp_logits(logits, sampling.temperature, sampling.top_p,
                          sampling.top_k)
     return torch.argmax(warped + gumbel_noise(
-        sampling.seed, step, warped.shape, warped.device), dim=-1)
+        sampling.seed, step, warped.shape, warped.device, tag), dim=-1)
 
 
 def _decode_position_ids(pos: torch.Tensor) -> torch.Tensor:
@@ -188,7 +207,10 @@ def prefill_multimodal(params, cfg: ModelConfig, batch: lv3d.Batch,
 
 def _initial_state(next_logits, cache, pos) -> DecodeState:
     dev = next_logits.device
-    return DecodeState(next_logits=next_logits, cache=cache, pos=pos.long(),
+    # a copy: the loops advance pos in place, and a long seq_len would
+    # otherwise be the batch's own tensor
+    return DecodeState(next_logits=next_logits, cache=cache,
+                       pos=pos.long().clone(),
                        done=torch.zeros(next_logits.shape[0], dtype=torch.bool,
                                         device=dev),
                        step=torch.zeros((), dtype=torch.long, device=dev))
@@ -203,6 +225,123 @@ def start_decode(params, cfg: ModelConfig, batch: lv3d.Batch,
     next_logits, cache, start_pos = prefill_multimodal(
         params, cfg, batch, max_cache_len, vision_features, cache_dtype)
     return _initial_state(next_logits, cache, start_pos)
+
+
+def _embeds_and_pos(params, cfg: ModelConfig, batch: lv3d.Batch,
+                    vision_features: Optional[torch.Tensor] = None):
+    """Vision encode + splice assembly + 3D position ids: the
+    chunk-independent first step of a chunked prefill (JAX :111)."""
+    if vision_features is None:
+        vision_features = lv3d.encode_video(params, cfg, batch.images,
+                                            batch.patch_coords).spliceable
+    embeds = lv3d.assemble_embeds(params, cfg, vision_features,
+                                  batch.text_ids, batch.kind,
+                                  batch.vision_index, batch.coord_mask,
+                                  batch.box_input)
+    return embeds, lv3d._position_ids_3d(batch, cfg)
+
+
+def _prefill_chunk(params, cfg: ModelConfig, cache: qwen2.KVCache,
+                   h_last: torch.Tensor, embeds_c: torch.Tensor,
+                   pos3_c: torch.Tensor, start: int,
+                   kv_len: torch.Tensor) -> None:
+    """One text chunk of a chunked prefill (JAX :128) through the
+    cached-chunk path (the suffix prefill's: K/V written at [start, start
+    + C), the chunk attending the cache through B2 folded), in place.
+    ``h_last`` (B, D) carries each row's last real hidden state across
+    chunks (a row's kv_len - 1 may fall in any chunk); the lm_head runs
+    once, in :func:`_finish_chunked_logits`."""
+    B, C, _ = embeds_c.shape
+    dev = embeds_c.device
+    positions = (start + torch.arange(C, device=dev))[None].expand(B, C)
+    hidden = qwen2.qwen2_forward(
+        params["llm"], cfg.llm, embeds_c, pos3_c, kv_cache=cache,
+        cache_positions=positions, kv_len=kv_len, contiguous_update=True)
+    last = kv_len.long() - 1
+    cand = hidden[torch.arange(B, device=dev),
+                  (last - start).clamp(0, C - 1)]
+    in_chunk = (last >= start) & (last < start + C)
+    h_last.copy_(torch.where(in_chunk[:, None], cand.to(h_last.dtype),
+                             h_last))
+
+
+def _finish_chunked_logits(params, h_last: torch.Tensor) -> torch.Tensor:
+    """(B, D) last-token hidden states -> (B, vocab) logits: one lm_head
+    read for the whole chunked prefill (JAX :155)."""
+    return qwen2.lm_head(params["llm"], h_last[:, None])[:, 0]
+
+
+class ChunkedPrefill:
+    """Host-driven chunked multimodal prefill, Sarathi-style (JAX
+    ``ChunkedPrefill``, :163): the batcher's scheduler runs one bounded
+    unit per iteration between decode chunks, so a cold admission stalls
+    decode for about max(tower, one chunk forward) instead of the whole
+    prefill. Step 0 is the vision encode and the splice assembly; each
+    later step one ``chunk_len``-token forward over the chunk's positions
+    through the cached-chunk path (B2 folded on the card); the last step
+    pays the lm_head. Only the true tokens are covered: K/V past a row's
+    ``seq_len`` is masked and decode overwrites from there. The finished
+    :class:`DecodeState` is :func:`start_decode`'s up to the rounding of
+    the two attention paths (the full prefill attends raw K/V, a chunk the
+    cache, quantized when the cache is)."""
+
+    def __init__(self, params, cfg: ModelConfig, batch: lv3d.Batch,
+                 max_cache_len: int, chunk_len: int = 256,
+                 cache_dtype=torch.bfloat16,
+                 vision_features: Optional[torch.Tensor] = None):
+        self.params, self.cfg, self.batch = params, cfg, batch
+        self.chunk_len = int(chunk_len)
+        if self.chunk_len <= 0:
+            raise ValueError("chunk_len must be positive")
+        self.max_cache_len = max_cache_len
+        self.cache_dtype = cache_dtype
+        self.vision_features = vision_features
+        self._embeds = self._pos3 = self._cache = self._h_last = None
+        self._off = 0
+        self._state: Optional[DecodeState] = None
+        self._n_true = int(batch.seq_len.max())
+        if self._n_true > max_cache_len:
+            raise ValueError("prefill longer than the KV cache")
+        # 1 (vision / assembly) + the text chunks
+        self.total_steps = 1 + -(-self._n_true // self.chunk_len)
+
+    @property
+    def done(self) -> bool:
+        return self._state is not None
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """Run the next bounded unit of work; returns :attr:`done`."""
+        if self._state is not None:
+            return True
+        B = self.batch.text_ids.shape[0]
+        if self._embeds is None:
+            self._embeds, self._pos3 = _embeds_and_pos(
+                self.params, self.cfg, self.batch, self.vision_features)
+            self._cache = qwen2.KVCache.zeros(
+                self.cfg.llm, B, self.max_cache_len, dtype=self.cache_dtype,
+                device=self._embeds.device)
+            self._h_last = self._embeds.new_zeros(
+                (B, self._embeds.shape[-1]))
+            return False
+        c0 = self._off
+        c1 = min(c0 + self.chunk_len, self._n_true)
+        _prefill_chunk(self.params, self.cfg, self._cache, self._h_last,
+                       self._embeds[:, c0:c1], self._pos3[:, c0:c1], c0,
+                       self.batch.seq_len)
+        self._off = c1
+        if c1 < self._n_true:
+            return False
+        next_logits = _finish_chunked_logits(self.params, self._h_last)
+        cache, self._cache = self._cache, None
+        self._embeds = self._pos3 = self._h_last = None
+        self._state = _initial_state(next_logits, cache, self.batch.seq_len)
+        return True
+
+    def result(self) -> DecodeState:
+        if self._state is None:
+            raise RuntimeError("the chunked prefill has not finished")
+        return self._state
 
 
 def shared_prefix_view(prefix: qwen2.KVCache, prefix_len: int,

@@ -16,8 +16,8 @@ scales) straight into the stacked pools at (layer, page id, offset); dead
 slots write to the scratch page 0, offset 0. The JAX per-layer view and
 restack (``layer_view``, ``qwen2.py:580-591, :620-631``) and its parked
 stacked-threading loop (:323-361) were XLA compile-time workarounds and
-are not ported; nor is the multi-token append of the speculative verify
-(``append_positions_multi``, ROADMAP A8).
+are not ported. The speculative verify appends its L-token block per slot
+(:func:`append_positions_multi`).
 """
 
 from __future__ import annotations
@@ -238,20 +238,43 @@ def append_positions(cache: PagedKVCache,
     return pids, off
 
 
+def append_positions_multi(cache: PagedKVCache, L: int,
+                           active: Optional[torch.Tensor] = None):
+    """(pids, off), both (S, L) int64: where each slot appends ``L``
+    consecutive tokens at positions ``lens[s] .. lens[s] + L - 1`` (:265),
+    a page boundary inside the block handled per token. Dead slots go to
+    the scratch page as in :func:`append_positions`; the page index is
+    clamped to the table."""
+    page = cache.page_size
+    pos = cache.lens.long()[:, None] + torch.arange(L,
+                                                    device=cache.lens.device)
+    pidx = (pos // page).clamp(max=cache.max_pages - 1)
+    off = pos % page
+    pids = torch.gather(cache.page_table.long(), 1, pidx)
+    if active is not None:
+        pids = torch.where(active[:, None], pids, 0)
+        off = torch.where(active[:, None], off, 0)
+    return pids, off
+
+
 def append_layer_kv(cache: PagedKVCache, layer: int, k_new: torch.Tensor,
                     v_new: torch.Tensor, pids: torch.Tensor,
                     off: torch.Tensor) -> PagedKVCache:
-    """Append one token per slot, k_new / v_new (S, KV, hd), into ``layer``
-    of the stacked pools at (pids, off) from :func:`append_positions`, in
-    place (:284, the single-token case). Callers advance ``lens`` once per
-    step (:func:`advance_lens`), not per layer."""
+    """Append new tokens into ``layer`` of the stacked pools, in place
+    (:284): one per slot, k_new / v_new (S, KV, hd) at the (S,)
+    coordinates of :func:`append_positions`, or an L-token block per slot,
+    (S, L, KV, hd) at the (S, L) coordinates of
+    :func:`append_positions_multi`. Callers advance ``lens`` once per step
+    (:func:`advance_lens`), not per layer."""
     _write_rows(cache, layer, pids, off, k_new, v_new)
     return cache
 
 
 def advance_lens(cache: PagedKVCache,
-                 active: Optional[torch.Tensor] = None) -> PagedKVCache:
-    """+1 token on every (active) slot, in place: once per decode step."""
-    cache.lens.add_(1 if active is None else active.to(cache.lens.dtype))
+                 active: Optional[torch.Tensor] = None,
+                 n: int = 1) -> PagedKVCache:
+    """+n tokens on every (active) slot, in place: once per decode step."""
+    cache.lens.add_(n if active is None
+                    else n * active.to(cache.lens.dtype))
     return cache
 

@@ -2,8 +2,9 @@
 PyTorch: counterpart of ``video3d_tpu/models/qwen2.py`` (the no-cache
 training branch, differentiable through B2 with the logsumexp and B6, with
 optional per-layer rematerialisation; the prefill, stacked single-token
-decode, contiguous multi-token chunk and shared-prefix branches, and the
-single-token paged decode over ``models/paged_kv.py``'s pools; a bf16 KV
+decode, per-row multi-token block (the speculative verify), contiguous
+multi-token chunk and shared-prefix branches, and the paged decode over
+``models/paged_kv.py``'s pools, one token or a verify block; a bf16 KV
 cache, or an int8 or a packed int4 one with per-token, per-head scales;
 dense weights, the int8 dicts or the ``Int4Weight`` of
 ``models/quant.py``). JAX's ``scan_layers`` (one ``lax.scan`` over stacked
@@ -34,6 +35,7 @@ from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
                                                  mha_shared_prefix, mha_train,
                                                  paged_mha)
+from video3d_tpu_torch.kernels.paged_attention import paged_attention_multi
 from video3d_tpu_torch.models import paged_kv, quant
 
 Params = Dict[str, Any]
@@ -232,7 +234,9 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
       * ``cache_start`` (the JAX ``contiguous_update``): the chunk's K/V land
         at slots [cache_start, cache_start + L) of every row, and queries sit
         at ``cache_positions`` (B, L) == cache_start + r;
-      * otherwise L == 1 and the new K/V land at ``cache_positions`` (B, 1).
+      * otherwise the new K/V land at ``cache_positions`` (B, L): one token
+        per row, or (the speculative verify) a block of L contiguous
+        positions starting at each row's own offset.
     Attention then reads the stacked cache (decode kernel for one token, the
     GQA-folded flash kernel for a chunk), or, with ``shared_prefix`` = this
     layer's (pk, pv) (P, KV, hd) view of a stored scene prefix (requires
@@ -240,10 +244,12 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     K/V (shared-prefix kernel); the cache write happens all the same.
     ``kv_len`` (B,) counts valid keys after the write.
 
-    ``paged`` = (PagedKVCache, pids, off, lens_after), the single-token
-    paged decode step (JAX ``qwen2.py:264-281``): this token's K/V are
-    appended into ``layer_idx`` of the stacked pools at (pids, off), then
-    attention reads each slot's pages up to ``lens_after`` (kernel B7).
+    ``paged`` = (PagedKVCache, pids, off, lens_after), a paged decode step
+    (JAX ``qwen2.py:264-296``): this step's K/V are appended into
+    ``layer_idx`` of the stacked pools at (pids, off), then attention reads
+    each slot's pages up to ``lens_after``: kernel B7 for one token, the
+    plain gather of :func:`paged_attention_multi` for an L-token block
+    (the speculative verify; plain XLA in JAX too).
     """
     B, L, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -256,15 +262,24 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     q, k = apply_rotary(q, k, cos, sin)
 
     if paged is not None:
-        if L != 1:
-            raise NotImplementedError("multi-token paged blocks (the "
-                                      "speculative verify) are not ported "
-                                      "(ROADMAP A8)")
         cache, pids, off, lens_after = paged
-        paged_kv.append_layer_kv(cache, layer_idx, k[:, 0], v[:, 0], pids,
-                                 off)
-        attn = paged_mha(q, cache.k, cache.v, cache.page_table, lens_after,
-                         layer_idx, cache.k_scale, cache.v_scale)
+        if L == 1:
+            paged_kv.append_layer_kv(cache, layer_idx, k[:, 0], v[:, 0],
+                                     pids, off)
+            attn = paged_mha(q, cache.k, cache.v, cache.page_table,
+                             lens_after, layer_idx, cache.k_scale,
+                             cache.v_scale)
+        else:
+            # the speculative verify block (JAX :282-296): append all L
+            # tokens at their (S, L) coordinates, then each query attends
+            # keys up to its own position lens_after - L + r
+            paged_kv.append_layer_kv(cache, layer_idx, k, v, pids, off)
+            q_positions = lens_after.long()[:, None] - L \
+                + torch.arange(L, device=x.device)
+            attn = paged_attention_multi(q, cache.k, cache.v,
+                                         cache.page_table, q_positions,
+                                         layer_idx, cache.k_scale,
+                                         cache.v_scale)
     elif kv_cache is None:
         attn = (mha_train if torch.is_grad_enabled() else mha)(q, k, v,
                                                                kv_len)
@@ -280,8 +295,10 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
             _write_kv(kv_cache, layer_idx, torch.arange(B, device=x.device),
                       cache_positions[:, 0], k[:, 0], v[:, 0])
         else:
-            raise NotImplementedError("per-row multi-token cache writes are "
-                                      "not ported (pass cache_start)")
+            # a block at its own offset per row (the speculative verify)
+            _write_kv(kv_cache, layer_idx,
+                      torch.arange(B, device=x.device)[:, None],
+                      cache_positions, k, v)
         if shared_prefix is not None:
             pk, pv = shared_prefix[:2]
             if cache_start != pk.shape[0]:
@@ -333,10 +350,9 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
 
     ``paged_cache`` (B == its slot count, no ``kv_cache``): one decode step
     over the page pools (JAX ``qwen2.py:552-568, :627-631``). Each slot
-    appends at position ``lens``; ``paged_active`` (B,) bool sends dead
-    slots to the scratch page and keeps their length; ``lens`` advances
-    once, after the last layer. Multi-token blocks (the speculative
-    verify) raise.
+    appends its L tokens at positions ``lens .. lens + L - 1``;
+    ``paged_active`` (B,) bool sends dead slots to the scratch page and
+    keeps their length; ``lens`` advances by L once, after the last layer.
     """
     L = inputs_embeds.shape[1]
     if kv_cache is not None and prefill and L > kv_cache.k.shape[2]:
@@ -356,9 +372,13 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
     if paged_cache is not None:
         if kv_cache is not None:
             raise ValueError("paged_cache and kv_cache are exclusive")
-        pids, off = paged_kv.append_positions(paged_cache, paged_active)
-        inc = 1 if paged_active is None \
-            else paged_active.to(paged_cache.lens.dtype)
+        if L == 1:
+            pids, off = paged_kv.append_positions(paged_cache, paged_active)
+        else:
+            pids, off = paged_kv.append_positions_multi(paged_cache, L,
+                                                        paged_active)
+        inc = L if paged_active is None \
+            else L * paged_active.to(paged_cache.lens.dtype)
         paged = (paged_cache, pids, off, paged_cache.lens + inc)
     cos, sin = compute_mrope_cos_sin(position_ids, cfg)
     KV = cfg.num_key_value_heads
@@ -379,7 +399,7 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
                               cache_positions, kv_len, prefill, cache_start,
                               sp, paged)
     if paged is not None:
-        paged_kv.advance_lens(paged_cache, paged_active)
+        paged_kv.advance_lens(paged_cache, paged_active, L)
     return rms_norm(x, params["norm"], cfg.rms_norm_eps)
 
 
