@@ -96,8 +96,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    (phase 13's K) over the int8 cache, launch counts exact, its score's
    distance to a teacher-forced recompute printed; and phase 14's
    speculation and chunked prefill over the int8 cache: one greedy
-   speculative answer (self-draft k=4) and one chunked admission, with
-   exact launch counts of B2 folded int8, B3 int8 and B4.
+   speculative answer (self-draft k=4), equal to the int8 greedy answer
+   up to a near-tie, and one chunked admission, its first-step logits
+   within LOGIT_ATOL of the atomic prefill's, with exact launch counts of
+   B2 folded int8, B3 int8 and B4.
 9. The int4 configuration: the int8 model is freed and the same model is
    built with int4 LLM projections and lm_head (``init_model(bits=4)``,
    groups of 512 input rows); phases 4, 5 and 8 run again with the bf16
@@ -164,7 +166,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    to 32768 tokens, each answer equal to phase 4's greedy ids up to a
    near-tie (the two ids' logits within twice the largest distance
    between B3 steps and B2-folded verify blocks along phase 4's ids,
-   measured here); control: the full-depth run with every draft id moved
+   measured here and held to LOGIT_ATOL), and every rejection of the
+   full-depth run a near-tie (the target's logit gap between its id and
+   the rejected draft id within the same bound); control: the full-depth
+   run with every draft id moved
    to the next vocabulary id must reject its first draft in >= 90% of
    rounds; acceptance, target forwards and ms per emitted token beside
    phase 4's. Sampled speculation (temperature 0.7, top-p 0.9, top-k 50):
@@ -182,8 +187,10 @@ Phases, each of which raises on failure (the process then exits non-zero):
    returns, answers equal up to a near-tie, every page back, decode
    chunks run inside a cold admission's job; the longest decode stall
    over a cold admission printed for both. Launch
-   counts exact for the engine's runs; the phase's seconds and peak
-   memory printed.
+   counts exact for the engine's runs; the phase's launch counts sum its
+   main-path runs only (the engine's answers, the two batchers, the
+   chunked admissions and their decode), not the references, timings and
+   checks' recomputes; the phase's seconds and peak memory printed.
 7. Training: the int4 model is freed; ``ModelConfig()`` cut to
    ``TRAIN_LAYERS`` decoder layers with its INFONCE ground head, f32
    master weights from a seeded generator, ``Trainer.train()`` with bf16
@@ -298,8 +305,6 @@ PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
 MAX_NEW = 32          # answer budget of both main paths
-#: numbers one phase measures for a later one to print beside its own
-MEASURED: dict = {}
 DECODE_STEPS = 8      # steps of the captured-vs-uncaptured chunks
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
 # Inputs of the B2 folded and B5 checks. Queries at three times a unit
@@ -2279,10 +2284,11 @@ def _read_jsonl(path: str):
 
 def run_main_path(params, cfg, root: str, info,
                   kv_cache_dtype: str = "bfloat16",
-                  results: Optional[list] = None) -> dict:
+                  results: Optional[list] = None) -> tuple:
     """Answer two questions at full width through ``run_scanqa``; returns the
-    kernel launch counts of that run (``results``, if given, receives the
-    two answers' GenerateResults)."""
+    kernel launch counts of that run and the captured B=1 decode's ms per
+    token (``results``, if given, receives the two answers'
+    GenerateResults)."""
     import torch
 
     from video3d_tpu_torch.eval.drivers import run_scanqa
@@ -2368,9 +2374,6 @@ def run_main_path(params, cfg, root: str, info,
         steps = _forwards(res)
         torch.cuda.synchronize()
         walls[tag] = ((time.perf_counter() - t0) - t_pre) / steps * 1e3
-    if kv_cache_dtype == "bfloat16" and not isinstance(
-            params["llm"]["lm_head"], dict):
-        MEASURED.setdefault("b1_ms_per_token", walls["captured"])
     print(f"  vision (tower+projector+pool+PE, {batch.images.shape[1]} "
           f"frames) {t_vis * 1e3:.1f} ms; LLM prefill {seq_len} tokens "
           f"(bucket {batch.text_ids.shape[1]}) {t_pre * 1e3:.1f} ms = "
@@ -2386,7 +2389,7 @@ def run_main_path(params, cfg, root: str, info,
     _capture_vs_eager("B=1 decode (phase 4's path)", gen.decode_chunk,
                       params, cfg, state, DECODE_STEPS, eos)
     del state, cache
-    return launches
+    return launches, walls["captured"]
 
 
 def run_prefix_path(params, cfg, root: str, info,
@@ -3738,11 +3741,15 @@ def _b3_b2_logits(params, cfg, batch, vf, seq, K: int):
 
 @contextlib.contextmanager
 def _spec_recorder():
-    """Records every SpecResult of ``generate_speculative`` and the
-    acceptance count ``a`` of every verify round while active."""
+    """Records every SpecResult of ``generate_speculative``, the
+    acceptance count ``a`` of every verify round and, for every greedy
+    rejection (a row with a < K), the verify block's logit gap there
+    between the target's id and the rejected draft id, while active."""
+    import torch
+
     from video3d_tpu_torch.models import speculative as spec
 
-    rec = {"results": [], "accepted": []}
+    rec = {"results": [], "accepted": [], "rejected_gaps": []}
     gen_orig, acc_orig = spec.generate_speculative, spec._accept_block
 
     def generate(*args, **kwargs):
@@ -3750,9 +3757,16 @@ def _spec_recorder():
         rec["results"].append(res)
         return res
 
-    def accept(*args, **kwargs):
-        emit, a = acc_orig(*args, **kwargs)
+    def accept(d, q_probs, t_logits, K, sampling, step):
+        emit, a = acc_orig(d, q_probs, t_logits, K, sampling, step)
         rec["accepted"].append(a.clone())
+        rows = torch.nonzero(a < K)[:, 0]
+        if sampling.greedy and rows.numel():
+            at = a[rows]
+            row = t_logits[rows, at].float()
+            gap = row.gather(1, emit[rows, at][:, None]) \
+                - row.gather(1, d[rows, at][:, None])
+            rec["rejected_gaps"] += gap[:, 0].tolist()
         return emit, a
 
     spec.generate_speculative, spec._accept_block = generate, accept
@@ -3804,7 +3818,7 @@ def _spec_runs(name: str, params, cfg, engine, questions, k: int,
                kv_cache_dtype: str = "bfloat16"):
     """The engine's speculative answers to ``questions`` through
     ``generate_answer``, launch counts exact; returns (the recorder, wall
-    seconds per answer)."""
+    seconds per answer, the launch counts)."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
@@ -3826,7 +3840,7 @@ def _spec_runs(name: str, params, cfg, engine, questions, k: int,
            f"{part}, expected {expected} "
            f"({sum(r.target_forwards - 1 for r in rec['results'])} rounds)")
     _decode_forwards(engine.results, cfg.llm.vocab_size)
-    return rec, wall
+    return rec, wall, part
 
 
 def _spec_ms_per_token(params, cfg, engine, q) -> tuple:
@@ -3867,9 +3881,11 @@ def _acceptance(rec) -> str:
             f"forwards {fwd} (the prefill counted)")
 
 
-def _spec_greedy(params, cfg, root, qs, greedy_results) -> float:
-    """Phase 14's greedy speculation through ``generate_answer``; returns
-    the near-tie bound it measured."""
+def _spec_greedy(params, cfg, root, qs, greedy_results, b1_ms: float,
+                 launches: dict) -> float:
+    """Phase 14's greedy speculation through ``generate_answer``, its
+    answers' launch counts added to ``launches``; returns the near-tie
+    bound it measured."""
     import torch
 
     from video3d_tpu_torch.models import speculative as spec
@@ -3889,9 +3905,10 @@ def _spec_greedy(params, cfg, root, qs, greedy_results) -> float:
                                MAX_NEW))
         del verify
     tie = 2 * max(deltas)
-    print(f"  B3 steps against B2 folded verify blocks (K+1 = {SPEC_K + 1})"
-          f" along phase 4's greedy ids: max |d logits| {deltas} -> the "
-          f"near-tie bound {tie:.4f}", flush=True)
+    _check(f"B3 steps against B2 folded verify blocks (K+1 = {SPEC_K + 1}) "
+           f"along phase 4's greedy ids", max(deltas) <= LOGIT_ATOL,
+           f"max |d logits| {deltas} (bound {LOGIT_ATOL}) -> the near-tie "
+           f"bound {tie:.4f}")
 
     def held(tag, engine):
         for i, (q, want) in enumerate(zip(qs, wants)):
@@ -3905,8 +3922,16 @@ def _spec_greedy(params, cfg, root, qs, greedy_results) -> float:
     # the full-depth self-draft: the target is its own draft
     full = _make_engine(params, cfg, root, speculative_draft_layers=L,
                         speculative_k=SPEC_K)
-    rec, wall = _spec_runs("full-depth self-draft", params, cfg, full, qs, L)
+    rec, wall, part = _spec_runs("full-depth self-draft", params, cfg, full,
+                                 qs, L)
+    _add_launches(launches, part)
     held("full-depth self-draft", full)
+    gaps = rec["rejected_gaps"]
+    _check("full-depth self-draft: every rejection a near-tie",
+           max(gaps, default=0.0) <= tie,
+           f"{len(gaps)} rejections, the target's logit over the rejected "
+           f"draft id's at most {max(gaps, default=0.0):.4f} (the near-tie "
+           f"bound {tie:.4f})")
     print(f"  full-depth self-draft (k={L}, K={SPEC_K}): {_acceptance(rec)};"
           f" {wall:.3f} s per answer (generate_answer)", flush=True)
     # its control: every draft id shifted to the next vocabulary id
@@ -3939,29 +3964,31 @@ def _spec_greedy(params, cfg, root, qs, greedy_results) -> float:
                         speculative_draft_layers=SPEC_DRAFT_LAYERS,
                         speculative_k=SPEC_K,
                         speculative_draft_vocab=SPEC_DRAFT_VOCAB)
-    rec, wall = _spec_runs("self-draft k=4", params, cfg, fast, qs,
-                           SPEC_DRAFT_LAYERS)
+    rec, wall, part = _spec_runs("self-draft k=4", params, cfg, fast, qs,
+                                 SPEC_DRAFT_LAYERS)
+    _add_launches(launches, part)
     held(f"self-draft k={SPEC_DRAFT_LAYERS}", fast)
     print(f"  self-draft k={SPEC_DRAFT_LAYERS} (head cut to "
           f"{SPEC_DRAFT_VOCAB}), K={SPEC_K}: {_acceptance(rec)}; {wall:.3f} s"
           f" per answer (generate_answer)", flush=True)
-    b1 = MEASURED.get("b1_ms_per_token")
     for tag, engine in ((f"full-depth self-draft k={L}", full),
                         (f"self-draft k={SPEC_DRAFT_LAYERS}", fast)):
         ms, fwd, acc = _spec_ms_per_token(params, cfg, engine, qs[1])
         print(f"  {tag}: decode {ms:.2f} ms per emitted token ({fwd} target "
               f"forwards, acceptance {acc:.3f}) beside phase 4's captured "
-              f"{b1 if b1 is None else round(b1, 2)} ms/token", flush=True)
+              f"{b1_ms:.2f} ms/token", flush=True)
     del full, fast
     torch.cuda.empty_cache()
     return tie
 
 
-def _spec_sampled(params, cfg, root, qs, greedy_results, tie: float) -> None:
+def _spec_sampled(params, cfg, root, qs, greedy_results, tie: float,
+                  launches: dict) -> None:
     """Phase 14's sampled speculation: every emitted id inside its
     position's warped target support (a teacher-forced recompute; an id
     within ``tie`` of the support's edge is counted apart), budgets, and
-    top_k = 1 giving phase 4's greedy ids."""
+    top_k = 1 giving phase 4's greedy ids; the answers' launch counts are
+    added to ``launches``."""
     import torch
 
     from video3d_tpu_torch.models import generate as gen
@@ -3970,8 +3997,9 @@ def _spec_sampled(params, cfg, root, qs, greedy_results, tie: float) -> None:
                        speculative_draft_layers=SPEC_DRAFT_LAYERS,
                        speculative_k=SPEC_K, **SAMPLING)
     eos = eng.ecfg.eos_token_id
-    rec, wall = _spec_runs("sampled self-draft", params, cfg, eng, qs,
-                           SPEC_DRAFT_LAYERS)
+    rec, wall, part = _spec_runs("sampled self-draft", params, cfg, eng, qs,
+                                 SPEC_DRAFT_LAYERS)
+    _add_launches(launches, part)
     outside = edge = total = 0
     for q, res in zip(qs, eng.results):
         n = int(res.lengths[0])
@@ -3998,7 +4026,8 @@ def _spec_sampled(params, cfg, root, qs, greedy_results, tie: float) -> None:
     top1 = _make_engine(params, cfg, root,
                         speculative_draft_layers=SPEC_DRAFT_LAYERS,
                         speculative_k=SPEC_K, temperature=0.7, top_k=1)
-    _spec_runs("sampled top_k = 1", params, cfg, top1, qs, SPEC_DRAFT_LAYERS)
+    _add_launches(launches, _spec_runs("sampled top_k = 1", params, cfg,
+                                       top1, qs, SPEC_DRAFT_LAYERS)[2])
     for i, (q, g) in enumerate(zip(qs, greedy_results)):
         res = top1.results[i]
         _near_tie_check(f"top_k = 1 answer {i} vs phase 4's greedy ids",
@@ -4009,11 +4038,13 @@ def _spec_sampled(params, cfg, root, qs, greedy_results, tie: float) -> None:
                                   MAX_NEW), tie)
 
 
-def _spec_batcher(params, cfg, root, infos) -> None:
+def _spec_batcher(params, cfg, root, infos, launches: dict) -> None:
     """The paged speculative batcher (8 slots, self-draft k=4) on 16
-    requests over two scenes against the sequential speculative engine."""
+    requests over two scenes against the sequential speculative engine;
+    the batcher's launch counts are added to ``launches``."""
     import torch
 
+    from video3d_tpu_torch.kernels import _build
     from video3d_tpu_torch.serve.batcher import ContinuousBatcher
 
     kw = dict(prefix_cache_scenes=1, scene_cache_scenes=1,
@@ -4041,6 +4072,7 @@ def _spec_batcher(params, cfg, root, infos) -> None:
         _check("speculative paged batcher", batcher.spec and batcher.paged
                and batcher.chunk_prefill == 0, f"spec {batcher.spec}")
         torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         for wave in scenes:
             handles = [batcher.submit(q) for q in wave]
@@ -4050,6 +4082,7 @@ def _spec_batcher(params, cfg, root, infos) -> None:
                 tokens += len(h.tokens)
         wall = time.perf_counter() - t0
         drained = _wait_for(lambda: all(s is None for s in batcher.slots))
+        _add_launches(launches, _launch_delta(before))
         held = sum(len(sh["pages"]) for sh in batcher._shared.values())
         free = batcher._alloc.available
     finally:
@@ -4074,9 +4107,11 @@ def _spec_batcher(params, cfg, root, infos) -> None:
     torch.cuda.empty_cache()
 
 
-def _chunked_vs_atomic(params, cfg, root, info) -> float:
+def _chunked_vs_atomic(params, cfg, root, info, launches: dict) -> float:
     """start_request_chunked at CHUNK_LENS against start_request on one
-    question; returns the largest first-step distance."""
+    question, the chunked runs' launch counts (chunks and their decode)
+    exact and added to ``launches``; returns the largest first-step
+    distance."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
@@ -4109,11 +4144,6 @@ def _chunked_vs_atomic(params, cfg, root, info) -> float:
             done = cp.step()
             torch.cuda.synchronize()
             steps.append((time.perf_counter() - t0) * 1e3)
-        part = _launch_delta(before)
-        expected = dict.fromkeys(part, 0)
-        expected.update(_chunk_expected(n_true, c, L, "", False))
-        _check(f"chunk {c}: launch counts", part == expected,
-               f"{part}, expected {expected}")
         state = cp.result()
         diff = float((state.next_logits.float() - first).abs().max())
         worst = max(worst, diff)
@@ -4121,6 +4151,14 @@ def _chunked_vs_atomic(params, cfg, root, info) -> float:
                diff <= LOGIT_ATOL, f"max |d| {diff:.4f} (bound {LOGIT_ATOL})")
         res = gen.generate_from_state(params, cfg, state, MAX_NEW, eos,
                                       graphs=eng._graphs)
+        part = _launch_delta(before)
+        forwards = _forwards(res)
+        expected = _expected_launches(params, "bfloat16", L, forwards, [res])
+        _add_launches(expected, _chunk_expected(n_true, c, L, "", False))
+        _check(f"chunk {c}: launch counts (chunks and decode)",
+               part == expected,
+               f"{part}, expected {expected} ({forwards} decode forwards)")
+        _add_launches(launches, part)
         _near_tie_check(f"chunk {c}: {MAX_NEW} greedy ids vs start_request's",
                         params, cfg, eng, q, want,
                         _with_eos(res.tokens[0, :int(res.lengths[0])], eos,
@@ -4140,11 +4178,13 @@ def _chunk_traffic(params, cfg, root, infos, chunked: int):
     its cold admission meets running decode. Returns (ids by request, the
     longest gap in ms between two decode chunks that share a waiting
     request over a cold admission, the decode chunks inside cold
-    admissions, every page back, the engine)."""
+    admissions, every page back, the engine, the batcher's launch
+    counts)."""
     import threading
 
     import torch
 
+    from video3d_tpu_torch.kernels import _build
     from video3d_tpu_torch.serve.batcher import ContinuousBatcher
 
     engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
@@ -4220,6 +4260,7 @@ def _chunk_traffic(params, cfg, root, infos, chunked: int):
 
     try:
         torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
         t0 = time.perf_counter()
         threads = [threading.Thread(target=run,
                                     args=("long", 0, scenes[0][0]))]
@@ -4243,6 +4284,7 @@ def _chunk_traffic(params, cfg, root, infos, chunked: int):
         held = sum(len(sh["pages"]) for sh in batcher._shared.values())
         pages_back = drained and \
             batcher._alloc.available + held == batcher.total_pages - 1
+        part = _launch_delta(before)
     finally:
         batcher.shutdown()
     _check(f"traffic (chunked_prefill={chunked}): every request returned",
@@ -4272,11 +4314,12 @@ def _chunk_traffic(params, cfg, root, infos, chunked: int):
           f"{max(gaps) if gaps else 0.0:.1f} ms, {inside} decode chunks "
           f"inside them", flush=True)
     del batcher
-    return answers, (max(gaps) if gaps else 0.0), inside, pages_back, engine
+    return (answers, (max(gaps) if gaps else 0.0), inside, pages_back,
+            engine, part)
 
 
-def run_spec_chunked(params, cfg, root: str, info, infos,
-                     greedy_results) -> dict:
+def run_spec_chunked(params, cfg, root: str, info, infos, greedy_results,
+                     b1_ms: float) -> dict:
     """Phase 14 on phase 4's model: greedy speculation through
     ``generate_answer`` (the full-depth self-draft with its shifted-draft
     control, then k=4 with a 32768-token head) against phase 4's ids by
@@ -4284,27 +4327,30 @@ def run_spec_chunked(params, cfg, root: str, info, infos,
     top_k = 1 as greedy; the paged speculative batcher against the
     sequential speculative engine; start_request_chunked against
     start_request; phase 8's traffic through the paged batcher with and
-    without chunked prefill. Returns the launch counts of those runs."""
+    without chunked prefill (``b1_ms``: phase 4's captured ms/token).
+    Returns the launch counts of those runs, the reference and check runs
+    left out."""
     import torch
-
-    from video3d_tpu_torch.kernels import _build
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     qs = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")
-    before = dict(_build.LAUNCHES)
-    tie = _spec_greedy(params, cfg, root, qs, greedy_results)
-    _spec_sampled(params, cfg, root, qs, greedy_results, tie)
+    total = {}
+    tie = _spec_greedy(params, cfg, root, qs, greedy_results, b1_ms, total)
+    _spec_sampled(params, cfg, root, qs, greedy_results, tie, total)
     print("  the paged speculative batcher:", flush=True)
-    _spec_batcher(params, cfg, root, infos)
+    _spec_batcher(params, cfg, root, infos, total)
     print("  chunked prefill against the atomic prefill:", flush=True)
-    worst = _chunked_vs_atomic(params, cfg, root, info)
+    worst = _chunked_vs_atomic(params, cfg, root, info, total)
     print(f"  phase 8's traffic, unchunked and chunked_prefill="
           f"{SERVE_CHUNKED}:", flush=True)
-    plain, gap0, _, back0, eng0 = _chunk_traffic(params, cfg, root, infos, 0)
-    chunked, gap1, inside, back1, _ = _chunk_traffic(params, cfg, root, infos,
-                                                      SERVE_CHUNKED)
+    plain, gap0, _, back0, eng0, part = _chunk_traffic(params, cfg, root,
+                                                       infos, 0)
+    _add_launches(total, part)
+    chunked, gap1, inside, back1, _, part = _chunk_traffic(
+        params, cfg, root, infos, SERVE_CHUNKED)
+    _add_launches(total, part)
     _check("traffic: every page back", back0 and back1,
            f"unchunked {back0}, chunked {back1}")
     _check("chunked traffic: decode chunks ran inside a cold admission's "
@@ -4321,7 +4367,6 @@ def run_spec_chunked(params, cfg, root: str, info, infos,
           f"{gap1:.1f} ms with chunked_prefill={SERVE_CHUNKED}; chunked "
           f"first-step logits within {worst:.4f} of the atomic prefill's",
           flush=True)
-    total = _launch_delta(before)
     peak = torch.cuda.max_memory_allocated()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4332,25 +4377,33 @@ def run_spec_chunked(params, cfg, root: str, info, infos,
     return total
 
 
-def run_spec_chunked_int8(params, cfg, root: str, info) -> dict:
+def run_spec_chunked_int8(params, cfg, root: str, info,
+                          greedy_results) -> dict:
     """Phase 6's speculation and chunked admission over the int8 cache:
-    one greedy speculative answer (self-draft k=4) and one chunked
-    admission (start_request_chunked at SERVE_CHUNKED, then the captured
-    decode), launch counts of B2 folded int8, B3 int8 and B4 exact."""
+    one greedy speculative answer (self-draft k=4), held against the int8
+    ScanQA path's greedy answer (``greedy_results[0]``) by the near-tie
+    rule, and one chunked admission (start_request_chunked at
+    SERVE_CHUNKED, then the captured decode), its first-step logits within
+    LOGIT_ATOL of the atomic prefill's; launch counts of B2 folded int8,
+    B3 int8 and B4 exact. Returns the launch counts of those two runs."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
 
     L = cfg.llm.num_hidden_layers
     q = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")[0]
-    before = dict(_build.LAUNCHES)
     eng = _make_engine(params, cfg, root, kv_cache_dtype="int8",
                        speculative_draft_layers=SPEC_DRAFT_LAYERS,
                        speculative_k=SPEC_K)
-    rec, wall = _spec_runs("int8 speculative answer", params, cfg, eng, [q],
-                           SPEC_DRAFT_LAYERS, "int8")
+    rec, wall, total = _spec_runs("int8 speculative answer", params, cfg,
+                                  eng, [q], SPEC_DRAFT_LAYERS, "int8")
     print(f"  int8 speculative answer (k={SPEC_DRAFT_LAYERS}, K={SPEC_K}): "
           f"{_acceptance(rec)}; {wall:.3f} s", flush=True)
+    eos = eng.ecfg.eos_token_id
+    want, got = (_with_eos(r.tokens[0, :int(r.lengths[0])], eos, MAX_NEW)
+                 for r in (greedy_results[0], eng.results[0]))
+    _near_tie_check("int8 speculative answer vs the int8 greedy answer",
+                    params, cfg, eng, q, want, got, CROSS_TIE)
     ceng = _make_engine(params, cfg, root, kv_cache_dtype="int8")
     prep = ceng.prepare_request(q)
     n_true = int(prep["batch"].seq_len[0])
@@ -4369,13 +4422,15 @@ def run_spec_chunked_int8(params, cfg, root: str, info) -> dict:
         expected[k] = expected.get(k, 0) + v
     _check("int8 chunked admission: launch counts", part == expected,
            f"{part}, expected {expected} ({forwards} decode forwards)")
+    _add_launches(total, part)
     atomic = ceng.start_request(prep).next_logits.float()
     diff = float((first - atomic).abs().max())
-    print(f"  int8 chunked admission (chunks of {SERVE_CHUNKED}): first-step "
-          f"logits within {diff:.4f} of the atomic prefill's", flush=True)
+    _check(f"int8 chunked admission (chunks of {SERVE_CHUNKED}): first-step "
+           f"logits vs the atomic prefill", diff <= LOGIT_ATOL,
+           f"max |d| {diff:.4f} (bound {LOGIT_ATOL})")
     del eng, ceng, state
     torch.cuda.empty_cache()
-    return _launch_delta(before)
+    return total
 
 
 def _wait_for(pred, seconds: float = 30.0) -> bool:
@@ -4411,8 +4466,9 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB); int8 KV "
           f"cache", flush=True)
     print("int8 ScanQA path:", flush=True)
-    scanqa = run_main_path(params, cfg, root, infos[0],
-                           kv_cache_dtype="int8")
+    greedy8 = []
+    scanqa, _ = run_main_path(params, cfg, root, infos[0],
+                              kv_cache_dtype="int8", results=greedy8)
     print(f"  launches (int8 ScanQA path): {scanqa}", flush=True)
     print("int8 scene-prefix path:", flush=True)
     prefix = run_prefix_path(params, cfg, root, infos[0],
@@ -4431,7 +4487,7 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
     beam = run_beam_int8(params, cfg, root, infos[0])
     print(f"  launches (int8 beam answer): {beam}", flush=True)
     print("int8 speculation and chunked admission (phase 14's):", flush=True)
-    spec8 = run_spec_chunked_int8(params, cfg, root, infos[0])
+    spec8 = run_spec_chunked_int8(params, cfg, root, infos[0], greedy8)
     print(f"  launches (int8 speculation and chunked admission): {spec8}",
           flush=True)
     print("benchmark paths (phase 11, on the int8 model):", flush=True)
@@ -4759,7 +4815,7 @@ def run_int4_paths(cfg, root: str, infos):
           f"(init peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB);"
           f" bf16 KV cache", flush=True)
     print("int4 ScanQA path:", flush=True)
-    scanqa = run_main_path(params, cfg, root, infos[0])
+    scanqa, _ = run_main_path(params, cfg, root, infos[0])
     print(f"  launches (int4 ScanQA path): {scanqa}", flush=True)
     print("int4 scene-prefix path:", flush=True)
     prefix = run_prefix_path(
@@ -5152,7 +5208,8 @@ def main() -> None:
                                       extend=True)
         info = infos[0]
         greedy = []
-        scanqa = run_main_path(params, cfg, root, info, results=greedy)
+        scanqa, b1_ms = run_main_path(params, cfg, root, info,
+                                      results=greedy)
         print(f"  launches (ScanQA path): {scanqa}", flush=True)
         print("scene-prefix path:", flush=True)
         prefix = run_prefix_path(params, cfg, root, info)
@@ -5170,7 +5227,8 @@ def main() -> None:
         print(f"  launches (phase 13): {decode}", flush=True)
         print("speculative decoding and chunked prefill (phase 14):",
               flush=True)
-        spec14 = run_spec_chunked(params, cfg, root, info, infos, greedy)
+        spec14 = run_spec_chunked(params, cfg, root, info, infos, greedy,
+                                  b1_ms)
         print(f"  launches (phase 14): {spec14}", flush=True)
         del params, greedy
         gc.collect()
