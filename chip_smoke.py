@@ -202,6 +202,29 @@ Phases, each of which raises on failure (the process then exits non-zero):
    head's too), exact launch counts; before it, one V=8 LM and one V=8
    ground mini-step through the kernels against the same mini-steps with
    the plain attention swapped in.
+15. LoRA, QLoRA, the adapted answer and DPO (after phase 7 frees its
+   model; ``run_lora_paths``): ``Trainer.train()`` with ``lora_r=128,
+   lora_alpha=256`` at full width and depth (28 layers), f32 masters, bf16
+   compute, remat: (a) over a frozen bf16 base, 4 mini-steps (2 LM, 2
+   ground) at two per update on phase 7's records; (b) over int8 and int4
+   bases (QLoRA), 2 LM mini-steps at one per update. Each run: the
+   trainables bit for bit after update 1 (learning rate 0); after update
+   2 every B and every extra trainable with a gradient moved and every A
+   unchanged with zero Adam moments (its gradient is exactly zero while B
+   is zero, PEFT's init); the frozen base's checksums unchanged; exact
+   launches per mini-step (B2 with the lse 2 x 28, B6 28, no other
+   kernel); the export read back by ``load_lora_export`` bit for bit.
+   (c) The int8 export through ``maybe_merge_lora`` (adapters lazy over
+   the int8 base), every B replaced by seeded N(0, 0.02) draws: phase 4's
+   path on it (captured decode, launch counts, captured vs uncaptured
+   ids), the first-step logits within LOGIT_ATOL of the same prefill with
+   B2 and B4's matvec plain (control: the bare int8 base, >= 4x), and a
+   decode-row adapted product through B4's B>1 form within one bf16 ulp.
+   (d) Two ``dpo_train_step``s at TRAIN_LAYERS layers (full fine-tune)
+   against a bf16 copy of the initial policy on a ``DPODataset`` pair:
+   log 2 and margin 0 at step 1, the policy moved after step 2, the
+   reference's checksums unchanged, exact launches per step. Seconds per
+   mini-step, tokens/s, peaks and the adapted ms/token are printed.
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -808,13 +831,17 @@ def _time_verify(name: str, args) -> None:
                                50)
     plain = _median_ms(lambda: fa.flash_attention_gqa_folded_plain(*args), 10)
     bound = _folded_bound(*args)
+    library = _folded_sdpa_ms(*args)
     VERIFY_ROWS[name] = {"ms": warm, "ms_l2_flushed": flushed,
                          "plain_ms": plain, "bound_ms": bound["bound_ms"],
-                         "bound_by": bound["bound_by"]}
+                         "bound_by": bound["bound_by"],
+                         "library_ms": library}
     print(f"  {name} at the verify shape (B=8, L={SPEC_K + 1}): {warm:.4f} "
           f"ms warm, {flushed:.4f} ms L2 flushed, plain {plain:.4f} ms, "
           f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
-          f"{bound['bytes'] / 1e6:.1f} MB)", flush=True)
+          f"{bound['bytes'] / 1e6:.1f} MB), library "
+          + ("none" if library is None else f"{library:.4f} ms (SDPA, "
+             "masked, the rows padded to the longest)"), flush=True)
 # B5's cases (P, suffix_lens) at L=64: B=8, whose 128-row CTAs straddle
 # batch rows (448 rows per batch row); B=3 with P not a multiple of the key
 # tile; B=2, whose prefix pass splits over keys
@@ -941,20 +968,22 @@ def _folded_bound(q, k_all, v_all, lens, offs, layer, KV, ks=None, vs=None):
 
 def _folded_sdpa_ms(q, k_all, v_all, lens, offs, layer, KV, ks=None,
                     vs=None):
-    """SDPA over the bf16 cache's layer with an explicit mask (B=1); None
-    for a quantized cache (no single PyTorch call reads it)."""
+    """SDPA over the bf16 cache's layer with an explicit mask: every batch
+    row's keys up to the longest row, each query row seeing the keys up to
+    its own position (the verify shape's rows sit at their own offsets);
+    None for a quantized cache (no single PyTorch call reads it)."""
     import torch
 
-    if ks is not None or q.shape[0] != 1:
+    if ks is not None:
         return None
-    H, L, hd = q.shape[2], q.shape[1], q.shape[3]
-    n, o = int(lens[0]), int(offs[0])
-    kh, vh = (_heads_first(x[layer, :, :n].reshape(1, n, KV, hd), H)
+    B, L, H, hd = q.shape
+    n = int(lens.max())
+    kh, vh = (_heads_first(x[layer, :, :n].reshape(B, n, KV, hd), H)
               for x in (k_all, v_all))
-    pos = o + torch.arange(L, device=q.device)
-    mask = torch.arange(n, device=q.device)[None, :] <= pos[:, None]
+    pos = offs.long()[:, None] + torch.arange(L, device=q.device)
+    mask = torch.arange(n, device=q.device)[None, None, :] <= pos[..., None]
     return _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50,
-                    attn_mask=mask)
+                    attn_mask=mask[:, None])
 
 
 def check_shared_prefix(dev):
@@ -4447,7 +4476,7 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
     projections and lm_head from ``init_model(bits=8)``, int8 KV cache)
     through phase 4's, phase 5's and phase 8's paths and phase 12's
     ScanRefer prefix run; returns the launch counts of the four runs,
-    summed, and phase 11's."""
+    summed, phase 11's, and the captured B=1 decode's ms per token."""
     import torch
 
     from video3d_tpu_torch.params import init_model
@@ -4467,8 +4496,8 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
           f"cache", flush=True)
     print("int8 ScanQA path:", flush=True)
     greedy8 = []
-    scanqa, _ = run_main_path(params, cfg, root, infos[0],
-                              kv_cache_dtype="int8", results=greedy8)
+    scanqa, b1_ms = run_main_path(params, cfg, root, infos[0],
+                                  kv_cache_dtype="int8", results=greedy8)
     print(f"  launches (int8 ScanQA path): {scanqa}", flush=True)
     print("int8 scene-prefix path:", flush=True)
     prefix = run_prefix_path(params, cfg, root, infos[0],
@@ -4493,7 +4522,7 @@ def run_int8_paths(cfg, root: str, infos, ground_info) -> dict:
     print("benchmark paths (phase 11, on the int8 model):", flush=True)
     bench = run_bench_paths(params, cfg)
     return {k: scanqa[k] + prefix[k] + serve[k] + ground[k] + beam[k]
-            + spec8.get(k, 0) for k in scanqa}, bench
+            + spec8.get(k, 0) for k in scanqa}, bench, b1_ms
 
 
 def run_beam_int8(params, cfg, root: str, info) -> dict:
@@ -4889,10 +4918,12 @@ def _plain_train_attention(causal: bool = True, roll_kv: int = 0):
     return lambda q, k, v, kv_len: PlainAttention.apply(q, k, v, kv_len)
 
 
-def _train_data(root: str, info, cfg, frames: int, max_len: int):
+def _train_data(root: str, info, cfg, frames: int, max_len: int,
+                refer: bool = True):
     """SupervisedDataset + Collator on the grounding scene: TRAIN_QA's
-    ScanQA records and TRAIN_REFER's ScanRefer records (FakeTokenizer; the
-    collator's grounding extras at GROUND_OBJECTS proposals)."""
+    ScanQA records and (``refer``) TRAIN_REFER's ScanRefer records
+    (FakeTokenizer; the collator's grounding extras at GROUND_OBJECTS
+    proposals)."""
     from fixtures import FakeTokenizer
 
     from video3d_tpu_torch.config import DataConfig
@@ -4911,8 +4942,8 @@ def _train_data(root: str, info, cfg, frames: int, max_len: int):
                      {"from": "human", "value": f"<image>\n{text}"},
                      {"from": "gpt", "value": "<ground>"}],
                  "metadata": {"dataset": "scanrefer", "object_id": obj}}
-                for i, (text, obj) in enumerate(TRAIN_REFER)]
-    ann = os.path.join(root, "train_mix.json")
+                for i, (text, obj) in enumerate(TRAIN_REFER) if refer]
+    ann = os.path.join(root, f"train_mix{'' if refer else '_qa'}.json")
     with open(ann, "w") as f:
         json.dump(records, f)
     tok = FakeTokenizer()
@@ -5012,6 +5043,50 @@ def _check_plain_swap(params, cfg, root: str, info, dev, frames: int,
         torch.cuda.empty_cache()
 
 
+def _time_mini_steps(trainer, steps: list, after_step=None) -> None:
+    """Wrap the trainer's LM and ground step functions: each mini-step
+    appends its kind, seconds (synchronised), tokens and launch-count
+    deltas to ``steps``, then ``after_step(state)`` runs its checks."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+
+    def timed(kind, fn):
+        def step(state, batch, *extras):
+            before = dict(_build.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = fn(state, batch, *extras)
+            torch.cuda.synchronize()
+            steps.append({"kind": kind, "seconds": time.perf_counter() - t,
+                          "tokens": int(batch.seq_len.sum()),
+                          "launches": {k: v - before[k]
+                                       for k, v in _build.LAUNCHES.items()}})
+            if after_step is not None:
+                after_step(state)
+            return state, metrics
+        return step
+
+    trainer._step_fn = timed("lm", trainer._step_fn)
+    trainer._ground_step_fn = timed("ground", trainer._ground_step_fn)
+
+
+def _check_step_launches(label: str, steps, L: int) -> None:
+    """Per mini-step, LM or ground, full fine-tune or LoRA: B2 with the lse
+    in the forward and again in each layer's remat recompute, B6 once per
+    layer's backward, and no other kernel (a training product never
+    reaches the weight-streaming kernels, which have no backward)."""
+    from video3d_tpu_torch.kernels import _build
+
+    per_step = dict.fromkeys(_build.LAUNCHES, 0)
+    per_step.update(flash_attention_lse=2 * L, flash_attention_bwd=L)
+    nonzero = [{k: v for k, v in s["launches"].items() if v} for s in steps]
+    _check(f"{label}launch counts per mini-step",
+           all(s["launches"] == per_step for s in steps),
+           f"{nonzero}, expected {({k: v for k, v in per_step.items() if v})}"
+           f" (B2 with lse 2 x {L} layers, B6 {L})")
+
+
 def run_training(cfg, root: str, info, dev, frames: int = 32,
                  max_len: int = 8192, swap_frames: int = 8,
                  swap_len: int = 2048) -> dict:
@@ -5056,37 +5131,23 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
         trainer.state.params)) if p.startswith("ground_head")]
     steps = []
 
-    def timed(kind, fn):
-        def step(state, batch, *extras):
-            before = dict(_build.LAUNCHES)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            state, metrics = fn(state, batch, *extras)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t
-            steps.append({"kind": kind, "seconds": seconds,
-                          "tokens": int(batch.seq_len.sum()),
-                          "launches": {k: v - before[k]
-                                       for k, v in _build.LAUNCHES.items()}})
-            leaves = tree_leaves(state.params)
-            if len(steps) == 2:      # after update 1, at learning rate 0
-                same = all(torch.equal(a.cpu(), b)
-                           for a, b in zip(leaves, initial))
-                _check("update 1 (learning rate 0): f32 master tree", same,
-                       "bit for bit the initial tree")
-            if len(steps) == 4:      # after update 2
-                moved = [not torch.equal(a.cpu(), b)
-                         for a, b in zip(leaves, initial)]
-                _check("update 2: every tunable leaf moved", all(moved),
-                       f"{sum(moved)} of {len(initial)} leaves")
-                _check("update 2: the ground head's leaves moved",
-                       len(head) == 13 and all(moved[i] for i in head),
-                       f"{sum(moved[i] for i in head)} of {len(head)}")
-            return state, metrics
-        return step
+    def after_step(state):
+        leaves = tree_leaves(state.params)
+        if len(steps) == 2:      # after update 1, at learning rate 0
+            same = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(leaves, initial))
+            _check("update 1 (learning rate 0): f32 master tree", same,
+                   "bit for bit the initial tree")
+        if len(steps) == 4:      # after update 2
+            moved = [not torch.equal(a.cpu(), b)
+                     for a, b in zip(leaves, initial)]
+            _check("update 2: every tunable leaf moved", all(moved),
+                   f"{sum(moved)} of {len(initial)} leaves")
+            _check("update 2: the ground head's leaves moved",
+                   len(head) == 13 and all(moved[i] for i in head),
+                   f"{sum(moved[i] for i in head)} of {len(head)}")
 
-    trainer._step_fn = timed("lm", trainer._step_fn)
-    trainer._ground_step_fn = timed("ground", trainer._ground_step_fn)
+    _time_mini_steps(trainer, steps, after_step)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -5113,16 +5174,7 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
                                 for k in (key, "grad_norm")),
                f"{key} {r.get(key, float('nan')):.6f}, grad_norm "
                f"{r['grad_norm']:.6f}")
-    L = cfg.llm.num_hidden_layers
-    # per mini-step, LM or ground: B2 with the lse in the forward and again
-    # in each layer's remat recompute; B6 once per layer's backward
-    per_step = dict.fromkeys(_build.LAUNCHES, 0)
-    per_step.update(flash_attention_lse=2 * L, flash_attention_bwd=L)
-    nonzero = [{k: v for k, v in s["launches"].items() if v} for s in steps]
-    _check("launch counts per mini-step",
-           all(s["launches"] == per_step for s in steps),
-           f"{nonzero}, expected {({k: v for k, v in per_step.items() if v})}"
-           f" (B2 with lse 2 x {L} layers, B6 {L})")
+    _check_step_launches("", steps, cfg.llm.num_hidden_layers)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5140,9 +5192,489 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
     return launches
 
 
+# phase 15: LoRA / QLoRA at full depth, the adapted answer, DPO
+LORA_R, LORA_ALPHA = 128, 256      # the reference's LoRA rank and alpha
+LORA_MINI_STEPS = 4                # bf16 base: at accumulation 2, two updates
+LORA_FRAMES, LORA_LEN = 32, 8192   # phase 7's records: V=32, 8192 bucket
+QLORA_MINI_STEPS = 2               # int8 / int4 bases: at accumulation 1
+# decoder depth of the int4 QLoRA run (full depth; cut it before the int8
+# run's if the time limit forces a choice)
+QLORA_INT4_LAYERS = 28
+# the adapted answer's B leaves, replaced by N(0, LORA_B_STD) draws from
+# this seed: after one update they are too small to move the logits
+LORA_B_STD, LORA_B_SEED = 0.02, 15
+# DPO (phase 15d): TRAIN_LAYERS decoder layers, full fine-tune, V frames in
+# a bucket of DPO_LEN tokens, so the policy's f32 masters and moments, its
+# bf16 copy, the bf16 reference and the two sequences' f32 log-softmaxes
+# fit: at V=8 in 2048 the step peaked at 54.19 GiB on an H100 80GB HBM3
+# (700 W), so V=16 in 4096 (~5 GB more of logits)
+DPO_FRAMES, DPO_LEN = 16, 4096
+# at step 1 the policy is the reference, so the loss reads log 2 and the
+# reward margin 0; the policy's forwards (B2 with the lse) and the
+# reference's (B2) are two kernels, whose outputs may differ by bf16
+# rounding: a response log-probability moved by ~0.05 moves the margin by
+# beta x 0.05 = 5e-3 and the loss by half that
+DPO_LOSS_ATOL, DPO_MARGIN_ATOL = 5e-3, 1e-2
+DPO_RECORD = {"id": "dpo0", "prompt": "What color is the chair next to "
+              "the desk?", "chosen": "a brown wooden chair",
+              "rejected": "a blue plastic sofa"}
+
+
+def _byte_sums(tensors) -> list:
+    """Per tensor, the int64 sum of its bytes read as 32-bit words (bytes
+    where the size is not a multiple of 4): a checksum that any in-place
+    write changes."""
+    import torch
+
+    out = []
+    for t in tensors:
+        b = t.detach().reshape(-1).view(torch.uint8)
+        w = b.view(torch.int32) if b.numel() % 4 == 0 else b
+        out.append(int(torch.sum(w, dtype=torch.int64)))
+    return out
+
+
+def _adam_moments(trainer, state, index: int):
+    """(mu, nu) of leaf ``index`` of the trainable tree."""
+    inner = getattr(state.opt_state, "inner_opt_state", state.opt_state)
+    opt = getattr(trainer.tx, "inner", trainer.tx)
+    for group, idx in opt.groups.items():
+        if index in idx:
+            j = idx.index(index)
+            return inner[group].mu[j], inner[group].nu[j]
+    raise KeyError(index)
+
+
+def _lora_train(label: str, cfg, params, ds, col, dev, out_dir: str,
+                bits: int, accumulate: int, mini_steps: int):
+    """``Trainer.train()`` in LoRA mode (r LORA_R, alpha LORA_ALPHA, the
+    base frozen in bf16 or quantized to ``bits``, f32 masters, bf16
+    compute, remat) with its checks: the trainables bit for bit after
+    update 1 (learning rate 0); after update 2 every B and every extra
+    trainable that had a gradient moved, every A unchanged with zero Adam
+    moments (its gradient is x^T (dy B^T) scale, exactly zero while B is
+    zero: PEFT's init); the frozen base's checksums unchanged; finite
+    losses; B2 with the lse 2 x L and B6 L launches per mini-step and no
+    other kernel (a training product never reaches the weight-streaming
+    kernels); the export read back by ``load_lora_export`` equal to the
+    final trainables in bf16. Returns (trainer, launches)."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.train.lora import load_lora_export, lora_size
+    from video3d_tpu_torch.train.optim import (OptimConfig, tree_leaves,
+                                               tree_leaves_with_path)
+    from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
+
+    metrics_file = os.path.join(out_dir, "metrics.jsonl")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, params, ds, col,
+                      OptimConfig(total_steps=mini_steps),
+                      TrainingConfig(output_dir=out_dir, bf16=True,
+                                     master_f32=True, remat=True,
+                                     gradient_accumulation_steps=accumulate,
+                                     group_by="none",
+                                     metrics_file=metrics_file,
+                                     lora_r=LORA_R, lora_alpha=LORA_ALPHA,
+                                     lora_bits=bits), device=dev)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    del params
+    paths = [p for p, _ in tree_leaves_with_path(trainer.state.params)]
+    initial = [t.detach().to("cpu", copy=True)
+               for t in tree_leaves(trainer.state.params)]
+    base_sums = _byte_sums(_leaves(trainer.base_params))
+    base_bytes = sum(t.numel() * t.element_size()
+                     for t in _leaves(trainer.base_params))
+    n_adapters = sum(t.numel() for p, t in zip(paths, initial)
+                     if p.endswith("/A") or p.endswith("/B"))
+    print(f"  {label}: {len(base_sums)} frozen base tensors, "
+          f"{base_bytes / 2**30:.2f} GiB; {n_adapters / 1e6:.1f} M "
+          f"adapter and {(lora_size(trainer.state.params) - n_adapters) / 1e6:.1f}"
+          f" M extra f32 trainables; trainer set up in {t_init:.1f} s",
+          flush=True)
+    steps = []
+
+    def after_step(state):
+        if len(steps) == accumulate:     # update 1, at learning rate 0
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(
+                tree_leaves(state.params), initial))
+            _check(f"{label}: update 1 (learning rate 0): trainables", same,
+                   "bit for bit the initial tree")
+
+    _time_mini_steps(trainer, steps, after_step)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.train(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    records = _read_jsonl(metrics_file)
+    kinds = [s["kind"] for s in steps]
+    updates = state.opt_state.gradient_step if accumulate > 1 \
+        else state.step
+    _check(f"{label}: mini-steps", len(records) == mini_steps
+           and state.step == mini_steps and updates == 2,
+           f"{len(records)} logged ({kinds}), step {state.step}, {updates} "
+           f"optimizer updates")
+    for r, kind in zip(records, kinds):
+        key = "lm_loss" if kind == "lm" else "ground_loss"
+        _check(f"{label}: mini-step {r['step']} ({kind}) loss and grad_norm",
+               key in r and all(math.isfinite(r[k]) and r[k] > 0
+                                for k in (key, "grad_norm")),
+               f"{key} {r.get(key, float('nan')):.6f}, grad_norm "
+               f"{r['grad_norm']:.6f}")
+    final = tree_leaves(state.params)
+    grounded = "ground" in kinds
+    moved, want, a_quiet = [], [], True
+    for i, (p, a, b) in enumerate(zip(paths, final, initial)):
+        moved.append(not torch.equal(a.cpu(), b))
+        if p.endswith("/A"):
+            want.append(False)
+            mu, nu = _adam_moments(trainer, state, i)
+            a_quiet &= not bool(mu.any()) and not bool(nu.any())
+        else:
+            want.append(p.endswith("/B") or grounded
+                        or not p.startswith("ground_head"))
+    n_a = sum(p.endswith("/A") for p in paths)
+    _check(f"{label}: update 2: every B and every extra trainable with a "
+           f"gradient moved, every A unchanged", moved == want and a_quiet,
+           f"{sum(moved)} of {len(moved)} leaves moved, {sum(want)} "
+           f"expected ({n_a} A leaves unchanged, their Adam moments zero: "
+           f"{a_quiet}; the ground head moves only with ground mini-steps)")
+    _check(f"{label}: the frozen base",
+           _byte_sums(_leaves(trainer.base_params)) == base_sums, f"checksums of its {len(base_sums)} tensors "
+           f"unchanged")
+    _check_step_launches(f"{label}: ", steps, cfg.llm.num_hidden_layers)
+    export, lcfg, got_bits = load_lora_export(os.path.join(out_dir, "model"),
+                                              trainer.base_params)
+    same = [p for p, _ in tree_leaves_with_path(export)] == paths and all(
+        torch.equal(a, b.to(torch.bfloat16))
+        for a, b in zip(tree_leaves(export), final))
+    _check(f"{label}: export read back by load_lora_export", same
+           and (lcfg.r, lcfg.alpha, got_bits) == (LORA_R, LORA_ALPHA, bits),
+           f"{len(paths)} tensors bit for bit the final trainables in bf16, "
+           f"r {lcfg.r}, alpha {lcfg.alpha}, bits {got_bits}")
+    del export, initial
+    print(f"  {label}: per-mini-step seconds "
+          f"{[(s['kind'], round(s['seconds'], 4)) for s in steps]}; tokens/s "
+          f"{[round(s['tokens'] / s['seconds']) for s in steps]} "
+          f"({[s['tokens'] for s in steps]} tokens per mini-step); wall for "
+          f"Trainer.train() {wall:.2f} s (data, checks and the export "
+          f"included); peak device memory {peak / 2**30:.2f} GiB", flush=True)
+    return trainer, launches
+
+
+@contextlib.contextmanager
+def _plain_prefill_kernels():
+    """B2 (prefill attention, through ``qwen2.mha``) and B4's matvec (the
+    B=1 int8 head) swapped for their plain versions in f32 on the same
+    bf16 / int8 values, output in the input's dtype."""
+    from video3d_tpu_torch.kernels import flash_attention as fa
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+    from video3d_tpu_torch.models import qwen2
+
+    kernels = (qwen2.mha, qm.int8_matvec)
+    qwen2.mha = lambda q, k, v, kv_len: fa.flash_attention_plain(
+        q.float(), k.float(), v.float(), kv_len, True).to(q.dtype)
+    qm.int8_matvec = qm.int8_matmul_plain
+    try:
+        yield
+    finally:
+        qwen2.mha, qm.int8_matvec = kernels
+
+
+def run_adapted_serving(base, export_dir: str, cfg, root: str, info,
+                        int8_b1_ms: float) -> dict:
+    """Phase 15c: the int8 QLoRA export served lazily over the int8 base
+    (``maybe_merge_lora``), its B leaves replaced by seeded N(0, 0.02)
+    draws; phase 4's path on it (captured decode, launch counts, captured
+    vs uncaptured ids); the first-step logits against the same prefill with
+    B2 and B4 plain (control: the bare int8 base); one decode-row adapted
+    product through B4's B>1 form against its plain base term plus the same
+    delta. Returns the main-path run's launch counts."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.kernels import quant_matvec as qm
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models.quant import (LoraAdapted, is_quantized,
+                                                matmul)
+    from video3d_tpu_torch.train.lora import maybe_merge_lora
+
+    dev = torch.device("cuda", 0)
+    params = maybe_merge_lora(base, export_dir)
+    g = torch.Generator(device=dev).manual_seed(LORA_B_SEED)
+    adapted = [w for lp in params["llm"]["layers"] for grp in ("attn", "mlp")
+               for w in lp[grp].values() if isinstance(w, LoraAdapted)]
+    for w in adapted:
+        w.B = torch.empty_like(w.B).normal_(0.0, LORA_B_STD, generator=g)
+    L = cfg.llm.num_hidden_layers
+    _check("adapted weights", len(adapted) == 7 * L and all(
+        is_quantized(w.base) and w.A.dtype == torch.bfloat16
+        for w in adapted) and is_quantized(params["llm"]["lm_head"]),
+        f"{len(adapted)} LoraAdapted projections over int8 bases (bf16 "
+        f"factors, B drawn N(0, {LORA_B_STD})), the int8 head unadapted")
+    greedy = []
+    launches, b1_ms = run_main_path(params, cfg, root, info,
+                                    results=greedy)
+
+    engine = _make_engine(params, cfg, root)
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")[0]
+    batch, _ = engine._prepare_generation(q)
+    cap = batch.text_ids.shape[1] + 1
+    with torch.inference_mode():
+        def first(p):
+            return gen.prefill_multimodal(p, cfg, batch, cap)[0].float()
+
+        before = dict(_build.LAUNCHES)
+        got = first(params)
+        ran = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+               if v != before[k]}
+        with _plain_prefill_kernels():
+            plain = first(params)
+        bare = first(base)
+    d = float((got - plain).abs().max())
+    ctl = float((got - bare).abs().max())
+    _check("adapted first-step logits vs B2 and B4 plain", d <= LOGIT_ATOL
+           and ran == {"flash_attention": L, "int8_matvec": 1},
+           f"max |d| {d:.4f} (bound {LOGIT_ATOL}; the kernels' run launched "
+           f"{ran}), |logits| up to {float(got.abs().max()):.2f}")
+    _check("control: the bare int8 base's first-step logits",
+           ctl >= 4 * LOGIT_ATOL, f"max |d| {ctl:.4f} (must be >= "
+           f"{4 * LOGIT_ATOL})")
+    w = params["llm"]["layers"][0]["attn"]["wq"]
+    x = torch.randn(8, w.A.shape[0], generator=g, device=dev).bfloat16()
+    with torch.inference_mode():
+        before = _build.LAUNCHES["int8_matmul"]
+        y = matmul(x, w)
+        torch.cuda.synchronize()
+        n = _build.LAUNCHES["int8_matmul"] - before
+        base_term = qm.int8_matmul_plain(x.float(), w.base["q"],
+                                         w.base["scale"])
+        delta = (((x @ w.A) @ w.B) * w.scale).float()
+        ref = base_term + delta
+        # the kernel rounds the base term once to bf16, the sum is rounded
+        # once more: one ulp of |base| + |delta| bounds both
+        ulp = B4_REL * (base_term.abs() + delta.abs()) + B4_ABS
+        r = float(((y.float() - ref).abs() / ulp).max())
+        r_ctl = float(((base_term - ref).abs() / ulp).max())
+    _check("decode-row LoraAdapted product (8 rows, layer 0 wq) through "
+           "B4's B>1 form", n == 1 and r <= 1.0 and r_ctl >= 4.0,
+           f"{r:.3f} of one bf16 ulp of |base| + |delta| from the f32 plain "
+           f"base term plus the same bf16 delta ({n} launch); control, the "
+           f"base term alone: {r_ctl:.2f}")
+    print(f"  adapted int8 B=1 decode {b1_ms:.2f} ms/token captured (bf16 "
+          f"cache) beside phase 6's bare int8 {int8_b1_ms:.2f} (int8 "
+          f"cache); answers' ids sha1 {_tokens_digest(greedy)}", flush=True)
+    del params, engine, adapted, greedy
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_dpo(cfg, root: str, info, dev) -> dict:
+    """Phase 15d: two ``dpo_train_step``s at full width and ``cfg``'s
+    depth, a full fine-tune (f32 masters, bf16 compute, remat) against a
+    bf16 copy of the initial policy, on a chosen / rejected pair that
+    ``DPODataset`` builds from the grounding scene (DPO_FRAMES frames,
+    DPO_LEN bucket). Checks: step 1 reads log 2 and margin 0 (the policy is
+    the reference); after step 2 every leaf but the ground head's (no DPO
+    gradient) moved; the reference's checksums unchanged; per step, B2 with
+    the lse 2 x 2 x L (two policy forwards and their recomputes), B6 2 x L
+    and B2 2 x L (the reference's forwards); finite values. Returns the
+    launch counts of the two steps."""
+    import torch
+
+    from fixtures import FakeTokenizer
+
+    from video3d_tpu_torch.config import DataConfig
+    from video3d_tpu_torch.data.dataset import Collator, CollatorConfig
+    from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
+    from video3d_tpu_torch.data.video_processor import VideoProcessor
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.params import init_model
+    from video3d_tpu_torch.train.dpo import DPOConfig, dpo_train_step
+    from video3d_tpu_torch.train.dpo_data import DPOCollator, DPODataset
+    from video3d_tpu_torch.train.optim import (OptimConfig, build_optimizer,
+                                               tree_leaves,
+                                               tree_leaves_with_path)
+    from video3d_tpu_torch.train.train_step import (cast_to_compute,
+                                                    create_train_state)
+    from video3d_tpu_torch.train.trainer import to_batch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    policy = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(16),
+                        torch.float32)
+    ref = cast_to_compute(policy, torch.bfloat16)
+    ds = DPODataset([dict(DPO_RECORD, video=info["sample_idx"])],
+                    FakeTokenizer(), VideoProcessor(DataConfig(
+                        video_folder=root,
+                        annotation_dir=os.path.join(root, "embodiedscan"),
+                        metadata_dir=os.path.join(root, "metadata"),
+                        frames_upbound=DPO_FRAMES)),
+                    SigLipImageProcessor(size=(cfg.vision.image_size,) * 2),
+                    frames_upbound=DPO_FRAMES)
+    col = DPOCollator(Collator(cfg, CollatorConfig(
+        max_len=DPO_LEN, frames_upbound=DPO_FRAMES)))
+    chosen, rejected = col([ds[0]])
+    pair = (to_batch(chosen, dev), to_batch(rejected, dev))
+    tokens = [int(b.seq_len[0]) for b in pair]
+    _check("DPO pair", (chosen["labels"] != rejected["labels"]).any()
+           and chosen["images"].shape[1] == DPO_FRAMES,
+           f"chosen / rejected of {tokens} tokens in a {DPO_LEN} bucket, "
+           f"{DPO_FRAMES} frames, labels differ")
+    tx = build_optimizer(policy, OptimConfig(total_steps=2))
+    state = create_train_state(policy, tx)
+    paths = [p for p, _ in tree_leaves_with_path(policy)]
+    policy_sums = _byte_sums(tree_leaves(policy))
+    ref_sums = _byte_sums(tree_leaves(ref))
+    L = cfg.llm.num_hidden_layers
+    expected = dict.fromkeys(_build.LAUNCHES, 0)
+    expected.update(flash_attention_lse=4 * L, flash_attention_bwd=2 * L,
+                    flash_attention=2 * L)
+    readings = []
+    for step in range(2):
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = dpo_train_step(state, ref, pair, cfg, DPOConfig(), tx,
+                                  remat=True, compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        ran = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+        vals = {k: float(v) for k, v in m.items()}
+        readings.append((seconds, vals, ran))
+        _check(f"DPO step {step + 1}: finite metrics and launch counts",
+               all(math.isfinite(v) for v in vals.values())
+               and ran == expected,
+               f"{vals}; launches {({k: v for k, v in ran.items() if v})}, "
+               f"expected {({k: v for k, v in expected.items() if v})} "
+               f"(B2 with lse 2 policy forwards x 2 (remat) x {L}, B6 "
+               f"2 x {L}, B2 2 reference forwards x {L})")
+    loss, margin = readings[0][1]["dpo_loss"], readings[0][1]["reward_margin"]
+    _check("DPO step 1: the policy is the reference",
+           abs(loss - math.log(2)) <= DPO_LOSS_ATOL
+           and abs(margin) <= DPO_MARGIN_ATOL,
+           f"dpo_loss {loss:.6f} (log 2 = {math.log(2):.6f}, bound "
+           f"{DPO_LOSS_ATOL}), reward_margin {margin:.3e} (bound "
+           f"{DPO_MARGIN_ATOL})")
+    moved = [a != b for a, b in zip(_byte_sums(tree_leaves(state.params)),
+                                    policy_sums)]
+    want = [not p.startswith("ground_head") for p in paths]
+    _check("DPO step 2: the policy moved", moved == want,
+           f"{sum(moved)} of {len(moved)} leaves moved ({sum(want)} "
+           f"expected: every leaf but the ground head's)")
+    _check("DPO: the reference", _byte_sums(tree_leaves(ref)) == ref_sums,
+           f"checksums of its {len(ref_sums)} tensors unchanged")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  DPO: seconds per step {[round(r[0], 4) for r in readings]}; "
+          f"peak device memory {peak / 2**30:.2f} GiB (f32 policy and "
+          f"moments, bf16 reference, {DPO_FRAMES} frames, bucket "
+          f"{DPO_LEN})", flush=True)
+    total = dict.fromkeys(_build.LAUNCHES, 0)
+    for _, _, ran in readings:
+        for k, v in ran.items():
+            total[k] += v
+    del state, policy, ref, pair
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
+def run_lora_paths(cfg, train_cfg, root: str, info, ground_info, dev,
+                   int8_b1_ms: float) -> dict:
+    """Phase 15: LoRA over a bf16 base at full depth (LM and ground
+    mini-steps), QLoRA over int8 and int4 bases (LM mini-steps), the int8
+    export served lazily, DPO at ``train_cfg``'s depth; each part's peak
+    and seconds printed. Returns the launch counts of the main-path runs
+    (the trainers', the adapted answers', the DPO steps')."""
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(part):
+        for k, v in part.items():
+            total[k] = total.get(k, 0) + v
+
+    def model(layers, bits):
+        c = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, num_hidden_layers=layers))
+        t0 = time.perf_counter()
+        p = init_model(c, dev, torch.Generator(device=dev).manual_seed(15),
+                       torch.bfloat16, bits=bits)
+        torch.cuda.synchronize()
+        print(f"  {layers}-layer {'bf16' if bits == 16 else f'int{bits}'} "
+              f"base initialised in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return c, p
+
+    L = cfg.llm.num_hidden_layers
+    print(f"LoRA, bf16 base, {L} layers (phase 15a):", flush=True)
+    c, params = model(L, 16)
+    ds, col = _train_data(root, ground_info, c, LORA_FRAMES, LORA_LEN)
+    trainer, launches = _lora_train(
+        "LoRA bf16", c, params, ds, col, dev, os.path.join(root, "lora16"),
+        16, 2, LORA_MINI_STEPS)
+    del params, trainer
+    add(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"QLoRA, int8 base, {L} layers (phase 15b):", flush=True)
+    c, params = model(L, 8)
+    ds, col = _train_data(root, ground_info, c, LORA_FRAMES, LORA_LEN,
+                          refer=False)
+    trainer, launches = _lora_train(
+        "QLoRA int8", c, params, ds, col, dev, os.path.join(root, "lora8"),
+        8, 1, QLORA_MINI_STEPS)
+    del params
+    add(launches)
+    base = trainer.base_params
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("the int8 export served lazily (phase 15c):", flush=True)
+    add(run_adapted_serving(base, os.path.join(root, "lora8", "model"), c,
+                            root, info, int8_b1_ms))
+    del base
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"QLoRA, int4 base, {QLORA_INT4_LAYERS} layers (phase 15b):",
+          flush=True)
+    c, params = model(QLORA_INT4_LAYERS, 4)
+    ds, col = _train_data(root, ground_info, c, LORA_FRAMES, LORA_LEN,
+                          refer=False)
+    trainer, launches = _lora_train(
+        "QLoRA int4", c, params, ds, col, dev, os.path.join(root, "lora4"),
+        4, 1, QLORA_MINI_STEPS)
+    del params, trainer
+    add(launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"DPO, {train_cfg.llm.num_hidden_layers} layers (phase 15d):",
+          flush=True)
+    add(run_dpo(train_cfg, root, ground_info, dev))
+    print(f"  phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return total
+
+
 def _leaves(tree):
     from video3d_tpu_torch.models.quant import Int4Weight
 
+    if tree is None:
+        return
     if isinstance(tree, Int4Weight):
         yield from (tree.q4, tree.scale4)
     elif isinstance(tree, dict):
@@ -5233,7 +5765,8 @@ def main() -> None:
         del params, greedy
         gc.collect()
         torch.cuda.empty_cache()
-        int8, bench = run_int8_paths(cfg, root, infos, ground_info)
+        int8, bench, int8_b1_ms = run_int8_paths(cfg, root, infos,
+                                                 ground_info)
         gc.collect()
         torch.cuda.empty_cache()
         int4, int4_cache = run_int4_paths(cfg, root, infos)
@@ -5244,6 +5777,11 @@ def main() -> None:
                                          num_hidden_layers=TRAIN_LAYERS))
         train = run_training(train_cfg, root, ground_info, dev)
         print(f"  launches (training path): {train}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        lora = run_lora_paths(cfg, train_cfg, root, info, ground_info, dev,
+                              int8_b1_ms)
+        print(f"  launches (phase 15): {lora}", flush=True)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name in PROBE_KERNELS:
@@ -5259,6 +5797,7 @@ def main() -> None:
         else:
             launches = scanqa[name] + prefix[name] + serve[name] \
                 + ground[name] + decode.get(name, 0) + spec14.get(name, 0)
+        launches += lora.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

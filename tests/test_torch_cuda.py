@@ -1035,6 +1035,119 @@ def test_captured_chunk_equals_uncaptured(dev, decoders, bits, form, layout,
     assert launched == {k: 4 * steps * v for k, v in per_step.items()}
 
 
+def _adapted(params, dev, r=16, seed=5):
+    """``params`` with every decoder projection a ``LoraAdapted`` over its
+    (quantized) base, factors N(0, 0.02) in bf16 (B too, so the delta is
+    visible)."""
+    from video3d_tpu_torch.models.quant import LoraAdapted
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {"llm": dict(params["llm"])}
+    layers = []
+    for lp in params["llm"]["layers"]:
+        lp = dict(lp)
+        for grp in ("attn", "mlp"):
+            sub = dict(lp[grp])
+            for name, w in lp[grp].items():
+                if not name.startswith("w"):
+                    continue
+                din, dout = (w.dims if hasattr(w, "dims")
+                             else w["q"].shape)
+                A = 0.02 * torch.randn(din, r, generator=g, device=dev)
+                B = 0.02 * torch.randn(r, dout, generator=g, device=dev)
+                sub[name] = LoraAdapted(w, A.bfloat16(), B.bfloat16(), 2.0)
+            lp[grp] = sub
+        layers.append(lp)
+    out["llm"]["layers"] = layers
+    return out
+
+
+@pytest.mark.parametrize("bits,rows", [(8, 1), (8, 8), (4, 1), (4, 8)])
+def test_lora_adapted_decode_rows_through_the_stream_kernels(dev, bits,
+                                                             rows):
+    """A decode-row ``LoraAdapted`` product: its base term launches B4's
+    B>1 form (int8) or B8 (int4), and the whole is within one bf16 ulp of
+    |base| + |delta| of the f32 plain base term plus the same bf16 delta
+    (the kernel rounds the base term, the sum is rounded again); an input
+    that requires grad raises instead of launching."""
+    from video3d_tpu_torch.models.quant import LoraAdapted, matmul
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    in_, out = 3584, 512
+    w = 0.02 * torch.randn(in_, out, generator=g, device=dev)
+    base = quantize_weight(w) if bits == 8 else quantize_weight_int4(w)
+    A = (0.02 * torch.randn(in_, 16, generator=g, device=dev)).bfloat16()
+    B = (0.02 * torch.randn(16, out, generator=g, device=dev)).bfloat16()
+    wa = LoraAdapted(base, A, B, 2.0)
+    x = torch.randn(rows, in_, generator=g, device=dev).bfloat16()
+    name = "int8_matmul" if bits == 8 else "int4_matmul"
+    with torch.no_grad():
+        got = _launched(name, lambda: matmul(x, wa))
+        if bits == 8:
+            plain = qm.int8_matmul_plain(x.float(), base["q"],
+                                         base["scale"])
+        else:
+            plain = qm.int4_matmul_plain(x.float(), base.q4,
+                                         base.scale4)[:, :out]
+        delta = (((x @ A) @ B) * 2.0).float()
+        ref = plain + delta
+        ulp = 2.0 ** -7 * (plain.abs() + delta.abs()) + 1e-4
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, out)
+    assert float(((got.float() - ref).abs() / ulp).max()) <= 1.0
+    # control: the base term alone misses by the delta
+    assert float(((plain - ref).abs() / ulp).max()) >= 4.0
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        matmul(xg, wa)
+
+
+def test_captured_chunk_over_an_adapted_int8_base(dev, decoders):
+    """A 4-step decode chunk over lazily adapted int8 weights, replayed as
+    a CUDA graph, equals the uncaptured chunk bit for bit; the base terms
+    launch B4 exactly as over the bare int8 base; the step's split
+    buffers are planned by the bases."""
+    from video3d_tpu_torch.kernels import _launch
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import decode_graph as dg
+
+    cfg, models = decoders
+    params = _adapted(models[8], dev)
+    assert dg.weight_form(params) == "int8+lora"
+    sms = _launch.sm_count(dev.index or 0)
+    assert dg.step_buffers(params, cfg, 8, 8704, sms) == \
+        dg.step_buffers(models[8], cfg, 8, 8704, sms)
+    dense, _ = _decode_states(cfg, dev, 8, "bf16")
+    steps = 4
+    with torch.inference_mode():
+        start = [t.clone() for t in dg.state_tensors(dense)]
+        eager = type(dense)(*(
+            type(x)(*(None if t is None else t.clone() for t in x))
+            if isinstance(x, tuple) else x.clone() for x in dense))
+        _, want = gen.decode_chunk(params, cfg, eager, steps, -1,
+                                   capture=False)
+        bare = type(dense)(*(
+            type(x)(*(None if t is None else t.clone() for t in x))
+            if isinstance(x, tuple) else x.clone() for x in dense))
+        gen.decode_chunk(models[8], cfg, bare, steps, -1, capture=False)
+        graphs = dg.DecodeGraphs(dev)
+        _build.reset_launches()
+        for i in range(3):
+            for t, s in zip(dg.state_tensors(dense), start):
+                t.copy_(s)
+            _, toks = gen.decode_chunk(params, cfg, dense, steps, -1,
+                                       graphs=graphs)
+            assert torch.equal(toks, want), i
+            assert torch.equal(dense.next_logits, eager.next_logits), i
+        torch.cuda.synchronize()
+    assert graphs.captures == 1 and graphs.replays == 2
+    # control: the adapters move the logits off the bare base's
+    assert not torch.equal(bare.next_logits, eager.next_logits)
+    per_step = _expected_step_launches(models[8], 8, "bf16", "dense", 8,
+                                       CAPTURE_LAYERS)
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launched == {k: 3 * steps * v for k, v in per_step.items()}
+
+
 def test_replay_after_a_larger_key_grew_the_buffers(dev, decoders):
     """A B=1 int8 chunk captured, then a B=16 chunk on the same holder
     (its warm-up grows the capture stream's split buffers: more row tiles),

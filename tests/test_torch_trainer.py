@@ -2,7 +2,8 @@
 checkpoints, the metrics jsonl and the final bf16 export; bitwise resume (2
 steps, SIGTERM, resume, 2 more == 4 straight steps, MultiSteps state and
 pos-skipping offsets included); SIGTERM -> checkpoint -> return (as
-``tests/test_train.py::TestPreemption``); the paths not ported raise."""
+``tests/test_train.py::TestPreemption``); the paths not ported raise, and
+``lora_r`` builds a LoRA trainer."""
 
 import json
 import os
@@ -136,8 +137,12 @@ def test_sigterm_checkpoints_and_exits(data, tmp_path):
 
 
 def test_unported_paths_raise(data):
-    with pytest.raises(NotImplementedError, match="A9"):
-        _trainer(data, "unused", lora_r=8)
+    # LoRA is ported (tests/test_torch_qlora.py trains it): lora_r builds
+    # a trainable tree of adapters over a frozen bf16 base
+    tr = _trainer(data, "unused", lora_r=8)
+    assert set(tr.state.params["llm"]["layers"][0]["attn"]["wq"]) == \
+        {"A", "B"}
+    assert tr.base_params["llm"]["embed_tokens"].dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="A12"):
         _trainer(data, "unused", dp=2)
     # a batch with a ground slot carries its extras to the ground step

@@ -114,9 +114,16 @@ def int4_matmul_plain(x: torch.Tensor, packed: torch.Tensor,
 def _device_checks(name: str, x: torch.Tensor, tensors) -> int:
     """Raise unless x is on a CUDA device and every (arg, tensor, dtype) is
     a contiguous, 16-byte aligned tensor of that dtype on x's device;
-    returns the device index."""
+    returns the device index. The kernels have no backward, so an input
+    that requires grad while autograd records raises too (a result without
+    a gradient would silently cut the graph)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *(t for _, t, _ in tensors))):
+        raise RuntimeError(f"{name}: the kernel has no backward; a "
+                           f"product that needs gradients must take the "
+                           f"dequantize path")
     index = x.get_device()
     for arg, t, dt in tensors:
         if t.dtype != dt or not t.is_contiguous() \

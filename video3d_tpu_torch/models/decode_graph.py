@@ -94,12 +94,21 @@ def _dtype_name(dtype) -> str:
 
 
 def weight_form(params) -> str:
+    """The weights' form by the head ("bf16", "int8", "int4"), with
+    "+lora" when the decoder's projections are ``LoraAdapted`` (the head
+    is never adapted)."""
     head = params["llm"]["lm_head"]
     if isinstance(head, quant.Int4Weight):
-        return "int4"
-    if quant.is_quantized(head):
-        return "int8"
-    return _CACHE_FORMS.get(head.dtype, _dtype_name(head.dtype))
+        form = "int4"
+    elif quant.is_quantized(head):
+        form = "int8"
+    else:
+        form = _CACHE_FORMS.get(head.dtype, _dtype_name(head.dtype))
+    layers = params["llm"].get("layers") or [{}]
+    if any(isinstance(w, quant.LoraAdapted)
+           for w in layers[0].get("attn", {}).values()):
+        form += "+lora"
+    return form
 
 
 def state_tensors(state):
@@ -131,7 +140,10 @@ def graph_key(kind: str, params, state, chunk: Optional[int],
 def _weight_plan(w, rows: int, sms: int):
     """The plan of the weight-streaming kernel ``quant.matmul`` sends a
     ``rows``-row product with ``w`` to on the card, or None (a dense
-    weight, or more rows than the kernels take)."""
+    weight, or more rows than the kernels take). A ``LoraAdapted`` weight
+    is planned by its base: its low-rank delta is two dense products."""
+    if isinstance(w, quant.LoraAdapted):
+        w = w.base
     if rows > quant.KERNEL_MAX_ROWS or not quant.is_quantized(w):
         return None
     if isinstance(w, quant.Int4Weight):

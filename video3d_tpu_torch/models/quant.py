@@ -1,7 +1,8 @@
 """Weight-only quantization for serving, in PyTorch: counterpart of
 ``video3d_tpu/models/quant.py`` (the int8 dict form, the group-wise int4
 form ``Int4Weight``, ``quantize_tree`` with bits 8 or 4 and ``act="none"``,
-and the ``matmul`` dispatch).
+the lazily LoRA-adapted form ``LoraAdapted``, and the ``matmul``
+dispatch).
 
 An int8 weight is the dict ``{"q": int8 (in, out), "scale": bf16 (1, out)}``,
 symmetric per output channel: w ~= q * scale. An int4 weight is an
@@ -15,6 +16,13 @@ dequantized product). On the GPU, decode-sized products (at most
 kernel (``kernels/quant_matvec.py``): int4 through B8, int8 through B4's
 B>1 form, or B4's one-row matvec at the vocab head; larger products
 (prefill, suffix chunks) dequantize into bf16 and run a dense matmul.
+The kernels have no backward: a training product (more than
+``KERNEL_MAX_ROWS`` rows) takes the differentiable dequantize path, and a
+kernel given an input that requires grad raises.
+
+A :class:`LoraAdapted` weight (QLoRA, and serving a LoRA export over a
+quantized base) is ``matmul(x, base) + ((x @ A) @ B) * scale``: the base
+term keeps the routes above.
 """
 
 from __future__ import annotations
@@ -45,7 +53,6 @@ KERNEL_MAX_ROWS = qm.MAX_ROWS
 #: ROADMAP item that ports them
 _NOT_PORTED = {
     "W8A8Weight": "w8a8 int8 activations, ROADMAP A3",
-    "LoraAdapted": "LoRA-adapted weights, ROADMAP A9 (training)",
 }
 
 
@@ -70,6 +77,22 @@ class Int4Weight:
         self.scale4 = scale4
         self.dims = tuple(dims)
         self.group = group
+
+
+class LoraAdapted:
+    """A frozen (possibly quantized) base weight with LoRA factors ``A``
+    (in, r) and ``B`` (r, out), evaluated lazily by :func:`matmul` as
+    ``matmul(x, base) + ((x @ A) @ B) * scale``, as the JAX
+    ``LoraAdapted``: the base is never dequantized into a full-size matrix
+    outside the product, and gradients reach x and the factors only.
+    ``scale`` (alpha / r) is a Python float."""
+
+    def __init__(self, base, A: torch.Tensor, B: torch.Tensor,
+                 scale: float):
+        self.base = base
+        self.A = A
+        self.B = B
+        self.scale = float(scale)
 
 
 def quantize_weight(w: torch.Tensor) -> dict:
@@ -149,7 +172,9 @@ def _matmul_int4(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense, an int8 dict or an :class:`Int4Weight` weight.
+    """x @ w for a dense, an int8 dict, an :class:`Int4Weight` or a
+    :class:`LoraAdapted` weight (JAX ``quant.py:183-185``: the factors cast
+    to x's dtype, the delta times the scale in x's dtype).
 
     int8 on the CPU and above KERNEL_MAX_ROWS rows rounds as the JAX
     package's product does: ``(x @ q.to(x.dtype)) * scale.to(x.dtype)``. On
@@ -158,6 +183,9 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
     form): f32 sum, f32 scale, one rounding at the end."""
     if isinstance(w, torch.Tensor):
         return x @ w
+    if isinstance(w, LoraAdapted):
+        delta = (x @ w.A.to(x.dtype)) @ w.B.to(x.dtype)
+        return matmul(x, w.base) + delta * w.scale
     if isinstance(w, Int4Weight):
         return _matmul_int4(x, w)
     if not is_quantized(w):
@@ -174,8 +202,8 @@ def quantize_tree(params: Any, patterns: Tuple[str, ...] = DEFAULT_PATTERNS,
                   bits: int = 8, act: str = "none") -> Any:
     """Quantize the 2-D weights whose path ("llm/layers/3/attn/wq") matches
     one of ``patterns`` to int8 dicts (bits 8) or :class:`Int4Weight`
-    (bits 4); already quantized weights pass through. ``act="int8"``
-    (w8a8) is not ported."""
+    (bits 4); already quantized and :class:`LoraAdapted` weights pass
+    through (JAX ``quant.py:257``). ``act="int8"`` (w8a8) is not ported."""
     if bits not in (8, 4):
         raise ValueError(f"bits={bits}: expected 8 or 4")
     if act != "none":
@@ -184,7 +212,7 @@ def quantize_tree(params: Any, patterns: Tuple[str, ...] = DEFAULT_PATTERNS,
     quantize = quantize_weight if bits == 8 else quantize_weight_int4
 
     def walk(tree, prefix=""):
-        if is_quantized(tree):
+        if is_quantized(tree) or isinstance(tree, LoraAdapted):
             return tree
         if isinstance(tree, dict):
             return {k: walk(v, f"{prefix}/{k}" if prefix else k)

@@ -54,6 +54,8 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _convert(node, device, dtype):
+    if node is None:
+        return None          # an empty subtree (a LoRA trainable tree)
     if isinstance(node, dict):
         return {k: _convert(v, device, dtype) for k, v in node.items()}
     if isinstance(node, (list, tuple)):
@@ -65,6 +67,11 @@ def _convert(node, device, dtype):
                                 _convert(node.scale4, device, None),
                                 tuple(int(d) for d in node.dims),
                                 int(node.group))
+    if type(node).__name__ == "LoraAdapted":
+        return quant.LoraAdapted(_convert(node.base, device, dtype),
+                                 _convert(node.A, device, dtype),
+                                 _convert(node.B, device, dtype),
+                                 float(node.scale))
     quant.check_ported(node)
     a = np.array(node)                          # a writable copy
     if a.dtype.name == "bfloat16":
@@ -85,8 +92,9 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
     ``device`` (default: the first CUDA card, see :func:`resolve_device`).
     bf16 leaves carry across bit for bit, and so do the int8
     ``{"q", "scale"}`` dicts and the ``Int4Weight`` leaves of a
-    ``quantize_tree``'d tree (bits 8 or 4). ``dtype`` casts floating leaves
-    (None keeps theirs) except the int4 scales."""
+    ``quantize_tree``'d tree (bits 8 or 4), and the ``LoraAdapted`` leaves
+    of an ``apply_lora``'d one. ``dtype`` casts floating leaves (None keeps
+    theirs) except the int4 scales."""
     check_config(cfg)
     device = resolve_device(device)
     out = {k: _convert(tree[k], device, dtype) for k in _USED
@@ -95,6 +103,15 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
             or len(out["llm"]["layers"]) != cfg.llm.num_hidden_layers:
         raise ValueError("layer counts of the tree and the config differ")
     return out
+
+
+def from_jax_tree(tree, device=None, dtype=None):
+    """Any JAX parameter-shaped tree (numpy leaves) -> the same nesting of
+    tensors on ``device``, leaf by leaf as :func:`from_jax_params`, with
+    every None position kept: a LoRA trainable tree of the JAX package
+    (``{"A", "B"}`` adapters, full copies of the extra trainables, None
+    elsewhere) carries across whole."""
+    return _convert(tree, resolve_device(device), dtype)
 
 
 def init_model(cfg: ModelConfig, device, generator: torch.Generator,

@@ -15,6 +15,8 @@ from typing import Any, Optional
 
 import torch
 
+from video3d_tpu_torch.train.optim import tree_leaves
+
 STATE_FILE = "state.pt"
 PARAMS_FILE = "params.pt"
 
@@ -46,13 +48,11 @@ def save_checkpoint(output_dir: str, step: int, state: Any) -> str:
 
 def restore_checkpoint(path: str, target: Any) -> Any:
     """The state saved under ``path``, on the device of ``target``'s first
-    parameter (the saved dtypes are kept)."""
-    leaf = target.params
-    while isinstance(leaf, (dict, list)):
-        leaf = next(iter(leaf.values())) if isinstance(leaf, dict) \
-            else leaf[0]
+    parameter (the saved dtypes are kept; a LoRA tree's None positions
+    stay None)."""
     return torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
-                      map_location=leaf.device, weights_only=False)
+                      map_location=tree_leaves(target.params)[0].device,
+                      weights_only=False)
 
 
 def save_params_only(output_dir: str, params: Any, name: str = "model") -> str:

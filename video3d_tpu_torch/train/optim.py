@@ -55,7 +55,11 @@ class OptimConfig:
 
 def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) pairs in JAX's flattening order (dict keys sorted, list
-    items in order), paths joined by "/" as ``optim._path_str`` does."""
+    items in order), paths joined by "/" as ``optim._path_str`` does. None
+    is an empty subtree, as in a JAX pytree: a LoRA trainable tree holds
+    None at every position that is not trained."""
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [pl for k in sorted(tree) for pl in tree_leaves_with_path(
             tree[k], f"{prefix}/{k}" if prefix else str(k))]
@@ -70,10 +74,13 @@ def tree_leaves(tree) -> List[Any]:
 
 
 def tree_unflatten(like, leaves) -> Any:
-    """A tree shaped like ``like`` with ``leaves`` (in flattening order)."""
+    """A tree shaped like ``like`` with ``leaves`` (in flattening order);
+    None positions of ``like`` stay None."""
     it = iter(leaves)
 
     def build(node):
+        if node is None:
+            return None
         if isinstance(node, dict):
             return {k: build(node[k]) for k in sorted(node)}
         if isinstance(node, (list, tuple)):

@@ -9,10 +9,14 @@ ground head exactly like the reference's ``predict_box`` path
 rematerialization, ``MultiSteps`` accumulation over both kinds of
 mini-step, the epoch order of the samplers, resume that skips the batches
 already trained, ``use_pos_skipping``, a metrics jsonl, SIGTERM ->
-checkpoint -> exit, the final bf16 export, and ``evaluate()``. Not ported,
-and raising ``NotImplementedError`` with their ROADMAP item: LoRA / QLoRA
-(``lora_r > 0``, A9) and meshes (``dp``, ``tp``, ``sp`` > 1, A12). The
-loop runs on the card unless the caller passes a CPU device.
+checkpoint -> exit, the final bf16 export, and ``evaluate()``. With
+``lora_r > 0`` it fine-tunes LoRA adapters and the reference's non-LoRA
+trainables over a frozen bf16 base, int8- or int4-quantized with
+``lora_bits`` 8 or 4 (QLoRA, ``train/lora.py``, ``train/qlora.py``), and
+exports the trainable tree beside ``lora.json``. Not ported, and raising
+``NotImplementedError`` with its ROADMAP item: meshes (``dp``, ``tp``,
+``sp`` > 1, A12). The loop runs on the card unless the caller passes a
+CPU device.
 """
 
 from __future__ import annotations
@@ -29,11 +33,15 @@ import torch
 
 from video3d_tpu_torch.config import GroundHeadType, ModelConfig
 from video3d_tpu_torch.models import llava_video3d as lv3d
+from video3d_tpu_torch.models import quant
 from video3d_tpu_torch.params import resolve_device
 from video3d_tpu_torch.train import checkpoint as ckpt
+from video3d_tpu_torch.train.lora import (LORA_FILE, LoraConfig, apply_lora,
+                                          init_lora_trainable)
 from video3d_tpu_torch.train.optim import (MultiSteps, OptimConfig,
                                            build_optimizer)
 from video3d_tpu_torch.train.prefetch import BatchPrefetcher
+from video3d_tpu_torch.train.qlora import check_qlora_base, qlora_loss_fn
 from video3d_tpu_torch.train.samplers import (
     batches_from_order, get_length_grouped_indices,
     get_modality_length_grouped_indices, get_task_length_grouped_indices)
@@ -68,7 +76,14 @@ class TrainingConfig:
     # use_pos_skipping (llava_arch.py:823-829): during training, add random
     # offsets to position ids before/after a random split point. 0 disables.
     pos_skipping_range: int = 0
+    # LoRA fine-tuning (reference train_3d.py:1588-1657 lora_enable):
+    # lora_r > 0 trains {"A","B"} adapters on the LLM projections plus the
+    # reference's non-LoRA trainables (projector / ground head /
+    # image_newline) with the base FROZEN in bf16; lora_bits 8 or 4 also
+    # quantizes the frozen base (QLoRA, the bitsandbytes bits-4/8 branch)
     lora_r: int = 0
+    lora_alpha: int = 0        # 0 -> 2 * lora_r
+    lora_bits: int = 16        # 16 = bf16 frozen base; 8 / 4 = quantized
     # the ground mini-step's loss is this times the InfoNCE loss
     grounding_loss_weight: float = 1.0
 
@@ -152,6 +167,9 @@ def grounding_loss_fn(params, cfg: ModelConfig, batch: lv3d.Batch,
 
 
 def _cast_tree(tree, src: torch.dtype, dst: torch.dtype, device):
+    if isinstance(tree, quant.Int4Weight):
+        return quant.Int4Weight(tree.q4.to(device), tree.scale4.to(device),
+                                tree.dims, tree.group)
     if isinstance(tree, dict):
         return {k: _cast_tree(v, src, dst, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -179,9 +197,6 @@ class Trainer:
     def __init__(self, model_cfg: ModelConfig, params, dataset, collator,
                  optim_cfg: OptimConfig, train_cfg: TrainingConfig,
                  device=None):
-        if train_cfg.lora_r:
-            raise NotImplementedError("LoRA / QLoRA training is not ported "
-                                      "(ROADMAP A9)")
         if max(train_cfg.dp, train_cfg.tp, train_cfg.sp) > 1:
             raise NotImplementedError("data / tensor / sequence parallel "
                                       "meshes are not ported (ROADMAP A12)")
@@ -194,7 +209,29 @@ class Trainer:
         # master copy; bf16 imports are upcast) and are cast to bf16 at use
         # inside the step. bf16 alone: params stored bf16 outright.
         self._compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
-        if train_cfg.bf16 and train_cfg.master_f32:
+        self._lora_cfg = None
+        self.base_params = None
+        if train_cfg.lora_r:
+            # LoRA / QLoRA: the trainable tree is the adapters and the
+            # non-LoRA trainables; the base is frozen (bf16: no master copy
+            # for weights that never update), int8 / int4 with lora_bits
+            self._lora_cfg = LoraConfig(
+                r=train_cfg.lora_r,
+                alpha=train_cfg.lora_alpha or 2 * train_cfg.lora_r)
+            base = _cast_tree(params, torch.float32 if train_cfg.bf16
+                              else None, torch.bfloat16, self.device)
+            if train_cfg.lora_bits in (8, 4):
+                base = quant.quantize_tree(base, bits=train_cfg.lora_bits)
+                check_qlora_base(base)
+            master = (torch.float32 if train_cfg.master_f32
+                      or not train_cfg.bf16 else torch.bfloat16)
+            params = init_lora_trainable(
+                torch.Generator(device=self.device).manual_seed(
+                    train_cfg.seed), base, self._lora_cfg, dtype=master)
+            if master == torch.bfloat16:
+                self._compute_dtype = None     # trainables already bf16
+            self.base_params = base
+        elif train_cfg.bf16 and train_cfg.master_f32:
             params = _cast_tree(params, torch.bfloat16, torch.float32,
                                 self.device)
         elif train_cfg.bf16:
@@ -213,7 +250,19 @@ class Trainer:
         self._step_fn = self._step
         self._ground_step_fn = self._ground_step
 
+    def _merged(self, trainable):
+        """LoRA mode: the trainable tree (cast to the compute dtype) over
+        the frozen base (JAX ``_merged``): dense bases merged, quantized
+        ones lazy ``LoraAdapted`` leaves."""
+        if self._compute_dtype is not None:
+            trainable = cast_to_compute(trainable, self._compute_dtype)
+        return apply_lora(self.base_params, trainable, self._lora_cfg)
+
     def _step(self, state: TrainState, batch: lv3d.Batch):
+        if self._lora_cfg is not None:
+            return optimizer_step(state, self.tx, lambda tr: qlora_loss_fn(
+                tr, self.base_params, self.cfg, batch, self._lora_cfg,
+                remat=self.tcfg.remat, compute_dtype=self._compute_dtype))
         return train_step(state, batch, self.cfg, self.tx,
                           remat=self.tcfg.remat,
                           compute_dtype=self._compute_dtype)
@@ -228,7 +277,9 @@ class Trainer:
         cdt = self._compute_dtype
 
         def objective(p):
-            if cdt is not None:
+            if self._lora_cfg is not None:
+                p = self._merged(p)
+            elif cdt is not None:
                 p = cast_to_compute(p, cdt)
             loss, metrics = grounding_loss_fn(p, self.cfg, batch, extras,
                                               self.tcfg.remat)
@@ -263,7 +314,8 @@ class Trainer:
                  max_batches: Optional[int] = None) -> Dict[str, float]:
         """Mean LM loss over ``eval_dataset`` (default the training set)
         in consecutive batches of ``per_device_batch_size``, without
-        updates or remat (JAX ``evaluate``, its non-LoRA form)."""
+        updates or remat (JAX ``evaluate``; in LoRA mode its
+        ``eval_loss_lora``: the loss of the merged tree)."""
         dataset = eval_dataset or self.dataset
         bs = self.tcfg.per_device_batch_size
         losses = []
@@ -272,9 +324,14 @@ class Trainer:
                 break
             batch = self._to_batch(self.collator(
                 [dataset[i] for i in range(s, s + bs)]))
-            losses.append(float(loss_fn(
-                self.state.params, self.cfg, batch, remat=False,
-                compute_dtype=self._compute_dtype)[0]))
+            if self._lora_cfg is not None:
+                loss = loss_fn(self._merged(self.state.params), self.cfg,
+                               batch, remat=False, compute_dtype=None)[0]
+            else:
+                loss = loss_fn(self.state.params, self.cfg, batch,
+                               remat=False,
+                               compute_dtype=self._compute_dtype)[0]
+            losses.append(float(loss))
         return {"eval_loss": float(np.mean(losses)) if losses
                 else float("nan"), "eval_batches": len(losses)}
 
@@ -389,4 +446,13 @@ class Trainer:
             export = _cast_tree(export, torch.float32, torch.bfloat16,
                                 self.device)
         ckpt.save_params_only(self.tcfg.output_dir, export)
+        if self._lora_cfg is not None:
+            # the exported tree holds adapters and non-LoRA trainables (the
+            # reference's split save, llava_trainer.py:560-578); alpha / r
+            # is not recoverable from the adapter shapes, so record it
+            with open(os.path.join(self.tcfg.output_dir, LORA_FILE),
+                      "w") as f:
+                json.dump({"r": self._lora_cfg.r,
+                           "alpha": self._lora_cfg.alpha,
+                           "bits": self.tcfg.lora_bits}, f)
         return self.state
