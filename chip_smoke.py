@@ -225,6 +225,28 @@ Phases, each of which raises on failure (the process then exits non-zero):
    log 2 and margin 0 at step 1, the policy moved after step 2, the
    reference's checksums unchanged, exact launches per step. Seconds per
    mini-step, tokens/s, peaks and the adapted ms/token are printed.
+16. Other inputs (after phase 15; ``run_other_inputs``), on a bf16 model
+   at full width and depth: (a) ``generate_answer_image`` on a seeded
+   768x768 image through anyres + spatial_unpad (5 tiles, 3699 vision
+   tokens) and through pad, (b) ``generate_answer_video_file`` on a
+   48-frame 480x640 mp4 the phase writes with cv2 (force-sampled to 32
+   frames, the time instruction on, the world PE off); each answer's
+   launches exact (B2 per layer, B3 per layer and step) and its ids equal
+   to an uncaptured decode, the anyres and video-file first-step logits
+   within LOGIT_ATOL of the same prefill with B2 plain (controls: the
+   block without its base view, the frames in reverse order; >= 2x); the
+   same model with seeded ``world_pe_mlp`` leaves answers a ScanQA
+   question under the MLP world PE (B1, B2, B3 exact); (c) LoRA
+   (``lora_r=128, lora_alpha=256``) over that bf16 base at 28 layers on
+   two image records and one video-file record, one mini-step each: the
+   trainables bit for bit after update 1, every B moved after update 2,
+   B2 with the lse 2 x 28 and B6 28 per mini-step; (d) at TRAIN_LAYERS
+   layers with f32 masters, one V=8 mini-step per coordinate-pooling and
+   world-PE variant (min-max + sin3d, sample9 + sin3d, avg + MLP, sample1
+   + mrope) against the same mini-step with the plain attention swapped
+   in (phase 7's bounds; control: the plain attention without its causal
+   mask reading the next kv head), the mrope batch's vision rows read back on the card with their
+   three axes apart. The phase's seconds, peak and launches are printed.
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -2128,8 +2150,8 @@ def _make_engine(params, cfg, root: str, **ecfg):
             self.decoded.append([int(t) for t in toks])
             return super()._decode_text(toks)
 
-        def _generate(self, batch, vision_features=None):
-            res = super()._generate(batch, vision_features)
+        def _generate(self, batch, vision_features=None, cfg=None):
+            res = super()._generate(batch, vision_features, cfg)
             self.results.append(res)
             return res
 
@@ -5670,6 +5692,507 @@ def run_lora_paths(cfg, train_cfg, root: str, info, ground_info, dev,
     return total
 
 
+# phase 16: other inputs, the 2D-image and video-file modalities and the
+# coordinate-pooling and world-PE variants
+IMAGE_SIDE = 768     # a seeded square image: anyres 2x2 tiles + the base view
+IMAGE_TOKENS = 3699  # its spatial_unpad block: 729 + 54 rows of 54 + newline
+# the mp4 the phase writes with cv2: seeded 480x640 frames at 24 fps, force
+# sampled to the engine's 32 frames
+VIDEO_FILE_FRAMES, VIDEO_FILE_FPS = 48, 24.0
+OTHER_PROMPT = "What color is the chair next to the desk?"
+# the LoRA run's image records (the video-file record is the mp4 above)
+LORA_IMAGES = ((IMAGE_SIDE, IMAGE_SIDE), (640, 480))
+# the variants' mini-steps: TRAIN_LAYERS decoder layers, V frames of phase
+# 12's scene in a bucket of VARIANT_LEN tokens
+VARIANTS = ("minmax-discrete-sin3d", "sample9-discrete-sin3d",
+            "avg-discrete-mlp", "sample1-discrete-mrope")
+VARIANT_FRAMES, VARIANT_LEN = 8, 2048
+
+
+def _seeded_image(w: int, h: int, seed: int):
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    return Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
+
+
+def _write_mp4(path: str) -> None:
+    """VIDEO_FILE_FRAMES seeded 480x640 frames at VIDEO_FILE_FPS through
+    cv2's mp4v writer (raises where cv2 cannot write one)."""
+    import cv2
+    import numpy as np
+
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"),
+                        VIDEO_FILE_FPS, (640, 480))
+    if not w.isOpened():
+        raise RuntimeError("cv2 has no mp4 writer here")
+    rng = np.random.default_rng(16)
+    for i in range(VIDEO_FILE_FRAMES):
+        frame = np.full((480, 640, 3), i * 5 % 256, np.uint8)
+        frame[:240, :320] = rng.integers(0, 255, (240, 320, 3),
+                                         dtype=np.uint8)
+        w.write(frame)
+    w.release()
+
+
+def _first_step_logits(params, cfg, batch, vf=None):
+    """The prefill's next-token logits (f32) in a cache of one more slot."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    with torch.inference_mode():
+        return gen.prefill_multimodal(params, cfg, batch,
+                                      batch.text_ids.shape[1] + 1,
+                                      vision_features=vf)[0].float()
+
+
+def _other_answer(label: str, engine, params, cfg, call, prepare,
+                  **per_path) -> dict:
+    """One counted answer of an entry point after a warm-up one: exact
+    launches (``per_path``, by default B2 once per layer; B3 per layer and
+    decode forward), its ids against the same batch decoded uncaptured
+    (``prepare()``: batch, vision features, the call's configuration);
+    returns the counted call's launches."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+
+    call()                                          # warm-up, not counted
+    engine.results.clear()
+    torch.cuda.synchronize()
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    text = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    part = _launch_delta(before)
+    res = engine.results[-1]
+    L = cfg.llm.num_hidden_layers
+    forwards = _decode_forwards([res], cfg.llm.vocab_size)
+    expected = _expected_launches(params, "bfloat16", L, forwards, [res],
+                                  **(per_path or {"flash_attention": L}))
+    _check(f"{label}: launch counts", part == expected,
+           f"{ {k: v for k, v in part.items() if v} }, expected "
+           f"{ {k: v for k, v in expected.items() if v} } ({forwards} "
+           f"decode forwards)")
+    batch, vf, call_cfg = prepare()
+    ref = gen.generate_greedy(params, call_cfg, batch, MAX_NEW,
+                              engine.ecfg.eos_token_id, vf,
+                              engine.cache_dtype, capture=False)
+    _check(f"{label}: captured decode vs uncaptured",
+           isinstance(text, str) and torch.equal(res.tokens, ref.tokens)
+           and torch.equal(res.lengths, ref.lengths),
+           f"ids bit for bit (lengths {res.lengths.tolist()} / "
+           f"{ref.lengths.tolist()}); wall {wall:.3f} s")
+    return part
+
+
+def _logit_check(label: str, got, plain, controls: dict) -> None:
+    """First-step logits through the kernels within LOGIT_ATOL of the
+    plain-attention prefill's; the first control must read at least twice
+    the bound (the others are printed)."""
+    d = float((got - plain).abs().max())
+    _check(f"{label}: first-step logits vs B2 plain", d <= LOGIT_ATOL,
+           f"max |d| {d:.4f} (bound {LOGIT_ATOL}), |logits| up to "
+           f"{float(got.abs().max()):.2f}")
+    for i, (name, ctl) in enumerate(controls.items()):
+        c = float((got - ctl).abs().max())
+        if i == 0:
+            _check(f"{label}: control, {name}", c >= 2 * LOGIT_ATOL,
+                   f"max |d| {c:.4f} (must be >= {2 * LOGIT_ATOL})")
+        else:
+            print(f"  {label}: another control, {name}: max |d| {c:.4f}",
+                  flush=True)
+
+
+def _image_answers(params, cfg, root: str) -> dict:
+    """Phase 16a: ``generate_answer_image`` on a seeded IMAGE_SIDE^2 image
+    through anyres + spatial_unpad (5 tiles, IMAGE_TOKENS vision tokens)
+    and through pad (one view); launches, captured vs uncaptured ids; the
+    anyres prefill's first-step logits against B2 plain (control: the
+    block without its base view), its vision and prefill ms."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    engine = _make_engine(params, cfg, root)
+    img = _seeded_image(IMAGE_SIDE, IMAGE_SIDE, 16)
+    launches = {}
+    for aspect in ("anyres", "pad"):
+        def prepare(aspect=aspect):
+            return (*engine.prepare_image(OTHER_PROMPT, img,
+                                          image_aspect_ratio=aspect), cfg)
+
+        _add_launches(launches, _other_answer(
+            f"image ({aspect})", engine, params, cfg,
+            lambda aspect=aspect: engine.generate_answer_image(
+                OTHER_PROMPT, img, image_aspect_ratio=aspect), prepare))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch, feat = engine.prepare_image(OTHER_PROMPT, img)
+    torch.cuda.synchronize()
+    t_vis = time.perf_counter() - t0
+    n = int(batch.seq_len[0])
+    _check("image (anyres): vision block", feat.shape[1] == IMAGE_TOKENS
+           and bool(torch.isfinite(feat.float()).all()),
+           f"{feat.shape[1]} tokens (expected {IMAGE_TOKENS}), finite")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.prefill_multimodal(params, cfg, batch,
+                               batch.text_ids.shape[1] + MAX_NEW,
+                               vision_features=feat)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t0
+    got = _first_step_logits(params, cfg, batch, feat)
+    with _plain_prefill_kernels():
+        plain = _first_step_logits(params, cfg, batch, feat)
+    nb_batch, nb_feat = engine.prepare_image(
+        OTHER_PROMPT, img, patch_merge_type="spatial_unpad_nobase")
+    _logit_check("image (anyres)", got, plain, {
+        "the block without its base view": _first_step_logits(
+            params, cfg, nb_batch, nb_feat),
+        "the logits one position early": _first_step_logits(
+            params, cfg, batch._replace(seq_len=batch.seq_len - 1), feat)})
+    print(f"  image (anyres): tiling + tower + projector + arrangement "
+          f"{t_vis * 1e3:.1f} ms; LLM prefill {n} tokens (bucket "
+          f"{batch.text_ids.shape[1]}) {t_pre * 1e3:.1f} ms", flush=True)
+    del engine
+    return launches
+
+
+def _video_file_answer(params, cfg, root: str, mp4: str) -> dict:
+    """Phase 16b: ``generate_answer_video_file`` on the phase's mp4 with
+    the time instruction (32 frames, the world PE off): launches, captured
+    vs uncaptured ids, the first-step logits against B2 plain (control:
+    the frames in reverse order)."""
+    import torch
+
+    engine = _make_engine(params, cfg, root)
+
+    def prepare():
+        batch, plain = engine.prepare_video_file(OTHER_PROMPT, mp4,
+                                                 add_time_instruction=True)
+        return batch, None, plain
+
+    part = _other_answer(
+        "video file", engine, params, cfg,
+        lambda: engine.generate_answer_video_file(
+            OTHER_PROMPT, mp4, add_time_instruction=True), prepare)
+    batch, _, plain_cfg = prepare()
+    V = batch.images.shape[1]
+    _check("video file: frames and configuration",
+           V == 32 and plain_cfg.world_3d.pos_embed.value == "none"
+           and engine.cfg is cfg,
+           f"{V} frames sampled from {VIDEO_FILE_FRAMES}, world PE "
+           f"{plain_cfg.world_3d.pos_embed.value}, the engine's own "
+           f"configuration untouched")
+    got = _first_step_logits(params, plain_cfg, batch)
+    with _plain_prefill_kernels():
+        plain = _first_step_logits(params, plain_cfg, batch)
+    _logit_check("video file", got, plain, {
+        "the frames in reverse order": _first_step_logits(
+            params, plain_cfg, batch._replace(images=batch.images.flip(1))),
+        "the logits one position early": _first_step_logits(
+            params, plain_cfg, batch._replace(seq_len=batch.seq_len - 1))})
+    print(f"  video file: {int(batch.seq_len[0])} tokens (bucket "
+          f"{batch.text_ids.shape[1]})", flush=True)
+    del engine
+    return part
+
+
+def _mlp_pe_answer(params, cfg, root: str, info, dev) -> dict:
+    """Phase 16d's answer: phase 4's model with seeded ``world_pe_mlp``
+    leaves answers a ScanQA question under the MLP world PE (B1, the MLP
+    PE, B2, B3): exact launches, captured vs uncaptured ids; the first-step
+    logits' distance from the same model's under sin3d printed. The leaves
+    are removed again."""
+    import torch
+
+    from video3d_tpu_torch.config import PosEmbedType
+    from video3d_tpu_torch.ops.pos_embed import init_mlp_position_embedding
+
+    mcfg = dataclasses.replace(cfg, world_3d=dataclasses.replace(
+        cfg.world_3d, pos_embed=PosEmbedType.MLP))
+    params["world_pe_mlp"] = init_mlp_position_embedding(
+        cfg.llm.hidden_size, dev, torch.Generator(device=dev).manual_seed(16),
+        dtype=torch.bfloat16)
+    try:
+        engine = _make_engine(params, mcfg, root)
+        q = _questions(info["sample_idx"], SCANQA_TEXTS, "mlp")[0]
+
+        def prepare():
+            return (*engine._prepare_generation(q), mcfg)
+
+        part = _other_answer("MLP world PE answer", engine, params, mcfg,
+                             lambda: engine.generate_answer(q), prepare,
+                             fused_geometry=1,
+                             flash_attention=cfg.llm.num_hidden_layers)
+        batch, vf, _ = prepare()
+        d = float((_first_step_logits(params, mcfg, batch, vf)
+                   - _first_step_logits(params, cfg, batch)).abs().max())
+        print(f"  MLP world PE answer: first-step logits {d:.4f} from the "
+              f"same model's under sin3d", flush=True)
+        del engine
+    finally:
+        del params["world_pe_mlp"]
+    return part
+
+
+def _lora_other_inputs(params, cfg, root: str, mp4: str, dev) -> dict:
+    """Phase 16c: ``Trainer.train()`` with ``lora_r=LORA_R``,
+    ``lora_alpha=LORA_ALPHA`` over phase 4's frozen bf16 model (28 layers,
+    the world PE off) on LORA_IMAGES' two image records and one record of
+    the phase's mp4 (32 frames, the time instruction), each its own
+    mini-step at one per update: finite losses, the trainables bit for
+    bit after update 1 (learning rate 0), every B moved after update 2,
+    exact launches per mini-step. Returns the run's launches."""
+    import torch
+
+    from fixtures import FakeTokenizer
+
+    from video3d_tpu_torch.config import DataConfig, PosEmbedType
+    from video3d_tpu_torch.data.dataset import (Collator, CollatorConfig,
+                                                SupervisedDataset)
+    from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.train.optim import (OptimConfig, tree_leaves,
+                                               tree_leaves_with_path)
+    from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
+
+    plain = dataclasses.replace(cfg, world_3d=dataclasses.replace(
+        cfg.world_3d, pos_embed=PosEmbedType.NONE))
+    records = []
+    for i, (w, h) in enumerate(LORA_IMAGES):
+        _seeded_image(w, h, 20 + i).save(os.path.join(root, f"img{i}.png"))
+        records.append({"id": f"img{i}", "image": f"img{i}.png",
+                        "conversations": [
+                            {"from": "human",
+                             "value": f"<image>\n{OTHER_PROMPT}"},
+                            {"from": "gpt", "value": f"a brown chair {i}"}]})
+    records.append({"id": "clip", "video": mp4, "conversations": [
+        {"from": "human", "value": f"<image>\n{OTHER_PROMPT}"},
+        {"from": "gpt", "value": "a brown chair"}]})
+    ann = os.path.join(root, "other_inputs.json")
+    with open(ann, "w") as f:
+        json.dump(records, f)
+    ds = SupervisedDataset(ann, FakeTokenizer(), DataConfig(
+        video_folder=root, image_folder=root,
+        annotation_dir=os.path.join(root, "embodiedscan"),
+        metadata_dir=os.path.join(root, "metadata"),
+        frames_upbound=LORA_FRAMES, add_time_instruction=True),
+        image_processor=SigLipImageProcessor(
+            size=(cfg.vision.image_size,) * 2))
+    col = Collator(plain, CollatorConfig(max_len=LORA_LEN,
+                                         frames_upbound=LORA_FRAMES))
+    out_dir = os.path.join(root, "lora_other")
+    metrics_file = os.path.join(out_dir, "metrics.jsonl")
+    trainer = Trainer(plain, params, ds, col,
+                      OptimConfig(total_steps=len(records)),
+                      TrainingConfig(output_dir=out_dir, bf16=True,
+                                     master_f32=True, remat=True,
+                                     gradient_accumulation_steps=1,
+                                     group_by="none",
+                                     metrics_file=metrics_file,
+                                     lora_r=LORA_R, lora_alpha=LORA_ALPHA),
+                      device=dev)
+    paths = [p for p, _ in tree_leaves_with_path(trainer.state.params)]
+    initial = [t.detach().to("cpu", copy=True)
+               for t in tree_leaves(trainer.state.params)]
+    steps = []
+
+    def after_step(state):
+        leaves = tree_leaves(state.params)
+        if len(steps) == 1:              # update 1, at learning rate 0
+            same = all(torch.equal(a.cpu(), b)
+                       for a, b in zip(leaves, initial))
+            _check("LoRA other inputs: update 1 (learning rate 0): "
+                   "trainables", same, "bit for bit the initial tree")
+        if len(steps) == 2:
+            moved = [not torch.equal(a.cpu(), b) for p, a, b in zip(
+                paths, leaves, initial) if p.endswith("/B")]
+            _check("LoRA other inputs: update 2: every B moved",
+                   len(moved) == 7 * cfg.llm.num_hidden_layers
+                   and all(moved), f"{sum(moved)} of {len(moved)}")
+
+    _time_mini_steps(trainer, steps, after_step)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    state = trainer.train(resume=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    records_out = _read_jsonl(metrics_file)
+    kinds = [s["kind"] for s in steps]
+    _check("LoRA other inputs: mini-steps", state.step == len(records)
+           and len(records_out) == len(records) and kinds == ["lm"] * 3,
+           f"{len(records_out)} logged ({kinds}), step {state.step}")
+    for r in records_out:
+        _check(f"LoRA other inputs: mini-step {r['step']} loss and "
+               f"grad_norm", all(math.isfinite(r[k]) and r[k] > 0
+                                 for k in ("lm_loss", "grad_norm")),
+               f"lm_loss {r['lm_loss']:.6f}, grad_norm {r['grad_norm']:.6f}")
+    _check_step_launches("LoRA other inputs: ", steps,
+                         cfg.llm.num_hidden_layers)
+    print(f"  LoRA other inputs: per-mini-step seconds "
+          f"{[round(s['seconds'], 4) for s in steps]}; tokens "
+          f"{[s['tokens'] for s in steps]} (bucket {LORA_LEN}); wall for "
+          f"Trainer.train() {wall:.2f} s (data and the export included)",
+          flush=True)
+    del trainer, state, initial
+    return launches
+
+
+def _variant_steps(cfg, root: str, info, dev) -> dict:
+    """Phase 16d's mini-steps: ``cfg`` at TRAIN_LAYERS decoder layers, f32
+    master weights, for each of VARIANTS one V=VARIANT_FRAMES LM mini-step
+    (bf16 compute, remat) on phase 12's scene through the kernels, exact
+    launches, then with the plain attention swapped in (phase 7's bounds;
+    control: the plain attention without its causal mask and reading the
+    next kv head, which must miss each bound by 2x; either break alone is
+    printed beside it: on an H100 80GB HBM3 (700 W) the causal mask alone
+    moved the MLP variant's loss by 9.7e-5, the kv head alone the min-max
+    variant's by 3.6e-3 and the mrope variant's grad_norm by 3.5e-2);
+    the mrope batch's vision rows read back on the card with their three
+    axes apart. Returns the kernel runs' launches."""
+    import torch
+
+    from video3d_tpu_torch.config import PosEmbedType, World3DConfig
+    from video3d_tpu_torch.models import qwen2
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models.splice import KIND_VISION
+    from video3d_tpu_torch.params import init_model
+    from video3d_tpu_torch.train.trainer import to_batch
+
+    def variant(name):
+        return dataclasses.replace(
+            cfg, llm=dataclasses.replace(cfg.llm,
+                                         num_hidden_layers=TRAIN_LAYERS),
+            world_3d=World3DConfig.from_reference_string(name))
+
+    # one f32 init with the MLP PE's leaves; the other variants drop them
+    params = init_model(variant("avg-discrete-mlp"), dev,
+                        torch.Generator(device=dev).manual_seed(16),
+                        torch.float32)
+    launches = {}
+    bounds = (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL)
+    for name in VARIANTS:
+        vcfg = variant(name)
+        p = params if vcfg.world_3d.pos_embed == PosEmbedType.MLP else {
+            k: v for k, v in params.items() if k != "world_pe_mlp"}
+        ds, col = _train_data(root, info, vcfg, VARIANT_FRAMES, VARIANT_LEN,
+                              refer=False)
+        batch = to_batch(col([ds[0]]), dev)
+        if vcfg.world_3d.pos_embed == PosEmbedType.MROPE:
+            ids = batch.mrope_position_ids[batch.kind == KIND_VISION]
+            apart = bool(((ids[:, 0] != ids[:, 1])
+                          & (ids[:, 1] != ids[:, 2])).any())
+            _check(f"{name}: mrope ids of the vision rows on the card",
+                   apart and ids.dtype == torch.long
+                   and ids.device.type == "cuda",
+                   f"{ids.shape[0]} rows, the three axes apart: {apart}")
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        loss, gn, grads = _loss_and_grads(p, vcfg, batch)
+        torch.cuda.synchronize()
+        part = _launch_delta(before)
+        want = {"flash_attention_lse": 2 * TRAIN_LAYERS,
+                "flash_attention_bwd": TRAIN_LAYERS}
+        _check(f"{name}: launches of the mini-step",
+               {k: v for k, v in part.items() if v} == want,
+               f"{ {k: v for k, v in part.items() if v} }, expected {want}")
+        _add_launches(launches, part)
+        sq = sum(float((g.float() ** 2).sum()) for g in grads)
+        kernel = qwen2.mha_train
+        results = {}
+        try:
+            for ctl, kw in (("plain attention", {}),
+                            ("control", {"causal": False, "roll_kv": 1}),
+                            ("without the causal mask", {"causal": False}),
+                            ("reading the next kv head", {"roll_kv": 1})):
+                qwen2.mha_train = _plain_train_attention(**kw)
+                p_loss, p_gn, p_grads = _loss_and_grads(p, vcfg, batch)
+                diff = sum(float(((a.float() - b.float()) ** 2).sum())
+                           for a, b in zip(grads, p_grads))
+                results[ctl] = (abs(loss - p_loss) / abs(p_loss),
+                                abs(gn - p_gn) / p_gn, (diff / sq) ** 0.5)
+                del p_grads
+        finally:
+            qwen2.mha_train = kernel
+        del grads
+        got, ctl = results["plain attention"], results["control"]
+        mask, head = (results["without the causal mask"],
+                      results["reading the next kv head"])
+        _check(f"{name}: V={VARIANT_FRAMES} mini-step ({int(batch.seq_len[0])}"
+               f" tokens), kernels vs plain attention",
+               all(g <= b for g, b in zip(got, bounds)),
+               f"loss {loss:.6f} rel |d| {got[0]:.2e}, grad_norm {gn:.4f} "
+               f"rel |d| {got[1]:.2e}, gradients rel L2 {got[2]:.2e} "
+               f"(bounds {bounds})")
+        _check(f"{name}: control, plain attention without its causal mask "
+               f"reading the next kv head",
+               all(c >= 2 * b for c, b in zip(ctl, bounds)),
+               f"{ctl[0]:.2e}, {ctl[1]:.2e}, {ctl[2]:.2e} (each must be >= "
+               f"2x its bound); without the causal mask alone "
+               f"{mask[0]:.2e}, {mask[1]:.2e}, {mask[2]:.2e}; the next kv "
+               f"head alone {head[0]:.2e}, {head[1]:.2e}, {head[2]:.2e}")
+        torch.cuda.empty_cache()
+    del params
+    return launches
+
+
+def run_other_inputs(cfg, root: str, info, ground_info, dev) -> dict:
+    """Phase 16: the 2D-image and video-file modalities at full width and
+    depth on a bf16 model (phase 4's seed 16), the MLP world PE's ScanQA
+    answer on it, a LoRA run over it on image and video-file records,
+    then the variants' mini-steps at TRAIN_LAYERS layers; prints the
+    phase's seconds, peak and launches, and returns the launches."""
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {}
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(16),
+                        torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  {cfg.llm.num_hidden_layers}-layer bf16 model initialised in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    mp4 = os.path.join(root, "clip.mp4")
+    _write_mp4(mp4)
+    print("a 2D image through generate_answer_image (phase 16a):",
+          flush=True)
+    _add_launches(total, _image_answers(params, cfg, root))
+    print("a video file through generate_answer_video_file (phase 16b):",
+          flush=True)
+    _add_launches(total, _video_file_answer(params, cfg, root, mp4))
+    print("the MLP world PE (phase 16d):", flush=True)
+    _add_launches(total, _mlp_pe_answer(params, cfg, root, info, dev))
+    print(f"LoRA over the bf16 base, {cfg.llm.num_hidden_layers} layers, on "
+          f"images and a video file (phase 16c):", flush=True)
+    _add_launches(total, _lora_other_inputs(params, cfg, root, mp4, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"the coordinate-pooling and world-PE variants, {TRAIN_LAYERS} "
+          f"layers (phase 16d):", flush=True)
+    _add_launches(total, _variant_steps(cfg, root, ground_info, dev))
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  phase 16: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB, launches "
+          f"{ {k: v for k, v in total.items() if v} }", flush=True)
+    return total
+
+
 def _leaves(tree):
     from video3d_tpu_torch.models.quant import Int4Weight
 
@@ -5782,6 +6305,10 @@ def main() -> None:
         lora = run_lora_paths(cfg, train_cfg, root, info, ground_info, dev,
                               int8_b1_ms)
         print(f"  launches (phase 15): {lora}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("other inputs (phase 16):", flush=True)
+        other = run_other_inputs(cfg, root, info, ground_info, dev)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name in PROBE_KERNELS:
@@ -5797,7 +6324,7 @@ def main() -> None:
         else:
             launches = scanqa[name] + prefix[name] + serve[name] \
                 + ground[name] + decode.get(name, 0) + spec14.get(name, 0)
-        launches += lora.get(name, 0)
+        launches += lora.get(name, 0) + other.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

@@ -1352,3 +1352,150 @@ def test_grounding_object_cache_is_the_recomputed_features(dev, grounding):
     key = queries[0]["video"]
     assert torch.equal(first._ground_obj_cache[key][0],
                        second._ground_obj_cache[key][0])
+
+
+# ---- the 2D-image modality on the card: the batched anyres encoder and an
+# image-batch train mini-step through B2 with the lse and B6
+
+
+@pytest.fixture(scope="module")
+def image_batch(dev, tmp_path_factory):
+    """A 2-layer decoder of head_dim 128 over the tiny tower, f32 master
+    weights; two images of different anyres grids collated into one
+    static-shape batch on the card."""
+    import dataclasses
+    import json
+
+    from PIL import Image
+
+    from fixtures import FakeTokenizer
+
+    from video3d_tpu_torch.config import DataConfig, ModelConfig
+    from video3d_tpu_torch.data.dataset import (Collator, CollatorConfig,
+                                                SupervisedDataset)
+    from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
+    from video3d_tpu_torch.params import init_model
+    from video3d_tpu_torch.train.trainer import to_batch
+
+    tiny = ModelConfig.tiny()
+    pin = ((112, 56), (56, 112), (112, 112))
+    cfg = dataclasses.replace(
+        tiny, image_grid_pinpoints=pin, llm=dataclasses.replace(
+            tiny.llm, hidden_size=512, intermediate_size=1024,
+            num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+            mrope_section=(32, 16, 16)))
+    root = tmp_path_factory.mktemp("images")
+    rng = np.random.default_rng(0)
+    for i, (w, h) in enumerate([(300, 200), (120, 400)]):
+        Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            root / f"img{i}.png")
+    with open(root / "data.json", "w") as f:
+        json.dump([{"id": i, "image": f"img{i}.png",
+                    "conversations": [
+                        {"from": "human", "value": "<image>\nwhat is shown"},
+                        {"from": "gpt", "value": "a test pattern"}]}
+                   for i in range(2)], f)
+    ds = SupervisedDataset(str(root / "data.json"), FakeTokenizer(),
+                           DataConfig(image_folder=str(root),
+                                      image_grid_pinpoints=pin),
+                           image_processor=SigLipImageProcessor(
+                               size=(56, 56)))
+    arrays = Collator(cfg, CollatorConfig(max_len=256))([ds[0], ds[1]])
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.float32)
+    return cfg, params, arrays, to_batch(arrays, dev)
+
+
+def test_encode_image_2d_batch_on_the_card(dev, image_batch):
+    """The gather-plan encoder on the card against the same encoder on the
+    CPU in f32 (TF32 off), and each row against the per-image
+    arrangement on the card."""
+    from video3d_tpu_torch.models import anyres
+    from video3d_tpu_torch.params import from_jax_tree
+
+    cfg, params, arrays, batch = image_batch
+    with torch.no_grad():
+        got = anyres.encode_image_2d_batch(
+            params, cfg, batch.image_tiles, batch.vision_gather,
+            batch.vision_newline, batch.vision_valid)
+        host = from_jax_tree({k: _to_numpy(params[k]) for k in
+                              ("vision", "projector", "image_newline")},
+                             "cpu")
+        want = anyres.encode_image_2d_batch(
+            host, cfg, batch.image_tiles.cpu(), batch.vision_gather.cpu(),
+            batch.vision_newline.cpu(), batch.vision_valid.cpu())
+        assert got.shape == want.shape and got.device.type == "cuda"
+        assert _rel(got.cpu(), want) <= 1e-4
+        for row, size in enumerate([(300, 200), (120, 400)]):
+            n = int((arrays["image_tiles"][row] != 0).any(
+                axis=(1, 2, 3)).sum())
+            one = anyres.encode_image_2d(params, cfg,
+                                         batch.image_tiles[row, :n], size,
+                                         cfg.image_grid_pinpoints)
+            assert _rel(got[row, :one.shape[0]], one) <= 1e-4
+            assert not got[row, one.shape[0]:].any()
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()
+
+
+class _PlainTrainAttention(torch.autograd.Function):
+    """``mha_train`` by the plain versions of B2 with the lse and of B6 in
+    f32 on the kernels' bf16 inputs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, lengths):
+        out, lse = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                v.float(), lengths)
+        ctx.save_for_backward(q, k, v, out, lse, lengths)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, lengths = ctx.saved_tensors
+        grads = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                             out, lse, do.float(), lengths)
+        return (*(g.to(t.dtype) for g, t in zip(grads, (q, k, v))), None)
+
+
+def test_image_train_step_through_the_kernels(dev, image_batch, monkeypatch):
+    """One image-batch mini-step (bf16 compute over the f32 masters, remat)
+    through B2 with the lse (2 x layers) and B6 (layers): its loss and
+    gradient norm against the same mini-step with the plain attention
+    swapped in, within phase 7's bounds of chip_smoke.py."""
+    from video3d_tpu_torch.models import qwen2
+    from video3d_tpu_torch.train.optim import global_norm, tree_leaves
+    from video3d_tpu_torch.train.train_step import loss_fn
+
+    cfg, params, _, batch = image_batch
+    leaves = tree_leaves(params)
+
+    def step():
+        for t in leaves:
+            t.requires_grad_(True)
+        try:
+            loss, _ = loss_fn(params, cfg, batch, remat=True,
+                              compute_dtype=torch.bfloat16)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for t in leaves:
+                t.requires_grad_(False)
+        return float(loss.detach()), float(global_norm(
+            [g for g in grads if g is not None]))
+
+    before = dict(_build.LAUNCHES)
+    loss, gn = step()
+    torch.cuda.synchronize()
+    L = cfg.llm.num_hidden_layers
+    ran = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+           if v != before[k]}
+    assert ran == {"flash_attention_lse": 2 * L, "flash_attention_bwd": L}
+    monkeypatch.setattr(qwen2, "mha_train", _PlainTrainAttention.apply)
+    p_loss, p_gn = step()
+    assert np.isfinite(loss) and abs(loss - p_loss) <= 2e-3 * abs(p_loss)
+    assert abs(gn - p_gn) <= 2e-2 * p_gn

@@ -34,7 +34,10 @@ def test_port_modules_are_listed():
                  "video3d_tpu_torch.bench.grounding",
                  "video3d_tpu_torch.eval.protocols",
                  "video3d_tpu_torch.eval.metrics.meteor15",
-                 "video3d_tpu_torch.ops.box"):
+                 "video3d_tpu_torch.ops.box",
+                 "video3d_tpu_torch.data.anyres",
+                 "video3d_tpu_torch.data.video_file",
+                 "video3d_tpu_torch.models.anyres"):
         assert name in mods
 
 

@@ -80,6 +80,22 @@ def test_from_jax_params_bf16_and_int8_leaves():
     _assert_same_tree(qtree, _used(qhost))
 
 
+def test_from_jax_params_carries_world_pe_mlp():
+    """A bf16 tree of an MLP world-PE model: its ``world_pe_mlp`` leaves
+    carry across bit for bit beside the rest."""
+    from video3d_tpu.config import PosEmbedType, replace
+
+    cfg = replace(CFG, world_3d=replace(CFG.world_3d,
+                                        pos_embed=PosEmbedType.MLP))
+    host = jax.tree.map(np.asarray, jlv.init_model(
+        jax.random.PRNGKey(0), cfg, dtype=jnp.bfloat16))
+    tree = from_jax_params(host, port_config(cfg), device="cpu")
+    assert set(tree["world_pe_mlp"]) == {"w1", "b1", "ln_scale", "ln_bias",
+                                         "w2", "b2"}
+    _assert_same_tree(tree, dict(_used(host),
+                                 world_pe_mlp=host["world_pe_mlp"]))
+
+
 def test_from_jax_params_rejects_unported_weight_forms():
     """w8a8 weights raise naming their ROADMAP item; int4 weights convert
     into the port's Int4Weight."""

@@ -86,11 +86,17 @@ def test_collator_arrays_match_jax(data):
 def test_collator_raises_on_inputs_it_does_not_run(data):
     _, _, tset, _, tcol = data
     # a grounding sample collates (tests/test_torch_ground_train.py holds
-    # its arrays against JAX's); 2D images still raise
+    # its arrays against JAX's), and so does a batch of 2D images
+    # (tests/test_torch_image_training.py); a batch mixing images and
+    # videos raises, as the JAX collator's assertion does
     grounded = tcol([dict(tset[0], box_label=[1])])
     assert grounded["box_label_hot"][0, 1] == 1.0
-    with pytest.raises(NotImplementedError, match="A11"):
-        tcol([dict(tset[0], image_tiles=np.zeros((1, 3, 56, 56)))])
+    image = {k: tset[0][k] for k in ("input_ids", "labels")}
+    image["image_tiles"] = np.zeros((1, 3, 56, 56), np.float32)
+    # one view: its 4x4 patches and, under spatial_unpad, one newline
+    assert tcol([image])["vision_valid"].sum() == 17
+    with pytest.raises(ValueError, match="mixed image/video"):
+        tcol([tset[0], image])
 
 
 def test_depth_png_is_the_jax_packages(data):

@@ -10,13 +10,11 @@ dynamic padding (train_3d.py:1315-1366) with the static splice plan of
 text to a fixed bucket so the jitted step never recompiles.
 
 The port's own copy of ``video3d_tpu/data/dataset.py``: ``load_data_mix``,
-``SupervisedDataset`` and the collator's video path as there, with the
-patch coordinates pooled by the port's torch ``average_coordinate_in_patch``
-on the CPU. Not ported, and raising ``NotImplementedError`` with their
-ROADMAP item when their inputs appear: real video files and 2D-image
-samples and batches (A11), the min-max and sampled coordinate poolings
-(A1), mrope position ids (A2). Grounding batches carry the JAX collator's
-extras (objects, box labels, ground slots).
+``SupervisedDataset`` (3D scenes, real video files, 2D images) and the
+collator's video and image paths as there, with the patch coordinates
+pooled (means, min-max pairs or sampled points) by the port's torch
+geometry on the CPU. Grounding batches carry the JAX collator's extras
+(objects, box labels, ground slots).
 """
 
 from __future__ import annotations
@@ -151,12 +149,31 @@ class SupervisedDataset:
 
         if "video" in rec and str(rec["video"]).lower().endswith(
                 (".mp4", ".avi", ".mov", ".mkv", ".webm")):
-            raise NotImplementedError("real video files (data/video_file.py) "
-                                      "are not ported (ROADMAP A11)")
-        if "image" in rec and "video" not in rec:
-            raise NotImplementedError("2D-image samples (data/anyres.py) are "
-                                      "not ported (ROADMAP A11)")
-        if "video" in rec:
+            # a real video file: the legacy LLaVA-Video modality
+            # (train.py:1194). No world coordinates exist: they are zeros,
+            # and the model should run with the world PE 'none'.
+            from video3d_tpu_torch.data.video_file import (load_video_file,
+                                                           time_instruction)
+
+            path = rec["video"]
+            if self.cfg.video_folder and not os.path.isabs(path):
+                path = os.path.join(self.cfg.video_folder, path)
+            frames, vtime, ftime, n = load_video_file(
+                path, self.cfg.video_fps, self.cfg.frames_upbound,
+                force_sample=True)
+            images = self.image_processor.preprocess(list(frames))
+            S = images.shape[-1]
+            out["images"] = np.asarray(images, np.float32)
+            out["world_coords"] = np.zeros((len(images), S, S, 3), np.float32)
+            out["objects"] = np.zeros((0, 6), np.float32)
+            out["video_size"] = len(images)
+            if self.cfg.add_time_instruction:
+                first = conversations[0]["value"].replace(
+                    DEFAULT_IMAGE_TOKEN, "")
+                conversations[0]["value"] = (
+                    f"{DEFAULT_IMAGE_TOKEN}\n"
+                    f"{time_instruction(vtime, n, ftime)}\n{first}")
+        elif "video" in rec:
             video_dict = self.video_processor.process_3d_video(
                 rec["video"], self.image_processor,
                 force_sample=True, frames_upbound=self.cfg.frames_upbound)
@@ -172,6 +189,25 @@ class SupervisedDataset:
                 first = conversations[0]["value"].replace(DEFAULT_IMAGE_TOKEN, "")
                 conversations[0]["value"] = (
                     f"{DEFAULT_IMAGE_TOKEN}\n{SPATIAL_INSTRUCTION}\n{first}")
+
+        elif "image" in rec:
+            # a 2D image (train_3d.py:1130-1171): tiled by the configured
+            # aspect mode
+            from PIL import Image
+
+            from video3d_tpu_torch.data.anyres import process_images_2d
+
+            path = rec["image"]
+            if self.cfg.image_folder:
+                path = os.path.join(self.cfg.image_folder, path)
+            img = Image.open(path).convert("RGB")
+            tiles = np.asarray(process_images_2d(
+                [img], self.image_processor, self.cfg.image_aspect_ratio,
+                self.cfg.image_grid_pinpoints)[0], np.float32)
+            if tiles.ndim == 3:            # plain / pad single-view modes
+                tiles = tiles[None]
+            out["image_tiles"] = tiles
+            out["image_size"] = img.size
 
         tok = preprocess_qwen([conversations], self.tokenizer,
                               has_image="video" in rec or "image" in rec)
@@ -226,8 +262,11 @@ class Collator:
         mc = self.model_cfg
         B = len(samples)
         if any("image_tiles" in s for s in samples):
-            raise NotImplementedError("2D-image batches (anyres gather plans) "
-                                      "are not ported (ROADMAP A11)")
+            if not all("image_tiles" in s for s in samples):
+                raise ValueError("mixed image/video batches are not "
+                                 "supported: use group_by=modality_length "
+                                 "(llava_trainer.py:122-173)")
+            return self._collate_images(samples)
         V = self.cfg.frames_upbound
         S = mc.vision.image_size
         g = -(-mc.vision.num_patches_per_side // mc.spatial_pool_stride)
@@ -252,15 +291,18 @@ class Collator:
         flat = torch.from_numpy(coords.reshape(B * V, S, S, 3))
         ps = S // g
         pooling = mc.world_3d.pooling
-        if pooling != CoordPooling.AVG:
-            raise NotImplementedError(f"{pooling.value} coordinate pooling is "
-                                      f"not ported (ROADMAP A1)")
-        if mc.world_3d.pos_embed == PosEmbedType.MROPE:
-            raise NotImplementedError("mrope world positions are not ported "
-                                      "(ROADMAP A2)")
-        pooled = geometry.average_coordinate_in_patch(flat, patch_size=ps)
-        patch_coords = pooled.numpy().reshape(B, V, g, g, 3)
-        if mc.world_3d.discrete:
+        if pooling == CoordPooling.AVG:
+            pooled = geometry.average_coordinate_in_patch(flat, patch_size=ps)
+        elif pooling == CoordPooling.MINMAX:
+            pooled = geometry.minmax_coordinate_in_patch(flat, patch_size=ps)
+        else:
+            pooled = geometry.sample_n_points(flat, pooling.n_points,
+                                              patch_size=ps)
+        n_pts = pooling.n_points
+        tail = (g, g, n_pts, 3) if n_pts > 1 else (g, g, 3)
+        patch_coords = pooled.numpy().reshape(B, V, *tail)
+        mrope = mc.world_3d.pos_embed == PosEmbedType.MROPE
+        if mc.world_3d.discrete or mrope:
             patch_coords = np.clip(patch_coords, vox.min_xyz_range, vox.max_xyz_range)
             patch_coords = np.round(
                 (patch_coords - np.asarray(vox.min_xyz_range, np.float32)) / vox.voxel_size)
@@ -268,11 +310,14 @@ class Collator:
             box_inputs = np.round(
                 (box_inputs - np.asarray(vox.min_xyz_range, np.float32)) / vox.voxel_size)
 
+        if mrope and n_pts != 1:
+            raise ValueError("mrope requires a single coord per patch")
         plan = build_splice_plan(
             [s["input_ids"] for s in samples],
             [s["labels"] for s in samples],
             num_frames, tokens_per_frame=T, max_len=self.cfg.max_len,
             grid_side=g, coord_token_id=self.cfg.coord_token_id,
+            mrope_coords=list(patch_coords) if mrope else None,
             truncate_to=mc.tokenizer_model_max_length)
 
         out = {
@@ -290,6 +335,65 @@ class Collator:
         }
 
         return self._collate_grounding(samples, out, coords, plan)
+
+    def _collate_images(self, samples: Sequence[Dict[str, Any]]
+                        ) -> Dict[str, Any]:
+        """A 2D-image batch: per-sample anyres gather plans padded to the
+        batch's longest (static shapes), and per-sample splice plans of one
+        "frame" of that sample's vision tokens, stacked. Image batches
+        carry no grounding extras."""
+        from video3d_tpu_torch.models.anyres import build_anyres_gather_plan
+
+        mc = self.model_cfg
+        B = len(samples)
+        S = mc.vision.image_size
+        hw = mc.vision.num_patches_per_side
+        merge = mc.mm_patch_merge_type
+        plans = []
+        for s in samples:
+            if s["image_tiles"].shape[0] == 1:
+                # single view (plain / pad): the base features, + a newline
+                # when the merge unpads (llava_arch.py:631-634)
+                g = np.arange(hw * hw, dtype=np.int32)
+                m = np.zeros((hw * hw,), bool)
+                if "unpad" in merge:
+                    g = np.concatenate([g, np.zeros((1,), np.int32)])
+                    m = np.concatenate([m, np.ones((1,), bool)])
+                plans.append((g, m))
+            else:
+                plans.append(build_anyres_gather_plan(
+                    s["image_size"], mc.image_grid_pinpoints, S, hw,
+                    image_aspect_ratio=mc.image_aspect_ratio,
+                    patch_merge_type=merge))
+        maxT = max(s["image_tiles"].shape[0] for s in samples)
+        Tv = max(p[0].shape[0] for p in plans)
+        tiles = np.zeros((B, maxT, 3, S, S), np.float32)
+        gather = np.zeros((B, Tv), np.int32)
+        nl_mask = np.zeros((B, Tv), bool)
+        valid = np.zeros((B, Tv), bool)
+        rows = []
+        for b, (s, (g, m)) in enumerate(zip(samples, plans)):
+            tiles[b, :s["image_tiles"].shape[0]] = s["image_tiles"]
+            gather[b, :len(g)] = g
+            nl_mask[b, :len(m)] = m
+            valid[b, :len(g)] = True
+            rows.append(build_splice_plan(
+                [s["input_ids"]], [s["labels"]], [1],
+                tokens_per_frame=len(g), max_len=self.cfg.max_len,
+                grid_side=hw, truncate_to=mc.tokenizer_model_max_length))
+
+        def stack(attr):
+            return np.concatenate([getattr(r, attr) for r in rows], axis=0)
+
+        return {
+            "images": None, "patch_coords": None,
+            "image_tiles": tiles, "vision_gather": gather,
+            "vision_newline": nl_mask, "vision_valid": valid,
+            **{k: stack(k) for k in (
+                "text_ids", "kind", "vision_index", "labels",
+                "position_ids", "mrope_position_ids", "seq_len",
+                "coord_mask")},
+        }
 
     def _collate_grounding(self, samples, out, coords, plan):
         """Grounding extras (ScanRefer / Multi3DRefer; JAX

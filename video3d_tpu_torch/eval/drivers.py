@@ -30,6 +30,12 @@ shares its frames and its spliced prefix):
   of each scene's object features beside its prefix entry, so a hit
   prefills only the query suffix (``ground_suffix``).
 
+Two entry points outside the 3D scenes (JAX's legacy modalities): a real
+video file (``generate_answer_video_file``: frames sampled with the decord
+contract, no world PE) and a 2D image (``generate_answer_image``: the
+``pad``, ``anyres``, ``highres`` and ``crop_split`` tilings with the
+``flat``, ``spatial`` and ``spatial_unpad`` merges).
+
 Host code (tokenization, frame IO, image preprocessing, splice planning) is
 the port's own copy of the JAX package's (``video3d_tpu_torch/data``,
 ``models/splice.py``): the port imports nothing of ``video3d_tpu``.
@@ -37,6 +43,7 @@ the port's own copy of the JAX package's (``video3d_tpu_torch/data``,
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -49,7 +56,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from video3d_tpu_torch.config import ModelConfig
+from video3d_tpu_torch.config import ModelConfig, PosEmbedType
 from video3d_tpu_torch.constants import DEFAULT_IMAGE_TOKEN, IMAGE_TOKEN_INDEX
 from video3d_tpu_torch.data.image_processor import SigLipImageProcessor
 from video3d_tpu_torch.data.tokenization import (preprocess_qwen,
@@ -248,9 +255,22 @@ class InferenceEngine:
             np.ascontiguousarray(raw["images"][:V], np.float32))[None]
         return V, images.to(dev), patch[None]
 
+    def _check_pooling(self) -> None:
+        """The engine pools patch coordinates to one point per patch (B1's
+        means, or the host route's means). A pooling of n > 1 points
+        (MINMAX, SAMPLE9, SAMPLE5) cannot answer: JAX's engine takes its
+        host route there, which pools means too, and fails reshaping them
+        for the n-point PE. The port refuses it before any work."""
+        pooling = self.cfg.world_3d.pooling
+        if pooling.n_points != 1:
+            raise ValueError(
+                f"{pooling.value} coordinate pooling ({pooling.n_points} "
+                f"points per patch) cannot be answered by the engine, whose "
+                f"patch coordinates are one point per patch (the JAX engine "
+                f"fails on it too)")
+
     def _video_arrays(self, video_id: str):
-        if self.cfg.world_3d.pooling.n_points != 1:
-            raise NotImplementedError("only avg coordinate pooling is ported")
+        self._check_pooling()
         return self._video_arrays_device(video_id)
 
     def _video_arrays_full(self, video_id: str):
@@ -262,6 +282,7 @@ class InferenceEngine:
         frames and coordinates are zero-padded to ``max_frames``: the tower
         runs on the pad frames too, and their patches (coordinates 0) count
         towards the objects whose boxes hold the origin."""
+        self._check_pooling()
         mc = self.cfg
         S = mc.vision.image_size
         Vmax = self.ecfg.max_frames
@@ -353,6 +374,7 @@ class InferenceEngine:
                 self._discretize_box(np.asarray(b, np.float32))
                 if b is not None else np.zeros((3,), np.float32)
                 for b in box_inputs]).astype(np.float32)
+        mrope = self.cfg.world_3d.pos_embed == PosEmbedType.MROPE
         return lv3d.Batch(
             images=None if images is None else images.to(self.dtype),
             patch_coords=patch, text_ids=t(plan.text_ids), kind=t(plan.kind),
@@ -361,7 +383,11 @@ class InferenceEngine:
             # the <coord> mask matters only beside a box: no copy without
             coord_mask=None if boxes is None
             else t(plan.coord_mask, torch.bool),
-            box_input=None if boxes is None else t(boxes, torch.float32))
+            box_input=None if boxes is None else t(boxes, torch.float32),
+            # as in the JAX engine, the plan's mrope ids carry no voxel
+            # ids (its plans get no coordinates): text positions
+            mrope_position_ids=t(plan.mrope_position_ids) if mrope
+            else None)
 
     def _build_batch(self, ids, V: int, images, patch, box_input=None,
                      coord_token_id=None) -> lv3d.Batch:
@@ -425,15 +451,21 @@ class InferenceEngine:
             return self.draft_params, self.draft_cfg
         return self._self_draft()
 
-    def _generate(self, batch, vision_features=None) -> GenerateResult:
+    def _generate(self, batch, vision_features=None,
+                  cfg: Optional[ModelConfig] = None) -> GenerateResult:
         """Speculative, beam search, or greedy / sampled decode from a full
         prefill (JAX ``_generate_impl``); beams take precedence over
-        speculation."""
+        speculation. ``cfg`` overrides the model configuration for this
+        call only (the plain-video path switches the world PE off); it is
+        passed down, never stored on the engine, which other threads read,
+        and it keeps the engine's decoder (the drafts and the captured
+        decode chunks depend only on that)."""
         ecfg = self.ecfg
+        cfg = self.cfg if cfg is None else cfg
         if self._speculative() and ecfg.num_beams == 1:
             dp, dc = self._draft()
             res = spec.generate_speculative(
-                self.params, dp, self.cfg, dc, batch,
+                self.params, dp, cfg, dc, batch,
                 num_draft_tokens=ecfg.speculative_k,
                 max_new_tokens=ecfg.max_new_tokens,
                 eos_token_id=ecfg.eos_token_id, cache_dtype=self.cache_dtype,
@@ -443,7 +475,7 @@ class InferenceEngine:
             self._check_spec_acceptance()
             return GenerateResult(tokens=res.tokens, lengths=res.lengths)
         if ecfg.num_beams > 1:
-            return generate_beam(self.params, self.cfg, batch,
+            return generate_beam(self.params, cfg, batch,
                                  num_beams=ecfg.num_beams,
                                  max_new_tokens=ecfg.max_new_tokens,
                                  eos_token_id=ecfg.eos_token_id,
@@ -451,7 +483,7 @@ class InferenceEngine:
                                  length_penalty=ecfg.length_penalty,
                                  early_stopping=ecfg.early_stopping,
                                  vision_features=vision_features)
-        return generate_greedy(self.params, self.cfg, batch,
+        return generate_greedy(self.params, cfg, batch,
                                max_new_tokens=ecfg.max_new_tokens,
                                eos_token_id=ecfg.eos_token_id,
                                vision_features=vision_features,
@@ -769,6 +801,130 @@ class InferenceEngine:
                 record, box_input, coord_token_id))
         return self._texts(self._generate(*self._prepare_generation(
             record, box_input, coord_token_id)))[0]
+
+    # ------------- real video files and 2D images -------------
+
+    def _chat_ids(self, text: str):
+        """Eval-style ids of one human turn (``<image>`` prepended when
+        absent) with an empty assistant turn."""
+        if DEFAULT_IMAGE_TOKEN not in text:
+            text = f"{DEFAULT_IMAGE_TOKEN}\n{text}"
+        return preprocess_qwen_eval([{"from": "human", "value": text},
+                                     {"from": "gpt", "value": None}],
+                                    self.tokenizer)
+
+    def prepare_video_file(self, prompt: str, video_path: str,
+                           video_fps: int = 1,
+                           add_time_instruction: bool = False):
+        """Host half of :meth:`generate_answer_video_file`: (batch, the
+        per-call configuration with the world PE off)."""
+        from video3d_tpu_torch.data.video_file import (load_video_file,
+                                                       time_instruction)
+
+        frames, vtime, ftime, n = load_video_file(
+            video_path, video_fps, self.ecfg.max_frames, force_sample=True)
+        text = prompt if DEFAULT_IMAGE_TOKEN in prompt \
+            else f"{DEFAULT_IMAGE_TOKEN}\n{prompt}"
+        if add_time_instruction:
+            ti = time_instruction(vtime, n, ftime)
+            text = (f"{DEFAULT_IMAGE_TOKEN}\n{ti}\n"
+                    f"{text.replace(DEFAULT_IMAGE_TOKEN, '')}")
+        V = min(n, self.ecfg.max_frames)
+        images = torch.from_numpy(self.ip.preprocess(list(frames[:V])))
+        batch = self._build_batch(self._chat_ids(text), V,
+                                  images[None].to(self.device), None)
+        plain = dataclasses.replace(self.cfg, world_3d=dataclasses.replace(
+            self.cfg.world_3d, pos_embed=PosEmbedType.NONE))
+        return batch, plain
+
+    def generate_answer_video_file(self, prompt: str, video_path: str,
+                                   video_fps: int = 1,
+                                   add_time_instruction: bool = False
+                                   ) -> str:
+        """The legacy LLaVA-Video modality: a real video file (mp4, avi,
+        ...), frames sampled with the decord contract (llava/utils.py:25-46
+        via ``data/video_file.py``), encoded without the 3D world PE (the
+        reference's plain-video path has no world coordinates,
+        llava_arch.py:381-429). ``add_time_instruction`` prepends the
+        duration and timestamps prompt of train_3d.py:1258-1260."""
+        batch, plain = self.prepare_video_file(prompt, video_path, video_fps,
+                                               add_time_instruction)
+        return self._texts(self._generate(batch, cfg=plain))[0]
+
+    def prepare_image(self, prompt: str, image,
+                      image_aspect_ratio: Optional[str] = None,
+                      grid_pinpoints=None,
+                      patch_merge_type: Optional[str] = None,
+                      crop_resolution: int = 768,
+                      split_resolution: int = 384):
+        """Host half and vision encode of :meth:`generate_answer_image`:
+        (batch, the (1, T, D) spliceable image block)."""
+        from PIL import Image
+
+        from video3d_tpu_torch.data.anyres import (
+            expand2square, process_anyres_image, process_highres_image,
+            process_highres_image_crop_split)
+        from video3d_tpu_torch.models.anyres import (encode_image_2d,
+                                                     encode_tiles)
+
+        aspect = image_aspect_ratio or self.cfg.image_aspect_ratio
+        pin = grid_pinpoints if grid_pinpoints is not None \
+            else self.cfg.image_grid_pinpoints
+        merge = patch_merge_type or self.cfg.mm_patch_merge_type
+        if not isinstance(image, Image.Image):
+            image = Image.fromarray(np.asarray(image).astype(np.uint8))
+        ids = self._chat_ids(prompt)
+        if aspect == "pad":
+            # one expand2square view, its full unpooled feature grid
+            # (mm_utils.py:329-333, no tiling)
+            bg = tuple(int(x * 255) for x in self.ip.image_mean)
+            tiles = self.ip.preprocess([expand2square(image.convert("RGB"),
+                                                      bg)])
+        elif aspect == "highres":
+            tiles = process_highres_image(image, self.ip, pin)
+        elif aspect == "crop_split":
+            tiles = process_highres_image_crop_split(
+                image, self.ip, crop_resolution, split_resolution)
+        else:
+            tiles = process_anyres_image(image, self.ip, pin)
+        tiles = torch.from_numpy(np.asarray(tiles, np.float32)).to(
+            self.device)
+        with torch.inference_mode():
+            if aspect == "pad":
+                feat = encode_tiles(self.params, self.cfg, tiles)[0]
+            else:
+                feat = encode_image_2d(self.params, self.cfg, tiles,
+                                       image.size, pin,
+                                       image_aspect_ratio=aspect,
+                                       patch_merge_type=merge)
+        T = int(feat.shape[0])
+        L = pick_bucket(len(ids) + T + self.ecfg.max_new_tokens,
+                        self.ecfg.buckets)
+        plan = build_splice_plan([ids], None, [1], tokens_per_frame=T,
+                                 max_len=L, grid_side=1,
+                                 truncate_to=self.cfg.tokenizer_model_max_length)
+        return self._batch_from_plan(plan), feat[None]
+
+    def generate_answer_image(self, prompt: str, image,
+                              image_aspect_ratio: Optional[str] = None,
+                              grid_pinpoints=None,
+                              patch_merge_type: Optional[str] = None,
+                              crop_resolution: int = 768,
+                              split_resolution: int = 384) -> str:
+        """2D-image question answering through the tiling paths (the
+        reference's image branch, llava_arch.py:518-634, and the aspect
+        dispatch of mm_utils.py:303-338): tile the image (``pad``,
+        ``anyres``, ``anyres_max_N``, ``highres``, ``crop_split``), encode
+        each tile, arrange (``flat``, ``spatial``, ``spatial_unpad``, with
+        or without ``nobase``), splice and decode. ``prompt``: the user
+        text, an ``<image>`` placeholder marking the insertion point
+        (prepended when absent); ``image``: a PIL image or an array PIL can
+        read; ``crop_resolution`` and ``split_resolution``: the
+        ``crop_split`` knobs (train_3d.py:135-136)."""
+        batch, feat = self.prepare_image(
+            prompt, image, image_aspect_ratio, grid_pinpoints,
+            patch_merge_type, crop_resolution, split_resolution)
+        return self._texts(self._generate(batch, vision_features=feat))[0]
 
     # ------------- batched generation -------------
 

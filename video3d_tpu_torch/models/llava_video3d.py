@@ -1,18 +1,21 @@
-"""Video-3D-LLM assembly in PyTorch: vision tower -> projector -> bilinear
-2D pool -> sin3d world position embedding -> grid-newline layout -> splice
--> Qwen2. Counterpart of ``video3d_tpu/models/llava_video3d.py`` (the parts
-the answer, grounding and LM training paths run: mlpNx_gelu projector,
-bilinear pool, sin3d PE, GRID newlines, the ``<coord>`` box-input PE, the
-video branch of ``forward_hidden``, ``forward``, the LM losses, plain and
-chunked, the grounding forwards: object patch masks, masked-mean object
-features with their box-center PE, and the three ground heads, and the
-grounding losses, InfoNCE and the weighted BCE).
+"""Video-3D-LLM assembly in PyTorch: vision tower -> projector -> 2D pool
+-> world position embedding -> grid-newline layout -> splice -> Qwen2.
+Counterpart of ``video3d_tpu/models/llava_video3d.py`` (the parts the
+answer, grounding and training paths run: mlpNx_gelu projector, the
+bilinear / average / max pools, the sin3d (one or n points per patch) and
+MLP world PEs or mrope position ids, GRID newlines, the ``<coord>``
+box-input PE, the video and 2D-image branches of ``forward_hidden``,
+``forward``, the LM losses, plain and chunked, the grounding forwards:
+object patch masks, masked-mean object features with their box-center PE,
+and the three ground heads, and the grounding losses, InfoNCE and the
+weighted BCE).
 
 Parameter dict: ``vision`` (siglip), ``projector {w1, b1, ..., wN, bN}``,
 ``image_newline (D,)``, ``llm`` (qwen2), and where the configuration has
-one, ``ground_head`` (``{obj, query, zero_target}`` for INFONCE,
+them, ``ground_head`` (``{obj, query, zero_target}`` for INFONCE,
 ``{query}`` for MLP, ``{obj, query, score}`` for SCORE; each MLP
-``{w1, b1, ln_scale, ln_bias, w2, b2}``).
+``{w1, b1, ln_scale, ln_bias, w2, b2}``) and ``world_pe_mlp`` (the MLP
+world PE, ``{w1, b1, ln_scale, ln_bias, w2, b2}``).
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from video3d_tpu_torch.config import (GroundHeadType, ModelConfig,
-                                      NewlinePosition, ObjectFeatureType,
-                                      PosEmbedType)
+from video3d_tpu_torch.config import (CoordPooling, GroundHeadType,
+                                      ModelConfig, NewlinePosition,
+                                      ObjectFeatureType, PosEmbedType)
 from video3d_tpu_torch.constants import IGNORE_INDEX
 from video3d_tpu_torch.models import qwen2, siglip
 from video3d_tpu_torch.models.splice import KIND_PAD, KIND_VISION
 from video3d_tpu_torch.ops import geometry
-from video3d_tpu_torch.ops.pos_embed import sin3d_position_embedding
+from video3d_tpu_torch.ops.pos_embed import (mlp_position_embedding,
+                                             sin3d_position_embedding)
 
 Params = Dict[str, Any]
 
@@ -67,6 +71,53 @@ def init_projector(in_dim: int, out_dim: int, device,
     return p
 
 
+#: the world PEs added to the vision features (mrope moves positions
+#: instead; NONE adds nothing)
+ADDITIVE_PE = (PosEmbedType.SIN3D, PosEmbedType.MLP)
+
+
+def pool_and_discretize_coords(world_coords: torch.Tensor,
+                               cfg: ModelConfig) -> torch.Tensor:
+    """(B, V, H, W, 3) pixel coordinates -> (B, V, g, g, 3) per-patch
+    coordinates, AVG (patch means) or SAMPLE1 (the patch's centre pixel),
+    voxel-discretized when the configuration is discrete
+    (llava_arch.py:395-420)."""
+    B, V = world_coords.shape[:2]
+    g = _pooled_side(cfg)
+    ps = cfg.vision.image_size // g
+    flat = world_coords.reshape(B * V, *world_coords.shape[2:])
+    pooling = cfg.world_3d.pooling
+    if pooling == CoordPooling.AVG:
+        wc = geometry.average_coordinate_in_patch(flat, ps)
+    elif pooling == CoordPooling.SAMPLE1:
+        wc = geometry.sample_n_points(flat, 1, ps)
+    else:
+        raise ValueError(f"{pooling.value} pooling has no single-point "
+                         f"device route")
+    wc = wc.reshape(B, V, *wc.shape[1:])
+    if cfg.world_3d.discrete:
+        vox = cfg.world_3d.voxel
+        wc = geometry.discrete_coords(wc, vox.min_xyz_range,
+                                      vox.max_xyz_range, vox.voxel_size)
+    return wc
+
+
+def world_position_embedding(params: Params, coords: torch.Tensor,
+                             cfg: ModelConfig,
+                             n_points: int = 1) -> torch.Tensor:
+    """The configuration's additive world PE of (B, N, 3) coordinates, or
+    (B, N, n_points, 3): sin3d (f32) or the MLP (the ``world_pe_mlp``
+    leaves' dtype); llava_arch.py:48-65."""
+    w3d = cfg.world_3d
+    if w3d.pos_embed == PosEmbedType.SIN3D:
+        return sin3d_position_embedding(coords, cfg.llm.hidden_size,
+                                        w3d.pe_temperature, n_points)
+    if w3d.pos_embed == PosEmbedType.MLP:
+        return mlp_position_embedding(params["world_pe_mlp"], coords,
+                                      n_points)
+    raise ValueError(w3d.pos_embed)
+
+
 class VisionTokens(NamedTuple):
     spliceable: torch.Tensor   # (B, V*tokens_per_frame, D) grid+newline layout
     pooled: torch.Tensor       # (B, V, g*g, D) pooled projected features (+PE)
@@ -99,17 +150,23 @@ def finish_video_tokens(params: Params, cfg: ModelConfig,
                         pooled: torch.Tensor, raw: torch.Tensor,
                         patch_coords: Optional[torch.Tensor] = None
                         ) -> VisionTokens:
-    """sin3d world PE (from (B, V, g, g, 3) voxel coords) + GRID newlines."""
+    """The additive world PE (sin3d or MLP, from (B, V, g, g, 3) voxel
+    coords, or (B, V, g, g, n, 3) with n points per patch) + GRID
+    newlines."""
     B, V = pooled.shape[:2]
     g = _pooled_side(cfg)
     D = pooled.shape[-1]
-    if patch_coords is not None and cfg.world_3d.pos_embed != PosEmbedType.NONE:
-        if cfg.world_3d.pos_embed != PosEmbedType.SIN3D \
-                or cfg.world_3d.pooling.n_points != 1:
-            raise NotImplementedError("only single-point sin3d PE is ported")
-        pe = sin3d_position_embedding(patch_coords.reshape(B, V * g * g, 3),
-                                      cfg.llm.hidden_size,
-                                      cfg.world_3d.pe_temperature)
+    if patch_coords is not None and cfg.world_3d.pos_embed in ADDITIVE_PE:
+        n_points = cfg.world_3d.pooling.n_points
+        if n_points > 1 and cfg.world_3d.pos_embed == PosEmbedType.MLP:
+            # JAX's MLP PE gives one row per point, which its add to the
+            # patch features cannot broadcast either
+            raise ValueError(f"the MLP world PE takes one point per patch, "
+                             f"not {cfg.world_3d.pooling.value}'s "
+                             f"{n_points}")
+        coords = patch_coords.reshape(B, V * g * g, n_points, 3) \
+            if n_points > 1 else patch_coords.reshape(B, V * g * g, 3)
+        pe = world_position_embedding(params, coords, cfg, n_points)
         pooled = pooled + pe.reshape(B, V, g * g, -1).to(pooled.dtype)
     if cfg.newline_position != NewlinePosition.GRID:
         raise NotImplementedError("only the GRID newline layout is ported")
@@ -135,8 +192,8 @@ def assemble_embeds(params: Params, cfg: ModelConfig,
     """(B, L, D) input embeddings from the splice plan: text embeddings,
     vision tokens gathered at ``vision_index``, zeros at padding. With
     ``coord_mask`` (B, L) and the discretized Scan2Cap centers
-    ``box_input`` (B, 3), their sin3d PE is added at the ``<coord>`` slots
-    (JAX ``assemble_embeds``)."""
+    ``box_input`` (B, 3), their world PE (sin3d or MLP) is added at the
+    ``<coord>`` slots (JAX ``assemble_embeds``)."""
     text_emb = qwen2.embed_tokens(params["llm"], text_ids)
     D = text_emb.shape[-1]
     vis = torch.gather(vision_tokens, 1,
@@ -147,19 +204,18 @@ def assemble_embeds(params: Params, cfg: ModelConfig,
                          torch.zeros((), dtype=embeds.dtype,
                                      device=embeds.device), embeds)
     if coord_mask is not None and box_input is not None \
-            and cfg.world_3d.pos_embed == PosEmbedType.SIN3D:
-        pe = sin3d_position_embedding(box_input[:, None, :].float(),
-                                      cfg.llm.hidden_size,
-                                      cfg.world_3d.pe_temperature)
+            and cfg.world_3d.pos_embed in ADDITIVE_PE:
+        pe = world_position_embedding(params, box_input[:, None, :], cfg)
         embeds = embeds + coord_mask[..., None].to(embeds.dtype) \
             * pe.to(embeds.dtype)
     return embeds
 
 
 class Batch(NamedTuple):
-    """Device-side batch: the fields the answer path reads, and the
-    training fields of the JAX ``Batch`` (labels, the ``<coord>`` mask and
-    box centers) that the training path reads."""
+    """Device-side batch: the fields the answer path reads, the training
+    fields of the JAX ``Batch`` (labels, the ``<coord>`` mask and box
+    centers), the mrope ids of an mrope configuration, and the 2D-image
+    modality's anyres tiles and gather plan (``images`` is None then)."""
 
     images: Optional[torch.Tensor]         # (B, V, 3, S, S)
     patch_coords: Optional[torch.Tensor]   # (B, V, g, g, 3) voxel ids
@@ -171,29 +227,46 @@ class Batch(NamedTuple):
     labels: Optional[torch.Tensor] = None       # (B, L) int64
     coord_mask: Optional[torch.Tensor] = None   # (B, L)
     box_input: Optional[torch.Tensor] = None    # (B, 3) discretized centers
+    mrope_position_ids: Optional[torch.Tensor] = None  # (B, L, 3) int64
+    image_tiles: Optional[torch.Tensor] = None     # (B, maxT, 3, S, S)
+    vision_gather: Optional[torch.Tensor] = None   # (B, Tv) int64
+    vision_newline: Optional[torch.Tensor] = None  # (B, Tv) bool
+    vision_valid: Optional[torch.Tensor] = None    # (B, Tv) bool
 
 
 def _position_ids_3d(batch: Batch, cfg: ModelConfig) -> torch.Tensor:
-    """(B, L, 3) ids: a 1D text position replicated over the three mRoPE
-    axes (the sin3d configuration; mrope world positions are not ported)."""
+    """(B, L, 3) ids: the splice plan's mrope ids (voxel ids at the
+    vision tokens) in an mrope configuration, else a 1D text position
+    replicated over the three mRoPE axes."""
     if cfg.world_3d.pos_embed == PosEmbedType.MROPE:
-        raise NotImplementedError("mrope world positions are not ported")
+        if batch.mrope_position_ids is None:
+            raise ValueError("an mrope configuration needs the batch's "
+                             "mrope_position_ids")
+        return batch.mrope_position_ids
     return batch.position_ids[..., None].expand(*batch.position_ids.shape, 3)
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, batch: Batch,
                    remat: bool = False
-                   ) -> Tuple[torch.Tensor, VisionTokens]:
-    """Training / eval forward of a video batch -> (final hidden states
-    (B, L, D), the vision tokens). Right padding: causal attention with the
-    per-row key length ``seq_len`` is the whole mask. ``remat``: the tower's
-    and the decoder's layers run under ``torch.utils.checkpoint``."""
-    if batch.images is None:
-        raise NotImplementedError("the 2D-image (anyres) modality is not "
-                                  "ported (ROADMAP A11)")
-    vt = encode_video(params, cfg, batch.images, batch.patch_coords,
-                      remat=remat)
-    embeds = assemble_embeds(params, cfg, vt.spliceable, batch.text_ids,
+                   ) -> Tuple[torch.Tensor, Optional[VisionTokens]]:
+    """Training / eval forward -> (final hidden states (B, L, D), the
+    vision tokens of a video batch; None for a 2D-image batch, whose
+    vision block is the anyres gather of its tiles' features). Right
+    padding: causal attention with the per-row key length ``seq_len`` is
+    the whole mask. ``remat``: the tower's and the decoder's layers run
+    under ``torch.utils.checkpoint``."""
+    if batch.image_tiles is not None:
+        from video3d_tpu_torch.models.anyres import encode_image_2d_batch
+
+        spliceable = encode_image_2d_batch(
+            params, cfg, batch.image_tiles, batch.vision_gather,
+            batch.vision_newline, batch.vision_valid, remat=remat)
+        vt = None
+    else:
+        vt = encode_video(params, cfg, batch.images, batch.patch_coords,
+                          remat=remat)
+        spliceable = vt.spliceable
+    embeds = assemble_embeds(params, cfg, spliceable, batch.text_ids,
                              batch.kind, batch.vision_index,
                              batch.coord_mask, batch.box_input)
     hidden = qwen2.qwen2_forward(params["llm"], cfg.llm, embeds,
@@ -451,7 +524,7 @@ def _grounding_object_features(params: Params, cfg: ModelConfig,
                                vt: VisionTokens, world_coords: torch.Tensor,
                                object_boxes: torch.Tensor,
                                row: int = 0) -> torch.Tensor:
-    """(N, D) masked-mean object features of batch row ``row`` (+ the sin3d
+    """(N, D) masked-mean object features of batch row ``row`` (+ the world
     PE of the box centers): question-independent, a function of the
     scene's coordinates, features and proposals only. Objects covering no
     patch keep a zero feature (and its PE) and are still scored. The
@@ -467,15 +540,14 @@ def _grounding_object_features(params: Params, cfg: ModelConfig,
     feats = vt.raw[row] if w3d.object_feature_type == \
         ObjectFeatureType.PATCH14 else vt.pooled[row]
     obj_feats, _ = object_features_from_masks(feats, masks)
-    if w3d.object_feature_use_pe and w3d.pos_embed == PosEmbedType.SIN3D:
+    if w3d.object_feature_use_pe and w3d.pos_embed in ADDITIVE_PE:
         centers = object_boxes[:, :3]
         if w3d.discrete:
             vox = w3d.voxel
             centers = geometry.discrete_coords(
                 centers, vox.min_xyz_range, vox.max_xyz_range,
                 vox.voxel_size)
-        pe = sin3d_position_embedding(centers[None], cfg.llm.hidden_size,
-                                      w3d.pe_temperature)[0]
+        pe = world_position_embedding(params, centers[None], cfg)[0]
         obj_feats = obj_feats + pe.to(obj_feats.dtype)
     return obj_feats
 

@@ -1,9 +1,8 @@
 """3D geometry ops in PyTorch: depth back-projection, cv2-style nearest
-resize, center crop, patch pooling, voxel discretization and the bilinear
-2D token pool.
+resize, center crop, patch pooling (means, min-max pairs, sampled points),
+voxel discretization and the 2D token pools (bilinear, average, max).
 
-Counterpart of ``video3d_tpu/ops/geometry.py`` (only the functions on the
-ScanQA answer path). Every function is device-agnostic plain torch; float32
+Counterpart of ``video3d_tpu/ops/geometry.py``. Every function is device-agnostic plain torch; float32
 matrix products here need true f32, so callers on the GPU keep TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
 """
@@ -67,11 +66,43 @@ def average_coordinate_in_patch(world_coords: torch.Tensor,
                                 patch_size: int = 27) -> torch.Tensor:
     """(V, H, W, 3) -> (V, H//ps, W//ps, 3) patch means (trailing rows and
     columns beyond a multiple of ``patch_size`` are dropped)."""
+    return _patches(world_coords, patch_size).mean(dim=(2, 4))
+
+
+def _patches(world_coords: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(V, H, W, D) -> (V, gh, ps, gw, ps, D), trailing rows and columns
+    beyond a multiple of ``patch_size`` dropped."""
     V, H, W, D = world_coords.shape
     gh, gw = H // patch_size, W // patch_size
     wc = world_coords[:, :gh * patch_size, :gw * patch_size, :]
-    wc = wc.reshape(V, gh, patch_size, gw, patch_size, D)
-    return wc.mean(dim=(2, 4))
+    return wc.reshape(V, gh, patch_size, gw, patch_size, D)
+
+
+def minmax_coordinate_in_patch(world_coords: torch.Tensor,
+                               patch_size: int = 27) -> torch.Tensor:
+    """(V, H, W, 3) -> (V, gh, gw, 2, 3) per-patch (min, max) pairs, the
+    minimum first (llava_arch.py:225-239)."""
+    wc = _patches(world_coords, patch_size)
+    mn = wc.amin(dim=(2, 4))
+    mx = wc.amax(dim=(2, 4))
+    return torch.stack([mn, mx], dim=3)
+
+
+def sample_n_points(world_coords: torch.Tensor, n_points: int = 9,
+                    patch_size: int = 27) -> torch.Tensor:
+    """Per patch, the 3x3 grid of pixels at offsets 4::9 (llava_arch.py:
+    241-257): (V, gh, gw, 9, 3) for n = 9, every other of those for n = 5,
+    and the centre point, (V, gh, gw, 3), for n = 1."""
+    wc = _patches(world_coords, patch_size).permute(0, 1, 3, 2, 4, 5)
+    V, gh, gw = wc.shape[:3]
+    nine = wc[:, :, :, 4::9, 4::9, :].reshape(V, gh, gw, 9, wc.shape[-1])
+    if n_points == 9:
+        return nine
+    if n_points == 5:
+        return nine[:, :, :, 0::2, :]
+    if n_points == 1:
+        return nine[:, :, :, 4, :]
+    raise ValueError(f"n_points={n_points}")
 
 
 def discrete_coords(world_coords: torch.Tensor,
@@ -119,11 +150,19 @@ def bilinear_pool_2d(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 def pool_2d_tokens(tokens: torch.Tensor, side: int, stride: int = 2,
                    mode: str = "bilinear") -> torch.Tensor:
-    """(V, side*side, D) patch tokens -> (V, out*out, D) with
-    out = ceil(side / stride) (bilinear: 729 -> 196)."""
-    if mode != "bilinear":
-        raise NotImplementedError(f"pool mode {mode!r} is not ported")
+    """(V, side*side, D) patch tokens -> (V, out*out, D): bilinear with
+    out = ceil(side / stride) (729 -> 196), or the ``average`` / ``max``
+    of stride x stride windows with out = side // stride, the trailing
+    row and column dropped (torch's pooling semantics)."""
     V, _, D = tokens.shape
-    out = -(-side // stride)
-    y = bilinear_pool_2d(tokens.reshape(V, side, side, D), (out, out))
+    x = tokens.reshape(V, side, side, D)
+    if mode == "bilinear":
+        out = -(-side // stride)
+        return bilinear_pool_2d(x, (out, out)).reshape(V, out * out, D)
+    if mode not in ("average", "max"):
+        raise ValueError(f"Unexpected pool mode: {mode}")
+    out = side // stride
+    win = x[:, :out * stride, :out * stride, :].reshape(
+        V, out, stride, out, stride, D)
+    y = win.mean(dim=(2, 4)) if mode == "average" else win.amax(dim=(2, 4))
     return y.reshape(V, out * out, D)

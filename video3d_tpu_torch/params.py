@@ -15,16 +15,17 @@ import numpy as np
 import torch
 
 from video3d_tpu_torch.config import GroundHeadType, ModelConfig, PosEmbedType
+from video3d_tpu_torch.ops.pos_embed import init_mlp_position_embedding
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import quant, qwen2, siglip
 
 Params = Dict[str, Any]
 
 #: the subtrees of the JAX tree the answer path reads, and the grounding
-#: head, which a tree has when its configuration has one (other optional
-#: heads are left out)
+#: head and the MLP world PE, which a tree has when its configuration has
+#: them (other optional heads are left out)
 _USED = ("vision", "projector", "image_newline", "llm")
-_OPTIONAL = ("ground_head",)
+_OPTIONAL = ("ground_head", "world_pe_mlp")
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -35,9 +36,9 @@ def check_config(cfg: ModelConfig) -> None:
             or llm.embed_scale or llm.rms_norm_add_unit_offset
             or not llm.attention_bias or llm.tie_word_embeddings):
         raise NotImplementedError("only the Qwen2 decoder family is ported")
-    if cfg.world_3d.pos_embed not in (PosEmbedType.SIN3D, PosEmbedType.NONE) \
-            or cfg.world_3d.llava3d:
-        raise NotImplementedError("only the sin3d world PE is ported")
+    if cfg.world_3d.llava3d:
+        raise NotImplementedError("the llava3d voxel-dedup variant is not "
+                                  "ported (ROADMAP A2)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -129,7 +130,8 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
     gives the f32 master tree that training updates. The grounding head
     (``cfg.ground_head`` other than NONE) is drawn last, from the same
     generator, and stays in ``dtype`` whatever ``bits`` (JAX's
-    ``quantize_tree`` patterns touch only the LLM)."""
+    ``quantize_tree`` patterns touch only the LLM); so do the MLP world
+    PE's leaves (``pos_embed`` MLP), drawn after it."""
     check_config(cfg)
     params = {
         "vision": siglip.init_vision_tower(cfg.vision, device, generator,
@@ -146,4 +148,7 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
     if cfg.ground_head != GroundHeadType.NONE:
         params["ground_head"] = lv3d.init_ground_head(
             cfg.llm.hidden_size, device, generator, dtype, cfg.ground_head)
+    if cfg.world_3d.pos_embed == PosEmbedType.MLP:
+        params["world_pe_mlp"] = init_mlp_position_embedding(
+            cfg.llm.hidden_size, device, generator, dtype=dtype)
     return params

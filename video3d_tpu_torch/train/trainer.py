@@ -109,9 +109,15 @@ def _tensor(arrays: Dict[str, np.ndarray], name: str, device, dtype=None):
 
 def to_batch(arrays: Dict[str, np.ndarray], device) -> lv3d.Batch:
     """The collator's host arrays -> a model ``Batch`` on ``device`` (a
-    grounding batch's extras: :func:`ground_extras`)."""
+    grounding batch's extras: :func:`ground_extras`). A field the
+    collator does not give, or gives as None (``images`` and
+    ``patch_coords`` of a 2D-image batch, the anyres fields of a video
+    batch, ``box_input`` of an image batch), stays None; index arrays
+    become int64 (the mrope ids too: they are positions on the device)."""
 
     def t(name, dtype=None):
+        if arrays.get(name) is None:
+            return None
         return _tensor(arrays, name, device, dtype)
 
     return lv3d.Batch(
@@ -120,7 +126,11 @@ def to_batch(arrays: Dict[str, np.ndarray], device) -> lv3d.Batch:
         vision_index=t("vision_index", torch.long),
         position_ids=t("position_ids"), seq_len=t("seq_len"),
         labels=t("labels", torch.long), coord_mask=t("coord_mask"),
-        box_input=t("box_input"))
+        box_input=t("box_input"),
+        mrope_position_ids=t("mrope_position_ids", torch.long),
+        image_tiles=t("image_tiles"),
+        vision_gather=t("vision_gather", torch.long),
+        vision_newline=t("vision_newline"), vision_valid=t("vision_valid"))
 
 
 class GroundExtras(NamedTuple):
