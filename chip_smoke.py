@@ -36,7 +36,9 @@ Phases, each of which raises on failure (the process then exits non-zero):
    and timed beside its bound; B3 and B7 (all
    three forms) each case called twice too, B3 also timed at phase 5's
    B=8 rows and B7's DRAM and logical bytes (the aliased pages once, or
-   once per slot) printed;
+   once per slot) printed, and B3 also at two launches of fewer live
+   positions than its 33 CTAs per kv head (one row of 20; rows of 7, 0,
+   9 and 3, the empty row read as zeros);
    the training kernels at the training shapes: B2 with
    the per-row logsumexp and the fused flash backward B6; the
    weight-streaming kernels, B4's B>1 form (int8) and B8 (int4), at every
@@ -247,6 +249,42 @@ Phases, each of which raises on failure (the process then exits non-zero):
    in (phase 7's bounds; control: the plain attention without its causal
    mask reading the next kv head), the mrope batch's vision rows read back on the card with their
    three axes apart. The phase's seconds, peak and launches are printed.
+17. Serving over HTTP (after phase 16; ``run_http_serving``), on a bf16
+   model at full width and depth (seed 17), ``serve_controller`` and
+   ``serve_worker`` on 127.0.0.1 in this process, ``FakeTokenizer``: (a)
+   the sequential worker, reached through the controller's
+   ``get_worker_address``, answers phase 4's two questions as
+   ``generate_answer`` does; (b) ``/worker_generate_stream``'s
+   ``\0``-separated chunks are cumulative, the last equal to (a), its ms
+   per decoded token printed beside phase 4's captured ms/token; then
+   the worker's cap on open engine streams (4 open, each holding its
+   cache, a fifth refused, every cache freed when they end; not a main
+   path, its launches not counted); (c)
+   ``/v1/chat/completions`` gives (a)'s text, its SSE deltas join to it,
+   and with ``max_tokens`` 8 it is the decode of the first 8 greedy ids;
+   (d) a three-turn history through a second, prefix-cached worker equals
+   that engine's direct answer, a prefix hit; (e) two 384x384 PNGs as
+   ``image_url`` data URIs equal ``generate_answer_images``; (f)
+   ``/worker_ground`` on phase 12's scene equals ``engine.ground`` within
+   GROUND_SCORE_ATOL, the same argmax and ``best_box``; (g) a paged
+   batcher worker (8 slots, ``chunked_prefill=512``) on 8 concurrent
+   requests (each the sequential engine's answer up to a near-tie), a
+   client that hangs up mid-stream (its slot back within 3 s), eight
+   distinct sampling overrides on the eager bypass route (no new
+   ``DecodeGraphs`` entry; top_k 1 gives the greedy ids), its metrics
+   (no slot in use, every page free, the request count); (h) an engine
+   with ``device_geometry=False`` answers phase 4's first question, its
+   voxel ids against B1's, its first-step logits within LOGIT_ATOL of the
+   B1 route's. Every request must succeed (HTTP 200, ``error_code`` 0);
+   launches exact per part where stated (B1, B2, B3), summed over the
+   HTTP runs only (not (g)'s near-tie recomputes); its seconds, peak, the
+   first chunk's latency and the batcher's tokens/s printed with the
+   card's name and power limit. Phase 15 adds (i): the adapted int8
+   engine served as an adapter beside the bare base (``/v1/models`` lists
+   both, the adapter by name gives its answer through its engine's
+   captured decode and its stream through the eager one, each with exact
+   launches, the stream's ms per token beside 15c's captured ms/token, an
+   unknown name a 404).
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -428,16 +466,20 @@ FLASH_EDGES = ((1, 1000, [1000], True), (3, 256, [127, 128, 129], True),
                (2, 2048, [2048, 1111], True), (2, 1000, [1000, 555], False))
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
 def preconditions():
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
@@ -793,7 +835,10 @@ def check_decode(dev):
     NL, H, KV, hd, S, layer = 28, 28, 4, 128, 8704, 27
     worst = 0.0
     timed = None
-    for lens in ([6812], [8704, 6812, 300, 4097]):
+    # the last two: fewer live positions than the 33 CTAs of a kv head, so
+    # some CTAs' ranges are empty, also inside a row's span; a kv_len 0 row
+    # must read zeros
+    for lens in ([6812], [8704, 6812, 300, 4097], [20], [7, 0, 9, 3]):
         B = len(lens)
         q = torch.randn(B, 1, H, hd, generator=g, device=dev).to(torch.bfloat16)
         k_all = torch.randn(NL, B, S, KV * hd, generator=g,
@@ -803,8 +848,13 @@ def check_decode(dev):
         kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
         out = da.decode_attention(q, k_all, v_all, kv_len, layer, KV)
         ref = da.decode_attention_plain(q, k_all, v_all, kv_len, layer, KV)
-        err = float((out.float() - ref.float()).abs().max())
-        _check(f"B3 B={B} kv_len={lens}", err <= 2e-2, f"max |d| {err:.2e}")
+        live = [b for b, n in enumerate(lens) if n]
+        err = float((out[live].float() - ref[live].float()).abs().max())
+        zeros = all(bool((out[b] == 0).all())
+                    for b, n in enumerate(lens) if n == 0)
+        _check(f"B3 B={B} kv_len={lens}", err <= 2e-2 and zeros,
+               f"max |d| {err:.2e} over the live rows; kv_len 0 rows zero: "
+               f"{zeros}")
         _check_repeat(f"B3 B={B} kv_len={lens}", lambda: da.decode_attention(
             q, k_all, v_all, kv_len, layer, KV), out)
         worst = max(worst, err)
@@ -2886,10 +2936,7 @@ def run_serving(params, cfg, root: str, infos,
     ms_chunk = chunks[len(chunks) // 2]
     admit = {k: sorted(ms for kind, ms in log["admit"] if kind == k)
              for k in ("miss", "hit")}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"  {len(handles)} requests, {tokens} output tokens in "
           f"{wall:.3f} s = {tokens / wall:.1f} tokens/s over all slots; "
           f"{len(chunks)} decode chunks, median {ms_chunk:.2f} ms per chunk"
@@ -4419,10 +4466,7 @@ def run_spec_chunked(params, cfg, root: str, info, infos, greedy_results,
           f"first-step logits within {worst:.4f} of the atomic prefill's",
           flush=True)
     peak = torch.cuda.max_memory_allocated()
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"  phase 14: {time.perf_counter() - t_phase:.1f} s, peak device "
           f"memory {peak / 2**30:.2f} GiB; {smi}", flush=True)
     return total
@@ -5197,10 +5241,7 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
                f"{key} {r.get(key, float('nan')):.6f}, grad_norm "
                f"{r['grad_norm']:.6f}")
     _check_step_launches("", steps, cfg.llm.num_hidden_layers)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"  per-mini-step seconds "
           f"{[(s['kind'], round(s['seconds'], 4)) for s in steps]}; tokens/s "
           f"{[round(s['tokens'] / s['seconds']) for s in steps]} "
@@ -5494,10 +5535,103 @@ def run_adapted_serving(base, export_dir: str, cfg, root: str, info,
     print(f"  adapted int8 B=1 decode {b1_ms:.2f} ms/token captured (bf16 "
           f"cache) beside phase 6's bare int8 {int8_b1_ms:.2f} (int8 "
           f"cache); answers' ids sha1 {_tokens_digest(greedy)}", flush=True)
+    print("the adapter over HTTP (phase 15i):", flush=True)
+    _add_launches(launches, _serve_adapter(base, engine, cfg, root, info,
+                                           greedy[0], b1_ms))
     del params, engine, adapted, greedy
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+LORA_SERVED = "video3d-qlora-smoke"   # phase 15i's adapter name
+
+
+def _serve_adapter(base, adapted, cfg, root: str, info, greedy,
+                   b1_ms: float) -> dict:
+    """Phase 15i: the adapted engine served as an adapter beside the bare
+    int8 base (``serve_worker(adapters=)``): /v1/models lists both, a
+    request naming the adapter gives phase 15c's adapted answer (``greedy``:
+    its GenerateResult) through the adapter engine's captured decode, and
+    its stream through the eager host-chunked decode, each with exact
+    launches (the stream's ms per token printed beside ``b1_ms``, 15c's
+    captured ms/token); an unknown name is a 404. Returns the two
+    requests' launches."""
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.serve.model_worker import serve_worker
+
+    base_engine = _make_engine(base, cfg, root)
+    base_engine.tokenizer = adapted.tokenizer
+    port = _free_port()
+    worker, server = serve_worker(base_engine, HTTP_MODEL, port=port,
+                                  background=True, heartbeat=False,
+                                  adapters={LORA_SERVED: adapted})
+    addr = f"http://127.0.0.1:{port}"
+    L = cfg.llm.num_hidden_layers
+    total: dict = {}
+    try:
+        status, models = _http(addr + "/v1/models")
+        ids = [m["id"] for m in models.get("data", [])]
+        _check("(i) /v1/models", status == 200
+               and ids == [HTTP_MODEL, LORA_SERVED], f"{ids}")
+        q = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")[0]
+        want_ids = _answer_ids(greedy)
+        want = adapted._decode_text(want_ids)
+        payload = {"video": q["video"], "model": LORA_SERVED,
+                   "prompt": q["conversations"][0]["value"]}
+        graphs = adapted._graphs
+
+        def decoded_captured():
+            return graphs.captures + graphs.replays if graphs else 0
+
+        seen = decoded_captured()
+        before = dict(_build.LAUNCHES)
+        out = _served("(i) the adapter by name", addr + "/worker_generate",
+                      payload)
+        part = _launch_delta(before)
+        ran = decoded_captured() - seen
+        _check("(i) the adapted answer over HTTP", out["text"] == want
+               and ran > 0, f"equal to phase 15c's adapted answer: "
+               f"{out['text'] == want}; through its engine's captured "
+               f"decode ({ran} captures and replays); the request took "
+               f"{out['inference_time']:.3f} s")
+        steps = _forwards(greedy)
+        _check_launches("(i)", part, fused_geometry=1, flash_attention=L,
+                        decode_attention=L * steps,
+                        int8_matmul=7 * L * steps, int8_matvec=1 + steps)
+        _add_launches(total, part)
+        before = dict(_build.LAUNCHES)
+        items, arrivals = _stream(addr + "/worker_generate_stream",
+                                  {**payload, "stream_chunk":
+                                   HTTP_STREAM_CHUNK}, b"\0")
+        part = _launch_delta(before)
+        chunks = [json.loads(p) for p in items]
+        steps = _stream_steps(len(want_ids), HTTP_STREAM_CHUNK, MAX_NEW)
+        ms = _stream_ms_per_token(arrivals, steps, HTTP_STREAM_CHUNK)
+        _check("(i) the adapter's stream", bool(chunks) and all(
+            c.get("error_code") == 0 for c in chunks)
+            and chunks[-1]["text"] == want,
+            f"{len(chunks)} chunks, the last equal to the adapted answer "
+            f"after {arrivals[-1] if arrivals else float('nan'):.3f} s; "
+            f"{ms:.2f} ms per decoded token after the first chunk (eager "
+            f"chunks of {HTTP_STREAM_CHUNK}) beside 15c's captured "
+            f"{b1_ms:.2f} ms/token; {_card()}")
+        _check_launches("(i) stream", part, fused_geometry=1,
+                        flash_attention=L, decode_attention=L * steps,
+                        int8_matmul=7 * L * steps, int8_matvec=1 + steps)
+        _add_launches(total, part)
+        status, err = _http(addr + "/v1/chat/completions", {
+            "model": "no-such-adapter", "video": q["video"],
+            "messages": [{"role": "user", "content": SCANQA_TEXTS[0]}]})
+        _check("(i) an unknown model name", status == 404
+               and err.get("error", {}).get("code") == "model_not_found",
+               f"HTTP {status} {err.get('error', {}).get('code')}")
+        _check("(i) worker errors", worker.n_errors == 0,
+               f"{worker.n_errors} request errors")
+    finally:
+        server.shutdown()
+        server.server_close()
+    return total
 
 
 def run_dpo(cfg, root: str, info, dev) -> dict:
@@ -6193,6 +6327,650 @@ def run_other_inputs(cfg, root: str, info, ground_info, dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the serving stack over HTTP (serve/controller.py,
+# serve/model_worker.py) on a bf16 model at full width and depth
+# ---------------------------------------------------------------------------
+
+HTTP_MODEL = "video3d-smoke"
+HTTP_PREFIX_MODEL = "video3d-smoke-prefix"
+HTTP_STREAM_CHUNK = 8          # (b)'s stream_chunk
+HTTP_CAPPED = 8                # (c)'s max_tokens
+HTTP_IMAGE_SIDE = 384          # (e)'s two PNGs: 729 unpooled tokens each
+HTTP_IMAGE_PROMPT = "What changed between the two images?"
+HTTP_BATCH_TEXTS = PREFIX_TEXTS[:8]   # (g): four questions on each scene
+HTTP_HANGUP_BUDGET = 1024      # (g): the budget of the stream hung up on
+# (g): eight distinct sampling combinations, each a bypass request of
+# HTTP_CAPPED tokens; the last (top_k = 1) must give the greedy ids
+HTTP_SAMPLINGS = ({"temperature": 0.7, "top_p": 0.9, "top_k": 50},
+                  {"temperature": 0.7}, {"temperature": 1.0},
+                  {"temperature": 0.5, "top_k": 20}, {"top_p": 0.8,
+                                                      "temperature": 0.3},
+                  {"temperature": 1.2, "top_p": 0.95},
+                  {"temperature": 0.9, "top_k": 5},
+                  {"temperature": 0.7, "top_k": 1})
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _http(url: str, payload: Optional[dict] = None, timeout: float = 600.0):
+    """(status, parsed JSON reply) of a POST (or a GET without
+    ``payload``); an HTTP error status is returned, not raised."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=None if payload is None else json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"{}")
+
+
+def _served(name: str, url: str, payload: dict) -> dict:
+    """A request that must succeed: HTTP 200 and error_code 0 (a device
+    fault caught by the worker's per-request ``except`` fails the run)."""
+    status, out = _http(url, payload)
+    _check(f"{name}: served", status == 200 and out.get("error_code", 0) == 0
+           and "error" not in out, f"HTTP {status}, error_code "
+           f"{out.get('error_code')} {out.get('error', '')!r}")
+    return out
+
+
+def _stream(url: str, payload: dict, sep: bytes):
+    """The items of a streamed reply split at ``sep``, and the seconds from
+    the request to each one's arrival."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    buf, items, arrivals = b"", [], []
+    with urllib.request.urlopen(req, timeout=600) as r:
+        while True:
+            chunk = r.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while sep in buf:
+                piece, buf = buf.split(sep, 1)
+                if piece.strip():
+                    arrivals.append(time.perf_counter() - t0)
+                    items.append(piece)
+    return items, arrivals
+
+
+def _stream_ms_per_token(arrivals, steps: int, chunk: int) -> float:
+    """A stream's ms per decoded token after its first chunk: the time
+    from the first chunk's arrival to the last's over the steps decoded in
+    between (nan when the answer ended in the first chunk)."""
+    later = steps - min(chunk, steps)
+    if later <= 0 or len(arrivals) < 2:
+        return float("nan")
+    return (arrivals[-1] - arrivals[0]) / later * 1e3
+
+
+def _content(out: dict):
+    """The message content of a chat.completion reply, or None."""
+    choices = out.get("choices") or [{}]
+    return choices[0].get("message", {}).get("content")
+
+
+def _stream_steps(n: int, chunk: int, budget: int) -> int:
+    """Decode steps of a host-chunked stream that emitted ``n`` ids: every
+    chunk up to the one that emitted EOS, the last cut to the budget."""
+    return budget if n >= budget else min(-(-(n + 1) // chunk) * chunk,
+                                          budget)
+
+
+def _answer_ids(res) -> list:
+    return res.tokens[0, :int(res.lengths[0])].tolist()
+
+
+def _check_launches(name: str, got: dict, **want) -> None:
+    from video3d_tpu_torch.kernels import _build
+
+    expected = dict.fromkeys(_build.LAUNCHES, 0)
+    expected.update(want)
+    _check(f"{name}: launch counts", got == expected,
+           f"{ {k: v for k, v in got.items() if v} }, expected "
+           f"{ {k: v for k, v in expected.items() if v} }")
+
+
+def _http_sequential(engine, params, cfg, caddr: str, waddr: str, infos,
+                     b1_ms: float, total: dict) -> dict:
+    """(a)-(c), (e) on the sequential worker (``b1_ms``: phase 4's captured
+    ms/token, beside the stream's); returns what the summary reuses."""
+    import base64
+    import io
+
+    from video3d_tpu_torch.kernels import _build
+
+    video = infos[0]["sample_idx"]
+    L = cfg.llm.num_hidden_layers
+    qs = _questions(video, SCANQA_TEXTS, "http")
+    _, got = _http(caddr + "/get_worker_address", {"model": HTTP_MODEL,
+                                                    "video": video})
+    _check("(a) the controller's dispatch", got.get("address") == waddr,
+           f"get_worker_address -> {got.get('address')}")
+    # the engine's direct answers first: they capture the decode chunks the
+    # worker's answers then replay
+    want = [engine.generate_answer(q) for q in qs]
+    want_ids = [_answer_ids(r) for r in engine.results[-2:]]
+    engine.results.clear()
+    before = dict(_build.LAUNCHES)
+    texts, times = [], []
+    for i, q in enumerate(qs):
+        t0 = time.perf_counter()
+        out = _served(f"(a) /worker_generate {i}", waddr + "/worker_generate",
+                      {"video": video,
+                       "prompt": q["conversations"][0]["value"]})
+        times.append((out["inference_time"], time.perf_counter() - t0))
+        texts.append(out["text"])
+    part = _launch_delta(before)
+    _check("(a) sequential worker vs generate_answer", texts == want,
+           f"texts equal: {[t == w for t, w in zip(texts, want)]}; seconds "
+           f"per request, the worker's inference_time / the HTTP round "
+           f"trip: {[(round(a, 4), round(b, 4)) for a, b in times]}")
+    forwards = sum(_forwards(r) for r in engine.results)
+    _check_launches("(a)", part, fused_geometry=2, flash_attention=2 * L,
+                    decode_attention=L * forwards)
+    _add_launches(total, part)
+
+    # (b) the \0-separated stream
+    before = dict(_build.LAUNCHES)
+    items, arrivals = _stream(waddr + "/worker_generate_stream",
+                              {"video": video, "prompt": qs[0]
+                               ["conversations"][0]["value"],
+                               "stream_chunk": HTTP_STREAM_CHUNK}, b"\0")
+    part = _launch_delta(before)
+    ttfc = arrivals[0] if arrivals else float("nan")
+    steps = _stream_steps(len(want_ids[0]), HTTP_STREAM_CHUNK, MAX_NEW)
+    stream_ms = _stream_ms_per_token(arrivals, steps, HTTP_STREAM_CHUNK)
+    chunks = [json.loads(p) for p in items]
+    for c in chunks:
+        _check("(b) stream chunk", c.get("error_code") == 0,
+               f"error_code {c.get('error_code')} {c.get('error', '')!r}")
+    cumulative = all(b["text"].startswith(a["text"])
+                     for a, b in zip(chunks, chunks[1:]))
+    _check("(b) /worker_generate_stream", bool(chunks) and cumulative
+           and chunks[-1]["text"] == want[0],
+           f"{len(chunks)} cumulative chunks, the last equal to (a): "
+           f"{bool(chunks) and chunks[-1]['text'] == want[0]}; first chunk "
+           f"after {ttfc * 1e3:.1f} ms, then {stream_ms:.2f} ms per decoded "
+           f"token (eager chunks of {HTTP_STREAM_CHUNK}) beside phase 4's "
+           f"captured {b1_ms:.2f} ms/token; {_card()}")
+    _check_launches("(b)", part, fused_geometry=1, flash_attention=L,
+                    decode_attention=L * steps)
+    _add_launches(total, part)
+
+    # (c) the OpenAI route, plain, SSE and capped
+    oa = {"model": HTTP_MODEL, "messages": [
+        {"role": "system", "content": "You are a helpful assistant."},
+        {"role": "user", "content": [
+            {"type": "video_id", "video_id": video},
+            {"type": "text", "text": SCANQA_TEXTS[0]}]}]}
+    before = dict(_build.LAUNCHES)
+    status, out = _http(waddr + "/v1/chat/completions", oa)
+    _check("(c) /v1/chat/completions", status == 200
+           and _content(out) == want[0],
+           f"HTTP {status}, content equal to (a): {_content(out) == want[0]}")
+    events, _ = _stream(waddr + "/v1/chat/completions",
+                        {**oa, "stream": True}, b"\n\n")
+    events = [e.decode()[len("data: "):] for e in events]
+    deltas = [json.loads(e) for e in events[:-1]]
+    sse = "".join(d["choices"][0]["delta"].get("content", "")
+                  for d in deltas)
+    _check("(c) SSE", events[-1] == "[DONE]" and sse == want[0]
+           and deltas[-1]["choices"][0]["finish_reason"] == "stop",
+           f"{len(deltas)} chat.completion.chunk events, deltas joined "
+           f"equal to (a): {sse == want[0]}")
+    status, out = _http(waddr + "/v1/chat/completions",
+                        {**oa, "max_tokens": HTTP_CAPPED})
+    capped = engine._decode_text(want_ids[0][:HTTP_CAPPED])
+    _check("(c) max_tokens", status == 200 and _content(out) == capped,
+           f"HTTP {status}, the decode of the first {HTTP_CAPPED} greedy "
+           f"ids: {_content(out) == capped}")
+    _add_launches(total, _launch_delta(before))
+
+    # (e) two PNGs as image_url data URIs
+    imgs = [_seeded_image(HTTP_IMAGE_SIDE, HTTP_IMAGE_SIDE, 170 + i)
+            for i in range(2)]
+    uris = []
+    for img in imgs:
+        buf = io.BytesIO()
+        img.save(buf, format="PNG")
+        uris.append("data:image/png;base64,"
+                    + base64.b64encode(buf.getvalue()).decode())
+    prompt = HTTP_IMAGE_PROMPT
+    direct = engine.generate_answer_images(
+        None, imgs, conversations=[{"from": "human", "value": prompt}])
+    engine.results.clear()
+    before = dict(_build.LAUNCHES)
+    status, out = _http(waddr + "/v1/chat/completions", {"messages": [
+        {"role": "user", "content": [
+            {"type": "image_url", "image_url": {"url": u}} for u in uris]
+         + [{"type": "text", "text": prompt}]}]})
+    part = _launch_delta(before)
+    _check("(e) 2D images over /v1/chat/completions", status == 200
+           and _content(out) == direct,
+           f"HTTP {status}, equal to generate_answer_images: "
+           f"{_content(out) == direct}")
+    res = engine.results[-1]
+    _check_launches("(e)", part, flash_attention=L,
+                    decode_attention=L * _forwards(res))
+    _add_launches(total, part)
+    return {"ttfc": ttfc, "stream_ms": stream_ms}
+
+
+def _http_open_streams(worker, infos) -> int:
+    """The cap on open engine streams, on the sequential worker's own
+    generators (a client that reads no further): ``MAX_OPEN_STREAMS``
+    streams each hold their prefilled cache after their first chunk, one
+    more is refused, and each ends freeing its cache. Returns the peak
+    bytes with them open. Runs no main path: its launches are not
+    counted."""
+    import torch
+
+    video = infos[0]["sample_idx"]
+    req = {"video": video, "prompt": f"<image>\n{SCANQA_TEXTS[0]}",
+           "stream_chunk": HTTP_STREAM_CHUNK}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    gens = [worker.generate_stream(dict(req))
+            for _ in range(worker.MAX_OPEN_STREAMS)]
+    firsts = [next(g) for g in gens]
+    torch.cuda.synchronize()
+    each = (torch.cuda.memory_allocated() - held) / len(gens)
+    extra = worker.generate_stream(dict(req))
+    refused = next(extra)
+    extra.close()
+    for g in gens:
+        g.close()
+    torch.cuda.synchronize()
+    freed = torch.cuda.memory_allocated() - held
+    peak = torch.cuda.max_memory_allocated()
+    _check("open engine streams capped",
+           all(f["error_code"] == 0 for f in firsts)
+           and refused["error_code"] == 1
+           and "streams are open" in refused.get("error", "")
+           and freed < each / 2, f"{len(gens)} streams open "
+           f"({each / 2**20:.1f} MiB of device memory each), one more "
+           f"refused: {refused.get('error')!r}; after they ended "
+           f"{freed / 2**20:+.1f} MiB; peak {peak / 2**30:.2f} GiB; "
+           f"{_card()}")
+    return peak
+
+
+def _http_history(params, cfg, root: str, caddr: str, info, tokenizer,
+                  total: dict) -> None:
+    """(d): a three-turn history through a second worker whose engine has
+    the scene-prefix cache on."""
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.serve.model_worker import serve_worker
+
+    engine = _make_engine(params, cfg, root, prefix_cache_scenes=1)
+    engine.tokenizer = tokenizer
+    port = _free_port()
+    worker, server = serve_worker(engine, HTTP_PREFIX_MODEL, port=port,
+                                  controller_addr=caddr, background=True,
+                                  heartbeat=False)
+    try:
+        _, got = _http(caddr + "/get_worker_address",
+                       {"model": HTTP_PREFIX_MODEL})
+        addr = got.get("address")
+        _check("(d) the controller's second worker",
+               addr == f"http://127.0.0.1:{port}", f"-> {addr}")
+        video = info["sample_idx"]
+        history = [{"from": "human", "value": f"<image>\n{SCANQA_TEXTS[0]}"},
+                   {"from": "gpt", "value": "a brown wooden chair"},
+                   {"from": "human", "value": SCANQA_TEXTS[1]}]
+        before = dict(_build.LAUNCHES)
+        first = _served("(d) turn 1", addr + "/worker_generate",
+                        {"video": video, "conversations": history[:1]})
+        hist = _served("(d) turn 3", addr + "/worker_generate",
+                       {"video": video, "conversations": history})
+        _add_launches(total, _launch_delta(before))
+        stats = list(engine.prefix_cache_stats)
+        direct = engine.generate_answer(
+            {"video": video,
+             "conversations": history + [{"from": "gpt", "value": None}]})
+        _check("(d) history with the prefix cache", hist["text"] == direct
+               and stats == [1, 1] and isinstance(first["text"], str),
+               f"the three-turn answer equal to generate_answer on the same "
+               f"record: {hist['text'] == direct}; prefix_cache_stats after "
+               f"the two requests {stats} (the history a hit)")
+    finally:
+        server.shutdown()
+        server.server_close()
+    _check("(d) worker errors", worker.n_errors == 0,
+           f"{worker.n_errors} request errors")
+
+
+def _http_ground(engine, waddr: str, ground_info, total: dict) -> None:
+    """(f): /worker_ground against engine.ground."""
+    import numpy as np
+
+    from video3d_tpu_torch.kernels import _build
+
+    text = GROUND_TEXTS[0]
+    q = {"video": ground_info["sample_idx"], "conversations": [
+        {"from": "human", "value": text},
+        {"from": "gpt", "value": "<ground>"}]}
+    scores, objects = engine.ground(q)
+    before = dict(_build.LAUNCHES)
+    out = _served("(f) /worker_ground", waddr + "/worker_ground",
+                  {"video": ground_info["sample_idx"], "query": text})
+    part = _launch_delta(before)
+    got = np.asarray(out["scores"], np.float32)
+    d = float(np.abs(got - scores).max()) if got.shape == scores.shape \
+        else float("inf")
+    i = int(np.argmax(scores))
+    best = None if i >= len(objects) else [float(x) for x in objects[i]]
+    _check("(f) grounding over HTTP", d <= GROUND_SCORE_ATOL
+           and int(np.argmax(got)) == i and out["best_box"] == best
+           and len(out["objects"]) == len(objects),
+           f"{len(got)} scores within {d:.2e} of engine.ground (bound "
+           f"{GROUND_SCORE_ATOL}), argmax {int(np.argmax(got))} / {i}, "
+           f"best_box equal: {out['best_box'] == best}")
+    _check_launches("(f)", part, flash_attention=engine.cfg.llm
+                    .num_hidden_layers)
+    _add_launches(total, part)
+
+
+def _http_batcher(params, cfg, root: str, infos, engine, caddr: str,
+                  total: dict) -> dict:
+    """(g): a worker with the paged batcher (8 slots, chunked prefill)
+    takes 8 concurrent requests, one hung-up stream, then eight distinct
+    sampling overrides on the bypass route."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from video3d_tpu_torch.eval.drivers import InferenceEngine
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.serve.model_worker import serve_worker
+
+    beng = _make_engine(params, cfg, root)
+    # the engines number words alike; a longer budget for the hung-up
+    # stream (the other requests ask for MAX_NEW)
+    beng.tokenizer = engine.tokenizer
+    beng.ecfg = dataclasses.replace(beng.ecfg,
+                                    max_new_tokens=HTTP_HANGUP_BUDGET)
+
+    def text_of(ids):
+        return InferenceEngine._decode_text(beng, ids)
+
+    qs = [q for i in range(2) for q in _questions(
+        infos[i]["sample_idx"], HTTP_BATCH_TEXTS[4 * i:4 * i + 4],
+        f"http{i}_")]
+    want = [engine.generate_answer(q) for q in qs]
+    want_ids = [_with_eos(_answer_ids(r), beng.ecfg.eos_token_id, MAX_NEW)
+                for r in engine.results[-len(qs):]]
+    port = _free_port()
+    worker, server = serve_worker(beng, "video3d-smoke-batched", port=port,
+                                  controller_addr=caddr, background=True,
+                                  heartbeat=False, num_slots=8, paged=True,
+                                  chunked_prefill=SERVE_CHUNKED)
+    addr = f"http://127.0.0.1:{port}"
+    try:
+        batcher = worker.batcher
+        out = [None] * len(qs)
+
+        def hit(i):
+            out[i] = _http(addr + "/worker_generate", {
+                "video": qs[i]["video"],
+                "prompt": qs[i]["conversations"][0]["value"],
+                "max_new_tokens": MAX_NEW})
+
+        before = dict(_build.LAUNCHES)
+        beng.decoded.clear()
+        threads = [threading.Thread(target=hit, args=(i,))
+                   for i in range(len(qs))]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        # the window closes before the near-tie checks, which recompute
+        _add_launches(total, _launch_delta(before))
+        for i, (status, o) in enumerate(out):
+            _check(f"(g) request {i}", status == 200
+                   and o.get("error_code") == 0,
+                   f"HTTP {status}, error_code {o.get('error_code')} "
+                   f"{o.get('error', '')!r}")
+        decoded = list(beng.decoded)
+        equal = 0
+        for i, (q, (_, o)) in enumerate(zip(qs, out)):
+            if o["text"] == want[i]:
+                equal += 1
+                continue
+            # the batcher's ids for this text (its chunked prefill rounds
+            # otherwise than the atomic one): equal up to a near-tie
+            ids = next((d for d in decoded if text_of(d) == o["text"]),
+                       None)
+            _check(f"(g) request {i}: its ids", ids is not None,
+                   "found among the batcher's decoded answers")
+            _near_tie_check(f"(g) request {i} vs the sequential engine",
+                            params, cfg, engine, q, want_ids[i],
+                            _with_eos(ids, beng.ecfg.eos_token_id, MAX_NEW),
+                            CROSS_TIE)
+        n_tokens = sum(len(d) for d in decoded[-len(qs):])
+        tps = n_tokens / wall
+        # one client hangs up mid-stream: its slot and pages come back long
+        # before its HTTP_HANGUP_BUDGET steps could have run
+        before = dict(_build.LAUNCHES)
+        req = urllib.request.Request(
+            addr + "/worker_generate_stream", data=json.dumps({
+                "video": qs[0]["video"],
+                "prompt": qs[0]["conversations"][0]["value"]}).encode(),
+            headers={"Content-Type": "application/json"})
+        r = urllib.request.urlopen(req, timeout=600)
+        r.read1(16)
+        busy = _wait_for(lambda: any(s is not None
+                                     for s in batcher.slots), 60)
+        r.close()
+        t_hang = time.perf_counter()
+        back = _wait_for(lambda: all(s is None for s in batcher.slots)
+                         and worker.queue_length == 0, 3.0)
+        _check("(g) a client hung up mid-stream", busy and back,
+               f"its slot back after {time.perf_counter() - t_hang:.2f} s "
+               f"(at most 3 s; its budget of {HTTP_HANGUP_BUDGET} tokens "
+               f"would hold it for ~{HTTP_HANGUP_BUDGET // 8} decode "
+               f"chunks)")
+        _add_launches(total, _launch_delta(before))
+        # eight distinct sampling combinations on the bypass route; top_k =
+        # 1 against the greedy answer of the same route
+        greedy = list(beng.generate_answer_stream(
+            qs[0], max_new_tokens=HTTP_CAPPED))[-1]
+        gstats = engine._graphs.stats() if engine._graphs else {}
+        bstats = beng._graphs.stats() if beng._graphs else {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(_build.LAUNCHES)
+        sampled = []
+        for i, s in enumerate(HTTP_SAMPLINGS):
+            sampled.append(_served(
+                f"(g) sampling override {i}", addr + "/worker_generate",
+                {"video": qs[0]["video"],
+                 "prompt": qs[0]["conversations"][0]["value"],
+                 "max_new_tokens": HTTP_CAPPED, **s}))
+        _add_launches(total, _launch_delta(before))
+        peak = torch.cuda.max_memory_allocated()
+        after = beng._graphs.stats() if beng._graphs else {}
+        own = batcher._graphs.stats()["entries"] if batcher._graphs else None
+        _check("(g) sampling overrides", sampled[-1]["text"] == greedy
+               and after.get("entries") == bstats.get("entries")
+               and after.get("captures") == bstats.get("captures"),
+               f"{len(HTTP_SAMPLINGS)} distinct combinations served, "
+               f"top_k = 1 gives the greedy ids: "
+               f"{sampled[-1]['text'] == greedy}; the DecodeGraphs of the "
+               f"worker's engine (the bypass route) {after.get('entries')} "
+               f"entries / {after.get('captures')} captures before and after "
+               f"(the overrides decode eagerly), the batcher's own "
+               f"{own}, the sequential "
+               f"engine's {gstats.get('entries')}; peak device memory over "
+               f"them {peak / 2**30:.2f} GiB")
+        _, m = _http(addr + "/worker_metrics", {})
+        n_req = len(qs) + 1 + len(HTTP_SAMPLINGS)
+        _check("(g) /worker_metrics", m["slots_in_use"] == 0
+               and m["pages_free"] == m["pages"]
+               and m["requests_total"] == n_req and m["errors_total"] == 0,
+               f"slots_in_use {m['slots_in_use']}, pages free "
+               f"{m['pages_free']} of {m['pages']}, requests_total "
+               f"{m['requests_total']} (expected {n_req}), errors "
+               f"{m['errors_total']}")
+        print(f"  (g) {len(qs)} concurrent requests, {equal} equal to the "
+              f"sequential engine's text ({len(qs) - equal} up to a "
+              f"near-tie): {n_tokens} tokens in {wall:.2f} s = {tps:.1f} "
+              f"tokens/s; {_card()}", flush=True)
+    finally:
+        worker.batcher.shutdown()
+        server.shutdown()
+        server.server_close()
+    return {"tps": tps, "override_peak": peak,
+            "graph_entries": after.get("entries")}
+
+
+def _http_host_route(params, cfg, root: str, info, engine,
+                     total: dict) -> float:
+    """(h): an engine with device_geometry=False answers phase 4's first
+    question; its voxel ids against B1's, its first-step logits against
+    the B1 route's. Returns the logits' max |d|."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+
+    # the scene cache keeps the host route's features for the logit check:
+    # its geometry (2.4-3.5 s of host time a call on the H100's machine,
+    # 700 W, PERF.md §5) runs twice, not three times
+    host = _make_engine(params, cfg, root, scene_cache_scenes=1)
+    host.tokenizer = engine.tokenizer     # the engines number words alike
+    host.device_geometry = False
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "host")[0]
+    V, _, b1 = engine._video_arrays(info["sample_idx"])
+    Vh, _, hp = host._video_arrays(info["sample_idx"])
+    share = float((b1[0, :V] != hp[0, :V]).any(-1).float().mean())
+    before = dict(_build.LAUNCHES)
+    text = host.generate_answer(q)
+    part = _launch_delta(before)
+    L = cfg.llm.num_hidden_layers
+    _check_launches("(h) host route", part, flash_attention=L,
+                    decode_attention=L * _forwards(host.results[-1]))
+    _add_launches(total, part)
+    got = _first_step_logits(params, cfg, *host._prepare_generation(q))
+    ref = _first_step_logits(params, cfg, engine._prepare_generation(q)[0])
+    d = float((got - ref).abs().max())
+    _check("(h) host geometry route", d <= LOGIT_ATOL and Vh == V
+           and isinstance(text, str),
+           f"{V} frames; {share:.4%} of the {V * hp.shape[2] * hp.shape[3]} "
+           f"patches' voxel ids differ from B1's; first-step logits within "
+           f"{d:.4f} of the B1 route's (bound {LOGIT_ATOL}); {_card()}")
+    return d
+
+
+def run_http_serving(cfg, root: str, infos, ground_info, dev,
+                     b1_ms: float) -> dict:
+    """Phase 17: the serving stack over HTTP on a bf16 model at full width
+    and depth (seed 17): ``serve_controller`` and ``serve_worker`` on
+    127.0.0.1 in this process. (a) the sequential worker, reached through
+    the controller, answers phase 4's questions as ``generate_answer``;
+    (b) its stream's chunks are cumulative, the last equal to (a); (c) the
+    OpenAI route plain, as SSE deltas and capped at HTTP_CAPPED tokens;
+    then the cap on open engine streams (not a main path);
+    (d) a three-turn history through a prefix-cached second worker; (e)
+    two PNGs as ``image_url`` parts against ``generate_answer_images``;
+    (f) /worker_ground against ``engine.ground``; (g) a paged batcher
+    worker (8 slots, chunked prefill) on 8 concurrent requests, a client
+    that hangs up, eight distinct sampling overrides; (h) the host
+    geometry route. Every request must succeed; launches of the HTTP runs
+    are exact where stated and summed; returns them."""
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+    from video3d_tpu_torch.serve.controller import serve_controller
+    from video3d_tpu_torch.serve.model_worker import serve_worker
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(17),
+                        torch.bfloat16)
+    from fixtures import FakeTokenizer
+
+    vocab = FakeTokenizer().vocab
+    engine = _make_engine(params, cfg, root, ground_token_id=vocab["<ground>"],
+                          max_objects=GROUND_OBJECTS)
+    # FakeTokenizer numbers words at first use, and ids decode to words only
+    # once numbered: number every word the phase sends before any answer
+    # is decoded, so that a text reads the same whenever it is decoded
+    for text in (*SCANQA_TEXTS, *HTTP_BATCH_TEXTS, HTTP_IMAGE_PROMPT,
+                 GROUND_TEXTS[0], "a brown wooden chair"):
+        engine.tokenizer(text)
+    total: dict = {}
+    cport, wport = _free_port(), _free_port()
+    _, cserver = serve_controller(port=cport, background=True)
+    caddr = f"http://127.0.0.1:{cport}"
+    worker, wserver = serve_worker(engine, HTTP_MODEL, port=wport,
+                                   controller_addr=caddr, background=True,
+                                   heartbeat=False)
+    waddr = f"http://127.0.0.1:{wport}"
+    try:
+        print("(a)-(c), (e): the sequential worker:", flush=True)
+        seq = _http_sequential(engine, params, cfg, caddr, waddr, infos,
+                               b1_ms, total)
+        streams_peak = _http_open_streams(worker, infos)
+        print("(d): history through the prefix cache:", flush=True)
+        _http_history(params, cfg, root, caddr, infos[0], engine.tokenizer,
+                      total)
+        print("(f): grounding:", flush=True)
+        _http_ground(engine, waddr, ground_info, total)
+        print("(g): the batcher worker:", flush=True)
+        batched = _http_batcher(params, cfg, root, infos, engine, caddr,
+                                total)
+        print("(h): the host geometry route:", flush=True)
+        d_host = _http_host_route(params, cfg, root, infos[0], engine, total)
+        _check("(a)-(f) worker errors", worker.n_errors == 1,
+               f"{worker.n_errors} request errors (1 expected: the open "
+               f"stream past the cap) over "
+               f"{worker.n_requests} requests")
+    finally:
+        wserver.shutdown()
+        wserver.server_close()
+        cserver.shutdown()
+        cserver.server_close()
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  phase 17: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {peak / 2**30:.2f} GiB; first stream chunk after "
+          f"{seq['ttfc'] * 1e3:.1f} ms, then {seq['stream_ms']:.2f} ms per "
+          f"token (captured {b1_ms:.2f}); {worker.MAX_OPEN_STREAMS} open "
+          f"streams peak {streams_peak / 2**30:.2f} GiB; batcher "
+          f"{batched['tps']:.1f} "
+          f"tokens/s; after the eight sampling overrides peak "
+          f"{batched['override_peak'] / 2**30:.2f} GiB, the bypass engine's "
+          f"DecodeGraphs {batched['graph_entries']} entries; host route's "
+          f"first-step logits within {d_host:.4f}; launches "
+          f"{ {k: v for k, v in total.items() if v} }; {_card()}",
+          flush=True)
+    return total
+
+
 def _leaves(tree):
     from video3d_tpu_torch.models.quant import Int4Weight
 
@@ -6309,6 +7087,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         print("other inputs (phase 16):", flush=True)
         other = run_other_inputs(cfg, root, info, ground_info, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("serving over HTTP (phase 17):", flush=True)
+        http = run_http_serving(cfg, root, infos, ground_info, dev, b1_ms)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name in PROBE_KERNELS:
@@ -6324,7 +7106,8 @@ def main() -> None:
         else:
             launches = scanqa[name] + prefix[name] + serve[name] \
                 + ground[name] + decode.get(name, 0) + spec14.get(name, 0)
-        launches += lora.get(name, 0) + other.get(name, 0)
+        launches += lora.get(name, 0) + other.get(name, 0) \
+            + http.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

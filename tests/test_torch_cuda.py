@@ -186,6 +186,64 @@ def test_decode_kernel(dev, H, KV, S, lens):
     assert float((broken - ref).abs().max()) > 4 * BF16_ATOL
 
 
+# fewer live positions than CTAs (a CTA per SM: 66 per kv head at KV = 2,
+# 33 at KV = 4): some CTAs' ranges are empty, also inside a row's span
+SHORT_DECODE_CASES = [(4, 2, 528, [61]), (28, 4, 528, [20]),
+                      (8, 2, 600, [5, 0, 9, 3]), (2, 2, 528, [2])]
+
+
+@pytest.mark.parametrize("H,KV,S,lens", SHORT_DECODE_CASES)
+def test_decode_kernel_with_fewer_positions_than_ctas(dev, H, KV, S, lens):
+    """B3 where the rows' live positions number fewer than the CTAs: the
+    plain version's output, the same bits on a second call, and a launch
+    after it at full rows still right (the arrival counters left zeroed)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    NL, B, hd, layer = 2, len(lens), 128, 1
+    q = _peaked_q(g, dev, B, H)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer)
+    k_all, v_all = (x.reshape(NL, B, S, KV * hd).bfloat16() for x in (k, v))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k_all, v_all, kv_len, layer, KV)
+    got = _launched("decode_attention", call)
+    ref = da.decode_attention_plain(q.float(), k_all, v_all, kv_len, layer,
+                                    KV)
+    assert bool(torch.isfinite(got.float()).all())
+    live = [b for b, n in enumerate(lens) if n]
+    assert float((got[live].float() - ref[live]).abs().max()) <= BF16_ATOL
+    for b in (kv_len == 0).nonzero().flatten().tolist():
+        assert bool((got[b] == 0).all())           # a kv_len == 0 row
+    _same_bits(call, got)
+    full = torch.full_like(kv_len, S)
+    after = da.decode_attention(q, k_all, v_all, full, layer, KV)
+    ref_full = da.decode_attention_plain(q.float(), k_all, v_all, full,
+                                         layer, KV)
+    assert float((after.float() - ref_full).abs().max()) <= BF16_ATOL
+
+
+@pytest.mark.parametrize("form", ["bf16", "int8", "int4"])
+def test_paged_kernel_with_fewer_positions_than_ctas(dev, form):
+    """B7 over four slots of 5, 0, 9 and 3 positions (17 in all, 66 CTAs
+    per kv head): the plain version's output, the same bits twice, and a
+    launch after it at longer rows still right."""
+    q, k, v, table, kv_len, layer, KV, ks, vs = _paged_case(
+        dev, form, 21, lens=(5, 0, 9, 3))
+    name = "paged_attention" + ("" if form == "bf16" else f"_{form}")
+    call = lambda: pa.paged_decode_attention(q, k, v, table, kv_len, layer,
+                                             KV, ks, vs)
+    got = _launched(name, call)
+    ref = pa.paged_attention_plain(q.float(), k, v, table, kv_len, layer, KV,
+                                   ks, vs)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - ref).abs().max()) <= BF16_ATOL
+    _same_bits(call, got)
+    longer = torch.tensor([80, 70, 0, 45], dtype=torch.int32, device=dev)
+    after = pa.paged_decode_attention(q, k, v, table, longer, layer, KV, ks,
+                                      vs)
+    ref_long = pa.paged_attention_plain(q.float(), k, v, table, longer,
+                                        layer, KV, ks, vs)
+    assert float((after.float() - ref_long).abs().max()) <= BF16_ATOL
+
+
 FOLDED_PARAMS = [
     (28, 4, 64, [700], [740]),                 # the B=1 prefix-hit shape
     (8, 2, 100, [300, 37], [400, 100]),        # ragged, rows over 3 tiles
@@ -1231,8 +1289,10 @@ def test_reset_batcher_state_captures_anew(dev, decoders):
     engine = types.SimpleNamespace(
         params=models[16], cfg=cfg, device=dev, cache_dtype=torch.bfloat16,
         ecfg=types.SimpleNamespace(buckets=(64,), max_new_tokens=8,
-                                   eos_token_id=-1),
-        _prefix_evict_hooks=[])
+                                   eos_token_id=-1,
+                                   speculative_draft_layers=0,
+                                   speculative_k=4),
+        draft_params=None, draft_cfg=None, _prefix_evict_hooks=[])
     b = ContinuousBatcher(engine, num_slots=2, chunk=2)
     try:
         with b._lock:
@@ -1499,3 +1559,276 @@ def test_image_train_step_through_the_kernels(dev, image_batch, monkeypatch):
     p_loss, p_gn = step()
     assert np.isfinite(loss) and abs(loss - p_loss) <= 2e-3 * abs(p_loss)
     assert abs(gn - p_gn) <= 2e-2 * p_gn
+
+
+# ---- the serving stack on the card (chip_smoke phase 17's checks at a
+# small size): the HTTP worker's routes against the engine, the stream and
+# per-request overrides (eager: no captured entry added), 2D images, the
+# host-geometry route and the batcher worker
+
+
+@pytest.fixture(scope="module")
+def serving(dev, tmp_path_factory):
+    """A 2-layer decoder of head_dim 128 over the tiny tower, bf16; a
+    3-frame synthetic scene; an engine factory sharing one FakeTokenizer
+    whose words are numbered up front; a sequential worker on a free
+    port."""
+    import dataclasses
+    import os
+    import socket
+
+    from fixtures import FakeTokenizer, make_fake_scene
+
+    from video3d_tpu_torch.config import DataConfig, ModelConfig
+    from video3d_tpu_torch.data.video_processor import VideoProcessor
+    from video3d_tpu_torch.eval import drivers
+    from video3d_tpu_torch.params import init_model
+    from video3d_tpu_torch.serve.model_worker import serve_worker
+
+    tiny = ModelConfig.tiny()
+    cfg = dataclasses.replace(tiny, llm=dataclasses.replace(
+        tiny.llm, hidden_size=512, intermediate_size=1024,
+        num_attention_heads=4, num_key_value_heads=2, head_dim=128,
+        mrope_section=(32, 16, 16)))
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
+                        torch.bfloat16)
+    root = str(tmp_path_factory.mktemp("serve"))
+    info = make_fake_scene(root, n_frames=3)
+    data_cfg = DataConfig(video_folder=root,
+                          annotation_dir=os.path.join(root, "embodiedscan"),
+                          metadata_dir=os.path.join(root, "metadata"),
+                          frames_upbound=3)
+    tok = FakeTokenizer()
+    for text in ("what is in the room", "what color is it",
+                 "compare the images", "a chair"):
+        tok(text)
+
+    def engine(**kw):
+        return drivers.InferenceEngine(
+            params, cfg, tok, VideoProcessor(data_cfg),
+            engine_cfg=drivers.EngineConfig(
+                max_new_tokens=16, eos_token_id=tok.eos_token_id,
+                max_frames=3, buckets=(512,), stop_str=""),
+            device=dev, **kw)
+
+    def port():
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        p = s.getsockname()[1]
+        s.close()
+        return p
+
+    eng = engine()
+    p = port()
+    worker, server = serve_worker(eng, "tiny", port=p, background=True,
+                                  heartbeat=False)
+    yield {"cfg": cfg, "params": params, "info": info, "engine": engine,
+           "eng": eng, "addr": f"http://127.0.0.1:{p}", "port": port,
+           "worker": worker}
+    server.shutdown()
+    server.server_close()
+
+
+def _post(url, payload):
+    from video3d_tpu_torch.serve.controller import _post_json
+
+    out = _post_json(url, payload, timeout=300)
+    assert out.get("error_code", 0) == 0, out
+    return out
+
+
+def _ran(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _build.LAUNCHES.items()
+            if v != before[k]}
+
+
+def test_worker_routes_on_the_card(dev, serving):
+    """/worker_generate equals generate_answer (B1 once, B2 per layer, B3
+    per layer and captured step); the stream's last chunk equals it (B3 per
+    layer and eager step); max_new_tokens cuts it to the first ids."""
+    eng, addr, L = serving["eng"], serving["addr"], 2
+    rec = {"video": serving["info"]["sample_idx"],
+           "conversations": [{"from": "human",
+                              "value": "<image>\nwhat is in the room"},
+                             {"from": "gpt", "value": None}]}
+    want = eng.generate_answer(rec)
+    before = dict(_build.LAUNCHES)
+    out = _post(addr + "/worker_generate",
+                {"video": rec["video"],
+                 "prompt": rec["conversations"][0]["value"]})
+    ran = _ran(before)
+    assert out["text"] == want
+    assert ran["fused_geometry"] == 1 and ran["flash_attention"] == L
+    assert ran["decode_attention"] % L == 0 and ran["decode_attention"] > 0
+    stream = list(eng.generate_answer_stream(rec, chunk=4))
+    assert stream[-1] == want
+    assert all(b.startswith(a) for a, b in zip(stream, stream[1:]))
+    capped = _post(addr + "/worker_generate",
+                   {"video": rec["video"], "max_new_tokens": 3,
+                    "prompt": rec["conversations"][0]["value"]})
+    assert want.startswith(capped["text"])
+
+
+def test_stream_and_overrides_add_no_graph_entry(dev, serving):
+    """Streams and eight distinct sampling combinations decode eagerly:
+    the engine's DecodeGraphs keeps its entries and captures; top_k = 1
+    gives the greedy stream's text."""
+    eng, addr = serving["eng"], serving["addr"]
+    base = {"video": serving["info"]["sample_idx"],
+            "prompt": "<image>\nwhat is in the room", "max_new_tokens": 6}
+    _post(addr + "/worker_generate", {k: v for k, v in base.items()
+                                      if k != "max_new_tokens"})
+    stats = eng._graphs.stats()
+    greedy = _post(addr + "/worker_generate", base)["text"]
+    for i in range(7):
+        _post(addr + "/worker_generate",
+              base | {"temperature": 0.3 + 0.1 * i, "top_k": 10 + i})
+    assert _post(addr + "/worker_generate",
+                 base | {"temperature": 0.7, "top_k": 1})["text"] == greedy
+    after = eng._graphs.stats()
+    assert after["entries"] == stats["entries"]
+    assert after["captures"] == stats["captures"]
+
+
+def test_images_on_the_card(dev, serving):
+    """Two images through the worker's ``images`` field equal
+    ``generate_answer_images`` (B2 once per layer, no B1)."""
+    import base64
+    import io
+
+    from PIL import Image
+
+    eng, addr = serving["eng"], serving["addr"]
+    rng = np.random.default_rng(0)
+    imgs = [Image.fromarray(rng.integers(0, 255, (48, 64, 3), np.uint8))
+            for _ in range(2)]
+    b64 = []
+    for im in imgs:
+        buf = io.BytesIO()
+        im.save(buf, format="PNG")
+        b64.append(base64.b64encode(buf.getvalue()).decode())
+    want = eng.generate_answer_images("compare the images", imgs)
+    before = dict(_build.LAUNCHES)
+    out = _post(addr + "/worker_generate", {"prompt": "compare the images",
+                                            "images": b64})
+    ran = _ran(before)
+    assert out["text"] == want
+    assert ran.get("fused_geometry", 0) == 0 and ran["flash_attention"] == 2
+
+
+def test_host_geometry_route_on_the_card(dev, serving):
+    """``device_geometry=False``: the host route's voxel ids against B1's
+    on the same frames, its first-step logits within chip_smoke's
+    LOGIT_ATOL of the B1 route's."""
+    from video3d_tpu_torch.models import generate as gen
+
+    eng, cfg, params = serving["eng"], serving["cfg"], serving["params"]
+    host = serving["engine"](device_geometry=False)
+    video = serving["info"]["sample_idx"]
+    V, _, b1 = eng._video_arrays(video)
+    Vh, images, hp = host._video_arrays(video)
+    assert Vh == V and images.shape[1] == 3
+    assert float((b1[0, :V] != hp[0, :V]).any(-1).float().mean()) < 0.05
+    rec = {"video": video, "conversations": [
+        {"from": "human", "value": "<image>\nwhat is in the room"},
+        {"from": "gpt", "value": None}]}
+    with torch.inference_mode():
+        got, ref = (gen.prefill_multimodal(params, cfg, e._prepare_generation(
+            rec)[0], 600)[0].float() for e in (host, eng))
+    assert float((got - ref).abs().max()) <= 0.25
+    assert isinstance(host.generate_answer(rec), str)
+
+
+#: two answers through different decode paths (the batcher's rows or
+#: pages against the sequential B=1 cache) may part only where the two ids'
+#: logits lie within this of each other: a few bf16 ulps at this width's
+#: logits (|logits| < 2), where a reduction order can break a tie apart
+SERVE_TIE = 1.0 / 16
+
+
+def _tie_gap(engine, rec, want, got):
+    """None when the id lists are equal, else the two ids' logit distance
+    at their first difference, teacher-forced along ``want`` (B3 steps
+    after a full prefill)."""
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import qwen2
+
+    m = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+    if m is None:
+        assert len(want) == len(got)
+        return None
+    batch, vf = engine._prepare_generation(rec)
+    params, cfg, llm = engine.params, engine.cfg, engine.params["llm"]
+    with torch.inference_mode():
+        logits, cache, pos = gen.prefill_multimodal(
+            params, cfg, batch, batch.text_ids.shape[1] + len(want) + 1, vf)
+        pos = pos.long()
+        for t in want[:m]:
+            h = qwen2.qwen2_forward(
+                llm, cfg.llm, qwen2.embed_tokens(llm, torch.tensor(
+                    [[t]], device=pos.device)),
+                gen._decode_position_ids(pos[:, None]), kv_cache=cache,
+                cache_positions=pos[:, None], kv_len=pos + 1)
+            logits = qwen2.lm_head(llm, h)[:, 0]
+            pos = pos + 1
+    row = logits[0].float()
+    return float((row[want[m]] - row[got[m]]).abs())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_batcher_worker_on_the_card(dev, serving, paged):
+    """serve_worker(num_slots=4): four concurrent requests, each the
+    sequential engine's ids up to a near-tie (SERVE_TIE); every slot and
+    page back after."""
+    import threading
+
+    from video3d_tpu_torch.serve.model_worker import serve_worker
+
+    eng = serving["eng"]
+    video = serving["info"]["sample_idx"]
+    prompts = ["<image>\nwhat is in the room", "<image>\nwhat color is it"]
+    recs = [{"video": video, "conversations": [
+        {"from": "human", "value": p}, {"from": "gpt", "value": None}]}
+        for p in prompts]
+    want = []
+    for r in recs:
+        res = eng._generate(*eng._prepare_generation(r))
+        want.append(res.tokens[0, :int(res.lengths[0])].tolist())
+    beng = serving["engine"]()
+    seen = []
+    inner = beng._decode_text
+
+    def decode(toks):
+        seen.append([int(t) for t in toks])
+        return inner(toks)
+
+    beng._decode_text = decode
+    port = serving["port"]()
+    worker, server = serve_worker(beng, "tiny-b", port=port,
+                                  background=True, heartbeat=False,
+                                  num_slots=4, paged=paged, page_size=64)
+    try:
+        out = [None] * 4
+
+        def hit(i):
+            out[i] = _post(f"http://127.0.0.1:{port}/worker_generate",
+                           {"video": video, "prompt": prompts[i % 2]})
+
+        threads = [threading.Thread(target=hit, args=(i,)) for i in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        for i, o in enumerate(out):
+            got = next(ids for ids in seen if inner(ids) == o["text"])
+            gap = _tie_gap(eng, recs[i % 2], want[i % 2], got)
+            assert gap is None or gap <= SERVE_TIE, (i, gap)
+        m = _post(f"http://127.0.0.1:{port}/worker_metrics", {})
+        assert m["slots_in_use"] == 0 and m["requests_total"] == 4
+        if paged:
+            assert m["pages_free"] == m["pages"]
+    finally:
+        worker.batcher.shutdown()
+        server.shutdown()
+        server.server_close()

@@ -37,7 +37,14 @@ def test_port_modules_are_listed():
                  "video3d_tpu_torch.ops.box",
                  "video3d_tpu_torch.data.anyres",
                  "video3d_tpu_torch.data.video_file",
-                 "video3d_tpu_torch.models.anyres"):
+                 "video3d_tpu_torch.models.anyres",
+                 "video3d_tpu_torch.eval.interleave",
+                 "video3d_tpu_torch.serve.controller",
+                 "video3d_tpu_torch.serve.model_worker",
+                 "video3d_tpu_torch.serve.router",
+                 "video3d_tpu_torch.serve.register_worker",
+                 "video3d_tpu_torch.serve.cli",
+                 "video3d_tpu_torch.serve.web"):
         assert name in mods
 
 

@@ -87,7 +87,10 @@
 // CTA to arrive resets the counter (the wrapper zeroes the counters once
 // per stream), brings the row's slices into its free rings by one bulk
 // copy each and merges them in CTA order, so an output is bit-identical
-// from run to run. At B=1 a row's 33 slices (120 KB) take that one SM
+// from run to run. With fewer live positions than CTAs (T < splits) some
+// CTAs' ranges are empty, also between a row's first and last CTA: each
+// non-empty range then holds one position, and a row's slices are those
+// of the CTAs of its positions (slice_cta), one per position. At B=1 a row's 33 slices (120 KB) take that one SM
 // ~2.6 us: its read rate, not latency, bounds the merge. One launch per
 // call; the wrapper allocates only the output.
 
@@ -792,9 +795,20 @@ __device__ void end_segment(const Params<Map>& p, int b, bool whole,
   *reinterpret_cast<float4*>(part + 2 * kMaxG + h * kHd + d0) = acc;
 }
 
-// The slices of row b held by CTAs first .. last, merged in CTA order and
-// written (every thread calls it). CTA c > first holds its slice in its
-// first slot (its range begins in the row), `first` in slot first_slot.
+// The CTA holding the k-th slice of a row whose positions begin at `base`
+// on the line of `total` positions: first + k while every CTA holds a
+// position (total >= splits), else the CTA of the row's k-th position.
+__device__ __forceinline__ int slice_cta(int splits, int first, int k,
+                                         long long base, long long total) {
+  return total >= splits
+             ? first + k
+             : static_cast<int>(((base + k + 1) * splits - 1) / total);
+}
+
+// The n slices of row b (line positions from `base`, of `total`), the
+// first held by CTA `first`, merged in CTA order and written (every
+// thread calls it). A CTA after `first` holds its slice in its first slot
+// (its range begins in the row), `first` in slot first_slot.
 // The slices come into shared memory (buf: the rings and the merge area,
 // free once the CTA's stream has ended, `cap` slices at a time), one bulk
 // copy of the live heads' (m, l, O) each, counted on `bar` (its phase
@@ -803,11 +817,11 @@ __device__ void end_segment(const Params<Map>& p, int b, bool whole,
 // sum in CTA order (each round rescaled onto the running max as in the
 // online softmax).
 template <typename Map>
-__device__ void merge_row(const Params<Map>& p, int first, int last,
-                          int first_slot, int b, unsigned char* buf, int cap,
+__device__ void merge_row(const Params<Map>& p, int first, int n,
+                          int first_slot, int b, long long base,
+                          long long total, unsigned char* buf, int cap,
                           uint64_t* bar, int& phase) {
   const int tid = threadIdx.x, h = tid / 32, d0 = 4 * (tid % 32);
-  const int n = last - first + 1;
   const int bytes = (2 * kMaxG + p.G * kHd) * 4;
   const uint32_t buf_s = smem_u32(buf);
   const float* sl = reinterpret_cast<const float*>(buf);
@@ -818,7 +832,7 @@ __device__ void merge_row(const Params<Map>& p, int first, int last,
     if (tid == 0) mbar_arrive_tx(bar, cnt * bytes);
     named_sync(kMergeBar, kThreads);
     if (tid < cnt) {
-      const int c = first + c0 + tid;
+      const int c = slice_cta(p.splits, first, c0 + tid, base, total);
       // the slices were stored by other CTAs (acquired above): order
       // them before this thread's bulk copy
       asm volatile("fence.proxy.async.global;" ::: "memory");
@@ -897,7 +911,8 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
         *reinterpret_cast<uint2*>(out_at(p.out, b, p.H, p.G, h, d0)) =
             make_uint2(0u, 0u);
   }
-  int pend_b[2], pend_first[2], pend_last[2], pend_slot[2];
+  int pend_b[2], pend_first[2], pend_n[2], pend_slot[2];
+  long long pend_base[2];
   int pending = 0;
   WarpState st;
   st.reset();
@@ -923,7 +938,10 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
     if (first != last) {
       pend_b[pending] = sg.b;
       pend_first[pending] = first;
-      pend_last[pending] = last;
+      // the row's slices: every CTA first .. last, or one per position
+      // where some ranges are empty (slice_cta)
+      pend_n[pending] = walk.total >= p.splits ? last - first + 1 : sg.n;
+      pend_base[pending] = sg.base;
       // the slot of `first`'s slice: 0 where its range begins in the row
       pend_slot[pending] = first * walk.total / p.splits >= sg.base ? 0 : 1;
       ++pending;
@@ -939,8 +957,7 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
   if (tid == 0) {
     for (int k = 0; k < pending; ++k) {
       int* counter = p.counters + pend_b[k] * p.KV + blockIdx.y;
-      const bool last =
-          atom_add_acq_rel(counter, 1) == pend_last[k] - pend_first[k];
+      const bool last = atom_add_acq_rel(counter, 1) == pend_n[k] - 1;
       if (last) *counter = 0;          // the next launch finds it zeroed
       flags[k] = last;
     }
@@ -949,8 +966,9 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
   int phase = 0;
   for (int k = 0; k < pending; ++k)
     if (flags[k])
-      merge_row(p, pend_first[k], pend_last[k], pend_slot[k], pend_b[k],
-                base, merge_capacity<T>(), merge_bar, phase);
+      merge_row(p, pend_first[k], pend_n[k], pend_slot[k], pend_b[k],
+                pend_base[k], walk.total, base, merge_capacity<T>(),
+                merge_bar, phase);
 }
 
 // Checks the shapes and the plan, launches; returns a cudaError_t. The

@@ -30,11 +30,22 @@ shares its frames and its spliced prefix):
   of each scene's object features beside its prefix entry, so a hit
   prefills only the query suffix (``ground_suffix``).
 
-Two entry points outside the 3D scenes (JAX's legacy modalities): a real
+Entry points outside the 3D scenes (JAX's legacy modalities): a real
 video file (``generate_answer_video_file``: frames sampled with the decord
-contract, no world PE) and a 2D image (``generate_answer_image``: the
+contract, no world PE), a 2D image (``generate_answer_image``: the
 ``pad``, ``anyres``, ``highres`` and ``crop_split`` tilings with the
-``flat``, ``spatial`` and ``spatial_unpad`` merges).
+``flat``, ``spatial`` and ``spatial_unpad`` merges) and several 2D images
+in one chat (``generate_answer_images``: each at its own ``<image>``
+sentinel, its full unpooled grid).
+
+The serving entry points (``serve/model_worker.py``): multi-turn records
+(every turn through ``preprocess_qwen_eval``), ``generate_answer_stream``
+(the cumulative text after every chunk of decode steps, one prefill) and
+per-call budgets and sampling settings. Streams and per-call overrides
+decode eagerly, in host-driven chunks: a captured entry's static state is
+shared by every caller of its shapes, and a generator may not hold the
+holder's lock across a ``yield``; ``generate_answer`` keeps its captured
+decode.
 
 Host code (tokenization, frame IO, image preprocessing, splice planning) is
 the port's own copy of the JAX package's (``video3d_tpu_torch/data``,
@@ -69,7 +80,7 @@ from video3d_tpu_torch.models.beam_search import generate_beam
 from video3d_tpu_torch.models.decode_graph import DecodeGraphs
 from video3d_tpu_torch.models import speculative as spec
 from video3d_tpu_torch.models.generate import (ChunkedPrefill, DecodeState,
-                                               GenerateResult,
+                                               GenerateResult, decode_chunk,
                                                generate_from_state,
                                                generate_greedy, ground_suffix,
                                                start_decode,
@@ -172,16 +183,21 @@ class InferenceEngine:
     ``params`` come from :func:`video3d_tpu_torch.params.init_model` or
     :func:`~video3d_tpu_torch.params.from_jax_params` and live on
     ``device`` (default: the first CUDA card; without one the default
-    raises, see :func:`~video3d_tpu_torch.params.resolve_device`). Voxel
-    ids always come from the fused geometry kernel on the raw depths (the
-    JAX engine's ``device_geometry=True`` path).
+    raises, see :func:`~video3d_tpu_torch.params.resolve_device`). With
+    ``device_geometry`` (the default, as JAX's off the CPU) the answers'
+    voxel ids come from the fused geometry kernel on the raw depths;
+    without it from the host geometry of ``process_3d_video``, patch means
+    and the clip / round discretization (JAX's host route, the grounding
+    route's arrays). Grounding always takes the host route: its masks need
+    every pixel's coordinates.
     """
 
     def __init__(self, params, model_cfg: ModelConfig, tokenizer,
                  video_processor: VideoProcessor,
                  image_processor: Optional[SigLipImageProcessor] = None,
                  engine_cfg: Optional[EngineConfig] = None,
-                 device=None):
+                 device=None, device_geometry: bool = True):
+        self.device_geometry = bool(device_geometry)
         self.params = params
         self.cfg = model_cfg
         self.tokenizer = tokenizer
@@ -270,8 +286,14 @@ class InferenceEngine:
                 f"fails on it too)")
 
     def _video_arrays(self, video_id: str):
+        """(V, images, patch voxel ids) of an answer: B1's on the V real
+        frames, or the host route's zero-padded to ``max_frames`` (the
+        plan indexes only the V real frames either way)."""
         self._check_pooling()
-        return self._video_arrays_device(video_id)
+        if self.device_geometry:
+            return self._video_arrays_device(video_id)
+        _, V, images, _, patch = self._video_arrays_full(video_id)
+        return V, images, patch
 
     def _video_arrays_full(self, video_id: str):
         """(video dict, V, images (1, Vmax, 3, S, S), per-pixel world
@@ -325,9 +347,25 @@ class InferenceEngine:
         return qs
 
     def _tokenize_prompt(self, record):
-        """Prompt ids with an empty assistant turn (single human turn)."""
-        if len(record["conversations"]) > 2:
-            raise NotImplementedError("multi-turn records are not ported")
+        """Prompt ids with an empty assistant turn: the one source of the
+        template for generation and for the router's footprints (JAX
+        :428). A record of more than two turns is a multi-turn chat: every
+        turn goes through ``preprocess_qwen_eval``, ``extra_prompt`` is
+        prepended to turn 0, and ``<image>`` is put in turn 0 only when no
+        turn carries one (a second sentinel would break the splice plan's
+        one-image contract); the trailing ``{"from": "gpt", "value":
+        None}`` opens the answer. The scene-prefix cache still applies:
+        the prefix (system, turn 0's header, the vision block) does not
+        depend on the history, only the suffix grows with it."""
+        convs = record["conversations"]
+        if len(convs) > 2:
+            source = [dict(c) for c in convs]
+            source[0]["value"] = self.ecfg.extra_prompt + source[0]["value"]
+            if all(DEFAULT_IMAGE_TOKEN not in (c.get("value") or "")
+                   for c in source):
+                source[0]["value"] = (f"{DEFAULT_IMAGE_TOKEN}\n"
+                                      f"{source[0]['value']}")
+            return preprocess_qwen_eval(source, self.tokenizer)
         question = {"from": "human", "value": self._question_text(record)}
         return preprocess_qwen_eval(
             [question, {"from": "gpt", "value": None}], self.tokenizer)
@@ -802,6 +840,86 @@ class InferenceEngine:
         return self._texts(self._generate(*self._prepare_generation(
             record, box_input, coord_token_id)))[0]
 
+    # ------------- streams and per-call overrides -------------
+
+    def _budget(self, max_new_tokens: Optional[int]) -> int:
+        """A per-call token budget, at most the engine's."""
+        if max_new_tokens is None:
+            return self.ecfg.max_new_tokens
+        return max(0, min(self.ecfg.max_new_tokens, int(max_new_tokens)))
+
+    def _call_sampling(self, temperature=None, top_p=None, top_k=None
+                       ) -> dict:
+        """The decode loops' sampling keywords with per-call overrides."""
+        s = self.ecfg.sampling()
+        for k, v, cast in (("temperature", temperature, float),
+                           ("top_p", top_p, float), ("top_k", top_k, int)):
+            if v is not None:
+                s[k] = cast(v)
+        return s
+
+    def _host_chunks(self, state: DecodeState, chunk: int, budget: int,
+                     sampling: dict):
+        """Decode a B=1 state in host-driven chunks of ``chunk`` steps
+        (JAX's ``decode_chunk`` loop, :963), yielding the ids emitted so
+        far after each chunk; the last chunk is cut to the budget, and the
+        loop ends after the chunk that emits EOS. The chunks run eagerly
+        on the caller's own state: no captured entry, no holder's lock
+        held across a ``yield``."""
+        if chunk <= 0:
+            raise ValueError("chunk must be positive")
+        eos = self.ecfg.eos_token_id
+        emitted: list = []
+        remaining = budget
+        while remaining > 0:
+            state, toks = decode_chunk(self.params, self.cfg, state,
+                                       chunk=min(chunk, remaining),
+                                       eos_token_id=eos, capture=False,
+                                       **sampling)
+            for t in toks[0].tolist():
+                if t == eos:
+                    remaining = 0
+                    break
+                emitted.append(t)
+                remaining -= 1
+            yield emitted
+            if bool(state.done[0]):
+                break
+
+    def _stream_state(self, record, box_input=None, coord_token_id=None
+                      ) -> DecodeState:
+        """A request's prefilled B=1 state: through the scene-prefix cache
+        when it is on (JAX ``_start_state``, :755), else a full prefill
+        into bucket + ``max_new_tokens`` slots."""
+        if self._prefix_cache_on(record):
+            return self.start_request(self.prepare_request(
+                record, box_input, coord_token_id))
+        batch, vision_features = self._prepare_generation(
+            record, box_input, coord_token_id)
+        return start_decode(self.params, self.cfg, batch,
+                            batch.text_ids.shape[1]
+                            + self.ecfg.max_new_tokens,
+                            vision_features, self.cache_dtype)
+
+    def generate_answer_stream(self, record, box_input=None,
+                               coord_token_id=None, chunk: int = 16,
+                               max_new_tokens: Optional[int] = None,
+                               temperature: Optional[float] = None,
+                               top_p: Optional[float] = None,
+                               top_k: Optional[int] = None):
+        """Streaming :meth:`generate_answer` (JAX :921): yields the
+        cumulative text after every ``chunk`` decoded tokens; the prefill
+        runs once. ``max_new_tokens`` caps this call's answer (at most the
+        engine's budget); ``temperature`` / ``top_p`` / ``top_k`` override
+        the engine's sampling for this call only. The chunks run eagerly
+        (see :meth:`_host_chunks`); their draws equal a captured loop's,
+        the hash being keyed by seed, step, row and token."""
+        sampling = self._call_sampling(temperature, top_p, top_k)
+        budget = self._budget(max_new_tokens)
+        state = self._stream_state(record, box_input, coord_token_id)
+        for emitted in self._host_chunks(state, chunk, budget, sampling):
+            yield self._decode_text(emitted)
+
     # ------------- real video files and 2D images -------------
 
     def _chat_ids(self, text: str):
@@ -926,6 +1044,92 @@ class InferenceEngine:
             patch_merge_type, crop_resolution, split_resolution)
         return self._texts(self._generate(batch, vision_features=feat))[0]
 
+    def prepare_images(self, prompt: Optional[str], images,
+                       conversations: Optional[Sequence[dict]] = None):
+        """Host half and vision encode of :meth:`generate_answer_images`:
+        (batch, the (1, N * P, D) block of the N images, frame-major)."""
+        from PIL import Image
+
+        from video3d_tpu_torch.data.anyres import expand2square
+        from video3d_tpu_torch.models.anyres import encode_tiles
+
+        N = len(images)
+        if N < 1:
+            raise ValueError("generate_answer_images needs at least one "
+                             "image")
+        if conversations is not None:
+            convs = [dict(c) for c in conversations]
+            have = sum((c.get("value") or "").count(DEFAULT_IMAGE_TOKEN)
+                       for c in convs)
+            if have > N:
+                raise ValueError(f"{have} <image> placeholders but only "
+                                 f"{N} images")
+            if have < N:
+                convs[0]["value"] = ((DEFAULT_IMAGE_TOKEN + "\n")
+                                     * (N - have)) + (convs[0].get("value")
+                                                      or "")
+            if convs[-1].get("value"):       # open the answer turn
+                convs.append({"from": "gpt", "value": None})
+            ids = preprocess_qwen_eval(convs, self.tokenizer)
+        else:
+            have = prompt.count(DEFAULT_IMAGE_TOKEN)
+            if have > N:
+                raise ValueError(f"{have} <image> placeholders but only "
+                                 f"{N} images")
+            prompt = (DEFAULT_IMAGE_TOKEN + "\n") * (N - have) + prompt
+            ids = preprocess_qwen_eval(
+                [{"from": "human", "value": prompt},
+                 {"from": "gpt", "value": None}], self.tokenizer)
+        bg = tuple(int(x * 255) for x in self.ip.image_mean)
+        pil = [im if isinstance(im, Image.Image)
+               else Image.fromarray(np.asarray(im).astype(np.uint8))
+               for im in images]
+        px = self.ip.preprocess([expand2square(im.convert("RGB"), bg)
+                                 for im in pil])
+        tiles = torch.from_numpy(np.asarray(px, np.float32)).to(self.device)
+        with torch.inference_mode():
+            feats = encode_tiles(self.params, self.cfg, tiles)  # (N, P, D)
+        T = int(feats.shape[1])
+        L = pick_bucket(len(ids) + N * T + self.ecfg.max_new_tokens,
+                        self.ecfg.buckets)
+        plan = build_splice_plan([ids], None, [N], tokens_per_frame=T,
+                                 max_len=L, grid_side=1,
+                                 truncate_to=self.cfg.tokenizer_model_max_length)
+        return self._batch_from_plan(plan), feats.reshape(1, N * T, -1)
+
+    def generate_answer_images(self, prompt: Optional[str], images,
+                               conversations: Optional[Sequence[dict]] = None,
+                               max_new_tokens: Optional[int] = None,
+                               temperature: Optional[float] = None,
+                               top_p: Optional[float] = None,
+                               top_k: Optional[int] = None) -> str:
+        """Multi-image 2D chat (JAX :1108; the reference's
+        gradio_multi_image contract and llava_arch.py:441-470's image-list
+        branch): N images, each ``expand2square``'d onto the mean colour,
+        through the tower and the projector at its full unpooled grid (no
+        2D pool, no world PE), each spliced at its own ``<image>``
+        sentinel. Missing sentinels are prepended (in turn 0 when
+        ``conversations``, a full human / gpt history, is given; ``prompt``
+        is then ignored). ``max_new_tokens`` and the sampling overrides
+        apply to this call only, through the host-chunked decode of
+        :meth:`generate_answer_stream`; without them the answer is
+        :meth:`_generate`'s."""
+        batch, feat = self.prepare_images(prompt, images, conversations)
+        if (max_new_tokens is None and temperature is None
+                and top_p is None and top_k is None):
+            return self._texts(self._generate(batch,
+                                              vision_features=feat))[0]
+        state = start_decode(self.params, self.cfg, batch,
+                             batch.text_ids.shape[1]
+                             + self.ecfg.max_new_tokens,
+                             feat, self.cache_dtype)
+        emitted: list = []
+        for emitted in self._host_chunks(
+                state, 16, self._budget(max_new_tokens),
+                self._call_sampling(temperature, top_p, top_k)):
+            pass
+        return self._decode_text(emitted)
+
     # ------------- batched generation -------------
 
     def prepare_answers_batch(self, records: Sequence[dict],
@@ -947,8 +1151,8 @@ class InferenceEngine:
         patch = arrays[0][2].new_zeros((len(records), Vc,
                                         *arrays[0][2].shape[2:]))
         for b, (V, im, pc) in enumerate(arrays):
-            images[b, :V] = im[0]
-            patch[b, :V] = pc[0]
+            images[b, :V] = im[0, :V]
+            patch[b, :V] = pc[0, :V]
         return self._batch_from_plan(plan, images, patch, box_inputs)
 
     def answers_from_batch(self, batch) -> List[str]:

@@ -78,6 +78,27 @@ class DecodePlan:
         ``Walk::cta_of``)."""
         return ((x + 1) * self.splits - 1) // total
 
+    def slices(self, kv_len: Sequence[int]) -> List[List[int]]:
+        """Per row, the CTAs whose slices the kernel merges, in merge order
+        (its ``slice_cta``): every CTA from the row's first to its last
+        while each CTA holds a position, else (fewer live positions than
+        CTAs, some ranges empty) the CTA of each of the row's positions;
+        [] for a row that one CTA holds whole, or that has no position."""
+        lens = self.lens(kv_len)
+        total = sum(lens)
+        out, base = [], 0
+        for n in lens:
+            first = self.cta_of(base, total) if n else 0
+            last = self.cta_of(base + n - 1, total) if n else 0
+            if first == last:
+                out.append([])
+            elif total >= self.splits:
+                out.append(list(range(first, last + 1)))
+            else:
+                out.append([self.cta_of(base + k, total) for k in range(n)])
+            base += n
+        return out
+
     def segments(self, kv_len: Sequence[int]
                  ) -> List[Tuple[int, int, int, int]]:
         """(cta, row, s0, s1) of every segment, positions [s0, s1) of the
