@@ -285,6 +285,27 @@ Phases, each of which raises on failure (the process then exits non-zero):
    captured decode and its stream through the eager one, each with exact
    launches, the stream's ms per token beside 15c's captured ms/token, an
    unknown name a 404).
+18. Variants and real weights (``run_variants_and_weights``), on a bf16
+   ``ModelConfig()`` drawn on the card: (a) w8a8 (``quantize_tree(act=
+   "int8")``) and int8 weight-only trees of the same weights, the w8a8
+   first-step logits within W8A8_GAP_FACTOR times the int8 model's RMS
+   distance to the bf16 model's (control: the w8a8 scales left off, at
+   least 4x the bound), phase 4's path on both (exact launches, one
+   ``torch._int_mm`` per projection and head of every forward, counted as
+   ``int_mm_w8a8``; captured ms/token, prefill, peak), the first 8 ids of
+   each answer the int8 model's up to a near-tie, one B=8 suffix batch on
+   a cached prefix; (b) one llava3d answer (budget 3096), the dedup's
+   means against a float64 host loop over the same pooled features and
+   order, the voxel count, the block's length, the dedup's and the
+   block prefill's ms; (c) FRAME and NO_TOKEN answers (197 / 196 tokens a
+   frame), a prefix hit's ids the miss's up to a near-tie, ONE_TOKEN
+   refused; (d) an ``mlp2x_res2x_gelu`` projector: an answer, its bf16
+   output within 2^-5 of max |out| of its f32 version (control: the raw
+   input as the residual); (e) a REAL_LAYERS-layer model at full width
+   exported (``export_llava_checkpoint``, f32 safetensors) and loaded
+   (``load_pretrained_model``): the tree bit for bit, the greedy ids
+   equal, the file's bytes and the write and load seconds. The phase's
+   seconds, peak and launches, with the card's name and power limit.
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -2344,9 +2365,12 @@ def _expected_launches(params, kv_cache_dtype: str, layers: int,
     7 projections per layer on at most 8 rows, and every generate call one
     lm_head at its prefill and one per decode forward, on its B rows. int4
     runs B8 on all of them; int8 runs B4's B>1 form on the projections and
-    on heads of 2-32 rows, B4's matvec on one-row heads."""
+    on heads of 2-32 rows, B4's matvec on one-row heads. w8a8 calls
+    ``torch._int_mm`` once per projection of every forward, prefills
+    included, and once per head."""
     from video3d_tpu_torch.kernels import _build
-    from video3d_tpu_torch.models.quant import Int4Weight, is_quantized
+    from video3d_tpu_torch.models.quant import (W8A8_COUNT, Int4Weight,
+                                                W8A8Weight, is_quantized)
 
     expected = dict.fromkeys(_build.LAUNCHES, 0)
     expected.update(per_path, decode_attention=layers * forwards)
@@ -2359,7 +2383,11 @@ def _expected_launches(params, kv_cache_dtype: str, layers: int,
     heads = [(int(res.tokens.shape[0]), 1 + _forwards(res))
              for res in results]
     projections = 7 * layers * forwards
-    if isinstance(head, Int4Weight):
+    if isinstance(head, W8A8Weight):
+        # torch._int_mm on every projection of the prefills too
+        expected[W8A8_COUNT] = 7 * layers * (forwards + len(results)) \
+            + sum(n for _, n in heads)
+    elif isinstance(head, Int4Weight):
         expected["int4_matmul"] = projections + sum(n for _, n in heads)
     elif is_quantized(head):
         expected["int8_matmul"] = projections + sum(n for b, n in heads
@@ -2369,13 +2397,15 @@ def _expected_launches(params, kv_cache_dtype: str, layers: int,
 
 
 def _answer_file(root: str, path: str, params, kv_cache_dtype: str) -> str:
-    """A fresh answer file per configuration (the drivers append)."""
-    from video3d_tpu_torch.models.quant import Int4Weight, is_quantized
+    """A fresh answer file per configuration (the drivers append; a file
+    of an earlier run of the same configuration is removed)."""
+    from video3d_tpu_torch.models.decode_graph import weight_form
 
-    head = params["llm"]["lm_head"]
-    weights = "int4" if isinstance(head, Int4Weight) \
-        else "int8" if is_quantized(head) else "bf16"
-    return os.path.join(root, f"{path}_{weights}_{kv_cache_dtype}.jsonl")
+    out = os.path.join(root, f"{path}_{weight_form(params)}_"
+                             f"{kv_cache_dtype}.jsonl")
+    if os.path.exists(out):
+        os.remove(out)
+    return out
 
 
 def _read_jsonl(path: str):
@@ -6971,6 +7001,410 @@ def run_http_serving(cfg, root: str, infos, ground_info, dev,
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the variants and real weights
+# ---------------------------------------------------------------------------
+
+# (a) w8a8: the first-step logits of the w8a8 model lie within
+# W8A8_GAP_FACTOR times the int8 weight-only model's own distance to the
+# bf16 model's (RMS over the vocabulary, the same question and weights):
+# w8a8 keeps the int8 weights and rounds the activations too, one more
+# rounding of the same size; the control (the weights' scales left off)
+# must read at least 4x the bound
+W8A8_GAP_FACTOR = 2.0
+W8A8_BATCH = 8                 # the batched hit's rows
+LLAVA3D_BUDGET = 3096          # the reference's voxel budget
+REAL_LAYERS = 2                # (e)'s decoder depth
+NEWLINE_TOKENS = {"frame": 197, "no_token": 196}   # at g = 14
+
+
+def _rms(a, b) -> float:
+    import torch
+
+    d = (a.float() - b.float())
+    if not bool(torch.isfinite(d).all()):
+        return float("inf")
+    return float(d.pow(2).mean().sqrt())
+
+
+def _w8a8_phase(params, cfg, root: str, info, total: dict) -> None:
+    """(a): int8 weight-only and w8a8 trees made from phase 18's bf16
+    weights; the logit bound and its control, phase 4's path on both
+    (captured ms/token, prefill, peak, exact launches: one
+    ``torch._int_mm`` per projection and head of every forward), the ids
+    of the two answers up to a near-tie, one B=8 suffix batch on a
+    cached prefix."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import llava_video3d as lv3d
+    from video3d_tpu_torch.models import quant
+
+    int8 = quant.quantize_tree(params, bits=8)
+    w8a8 = quant.quantize_tree(params, bits=8, act="int8")
+    engine = _make_engine(params, cfg, root)
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "w8a8")[0]
+    batch, vf = engine._prepare_generation(q)
+    with torch.inference_mode():
+        vf = lv3d.encode_video(params, cfg, batch.images,
+                               batch.patch_coords).spliceable
+    l16 = _first_step_logits(params, cfg, batch, vf)
+    l8 = _first_step_logits(int8, cfg, batch, vf)
+    lw = _first_step_logits(w8a8, cfg, batch, vf)
+    gap = _rms(l8, l16)
+    bound = W8A8_GAP_FACTOR * gap
+    d = _rms(lw, l8)
+    _check("(a) w8a8 first-step logits vs int8 weight-only", d <= bound,
+           f"RMS {d:.4f} (max |d| {float((lw - l8).abs().max()):.4f}); "
+           f"bound {W8A8_GAP_FACTOR} x the int8 vs bf16 RMS {gap:.4f} = "
+           f"{bound:.4f}; w8a8 vs bf16 RMS {_rms(lw, l16):.4f}")
+    bare = {k: v for k, v in w8a8.items()}
+    bare["llm"] = _unscaled(w8a8["llm"])
+    c = _rms(_first_step_logits(bare, cfg, batch, vf), l8)
+    _check("(a) control, the w8a8 weights' scales left off",
+           c >= 4 * bound, f"RMS {c:.4f} (must be >= {4 * bound:.4f})")
+    del bare
+    # a divergence of the answers is a near-tie when the two ids' logits
+    # lie within twice the first-step distance of the two models
+    tie = 2 * float((lw - l8).abs().max())
+    rows = {}
+    for tag, p in (("int8 weight-only", int8), ("w8a8", w8a8)):
+        print(f"  (a) {tag}, phase 4's path (bf16 KV cache):", flush=True)
+        res = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        part, ms = run_main_path(p, cfg, root, info, results=res)
+        rows[tag] = (ms, torch.cuda.max_memory_allocated(), res)
+        _add_launches(total, part)
+    steps = _forwards(rows["w8a8"][2][0])
+    per_step = 7 * cfg.llm.num_hidden_layers + 1
+    print(f"  (a) torch._int_mm calls: {per_step} a decode step (7 x "
+          f"{cfg.llm.num_hidden_layers} projections + the head) and "
+          f"{per_step} a prefill; the answer's {steps} steps", flush=True)
+    eos = engine.ecfg.eos_token_id
+    eng8 = _make_engine(int8, cfg, root)
+    for i, (a, b) in enumerate(zip(rows["int8 weight-only"][2],
+                                   rows["w8a8"][2])):
+        want = _with_eos(a.tokens[0, :int(a.lengths[0])].tolist(), eos,
+                         MAX_NEW)
+        got = _with_eos(b.tokens[0, :int(b.lengths[0])].tolist(), eos,
+                        MAX_NEW)
+        qi = _questions(info["sample_idx"], SCANQA_TEXTS, "smoke")[i]
+        _near_tie_check(f"(a) answer {i}: w8a8 ids vs int8's first 8",
+                        int8, cfg, eng8, qi, want[:8], got[:8], tie)
+    print(f"  (a) captured B=1 decode: w8a8 {rows['w8a8'][0]:.2f} ms/token, "
+          f"int8 weight-only {rows['int8 weight-only'][0]:.2f} (phase 6's "
+          f"int8 line above: int8 weights and an int8 KV cache); peaks "
+          f"{rows['w8a8'][1] / 2**30:.2f} / "
+          f"{rows['int8 weight-only'][1] / 2**30:.2f} GiB; {_card()}",
+          flush=True)
+    # one batched hit: W8A8_BATCH questions on the cached scene prefix
+    eng = _make_engine(w8a8, cfg, root, prefix_cache_scenes=2)
+    qs = _questions(info["sample_idx"], PREFIX_TEXTS[:W8A8_BATCH], "w8b")
+    eng.generate_answer(qs[0])
+    before = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = eng.generate_answers_batch_prefix(qs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    part = _launch_delta(before)
+    _add_launches(total, part)
+    res = eng.results[-1]
+    _check("(a) w8a8 B=8 suffix batch on the cached prefix",
+           len(texts) == W8A8_BATCH and eng.prefix_cache_stats[0]
+           == W8A8_BATCH and int(res.tokens.shape[0]) == W8A8_BATCH,
+           f"{len(texts)} answers, prefix hits {eng.prefix_cache_stats}, "
+           f"{int(res.lengths.sum())} ids in {wall:.3f} s; "
+           f"torch._int_mm calls {part[quant.W8A8_COUNT]}")
+    _decode_forwards([res], cfg.llm.vocab_size)
+    del int8, w8a8, engine, eng, eng8
+
+
+def _unscaled(tree):
+    """``tree`` with every W8A8Weight's scales set to 1 (the control)."""
+    from video3d_tpu_torch.models.quant import W8A8Weight
+
+    if isinstance(tree, W8A8Weight):
+        return W8A8Weight(tree.q, tree.scale.new_ones(tree.scale.shape))
+    if isinstance(tree, dict):
+        return {k: _unscaled(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_unscaled(v) for v in tree]
+    return tree
+
+
+def _llava3d_phase(params, cfg, root: str, info, total: dict) -> None:
+    """(b): one llava3d answer (budget 3096) on phase 18's weights; the
+    dedup's means against a float64 host loop over the same pooled
+    features and the order the engine drew; the voxel count, the block's
+    length, the dedup's and the block prefill's ms."""
+    import numpy as np
+    import torch
+
+    from video3d_tpu_torch.config import World3DConfig
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import llava_video3d as lv3d
+    from video3d_tpu_torch.ops.voxel_dedup import (linearize_voxels,
+                                                   voxel_dedup_features)
+
+    cfg3 = dataclasses.replace(cfg, world_3d=dataclasses.replace(
+        World3DConfig.from_reference_string("avg-discrete-llava3d"),
+        llava3d_budget=LLAVA3D_BUDGET))
+    engine = _make_engine(params, cfg3, root)
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "l3d")[0]
+    engine.generate_answer(q)                     # warm-up, not counted
+    before = dict(_build.LAUNCHES)
+    text = engine.generate_answer(q)
+    torch.cuda.synchronize()
+    _add_launches(total, _launch_delta(before))
+    res = engine.results[-1]
+    _decode_forwards([res], cfg.llm.vocab_size)
+    V, images, patch = engine._video_arrays(info["sample_idx"])
+    with torch.inference_mode():
+        pooled, _ = lv3d.encode_video_pooled(params, cfg3,
+                                             images[:, :V].to(torch.bfloat16))
+        feats = pooled[0].reshape(-1, pooled.shape[-1])
+        coords = patch[0, :V].reshape(-1, 3)
+        keys = engine._llava3d_order_keys(feats.shape[0])
+        grid = cfg3.world_3d.voxel.grid_dims
+        t_dedup = _median_ms(lambda: voxel_dedup_features(
+            feats, coords, grid, LLAVA3D_BUDGET, keys), 5)
+        block, mask = voxel_dedup_features(feats, coords, grid,
+                                           LLAVA3D_BUDGET, keys)
+    ids = linearize_voxels(coords, grid).cpu().numpy()
+    f64 = feats.double().cpu().numpy()
+    uniq, inv = np.unique(ids, return_inverse=True)
+    sums = np.zeros((len(uniq), f64.shape[1]))
+    np.add.at(sums, inv, f64)
+    means = sums / np.bincount(inv)[:, None]
+    k = keys.numpy()[:len(uniq)]
+    take = min(len(uniq), LLAVA3D_BUDGET)
+    order = np.argsort(k, kind="stable")[:take]
+    want = means[order]
+    got = block[:take].double().cpu().numpy()
+    err = np.abs(got - want)
+    tol = 2.0 ** -8 * np.abs(want) + 1e-5 * np.abs(f64).max()
+    _check("(b) llava3d dedup means vs a float64 host loop",
+           bool((err <= tol).all()) and int(mask.sum()) == take,
+           f"{len(uniq)} unique voxels of {len(ids)} patches, {take} "
+           f"genuine of {LLAVA3D_BUDGET} tokens; max |d| {err.max():.2e} "
+           f"(bf16 rounding of the means)")
+    batch, vf = engine._prepare_generation(q)
+    with torch.inference_mode():
+        t_pre = _median_ms(lambda: gen.prefill_multimodal(
+            params, cfg3, batch, batch.text_ids.shape[1] + 1, vf), 3)
+    _check("(b) llava3d answer", isinstance(text, str)
+           and int(batch.seq_len[0]) > LLAVA3D_BUDGET
+           and vf.shape[1] == LLAVA3D_BUDGET,
+           f"{int(res.lengths[0])} ids; block {vf.shape[1]} tokens in a "
+           f"{int(batch.seq_len[0])}-token prompt (bucket "
+           f"{batch.text_ids.shape[1]}); dedup {t_dedup:.2f} ms, prefill "
+           f"{t_pre:.1f} ms; {_card()}")
+
+
+def _newline_phase(params, cfg, root: str, info, total: dict) -> None:
+    """(c): an answer at FRAME and at NO_TOKEN, a miss then a prefix hit
+    of the same question (the hit's ids the miss's up to a near-tie);
+    ONE_TOKEN, which JAX cannot run, refused."""
+    import torch
+
+    from video3d_tpu_torch.config import NewlinePosition
+    from video3d_tpu_torch.kernels import _build
+
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "nl")[0]
+    for mode, want_t in NEWLINE_TOKENS.items():
+        cfg_m = dataclasses.replace(cfg,
+                                    newline_position=NewlinePosition(mode))
+        engine = _make_engine(params, cfg_m, root, prefix_cache_scenes=2)
+        eos = engine.ecfg.eos_token_id
+        before = dict(_build.LAUNCHES)
+        miss = engine.generate_answer(q)
+        hit = engine.generate_answer(q)
+        torch.cuda.synchronize()
+        _add_launches(total, _launch_delta(before))
+        a, b = engine.results[-2], engine.results[-1]
+        _check(f"(c) {mode}: tokens per frame and the prefix cache",
+               cfg_m.tokens_per_frame == want_t
+               and engine.prefix_cache_stats == [1, 1]
+               and isinstance(miss, str) and isinstance(hit, str),
+               f"{cfg_m.tokens_per_frame} vision tokens a frame, prefix "
+               f"hits/misses {engine.prefix_cache_stats}")
+        _near_tie_check(
+            f"(c) {mode}: the hit's ids vs the miss's", params, cfg_m,
+            engine, q,
+            _with_eos(a.tokens[0, :int(a.lengths[0])].tolist(), eos,
+                      MAX_NEW),
+            _with_eos(b.tokens[0, :int(b.lengths[0])].tolist(), eos,
+                      MAX_NEW), CROSS_TIE)
+    cfg_1 = dataclasses.replace(cfg,
+                                newline_position=NewlinePosition.ONE_TOKEN)
+    try:
+        _make_engine(params, cfg_1, root).generate_answer(q)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    _check("(c) one_token refused", "one_token" in refused, refused)
+
+
+def _res_projector_phase(params, cfg, root: str, info, total: dict) -> None:
+    """(d): an mlp2x_res2x_gelu projector (drawn on the card) in phase
+    18's model: one answer, and the projector's bf16 output on the
+    tower's features of the scene within bf16 rounding of its f32 plain
+    version; the control (the residual of the raw input) must miss."""
+    import torch
+
+    from video3d_tpu_torch.config import ProjectorConfig
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import llava_video3d as lv3d
+    from video3d_tpu_torch.models import siglip
+
+    ptype = "mlp2x_res2x_gelu"
+    dev = torch.device("cuda", 0)
+    cfg_r = dataclasses.replace(cfg, projector=ProjectorConfig(ptype))
+    proj = lv3d.init_projector(cfg.vision.hidden_size, cfg.llm.hidden_size,
+                               dev, torch.Generator(device=dev)
+                               .manual_seed(19), torch.bfloat16, ptype)
+    p_r = dict(params, projector=proj)
+    engine = _make_engine(p_r, cfg_r, root)
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "res")[0]
+    before = dict(_build.LAUNCHES)
+    text = engine.generate_answer(q)
+    torch.cuda.synchronize()
+    _add_launches(total, _launch_delta(before))
+    _decode_forwards([engine.results[-1]], cfg.llm.vocab_size)
+    V, images, _ = engine._video_arrays(info["sample_idx"])
+    with torch.inference_mode():
+        feats = siglip.vision_tower_forward(
+            params["vision"], images[0, :4].to(torch.bfloat16), cfg.vision)
+        got = lv3d.project_features(proj, feats).float()
+        p32 = {k: ([{n: t.float() for n, t in b.items()} for b in v]
+                   if k == "res" else v.float()) for k, v in proj.items()}
+        ref = lv3d.project_features(p32, feats.float())
+        h = feats.float() @ p32["w1"] + p32["b1"]
+        h = torch.nn.functional.gelu(h) @ p32["w2"] + p32["b2"]
+        for blk in p32["res"]:
+            hn = lv3d._layer_norm(h, blk["ln_s"], blk["ln_b"])
+            h = h + torch.nn.functional.gelu(hn @ blk["w1"] + blk["b1"]) \
+                @ blk["w2"] + blk["b2"]
+    bound = 2.0 ** -5 * float(ref.abs().max())
+    d = float((got - ref).abs().max())
+    c = float((h - ref).abs().max())
+    _check(f"(d) {ptype}: answer and projector output vs f32 plain",
+           isinstance(text, str) and d <= bound,
+           f"max |d| {d:.4f} over 4 frames x {feats.shape[1]} patches "
+           f"(bound {bound:.4f}, |out| up to {float(ref.abs().max()):.2f})")
+    _check(f"(d) control, the residual of the raw input", c >= 4 * bound,
+           f"max |d| {c:.4f} (must be >= {4 * bound:.4f}); identity and "
+           f"the pooler are refused on the video path (JAX fails there)")
+
+
+def _real_weights_phase(cfg, root: str, info, dev, total: dict) -> None:
+    """(e): full width, REAL_LAYERS decoder layers: init_model, then
+    export_llava_checkpoint (f32 safetensors + config.json) into a
+    temporary directory, then load_pretrained_model; the loaded tree bit
+    for bit the original, the greedy ids of both trees equal."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models.builder import load_pretrained_model
+    from video3d_tpu_torch.models.weights import export_llava_checkpoint
+    from video3d_tpu_torch.params import init_model
+
+    cfg2 = dataclasses.replace(cfg, llm=dataclasses.replace(
+        cfg.llm, num_hidden_layers=REAL_LAYERS))
+    p2 = init_model(cfg2, dev, torch.Generator(device=dev).manual_seed(23),
+                    torch.bfloat16)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        export_llava_checkpoint(p2, cfg2.llm, cfg2, out)
+        t_write = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(out, "model.safetensors"))
+        t0 = time.perf_counter()
+        _, loaded, lcfg, _ = load_pretrained_model(
+            out, dtype=torch.bfloat16, load_tokenizer=False, device=dev,
+            vision_config=cfg2.vision)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    mismatched = [path for path, a, b in _paired(p2, loaded)
+                  if not (a.dtype == b.dtype and torch.equal(a, b))]
+    _check("(e) loaded tree vs the original",
+           not mismatched and lcfg.world_3d == cfg2.world_3d
+           and lcfg.llm == cfg2.llm,
+           f"{sum(1 for _ in _paired(p2, loaded))} leaves bit for bit "
+           f"(mismatched: {mismatched[:4]}); model.safetensors "
+           f"{nbytes} bytes, written in {t_write:.1f} s, loaded onto the "
+           f"card in {t_load:.1f} s; {_card()}")
+    q = _questions(info["sample_idx"], SCANQA_TEXTS, "real")[0]
+    ids = []
+    for p in (p2, loaded):
+        engine = _make_engine(p, lcfg, root)
+        before = dict(_build.LAUNCHES)
+        engine.generate_answer(q)
+        torch.cuda.synchronize()
+        _add_launches(total, _launch_delta(before))
+        res = engine.results[-1]
+        ids.append(res.tokens[0, :int(res.lengths[0])].tolist())
+    _check("(e) greedy ids of the original and the loaded tree",
+           ids[0] == ids[1], f"{len(ids[0])} ids, equal")
+    del p2, loaded
+
+
+def _paired(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees of one structure."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            yield path + "/keys", a, None
+            return
+        for k in a:
+            yield from _paired(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        for i, (x, y) in enumerate(zip(a, b)):
+            yield from _paired(x, y, f"{path}/{i}")
+    else:
+        yield path, a, b
+
+
+def run_variants_and_weights(cfg, root: str, info, dev) -> dict:
+    """Phase 18: (a) w8a8, (b) llava3d, (c) the FRAME and NO_TOKEN newline
+    layouts, (d) a res projector, on one bf16 model of ``cfg`` drawn on
+    the card, then (e) real weights on a REAL_LAYERS-layer model; returns
+    the launch counts of the phase's answers, summed."""
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(18),
+                        torch.bfloat16)
+    total: dict = {}
+    print("(a) w8a8:", flush=True)
+    _w8a8_phase(params, cfg, root, info, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("(b) llava3d:", flush=True)
+    _llava3d_phase(params, cfg, root, info, total)
+    print("(c) newline layouts:", flush=True)
+    _newline_phase(params, cfg, root, info, total)
+    print("(d) the res projector:", flush=True)
+    _res_projector_phase(params, cfg, root, info, total)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("(e) real weights:", flush=True)
+    _real_weights_phase(cfg, root, info, dev, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches { {k: v for k, v in total.items() if v} }; {_card()}",
+          flush=True)
+    return total
+
+
 def _leaves(tree):
     from video3d_tpu_torch.models.quant import Int4Weight
 
@@ -7091,6 +7525,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         print("serving over HTTP (phase 17):", flush=True)
         http = run_http_serving(cfg, root, infos, ground_info, dev, b1_ms)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("variants and real weights (phase 18):", flush=True)
+        variants = run_variants_and_weights(cfg, root, info, dev)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name in PROBE_KERNELS:
@@ -7107,7 +7545,7 @@ def main() -> None:
             launches = scanqa[name] + prefix[name] + serve[name] \
                 + ground[name] + decode.get(name, 0) + spec14.get(name, 0)
         launches += lora.get(name, 0) + other.get(name, 0) \
-            + http.get(name, 0)
+            + http.get(name, 0) + variants.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

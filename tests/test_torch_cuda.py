@@ -1832,3 +1832,67 @@ def test_batcher_worker_on_the_card(dev, serving, paged):
         worker.batcher.shutdown()
         server.shutdown()
         server.server_close()
+
+
+@pytest.mark.parametrize("rows", [1, 8, 17, 32])
+def test_w8a8_product_on_the_card_equals_its_cpu_form(dev, rows):
+    """``matmul_w8a8`` on the card (``torch._int_mm``, rows under
+    W8A8_MIN_ROWS zero-padded, the weight output-major) against the same
+    product on the CPU (exact int32 sums, the same f32 scale arithmetic):
+    within one bf16 ulp, one ``torch._int_mm`` call counted; a control
+    with the weight's scales left off misses."""
+    from video3d_tpu_torch.models import quant
+
+    g = torch.Generator(device=dev).manual_seed(rows)
+    w = 0.02 * torch.randn(3584, 512, generator=g, device=dev)
+    qw = quantize_weight(w, act="int8")
+    x = torch.randn(rows, 3584, generator=g, device=dev).bfloat16()
+    before = _build.LAUNCHES[quant.W8A8_COUNT]
+    got = quant.matmul(x, qw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[quant.W8A8_COUNT] == before + 1
+    ref = quant.matmul_w8a8(x.cpu(), qw.q.cpu(), qw.scale.cpu()).float()
+    ulp = 2.0 ** -7 * ref.abs() + 1e-6
+    assert got.dtype == torch.bfloat16 and got.shape == (rows, 512)
+    assert float(((got.float().cpu() - ref).abs() / ulp).max()) <= 1.0
+    bare = quant.matmul_w8a8(x.cpu(), qw.q.cpu(),
+                             torch.ones_like(qw.scale.cpu())).float()
+    assert float(((bare - ref).abs() / ulp).max()) >= 4.0
+
+
+def test_captured_w8a8_chunk_equals_uncaptured(dev, decoders):
+    """A 4-step decode chunk of 8 rows over w8a8 weights replayed as a
+    CUDA graph (the padded ``torch._int_mm`` products captured, no host
+    sync) equals the uncaptured chunk bit for bit; the counts are B3 per
+    layer and one ``torch._int_mm`` per projection and head, each step."""
+    from video3d_tpu_torch.models import decode_graph as dg
+    from video3d_tpu_torch.models import generate as gen
+    from video3d_tpu_torch.models import quant
+
+    cfg, models = decoders
+    params = quant.quantize_tree(models[16], act="int8")
+    assert dg.weight_form(params) == "w8a8"
+    dense, _ = _decode_states(cfg, dev, 8, "bf16")
+    steps = 4
+    with torch.inference_mode():
+        start = [t.clone() for t in dg.state_tensors(dense)]
+        eager = type(dense)(*(
+            type(x)(*(None if t is None else t.clone() for t in x))
+            if isinstance(x, tuple) else x.clone() for x in dense))
+        _, want = gen.decode_chunk(params, cfg, eager, steps, -1,
+                                   capture=False)
+        graphs = dg.DecodeGraphs(dev)
+        _build.reset_launches()
+        for i in range(4):
+            for t, s in zip(dg.state_tensors(dense), start):
+                t.copy_(s)
+            _, toks = gen.decode_chunk(params, cfg, dense, steps, -1,
+                                       graphs=graphs)
+            assert torch.equal(toks, want), i
+            assert torch.equal(dense.next_logits, eager.next_logits), i
+        torch.cuda.synchronize()
+    assert graphs.captures == 1 and graphs.replays == 3
+    launched = {k: v for k, v in _build.LAUNCHES.items() if v}
+    assert launched == {"decode_attention": 4 * steps * CAPTURE_LAYERS,
+                        quant.W8A8_COUNT:
+                            4 * steps * (7 * CAPTURE_LAYERS + 1)}

@@ -44,7 +44,11 @@ def test_port_modules_are_listed():
                  "video3d_tpu_torch.serve.router",
                  "video3d_tpu_torch.serve.register_worker",
                  "video3d_tpu_torch.serve.cli",
-                 "video3d_tpu_torch.serve.web"):
+                 "video3d_tpu_torch.serve.web",
+                 "video3d_tpu_torch.ops.voxel_dedup",
+                 "video3d_tpu_torch.models.weights",
+                 "video3d_tpu_torch.models.builder",
+                 "video3d_tpu_torch.cli"):
         assert name in mods
 
 

@@ -1,6 +1,6 @@
 """Weight-only int8 quantization of the port against the JAX package, on the
-CPU: ``from_jax_params`` on bf16 and ``quantize_tree``'d trees (bit for
-bit), ``quantize_weight`` / ``quantize_tree`` / ``_quantize_kv`` (bit for
+CPU: ``from_jax_params`` on bf16 and ``quantize_tree``'d trees (int8,
+w8a8 and int4 leaves bit for bit), ``quantize_weight`` / ``quantize_tree`` / ``_quantize_kv`` (bit for
 bit), ``matmul`` on int8 dicts, the plain version of kernel B4 against the
 Pallas kernel in interpret mode, the B4 dispatch rule and the int8 init."""
 
@@ -97,12 +97,17 @@ def test_from_jax_params_carries_world_pe_mlp():
 
 
 def test_from_jax_params_rejects_unported_weight_forms():
-    """w8a8 weights raise naming their ROADMAP item; int4 weights convert
-    into the port's Int4Weight."""
+    """Every quantized form of the JAX package converts now: w8a8 weights
+    into the port's W8A8Weight (int8 values and bf16 scales bit for bit),
+    int4 weights into its Int4Weight."""
     params = jlv.init_model(jax.random.PRNGKey(0), CFG)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        from_jax_params(jquant.quantize_tree(params, act="int8"), TCFG,
-                        device="cpu")
+    jw = jquant.quantize_tree(params, act="int8")
+    w8 = from_jax_params(jw, TCFG, device="cpu")["llm"]["layers"][1]["attn"][
+        "wo"]
+    assert isinstance(w8, tquant.W8A8Weight)
+    want = jw["llm"]["layers"][1]["attn"]["wo"]
+    assert np.array_equal(_np(w8.q), _jnp(want.q))
+    assert np.array_equal(_np(w8.scale), _jnp(want.scale))
     int4 = from_jax_params(jquant.quantize_tree(params, bits=4), TCFG,
                            device="cpu")
     w = int4["llm"]["layers"][0]["mlp"]["w_up"]
@@ -140,8 +145,13 @@ def test_quantize_tree_matches_jax():
         "attn"]["wq"]
     assert isinstance(int4, tquant.Int4Weight)
     assert int4.dims == tuple(tree["layers"][0]["attn"]["wq"].shape)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tquant.quantize_tree(tree, act="int8")
+    w8 = tquant.quantize_tree({"llm": tree}, act="int8")["llm"]["lm_head"]
+    jw8 = jquant.quantize_tree({"llm": jp}, act="int8")["llm"]["lm_head"]
+    assert isinstance(w8, tquant.W8A8Weight)
+    assert np.array_equal(_np(w8.q), _jnp(jw8.q))
+    assert np.array_equal(_np(w8.scale), _jnp(jw8.scale))
+    with pytest.raises(ValueError, match="bits 8"):
+        tquant.quantize_tree(tree, bits=4, act="int8")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -652,11 +652,18 @@ def test_launcher_help_and_refusals():
                  "--scene-cache", "--prefix-cache", "--paged-kv",
                  "--chunked-prefill", "--lora-modules", "--device"):
         assert flag in out.stdout
-    for argv, item in ((["--tp", "2"], "A12"), (["--dp", "2"], "A12"),
-                       (["--load-format", "dummy", "--w8a8"], "A3"),
-                       ([], "A11")):
+    for argv, item in ((["--tp", "2"], "A12"), (["--dp", "2"], "A12")):
         with pytest.raises(NotImplementedError, match=item):
             tmw.main(["--model-path", "unused"] + argv)
+    # --w8a8 is bits 8 with int8 activations, except under --load-in-4bit
+    # (JAX's launcher); --load-format auto reads the checkpoint directory
+    parser = tmw.build_parser()
+    for argv, want in (([], (16, "none")), (["--w8a8"], (8, "int8")),
+                       (["--w8a8", "--load-in-4bit"], (4, "none")),
+                       (["--load-in-8bit"], (8, "none"))):
+        args = parser.parse_args(["--model-path", "unused"] + argv)
+        assert tmw.weight_bits(args) == want
+    assert "load_pretrained_model" in tmw.build_worker_engines.__doc__
 
 
 def test_launcher_builds_engines_on_the_cpu(tmp_path, monkeypatch):

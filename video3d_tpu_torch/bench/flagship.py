@@ -23,8 +23,9 @@ The weights are random, from a seeded generator on the device:
 function takes its parameters, so a caller holding the model (``chip_smoke``
 phase 11) reuses it. ``V3D_BENCH_TINY=1`` selects the CPU test
 configuration of the JAX script (1 tower layer, a 4-layer 256-wide
-decoder). ``--w8a8`` (int8 activations, ROADMAP A3) and ``--tower-pad``
-(ROADMAP A0b) are not ported and raise; the TPU-only ``mc-profile`` mode and
+decoder). ``--w8a8`` runs the LLM and the tower's projections on int8
+activations (``quant.matmul_w8a8``). ``--tower-pad`` (ROADMAP A0b) is
+not ported and raises; the TPU-only ``mc-profile`` mode and
 ``--occ-impl mm`` / ``--no-shared-prefix`` A/B switches are left out.
 """
 
@@ -76,13 +77,22 @@ def full_cfg(tiny: Optional[bool] = None) -> ModelConfig:
 
 
 def init_params(cfg: ModelConfig, device, seed: int = 0,
-                dtype=torch.bfloat16):
-    """int8 LLM projections and head, a ``dtype`` tower, on ``device``."""
+                dtype=torch.bfloat16, w8a8: bool = False):
+    """int8 LLM projections and head, a ``dtype`` tower, on ``device``.
+    ``w8a8`` (the JAX scripts' ``--w8a8``): the LLM's int8 weights marked
+    for int8 activations, and the tower's projections quantized so too
+    (``quant.VISION_PATTERNS``)."""
+    from video3d_tpu_torch.models import quant
     from video3d_tpu_torch.params import init_model
 
-    return init_model(cfg, device,
-                      torch.Generator(device=device).manual_seed(seed),
-                      dtype, bits=8)
+    act = "int8" if w8a8 else "none"
+    params = init_model(cfg, device,
+                        torch.Generator(device=device).manual_seed(seed),
+                        dtype, bits=8, act=act)
+    if w8a8:
+        params = quant.quantize_tree(params, patterns=quant.VISION_PATTERNS,
+                                     act=act)
+    return params
 
 
 def bucket(n: int, align: int = 128) -> int:
@@ -419,9 +429,6 @@ def main(argv=None) -> None:
     ap.add_argument("--w8a8", action="store_true")
     ap.add_argument("--tower-pad", type=int, default=0)
     a = ap.parse_args(argv)
-    if a.w8a8:
-        raise NotImplementedError("w8a8 (int8 activations) is not ported "
-                                  "(ROADMAP A3)")
     if a.tower_pad:
         raise NotImplementedError("VisionConfig.tower_pad_seq (the tower's "
                                   "padded attention) is not ported (ROADMAP "
@@ -430,7 +437,8 @@ def main(argv=None) -> None:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("flagship: no CUDA device (pass --device cpu)")
     cfg = full_cfg()
-    params = init_params(cfg, device, dtype=compute_dtype(device))
+    params = init_params(cfg, device, dtype=compute_dtype(device),
+                         w8a8=a.w8a8)
     if a.mode == "chain":
         res = run_chain(params, cfg, device)
     elif a.mode == "stages":

@@ -89,6 +89,7 @@ from video3d_tpu_torch.models.splice import (KIND_VISION, build_splice_plan,
                                              slice_suffix_plan,
                                              vision_end_from_kind)
 from video3d_tpu_torch.ops import geometry
+from video3d_tpu_torch.ops.voxel_dedup import default_order_keys
 from video3d_tpu_torch.params import resolve_device
 
 DEFAULT_BUCKETS = (1024, 2048, 4096, 8192, 16384)
@@ -197,6 +198,7 @@ class InferenceEngine:
                  image_processor: Optional[SigLipImageProcessor] = None,
                  engine_cfg: Optional[EngineConfig] = None,
                  device=None, device_geometry: bool = True):
+        lv3d.check_projector(model_cfg, params.get("projector"))
         self.device_geometry = bool(device_geometry)
         self.params = params
         self.cfg = model_cfg
@@ -276,7 +278,9 @@ class InferenceEngine:
         means, or the host route's means). A pooling of n > 1 points
         (MINMAX, SAMPLE9, SAMPLE5) cannot answer: JAX's engine takes its
         host route there, which pools means too, and fails reshaping them
-        for the n-point PE. The port refuses it before any work."""
+        for the n-point PE. The port refuses it before any work, and so
+        the ONE_TOKEN newline layout (``lv3d.check_newline_layout``)."""
+        lv3d.check_newline_layout(self.cfg)
         pooling = self.cfg.world_3d.pooling
         if pooling.n_points != 1:
             raise ValueError(
@@ -433,6 +437,40 @@ class InferenceEngine:
                                     coord_token_id=coord_token_id)
         return self._batch_from_plan(plan, images, patch, [box_input])
 
+    def _llava3d_order_keys(self, n: int) -> torch.Tensor:
+        """The keys ordering a llava3d scene's n patch rows: the port's
+        own draw (``voxel_dedup.default_order_keys``), which departs
+        from the JAX engine's ``jax.random.uniform(PRNGKey(0), (n,))``."""
+        return default_order_keys(n)
+
+    def _build_llava3d_batch(self, ids, V: int, images, patch):
+        """The llava3d variant (JAX ``_build_llava3d_batch``): one block of
+        ``llava3d_budget`` voxel-dedup tokens, spliced as one "frame" with
+        ``grid_side`` 1, replaces the grid layout. Only the V real frames
+        feed the dedup (zero pad frames would alias into voxel 0).
+        Returns (batch, the (1, budget, D) block)."""
+        n = V * self._grid_side() ** 2
+        with torch.inference_mode():
+            feat, _ = lv3d.encode_video_llava3d(
+                self.params, self.cfg, images[:, :V].to(self.dtype),
+                patch[0, :V], order_keys=self._llava3d_order_keys(n))
+        T = int(feat.shape[0])
+        L = pick_bucket(len(ids) + T + self.ecfg.max_new_tokens,
+                        self.ecfg.buckets)
+        plan = build_splice_plan([ids], None, [1], tokens_per_frame=T,
+                                 max_len=L, grid_side=1,
+                                 truncate_to=self.cfg.tokenizer_model_max_length)
+        return self._batch_from_plan(plan), feat[None]
+
+    def _check_not_llava3d(self, what: str) -> None:
+        """Refuse a path that does not build the llava3d block: JAX's
+        batched answers lay a llava3d scene out as the grid (the variant
+        ignored) and its grounding scores come out NaN."""
+        if self.cfg.world_3d.llava3d:
+            raise ValueError(f"{what} does not build the llava3d block (the "
+                             f"JAX engine ignores the variant or fails "
+                             f"there); answer llava3d records one at a time")
+
     def _prepare_generation(self, record, box_input=None,
                             coord_token_id=None):
         """record -> (batch, vision_features): the host half of a request
@@ -447,8 +485,11 @@ class InferenceEngine:
         """With ``scene_cache_scenes > 0`` the spliceable vision features
         (tower -> projector -> pool -> world PE -> newlines) are cached per
         scene: they depend only on the scene's frames, never the question.
-        A hit skips video IO, geometry and the tower."""
-        cache_on = self.ecfg.scene_cache_scenes > 0
+        A hit skips video IO, geometry and the tower. A llava3d
+        configuration caches nothing (its block is drawn per request, as
+        in JAX) and answers from :meth:`_build_llava3d_batch`."""
+        llava3d = self.cfg.world_3d.llava3d
+        cache_on = self.ecfg.scene_cache_scenes > 0 and not llava3d
         if cache_on:
             with self._cache_lock:
                 hit = self._scene_cache.get(record["video"])
@@ -460,6 +501,8 @@ class InferenceEngine:
                 return self._build_batch(ids, V, None, None, box_input,
                                          coord_token_id), spliceable
         V, images, patch = self._video_arrays(record["video"])
+        if llava3d:
+            return self._build_llava3d_batch(ids, V, images, patch)
         if not cache_on:
             return self._build_batch(ids, V, images, patch, box_input,
                                      coord_token_id), None
@@ -549,9 +592,11 @@ class InferenceEngine:
 
     def _prefix_cache_base(self, record) -> bool:
         """The scene-prefix preconditions: the cache is on, the record has
-        a scene, and no beam search (its prefill expands the cache to the
-        beams; JAX ``_prefix_cache_base``)."""
+        a scene, no beam search (its prefill expands the cache to the
+        beams) and not llava3d (its block is drawn per request; JAX
+        ``_prefix_cache_base``)."""
         return (self.ecfg.prefix_cache_scenes > 0
+                and not self.cfg.world_3d.llava3d
                 and self.ecfg.num_beams == 1
                 and isinstance(record.get("video"), str))
 
@@ -635,6 +680,10 @@ class InferenceEngine:
         ids = self._tokenize_prompt(record)
         img = ids.index(IMAGE_TOKEN_INDEX) if IMAGE_TOKEN_INDEX in ids else -1
         key = record.get("video")
+        if self.cfg.world_3d.llava3d:
+            # no prefix is stored or read (JAX stores a llava3d prefix here
+            # and reads it back as a grid layout's: a departure)
+            img = -1
         if img >= 0:
             entry = self._lookup_prefix(key)
             if entry is not None and tuple(ids[:img + 1]) == entry.ids_prefix:
@@ -1140,6 +1189,7 @@ class InferenceEngine:
         ``max_frames`` frames, as the JAX engine's; the frames of rows with
         fewer are zero-padded only to the batch's largest V (the plan never
         indexes pad frames)."""
+        self._check_not_llava3d("the batched answer path")
         ids_list = [self._tokenize_prompt(r) for r in records]
         arrays = [self._video_arrays(r["video"]) for r in records]
         frames = [V for V, _, _ in arrays]
@@ -1176,6 +1226,7 @@ class InferenceEngine:
         prefill serves B questions. Returns None when the records span
         scenes, the prefix is absent or mismatched, or a suffix doesn't fit
         (the caller falls back)."""
+        self._check_not_llava3d("the batched answer path")
         key = records[0].get("video")
         if not isinstance(key, str) or \
                 not all(r.get("video") == key for r in records):
@@ -1276,6 +1327,7 @@ class InferenceEngine:
         return np.concatenate([s[:n], s[-1:]])
 
     def _check_ground(self) -> None:
+        self._check_not_llava3d("grounding")
         if self.ecfg.ground_token_id is None:
             raise ValueError("grounding needs EngineConfig.ground_token_id")
 

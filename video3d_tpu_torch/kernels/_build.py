@@ -60,7 +60,10 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "paged_attention_int4": 0,
                             "stream_probe_kv": 0, "stream_probe_one": 0,
                             "stream_probe_multi": 0,
-                            "stream_probe_split": 0}
+                            "stream_probe_split": 0,
+                            # not a kernel of the port: the w8a8
+                            # product's torch._int_mm calls on the card
+                            "int_mm_w8a8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

@@ -94,12 +94,14 @@ def _dtype_name(dtype) -> str:
 
 
 def weight_form(params) -> str:
-    """The weights' form by the head ("bf16", "int8", "int4"), with
+    """The weights' form by the head ("bf16", "int8", "int4", "w8a8"), with
     "+lora" when the decoder's projections are ``LoraAdapted`` (the head
     is never adapted)."""
     head = params["llm"]["lm_head"]
     if isinstance(head, quant.Int4Weight):
         form = "int4"
+    elif isinstance(head, quant.W8A8Weight):
+        form = "w8a8"
     elif quant.is_quantized(head):
         form = "int8"
     else:
@@ -141,10 +143,13 @@ def _weight_plan(w, rows: int, sms: int):
     """The plan of the weight-streaming kernel ``quant.matmul`` sends a
     ``rows``-row product with ``w`` to on the card, or None (a dense
     weight, or more rows than the kernels take). A ``LoraAdapted`` weight
-    is planned by its base: its low-rank delta is two dense products."""
+    is planned by its base: its low-rank delta is two dense products. A
+    ``W8A8Weight`` streams through no kernel of the port (its product is
+    ``torch._int_mm``)."""
     if isinstance(w, quant.LoraAdapted):
         w = w.base
-    if rows > quant.KERNEL_MAX_ROWS or not quant.is_quantized(w):
+    if rows > quant.KERNEL_MAX_ROWS or not quant.is_quantized(w) \
+            or isinstance(w, quant.W8A8Weight):
         return None
     if isinstance(w, quant.Int4Weight):
         return qm.stream_plan(rows, 2 * w.q4.shape[0], w.q4.shape[1], sms, 4)

@@ -1,16 +1,19 @@
 """Video-3D-LLM assembly in PyTorch: vision tower -> projector -> 2D pool
 -> world position embedding -> grid-newline layout -> splice -> Qwen2.
 Counterpart of ``video3d_tpu/models/llava_video3d.py`` (the parts the
-answer, grounding and training paths run: mlpNx_gelu projector, the
+answer, grounding and training paths run: the identity, linear,
+mlpNx_gelu, mlpNx_resMx_gelu and pooler projectors, the
 bilinear / average / max pools, the sin3d (one or n points per patch) and
-MLP world PEs or mrope position ids, GRID newlines, the ``<coord>``
+MLP world PEs or mrope position ids, the four newline layouts, the
+llava3d voxel-dedup block, the ``<coord>``
 box-input PE, the video and 2D-image branches of ``forward_hidden``,
 ``forward``, the LM losses, plain and chunked, the grounding forwards:
 object patch masks, masked-mean object features with their box-center PE,
 and the three ground heads, and the grounding losses, InfoNCE and the
 weighted BCE).
 
-Parameter dict: ``vision`` (siglip), ``projector {w1, b1, ..., wN, bN}``,
+Parameter dict: ``vision`` (siglip), ``projector`` (see
+:func:`project_features`),
 ``image_newline (D,)``, ``llm`` (qwen2), and where the configuration has
 them, ``ground_head`` (``{obj, query, zero_target}`` for INFONCE,
 ``{query}`` for MLP, ``{obj, query, score}`` for SCORE; each MLP
@@ -39,36 +42,130 @@ from video3d_tpu_torch.ops.pos_embed import (mlp_position_embedding,
 Params = Dict[str, Any]
 
 
+def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """JAX ``_layer_norm``: statistics in f32, the normalized input cast
+    back to x's dtype before the affine."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias
+
+
 def project_features(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """linear / mlpNx_gelu projector: Linear, then (erf GELU, Linear)*."""
+    """The mm projector variants (multimodal_projector/builder.py:32-65,
+    pooler_projector.py), as JAX ``project_features``:
+
+      * identity: empty params, x unchanged;
+      * linear / mlpNx_gelu: ``{w1, b1, ..., wN, bN}``, erf GELU between
+        the linears;
+      * mlpNx_resMx_gelu: the mlp keys and ``res``, a list of
+        SimpleResBlocks ``{ln_s, ln_b, w1, b1, w2, b2}``: h = ln(h) +
+        Linear(GELU(Linear(ln(h)))), the residual being the *normalized*
+        input (builder.py:27-29);
+      * pooler: ``{conv_w (4 Cin, Cout), conv_b, w1, b1}``, a 2x2 / stride-2
+        convolution over the (B, N, C) patch grid written as reshape +
+        matmul (an odd grid drops its last row and column), erf GELU,
+        Linear."""
+    if not p:
+        return x
     h = x
+    if "conv_w" in p:
+        B, N, C = h.shape
+        hw = int(round(N ** 0.5))
+        out = hw // 2
+        h = h.reshape(B, hw, hw, C)[:, :2 * out, :2 * out]
+        h = h.reshape(B, out, 2, out, 2, C).permute(0, 1, 3, 2, 4, 5)
+        h = h.reshape(B, out * out, 4 * C)
+        h = F.gelu(h @ p["conv_w"] + p["conv_b"])
+        return h @ p["w1"] + p["b1"]
     i = 1
     while f"w{i}" in p:
         if i > 1:
             h = F.gelu(h)
         h = h @ p[f"w{i}"] + p[f"b{i}"]
         i += 1
+    for blk in p.get("res", ()):
+        hn = _layer_norm(h, blk["ln_s"], blk["ln_b"])
+        inner = F.gelu(hn @ blk["w1"] + blk["b1"])
+        h = hn + (inner @ blk["w2"] + blk["b2"])
     return h
 
 
 def init_projector(in_dim: int, out_dim: int, device,
                    generator: torch.Generator, dtype=torch.float32,
                    projector_type: str = "mlp2x_gelu") -> Params:
-    """N(0, 0.02) weights, zero biases, for 'linear' or 'mlpNx_gelu'."""
+    """Random params of any projector type JAX ``init_projector`` takes:
+    N(0, 0.02) weights, zero biases, unit / zero LayerNorms, drawn in
+    order (pooler: conv_w, w1; the mlp linears, then each block's w1,
+    w2); ValueError for an unknown type."""
     import re
 
-    m = re.match(r"^mlp(\d+)x_gelu$", projector_type)
-    if projector_type != "linear" and not m:
-        raise NotImplementedError(f"projector {projector_type!r} is not ported")
-    depth = int(m.group(1)) if m else 1
+    def normal(*shape):
+        return torch.empty(*shape, device=device, dtype=dtype).normal_(
+            0.0, 0.02, generator=generator)
+
+    def zeros(n):
+        return torch.zeros(n, device=device, dtype=dtype)
+
+    if projector_type == "identity":
+        return {}
+    if projector_type == "pooler":
+        return {"conv_w": normal(4 * in_dim, out_dim), "conv_b": zeros(out_dim),
+                "w1": normal(out_dim, out_dim), "b1": zeros(out_dim)}
+    if projector_type == "linear":
+        depth, res_depth = 1, 0
+    else:
+        m = re.match(r"^mlp(\d+)x(?:_res(\d+)x)?_gelu$", projector_type)
+        if not m:
+            raise ValueError(f"Unknown projector type: {projector_type}")
+        depth, res_depth = int(m.group(1)), int(m.group(2) or 0)
     p: Params = {}
     for i in range(1, depth + 1):
-        d_in = in_dim if i == 1 else out_dim
-        p[f"w{i}"] = torch.empty(d_in, out_dim, device=device,
-                                 dtype=dtype).normal_(0.0, 0.02,
-                                                      generator=generator)
-        p[f"b{i}"] = torch.zeros(out_dim, device=device, dtype=dtype)
+        p[f"w{i}"] = normal(in_dim if i == 1 else out_dim, out_dim)
+        p[f"b{i}"] = zeros(out_dim)
+    if res_depth:
+        p["res"] = [{"ln_s": torch.ones(out_dim, device=device, dtype=dtype),
+                     "ln_b": zeros(out_dim),
+                     "w1": normal(out_dim, out_dim), "b1": zeros(out_dim),
+                     "w2": normal(out_dim, out_dim), "b2": zeros(out_dim)}
+                    for _ in range(res_depth)]
     return p
+
+
+def check_projector(cfg: ModelConfig,
+                    projector: Optional[Params] = None) -> None:
+    """Raise ValueError, before any work, for a projector JAX's answer
+    and training paths cannot run: the pooler (its 13 x 13 output cannot
+    be pooled as the 27 x 27 patch grid, nor gathered as an image's
+    tiles: JAX fails reshaping it), and an identity projector whose tower
+    width is not the LLM's (JAX fails adding the world PE or gathering the
+    tokens). The type is read off ``projector`` (the params' subtree: a
+    loaded checkpoint's keys choose it) when given, else off the
+    configuration."""
+    ptype = cfg.projector.projector_type
+    if projector is not None:
+        ptype = ("pooler" if "conv_w" in projector
+                 else "identity" if not projector else ptype)
+    if ptype == "pooler":
+        raise ValueError("the pooler projector halves the patch grid, which "
+                         "the answer and training paths pool as the full "
+                         "grid (the JAX package fails on it too)")
+    if ptype == "identity" and cfg.vision.hidden_size != cfg.llm.hidden_size:
+        raise ValueError(f"the identity projector passes the tower's "
+                         f"{cfg.vision.hidden_size} channels to an LLM of "
+                         f"{cfg.llm.hidden_size} (the JAX package fails on "
+                         f"it too)")
+
+
+def check_newline_layout(cfg: ModelConfig) -> None:
+    """Raise ValueError for the ONE_TOKEN newline layout on a video path:
+    it has no per-frame token count, which every splice plan of scenes
+    needs (JAX raises in ``tokens_per_frame``)."""
+    if cfg.newline_position == NewlinePosition.ONE_TOKEN:
+        raise ValueError("the one_token newline layout has no per-frame "
+                         "token count, which the video splice plans need "
+                         "(the JAX package fails on it too)")
 
 
 #: the world PEs added to the vision features (mrope moves positions
@@ -151,8 +248,8 @@ def finish_video_tokens(params: Params, cfg: ModelConfig,
                         patch_coords: Optional[torch.Tensor] = None
                         ) -> VisionTokens:
     """The additive world PE (sin3d or MLP, from (B, V, g, g, 3) voxel
-    coords, or (B, V, g, g, n, 3) with n points per patch) + GRID
-    newlines."""
+    coords, or (B, V, g, g, n, 3) with n points per patch) + the
+    configuration's newline layout."""
     B, V = pooled.shape[:2]
     g = _pooled_side(cfg)
     D = pooled.shape[-1]
@@ -168,11 +265,22 @@ def finish_video_tokens(params: Params, cfg: ModelConfig,
             if n_points > 1 else patch_coords.reshape(B, V * g * g, 3)
         pe = world_position_embedding(params, coords, cfg, n_points)
         pooled = pooled + pe.reshape(B, V, g * g, -1).to(pooled.dtype)
-    if cfg.newline_position != NewlinePosition.GRID:
-        raise NotImplementedError("only the GRID newline layout is ported")
-    grid = pooled.reshape(B, V, g, g, D)
-    newline = params["image_newline"].to(pooled.dtype).expand(B, V, g, 1, D)
-    spliceable = torch.cat([grid, newline], dim=3).reshape(B, -1, D)
+    # llava_arch.py:307-334, :534-569: GRID one newline per row of g
+    # patches, FRAME one after each frame, ONE_TOKEN one after all frames,
+    # NO_TOKEN none
+    nl = params["image_newline"].to(pooled.dtype)
+    pos = cfg.newline_position
+    if pos == NewlinePosition.GRID:
+        grid = pooled.reshape(B, V, g, g, D)
+        spliceable = torch.cat([grid, nl.expand(B, V, g, 1, D)], dim=3)
+    elif pos == NewlinePosition.FRAME:
+        spliceable = torch.cat([pooled, nl.expand(B, V, 1, D)], dim=2)
+    elif pos == NewlinePosition.ONE_TOKEN:
+        spliceable = torch.cat([pooled.reshape(B, -1, D),
+                                nl.expand(B, 1, D)], dim=1)
+    else:
+        spliceable = pooled
+    spliceable = spliceable.reshape(B, -1, D)
     return VisionTokens(spliceable=spliceable, pooled=pooled, raw=raw)
 
 
@@ -181,6 +289,29 @@ def encode_video(params: Params, cfg: ModelConfig, images: torch.Tensor,
                  remat: bool = False) -> VisionTokens:
     pooled, raw = encode_video_pooled(params, cfg, images, remat)
     return finish_video_tokens(params, cfg, pooled, raw, patch_coords)
+
+
+def encode_video_llava3d(params: Params, cfg: ModelConfig,
+                         images: torch.Tensor, patch_coords: torch.Tensor,
+                         order_keys: Optional[torch.Tensor] = None,
+                         remat: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 'llava3d' variant (llava_arch.py:731-746), JAX
+    ``encode_video_llava3d``: the pooled patch features of (1, V, 3, S, S)
+    frames (no world PE, no newlines) grouped by their discrete voxel
+    ``patch_coords`` (V, g, g, 3), meaned, and sampled to
+    ``cfg.world_3d.llava3d_budget`` tokens by
+    :func:`~video3d_tpu_torch.ops.voxel_dedup.voxel_dedup_features` with
+    ``order_keys`` (None: voxel order). Returns ((budget, D) tokens,
+    (budget,) genuine-voxel mask)."""
+    from video3d_tpu_torch.ops.voxel_dedup import voxel_dedup_features
+
+    pooled, _ = encode_video_pooled(params, cfg, images, remat)
+    feats = pooled[0].reshape(-1, pooled.shape[-1])
+    return voxel_dedup_features(feats, patch_coords.reshape(-1, 3),
+                                cfg.world_3d.voxel.grid_dims,
+                                budget=cfg.world_3d.llava3d_budget,
+                                order_keys=order_keys)
 
 
 def assemble_embeds(params: Params, cfg: ModelConfig,

@@ -1,8 +1,8 @@
-"""Weight-only quantization for serving, in PyTorch: counterpart of
+"""Weight quantization for serving, in PyTorch: counterpart of
 ``video3d_tpu/models/quant.py`` (the int8 dict form, the group-wise int4
-form ``Int4Weight``, ``quantize_tree`` with bits 8 or 4 and ``act="none"``,
-the lazily LoRA-adapted form ``LoraAdapted``, and the ``matmul``
-dispatch).
+form ``Int4Weight``, the w8a8 form ``W8A8Weight``, ``quantize_tree`` with
+bits 8 or 4 and ``act`` "none" or "int8", the lazily LoRA-adapted form
+``LoraAdapted``, and the ``matmul`` dispatch).
 
 An int8 weight is the dict ``{"q": int8 (in, out), "scale": bf16 (1, out)}``,
 symmetric per output channel: w ~= q * scale. An int4 weight is an
@@ -20,6 +20,19 @@ The kernels have no backward: a training product (more than
 ``KERNEL_MAX_ROWS`` rows) takes the differentiable dequantize path, and a
 kernel given an input that requires grad raises.
 
+A :class:`W8A8Weight` (``quantize_tree(act="int8")``) is the same int8
+weight marked for dynamic int8 activations at every row count, as JAX
+sends it to ``matmul_w8a8`` (never to B4): per-row activation scales
+absmax / 127, an int8 x int8 product summed in int32, then both scales in
+f32 (:func:`matmul_w8a8`). The product is ``torch._int_mm`` (JAX's is an
+XLA ``dot_general``, not a Pallas kernel): on the card cuBLASLt's int8
+GEMM, which takes more than 16 rows and inner and outer sizes that are
+multiples of 8, so fewer rows (decode's 1-8) are zero-padded to
+``W8A8_MIN_ROWS``; an inner or outer size off the multiple of 8 raises,
+with no float fallback. The weight is kept output-major, the layout of
+cuBLASLt's tensor-core int8 kernel. On the CPU it is the exact int32
+product.
+
 A :class:`LoraAdapted` weight (QLoRA, and serving a LoRA export over a
 quantized base) is ``matmul(x, base) + ((x @ A) @ B) * scale``: the base
 term keeps the routes above.
@@ -33,6 +46,7 @@ from typing import Any, Tuple
 import torch
 import torch.nn.functional as F
 
+from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels import quant_matvec as qm
 
 # LLM projection matrices only: embeddings stay in the model dtype
@@ -49,19 +63,34 @@ MATVEC_MIN_OUT = 32768
 #: more rows dequantize and run a dense matmul
 KERNEL_MAX_ROWS = qm.MAX_ROWS
 
-#: weight forms of the JAX package the port does not run yet -> the
-#: ROADMAP item that ports them
-_NOT_PORTED = {
-    "W8A8Weight": "w8a8 int8 activations, ROADMAP A3",
-}
+# The vision tower's projections (the JAX package's VISION_PATTERNS, for
+# a w8a8 tower)
+VISION_PATTERNS = (
+    r"vision/layers/\d+/attn/w[qkvo]$",
+    r"vision/layers/\d+/mlp/w[12]$",
+)
+
+#: rows a w8a8 product is zero-padded to on the card when it has fewer
+#: (``torch._int_mm`` on CUDA takes more than 16)
+W8A8_MIN_ROWS = 32
+#: the launch-count name of the w8a8 product's ``torch._int_mm`` calls on
+#: the card (a library call, counted beside the port's kernels)
+W8A8_COUNT = "int_mm_w8a8"
 
 
-def check_ported(node) -> None:
-    """Raise NotImplementedError for a JAX weight form the port lacks."""
-    what = _NOT_PORTED.get(type(node).__name__)
-    if what is not None:
-        raise NotImplementedError(f"{type(node).__name__}: {what} is not "
-                                  f"ported")
+class W8A8Weight:
+    """An int8 (in, out) weight ``q`` with its bf16 (1, out) per-channel
+    ``scale``, marked for dynamic int8 activations (JAX ``W8A8Weight``).
+    ``q`` is stored output-major: the (in, out) view of a contiguous (out,
+    in) tensor, the layout cuBLASLt's int8 tensor-core GEMM reads
+    (``torch._int_mm`` of a row-major (in, out) weight takes a slower
+    kernel, 5-9x at Qwen2-7B's shapes on an H100)."""
+
+    def __init__(self, q: torch.Tensor, scale: torch.Tensor):
+        if q.stride(0) != 1:
+            q = q.t().contiguous().t()
+        self.q = q
+        self.scale = scale
 
 
 class Int4Weight:
@@ -95,15 +124,55 @@ class LoraAdapted:
         self.scale = float(scale)
 
 
-def quantize_weight(w: torch.Tensor) -> dict:
+def quantize_weight(w: torch.Tensor, act: str = "none"):
     """Symmetric per-output-channel int8 of an (in, out) matrix: the JAX
     arithmetic (absmax / 127 floored at 1e-12, round half to even, clip to
-    +-127), computed in float32 on w's device."""
+    +-127), computed in float32 on w's device. ``act="int8"`` gives a
+    :class:`W8A8Weight`, else the ``{"q", "scale"}`` dict."""
     w32 = w.to(torch.float32)
     absmax = w32.abs().amax(dim=0, keepdim=True)              # (1, out)
     scale = torch.clamp(absmax / 127.0, min=1e-12)
     q = torch.clamp(torch.round(w32 / scale), -127, 127).to(torch.int8)
+    if act == "int8":
+        return W8A8Weight(q, scale.to(torch.bfloat16))
     return {"q": q, "scale": scale.to(torch.bfloat16)}
+
+
+def _int_mm(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """(rows, in) int8 @ (in, out) int8 -> (rows, out) int32, exact. On the
+    card: ``torch._int_mm`` with the rows zero-padded to W8A8_MIN_ROWS
+    when fewer; inner and outer sizes must be multiples of 8. ``q`` is
+    best output-major (:class:`W8A8Weight`)."""
+    if xq.device.type == "cpu":
+        return torch._int_mm(xq, q)
+    rows, in_ = xq.shape
+    if in_ % 8 or q.shape[1] % 8:
+        raise ValueError(f"w8a8 on the card: torch._int_mm takes inner and "
+                         f"outer sizes that are multiples of 8, not "
+                         f"{in_} x {q.shape[1]}")
+    if rows < W8A8_MIN_ROWS:
+        xq = F.pad(xq, (0, 0, 0, W8A8_MIN_ROWS - rows))
+    _build.count_launch(W8A8_COUNT)
+    return torch._int_mm(xq, q)[:rows]
+
+
+def matmul_w8a8(x: torch.Tensor, q: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """Dynamic-activation int8 product (JAX ``matmul_w8a8``): per-row
+    scales sx = max(absmax, 1e-12) / 127 of x in f32, x rounded half to
+    even and clipped to +-127, an int8 x int8 product summed in int32
+    (exact), then ``y32 * sx * scale`` in f32, cast to x's dtype."""
+    x32 = x.to(torch.float32)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiply by
+    # its reciprocal, one ulp off the CPU's (and JAX's) quotient, which
+    # moves a rounded activation at a tie
+    sx = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-12) \
+        / torch.full((), 127.0, device=x.device)
+    xq = torch.clamp(torch.round(x32 / sx), -127, 127).to(torch.int8)
+    y32 = _int_mm(xq.reshape(-1, x.shape[-1]).contiguous(), q)
+    y = y32.reshape(*x.shape[:-1], q.shape[1]).to(torch.float32) * sx \
+        * scale.to(torch.float32)
+    return y.to(x.dtype)
 
 
 def quantize_weight_int4(w: torch.Tensor, group: int = 512) -> Int4Weight:
@@ -132,7 +201,8 @@ def quantize_weight_int4(w: torch.Tensor, group: int = 512) -> Int4Weight:
 
 
 def is_quantized(w) -> bool:
-    return isinstance(w, Int4Weight) or (isinstance(w, dict) and "q" in w)
+    return isinstance(w, (Int4Weight, W8A8Weight)) \
+        or (isinstance(w, dict) and "q" in w)
 
 
 def _rows(x: torch.Tensor) -> int:
@@ -172,7 +242,8 @@ def _matmul_int4(x: torch.Tensor, w: Int4Weight) -> torch.Tensor:
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """x @ w for a dense, an int8 dict, an :class:`Int4Weight` or a
+    """x @ w for a dense, an int8 dict, an :class:`Int4Weight`, a
+    :class:`W8A8Weight` (:func:`matmul_w8a8` at every row count) or a
     :class:`LoraAdapted` weight (JAX ``quant.py:183-185``: the factors cast
     to x's dtype, the delta times the scale in x's dtype).
 
@@ -188,8 +259,9 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
         return matmul(x, w.base) + delta * w.scale
     if isinstance(w, Int4Weight):
         return _matmul_int4(x, w)
+    if isinstance(w, W8A8Weight):
+        return matmul_w8a8(x, w.q, w.scale)
     if not is_quantized(w):
-        check_ported(w)
         raise TypeError(f"matmul: unknown weight {type(w).__name__}")
     q, scale = w["q"], w["scale"]
     if x.device.type != "cpu" and _rows(x) <= KERNEL_MAX_ROWS:
@@ -201,15 +273,19 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
 def quantize_tree(params: Any, patterns: Tuple[str, ...] = DEFAULT_PATTERNS,
                   bits: int = 8, act: str = "none") -> Any:
     """Quantize the 2-D weights whose path ("llm/layers/3/attn/wq") matches
-    one of ``patterns`` to int8 dicts (bits 8) or :class:`Int4Weight`
-    (bits 4); already quantized and :class:`LoraAdapted` weights pass
-    through (JAX ``quant.py:257``). ``act="int8"`` (w8a8) is not ported."""
+    one of ``patterns`` to int8 dicts (bits 8), :class:`W8A8Weight` (bits
+    8, ``act="int8"``) or :class:`Int4Weight` (bits 4); already quantized
+    and :class:`LoraAdapted` weights pass through (JAX ``quant.py:257``)."""
     if bits not in (8, 4):
         raise ValueError(f"bits={bits}: expected 8 or 4")
-    if act != "none":
-        raise NotImplementedError(f"act={act!r}: {_NOT_PORTED['W8A8Weight']}"
-                                  f" is not ported")
-    quantize = quantize_weight if bits == 8 else quantize_weight_int4
+    if act not in ("none", "int8") or (act == "int8" and bits != 8):
+        raise ValueError(f"act={act!r} with bits={bits}: int8 activations "
+                         f"take bits 8")
+
+    def quantize(w):
+        if bits == 4:
+            return quantize_weight_int4(w)
+        return quantize_weight(w, act)
 
     def walk(tree, prefix=""):
         if is_quantized(tree) or isinstance(tree, LoraAdapted):

@@ -415,11 +415,12 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 
 
 def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
-               dtype=torch.float32, bits: int = 16) -> Params:
+               dtype=torch.float32, bits: int = 16,
+               act: str = "none") -> Params:
     """Random init with the JAX package's distributions, made on ``device``:
     N(0, 0.02) matrices and embeddings, zero biases, unit norms. ``bits=8``
-    (int8) or ``bits=4`` (int4) quantizes the projections and lm_head
-    (``quant.quantize_tree``'s patterns), each layer right after its init,
+    (int8; w8a8 with ``act="int8"``) or ``bits=4`` (int4) quantizes the
+    projections and lm_head (``quant.quantize_tree``'s patterns), each layer right after its init,
     so the whole full-precision decoder never exists at once."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
@@ -437,7 +438,7 @@ def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
     def quantized(llm):
         if bits == 16:
             return llm
-        return quant.quantize_tree({"llm": llm}, bits=bits)["llm"]
+        return quant.quantize_tree({"llm": llm}, bits=bits, act=act)["llm"]
 
     def layer():
         return quantized({"layers": [{

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from video3d_tpu_torch.config import VisionConfig
+from video3d_tpu_torch.models.quant import matmul as _mm
 
 Params = Dict[str, Any]
 
@@ -50,21 +51,24 @@ def attention(p: Params, x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """Bidirectional multi-head attention over the patch tokens."""
     B, N, D = x.shape
     hd = D // num_heads
-    q = (x @ p["wq"] + p["bq"]).reshape(B, N, num_heads, hd).transpose(1, 2)
-    k = (x @ p["wk"] + p["bk"]).reshape(B, N, num_heads, hd).transpose(1, 2)
-    v = (x @ p["wv"] + p["bv"]).reshape(B, N, num_heads, hd).transpose(1, 2)
+    q = (_mm(x, p["wq"]) + p["bq"]).reshape(B, N, num_heads, hd) \
+        .transpose(1, 2)
+    k = (_mm(x, p["wk"]) + p["bk"]).reshape(B, N, num_heads, hd) \
+        .transpose(1, 2)
+    v = (_mm(x, p["wv"]) + p["bv"]).reshape(B, N, num_heads, hd) \
+        .transpose(1, 2)
     scores = (q @ k.transpose(-1, -2)) * (hd ** -0.5)
     probs = torch.softmax(scores.to(torch.float32), dim=-1).to(x.dtype)
     out = (probs @ v).transpose(1, 2).reshape(B, N, D)
-    return out @ p["wo"] + p["bo"]
+    return _mm(out, p["wo"]) + p["bo"]
 
 
 def encoder_layer(p: Params, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
     h = _layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"], cfg.layer_norm_eps)
     x = x + attention(p["attn"], h, cfg.num_attention_heads)
     h = _layer_norm(x, p["ln2"]["scale"], p["ln2"]["bias"], cfg.layer_norm_eps)
-    h = gelu_tanh(h @ p["mlp"]["w1"] + p["mlp"]["b1"]) @ p["mlp"]["w2"] \
-        + p["mlp"]["b2"]
+    h = _mm(gelu_tanh(_mm(h, p["mlp"]["w1"]) + p["mlp"]["b1"]),
+            p["mlp"]["w2"]) + p["mlp"]["b2"]
     return x + h
 
 

@@ -35,10 +35,8 @@ def check_config(cfg: ModelConfig) -> None:
             or llm.norm_type != "rmsnorm" or llm.hidden_act != "silu"
             or llm.embed_scale or llm.rms_norm_add_unit_offset
             or not llm.attention_bias or llm.tie_word_embeddings):
-        raise NotImplementedError("only the Qwen2 decoder family is ported")
-    if cfg.world_3d.llava3d:
-        raise NotImplementedError("the llava3d voxel-dedup variant is not "
-                                  "ported (ROADMAP A2)")
+        raise NotImplementedError("only the Qwen2 decoder family is ported "
+                                  "(ROADMAP A11)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,12 +66,14 @@ def _convert(node, device, dtype):
                                 _convert(node.scale4, device, None),
                                 tuple(int(d) for d in node.dims),
                                 int(node.group))
+    if type(node).__name__ == "W8A8Weight":
+        return quant.W8A8Weight(_convert(node.q, device, None),
+                                _convert(node.scale, device, None))
     if type(node).__name__ == "LoraAdapted":
         return quant.LoraAdapted(_convert(node.base, device, dtype),
                                  _convert(node.A, device, dtype),
                                  _convert(node.B, device, dtype),
                                  float(node.scale))
-    quant.check_ported(node)
     a = np.array(node)                          # a writable copy
     if a.dtype.name == "bfloat16":
         # ml_dtypes' bfloat16, which torch.from_numpy rejects: carry the
@@ -92,10 +92,11 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
     are (in, out) and used as ``x @ w``) -> the port's parameter dict on
     ``device`` (default: the first CUDA card, see :func:`resolve_device`).
     bf16 leaves carry across bit for bit, and so do the int8
-    ``{"q", "scale"}`` dicts and the ``Int4Weight`` leaves of a
-    ``quantize_tree``'d tree (bits 8 or 4), and the ``LoraAdapted`` leaves
-    of an ``apply_lora``'d one. ``dtype`` casts floating leaves (None keeps
-    theirs) except the int4 scales."""
+    ``{"q", "scale"}`` dicts, the ``W8A8Weight`` and the ``Int4Weight``
+    leaves of a ``quantize_tree``'d tree (bits 8, ``act`` "none" or
+    "int8", or bits 4), and the ``LoraAdapted`` leaves of an
+    ``apply_lora``'d one. ``dtype`` casts floating leaves (None keeps
+    theirs) except the int4 and w8a8 scales."""
     check_config(cfg)
     device = resolve_device(device)
     out = {k: _convert(tree[k], device, dtype) for k in _USED
@@ -116,7 +117,8 @@ def from_jax_tree(tree, device=None, dtype=None):
 
 
 def init_model(cfg: ModelConfig, device, generator: torch.Generator,
-               dtype=torch.bfloat16, bits: int = 16) -> Params:
+               dtype=torch.bfloat16, bits: int = 16,
+               act: str = "none") -> Params:
     """Random init of the answer path's parameters, made directly on
     ``device`` from ``generator`` (a generator of that device). At full
     width that is ~8 B parameters, 16 GB in bf16: built on the host it would
@@ -124,7 +126,7 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
 
     ``bits=8`` (``bits=4``) gives what ``quantize_tree`` makes of the same
     tree (int8 dicts or ``Int4Weight`` for the LLM projections and
-    lm_head), quantizing each decoder layer right after its init, as the
+    lm_head; ``W8A8Weight`` with ``act="int8"``, JAX's ``--w8a8``), quantizing each decoder layer right after its init, as the
     JAX ``builder.init_dummy_params`` does, so the full bf16 LLM never
     exists next to the quantized one. ``dtype=torch.float32``
     gives the f32 master tree that training updates. The grounding head
@@ -143,7 +145,8 @@ def init_model(cfg: ModelConfig, device, generator: torch.Generator,
         "image_newline": torch.empty(cfg.llm.hidden_size, device=device,
                                      dtype=dtype).normal_(
                                          0.0, 0.02, generator=generator),
-        "llm": qwen2.init_qwen2(cfg.llm, device, generator, dtype, bits),
+        "llm": qwen2.init_qwen2(cfg.llm, device, generator, dtype, bits,
+                                act),
     }
     if cfg.ground_head != GroundHeadType.NONE:
         params["ground_head"] = lv3d.init_ground_head(

@@ -32,7 +32,7 @@ most ``ModelWorker.MAX_OPEN_STREAMS`` are open at once; one more is
 refused.
 
 Launch: ``python -m video3d_tpu_torch.serve.model_worker --model-path DIR
---load-format dummy`` (see :func:`main`).
+[--load-format dummy]`` (see :func:`main`).
 """
 
 from __future__ import annotations
@@ -776,14 +776,14 @@ def build_parser():
     parser.add_argument("--load-in-4bit", action="store_true",
                         help="int4 LLM projections and lm_head")
     parser.add_argument("--w8a8", action="store_true",
-                        help="int8 weights and int8 activations (not ported, "
-                             "ROADMAP A3)")
+                        help="int8 weights and int8 activations (implies "
+                             "--load-in-8bit; ignored under --load-in-4bit)")
     parser.add_argument("--load-format", choices=("auto", "dummy"),
                         default="auto",
-                        help="'dummy': ModelConfig()'s weights drawn on the "
-                             "device from seed 0 (vLLM load_format=dummy); "
-                             "'auto' (real weights) is not ported (ROADMAP "
-                             "A11)")
+                        help="'auto': the checkpoint in --model-path "
+                             "(config.json + *.safetensors); 'dummy': "
+                             "ModelConfig()'s weights drawn on the device "
+                             "from seed 0 (vLLM load_format=dummy)")
     parser.add_argument("--lora-modules", nargs="+", default=None,
                         metavar="NAME=RUN_DIR/model",
                         help="serve LoRA / QLoRA adapters beside the base "
@@ -835,27 +835,30 @@ def _load_tokenizer(model_path: str):
 
 def check_ported(args) -> None:
     """Raise NotImplementedError for a launch the port has not got:
-    ``--tp`` / ``--dp`` above 1 (A12), ``--w8a8`` (A3), ``--load-format
-    auto`` (A11)."""
+    ``--tp`` / ``--dp`` above 1 (A12)."""
     if args.tp > 1 or args.dp > 1:
         raise NotImplementedError(
             "--tp / --dp above 1: multi-GPU serving is not ported "
             "(ROADMAP A12)")
-    if args.w8a8:
-        raise NotImplementedError(
-            "--w8a8: int8 activations are not ported (ROADMAP A3)")
-    if args.load_format == "auto":
-        raise NotImplementedError(
-            "--load-format auto: reading real weights needs "
-            "models/builder.py and weights.py, not ported (ROADMAP A11); "
-            "use --load-format dummy")
+
+
+def weight_bits(args):
+    """(bits, act) of the launch flags, as JAX's launcher reads them:
+    ``--w8a8`` means bits 8 with int8 activations, except under
+    ``--load-in-4bit``."""
+    bits = (4 if args.load_in_4bit
+            else 8 if args.load_in_8bit or args.w8a8 else 16)
+    return bits, "int8" if args.w8a8 and bits != 4 else "none"
 
 
 def build_worker_engines(args, tokenizer, cfg=None):
-    """(base engine, adapters) of parsed launcher ``args``: ``cfg``
-    (default ``ModelConfig()``) drawn on the device from seed 0, bf16
-    on the card (f32 on the CPU), quantized per ``--load-in-8bit/4bit``,
-    and an engine per ``--lora-modules`` entry over the same base."""
+    """(base engine, adapters) of parsed launcher ``args``: the weights of
+    the checkpoint in ``--model-path`` (``--load-format auto``, through
+    ``builder.load_pretrained_model``) or ``cfg`` (default
+    ``ModelConfig()``) drawn on the device from seed 0 (``dummy``), bf16
+    on the card (f32 on the CPU), quantized per ``--load-in-8bit/4bit``
+    and ``--w8a8`` (:func:`weight_bits`), and an engine per
+    ``--lora-modules`` entry over the same base."""
     import torch
 
     from video3d_tpu_torch.config import DataConfig, ModelConfig
@@ -864,12 +867,22 @@ def build_worker_engines(args, tokenizer, cfg=None):
     from video3d_tpu_torch.params import init_model, resolve_device
 
     check_ported(args)
-    bits = 4 if args.load_in_4bit else 8 if args.load_in_8bit else 16
+    bits, act = weight_bits(args)
     dev = resolve_device(args.device)
-    cfg = cfg or ModelConfig()
-    params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
-                        torch.bfloat16 if dev.type == "cuda"
-                        else torch.float32, bits=bits)
+    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    if args.load_format == "auto":
+        from video3d_tpu_torch.models.builder import load_pretrained_model
+        from video3d_tpu_torch.models.quant import quantize_tree
+
+        _, params, cfg, _ = load_pretrained_model(
+            args.model_path, dtype=dtype, load_tokenizer=False, device=dev)
+        if bits != 16:
+            params = quantize_tree(params, bits=bits, act=act)
+    else:
+        cfg = cfg or ModelConfig()
+        params = init_model(cfg, dev,
+                            torch.Generator(device=dev).manual_seed(0), dtype,
+                            bits=bits, act=act)
     vp = VideoProcessor(DataConfig(video_folder=args.video_folder,
                                    annotation_dir=args.embodiedscan_folder,
                                    metadata_dir=args.metadata_folder,
@@ -917,7 +930,8 @@ def build_worker_engines(args, tokenizer, cfg=None):
 
 def main(argv=None) -> None:
     """``python -m video3d_tpu_torch.serve.model_worker --model-path DIR
-    --load-format dummy [--load-in-8bit] [--num-slots 8 --paged-kv]
+    [--load-format dummy] [--load-in-8bit | --w8a8] [--num-slots 8
+    --paged-kv]
     [--lora-modules NAME=RUN/model ...]``: build the engine on the card and
     serve it (with ``--controller-address``, registered there)."""
     parser = build_parser()

@@ -59,6 +59,8 @@ def _weight_shape(w) -> Optional[Tuple[int, int]]:
     """(in, out) of a dense 2-D or quantized weight leaf, else None."""
     if isinstance(w, quant.Int4Weight):
         return w.dims
+    if isinstance(w, quant.W8A8Weight):
+        return tuple(w.q.shape)
     if isinstance(w, dict) and "q" in w:
         return tuple(w["q"].shape)
     if isinstance(w, torch.Tensor) and w.ndim == 2:
@@ -74,7 +76,8 @@ def _is_leaf(x) -> bool:
     """Where a walk stops in a tree that mixes adapters with (possibly
     quantized) weights: None, an adapter, and every quantized form, so no
     walk pairs their insides with another tree's."""
-    return (x is None or isinstance(x, (quant.Int4Weight, quant.LoraAdapted))
+    return (x is None or isinstance(x, (quant.Int4Weight, quant.W8A8Weight,
+                                        quant.LoraAdapted))
             or _is_adapter(x) or (isinstance(x, dict) and "q" in x))
 
 
@@ -117,6 +120,8 @@ def _adapters(params, cfg: LoraConfig, make: Callable):
 def _device(w) -> torch.device:
     if isinstance(w, quant.Int4Weight):
         return w.q4.device
+    if isinstance(w, quant.W8A8Weight):
+        return w.q.device
     return (w["q"] if isinstance(w, dict) else w).device
 
 
@@ -205,7 +210,7 @@ def merge_lora_into_params(params, lora, cfg: LoraConfig):
     def merge(w, ad):
         if not _is_adapter(ad):
             return ad.to(w.dtype) if isinstance(w, torch.Tensor) else ad
-        if isinstance(w, quant.Int4Weight):
+        if isinstance(w, (quant.Int4Weight, quant.W8A8Weight)):
             raise TypeError(
                 "permanent merge into int4/w8a8 weights is unsupported; "
                 "keep apply_lora's lazy form or merge into bf16 then "
@@ -248,7 +253,7 @@ def load_lora_export(model_dir: str, base_params
     cfg = LoraConfig(r=meta["r"], alpha=meta["alpha"])
     bits = int(meta.get("bits", 16))
     leaf = tree_leaves(base_params)[0]
-    device = (leaf.q4 if isinstance(leaf, quant.Int4Weight) else leaf).device
+    device = _device(leaf)
     lora = torch.load(os.path.join(os.path.abspath(model_dir), PARAMS_FILE),
                       map_location=device, weights_only=True)
     meta_dev = torch.device("meta")
@@ -271,8 +276,8 @@ def maybe_merge_lora(params, lora_path: Optional[str]):
     directory); else, per ``lora.json``'s bits, bits 8 / 4 quantize the
     base to those bits and keep the adapters lazy (``LoraAdapted`` leaves
     over the quantized projections, the forward the adapters were trained
-    through), bits 16 merges them into the weights
-    (:func:`merge_lora_into_params`)."""
+    through; the full trainables cast to the base's dtype), bits 16 merges
+    them into the weights (:func:`merge_lora_into_params`)."""
     if not lora_path:
         return params
     with open(os.path.join(os.path.dirname(os.path.abspath(lora_path)),
@@ -282,5 +287,11 @@ def maybe_merge_lora(params, lora_path: Optional[str]):
         params = quant.quantize_tree(params, bits=bits)
     lora, cfg, _ = load_lora_export(lora_path, params)
     if bits in (8, 4):
-        return apply_lora(params, lora, cfg)
+        def adapt(w, ad):
+            # the full trainables in the base's dtype, as the merge does
+            if not _is_adapter(ad) and isinstance(w, torch.Tensor):
+                return ad.to(w.dtype)
+            return apply_lora(w, ad, cfg)
+
+        return _map_pair(adapt, params, lora)
     return merge_lora_into_params(params, lora, cfg)

@@ -210,6 +210,10 @@ class Trainer:
         if max(train_cfg.dp, train_cfg.tp, train_cfg.sp) > 1:
             raise NotImplementedError("data / tensor / sequence parallel "
                                       "meshes are not ported (ROADMAP A12)")
+        # the projectors and the newline layout JAX's collator and train
+        # step fail on are refused before any work
+        lv3d.check_projector(model_cfg, params.get("projector"))
+        lv3d.check_newline_layout(model_cfg)
         self.cfg = model_cfg
         self.tcfg = train_cfg
         self.dataset = dataset
