@@ -306,6 +306,26 @@ Phases, each of which raises on failure (the process then exits non-zero):
    (``load_pretrained_model``): the tree bit for bit, the greedy ids
    equal, the file's bytes and the write and load seconds. The phase's
    seconds, peak and launches, with the card's name and power limit.
+19. Decoder families and towers (``run_families``), each model drawn on
+   the card in bf16 from a seed, its ``LLMConfig`` from
+   ``builder.llm_config_from_hf`` fed the published config.json values
+   below: (a) LLaVA over Qwen1.5-MoE-A2.7B at full width and depth, a
+   prefix miss and a hit of one question (the hit's ids the miss's up to
+   a near-tie, exact attention launches), the MoE block at full width in
+   bf16 against its f32 version on the same inputs and routing (control:
+   each token's top expert dropped); (b) LLaVA over Gemma-2B (head_dim
+   256: the three hd-256 forms); (c) Mixtral-8x7B at MIXTRAL_LAYERS
+   layers, one answer and its MoE block; (d) MPT-7B at MPT_LAYERS layers
+   and MPT_FRAMES frames, one answer on the plain ALiBi attention (no
+   attention kernel launched), the paged batcher refused; each with its
+   B=1 prefill ms, captured decode ms/token and peak; (e) CLIP
+   ViT-L/14-336 alone and under S2, ``hf:`` SigLIP in its four feature
+   modes, OpenCLIP ViT-H-14, ImageBind-Huge and the four resamplers on two
+   images, each bf16 output within 2^-5 of max |out| of its f32 run
+   (control: the images swapped, or a pooled output's channels shifted).
+   Phase 3 holds the three hd-256 forms at Gemma-2B's heads with controls
+   (a mask dropped, a kv head off by one, a key tile or the focused keys
+   dropped).
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -392,6 +412,13 @@ KERNEL_INFO = {
                            "scripts/bench/stream_probe.py:73"),
     "stream_probe_split": ("video3d_tpu_torch/csrc/stream_probe.cu",
                            "scripts/bench/stream_probe.py:113"),
+    "flash_attention_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
+                              "video3d_tpu/kernels/flash_attention.py:64"),
+    "flash_attention_folded_hd256": (
+        "video3d_tpu_torch/csrc/attention_hd256.cu",
+        "video3d_tpu/kernels/flash_attention.py:64"),
+    "decode_attention_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
+                               "video3d_tpu/kernels/decode_attention.py:68"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4, 5 and 8
@@ -408,6 +435,9 @@ PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
                  "stream_probe_split")
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
+#: the head-width-256 forms (their main path: phase 19's Gemma-2B)
+HD256_KERNELS = ("flash_attention_hd256", "flash_attention_folded_hd256",
+                 "decode_attention_hd256")
 MAX_NEW = 32          # answer budget of both main paths
 DECODE_STEPS = 8      # steps of the captured-vs-uncaptured chunks
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
@@ -1056,7 +1086,7 @@ def _folded_bound(q, k_all, v_all, lens, offs, layer, KV, ks=None, vs=None):
     kv = sum(lens.tolist()) * k_all.shape[-1] * k_all.element_size() * 2
     if ks is not None:
         kv += sum(lens.tolist()) * KV * 4 * 2
-    return _bound(_attn(pairs, H), kv + 2 * _nbytes(q))
+    return _bound(_attn(pairs, H, hd), kv + 2 * _nbytes(q))
 
 
 def _folded_sdpa_ms(q, k_all, v_all, lens, offs, layer, KV, ks=None,
@@ -1077,6 +1107,214 @@ def _folded_sdpa_ms(q, k_all, v_all, lens, offs, layer, KV, ks=None,
     mask = torch.arange(n, device=q.device)[None, None, :] <= pos[..., None]
     return _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50,
                     attn_mask=mask[:, None])
+
+
+# phase 3 at head width 256 (Gemma-2B: 8 query heads on one kv head):
+# B2's prefill at the 8192 bucket, B2 folded at the B=1 prefix-hit shape
+# over an 18-layer cache, B3 at ~6.8k positions; each case's edge shapes
+# put a second kv head in, for the kv-head-off-by-one control
+HD256_HEADS = (8, 1)
+HD256_LAYERS = 18
+HD256_FLASH = ((1, 8192, [6780]), (2, 300, [300, 150]), (3, 65, [1, 64, 65]))
+HD256_FOLDED = ((64, [6716], [6756]), (64, [700, 100], [740, 164]))
+HD256_DECODE = ([6812], [8704, 6812, 300, 4097], [7, 0, 9, 3])
+
+
+def _kv_head_shifted(x, hd: int):
+    """A flat (..., KV * hd) cache with every kv head reading the next
+    one's channels (a kv head off by one)."""
+    return x.roll(hd, dims=-1)
+
+
+def check_flash_hd256(dev):
+    """B2's prefill form at hd 256 against its plain twin in f32: the main
+    case at Gemma-2B's heads (B=1, L=8192, length 6780), two edge cases
+    (ragged lengths, a row of length 1, 64-row tile edges; the second with
+    two kv heads); controls: the key tile 64-127 dropped, the causal mask
+    dropped, and (KV = 2) each query head reading the other kv head."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    hd, tile = 256, (64, 128)
+    worst, main = 0.0, None
+    for i, (B, L, lengths) in enumerate(HD256_FLASH):
+        H, KV = (HD256_HEADS if i != 1 else (8, 2))
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        k = torch.randn(B, L, KV, hd, generator=g, device=dev)
+        k[:, tile[0]:tile[1], :, 0] += FOCUS
+        v = 0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        out = fa.flash_attention(q, k, v, lengths=lens)
+        qf, kf, vf = q.float(), k.float(), v.float()
+        ref = h256.prefill_hd256_plain(qf, kf, vf, lens)
+        err = _rows_err(out, ref, lengths)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = f"B2 hd256 B={B} L={L} H={H} KV={KV} lengths={lengths}"
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows < length, finite={finite}")
+        controls = {"no causal mask": h256.prefill_hd256_plain(
+            qf, kf, vf, lens, causal=False)}
+        if L > tile[1]:
+            controls[f"keys {tile[0]}-{tile[1] - 1} dropped"] = \
+                _tile_dropped(qf, kf, vf, lens, *tile)
+        if KV > 1:
+            controls["kv head off by one"] = h256.prefill_hd256_plain(
+                qf, kf.roll(1, dims=2), vf.roll(1, dims=2), lens)
+        _check_controls(name, ref, lengths, controls)
+        del ref, qf, kf, vf, controls
+        worst = max(worst, err)
+        if main is None:
+            main = (q, k, v, lens)
+    q, k, v, lens = main
+    B, L, lengths = HD256_FLASH[0]
+    H = HD256_HEADS[0]
+    n = lengths[0]
+    rows = tuple(x[:, :n] for x in (q, k, v, q))
+    bound = _bound(_attn(_causal_pairs(n, [n]), H, hd), _nbytes(*rows))
+    del rows
+    sdpa, sdpa_all = _sdpa_both(q, k, v, n)
+    print(f"  SDPA forward on the {n} valid rows {sdpa:.4f} ms, causal on "
+          f"all {L} rows {sdpa_all:.4f} ms", flush=True)
+    bound["library_ms_all_rows"] = sdpa_all
+    return worst, (
+        _kernel_ms(lambda: fa.flash_attention(q, k, v, lengths=lens), 10),
+        _median_ms(lambda: h256.prefill_hd256_plain(q, k, v, lens), 3)
+    ), bound, sdpa
+
+
+def check_folded_hd256(dev):
+    """B2 folded at hd 256: a 64-token suffix at ~6716 of an 18-layer
+    stacked cache of 8224 slots at Gemma-2B's heads, and a two-row case
+    with two kv heads whose short row leaves splits empty; controls: the
+    chunk's causal mask dropped, the chunk's own keys dropped, (KV = 2)
+    the first key tile skipped and a kv head off by one; each case twice,
+    bit for bit."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(22)
+    NL, hd, S, layer = HD256_LAYERS, 256, 8224, HD256_LAYERS - 1
+    worst, timed = 0.0, None
+    for i, (L, offs, lens) in enumerate(HD256_FOLDED):
+        H, KV = HD256_HEADS if i == 0 else (8, 2)
+        B = len(offs)
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+        k_all = torch.randn(NL, B, S, KV * hd, generator=g,
+                            device=dev).to(torch.bfloat16)
+        for b, (o, n) in enumerate(zip(offs, lens)):
+            k_all[layer, b, o:n, ::hd] += FOCUS
+        v_all = (0.5 * torch.randn(NL, B, S, KV * hd, generator=g,
+                                   device=dev)).to(torch.bfloat16)
+        offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, k_all, v_all, lens_t, offs_t, layer, KV)
+        rows = [n - o for o, n in zip(offs, lens)]
+        out = fa.flash_attention_gqa_folded(*args)
+        qf = q.float()
+        ref = h256.folded_hd256_plain(qf, *args[1:])
+        err = _rows_err(out, ref, rows)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = f"B2 folded hd256 B={B} L={L} KV={KV} offsets={offs}"
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows below kv_len, finite={finite}")
+        _check_repeat(name, lambda: fa.flash_attention_gqa_folded(*args), out)
+        controls = {
+            "no causal mask in the chunk": h256.folded_hd256_plain(
+                qf, k_all, v_all, lens_t, lens_t - 1, layer, KV),
+            "the chunk's own keys dropped": h256.folded_hd256_plain(
+                qf, k_all, v_all, offs_t, offs_t, layer, KV)}
+        if KV > 1:
+            # (at KV = 1 the first tile's unfocused keys weigh too little
+            # for this control to clear 4x: it read 7.87e-02 on an H100,
+            # and one focused key of 64 dropped read 1.20e-02)
+            controls["first key tile skipped"] = h256.folded_hd256_plain(
+                qf, k_all[:, :, 64:], v_all[:, :, 64:], lens_t - 64,
+                offs_t - 64, layer, KV)
+            controls["kv head off by one"] = h256.folded_hd256_plain(
+                qf, _kv_head_shifted(k_all, hd), _kv_head_shifted(v_all, hd),
+                lens_t, offs_t, layer, KV)
+        _check_controls(name, ref, rows, controls)
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+    return worst, (
+        _kernel_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
+        _median_ms(lambda: h256.folded_hd256_plain(*timed), 10)
+    ), _folded_bound(*timed), _folded_sdpa_ms(*timed)
+
+
+def check_decode_hd256(dev):
+    """B3 at hd 256 over an 18-layer cache of 8704 slots at Gemma-2B's
+    heads: one row of 6812 positions, four rows, and fewer live positions
+    than CTAs with a kv_len 0 row (zeros); controls: the 4 peaked last keys
+    dropped and (KV = 2 on the four rows) a kv head off by one."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    NL, hd, S, layer = HD256_LAYERS, 256, 8704, HD256_LAYERS - 1
+    worst, timed = 0.0, None
+    for i, lens in enumerate(HD256_DECODE):
+        H, KV = HD256_HEADS if i != 1 else (8, 2)
+        B = len(lens)
+        q = Q_SCALE * torch.randn(B, 1, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+        k_all = torch.randn(NL, B, S, KV * hd, generator=g,
+                            device=dev).to(torch.bfloat16)
+        for b, n in enumerate(lens):
+            k_all[layer, b, max(n - 4, 0):n, ::hd] += FOCUS
+        v_all = (0.5 * torch.randn(NL, B, S, KV * hd, generator=g,
+                                   device=dev)).to(torch.bfloat16)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        out = da.decode_attention(q, k_all, v_all, kv_len, layer, KV)
+        qf = q.float()
+        ref = h256.decode_hd256_plain(qf, k_all, v_all, kv_len, layer, KV)
+        live = [b for b, n in enumerate(lens) if n]
+        err = float((out[live].float() - ref[live]).abs().max())
+        zeros = all(bool((out[b] == 0).all())
+                    for b, n in enumerate(lens) if n == 0)
+        name = f"B3 hd256 B={B} KV={KV} kv_len={lens}"
+        _check(name, err <= BF16_ATOL and zeros,
+               f"max |d| {err:.2e} over the live rows; kv_len 0 rows zero: "
+               f"{zeros}")
+        _check_repeat(name, lambda: da.decode_attention(
+            q, k_all, v_all, kv_len, layer, KV), out)
+        controls = {"the 4 focused keys dropped": h256.decode_hd256_plain(
+            qf, k_all, v_all, (kv_len - 4).clamp(min=1), layer, KV)[live]}
+        if KV > 1:
+            controls["kv head off by one"] = h256.decode_hd256_plain(
+                qf, _kv_head_shifted(k_all, hd), _kv_head_shifted(v_all, hd),
+                kv_len, layer, KV)[live]
+        _check_controls(name, ref[live], [1] * len(live), controls)
+        worst = max(worst, err)
+        if timed is None:
+            timed = (q, k_all, v_all, kv_len)
+        else:
+            del k_all, v_all
+    q, k_all, v_all, kv_len = timed
+    H, KV = HD256_HEADS
+    n = int(kv_len[0])
+    bound = _bound(_attn(n, H, hd), 2 * n * KV * hd * 2 + 2 * _nbytes(q))
+    kh, vh = (_heads_first(x[layer, :, :n].reshape(1, n, KV, hd), H)
+              for x in (k_all, v_all))
+    return worst, (
+        _kernel_ms(lambda: da.decode_attention(q, k_all, v_all, kv_len,
+                                               layer, KV), 50),
+        _median_ms(lambda: h256.decode_hd256_plain(q, k_all, v_all, kv_len,
+                                                   layer, KV), 10)
+    ), bound, _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50)
 
 
 def check_shared_prefix(dev):
@@ -2014,7 +2252,10 @@ def check_kernels():
                      ("shared_prefix_attention_int4",
                       lambda d: check_shared_prefix_int8(d, bits=4)),
                      ("paged_attention_int4",
-                      lambda d: check_paged(d, "int4"))):
+                      lambda d: check_paged(d, "int4")),
+                     ("flash_attention_hd256", check_flash_hd256),
+                     ("flash_attention_folded_hd256", check_folded_hd256),
+                     ("decode_attention_hd256", check_decode_hd256)):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
         flushed = None
@@ -2197,10 +2438,11 @@ def _questions(video_id: str, texts, tag: str):
     } for i, text in enumerate(texts)]
 
 
-def _make_engine(params, cfg, root: str, **ecfg):
-    """An InferenceEngine on the synthetic scene that keeps every
-    GenerateResult, the first-step logits of each decode-state request and
-    every grounding result, so a run can be checked."""
+def _make_engine(params, cfg, root: str, frames: int = 32, **ecfg):
+    """An InferenceEngine on the synthetic scene (``frames`` frames a
+    question) that keeps every GenerateResult, the first-step logits of
+    each decode-state request and every grounding result, so a run can be
+    checked."""
     import torch
 
     from fixtures import FakeTokenizer
@@ -2249,10 +2491,10 @@ def _make_engine(params, cfg, root: str, **ecfg):
             video_folder=root,
             annotation_dir=os.path.join(root, "embodiedscan"),
             metadata_dir=os.path.join(root, "metadata"),
-            frames_upbound=32)),
+            frames_upbound=frames)),
         engine_cfg=EngineConfig(max_new_tokens=MAX_NEW,
                                 eos_token_id=tok.eos_token_id,
-                                max_frames=32, stop_str="", **ecfg),
+                                max_frames=frames, stop_str="", **ecfg),
         device=torch.device("cuda", 0))
 
 
@@ -7405,6 +7647,448 @@ def run_variants_and_weights(cfg, root: str, info, dev) -> dict:
     return total
 
 
+# phase 19: the other decoder families and the other towers. Each model is
+# built from seeded random weights on the card in bf16, its LLMConfig from
+# builder.llm_config_from_hf fed the published config.json values below
+# (nothing is downloaded); depth is cut where the model does not fit.
+QWEN_MOE_HF = {   # Qwen/Qwen1.5-MoE-A2.7B config.json
+    "model_type": "qwen2_moe", "vocab_size": 151936, "hidden_size": 2048,
+    "intermediate_size": 5632, "num_hidden_layers": 24,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "num_experts": 60, "num_experts_per_tok": 4,
+    "moe_intermediate_size": 1408, "shared_expert_intermediate_size": 5632,
+    "norm_topk_prob": False, "rms_norm_eps": 1e-6, "rope_theta": 1e6,
+    "max_position_embeddings": 8192, "tie_word_embeddings": False}
+GEMMA_2B_HF = {   # google/gemma-2b config.json
+    "model_type": "gemma", "vocab_size": 256000, "hidden_size": 2048,
+    "intermediate_size": 16384, "num_hidden_layers": 18,
+    "num_attention_heads": 8, "num_key_value_heads": 1, "head_dim": 256,
+    "hidden_act": "gelu", "hidden_activation": "gelu_pytorch_tanh",
+    "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "max_position_embeddings": 8192}
+MIXTRAL_HF = {    # mistralai/Mixtral-8x7B-v0.1 config.json
+    "model_type": "mixtral", "vocab_size": 32000, "hidden_size": 4096,
+    "intermediate_size": 14336, "num_hidden_layers": 32,
+    "num_attention_heads": 32, "num_key_value_heads": 8,
+    "num_local_experts": 8, "num_experts_per_tok": 2, "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6, "max_position_embeddings": 32768}
+MPT_7B_HF = {     # mosaicml/mpt-7b config.json
+    "model_type": "mpt", "d_model": 4096, "n_heads": 32, "n_layers": 32,
+    "expansion_ratio": 4, "max_seq_len": 2048, "vocab_size": 50432,
+    "attn_config": {"alibi": True, "alibi_bias_max": 8}}
+MIXTRAL_LAYERS = 2      # of 32: the full depth is ~94 GB in bf16
+MPT_LAYERS = 4          # of 32
+MPT_FRAMES = 8          # the prompt within MPT-7B's max_seq_len of 2048
+# the MoE block at full width, bf16 against f32 on the same bf16 inputs
+# and the same routing: max |d| <= MOE_REL x max |ref| (bf16 rounds the
+# (T, E, I) products, the expert outputs and their weighted sum); the
+# control drops each token's largest routed expert and must read 4x
+MOE_TOKENS, MOE_REL = 512, 2.0 ** -6
+# phase 19 (e): a tower's or resampler's bf16 output against its f32 run
+# on the card within 2^-5 of max |out| (phase 18's rule for projectors); the
+# control (the two images' outputs swapped) must read 4x
+TOWER_REL = 2.0 ** -5
+
+
+def _family_config(hf: dict, layers: Optional[int] = None):
+    """ModelConfig of a published decoder's config.json (the default
+    SigLIP tower and mlp2x_gelu projector), its depth cut to ``layers``."""
+    from video3d_tpu_torch.models.builder import model_config_from_hf
+
+    cfg = model_config_from_hf(hf)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, num_hidden_layers=layers))
+    return cfg
+
+
+def _family_model(name: str, cfg, seed: int):
+    import torch
+
+    from video3d_tpu_torch.params import init_model
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_model(cfg, dev, torch.Generator(device=dev)
+                        .manual_seed(seed), torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"  {name}: {cfg.llm.num_hidden_layers} decoder layers, "
+          f"{n / 1e9:.3f} B bf16 parameters drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def _family_answers(name: str, params, cfg, root: str, info, total: dict,
+                    hit: bool = True, frames: int = 32):
+    """One question through a prefix-caching engine: the miss (full
+    prefill, the prefix stored) and, with ``hit``, the same question again
+    over the stored prefix; the hit's ids equal the miss's up to a near-tie.
+    Adds the answers' launches into ``total``; then prints the B=1 prefill
+    ms, the captured decode ms/token and the peak memory. Returns (the
+    launch delta, the engine)."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.models import generate as gen
+
+    engine = _make_engine(params, cfg, root, frames=frames,
+                          prefix_cache_scenes=1)
+    q = _questions(info["sample_idx"], SCANQA_TEXTS[:1], name)[0]
+    eos = engine.ecfg.eos_token_id
+    before = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = [engine.generate_answer(q)]
+    torch.cuda.synchronize()
+    t_miss = time.perf_counter() - t0
+    if hit:
+        texts.append(engine.generate_answer(q))
+        torch.cuda.synchronize()
+    delta = _launch_delta(before)
+    _add_launches(total, delta)
+    stats = engine.prefix_cache_stats
+    _check(f"{name}: answers", all(isinstance(t, str) for t in texts)
+           and stats == ([1, 1] if hit else [0, 1]),
+           f"{len(texts)} answers, prefix cache [hits, misses] {stats}; "
+           f"miss {t_miss:.2f} s")
+    ids = [_with_eos(d, eos, MAX_NEW) for d in engine.decoded]
+    if hit:
+        _near_tie_check(f"{name}: hit ids vs miss ids", params, cfg, engine,
+                        q, ids[0], ids[1], CROSS_TIE)
+    batch, vf = engine._prepare_generation(q)
+    max_len = batch.text_ids.shape[1] + MAX_NEW
+    with torch.inference_mode():
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = gen.start_decode(params, cfg, batch, max_len,
+                                     vision_features=vf)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    res = gen.generate_from_state(params, cfg, state, MAX_NEW, eos,
+                                  graphs=engine._graphs)
+    torch.cuda.synchronize()
+    per_tok = (time.perf_counter() - t0) / _forwards(res) * 1e3
+    print(f"  {name}: B=1 prefill of {int(batch.seq_len[0])} tokens "
+          f"{min(ms):.1f} ms (LLM only), decode {per_tok:.2f} ms/token "
+          f"captured over {_forwards(res)} steps; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return delta, engine
+
+
+def _attention_launches(name: str, delta: dict, engine, layers: int,
+                        prefill: str, folded: Optional[str],
+                        decode: str) -> None:
+    """The answers' attention launches: ``layers`` of ``prefill`` (the
+    miss), of ``folded`` (the hit), and of ``decode`` per decode forward;
+    every other attention kernel none."""
+    forwards = sum(_forwards(r) for r in engine.results)
+    want = {prefill: layers, decode: layers * forwards}
+    if folded:
+        want[folded] = layers
+    attn = {k: v for k, v in delta.items() if v and "attention" in k}
+    _check(f"{name}: attention launches", attn == want,
+           f"{attn}, expected {want} ({forwards} decode forwards)")
+
+
+def _moe_block_check(name: str, p, cfg, dev) -> None:
+    """The MoE block at full width in bf16 against its f32 version on the
+    same bf16 inputs and the same routing; the control drops each token's
+    largest routed expert."""
+    import torch
+    import torch.nn.functional as F
+
+    from video3d_tpu_torch.models import moe
+
+    g = torch.Generator(device=dev).manual_seed(190)
+    x = torch.randn(1, MOE_TOKENS, cfg.hidden_size, generator=g,
+                    device=dev).to(torch.bfloat16)
+    mc = cfg.moe
+    with torch.inference_mode():
+        got = moe.moe_block(p, x, mc).float()
+        t_ms = _median_ms(lambda: moe.moe_block(p, x, mc), 5)
+        xt = x.reshape(-1, cfg.hidden_size)
+        w = moe.routing_weights(xt @ p["router"], mc, x.dtype).float()
+        p32 = {k: ({n: t.float() for n, t in v.items()}
+                   if isinstance(v, dict) else v.float())
+               for k, v in p.items()}
+        x32 = xt.float()
+
+        def block32(weights):
+            ex = p32["experts"]
+            gate = torch.einsum("td,edi->tei", x32, ex["w_gate"])
+            up = torch.einsum("td,edi->tei", x32, ex["w_up"])
+            out = torch.einsum("tei,eid->ted", F.silu(gate) * up,
+                               ex["w_down"])
+            routed = torch.einsum("te,ted->td", weights, out)
+            if "shared" in p32:
+                sh = p32["shared"]
+                shared = (F.silu(x32 @ sh["w_gate"]) * (x32 @ sh["w_up"])) \
+                    @ sh["w_down"]
+                routed = routed + shared * torch.sigmoid(
+                    x32 @ p32["shared_gate"])
+            return routed
+
+        ref = block32(w)
+        top = w.argmax(-1)
+        dropped = block32(w.scatter(-1, top[:, None], 0.0))
+        flips = float((moe.routing_weights(x32 @ p32["router"], mc,
+                                           torch.float32) > 0).ne(w > 0)
+                      .any(-1).float().mean())
+    bound = MOE_REL * float(ref.abs().max())
+    d = float((got.reshape(ref.shape) - ref).abs().max())
+    c = float((dropped - ref).abs().max())
+    _check(f"{name}: MoE block bf16 vs f32 ({MOE_TOKENS} tokens, "
+           f"{mc.num_experts} experts, top-{mc.num_experts_per_tok})",
+           d <= bound, f"max |d| {d:.4f} (bound {bound:.4f} = 2^-6 x "
+           f"max |ref| {float(ref.abs().max()):.3f}); {t_ms:.3f} ms a "
+           f"bf16 block; f32 routing picks another expert set on "
+           f"{flips:.1%} of the tokens (both sides use the bf16 routing)")
+    _check(f"{name}: MoE control, each token's top expert dropped",
+           c >= 4 * bound, f"max |d| {c:.4f} (must be >= {4 * bound:.4f})")
+
+
+def _families_llm(root: str, info, total: dict) -> None:
+    """Phase 19 (a) - (d): the decoders of the other families."""
+    import torch
+
+    from video3d_tpu_torch.serve.batcher import ContinuousBatcher
+
+    dev = torch.device("cuda", 0)
+    print("(a) LLaVA over Qwen1.5-MoE-A2.7B (full width and depth):",
+          flush=True)
+    cfg = _family_config(QWEN_MOE_HF)
+    params = _family_model("Qwen1.5-MoE-A2.7B", cfg, 191)
+    delta, engine = _family_answers("qwen2-moe", params, cfg, root, info,
+                                    total)
+    L = cfg.llm.num_hidden_layers
+    _attention_launches("qwen2-moe", delta, engine, L, "flash_attention",
+                        "flash_attention_folded", "decode_attention")
+    _moe_block_check("qwen2-moe", params["llm"]["layers"][0]["moe"], cfg.llm,
+                     dev)
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("(b) LLaVA over Gemma-2B (full width and depth, head_dim 256):",
+          flush=True)
+    cfg = _family_config(GEMMA_2B_HF)
+    params = _family_model("Gemma-2B", cfg, 192)
+    delta, engine = _family_answers("gemma", params, cfg, root, info, total)
+    _attention_launches("gemma", delta, engine, cfg.llm.num_hidden_layers,
+                        "flash_attention_hd256",
+                        "flash_attention_folded_hd256",
+                        "decode_attention_hd256")
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"(c) Mixtral-8x7B (full width, {MIXTRAL_LAYERS} of 32 layers):",
+          flush=True)
+    cfg = _family_config(MIXTRAL_HF, MIXTRAL_LAYERS)
+    params = _family_model("Mixtral-8x7B", cfg, 193)
+    delta, engine = _family_answers("mixtral", params, cfg, root, info,
+                                    total, hit=False)
+    _attention_launches("mixtral", delta, engine, MIXTRAL_LAYERS,
+                        "flash_attention", None, "decode_attention")
+    _moe_block_check("mixtral", params["llm"]["layers"][0]["moe"], cfg.llm,
+                     dev)
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print(f"(d) MPT-7B (full width, {MPT_LAYERS} of 32 layers, ALiBi, "
+          f"{MPT_FRAMES} frames):", flush=True)
+    cfg = _family_config(MPT_7B_HF, MPT_LAYERS)
+    params = _family_model("MPT-7B", cfg, 194)
+    delta, engine = _family_answers("mpt", params, cfg, root, info, total,
+                                    hit=False, frames=MPT_FRAMES)
+    attn = {k: v for k, v in delta.items() if v and "attention" in k}
+    _check("mpt: plain attention with the ALiBi bias", not attn,
+           f"attention kernel launches {attn} (the bias keeps every layer "
+           f"on the plain path, as JAX)")
+    try:
+        ContinuousBatcher(engine, num_slots=2, paged=True)
+        refused = "no error"
+    except ValueError as e:
+        refused = f"ValueError: {e}"
+    _check("mpt: the paged batcher refuses ALiBi",
+           refused.startswith("ValueError"), refused)
+    del params, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tower_entry(name: str, fwd32, fwd16, total_ms: list,
+                 control: str = "swap") -> None:
+    """A tower's (or resampler's) bf16 output on two images against its f32
+    run: within TOWER_REL x max |f32|. The control must read 4x the bound:
+    "swap", the two images' outputs swapped (per-patch outputs); "shift",
+    the output's channels shifted by one (a pooled or latent output, which
+    random weights make depend little on the image)."""
+    import torch
+
+    with torch.inference_mode():
+        got = fwd16().float()
+        ref = fwd32().float()
+        ms = _median_ms(fwd16, 3)
+    total_ms.append(ms)
+    bound = TOWER_REL * float(ref.abs().max())
+    d = float((got - ref).abs().max())
+    broken = ref.flip(0) if control == "swap" else ref.roll(1, dims=-1)
+    c = float((broken - ref).abs().max())
+    _check(f"{name}: bf16 vs f32 on the card", d <= bound
+           and bool(torch.isfinite(got).all()),
+           f"{tuple(got.shape)}, max |d| {d:.4f} (bound {bound:.4f}); "
+           f"{ms:.2f} ms in bf16")
+    what = "the two images swapped" if control == "swap" \
+        else "channels shifted by one"
+    _check(f"{name}: control, {what}", c >= 4 * bound,
+           f"max |d| {c:.4f} (must be >= {4 * bound:.4f})")
+
+
+def _f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_f32_tree(v) for v in tree]
+    return tree.float()
+
+
+def _families_towers(dev) -> None:
+    """Phase 19 (e): the towers and resamplers at published widths, each
+    on two images."""
+    import torch
+
+    from video3d_tpu_torch.config import VisionConfig
+    from video3d_tpu_torch.models import clip, hf_vision, imagebind
+    from video3d_tpu_torch.models import resampler as rs
+    from video3d_tpu_torch.models import siglip
+
+    print("(e) towers and resamplers (published widths, two images):",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(195)
+    times: list = []
+    bf = torch.bfloat16
+
+    def pixels(size):
+        return torch.randn(2, 3, size, size, generator=gen, device=dev)
+
+    # CLIP ViT-L/14-336, select_layer -2, alone and under S2
+    ccfg = VisionConfig(hidden_size=1024, intermediate_size=4096,
+                        num_hidden_layers=24, num_attention_heads=16,
+                        image_size=336, patch_size=14, layer_norm_eps=1e-5)
+    cp = clip.init_clip(ccfg, dev, gen, bf)
+    cp32 = _f32_tree(cp)
+    px = pixels(336)
+    _tower_entry("CLIP ViT-L/14-336", lambda: clip.clip_tower_forward(
+        cp32, px, ccfg), lambda: clip.clip_tower_forward(cp, px.to(bf), ccfg),
+        times)
+    px3 = pixels(1008)
+    _tower_entry("CLIP ViT-L/14-336 under S2 (336, 672, 1008)",
+                 lambda: clip.clip_s2_forward(cp32, px3, ccfg),
+                 lambda: clip.clip_s2_forward(cp, px3.to(bf), ccfg), times)
+    with torch.inference_mode():
+        feats = clip.clip_tower_forward(cp, px.to(bf), ccfg)
+    del cp, cp32, px3
+    # hf: SigLIP so400m with each feature_select mode
+    scfg = VisionConfig()
+    sp = siglip.init_vision_tower(scfg, dev, gen, bf)
+    sp32 = _f32_tree(sp)
+    spx = pixels(scfg.image_size)
+    for mode in ("patch", "cls_patch", "slicefour_patch",
+                 "slicefour_cls_patch"):
+        _tower_entry(
+            f"hf: SigLIP so400m feature_select {mode}",
+            lambda m=mode: hf_vision.hf_vision_tower_forward(
+                sp32, spx, scfg, "siglip", -2, m),
+            lambda m=mode: hf_vision.hf_vision_tower_forward(
+                sp, spx.to(bf), scfg, "siglip", -2, m), times)
+    del sp, sp32
+    # OpenCLIP ViT-H-14
+    ocfg = VisionConfig(hidden_size=1280, intermediate_size=5120,
+                        num_hidden_layers=32, num_attention_heads=16,
+                        image_size=224, patch_size=14, layer_norm_eps=1e-5)
+    op = clip.init_clip(ocfg, dev, gen, bf)
+    op32 = _f32_tree(op)
+    opx = pixels(224)
+    _tower_entry("OpenCLIP ViT-H-14", lambda: hf_vision.open_clip_tower_forward(
+        op32, opx, ocfg), lambda: hf_vision.open_clip_tower_forward(
+        op, opx.to(bf), ocfg), times)
+    del op, op32
+    # ImageBind-Huge vision
+    icfg = imagebind.ImageBindConfig()
+    ip = imagebind.init_imagebind(icfg, dev, gen, bf)
+    ip32 = _f32_tree(ip)
+    _tower_entry("ImageBind-Huge vision",
+                 lambda: imagebind.imagebind_vision_forward(ip32, opx, icfg),
+                 lambda: imagebind.imagebind_vision_forward(
+                     ip, opx.to(bf), icfg), times, "shift")
+    del ip, ip32
+    # the resamplers on the CLIP features (2, 576, 1024)
+    D = ccfg.hidden_size
+    f32 = feats.float()
+    hw = (ccfg.image_size, ccfg.image_size)
+    pool = rs.init_spatial_pool(D, D, dev, gen, dtype=bf)
+    pool32 = _f32_tree(pool)
+    _tower_entry("spatial_pool (conv, stride 2)",
+                 lambda: rs.apply_resampler("spatial_pool", pool32, f32,
+                                            images_hw=hw, mode="conv"),
+                 lambda: rs.apply_resampler("spatial_pool", pool, feats,
+                                            images_hw=hw, mode="conv"), times)
+    noise = torch.rand(feats.shape[:2], generator=gen, device=dev)
+    _tower_entry("masked_drop (fixed, ratio 0.5)",
+                 lambda: rs.apply_resampler("masked_drop", {}, f32,
+                                            noise=noise, training=True),
+                 lambda: rs.apply_resampler("masked_drop", {}, feats,
+                                            noise=noise, training=True),
+                 times)
+    per = rs.init_perceiver(D, dev, gen, dtype=bf)
+    per32 = _f32_tree(per)
+    _tower_entry("perceiver (3 layers, 32 latents)",
+                 lambda: rs.apply_resampler("perceiver", per32, f32),
+                 lambda: rs.apply_resampler("perceiver", per, feats), times,
+                 "shift")
+    qf = rs.init_qformer(D, dev, gen, dtype=bf)
+    qf["query_tokens"] = torch.randn(qf["query_tokens"].shape, generator=gen,
+                                     device=dev).to(bf)
+    qf32 = _f32_tree(qf)
+    _tower_entry("qformer (bert-base, 32 queries)",
+                 lambda: rs.apply_resampler("qformer", qf32, f32),
+                 lambda: rs.apply_resampler("qformer", qf, feats), times,
+                 "shift")
+    print(f"  (e): {len(times)} entries, {sum(times):.1f} ms of bf16 forwards",
+          flush=True)
+
+
+def run_families(root: str, info, dev) -> dict:
+    """Phase 19: (a) LLaVA over Qwen1.5-MoE-A2.7B, (b) over Gemma-2B, (c)
+    Mixtral-8x7B cut to MIXTRAL_LAYERS layers, (d) MPT-7B cut to MPT_LAYERS
+    layers, each from seeded random weights in bf16 through the engine;
+    (e) the towers and resamplers. Returns the answers' launch counts."""
+    import torch
+
+    t_phase = time.perf_counter()
+    total: dict = {}
+    _families_llm(root, info, total)
+    _families_towers(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    missing = [k for k in HD256_KERNELS if not total.get(k)]
+    _check("phase 19: the hd-256 forms launched", not missing,
+           f"none launched: {missing}" if missing else
+           f"{ {k: total[k] for k in HD256_KERNELS} }")
+    print(f"  phase 19: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{ {k: v for k, v in total.items() if v} }; {_card()}",
+          flush=True)
+    return total
+
+
 def _leaves(tree):
     from video3d_tpu_torch.models.quant import Int4Weight
 
@@ -7529,6 +8213,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         print("variants and real weights (phase 18):", flush=True)
         variants = run_variants_and_weights(cfg, root, info, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("decoder families and towers (phase 19):", flush=True)
+        families = run_families(root, info, dev)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name in PROBE_KERNELS:
@@ -7545,7 +8233,8 @@ def main() -> None:
             launches = scanqa[name] + prefix[name] + serve[name] \
                 + ground[name] + decode.get(name, 0) + spec14.get(name, 0)
         launches += lora.get(name, 0) + other.get(name, 0) \
-            + http.get(name, 0) + variants.get(name, 0)
+            + http.get(name, 0) + variants.get(name, 0) \
+            + families.get(name, 0)
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches,
                         "ms_l2_flushed": None, **rows[name]})

@@ -5,7 +5,8 @@ LoRA over ``model_base``) on directories the tests write, leaf for leaf
 with JAX's loads; the export round trip bit for bit (bf16 -> f32 -> bf16);
 greedy ids of an engine on the loaded model equal to the JAX engine's on
 JAX's load of the same directory; ``load_dummy_model``; and the refusals
-(no card without ``device``, resamplers, other families)."""
+(no card without ``device``, an attention width that is not the hidden
+size)."""
 
 import json
 import os
@@ -272,20 +273,29 @@ def test_load_dummy_model(base, tmp_path):
 
 
 def test_refusals(base, tmp_path):
+    """No card without ``device``; a decoder whose attention width is not
+    its hidden size (JAX's reshape fails) raises a ValueError. Another
+    family's config over the checkpoint and resampler keys now load, as
+    in JAX."""
     path, cfg = base
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tb.load_pretrained_model(path, load_tokenizer=False)
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="hidden size"):
         tb.load_pretrained_model(path, load_tokenizer=False, device="cpu",
-                                 overwrite_config={"model_type": "llama"})
+                                 overwrite_config={"head_dim": 32})
+    _, p, mc, _ = tb.load_pretrained_model(
+        path, load_tokenizer=False, device="cpu",
+        overwrite_config={"model_type": "llama"})
+    assert mc.llm.rope_theta == 1e4 and "bq" in p["llm"]["layers"][0]["attn"]
     rs = tmp_path / "resampler"
     rs.mkdir()
     (rs / "config.json").write_text(json.dumps(dict(
         cfg, mm_resampler_type="spatial_pool")))
     state = tw.load_safetensors_dir(path)
     state["model.vision_resampler.pool.weight"] = torch.zeros(2, 2, 2, 2)
+    state["model.vision_resampler.pool.bias"] = torch.zeros(2)
     tw.write_safetensors(state, str(rs / "model.safetensors"))
-    with pytest.raises(NotImplementedError, match="A11"):
-        tb.load_pretrained_model(str(rs), load_tokenizer=False,
-                                 device="cpu")
+    _, p, _, _ = tb.load_pretrained_model(str(rs), load_tokenizer=False,
+                                          device="cpu")
+    assert p["resampler"]["conv_w"].shape == (8, 2)

@@ -1896,3 +1896,142 @@ def test_captured_w8a8_chunk_equals_uncaptured(dev, decoders):
     assert launched == {"decode_attention": 4 * steps * CAPTURE_LAYERS,
                         quant.W8A8_COUNT:
                             4 * steps * (7 * CAPTURE_LAYERS + 1)}
+
+
+# ---------------------------------------------------------------------------
+# head width 256 (Gemma): B2's prefill form, B2 folded and B3 on
+# csrc/attention_hd256.cu, against their plain twins in f32
+# ---------------------------------------------------------------------------
+
+HD256_PREFILL = [(2, 300, [300, 150], 8, 1), (1, 129, [129], 4, 2),
+                 (3, 65, [1, 64, 65], 8, 8)]
+
+
+@pytest.mark.parametrize("B,L,lengths,H,KV", HD256_PREFILL)
+def test_hd256_prefill_kernel(dev, B, L, lengths, H, KV):
+    """At the edges of the 64-row and 64-key tiles, peaked (keys 64-127
+    focused); control: the causal mask dropped misses by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    hd = 256
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev)
+    k[:, 64:128, :, 0] += FOCUS
+    v = 0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)
+    q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got = _launched("flash_attention_hd256",
+                    lambda: fa.flash_attention(q, k, v, lengths=lens))
+    ref = h256.prefill_hd256_plain(q.float(), k.float(), v.float(), lens)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, lengths) <= BF16_ATOL
+    no_mask = h256.prefill_hd256_plain(q.float(), k.float(), v.float(), lens,
+                                       causal=False)
+    assert _rows_err(no_mask, ref, lengths) > 4 * BF16_ATOL
+
+
+HD256_FOLDED = [(8, 1, 64, [700], [740]),       # Gemma-2B's prefix hit
+                (8, 2, 100, [300, 37], [400, 100]),
+                (8, 1, 64, [200], [264]),
+                (16, 2, 64, [700, 100], [740, 164])]   # empty splits
+
+
+@pytest.mark.parametrize("H,KV,L,offs,lens", HD256_FOLDED)
+def test_hd256_folded_kernel(dev, H, KV, L, offs, lens):
+    """Over a stacked cache layer; controls: the causal mask dropped, and
+    the next kv head's keys, each miss by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    NL, S, hd, layer = 2, 800, 256, 1
+    B = len(offs)
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.bfloat16()
+    k_all = torch.randn(NL, B, S, KV * hd, generator=g, device=dev)
+    for b, (o, n) in enumerate(zip(offs, lens)):
+        k_all[layer, b, o:n, ::hd] += FOCUS
+    k_all = k_all.bfloat16()
+    v_all = (0.5 * torch.randn(NL, B, S, KV * hd, generator=g,
+                               device=dev)).bfloat16()
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: fa.flash_attention_gqa_folded(q, k_all, v_all, lens_t,
+                                                 offs_t, layer, KV)
+    got = _launched("flash_attention_folded_hd256", call)
+    _same_bits(call, got)
+    ref = h256.folded_hd256_plain(q.float(), k_all, v_all, lens_t, offs_t,
+                                  layer, KV)
+    rows = [min(L, n - o) for o, n in zip(offs, lens)]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, rows) <= BF16_ATOL
+    no_mask = h256.folded_hd256_plain(q.float(), k_all, v_all, lens_t,
+                                      lens_t - 1, layer, KV)
+    assert _rows_err(no_mask, ref, rows) > 4 * BF16_ATOL
+    if KV > 1:
+        shifted = h256.folded_hd256_plain(
+            q.float(), k_all.roll(hd, dims=-1), v_all, lens_t, offs_t, layer,
+            KV)
+        assert _rows_err(shifted, ref, rows) > 4 * BF16_ATOL
+
+
+HD256_DECODE = [(8, 1, 600, [600, 257, 1]), (16, 2, 520, [520, 300]),
+                (8, 8, 300, [256, 1, 299]),
+                # fewer live positions than CTAs (B3's split fault), a row of 0
+                (8, 1, 528, [5, 0, 9, 3]), (8, 1, 7000, [2])]
+
+
+@pytest.mark.parametrize("H,KV,S,lens", HD256_DECODE)
+def test_hd256_decode_kernel(dev, H, KV, S, lens):
+    """Over a stacked cache layer: the twin's output on live rows, zeros on
+    a kv_len == 0 row, the same bits twice, a launch at full rows after it;
+    control: the last live key dropped misses by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    NL, B, hd, layer = 2, len(lens), 256, 1
+    q = _peaked_q(g, dev, B, H, hd)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer, hd)
+    k_all, v_all = (x.reshape(NL, B, S, KV * hd).bfloat16() for x in (k, v))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k_all, v_all, kv_len, layer, KV)
+    got = _launched("decode_attention_hd256", call)
+    ref = h256.decode_hd256_plain(q.float(), k_all, v_all, kv_len, layer, KV)
+    live = [b for b, n in enumerate(lens) if n]
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got[live].float() - ref[live]).abs().max()) <= BF16_ATOL
+    for b in (kv_len == 0).nonzero().flatten().tolist():
+        assert bool((got[b] == 0).all())
+    _same_bits(call, got)
+    if max(lens) > 1:
+        broken = h256.decode_hd256_plain(q.float(), k_all, v_all,
+                                         (kv_len - 1).clamp(min=1), layer, KV)
+        assert float((broken[live] - ref[live]).abs().max()) > 4 * BF16_ATOL
+    full = torch.full_like(kv_len, S)
+    after = da.decode_attention(q, k_all, v_all, full, layer, KV)
+    ref_full = h256.decode_hd256_plain(q.float(), k_all, v_all, full, layer,
+                                       KV)
+    assert float((after.float() - ref_full).abs().max()) <= BF16_ATOL
+
+
+def test_hd256_forms_refuse_what_they_do_not_take(dev):
+    """No quantized-cache, shared-prefix, paged or training form at hd 256
+    yet: each raises a ValueError on the card."""
+    B, S, KV, hd = 1, 128, 1, 256
+    q = torch.zeros(B, 1, 8, hd, dtype=torch.bfloat16, device=dev)
+    k8 = torch.zeros(2, B, S, KV * hd, dtype=torch.int8, device=dev)
+    sc = torch.ones(2, B, S, KV, 1, device=dev)
+    lens = torch.full((B,), 5, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        da.decode_attention(q, k8, k8, lens, 0, KV, sc, sc)
+    with pytest.raises(ValueError, match="256"):
+        fa.flash_attention_gqa_folded(q.expand(B, 4, 8, hd).contiguous(), k8,
+                                      k8, lens, lens - 4, 0, KV, sc, sc)
+    kk = torch.zeros(B, 64, KV, hd, dtype=torch.bfloat16, device=dev)
+    qq = torch.zeros(B, 64, 8, hd, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(qq, kk, kk, lens)
+    with pytest.raises(ValueError):
+        fa.flash_attention_shared_prefix(qq, kk[0], kk[0], kk, kk, lens)

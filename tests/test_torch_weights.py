@@ -5,7 +5,7 @@ ways (every dtype the format has here, bf16 included); ``convert_qwen2``,
 projector variant) and ``convert_llava_checkpoint`` (with the ground head)
 against the JAX converters on state dicts the tests build, leaf for leaf;
 ``export_llava_checkpoint``'s state against JAX's (contiguous f32, (out,
-in)); and the refusals of MPT and MoE checkpoints (ROADMAP A11)."""
+in)); and the refusal to export an MPT or a MoE tree, as JAX fails to."""
 
 import json
 import os
@@ -175,16 +175,20 @@ def test_export_matches_jax(exported, tmp_path):
 
 
 def test_mpt_and_moe_checkpoints_refused(exported):
+    """MPT and MoE checkpoints convert now (``tests/test_torch_mpt.py``,
+    ``tests/test_torch_moe.py``); what stays refused is their export,
+    whose layout holds a dense gated MLP only (JAX's fails on both)."""
     cfg, _, state = exported
-    with pytest.raises(NotImplementedError, match="A11"):
-        tw.convert_llava_checkpoint({**state, "transformer.wte.weight":
-                                     np.zeros((4, 4), np.float32)},
-                                    TCFG.llm, TCFG.vision, device="cpu")
-    moe = {k: v for k, v in state.items()
-           if not k.startswith("model.layers.1.mlp.gate_proj")}
-    moe["model.layers.1.mlp.gate.weight"] = np.zeros((4, 64), np.float32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tw.convert_qwen2(moe, TCFG.llm, device="cpu")
+    tree = tw.convert_llava_checkpoint(state, TCFG.llm, TCFG.vision,
+                                       device="cpu")
+    moe = dict(tree["llm"]["layers"][1])
+    moe["moe"] = moe.pop("mlp")
+    mpt = dict(tree["llm"]["layers"][1])
+    mpt["mlp"] = {k: v for k, v in mpt["mlp"].items() if k != "w_gate"}
+    for layer in (moe, mpt):
+        llm = dict(tree["llm"], layers=[tree["llm"]["layers"][0], layer])
+        with pytest.raises(ValueError, match="dense gated MLP"):
+            tw.export_llava_checkpoint({**tree, "llm": llm}, TCFG.llm)
 
 
 def test_converters_default_to_the_card(exported):

@@ -5,7 +5,7 @@ The port's own copy of ``video3d_tpu/data/video_processor.py``: uniform
 sampling, the offline max-coverage JSON and, for scenes missing from it,
 exact greedy max-coverage selection on the device (``ops/mc_select.py``,
 on ``device``: the first CUDA card unless the caller names one) as there;
-packed scene bundles are not ported (ROADMAP A11) and raise. Depth PNGs are
+packed scene bundles are not ported (ROADMAP A11, item 6b) and raise. Depth PNGs are
 read with PIL.
 
 Semantics mirror the reference ``VideoProcessor``
@@ -246,7 +246,7 @@ class VideoProcessor:
         if self.cfg.packed_dir is not None:
             raise NotImplementedError(
                 "packed scene bundles (tools/pack_scenes.py) are not ported "
-                "(ROADMAP A11)")
+                "(ROADMAP A11, item 6b)")
         meta = self.scene[video_id]
         axis_align = np.asarray(meta["axis_align_matrix"], np.float64)
         intrinsic = np.asarray(meta["depth_cam2img"], np.float64)

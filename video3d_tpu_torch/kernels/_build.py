@@ -61,6 +61,9 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "stream_probe_kv": 0, "stream_probe_one": 0,
                             "stream_probe_multi": 0,
                             "stream_probe_split": 0,
+                            "flash_attention_hd256": 0,
+                            "flash_attention_folded_hd256": 0,
+                            "decode_attention_hd256": 0,
                             # not a kernel of the port: the w8a8
                             # product's torch._int_mm calls on the card
                             "int_mm_w8a8": 0}
@@ -140,6 +143,10 @@ _SIGNATURES = {
     # k, v, t, out, checksum, begins (host), ctas, units_per_stream,
     # units_per_block, hd, stream
     "v3d_kv_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, lens, q_off, out, workspace, mode, B, L, S, H, KV, splits,
+    # split_keys, sm_scale, stream
+    "v3d_attention_hd256": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _F, _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]

@@ -29,12 +29,15 @@ def cache_values(t: torch.Tensor) -> torch.Tensor:
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True,
                   q_positions: Optional[torch.Tensor] = None,
-                  kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  kv_len: Optional[torch.Tensor] = None,
+                  score_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain attention: q (B, L, H, hd), k/v (B, S, KV, hd) -> (B, L, H, hd).
 
     ``q_positions`` (B, L) are absolute query positions (cache path);
     ``kv_len`` (B,) counts the valid key slots. Without ``q_positions`` a
-    causal mask aligns the last query with the last key.
+    causal mask aligns the last query with the last key. ``score_bias``
+    (H, S), a per-head key-position bias (MPT's ALiBi), is added to the
+    scaled f32 scores before the mask.
     """
     B, L, H, hd = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -42,6 +45,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v = v.repeat_interleave(H // KV, dim=2)
     scores = torch.einsum("blhd,bshd->bhls", q, k).to(torch.float32) \
         * (hd ** -0.5)
+    if score_bias is not None:
+        scores = scores + score_bias.to(torch.float32)[None, :, None, :]
     slots = torch.arange(S, device=q.device)[None, None, :]
     allow = torch.ones((B, L, S), dtype=torch.bool, device=q.device)
     if q_positions is not None:
@@ -51,28 +56,38 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         allow = (slots <= rows).expand(B, L, S)
     if kv_len is not None:
         allow = allow & (slots < kv_len[:, None, None])
-    scores = torch.where(allow[:, None], scores,
-                         torch.tensor(NEG_INF, dtype=torch.float32,
-                                      device=q.device))
+    # a Python scalar fill: no host-to-device copy, so a decode step on
+    # this path (ALiBi) can be captured into a CUDA graph
+    scores = scores.masked_fill(~allow[:, None], NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.einsum("bhls,bshd->blhd", probs, v)
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-        kv_len: torch.Tensor) -> torch.Tensor:
+        kv_len: torch.Tensor,
+        score_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Causal prefill attention over the chunk's own K/V (L == S, right
     padding: keys >= kv_len[b] masked). Runs the flash kernel (B2) on the
-    GPU and its plain version on the CPU."""
+    GPU and its plain version on the CPU; with a ``score_bias`` (ALiBi)
+    the plain version on every device, as JAX (``attention.py:193``)."""
+    if score_bias is not None:
+        return mha_reference(q, k, v, causal=True, kv_len=kv_len,
+                             score_bias=score_bias)
     from video3d_tpu_torch.kernels.flash_attention import flash_attention
 
     return flash_attention(q, k, v, lengths=kv_len, causal=True)
 
 
 def mha_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              kv_len: torch.Tensor) -> torch.Tensor:
+              kv_len: torch.Tensor,
+              score_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """:func:`mha` with gradients, the training forward (no cache): the
     autograd Function of B2 with the logsumexp and B6 on the GPU, of their
-    plain versions on the CPU."""
+    plain versions on the CPU; with a ``score_bias`` the plain attention,
+    differentiated by autograd, on every device."""
+    if score_bias is not None:
+        return mha_reference(q, k, v, causal=True, kv_len=kv_len,
+                             score_bias=score_bias)
     from video3d_tpu_torch.kernels.flash_attention import \
         flash_attention_train
 
@@ -83,7 +98,8 @@ def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                       sk: torch.Tensor, sv: torch.Tensor,
                       suffix_lens: torch.Tensor,
                       pk_scale: Optional[torch.Tensor] = None,
-                      pv_scale: Optional[torch.Tensor] = None
+                      pv_scale: Optional[torch.Tensor] = None,
+                      score_bias: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """Suffix-over-SHARED-prefix attention (scene-grouped batched suffix
     prefill: every batch row attends the same scene prefix). Runs kernel B5
@@ -94,8 +110,13 @@ def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     hd / 2) uint8) with (P, KV, 1) f32 scales ``pk_scale``/``pv_scale``;
     sk/sv (B, L, KV, hd) the chunk's own K/V, at
     full precision whatever the prefix's type; suffix_lens (B,) valid suffix
-    keys. Rows r >= suffix_lens[b] are undefined by contract.
+    keys. Rows r >= suffix_lens[b] are undefined by contract. A
+    ``score_bias`` (H, P + L) takes the plain version on every device
+    (JAX asserts there is none).
     """
+    if score_bias is not None:
+        return mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens,
+                                           pk_scale, pv_scale, score_bias)
     from video3d_tpu_torch.kernels.flash_attention import \
         flash_attention_shared_prefix
 
@@ -104,7 +125,8 @@ def mha_shared_prefix(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
 
 
 def mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens,
-                                pk_scale=None, pv_scale=None):
+                                pk_scale=None, pv_scale=None,
+                                score_bias=None):
     """Oracle of :func:`mha_shared_prefix`: broadcast the prefix to every
     row (a quantized prefix, int4 unpacked first, dequantized with its
     scales in q's dtype, as the JAX oracle does), concatenate the suffix
@@ -120,14 +142,16 @@ def mha_shared_prefix_reference(q, pk, pv, sk, sv, suffix_lens,
     v = torch.cat([pv.expand(B, *pv.shape), sv.to(q.dtype)], 1)
     q_positions = (P + torch.arange(L, device=q.device))[None].expand(B, L)
     return mha_reference(q, k, v, q_positions=q_positions,
-                         kv_len=P + suffix_lens.to(q.device))
+                         kv_len=P + suffix_lens.to(q.device),
+                         score_bias=score_bias)
 
 
 def mha_cached_stacked(q: torch.Tensor, k_all: torch.Tensor,
                        v_all: torch.Tensor, layer: int, kv_heads: int,
                        q_positions: torch.Tensor, kv_len: torch.Tensor,
                        k_scale: Optional[torch.Tensor] = None,
-                       v_scale: Optional[torch.Tensor] = None
+                       v_scale: Optional[torch.Tensor] = None,
+                       score_bias: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Cache attention for ``layer`` of the stacked flat (layers, B, S,
     KV*hd) cache: bf16, or int8 (or packed int4, KV*hd / 2 uint8 bytes per
@@ -138,7 +162,15 @@ def mha_cached_stacked(q: torch.Tensor, k_all: torch.Tensor,
     ``min(q_position + 1, kv_len)``. A multi-token chunk (L > 1) whose rows
     sit at contiguous positions ``q_positions[b, 0] + r``: the GQA-folded
     flash kernel (B2 folded), a slot valid when it is <= the query's
-    position and < kv_len. The CPU takes each kernel's plain version."""
+    position and < kv_len. The CPU takes each kernel's plain version. A
+    ``score_bias`` (H, S) takes the plain attention over the layer's
+    dequantized K/V on every device, as JAX (``attention.py:347``)."""
+    if score_bias is not None:
+        from video3d_tpu_torch.kernels.decode_attention import layer_kv
+
+        kl, vl = layer_kv(q, k_all, v_all, layer, kv_heads, k_scale, v_scale)
+        return mha_reference(q, kl, vl, q_positions=q_positions,
+                             kv_len=kv_len, score_bias=score_bias)
     if q.shape[1] > 1:
         from video3d_tpu_torch.kernels.flash_attention import \
             flash_attention_gqa_folded
@@ -158,13 +190,19 @@ def mha_cached_stacked(q: torch.Tensor, k_all: torch.Tensor,
 def paged_mha(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
               page_table: torch.Tensor, kv_len: torch.Tensor, layer: int,
               k_scale: Optional[torch.Tensor] = None,
-              v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+              v_scale: Optional[torch.Tensor] = None,
+              score_bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Paged decode attention (L == 1) for ``layer`` of the stacked
     (layers, P, page, KV*hd) pools (packed int4: KV*hd / 2 uint8 bytes per
     row; quantized: (layers, P, KV, 1, page) scales), the dispatch of
     ``video3d_tpu/kernels/attention.py:372-415``: kernel B7 on the GPU and
     its plain version on the CPU. The kv head count is the scale pools'
-    kv dim, or the flat last dim over q's head dim."""
+    kv dim, or the flat last dim over q's head dim. A ``score_bias``
+    (ALiBi) raises: the JAX package asserts there is none
+    (``qwen2.py:268``)."""
+    if score_bias is not None:
+        raise ValueError("paged_mha: paged attention takes no score bias "
+                         "(ALiBi)")
     from video3d_tpu_torch.kernels.paged_attention import \
         paged_decode_attention
 

@@ -21,9 +21,13 @@ with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
 (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
 ``flash_attention_bwd``), on the CPU their plain versions.
 
-Every form runs on Hopper kernels fed by TMA: their C entries take the
-shapes, encode the tensor maps from the kernels' own tile sizes and plan
-the grids. B2 folded and B5 (``csrc/chunk_sm90.cuh``) split over keys where
+At head width 256 the prefill form and B2 folded (bf16 cache) launch
+``csrc/attention_hd256.cu`` instead (``kernels/attention_hd256.py``); the
+other forms take 128 only.
+
+Every form at hd 128 runs on Hopper kernels fed by TMA: their C entries
+take the shapes, encode the tensor maps from the kernels' own tile sizes
+and plan the grids. B2 folded and B5 (``csrc/chunk_sm90.cuh``) split over keys where
 their row tiles alone do not fill the card; :func:`chunk_plan` picks the
 split count from the shapes and the SM count, and the wrapper allocates
 the workspace the splits merge through.
@@ -186,6 +190,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lengths is None:
         lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
                              device=q.device)
+    if q.shape[-1] == 256 and causal:
+        from video3d_tpu_torch.kernels import attention_hd256
+
+        return attention_hd256.prefill_hd256(q, k, v, lengths)
     out, _ = _fwd_launch(_build.library(), _stream(q.device), q, k, v,
                          lengths, causal, with_lse=False)
     return out
@@ -253,6 +261,14 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_gqa_folded: no kernel for device "
                          f"{q.device}")
+    if q.shape[-1] == 256:
+        from video3d_tpu_torch.kernels import attention_hd256
+
+        if k_scale is not None or v_scale is not None:
+            raise ValueError("flash_attention_gqa_folded: no quantized-cache"
+                             " form at head_dim 256 yet (ROADMAP B)")
+        return attention_hd256.folded_hd256(q, k_all, v_all, lengths,
+                                            q_offsets, layer, kv_heads)
     return _folded_launch(_build.library(), _stream(q.device),
                           _sm_count(q.device.index or 0), q, k_all, v_all,
                           lengths, q_offsets, layer, kv_heads, k_scale,

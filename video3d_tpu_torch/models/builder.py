@@ -8,8 +8,9 @@ persists (``world_position_embedding_type``, ``voxel_size``,
 ``min/max_xyz_range``, ``object_feature_type``, ``ground_head_type``); an
 ``overwrite_config`` dict overrides them (the eval drivers'
 ``{"vocab_size": ..., "tie_word_embeddings": False}``). Every family's
-config parses as in JAX; the model itself runs the Qwen2 family only
-(``params.check_config``). The weights convert through
+config parses and loads as in JAX (Qwen2, Qwen2-MoE, LLaMA, Mistral,
+Mixtral, Gemma, MPT); ``params.check_config`` refuses only what JAX cannot
+run. The weights convert through
 :mod:`~video3d_tpu_torch.models.weights` onto the card unless the caller
 asks for the CPU. The tokenizer goes through ``transformers`` only when
 asked for (``load_tokenizer=True``): the card's machine has no
@@ -28,6 +29,7 @@ from video3d_tpu_torch.config import (GroundHeadType, LLMConfig, ModelConfig,
                                       MoEConfig, ObjectFeatureType,
                                       VisionConfig, VoxelConfig,
                                       World3DConfig, replace)
+from video3d_tpu_torch.models.weights import mpt_config_from_hf
 from video3d_tpu_torch.params import check_config, init_model, resolve_device
 
 
@@ -77,31 +79,6 @@ def llm_config_from_hf(hf: Dict[str, Any]) -> LLMConfig:
         hidden_act="gelu_tanh" if "gelu" in act else "silu",
         rms_norm_add_unit_offset=is_gemma,
         embed_scale=is_gemma,
-    )
-
-
-def mpt_config_from_hf(hf: Dict[str, Any]) -> LLMConfig:
-    """HF MptConfig dict -> LLMConfig (ALiBi, LayerNorm, ungated GELU)."""
-    d = hf["d_model"]
-    heads = hf["n_heads"]
-    attn_cfg = hf.get("attn_config", {}) or {}
-    return LLMConfig(
-        vocab_size=hf["vocab_size"],
-        hidden_size=d,
-        intermediate_size=int(hf.get("expansion_ratio", 4)) * d,
-        num_hidden_layers=hf["n_layers"],
-        num_attention_heads=heads,
-        num_key_value_heads=heads,
-        head_dim=d // heads,
-        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
-        max_position_embeddings=hf.get("max_seq_len", 2048),
-        tie_word_embeddings=True,
-        attention_bias=False,
-        hidden_act="gelu",
-        position_embedding="alibi",
-        norm_type="layernorm",
-        alibi_bias_max=attn_cfg.get("alibi_bias_max", 8.0),
-        mrope_section=(d // heads // 4, d // heads // 8, d // heads // 8),
     )
 
 
@@ -241,10 +218,12 @@ def load_pretrained_model(model_path: str,
         ``mm_projector.bin`` over the base weights;
       * neither: a full checkpoint.
     config.json always comes from ``model_path``, the tokenizer from
-    ``model_base`` when given. A checkpoint of a decoder family the port
-    does not run raises (``params.check_config``), and resampler keys
-    raise (ROADMAP A11)."""
+    ``model_base`` when given. A configured resampler's weights
+    (``model.vision_resampler.*``) load into ``params["resampler"]`` (JAX
+    ``builder.py:312-316``). A decoder JAX cannot run raises a ValueError
+    (``params.check_config``)."""
     from video3d_tpu_torch.models.weights import (convert_llava_checkpoint,
+                                                  convert_resampler,
                                                   load_safetensors_dir,
                                                   vision_config_from_state,
                                                   TOWER_PREFIX)
@@ -270,14 +249,14 @@ def load_pretrained_model(model_path: str,
         vision_config = vision_config_from_state(state)
     if vision_config is not None:
         cfg = replace(cfg, vision=vision_config)
-    if cfg.resampler_type and any(k.startswith("model.vision_resampler.")
-                                  for k in state):
-        raise NotImplementedError("the vision resamplers (convert_resampler)"
-                                  " are not ported (ROADMAP A11)")
     check_config(cfg)
     params = convert_llava_checkpoint(
         state, cfg.llm, cfg.vision, dtype=dtype,
         ground_head="ground_head_obj.0.weight" in state, device=dev)
+    if cfg.resampler_type and any(k.startswith("model.vision_resampler.")
+                                  for k in state):
+        params["resampler"] = convert_resampler(state, cfg.resampler_type,
+                                                dtype=dtype, device=dev)
     del state
     tokenizer = _tokenizer(model_base or model_path) if load_tokenizer \
         else None

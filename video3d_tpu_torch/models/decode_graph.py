@@ -52,6 +52,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from video3d_tpu_torch.kernels import _build, _launch
+from video3d_tpu_torch.kernels import attention_hd256 as hd256
 from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.decode_attention import decode_plan
 from video3d_tpu_torch.models import quant
@@ -163,13 +164,20 @@ def step_buffers(params, cfg, rows: int, cap: int,
                  sms: int) -> Tuple[int, int]:
     """(arrival counters, workspace bytes) one decode step of ``rows`` rows
     over ``cap`` positions per row asks of its stream: the largest of the
-    plans of B3 / B7 (``decode_plan``) and of the weight-streaming kernels
-    at every projection and the head."""
-    plan = decode_plan(rows, cfg.llm.num_key_value_heads, cap, sms)
+    plans of B3 / B7 (``decode_plan``; at head width 256 the hd-256
+    decode form's, ``hd256_plan``) and of the weight-streaming kernels at
+    every projection and the head (a MoE layer's expert stacks stay
+    dense)."""
+    llm_cfg = cfg.llm
+    plan = decode_plan(rows, llm_cfg.num_key_value_heads, cap, sms)
     counters, nbytes = plan.counters, plan.workspace_bytes
+    if llm_cfg.head_dim == hd256.HEAD_DIM:
+        nbytes = max(nbytes, hd256.hd256_plan(
+            rows, 1, llm_cfg.num_attention_heads,
+            llm_cfg.num_key_value_heads, cap, sms).workspace_bytes)
     llm = params["llm"]
     layer = llm["layers"][0]
-    for w in (*layer["attn"].values(), *layer["mlp"].values(),
+    for w in (*layer["attn"].values(), *layer.get("mlp", {}).values(),
               llm["lm_head"]):
         p = _weight_plan(w, rows, sms)
         if p is not None and p.workspace_bytes:

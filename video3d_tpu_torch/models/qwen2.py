@@ -16,6 +16,16 @@ Parameter layout as in the JAX tree (matrices (in, out), used as
 attn {wq, wk, wv, wo, bq, bk, bv}, post_attention_layernorm,
 mlp {w_gate, w_up, w_down}}``, ``norm``, ``lm_head (D, vocab)``.
 
+The other decoder families of the JAX builder run through the same layer,
+switched by the ``LLMConfig`` and the tree (JAX ``qwen2.py``): no q/k/v
+biases (LLaMA, Mistral, Mixtral, Gemma, MPT), a ``moe`` subtree in place
+of ``mlp`` (Qwen2-MoE, Mixtral: ``models/moe.py``), Gemma's GELU-tanh
+MLP, (1 + w) RMSNorm and sqrt(D) embedding scale, and MPT's LayerNorm,
+ungated exact-GELU MLP and ALiBi bias in place of rotary. An ALiBi bias
+keeps attention on the plain path (``mha_reference`` with the bias) on
+the card too, as it keeps JAX off its Pallas kernels; paged attention
+refuses it.
+
 bf16 rounding points follow the JAX package: RMSNorm normalises in f32 and
 casts to the activation dtype BEFORE the weight multiply; mRoPE cos/sin are
 computed in f32 and cast to the query dtype inside ``apply_rotary``.
@@ -24,6 +34,7 @@ computed in f32 and cast to the query dtype inside ``apply_rotary``.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -36,7 +47,7 @@ from video3d_tpu_torch.kernels.attention import (mha, mha_cached_stacked,
                                                  mha_shared_prefix, mha_train,
                                                  paged_mha)
 from video3d_tpu_torch.kernels.paged_attention import paged_attention_multi
-from video3d_tpu_torch.models import paged_kv, quant
+from video3d_tpu_torch.models import moe, paged_kv, quant
 
 Params = Dict[str, Any]
 
@@ -154,10 +165,66 @@ def _write_kv(cache: KVCache, layer: int, rows, cols, k: torch.Tensor,
             buf[layer, rows, cols] = x.flatten(-2).to(buf.dtype)
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             add_unit_offset: bool = False) -> torch.Tensor:
+    """RMSNorm in f32; ``add_unit_offset`` (Gemma) applies (1 + w) in f32
+    before the cast, else w multiplies after it."""
     x32 = x.to(torch.float32)
     var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return weight * (x32 * torch.rsqrt(var + eps)).to(x.dtype)
+    normed = x32 * torch.rsqrt(var + eps)
+    if add_unit_offset:
+        return ((1.0 + weight.to(torch.float32)) * normed).to(x.dtype)
+    return weight * normed.to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Mean-subtracting LayerNorm with a scale and no bias (MPT's
+    ``no_bias`` blocks), normalised in f32."""
+    x32 = x.to(torch.float32)
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    return weight * ((x32 - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _norm(x: torch.Tensor, weight: torch.Tensor,
+          cfg: LLMConfig) -> torch.Tensor:
+    if cfg.norm_type == "layernorm":
+        return layer_norm(x, weight, cfg.rms_norm_eps)
+    return rms_norm(x, weight, cfg.rms_norm_eps, cfg.rms_norm_add_unit_offset)
+
+
+def alibi_slopes(num_heads: int, alibi_bias_max: float = 8.0
+                 ) -> torch.Tensor:
+    """(H,) f32 ALiBi slopes of MPT (HF ``build_mpt_alibi_tensor``),
+    re-interleaved odd / even for a head count that is not a power of 2."""
+    n_pow2 = 2 ** math.ceil(math.log2(num_heads))
+    base = torch.arange(1, n_pow2 + 1, dtype=torch.float32) \
+        * (alibi_bias_max / n_pow2)
+    slopes = 1.0 / (2.0 ** base)
+    if n_pow2 != num_heads:
+        slopes = torch.cat([slopes[1::2], slopes[::2]])[:num_heads]
+    return slopes
+
+
+@functools.lru_cache(maxsize=None)
+def _alibi_slopes_on(num_heads: int, alibi_bias_max: float,
+                     device: torch.device) -> torch.Tensor:
+    """:func:`alibi_slopes` on ``device``, made once (no host-to-device
+    copy while a decode step is captured)."""
+    with torch.inference_mode(False):
+        return alibi_slopes(num_heads, alibi_bias_max).to(device)
+
+
+def alibi_bias(cfg: LLMConfig, key_len: int, device=None) -> torch.Tensor:
+    """(H, key_len) f32 key-position bias slope_h * j. HF anchors it at
+    slope * (j - (K - 1)); the shift is constant along a row, so softmax
+    does not see it, and the unanchored form fits any valid prefix of a
+    preallocated cache."""
+    slopes = _alibi_slopes_on(cfg.num_attention_heads, cfg.alibi_bias_max,
+                              torch.device(device or "cpu"))
+    return slopes[:, None] * torch.arange(key_len, dtype=torch.float32,
+                                          device=slopes.device)[None, :]
 
 
 def rope_inv_freq(cfg: LLMConfig) -> torch.Tensor:
@@ -253,13 +320,29 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
     """
     B, L, D = x.shape
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if H * hd != D:
+        raise ValueError(f"attention width {H} x {hd} != hidden size {D}: "
+                         f"the JAX reshape fails (qwen2.py:433)")
     a = p["attn"]
-    h = rms_norm(x, p["input_layernorm"], cfg.rms_norm_eps)
+    h = _norm(x, p["input_layernorm"], cfg)
     mm = quant.matmul
-    q = (mm(h, a["wq"]) + a["bq"]).reshape(B, L, H, hd)
-    k = (mm(h, a["wk"]) + a["bk"]).reshape(B, L, KV, hd)
-    v = (mm(h, a["wv"]) + a["bv"]).reshape(B, L, KV, hd)
-    q, k = apply_rotary(q, k, cos, sin)
+    q, k, v = mm(h, a["wq"]), mm(h, a["wk"]), mm(h, a["wv"])
+    if "bq" in a:          # Qwen2's q/k/v biases; the LLaMA family has none
+        q, k, v = q + a["bq"], k + a["bk"], v + a["bv"]
+    q = q.reshape(B, L, H, hd)
+    k = k.reshape(B, L, KV, hd)
+    v = v.reshape(B, L, KV, hd)
+    alibi = cfg.position_embedding == "alibi"
+    if not alibi:          # MPT: no rotary, a key-position bias instead
+        q, k = apply_rotary(q, k, cos, sin)
+
+    def bias(key_len):
+        # the attention calls take score_bias only under ALiBi, so the
+        # other families call them exactly as before (a swapped-in
+        # attention, as chip_smoke's plain-attention checks use, need not
+        # know the keyword)
+        return {"score_bias": alibi_bias(cfg, key_len, x.device)} \
+            if alibi else {}
 
     if paged is not None:
         cache, pids, off, lens_after = paged
@@ -281,12 +364,12 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
                                          layer_idx, cache.k_scale,
                                          cache.v_scale)
     elif kv_cache is None:
-        attn = (mha_train if torch.is_grad_enabled() else mha)(q, k, v,
-                                                               kv_len)
+        attn = (mha_train if torch.is_grad_enabled() else mha)(
+            q, k, v, kv_len, **bias(L))
     elif prefill:
         _write_kv(kv_cache, layer_idx, slice(None), slice(0, L), k, v)
         # raw K/V, also with a quantized cache (as the JAX prefill)
-        attn = mha(q, k, v, kv_len=kv_len)
+        attn = mha(q, k, v, kv_len=kv_len, **bias(L))
     else:
         if cache_start is not None:
             _write_kv(kv_cache, layer_idx, slice(None),
@@ -306,18 +389,26 @@ def decoder_layer(p: Params, x: torch.Tensor, cos: torch.Tensor,
                                  "length")
             # the suffix attends its own raw K/V, the prefix as stored
             attn = mha_shared_prefix(q, pk, pv, k, v, kv_len - cache_start,
-                                     *shared_prefix[2:])
+                                     *shared_prefix[2:],
+                                     **bias(cache_start + L))
         else:
             attn = mha_cached_stacked(q, kv_cache.k, kv_cache.v, layer_idx,
                                       KV, q_positions=cache_positions,
                                       kv_len=kv_len, k_scale=kv_cache.k_scale,
-                                      v_scale=kv_cache.v_scale)
+                                      v_scale=kv_cache.v_scale,
+                                      **bias(kv_cache.k.shape[2]))
     x = x + mm(attn.reshape(B, L, D), a["wo"])
 
-    h = rms_norm(x, p["post_attention_layernorm"], cfg.rms_norm_eps)
+    h = _norm(x, p["post_attention_layernorm"], cfg)
+    if "moe" in p:
+        return x + moe.moe_block(p["moe"], h, cfg.moe)
     m = p["mlp"]
-    return x + mm(F.silu(mm(h, m["w_gate"])) * mm(h, m["w_up"]),
-                  m["w_down"])
+    if "w_gate" not in m:  # MPT's ungated MLP: up -> exact GELU -> down
+        return x + mm(F.gelu(mm(h, m["w_up"])), m["w_down"])
+    gate = mm(h, m["w_gate"])
+    gate = F.silu(gate) if cfg.hidden_act == "silu" \
+        else F.gelu(gate, approximate="tanh")
+    return x + mm(gate * mm(h, m["w_up"]), m["w_down"])
 
 
 def qwen2_forward(params: Params, cfg: LLMConfig,
@@ -370,6 +461,9 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
         raise ValueError("remat is for the no-cache training forward")
     paged = None
     if paged_cache is not None:
+        if cfg.position_embedding == "alibi":
+            raise ValueError("paged attention takes no ALiBi bias (the JAX "
+                             "package asserts, qwen2.py:268)")
         if kv_cache is not None:
             raise ValueError("paged_cache and kv_cache are exclusive")
         if L == 1:
@@ -380,9 +474,15 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
         inc = L if paged_active is None \
             else L * paged_active.to(paged_cache.lens.dtype)
         paged = (paged_cache, pids, off, paged_cache.lens + inc)
-    cos, sin = compute_mrope_cos_sin(position_ids, cfg)
+    cos = sin = None
+    if cfg.position_embedding != "alibi":
+        cos, sin = compute_mrope_cos_sin(position_ids, cfg)
     KV = cfg.num_key_value_heads
     x = inputs_embeds
+    if cfg.embed_scale:
+        # Gemma scales whatever enters the stack, spliced vision features
+        # too, by sqrt(D) rounded to the activation dtype (GemmaModel)
+        x = x * float(torch.tensor(cfg.hidden_size ** 0.5).to(x.dtype))
     for i, lp in enumerate(params["layers"]):
         sp = None
         if shared_prefix is not None:
@@ -400,7 +500,7 @@ def qwen2_forward(params: Params, cfg: LLMConfig,
                               sp, paged)
     if paged is not None:
         paged_kv.advance_lens(paged_cache, paged_active, L)
-    return rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return _norm(x, params["norm"], cfg)
 
 
 def lm_head(params: Params, hidden: torch.Tensor) -> torch.Tensor:
@@ -417,11 +517,16 @@ def embed_tokens(params: Params, input_ids: torch.Tensor) -> torch.Tensor:
 def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
                dtype=torch.float32, bits: int = 16,
                act: str = "none") -> Params:
-    """Random init with the JAX package's distributions, made on ``device``:
-    N(0, 0.02) matrices and embeddings, zero biases, unit norms. ``bits=8``
-    (int8; w8a8 with ``act="int8"``) or ``bits=4`` (int4) quantizes the
-    projections and lm_head (``quant.quantize_tree``'s patterns), each layer right after its init,
-    so the whole full-precision decoder never exists at once."""
+    """Random init with the JAX package's distributions and family shapes
+    (``init_qwen2``: q/k/v biases only with ``attention_bias``, MPT's
+    ungated MLP), made on ``device``: N(0, 0.02) matrices and embeddings,
+    zero biases, unit norms. A MoE configuration draws
+    ``moe.init_moe_block`` in place of each layer's MLP (JAX's
+    ``init_qwen2`` draws a dense MLP there, which no MoE checkpoint has).
+    ``bits=8`` (int8; w8a8 with ``act="int8"``) or ``bits=4`` (int4)
+    quantizes the projections and lm_head (``quant.quantize_tree``'s
+    patterns), each layer right after its init, so the whole
+    full-precision decoder never exists at once."""
     D, I = cfg.hidden_size, cfg.intermediate_size
     H, KV, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
 
@@ -441,16 +546,23 @@ def init_qwen2(cfg: LLMConfig, device, generator: torch.Generator,
         return quant.quantize_tree({"llm": llm}, bits=bits, act=act)["llm"]
 
     def layer():
-        return quantized({"layers": [{
-            "input_layernorm": ones(D),
-            "attn": {"wq": normal(D, H * hd), "wk": normal(D, KV * hd),
-                     "wv": normal(D, KV * hd), "wo": normal(H * hd, D),
-                     "bq": zeros(H * hd), "bk": zeros(KV * hd),
-                     "bv": zeros(KV * hd)},
-            "post_attention_layernorm": ones(D),
-            "mlp": {"w_gate": normal(D, I), "w_up": normal(D, I),
-                    "w_down": normal(I, D)},
-        }]})["layers"][0]
+        attn = {"wq": normal(D, H * hd), "wk": normal(D, KV * hd),
+                "wv": normal(D, KV * hd), "wo": normal(H * hd, D)}
+        if cfg.attention_bias:
+            attn.update({"bq": zeros(H * hd), "bk": zeros(KV * hd),
+                         "bv": zeros(KV * hd)})
+        out = {"input_layernorm": ones(D), "attn": attn,
+               "post_attention_layernorm": ones(D)}
+        if cfg.moe is not None:
+            # the expert stacks stay unquantized (JAX quant.py:266)
+            out["moe"] = moe.init_moe_block(cfg, cfg.moe, device, generator,
+                                            dtype)
+        elif cfg.position_embedding == "alibi":     # MPT: ungated GELU MLP
+            out["mlp"] = {"w_up": normal(D, I), "w_down": normal(I, D)}
+        else:
+            out["mlp"] = {"w_gate": normal(D, I), "w_up": normal(D, I),
+                          "w_down": normal(I, D)}
+        return quantized({"layers": [out]})["layers"][0]
 
     return quantized({
         "embed_tokens": normal(cfg.vocab_size, D),

@@ -1,9 +1,10 @@
 """Hugging Face checkpoints -> the port's parameter trees, and back:
-counterpart of ``video3d_tpu/models/weights.py`` (the Qwen2, SigLIP,
-projector and LLaVA-assembly half: ``load_safetensors_dir``,
-``convert_qwen2``, ``convert_siglip``, ``vision_config_from_state``,
-``convert_projector``, ``convert_llava_checkpoint`` with the ground head,
-and ``export_llava_checkpoint``).
+counterpart of ``video3d_tpu/models/weights.py`` (``load_safetensors_dir``,
+``convert_qwen2`` with its Qwen2-MoE and Mixtral layers, ``convert_mpt``
+and ``mpt_config_from_hf``, ``convert_siglip``,
+``vision_config_from_state``, ``convert_projector``, ``convert_resampler``,
+``convert_llava_checkpoint`` with the ground head, and
+``export_llava_checkpoint``).
 
 Key layout of the reference's checkpoints (train_3d.py:1425-1475,
 llava_arch.py:34-144): the LLM at the root (``model.layers.{i}.*``,
@@ -17,9 +18,9 @@ The ``safetensors`` format is read and written here, without the
 header of each tensor's dtype, shape and byte offsets, then the raw
 little-endian bytes (:func:`read_safetensors`, :func:`write_safetensors`).
 
-MPT decoders and the resamplers (``convert_mpt``, ``convert_resampler``)
-and the MoE layers are not ported: a checkpoint holding their keys raises
-NotImplementedError naming ROADMAP A11.
+The export writes the dense gated MLP of the Qwen2 layout only, as JAX's
+does (``weights.py:438-441``, where a MoE or an MPT tree fails): the port
+refuses those trees with a ValueError before writing anything.
 """
 
 from __future__ import annotations
@@ -43,10 +44,6 @@ _NAMES = {v: k for k, v in _DTYPES.items()}
 
 TOWER_PREFIX = "model.vision_tower.vision_tower.vision_model."
 PROJECTOR_PREFIX = "model.mm_projector."
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported (ROADMAP A11)")
 
 
 # ---------------------------------------------------------------------------
@@ -148,9 +145,14 @@ def convert_qwen2(state: Mapping[str, Any], cfg: LLMConfig, prefix: str = "",
     """HF ``Qwen2ForCausalLM`` state dict -> the port's qwen2 tree on
     ``device`` (default: the card, :func:`resolve_device`) in ``dtype``.
     Checkpoints without q/k/v biases (the LLaMA family) load without them;
-    a tied checkpoint takes its head from the embeddings. MoE layers raise
-    (ROADMAP A11)."""
-    r = _Reader(state, prefix, resolve_device(device), dtype)
+    a tied checkpoint takes its head from the embeddings. A layer without
+    ``mlp.gate_proj`` is a MoE layer: Qwen2-MoE's (``mlp.gate``) or
+    Mixtral's (``block_sparse_moe``), read by ``models/moe.py``'s
+    converters into a ``moe`` subtree."""
+    from video3d_tpu_torch.models import moe
+
+    dev = resolve_device(device)
+    r = _Reader(state, prefix, dev, dtype)
     layers = []
     for i in range(cfg.num_hidden_layers):
         p = f"model.layers.{i}."
@@ -162,24 +164,82 @@ def convert_qwen2(state: Mapping[str, Any], cfg: LLMConfig, prefix: str = "",
             attn.update({"bq": r.vec(p + "self_attn.q_proj.bias"),
                          "bk": r.vec(p + "self_attn.k_proj.bias"),
                          "bv": r.vec(p + "self_attn.v_proj.bias")})
-        if not r.has(p + "mlp.gate_proj.weight"):
-            raise _not_ported("a mixture-of-experts layer (Qwen2-MoE / "
-                              "Mixtral keys)")
-        layers.append({
-            "input_layernorm": r.vec(p + "input_layernorm.weight"),
-            "attn": attn,
-            "post_attention_layernorm": r.vec(
-                p + "post_attention_layernorm.weight"),
-            "mlp": {"w_gate": r.lin(p + "mlp.gate_proj.weight"),
-                    "w_up": r.lin(p + "mlp.up_proj.weight"),
-                    "w_down": r.lin(p + "mlp.down_proj.weight")},
-        })
+        layer = {"input_layernorm": r.vec(p + "input_layernorm.weight"),
+                 "attn": attn,
+                 "post_attention_layernorm": r.vec(
+                     p + "post_attention_layernorm.weight")}
+        if r.has(p + "mlp.gate_proj.weight"):
+            layer["mlp"] = {"w_gate": r.lin(p + "mlp.gate_proj.weight"),
+                            "w_up": r.lin(p + "mlp.up_proj.weight"),
+                            "w_down": r.lin(p + "mlp.down_proj.weight")}
+        elif r.has(p + "mlp.gate.weight"):
+            layer["moe"] = moe.convert_moe_layer(state, i, cfg.moe, prefix,
+                                                 dtype, dev)
+        else:
+            layer["moe"] = moe.convert_mixtral_layer(state, i, cfg.moe,
+                                                     prefix, dtype, dev)
+        layers.append(layer)
     embed = r.vec("model.embed_tokens.weight"
                   if r.has("model.embed_tokens.weight") else "lm_head.weight")
     head = r.lin("lm_head.weight") if r.has("lm_head.weight") \
         else embed.t().contiguous()
     return {"embed_tokens": embed, "layers": layers,
             "norm": r.vec("model.norm.weight"), "lm_head": head}
+
+
+def convert_mpt(state: Mapping[str, Any], cfg: LLMConfig, prefix: str = "",
+                dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """HF ``MptForCausalLM`` state dict -> the port's decoder tree (the ALiBi
+    family, the reference's ``llava_mpt.py``): per block ``norm_1``, the
+    fused ``attn.Wqkv`` split into q / k / v, ``attn.out_proj``,
+    ``norm_2``, the ungated ``ffn.up_proj`` / ``ffn.down_proj``; the final
+    ``norm_f``; the head tied to ``transformer.wte``."""
+    r = _Reader(state, prefix, resolve_device(device), dtype)
+    D = cfg.hidden_size
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        p = f"transformer.blocks.{i}."
+        wqkv = r.lin(p + "attn.Wqkv.weight")            # (D, 3D)
+        layers.append({
+            "input_layernorm": r.vec(p + "norm_1.weight"),
+            "attn": {"wq": wqkv[:, :D].contiguous(),
+                     "wk": wqkv[:, D:2 * D].contiguous(),
+                     "wv": wqkv[:, 2 * D:].contiguous(),
+                     "wo": r.lin(p + "attn.out_proj.weight")},
+            "post_attention_layernorm": r.vec(p + "norm_2.weight"),
+            "mlp": {"w_up": r.lin(p + "ffn.up_proj.weight"),
+                    "w_down": r.lin(p + "ffn.down_proj.weight")},
+        })
+    embed = r.vec("transformer.wte.weight")
+    return {"embed_tokens": embed, "layers": layers,
+            "norm": r.vec("transformer.norm_f.weight"),
+            "lm_head": embed.t().contiguous()}
+
+
+def mpt_config_from_hf(hf: Mapping[str, Any]) -> LLMConfig:
+    """HF ``MptConfig`` dict -> LLMConfig (ALiBi, LayerNorm, ungated GELU,
+    tied head, full multi-head attention)."""
+    d = hf["d_model"]
+    heads = hf["n_heads"]
+    attn_cfg = hf.get("attn_config", {}) or {}
+    return LLMConfig(
+        vocab_size=hf["vocab_size"],
+        hidden_size=d,
+        intermediate_size=int(hf.get("expansion_ratio", 4)) * d,
+        num_hidden_layers=hf["n_layers"],
+        num_attention_heads=heads,
+        num_key_value_heads=heads,
+        head_dim=d // heads,
+        rms_norm_eps=hf.get("layer_norm_epsilon", 1e-5),
+        max_position_embeddings=hf.get("max_seq_len", 2048),
+        tie_word_embeddings=True,
+        attention_bias=False,
+        hidden_act="gelu",
+        position_embedding="alibi",
+        norm_type="layernorm",
+        alibi_bias_max=attn_cfg.get("alibi_bias_max", 8.0),
+        mrope_section=(d // heads // 4, d // heads // 8, d // heads // 8),
+    )
 
 
 def convert_siglip(state: Mapping[str, Any], cfg: VisionConfig,
@@ -287,6 +347,79 @@ def convert_projector(state: Mapping[str, Any],
     return out
 
 
+def convert_resampler(state: Mapping[str, Any], resampler_type: str,
+                      prefix: str = "model.vision_resampler.",
+                      dtype=torch.float32, device=None) -> Dict[str, Any]:
+    """The reference's resampler state dicts (multimodal_resampler/:
+    spatial_pool.py, perceiver.py, qformer.py) -> ``models/resampler.py``
+    trees on ``device`` (default: the card); ``masked_drop`` and the
+    average / max pools have no parameters."""
+    r = _Reader(state, prefix, resolve_device(device), dtype)
+    A, T = r.vec, r.lin
+    if resampler_type == "masked_drop":
+        return {}
+    if resampler_type == "spatial_pool":
+        if not r.has("pool.weight"):
+            return {}
+        cw = r.raw("pool.weight").to(dtype)        # (Cout, Cin, s, s)
+        return {"conv_w": cw.permute(2, 3, 1, 0).reshape(-1, cw.shape[0])
+                .contiguous(), "conv_b": A("pool.bias")}
+    if resampler_type == "perceiver":
+        layers = []
+        while r.has(f"perceiver.layers.{len(layers)}.0.to_q.weight"):
+            lp = f"perceiver.layers.{len(layers)}."
+            layers.append({
+                "attn": {"ln_media_s": A(lp + "0.norm_media.weight"),
+                         "ln_media_b": A(lp + "0.norm_media.bias"),
+                         "ln_latents_s": A(lp + "0.norm_latents.weight"),
+                         "ln_latents_b": A(lp + "0.norm_latents.bias"),
+                         "to_q": T(lp + "0.to_q.weight"),
+                         "to_kv": T(lp + "0.to_kv.weight"),
+                         "to_out": T(lp + "0.to_out.weight")},
+                # FeedForward = Sequential(LN, Linear, GELU, Linear)
+                "ff": {"ln_s": A(lp + "1.0.weight"),
+                       "ln_b": A(lp + "1.0.bias"),
+                       "w1": T(lp + "1.1.weight"), "w2": T(lp + "1.3.weight")},
+            })
+        return {"latents": A("perceiver.latents"), "layers": layers,
+                "norm_s": A("perceiver.norm.weight"),
+                "norm_b": A("perceiver.norm.bias")}
+    if resampler_type == "qformer":
+        def attn(ap):
+            return {"wq": T(ap + "self.query.weight"),
+                    "bq": A(ap + "self.query.bias"),
+                    "wk": T(ap + "self.key.weight"),
+                    "bk": A(ap + "self.key.bias"),
+                    "wv": T(ap + "self.value.weight"),
+                    "bv": A(ap + "self.value.bias"),
+                    "wo": T(ap + "output.dense.weight"),
+                    "bo": A(ap + "output.dense.bias"),
+                    "ln_s": A(ap + "output.LayerNorm.weight"),
+                    "ln_b": A(ap + "output.LayerNorm.bias")}
+
+        layers = []
+        while r.has(f"Qformer.bert.encoder.layer.{len(layers)}"
+                    f".attention.self.query.weight"):
+            lp = f"Qformer.bert.encoder.layer.{len(layers)}."
+            layer = {"self": attn(lp + "attention."),
+                     "ffn": {"w1": T(lp + "intermediate_query.dense.weight"),
+                             "b1": A(lp + "intermediate_query.dense.bias"),
+                             "w2": T(lp + "output_query.dense.weight"),
+                             "b2": A(lp + "output_query.dense.bias"),
+                             "ln_s": A(lp + "output_query.LayerNorm.weight"),
+                             "ln_b": A(lp + "output_query.LayerNorm.bias")}}
+            if r.has(lp + "crossattention.self.query.weight"):
+                layer["cross"] = attn(lp + "crossattention.")
+            layers.append(layer)
+        return {"ln_vision_s": A("ln_vision.weight"),
+                "ln_vision_b": A("ln_vision.bias"),
+                "query_tokens": A("query_tokens")[0],   # (1, n, C) -> (n, C)
+                "emb_ln_s": A("Qformer.bert.embeddings.LayerNorm.weight"),
+                "emb_ln_b": A("Qformer.bert.embeddings.LayerNorm.bias"),
+                "layers": layers}
+    raise ValueError(f"Unknown resampler type: {resampler_type}")
+
+
 def convert_llava_checkpoint(state: Mapping[str, Any], llm_cfg: LLMConfig,
                              vision_cfg: VisionConfig, dtype=torch.bfloat16,
                              ground_head: bool = False,
@@ -296,12 +429,13 @@ def convert_llava_checkpoint(state: Mapping[str, Any], llm_cfg: LLMConfig,
     checkpoint has them ``vision``, ``projector``, ``image_newline`` and
     (``ground_head``) the InfoNCE ground head. A pure-LLM checkpoint loads
     its ``llm`` alone (the reference builder's non-llava branch,
-    builder.py:253-265). MPT keys raise (ROADMAP A11)."""
-    if "transformer.wte.weight" in state:
-        raise _not_ported("the MPT decoder (convert_mpt)")
+    builder.py:253-265). MPT's key layout (``transformer.wte``) reads
+    through :func:`convert_mpt`."""
     dev = resolve_device(device)
-    out: Dict[str, Any] = {"llm": convert_qwen2(state, llm_cfg, dtype=dtype,
-                                                device=dev)}
+    convert = convert_mpt if "transformer.wte.weight" in state \
+        else convert_qwen2
+    out: Dict[str, Any] = {"llm": convert(state, llm_cfg, dtype=dtype,
+                                          device=dev)}
     if TOWER_PREFIX + "embeddings.patch_embedding.weight" in state:
         out["vision"] = convert_siglip(state, vision_cfg,
                                        prefix=TOWER_PREFIX, dtype=dtype,
@@ -347,9 +481,17 @@ def export_llava_checkpoint(params: Mapping[str, Any], llm_cfg: LLMConfig,
     ``export_llava_checkpoint``: the LLM, the tower, every projector
     variant, the newline and the InfoNCE ground head). With ``path`` it is
     written as ``model.safetensors`` and a ``config.json`` (the Qwen2
-    fields and, given ``model_cfg``, the persisted 3D knobs)."""
-    state: Dict[str, torch.Tensor] = {}
+    fields and, given ``model_cfg``, the persisted 3D knobs). A tree with
+    a MoE layer or MPT's ungated MLP raises a ValueError before anything
+    is written: the layout holds the dense gated MLP only, and JAX's
+    export fails on both (``weights.py:438-441``)."""
     llm = params["llm"]
+    for i, layer in enumerate(llm["layers"]):
+        if "moe" in layer or "w_gate" not in layer.get("mlp", {}):
+            raise ValueError(f"export_llava_checkpoint: layer {i} is not a "
+                             f"dense gated MLP (a MoE or an MPT tree); the "
+                             f"Qwen2 layout cannot hold it")
+    state: Dict[str, torch.Tensor] = {}
     state["model.embed_tokens.weight"] = _f32(llm["embed_tokens"])
     state["model.norm.weight"] = _f32(llm["norm"])
     state["lm_head.weight"] = _f32_t(llm["lm_head"])

@@ -22,21 +22,50 @@ from video3d_tpu_torch.models import quant, qwen2, siglip
 Params = Dict[str, Any]
 
 #: the subtrees of the JAX tree the answer path reads, and the grounding
-#: head and the MLP world PE, which a tree has when its configuration has
-#: them (other optional heads are left out)
+#: head, the MLP world PE and a resampler, which a tree has when its
+#: configuration has them (other optional heads are left out)
 _USED = ("vision", "projector", "image_newline", "llm")
-_OPTIONAL = ("ground_head", "world_pe_mlp")
+_OPTIONAL = ("ground_head", "world_pe_mlp", "resampler")
+
+#: head widths the card's attention kernels take on each path: the dense
+#: bf16 answer path (B2, B2 folded, B3) at 128 and 256; every other form
+#: (the quantized caches, B5's shared prefix, B7's pages, B2 with the
+#: logsumexp and B6 for training) at 128 only (ROADMAP B, "hd-256 forms")
+CARD_HEAD_DIMS = {"answer": (128, 256), "quantized_cache": (128,),
+                  "shared_prefix": (128,), "paged": (128,),
+                  "training": (128,)}
 
 
 def check_config(cfg: ModelConfig) -> None:
-    """Raise for configuration features the port does not run yet."""
+    """Raise a ValueError for a decoder the JAX package cannot run either:
+    one whose attention width (heads x head_dim) is not its hidden size
+    (Gemma-7B's 16 x 256 against 3072), where JAX's reshape of the
+    attention output fails (``qwen2.py:433``)."""
     llm = cfg.llm
-    if (llm.moe is not None or llm.position_embedding != "rope"
-            or llm.norm_type != "rmsnorm" or llm.hidden_act != "silu"
-            or llm.embed_scale or llm.rms_norm_add_unit_offset
-            or not llm.attention_bias or llm.tie_word_embeddings):
-        raise NotImplementedError("only the Qwen2 decoder family is ported "
-                                  "(ROADMAP A11)")
+    width = llm.num_attention_heads * llm.head_dim
+    if width != llm.hidden_size:
+        raise ValueError(f"attention width {llm.num_attention_heads} x "
+                         f"{llm.head_dim} = {width} != hidden size "
+                         f"{llm.hidden_size}: the JAX package cannot run "
+                         f"this decoder (qwen2.py:433; ROADMAP C)")
+
+
+def check_card_path(cfg: ModelConfig, device, path: str) -> None:
+    """Raise a ValueError, before any work, where ``path`` (a key of
+    :data:`CARD_HEAD_DIMS`) has no kernel form on the card for the
+    decoder's head width, or (``"paged"``) where the decoder has an ALiBi
+    bias, which JAX's paged decode asserts against (``qwen2.py:268``).
+    The CPU runs every width through the plain versions."""
+    llm = cfg.llm
+    if path == "paged" and llm.position_embedding == "alibi":
+        raise ValueError("paged attention takes no ALiBi bias (MPT): the "
+                         "JAX package asserts (qwen2.py:268); use the dense "
+                         "cache")
+    if torch.device(device).type != "cuda":
+        return
+    if llm.head_dim not in CARD_HEAD_DIMS[path]:
+        raise ValueError(f"head_dim {llm.head_dim} has no {path} kernel "
+                         f"form on the card yet (ROADMAP B, hd-256 forms)")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -95,7 +124,9 @@ def from_jax_params(tree: Params, cfg: ModelConfig, device=None,
     ``{"q", "scale"}`` dicts, the ``W8A8Weight`` and the ``Int4Weight``
     leaves of a ``quantize_tree``'d tree (bits 8, ``act`` "none" or
     "int8", or bits 4), and the ``LoraAdapted`` leaves of an
-    ``apply_lora``'d one. ``dtype`` casts floating leaves (None keeps
+    ``apply_lora``'d one. The family's subtrees carry across as they are:
+    ``moe`` layers, MPT's ungated ``mlp``, bias-less attention, and a
+    ``resampler`` tree. ``dtype`` casts floating leaves (None keeps
     theirs) except the int4 and w8a8 scales."""
     check_config(cfg)
     device = resolve_device(device)

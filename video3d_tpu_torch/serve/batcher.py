@@ -74,6 +74,7 @@ from video3d_tpu_torch.models.generate import (ChunkedPrefill, decode_chunk,
                                                start_decode,
                                                write_shared_prefix)
 from video3d_tpu_torch.models.paged_kv import PageAllocator, pages_needed
+from video3d_tpu_torch.params import check_card_path
 
 
 class BatchedRequest:
@@ -162,6 +163,9 @@ class ContinuousBatcher:
                  total_pages: Optional[int] = None,
                  share_prefix_pages: bool = True,
                  chunked_prefill: int = 0):
+        # paged decode has no ALiBi (JAX asserts) and no hd-256 form yet
+        check_card_path(engine.cfg, engine.device,
+                        "paged" if paged else "answer")
         self.engine = engine
         self.num_slots = num_slots
         self.chunk = chunk

@@ -34,7 +34,8 @@ import torch
 from video3d_tpu_torch.config import GroundHeadType, ModelConfig
 from video3d_tpu_torch.models import llava_video3d as lv3d
 from video3d_tpu_torch.models import quant
-from video3d_tpu_torch.params import resolve_device
+from video3d_tpu_torch.params import (check_card_path, check_config,
+                                      resolve_device)
 from video3d_tpu_torch.train import checkpoint as ckpt
 from video3d_tpu_torch.train.lora import (LORA_FILE, LoraConfig, apply_lora,
                                           init_lora_trainable)
@@ -219,6 +220,11 @@ class Trainer:
         self.dataset = dataset
         self.collator = collator
         self.device = resolve_device(device)
+        # every decoder family trains (MPT's ALiBi through the plain
+        # attention and autograd); on the card a head width without B2
+        # with the logsumexp and B6 forms (Gemma's 256) is refused here
+        check_config(model_cfg)
+        check_card_path(model_cfg, self.device, "training")
         # bf16 + master_f32 (default): params stay f32 (the optimizer's
         # master copy; bf16 imports are upcast) and are cast to bf16 at use
         # inside the step. bf16 alone: params stored bf16 outright.
