@@ -26,7 +26,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
    B2 folded and B5, and their int4-cache forms (values packed two per
    byte) at the same shapes; paged decode attention (B7, bf16, int8 and
    int4 pools) at the paged batcher's shapes (8 slots aliasing a 52-page
-   scene prefix);
+   scene prefix); the head-width-256 forms (B2, B2 folded, B3, B7 and B5
+   over bf16 at Gemma-2B's heads, B7 and B5 at the hd-128 rows' shapes);
    B2 folded and B5 (all three forms) also at the cases that exercise their
    splits over keys (a split boundary inside the chunk's own keys, a batch
    row with empty splits, B5 at B=2) and 128-row tiles that straddle batch
@@ -323,9 +324,21 @@ Phases, each of which raises on failure (the process then exits non-zero):
    modes, OpenCLIP ViT-H-14, ImageBind-Huge and the four resamplers on two
    images, each bf16 output within 2^-5 of max |out| of its f32 run
    (control: the images swapped, or a pooled output's channels shifted).
-   Phase 3 holds the three hd-256 forms at Gemma-2B's heads with controls
-   (a mask dropped, a kv head off by one, a key tile or the focused keys
-   dropped).
+   Gemma-2B also serves through (b2) the scene-grouped batched answers
+   (a miss, then ``prepare_answers_batch_prefix`` takes 8 questions as one
+   suffix batch: B5 at hd 256; row 0's first-step logits within
+   LOGIT_ATOL of a full prefill, control one position early; the ids
+   those of B=1 full prefills up to a near-tie; seconds per question) and
+   (b3) the paged batcher (8 slots, pages of 128, shared prefix pages; 16
+   requests in GEMMA_SERVE_WAVES over two scenes: B7 at hd 256 in every
+   decode step, eager and captured; every page back; the ids the dense
+   batcher's up to a near-tie; ms per step and tokens/s; phase 8's paged
+   vs dense first step and its control), each with exact attention
+   launches. Phase 3 holds the five hd-256 forms at Gemma-2B's heads with
+   controls (a mask dropped, a kv head off by one, a key tile or the
+   focused keys dropped; B7: two slots' page rows swapped, the last live
+   page dropped; B5: the suffix's causal mask dropped, the next row's
+   suffix attended, the first prefix tile skipped).
 
 B2 folded, B5, B7, the int8 and int4 kernels, B2 with the logsumexp and B6
 are held against their plain versions run in float32 on the same bf16 / int8
@@ -419,6 +432,11 @@ KERNEL_INFO = {
         "video3d_tpu/kernels/flash_attention.py:64"),
     "decode_attention_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
                                "video3d_tpu/kernels/decode_attention.py:68"),
+    "paged_attention_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
+                              "video3d_tpu/kernels/paged_attention.py:60"),
+    "shared_prefix_attention_hd256": (
+        "video3d_tpu_torch/csrc/attention_hd256.cu",
+        "video3d_tpu/kernels/flash_attention.py:503"),
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4, 5 and 8
@@ -437,7 +455,8 @@ PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
 #: the head-width-256 forms (their main path: phase 19's Gemma-2B)
 HD256_KERNELS = ("flash_attention_hd256", "flash_attention_folded_hd256",
-                 "decode_attention_hd256")
+                 "decode_attention_hd256", "paged_attention_hd256",
+                 "shared_prefix_attention_hd256")
 MAX_NEW = 32          # answer budget of both main paths
 DECODE_STEPS = 8      # steps of the captured-vs-uncaptured chunks
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
@@ -1317,6 +1336,107 @@ def check_decode_hd256(dev):
     ), bound, _sdpa_ms(q.transpose(1, 2).contiguous(), kh, vh, 50)
 
 
+def check_paged_hd256(dev):
+    """B7 at hd 256 at the hd-128 B7 row's serving shape (8 slots of ~6.8k
+    aliasing 52 prefix pages of 128, a kv_len 0 slot, one ending mid-page)
+    over an 18-layer pool at Gemma-2B's heads, against its twin in f32 on
+    the same values; controls: the two longest slots' page rows swapped,
+    each slot's last live page dropped; called twice, bit for bit."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    args = _paged_inputs(g, dev, "bf16", NL=HD256_LAYERS, heads=HD256_HEADS,
+                         hd=256)[:7]
+    q, k, v, table, kv_len, layer, KV = args
+    live = sum(-(-n // PAGED_PAGE) for n in PAGED_LENS)
+    name = (f"B7 hd256 S={q.shape[0]} kv_len={PAGED_LENS} ({live} live "
+            f"pages over a pool of {k.shape[1]})")
+    out = pa.paged_decode_attention(*args)
+    qf = q.float()
+    ref = h256.paged_hd256_plain(qf, *args[1:])
+    rows = [1] * q.shape[0]
+    err = _rows_err(out, ref, rows)
+    finite = bool(torch.isfinite(out.float()).all())
+    zero = bool((out[PAGED_LENS.index(0)] == 0).all())
+    _check(name, err <= BF16_ATOL and finite and zero,
+           f"max |d| {err:.2e}, finite={finite}, kv_len 0 slot zero={zero}")
+    _check_repeat(name, lambda: pa.paged_decode_attention(*args), out)
+    a, b = sorted(range(len(PAGED_LENS)), key=PAGED_LENS.__getitem__)[-2:]
+    swapped = table.clone()
+    swapped[[a, b]] = table[[b, a]]
+    last_page = ((kv_len - 1).clamp(min=0) // PAGED_PAGE) * PAGED_PAGE
+    _check_controls(name, ref, rows, {
+        "the two longest slots' page rows swapped": h256.paged_hd256_plain(
+            qf, k, v, swapped, kv_len, layer, KV),
+        "each slot's last live page dropped": h256.paged_hd256_plain(
+            qf, k, v, table, last_page, layer, KV)})
+    bound = _paged_bound(*args)
+    _print_paged_bytes(bound, k, KV)
+    return err, (
+        _kernel_ms(lambda: pa.paged_decode_attention(*args), 50),
+        _median_ms(lambda: h256.paged_hd256_plain(*args), 5)
+    ), bound, None
+
+
+def check_shared_prefix_hd256(dev):
+    """B5 at hd 256 at the B=8 suffix-batch shape (64-token bucket, a
+    6716-token prefix whose last 64-key tile is partial, ragged suffix
+    lengths) at Gemma-2B's heads, against its twin in f32 on the same
+    values; the first prefix tile and the suffix focused; controls: the
+    suffix's causal mask dropped, the next row's suffix attended, the
+    first prefix tile skipped; called twice, bit for bit."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import flash_attention as fa
+    from video3d_tpu_torch.kernels.attention import mha_reference
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    (H, KV), hd, L = HD256_HEADS, 256, 64
+    P, slens = PREFIX_CASES[0]
+    B = len(slens)
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    pk = torch.randn(P, KV, hd, generator=g, device=dev)
+    pk[:64, :, 0] += FOCUS
+    pv = 0.5 * torch.randn(P, KV, hd, generator=g, device=dev)
+    sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+    sk[..., 0] += FOCUS
+    sv = 0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)
+    q, pk, pv, sk, sv = (x.to(torch.bfloat16) for x in (q, pk, pv, sk, sv))
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    args = (q, pk, pv, sk, sv, slens_t)
+    out = fa.flash_attention_shared_prefix(*args)
+    qf = q.float()
+    ref = h256.shared_prefix_hd256_plain(qf, *args[1:])
+    err = _rows_err(out, ref, slens)
+    plain_err = _rows_err(h256.shared_prefix_hd256_plain(*args), ref, slens)
+    finite = bool(torch.isfinite(out.float()).all())
+    name = f"B5 hd256 B={B} L={L} P={P} suffix_lens={slens}"
+    _check(name, err <= BF16_ATOL and finite,
+           f"max |d| {err:.2e} on rows below suffix_lens, finite={finite} "
+           f"(the bf16 plain version: {plain_err:.2e})")
+    _check_repeat(name, lambda: fa.flash_attention_shared_prefix(*args), out)
+    k = torch.cat([pk.expand(B, P, KV, hd), sk], 1).float()
+    v = torch.cat([pv.expand(B, P, KV, hd), sv], 1).float()
+    _check_controls(name, ref, slens, {
+        "no causal mask in the suffix": mha_reference(
+            qf, k, v, q_positions=torch.full((B, L), P + L - 1, device=dev),
+            kv_len=P + slens_t),
+        "the next row's suffix attended": h256.shared_prefix_hd256_plain(
+            qf, pk, pv, sk.roll(1, 0), sv.roll(1, 0), slens_t.roll(1, 0)),
+        "first prefix tile skipped": h256.shared_prefix_hd256_plain(
+            qf, pk[64:], pv[64:], sk, sv, slens_t)})
+    del k, v
+    return err, (
+        _kernel_ms(lambda: fa.flash_attention_shared_prefix(*args), 10),
+        _median_ms(lambda: h256.shared_prefix_hd256_plain(*args), 3)
+    ), _prefix_bound(*args), _prefix_sdpa_ms(*args)
+
+
 def check_shared_prefix(dev):
     """B5 at the B=8 suffix-batch shape (64-token bucket, ~6716-token
     prefix, ragged suffix lengths), and the other PREFIX_CASES; controls:
@@ -1390,7 +1510,7 @@ def _prefix_bound(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
     nbytes = _nbytes(pk, pv, sk, sv) + 2 * _nbytes(q)
     if pks is not None:
         nbytes += _nbytes(pks, pvs)
-    return _bound(_attn(pairs, H), nbytes)
+    return _bound(_attn(pairs, H, hd), nbytes)
 
 
 def _prefix_sdpa_ms(q, pk, pv, sk, sv, slens, pks=None, pvs=None):
@@ -1905,17 +2025,19 @@ PAGED_LENS = [6780, 6801, 0, 6750, 6912, 6790, 6760, 6845]
 
 def _paged_inputs(g, dev, form: str, lens=PAGED_LENS,
                   prefix_pages: int = PAGED_PREFIX_PAGES,
-                  maxp: int = PAGED_MAXP, own=None):
+                  maxp: int = PAGED_MAXP, own=None, NL: int = CACHE_LAYERS,
+                  heads=(28, 4), hd: int = 128):
     """q, stacked pools (bf16, or int8 / packed int4 with (NL, P, KV, 1,
     page) scales), table and lengths of the B7 check: one slot per entry of
     ``lens``, every slot aliasing the same ``prefix_pages`` pages, then
     ``own[b]`` pages of its own (default: the rest of its ``maxp``), all
-    in order of slot."""
+    in order of slot; ``heads`` (query heads, kv heads) of width ``hd``
+    over NL layers."""
     import torch
 
     from video3d_tpu_torch.models.qwen2 import quantize_rows
 
-    NL, H, KV, hd = CACHE_LAYERS, 28, 4, 128
+    H, KV = heads
     page, S = PAGED_PAGE, len(lens)
     own = own or [maxp - prefix_pages] * S
     P = 1 + prefix_pages + sum(own)
@@ -1976,8 +2098,22 @@ def _paged_bound(q, k, v, table, kv_len, layer, KV, ks=None, vs=None):
     unique = _paged_unique(lens)
     per_pos = 2 * k.shape[-1] * k.element_size() + (
         2 * KV * 4 if ks is not None else 0)
-    return _bound(_attn(sum(lens), H),
+    return _bound(_attn(sum(lens), H, hd),
                   unique * per_pos + 2 * _nbytes(q) + _nbytes(table, kv_len))
+
+
+def _print_paged_bytes(bound: dict, k, KV: int, ks=None) -> None:
+    """B7's bound in DRAM bytes (the aliased prefix pages once) beside its
+    logical bytes (every slot's positions)."""
+    per = 2 * k.shape[-1] * k.element_size() + (2 * KV * 4 if ks is not None
+                                                 else 0)
+    logical = sum(PAGED_LENS) * per + bound["bytes"] - _paged_unique(
+        PAGED_LENS) * per
+    print(f"  B7 bound counts the {PAGED_PREFIX_PAGES} aliased prefix pages "
+          f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions): DRAM bytes "
+          f"{bound['bytes'] / 1e6:.2f} MB; logical bytes, every slot's "
+          f"positions, {logical / 1e6:.2f} MB (the rest from the L2)",
+          flush=True)
 
 
 def check_paged(dev, form: str = "bf16"):
@@ -2029,15 +2165,7 @@ def check_paged(dev, form: str = "bf16"):
     _check_controls(name, ref, rows, controls)
     del controls
     bound = _paged_bound(*args)
-    per = 2 * k.shape[-1] * k.element_size() + (2 * KV * 4 if ks is not None
-                                                 else 0)
-    logical = sum(PAGED_LENS) * per + bound["bytes"] - _paged_unique(
-        PAGED_LENS) * per
-    print(f"  B7 bound counts the {PAGED_PREFIX_PAGES} aliased prefix pages "
-          f"once ({PAGED_PREFIX_PAGES * PAGED_PAGE} positions): DRAM bytes "
-          f"{bound['bytes'] / 1e6:.2f} MB; logical bytes, every slot's "
-          f"positions, {logical / 1e6:.2f} MB (the rest from the L2)",
-          flush=True)
+    _print_paged_bytes(bound, k, KV, ks)
     return err, (
         _kernel_ms(lambda: pa.paged_decode_attention(*args), 50),
         _median_ms(lambda: pa.paged_attention_plain(*args), 5)
@@ -2255,7 +2383,10 @@ def check_kernels():
                       lambda d: check_paged(d, "int4")),
                      ("flash_attention_hd256", check_flash_hd256),
                      ("flash_attention_folded_hd256", check_folded_hd256),
-                     ("decode_attention_hd256", check_decode_hd256)):
+                     ("decode_attention_hd256", check_decode_hd256),
+                     ("paged_attention_hd256", check_paged_hd256),
+                     ("shared_prefix_attention_hd256",
+                      check_shared_prefix_hd256)):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
         flushed = None
@@ -2765,6 +2896,30 @@ def run_main_path(params, cfg, root: str, info,
     return launches, walls["captured"]
 
 
+def _full_prefill_logits(params, cfg, engine, q):
+    """(first-step logits (V,) f32 of a full prefill of ``q``, the same one
+    position early, the prefill's seconds); vision features from the
+    engine's scene cache."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    batch, vis = engine._prepare_generation(q)
+    max_len = batch.text_ids.shape[1] + MAX_NEW
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref, _, _ = gen.prefill_multimodal(
+            params, cfg, batch, max_len, vision_features=vis,
+            cache_dtype=engine.cache_dtype)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        early, _, _ = gen.prefill_multimodal(
+            params, cfg, batch._replace(seq_len=batch.seq_len - 1),
+            max_len, vision_features=vis, cache_dtype=engine.cache_dtype)
+    return ref[0].float(), early[0].float(), seconds
+
+
 def run_prefix_path(params, cfg, root: str, info,
                     kv_cache_dtype: str = "bfloat16",
                     logit_atol: Optional[float] = LOGIT_ATOL,
@@ -2831,23 +2986,10 @@ def run_prefix_path(params, cfg, root: str, info,
     pairs = (("B=8 row 0", batch_qs[8], engine.first_logits[2][0]),
              ("B=1 hit", hit_q, engine.first_logits[3][0]))
     for name, q, got in pairs:
-        batch, vis = engine._prepare_generation(q)
-        max_len = batch.text_ids.shape[1] + MAX_NEW
-        with torch.inference_mode():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ref, _, _ = gen.prefill_multimodal(
-                params, cfg, batch, max_len, vision_features=vis,
-                cache_dtype=engine.cache_dtype)
-            torch.cuda.synchronize()
-            t_full = time.perf_counter() - t0
-            early, _, _ = gen.prefill_multimodal(
-                params, cfg, batch._replace(seq_len=batch.seq_len - 1),
-                max_len, vision_features=vis, cache_dtype=engine.cache_dtype)
-        ref = ref[0].float()
+        ref, early, t_full = _full_prefill_logits(params, cfg, engine, q)
         refs.append(ref)
         diff = float((got - ref).abs().max())
-        control = float((got - early[0].float()).abs().max())
+        control = float((got - early).abs().max())
         if logit_atol is None:
             print(f"  first-step logits vs full prefill over raw K/V "
                   f"({name}), the {kv_cache_dtype} cache's own error: max "
@@ -3061,7 +3203,9 @@ def _check_paged_vs_dense(params, cfg, engine, questions, other):
     n_pages = [pages_needed(b, page) for b in
                [p["bucket"] for p in preps] + [int(batch.text_ids.shape[1])]]
     skips = [n_full] * len(preps) + [0]
-    M = max(n_pages) * page
+    # the dense rows hold the paged slots' capacity, so B3 and B7 (and
+    # their hd-256 forms, whose splits follow the capacity) plan alike
+    M = (max(n_pages) + 1) * page
     with torch.inference_mode():
         subs = [engine.start_request(p, max_cache_len=M) for p in preps]
         subs.append(gen.start_decode(params, cfg, batch, M, vf, dtype))
@@ -7853,13 +7997,184 @@ def _moe_block_check(name: str, p, cfg, dev) -> None:
            c >= 4 * bound, f"max |d| {c:.4f} (must be >= {4 * bound:.4f})")
 
 
-def _families_llm(root: str, info, total: dict) -> None:
+# phase 19 (b): Gemma-2B's requests through the paged batcher, in waves as
+# phase 8's (each wave's first admission misses, storing the scene's prefix
+# and evicting the other scene's, the rest hit and share its pages), and
+# the scene-grouped batched answers at batch_size=8
+GEMMA_SERVE_WAVES = ((0, 8), (1, 7), (0, 1))
+GEMMA_BATCH = 8
+
+
+def _gemma_batched_answers(params, cfg, root: str, info, total: dict):
+    """A miss stores the scene prefix; ``prepare_answers_batch_prefix``
+    then takes the next GEMMA_BATCH questions as one suffix batch over it
+    (B5 at hd 256 in every layer); its launches go into ``total``. Row 0's
+    first-step logits within LOGIT_ATOL of a full prefill (control: one
+    position early); every answer's ids those of a B=1 full prefill of its
+    question, up to a near-tie."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+
+    engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
+                          scene_cache_scenes=1)
+    full = _make_engine(params, cfg, root, scene_cache_scenes=1)
+    qs = _questions(info["sample_idx"], PREFIX_TEXTS[:GEMMA_BATCH + 1],
+                    "gemma_batch")
+    for e in (engine, full):
+        for q in qs:
+            e._tokenize_prompt(q)
+    engine.generate_answer(qs[0])
+    before = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prep = engine.prepare_answers_batch_prefix(qs[1:])
+    _check("gemma: the batched answers take the prefix path",
+           prep is not None and prep["mode"] == "prefix_batch",
+           f"prepare_answers_batch_prefix -> "
+           f"{None if prep is None else prep['mode']}")
+    engine.answers_from_prefix_batch(prep)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    delta = _launch_delta(before)
+    _add_launches(total, delta)
+    L = cfg.llm.num_hidden_layers
+    forwards = _forwards(engine.results[-1])
+    attn = {k: v for k, v in delta.items() if v and "attention" in k}
+    want = {"shared_prefix_attention_hd256": L,
+            "decode_attention_hd256": L * forwards}
+    _check("gemma: the batched answers' attention launches", attn == want,
+           f"{attn}, expected {want} ({forwards} decode forwards)")
+    got = engine.first_logits[-1][0]
+    ref, early, _ = _full_prefill_logits(params, cfg, engine, qs[1])
+    diff = float((got - ref).abs().max())
+    control = float((got - early).abs().max())
+    _check("gemma: B=8 row 0's first-step logits vs full prefill",
+           diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
+           f"max |d| {diff:.4f} (bound {LOGIT_ATOL}; |logits| up to "
+           f"{float(ref.abs().max()):.2f})")
+    _check("gemma: first-step logits control, one position early",
+           control >= 2 * LOGIT_ATOL,
+           f"max |d| {control:.4f} (must be >= {2 * LOGIT_ATOL})")
+    eos = engine.ecfg.eos_token_id
+    batch_ids = [_with_eos(d, eos, MAX_NEW)
+                 for d in engine.decoded[-GEMMA_BATCH:]]
+    for q in qs[1:]:
+        full.generate_answer(q)
+    full_ids = [_with_eos(d, eos, MAX_NEW) for d in full.decoded]
+    equal = sum(_near_tie_check(
+        f"gemma: batched answer {i} ids vs a full prefill", params, cfg,
+        full, q, want_ids, got_ids, CROSS_TIE)
+        for i, (q, want_ids, got_ids) in enumerate(zip(qs[1:], full_ids,
+                                                      batch_ids)))
+    print(f"  gemma: B={GEMMA_BATCH} suffix batch over a "
+          f"{prep['entry'].prefix_len}-token prefix: {wall / GEMMA_BATCH:.4f}"
+          f" s per question (prep included); {equal} of {GEMMA_BATCH} "
+          f"answers equal to a full prefill's", flush=True)
+
+
+def _gemma_serve(params, cfg, root: str, scenes, paged: bool):
+    """GEMMA_SERVE_WAVES through an 8-slot batcher (paged: pages of
+    SERVE_PAGE with shared prefix pages, timed; else dense rows) on an
+    engine caching one scene's prefix: (engine, batcher, handles, chunk
+    log, launch delta, wall)."""
+    import torch
+
+    from video3d_tpu_torch.kernels import _build
+    from video3d_tpu_torch.serve import batcher as sb
+
+    engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
+                          scene_cache_scenes=1)
+    for s, n in GEMMA_SERVE_WAVES:
+        for q in scenes[s][:n]:
+            engine._tokenize_prompt(q)
+    log, orig = {"chunks": []}, sb.paged_decode_chunk
+    if paged:
+        batcher, log, chunk_fn = _timed_batcher(engine, None)
+        sb.paged_decode_chunk = chunk_fn
+    else:
+        batcher = sb.ContinuousBatcher(engine, num_slots=SERVE_SLOTS,
+                                       chunk=SERVE_CHUNK)
+    handles = []
+    try:
+        before = dict(_build.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for s, n in GEMMA_SERVE_WAVES:
+            handles += _serve_wave(batcher, engine, scenes[s][:n],
+                                   len(handles))
+        wall = time.perf_counter() - t0
+        delta = _launch_delta(before)
+        if paged:
+            _wait_for(lambda: not batcher._shared and
+                      batcher._alloc.available == batcher.total_pages - 1)
+    finally:
+        sb.paged_decode_chunk = orig
+        batcher.shutdown()
+    return engine, batcher, handles, log, delta, wall
+
+
+def _gemma_paged_batcher(params, cfg, root: str, infos, total: dict):
+    """The paged batcher at 8 slots over two scenes (prefix pages aliased
+    by every hit of a wave): B7 at hd 256 in every decode step, eager
+    (each graph key's first chunk) and captured; its launches go into
+    ``total``. Every page comes back; every answer's ids the dense
+    batcher's on the same requests, up to a near-tie; the first paged step
+    against the dense step (phase 8's check, captured against eager)."""
+    scenes = [_questions(info["sample_idx"], PREFIX_TEXTS[:8],
+                         f"gemma_serve{i}_") for i, info in enumerate(infos)]
+    engine, batcher, handles, log, delta, wall = _gemma_serve(
+        params, cfg, root, scenes, paged=True)
+    _add_launches(total, delta)
+    free = batcher._alloc.available
+    _check("gemma: every page back after the last eviction",
+           not batcher._shared and free == batcher.total_pages - 1,
+           f"available {free} of {batcher.total_pages - 1}, shared entries "
+           f"{len(batcher._shared)}")
+    misses = len(GEMMA_SERVE_WAVES)
+    hits = sum(n for _, n in GEMMA_SERVE_WAVES) - misses
+    _check("gemma: prefix sharing", batcher.prefix_share_stats == [hits, 2]
+           and engine.prefix_cache_stats == [hits, misses],
+           f"batcher [shared admissions, creations] "
+           f"{batcher.prefix_share_stats}, engine [hits, misses] "
+           f"{engine.prefix_cache_stats}")
+    L = cfg.llm.num_hidden_layers
+    steps = SERVE_CHUNK * len(log["chunks"])
+    attn = {k: v for k, v in delta.items() if v and "attention" in k}
+    want = {"paged_attention_hd256": L * steps,
+            "flash_attention_hd256": L * misses,
+            "flash_attention_folded_hd256": L * hits}
+    _check("gemma: the paged batcher's attention launches", attn == want,
+           f"{attn}, expected {want} ({steps} decode steps)")
+    _, _, dense, _, _, _ = _gemma_serve(params, cfg, root, scenes,
+                                        paged=False)
+    eos = engine.ecfg.eos_token_id
+    qs = [q for s, n in GEMMA_SERVE_WAVES for q in scenes[s][:n]]
+    equal = sum(_near_tie_check(
+        f"gemma: paged request {i} ids vs dense", params, cfg, engine, q,
+        _with_eos(d.tokens, eos, budget), _with_eos(h.tokens, eos, budget),
+        CROSS_TIE)
+        for i, (q, (budget, h, _), (_, d, _)) in enumerate(zip(qs, handles,
+                                                              dense)))
+    tokens = sum(len(h.tokens) for _, h, _ in handles)
+    chunks = sorted(log["chunks"])
+    ms_chunk = chunks[len(chunks) // 2]
+    print(f"  gemma: paged batcher, {len(handles)} requests, {tokens} output "
+          f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s over "
+          f"{SERVE_SLOTS} slots; median {ms_chunk / SERVE_CHUNK:.2f} ms per "
+          f"step over {len(chunks)} chunks; {equal} of {len(handles)} "
+          f"answers equal to the dense batcher's; {_card()}", flush=True)
+    _check_paged_vs_dense(params, cfg, engine, scenes[0][:2], scenes[1][0])
+
+
+def _families_llm(root: str, infos, total: dict) -> None:
     """Phase 19 (a) - (d): the decoders of the other families."""
     import torch
 
     from video3d_tpu_torch.serve.batcher import ContinuousBatcher
 
     dev = torch.device("cuda", 0)
+    info = infos[0]
     print("(a) LLaVA over Qwen1.5-MoE-A2.7B (full width and depth):",
           flush=True)
     cfg = _family_config(QWEN_MOE_HF)
@@ -7884,7 +8199,13 @@ def _families_llm(root: str, info, total: dict) -> None:
                         "flash_attention_hd256",
                         "flash_attention_folded_hd256",
                         "decode_attention_hd256")
-    del params, engine
+    del engine
+    t0 = time.perf_counter()
+    _gemma_batched_answers(params, cfg, root, info, total)
+    _gemma_paged_batcher(params, cfg, root, infos, total)
+    print(f"  gemma: the batched answers and the paged batcher took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -8066,16 +8387,18 @@ def _families_towers(dev) -> None:
           flush=True)
 
 
-def run_families(root: str, info, dev) -> dict:
-    """Phase 19: (a) LLaVA over Qwen1.5-MoE-A2.7B, (b) over Gemma-2B, (c)
-    Mixtral-8x7B cut to MIXTRAL_LAYERS layers, (d) MPT-7B cut to MPT_LAYERS
-    layers, each from seeded random weights in bf16 through the engine;
-    (e) the towers and resamplers. Returns the answers' launch counts."""
+def run_families(root: str, infos, dev) -> dict:
+    """Phase 19: (a) LLaVA over Qwen1.5-MoE-A2.7B, (b) over Gemma-2B (also
+    through the batched prefix answers and the paged batcher, over the two
+    scenes of ``infos``), (c) Mixtral-8x7B cut to MIXTRAL_LAYERS layers,
+    (d) MPT-7B cut to MPT_LAYERS layers, each from seeded random weights in
+    bf16 through the engine; (e) the towers and resamplers. Returns the
+    main paths' launch counts."""
     import torch
 
     t_phase = time.perf_counter()
     total: dict = {}
-    _families_llm(root, info, total)
+    _families_llm(root, infos, total)
     _families_towers(dev)
     gc.collect()
     torch.cuda.empty_cache()
@@ -8216,7 +8539,7 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         print("decoder families and towers (phase 19):", flush=True)
-        families = run_families(root, info, dev)
+        families = run_families(root, infos, dev)
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
         if name in PROBE_KERNELS:

@@ -32,13 +32,19 @@ _BASE = {"vocab_size": 512, "hidden_size": 64, "intermediate_size": 128,
          "num_hidden_layers": 2, "num_attention_heads": 4,
          "max_position_embeddings": 1024}
 
-#: config.json fields of each family at test widths (head_dim 16)
+#: config.json fields of each family at test widths (head_dim 16, and
+#: Gemma's 256)
 FAMILIES = {
     "llama": dict(_BASE, model_type="llama", num_key_value_heads=2),
     "mistral": dict(_BASE, model_type="mistral", num_key_value_heads=2,
                     rope_theta=1e6),
     "gemma": dict(_BASE, model_type="gemma", num_key_value_heads=1,
                   head_dim=16, hidden_activation="gelu_pytorch_tanh"),
+    # Gemma's head width: 2 query heads of 256 on one kv head
+    "gemma_hd256": dict(_BASE, model_type="gemma", hidden_size=512,
+                        intermediate_size=256, num_attention_heads=2,
+                        num_key_value_heads=1, head_dim=256,
+                        hidden_activation="gelu_pytorch_tanh"),
     "mixtral": dict(_BASE, model_type="mixtral", num_key_value_heads=2,
                     num_local_experts=4, num_experts_per_tok=2),
     "qwen2_moe": dict(_BASE, model_type="qwen2_moe", num_key_value_heads=4,

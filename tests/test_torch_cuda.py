@@ -2017,8 +2017,8 @@ def test_hd256_decode_kernel(dev, H, KV, S, lens):
 
 
 def test_hd256_forms_refuse_what_they_do_not_take(dev):
-    """No quantized-cache, shared-prefix, paged or training form at hd 256
-    yet: each raises a ValueError on the card."""
+    """No quantized-cache (flat, paged or prefix) or training form at hd
+    256 yet: each raises a ValueError on the card."""
     B, S, KV, hd = 1, 128, 1, 256
     q = torch.zeros(B, 1, 8, hd, dtype=torch.bfloat16, device=dev)
     k8 = torch.zeros(2, B, S, KV * hd, dtype=torch.int8, device=dev)
@@ -2033,5 +2033,135 @@ def test_hd256_forms_refuse_what_they_do_not_take(dev):
     qq = torch.zeros(B, 64, 8, hd, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(qq, kk, kk, lens)
-    with pytest.raises(ValueError):
-        fa.flash_attention_shared_prefix(qq, kk[0], kk[0], kk, kk, lens)
+    p8 = torch.zeros(64, KV, hd, dtype=torch.int8, device=dev)
+    psc = torch.ones(64, KV, 1, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        fa.flash_attention_shared_prefix(qq, p8, p8, kk, kk, lens, psc, psc)
+    pool8 = torch.zeros(2, 3, 16, KV * hd, dtype=torch.int8, device=dev)
+    pool_sc = torch.ones(2, 3, KV, 1, 16, device=dev)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="256"):
+        pa.paged_decode_attention(q, pool8, pool8, table, lens, 0, KV,
+                                  pool_sc, pool_sc)
+
+
+# (H, KV, page, maxp, alias, kv_len): Gemma-2B's heads over aliased pages,
+# an odd page size (24, and 7), fewer live positions than CTAs with a
+# kv_len 0 slot (the split fault B3 / B7 had), two kv heads
+HD256_PAGED = [(8, 1, 128, 3, 1, [300, 129, 256, 1]),
+               (8, 2, 24, 5, 2, [120, 1, 49]),
+               (8, 1, 128, 56, 52, [5, 0, 9, 3, 6716, 7000, 2, 7168]),
+               (16, 2, 7, 9, 0, [63, 2])]
+
+
+def _hd256_pages(g, dev, H, KV, page, maxp, alias, lens):
+    """q (B, 1, H, 256) peaked, stacked (2, P, page, KV * 256) bf16 pools
+    (layer 1 read), a table whose first ``alias`` entries are pool pages
+    1.. for every slot, then pages of its own. The last 16 keys of every
+    slot are focused where they lie in its own pages: at hd 256 a focused
+    key's score gains only 121 / 16, so four of ~7000 keys carry too little
+    of the softmax for a swapped page row to show, and focused keys in the
+    aliased pages would dominate every slot."""
+    NL, hd, layer = 2, 256, 1
+    B = len(lens)
+    P = 1 + alias + B * (maxp - alias)
+    table = torch.zeros(B, maxp, dtype=torch.int32)
+    table[:, :alias] = torch.arange(1, 1 + alias)
+    table[:, alias:] = torch.arange(1 + alias, P).reshape(B, maxp - alias)
+    q = _peaked_q(g, dev, B, H, hd)
+    k = torch.randn(NL, P, page, KV, hd, generator=g, device=dev)
+    v = 0.5 * torch.randn(NL, P, page, KV, hd, generator=g, device=dev)
+    for b, n in enumerate(lens):
+        for s_ in range(max(n - 16, alias * page), n):
+            k[layer, int(table[b, s_ // page]), s_ % page, :, 0] += FOCUS
+    k, v = (x.reshape(NL, P, page, KV * hd).bfloat16() for x in (k, v))
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, k, v, table.to(dev), kv_len, layer
+
+
+@pytest.mark.parametrize("H,KV,page,maxp,alias,lens", HD256_PAGED)
+def test_hd256_paged_kernel(dev, H, KV, page, maxp, alias, lens):
+    """B7 at hd 256 against its twin in f32 on the same bf16 values: live
+    slots within 2e-2, kv_len 0 slots zero, the same bits twice; controls
+    (two slots' table rows swapped, each slot's last live page dropped)
+    miss by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    q, k, v, table, kv_len, layer = _hd256_pages(g, dev, H, KV, page, maxp,
+                                                 alias, lens)
+    call = lambda: pa.paged_decode_attention(q, k, v, table, kv_len, layer,
+                                             KV)
+    got = _launched("paged_attention_hd256", call)
+    ref = h256.paged_hd256_plain(q.float(), k, v, table, kv_len, layer, KV)
+    live = [b for b, n in enumerate(lens) if n]
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got[live].float() - ref[live]).abs().max()) <= BF16_ATOL
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    _same_bits(call, got)
+    a, b = sorted(range(len(lens)), key=lambda i: lens[i])[-2:]
+    swapped = table.clone()               # the two longest slots' rows
+    swapped[[a, b]] = table[[b, a]]
+    last_page = ((kv_len - 1).clamp(min=0) // page) * page
+    for broken in (h256.paged_hd256_plain(q.float(), k, v, swapped, kv_len,
+                                          layer, KV),
+                   h256.paged_hd256_plain(q.float(), k, v, table, last_page,
+                                          layer, KV)):
+        assert float((broken[live] - ref[live]).abs().max()) > 4 * BF16_ATOL
+
+
+# (B, L, H, KV, P, suffix_lens): phase 3's B=8 batch over a prefix ending
+# mid-tile, whole tiles with two kv heads, a short suffix
+HD256_PREFIX = [(8, 64, 8, 1, 700, [64, 40, 17, 64, 33, 50, 8, 60]),
+                (3, 64, 8, 2, 64, [1, 64, 45]),
+                (2, 20, 8, 1, 100, [20, 7])]
+
+
+def _hd256_prefix(g, dev, B, L, H, KV, P):
+    """Peaked q; the prefix with its first 64-key tile focused; the suffix
+    focused."""
+    hd = 256
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    pk = torch.randn(P, KV, hd, generator=g, device=dev)
+    pk[:64, :, 0] += FOCUS
+    pv = 0.5 * torch.randn(P, KV, hd, generator=g, device=dev)
+    sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+    sk[..., 0] += FOCUS
+    sv = 0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)
+    return tuple(x.bfloat16() for x in (q, pk, pv, sk, sv))
+
+
+@pytest.mark.parametrize("B,L,H,KV,P,slens", HD256_PREFIX)
+def test_hd256_shared_prefix_kernel(dev, B, L, H, KV, P, slens):
+    """B5 at hd 256 against its twin in f32 on the same bf16 values (rows
+    below suffix_lens) within 2e-2, the same bits twice; controls (the
+    suffix's causal mask dropped, the next row's suffix attended, the
+    first prefix tile skipped) miss by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels.attention import mha_reference
+
+    g = torch.Generator(device=dev).manual_seed(15)
+    q, pk, pv, sk, sv = _hd256_prefix(g, dev, B, L, H, KV, P)
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    call = lambda: fa.flash_attention_shared_prefix(q, pk, pv, sk, sv,
+                                                    slens_t)
+    got = _launched("shared_prefix_attention_hd256", call)
+    qf = q.float()
+    ref = h256.shared_prefix_hd256_plain(qf, pk, pv, sk, sv, slens_t)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, slens) <= BF16_ATOL
+    _same_bits(call, got)
+    k = torch.cat([pk.expand(B, *pk.shape), sk], 1).float()
+    v = torch.cat([pv.expand(B, *pv.shape), sv], 1).float()
+    controls = [
+        mha_reference(qf, k, v, q_positions=torch.full(
+            (B, L), P + L - 1, device=dev), kv_len=P + slens_t),
+        h256.shared_prefix_hd256_plain(qf, pk, pv, sk.roll(1, 0),
+                                       sv.roll(1, 0), slens_t.roll(1, 0)),
+        h256.shared_prefix_hd256_plain(qf, pk[64:], pv[64:], sk, sv,
+                                       slens_t)]
+    for broken in controls:
+        assert _rows_err(broken, ref, slens) > 4 * BF16_ATOL

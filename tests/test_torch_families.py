@@ -131,7 +131,8 @@ def _leaves_equal(t, j, path=""):
                                       err_msg=path)
 
 
-@pytest.mark.parametrize("family", ["qwen2_moe", "gemma", "mpt"])
+@pytest.mark.parametrize("family", ["qwen2_moe", "gemma", "gemma_hd256",
+                                    "mpt"])
 def test_load_format_auto_loads_the_family(tmp_path, scene, family):
     """The worker's ``--load-format auto`` on a checkpoint written with the
     port's safetensors writer: the loaded tree equals JAX's load of the

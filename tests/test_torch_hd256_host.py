@@ -131,32 +131,32 @@ def test_launch_hands_the_plan_to_the_c_entry(form, L, S, q_off,
     assert lib.calls[1][6] == ws                  # the stream's workspace
 
 
-def _emulate(q, k, v, lens, q_off, mode, sms=H100_SMS):
-    """The kernel's algorithm in f32 torch: per (batch row, kv head), row
-    tile and split, the tile's folded rows (row f: query f // G of head
-    g G + f % G), their positions and limits, the key range [k_begin,
-    k_end), the online softmax over 64-key tiles in base 2 with the rows'
-    masks, then the one split's normalised output or the merge of every
-    split's (O, m, l), empty partials skipped."""
+def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
+                 sms: int = H100_SMS):
+    """The kernel's algorithm in f32 torch for q (B, L, H, 256) over a key
+    axis of S slots: per (batch row, kv head), row tile and split of
+    ``hd256_plan``, the tile's folded rows (row f: query f // G of head
+    g G + f % G), their positions (``pos0_of(b)`` + f // G) and the row's
+    key limit (``lim_of(b)``), the key range [k_begin, k_end), each 64-key
+    tile's K / V rows from ``key_rows(b, g, s)`` (None: a key no row
+    attends, loaded as zeros and masked), the online softmax over 64-key
+    tiles in base 2, then the one split's normalised output or the merge of
+    every split's (O, m, l), empty partials skipped."""
     B, L, H, hd = q.shape
-    S, KV = k.shape[1], k.shape[2]
     G = H // KV
     plan = h256.hd256_plan(B, L, H, KV, S, sms)
     scale = hd ** -0.5 * math.log2(math.e)
     out = torch.zeros(B, L, H, hd)
     for b in range(B):
-        lim = min(max(int(lens[b]), 0), S)
-        pos0 = {0: 0, 1: int(q_off[b]) if q_off is not None else 0,
-                2: int(lens[b]) - 1}[mode]
+        pos0, lim = pos0_of(b), lim_of(b)
         for g in range(KV):
             parts = {}
             for t in range(plan.row_tiles):
                 f0 = t * h256.ROWS
                 fs = list(range(f0, min(f0 + h256.ROWS, plan.rows)))
-                ls = [f // G for f in fs]
-                hs = [g * G + f % G for f in fs]
-                pos = torch.tensor([pos0 + l for l in ls])
-                qt = q[b, ls, hs].float()                       # (R, hd)
+                pos = torch.tensor([pos0 + f // G for f in fs])
+                qt = q[b, [f // G for f in fs],
+                       [g * G + f % G for f in fs]].float()     # (R, hd)
                 for sp in range(plan.splits):
                     kb = sp * plan.split_keys
                     ke = min(kb + plan.split_keys, lim,
@@ -168,9 +168,13 @@ def _emulate(q, k, v, lens, q_off, mode, sms=H100_SMS):
                         keys = torch.arange(kt, kt + h256.KEYS)
                         kk = torch.zeros(h256.KEYS, hd)
                         vv = torch.zeros(h256.KEYS, hd)
-                        live = keys < ke
-                        kk[live] = k[b, keys[live], g].float()
-                        vv[live] = v[b, keys[live], g].float()
+                        live = torch.zeros(h256.KEYS, dtype=torch.bool)
+                        for r in range(h256.KEYS):
+                            rows = key_rows(b, g, kt + r) \
+                                if kt + r < ke else None
+                            if rows is not None:
+                                kk[r], vv[r] = rows
+                                live[r] = True
                         x = (qt @ kk.T) * scale
                         ok = (keys[None] <= pos[:, None]) \
                             & (keys[None] < lim) & live[None]
@@ -195,6 +199,20 @@ def _emulate(q, k, v, lens, q_off, mode, sms=H100_SMS):
                         acc, tot = acc + w * po, tot + w * pl
                 out[b, f // G, g * G + f % G] = acc / tot if tot > 0 else 0.0
     return out
+
+
+def _emulate(q, k, v, lens, q_off, mode, sms=H100_SMS):
+    """:func:`emulate_rows` of the dense forms over (B, S, KV, 256) keys:
+    key s of row b is row s of its K and V, a row at position 0 (prefill),
+    q_off[b] (folded) or lens[b] - 1 (decode) plus its query index, keys
+    valid below lens[b]."""
+    S, KV = k.shape[1], k.shape[2]
+    pos0 = {0: lambda b: 0, 1: lambda b: int(q_off[b]),
+            2: lambda b: int(lens[b]) - 1}[mode]
+    return emulate_rows(q, S, KV, pos0,
+                        lambda b: min(max(int(lens[b]), 0), S),
+                        lambda b, g, s: (k[b, s, g].float(),
+                                         v[b, s, g].float()), sms)
 
 
 def _inputs(seed, B, L, S, H, KV):

@@ -1,5 +1,5 @@
-// Attention at head width 256 (Gemma), in the three forms of the engine's
-// answer path: B2's prefill, B2 folded and B3.
+// Attention at head width 256 (Gemma), in the five forms of the engine's
+// answer and serving paths: B2's prefill, B2 folded, B3, B7 and B5.
 //
 // Replaces, at hd 256:
 //   * video3d_tpu/kernels/flash_attention.py::_fwd_kernel (call :283), the
@@ -9,32 +9,49 @@
 //     whose rows sit at q_offsets[b] + r over one layer of the stacked
 //     (layers, B, S, KV*hd) cache;
 //   * video3d_tpu/kernels/decode_attention.py::_decode_kernel_blockdiag
-//     (call :243), the decode form: one token at kv_len[b] - 1.
+//     (call :243), the decode form: one token at kv_len[b] - 1;
+//   * video3d_tpu/kernels/paged_attention.py::_ragged_kernel (call :266),
+//     the paged form: the decode form with key s of slot b in pool page
+//     page_table[b, s / page], row s % page, of one layer's (P, page,
+//     KV*hd) pool (the paged batcher's decode step);
+//   * video3d_tpu/kernels/flash_attention.py::_sp_fused_kernel (call
+//     :910), the shared-prefix form: query r of row b at position P + r
+//     attends ONE (P, KV*hd) prefix (no batch stride), then its row's own
+//     suffix keys j <= r, j < suffix_lens[b] (the batched answers over a
+//     cached scene prefix).
 // JAX sends any hd % 128 == 0 to those Pallas kernels; the port's hd-128
 // kernels are compiled for 128 only, so hd 256 has this kernel of its own.
 //
-// What bounds it on an H100: the prefill and folded forms are products of
-// 4 * rows * keys * 256 FLOP (causal: about half the rectangle), far above
-// the card's ~295 FLOP/byte ridge at prefill lengths, so the tensor cores
-// bound them; the decode form reads 2 * kv_len * KV * 256 * 2 bytes of K
-// and V for ~4 FLOP per byte, so HBM bounds it.
+// What bounds it on an H100: the prefill, folded and shared-prefix forms
+// are products of 4 * rows * keys * 256 FLOP (causal: about half the
+// rectangle), far above the card's ~295 FLOP/byte ridge at prefill
+// lengths, so the tensor cores bound them; the decode and paged forms read
+// 2 * kv_len * KV * 256 * 2 bytes of K and V for ~4 FLOP per byte, so HBM
+// bounds them.
 //
 // Design (a first, simple form; a wgmma / TMA design is later work): one
-// template for all three forms, which differ only in where a query row
-// sits (kMode). A CTA of 8 warps takes 64 folded query rows (row f of a kv
-// head is query position f / G of query head g * G + f % G, so the G <= 8
-// query heads of a kv head share its K/V tiles) and walks a range of
-// 64-key tiles. Q, the K and V tiles, the f32 score tile, the bf16
-// probability tile and the f32 output accumulator all live in shared
-// memory (~191 KiB, one CTA per SM); the products run on the tensor cores
-// through WMMA bf16 16x16x16 fragments with f32 sums; the online softmax
-// runs in f32, four threads per row. Where the row tiles alone do not fill
-// the card, the keys split over CTAs (the plan is the host's, from the
-// shapes alone: kv_len stays on the device) and each split writes its
-// unnormalised output with its row max and sum into an f32 workspace that
-// a second kernel merges, row by row. A split whose keys all lie past its
-// rows' limits writes an empty partial, so a launch with fewer live
-// positions than CTAs merges right.
+// template for all five forms, which differ only in where a query row
+// sits and where a key's row lies (kMode). In the paged and shared-prefix
+// forms, 64 threads look up each 64-key tile's K and V row addresses into
+// shared memory first: a page-table entry per key in the paged form, so
+// any page size works; prefix or suffix in the shared-prefix form, whose
+// key axis is the prefix padded to whole tiles, then the suffix. A null
+// address is a key no row may attend, loaded as zeros and masked. The
+// dense forms address their rows by stride, as before. A CTA of 8 warps takes 64 folded
+// query rows (row f of a kv head is query position f / G of query head
+// g * G + f % G, so the G <= 8 query heads of a kv head share its K/V
+// tiles) and walks a range of 64-key tiles. Q, the K and V tiles, the f32
+// score tile, the bf16 probability tile and the f32 output accumulator all
+// live in shared memory (192 KiB, one CTA per SM); the products run on the
+// tensor cores through WMMA bf16 16x16x16 fragments with f32 sums; the
+// online softmax runs in f32, four threads per row. Where the row tiles
+// alone do not fill the card, the keys split over CTAs (the plan is the
+// host's, from the shapes alone: kv_len, the page table and the suffix
+// lengths stay on the device) and each split writes its unnormalised
+// output with its row max and sum into an f32 workspace that a second
+// kernel merges, row by row. A split whose keys all lie past its rows'
+// limits writes an empty partial, so a launch with fewer live positions
+// than CTAs merges right.
 #include <mma.h>
 
 #include "common.cuh"
@@ -60,9 +77,11 @@ constexpr size_t kSmemBytes =
     + sizeof(bf16) * kRows * kLdp              // probabilities
     + sizeof(float) * kRows * kLdo             // output accumulator
     + sizeof(float) * 2 * kRows                // m, l per row
-    + sizeof(int) * 2 * kRows;                 // position, limit per row
+    + sizeof(int) * 2 * kRows                  // position, limit per row
+    + sizeof(void*) * 2 * kKeys;               // K, V row of each key
 
-enum Mode { kPrefill = 0, kFolded = 1, kDecode = 2 };
+enum Mode { kPrefill = 0, kFolded = 1, kDecode = 2, kPaged = 3,
+            kSharedPrefix = 4 };
 
 __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000u);
@@ -70,29 +89,36 @@ __device__ __forceinline__ float neg_inf() {
 
 struct Params {
   const bf16* q;      // (B, L, H, 256)
-  const bf16* k;      // (B, S, KV, 256): a prefill's K or a cache layer
+  const bf16* k;      // (B, S, KV, 256): a prefill's K or a cache layer;
+                      // paged: one layer's (P, page, KV*256) pool;
+                      // shared prefix: the (P, KV*256) prefix
   const bf16* v;
-  const int* lens;    // (B,) keys valid below lens[b]
+  const bf16* suf_k;  // shared prefix: the (B, L, KV*256) suffix
+  const bf16* suf_v;
+  const int* lens;    // (B,) keys valid below lens[b] (shared prefix: the
+                      // suffix lengths)
   const int* q_off;   // (B,) folded: position of query row 0
+  const int* table;   // paged: (B, maxp) pool page of each slot's page
   bf16* out;          // (B, L, H, 256)
   float* ws;          // split partials (splits > 1)
   int B, L, S, H, KV, G, row_tiles, splits, split_keys;
+  int page, maxp;     // paged: positions per page, pages per slot
+  int P, Pp;          // shared prefix: its length, rounded up to kKeys
   float scale_log2;   // sm_scale * log2(e)
 };
 
-// 64 rows of 256 bf16 (row i at src + row_off(i)) into a pitched tile;
-// rows with row_off < 0 are zero-filled
-template <typename RowOff>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          RowOff row_off) {
+// 64 rows of 256 bf16 (row i at row(i)) into a pitched tile; rows whose
+// address is null are zero-filled
+template <typename RowPtr>
+__device__ __forceinline__ void load_tile(bf16* dst, RowPtr row) {
   // 64 rows x 32 16-byte chunks = 2048 chunks, 8 per thread
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int r = c >> 5, col = (c & 31) * 8;
-    const long long off = row_off(r);
+    const bf16* src = row(r);
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (off >= 0) val = *reinterpret_cast<const uint4*>(src + off + col);
+    if (src != nullptr) val = *reinterpret_cast<const uint4*>(src + col);
     *reinterpret_cast<uint4*>(dst + r * kLdh + col) = val;
   }
 }
@@ -111,18 +137,28 @@ attention_hd256_kernel(const Params p) {
   float* sm_l = sm_m + kRows;
   int* s_pos = reinterpret_cast<int*>(sm_l + kRows);
   int* s_lim = s_pos + kRows;
+  const bf16** s_kr = reinterpret_cast<const bf16**>(s_lim + kRows);
+  const bf16** s_vr = s_kr + kKeys;
 
+  // the paged and shared-prefix forms look each tile's rows up first
+  constexpr bool kLookup = kMode == kPaged || kMode == kSharedPrefix;
   const int tile = blockIdx.x, split = blockIdx.y;
   const int bkv = blockIdx.z, b = bkv / p.KV, g = bkv % p.KV;
   const int rows_total = p.L * p.G;
   const int f0 = tile * kRows;
   const int tid = threadIdx.x, warp = tid >> 5;
 
-  // each row's position and key limit; the tile's key range
-  const int lim_b = min(max(p.lens[b], 0), p.S);
-  int pos0 = 0;
-  if (kMode == kFolded) pos0 = p.q_off[b];
-  if (kMode == kDecode) pos0 = p.lens[b] - 1;
+  // each row's position and key limit, on the key axis (shared prefix:
+  // the padded prefix's Pp slots, then the suffix); the tile's key range
+  int lim_b, pos0 = 0;
+  if (kMode == kSharedPrefix) {
+    pos0 = p.Pp;
+    lim_b = p.Pp + min(max(p.lens[b], 0), p.L);
+  } else {
+    lim_b = min(max(p.lens[b], 0), p.S);
+    if (kMode == kFolded) pos0 = p.q_off[b];
+    if (kMode == kDecode || kMode == kPaged) pos0 = p.lens[b] - 1;
+  }
   if (tid < kRows) {
     const int f = f0 + tid;
     s_pos[tid] = f < rows_total ? pos0 + f / p.G : -1;
@@ -138,31 +174,68 @@ attention_hd256_kernel(const Params p) {
   for (int i = tid; i < kRows * kLdo; i += kThreads) so[i] = 0.f;
 
   const long long q_row = static_cast<long long>(p.H) * kHd;
-  load_tile(sq, p.q, [&](int r) -> long long {
+  load_tile(sq, [&](int r) -> const bf16* {
     const int f = f0 + r;
-    if (f >= rows_total) return -1;
+    if (f >= rows_total) return nullptr;
     const int l = f / p.G, h = g * p.G + f % p.G;
-    return (static_cast<long long>(b) * p.L + l) * q_row
+    return p.q + (static_cast<long long>(b) * p.L + l) * q_row
         + static_cast<long long>(h) * kHd;
   });
 
+  // row 0 of kv head g: of batch row b's keys (dense forms), of the pool
+  // layer (paged), of the prefix (shared prefix); the suffix's row 0
   const long long kv_row = static_cast<long long>(p.KV) * kHd;
-  const bf16* kb = p.k + static_cast<long long>(b) * p.S * kv_row
-      + static_cast<long long>(g) * kHd;
-  const bf16* vb = p.v + static_cast<long long>(b) * p.S * kv_row
-      + static_cast<long long>(g) * kHd;
+  const long long base = static_cast<long long>(g) * kHd
+      + (kMode <= kDecode ? static_cast<long long>(b) * p.S * kv_row : 0);
+  const bf16* kb = p.k + base;
+  const bf16* vb = p.v + base;
+  const long long suf = kMode == kSharedPrefix
+      ? static_cast<long long>(b) * p.L * kv_row
+          + static_cast<long long>(g) * kHd - static_cast<long long>(p.Pp)
+          * kv_row
+      : 0;
 
   // the softmax's four threads of one row and its 16 columns
   const int srow = tid >> 2, sq4 = tid & 3;
 
   for (int kt = k_begin; kt < k_end; kt += kKeys) {
-    __syncthreads();   // the previous tile's P and V are consumed
-    auto key_off = [&](int r) -> long long {
-      const int s = kt + r;
-      return s < k_end ? static_cast<long long>(s) * kv_row : -1;
-    };
-    load_tile(sk, kb, key_off);
-    load_tile(sv, vb, key_off);
+    __syncthreads();   // the previous tile's P, V and rows are consumed
+    if (kLookup) {
+      if (tid < kKeys) {
+        // key s's K and V rows, or null: past the range, or the padding
+        // after the prefix
+        const int s = kt + tid;
+        const bf16 *kr = nullptr, *vr = nullptr;
+        if (s < k_end) {
+          if (kMode == kPaged) {
+            const long long row = static_cast<long long>(
+                p.table[static_cast<long long>(b) * p.maxp + s / p.page])
+                * p.page + s % p.page;
+            kr = kb + row * kv_row;
+            vr = vb + row * kv_row;
+          } else if (s < p.P) {
+            kr = kb + static_cast<long long>(s) * kv_row;
+            vr = vb + static_cast<long long>(s) * kv_row;
+          } else if (s >= p.Pp) {
+            kr = p.suf_k + (suf + static_cast<long long>(s) * kv_row);
+            vr = p.suf_v + (suf + static_cast<long long>(s) * kv_row);
+          }
+        }
+        s_kr[tid] = kr;
+        s_vr[tid] = vr;
+      }
+      __syncthreads();
+      load_tile(sk, [&](int r) { return s_kr[r]; });
+      load_tile(sv, [&](int r) { return s_vr[r]; });
+    } else {
+      auto row = [&](const bf16* base_ptr, int r) -> const bf16* {
+        const int s = kt + r;
+        return s < k_end ? base_ptr + static_cast<long long>(s) * kv_row
+                         : nullptr;
+      };
+      load_tile(sk, [&](int r) { return row(kb, r); });
+      load_tile(sv, [&](int r) { return row(vb, r); });
+    }
     __syncthreads();
 
     // S = Q K^T: 4 x 4 fragments of 16 x 16, two per warp
@@ -198,7 +271,8 @@ attention_hd256_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const int col = sq4 * 16 + c, s = kt + col;
-        const bool ok = pos >= 0 && s <= pos && s < lim && s < k_end;
+        const bool ok = pos >= 0 && s <= pos && s < lim
+            && (kLookup ? s_kr[col] != nullptr : s < k_end);
         x[c] = ok ? ss[srow * kLds + col] * p.scale_log2 : neg_inf();
         mx = fmaxf(mx, x[c]);
       }
@@ -328,28 +402,20 @@ int launch(const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// mode 0 prefill, 1 folded, 2 decode. q (B, L, H, 256), k / v (B, S, KV,
-// 256) rows (the caller points at a cache layer), lens (B,) int32, q_off
-// (B,) int32 (folded only), out (B, L, H, 256); ws holds B * KV * L * G *
-// splits * 258 floats when splits > 1. split_keys is a multiple of 64.
-extern "C" int v3d_attention_hd256(const void* q, const void* k,
-                                   const void* v, const void* lens,
-                                   const void* q_off, void* out, void* ws,
-                                   int mode, int B, int L, int S, int H,
-                                   int KV, int splits, int split_keys,
-                                   float sm_scale, void* stream) {
-  if (KV <= 0 || H % KV != 0 || L <= 0 || S <= 0 || splits <= 0
-      || split_keys % kKeys != 0 || (splits > 1 && ws == nullptr)
-      || (mode == kFolded && q_off == nullptr) || mode < 0 || mode > 2)
-    return static_cast<int>(cudaErrorInvalidValue);
-  Params p;
+// the fields every form sets; false where the shapes or the split are
+// invalid
+bool common_params(Params& p, const void* q, const void* k, const void* v,
+                   const void* lens, void* out, void* ws, int B, int L,
+                   int S, int H, int KV, int splits, int split_keys,
+                   float sm_scale) {
+  if (KV <= 0 || H % KV != 0 || B <= 0 || L <= 0 || S <= 0 || splits <= 0
+      || split_keys % kKeys != 0 || (splits > 1 && ws == nullptr))
+    return false;
+  p = Params{};
   p.q = static_cast<const bf16*>(q);
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.lens = static_cast<const int*>(lens);
-  p.q_off = static_cast<const int*>(q_off);
   p.out = static_cast<bf16*>(out);
   p.ws = static_cast<float*>(ws);
   p.B = B;
@@ -362,8 +428,79 @@ extern "C" int v3d_attention_hd256(const void* q, const void* k,
   p.splits = splits;
   p.split_keys = split_keys;
   p.scale_log2 = sm_scale * 1.4426950408889634f;
+  return true;
+}
+
+}  // namespace
+
+// mode 0 prefill, 1 folded, 2 decode. q (B, L, H, 256), k / v (B, S, KV,
+// 256) rows (the caller points at a cache layer), lens (B,) int32, q_off
+// (B,) int32 (folded only), out (B, L, H, 256); ws holds B * KV * L * G *
+// splits * 258 floats when splits > 1. split_keys is a multiple of 64.
+extern "C" int v3d_attention_hd256(const void* q, const void* k,
+                                   const void* v, const void* lens,
+                                   const void* q_off, void* out, void* ws,
+                                   int mode, int B, int L, int S, int H,
+                                   int KV, int splits, int split_keys,
+                                   float sm_scale, void* stream) {
+  Params p;
+  if (!common_params(p, q, k, v, lens, out, ws, B, L, S, H, KV, splits,
+                     split_keys, sm_scale)
+      || (mode == kFolded && q_off == nullptr) || mode < 0 || mode > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.q_off = static_cast<const int*>(q_off);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mode == kPrefill) return launch<kPrefill>(p, st);
   if (mode == kFolded) return launch<kFolded>(p, st);
   return launch<kDecode>(p, st);
+}
+
+// B7 at hd 256: q (B, 1, H, 256), the stacked (layers, P, page, KV*256)
+// pools (layer read by strides), table (B, maxp) int32, kv_len (B,) int32
+// (positions after this step's append), out (B, 1, H, 256); the key axis
+// is maxp * page positions; ws as above.
+extern "C" int v3d_attention_hd256_paged(const void* q, const void* k_pages,
+                                         const void* v_pages,
+                                         const void* table,
+                                         const void* kv_len, void* out,
+                                         void* ws, int layer, int B, int P,
+                                         int page, int maxp, int H, int KV,
+                                         int splits, int split_keys,
+                                         float sm_scale, void* stream) {
+  if (layer < 0 || P <= 0 || page <= 0 || maxp <= 0 || table == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long layer_elems = static_cast<long long>(layer) * P * page
+      * KV * kHd;
+  Params p;
+  if (!common_params(p, q, static_cast<const bf16*>(k_pages) + layer_elems,
+                     static_cast<const bf16*>(v_pages) + layer_elems, kv_len,
+                     out, ws, B, 1, maxp * page, H, KV, splits, split_keys,
+                     sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.table = static_cast<const int*>(table);
+  p.page = page;
+  p.maxp = maxp;
+  return launch<kPaged>(p, static_cast<cudaStream_t>(stream));
+}
+
+// B5 at hd 256: q (B, L, H, 256), query r of row b at position P + r; pk /
+// pv the (P, KV*256) prefix, sk / sv the (B, L, KV*256) suffix,
+// suffix_lens (B,) int32, out (B, L, H, 256); the key axis is the prefix
+// padded to whole 64-key tiles, then the L suffix keys; ws as above.
+extern "C" int v3d_attention_hd256_shared_prefix(
+    const void* q, const void* pk, const void* pv, const void* sk,
+    const void* sv, const void* suffix_lens, void* out, void* ws, int B,
+    int L, int P, int H, int KV, int splits, int split_keys, float sm_scale,
+    void* stream) {
+  const int Pp = (P + kKeys - 1) / kKeys * kKeys;
+  Params p;
+  if (P < 0 || sk == nullptr || sv == nullptr
+      || !common_params(p, q, pk, pv, suffix_lens, out, ws, B, L, Pp + L, H,
+                        KV, splits, split_keys, sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.suf_k = static_cast<const bf16*>(sk);
+  p.suf_v = static_cast<const bf16*>(sv);
+  p.P = P;
+  p.Pp = Pp;
+  return launch<kSharedPrefix>(p, static_cast<cudaStream_t>(stream));
 }

@@ -90,8 +90,8 @@ from video3d_tpu_torch.models.splice import (KIND_VISION, build_splice_plan,
                                              vision_end_from_kind)
 from video3d_tpu_torch.ops import geometry
 from video3d_tpu_torch.ops.voxel_dedup import default_order_keys
-from video3d_tpu_torch.params import (CARD_HEAD_DIMS, check_card_path,
-                                      check_config, resolve_device)
+from video3d_tpu_torch.params import (check_card_path, check_config,
+                                      resolve_device)
 
 DEFAULT_BUCKETS = (1024, 2048, 4096, 8192, 16384)
 
@@ -214,6 +214,9 @@ class InferenceEngine:
         # a decoder family whose head width has no card form on this
         # engine's paths is refused here, before any work
         check_card_path(model_cfg, self.device, "answer")
+        if self.ecfg.prefix_cache_scenes:
+            # the batched answers over a cached scene prefix run B5
+            check_card_path(model_cfg, self.device, "shared_prefix")
         if self.cache_dtype not in (None, torch.bfloat16, torch.float32):
             check_card_path(model_cfg, self.device, "quantized_cache")
         self.dtype = params["llm"]["embed_tokens"].dtype
@@ -1234,9 +1237,6 @@ class InferenceEngine:
         scenes, the prefix is absent or mismatched, or a suffix doesn't fit
         (the caller falls back)."""
         self._check_not_llava3d("the batched answer path")
-        if self.device.type == "cuda" and len(records) > 1 and \
-                self.cfg.llm.head_dim not in CARD_HEAD_DIMS["shared_prefix"]:
-            return None      # no B5 form at this head width: full prefill
         key = records[0].get("video")
         if not isinstance(key, str) or \
                 not all(r.get("video") == key for r in records):

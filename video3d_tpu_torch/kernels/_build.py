@@ -64,6 +64,8 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "flash_attention_hd256": 0,
                             "flash_attention_folded_hd256": 0,
                             "decode_attention_hd256": 0,
+                            "paged_attention_hd256": 0,
+                            "shared_prefix_attention_hd256": 0,
                             # not a kernel of the port: the w8a8
                             # product's torch._int_mm calls on the card
                             "int_mm_w8a8": 0}
@@ -147,6 +149,14 @@ _SIGNATURES = {
     # split_keys, sm_scale, stream
     "v3d_attention_hd256": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, table, kv_len, out, workspace, layer, B, P,
+    # page, maxp, H, KV, splits, split_keys, sm_scale, stream
+    "v3d_attention_hd256_paged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, pk, pv, sk, sv, suffix_lens, out, workspace, B, L, P, H, KV,
+    # splits, split_keys, sm_scale, stream
+    "v3d_attention_hd256_shared_prefix": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                          _I, _I, _I, _I, _I, _I, _F, _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]

@@ -1,21 +1,27 @@
-"""Attention at head width 256 (Gemma's): the prefill form of B2, B2 folded
-and B3, on one hand-written kernel (``csrc/attention_hd256.cu``), with
-their plain PyTorch twins.
+"""Attention at head width 256 (Gemma's): the prefill form of B2, B2
+folded, B3, B7 and B5, on one hand-written kernel
+(``csrc/attention_hd256.cu``), with their plain PyTorch twins.
 
 The JAX package sends any ``hd % 128 == 0`` to its Pallas kernels
-(``video3d_tpu/kernels/attention.py:181``, ``:195``, ``:223``); the port's
-hd-128 kernels are compiled for 128 alone, so :func:`flash_attention`,
-:func:`flash_attention_gqa_folded` and :func:`decode_attention` of the
-port send a CUDA tensor of width 256 here. A CPU tensor never reaches
+(``video3d_tpu/kernels/attention.py:181``, ``:195``, ``:223``, ``:401``,
+and ``flash_attention.py:673`` for the shared prefix); the port's hd-128
+kernels are compiled for 128 alone, so :func:`flash_attention`,
+:func:`flash_attention_gqa_folded`, :func:`decode_attention`,
+:func:`paged_decode_attention` and :func:`flash_attention_shared_prefix` of
+the port send a CUDA tensor of width 256 here. A CPU tensor never reaches
 this module: those entries run their plain versions, which are these
-forms' twins (``mha_reference`` with each form's masks) and the oracle of
-the ``cuda`` tests. Only a bf16 cache has an hd-256 form; the quantized
-caches, B5, B7 and the training forms at hd 256 raise (ROADMAP B).
+forms' twins (``mha_reference`` with each form's masks,
+``paged_attention_plain``, ``mha_shared_prefix_reference``) and the oracle
+of the ``cuda`` tests. Only a bf16 cache has an hd-256 form; the quantized
+caches and the training forms at hd 256 raise (ROADMAP B).
 
 :func:`hd256_plan` (pure: shapes and the SM count) gives the grid: row
 tiles of 64 folded query rows per (batch row, kv head), and, where those
 do not fill the card, a split of the keys whose partials merge in a second
-kernel through the stream's f32 workspace (``_launch``).
+kernel through the stream's f32 workspace (``_launch``). The paged form's
+key axis is a slot's ``maxp * page`` positions (:func:`paged_plan`); the
+shared-prefix form's is the prefix padded to whole 64-key tiles, then the
+suffix (:func:`shared_prefix_plan`).
 """
 
 from __future__ import annotations
@@ -26,25 +32,35 @@ from dataclasses import dataclass
 import torch
 
 from video3d_tpu_torch.kernels import _build, _launch
+from video3d_tpu_torch.kernels.attention import (
+    mha_shared_prefix_reference as shared_prefix_hd256_plain)
 from video3d_tpu_torch.kernels.decode_attention import (
     decode_attention_plain as decode_hd256_plain)
 from video3d_tpu_torch.kernels.flash_attention import (
     flash_attention_gqa_folded_plain as folded_hd256_plain,
     flash_attention_plain as prefill_hd256_plain)
+from video3d_tpu_torch.kernels.paged_attention import (
+    paged_attention_plain as paged_hd256_plain)
 
 HEAD_DIM = 256
 ROWS = 64          # folded query rows per CTA (csrc kRows)
 KEYS = 64          # keys per tile (csrc kKeys)
 PART_FLOATS = HEAD_DIM + 2   # one split's O, m and l of a row
-#: the forms' C modes and launch-count names
+#: the C modes of ``v3d_attention_hd256``'s forms (the paged and
+#: shared-prefix forms have entries of their own) and every form's
+#: launch-count name
 MODES = {"prefill": 0, "folded": 1, "decode": 2}
 NAMES = {"prefill": "flash_attention_hd256",
          "folded": "flash_attention_folded_hd256",
-         "decode": "decode_attention_hd256"}
+         "decode": "decode_attention_hd256",
+         "paged": "paged_attention_hd256",
+         "shared_prefix": "shared_prefix_attention_hd256"}
 
-__all__ = ["HEAD_DIM", "Hd256Plan", "hd256_plan", "prefill_hd256",
-           "prefill_hd256_plain", "folded_hd256", "folded_hd256_plain",
-           "decode_hd256", "decode_hd256_plain"]
+__all__ = ["HEAD_DIM", "Hd256Plan", "hd256_plan", "paged_plan",
+           "shared_prefix_plan", "prefill_hd256", "prefill_hd256_plain",
+           "folded_hd256", "folded_hd256_plain", "decode_hd256",
+           "decode_hd256_plain", "paged_hd256", "paged_hd256_plain",
+           "shared_prefix_hd256", "shared_prefix_hd256_plain"]
 
 
 @dataclass(frozen=True)
@@ -73,7 +89,7 @@ class Hd256Plan:
 def hd256_plan(B: int, L: int, H: int, KV: int, S: int,
                sms: int) -> Hd256Plan:
     """A launch over B batch rows of L queries of H heads (KV kv heads)
-    against S key slots on ``sms`` SMs, one CTA per SM (its ~191 KiB of
+    against S key slots on ``sms`` SMs, one CTA per SM (its 192 KiB of
     shared memory allows no second): row tiles alone where they fill the
     card, else as many key splits as the SMs left per tile allow, no more
     than the key tiles, each split whole tiles (so none is empty by
@@ -88,16 +104,43 @@ def hd256_plan(B: int, L: int, H: int, KV: int, S: int,
                      per * KEYS)
 
 
+def paged_plan(B: int, H: int, KV: int, maxp: int, page: int,
+               sms: int) -> Hd256Plan:
+    """The paged form's grid: one query per slot against the slot's maxp *
+    page positions (a split past a slot's kv_len writes an empty
+    partial)."""
+    return hd256_plan(B, 1, H, KV, maxp * page, sms)
+
+
+def prefix_keys(P: int) -> int:
+    """The shared-prefix form's key slots before the suffix: the P prefix
+    keys padded to whole KEYS tiles, so no tile mixes prefix and
+    suffix."""
+    return -(-P // KEYS) * KEYS
+
+
+def shared_prefix_plan(B: int, L: int, H: int, KV: int, P: int,
+                       sms: int) -> Hd256Plan:
+    """The shared-prefix form's grid over its key axis: the padded prefix,
+    then the L suffix keys."""
+    return hd256_plan(B, L, H, KV, prefix_keys(P) + L, sms)
+
+
+def _check_bf16(name: str, device, **tensors) -> None:
+    """bf16, contiguous, 16-byte aligned tensors on ``device``."""
+    for arg, t in tensors.items():
+        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
+                or t.device != device or t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
+                             f"aligned bfloat16 tensor on {device} (no "
+                             f"quantized hd-256 form yet, ROADMAP B)")
+
+
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            kv_heads: int) -> None:
     """bf16, contiguous, 16-byte aligned tensors on q's device; q (B, L, H,
     256) and k / v (B, S, KV * 256) rows with H a multiple of KV."""
-    for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != q.device or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
-                             f"aligned bfloat16 tensor on {q.device} (no "
-                             f"quantized hd-256 form yet, ROADMAP B)")
+    _check_bf16(name, q.device, q=q, k=k, v=v)
     B, L, H, hd = q.shape
     if hd != HEAD_DIM or k.shape != v.shape or k.shape[0] != B \
             or k.shape[-1] != kv_heads * HEAD_DIM or H % kv_heads:
@@ -105,14 +148,23 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"k {tuple(k.shape)} kv_heads {kv_heads}")
 
 
+def _card(dev) -> tuple:
+    """(library, current stream, SM count) of a launch on ``dev``."""
+    return (_build.library(), torch.cuda.current_stream(dev).cuda_stream,
+            _launch.sm_count(dev.index or 0))
+
+
 def _on_card(form: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              lens: torch.Tensor, q_off, kv_heads: int) -> torch.Tensor:
     """One launch of ``form`` on q's device and current stream."""
-    dev = q.device
-    return _launch_form(_build.library(),
-                        torch.cuda.current_stream(dev).cuda_stream,
-                        _launch.sm_count(dev.index or 0), form, q, k, v,
-                        lens, q_off, kv_heads)
+    return _launch_form(*_card(q.device), form, q, k, v, lens, q_off,
+                        kv_heads)
+
+
+def _workspace(plan: Hd256Plan, dev, stream: int):
+    """The stream's f32 workspace where the plan splits the keys."""
+    return _launch.workspace(dev, stream, plan.workspace_bytes) \
+        if plan.splits > 1 else None
 
 
 def _launch_form(lib, stream: int, sms: int, form: str, q: torch.Tensor,
@@ -125,8 +177,7 @@ def _launch_form(lib, stream: int, sms: int, form: str, q: torch.Tensor,
     S = k.shape[1]
     dev = q.device
     plan = hd256_plan(B, L, H, kv_heads, S, sms)
-    ws = _launch.workspace(dev, stream, plan.workspace_bytes) \
-        if plan.splits > 1 else None
+    ws = _workspace(plan, dev, stream)
     lens = lens.to(device=dev, dtype=torch.int32).contiguous()
     if q_off is not None:
         q_off = q_off.to(device=dev, dtype=torch.int32).contiguous()
@@ -179,3 +230,103 @@ def decode_hd256(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     k, v = k_all[layer], v_all[layer]
     _check(NAMES["decode"], q, k, v, kv_heads)
     return _on_card("decode", q, k, v, kv_len, None, kv_heads)
+
+
+def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
+                v_pages: torch.Tensor, page_table: torch.Tensor,
+                kv_len: torch.Tensor, layer: int,
+                kv_heads: int) -> torch.Tensor:
+    """B7 at hd 256 on the card: q (B, 1, H, 256), the new token of slot b
+    at kv_len[b] - 1 attending its positions < kv_len[b] through
+    ``page_table`` (B, maxp) into ``layer`` of the stacked bf16 (layers,
+    P, page, KV * 256) pools; any page size. Twin:
+    :func:`paged_hd256_plain` (``paged_attention_plain``)."""
+    name = NAMES["paged"]
+    _check_bf16(name, q.device, q=q, k_pages=k_pages, v_pages=v_pages)
+    B, L, H, hd = q.shape
+    NL = k_pages.shape[0]
+    if (L != 1 or hd != HEAD_DIM or v_pages.shape != k_pages.shape
+            or k_pages.shape[-1] != kv_heads * HEAD_DIM or H % kv_heads
+            or not 0 <= layer < NL or page_table.dim() != 2
+            or page_table.shape[0] != B or page_table.shape[1] < 1
+            or kv_len.shape != (B,)):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"pools {tuple(k_pages.shape)} table "
+                         f"{tuple(page_table.shape)} layer {layer} kv_heads "
+                         f"{kv_heads}")
+    dev = q.device
+    table = page_table.to(device=dev, dtype=torch.int32).contiguous()
+    kv_len = kv_len.to(device=dev, dtype=torch.int32).contiguous()
+    return _launch_paged(*_card(dev), q, k_pages, v_pages, table, kv_len,
+                         layer, kv_heads)
+
+
+def _launch_paged(lib, stream: int, sms: int, q, k_pages, v_pages, table,
+                  kv_len, layer: int, kv_heads: int) -> torch.Tensor:
+    """Launch the paged form through ``lib`` on ``sms`` SMs: its plan over
+    maxp * page positions per slot and the stream's workspace; allocates
+    only the output and reads nothing of kv_len or the table on the
+    host."""
+    B, _, H, hd = q.shape
+    P, page = k_pages.shape[1], k_pages.shape[2]
+    maxp = table.shape[1]
+    plan = paged_plan(B, H, kv_heads, maxp, page, sms)
+    ws = _workspace(plan, q.device, stream)
+    out = torch.empty_like(q)
+    name = NAMES["paged"]
+    err = lib.v3d_attention_hd256_paged(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), layer, B, P, page, maxp, H,
+        kv_heads, plan.splits, plan.split_keys, float(hd ** -0.5), stream)
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out
+
+
+def shared_prefix_hd256(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
+                        sk: torch.Tensor, sv: torch.Tensor,
+                        suffix_lens: torch.Tensor) -> torch.Tensor:
+    """B5 at hd 256 on the card: q (B, L, H, 256), query r of row b at
+    position P + r, attending the whole bf16 (P, KV, 256) prefix (no batch
+    dim), then its row's own (B, L, KV, 256) suffix keys j <= r and j <
+    suffix_lens[b]; rows r >= suffix_lens[b] are undefined by contract.
+    Twin: :func:`shared_prefix_hd256_plain`
+    (``mha_shared_prefix_reference``)."""
+    name = NAMES["shared_prefix"]
+    _check_bf16(name, q.device, q=q, pk=pk, pv=pv, sk=sk, sv=sv)
+    B, L, H, hd = q.shape
+    P, KV = pk.shape[0], pk.shape[1]
+    if (hd != HEAD_DIM or pk.shape != (P, KV, HEAD_DIM)
+            or pv.shape != pk.shape or sk.shape != (B, L, KV, HEAD_DIM)
+            or sv.shape != sk.shape or H % KV
+            or suffix_lens.shape != (B,)):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"prefix {tuple(pk.shape)} suffix "
+                         f"{tuple(sk.shape)}")
+    suffix_lens = suffix_lens.to(device=q.device,
+                                 dtype=torch.int32).contiguous()
+    return _launch_shared_prefix(*_card(q.device), q, pk, pv, sk, sv,
+                                 suffix_lens)
+
+
+def _launch_shared_prefix(lib, stream: int, sms: int, q, pk, pv, sk, sv,
+                          suffix_lens) -> torch.Tensor:
+    """Launch the shared-prefix form through ``lib`` on ``sms`` SMs: its
+    plan over the padded prefix and the suffix and the stream's
+    workspace; allocates only the output and reads nothing of suffix_lens
+    on the host."""
+    B, L, H, hd = q.shape
+    P, KV = pk.shape[0], pk.shape[1]
+    plan = shared_prefix_plan(B, L, H, KV, P, sms)
+    ws = _workspace(plan, q.device, stream)
+    out = torch.empty_like(q)
+    name = NAMES["shared_prefix"]
+    err = lib.v3d_attention_hd256_shared_prefix(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk.data_ptr(),
+        sv.data_ptr(), suffix_lens.data_ptr(), out.data_ptr(),
+        0 if ws is None else ws.data_ptr(), B, L, P, H, KV, plan.splits,
+        plan.split_keys, float(hd ** -0.5), stream)
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out

@@ -163,11 +163,14 @@ def _weight_plan(w, rows: int, sms: int):
 def step_buffers(params, cfg, rows: int, cap: int,
                  sms: int) -> Tuple[int, int]:
     """(arrival counters, workspace bytes) one decode step of ``rows`` rows
-    over ``cap`` positions per row asks of its stream: the largest of the
-    plans of B3 / B7 (``decode_plan``; at head width 256 the hd-256
-    decode form's, ``hd256_plan``) and of the weight-streaming kernels at
-    every projection and the head (a MoE layer's expert stacks stay
-    dense)."""
+    over ``cap`` positions per row (a paged step: ``maxp * page``) asks of
+    its stream: the largest of the plans of B3 / B7 (``decode_plan``; at
+    head width 256 the hd-256 kernel's decode and paged forms, one plan
+    over ``cap`` keys: ``hd256.paged_plan`` is ``hd256_plan(rows, 1, H,
+    KV, maxp * page)``) and of the weight-streaming kernels at every
+    projection and the head (a MoE layer's expert stacks stay dense). The
+    plans read shapes alone, so a captured step allocates nothing and
+    reads no kv_len or page table on the host."""
     llm_cfg = cfg.llm
     plan = decode_plan(rows, llm_cfg.num_key_value_heads, cap, sms)
     counters, nbytes = plan.counters, plan.workspace_bytes

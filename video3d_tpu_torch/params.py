@@ -27,12 +27,13 @@ Params = Dict[str, Any]
 _USED = ("vision", "projector", "image_newline", "llm")
 _OPTIONAL = ("ground_head", "world_pe_mlp", "resampler")
 
-#: head widths the card's attention kernels take on each path: the dense
-#: bf16 answer path (B2, B2 folded, B3) at 128 and 256; every other form
-#: (the quantized caches, B5's shared prefix, B7's pages, B2 with the
-#: logsumexp and B6 for training) at 128 only (ROADMAP B, "hd-256 forms")
+#: head widths the card's attention kernels take on each path: over a bf16
+#: cache, the dense answer path (B2, B2 folded, B3), B5's shared prefix
+#: and B7's pages at 128 and 256; the quantized caches' forms, and B2 with
+#: the logsumexp and B6 for training, at 128 only (ROADMAP B, "hd-256
+#: forms")
 CARD_HEAD_DIMS = {"answer": (128, 256), "quantized_cache": (128,),
-                  "shared_prefix": (128,), "paged": (128,),
+                  "shared_prefix": (128, 256), "paged": (128, 256),
                   "training": (128,)}
 
 

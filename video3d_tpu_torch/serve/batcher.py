@@ -163,7 +163,8 @@ class ContinuousBatcher:
                  total_pages: Optional[int] = None,
                  share_prefix_pages: bool = True,
                  chunked_prefill: int = 0):
-        # paged decode has no ALiBi (JAX asserts) and no hd-256 form yet
+        # paged decode has no ALiBi (JAX asserts); its B7 forms take head
+        # widths 128 and 256 over a bf16 pool (params.CARD_HEAD_DIMS)
         check_card_path(engine.cfg, engine.device,
                         "paged" if paged else "answer")
         self.engine = engine
