@@ -437,6 +437,17 @@ KERNEL_INFO = {
     "shared_prefix_attention_hd256": (
         "video3d_tpu_torch/csrc/attention_hd256.cu",
         "video3d_tpu/kernels/flash_attention.py:503"),
+    **{f"{name}_hd256_int{bits}": (
+        "video3d_tpu_torch/csrc/attention_hd256.cu", replaces)
+       for bits in (8, 4)
+       for name, replaces in (
+           ("flash_attention_folded",
+            "video3d_tpu/kernels/flash_attention.py:64"),
+           ("decode_attention",
+            "video3d_tpu/kernels/decode_attention.py:68"),
+           ("paged_attention", "video3d_tpu/kernels/paged_attention.py:60"),
+           ("shared_prefix_attention",
+            "video3d_tpu/kernels/flash_attention.py:503"))},
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
 #: 4, 5 and 8
@@ -453,10 +464,15 @@ PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
                  "stream_probe_split")
 #: kernels of the training path (phase 7)
 TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
-#: the head-width-256 forms (their main path: phase 19's Gemma-2B)
+#: the head-width-256 forms (their main path: phase 19's Gemma-2B; the
+#: int8 and int4 forms under phase 19 (f))
 HD256_KERNELS = ("flash_attention_hd256", "flash_attention_folded_hd256",
                  "decode_attention_hd256", "paged_attention_hd256",
-                 "shared_prefix_attention_hd256")
+                 "shared_prefix_attention_hd256",
+                 *(f"{name}_hd256_int{bits}" for bits in (8, 4)
+                   for name in ("flash_attention_folded", "decode_attention",
+                                "paged_attention",
+                                "shared_prefix_attention")))
 MAX_NEW = 32          # answer budget of both main paths
 DECODE_STEPS = 8      # steps of the captured-vs-uncaptured chunks
 BF16_ATOL = 2e-2      # kernel against plain, bf16 outputs of magnitude < 4
@@ -1437,6 +1453,286 @@ def check_shared_prefix_hd256(dev):
     ), _prefix_bound(*args), _prefix_sdpa_ms(*args)
 
 
+def _hd256_quant_controls(plain, k8, v8, ks, vs, pos_dim: int,
+                          kv_dim: int, KV: int, bits: int) -> dict:
+    """The broken plain versions of a quantized hd-256 check, each
+    ``plain(k8, v8, ks, vs)`` with one part wrong: the scales one position
+    off, (KV > 1) the next kv head's scales, the value scales dropped,
+    (int4) the nibbles of each byte swapped."""
+    import torch
+
+    def rolled(dim):
+        return torch.roll(ks, 1, dims=dim), torch.roll(vs, 1, dims=dim)
+
+    controls = {"scales one position off": plain(k8, v8, *rolled(pos_dim)),
+                "the value scales dropped": plain(k8, v8, ks,
+                                                  torch.ones_like(vs))}
+    if KV > 1:
+        controls["the next kv head's scales"] = plain(k8, v8,
+                                                      *rolled(kv_dim))
+    if bits == 4:
+        controls["nibbles of each byte swapped"] = plain(
+            _nibbles_swapped(k8), _nibbles_swapped(v8), ks, vs)
+    return controls
+
+
+def check_folded_hd256_quant(dev, bits: int):
+    """B2 folded at hd 256 over an int8 (bits 8) or packed int4 (bits 4)
+    18-layer cache at the bf16 row's shapes (HD256_FOLDED: Gemma-2B's B=1
+    hit, and two rows with two kv heads), the chunk's own keys focused
+    before quantization, against its twin in f32 on the same quantized
+    values and scales; controls: the scale controls and the chunk's own
+    keys dropped; each case twice, bit for bit."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(26 if bits == 8 else 36)
+    NL, hd, S, layer = HD256_LAYERS, 256, 8224, HD256_LAYERS - 1
+    worst, timed = 0.0, None
+    for i, (L, offs, lens) in enumerate(HD256_FOLDED):
+        H, KV = HD256_HEADS if i == 0 else (8, 2)
+        B = len(offs)
+        q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+
+        def focus(j, x):       # the chunk's own keys, before quantization
+            if j == layer:
+                for b, (o, n) in enumerate(zip(offs, lens)):
+                    x[b, o:n, :, 0] += FOCUS
+
+        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, edit=focus,
+                             bits=bits)
+        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5,
+                             bits=bits)
+        offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, k8, v8, lens_t, offs_t, layer, KV, ks, vs)
+        rows = [n - o for o, n in zip(offs, lens)]
+        out = fa.flash_attention_gqa_folded(*args)
+        qf = q.float()
+
+        def plain(k_, v_, ks_, vs_, lens_=lens_t, offs_=offs_t):
+            return h256.folded_hd256_plain(qf, k_, v_, lens_, offs_, layer,
+                                           KV, ks_, vs_)
+        ref = plain(k8, v8, ks, vs)
+        err = _rows_err(out, ref, rows)
+        plain_err = _rows_err(h256.folded_hd256_plain(*args), ref, rows)
+        finite = bool(torch.isfinite(out.float()).all())
+        name = (f"B2 folded hd256 int{bits} B={B} L={L} KV={KV} "
+                f"offsets={offs}")
+        _check(name, err <= BF16_ATOL and finite,
+               f"max |d| {err:.2e} on rows below kv_len, finite={finite} "
+               f"(the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: fa.flash_attention_gqa_folded(*args), out)
+        controls = _hd256_quant_controls(plain, k8, v8, ks, vs, 2, 3, KV,
+                                         bits)
+        controls["the chunk's own keys dropped"] = plain(
+            k8, v8, ks, vs, offs_t, offs_t)
+        _check_controls(name, ref, rows, controls)
+        del controls
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+    return worst, (
+        _kernel_ms(lambda: fa.flash_attention_gqa_folded(*timed), 50),
+        _median_ms(lambda: h256.folded_hd256_plain(*timed), 10)
+    ), _folded_bound(*timed), None
+
+
+def check_decode_hd256_quant(dev, bits: int):
+    """B3 at hd 256 over an int8 / packed int4 18-layer cache of 8704
+    slots at the bf16 row's lengths (HD256_DECODE: one row of 6812, four
+    rows with two kv heads, fewer live positions than CTAs with a kv_len 0
+    row), the last 4 keys focused before quantization, against its twin in
+    f32 on the same quantized values; controls: the scale controls and the
+    4 focused keys dropped."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import decode_attention as da
+
+    g = torch.Generator(device=dev).manual_seed(27 if bits == 8 else 37)
+    NL, hd, S, layer = HD256_LAYERS, 256, 8704, HD256_LAYERS - 1
+    worst, timed = 0.0, None
+    for i, lens in enumerate(HD256_DECODE):
+        H, KV = HD256_HEADS if i != 1 else (8, 2)
+        B = len(lens)
+        q = Q_SCALE * torch.randn(B, 1, H, hd, generator=g, device=dev)
+        q[..., 0] += FOCUS
+        q = q.to(torch.bfloat16)
+
+        def focus(j, x):
+            if j == layer:
+                for b, n in enumerate(lens):
+                    x[b, max(n - 4, 0):n, :, 0] += FOCUS
+
+        k8, ks = _int8_cache(g, dev, (NL, B, S), KV, hd, edit=focus,
+                             bits=bits)
+        v8, vs = _int8_cache(g, dev, (NL, B, S), KV, hd, v_scale=0.5,
+                             bits=bits)
+        kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, k8, v8, kv_len, layer, KV, ks, vs)
+        out = da.decode_attention(*args)
+        qf = q.float()
+        live = [b for b, n in enumerate(lens) if n]
+
+        def plain(k_, v_, ks_, vs_, lens_=kv_len):
+            return h256.decode_hd256_plain(qf, k_, v_, lens_, layer, KV, ks_,
+                                           vs_)[live]
+        ref = plain(k8, v8, ks, vs)
+        err = float((out[live].float() - ref).abs().max())
+        plain_err = float((h256.decode_hd256_plain(*args)[live].float()
+                           - ref).abs().max())
+        zeros = all(bool((out[b] == 0).all())
+                    for b, n in enumerate(lens) if n == 0)
+        name = f"B3 hd256 int{bits} B={B} KV={KV} kv_len={lens}"
+        _check(name, err <= BF16_ATOL and zeros,
+               f"max |d| {err:.2e} over the live rows; kv_len 0 rows zero: "
+               f"{zeros} (the bf16 plain version: {plain_err:.2e})")
+        _check_repeat(name, lambda: da.decode_attention(*args), out)
+        controls = _hd256_quant_controls(plain, k8, v8, ks, vs, 2, 3, KV,
+                                         bits)
+        controls["the 4 focused keys dropped"] = plain(
+            k8, v8, ks, vs, (kv_len - 4).clamp(min=1))
+        _check_controls(name, ref, [1] * len(live), controls)
+        del controls
+        worst = max(worst, err)
+        if timed is None:
+            timed = args
+        else:
+            del k8, v8
+    q, k8, v8, kv_len, layer, KV, ks, vs = timed
+    H = HD256_HEADS[0]
+    n = int(kv_len[0])
+    row_bytes = k8.shape[-1] * k8.element_size()
+    # the layer's first kv_len quantized keys and values and their f32
+    # scales, the query and the output
+    bound = _bound(_attn(n, H, hd),
+                   2 * n * (row_bytes + KV * 4) + 2 * _nbytes(q))
+    return worst, (
+        _kernel_ms(lambda: da.decode_attention(*timed), 50),
+        _median_ms(lambda: h256.decode_hd256_plain(*timed), 10)
+    ), bound, None
+
+
+def check_paged_hd256_quant(dev, bits: int):
+    """B7 at hd 256 over int8 / packed int4 18-layer pools at the bf16
+    row's serving shape (8 slots of ~6.8k aliasing 52 prefix pages of 128,
+    a kv_len 0 slot, the last 16 keys of every slot focused before
+    quantization) at Gemma-2B's heads, against its twin in f32 on the same
+    values; controls: the scale controls, the two longest slots' page rows
+    swapped, each slot's last live page dropped; twice, bit for bit."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device=dev).manual_seed(28 if bits == 8 else 38)
+    args = _paged_inputs(g, dev, f"int{bits}", NL=HD256_LAYERS,
+                         heads=HD256_HEADS, hd=256)
+    q, k, v, table, kv_len, layer, KV, ks, vs = args
+    live = sum(-(-n // PAGED_PAGE) for n in PAGED_LENS)
+    name = (f"B7 hd256 int{bits} S={q.shape[0]} kv_len={PAGED_LENS} ({live} "
+            f"live pages over a pool of {k.shape[1]})")
+    out = pa.paged_decode_attention(*args)
+    qf = q.float()
+
+    def plain(k_, v_, ks_, vs_, table_=table, lens_=kv_len):
+        return h256.paged_hd256_plain(qf, k_, v_, table_, lens_, layer, KV,
+                                      ks_, vs_)
+    ref = plain(k, v, ks, vs)
+    rows = [1] * q.shape[0]
+    err = _rows_err(out, ref, rows)
+    plain_err = _rows_err(h256.paged_hd256_plain(*args), ref, rows)
+    finite = bool(torch.isfinite(out.float()).all())
+    zero = bool((out[PAGED_LENS.index(0)] == 0).all())
+    _check(name, err <= BF16_ATOL and finite and zero,
+           f"max |d| {err:.2e}, finite={finite}, kv_len 0 slot zero={zero} "
+           f"(the bf16 plain version: {plain_err:.2e})")
+    _check_repeat(name, lambda: pa.paged_decode_attention(*args), out)
+    a, b = sorted(range(len(PAGED_LENS)), key=PAGED_LENS.__getitem__)[-2:]
+    swapped = table.clone()
+    swapped[[a, b]] = table[[b, a]]
+    last_page = ((kv_len - 1).clamp(min=0) // PAGED_PAGE) * PAGED_PAGE
+    controls = _hd256_quant_controls(plain, k, v, ks, vs, -1, 2, KV, bits)
+    controls["the two longest slots' page rows swapped"] = plain(
+        k, v, ks, vs, swapped)
+    controls["each slot's last live page dropped"] = plain(
+        k, v, ks, vs, table, last_page)
+    _check_controls(name, ref, rows, controls)
+    del controls
+    bound = _paged_bound(*args)
+    _print_paged_bytes(bound, k, KV, ks)
+    return err, (
+        _kernel_ms(lambda: pa.paged_decode_attention(*args), 50),
+        _median_ms(lambda: h256.paged_hd256_plain(*args), 5)
+    ), bound, None
+
+
+def check_shared_prefix_hd256_quant(dev, bits: int):
+    """B5 at hd 256 over an int8 / packed int4 prefix at the bf16 row's
+    B=8 suffix-batch shape (64-token bucket, a 6716-token prefix, ragged
+    suffix lengths) at Gemma-2B's heads, the first prefix tile focused
+    before quantization and the bf16 suffix focused, against its twin in
+    f32 on the same values; controls: the scale controls and the first
+    prefix tile skipped; twice, bit for bit."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(29 if bits == 8 else 39)
+    (H, KV), hd, L = HD256_HEADS, 256, 64
+    P, slens = PREFIX_CASES[0]
+    B = len(slens)
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.to(torch.bfloat16)
+
+    def focus(_, x):
+        x[:64, :, 0] += FOCUS
+
+    pk8, pks = _int8_cache(g, dev, (1, P), KV, hd, edit=focus, bits=bits)
+    pv8, pvs = _int8_cache(g, dev, (1, P), KV, hd, v_scale=0.5, bits=bits)
+    pk8, pks, pv8, pvs = (t[0].reshape(P, KV, -1)
+                          for t in (pk8, pks, pv8, pvs))
+    sk = torch.randn(B, L, KV, hd, generator=g, device=dev)
+    sk[..., 0] += FOCUS
+    sk = sk.to(torch.bfloat16)
+    sv = (0.5 * torch.randn(B, L, KV, hd, generator=g,
+                            device=dev)).to(torch.bfloat16)
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    args = (q, pk8, pv8, sk, sv, slens_t, pks, pvs)
+    out = fa.flash_attention_shared_prefix(*args)
+    qf = q.float()
+
+    def plain(k_, v_, ks_, vs_):
+        return h256.shared_prefix_hd256_plain(qf, k_, v_, sk, sv, slens_t,
+                                              ks_, vs_)
+    ref = plain(pk8, pv8, pks, pvs)
+    err = _rows_err(out, ref, slens)
+    plain_err = _rows_err(h256.shared_prefix_hd256_plain(*args), ref, slens)
+    finite = bool(torch.isfinite(out.float()).all())
+    name = f"B5 hd256 int{bits} B={B} L={L} P={P} suffix_lens={slens}"
+    _check(name, err <= BF16_ATOL and finite,
+           f"max |d| {err:.2e} on rows below suffix_lens, finite={finite} "
+           f"(the bf16 plain version: {plain_err:.2e})")
+    _check_repeat(name, lambda: fa.flash_attention_shared_prefix(*args), out)
+    controls = _hd256_quant_controls(plain, pk8, pv8, pks, pvs, 0, 1, KV,
+                                     bits)
+    controls["first prefix tile skipped"] = plain(pk8[64:], pv8[64:],
+                                                  pks[64:], pvs[64:])
+    _check_controls(name, ref, slens, controls)
+    del controls
+    return err, (
+        _kernel_ms(lambda: fa.flash_attention_shared_prefix(*args), 10),
+        _median_ms(lambda: h256.shared_prefix_hd256_plain(*args), 3)
+    ), _prefix_bound(*args), None
+
+
 def check_shared_prefix(dev):
     """B5 at the B=8 suffix-batch shape (64-token bucket, ~6716-token
     prefix, ragged suffix lengths), and the other PREFIX_CASES; controls:
@@ -2386,7 +2682,17 @@ def check_kernels():
                      ("decode_attention_hd256", check_decode_hd256),
                      ("paged_attention_hd256", check_paged_hd256),
                      ("shared_prefix_attention_hd256",
-                      check_shared_prefix_hd256)):
+                      check_shared_prefix_hd256),
+                     *((f"{form}_hd256_int{bits}",
+                        lambda d, c=check, b=bits: c(d, b))
+                       for bits in (8, 4)
+                       for form, check in (
+                           ("flash_attention_folded",
+                            check_folded_hd256_quant),
+                           ("decode_attention", check_decode_hd256_quant),
+                           ("paged_attention", check_paged_hd256_quant),
+                           ("shared_prefix_attention",
+                            check_shared_prefix_hd256_quant)))):
         print(f"{name}:", flush=True)
         err, (ms, plain_ms), bound, library_ms = fn(dev)
         flushed = None
@@ -5194,11 +5500,12 @@ def _check_int4_decode_step(params, cfg, engine, prep) -> None:
 
 
 @contextlib.contextmanager
-def _plain_int4_forms(roll: int = 0):
-    """Swap the four int4-cache wrappers (B3, B2 folded, B5, B7) for their
-    plain versions run in f32 on the same packed values, output in q's
-    dtype, with the scales rolled ``roll`` positions along the positions
-    (a control when non-zero); other cache forms keep their kernels."""
+def _plain_quant_forms(roll: int = 0, storage: str = "uint8"):
+    """Swap the four quantized-cache wrappers (B3, B2 folded, B5, B7) of
+    one storage (``uint8``: the int4 cache; ``int8``) for their plain
+    versions run in f32 on the same quantized values, output in q's dtype,
+    with the scales rolled ``roll`` positions along the positions (a
+    control when non-zero); other cache forms keep their kernels."""
     import torch
 
     from video3d_tpu_torch.kernels import decode_attention as da
@@ -5207,6 +5514,8 @@ def _plain_int4_forms(roll: int = 0):
     from video3d_tpu_torch.kernels.attention import \
         mha_shared_prefix_reference
 
+    dtype = getattr(torch, storage)
+
     def rolled(scale, dim):
         return torch.roll(scale, roll, dims=dim)
 
@@ -5214,7 +5523,7 @@ def _plain_int4_forms(roll: int = 0):
         kernel = getattr(module, name)
 
         def fn(q, k, v, *args, **kwargs):
-            if k.dtype != torch.uint8:
+            if k.dtype != dtype:
                 return kernel(q, k, v, *args, **kwargs)
             # the plain version takes the wrapper's arguments, the two
             # scales last
@@ -5238,21 +5547,28 @@ def _plain_int4_forms(roll: int = 0):
             setattr(module, name, kernel)
 
 
-def _check_int4_cache_suffix(params, cfg, engine, prep, hit_q) -> None:
-    """Phase 10: the first-step logits of the prepared B=8 suffix batch and
-    of the B=1 hit over the int4 prefix, through the kernels, against the
-    same first step with the int4 forms' plain versions swapped in (f32);
-    within INT4_CACHE_LOGIT_ATOL, and the control (the plain versions
-    reading the scales one position off) at least twice that."""
+def _check_quant_cache_steps(params, cfg, engine, prep, hit_q,
+                             atol: float, kv: str = "int4",
+                             decode_step: bool = False,
+                             label: str = "") -> None:
+    """The first-step logits of the prepared B=8 suffix batch and of the
+    B=1 hit over the quantized prefix (``decode_step``: also the logits
+    after one decode step from each), through the kernels, against the
+    same steps with the ``kv`` cache's forms' plain versions swapped in
+    (f32); within ``atol``, and the control (the plain versions reading
+    the scales one position off) at least twice that. Phase 10 (int4
+    cache) and phase 19 (f)."""
     import torch
 
     from video3d_tpu_torch.models import generate as gen
 
+    storage = "uint8" if kv == "int4" else "int8"
+    eos = engine.ecfg.eos_token_id
     hit = engine.prepare_request(hit_q)
-    _check("the B=1 question hits the int4 prefix", hit["mode"] == "prefix",
-           f"mode {hit['mode']}")
+    _check(f"{label}the B=1 question hits the {kv} prefix",
+           hit["mode"] == "prefix", f"mode {hit['mode']}")
 
-    def first_steps():
+    def steps():
         out = []
         for p in (prep, hit):
             entry = p["entry"]
@@ -5260,27 +5576,38 @@ def _check_int4_cache_suffix(params, cfg, engine, prep, hit_q) -> None:
                 state = gen.start_decode_prefix(
                     params, cfg, p["batch"], entry.cache, entry.prefix_len,
                     p["bucket"] + MAX_NEW, engine.cache_dtype)
-            out.append(state.next_logits.float())
+                out.append(state.next_logits.float())
+                if decode_step:
+                    state, _ = gen.decode_chunk(params, cfg, state, 1, eos,
+                                                capture=False)
+                    out.append(state.next_logits.float())
             del state
             torch.cuda.empty_cache()
         return out
 
-    got = first_steps()
-    with _plain_int4_forms():
-        ref = first_steps()
-    with _plain_int4_forms(roll=1):
-        ctl = first_steps()
-    diff = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+    got = steps()
+    with _plain_quant_forms(storage=storage):
+        ref = steps()
+    with _plain_quant_forms(roll=1, storage=storage):
+        ctl = steps()
+    diffs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    diff = max(diffs)
     control = max(float((a - b).abs().max()) for a, b in zip(ctl, ref))
     finite = all(bool(torch.isfinite(a).all()) for a in got)
-    _check(f"first-step logits over the int4 prefix, kernels vs their plain "
-           f"versions in f32 (B={got[0].shape[0]} suffix rows, B=1 hit)",
-           diff <= INT4_CACHE_LOGIT_ATOL and finite,
-           f"max |d| {diff:.4f} (bound {INT4_CACHE_LOGIT_ATOL}; |logits| up "
-           f"to {max(float(a.abs().max()) for a in ref):.2f})")
-    _check("first-step logits control, plain versions with the scales one "
-           "position off", control >= 2 * INT4_CACHE_LOGIT_ATOL,
-           f"max |d| {control:.4f} (must be >= {2 * INT4_CACHE_LOGIT_ATOL})")
+    what = "first-step and first-decode-step" if decode_step \
+        else "first-step"
+    parts = ("B=8 first step", "B=8 decode step", "hit first step",
+             "hit decode step") if decode_step else ("B=8", "hit")
+    _check(f"{label}{what} logits over the {kv} prefix, kernels vs their "
+           f"plain versions in f32 (B={got[0].shape[0]} suffix rows, B=1 "
+           f"hit)", diff <= atol and finite,
+           f"max |d| {diff:.4f} ("
+           + ", ".join(f"{n} {d:.4f}" for n, d in zip(parts, diffs))
+           + f"; bound {atol}; |logits| up to "
+           f"{max(float(a.abs().max()) for a in ref):.2f})")
+    _check(f"{label}{what} logits control, plain versions with the scales "
+           f"one position off", control >= 2 * atol,
+           f"max |d| {control:.4f} (must be >= {2 * atol})")
 
 
 def run_int4_cache_paths(params, cfg, root: str, infos) -> dict:
@@ -5293,8 +5620,8 @@ def run_int4_cache_paths(params, cfg, root: str, infos) -> dict:
     print("int4-cache scene-prefix path:", flush=True)
     prefix = run_prefix_path(
         params, cfg, root, infos[0], kv_cache_dtype="int4", logit_atol=None,
-        step_check=lambda engine, prep, hit_q: _check_int4_cache_suffix(
-            params, cfg, engine, prep, hit_q))
+        step_check=lambda engine, prep, hit_q: _check_quant_cache_steps(
+            params, cfg, engine, prep, hit_q, INT4_CACHE_LOGIT_ATOL))
     print(f"  launches (int4-cache scene-prefix path): {prefix}", flush=True)
     print("int4-cache serving path:", flush=True)
     serve = run_serving(params, cfg, root, infos, kv_cache_dtype="int4")
@@ -7846,7 +8173,9 @@ def _family_config(hf: dict, layers: Optional[int] = None):
     return cfg
 
 
-def _family_model(name: str, cfg, seed: int):
+def _family_model(name: str, cfg, seed: int, bits: int = 16):
+    """Seeded random weights of ``cfg`` on the card, in bf16 or (bits 8)
+    with int8 LLM projections and lm_head."""
     import torch
 
     from video3d_tpu_torch.params import init_model
@@ -7856,30 +8185,34 @@ def _family_model(name: str, cfg, seed: int):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_model(cfg, dev, torch.Generator(device=dev)
-                        .manual_seed(seed), torch.bfloat16)
+                        .manual_seed(seed), torch.bfloat16, bits=bits)
     torch.cuda.synchronize()
     n = sum(t.numel() for t in _leaves(params))
+    form = "bf16" if bits == 16 else f"int{bits} / bf16"
     print(f"  {name}: {cfg.llm.num_hidden_layers} decoder layers, "
-          f"{n / 1e9:.3f} B bf16 parameters drawn on the card in "
+          f"{n / 1e9:.3f} B {form} parameters drawn on the card in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return params
 
 
 def _family_answers(name: str, params, cfg, root: str, info, total: dict,
-                    hit: bool = True, frames: int = 32):
-    """One question through a prefix-caching engine: the miss (full
+                    hit: bool = True, frames: int = 32,
+                    hit_tie: Optional[float] = CROSS_TIE, **ecfg):
+    """One question through a prefix-caching engine (``ecfg``: more of its
+    EngineConfig, such as a quantized ``kv_cache_dtype``): the miss (full
     prefill, the prefix stored) and, with ``hit``, the same question again
-    over the stored prefix; the hit's ids equal the miss's up to a near-tie.
-    Adds the answers' launches into ``total``; then prints the B=1 prefill
-    ms, the captured decode ms/token and the peak memory. Returns (the
-    launch delta, the engine)."""
+    over the stored prefix; the hit's ids equal the miss's up to a
+    near-tie within ``hit_tie`` (None: the first difference is printed,
+    not held). Adds the answers' launches into ``total``; then prints the
+    B=1 prefill ms, the captured decode ms/token over the engine's cache
+    and the peak memory. Returns (the launch delta, the engine)."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
     from video3d_tpu_torch.models import generate as gen
 
     engine = _make_engine(params, cfg, root, frames=frames,
-                          prefix_cache_scenes=1)
+                          prefix_cache_scenes=1, **ecfg)
     q = _questions(info["sample_idx"], SCANQA_TEXTS[:1], name)[0]
     eos = engine.ecfg.eos_token_id
     before = dict(_build.LAUNCHES)
@@ -7899,9 +8232,14 @@ def _family_answers(name: str, params, cfg, root: str, info, total: dict,
            f"{len(texts)} answers, prefix cache [hits, misses] {stats}; "
            f"miss {t_miss:.2f} s")
     ids = [_with_eos(d, eos, MAX_NEW) for d in engine.decoded]
-    if hit:
+    if hit and hit_tie is not None:
         _near_tie_check(f"{name}: hit ids vs miss ids", params, cfg, engine,
-                        q, ids[0], ids[1], CROSS_TIE)
+                        q, ids[0], ids[1], hit_tie)
+    elif hit:
+        m = _first_mismatch(ids[0], ids[1])
+        print(f"  {name}: hit ids vs miss ids (not held): "
+              + ("equal" if m is None else f"first differ at {m}"),
+              flush=True)
     batch, vf = engine._prepare_generation(q)
     max_len = batch.text_ids.shape[1] + MAX_NEW
     with torch.inference_mode():
@@ -7910,7 +8248,8 @@ def _family_answers(name: str, params, cfg, root: str, info, total: dict,
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state = gen.start_decode(params, cfg, batch, max_len,
-                                     vision_features=vf)
+                                     vision_features=vf,
+                                     cache_dtype=engine.cache_dtype)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
     t0 = time.perf_counter()
@@ -8005,31 +8344,71 @@ GEMMA_SERVE_WAVES = ((0, 8), (1, 7), (0, 1))
 GEMMA_BATCH = 8
 
 
-def _gemma_batched_answers(params, cfg, root: str, info, total: dict):
+def _quant_tie(params, cfg, engine, qs, hits) -> float:
+    """The near-tie bound of two paths over a quantized cache that may
+    quantize different keys: a B=8 suffix attends its own raw K/V and a
+    B=1 hit the suffix as written to the cache; a miss attends raw K/V
+    throughout, a hit the prefix as stored (which request of a batcher's
+    wave misses is up to its threads). Twice the largest first-step
+    distance between the B=1 hits' logits (``hits``) and a full prefill's
+    of the same questions, measured here, and at least CROSS_TIE."""
+    import torch
+
+    from video3d_tpu_torch.models import generate as gen
+
+    dist = 0.0
+    for q, h in zip(qs, hits):
+        batch, vis = engine._prepare_generation(q)
+        with torch.inference_mode():
+            full, _, _ = gen.prefill_multimodal(
+                params, cfg, batch, batch.text_ids.shape[1] + MAX_NEW,
+                vision_features=vis, cache_dtype=engine.cache_dtype)
+        dist = max(dist, float((h[0] - full[0].float()).abs().max()))
+    tie = max(CROSS_TIE, 2 * dist)
+    print(f"  the B=1 hits' first steps over the {engine.ecfg.kv_cache_dtype}"
+          f" prefix lie up to {dist:.4f} from full prefills of the same "
+          f"questions: near-tie bound {tie:.4f} across paths", flush=True)
+    return tie
+
+
+def _gemma_batched_answers(params, cfg, root: str, info, total: dict,
+                           kv: str = "bfloat16",
+                           logit_atol: Optional[float] = None) -> float:
     """A miss stores the scene prefix; ``prepare_answers_batch_prefix``
     then takes the next GEMMA_BATCH questions as one suffix batch over it
-    (B5 at hd 256 in every layer); its launches go into ``total``. Row 0's
-    first-step logits within LOGIT_ATOL of a full prefill (control: one
-    position early); every answer's ids those of a B=1 full prefill of its
-    question, up to a near-tie."""
+    (B5 at hd 256 in every layer, over the ``kv`` cache's prefix); its
+    launches go into ``total``. A bf16 cache: row 0's first-step logits
+    within LOGIT_ATOL of a full prefill (control: one position early), and
+    every answer's ids those of a B=1 full prefill of its question, up to
+    a near-tie. A quantized cache (phase 19 (f)): the first-step logits of
+    the batch and of a B=1 hit, and one decode step from each, within
+    ``logit_atol`` of the same steps with the quantized forms' twins
+    swapped in (control: the scales one position off), and every answer's
+    ids those of the question asked alone over the same cached prefix (a
+    B=1 hit), up to a near-tie (int8: CROSS_TIE; int4: ``_quant_tie``'s
+    measured bound). Returns the near-tie bound used."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
 
+    sfx = "" if kv == "bfloat16" else f"_{kv}"
+    tag = f"gemma{sfx}"
     engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
-                          scene_cache_scenes=1)
-    full = _make_engine(params, cfg, root, scene_cache_scenes=1)
+                          scene_cache_scenes=1, kv_cache_dtype=kv)
     qs = _questions(info["sample_idx"], PREFIX_TEXTS[:GEMMA_BATCH + 1],
-                    "gemma_batch")
+                    f"gemma_batch{sfx}")
+    full = None if sfx else _make_engine(params, cfg, root,
+                                         scene_cache_scenes=1)
     for e in (engine, full):
-        for q in qs:
-            e._tokenize_prompt(q)
+        if e is not None:
+            for q in qs:
+                e._tokenize_prompt(q)
     engine.generate_answer(qs[0])
     before = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prep = engine.prepare_answers_batch_prefix(qs[1:])
-    _check("gemma: the batched answers take the prefix path",
+    _check(f"{tag}: the batched answers take the prefix path",
            prep is not None and prep["mode"] == "prefix_batch",
            f"prepare_answers_batch_prefix -> "
            f"{None if prep is None else prep['mode']}")
@@ -8041,50 +8420,70 @@ def _gemma_batched_answers(params, cfg, root: str, info, total: dict):
     L = cfg.llm.num_hidden_layers
     forwards = _forwards(engine.results[-1])
     attn = {k: v for k, v in delta.items() if v and "attention" in k}
-    want = {"shared_prefix_attention_hd256": L,
-            "decode_attention_hd256": L * forwards}
-    _check("gemma: the batched answers' attention launches", attn == want,
+    want = {f"shared_prefix_attention_hd256{sfx}": L,
+            f"decode_attention_hd256{sfx}": L * forwards}
+    _check(f"{tag}: the batched answers' attention launches", attn == want,
            f"{attn}, expected {want} ({forwards} decode forwards)")
-    got = engine.first_logits[-1][0]
-    ref, early, _ = _full_prefill_logits(params, cfg, engine, qs[1])
-    diff = float((got - ref).abs().max())
-    control = float((got - early).abs().max())
-    _check("gemma: B=8 row 0's first-step logits vs full prefill",
-           diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
-           f"max |d| {diff:.4f} (bound {LOGIT_ATOL}; |logits| up to "
-           f"{float(ref.abs().max()):.2f})")
-    _check("gemma: first-step logits control, one position early",
-           control >= 2 * LOGIT_ATOL,
-           f"max |d| {control:.4f} (must be >= {2 * LOGIT_ATOL})")
     eos = engine.ecfg.eos_token_id
     batch_ids = [_with_eos(d, eos, MAX_NEW)
                  for d in engine.decoded[-GEMMA_BATCH:]]
-    for q in qs[1:]:
-        full.generate_answer(q)
-    full_ids = [_with_eos(d, eos, MAX_NEW) for d in full.decoded]
+    if sfx:
+        _check_quant_cache_steps(params, cfg, engine, prep, qs[1],
+                                 logit_atol, kv, decode_step=True,
+                                 label=f"{tag}: ")
+        ref = engine
+        for q in qs[1:]:
+            engine.generate_answer(q)          # B=1 hits, one at a time
+        ref_ids = [_with_eos(d, eos, MAX_NEW)
+                   for d in engine.decoded[-GEMMA_BATCH:]]
+        tie = CROSS_TIE if kv == "int8" else _quant_tie(
+            params, cfg, engine, qs[1:], engine.first_logits[-GEMMA_BATCH:])
+        what = "a B=1 hit"
+    else:
+        got = engine.first_logits[-1][0]
+        ref_logits, early, _ = _full_prefill_logits(params, cfg, engine,
+                                                    qs[1])
+        diff = float((got - ref_logits).abs().max())
+        control = float((got - early).abs().max())
+        _check("gemma: B=8 row 0's first-step logits vs full prefill",
+               diff <= LOGIT_ATOL and bool(torch.isfinite(got).all()),
+               f"max |d| {diff:.4f} (bound {LOGIT_ATOL}; |logits| up to "
+               f"{float(ref_logits.abs().max()):.2f})")
+        _check("gemma: first-step logits control, one position early",
+               control >= 2 * LOGIT_ATOL,
+               f"max |d| {control:.4f} (must be >= {2 * LOGIT_ATOL})")
+        ref = full
+        for q in qs[1:]:
+            full.generate_answer(q)
+        ref_ids = [_with_eos(d, eos, MAX_NEW) for d in full.decoded]
+        what = "a full prefill"
+        tie = CROSS_TIE
     equal = sum(_near_tie_check(
-        f"gemma: batched answer {i} ids vs a full prefill", params, cfg,
-        full, q, want_ids, got_ids, CROSS_TIE)
-        for i, (q, want_ids, got_ids) in enumerate(zip(qs[1:], full_ids,
+        f"{tag}: batched answer {i} ids vs {what}", params, cfg, ref, q,
+        want_ids, got_ids, tie)
+        for i, (q, want_ids, got_ids) in enumerate(zip(qs[1:], ref_ids,
                                                       batch_ids)))
-    print(f"  gemma: B={GEMMA_BATCH} suffix batch over a "
+    print(f"  {tag}: B={GEMMA_BATCH} suffix batch over a "
           f"{prep['entry'].prefix_len}-token prefix: {wall / GEMMA_BATCH:.4f}"
           f" s per question (prep included); {equal} of {GEMMA_BATCH} "
-          f"answers equal to a full prefill's", flush=True)
+          f"answers equal to {what}'s", flush=True)
+    return tie
 
 
-def _gemma_serve(params, cfg, root: str, scenes, paged: bool):
+def _gemma_serve(params, cfg, root: str, scenes, paged: bool,
+                 kv: str = "bfloat16"):
     """GEMMA_SERVE_WAVES through an 8-slot batcher (paged: pages of
     SERVE_PAGE with shared prefix pages, timed; else dense rows) on an
-    engine caching one scene's prefix: (engine, batcher, handles, chunk
-    log, launch delta, wall)."""
+    engine caching one scene's prefix, over the ``kv`` cache (pools of
+    that dtype): (engine, batcher, handles, chunk log, launch delta,
+    wall)."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
     from video3d_tpu_torch.serve import batcher as sb
 
     engine = _make_engine(params, cfg, root, prefix_cache_scenes=1,
-                          scene_cache_scenes=1)
+                          scene_cache_scenes=1, kv_cache_dtype=kv)
     for s, n in GEMMA_SERVE_WAVES:
         for q in scenes[s][:n]:
             engine._tokenize_prompt(q)
@@ -8114,26 +8513,32 @@ def _gemma_serve(params, cfg, root: str, scenes, paged: bool):
     return engine, batcher, handles, log, delta, wall
 
 
-def _gemma_paged_batcher(params, cfg, root: str, infos, total: dict):
+def _gemma_paged_batcher(params, cfg, root: str, infos, total: dict,
+                         kv: str = "bfloat16", tie: float = CROSS_TIE):
     """The paged batcher at 8 slots over two scenes (prefix pages aliased
-    by every hit of a wave): B7 at hd 256 in every decode step, eager
-    (each graph key's first chunk) and captured; its launches go into
-    ``total``. Every page comes back; every answer's ids the dense
-    batcher's on the same requests, up to a near-tie; the first paged step
+    by every hit of a wave) over pools of the ``kv`` cache's dtype: B7 at
+    hd 256 (its int8 / int4 form) in every decode step, eager (each graph
+    key's first chunk) and captured; its launches go into ``total``. Every
+    page comes back; every answer's ids the dense batcher's on the same
+    requests, up to a near-tie within ``tie``; the first paged step
     against the dense step (phase 8's check, captured against eager)."""
+    sfx = "" if kv == "bfloat16" else f"_{kv}"
+    tag = f"gemma{sfx}"
     scenes = [_questions(info["sample_idx"], PREFIX_TEXTS[:8],
-                         f"gemma_serve{i}_") for i, info in enumerate(infos)]
+                         f"gemma_serve{sfx}{i}_")
+              for i, info in enumerate(infos)]
     engine, batcher, handles, log, delta, wall = _gemma_serve(
-        params, cfg, root, scenes, paged=True)
+        params, cfg, root, scenes, paged=True, kv=kv)
     _add_launches(total, delta)
     free = batcher._alloc.available
-    _check("gemma: every page back after the last eviction",
+    _check(f"{tag}: every page back after the last eviction",
            not batcher._shared and free == batcher.total_pages - 1,
            f"available {free} of {batcher.total_pages - 1}, shared entries "
            f"{len(batcher._shared)}")
     misses = len(GEMMA_SERVE_WAVES)
     hits = sum(n for _, n in GEMMA_SERVE_WAVES) - misses
-    _check("gemma: prefix sharing", batcher.prefix_share_stats == [hits, 2]
+    _check(f"{tag}: prefix sharing",
+           batcher.prefix_share_stats == [hits, 2]
            and engine.prefix_cache_stats == [hits, misses],
            f"batcher [shared admissions, creations] "
            f"{batcher.prefix_share_stats}, engine [hits, misses] "
@@ -8141,30 +8546,73 @@ def _gemma_paged_batcher(params, cfg, root: str, infos, total: dict):
     L = cfg.llm.num_hidden_layers
     steps = SERVE_CHUNK * len(log["chunks"])
     attn = {k: v for k, v in delta.items() if v and "attention" in k}
-    want = {"paged_attention_hd256": L * steps,
+    want = {f"paged_attention_hd256{sfx}": L * steps,
             "flash_attention_hd256": L * misses,
-            "flash_attention_folded_hd256": L * hits}
-    _check("gemma: the paged batcher's attention launches", attn == want,
+            f"flash_attention_folded_hd256{sfx}": L * hits}
+    _check(f"{tag}: the paged batcher's attention launches", attn == want,
            f"{attn}, expected {want} ({steps} decode steps)")
     _, _, dense, _, _, _ = _gemma_serve(params, cfg, root, scenes,
-                                        paged=False)
+                                        paged=False, kv=kv)
     eos = engine.ecfg.eos_token_id
     qs = [q for s, n in GEMMA_SERVE_WAVES for q in scenes[s][:n]]
     equal = sum(_near_tie_check(
-        f"gemma: paged request {i} ids vs dense", params, cfg, engine, q,
+        f"{tag}: paged request {i} ids vs dense", params, cfg, engine, q,
         _with_eos(d.tokens, eos, budget), _with_eos(h.tokens, eos, budget),
-        CROSS_TIE)
+        tie)
         for i, (q, (budget, h, _), (_, d, _)) in enumerate(zip(qs, handles,
                                                               dense)))
     tokens = sum(len(h.tokens) for _, h, _ in handles)
     chunks = sorted(log["chunks"])
     ms_chunk = chunks[len(chunks) // 2]
-    print(f"  gemma: paged batcher, {len(handles)} requests, {tokens} output "
+    print(f"  {tag}: paged batcher, {len(handles)} requests, {tokens} output "
           f"tokens in {wall:.3f} s = {tokens / wall:.1f} tokens/s over "
           f"{SERVE_SLOTS} slots; median {ms_chunk / SERVE_CHUNK:.2f} ms per "
           f"step over {len(chunks)} chunks; {equal} of {len(handles)} "
           f"answers equal to the dense batcher's; {_card()}", flush=True)
     _check_paged_vs_dense(params, cfg, engine, scenes[0][:2], scenes[1][0])
+
+
+# phase 19 (f): Gemma-2B over quantized caches, each in the configuration
+# the repo serves Qwen2 with that cache: (weight bits, kv cache dtype):
+# phase 10's int4 cache over bf16 weights (phase 10 runs it over int4
+# weights), phase 6's int8 weights and int8 cache
+GEMMA_QUANT = ((16, "int4"), (8, "int8"))
+# Its first steps (and one decode step) through the hd-256 kernels against
+# the same steps with their plain versions in f32 swapped in. The kernel
+# rounds p x value scale to bf16 before its PV product, as the TPU kernel
+# does, and its output once; over 18 layers that moved Gemma-2B's logits
+# (|logits| up to 8.9) by 0.25-0.30 over either cache on an H100 80GB HBM3
+# (700 W), above phase 10's 0.25 (measured on Qwen2's hd-128 kernels), so
+# both caches are held to phase 6's bound; the control (the scales one
+# position off) read 11.2-12.8, and must read twice the bound
+GEMMA_QUANT_LOGIT_ATOL = INT8_LOGIT_ATOL
+
+
+def _gemma_quantized(params, cfg, root: str, infos, total: dict,
+                     kv: str) -> None:
+    """Phase 19 (f), one configuration: Gemma-2B's answer (a miss, then a
+    prefix hit, captured decode), the B=8 batched answers and the paged
+    batcher against the dense one, over the ``kv`` cache: every attention
+    launch on the quantized hd-256 forms (the misses' prefill on B2's
+    bf16 form), counted exactly. Ids across paths are held to CROSS_TIE
+    over an int8 cache; over an int4 cache, where paths that quantize
+    different keys differ by more, to ``_quant_tie``'s measured bound (the
+    hit's ids against its miss's are printed: that bound is measured after
+    them)."""
+    t0 = time.perf_counter()
+    delta, engine = _family_answers(
+        f"gemma_{kv}", params, cfg, root, infos[0], total, kv_cache_dtype=kv,
+        hit_tie=CROSS_TIE if kv == "int8" else None)
+    _attention_launches(f"gemma_{kv}", delta, engine,
+                        cfg.llm.num_hidden_layers, "flash_attention_hd256",
+                        f"flash_attention_folded_hd256_{kv}",
+                        f"decode_attention_hd256_{kv}")
+    del engine
+    tie = _gemma_batched_answers(params, cfg, root, infos[0], total, kv=kv,
+                                 logit_atol=GEMMA_QUANT_LOGIT_ATOL)
+    _gemma_paged_batcher(params, cfg, root, infos, total, kv=kv, tie=tie)
+    print(f"  gemma_{kv}: (f) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def _families_llm(root: str, infos, total: dict) -> None:
@@ -8205,6 +8653,15 @@ def _families_llm(root: str, infos, total: dict) -> None:
     _gemma_paged_batcher(params, cfg, root, infos, total)
     print(f"  gemma: the batched answers and the paged batcher took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for bits, kv in GEMMA_QUANT:
+        if bits != 16:
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            params = _family_model("Gemma-2B", cfg, 192, bits=bits)
+        print(f"(f) Gemma-2B, {'bf16' if bits == 16 else f'int{bits}'} "
+              f"weights over an {kv} cache:", flush=True)
+        _gemma_quantized(params, cfg, root, infos, total, kv)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -8390,7 +8847,9 @@ def _families_towers(dev) -> None:
 def run_families(root: str, infos, dev) -> dict:
     """Phase 19: (a) LLaVA over Qwen1.5-MoE-A2.7B, (b) over Gemma-2B (also
     through the batched prefix answers and the paged batcher, over the two
-    scenes of ``infos``), (c) Mixtral-8x7B cut to MIXTRAL_LAYERS layers,
+    scenes of ``infos``; (f) all of it again over an int4 cache and, with
+    int8 weights, over an int8 cache), (c) Mixtral-8x7B cut to
+    MIXTRAL_LAYERS layers,
     (d) MPT-7B cut to MPT_LAYERS layers, each from seeded random weights in
     bf16 through the engine; (e) the towers and resamplers. Returns the
     main paths' launch counts."""

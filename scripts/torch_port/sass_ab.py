@@ -9,9 +9,11 @@ both trees is compiled to a cubin with the flags of
 ``video3d_tpu_torch/kernels/_build.py`` (one ``nvcc`` per source, all at
 once); ``cuobjdump -sass`` gives each kernel's opcode sequence (operands
 dropped) and ptxas its registers and spill bytes. For every kernel the
-parent has, the opcode sequences must be equal; kernels only in this tree
-(new instantiations) are listed with their instruction counts, registers
-and spills.
+parent has, the opcode sequences and the registers and spills must be
+equal (a kernel whose template gained a last parameter is matched at that
+parameter's 0: the parent's ``kernel<M>`` is this tree's ``kernel<M, 0>``);
+kernels only in this tree (new instantiations) are listed with their
+instruction counts, registers and spills.
 
 Prints one JSON object and writes it to ``chiprun_out/sass_ab.json``.
 """
@@ -132,6 +134,15 @@ def main() -> None:
                                   for n, ops in funcs.items()})
                 regs[tag].update({f"{src}: {names[n]}": r
                                   for n, r in props.items()})
+    # a template parameter added last, whose 0 keeps the old code (the
+    # hd-256 kernel's cache form): the parent's kernel<M> is the change's
+    # kernel<M, 0>
+    for name in list(sass["parent"]):
+        zero = "(int)0" if "(int)" in name else "0"
+        extended = re.sub(r"<([^<>]*)>\(", rf"<\1, {zero}>(", name, count=1)
+        if name not in sass["change"] and extended in sass["change"]:
+            sass["parent"][extended] = sass["parent"].pop(name)
+            regs["parent"][extended] = regs["parent"].pop(name, None)
     same, changed, new = [], [], {}
     for name, ops in sorted(sass["change"].items()):
         r = regs["change"].get(name, [None, None])
@@ -143,6 +154,9 @@ def main() -> None:
         else:
             changed.append({"kernel": name, "instructions": {
                 "parent": len(sass["parent"][name]), "change": len(ops)}})
+        if name in sass["parent"] and regs["parent"].get(name) != r:
+            changed.append({"kernel": name, "registers, spills": {
+                "parent": regs["parent"].get(name), "change": r}})
     missing = [n for n in sass["parent"] if n not in sass["change"]]
     result = {"kernels with the same opcodes": len(same),
               "kernels whose opcodes changed": changed,

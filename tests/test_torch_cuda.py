@@ -2017,32 +2017,34 @@ def test_hd256_decode_kernel(dev, H, KV, S, lens):
 
 
 def test_hd256_forms_refuse_what_they_do_not_take(dev):
-    """No quantized-cache (flat, paged or prefix) or training form at hd
-    256 yet: each raises a ValueError on the card."""
+    """What the hd-256 forms still refuse on the card, with a ValueError
+    before any launch: a quantized cache without its scales, f16 scales,
+    a flat or paged cache of another dtype (f16), and the training forward
+    (B2 with the logsumexp, ROADMAP B)."""
     B, S, KV, hd = 1, 128, 1, 256
     q = torch.zeros(B, 1, 8, hd, dtype=torch.bfloat16, device=dev)
     k8 = torch.zeros(2, B, S, KV * hd, dtype=torch.int8, device=dev)
     sc = torch.ones(2, B, S, KV, 1, device=dev)
     lens = torch.full((B,), 5, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="256"):
-        da.decode_attention(q, k8, k8, lens, 0, KV, sc, sc)
-    with pytest.raises(ValueError, match="256"):
-        fa.flash_attention_gqa_folded(q.expand(B, 4, 8, hd).contiguous(), k8,
-                                      k8, lens, lens - 4, 0, KV, sc, sc)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k8, k8, lens, 0, KV)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k8, k8, lens, 0, KV, sc.half(), sc.half())
+    with pytest.raises(ValueError):
+        fa.flash_attention_gqa_folded(q.expand(B, 4, 8, hd).contiguous(),
+                                      k8.half(), k8.half(), lens, lens - 4,
+                                      0, KV)
     kk = torch.zeros(B, 64, KV, hd, dtype=torch.bfloat16, device=dev)
     qq = torch.zeros(B, 64, 8, hd, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention_fwd(qq, kk, kk, lens)
     p8 = torch.zeros(64, KV, hd, dtype=torch.int8, device=dev)
-    psc = torch.ones(64, KV, 1, device=dev)
-    with pytest.raises(ValueError, match="256"):
-        fa.flash_attention_shared_prefix(qq, p8, p8, kk, kk, lens, psc, psc)
-    pool8 = torch.zeros(2, 3, 16, KV * hd, dtype=torch.int8, device=dev)
-    pool_sc = torch.ones(2, 3, KV, 1, 16, device=dev)
+    with pytest.raises(ValueError):
+        fa.flash_attention_shared_prefix(qq, p8, p8, kk, kk, lens)
+    pool = torch.zeros(2, 3, 16, KV * hd, dtype=torch.float16, device=dev)
     table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="256"):
-        pa.paged_decode_attention(q, pool8, pool8, table, lens, 0, KV,
-                                  pool_sc, pool_sc)
+    with pytest.raises(ValueError):
+        pa.paged_decode_attention(q, pool, pool, table, lens, 0, KV)
 
 
 # (H, KV, page, maxp, alias, kv_len): Gemma-2B's heads over aliased pages,
@@ -2163,5 +2165,171 @@ def test_hd256_shared_prefix_kernel(dev, B, L, H, KV, P, slens):
                                        sv.roll(1, 0), slens_t.roll(1, 0)),
         h256.shared_prefix_hd256_plain(qf, pk[64:], pv[64:], sk, sv,
                                        slens_t)]
+    for broken in controls:
+        assert _rows_err(broken, ref, slens) > 4 * BF16_ATOL
+
+
+# ---------------------------------------------------------------------------
+# head width 256 over int8 and packed int4 caches: the quantized forms of
+# B3, B2 folded, B7 and B5, against their plain twins in f32 on the same
+# quantized values and scales; controls as at hd 128: the scales one
+# position off, (KV > 1) of the wrong kv head and (int4) the nibbles of
+# each byte swapped must miss by 4x
+# ---------------------------------------------------------------------------
+
+def _controls(plain, ks, vs, pos_dim, kv_dim, KV, bits, k8, v8):
+    """The broken plain versions: ``plain(k8, v8, ks, vs)`` with the scales
+    rolled one position, one kv head (KV > 1), or (int4) the nibbles
+    swapped."""
+    out = [plain(k8, v8, *_rolled(ks, vs, pos_dim))]
+    if KV > 1:
+        out.append(plain(k8, v8, *_rolled(ks, vs, kv_dim)))
+    if bits == 4:
+        out.append(plain(_swapped(k8), _swapped(v8), ks, vs))
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,KV,S,lens", HD256_DECODE)
+def test_hd256_quant_decode_kernel(dev, bits, H, KV, S, lens):
+    """B3 at hd 256 over a stacked int8 / int4 cache layer: the twin's
+    output on live rows, zeros on a kv_len 0 row, the same bits twice."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    NL, B, hd, layer = 2, len(lens), 256, 1
+    q = _peaked_q(g, dev, B, H, hd)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer, hd)
+    k8, ks = _int8(k.bfloat16(), bits)
+    v8, vs = _int8(v.bfloat16(), bits)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k8, v8, kv_len, layer, KV, ks, vs)
+    got = _launched(f"decode_attention_hd256_int{bits}", call)
+
+    def plain(k_, v_, ks_, vs_):
+        return h256.decode_hd256_plain(q.float(), k_, v_, kv_len, layer, KV,
+                                       ks_, vs_)
+    ref = plain(k8, v8, ks, vs)
+    live = [b for b, n in enumerate(lens) if n]
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got[live].float() - ref[live]).abs().max()) <= BF16_ATOL
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    _same_bits(call, got)
+    for broken in _controls(plain, ks, vs, 2, 3, KV, bits, k8, v8):
+        assert float((broken[live] - ref[live]).abs().max()) > 4 * BF16_ATOL
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,KV,L,offs,lens", HD256_FOLDED)
+def test_hd256_quant_folded_kernel(dev, bits, H, KV, L, offs, lens):
+    """B2 folded at hd 256 over a stacked int8 / int4 cache layer, the
+    chunk's own keys focused before quantization; the same bits twice."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    NL, S, hd, layer = 2, 800, 256, 1
+    B = len(offs)
+    q = Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
+    q[..., 0] += FOCUS
+    q = q.bfloat16()
+    k = torch.randn(NL, B, S, KV, hd, generator=g, device=dev)
+    for b, (o, n) in enumerate(zip(offs, lens)):
+        k[layer, b, o:n, :, 0] += FOCUS
+    k8, ks = _int8(k.bfloat16(), bits)
+    v8, vs = _int8((0.5 * torch.randn(NL, B, S, KV, hd, generator=g,
+                                      device=dev)).bfloat16(), bits)
+    offs_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: fa.flash_attention_gqa_folded(q, k8, v8, lens_t, offs_t,
+                                                 layer, KV, ks, vs)
+    got = _launched(f"flash_attention_folded_hd256_int{bits}", call)
+    _same_bits(call, got)
+
+    def plain(k_, v_, ks_, vs_):
+        return h256.folded_hd256_plain(q.float(), k_, v_, lens_t, offs_t,
+                                       layer, KV, ks_, vs_)
+    ref = plain(k8, v8, ks, vs)
+    rows = [min(L, n - o) for o, n in zip(offs, lens)]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, rows) <= BF16_ATOL
+    for broken in _controls(plain, ks, vs, 2, 3, KV, bits, k8, v8):
+        assert _rows_err(broken, ref, rows) > 4 * BF16_ATOL
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("H,KV,page,maxp,alias,lens", HD256_PAGED)
+def test_hd256_quant_paged_kernel(dev, bits, H, KV, page, maxp, alias,
+                                  lens):
+    """B7 at hd 256 over int8 / int4 pools with (layers, P, KV, 1, page)
+    scale pools: live slots within 2e-2 of the twin, kv_len 0 slots zero,
+    the same bits twice; controls also the two longest slots' table rows
+    swapped."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    q, k, v, table, kv_len, layer = _hd256_pages(g, dev, H, KV, page, maxp,
+                                                 alias, lens)
+    NL, P = k.shape[0], k.shape[1]
+    k8, ks = _int8(k.reshape(NL, P, page, KV, 256), bits)
+    v8, vs = _int8(v.reshape(NL, P, page, KV, 256), bits)
+    ks, vs = (x.permute(0, 1, 3, 4, 2).contiguous() for x in (ks, vs))
+    call = lambda: pa.paged_decode_attention(q, k8, v8, table, kv_len, layer,
+                                             KV, ks, vs)
+    got = _launched(f"paged_attention_hd256_int{bits}", call)
+
+    def plain(k_, v_, ks_, vs_, table_=table):
+        return h256.paged_hd256_plain(q.float(), k_, v_, table_, kv_len,
+                                      layer, KV, ks_, vs_)
+    ref = plain(k8, v8, ks, vs)
+    live = [b for b, n in enumerate(lens) if n]
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got[live].float() - ref[live]).abs().max()) <= BF16_ATOL
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    _same_bits(call, got)
+    a, b = sorted(range(len(lens)), key=lambda i: lens[i])[-2:]
+    swapped = table.clone()
+    swapped[[a, b]] = table[[b, a]]
+    controls = _controls(plain, ks, vs, -1, 2, KV, bits, k8, v8)
+    controls.append(plain(k8, v8, ks, vs, swapped))
+    for broken in controls:
+        assert float((broken[live] - ref[live]).abs().max()) > 4 * BF16_ATOL
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("B,L,H,KV,P,slens",
+                         HD256_PREFIX + [(2, 20, 8, 1, 101, [20, 7])])
+def test_hd256_quant_shared_prefix_kernel(dev, bits, B, L, H, KV, P, slens):
+    """B5 at hd 256 over an int8 / int4 (P, KV, 256) prefix with (P, KV, 1)
+    scales and a bf16 suffix: rows below suffix_lens within 2e-2 of the
+    twin, the same bits twice; controls also the first prefix tile
+    skipped. The prefix and its scales are layer 1 of stacked two-layer
+    tensors, as a cached prefix hands them over (at P = 101 and one kv
+    head the scales' slice is 4-byte aligned only)."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    q, pk, pv, sk, sv = _hd256_prefix(g, dev, B, L, H, KV, P)
+    pk8, pks = _int8(torch.stack([pk, pk]), bits)
+    pv8, pvs = _int8(torch.stack([pv, pv]), bits)
+    pk8, pv8 = (x[1].reshape(P, KV, -1) for x in (pk8, pv8))
+    pks, pvs = pks[1], pvs[1]
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    call = lambda: fa.flash_attention_shared_prefix(q, pk8, pv8, sk, sv,
+                                                    slens_t, pks, pvs)
+    got = _launched(f"shared_prefix_attention_hd256_int{bits}", call)
+    _same_bits(call, got)
+
+    def plain(k_, v_, ks_, vs_):
+        return h256.shared_prefix_hd256_plain(q.float(), k_, v_, sk, sv,
+                                              slens_t, ks_, vs_)
+    ref = plain(pk8, pv8, pks, pvs)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _rows_err(got, ref, slens) <= BF16_ATOL
+    controls = _controls(plain, pks, pvs, 0, 1, KV, bits, pk8, pv8)
+    controls.append(plain(pk8[64:], pv8[64:], pks[64:], pvs[64:]))
     for broken in controls:
         assert _rows_err(broken, ref, slens) > 4 * BF16_ATOL

@@ -139,9 +139,12 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
     g G + f % G), their positions (``pos0_of(b)`` + f // G) and the row's
     key limit (``lim_of(b)``), the key range [k_begin, k_end), each 64-key
     tile's K / V rows from ``key_rows(b, g, s)`` (None: a key no row
-    attends, loaded as zeros and masked), the online softmax over 64-key
-    tiles in base 2, then the one split's normalised output or the merge of
-    every split's (O, m, l), empty partials skipped."""
+    attends, loaded as zeros and masked; a quantized cache's rows come as
+    (k, v, k_scale, v_scale), the rows as the tile load converts them and
+    the key's two scales), the online softmax over 64-key tiles in base 2
+    (a quantized key's scale on its score column, its value scale on p,
+    l summed over the unscaled p), then the one split's normalised output
+    or the merge of every split's (O, m, l), empty partials skipped."""
     B, L, H, hd = q.shape
     G = H // KV
     plan = h256.hd256_plan(B, L, H, KV, S, sms)
@@ -168,14 +171,18 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                         keys = torch.arange(kt, kt + h256.KEYS)
                         kk = torch.zeros(h256.KEYS, hd)
                         vv = torch.zeros(h256.KEYS, hd)
+                        ksc = torch.ones(h256.KEYS)
+                        vsc = torch.ones(h256.KEYS)
                         live = torch.zeros(h256.KEYS, dtype=torch.bool)
                         for r in range(h256.KEYS):
                             rows = key_rows(b, g, kt + r) \
                                 if kt + r < ke else None
                             if rows is not None:
-                                kk[r], vv[r] = rows
+                                kk[r], vv[r] = rows[:2]
+                                if len(rows) == 4:
+                                    ksc[r], vsc[r] = rows[2:]
                                 live[r] = True
-                        x = (qt @ kk.T) * scale
+                        x = (qt @ kk.T) * (ksc * scale)[None]
                         ok = (keys[None] <= pos[:, None]) \
                             & (keys[None] < lim) & live[None]
                         x = torch.where(ok, x, -math.inf)
@@ -184,7 +191,7 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                         p = torch.where(dead[:, None], 0.0,
                                         torch.exp2(x - m_new[:, None]))
                         alpha = torch.where(dead, 1.0, torch.exp2(m - m_new))
-                        o = o * alpha[:, None] + p @ vv
+                        o = o * alpha[:, None] + (p * vsc[None]) @ vv
                         lsum = lsum * alpha + p.sum(1)
                         m = m_new
                     for i, f in enumerate(fs):

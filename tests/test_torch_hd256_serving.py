@@ -15,9 +15,9 @@ of B7 and the shared-prefix form of B5 at hd 256 (``csrc/attention_hd256.cu``,
   modes (each tile's key rows through the page table, or from the prefix,
   its padding and the suffix; null rows masked; splits past a row's keys
   and their merge) against the twins.
-* ``check_card_path`` for the card (no card needed): the paged and
-  shared-prefix paths take 256, the quantized caches, training and ALiBi
-  on pages are refused with a ValueError before any work.
+* ``check_card_path`` for the card (no card needed): the paged,
+  shared-prefix and quantized-cache paths take 256; training and ALiBi on
+  pages are refused with a ValueError before any work.
 * A tiny hd-256 Gemma (hidden 512, 2 query heads of 256 on 1 kv head, 2
   layers) in f32: the paged batcher (plain, shared prefix pages, a chunked
   admission, speculative), the HTTP worker over a paged batcher and the
@@ -414,18 +414,17 @@ def test_shared_prefix_algorithm_matches_the_twin(B, L, P, slens, sms):
 
 def test_card_paths_at_hd256():
     """``check_card_path`` on a CUDA device (no card needed): the answer,
-    paged and shared-prefix paths take head_dim 256; the quantized caches
-    and training raise a ValueError naming ROADMAP B; ALiBi on pages
-    raises whatever the width."""
+    paged, shared-prefix and quantized-cache paths take head_dim 256;
+    training raises a ValueError naming ROADMAP B; ALiBi on pages raises
+    whatever the width."""
     cfg = port_config(model_config("gemma_hd256"))
     assert cfg.llm.head_dim == 256
-    for path in ("answer", "paged", "shared_prefix"):
+    for path in ("answer", "paged", "shared_prefix", "quantized_cache"):
         assert 256 in CARD_HEAD_DIMS[path]
         check_card_path(cfg, "cuda", path)
-    for path in ("quantized_cache", "training"):
-        with pytest.raises(ValueError, match="ROADMAP B"):
-            check_card_path(cfg, "cuda", path)
-        check_card_path(cfg, "cpu", path)          # the CPU runs them all
+    with pytest.raises(ValueError, match="ROADMAP B"):
+        check_card_path(cfg, "cuda", "training")
+    check_card_path(cfg, "cpu", "training")          # the CPU runs it
     mpt = dataclasses.replace(cfg, llm=dataclasses.replace(
         cfg.llm, position_embedding="alibi"))
     with pytest.raises(ValueError, match="ALiBi"):
@@ -440,18 +439,6 @@ def gemma(tmp_path_factory):
                              extend=(i > 0)) for i in range(2)]
     cfg = model_config("gemma_hd256")
     return infos, cfg, jax_params(cfg, seed=3), data_config(root)
-
-
-@pytest.mark.parametrize("kv", ["int8", "int4"])
-def test_quantized_cache_at_hd256_refused_on_the_card(gemma, kv):
-    """An engine on the card with an int8 / int4 cache at head_dim 256
-    raises in its constructor, before any work."""
-    _, cfg, params, data_cfg = gemma
-    _, teng = engines(cfg, params, data_cfg)
-    with pytest.raises(ValueError, match="quantized_cache"):
-        type(teng)(teng.params, teng.cfg, teng.tokenizer, teng.vp, teng.ip,
-                   dataclasses.replace(teng.ecfg, kv_cache_dtype=kv),
-                   device="cuda")
 
 
 def test_training_at_hd256_refused_on_the_card(gemma):

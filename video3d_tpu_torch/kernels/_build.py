@@ -66,6 +66,14 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "decode_attention_hd256": 0,
                             "paged_attention_hd256": 0,
                             "shared_prefix_attention_hd256": 0,
+                            "flash_attention_folded_hd256_int8": 0,
+                            "flash_attention_folded_hd256_int4": 0,
+                            "decode_attention_hd256_int8": 0,
+                            "decode_attention_hd256_int4": 0,
+                            "paged_attention_hd256_int8": 0,
+                            "paged_attention_hd256_int4": 0,
+                            "shared_prefix_attention_hd256_int8": 0,
+                            "shared_prefix_attention_hd256_int4": 0,
                             # not a kernel of the port: the w8a8
                             # product's torch._int_mm calls on the card
                             "int_mm_w8a8": 0}
@@ -157,6 +165,21 @@ _SIGNATURES = {
     # splits, split_keys, sm_scale, stream
     "v3d_attention_hd256_shared_prefix": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                           _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, k_scale, v_scale, lens, q_off, out, workspace, mode, bits, B,
+    # L, S, H, KV, splits, split_keys, sm_scale, stream
+    "v3d_attention_hd256_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k_pages, v_pages, k_scale, v_scale, table, kv_len, out, workspace,
+    # bits, layer, B, P, page, maxp, H, KV, splits, split_keys, sm_scale,
+    # stream
+    "v3d_attention_hd256_paged_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                        _I, _F, _P],
+    # q, pk, pv, pk_scale, pv_scale, sk, sv, suffix_lens, out, workspace,
+    # bits, B, L, P, H, KV, splits, split_keys, sm_scale, stream
+    "v3d_attention_hd256_shared_prefix_quant": [_P, _P, _P, _P, _P, _P, _P,
+                                                _P, _P, _P, _I, _I, _I, _I,
+                                                _I, _I, _I, _I, _F, _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]

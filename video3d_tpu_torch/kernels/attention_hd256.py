@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -35,7 +36,7 @@ from video3d_tpu_torch.kernels import _build, _launch
 from video3d_tpu_torch.kernels.attention import (
     mha_shared_prefix_reference as shared_prefix_hd256_plain)
 from video3d_tpu_torch.kernels.decode_attention import (
-    decode_attention_plain as decode_hd256_plain)
+    CACHE_FORMS, decode_attention_plain as decode_hd256_plain)
 from video3d_tpu_torch.kernels.flash_attention import (
     flash_attention_gqa_folded_plain as folded_hd256_plain,
     flash_attention_plain as prefill_hd256_plain)
@@ -43,12 +44,14 @@ from video3d_tpu_torch.kernels.paged_attention import (
     paged_attention_plain as paged_hd256_plain)
 
 HEAD_DIM = 256
+#: a quantized cache's name suffix -> its bits (the C entries' ``bits``)
+BITS = {"_int8": 8, "_int4": 4}
 ROWS = 64          # folded query rows per CTA (csrc kRows)
 KEYS = 64          # keys per tile (csrc kKeys)
 PART_FLOATS = HEAD_DIM + 2   # one split's O, m and l of a row
 #: the C modes of ``v3d_attention_hd256``'s forms (the paged and
-#: shared-prefix forms have entries of their own) and every form's
-#: launch-count name
+#: shared-prefix forms have entries of their own) and every bf16 form's
+#: launch-count name (a quantized form's adds ``CACHE_FORMS``' suffix)
 MODES = {"prefill": 0, "folded": 1, "decode": 2}
 NAMES = {"prefill": "flash_attention_hd256",
          "folded": "flash_attention_folded_hd256",
@@ -126,26 +129,72 @@ def shared_prefix_plan(B: int, L: int, H: int, KV: int, P: int,
     return hd256_plan(B, L, H, KV, prefix_keys(P) + L, sms)
 
 
-def _check_bf16(name: str, device, **tensors) -> None:
-    """bf16, contiguous, 16-byte aligned tensors on ``device``."""
+def _check_tensors(name: str, device, dtype, align: int = 16,
+                   **tensors) -> None:
+    """Contiguous, ``align``-byte aligned tensors of ``dtype`` on
+    ``device``."""
     for arg, t in tensors.items():
-        if t.dtype != torch.bfloat16 or not t.is_contiguous() \
-                or t.device != device or t.data_ptr() % 16:
-            raise ValueError(f"{name}: {arg} must be a contiguous, 16-byte "
-                             f"aligned bfloat16 tensor on {device} (no "
-                             f"quantized hd-256 form yet, ROADMAP B)")
+        if t.dtype != dtype or not t.is_contiguous() \
+                or t.device != device or t.data_ptr() % align:
+            raise ValueError(f"{name}: {arg} must be a contiguous, "
+                             f"{align}-byte aligned {dtype} tensor on "
+                             f"{device}")
 
 
-def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           kv_heads: int) -> None:
-    """bf16, contiguous, 16-byte aligned tensors on q's device; q (B, L, H,
-    256) and k / v (B, S, KV * 256) rows with H a multiple of KV."""
-    _check_bf16(name, q.device, q=q, k=k, v=v)
+def _check_cache(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, k_scale, v_scale, scale_shape) -> str:
+    """q bf16; k / v bf16 without scales, or int8 or packed int4 (uint8)
+    with f32 scales of ``scale_shape``, all contiguous and on q's device,
+    q, k and v 16-byte aligned (the tile loads read 16 bytes), the scales
+    read one f32 at a time (a layer's slice of Gemma's one-kv-head prefix
+    scales is 4-byte aligned). Returns the form's name suffix
+    (``CACHE_FORMS``)."""
+    form = CACHE_FORMS.get(k.dtype)
+    if form is None or (form == "") != (k_scale is None) \
+            or (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: the cache must be bf16 without scales, or "
+                         f"int8 or packed int4 (uint8) with scales (got "
+                         f"{k.dtype})")
+    _check_tensors(name, q.device, torch.bfloat16, q=q)
+    _check_tensors(name, q.device, k.dtype, k=k, v=v)
+    if form:
+        if k_scale.shape != tuple(scale_shape) \
+                or v_scale.shape != k_scale.shape:
+            raise ValueError(f"{name}: scales {tuple(k_scale.shape)} / "
+                             f"{tuple(v_scale.shape)}, expected "
+                             f"{tuple(scale_shape)}")
+        _check_tensors(name, q.device, torch.float32, 4, k_scale=k_scale,
+                       v_scale=v_scale)
+    return form
+
+
+def _row_width(kv_heads: int, form: str) -> int:
+    """Entries of one cached row of ``kv_heads`` heads: channels, or bytes
+    of packed int4."""
+    return kv_heads * HEAD_DIM // (2 if form == "_int4" else 1)
+
+
+def _check_dense(name: str, q: torch.Tensor, k_all: torch.Tensor,
+                 v_all: torch.Tensor, layer: int, kv_heads: int, k_scale,
+                 v_scale) -> str:
+    """The dense forms' stacked (layers, B, S, KV * 256) cache (packed
+    int4: KV * 128 bytes) and (layers, B, S, KV, 1) scales; q (B, L, H,
+    256) with H a multiple of KV. Returns the form's suffix."""
     B, L, H, hd = q.shape
-    if hd != HEAD_DIM or k.shape != v.shape or k.shape[0] != B \
-            or k.shape[-1] != kv_heads * HEAD_DIM or H % kv_heads:
+    form = _check_cache(name, q, k_all, v_all, k_scale, v_scale,
+                        (*k_all.shape[:3], kv_heads, 1))
+    if (hd != HEAD_DIM or k_all.dim() != 4 or v_all.shape != k_all.shape
+            or k_all.shape[1] != B or H % kv_heads
+            or k_all.shape[-1] != _row_width(kv_heads, form)
+            or not 0 <= layer < k_all.shape[0]):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)} kv_heads {kv_heads}")
+                         f"cache {tuple(k_all.shape)} layer {layer} "
+                         f"kv_heads {kv_heads}")
+    return form
+
+
+def _layer(x, layer: int):
+    return None if x is None else x[layer]
 
 
 def _card(dev) -> tuple:
@@ -154,25 +203,25 @@ def _card(dev) -> tuple:
             _launch.sm_count(dev.index or 0))
 
 
-def _on_card(form: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             lens: torch.Tensor, q_off, kv_heads: int) -> torch.Tensor:
-    """One launch of ``form`` on q's device and current stream."""
-    return _launch_form(*_card(q.device), form, q, k, v, lens, q_off,
-                        kv_heads)
-
-
 def _workspace(plan: Hd256Plan, dev, stream: int):
     """The stream's f32 workspace where the plan splits the keys."""
     return _launch.workspace(dev, stream, plan.workspace_bytes) \
         if plan.splits > 1 else None
 
 
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def _launch_form(lib, stream: int, sms: int, form: str, q: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor, lens: torch.Tensor, q_off,
-                 kv_heads: int) -> torch.Tensor:
+                 kv_heads: int, k_scale=None,
+                 v_scale=None) -> torch.Tensor:
     """Launch ``form`` through ``lib`` on ``sms`` SMs over k / v rows (B,
-    S, KV * 256): the plan, the stream's workspace where the keys split,
-    the output; reads nothing of lens on the host."""
+    S, KV * 256; packed int4 KV * 128 bytes) of one layer, with that
+    layer's (B, S, KV, 1) scales for a quantized cache: the plan, the
+    stream's workspace where the keys split, the output; reads nothing of
+    lens on the host."""
     B, L, H, hd = q.shape
     S = k.shape[1]
     dev = q.device
@@ -182,12 +231,21 @@ def _launch_form(lib, stream: int, sms: int, form: str, q: torch.Tensor,
     if q_off is not None:
         q_off = q_off.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
-    name = NAMES[form]
-    err = lib.v3d_attention_hd256(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        0 if q_off is None else q_off.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), MODES[form], B, L, S, H,
-        kv_heads, plan.splits, plan.split_keys, float(hd ** -0.5), stream)
+    if k_scale is None:
+        name = NAMES[form]
+        err = lib.v3d_attention_hd256(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            _ptr(q_off), out.data_ptr(), _ptr(ws), MODES[form], B, L, S, H,
+            kv_heads, plan.splits, plan.split_keys, float(hd ** -0.5),
+            stream)
+    else:
+        suffix = CACHE_FORMS[k.dtype]
+        name = NAMES[form] + suffix
+        err = lib.v3d_attention_hd256_quant(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), lens.data_ptr(), _ptr(q_off), out.data_ptr(),
+            _ptr(ws), MODES[form], BITS[suffix], B, L, S, H, kv_heads,
+            plan.splits, plan.split_keys, float(hd ** -0.5), stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out
@@ -196,60 +254,76 @@ def _launch_form(lib, stream: int, sms: int, form: str, q: torch.Tensor,
 def prefill_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
     """B2's prefill form at hd 256 on the card: q (B, L, H, 256), k / v (B,
-    L, KV, 256); query row r attends keys s <= r and s < lengths[b]. Twin:
-    :func:`prefill_hd256_plain` (``flash_attention_plain``)."""
+    L, KV, 256) bf16; query row r attends keys s <= r and s < lengths[b].
+    Twin: :func:`prefill_hd256_plain` (``flash_attention_plain``)."""
+    name = NAMES["prefill"]
     B, L, KV = k.shape[0], k.shape[1], k.shape[2]
     kf, vf = k.reshape(B, L, KV * HEAD_DIM), v.reshape(B, L, KV * HEAD_DIM)
-    _check(NAMES["prefill"], q, kf, vf, KV)
-    return _on_card("prefill", q, kf, vf, lengths, None, KV)
+    _check_cache(name, q, kf, vf, None, None, None)
+    if (q.shape[-1] != HEAD_DIM or v.shape != k.shape or q.shape[0] != B
+            or q.shape[2] % KV):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)}")
+    return _launch_form(*_card(q.device), "prefill", q, kf, vf, lengths,
+                        None, KV)
 
 
 def folded_hd256(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                  lengths: torch.Tensor, q_offsets: torch.Tensor, layer: int,
-                 kv_heads: int) -> torch.Tensor:
+                 kv_heads: int, k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B2 folded at hd 256 on the card: q (B, L, H, 256), query r of row b
-    at q_offsets[b] + r, over ``layer`` of the stacked bf16 (layers, B, S,
-    KV * 256) cache; slot s valid when <= the query's position and <
-    lengths[b]. Twin: :func:`folded_hd256_plain`."""
-    if not 0 <= layer < k_all.shape[0]:
-        raise ValueError(f"{NAMES['folded']}: layer {layer}")
-    k, v = k_all[layer], v_all[layer]
-    _check(NAMES["folded"], q, k, v, kv_heads)
-    return _on_card("folded", q, k, v, lengths, q_offsets, kv_heads)
+    at q_offsets[b] + r, over ``layer`` of the stacked (layers, B, S,
+    KV * 256) cache, bf16, or int8 (packed int4: KV * 128 bytes) with its
+    (layers, B, S, KV, 1) f32 scales; slot s valid when <= the query's
+    position and < lengths[b]. Twin: :func:`folded_hd256_plain`."""
+    _check_dense(NAMES["folded"], q, k_all, v_all, layer, kv_heads, k_scale,
+                 v_scale)
+    return _launch_form(*_card(q.device), "folded", q, k_all[layer],
+                        v_all[layer], lengths, q_offsets, kv_heads,
+                        _layer(k_scale, layer), _layer(v_scale, layer))
 
 
 def decode_hd256(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
-                 kv_len: torch.Tensor, layer: int,
-                 kv_heads: int) -> torch.Tensor:
+                 kv_len: torch.Tensor, layer: int, kv_heads: int,
+                 k_scale: Optional[torch.Tensor] = None,
+                 v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B3 at hd 256 on the card: q (B, 1, H, 256), the new token at kv_len[b]
-    - 1 attending slots < kv_len[b] of ``layer`` of the stacked bf16 cache.
-    Twin: :func:`decode_hd256_plain` (``decode_attention_plain``)."""
-    if q.shape[1] != 1 or not 0 <= layer < k_all.shape[0]:
-        raise ValueError(f"{NAMES['decode']}: q {tuple(q.shape)} layer "
-                         f"{layer}")
-    k, v = k_all[layer], v_all[layer]
-    _check(NAMES["decode"], q, k, v, kv_heads)
-    return _on_card("decode", q, k, v, kv_len, None, kv_heads)
+    - 1 attending slots < kv_len[b] of ``layer`` of the stacked cache (bf16,
+    or int8 / packed int4 with scales, as :func:`folded_hd256`). Twin:
+    :func:`decode_hd256_plain` (``decode_attention_plain``)."""
+    if q.shape[1] != 1:
+        raise ValueError(f"{NAMES['decode']}: q {tuple(q.shape)}")
+    _check_dense(NAMES["decode"], q, k_all, v_all, layer, kv_heads, k_scale,
+                 v_scale)
+    return _launch_form(*_card(q.device), "decode", q, k_all[layer],
+                        v_all[layer], kv_len, None, kv_heads,
+                        _layer(k_scale, layer), _layer(v_scale, layer))
 
 
 def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
                 v_pages: torch.Tensor, page_table: torch.Tensor,
-                kv_len: torch.Tensor, layer: int,
-                kv_heads: int) -> torch.Tensor:
+                kv_len: torch.Tensor, layer: int, kv_heads: int,
+                k_scale: Optional[torch.Tensor] = None,
+                v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B7 at hd 256 on the card: q (B, 1, H, 256), the new token of slot b
     at kv_len[b] - 1 attending its positions < kv_len[b] through
-    ``page_table`` (B, maxp) into ``layer`` of the stacked bf16 (layers,
-    P, page, KV * 256) pools; any page size. Twin:
+    ``page_table`` (B, maxp) into ``layer`` of the stacked (layers, P,
+    page, KV * 256) pools, bf16, or int8 (packed int4: KV * 128 bytes) with
+    the stacked (layers, P, KV, 1, page) f32 scales; any page size. Twin:
     :func:`paged_hd256_plain` (``paged_attention_plain``)."""
     name = NAMES["paged"]
-    _check_bf16(name, q.device, q=q, k_pages=k_pages, v_pages=v_pages)
     B, L, H, hd = q.shape
-    NL = k_pages.shape[0]
-    if (L != 1 or hd != HEAD_DIM or v_pages.shape != k_pages.shape
-            or k_pages.shape[-1] != kv_heads * HEAD_DIM or H % kv_heads
-            or not 0 <= layer < NL or page_table.dim() != 2
-            or page_table.shape[0] != B or page_table.shape[1] < 1
-            or kv_len.shape != (B,)):
+    NL, P = k_pages.shape[0], k_pages.shape[1]
+    page = k_pages.shape[2] if k_pages.dim() == 4 else 0
+    form = _check_cache(name, q, k_pages, v_pages, k_scale, v_scale,
+                        (NL, P, kv_heads, 1, page))
+    if (L != 1 or hd != HEAD_DIM or k_pages.dim() != 4
+            or v_pages.shape != k_pages.shape
+            or k_pages.shape[-1] != _row_width(kv_heads, form)
+            or H % kv_heads or not 0 <= layer < NL
+            or page_table.dim() != 2 or page_table.shape[0] != B
+            or page_table.shape[1] < 1 or kv_len.shape != (B,)):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
                          f"pools {tuple(k_pages.shape)} table "
                          f"{tuple(page_table.shape)} layer {layer} kv_heads "
@@ -258,11 +332,12 @@ def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     kv_len = kv_len.to(device=dev, dtype=torch.int32).contiguous()
     return _launch_paged(*_card(dev), q, k_pages, v_pages, table, kv_len,
-                         layer, kv_heads)
+                         layer, kv_heads, k_scale, v_scale)
 
 
 def _launch_paged(lib, stream: int, sms: int, q, k_pages, v_pages, table,
-                  kv_len, layer: int, kv_heads: int) -> torch.Tensor:
+                  kv_len, layer: int, kv_heads: int, k_scale=None,
+                  v_scale=None) -> torch.Tensor:
     """Launch the paged form through ``lib`` on ``sms`` SMs: its plan over
     maxp * page positions per slot and the stream's workspace; allocates
     only the output and reads nothing of kv_len or the table on the
@@ -273,12 +348,22 @@ def _launch_paged(lib, stream: int, sms: int, q, k_pages, v_pages, table,
     plan = paged_plan(B, H, kv_heads, maxp, page, sms)
     ws = _workspace(plan, q.device, stream)
     out = torch.empty_like(q)
-    name = NAMES["paged"]
-    err = lib.v3d_attention_hd256_paged(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), layer, B, P, page, maxp, H,
-        kv_heads, plan.splits, plan.split_keys, float(hd ** -0.5), stream)
+    if k_scale is None:
+        name = NAMES["paged"]
+        err = lib.v3d_attention_hd256_paged(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), _ptr(ws),
+            layer, B, P, page, maxp, H, kv_heads, plan.splits,
+            plan.split_keys, float(hd ** -0.5), stream)
+    else:
+        suffix = CACHE_FORMS[k_pages.dtype]
+        name = NAMES["paged"] + suffix
+        err = lib.v3d_attention_hd256_paged_quant(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), _ptr(ws), BITS[suffix], layer,
+            B, P, page, maxp, H, kv_heads, plan.splits, plan.split_keys,
+            float(hd ** -0.5), stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out
@@ -286,18 +371,23 @@ def _launch_paged(lib, stream: int, sms: int, q, k_pages, v_pages, table,
 
 def shared_prefix_hd256(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
                         sk: torch.Tensor, sv: torch.Tensor,
-                        suffix_lens: torch.Tensor) -> torch.Tensor:
+                        suffix_lens: torch.Tensor,
+                        pk_scale: Optional[torch.Tensor] = None,
+                        pv_scale: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """B5 at hd 256 on the card: q (B, L, H, 256), query r of row b at
-    position P + r, attending the whole bf16 (P, KV, 256) prefix (no batch
-    dim), then its row's own (B, L, KV, 256) suffix keys j <= r and j <
-    suffix_lens[b]; rows r >= suffix_lens[b] are undefined by contract.
+    position P + r, attending the whole (P, KV, 256) prefix (no batch dim),
+    bf16, or int8 (packed int4: (P, KV, 128) bytes) with (P, KV, 1) f32
+    scales, then its row's own bf16 (B, L, KV, 256) suffix keys j <= r and
+    j < suffix_lens[b]; rows r >= suffix_lens[b] are undefined by contract.
     Twin: :func:`shared_prefix_hd256_plain`
     (``mha_shared_prefix_reference``)."""
     name = NAMES["shared_prefix"]
-    _check_bf16(name, q.device, q=q, pk=pk, pv=pv, sk=sk, sv=sv)
     B, L, H, hd = q.shape
     P, KV = pk.shape[0], pk.shape[1]
-    if (hd != HEAD_DIM or pk.shape != (P, KV, HEAD_DIM)
+    form = _check_cache(name, q, pk, pv, pk_scale, pv_scale, (P, KV, 1))
+    _check_tensors(name, q.device, torch.bfloat16, sk=sk, sv=sv)
+    if (hd != HEAD_DIM or pk.shape != (P, KV, _row_width(1, form))
             or pv.shape != pk.shape or sk.shape != (B, L, KV, HEAD_DIM)
             or sv.shape != sk.shape or H % KV
             or suffix_lens.shape != (B,)):
@@ -307,11 +397,12 @@ def shared_prefix_hd256(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     suffix_lens = suffix_lens.to(device=q.device,
                                  dtype=torch.int32).contiguous()
     return _launch_shared_prefix(*_card(q.device), q, pk, pv, sk, sv,
-                                 suffix_lens)
+                                 suffix_lens, pk_scale, pv_scale)
 
 
 def _launch_shared_prefix(lib, stream: int, sms: int, q, pk, pv, sk, sv,
-                          suffix_lens) -> torch.Tensor:
+                          suffix_lens, pk_scale=None,
+                          pv_scale=None) -> torch.Tensor:
     """Launch the shared-prefix form through ``lib`` on ``sms`` SMs: its
     plan over the padded prefix and the suffix and the stream's
     workspace; allocates only the output and reads nothing of suffix_lens
@@ -321,12 +412,22 @@ def _launch_shared_prefix(lib, stream: int, sms: int, q, pk, pv, sk, sv,
     plan = shared_prefix_plan(B, L, H, KV, P, sms)
     ws = _workspace(plan, q.device, stream)
     out = torch.empty_like(q)
-    name = NAMES["shared_prefix"]
-    err = lib.v3d_attention_hd256_shared_prefix(
-        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk.data_ptr(),
-        sv.data_ptr(), suffix_lens.data_ptr(), out.data_ptr(),
-        0 if ws is None else ws.data_ptr(), B, L, P, H, KV, plan.splits,
-        plan.split_keys, float(hd ** -0.5), stream)
+    if pk_scale is None:
+        name = NAMES["shared_prefix"]
+        err = lib.v3d_attention_hd256_shared_prefix(
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk.data_ptr(),
+            sv.data_ptr(), suffix_lens.data_ptr(), out.data_ptr(), _ptr(ws),
+            B, L, P, H, KV, plan.splits, plan.split_keys, float(hd ** -0.5),
+            stream)
+    else:
+        suffix = CACHE_FORMS[pk.dtype]
+        name = NAMES["shared_prefix"] + suffix
+        err = lib.v3d_attention_hd256_shared_prefix_quant(
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), pk_scale.data_ptr(),
+            pv_scale.data_ptr(), sk.data_ptr(), sv.data_ptr(),
+            suffix_lens.data_ptr(), out.data_ptr(), _ptr(ws), BITS[suffix],
+            B, L, P, H, KV, plan.splits, plan.split_keys, float(hd ** -0.5),
+            stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out

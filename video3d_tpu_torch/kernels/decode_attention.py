@@ -8,8 +8,8 @@ raises. Counterpart of ``video3d_tpu/kernels/decode_attention.py`` with the
 stacked-cache input form (``kv_heads`` given), over a bf16 cache, or an int8
 or a packed int4 one with per-position scales (the kernel's int8 and int4
 instantiations, counted as ``decode_attention_int8`` / ``_int4``). At
-head width 256 a bf16 cache launches ``csrc/attention_hd256.cu``'s decode
-form (``kernels/attention_hd256.py``).
+head width 256 every cache form launches ``csrc/attention_hd256.cu``'s
+decode form (``kernels/attention_hd256.py``).
 
 B3 and B7 (``paged_attention.py``) share one Hopper kernel
 (``csrc/decode_sm90.cuh``): one launch per call, :func:`decode_plan` gives
@@ -226,11 +226,8 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
     if hd == 256:
         from video3d_tpu_torch.kernels import attention_hd256
 
-        if form:
-            raise ValueError("decode_attention: no quantized-cache form at "
-                             "head_dim 256 yet (ROADMAP B)")
         return attention_hd256.decode_hd256(q, k_all, v_all, kv_len, layer,
-                                            kv_heads)
+                                            kv_heads, k_scale, v_scale)
     if (L != 1 or hd != HEAD_DIM or Bc != B
             or v_all.shape != k_all.shape or H % kv_heads
             or H // kv_heads > MAX_GROUP or not 0 <= layer < NL

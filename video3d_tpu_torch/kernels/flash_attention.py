@@ -21,9 +21,10 @@ with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
 (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
 ``flash_attention_bwd``), on the CPU their plain versions.
 
-At head width 256 the prefill form, B2 folded (bf16 cache) and B5 (bf16
-prefix) launch ``csrc/attention_hd256.cu`` instead
-(``kernels/attention_hd256.py``); the other forms take 128 only.
+At head width 256 the prefill form, B2 folded and B5 (each over a bf16,
+an int8 or a packed int4 cache or prefix) launch
+``csrc/attention_hd256.cu`` instead (``kernels/attention_hd256.py``); the
+training forms take 128 only.
 
 Every form at hd 128 runs on Hopper kernels fed by TMA: their C entries
 take the shapes, encode the tensor maps from the kernels' own tile sizes
@@ -264,11 +265,9 @@ def flash_attention_gqa_folded(q: torch.Tensor, k_all: torch.Tensor,
     if q.shape[-1] == 256:
         from video3d_tpu_torch.kernels import attention_hd256
 
-        if k_scale is not None or v_scale is not None:
-            raise ValueError("flash_attention_gqa_folded: no quantized-cache"
-                             " form at head_dim 256 yet (ROADMAP B)")
         return attention_hd256.folded_hd256(q, k_all, v_all, lengths,
-                                            q_offsets, layer, kv_heads)
+                                            q_offsets, layer, kv_heads,
+                                            k_scale, v_scale)
     return _folded_launch(_build.library(), _stream(q.device),
                           _sm_count(q.device.index or 0), q, k_all, v_all,
                           lengths, q_offsets, layer, kv_heads, k_scale,
@@ -330,12 +329,9 @@ def flash_attention_shared_prefix(q: torch.Tensor, pk: torch.Tensor,
     if q.shape[-1] == 256:
         from video3d_tpu_torch.kernels import attention_hd256
 
-        if pk.dtype != torch.bfloat16 or pk_scale is not None \
-                or pv_scale is not None:
-            raise ValueError("flash_attention_shared_prefix: no quantized-"
-                             "prefix form at head_dim 256 yet (ROADMAP B)")
         return attention_hd256.shared_prefix_hd256(q, pk, pv, sk, sv,
-                                                   suffix_lens)
+                                                   suffix_lens, pk_scale,
+                                                   pv_scale)
     return _shared_prefix_launch(_build.library(), _stream(q.device),
                                  _sm_count(q.device.index or 0), q, pk, pv,
                                  sk, sv, pk_scale, pv_scale)

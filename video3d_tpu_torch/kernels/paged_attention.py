@@ -13,10 +13,9 @@ CPU tensor runs :func:`paged_attention_plain`, a CUDA tensor launches
 (``csrc/decode_sm90.cuh``) over the pools' page map, with B3's plan
 (``decode_attention.decode_plan``, over maxp * page positions per slot):
 one launch, only the output allocated, kv_len and the table read on the
-device alone. At head width 256 a bf16 pool launches
+device alone. At head width 256 every pool form launches
 ``csrc/attention_hd256.cu``'s paged form instead
-(``kernels/attention_hd256.py``); the quantized pools have no hd-256 form
-yet and raise (ROADMAP B).
+(``kernels/attention_hd256.py``).
 
 Not ported: ``RAGGED_GRID`` (:139-143) and the cumsum / searchsorted
 live-page worklist with its ``lax.cond`` sizing (:198-281). They keep a
@@ -180,11 +179,9 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if hd == 256:
         from video3d_tpu_torch.kernels import attention_hd256
 
-        if form:
-            raise ValueError("paged_decode_attention: no quantized-pool form "
-                             "at head_dim 256 yet (ROADMAP B)")
         return attention_hd256.paged_hd256(q, k_pages, v_pages, page_table,
-                                           kv_len, layer, kv_heads)
+                                           kv_len, layer, kv_heads, k_scale,
+                                           v_scale)
     maxp = page_table.shape[1]
     if (L != 1 or hd != HEAD_DIM
             or v_pages.shape != k_pages.shape or H % kv_heads

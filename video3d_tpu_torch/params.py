@@ -27,12 +27,11 @@ Params = Dict[str, Any]
 _USED = ("vision", "projector", "image_newline", "llm")
 _OPTIONAL = ("ground_head", "world_pe_mlp", "resampler")
 
-#: head widths the card's attention kernels take on each path: over a bf16
-#: cache, the dense answer path (B2, B2 folded, B3), B5's shared prefix
-#: and B7's pages at 128 and 256; the quantized caches' forms, and B2 with
-#: the logsumexp and B6 for training, at 128 only (ROADMAP B, "hd-256
-#: forms")
-CARD_HEAD_DIMS = {"answer": (128, 256), "quantized_cache": (128,),
+#: head widths the card's attention kernels take on each path: the dense
+#: answer path (B2, B2 folded, B3), B5's shared prefix and B7's pages, over
+#: a bf16, an int8 or an int4 cache, at 128 and 256; B2 with the
+#: logsumexp and B6 for training at 128 only (ROADMAP B, "hd-256 forms")
+CARD_HEAD_DIMS = {"answer": (128, 256), "quantized_cache": (128, 256),
                   "shared_prefix": (128, 256), "paged": (128, 256),
                   "training": (128,)}
 

@@ -164,7 +164,7 @@ class ContinuousBatcher:
                  share_prefix_pages: bool = True,
                  chunked_prefill: int = 0):
         # paged decode has no ALiBi (JAX asserts); its B7 forms take head
-        # widths 128 and 256 over a bf16 pool (params.CARD_HEAD_DIMS)
+        # widths 128 and 256 over every pool form (params.CARD_HEAD_DIMS)
         check_card_path(engine.cfg, engine.device,
                         "paged" if paged else "answer")
         self.engine = engine
