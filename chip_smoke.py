@@ -41,7 +41,11 @@ Phases, each of which raises on failure (the process then exits non-zero):
    positions than its 33 CTAs per kv head (one row of 20; rows of 7, 0,
    9 and 3, the empty row read as zeros);
    the training kernels at the training shapes: B2 with
-   the per-row logsumexp and the fused flash backward B6; the
+   the per-row logsumexp and the fused flash backward B6, and their hd-256
+   forms at Gemma-2B's heads and at edge cases (lengths 1, 63, 64 and 65;
+   L = 129, whose lse the split launch's merge writes; groups of 1, 2 and
+   8), the lse form's output equal to the inference form's bit for bit
+   and hd-256 B6's gradients the same bits on a second call; the
    weight-streaming kernels, B4's B>1 form (int8) and B8 (int4), at every
    decode projection shape of Qwen2-7B and the vocab head at 1, 8 and 32
    rows, each case called twice and held to the same bits; max error,
@@ -53,7 +57,7 @@ Phases, each of which raises on failure (the process then exits non-zero):
    where it runs on CUDA; for B8 ``torch._weight_int4pack_mm`` on the
    weight converted to its layout; for B9 the checksums as one ``sum``),
    that call's time. The kernels are timed warm and with the L2 flushed
-   before each call (B2, B2 with the logsumexp and B6 warm only; B4's
+   before each call (B2 warm only; B4's
    matvec and B9b-d read more than the 50 MB L2 either way); each
    byte-bound row also prints its bytes
    over the measured read ceiling. Then the int8 forms of B2 folded
@@ -103,7 +107,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
    up to a near-tie, and one chunked admission, its first-step logits
    within LOGIT_ATOL of the atomic prefill's, with exact launch counts of
    B2 folded int8, B3 int8 and B4.
-9. The int4 configuration: the int8 model is freed and the same model is
+9. The int4 configuration: the int8 model is freed and the same model,
+   cut to SHALLOW_LAYERS decoder layers (the run's time limit), is
    built with int4 LLM projections and lm_head (``init_model(bits=4)``,
    groups of 512 input rows); phases 4, 5 and 8 run again with the bf16
    KV cache, with exact launch counts of B8 (every decode projection and
@@ -204,7 +209,13 @@ Phases, each of which raises on failure (the process then exits non-zero):
    update (learning rate 0), every leaf moved after the second (the ground
    head's too), exact launch counts; before it, one V=8 LM and one V=8
    ground mini-step through the kernels against the same mini-steps with
-   the plain attention swapped in.
+   the plain attention swapped in. Phase 7b: the same on LLaVA over
+   Gemma-2B (head_dim 256, 8 query heads on one kv head) cut to
+   GEMMA_TRAIN_LAYERS decoder layers (at all 18 the f32 masters and AdamW
+   do not fit the card): every mini-step's attention on the hd-256 forms
+   (B2 with the lse 2 x layers, B6 layers, no hd-128 training launch),
+   its swap check with Gemma's bounds and controls (GEMMA_SWAP_CASES);
+   seconds per mini-step, tokens/s and the peak printed.
 15. LoRA, QLoRA, the adapted answer and DPO (after phase 7 frees its
    model; ``run_lora_paths``): ``Trainer.train()`` with ``lora_r=128,
    lora_alpha=256`` at full width and depth (28 layers), f32 masters, bf16
@@ -229,7 +240,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
    reference's checksums unchanged, exact launches per step. Seconds per
    mini-step, tokens/s, peaks and the adapted ms/token are printed.
 16. Other inputs (after phase 15; ``run_other_inputs``), on a bf16 model
-   at full width and depth: (a) ``generate_answer_image`` on a seeded
+   at full width and SHALLOW_LAYERS decoder layers: (a)
+   ``generate_answer_image`` on a seeded
    768x768 image through anyres + spatial_unpad (5 tiles, 3699 vision
    tokens) and through pad, (b) ``generate_answer_video_file`` on a
    48-frame 480x640 mp4 the phase writes with cv2 (force-sampled to 32
@@ -240,10 +252,11 @@ Phases, each of which raises on failure (the process then exits non-zero):
    block without its base view, the frames in reverse order; >= 2x); the
    same model with seeded ``world_pe_mlp`` leaves answers a ScanQA
    question under the MLP world PE (B1, B2, B3 exact); (c) LoRA
-   (``lora_r=128, lora_alpha=256``) over that bf16 base at 28 layers on
+   (``lora_r=128, lora_alpha=256``) over that bf16 base on
    two image records and one video-file record, one mini-step each: the
    trainables bit for bit after update 1, every B moved after update 2,
-   B2 with the lse 2 x 28 and B6 28 per mini-step; (d) at TRAIN_LAYERS
+   B2 with the lse 2 x layers and B6 once a layer per mini-step; (d) at
+   TRAIN_LAYERS
    layers with f32 masters, one V=8 mini-step per coordinate-pooling and
    world-PE variant (min-max + sin3d, sample9 + sin3d, avg + MLP, sample1
    + mrope) against the same mini-step with the plain attention swapped
@@ -286,7 +299,8 @@ Phases, each of which raises on failure (the process then exits non-zero):
    captured decode and its stream through the eager one, each with exact
    launches, the stream's ms per token beside 15c's captured ms/token, an
    unknown name a 404).
-18. Variants and real weights (``run_variants_and_weights``), on a bf16
+18. Variants and real weights (``run_variants_and_weights``), at
+   SHALLOW_LAYERS decoder layers, on a bf16
    ``ModelConfig()`` drawn on the card: (a) w8a8 (``quantize_tree(act=
    "int8")``) and int8 weight-only trees of the same weights, the w8a8
    first-step logits within W8A8_GAP_FACTOR times the int8 model's RMS
@@ -363,6 +377,7 @@ import inspect
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -437,6 +452,11 @@ KERNEL_INFO = {
     "shared_prefix_attention_hd256": (
         "video3d_tpu_torch/csrc/attention_hd256.cu",
         "video3d_tpu/kernels/flash_attention.py:503"),
+    "flash_attention_lse_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
+                                  "video3d_tpu/kernels/flash_attention.py:64"),
+    "flash_attention_bwd_hd256": (
+        "video3d_tpu_torch/csrc/flash_attention_bwd_hd256.cu",
+        "video3d_tpu/kernels/flash_attention.py:181, :216"),
     **{f"{name}_hd256_int{bits}": (
         "video3d_tpu_torch/csrc/attention_hd256.cu", replaces)
        for bits in (8, 4)
@@ -462,8 +482,10 @@ INT4_CACHE_KERNELS = ("decode_attention_int4", "flash_attention_folded_int4",
 #: the HBM stream probes, B9 (their main path: phase 11, the benchmark)
 PROBE_KERNELS = ("stream_probe_kv", "stream_probe_one", "stream_probe_multi",
                  "stream_probe_split")
-#: kernels of the training path (phase 7)
-TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd")
+#: kernels of the training path (phase 7; the hd-256 forms: phase 7b's
+#: Gemma-2B)
+TRAIN_KERNELS = ("flash_attention_lse", "flash_attention_bwd",
+                 "flash_attention_lse_hd256", "flash_attention_bwd_hd256")
 #: the head-width-256 forms (their main path: phase 19's Gemma-2B; the
 #: int8 and int4 forms under phase 19 (f))
 HD256_KERNELS = ("flash_attention_hd256", "flash_attention_folded_hd256",
@@ -505,6 +527,11 @@ INT8_LOGIT_ATOL = 0.5
 # layers of the stacked caches of the B3 / B2 folded checks (the kernels
 # read the last one by strides)
 CACHE_LAYERS = 28
+# decoder depth of the models phases 9, 10, 16 and 18 draw for themselves
+# (widths stay ModelConfig()'s): their checks hold each path against
+# itself on the same model, and at all 28 layers the whole run took 1008
+# and 1188 s of its 1200 on two H100 80GB HBM3 machines (700 W)
+SHALLOW_LAYERS = 14
 # B4 against its plain version in f32: the kernel rounds its f32 sum once
 # to bf16, which moves it by up to half a bf16 ulp, 2^-8 of |ref| at worst;
 # the bound allows one ulp, |d| <= B4_REL * |ref| + B4_ABS. The check reads
@@ -542,8 +569,15 @@ INT4_CACHE_LOGIT_ATOL = 0.25
 B6_REL = 2e-2
 LSE_ATOL = 1e-3
 # B, L = S, H, KV, length of the B2-with-lse and B6 checks: one ~6.8k-token
-# training record in the 8192 bucket at Qwen2-7B's heads
+# training record in the 8192 bucket at Qwen2-7B's heads, and at Gemma-2B's
+# (hd 256), whose forms are also held at edge cases (B, L, H, KV, lengths):
+# L = 129 with 8 heads on one kv head (17 row tiles: the lse comes from
+# the split launch's merge), lengths 1, 63, 64 and 65 in groups of 2, and
+# groups of 1
 TRAIN_ATTENTION = (1, 8192, 28, 4, 6780)
+TRAIN_ATTENTION_HD256 = (1, 8192, 8, 1, 6780)
+TRAIN_EDGES_HD256 = ((1, 129, 8, 1, [129]), (4, 130, 8, 4, [1, 63, 64, 65]),
+                     (2, 200, 2, 2, [200, 64]))
 # B2 prefill's checks: the phase-3 shape (B, L, lengths) at Qwen2-7B's
 # heads, and the cases at its tiles' edges (B, L, lengths, causal)
 FLASH_HEADS = (28, 4)
@@ -2719,126 +2753,211 @@ def check_kernels():
           "timed):", flush=True)
     check_long_context_int8(dev)
     rows.update(check_training_kernels(dev))
+    rows.update(check_training_kernels_hd256(dev))
     return rows, ceiling
 
 
-def check_training_kernels(dev) -> dict:
-    """B2 with the logsumexp and B6 at the training shapes (B=1, L=S=8192,
-    length 6780, H=28, KV=4, hd=128, causal), each against its plain
-    version in float32 on the same bf16 values; controls: the lse with the
-    causal mask dropped; dK/dV of one q head per group (no group sum),
-    delta left out, the causal mask dropped."""
+def _train_inputs(g, dev, B: int, L: int, H: int, KV: int, hd: int):
+    """q (peaked), k, v and dO of a training attention case, bf16."""
     import torch
 
-    from video3d_tpu_torch.kernels import flash_attention as fa
-
-    g = torch.Generator(device=dev).manual_seed(10)
-    B, L, H, KV, n = TRAIN_ATTENTION
-    hd = 128
     q = (Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
          ).to(torch.bfloat16)
     k = torch.randn(B, L, KV, hd, generator=g, device=dev).to(torch.bfloat16)
     v = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)
          ).to(torch.bfloat16)
     do = torch.randn(B, L, H, hd, generator=g, device=dev).to(torch.bfloat16)
-    lens = torch.tensor([n], dtype=torch.int32, device=dev)
-    print("flash_attention_lse:", flush=True)
+    return q, k, v, do
+
+
+def _check_training_case(label: str, q, k, v, do, lengths,
+                         reproducible: bool = False):
+    """B2 with the logsumexp and B6 on one case against their plain
+    versions in float32 on the same bf16 values: the output equal to the
+    inference instantiation's bit for bit, the output within BF16_ATOL on
+    the rows below each length, the lse within LSE_ATOL, each gradient
+    within B6_REL of its largest value; controls, each required to miss
+    by 4x: the lse with the causal mask dropped; dK/dV of one query head
+    per group (no group sum; G > 1), delta left out, the causal mask
+    dropped. ``reproducible``: a second B6 call gives the same bits.
+    Returns (out, lse, grads, plain grads, output err, lse err)."""
+    import torch
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    B, L, H, hd = q.shape
+    KV = k.shape[2]
+    name = f"{label} B={B} L={L} H={H} KV={KV} lengths={lengths}"
+    lens = torch.tensor(lengths, dtype=torch.int32, device=q.device)
     out, lse = fa.flash_attention_fwd(q, k, v, lens)
-    _check("B2 with lse: output == the inference instantiation's",
+    _check(f"B2 with lse {name}: output == the inference instantiation's",
            torch.equal(out, fa.flash_attention(q, k, v, lengths=lens)),
            "bit for bit")
     qf, kf, vf = q.float(), k.float(), v.float()
     ref_out, ref_lse = fa.flash_attention_fwd_plain(qf, kf, vf, lens)
-    err = _rows_err(out, ref_out, [n])
+    err = _rows_err(out, ref_out, lengths)
     lse_err = float((lse - ref_lse).abs().max())
-    _check(f"B2 with lse L={L} length {n}",
-           err <= BF16_ATOL and lse_err <= LSE_ATOL,
+    _check(f"B2 with lse {name}", err <= BF16_ATOL and lse_err <= LSE_ATOL,
            f"output max |d| {err:.2e} on rows < length (bound "
            f"{BF16_ATOL:.0e}), lse max |d| {lse_err:.2e} (bound "
            f"{LSE_ATOL:.0e})")
     _, broken = fa.flash_attention_fwd_plain(qf, kf, vf, lens, causal=False)
     control = float((broken - ref_lse).abs().max())
-    _check("B2 with lse control, no causal mask", control >= 4 * LSE_ATOL,
+    _check(f"B2 with lse {name} control, no causal mask",
+           control >= 4 * LSE_ATOL,
            f"lse max |d| {control:.2e} (must be >= {4 * LSE_ATOL:.0e})")
     del ref_out, broken
 
-    print("flash_attention_bwd (B6):", flush=True)
-    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, lse, do, lens)
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, lens)
     of, dof = out.float(), do.float()
     ref = fa.flash_attention_bwd_plain(qf, kf, vf, of, lse, dof, lens)
-    errs = {}
-    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        errs[name] = _rel_err(got, want)
+    for what, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        rel = _rel_err(got, want)
         finite = bool(torch.isfinite(got.float()).all())
-        _check(f"B6 {name} L={L} length {n}",
-               errs[name] <= B6_REL and finite,
-               f"max |d| / max |ref| {errs[name]:.2e} (bound {B6_REL:.0e}), "
+        _check(f"B6 {name} {what}", rel <= B6_REL and finite,
+               f"max |d| / max |ref| {rel:.2e} (bound {B6_REL:.0e}), "
                f"finite={finite}")
+    if reproducible:
+        again = fa.flash_attention_bwd(q, k, v, out, lse, do, lens)
+        _check(f"B6 {name}: a second call", all(
+            torch.equal(a, b) for a, b in zip(grads, again)),
+            "the same gradients bit for bit")
+        del again
     G = H // KV
     controls = {
-        "dK/dV of one q head per group": (
-            fa.flash_attention_bwd_plain(qf[:, :, ::G], kf, vf,
-                                         of[:, :, ::G], lse[:, ::G],
-                                         dof[:, :, ::G], lens), (1, 2)),
         "delta left out": (
             fa.flash_attention_bwd_plain(qf, kf, vf, torch.zeros_like(of),
                                          lse, dof, lens), (0, 1)),
         "no causal mask": (
             fa.flash_attention_bwd_plain(qf, kf, vf, of, lse, dof, lens,
                                          causal=False), (0, 1, 2))}
+    if G > 1:
+        controls["dK/dV of one q head per group"] = (
+            fa.flash_attention_bwd_plain(qf[:, :, ::G], kf, vf,
+                                         of[:, :, ::G], lse[:, ::G],
+                                         dof[:, :, ::G], lens), (1, 2))
     for what, (broken, which) in controls.items():
         c = max(_rel_err(broken[i], ref[i]) for i in which)
-        _check(f"B6 control, {what}", c >= 4 * B6_REL,
+        _check(f"B6 {name} control, {what}", c >= 4 * B6_REL,
                f"max |d| / max |ref| {c:.2e} (must be >= {4 * B6_REL:.0e})")
-    del controls, broken
+    return out, lse, grads, ref, err, lse_err
 
-    # times; bounds over the (query, key) pairs the mask allows on all rows
-    pairs = _causal_pairs(L, [n])
+
+def _time_training_forms(names, q, k, v, do, lengths, out, lse, grads,
+                         ref) -> dict:
+    """Phase 3's rows of B2 with the lse and B6 (``names``) at one shape:
+    kernel ms warm and L2 flushed, the plain versions' ms, the bound over
+    the (query, key) pairs the mask allows on all L rows (2 products
+    forward; S^T, dP^T, dV, dK and dQ backward), and the yardstick, one
+    SDPA call: its forward, and its backward alone through autograd,
+    causal, the kv heads repeated outside the timing; on the valid rows
+    and on all L."""
+    import torch
+    import torch.nn.functional as F
+
+    from video3d_tpu_torch.kernels import flash_attention as fa
+
+    B, L, H, hd = q.shape
+    n = lengths[0]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=q.device)
+    pairs = _causal_pairs(L, lengths)
+    fwd, bwd = names
     rows = {
-        "flash_attention_lse": dict(
-            max_abs_err=max(err, lse_err),
-            ms=_median_ms(lambda: fa.flash_attention_fwd(q, k, v, lens), 10),
+        fwd: dict(
+            ms=_kernel_ms(lambda: fa.flash_attention_fwd(q, k, v, lens), 10),
             plain_ms=_median_ms(lambda: fa.flash_attention_fwd_plain(
                 q, k, v, lens), 3),
-            **_bound(_attn(pairs, H), _nbytes(q, k, v, out, lse))),
-        # S^T, dP^T, dV, dK and dQ: five products per allowed pair
-        "flash_attention_bwd": dict(
+            **_bound(_attn(pairs, H, hd), _nbytes(q, k, v, out, lse))),
+        bwd: dict(
             max_abs_err=max(float((a.float() - b).abs().max())
-                            for a, b in zip((dq, dk, dv), ref)),
-            ms=_median_ms(lambda: fa.flash_attention_bwd(
+                            for a, b in zip(grads, ref)),
+            ms=_kernel_ms(lambda: fa.flash_attention_bwd(
                 q, k, v, out, lse, do, lens), 10),
             plain_ms=_median_ms(lambda: fa.flash_attention_bwd_plain(
                 q, k, v, out, lse, do, lens), 3),
-            **_bound(_attn(pairs, H, products=5),
-                     _nbytes(q, k, v, out, do, lse, dq, dk, dv)))}
-    del ref
-    # the yardstick: SDPA's forward, and its backward alone, causal, the kv
-    # heads repeated outside the timing; on the valid rows and on all L
-    import torch.nn.functional as F
-
+            **_bound(_attn(pairs, H, hd, products=5),
+                     _nbytes(q, k, v, out, do, lse, *grads)))}
+    for r in rows.values():
+        r["ms"], r["ms_l2_flushed"] = r["ms"]
     for rows_used, key in ((n, "library_ms"), (L, "library_ms_all_rows")):
         qh, kh, vh = (_heads_first(x[:, :rows_used], H).requires_grad_(True)
                       for x in (q, k, v))
         doh = do[:, :rows_used].transpose(1, 2).contiguous()
         with torch.no_grad():
-            rows["flash_attention_lse"][key] = _sdpa_ms(qh, kh, vh, 10,
-                                                        is_causal=True)
+            rows[fwd][key] = _sdpa_ms(qh, kh, vh, 10, is_causal=True)
         sout = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-        rows["flash_attention_bwd"][key] = _median_ms(
+        rows[bwd][key] = _median_ms(
             lambda: torch.autograd.grad(sout, (qh, kh, vh), doh,
                                         retain_graph=True), 10)
         del sout, qh, kh, vh, doh
     for name, r in rows.items():
-        print(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-              f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
-              f"{'forward' if name.endswith('lse') else 'backward'} "
+        print(f"  {name}: kernel {r['ms']:.4f} ms ({r['ms_l2_flushed']:.4f} "
+              f"ms L2 flushed), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), SDPA "
+              f"{'forward' if name == fwd else 'backward'} "
               f"{r['library_ms']:.4f} ms on the {n} valid rows, "
               f"{r['library_ms_all_rows']:.4f} ms causal on all {L}",
               flush=True)
-    print(f"  SDPA forward + backward {sum(r['library_ms'] for r in rows.values()):.4f}"
-          f" ms ({sum(r['library_ms_all_rows'] for r in rows.values()):.4f} "
-          f"on all rows) against B2 with lse + B6 "
+    print(f"  SDPA forward + backward "
+          f"{sum(r['library_ms'] for r in rows.values()):.4f} ms "
+          f"({sum(r['library_ms_all_rows'] for r in rows.values()):.4f} on "
+          f"all rows) against B2 with lse + B6 "
           f"{sum(r['ms'] for r in rows.values()):.4f} ms", flush=True)
+    return rows
+
+
+def check_training_kernels(dev) -> dict:
+    """B2 with the logsumexp and B6 at the training shapes (B=1, L=S=8192,
+    length 6780, H=28, KV=4, hd=128, causal), each against its plain
+    version in float32 on the same bf16 values, with the controls of
+    :func:`_check_training_case`; then timed."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    B, L, H, KV, n = TRAIN_ATTENTION
+    q, k, v, do = _train_inputs(g, dev, B, L, H, KV, 128)
+    print("flash_attention_lse and flash_attention_bwd (B6):", flush=True)
+    out, lse, grads, ref, err, lse_err = _check_training_case(
+        "hd128", q, k, v, do, [n])
+    rows = _time_training_forms(TRAIN_KERNELS[:2], q, k, v, do, [n], out,
+                                lse, grads, ref)
+    rows[TRAIN_KERNELS[0]]["max_abs_err"] = max(err, lse_err)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_training_kernels_hd256(dev) -> dict:
+    """The hd-256 forms of B2 with the logsumexp and of B6 at Gemma-2B's
+    heads (B=1, L=S=8192, length 6780, H=8, KV=1, causal), then the edge
+    cases of TRAIN_EDGES_HD256 (lengths 1, 63, 64 and 65, L = 129 with
+    the lse written by the split launch's merge, groups of 8, 2 and 1),
+    each against its plain version in float32 with the controls of
+    :func:`_check_training_case`, B6 bit-reproducible on the main case;
+    then the main case timed."""
+    import torch
+
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+    from video3d_tpu_torch.kernels import _launch
+
+    g = torch.Generator(device=dev).manual_seed(26)
+    print("flash_attention_lse_hd256 and flash_attention_bwd_hd256 (B6 at "
+          "hd 256):", flush=True)
+    worst = (0.0, 0.0)
+    for B, L, H, KV, lengths in TRAIN_EDGES_HD256:
+        plan = h256.hd256_plan(B, L, H, KV, L, _launch.sm_count(0))
+        case = _train_inputs(g, dev, B, L, H, KV, 256)
+        *_, err, lse_err = _check_training_case(
+            f"hd256 ({plan.splits} key split{'s' * (plan.splits > 1)})",
+            *case, lengths)
+        worst = (max(worst[0], err), max(worst[1], lse_err))
+        del case
+    B, L, H, KV, n = TRAIN_ATTENTION_HD256
+    q, k, v, do = _train_inputs(g, dev, B, L, H, KV, 256)
+    out, lse, grads, ref, err, lse_err = _check_training_case(
+        "hd256", q, k, v, do, [n], reproducible=True)
+    rows = _time_training_forms(TRAIN_KERNELS[2:], q, k, v, do, [n], out,
+                                lse, grads, ref)
+    rows[TRAIN_KERNELS[2]]["max_abs_err"] = max(err, lse_err, *worst)
     torch.cuda.empty_cache()
     return rows
 
@@ -5630,7 +5749,7 @@ def run_int4_cache_paths(params, cfg, root: str, infos) -> dict:
 
 
 def run_int4_paths(cfg, root: str, infos):
-    """Phase 9: the int4 configuration at full width and depth (int4 LLM
+    """Phase 9: the int4 configuration at ``cfg``'s width and depth (int4 LLM
     projections and lm_head from ``init_model(bits=4)``, bf16 KV cache)
     through phase 4's, phase 5's and phase 8's paths, then phase 10 on the
     same model; returns the launch counts of phase 9's three runs, summed,
@@ -5696,11 +5815,15 @@ TRAIN_GRAD_REL = 5e-2
 GROUND_TRAIN_REL = (1.5e-3, 1e-2, 2e-1)
 
 
-def _plain_train_attention(causal: bool = True, roll_kv: int = 0):
+def _plain_train_attention(causal: bool = True, roll_kv: int = 0,
+                           roll_pos: int = 0, scale_q: float = 1.0):
     """``mha_train`` computed by the plain versions of B2 with the lse and
     of B6 in f32 (the kernels' inputs are bf16), for the swap in phase 7;
     ``roll_kv`` (a control) reads each query head's keys and values from
-    the kv head that many further on."""
+    the kv head that many further on, ``roll_pos`` (a control for a
+    decoder with one kv head) from the position that many further on;
+    ``scale_q`` (a control) multiplies the queries, so the softmax's
+    temperature."""
     import torch
 
     from video3d_tpu_torch.kernels import flash_attention as fa
@@ -5708,7 +5831,8 @@ def _plain_train_attention(causal: bool = True, roll_kv: int = 0):
     class PlainAttention(torch.autograd.Function):
         @staticmethod
         def forward(ctx, q, k, v, lengths):
-            k, v = k.roll(roll_kv, dims=2), v.roll(roll_kv, dims=2)
+            k, v = (x.roll((roll_kv, roll_pos), dims=(2, 1)) for x in (k, v))
+            q = q * scale_q
             f = [t.float() for t in (q, k, v)]
             out, lse = fa.flash_attention_fwd_plain(*f, lengths, causal)
             ctx.save_for_backward(q, k, v, out, lse, lengths)
@@ -5720,7 +5844,9 @@ def _plain_train_attention(causal: bool = True, roll_kv: int = 0):
             dq, dk, dv = fa.flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), out, lse, do.float(),
                 lengths, causal)
-            dk, dv = dk.roll(-roll_kv, dims=2), dv.roll(-roll_kv, dims=2)
+            dk, dv = (x.roll((-roll_kv, -roll_pos), dims=(2, 1))
+                      for x in (dk, dv))
+            dq = dq * scale_q
             return (*(g.to(t.dtype) for g, t in zip((dq, dk, dv),
                                                     (q, k, v))), None)
 
@@ -5796,45 +5922,66 @@ def _loss_and_grads(params, cfg, batch, extras=None):
     return float(loss.detach()), float(global_norm(grads)), grads
 
 
-def _check_plain_swap(params, cfg, root: str, info, dev, frames: int,
-                      max_len: int) -> None:
-    """Phase 7's kernel-vs-plain checks: one V=``frames`` LM mini-step and
-    one ground mini-step through the kernels, then with the plain attention
-    swapped into ``models.qwen2.mha_train`` (restored after); a control
-    swaps in the plain attention without its causal mask."""
+def _swap_results(params, cfg, batch, extras, variants: dict):
+    """One mini-step's (loss, grad_norm) through the kernels, and for each
+    of ``variants`` (name -> ``_plain_train_attention`` keywords) the same
+    mini-step with that plain attention swapped into
+    ``models.qwen2.mha_train`` (restored after): its loss and grad_norm
+    relative to the kernels' and its gradients' relative L2 distance."""
     import torch
 
     from video3d_tpu_torch.models import qwen2
+
+    loss, gn, grads = _loss_and_grads(params, cfg, batch, extras)
+    sq = sum(float((g.float() ** 2).sum()) for g in grads)
+    kernel = qwen2.mha_train
+    results = {}
+    try:
+        for name, kw in variants.items():
+            qwen2.mha_train = _plain_train_attention(**kw)
+            p_loss, p_gn, p_grads = _loss_and_grads(params, cfg, batch,
+                                                    extras)
+            diff = sum(float(((a.float() - b.float()) ** 2).sum())
+                       for a, b in zip(grads, p_grads))
+            results[name] = (abs(loss - p_loss) / abs(p_loss),
+                             abs(gn - p_gn) / p_gn, (diff / sq) ** 0.5)
+            del p_grads
+    finally:
+        qwen2.mha_train = kernel
+    del grads
+    torch.cuda.empty_cache()
+    return loss, gn, results
+
+
+def _check_plain_swap(params, cfg, root: str, info, dev, frames: int,
+                      max_len: int, cases=None) -> None:
+    """Phase 7's kernel-vs-plain checks: one V=``frames`` LM mini-step and
+    one ground mini-step through the kernels, then with the plain attention
+    swapped in, each within its (loss, grad_norm, gradients) bounds; a
+    control, a broken plain attention, must miss each bound by its factor.
+    ``cases``: (kind, record index, bounds, factor, control, its
+    ``_plain_train_attention`` keywords) per mini-step; by default phase
+    7's: the LM step's control drops the causal mask, the ground step's
+    reads the next kv head."""
     from video3d_tpu_torch.train.trainer import ground_extras, to_batch
 
     ds, col = _train_data(root, info, cfg, frames, max_len)
-    cases = (("LM", 0, (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL), 2,
-              "plain attention without its causal mask", {"causal": False}),
-             ("ground", len(TRAIN_QA), GROUND_TRAIN_REL, 4,
-              "plain attention reading the next kv head", {"roll_kv": 1}))
+    if cases is None:
+        cases = (("LM", 0, (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL),
+                  2, "plain attention without its causal mask",
+                  {"causal": False}),
+                 ("ground", len(TRAIN_QA), GROUND_TRAIN_REL, 4,
+                  "plain attention reading the next kv head",
+                  {"roll_kv": 1}))
     for kind, index, bounds, factor, control, broken in cases:
         arrays = col([ds[index]])
         batch = to_batch(arrays, dev)
         extras = ground_extras(arrays, dev)
         _check(f"{kind} mini-step batch", (extras is None) == (kind == "LM"),
                f"grounding extras: {extras is not None}")
-        loss, gn, grads = _loss_and_grads(params, cfg, batch, extras)
-        sq = sum(float((g.float() ** 2).sum()) for g in grads)
-        kernel = qwen2.mha_train
-        results = {}
-        try:
-            for name, kw in (("plain attention", {}), (control, broken)):
-                qwen2.mha_train = _plain_train_attention(**kw)
-                p_loss, p_gn, p_grads = _loss_and_grads(params, cfg, batch,
-                                                        extras)
-                diff = sum(float(((a.float() - b.float()) ** 2).sum())
-                           for a, b in zip(grads, p_grads))
-                results[name] = (abs(loss - p_loss) / abs(p_loss),
-                                 abs(gn - p_gn) / p_gn, (diff / sq) ** 0.5)
-                del p_grads
-        finally:
-            qwen2.mha_train = kernel
-        del grads
+        loss, gn, results = _swap_results(
+            params, cfg, batch, extras,
+            {"plain attention": {}, control: broken})
         n = int(batch.seq_len[0])
         got = results["plain attention"]
         _check(f"V={frames} {kind} mini-step ({n} tokens), kernels vs plain "
@@ -5849,7 +5996,6 @@ def _check_plain_swap(params, cfg, root: str, info, dev, frames: int,
                f"loss rel |d| {ctl[0]:.2e}, grad_norm {ctl[1]:.2e}, "
                f"gradients {ctl[2]:.2e} (each must be >= {factor}x its "
                f"bound)")
-        torch.cuda.empty_cache()
 
 
 def _time_mini_steps(trainer, steps: list, after_step=None) -> None:
@@ -5880,15 +6026,17 @@ def _time_mini_steps(trainer, steps: list, after_step=None) -> None:
     trainer._ground_step_fn = timed("ground", trainer._ground_step_fn)
 
 
-def _check_step_launches(label: str, steps, L: int) -> None:
+def _check_step_launches(label: str, steps, L: int,
+                         names=TRAIN_KERNELS[:2]) -> None:
     """Per mini-step, LM or ground, full fine-tune or LoRA: B2 with the lse
     in the forward and again in each layer's remat recompute, B6 once per
-    layer's backward, and no other kernel (a training product never
-    reaches the weight-streaming kernels, which have no backward)."""
+    layer's backward (``names``: the hd-128 forms, or the hd-256 ones),
+    and no other kernel (a training product never reaches the
+    weight-streaming kernels, which have no backward)."""
     from video3d_tpu_torch.kernels import _build
 
     per_step = dict.fromkeys(_build.LAUNCHES, 0)
-    per_step.update(flash_attention_lse=2 * L, flash_attention_bwd=L)
+    per_step.update({names[0]: 2 * L, names[1]: L})
     nonzero = [{k: v for k, v in s["launches"].items() if v} for s in steps]
     _check(f"{label}launch counts per mini-step",
            all(s["launches"] == per_step for s in steps),
@@ -5898,12 +6046,18 @@ def _check_step_launches(label: str, steps, L: int) -> None:
 
 def run_training(cfg, root: str, info, dev, frames: int = 32,
                  max_len: int = 8192, swap_frames: int = 8,
-                 swap_len: int = 2048) -> dict:
+                 swap_len: int = 2048, label: str = "ModelConfig() widths",
+                 names=TRAIN_KERNELS[:2], swap_cases=None,
+                 out_name: str = "train") -> dict:
     """Phase 7: ``Trainer.train()`` at full width, ``TRAIN_LAYERS`` decoder
     layers and the INFONCE ground head, f32 master weights with bf16
     compute, remat, two mini-steps per update, on the grounding scene's
     ScanQA and ScanRefer records (LM and ground mini-steps); returns the
-    kernel launch counts of the run."""
+    kernel launch counts of the run. Phase 7b runs it on Gemma-2B
+    (``label``), whose attention launches the hd-256 forms (``names``),
+    with its own swap check (``swap_cases``, see
+    :func:`_check_plain_swap`) and its own output directory
+    (``out_name`` under ``root``: checkpoints and metrics)."""
     import torch
 
     from video3d_tpu_torch.kernels import _build
@@ -5913,19 +6067,23 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
     from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
 
     t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     params = init_model(cfg, dev, torch.Generator(device=dev).manual_seed(0),
                         torch.float32)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"training: ModelConfig() widths, {cfg.vision.num_hidden_layers}"
+    print(f"training: {label}, {cfg.vision.num_hidden_layers}"
           f"+{cfg.llm.num_hidden_layers} layers, the {cfg.ground_head.name} "
           f"ground head, {n_params / 1e9:.3f} B f32 master parameters "
           f"initialised on the card in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    _check_plain_swap(params, cfg, root, info, dev, swap_frames, swap_len)
+    _check_plain_swap(params, cfg, root, info, dev, swap_frames, swap_len,
+                      swap_cases)
+    print(f"  the kernel-vs-plain mini-steps' peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     ds, col = _train_data(root, info, cfg, frames, max_len)
-    out_dir = os.path.join(root, "train")
+    out_dir = os.path.join(root, out_name)
     metrics_file = os.path.join(out_dir, "metrics.jsonl")
     trainer = Trainer(cfg, params, ds, col,
                       OptimConfig(total_steps=TRAIN_MINI_STEPS),
@@ -5983,7 +6141,7 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
                                 for k in (key, "grad_norm")),
                f"{key} {r.get(key, float('nan')):.6f}, grad_norm "
                f"{r['grad_norm']:.6f}")
-    _check_step_launches("", steps, cfg.llm.num_hidden_layers)
+    _check_step_launches("", steps, cfg.llm.num_hidden_layers, names)
     smi = _card()
     print(f"  per-mini-step seconds "
           f"{[(s['kind'], round(s['seconds'], 4)) for s in steps]}; tokens/s "
@@ -5995,6 +6153,50 @@ def run_training(cfg, root: str, info, dev, frames: int = 32,
     del trainer, state, params
     gc.collect()
     torch.cuda.empty_cache()
+    return launches
+
+
+# phase 7b: phase 7 on LLaVA over Gemma-2B (GEMMA_2B_HF's widths, head_dim
+# 256), its attention on the hd-256 forms of B2 with the lse and B6. At all
+# 18 decoder layers (3.45 B f32 masters with AdamW) the first update ran
+# out of the card's memory (77.74 GiB in use, an H100 80GB HBM3); at 14
+# the phase peaked at 68.03 GiB
+GEMMA_TRAIN_LAYERS = 14
+# Its V=8 mini-steps through the kernels against the plain attention: on
+# an H100 80GB HBM3 (700 W) the LM step read 1.55e-3, 1.93e-3 and 4.16e-2
+# (loss, grad_norm, gradients; within phase 7's bounds) and the ground step
+# 1.68e-3, 5.16e-4 and 1.32e-1: its loss is above phase 7's ground bound
+# (measured on Qwen2's 4 layers), so Gemma's ground loss bound is 2.5e-3.
+# With one kv head phase 7's ground control reads nothing else, and
+# without the causal mask the LM step's grad_norm moved only 7.40e-3; the
+# controls read the keys and values 64 positions on (LM: 9.35e-3,
+# 2.14e-1, 9.16e-1, each >= 2x its bound) and double the queries, the
+# softmax's temperature (ground: 4.40e-2, 4.75e-1, 1.84, each >= 4x)
+GEMMA_GROUND_TRAIN_REL = (2.5e-3, 1e-2, 2e-1)
+GEMMA_SWAP_CASES = (
+    ("LM", 0, (TRAIN_LOSS_REL, TRAIN_GN_REL, TRAIN_GRAD_REL), 2,
+     "plain attention reading the keys and values 64 positions on",
+     {"roll_pos": 64}),
+    ("ground", len(TRAIN_QA), GEMMA_GROUND_TRAIN_REL, 4,
+     "plain attention with the queries doubled", {"scale_q": 2.0}))
+
+
+def run_gemma_training(root: str, info, dev) -> dict:
+    """Phase 7b: :func:`run_training` on Gemma-2B at GEMMA_TRAIN_LAYERS of
+    its 18 decoder layers with the INFONCE ground head; every mini-step's
+    attention on the hd-256 training forms; the swap check with
+    GEMMA_SWAP_CASES. Returns the launch counts."""
+    from video3d_tpu_torch.config import GroundHeadType
+
+    cfg = _family_config(GEMMA_2B_HF, GEMMA_TRAIN_LAYERS)
+    cfg = dataclasses.replace(cfg, ground_head=GroundHeadType.INFONCE)
+    launches = run_training(
+        cfg, root, info, dev, label=f"Gemma-2B widths ({GEMMA_TRAIN_LAYERS} "
+        f"of 18 decoder layers: the cut keeps the peak under the card's 80 "
+        f"GB)", names=TRAIN_KERNELS[2:], swap_cases=GEMMA_SWAP_CASES,
+        out_name="train_gemma")
+    # nothing later reads its checkpoint or its ~6 GB bf16 export
+    shutil.rmtree(os.path.join(root, "train_gemma"), ignore_errors=True)
     return launches
 
 
@@ -6821,7 +7023,7 @@ def _mlp_pe_answer(params, cfg, root: str, info, dev) -> dict:
 
 def _lora_other_inputs(params, cfg, root: str, mp4: str, dev) -> dict:
     """Phase 16c: ``Trainer.train()`` with ``lora_r=LORA_R``,
-    ``lora_alpha=LORA_ALPHA`` over phase 4's frozen bf16 model (28 layers,
+    ``lora_alpha=LORA_ALPHA`` over the phase's frozen bf16 model (``cfg``,
     the world PE off) on LORA_IMAGES' two image records and one record of
     the phase's mp4 (32 frames, the time instruction), each its own
     mini-step at one per update: finite losses, the trainables bit for
@@ -7023,8 +7225,8 @@ def _variant_steps(cfg, root: str, info, dev) -> dict:
 
 
 def run_other_inputs(cfg, root: str, info, ground_info, dev) -> dict:
-    """Phase 16: the 2D-image and video-file modalities at full width and
-    depth on a bf16 model (phase 4's seed 16), the MLP world PE's ScanQA
+    """Phase 16: the 2D-image and video-file modalities at ``cfg``'s width
+    and depth on a bf16 model (phase 4's seed 16), the MLP world PE's ScanQA
     answer on it, a LoRA run over it on image and video-file records,
     then the variants' mini-steps at TRAIN_LAYERS layers; prints the
     phase's seconds, peak and launches, and returns the launches."""
@@ -8970,7 +9172,9 @@ def main() -> None:
                                                  ground_info)
         gc.collect()
         torch.cuda.empty_cache()
-        int4, int4_cache = run_int4_paths(cfg, root, infos)
+        shallow = dataclasses.replace(cfg, llm=dataclasses.replace(
+            cfg.llm, num_hidden_layers=SHALLOW_LAYERS))
+        int4, int4_cache = run_int4_paths(shallow, root, infos)
         gc.collect()
         torch.cuda.empty_cache()
         train_cfg = dataclasses.replace(
@@ -8980,13 +9184,20 @@ def main() -> None:
         print(f"  launches (training path): {train}", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
+        print("Gemma-2B training (phase 7b):", flush=True)
+        gemma_train = run_gemma_training(root, ground_info, dev)
+        print(f"  launches (Gemma-2B training path): {gemma_train}",
+              flush=True)
+        train = {k: v + gemma_train[k] for k, v in train.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
         lora = run_lora_paths(cfg, train_cfg, root, info, ground_info, dev,
                               int8_b1_ms)
         print(f"  launches (phase 15): {lora}", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         print("other inputs (phase 16):", flush=True)
-        other = run_other_inputs(cfg, root, info, ground_info, dev)
+        other = run_other_inputs(shallow, root, info, ground_info, dev)
         gc.collect()
         torch.cuda.empty_cache()
         print("serving over HTTP (phase 17):", flush=True)
@@ -8994,7 +9205,7 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
         print("variants and real weights (phase 18):", flush=True)
-        variants = run_variants_and_weights(cfg, root, info, dev)
+        variants = run_variants_and_weights(shallow, root, info, dev)
         gc.collect()
         torch.cuda.empty_cache()
         print("decoder families and towers (phase 19):", flush=True)

@@ -657,13 +657,13 @@ B6_REL = 2e-2
 LSE_ATOL = 1e-3
 
 
-def _train_inputs(dev, B, L, H, KV, lengths, seed):
+def _train_inputs(dev, B, L, H, KV, lengths, seed, hd=128):
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = (Q_SCALE * torch.randn(B, L, H, 128, generator=g, device=dev)
+    q = (Q_SCALE * torch.randn(B, L, H, hd, generator=g, device=dev)
          ).bfloat16()
-    k = torch.randn(B, L, KV, 128, generator=g, device=dev).bfloat16()
-    v = (0.5 * torch.randn(B, L, KV, 128, generator=g, device=dev)).bfloat16()
-    do = torch.randn(B, L, H, 128, generator=g, device=dev).bfloat16()
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev).bfloat16()
+    v = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)).bfloat16()
+    do = torch.randn(B, L, H, hd, generator=g, device=dev).bfloat16()
     return q, k, v, do, torch.tensor(lengths, dtype=torch.int32, device=dev)
 
 
@@ -748,6 +748,105 @@ def test_flash_train_function_on_the_gpu(dev):
     torch.cuda.synchronize()
     for name in ("flash_attention_lse", "flash_attention_bwd"):
         assert _build.LAUNCHES[name] == before[name] + 1
+    out, lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
+                                            lens)
+    ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out,
+                                       lse, do.float(), lens)
+    for a, want in zip(args, ref):
+        assert _rel(a.grad, want) <= B6_REL
+
+
+# ---- B2 with the logsumexp and B6 at hd 256 (Gemma): TRAIN_CASES' shapes
+# with Gemma's heads (8 query heads on 1 kv head) and groups of 1, 2 and 8,
+# lengths 1, 63, 64 and 65, L = 129 (the lse through a split launch and its
+# merge), against their plain versions in f32 on the same bf16 values
+HD256_TRAIN_CASES = [(2, 300, 8, 1, [300, 150]), (1, 129, 8, 1, [129]),
+                     (2, 257, 8, 1, [1, 128]), (1, 200, 8, 4, [63]),
+                     (2, 130, 2, 2, [64, 65]), (1, 257, 8, 2, [129])]
+
+
+@pytest.mark.parametrize("B,L,H,KV,lengths", HD256_TRAIN_CASES)
+def test_hd256_lse_kernel(dev, B, L, H, KV, lengths):
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    q, k, v, _, lens = _train_inputs(dev, B, L, H, KV, lengths, 21, hd=256)
+    out, lse = _launched("flash_attention_lse_hd256",
+                         lambda: fa.flash_attention_fwd(q, k, v, lens))
+    # the prefill form's instantiation with the lse: the same output
+    assert torch.equal(out, h256.prefill_hd256(q, k, v, lens))
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                    v.float(), lens)
+    assert _rows_err(out, ref_out, lengths) <= BF16_ATOL
+    assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+    _, no_causal = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                v.float(), lens, causal=False)
+    assert float((no_causal - ref_lse).abs().max()) > 4 * LSE_ATOL
+
+
+@pytest.mark.parametrize("B,L,H,KV,lengths", HD256_TRAIN_CASES)
+def test_hd256_bwd_kernels(dev, B, L, H, KV, lengths):
+    """B6 at hd 256 (two launches, counted once) against its plain version
+    in f32; no atomics, so a second call gives the same bits."""
+    q, k, v, do, lens = _train_inputs(dev, B, L, H, KV, lengths, 22, hd=256)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens)
+    call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, lens)
+    got = _launched("flash_attention_bwd_hd256", call)
+    f = [t.float() for t in (q, k, v, out)]
+    ref = fa.flash_attention_bwd_plain(*f, lse, do.float(), lens)
+    for a, want in zip(got, ref):
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel(a, want) <= B6_REL
+    for a, b in zip(got, call()):
+        assert torch.equal(a, b)
+    G = H // KV
+    one_head = fa.flash_attention_bwd_plain(
+        f[0][:, :, ::G], f[1], f[2], f[3][:, :, ::G], lse[:, ::G],
+        do.float()[:, :, ::G], lens)
+    no_delta = fa.flash_attention_bwd_plain(f[0], f[1], f[2],
+                                            torch.zeros_like(f[3]), lse,
+                                            do.float(), lens)
+    no_causal = fa.flash_attention_bwd_plain(*f, lse, do.float(), lens,
+                                             causal=False)
+    if G > 1:
+        assert _rel(one_head[1], ref[1]) > 4 * B6_REL
+    assert _rel(no_delta[0], ref[0]) > 4 * B6_REL
+    assert max(_rel(a, b) for a, b in zip(no_causal, ref)) > 4 * B6_REL
+
+
+def test_hd256_training_forms_without_the_causal_mask(dev):
+    """causal=False through both hd-256 forms: lse and gradients against
+    the non-causal twins; the causal twins miss by 4x."""
+    q, k, v, do, lens = _train_inputs(dev, 2, 200, 8, 2, [200, 90], 23,
+                                      hd=256)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens, causal=False)
+    f = [t.float() for t in (q, k, v)]
+    ref_out, ref_lse = fa.flash_attention_fwd_plain(*f, lens, causal=False)
+    assert _rows_err(out, ref_out, [200, 90]) <= BF16_ATOL
+    assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+    grads = fa.flash_attention_bwd(q, k, v, out, lse, do, lens, causal=False)
+    ref = fa.flash_attention_bwd_plain(*f, out.float(), lse, do.float(), lens,
+                                       causal=False)
+    causal = fa.flash_attention_bwd_plain(*f, out.float(), lse, do.float(),
+                                          lens)
+    for a, want in zip(grads, ref):
+        assert _rel(a, want) <= B6_REL
+    assert max(_rel(a, b) for a, b in zip(causal, ref)) > 4 * B6_REL
+
+
+def test_hd256_train_function_on_the_gpu(dev):
+    """mha_train on CUDA tensors of width 256: the forward launches B2 with
+    the lse at hd 256, the backward B6 at hd 256 once, no hd-128 training
+    form; gradients agree with the plain versions."""
+    from video3d_tpu_torch.kernels.attention import mha_train
+
+    q, k, v, do, lens = _train_inputs(dev, 1, 200, 8, 1, [170], 24, hd=256)
+    before = dict(_build.LAUNCHES)
+    args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    mha_train(*args, lens).backward(do)
+    torch.cuda.synchronize()
+    delta = {n: _build.LAUNCHES[n] - before[n] for n in before}
+    assert {n: d for n, d in delta.items() if d} == {
+        "flash_attention_lse_hd256": 1, "flash_attention_bwd_hd256": 1}
     out, lse = fa.flash_attention_fwd_plain(q.float(), k.float(), v.float(),
                                             lens)
     ref = fa.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out,
@@ -2017,10 +2116,11 @@ def test_hd256_decode_kernel(dev, H, KV, S, lens):
 
 
 def test_hd256_forms_refuse_what_they_do_not_take(dev):
-    """What the hd-256 forms still refuse on the card, with a ValueError
-    before any launch: a quantized cache without its scales, f16 scales,
-    a flat or paged cache of another dtype (f16), and the training forward
-    (B2 with the logsumexp, ROADMAP B)."""
+    """What the hd-256 forms refuse on the card, with a ValueError before
+    any launch: a quantized cache without its scales, f16 scales, a flat
+    or paged cache of another dtype (f16), and training inputs B2 with the
+    logsumexp does not take (f16, keys of another length than the
+    queries)."""
     B, S, KV, hd = 1, 128, 1, 256
     q = torch.zeros(B, 1, 8, hd, dtype=torch.bfloat16, device=dev)
     k8 = torch.zeros(2, B, S, KV * hd, dtype=torch.int8, device=dev)
@@ -2036,8 +2136,13 @@ def test_hd256_forms_refuse_what_they_do_not_take(dev):
                                       0, KV)
     kk = torch.zeros(B, 64, KV, hd, dtype=torch.bfloat16, device=dev)
     qq = torch.zeros(B, 64, 8, hd, dtype=torch.bfloat16, device=dev)
+    before = _build.LAUNCHES["flash_attention_lse_hd256"]
     with pytest.raises(ValueError):
-        fa.flash_attention_fwd(qq, kk, kk, lens)
+        fa.flash_attention_fwd(qq.half(), kk.half(), kk.half(), lens)
+    with pytest.raises(ValueError):
+        fa.flash_attention_fwd(qq, kk[:, :32].contiguous(),
+                               kk[:, :32].contiguous(), lens)
+    assert _build.LAUNCHES["flash_attention_lse_hd256"] == before
     p8 = torch.zeros(64, KV, hd, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         fa.flash_attention_shared_prefix(qq, p8, p8, kk, kk, lens)

@@ -5,7 +5,9 @@ kernel in interpret mode (its forward's lse and ``jax.grad`` of its custom
 VJP), and ``FlashAttentionFunction`` against autograd through
 ``mha_reference``. All in float32; dQ/dK/dV and lse within 1e-4 of the
 largest reference magnitude (f32 sums in other orders, over up to 257 keys
-and a group of up to 7 heads)."""
+and a group of up to 8 heads). The cases include Gemma's head width 256,
+which the JAX wrapper takes as it is (a multiple of 128) and the port's
+twins serve as the hd-256 kernels' oracles."""
 
 import numpy as np
 import pytest
@@ -28,6 +30,10 @@ CASES = [  # B, L, H, KV, hd, lengths
     (1, 129, 2, 2, 32, [129]),
     (2, 257, 7, 1, 32, [1, 128]),
     (1, 257, 4, 1, 32, [129]),
+    # head width 256: Gemma-2B's group of 8 on one kv head; a group of 2
+    # with a row whose length ends mid-tile
+    (1, 150, 8, 1, 256, [150]),
+    (2, 129, 2, 1, 256, [129, 64]),
 ]
 
 
@@ -50,13 +56,15 @@ def _close(got, want, what):
 
 def _jax_lse(q, k, v, lengths, H, KV):
     """The Pallas forward's (B, H, L) lse, with the padding the JAX wrapper
-    applies (L to a multiple of the 64-row blocks, hd to 128)."""
+    applies (L to a multiple of the 64-row blocks, hd to a multiple of
+    128)."""
     B, L, _, hd = q.shape
     Lp = -(-L // 64) * 64
+    hdp = -(-hd // 128) * 128
 
     def flat(x, heads):
         x = jnp.asarray(x).transpose(0, 2, 1, 3).reshape(B * heads, L, hd)
-        return jnp.pad(x, ((0, 0), (0, Lp - L), (0, 128 - hd)))
+        return jnp.pad(x, ((0, 0), (0, Lp - L), (0, hdp - hd)))
 
     len_bh = jnp.stack([jnp.repeat(jnp.asarray(lengths), H),
                         jnp.zeros((B * H,), jnp.int32)], axis=1)

@@ -23,13 +23,15 @@ torch.set_num_threads(1)
 H100_SMS = 132
 HD = h256.HEAD_DIM
 # (B, L, H, KV, S) of every hd-256 call chip_smoke.py makes: phase 3's
-# rows and edge cases, phase 19's Gemma-2B miss (prefill), hit (folded)
-# and decode, and the speculative verify shape
+# rows and edge cases (the training forms' too), phase 19's Gemma-2B miss
+# (prefill), hit (folded) and decode, and the speculative verify shape
 SMOKE_SHAPES = [(1, 8192, 8, 1, 8192), (2, 300, 8, 2, 300),
                 (3, 65, 8, 1, 65), (1, 64, 8, 1, 8224), (2, 64, 8, 2, 8224),
                 (1, 1, 8, 1, 8704), (4, 1, 8, 2, 8704), (4, 1, 8, 1, 8704),
                 (1, 6748, 8, 1, 6748), (1, 64, 8, 1, 6812),
-                (1, 1, 8, 1, 6780), (8, 5, 8, 1, 6812)]
+                (1, 1, 8, 1, 6780), (8, 5, 8, 1, 6812),
+                (1, 129, 8, 1, 129), (4, 130, 8, 4, 130),
+                (2, 200, 2, 2, 200)]
 
 
 @pytest.mark.parametrize("B,L,H,KV,S", SMOKE_SHAPES)
@@ -132,7 +134,7 @@ def test_launch_hands_the_plan_to_the_c_entry(form, L, S, q_off,
 
 
 def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
-                 sms: int = H100_SMS):
+                 sms: int = H100_SMS, causal: bool = True, lse=None):
     """The kernel's algorithm in f32 torch for q (B, L, H, 256) over a key
     axis of S slots: per (batch row, kv head), row tile and split of
     ``hd256_plan``, the tile's folded rows (row f: query f // G of head
@@ -144,7 +146,12 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
     the key's two scales), the online softmax over 64-key tiles in base 2
     (a quantized key's scale on its score column, its value scale on p,
     l summed over the unscaled p), then the one split's normalised output
-    or the merge of every split's (O, m, l), empty partials skipped."""
+    or the merge of every split's (O, m, l), empty partials skipped.
+    ``causal=False`` (the training form only) drops the rule key <= the
+    row's position; a (B, H, L) ``lse`` tensor receives each row's
+    logsumexp as the training form writes it: (m ln 2 + log l) from the
+    merged base-2 max and sum (one split: its own), -1e30 + log(1e-30) for
+    a row with no allowed key."""
     B, L, H, hd = q.shape
     G = H // KV
     plan = h256.hd256_plan(B, L, H, KV, S, sms)
@@ -163,7 +170,7 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                 for sp in range(plan.splits):
                     kb = sp * plan.split_keys
                     ke = min(kb + plan.split_keys, lim,
-                             pos0 + fs[-1] // G + 1)
+                             pos0 + fs[-1] // G + 1 if causal else lim)
                     m = torch.full((len(fs),), -math.inf)
                     lsum = torch.zeros(len(fs))
                     o = torch.zeros(len(fs), hd)
@@ -183,7 +190,7 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                                     ksc[r], vsc[r] = rows[2:]
                                 live[r] = True
                         x = (qt @ kk.T) * (ksc * scale)[None]
-                        ok = (keys[None] <= pos[:, None]) \
+                        ok = ((keys[None] <= pos[:, None]) | (not causal)) \
                             & (keys[None] < lim) & live[None]
                         x = torch.where(ok, x, -math.inf)
                         m_new = torch.maximum(m, x.max(1).values)
@@ -205,6 +212,10 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                         w = 2.0 ** (pm - mx)
                         acc, tot = acc + w * po, tot + w * pl
                 out[b, f // G, g * G + f % G] = acc / tot if tot > 0 else 0.0
+                if lse is not None:
+                    lse[b, g * G + f % G, f // G] = \
+                        (-1e30 if mx == -math.inf else mx * math.log(2)) \
+                        + math.log(max(float(tot), 1e-30))
     return out
 
 

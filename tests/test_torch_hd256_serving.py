@@ -414,16 +414,15 @@ def test_shared_prefix_algorithm_matches_the_twin(B, L, P, slens, sms):
 
 def test_card_paths_at_hd256():
     """``check_card_path`` on a CUDA device (no card needed): the answer,
-    paged, shared-prefix and quantized-cache paths take head_dim 256;
-    training raises a ValueError naming ROADMAP B; ALiBi on pages raises
-    whatever the width."""
+    paged, shared-prefix, quantized-cache and training paths take head_dim
+    256 (training: B2 with the logsumexp and B6 at hd 256); ALiBi on pages
+    raises whatever the width."""
     cfg = port_config(model_config("gemma_hd256"))
     assert cfg.llm.head_dim == 256
-    for path in ("answer", "paged", "shared_prefix", "quantized_cache"):
-        assert 256 in CARD_HEAD_DIMS[path]
+    for path in ("answer", "paged", "shared_prefix", "quantized_cache",
+                 "training"):
+        assert CARD_HEAD_DIMS[path] == (128, 256)
         check_card_path(cfg, "cuda", path)
-    with pytest.raises(ValueError, match="ROADMAP B"):
-        check_card_path(cfg, "cuda", "training")
     check_card_path(cfg, "cpu", "training")          # the CPU runs it
     mpt = dataclasses.replace(cfg, llm=dataclasses.replace(
         cfg.llm, position_embedding="alibi"))
@@ -442,14 +441,21 @@ def gemma(tmp_path_factory):
 
 
 def test_training_at_hd256_refused_on_the_card(gemma):
+    """The Trainer on the card takes head_dim 256 now (B2 with the
+    logsumexp and B6 have hd-256 forms); a head width with no training
+    form (64: eight heads of 64 over the same hidden size) is still
+    refused with a ValueError before any work (no card needed: the check
+    runs before anything touches the device)."""
     from video3d_tpu_torch.train.optim import OptimConfig
     from video3d_tpu_torch.train.trainer import Trainer, TrainingConfig
 
-
     _, cfg, params, data_cfg = gemma
     _, teng = engines(cfg, params, data_cfg)
-    with pytest.raises(ValueError, match="training"):
-        Trainer(teng.cfg, teng.params, None, None, OptimConfig(),
+    check_card_path(teng.cfg, "cuda", "training")
+    narrow = dataclasses.replace(teng.cfg, llm=dataclasses.replace(
+        teng.cfg.llm, head_dim=64, num_attention_heads=8))
+    with pytest.raises(ValueError, match="head_dim 64 has no training"):
+        Trainer(narrow, teng.params, None, None, OptimConfig(),
                 TrainingConfig(), device="cuda")
 
 

@@ -1,10 +1,15 @@
 // Attention at head width 256 (Gemma), in the five forms of the engine's
 // answer and serving paths: B2's prefill, B2 folded, B3, B7 and B5; the
-// last four also over an int8 or a packed int4 cache (or B5's prefix).
+// last four also over an int8 or a packed int4 cache (or B5's prefix); and
+// B2's prefill in its training form, which also writes the logsumexp.
 //
 // Replaces, at hd 256:
 //   * video3d_tpu/kernels/flash_attention.py::_fwd_kernel (call :283), the
 //     prefill form: query row r attends keys s <= r and s < lengths[b];
+//     in its training form (kLse; the custom VJP's forward, :141-143) it
+//     also writes each row's logsumexp, (B, H, L) f32 in natural-log
+//     units, causal or not, for the backward kernel B6
+//     (flash_attention_bwd_hd256.cu);
 //   * the same kernel with pos_div = group (:66; entry
 //     flash_attention_gqa_folded, :760), the folded form: a suffix chunk
 //     whose rows sit at q_offsets[b] + r over one layer of the stacked
@@ -67,7 +72,13 @@
 // output with its row max and sum into an f32 workspace that a second
 // kernel merges, row by row. A split whose keys all lie past its rows'
 // limits writes an empty partial, so a launch with fewer live positions
-// than CTAs merges right.
+// than CTAs merges right. The training form is the prefill form's
+// instantiation with kLse = 1: one CTA's rows write lse = (m + log2 l) ln 2
+// (m is kept in base 2 with sm_scale * log2 e folded in) from the final m
+// and l, or, where the keys split, the merge writes it from the merged max
+// and sum; a row with no allowed key writes -1e30 + log(1e-30), as the
+// hd-128 kernel does. Its output is the inference form's bit for bit, and
+// kLse = 0 compiles every other form as before.
 #include <mma.h>
 
 #include "common.cuh"
@@ -117,6 +128,13 @@ __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000u);
 }
 
+// a row's logsumexp in natural-log units from its base-2 max m and its sum
+// l; the hd-128 kernel's rule for a row with no allowed key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return (m == neg_inf() ? V3D_NEG_INF : m * 0.6931471805599453f)
+      + logf(fmaxf(l, 1e-30f));
+}
+
 struct Params {
   const bf16* q;      // (B, L, H, 256)
   const void* k;      // (B, S, KV, 256): a prefill's K or a cache layer;
@@ -141,6 +159,10 @@ struct Params {
   // (P, KV, 1) (shared prefix)
   const float* ks;
   const float* vs;
+  // the training form (kLse): its (B, H, L) f32 logsumexp, and whether the
+  // causal rule holds (the other forms are causal by construction)
+  float* lse;
+  int causal;
 };
 
 // 64 rows of 256 bf16 (row i at row(i)) into a pitched tile; rows whose
@@ -206,7 +228,7 @@ __device__ __forceinline__ void load_quant_tile(bf16* dst, RowPtr row) {
   }
 }
 
-template <int kMode, int kCache>
+template <int kMode, int kCache, int kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_hd256_kernel(const Params p) {
   using E = Elem<kCache>;
@@ -256,8 +278,10 @@ attention_hd256_kernel(const Params p) {
   }
   const int last_row = min(f0 + kRows, rows_total) - 1;
   const int k_begin = split * p.split_keys;
+  // only the training form may drop the causal rule
+  const bool causal = kLse == 0 || p.causal != 0;
   const int k_end = min(min(k_begin + p.split_keys, lim_b),
-                        pos0 + last_row / p.G + 1);
+                        causal ? pos0 + last_row / p.G + 1 : lim_b);
 
   for (int i = tid; i < kRows * kLdo; i += kThreads) so[i] = 0.f;
 
@@ -409,7 +433,7 @@ attention_hd256_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const int col = sq4 * 16 + c, s = kt + col;
-        const bool ok = pos >= 0 && s <= pos && s < lim
+        const bool ok = pos >= 0 && (!causal || s <= pos) && s < lim
             && (kLookup ? s_kr[col] != nullptr : s < k_end);
         if constexpr (kCache == kBf16)
           x[c] = ok ? ss[srow * kLds + col] * p.scale_log2 : neg_inf();
@@ -498,12 +522,20 @@ attention_hd256_kernel(const Params p) {
       }
     }
   }
+  if constexpr (kLse != 0) {
+    // one split: each row's logsumexp (split launches: the merge's)
+    const int f = f0 + tid;
+    if (p.splits == 1 && tid < kRows && f < rows_total)
+      p.lse[(static_cast<long long>(b) * p.H + g * p.G + f % p.G) * p.L
+            + f / p.G] = row_lse(sm_m[tid], sm_l[tid]);
+  }
 }
 
 // merge the splits of each folded row: one CTA of 256 threads per row, a
-// thread per channel
-__global__ void __launch_bounds__(kHd)
-attention_hd256_merge(const Params p) {
+// thread per channel; the training form (kLse) also writes the row's
+// logsumexp from the merged max and sum
+template <int kLse>
+__device__ __forceinline__ void merge_row(const Params& p) {
   const int f = blockIdx.x, bkv = blockIdx.y;
   const int b = bkv / p.KV, g = bkv % p.KV;
   const int rows_total = p.L * p.G;
@@ -528,22 +560,42 @@ attention_hd256_merge(const Params p) {
   p.out[(static_cast<long long>(b) * p.L + lq) * p.H * kHd
         + static_cast<long long>(h) * kHd + c] =
       __float2bfloat16(l > 0.f ? o / l : 0.f);
+  if constexpr (kLse != 0) {
+    if (c == 0)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.L + lq] =
+          row_lse(mx, l);
+  }
 }
 
-template <int kMode, int kCache>
+__global__ void __launch_bounds__(kHd)
+attention_hd256_merge(const Params p) {
+  merge_row<0>(p);
+}
+
+__global__ void __launch_bounds__(kHd)
+attention_hd256_merge_lse(const Params p) {
+  merge_row<1>(p);
+}
+
+template <int kMode, int kCache, int kLse = 0>
 int launch(const Params& p, cudaStream_t stream) {
   // set once per instantiation: no runtime call beyond the launches runs
   // while a decode step is captured into a CUDA graph
   constexpr size_t smem = smem_bytes<kCache>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_hd256_kernel<kMode, kCache>,
+      attention_hd256_kernel<kMode, kCache, kLse>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid(p.row_tiles, p.splits, p.B * p.KV);
-  attention_hd256_kernel<kMode, kCache><<<grid, kThreads, smem, stream>>>(p);
+  attention_hd256_kernel<kMode, kCache, kLse>
+      <<<grid, kThreads, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
-  attention_hd256_merge<<<dim3(p.L * p.G, p.B * p.KV), kHd, 0, stream>>>(p);
+  const dim3 merge_grid(p.L * p.G, p.B * p.KV);
+  if (kLse != 0)
+    attention_hd256_merge_lse<<<merge_grid, kHd, 0, stream>>>(p);
+  else
+    attention_hd256_merge<<<merge_grid, kHd, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -659,6 +711,25 @@ extern "C" int v3d_attention_hd256(const void* q, const void* k,
   if (mode == kPrefill) return launch<kPrefill, kBf16>(p, st);
   if (mode == kFolded) return launch<kFolded, kBf16>(p, st);
   return launch<kDecode, kBf16>(p, st);
+}
+
+// B2's training form at hd 256: the prefill form (q (B, L, H, 256), k / v
+// (B, L, KV, 256), lens (B,) int32, out (B, L, H, 256)), causal or not,
+// that also writes lse (B, H, L) f32; ws as v3d_attention_hd256.
+extern "C" int v3d_attention_hd256_lse(const void* q, const void* k,
+                                       const void* v, const void* lens,
+                                       void* out, void* lse, void* ws, int B,
+                                       int L, int H, int KV, int causal,
+                                       int splits, int split_keys,
+                                       float sm_scale, void* stream) {
+  Params p;
+  if (lse == nullptr
+      || !dense_params(p, q, k, v, lens, nullptr, out, ws, kPrefill, B, L, L,
+                       H, KV, splits, split_keys, sm_scale))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.lse = static_cast<float*>(lse);
+  p.causal = causal;
+  return launch<kPrefill, kBf16, 1>(p, static_cast<cudaStream_t>(stream));
 }
 
 // The folded (mode 1) and decode (mode 2) forms over a quantized cache

@@ -74,6 +74,8 @@ LAUNCHES: Dict[str, int] = {"fused_geometry": 0, "flash_attention": 0,
                             "paged_attention_hd256_int4": 0,
                             "shared_prefix_attention_hd256_int8": 0,
                             "shared_prefix_attention_hd256_int4": 0,
+                            "flash_attention_lse_hd256": 0,
+                            "flash_attention_bwd_hd256": 0,
                             # not a kernel of the port: the w8a8
                             # product's torch._int_mm calls on the card
                             "int_mm_w8a8": 0}
@@ -180,6 +182,14 @@ _SIGNATURES = {
     "v3d_attention_hd256_shared_prefix_quant": [_P, _P, _P, _P, _P, _P, _P,
                                                 _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _I, _I, _I, _F, _P],
+    # q, k, v, lens, out, lse, workspace, B, L, H, KV, causal, splits,
+    # split_keys, sm_scale, stream
+    "v3d_attention_hd256_lse": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _P],
+    # q, k, v, dout, rows (lse and delta), lengths, dq, dk, dv, B, L, S, H,
+    # KV, causal, sm_scale, stream
+    "v3d_flash_attention_bwd_hd256": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                      _I, _I, _I, _I, _I, _F, _P],
 }
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]

@@ -1,6 +1,8 @@
 """Attention at head width 256 (Gemma's): the prefill form of B2, B2
 folded, B3, B7 and B5, on one hand-written kernel
-(``csrc/attention_hd256.cu``), with their plain PyTorch twins.
+(``csrc/attention_hd256.cu``), B2's training form with the logsumexp on
+the same kernel, and B6, its backward, on two more
+(``csrc/flash_attention_bwd_hd256.cu``), with their plain PyTorch twins.
 
 The JAX package sends any ``hd % 128 == 0`` to its Pallas kernels
 (``video3d_tpu/kernels/attention.py:181``, ``:195``, ``:223``, ``:401``,
@@ -12,8 +14,14 @@ the port send a CUDA tensor of width 256 here. A CPU tensor never reaches
 this module: those entries run their plain versions, which are these
 forms' twins (``mha_reference`` with each form's masks,
 ``paged_attention_plain``, ``mha_shared_prefix_reference``) and the oracle
-of the ``cuda`` tests. Only a bf16 cache has an hd-256 form; the quantized
-caches and the training forms at hd 256 raise (ROADMAP B).
+of the ``cuda`` tests. B2 folded, B3, B7 and B5 also read an int8 or a
+packed int4 cache (B5: its prefix).
+
+Training: ``flash_attention_fwd`` and ``flash_attention_bwd`` of the port
+send hd 256 to :func:`prefill_lse_hd256` (B2 with the logsumexp, counted
+as ``flash_attention_lse_hd256``) and :func:`bwd_hd256` (B6, counted as
+``flash_attention_bwd_hd256``); their twins are the hd-128 forms' plain
+versions, which take any head width.
 
 :func:`hd256_plan` (pure: shapes and the SM count) gives the grid: row
 tiles of 64 folded query rows per (batch row, kv head), and, where those
@@ -38,6 +46,8 @@ from video3d_tpu_torch.kernels.attention import (
 from video3d_tpu_torch.kernels.decode_attention import (
     CACHE_FORMS, decode_attention_plain as decode_hd256_plain)
 from video3d_tpu_torch.kernels.flash_attention import (
+    bwd_rows, flash_attention_bwd_plain as bwd_hd256_plain,
+    flash_attention_fwd_plain as prefill_lse_hd256_plain,
     flash_attention_gqa_folded_plain as folded_hd256_plain,
     flash_attention_plain as prefill_hd256_plain)
 from video3d_tpu_torch.kernels.paged_attention import (
@@ -57,13 +67,17 @@ NAMES = {"prefill": "flash_attention_hd256",
          "folded": "flash_attention_folded_hd256",
          "decode": "decode_attention_hd256",
          "paged": "paged_attention_hd256",
-         "shared_prefix": "shared_prefix_attention_hd256"}
+         "shared_prefix": "shared_prefix_attention_hd256",
+         "lse": "flash_attention_lse_hd256",
+         "bwd": "flash_attention_bwd_hd256"}
 
 __all__ = ["HEAD_DIM", "Hd256Plan", "hd256_plan", "paged_plan",
            "shared_prefix_plan", "prefill_hd256", "prefill_hd256_plain",
            "folded_hd256", "folded_hd256_plain", "decode_hd256",
            "decode_hd256_plain", "paged_hd256", "paged_hd256_plain",
-           "shared_prefix_hd256", "shared_prefix_hd256_plain"]
+           "shared_prefix_hd256", "shared_prefix_hd256_plain",
+           "prefill_lse_hd256", "prefill_lse_hd256_plain", "bwd_hd256",
+           "bwd_hd256_plain"]
 
 
 @dataclass(frozen=True)
@@ -431,3 +445,90 @@ def _launch_shared_prefix(lib, stream: int, sms: int, q, pk, pv, sk, sv,
     _build.check(err, name)
     _build.count_launch(name)
     return out
+
+
+def _check_train(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor) -> None:
+    """The training forms' q (B, L, H, 256) and k / v (B, L, KV, 256):
+    bf16, contiguous, 16-byte aligned, on q's device, H a multiple of
+    KV."""
+    _check_tensors(name, q.device, torch.bfloat16, q=q, k=k, v=v)
+    B, L, H, hd = q.shape
+    if (hd != HEAD_DIM or k.dim() != 4 or v.shape != k.shape
+            or k.shape[:2] != (B, L) or k.shape[3] != HEAD_DIM
+            or H % k.shape[2]):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+
+
+def prefill_lse_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, causal: bool = True):
+    """B2's training form at hd 256 on the card: q (B, L, H, 256), k / v
+    (B, L, KV, 256) bf16; query row r attends keys s < lengths[b] (and s <=
+    r, causal). Returns (out (B, L, H, 256) bf16, lse (B, H, L) f32), out
+    equal to :func:`prefill_hd256`'s bit for bit. Twin:
+    :func:`prefill_lse_hd256_plain` (``flash_attention_fwd_plain``)."""
+    _check_train(NAMES["lse"], q, k, v)
+    return _launch_lse(*_card(q.device), q, k, v, lengths, causal)
+
+
+def _launch_lse(lib, stream: int, sms: int, q, k, v, lengths,
+                causal: bool):
+    """Launch the training form through ``lib`` on ``sms`` SMs: the prefill
+    form's plan and the stream's workspace where the keys split; allocates
+    the output and the lse and reads nothing of lengths on the host."""
+    B, L, H, hd = q.shape
+    KV = k.shape[2]
+    plan = hd256_plan(B, L, H, KV, L, sms)
+    ws = _workspace(plan, q.device, stream)
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
+    err = lib.v3d_attention_hd256_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), _ptr(ws), B, L, H, KV, int(causal),
+        plan.splits, plan.split_keys, float(hd ** -0.5), stream)
+    _build.check(err, NAMES["lse"])
+    _build.count_launch(NAMES["lse"])
+    return out, lse
+
+
+def bwd_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+              lengths: torch.Tensor, causal: bool = True):
+    """B6 at hd 256 on the card: the gradients of :func:`prefill_lse_hd256`
+    given dO (B, L, H, 256) bf16, its lse and delta = rowsum(dO * O), both
+    (B, H, L) f32. Returns (dq, dk, dv) bf16, dK / dV summed over each kv
+    head's group, bit-reproducible (no atomics). Twin:
+    :func:`bwd_hd256_plain` (``flash_attention_bwd_plain``, which takes O
+    and computes delta itself)."""
+    name = NAMES["bwd"]
+    _check_train(name, q, k, v)
+    _check_tensors(name, q.device, torch.bfloat16, do=do)
+    _check_tensors(name, q.device, torch.float32, 4, lse=lse, delta=delta)
+    B, L, H, _ = q.shape
+    if do.shape != q.shape or lse.shape != (B, H, L) \
+            or delta.shape != lse.shape:
+        raise ValueError(f"{name}: do {tuple(do.shape)} lse "
+                         f"{tuple(lse.shape)} delta {tuple(delta.shape)}")
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    return _launch_bwd(_build.library(),
+                       torch.cuda.current_stream(q.device).cuda_stream, q, k,
+                       v, do, bwd_rows(lse, delta), lengths, causal)
+
+
+def _launch_bwd(lib, stream: int, q, k, v, do, rows, lengths,
+                causal: bool):
+    """Launch B6 at hd 256 through ``lib``: the dQ kernel, then the dK / dV
+    kernel; allocates the three gradients, each written whole."""
+    B, L, H, hd = q.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    err = lib.v3d_flash_attention_bwd_hd256(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        rows.data_ptr(), lengths.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, L, L, H, k.shape[2], int(causal),
+        float(hd ** -0.5), stream)
+    _build.check(err, NAMES["bwd"])
+    _build.count_launch(NAMES["bwd"])
+    return dq, dk, dv

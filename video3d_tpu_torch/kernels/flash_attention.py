@@ -23,8 +23,9 @@ with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
 
 At head width 256 the prefill form, B2 folded and B5 (each over a bf16,
 an int8 or a packed int4 cache or prefix) launch
-``csrc/attention_hd256.cu`` instead (``kernels/attention_hd256.py``); the
-training forms take 128 only.
+``csrc/attention_hd256.cu`` instead (``kernels/attention_hd256.py``), and
+so do the training forms: B2 with the logsumexp on the same kernel, B6 on
+``csrc/flash_attention_bwd_hd256.cu``.
 
 Every form at hd 128 runs on Hopper kernels fed by TMA: their C entries
 take the shapes, encode the tensor maps from the kernels' own tile sizes
@@ -423,12 +424,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward of the prefill form: q (B, L, H, hd), k/v (B, L, KV,
     hd) -> (out (B, L, H, hd) in q's dtype, lse (B, H, L) f32). B2's
-    ``kLse`` instantiation on the GPU, the plain version on the CPU."""
+    ``kLse`` instantiation on the GPU (hd 256: the hd-256 kernel's), the
+    plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, lengths, causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_fwd: no kernel for device "
                          f"{q.device}")
+    if q.shape[-1] == 256:
+        from video3d_tpu_torch.kernels import attention_hd256
+
+        return attention_hd256.prefill_lse_hd256(q, k, v, lengths, causal)
     return _fwd_launch(_build.library(), _stream(q.device), q, k, v, lengths,
                        causal, with_lse=True)
 
@@ -476,14 +482,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`flash_attention_fwd`: (dq, dk, dv). On the GPU,
     delta = rowsum(dO * O) in f32 (outside the kernel, as JAX computes
-    it), then B6, one kernel that sums each kv head's group inside; the
-    plain version on the CPU."""
+    it), then B6, which sums each kv head's group inside (hd 256: its two
+    kernels, ``attention_hd256.bwd_hd256``); the plain version on the
+    CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, lengths,
                                          causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device "
                          f"{q.device}")
+    if q.shape[-1] == 256:
+        from video3d_tpu_torch.kernels import attention_hd256
+
+        return attention_hd256.bwd_hd256(q, k, v, do, lse,
+                                         bwd_delta(out, do), lengths, causal)
     return _bwd_launch(_build.library(), _stream(q.device), q, k, v, do, lse,
                        bwd_delta(out, do), lengths, causal)
 

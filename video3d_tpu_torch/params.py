@@ -29,11 +29,11 @@ _OPTIONAL = ("ground_head", "world_pe_mlp", "resampler")
 
 #: head widths the card's attention kernels take on each path: the dense
 #: answer path (B2, B2 folded, B3), B5's shared prefix and B7's pages, over
-#: a bf16, an int8 or an int4 cache, at 128 and 256; B2 with the
-#: logsumexp and B6 for training at 128 only (ROADMAP B, "hd-256 forms")
+#: a bf16, an int8 or an int4 cache, and training (B2 with the logsumexp
+#: and B6), each at 128 and 256
 CARD_HEAD_DIMS = {"answer": (128, 256), "quantized_cache": (128, 256),
                   "shared_prefix": (128, 256), "paged": (128, 256),
-                  "training": (128,)}
+                  "training": (128, 256)}
 
 
 def check_config(cfg: ModelConfig) -> None:
@@ -65,7 +65,8 @@ def check_card_path(cfg: ModelConfig, device, path: str) -> None:
         return
     if llm.head_dim not in CARD_HEAD_DIMS[path]:
         raise ValueError(f"head_dim {llm.head_dim} has no {path} kernel "
-                         f"form on the card yet (ROADMAP B, hd-256 forms)")
+                         f"form on the card (its kernels are compiled for "
+                         f"head widths {CARD_HEAD_DIMS[path]})")
 
 
 def resolve_device(device=None) -> torch.device:

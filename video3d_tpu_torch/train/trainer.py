@@ -222,7 +222,8 @@ class Trainer:
         self.device = resolve_device(device)
         # every decoder family trains (MPT's ALiBi through the plain
         # attention and autograd); on the card a head width without B2
-        # with the logsumexp and B6 forms (Gemma's 256) is refused here
+        # with the logsumexp and B6 forms (they take 128 and Gemma's 256)
+        # is refused here
         check_config(model_cfg)
         check_card_path(model_cfg, self.device, "training")
         # bf16 + master_f32 (default): params stay f32 (the optimizer's
