@@ -2,12 +2,14 @@
 B6 (backward) between two source trees, on one CUDA GPU:
 
     python3 scripts/torch_port/flash_prefill_ab.py --parent DIR [--iters 20]
+        [--hd 128|256]
 
 ``DIR`` holds another tree's ``video3d_tpu_torch`` package (for example a
 ``git archive`` of the parent commit, unpacked). Each turn is a fresh
 process that imports one tree's package, builds its kernels (into that
-tree's ``_build/``) and, at B=1, L=8192, length 6780, H=28, KV=4, hd=128,
-causal (chip_smoke.py's phase-3 shape):
+tree's ``_build/``) and, at B=1, L=8192, length 6780, causal, H=28, KV=4,
+hd=128 (chip_smoke.py's phase-3 shape; ``--hd 256``: Gemma-2B's H=8,
+KV=1, hd=256, the shape of phase 3's hd-256 training rows):
 
 1. holds the tree's ``flash_attention``, ``flash_attention_fwd`` and
    ``flash_attention_bwd`` against the plain versions run in f32 on the same
@@ -34,7 +36,8 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SHAPE = (1, 8192, 28, 4, 6780)      # B, L, H, KV, length
+SHAPES = {128: (1, 8192, 28, 4, 6780),     # hd -> B, L, H, KV, length
+          256: (1, 8192, 8, 1, 6780)}
 BF16_ATOL, LSE_ATOL, B6_REL = 2e-2, 1e-3, 2e-2
 
 
@@ -56,8 +59,9 @@ def _median_ms(fn, iters: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def turn(tree: str, iters: int) -> dict:
-    """One tree's checks and times, in this process."""
+def turn(tree: str, iters: int, hd: int) -> dict:
+    """One tree's checks and times at head width ``hd``, in this
+    process."""
     sys.path.insert(0, tree)
     import torch
 
@@ -66,11 +70,11 @@ def turn(tree: str, iters: int) -> dict:
     assert fa.__file__.startswith(os.path.abspath(tree)), fa.__file__
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(2)
-    B, L, H, KV, n = SHAPE
-    q = (3.0 * torch.randn(B, L, H, 128, generator=g, device=dev)).bfloat16()
-    k = torch.randn(B, L, KV, 128, generator=g, device=dev).bfloat16()
-    v = (0.5 * torch.randn(B, L, KV, 128, generator=g, device=dev)).bfloat16()
-    do = torch.randn(B, L, H, 128, generator=g, device=dev).bfloat16()
+    B, L, H, KV, n = SHAPES[hd]
+    q = (3.0 * torch.randn(B, L, H, hd, generator=g, device=dev)).bfloat16()
+    k = torch.randn(B, L, KV, hd, generator=g, device=dev).bfloat16()
+    v = (0.5 * torch.randn(B, L, KV, hd, generator=g, device=dev)).bfloat16()
+    do = torch.randn(B, L, H, hd, generator=g, device=dev).bfloat16()
     lens = torch.tensor([n], dtype=torch.int32, device=dev)
 
     out = fa.flash_attention(q, k, v, lengths=lens)
@@ -106,10 +110,11 @@ def main() -> None:
     ap.add_argument("--parent",
                     help="a tree holding the other video3d_tpu_torch")
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--hd", type=int, choices=sorted(SHAPES), default=128)
     ap.add_argument("--turn", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.turn:
-        print(json.dumps(turn(args.turn, args.iters)))
+        print(json.dumps(turn(args.turn, args.iters, args.hd)))
         return
     if not args.parent:
         ap.error("--parent DIR is required")
@@ -123,13 +128,15 @@ def main() -> None:
     for tag in turns:
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--turn", trees[tag],
-             "--iters", str(args.iters)], capture_output=True, text=True)
+             "--iters", str(args.iters), "--hd", str(args.hd)],
+            capture_output=True, text=True)
         if res.returncode:
             raise SystemExit(f"{tag} turn failed:\n{res.stdout}{res.stderr}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+    B, L, H, KV, n = SHAPES[args.hd]
     result = {"device": torch.cuda.get_device_name(0), "shape": {
-        "B": SHAPE[0], "L": SHAPE[1], "H": SHAPE[2], "KV": SHAPE[3],
-        "length": SHAPE[4], "causal": True}, "turns": turns}
+        "B": B, "L": L, "H": H, "KV": KV, "length": n, "hd": args.hd,
+        "causal": True}, "turns": turns}
     for name in runs[0]["ms"]:
         result[f"{name} ms"] = [r["ms"][name] for r in runs]
         result[f"{name} max err"] = [r["max_err"][name] for r in runs]
@@ -139,8 +146,8 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip()
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "flash_prefill_ab.json"),
-              "w") as f:
+    name = "flash_prefill_ab" + ("" if args.hd == 128 else f"_hd{args.hd}")
+    with open(os.path.join(ROOT, "chiprun_out", name + ".json"), "w") as f:
         json.dump(result, f, indent=1)
     print(json.dumps(result))
     if not all(result["within bounds"]):

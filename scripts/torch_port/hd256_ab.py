@@ -1,5 +1,6 @@
-"""A/B of the head-width-256 attention kernel (``csrc/attention_hd256.cu``)
-between two source trees, on one CUDA GPU:
+"""A/B of the head-width-256 attention kernels (``csrc/attention_hd256.cu``;
+B2's prefill form: ``csrc/flash_attention_hd256.cu``) between two source
+trees, on one CUDA GPU:
 
     python3 scripts/torch_port/hd256_ab.py --parent DIR [--iters 30]
 

@@ -11,9 +11,12 @@ once); ``cuobjdump -sass`` gives each kernel's opcode sequence (operands
 dropped) and ptxas its registers and spill bytes. For every kernel the
 parent has, the opcode sequences and the registers and spills must be
 equal (a kernel whose template gained a last parameter is matched at that
-parameter's 0: the parent's ``kernel<M>`` is this tree's ``kernel<M, 0>``);
-kernels only in this tree (new instantiations) are listed with their
-instruction counts, registers and spills.
+parameter's 0: the parent's ``kernel<M>`` is this tree's ``kernel<M, 0>``;
+one whose template lost its last parameter is matched the other way: the
+parent's ``kernel<M, C, 0>`` is this tree's ``kernel<M, C>``, and the
+parent's instantiations at another value of it are gone); kernels only in
+this tree (new instantiations) are listed with their instruction counts,
+registers and spills.
 
 Prints one JSON object and writes it to ``chiprun_out/sass_ab.json``.
 """
@@ -137,12 +140,20 @@ def main() -> None:
     # a template parameter added last, whose 0 keeps the old code (the
     # hd-256 kernel's cache form): the parent's kernel<M> is the change's
     # kernel<M, 0>
+    # and a template parameter dropped last (the hd-256 kernel's kLse): the
+    # parent's kernel<M, C, 0> is the change's kernel<M, C>
     for name in list(sass["parent"]):
         zero = "(int)0" if "(int)" in name else "0"
         extended = re.sub(r"<([^<>]*)>\(", rf"<\1, {zero}>(", name, count=1)
-        if name not in sass["change"] and extended in sass["change"]:
-            sass["parent"][extended] = sass["parent"].pop(name)
-            regs["parent"][extended] = regs["parent"].pop(name, None)
+        dropped = re.sub(rf"<([^<>]*), {re.escape(zero)}>\(", r"<\1>(", name,
+                         count=1)
+        if name in sass["change"]:
+            continue
+        for other in (extended, dropped):
+            if other != name and other in sass["change"]:
+                sass["parent"][other] = sass["parent"].pop(name)
+                regs["parent"][other] = regs["parent"].pop(name, None)
+                break
     same, changed, new = [], [], {}
     for name, ops in sorted(sass["change"].items()):
         r = regs["change"].get(name, [None, None])

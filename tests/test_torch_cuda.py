@@ -758,8 +758,8 @@ def test_flash_train_function_on_the_gpu(dev):
 
 # ---- B2 with the logsumexp and B6 at hd 256 (Gemma): TRAIN_CASES' shapes
 # with Gemma's heads (8 query heads on 1 kv head) and groups of 1, 2 and 8,
-# lengths 1, 63, 64 and 65, L = 129 (the lse through a split launch and its
-# merge), against their plain versions in f32 on the same bf16 values
+# lengths 1, 63, 64 and 65, L = 129 (one row past a 128-row query tile),
+# against their plain versions in f32 on the same bf16 values
 HD256_TRAIN_CASES = [(2, 300, 8, 1, [300, 150]), (1, 129, 8, 1, [129]),
                      (2, 257, 8, 1, [1, 128]), (1, 200, 8, 4, [63]),
                      (2, 130, 2, 2, [64, 65]), (1, 257, 8, 2, [129])]
@@ -785,8 +785,9 @@ def test_hd256_lse_kernel(dev, B, L, H, KV, lengths):
 
 @pytest.mark.parametrize("B,L,H,KV,lengths", HD256_TRAIN_CASES)
 def test_hd256_bwd_kernels(dev, B, L, H, KV, lengths):
-    """B6 at hd 256 (two launches, counted once) against its plain version
-    in f32; no atomics, so a second call gives the same bits."""
+    """B6 at hd 256 against its plain version in f32; a second call gives
+    the same dK and dV bits (the splits' partials are summed in a fixed
+    order) and dQ within the bound (reduce-adds in another order)."""
     q, k, v, do, lens = _train_inputs(dev, B, L, H, KV, lengths, 22, hd=256)
     out, lse = fa.flash_attention_fwd(q, k, v, lens)
     call = lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, lens)
@@ -796,8 +797,9 @@ def test_hd256_bwd_kernels(dev, B, L, H, KV, lengths):
     for a, want in zip(got, ref):
         assert bool(torch.isfinite(a.float()).all())
         assert _rel(a, want) <= B6_REL
-    for a, b in zip(got, call()):
-        assert torch.equal(a, b)
+    again = call()
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    assert _rel(again[0], got[0]) <= B6_REL
     G = H // KV
     one_head = fa.flash_attention_bwd_plain(
         f[0][:, :, ::G], f[1], f[2], f[3][:, :, ::G], lse[:, ::G],
@@ -811,6 +813,71 @@ def test_hd256_bwd_kernels(dev, B, L, H, KV, lengths):
         assert _rel(one_head[1], ref[1]) > 4 * B6_REL
     assert _rel(no_delta[0], ref[0]) > 4 * B6_REL
     assert max(_rel(a, b) for a, b in zip(no_causal, ref)) > 4 * B6_REL
+
+
+# B2's prefill form (both instantiations) and B6 at hd 256 at the edges of
+# their tiles (csrc/flash_attention_hd256.cu: 128-row query tiles of two
+# 64-row warpgroups, 64-key tiles; csrc/flash_attention_bwd_hd256.cu:
+# 64-key CTAs walking 64-row query tiles, the group's heads split over
+# CTAs), causal and not: lengths 1, 63, 64, 65, 127, 128 and 129 as B = 7
+# ragged rows, L not a multiple of 128 or 64, groups of 8, 2 and 1
+HD256_EDGES = [(7, 200, 8, 1, [1, 63, 64, 65, 127, 128, 129]),
+               (2, 257, 8, 2, [257, 129]),
+               (3, 190, 2, 2, [190, 65, 1]),
+               (1, 300, 8, 8, [300])]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,L,H,KV,lengths", HD256_EDGES)
+def test_hd256_prefill_forms_at_tile_edges(dev, B, L, H, KV, lengths,
+                                           causal):
+    """Both instantiations, one launch each, the same output bits; output
+    and lse against the twin."""
+    q, k, v, _, lens = _train_inputs(dev, B, L, H, KV, lengths, 31, hd=256)
+    out = _launched("flash_attention_hd256", lambda: fa.flash_attention(
+        q, k, v, lengths=lens, causal=causal))
+    out2, lse = _launched("flash_attention_lse_hd256",
+                          lambda: fa.flash_attention_fwd(q, k, v, lens,
+                                                         causal))
+    assert torch.equal(out, out2)
+    assert bool(torch.isfinite(out.float()).all())
+    ref, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                v.float(), lens, causal)
+    assert _rows_err(out, ref, lengths) <= BF16_ATOL
+    assert float((lse - ref_lse).abs().max()) <= LSE_ATOL
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,L,H,KV,lengths", HD256_EDGES)
+def test_hd256_bwd_at_tile_edges(dev, B, L, H, KV, lengths, causal):
+    """B6 against its twin; keys past each length get zero dK and dV."""
+    q, k, v, do, lens = _train_inputs(dev, B, L, H, KV, lengths, 32, hd=256)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens, causal)
+    got = _launched("flash_attention_bwd_hd256",
+                    lambda: fa.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   lens, causal))
+    f = [t.float() for t in (q, k, v, out)]
+    ref = fa.flash_attention_bwd_plain(*f, lse, do.float(), lens, causal)
+    for a, want in zip(got, ref):
+        assert bool(torch.isfinite(a.float()).all())
+        assert _rel(a, want) <= B6_REL
+    for b, n in enumerate(lengths):
+        assert not got[1][b, n:].any() and not got[2][b, n:].any()
+
+
+def test_hd256_lse_of_an_empty_row(dev):
+    """A row of length 0 allows no key: output 0 and lse -1e30 +
+    log(1e-30), as the hd-128 kernel writes it; the other row as the
+    twin's."""
+    q, k, v, _, lens = _train_inputs(dev, 2, 130, 8, 1, [0, 130], 33, hd=256)
+    out, lse = fa.flash_attention_fwd(q, k, v, lens)
+    want = torch.tensor(-1e30) + torch.log(torch.tensor(1e-30))
+    assert bool((lse[0] == want.to(dev)).all())
+    assert not out[0].any()
+    ref, ref_lse = fa.flash_attention_fwd_plain(q.float(), k.float(),
+                                                v.float(), lens)
+    assert _rows_err(out[1:], ref[1:], [130]) <= BF16_ATOL
+    assert float((lse[1] - ref_lse[1]).abs().max()) <= LSE_ATOL
 
 
 def test_hd256_training_forms_without_the_causal_mask(dev):
@@ -1998,8 +2065,9 @@ def test_captured_w8a8_chunk_equals_uncaptured(dev, decoders):
 
 
 # ---------------------------------------------------------------------------
-# head width 256 (Gemma): B2's prefill form, B2 folded and B3 on
-# csrc/attention_hd256.cu, against their plain twins in f32
+# head width 256 (Gemma): B2's prefill form (csrc/flash_attention_hd256.cu),
+# B2 folded and B3 (csrc/attention_hd256.cu), against their plain twins in
+# f32
 # ---------------------------------------------------------------------------
 
 HD256_PREFILL = [(2, 300, [300, 150], 8, 1), (1, 129, [129], 4, 2),
@@ -2008,8 +2076,9 @@ HD256_PREFILL = [(2, 300, [300, 150], 8, 1), (1, 129, [129], 4, 2),
 
 @pytest.mark.parametrize("B,L,lengths,H,KV", HD256_PREFILL)
 def test_hd256_prefill_kernel(dev, B, L, lengths, H, KV):
-    """At the edges of the 64-row and 64-key tiles, peaked (keys 64-127
-    focused); control: the causal mask dropped misses by 4x."""
+    """At the edges of the 64-row halves of a query tile and of the 64-key
+    tiles, peaked (keys 64-127 focused); control: the causal mask dropped
+    misses by 4x."""
     from video3d_tpu_torch.kernels import attention_hd256 as h256
 
     g = torch.Generator(device=dev).manual_seed(11)

@@ -1,14 +1,18 @@
-"""Host logic of the head-width-256 attention kernel
-(``csrc/attention_hd256.cu``, ``kernels/attention_hd256.py``) on the CPU:
-the plan (``hd256_plan``: row tiles of 64 folded query rows, splits of
-whole 64-key tiles that cover every key slot once, from the shapes and the
-SM count alone), the launch glue with a stand-in library (the pointers,
-shapes and plan handed to the C entry, the stream's workspace where the
-keys split, nothing but the output allocated on a second call, no value
-of the lengths read on the host), and the kernel's algorithm written out in
-plain torch (each CTA's rows, positions and key range, the online softmax
-over 64-key tiles in base 2, the empty partials of splits past a row's
-keys and the merge) against the three forms' plain twins."""
+"""Host logic of the head-width-256 attention kernels
+(``csrc/attention_hd256.cu``, ``csrc/flash_attention_hd256.cu``,
+``csrc/flash_attention_bwd_hd256.cu``, ``kernels/attention_hd256.py``) on
+the CPU: the plans (``hd256_plan``: row tiles of 64 folded query rows,
+splits of whole 64-key tiles that cover every key slot once, from the
+shapes and the SM count alone; ``bwd_hd256_plan``: B6's split of each
+group's query heads), the launch glue with a stand-in library (the
+pointers, shapes and plan handed to the C entry, the stream's workspace
+where the keys split, nothing but the output allocated on a second call,
+no value of the lengths read on the host), and the kernels' algorithms
+written out in plain torch against the plain twins: the WMMA kernel's
+(each CTA's rows, positions and key range, the online softmax over 64-key
+tiles in base 2, the empty partials of splits past a row's keys and the
+merge) for B2 folded and B3, and the prefill kernel's
+(:func:`emulate_prefill`)."""
 
 import math
 
@@ -22,6 +26,9 @@ torch.set_num_threads(1)
 
 H100_SMS = 132
 HD = h256.HEAD_DIM
+FWD_ROWS = 128     # the prefill kernel's query rows per CTA (csrc kBq), 64
+FWD_KEYS = 64      # a consumer; keys per K / V tile (kBk)
+LOG2E = math.log2(math.e)
 # (B, L, H, KV, S) of every hd-256 call chip_smoke.py makes: phase 3's
 # rows and edge cases (the training forms' too), phase 19's Gemma-2B miss
 # (prefill), hit (folded) and decode, and the speculative verify shape
@@ -52,6 +59,44 @@ def test_plan_covers_every_key_once(B, L, H, KV, S):
     assert plan.workspace_bytes == (0 if plan.splits == 1 else
                                     plan.bkv * plan.rows * plan.splits
                                     * h256.PART_FLOATS * 4)
+
+
+# (B, L, H, KV, causal) of B6's calls in chip_smoke.py (phase 3's main
+# case and edges, phase 7b's Gemma-2B records) and the cuda tests
+BWD_SHAPES = [(1, 8192, 8, 1, True), (1, 129, 8, 1, True),
+              (4, 130, 8, 4, True), (2, 200, 2, 2, True),
+              (2, 200, 8, 2, False), (1, 4096, 8, 1, True),
+              (2, 300, 8, 1, True), (1, 8192, 28, 4, True)]
+
+
+@pytest.mark.parametrize("B,L,H,KV,causal", BWD_SHAPES)
+def test_bwd_plan_splits_each_group_evenly(B, L, H, KV, causal):
+    """Every query head of a group in exactly one split; the fewest splits
+    whose longest walk fits the SMs' even share, else one head a CTA."""
+    plan = h256.bwd_hd256_plan(B, L, H, KV, causal, H100_SMS)
+    G = H // KV
+    assert G % plan.splits == 0 and plan.splits * plan.heads == G
+    assert plan.key_tiles == -(-L // h256.BWD_KEYS) and plan.bkv == B * KV
+    assert plan.ctas == plan.key_tiles * B * KV * plan.splits
+    q_tiles = -(-L // h256.BWD_ROWS)
+    assert plan.longest == q_tiles * plan.heads
+    walk = sum(q_tiles - j if causal else q_tiles
+               for j in range(plan.key_tiles))
+    assert plan.share == pytest.approx(B * H * walk / H100_SMS)
+    assert plan.longest <= plan.share or plan.splits == G
+    fewer = [s for s in range(1, plan.splits) if G % s == 0]
+    assert all(q_tiles * G // s > plan.share for s in fewer)
+    assert plan.partial_shape(B, L, KV) == (plan.splits, B, L, KV, HD)
+
+
+def test_bwd_plan_of_gemma_2b():
+    """Gemma-2B's training record (8 heads on one kv head, L = 8192): the
+    group splits in four, so key tile 0 walks 2 x 128 query tiles against
+    an even share of ~500; the plan is a pure function of its arguments."""
+    plan = h256.bwd_hd256_plan(1, 8192, 8, 1, True, H100_SMS)
+    assert (plan.splits, plan.heads, plan.longest) == (4, 2, 256)
+    assert plan.ctas == 128 * 4
+    assert plan is h256.bwd_hd256_plan(1, 8192, 8, 1, True, H100_SMS)
 
 
 def test_plan_depends_on_shapes_alone():
@@ -97,8 +142,7 @@ def _count_allocations(monkeypatch):
     return made
 
 
-@pytest.mark.parametrize("form,L,S,q_off", [("prefill", 200, 200, None),
-                                            ("folded", 64, 900, [700, 100]),
+@pytest.mark.parametrize("form,L,S,q_off", [("folded", 64, 900, [700, 100]),
                                             ("decode", 1, 900, None)])
 def test_launch_hands_the_plan_to_the_c_entry(form, L, S, q_off,
                                               monkeypatch):
@@ -134,7 +178,7 @@ def test_launch_hands_the_plan_to_the_c_entry(form, L, S, q_off,
 
 
 def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
-                 sms: int = H100_SMS, causal: bool = True, lse=None):
+                 sms: int = H100_SMS):
     """The kernel's algorithm in f32 torch for q (B, L, H, 256) over a key
     axis of S slots: per (batch row, kv head), row tile and split of
     ``hd256_plan``, the tile's folded rows (row f: query f // G of head
@@ -146,12 +190,7 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
     the key's two scales), the online softmax over 64-key tiles in base 2
     (a quantized key's scale on its score column, its value scale on p,
     l summed over the unscaled p), then the one split's normalised output
-    or the merge of every split's (O, m, l), empty partials skipped.
-    ``causal=False`` (the training form only) drops the rule key <= the
-    row's position; a (B, H, L) ``lse`` tensor receives each row's
-    logsumexp as the training form writes it: (m ln 2 + log l) from the
-    merged base-2 max and sum (one split: its own), -1e30 + log(1e-30) for
-    a row with no allowed key."""
+    or the merge of every split's (O, m, l), empty partials skipped."""
     B, L, H, hd = q.shape
     G = H // KV
     plan = h256.hd256_plan(B, L, H, KV, S, sms)
@@ -170,7 +209,7 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                 for sp in range(plan.splits):
                     kb = sp * plan.split_keys
                     ke = min(kb + plan.split_keys, lim,
-                             pos0 + fs[-1] // G + 1 if causal else lim)
+                             pos0 + fs[-1] // G + 1)
                     m = torch.full((len(fs),), -math.inf)
                     lsum = torch.zeros(len(fs))
                     o = torch.zeros(len(fs), hd)
@@ -190,7 +229,7 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                                     ksc[r], vsc[r] = rows[2:]
                                 live[r] = True
                         x = (qt @ kk.T) * (ksc * scale)[None]
-                        ok = ((keys[None] <= pos[:, None]) | (not causal)) \
+                        ok = (keys[None] <= pos[:, None]) \
                             & (keys[None] < lim) & live[None]
                         x = torch.where(ok, x, -math.inf)
                         m_new = torch.maximum(m, x.max(1).values)
@@ -212,21 +251,71 @@ def emulate_rows(q, S: int, KV: int, pos0_of, lim_of, key_rows,
                         w = 2.0 ** (pm - mx)
                         acc, tot = acc + w * po, tot + w * pl
                 out[b, f // G, g * G + f % G] = acc / tot if tot > 0 else 0.0
-                if lse is not None:
-                    lse[b, g * G + f % G, f // G] = \
-                        (-1e30 if mx == -math.inf else mx * math.log(2)) \
-                        + math.log(max(float(tot), 1e-30))
     return out
+
+
+def emulate_prefill(q, k, v, lens, causal=True):
+    """The forward kernel's algorithm in f32 torch: per (batch row, head,
+    128-row query tile), each consumer's 64 rows over the 64-key tiles
+    they can see (the CTA's count, causal: up to min(length, tile end);
+    one fewer where the consumer's own rows end a tile earlier), masked
+    scores at -inf, the online softmax in base 2 (a row that has seen no
+    allowed key keeps p = 0), O / max(l, 1e-30), and lse = m ln 2 +
+    log(max(l, 1e-30)) with m = -1e30 where no key was allowed. Keys past
+    L read as zeros (TMA's fill) and are masked. Returns (out, lse)."""
+    B, L, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = hd ** -0.5 * LOG2E
+    out, lse = torch.zeros(B, L, H, hd), torch.zeros(B, H, L)
+    kp = torch.zeros(B, L + FWD_ROWS, k.shape[2], hd)
+    vp = torch.zeros_like(kp)
+    kp[:, :L], vp[:, :L] = k, v
+    for b in range(B):
+        n = min(max(int(lens[b]), 0), L)
+        for h in range(H):
+            for q0 in range(0, L, FWD_ROWS):
+                end = min(n, q0 + FWD_ROWS) if causal else n
+                n_tiles = -(-end // FWD_KEYS) if end > 0 else 0
+                for first in (q0, q0 + FWD_ROWS // 2):
+                    if first >= L:
+                        continue
+                    rows = torch.arange(first, min(first + 64, L))
+                    mine = min(n, first + 64) if causal else n
+                    n_mine = min(n_tiles, -(-mine // FWD_KEYS))
+                    qt = q[b, rows, h].float()
+                    m = torch.full((len(rows),), -math.inf)
+                    lsum = torch.zeros(len(rows))
+                    o = torch.zeros(len(rows), hd)
+                    for it in range(n_mine):
+                        keys = torch.arange(it * FWD_KEYS,
+                                            (it + 1) * FWD_KEYS)
+                        kk, vv = kp[b, keys, h // G], vp[b, keys, h // G]
+                        x = (qt @ kk.T) * scale
+                        ok = (keys[None] < n) & (
+                            (keys[None] <= rows[:, None]) | (not causal))
+                        x = torch.where(ok, x, -math.inf)
+                        m_new = torch.maximum(m, x.max(1).values)
+                        u = torch.where(m_new == -math.inf, 0.0, m_new)
+                        alpha = torch.exp2(m - u)
+                        p = torch.exp2(x - u[:, None])
+                        lsum = lsum * alpha + p.sum(1)
+                        o = o * alpha[:, None] + p @ vv
+                        m = m_new
+                    d = lsum.clamp(min=1e-30)
+                    out[b, rows, h] = o / d[:, None]
+                    lse[b, h, rows] = torch.where(
+                        m == -math.inf, torch.tensor(-1e30),
+                        m * math.log(2)) + torch.log(d)
+    return out, lse
 
 
 def _emulate(q, k, v, lens, q_off, mode, sms=H100_SMS):
     """:func:`emulate_rows` of the dense forms over (B, S, KV, 256) keys:
-    key s of row b is row s of its K and V, a row at position 0 (prefill),
-    q_off[b] (folded) or lens[b] - 1 (decode) plus its query index, keys
-    valid below lens[b]."""
+    key s of row b is row s of its K and V, a row at position q_off[b]
+    (folded, mode 1) or lens[b] - 1 (decode, mode 2) plus its query index,
+    keys valid below lens[b]."""
     S, KV = k.shape[1], k.shape[2]
-    pos0 = {0: lambda b: 0, 1: lambda b: int(q_off[b]),
-            2: lambda b: int(lens[b]) - 1}[mode]
+    pos0 = {1: lambda b: int(q_off[b]), 2: lambda b: int(lens[b]) - 1}[mode]
     return emulate_rows(q, S, KV, pos0,
                         lambda b: min(max(int(lens[b]), 0), S),
                         lambda b, g, s: (k[b, s, g].float(),
@@ -241,12 +330,14 @@ def _inputs(seed, B, L, S, H, KV):
     return q, k, v
 
 
-@pytest.mark.parametrize("sms", [132, 4])
-def test_algorithm_matches_the_prefill_twin(sms):
-    B, L, H, KV = 2, 150, 4, 2
+@pytest.mark.parametrize("B,L,H,KV,lengths", [(2, 150, 4, 2, [150, 70]),
+                                              (3, 65, 8, 8, [1, 64, 65])])
+def test_algorithm_matches_the_prefill_twin(B, L, H, KV, lengths):
+    """The prefill kernel's algorithm (:func:`emulate_prefill`): causal,
+    groups of 2 and 1, lengths at a 64-key tile's edges."""
     q, k, v = _inputs(1, B, L, L, H, KV)
-    lens = torch.tensor([150, 70])
-    got = _emulate(q, k, v, lens, None, 0, sms)
+    lens = torch.tensor(lengths)
+    got, _ = emulate_prefill(q, k, v, lens)
     ref = h256.prefill_hd256_plain(q, k, v, lens)
     for b, n in enumerate(lens.tolist()):
         torch.testing.assert_close(got[b, :n], ref[b, :n], rtol=0,

@@ -1,19 +1,21 @@
 """The training forms at head width 256 (Gemma) on the CPU: B2 with the
-logsumexp on ``csrc/attention_hd256.cu`` (its kLse instantiation) and B6
-at hd 256 (``csrc/flash_attention_bwd_hd256.cu``).
+logsumexp (the kLse instantiation of ``csrc/flash_attention_hd256.cu``)
+and B6 at hd 256 (``csrc/flash_attention_bwd_hd256.cu``).
 
 * The kernels' algorithms written out in plain torch against the twins
   (``flash_attention_fwd_plain`` / ``flash_attention_bwd_plain``) at 1e-5
-  of the largest reference value: the lse from one split and from merged
-  splits (``test_torch_hd256_host.emulate_rows``, causal or not); the dQ
-  kernel's walk of 64-key tiles up to the causal end and the length; the
-  dK / dV kernel's walk of the group's query heads and each head's query
-  tiles from the causal start, with key tiles past the length left at
-  zero.
+  of the largest reference value: the forward's 128-row query tiles, each
+  consumer's 64 rows over the 64-key tiles it sees (one fewer than the
+  CTA's where its causal rows end first), the online softmax in base 2,
+  the lse of a row with no allowed key (:func:`emulate_prefill`, causal or
+  not); B6's CTAs of ``bwd_hd256_plan`` (64 keys, a split of the group's
+  heads, each head's query tiles from the causal start), dQ summed over
+  the key tiles, the splits' dK / dV partials summed in order, key tiles
+  past the length left at zero.
 * The launch glue with a stand-in library: the pointers, shapes, plan,
   causal flag and scale handed to each C entry, the launch counts, only
-  the outputs allocated on a second call, no tensor value read on the
-  host.
+  the outputs and scratch allocated on a second call, no tensor value read
+  on the host.
 * Three f32 ``train_step``s of the tiny hd-256 Gemma
   (``tests/family_configs.py``) against JAX's, loss and grad_norm within
   1e-4 relative, as ``tests/test_torch_train_step.py`` holds Qwen2.
@@ -47,13 +49,14 @@ from family_configs import jax_params, model_config
 from fixtures import FakeTokenizer, make_fake_annotations, make_fake_scene
 from port_configs import port_config
 from test_torch_hd256_host import (H100_SMS, _count_allocations,
-                                   _no_host_reads, emulate_rows)
+                                   _no_host_reads, emulate_prefill)
 
 torch.set_num_threads(1)
 
 HD = h256.HEAD_DIM
-TILE = 64          # rows of every tile of the B6 kernels (csrc kTile)
+TILE = 64          # B6's keys per CTA and query rows per tile (csrc kBk, kBq)
 REL = 1e-5
+LOG2E = math.log2(math.e)
 
 
 def _inputs(seed, B, L, H, KV):
@@ -76,89 +79,74 @@ def _close(got, want, what, rel=REL):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("sms", [132, 1])
-def test_lse_algorithm_matches_the_twin(sms, causal):
-    """The training form's output and lse, one split a row tile (``sms``
-    1) and several merged (132 SMs: 10 row tiles split the 200 keys over
-    four CTAs), causal and not, rows past the length included."""
-    B, L, H, KV = 2, 200, 8, 2
+@pytest.mark.parametrize("B,L,H,KV,lengths", [
+    (2, 200, 8, 2, [200, 77]),      # a ragged 128-row tile, a short row
+    (1, 150, 4, 1, [129]),          # the length one past a tile's edge
+])
+def test_lse_algorithm_matches_the_twin(B, L, H, KV, lengths, causal):
+    """The training form's output and lse, causal and not, rows past the
+    length included."""
     q, k, v, _ = _inputs(1, B, L, H, KV)
-    lens = torch.tensor([200, 77])
-    plan = h256.hd256_plan(B, L, H, KV, L, sms)
-    assert (plan.splits > 1) == (sms > 1)
-    lse = torch.empty(B, H, L)
-    got = emulate_rows(q, L, KV, lambda b: 0, lambda b: int(lens[b]),
-                       lambda b, g, s: (k[b, s, g], v[b, s, g]), sms,
-                       causal=causal, lse=lse)
+    lens = torch.tensor(lengths)
+    got, lse = emulate_prefill(q, k, v, lens, causal)
     ref, ref_lse = h256.prefill_lse_hd256_plain(q, k, v, lens, causal)
     _close(got, ref, "out")
     _close(lse, ref_lse, "lse")
 
 
-def _emulate_dq(q, k, v, do, lse, delta, lens, causal):
-    """The dQ kernel's walk: per (query tile, head, batch row) the 64-key
-    tiles up to min(length, the tile's causal end); S and dP in f32, P in
-    base 2 from lse * log2(e), dS, dQ += dS K."""
-    B, L, H, hd = q.shape
-    G = H // k.shape[2]
-    scale = hd ** -0.5
-    dq = torch.zeros(B, L, H, hd)
-    for b in range(B):
-        n = min(max(int(lens[b]), 0), L)
-        for h in range(H):
-            for q0 in range(0, L, TILE):
-                rows = torch.arange(q0, min(q0 + TILE, L))
-                qt, dot = q[b, rows, h], do[b, rows, h]
-                lse2 = lse[b, h, rows] * math.log2(math.e)
-                end = min(n, q0 + TILE) if causal else n
-                for kt in range(0, end, TILE):
-                    keys = torch.arange(kt, min(kt + TILE, L))
-                    kk, vv = k[b, keys, h // G], v[b, keys, h // G]
-                    s = qt @ kk.T
-                    ok = (keys[None] < n) & ((keys[None] <= rows[:, None])
-                                             | (not causal))
-                    p = torch.where(ok, torch.exp2(
-                        s * scale * math.log2(math.e) - lse2[:, None]), 0.0)
-                    ds = p * (dot @ vv.T - delta[b, h, rows][:, None]) \
-                        * scale
-                    dq[b, rows, h] += ds @ kk
-    return dq
+def test_lse_algorithm_of_a_row_with_no_key():
+    """A length-0 row: no key is allowed, its output is 0 and its lse
+    -1e30 + log(1e-30), the hd-128 kernel's value."""
+    q, k, v, _ = _inputs(4, 2, 70, 2, 1)
+    got, lse = emulate_prefill(q, k, v, torch.tensor([0, 70]))
+    assert not got[0].any()
+    want = torch.tensor(-1e30) + torch.log(torch.tensor(1e-30))
+    assert bool((lse[0] == want).all())
 
 
-def _emulate_dkv(q, k, v, do, lse, delta, lens, causal):
-    """The dK / dV kernel's walk: per (key tile, kv head, batch row), none
-    for a tile at or past the length, else the group's heads and each
-    head's query tiles from the tile's own start (causal) or 0 to L; S^T,
-    dP^T, P^T, dS^T, dV += P^T dO, dK += dS^T Q summed over the group."""
+def _emulate_bwd(q, k, v, do, lse, delta, lens, causal, sms=H100_SMS):
+    """B6's algorithm: per CTA of ``bwd_hd256_plan`` (64 keys, batch row,
+    kv head, split), none for a key tile at or past the length, else its
+    split's heads and each head's query tiles from the tile's own start
+    (causal) or 0 to L; S^T, P^T, dP^T, dS^T; dV += P^T dO and dK += dS^T
+    Q into the split's partial, dQ += dS K added over the key tiles; the
+    partials summed in split order."""
     B, L, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
+    plan = h256.bwd_hd256_plan(B, L, H, KV, causal, sms)
+    assert plan.splits * plan.heads == G
     scale = hd ** -0.5
-    dk, dv = torch.zeros(B, L, KV, hd), torch.zeros(B, L, KV, hd)
-    for b in range(B):
-        n = min(max(int(lens[b]), 0), L)
-        for g in range(KV):
-            for k0 in range(0, L, TILE):
-                if k0 >= n:
-                    continue
-                keys = torch.arange(k0, min(k0 + TILE, L))
+    dq = torch.zeros(B, L, H, hd)
+    dk_part = torch.zeros(plan.partial_shape(B, L, KV))
+    dv_part = torch.zeros_like(dk_part)
+    for kt in range(plan.key_tiles):
+        k0 = kt * TILE
+        keys = torch.arange(k0, min(k0 + TILE, L))
+        for b in range(B):
+            n = min(max(int(lens[b]), 0), L)
+            qstart = (k0 if causal else 0) if k0 < n else L
+            for g in range(KV):
                 kk, vv = k[b, keys, g], v[b, keys, g]
-                for h in range(g * G, (g + 1) * G):
-                    for q0 in range(k0 if causal else 0, L, TILE):
-                        rows = torch.arange(q0, min(q0 + TILE, L))
-                        qt, dot = q[b, rows, h], do[b, rows, h]
-                        lse2 = lse[b, h, rows] * math.log2(math.e)
-                        st = kk @ qt.T
-                        ok = (keys[:, None] < n) & (
-                            (keys[:, None] <= rows[None]) | (not causal))
-                        pt = torch.where(ok, torch.exp2(
-                            st * scale * math.log2(math.e) - lse2[None]),
-                            0.0)
-                        dst = pt * (vv @ dot.T - delta[b, h, rows][None]) \
-                            * scale
-                        dv[b, keys, g] += pt @ dot
-                        dk[b, keys, g] += dst @ qt
-    return dk, dv
+                for sp in range(plan.splits):
+                    h0 = g * G + sp * plan.heads
+                    for h in range(h0, h0 + plan.heads):
+                        for q0 in range(qstart, L, TILE):
+                            rows = torch.arange(q0, min(q0 + TILE, L))
+                            qt, dot = q[b, rows, h], do[b, rows, h]
+                            lse2 = lse[b, h, rows] * LOG2E
+                            st = kk @ qt.T
+                            ok = (keys[:, None] < n) & (
+                                (keys[:, None] <= rows[None])
+                                | (not causal))
+                            pt = torch.where(ok, torch.exp2(
+                                st * scale * LOG2E - lse2[None]), 0.0)
+                            dst = pt * (vv @ dot.T
+                                        - delta[b, h, rows][None]) * scale
+                            dv_part[sp, b, keys, g] += pt @ dot
+                            dk_part[sp, b, keys, g] += dst @ qt
+                            dq[b, rows, h] += dst.T @ kk
+    return dq, dk_part.sum(0), dv_part.sum(0)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -173,8 +161,7 @@ def test_bwd_algorithm_matches_the_twin(B, L, H, KV, lengths, causal):
     out, lse = fa.flash_attention_fwd_plain(q, k, v, lens, causal)
     delta = (do * out).sum(-1).transpose(1, 2)
     ref = fa.flash_attention_bwd_plain(q, k, v, out, lse, do, lens, causal)
-    dq = _emulate_dq(q, k, v, do, lse, delta, lens, causal)
-    dk, dv = _emulate_dkv(q, k, v, do, lse, delta, lens, causal)
+    dq, dk, dv = _emulate_bwd(q, k, v, do, lse, delta, lens, causal)
     for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
         _close(got, want, name)
     for b, n in enumerate(lengths):     # keys past the length: zeros
@@ -210,34 +197,64 @@ def _bf16(*shape):
                                       (2, 300, 8, 2)])
 def test_lse_launch_hands_the_plan_to_the_c_entry(B, L, H, KV, causal,
                                                   monkeypatch):
+    """The training form's C entry gets the tensors, the shapes (its grid
+    of 128-row query tiles is the entry's own), the causal flag and the
+    scale; a second call allocates only out and lse."""
     q, k = _bf16(B, L, H, HD), _bf16(B, L, KV, HD)
     v = torch.zeros_like(k)
     lens = torch.tensor([L] * B, dtype=torch.int32)
     lib, stream = _Library(), 700 + L
-    plan = h256.hd256_plan(B, L, H, KV, L, H100_SMS)
     before = _build.LAUNCHES["flash_attention_lse_hd256"]
-    out, lse = h256._launch_lse(lib, stream, H100_SMS, q, k, v, lens, causal)
+    out, lse = h256._launch_prefill(lib, stream, q, k, v, lens, causal,
+                                    with_lse=True)
     assert _build.LAUNCHES["flash_attention_lse_hd256"] == before + 1
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert lse.shape == (B, H, L) and lse.dtype == torch.float32
-    (args,) = lib.calls["v3d_attention_hd256_lse"]
-    assert len(args) == len(_build._SIGNATURES["v3d_attention_hd256_lse"])
-    assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        lens.data_ptr(), out.data_ptr(), lse.data_ptr())
-    ws = args[6]
-    assert (ws == 0) == (plan.splits == 1)
-    assert args[7:] == (B, L, H, KV, int(causal), plan.splits,
-                        plan.split_keys, pytest.approx(HD ** -0.5), stream)
+    (args,) = lib.calls["v3d_flash_attention_hd256_lse"]
+    assert len(args) == len(
+        _build._SIGNATURES["v3d_flash_attention_hd256_lse"])
+    assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lens.data_ptr(), out.data_ptr(), lse.data_ptr(), B, L, L,
+                    H, KV, int(causal), pytest.approx(HD ** -0.5), stream)
     made = _count_allocations(monkeypatch)
     _no_host_reads(monkeypatch)
-    h256._launch_lse(lib, stream, H100_SMS, q, k, v, lens, causal)
+    h256._launch_prefill(lib, stream, q, k, v, lens, causal, with_lse=True)
     assert made == ["empty_like", "empty"]        # out and lse alone
-    assert lib.calls["v3d_attention_hd256_lse"][1][6] == ws
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_prefill_launch_hands_its_arguments_to_the_c_entry(causal,
+                                                           monkeypatch):
+    """The inference form: the same entry arguments without the lse,
+    counted as flash_attention_hd256; only the output allocated."""
+    B, L, H, KV = 2, 200, 8, 2
+    q, k = _bf16(B, L, H, HD), _bf16(B, L, KV, HD)
+    v = torch.zeros_like(k)
+    lens = torch.tensor([200, 9], dtype=torch.int32)
+    lib, stream = _Library(), 77
+    before = dict(_build.LAUNCHES)
+    out, lse = h256._launch_prefill(lib, stream, q, k, v, lens, causal,
+                                    with_lse=False)
+    assert lse is None and out.shape == q.shape
+    assert {n: _build.LAUNCHES[n] - before[n] for n in before
+            if _build.LAUNCHES[n] != before[n]} == {"flash_attention_hd256": 1}
+    (args,) = lib.calls["v3d_flash_attention_hd256"]
+    assert len(args) == len(_build._SIGNATURES["v3d_flash_attention_hd256"])
+    assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    lens.data_ptr(), out.data_ptr(), B, L, L, H, KV,
+                    int(causal), pytest.approx(HD ** -0.5), stream)
+    made = _count_allocations(monkeypatch)
+    _no_host_reads(monkeypatch)
+    h256._launch_prefill(lib, stream, q, k, v, lens, causal, with_lse=False)
+    assert made == ["empty_like"]
 
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_bwd_launch_hands_its_arguments_to_the_c_entry(causal,
                                                        monkeypatch):
+    """B6's entry gets the plan's split count; the wrapper zeroes the dQ
+    scratch, allocates the partials (every element written by the kernel)
+    and returns their sums in bf16."""
     B, L, H, KV = 2, 130, 8, 2
     q, do, k = _bf16(B, L, H, HD), _bf16(B, L, H, HD), _bf16(B, L, KV, HD)
     v = torch.zeros_like(k)
@@ -246,23 +263,25 @@ def test_bwd_launch_hands_its_arguments_to_the_c_entry(causal,
     assert rows.shape == (B, H, 2, fa.rows_len(L))
     lens = torch.tensor([130, 7], dtype=torch.int32)
     lib, stream = _Library(), 901
+    plan = h256.bwd_hd256_plan(B, L, H, KV, causal, H100_SMS)
     before = _build.LAUNCHES["flash_attention_bwd_hd256"]
-    dq, dk, dv = h256._launch_bwd(lib, stream, q, k, v, do, rows, lens,
-                                  causal)
+    dq, dk, dv = h256._launch_bwd(lib, stream, H100_SMS, q, k, v, do, rows,
+                                  lens, causal)
     assert _build.LAUNCHES["flash_attention_bwd_hd256"] == before + 1
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     assert {t.dtype for t in (dq, dk, dv)} == {torch.bfloat16}
     (args,) = lib.calls["v3d_flash_attention_bwd_hd256"]
     assert len(args) == len(
         _build._SIGNATURES["v3d_flash_attention_bwd_hd256"])
-    assert args == (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                    rows.data_ptr(), lens.data_ptr(), dq.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), B, L, L, H, KV,
-                    int(causal), pytest.approx(HD ** -0.5), stream)
+    assert args[:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), rows.data_ptr(), lens.data_ptr())
+    assert args[9:] == (B, L, L, H, KV, plan.splits, int(causal),
+                        pytest.approx(HD ** -0.5), stream)
+    assert len({args[6], args[7], args[8]}) == 3
     made = _count_allocations(monkeypatch)
     _no_host_reads(monkeypatch)
-    h256._launch_bwd(lib, stream, q, k, v, do, rows, lens, causal)
-    assert made == ["empty_like"] * 3             # the three gradients
+    h256._launch_bwd(lib, stream, H100_SMS, q, k, v, do, rows, lens, causal)
+    assert made == ["zeros", "empty", "empty"]    # dQ scratch, partials
 
 
 def test_training_wrappers_refuse_what_they_do_not_take():

@@ -144,6 +144,17 @@ class Stacks:
         self.workers = getattr(self, "workers", []) + [worker]
         return caddr, f"http://127.0.0.1:{wport}"
 
+    def heartbeat(self):
+        """Each fixture worker's heart-beat to its controller. The workers
+        send none of their own (``heartbeat=False``) and both controllers
+        drop a worker 30 s after its last one when asked for a worker, so
+        every test that asks a controller for them sends these first: the
+        module's earlier tests may take longer than that under load."""
+        for c, w in ((self.jc, self.jw), (self.tc, self.tw)):
+            reply = _post(c + "/receive_heart_beat",
+                          {"worker_name": w, "queue_length": 0})
+            assert reply["exist"], (c, w)
+
     def both(self, path, payload, **kw):
         """(JAX reply, port reply) of one request to both workers."""
         return (_post(self.jw + path, payload, **kw),
@@ -302,6 +313,7 @@ def test_ground_matches_jax(stacks):
     assert int(np.argmax(t["scores"])) == int(np.argmax(j["scores"]))
     assert t["best_box"] == j["best_box"]
     # through the controllers' proxy routes
+    stacks.heartbeat()
     jc = _post(stacks.jc + "/worker_ground", {**payload, "model": MODEL})
     tc = _post(stacks.tc + "/worker_ground", {**payload, "model": MODEL})
     assert tc["scores"] == t["scores"] and jc["scores"] == j["scores"]
@@ -385,6 +397,7 @@ def test_metrics_match_jax(stacks):
 
 def test_controller_routes_match_jax(stacks):
     video = stacks.info["sample_idx"]
+    stacks.heartbeat()
     for c, w in ((stacks.jc, stacks.jw), (stacks.tc, stacks.tw)):
         assert _post(c + "/list_models", {})["models"] == [MODEL]
         assert _post(c + "/get_worker_address",
@@ -404,6 +417,7 @@ def test_controller_routes_match_jax(stacks):
 
 def test_cli_and_register_worker(stacks, capsys):
     video = stacks.info["sample_idx"]
+    stacks.heartbeat()
     rc = tcli.main(["--controller", stacks.tc, "--model", MODEL,
                     "--video", video, "--max-new-tokens", "3",
                     "--message", "what is in the room"])
@@ -436,6 +450,7 @@ def _web_lines(addr, payload):
 
 
 def test_web_ui_matches_jax(stacks):
+    stacks.heartbeat()
     uis = []
     for web, c in ((jweb, stacks.jc), (tweb, stacks.tc)):
         port = free_port()
@@ -460,6 +475,7 @@ def test_web_ui_matches_jax(stacks):
         {"model": "nope", "video": video, "prompt": "hi"},
     ]
     for payload in payloads:
+        stacks.heartbeat()
         j, t = _web_lines(uis[0], payload), _web_lines(uis[1], payload)
         if payload["model"] == "nope":
             assert t[-1]["error_code"] == j[-1]["error_code"] == 1

@@ -1,17 +1,12 @@
-// Attention at head width 256 (Gemma), in the five forms of the engine's
-// answer and serving paths: B2's prefill, B2 folded, B3, B7 and B5; the
-// last four also over an int8 or a packed int4 cache (or B5's prefix); and
-// B2's prefill in its training form, which also writes the logsumexp.
+// Attention at head width 256 (Gemma), in four forms of the engine's
+// answer and serving paths: B2 folded, B3, B7 and B5, each also over an
+// int8 or a packed int4 cache (B5: its prefix). B2's prefill form and its
+// training form with the logsumexp are flash_attention_hd256.cu.
 //
 // Replaces, at hd 256:
-//   * video3d_tpu/kernels/flash_attention.py::_fwd_kernel (call :283), the
-//     prefill form: query row r attends keys s <= r and s < lengths[b];
-//     in its training form (kLse; the custom VJP's forward, :141-143) it
-//     also writes each row's logsumexp, (B, H, L) f32 in natural-log
-//     units, causal or not, for the backward kernel B6
-//     (flash_attention_bwd_hd256.cu);
-//   * the same kernel with pos_div = group (:66; entry
-//     flash_attention_gqa_folded, :760), the folded form: a suffix chunk
+//   * video3d_tpu/kernels/flash_attention.py::_fwd_kernel with pos_div =
+//     group (:66; entry flash_attention_gqa_folded, :760), the folded
+//     form: a suffix chunk
 //     whose rows sit at q_offsets[b] + r over one layer of the stacked
 //     (layers, B, S, KV*hd) cache;
 //   * video3d_tpu/kernels/decode_attention.py::_decode_kernel_blockdiag
@@ -31,8 +26,8 @@
 // the port's hd-128 kernels are compiled for 128 only, so hd 256 has this
 // kernel of its own.
 //
-// What bounds it on an H100: the prefill, folded and shared-prefix forms
-// are products of 4 * rows * keys * 256 FLOP (causal: about half the
+// What bounds it on an H100: the folded and shared-prefix forms are
+// products of 4 * rows * keys * 256 FLOP (causal: about half the
 // rectangle), far above the card's ~295 FLOP/byte ridge at prefill
 // lengths, so the tensor cores bound them; the decode and paged forms read
 // 2 * kv_len * KV * 256 * 2 bytes of K and V (int8: half, int4: a quarter,
@@ -40,7 +35,7 @@
 // HBM bounds them.
 //
 // Design (a first, simple form; a wgmma / TMA design is later work): one
-// template for all five forms, which differ only in where a query row
+// template for the four forms, which differ only in where a query row
 // sits and where a key's row lies (kMode). In the paged and shared-prefix
 // forms, 64 threads look up each 64-key tile's K and V row addresses into
 // shared memory first: a page-table entry per key in the paged form, so
@@ -72,13 +67,7 @@
 // output with its row max and sum into an f32 workspace that a second
 // kernel merges, row by row. A split whose keys all lie past its rows'
 // limits writes an empty partial, so a launch with fewer live positions
-// than CTAs merges right. The training form is the prefill form's
-// instantiation with kLse = 1: one CTA's rows write lse = (m + log2 l) ln 2
-// (m is kept in base 2 with sm_scale * log2 e folded in) from the final m
-// and l, or, where the keys split, the merge writes it from the merged max
-// and sum; a row with no allowed key writes -1e30 + log(1e-30), as the
-// hd-128 kernel does. Its output is the inference form's bit for bit, and
-// kLse = 0 compiles every other form as before.
+// than CTAs merges right.
 #include <mma.h>
 
 #include "common.cuh"
@@ -108,8 +97,7 @@ constexpr size_t kSmemBytes =
     + sizeof(int) * 2 * kRows                  // position, limit per row
     + sizeof(void*) * 2 * kKeys;               // K, V row of each key
 
-enum Mode { kPrefill = 0, kFolded = 1, kDecode = 2, kPaged = 3,
-            kSharedPrefix = 4 };
+enum Mode { kFolded = 1, kDecode = 2, kPaged = 3, kSharedPrefix = 4 };
 // the cache's storage: bf16, int8, or int4 packed two channels a byte
 enum Cache { kBf16 = 0, kInt8 = 1, kInt4 = 2 };
 
@@ -128,16 +116,9 @@ __device__ __forceinline__ float neg_inf() {
   return __int_as_float(0xff800000u);
 }
 
-// a row's logsumexp in natural-log units from its base-2 max m and its sum
-// l; the hd-128 kernel's rule for a row with no allowed key
-__device__ __forceinline__ float row_lse(float m, float l) {
-  return (m == neg_inf() ? V3D_NEG_INF : m * 0.6931471805599453f)
-      + logf(fmaxf(l, 1e-30f));
-}
-
 struct Params {
   const bf16* q;      // (B, L, H, 256)
-  const void* k;      // (B, S, KV, 256): a prefill's K or a cache layer;
+  const void* k;      // (B, S, KV, 256): a cache layer;
                       // paged: one layer's (P, page, KV*256) pool;
                       // shared prefix: the (P, KV*256) prefix (a quantized
                       // cache: int8, or int4 rows of KV*128 bytes)
@@ -159,10 +140,6 @@ struct Params {
   // (P, KV, 1) (shared prefix)
   const float* ks;
   const float* vs;
-  // the training form (kLse): its (B, H, L) f32 logsumexp, and whether the
-  // causal rule holds (the other forms are causal by construction)
-  float* lse;
-  int causal;
 };
 
 // 64 rows of 256 bf16 (row i at row(i)) into a pitched tile; rows whose
@@ -228,7 +205,7 @@ __device__ __forceinline__ void load_quant_tile(bf16* dst, RowPtr row) {
   }
 }
 
-template <int kMode, int kCache, int kLse>
+template <int kMode, int kCache>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_hd256_kernel(const Params p) {
   using E = Elem<kCache>;
@@ -278,10 +255,8 @@ attention_hd256_kernel(const Params p) {
   }
   const int last_row = min(f0 + kRows, rows_total) - 1;
   const int k_begin = split * p.split_keys;
-  // only the training form may drop the causal rule
-  const bool causal = kLse == 0 || p.causal != 0;
   const int k_end = min(min(k_begin + p.split_keys, lim_b),
-                        causal ? pos0 + last_row / p.G + 1 : lim_b);
+                        pos0 + last_row / p.G + 1);
 
   for (int i = tid; i < kRows * kLdo; i += kThreads) so[i] = 0.f;
 
@@ -433,7 +408,7 @@ attention_hd256_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 16; ++c) {
         const int col = sq4 * 16 + c, s = kt + col;
-        const bool ok = pos >= 0 && (!causal || s <= pos) && s < lim
+        const bool ok = pos >= 0 && s <= pos && s < lim
             && (kLookup ? s_kr[col] != nullptr : s < k_end);
         if constexpr (kCache == kBf16)
           x[c] = ok ? ss[srow * kLds + col] * p.scale_log2 : neg_inf();
@@ -522,20 +497,12 @@ attention_hd256_kernel(const Params p) {
       }
     }
   }
-  if constexpr (kLse != 0) {
-    // one split: each row's logsumexp (split launches: the merge's)
-    const int f = f0 + tid;
-    if (p.splits == 1 && tid < kRows && f < rows_total)
-      p.lse[(static_cast<long long>(b) * p.H + g * p.G + f % p.G) * p.L
-            + f / p.G] = row_lse(sm_m[tid], sm_l[tid]);
-  }
 }
 
 // merge the splits of each folded row: one CTA of 256 threads per row, a
-// thread per channel; the training form (kLse) also writes the row's
-// logsumexp from the merged max and sum
-template <int kLse>
-__device__ __forceinline__ void merge_row(const Params& p) {
+// thread per channel
+__global__ void __launch_bounds__(kHd)
+attention_hd256_merge(const Params p) {
   const int f = blockIdx.x, bkv = blockIdx.y;
   const int b = bkv / p.KV, g = bkv % p.KV;
   const int rows_total = p.L * p.G;
@@ -560,42 +527,23 @@ __device__ __forceinline__ void merge_row(const Params& p) {
   p.out[(static_cast<long long>(b) * p.L + lq) * p.H * kHd
         + static_cast<long long>(h) * kHd + c] =
       __float2bfloat16(l > 0.f ? o / l : 0.f);
-  if constexpr (kLse != 0) {
-    if (c == 0)
-      p.lse[(static_cast<long long>(b) * p.H + h) * p.L + lq] =
-          row_lse(mx, l);
-  }
 }
 
-__global__ void __launch_bounds__(kHd)
-attention_hd256_merge(const Params p) {
-  merge_row<0>(p);
-}
-
-__global__ void __launch_bounds__(kHd)
-attention_hd256_merge_lse(const Params p) {
-  merge_row<1>(p);
-}
-
-template <int kMode, int kCache, int kLse = 0>
+template <int kMode, int kCache>
 int launch(const Params& p, cudaStream_t stream) {
   // set once per instantiation: no runtime call beyond the launches runs
   // while a decode step is captured into a CUDA graph
   constexpr size_t smem = smem_bytes<kCache>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attention_hd256_kernel<kMode, kCache, kLse>,
+      attention_hd256_kernel<kMode, kCache>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   dim3 grid(p.row_tiles, p.splits, p.B * p.KV);
-  attention_hd256_kernel<kMode, kCache, kLse>
-      <<<grid, kThreads, smem, stream>>>(p);
+  attention_hd256_kernel<kMode, kCache><<<grid, kThreads, smem, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return static_cast<int>(err);
   const dim3 merge_grid(p.L * p.G, p.B * p.KV);
-  if (kLse != 0)
-    attention_hd256_merge_lse<<<merge_grid, kHd, 0, stream>>>(p);
-  else
-    attention_hd256_merge<<<merge_grid, kHd, 0, stream>>>(p);
+  attention_hd256_merge<<<merge_grid, kHd, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -637,15 +585,16 @@ bool common_params(Params& p, const void* q, const void* k, const void* v,
   return true;
 }
 
-// the dense forms' fields; false where invalid (mode 0 prefill, 1 folded,
-// 2 decode; folded needs q_off)
+// the dense forms' fields; false where invalid (mode 1 folded, 2 decode;
+// folded needs q_off)
 bool dense_params(Params& p, const void* q, const void* k, const void* v,
                   const void* lens, const void* q_off, void* out, void* ws,
                   int mode, int B, int L, int S, int H, int KV, int splits,
                   int split_keys, float sm_scale) {
   if (!common_params(p, q, k, v, lens, out, ws, B, L, S, H, KV, splits,
                      split_keys, sm_scale)
-      || (mode == kFolded && q_off == nullptr) || mode < 0 || mode > 2)
+      || (mode == kFolded && q_off == nullptr) || mode < kFolded
+      || mode > kDecode)
     return false;
   p.q_off = static_cast<const int*>(q_off);
   return true;
@@ -693,9 +642,9 @@ bool shared_prefix_params(Params& p, const void* q, const void* pk,
 
 }  // namespace
 
-// mode 0 prefill, 1 folded, 2 decode. q (B, L, H, 256), k / v (B, S, KV,
-// 256) rows (the caller points at a cache layer), lens (B,) int32, q_off
-// (B,) int32 (folded only), out (B, L, H, 256); ws holds B * KV * L * G *
+// mode 1 folded, 2 decode. q (B, L, H, 256), k / v (B, S, KV, 256) rows
+// (the caller points at a cache layer), lens (B,) int32, q_off (B,) int32
+// (folded only), out (B, L, H, 256); ws holds B * KV * L * G *
 // splits * 258 floats when splits > 1. split_keys is a multiple of 64.
 extern "C" int v3d_attention_hd256(const void* q, const void* k,
                                    const void* v, const void* lens,
@@ -708,28 +657,8 @@ extern "C" int v3d_attention_hd256(const void* q, const void* k,
                     splits, split_keys, sm_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mode == kPrefill) return launch<kPrefill, kBf16>(p, st);
   if (mode == kFolded) return launch<kFolded, kBf16>(p, st);
   return launch<kDecode, kBf16>(p, st);
-}
-
-// B2's training form at hd 256: the prefill form (q (B, L, H, 256), k / v
-// (B, L, KV, 256), lens (B,) int32, out (B, L, H, 256)), causal or not,
-// that also writes lse (B, H, L) f32; ws as v3d_attention_hd256.
-extern "C" int v3d_attention_hd256_lse(const void* q, const void* k,
-                                       const void* v, const void* lens,
-                                       void* out, void* lse, void* ws, int B,
-                                       int L, int H, int KV, int causal,
-                                       int splits, int split_keys,
-                                       float sm_scale, void* stream) {
-  Params p;
-  if (lse == nullptr
-      || !dense_params(p, q, k, v, lens, nullptr, out, ws, kPrefill, B, L, L,
-                       H, KV, splits, split_keys, sm_scale))
-    return static_cast<int>(cudaErrorInvalidValue);
-  p.lse = static_cast<float*>(lse);
-  p.causal = causal;
-  return launch<kPrefill, kBf16, 1>(p, static_cast<cudaStream_t>(stream));
 }
 
 // The folded (mode 1) and decode (mode 2) forms over a quantized cache
@@ -742,9 +671,8 @@ extern "C" int v3d_attention_hd256_quant(
     void* ws, int mode, int bits, int B, int L, int S, int H, int KV,
     int splits, int split_keys, float sm_scale, void* stream) {
   Params p;
-  if (mode == kPrefill
-      || !dense_params(p, q, k, v, lens, q_off, out, ws, mode, B, L, S, H,
-                       KV, splits, split_keys, sm_scale))
+  if (!dense_params(p, q, k, v, lens, q_off, out, ws, mode, B, L, S, H, KV,
+                    splits, split_keys, sm_scale))
     return static_cast<int>(cudaErrorInvalidValue);
   p.ks = static_cast<const float*>(k_scale);
   p.vs = static_cast<const float*>(v_scale);

@@ -1,396 +1,489 @@
 // Flash attention backward at head width 256 (Gemma; kernel B6): dQ, dK
 // and dV of the prefill / training form of B2 (L == S, query offset 0,
-// causal or not, keys masked at lengths[b]), bf16 in and out, in two
-// kernels.
+// causal or not, keys masked at lengths[b]), bf16 in, one fused kernel.
 //
 // Replaces, at hd 256: video3d_tpu/kernels/flash_attention.py::_dq_kernel
 // (:181, call :352) and ::_dkv_kernel (:216, call :376), the custom VJP
 // _flash_core_bwd (:332-408), which the JAX wrapper runs for any hd % 128
 // == 0 (:478-486). The recurrences (:7-11, _bwd_common :150-178), with
-// lse the forward's per-row logsumexp (attention_hd256.cu, kLse) and
-// delta_i = dO_i . O_i computed outside, as JAX does (:341):
+// lse the forward's per-row logsumexp (flash_attention_hd256.cu, kLse)
+// and delta_i = dO_i . O_i computed outside, as JAX does (:341):
 //     P  = exp(sm_scale Q K^T - lse)      (0 where the mask forbids)
 //     dV = P^T dO,  dS = P * (dO V^T - delta) * sm_scale
 //     dQ = dS K,    dK = dS^T Q
 // key s is allowed for query row r when s < lengths[b] and, causal,
-// s <= r. The hd-128 form (flash_attention_bwd.cu) keeps its dK / dV
-// accumulators in registers, 128 of 200 per thread at 128 channels; at
-// 256 they would not fit beside the products, so this form splits the
-// work as the TPU does.
+// s <= r. Key tiles at or past the length walk nothing and get zero
+// gradients, as in the JAX kernel.
 //
 // What bounds it on an H100: compute. At B=1, L=8192, length 6780, 8
-// heads (Gemma-2B), 32.56 M causal pairs per head make 5 products (S, dP,
-// dV, dK, dQ) of 2 * 256 FLOP per pair: 0.67 TFLOP per layer against
-// ~0.06 GB of q/k/v/o/dO/dq/dk/dv traffic, far above the card's ~295
-// FLOP/byte ridge. This form recomputes S and dP in both kernels (7
-// products per pair, as the TPU's two kernels do).
+// heads (Gemma-2B), 32.56 M causal pairs a head make 5 products (S, dP,
+// dV, dK, dQ) of 2 * 256 FLOP a pair: 0.67 TFLOP a layer against ~0.1 GB
+// of traffic, far above the card's ~295 FLOP/byte ridge. What the design
+// has to get past is the register file: a 64-key tile's dK and dV at 256
+// channels are 256 f32 a thread in one warpgroup, too many beside the
+// products (the TPU and the first form here split the work into a dQ and
+// a dK / dV kernel and computed S and dP twice: 7 products a pair).
 //
-// Design (a first, simple form; a fused wgmma / TMA design is later
-// work): two kernels of 8 warps, tiles of 64 rows, WMMA bf16 16x16x16
-// products with f32 sums, and no atomics, so every gradient is
-// bit-reproducible run to run.
-//   * dQ: one CTA per (64 query rows, head, batch row), longest causal
-//     walks first. Q, dO, the rows' lse * log2(e) and delta stay in
-//     shared memory; the CTA walks the 64-key tiles up to its causal end
-//     and the length: S = Q K^T and dP = dO V^T into f32 tiles, then
-//     P = exp2(S sm_scale log2(e) - lse log2(e)) and dS = P (dP - delta)
-//     sm_scale in f32, dS rounded to bf16 for dQ += dS K, whose 64 x 256
-//     f32 sum lives in WMMA fragments (64 registers a thread) and is
-//     rounded to bf16 once.
-//   * dK / dV: one CTA per (64 keys, kv head, batch row); K and V stay in
-//     shared memory; the CTA walks the group's G query heads and each
-//     head's 64-row query tiles from the causal start (its own key tile)
-//     to L: S^T = K Q^T and dP^T = V dO^T, P^T and dS^T as above, each
-//     rounded to bf16 for dV += P^T dO and dK += dS^T Q. Both 64 x 256 f32
-//     sums live in fragments (128 registers a thread) over the whole
-//     group, so the group's sum is taken in f32 and rounded to bf16 once.
-//     Key tiles at or past the length walk nothing and write zeros, as in
-//     the JAX kernel.
-// Tiles load by 16-byte loads (rows past L read as zeros); about 189 KiB
-// of shared memory a CTA, one CTA per SM.
-#include <mma.h>
-
-#include "common.cuh"
+// Design (Hopper: TMA, mbarriers, wgmma; machinery in flash_sm90.cuh):
+// one 256-thread CTA per (64-key tile, batch row, kv head, head split),
+// two warpgroups and no producer warpgroup (ptxas compiles a 384-thread
+// CTA under 168 registers a thread whatever setmaxnreg grants later: a
+// first form with a producer warpgroup spilled 1 KB; two warpgroups may
+// take 255). Thread 0 loads the K and V tiles once and keeps the walk's
+// query-side tiles (Q and dO, 64 rows x 256 channels each, and the rows'
+// lse * log2(e) and delta, which the wrapper packs into one f32 (B, H, 2,
+// L rounded up to 4) tensor) in flight by TMA through two 64 KiB stages:
+// tile it + 1 goes into the stage of tile it - 1 as soon as both
+// warpgroups have released it, early in iteration it. The two warpgroups
+// share the key tile and split the channels: warpgroup c owns channels
+// 128 c .. 128 c + 127 of dK and dV (128 f32 registers a thread, summed
+// over the whole walk). Per query tile:
+//   c = 0: S^T = K Q^T (wgmma m64n64k16, 16 channel steps), P^T =
+//     exp2(S^T log2(e) sm_scale - lse) masked on the tiles that can hold a
+//     forbidden pair, in f32 to shared memory for warpgroup 1 (each thread
+//     hands its 32 values to the thread of warpgroup 1 that holds the same
+//     elements of dP^T);
+//   c = 1: dP^T = V dO^T (the same shape), then dS^T = P^T (dP^T - delta)
+//     sm_scale from the f32 P^T, as the plain version computes it (from a
+//     bf16 P^T a row of dS no longer sums to zero), rounded to bf16 as a hi
+//     and a lo part (lo = dS^T - hi), two swizzled 64 x 64 tiles for
+//     warpgroup 0 and dQ;
+//   both: P^T rounded to bf16 as A fragments, dV[:, c] += P^T dO[:, c],
+//     dK[:, c] += dS^T Q[:, c] (wgmma m64n128k16 over the 64 queries; dS^T
+//     from warpgroup 1's registers or shared memory) and dQ[:, c] = dS
+//     K[:, c] over dS's hi and lo parts (m64n128k16 over the 64 keys, dS
+//     and K MN-major from shared memory): a row of dS sums to zero and its
+//     rounding error does not, so in dQ that error meets the keys' common
+//     part undamped; the lo part takes dQ's error to the other gradients'
+//     (2.0e-3 of the largest value at the main shape against 3.7e-3).
+// Five tile products a pair and half of one for dQ's lo part, each
+// warpgroup 2.75 of them; two named barriers hand P^T and dS^T over, a
+// third frees the stage. dQ is staged
+// as f32 in the stage it came with (its 64 KiB are free once both
+// warpgroups' products have read Q and dO) and added into an f32
+// (B, L, H, 256) scratch by TMA reduce-add, 32-channel boxes; the stage
+// goes back to thread 0's loads when that add has read it. The reduce-adds
+// add in an order that changes from run to run, so dQ is not
+// bit-reproducible (chip_smoke holds it to 2e-2 of the largest gradient).
+// Balance: a causal key tile j walks (tiles - j) query tiles of each of the
+// group's G heads (G = 8 on Gemma's one kv head: the first tile's 1,024
+// pairs against ~485 a SM at the main shape), so the wrapper splits the
+// group's heads over `splits` CTAs (kernels/attention_hd256.py,
+// bwd_hd256_plan: the fewest for which the longest walk is no longer than
+// an even share of the SMs' work), longest walks first. Each CTA writes
+// its f32 dK / dV partial to its own slice of a (splits, B, S, KV, 256)
+// scratch, summed by the wrapper in a fixed order, so dK and dV stay
+// bit-reproducible. Shared memory 226 KiB: one CTA per SM.
+#include "flash_sm90.cuh"
 
 namespace {
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+using namespace v3d_sm90;
 
 constexpr int kHd = 256;
-constexpr int kTile = 64;         // rows of every tile: queries or keys
-constexpr int kThreads = 256;     // 8 warps
-constexpr int kLdh = kHd + 8;     // bf16 row pitch of Q / dO / K / V tiles
-constexpr int kLds = kTile + 4;   // f32 row pitch of the score tiles
-constexpr int kLdp = kTile + 8;   // bf16 row pitch of the P / dS tiles
-constexpr int kLdo = kHd + 4;     // f32 row pitch of the output staging
-constexpr size_t kTileBytes = sizeof(bf16) * kTile * kLdh;
-constexpr size_t kSmemBytes =
-    4 * kTileBytes                        // two resident, two walked tiles
-    + 2 * sizeof(float) * kTile * kLds    // S and dP (or their transposes)
-    + 2 * sizeof(bf16) * kTile * kLdp     // P and dS, bf16
-    + 2 * sizeof(float) * kTile;          // lse * log2(e) and delta
-static_assert(sizeof(float) * kTile * kLdo <= 2 * kTileBytes,
-              "the f32 output staging fits in two tiles");
+constexpr int kBk = 64;             // keys per CTA
+constexpr int kBq = 64;             // query rows per tile of the walk
+constexpr int kStages = 2;          // query-side stages in flight
+constexpr int kThreads = 256;       // two warpgroups; thread 0 also loads
+constexpr int kParts = kHd / kBoxChannels;   // 64-channel parts of a row
+constexpr int kPart = 64 * 128;     // bytes of one part of a 64-row tile
+constexpr int kTileBytes = kParts * kPart;   // a 64 x 256 bf16 tile: 32 KiB
+constexpr int kStageBytes = 2 * kTileBytes;  // Q, then dO
+constexpr int kDqChannels = 32;              // f32: 128-byte box rows
+constexpr int kDqBox = kBq * 128;            // 64 rows x 32 f32
+constexpr int kRowBytes = 2 * kBq * 4;       // lse * log2(e), delta
+constexpr int kStageOff = 2 * kTileBytes;    // after K and V
+constexpr int kDsOff = kStageOff + kStages * kStageBytes;
+constexpr int kDsLoOff = kDsOff + kPart;     // dS^T, hi and lo: 64 x 64 bf16
+constexpr int kPfOff = kDsLoOff + kPart;     // P^T in f32
+constexpr int kRowsOff = kPfOff + 64 * 64 * 4;
+constexpr int kBarOff = kRowsOff + kStages * kRowBytes;
+constexpr int kSmemBytes = kBarOff + 64 + 1024;   // + alignment slack
 constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kParts * kDqBox == kTileBytes,
+              "a warpgroup's f32 dQ half fills one bf16 tile of its stage");
 
-struct Params {
-  const bf16* q;       // (B, L, H, 256)
-  const bf16* k;       // (B, L, KV, 256)
-  const bf16* v;
-  const bf16* dout;    // (B, L, H, 256)
-  const float* rows;   // (B, H, 2, Lr): lse * log2(e), then delta
-  const int* lens;     // (B,) keys valid below lens[b]
-  bf16* dq;            // (B, L, H, 256)
-  bf16* dk;            // (B, L, KV, 256)
-  bf16* dv;
-  int L, H, KV, G, Lr, causal;
-  float scale, scale_log2;
-};
+// named barriers: P^T ready, dS^T ready, the stage's products done, then
+// one per warpgroup over its own threads' writes to shared memory
+// (warpgroup 1's dS^T tiles, each one's dQ staging)
+enum Barrier { kPReady = 1, kDsReady = 2, kStageRead = 3, kOwnTiles = 4 };
 
 struct Smem {
-  bf16* a;        // resident tile: Q (dQ) or K (dK / dV)
-  bf16* b;        // resident tile: dO (dQ) or V (dK / dV)
-  bf16* c;        // walked tile: K (dQ) or Q (dK / dV)
-  bf16* d;        // walked tile: V (dQ) or dO (dK / dV)
-  float* s;       // S (or S^T), f32
-  float* dp;      // dP (or dP^T), f32
-  bf16* p;        // P^T, bf16 (dK / dV)
-  bf16* ds;       // dS (or dS^T), bf16
-  float* lse2;    // the query rows' lse * log2(e)
-  float* delta;   // the query rows' delta
+  unsigned char* k;      // K's four parts, then V's
+  unsigned char* stage;  // stage s: Q's parts, then dO's
+  unsigned char* ds;     // dS^T's bf16 hi part, 64 keys x 64 queries,
+                         // swizzled
+  unsigned char* ds_lo;  // its lo part, the same
+  float* pf;             // P^T in f32: value i of thread t at [128 i + t]
+  float* rows;           // stage s: lse * log2(e) [64], then delta [64]
+  uint64_t* kv_full;
+  uint64_t* full;        // [kStages]
+  uint64_t* empty;       // [kStages]
 };
 
 __device__ __forceinline__ Smem carve(unsigned char* raw) {
-  Smem m;
-  m.a = reinterpret_cast<bf16*>(raw);
-  m.b = m.a + kTile * kLdh;
-  m.c = m.b + kTile * kLdh;
-  m.d = m.c + kTile * kLdh;
-  m.s = reinterpret_cast<float*>(m.d + kTile * kLdh);
-  m.dp = m.s + kTile * kLds;
-  m.p = reinterpret_cast<bf16*>(m.dp + kTile * kLds);
-  m.ds = m.p + kTile * kLdp;
-  m.lse2 = reinterpret_cast<float*>(m.ds + kTile * kLdp);
-  m.delta = m.lse2 + kTile;
-  return m;
+  const uint32_t a = smem_u32(raw);
+  unsigned char* base = raw + (((a + 1023) & ~1023u) - a);
+  Smem s;
+  s.k = base;
+  s.stage = base + kStageOff;
+  s.ds = base + kDsOff;
+  s.ds_lo = base + kDsLoOff;
+  s.pf = reinterpret_cast<float*>(base + kPfOff);
+  s.rows = reinterpret_cast<float*>(base + kRowsOff);
+  s.kv_full = reinterpret_cast<uint64_t*>(base + kBarOff);
+  s.full = s.kv_full + 1;
+  s.empty = s.full + kStages;
+  return s;
 }
 
-// rows r < n of a (., 256) bf16 matrix whose row r starts at src + r *
-// stride into a pitched 64-row tile; rows past n are zero-filled
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long stride, int n) {
-  // 64 rows x 32 16-byte chunks = 2048 chunks, 8 per thread
+struct Walk {          // the query tiles of one CTA, in order
+  int heads, h0, qstart, per_head;
+  __device__ int count() const { return heads * per_head; }
+  __device__ int head(int it) const { return h0 + it / per_head; }
+  __device__ int q0(int it) const { return qstart + (it % per_head) * kBq; }
+};
+
+struct Maps {
+  const CUtensorMap *q, *k, *v, *dout, *rows, *dq;
+};
+
+// thread 0: the query-side tiles of iteration it into its stage, once both
+// warpgroups have released the tile it replaces
+__device__ __forceinline__ void load_stage(const Smem& sm, const Maps& m,
+                                           const Walk& w, int it, int b) {
+  const int stage = it % kStages;
+  const int h = w.head(it), q0 = w.q0(it);
+  unsigned char* dst = sm.stage + stage * kStageBytes;
+  uint64_t* bar = sm.full + stage;
+  if (it >= kStages) mbar_wait(sm.empty + stage, (it / kStages - 1) & 1);
+  mbar_arrive_tx(bar, kStageBytes + kRowBytes);
+  for (int part = 0; part < kParts; ++part) {
+    tma_load(dst + part * kPart, m.q, bar, part * kBoxChannels, h, q0, b);
+    tma_load(dst + kTileBytes + part * kPart, m.dout, bar,
+             part * kBoxChannels, h, q0, b);
+  }
+  tma_load(sm.rows + stage * 2 * kBq, m.rows, bar, q0, 0, h, b);
+}
+
+// a 64 x 64 bf16 tile in the accumulator layout -> its swizzled rows
+__device__ __forceinline__ void store_frags(unsigned char* tile,
+                                            const uint32_t (&f)[4][4],
+                                            int row0, int lane) {
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 5, col = (c & 31) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < n)
-      val = *reinterpret_cast<const uint4*>(src + r * stride + col);
-    *reinterpret_cast<uint4*>(dst + r * kLdh + col) = val;
+    const int byte = i * 16 + 4 * (lane % 4);
+    *reinterpret_cast<uint32_t*>(tile + sw128(row0, byte)) =
+        f[i / 2][(i % 2) * 2];
+    *reinterpret_cast<uint32_t*>(tile + sw128(row0 + 8, byte)) =
+        f[i / 2][(i % 2) * 2 + 1];
   }
 }
 
-// the 64 query rows' lse * log2(e) and delta (zero past L)
-__device__ __forceinline__ void load_rows(const Params& p, const Smem& m,
-                                          int b, int h, int q0) {
-  const int t = threadIdx.x;
-  if (t < 2 * kTile) {
-    const int which = t / kTile, r = q0 + t % kTile;
-    const float x = r < p.L
-        ? p.rows[((static_cast<long long>(b) * p.H + h) * 2 + which) * p.Lr
-                 + r]
-        : 0.f;
-    (which == 0 ? m.lse2 : m.delta)[t % kTile] = x;
-  }
-}
-
-// dst (64 x 64 f32) = A B^T of two 64 x 256 bf16 tiles: 4 x 4 fragments,
-// two per warp
-__device__ __forceinline__ void product_abt(const bf16* a, const bf16* b,
-                                            float* dst, int warp) {
-  const int mi = warp >> 1, nj0 = (warp & 1) * 2;
-  Acc acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-#pragma unroll 4
-  for (int kk = 0; kk < kHd; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + mi * 16 * kLdh + kk, kLdh);
+// v as bf16 A fragments hi and lo = v - hi (rounded to bf16): a product
+// over both errs by ~2^-17 of v where one over hi alone errs by 2^-9
+__device__ __forceinline__ void split_frags(const float (&v)[32],
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+  to_a_frags(v, hi);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, b + (nj0 + j) * 16 * kLdh + kk, kLdh);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 h = bf16_pair(hi[j][r]);
+      lo[j][r] = pack_bf16(v[8 * j + 2 * r] - h.x,
+                           v[8 * j + 2 * r + 1] - h.y);
     }
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(dst + mi * 16 * kLds + (nj0 + j) * 16, acc[j],
-                            kLds, wmma::mem_row_major);
 }
 
-// acc (this warp's 16 rows x 128 columns of a 64 x 256 sum) += A X: A the
-// 64 x 64 bf16 tile (pitch kLdp), X a 64 x 256 bf16 tile
-__device__ __forceinline__ void product_acc(Acc (&acc)[8], const bf16* a,
-                                            const bf16* x, int warp) {
-  const int mi = warp >> 1, n0 = (warp & 1) * 8;
+// One warpgroup: c = 0 makes P^T, c = 1 makes dS^T; each owns channels
+// 128 c .. 128 c + 127 of dK, dV and dQ
+__device__ __forceinline__ void consume(const Smem& sm, const Maps& m,
+                                        float* __restrict__ dk_part,
+                                        float* __restrict__ dv_part,
+                                        const Walk& w, int c, int k0, int b,
+                                        int kvh, int L, int S, int KV,
+                                        int length, int causal,
+                                        float sm_scale) {
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int row0 = 16 * warp + lane / 4;          // and row0 + 8
+  const int key0 = k0 + row0, key1 = key0 + 8;
+  const float scale_log2 = sm_scale * kLog2e;
+  const uint32_t k_tile = smem_u32(sm.k), v_tile = k_tile + kTileBytes;
+  // my first product's A operand (K or V, K-major), and K's channel half
+  // c as dQ's B operand (MN-major)
+  const uint64_t a_desc = desc_kmajor(c == 0 ? k_tile : v_tile);
+  const uint64_t k_chan = desc_mnmajor(k_tile + c * 2 * kPart, kPart);
+  const uint64_t ds_desc = desc_kmajor(smem_u32(sm.ds));
+  const uint64_t ds_mn = desc_mnmajor(smem_u32(sm.ds), kPart);
+  const uint64_t ds_lo_mn = desc_mnmajor(smem_u32(sm.ds_lo), kPart);
+
+  float dk[64], dv[64];
 #pragma unroll
-  for (int kk = 0; kk < kTile; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + mi * 16 * kLdp + kk, kLdp);
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(sm.kv_full, 0);
+  const int n = w.count();
+  for (int it = 0; it < n; ++it) {
+    const int stage = it % kStages;
+    mbar_wait(sm.full + stage, (it / kStages) & 1);
+    const int h = w.head(it), q0 = w.q0(it);
+    unsigned char* stage_ptr = sm.stage + stage * kStageBytes;
+    const uint32_t q_tile = smem_u32(stage_ptr);
+    const uint32_t do_tile = q_tile + kTileBytes;
+    const float* lse2 = sm.rows + stage * 2 * kBq;
+    const float* dlt = lse2 + kBq;
+
+    float x[32];                         // S^T (c = 0) or dP^T (c = 1)
+    const uint64_t b_desc = desc_kmajor(c == 0 ? q_tile : do_tile);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fb, x + kk * kLdh + (n0 + j) * 16, kLdh);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+    for (int kk = 0; kk < 16; ++kk)
+      wgmma_ss_n64<0, 0>(x, step_kmajor(a_desc, kk, kPart),
+                         step_kmajor(b_desc, kk, kPart), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    // the previous stage's dQ add has read its staging: the stage is free
+    if (t == 0 && it > 0) {
+      bulk_wait_read<0>();
+      mbar_arrive(sm.empty + (it - 1) % kStages);
     }
-  }
-}
+    // thread 0: tile it + 1 into that stage once the other warpgroup has
+    // released it too
+    if (threadIdx.x == 0 && it + 1 < n && it + 1 >= kStages)
+      load_stage(sm, m, w, it + 1, b);
+    __syncwarp();
 
-__device__ __forceinline__ unsigned bf16x2(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
-// rows r < n of the 64 x 256 sum in ``acc`` rounded to bf16 into dst + r *
-// stride, through the f32 staging tile
-__device__ __forceinline__ void write_rows(Acc (&acc)[8], float* stage,
-                                           bf16* dst, long long stride,
-                                           int n, int warp) {
-  const int mi = warp >> 1, n0 = (warp & 1) * 8;
+    uint32_t f16[4][4];                  // P^T (c = 0) or dS^T (c = 1)
+    const uint64_t dv_b = desc_mnmajor(do_tile + c * 2 * kPart, kPart);
+    const uint64_t dk_b = desc_mnmajor(q_tile + c * 2 * kPart, kPart);
+    if (c == 0) {
+      const bool masked = (causal && k0 + kBk - 1 > q0) ||
+                          k0 + kBk > length || q0 + kBq > L;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    wmma::store_matrix_sync(stage + mi * 16 * kLdo + (n0 + j) * 16, acc[j],
-                            kLdo, wmma::mem_row_major);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 5, col = (c & 31) * 8;
-    if (r < n) {
-      const float* f = stage + r * kLdo + col;
-      *reinterpret_cast<uint4*>(dst + r * stride + col) =
-          make_uint4(bf16x2(f[0], f[1]), bf16x2(f[2], f[3]),
-                     bf16x2(f[4], f[5]), bf16x2(f[6], f[7]));
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ bool allowed(const Params& p, int s, int r,
-                                        int len) {
-  return r < p.L && s < len && (p.causal == 0 || s <= r);
-}
-
-// dQ of 64 query rows of one head
-__global__ void __launch_bounds__(kThreads, 1)
-bwd_dq_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem);
-  const int n_tiles = (p.L + kTile - 1) / kTile;
-  const int q0 = (n_tiles - 1 - static_cast<int>(blockIdx.x)) * kTile;
-  const int h = blockIdx.y, b = blockIdx.z, g = h / p.G;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int len = min(max(p.lens[b], 0), p.L);
-  const int k_end = p.causal != 0 ? min(len, q0 + kTile) : len;
-  const long long q_stride = static_cast<long long>(p.H) * kHd;
-  const long long kv_stride = static_cast<long long>(p.KV) * kHd;
-  const long long q_at = (static_cast<long long>(b) * p.L + q0) * q_stride
-      + static_cast<long long>(h) * kHd;
-  const long long kv_base = static_cast<long long>(b) * p.L * kv_stride
-      + static_cast<long long>(g) * kHd;
-
-  load_tile(m.a, p.q + q_at, q_stride, p.L - q0);
-  load_tile(m.b, p.dout + q_at, q_stride, p.L - q0);
-  load_rows(p, m, b, h, q0);
-  Acc acc[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  // the dS element phase: row tid / 4, 16 keys from (tid % 4) * 16
-  const int er = tid >> 2, ec = (tid & 3) * 16;
-  for (int kt = 0; kt < k_end; kt += kTile) {
-    __syncthreads();   // the previous K tile and dS are consumed
-    const long long at = kv_base + static_cast<long long>(kt) * kv_stride;
-    load_tile(m.c, p.k + at, kv_stride, p.L - kt);
-    load_tile(m.d, p.v + at, kv_stride, p.L - kt);
-    __syncthreads();
-    product_abt(m.a, m.c, m.s, warp);    // S = Q K^T
-    product_abt(m.b, m.d, m.dp, warp);   // dP = dO V^T
-    __syncthreads();
-    {
-      const int r = q0 + er;
-      const float lse2 = m.lse2[er], delta = m.delta[er];
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = ec + c;
-        const float pv = allowed(p, kt + col, r, len)
-            ? exp2f(m.s[er * kLds + col] * p.scale_log2 - lse2) : 0.f;
-        m.ds[er * kLdp + col] = __float2bfloat16(
-            pv * (m.dp[er * kLds + col] - delta) * p.scale);
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);  // q0 + col
+        float p = exp2f(x[i] * scale_log2 - lse2[col]);
+        if (masked) {
+          const int key = (i & 2) ? key1 : key0, pos = q0 + col;
+          if (key >= length || pos >= L || (causal && key > pos)) p = 0.f;
+        }
+        x[i] = p;
+        sm.pf[128 * i + t] = p;
       }
+      named_arrive(kPReady, 256);
+      to_a_frags(x, f16);                // P^T in bf16, as the products take it
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)                  // dV += P^T dO
+        wgmma_rs_n128<1>(dv, f16[j], step_mnmajor(dv_b, j), 1);
+      wgmma_commit();
+      named_sync(kDsReady, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)                  // dK += dS^T Q
+        wgmma_ss_n128<0, 1>(dk, step_kmajor(ds_desc, j, kPart),
+                            step_mnmajor(dk_b, j), 1);
+      wgmma_commit();
+    } else {
+      named_sync(kPReady, 256);
+      // dS^T = P^T (dP^T - delta) sm_scale, with warpgroup 0's f32 P^T;
+      // P^T in bf16 for dV
+      float p[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        p[i] = sm.pf[128 * i + t];
+        x[i] = p[i] * (x[i] - dlt[col]) * sm_scale;
+      }
+      uint32_t p16[4][4], lo[4][4];
+      to_a_frags(p, p16);
+      split_frags(x, f16, lo);
+      store_frags(sm.ds, f16, row0, lane);
+      store_frags(sm.ds_lo, lo, row0, lane);
+      fence_proxy_async();
+      named_arrive(kDsReady, 256);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)                  // dK += dS^T Q
+        wgmma_rs_n128<1>(dk, f16[j], step_mnmajor(dk_b, j), 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)                  // dV += P^T dO
+        wgmma_rs_n128<1>(dv, p16[j], step_mnmajor(dv_b, j), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(p16);
+      // its own dS^T tiles, written by all its threads, feed its dQ
+      named_sync(kOwnTiles + 1, 128);
     }
-    __syncthreads();
-    product_acc(acc, m.ds, m.c, warp);   // dQ += dS K
+    // the products reading my fragments are done: their registers are free
+    wgmma_wait<0>();
+    fence_regs(f16);
+
+    // dQ = dS K, my channels, over dS's hi and lo parts: a row of dS sums
+    // to zero, its bf16 rounding error does not, and that error would meet
+    // the keys' common part undamped
+    float dq[64];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_ss_n128<1, 1>(dq, step_mnmajor(ds_mn, j), step_mnmajor(k_chan, j),
+                          j > 0);
+      wgmma_ss_n128<1, 1>(dq, step_mnmajor(ds_lo_mn, j),
+                          step_mnmajor(k_chan, j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(dq);
+    // both warpgroups' products are done: Q, dO, P^T and dS^T are read
+    named_sync(kStageRead, 256);
+
+    // dQ -> my half of the stage (four f32 boxes of 32 channels,
+    // swizzled), then one thread adds it into the scratch; rows past L
+    // are not written
+    unsigned char* dq_tile = stage_ptr + c * kTileBytes;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      unsigned char* box = dq_tile + (i / 4) * kDqBox;
+      const int byte = (i % 4) * 32 + 8 * (lane % 4);
+      *reinterpret_cast<float2*>(box + sw128(row0, byte)) =
+          make_float2(dq[4 * i], dq[4 * i + 1]);
+      *reinterpret_cast<float2*>(box + sw128(row0 + 8, byte)) =
+          make_float2(dq[4 * i + 2], dq[4 * i + 3]);
+    }
+    fence_proxy_async();
+    named_sync(kOwnTiles + c, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int j = 0; j < kParts; ++j)
+        tma_reduce_add(m.dq, dq_tile + j * kDqBox,
+                       128 * c + kDqChannels * j, h, q0, b);
+      bulk_commit();
+    }
   }
-  __syncthreads();
-  write_rows(acc, reinterpret_cast<float*>(m.c), p.dq + q_at, q_stride,
-             min(kTile, p.L - q0), warp);
+  if (t == 0) bulk_wait_all();
+
+  // my channels of the f32 dK / dV partials, keys < S
+  const long long stride = (long long)KV * kHd;
+  const long long base = ((long long)b * S * KV + kvh) * kHd + 128 * c;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int col = 8 * i + 2 * (lane % 4);
+    if (key0 < S) {
+      *reinterpret_cast<float2*>(dk_part + base + key0 * stride + col) =
+          make_float2(dk[4 * i], dk[4 * i + 1]);
+      *reinterpret_cast<float2*>(dv_part + base + key0 * stride + col) =
+          make_float2(dv[4 * i], dv[4 * i + 1]);
+    }
+    if (key1 < S) {
+      *reinterpret_cast<float2*>(dk_part + base + key1 * stride + col) =
+          make_float2(dk[4 * i + 2], dk[4 * i + 3]);
+      *reinterpret_cast<float2*>(dv_part + base + key1 * stride + col) =
+          make_float2(dv[4 * i + 2], dv[4 * i + 3]);
+    }
+  }
 }
 
-// dK and dV of 64 keys of one kv head, summed over its group of query
-// heads
 __global__ void __launch_bounds__(kThreads, 1)
-bwd_dkv_kernel(const Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem m = carve(smem);
-  const int k0 = blockIdx.x * kTile;
-  const int g = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int len = min(max(p.lens[b], 0), p.L);
-  const long long q_stride = static_cast<long long>(p.H) * kHd;
-  const long long kv_stride = static_cast<long long>(p.KV) * kHd;
-  const long long kv_at = (static_cast<long long>(b) * p.L + k0) * kv_stride
-      + static_cast<long long>(g) * kHd;
+flash_bwd_hd256_kernel(
+    const __grid_constant__ CUtensorMap qmap,    // (B, L, H, 256)
+    const __grid_constant__ CUtensorMap kmap,    // (B, S, KV, 256)
+    const __grid_constant__ CUtensorMap vmap,
+    const __grid_constant__ CUtensorMap domap,   // (B, L, H, 256)
+    const __grid_constant__ CUtensorMap rowmap,  // (B, H, 2, Lp)
+    const __grid_constant__ CUtensorMap dqmap,   // (B, L, H, 256) f32
+    const int* __restrict__ lengths,             // (B,) key lengths
+    float* __restrict__ dk_part,   // (splits, B, S, KV, 256) f32
+    float* __restrict__ dv_part,
+    int L, int S, int H, int KV, int splits, int causal, float sm_scale) {
+  extern __shared__ unsigned char smem_raw[];
+  const Smem sm = carve(smem_raw);
 
-  load_tile(m.a, p.k + kv_at, kv_stride, p.L - k0);
-  load_tile(m.b, p.v + kv_at, kv_stride, p.L - k0);
-  Acc dk[8], dv[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    wmma::fill_fragment(dk[j], 0.f);
-    wmma::fill_fragment(dv[j], 0.f);
-  }
+  // key tile major, so the long causal walks start in the first wave and
+  // the short ones fill in behind them
+  const int per_tile = gridDim.x / ((S + kBk - 1) / kBk);   // B * KV * splits
+  const int k0 = blockIdx.x / per_tile * kBk;
+  const int r = blockIdx.x % per_tile;
+  const int b = r / (KV * splits), kvh = r / splits % KV, sp = r % splits;
+  const int length = min(lengths[b], S);
+  Walk w;
+  w.heads = H / KV / splits;
+  w.h0 = kvh * (H / KV) + sp * w.heads;
+  // key tiles at or past the length: no query attends them
+  w.qstart = k0 < length ? (causal ? k0 : 0) : L;
+  w.per_head = (L - w.qstart + kBq - 1) / kBq;
+  // this split's slice of the partials: B * KV * S rows of 256
+  const long long slice = (long long)sp * (per_tile / splits) * S * kHd;
 
-  // the P^T / dS^T element phase: key row tid / 4, 16 query columns from
-  // (tid % 4) * 16
-  const int er = tid >> 2, ec = (tid & 3) * 16;
-  const int q_start = k0 < len ? (p.causal != 0 ? k0 : 0) : p.L;
-  for (int hh = 0; hh < p.G; ++hh) {
-    const int h = g * p.G + hh;
-    for (int q0 = q_start; q0 < p.L; q0 += kTile) {
-      __syncthreads();   // the previous Q / dO tiles, P^T and dS^T are
-                         // consumed
-      const long long at = (static_cast<long long>(b) * p.L + q0) * q_stride
-          + static_cast<long long>(h) * kHd;
-      load_tile(m.c, p.q + at, q_stride, p.L - q0);
-      load_tile(m.d, p.dout + at, q_stride, p.L - q0);
-      load_rows(p, m, b, h, q0);
-      __syncthreads();
-      product_abt(m.a, m.c, m.s, warp);    // S^T = K Q^T
-      product_abt(m.b, m.d, m.dp, warp);   // dP^T = V dO^T
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < 16; ++c) {
-        const int col = ec + c;
-        const float pv = allowed(p, k0 + er, q0 + col, len)
-            ? exp2f(m.s[er * kLds + col] * p.scale_log2 - m.lse2[col])
-            : 0.f;
-        m.p[er * kLdp + col] = __float2bfloat16(pv);
-        m.ds[er * kLdp + col] = __float2bfloat16(
-            pv * (m.dp[er * kLds + col] - m.delta[col]) * p.scale);
-      }
-      __syncthreads();
-      product_acc(dv, m.p, m.d, warp);     // dV += P^T dO
-      product_acc(dk, m.ds, m.c, warp);    // dK += dS^T Q
+  const Maps m{&qmap, &kmap, &vmap, &domap, &rowmap, &dqmap};
+  if (threadIdx.x == 0) {
+    mbar_init(sm.kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(sm.full + i, 1);
+      mbar_init(sm.empty + i, 2);      // one arrival per warpgroup
     }
+    fence_barrier_init();
+    tma_prefetch(m.q);
+    tma_prefetch(m.dout);
+    tma_prefetch(m.rows);
+    mbar_arrive_tx(sm.kv_full, 2 * kTileBytes);
+    for (int p = 0; p < kParts; ++p) {
+      tma_load(sm.k + p * kPart, m.k, sm.kv_full, p * kBoxChannels, kvh, k0,
+               b);
+      tma_load(sm.k + kTileBytes + p * kPart, m.v, sm.kv_full,
+               p * kBoxChannels, kvh, k0, b);
+    }
+    for (int it = 0; it < kStages && it < w.count(); ++it)
+      load_stage(sm, m, w, it, b);
   }
   __syncthreads();
-  const int n = min(kTile, p.L - k0);
-  float* stage = reinterpret_cast<float*>(m.c);
-  write_rows(dk, stage, p.dk + kv_at, kv_stride, n, warp);
-  write_rows(dv, stage, p.dv + kv_at, kv_stride, n, warp);
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  consume(sm, m, dk_part + slice, dv_part + slice, w, wg, k0, b, kvh, L, S,
+          KV, length, causal, sm_scale);
 }
 
 }  // namespace
 
-// q (B, L, H, 256), k / v (B, S, KV, 256) with S == L, dout (B, L, H,
-// 256), all bf16; rows (B, H, 2, L rounded up to 4) f32: lse * log2(e),
-// then delta; lengths (B,) int32; dq (B, L, H, 256), dk / dv (B, S, KV,
-// 256) bf16, every element written. Two launches on ``stream``: dQ, then
-// dK / dV.
+// rows: lse * log2(e) and delta, f32 (B, H, 2, Lp) with Lp = L rounded
+// up to 4 (kernels/flash_attention.py, bwd_rows); dq: the f32 (B, L, H,
+// 256) scratch, which the caller has zeroed and the kernel adds dS K into;
+// dk_part / dv_part: f32 (splits, B, S, KV, 256), every element written;
+// splits divides H / KV (kernels/attention_hd256.py, bwd_hd256_plan).
 extern "C" int v3d_flash_attention_bwd_hd256(
     const void* q, const void* k, const void* v, const void* dout,
-    const void* rows, const void* lengths, void* dq, void* dk, void* dv,
-    int B, int L, int S, int H, int KV, int causal, float sm_scale,
-    void* stream) {
-  if (B <= 0 || L <= 0 || S != L || KV <= 0 || H % KV != 0 || B > 65535
-      || H > 65535)
+    const void* rows, const void* lengths, void* dq, void* dk_part,
+    void* dv_part, int B, int L, int S, int H, int KV, int splits,
+    int causal, float sm_scale, void* stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_hd256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (KV <= 0 || H % KV != 0 || splits <= 0 || (H / KV) % splits != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  static const cudaError_t attr_dkv = cudaFuncSetAttribute(
-      bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
-  if (attr_dq != cudaSuccess) return static_cast<int>(attr_dq);
-  if (attr_dkv != cudaSuccess) return static_cast<int>(attr_dkv);
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
-  p.rows = static_cast<const float*>(rows);
-  p.lens = static_cast<const int*>(lengths);
-  p.dq = static_cast<bf16*>(dq);
-  p.dk = static_cast<bf16*>(dk);
-  p.dv = static_cast<bf16*>(dv);
-  p.L = L;
-  p.H = H;
-  p.KV = KV;
-  p.G = H / KV;
-  p.Lr = (L + 3) / 4 * 4;
-  p.causal = causal;
-  p.scale = sm_scale;
-  p.scale_log2 = sm_scale * kLog2e;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (L + kTile - 1) / kTile;
-  bwd_dq_kernel<<<dim3(tiles, H, B), kThreads, kSmemBytes, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  bwd_dkv_kernel<<<dim3(tiles, KV, B), kThreads, kSmemBytes, st>>>(p);
+  if (B <= 0 || L <= 0 || S <= 0) return 0;
+  const long long Lp = (L + 3) / 4 * 4;
+  CUtensorMap qmap, kmap, vmap, domap, rowmap, dqmap;
+  int err = encode_rows_map(&qmap, q, B, L, H, kBq, kHd);
+  if (!err) err = encode_rows_map(&kmap, k, B, S, KV, kBk, kHd);
+  if (!err) err = encode_rows_map(&vmap, v, B, S, KV, kBk, kHd);
+  if (!err) err = encode_rows_map(&domap, dout, B, L, H, kBq, kHd);
+  if (!err)   // both vectors of a query tile in one box
+    err = encode_map(&rowmap, rows, 4, false, {Lp, 2, H, B}, {kBq, 2, 1, 1});
+  if (!err)
+    err = encode_map(&dqmap, dq, 4, true, {kHd, H, L, B},
+                     {kDqChannels, 1, kBq, 1});
+  if (err) return err;
+  // one CTA per (key tile, batch row, kv head, head split), decoded by the
+  // kernel; split sp writes slice sp of the partials
+  const dim3 grid((S + kBk - 1) / kBk * B * KV * splits);
+  flash_bwd_hd256_kernel<<<grid, kThreads, kSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      qmap, kmap, vmap, domap, rowmap, dqmap,
+      static_cast<const int*>(lengths), static_cast<float*>(dk_part),
+      static_cast<float*>(dv_part), L, S, H, KV, splits, causal, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }

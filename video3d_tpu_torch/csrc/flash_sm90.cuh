@@ -1,6 +1,8 @@
 // Hopper (sm_90a) machinery shared by the flash kernels B2 (prefill and
-// with the logsumexp, flash_attention.cu), B6 (flash_attention_bwd.cu) and
-// the cached-chunk kernels, B2 folded and B5 (chunk_sm90.cuh):
+// with the logsumexp, flash_attention.cu; at head width 256,
+// flash_attention_hd256.cu), B6 (flash_attention_bwd.cu; at 256,
+// flash_attention_bwd_hd256.cu) and the cached-chunk kernels, B2 folded and
+// B5 (chunk_sm90.cuh):
 // TMA tensor maps (host) and tile copies, mbarriers, named barriers,
 // register reallocation between warpgroups, and warpgroup MMAs (wgmma)
 // with their shared-memory descriptors.
@@ -17,8 +19,10 @@
 // and softmax state in registers.
 //
 // Layout convention: a bf16 tile of R rows x 128 channels (hd) is stored
-// as two 64-channel halves, each R rows x 128 bytes with the 128-byte
-// swizzle (16-byte chunk j of row r at chunk j ^ (r % 8)), the layout one
+// as two 64-channel halves (at hd 256: four 64-channel parts, each one
+// "half" apart in the descriptors below), each R rows x 128 bytes with
+// the 128-byte swizzle (16-byte chunk j of row r at chunk j ^ (r % 8)),
+// the layout one
 // TMA box of (64 channels, 1 head, R rows, 1 batch) writes. Every tile
 // starts on a 1024-byte boundary, so the swizzle of an address is that of
 // its offset in the tile.
@@ -41,7 +45,8 @@ typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------- host
 
-constexpr int kHeadDim = 128;      // channels of a Q / K / V / O row
+constexpr int kHeadDim = 128;      // channels of a Q / K / V / O row (the
+                                   // hd-256 kernels pass their own)
 constexpr int kBoxChannels = 64;   // bf16 channels of a swizzled box row:
                                    // the swizzle's 128 bytes
 
@@ -103,11 +108,11 @@ inline int encode_map(CUtensorMap* map, const void* base, int elem_bytes,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The map of a bf16 (B, N, heads, kHeadDim) tensor, read or written in
+// The map of a bf16 (B, N, heads, head_dim) tensor, read or written in
 // swizzled boxes of `rows` rows x kBoxChannels channels of one head.
 inline int encode_rows_map(CUtensorMap* map, const void* base, int B, int N,
-                           int heads, int rows) {
-  return encode_map(map, base, 2, true, {kHeadDim, heads, N, B},
+                           int heads, int rows, int head_dim = kHeadDim) {
+  return encode_map(map, base, 2, true, {head_dim, heads, N, B},
                     {kBoxChannels, 1, rows, 1});
 }
 
@@ -230,6 +235,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 // barrier `id` (1..15) over `count` threads of whole warps
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// arrive at barrier `id` without waiting (its `count` counts the threads
+// that sync on it too): what this thread wrote to shared memory before is
+// visible to those that pass it
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
 }
 
 // -- registers per thread of this warpgroup (all its warps call it)

@@ -182,15 +182,14 @@ _SIGNATURES = {
     "v3d_attention_hd256_shared_prefix_quant": [_P, _P, _P, _P, _P, _P, _P,
                                                 _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _I, _I, _I, _F, _P],
-    # q, k, v, lens, out, lse, workspace, B, L, H, KV, causal, splits,
-    # split_keys, sm_scale, stream
-    "v3d_attention_hd256_lse": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                _I, _I, _I, _F, _P],
-    # q, k, v, dout, rows (lse and delta), lengths, dq, dk, dv, B, L, S, H,
-    # KV, causal, sm_scale, stream
+    # q, k, v, dout, rows (lse and delta), lengths, dq (f32 scratch), dk /
+    # dv partials (f32), B, L, S, H, KV, splits, causal, sm_scale, stream
     "v3d_flash_attention_bwd_hd256": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                      _I, _I, _I, _I, _I, _F, _P],
+                                      _I, _I, _I, _I, _I, _I, _F, _P],
 }
+# the hd-256 prefill forms take the hd-128 ones' arguments
+_SIGNATURES.update({f"{n}_hd256{lse}": _SIGNATURES[n + lse]
+                    for n in ("v3d_flash_attention",) for lse in ("", "_lse")})
 # the int4-cache instantiations take the int8 ones' arguments
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]
                     for n in ("decode_attention", "flash_attention_folded",

@@ -1,7 +1,7 @@
-"""Attention at head width 256 (Gemma's): the prefill form of B2, B2
-folded, B3, B7 and B5, on one hand-written kernel
-(``csrc/attention_hd256.cu``), B2's training form with the logsumexp on
-the same kernel, and B6, its backward, on two more
+"""Attention at head width 256 (Gemma's): B2 folded, B3, B7 and B5 on one
+hand-written kernel (``csrc/attention_hd256.cu``), the prefill form of B2
+and its training form with the logsumexp on another
+(``csrc/flash_attention_hd256.cu``), and B6, their backward, on a third
 (``csrc/flash_attention_bwd_hd256.cu``), with their plain PyTorch twins.
 
 The JAX package sends any ``hd % 128 == 0`` to its Pallas kernels
@@ -23,13 +23,16 @@ as ``flash_attention_lse_hd256``) and :func:`bwd_hd256` (B6, counted as
 ``flash_attention_bwd_hd256``); their twins are the hd-128 forms' plain
 versions, which take any head width.
 
-:func:`hd256_plan` (pure: shapes and the SM count) gives the grid: row
-tiles of 64 folded query rows per (batch row, kv head), and, where those
-do not fill the card, a split of the keys whose partials merge in a second
-kernel through the stream's f32 workspace (``_launch``). The paged form's
-key axis is a slot's ``maxp * page`` positions (:func:`paged_plan`); the
-shared-prefix form's is the prefix padded to whole 64-key tiles, then the
-suffix (:func:`shared_prefix_plan`).
+:func:`hd256_plan` (pure: shapes and the SM count) gives the WMMA
+kernel's grid: row tiles of 64 folded query rows per (batch row, kv head),
+and, where those do not fill the card, a split of the keys whose partials
+merge in a second kernel through the stream's f32 workspace (``_launch``).
+The paged form's key axis is a slot's ``maxp * page`` positions
+(:func:`paged_plan`); the shared-prefix form's is the prefix padded to
+whole 64-key tiles, then the suffix (:func:`shared_prefix_plan`). The
+prefill forms need no plan (one CTA per 128-row query tile and head);
+:func:`bwd_hd256_plan` splits B6's query heads over CTAs so that no causal
+walk outlasts an even share of the card's work.
 """
 
 from __future__ import annotations
@@ -62,7 +65,9 @@ PART_FLOATS = HEAD_DIM + 2   # one split's O, m and l of a row
 #: the C modes of ``v3d_attention_hd256``'s forms (the paged and
 #: shared-prefix forms have entries of their own) and every bf16 form's
 #: launch-count name (a quantized form's adds ``CACHE_FORMS``' suffix)
-MODES = {"prefill": 0, "folded": 1, "decode": 2}
+MODES = {"folded": 1, "decode": 2}
+BWD_KEYS = 64      # B6: keys per CTA (csrc flash_attention_bwd_hd256 kBk)
+BWD_ROWS = 64      # B6: query rows per tile of a CTA's walk (kBq)
 NAMES = {"prefill": "flash_attention_hd256",
          "folded": "flash_attention_folded_hd256",
          "decode": "decode_attention_hd256",
@@ -72,7 +77,8 @@ NAMES = {"prefill": "flash_attention_hd256",
          "bwd": "flash_attention_bwd_hd256"}
 
 __all__ = ["HEAD_DIM", "Hd256Plan", "hd256_plan", "paged_plan",
-           "shared_prefix_plan", "prefill_hd256", "prefill_hd256_plain",
+           "shared_prefix_plan", "BwdPlan", "bwd_hd256_plan",
+           "prefill_hd256", "prefill_hd256_plain",
            "folded_hd256", "folded_hd256_plain", "decode_hd256",
            "decode_hd256_plain", "paged_hd256", "paged_hd256_plain",
            "shared_prefix_hd256", "shared_prefix_hd256_plain",
@@ -119,6 +125,49 @@ def hd256_plan(B: int, L: int, H: int, KV: int, S: int,
     per = -(-key_tiles // want)
     return Hd256Plan(B * KV, rows, row_tiles, -(-key_tiles // per),
                      per * KEYS)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """B6's grid: one CTA per (key tile of BWD_KEYS, batch row, kv head,
+    split), each walking ``heads`` of the group's query heads; ``longest``
+    query tiles the longest CTA walks, ``share`` the query tiles an even
+    spread gives each SM (both over all L rows: the host never reads the
+    lengths)."""
+    key_tiles: int
+    bkv: int
+    splits: int
+    heads: int
+    longest: int
+    share: float
+
+    @property
+    def ctas(self) -> int:
+        return self.key_tiles * self.bkv * self.splits
+
+    def partial_shape(self, B: int, S: int, KV: int) -> tuple:
+        """The f32 dK / dV partials: one (B, S, KV, 256) slice a split."""
+        return (self.splits, B, S, KV, HEAD_DIM)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_hd256_plan(B: int, L: int, H: int, KV: int, causal: bool,
+                   sms: int) -> BwdPlan:
+    """B6 at hd 256 over B rows of L queries (= keys) of H heads on KV kv
+    heads, ``sms`` SMs: key tile j walks L / BWD_ROWS - j query tiles of
+    each head (causal; all of them otherwise). The group's G = H / KV heads
+    split over the fewest CTAs (a divisor of G) for which the longest walk
+    (key tile 0's) is no longer than the SMs' even share; G where none
+    is."""
+    G = H // KV
+    key_tiles = -(-L // BWD_KEYS)
+    q_tiles = -(-L // BWD_ROWS)
+    walk = sum(q_tiles - j if causal else q_tiles for j in range(key_tiles))
+    share = B * KV * G * walk / sms
+    splits = next((s for s in range(1, G + 1)
+                   if G % s == 0 and q_tiles * (G // s) <= share), G)
+    return BwdPlan(key_tiles, B * KV, splits, G // splits,
+                   q_tiles * (G // splits), share)
 
 
 def paged_plan(B: int, H: int, KV: int, maxp: int, page: int,
@@ -266,20 +315,40 @@ def _launch_form(lib, stream: int, sms: int, form: str, q: torch.Tensor,
 
 
 def prefill_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  lengths: torch.Tensor) -> torch.Tensor:
+                  lengths: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """B2's prefill form at hd 256 on the card: q (B, L, H, 256), k / v (B,
-    L, KV, 256) bf16; query row r attends keys s <= r and s < lengths[b].
-    Twin: :func:`prefill_hd256_plain` (``flash_attention_plain``)."""
-    name = NAMES["prefill"]
-    B, L, KV = k.shape[0], k.shape[1], k.shape[2]
-    kf, vf = k.reshape(B, L, KV * HEAD_DIM), v.reshape(B, L, KV * HEAD_DIM)
-    _check_cache(name, q, kf, vf, None, None, None)
-    if (q.shape[-1] != HEAD_DIM or v.shape != k.shape or q.shape[0] != B
-            or q.shape[2] % KV):
-        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
-                         f"k {tuple(k.shape)}")
-    return _launch_form(*_card(q.device), "prefill", q, kf, vf, lengths,
-                        None, KV)
+    L, KV, 256) bf16; query row r attends keys s < lengths[b] (and s <= r,
+    causal). Twin: :func:`prefill_hd256_plain` (``flash_attention_plain``)."""
+    if k.dtype != torch.bfloat16 or v.dtype != torch.bfloat16:
+        raise ValueError(f"{NAMES['prefill']}: k and v must be bf16 (no "
+                         f"prefill form reads a quantized cache), got "
+                         f"{k.dtype}")
+    _check_train(NAMES["prefill"], q, k, v)
+    out, _ = _launch_prefill(_build.library(),
+                             torch.cuda.current_stream(q.device).cuda_stream,
+                             q, k, v, lengths, causal, with_lse=False)
+    return out
+
+
+def _launch_prefill(lib, stream: int, q, k, v, lengths, causal: bool,
+                    with_lse: bool):
+    """Launch B2's prefill form at hd 256 (``with_lse``: its training
+    instantiation) through ``lib``: (out, lse or None); allocates the
+    output and the lse and reads nothing of lengths on the host."""
+    name = NAMES["lse" if with_lse else "prefill"]
+    B, L, H, hd = q.shape
+    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+            out.data_ptr()) + ((lse.data_ptr(),) if with_lse else ())
+    entry = "v3d_flash_attention_hd256" + ("_lse" if with_lse else "")
+    err = getattr(lib, entry)(*ptrs, B, L, L, H, k.shape[2], int(causal),
+                              float(hd ** -0.5), stream)
+    _build.check(err, name)
+    _build.count_launch(name)
+    return out, lse
 
 
 def folded_hd256(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -469,28 +538,9 @@ def prefill_lse_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     equal to :func:`prefill_hd256`'s bit for bit. Twin:
     :func:`prefill_lse_hd256_plain` (``flash_attention_fwd_plain``)."""
     _check_train(NAMES["lse"], q, k, v)
-    return _launch_lse(*_card(q.device), q, k, v, lengths, causal)
-
-
-def _launch_lse(lib, stream: int, sms: int, q, k, v, lengths,
-                causal: bool):
-    """Launch the training form through ``lib`` on ``sms`` SMs: the prefill
-    form's plan and the stream's workspace where the keys split; allocates
-    the output and the lse and reads nothing of lengths on the host."""
-    B, L, H, hd = q.shape
-    KV = k.shape[2]
-    plan = hd256_plan(B, L, H, KV, L, sms)
-    ws = _workspace(plan, q.device, stream)
-    lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty(B, H, L, dtype=torch.float32, device=q.device)
-    err = lib.v3d_attention_hd256_lse(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), _ptr(ws), B, L, H, KV, int(causal),
-        plan.splits, plan.split_keys, float(hd ** -0.5), stream)
-    _build.check(err, NAMES["lse"])
-    _build.count_launch(NAMES["lse"])
-    return out, lse
+    return _launch_prefill(_build.library(),
+                           torch.cuda.current_stream(q.device).cuda_stream,
+                           q, k, v, lengths, causal, with_lse=True)
 
 
 def bwd_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -499,7 +549,8 @@ def bwd_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """B6 at hd 256 on the card: the gradients of :func:`prefill_lse_hd256`
     given dO (B, L, H, 256) bf16, its lse and delta = rowsum(dO * O), both
     (B, H, L) f32. Returns (dq, dk, dv) bf16, dK / dV summed over each kv
-    head's group, bit-reproducible (no atomics). Twin:
+    head's group and bit-reproducible (the splits' partials summed in a
+    fixed order), dQ summed by reduce-adds (not bit-reproducible). Twin:
     :func:`bwd_hd256_plain` (``flash_attention_bwd_plain``, which takes O
     and computes delta itself)."""
     name = NAMES["bwd"]
@@ -512,23 +563,28 @@ def bwd_hd256(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: do {tuple(do.shape)} lse "
                          f"{tuple(lse.shape)} delta {tuple(delta.shape)}")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    return _launch_bwd(_build.library(),
-                       torch.cuda.current_stream(q.device).cuda_stream, q, k,
-                       v, do, bwd_rows(lse, delta), lengths, causal)
+    return _launch_bwd(*_card(q.device), q, k, v, do, bwd_rows(lse, delta),
+                       lengths, causal)
 
 
-def _launch_bwd(lib, stream: int, q, k, v, do, rows, lengths,
+def _launch_bwd(lib, stream: int, sms: int, q, k, v, do, rows, lengths,
                 causal: bool):
-    """Launch B6 at hd 256 through ``lib``: the dQ kernel, then the dK / dV
-    kernel; allocates the three gradients, each written whole."""
+    """Launch B6 at hd 256 through ``lib`` on ``sms`` SMs with its plan:
+    dQ added into a zeroed f32 scratch, the dK / dV partials (every element
+    written) summed over the splits; the sums rounded to bf16."""
     B, L, H, hd = q.shape
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
-        torch.empty_like(v)
+    KV = k.shape[2]
+    plan = bwd_hd256_plan(B, L, H, KV, bool(causal), sms)
+    dq = torch.zeros(B, L, H, hd, dtype=torch.float32, device=q.device)
+    dk_part, dv_part = (torch.empty(plan.partial_shape(B, L, KV),
+                                    dtype=torch.float32, device=q.device)
+                        for _ in range(2))
     err = lib.v3d_flash_attention_bwd_hd256(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        rows.data_ptr(), lengths.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), B, L, L, H, k.shape[2], int(causal),
-        float(hd ** -0.5), stream)
+        rows.data_ptr(), lengths.data_ptr(), dq.data_ptr(),
+        dk_part.data_ptr(), dv_part.data_ptr(), B, L, L, H, KV, plan.splits,
+        int(causal), float(hd ** -0.5), stream)
     _build.check(err, NAMES["bwd"])
     _build.count_launch(NAMES["bwd"])
-    return dq, dk, dv
+    return (dq.to(q.dtype), dk_part.sum(0).to(k.dtype),
+            dv_part.sum(0).to(v.dtype))

@@ -21,11 +21,10 @@ with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
 (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
 ``flash_attention_bwd``), on the CPU their plain versions.
 
-At head width 256 the prefill form, B2 folded and B5 (each over a bf16,
-an int8 or a packed int4 cache or prefix) launch
-``csrc/attention_hd256.cu`` instead (``kernels/attention_hd256.py``), and
-so do the training forms: B2 with the logsumexp on the same kernel, B6 on
-``csrc/flash_attention_bwd_hd256.cu``.
+At head width 256 B2 folded and B5 (each over a bf16, an int8 or a packed
+int4 cache or prefix) launch ``csrc/attention_hd256.cu`` instead, the
+prefill form and B2 with the logsumexp ``csrc/flash_attention_hd256.cu``,
+B6 ``csrc/flash_attention_bwd_hd256.cu`` (``kernels/attention_hd256.py``).
 
 Every form at hd 128 runs on Hopper kernels fed by TMA: their C entries
 take the shapes, encode the tensor maps from the kernels' own tile sizes
@@ -192,10 +191,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lengths is None:
         lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
                              device=q.device)
-    if q.shape[-1] == 256 and causal:
+    if q.shape[-1] == 256:
         from video3d_tpu_torch.kernels import attention_hd256
 
-        return attention_hd256.prefill_hd256(q, k, v, lengths)
+        return attention_hd256.prefill_hd256(q, k, v, lengths, causal)
     out, _ = _fwd_launch(_build.library(), _stream(q.device), q, k, v,
                          lengths, causal, with_lse=False)
     return out
@@ -424,8 +423,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward of the prefill form: q (B, L, H, hd), k/v (B, L, KV,
     hd) -> (out (B, L, H, hd) in q's dtype, lse (B, H, L) f32). B2's
-    ``kLse`` instantiation on the GPU (hd 256: the hd-256 kernel's), the
-    plain version on the CPU."""
+    ``kLse`` instantiation on the GPU (hd 256: that of
+    ``csrc/flash_attention_hd256.cu``), the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, lengths, causal)
     if q.device.type != "cuda":
@@ -482,9 +481,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward of :func:`flash_attention_fwd`: (dq, dk, dv). On the GPU,
     delta = rowsum(dO * O) in f32 (outside the kernel, as JAX computes
-    it), then B6, which sums each kv head's group inside (hd 256: its two
-    kernels, ``attention_hd256.bwd_hd256``); the plain version on the
-    CPU."""
+    it), then B6, which sums each kv head's group inside (hd 256:
+    ``attention_hd256.bwd_hd256``, over a split of each group's heads);
+    the plain version on the CPU."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, do, lengths,
                                          causal)
