@@ -447,12 +447,12 @@ KERNEL_INFO = {
     "flash_attention_folded_hd256": (
         "video3d_tpu_torch/csrc/attention_hd256.cu",
         "video3d_tpu/kernels/flash_attention.py:64"),
-    "decode_attention_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
+    "decode_attention_hd256": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                                "video3d_tpu/kernels/decode_attention.py:68"),
-    "paged_attention_hd256": ("video3d_tpu_torch/csrc/attention_hd256.cu",
+    "paged_attention_hd256": ("video3d_tpu_torch/csrc/decode_sm90.cuh",
                               "video3d_tpu/kernels/paged_attention.py:60"),
     "shared_prefix_attention_hd256": (
-        "video3d_tpu_torch/csrc/attention_hd256.cu",
+        "video3d_tpu_torch/csrc/shared_prefix_hd256.cu",
         "video3d_tpu/kernels/flash_attention.py:503"),
     "flash_attention_lse_hd256": (
         "video3d_tpu_torch/csrc/flash_attention_hd256.cu",
@@ -460,16 +460,16 @@ KERNEL_INFO = {
     "flash_attention_bwd_hd256": (
         "video3d_tpu_torch/csrc/flash_attention_bwd_hd256.cu",
         "video3d_tpu/kernels/flash_attention.py:181, :216"),
-    **{f"{name}_hd256_int{bits}": (
-        "video3d_tpu_torch/csrc/attention_hd256.cu", replaces)
+    **{f"{name}_hd256_int{bits}": (f"video3d_tpu_torch/csrc/{src}", replaces)
        for bits in (8, 4)
-       for name, replaces in (
-           ("flash_attention_folded",
+       for name, src, replaces in (
+           ("flash_attention_folded", "attention_hd256.cu",
             "video3d_tpu/kernels/flash_attention.py:64"),
-           ("decode_attention",
+           ("decode_attention", "decode_sm90.cuh",
             "video3d_tpu/kernels/decode_attention.py:68"),
-           ("paged_attention", "video3d_tpu/kernels/paged_attention.py:60"),
-           ("shared_prefix_attention",
+           ("paged_attention", "decode_sm90.cuh",
+            "video3d_tpu/kernels/paged_attention.py:60"),
+           ("shared_prefix_attention", "shared_prefix_hd256.cu",
             "video3d_tpu/kernels/flash_attention.py:503"))},
 }
 #: kernels of the int8 configuration (phase 6); the others run in phases
@@ -5688,8 +5688,9 @@ def _check_quant_cache_steps(params, cfg, engine, prep, hit_q,
     after one decode step from each), through the kernels, against the
     same steps with the ``kv`` cache's forms' plain versions swapped in
     (f32); within ``atol``, and the control (the plain versions reading
-    the scales one position off) at least twice that. Phase 10 (int4
-    cache) and phase 19 (f)."""
+    the scales one position off) at least twice that. Every run's decode
+    step decodes the kernels' run's greedy tokens. Phase 10 (int4 cache)
+    and phase 19 (f)."""
     import torch
 
     from video3d_tpu_torch.models import generate as gen
@@ -5700,16 +5701,23 @@ def _check_quant_cache_steps(params, cfg, engine, prep, hit_q,
     _check(f"{label}the B=1 question hits the {kv} prefix",
            hit["mode"] == "prefix", f"mode {hit['mode']}")
 
-    def steps():
+    def steps(first=None):
+        """The first steps' logits (and the decode steps'); ``first``: the
+        first steps' logits of the kernels' run, put in place of this
+        run's before its decode step, so that every run decodes the same
+        greedy tokens (a near-tie that the two first steps break apart
+        would compare decode steps of different tokens)."""
         out = []
-        for p in (prep, hit):
+        for i, p in enumerate((prep, hit)):
             entry = p["entry"]
             with torch.inference_mode():
                 state = gen.start_decode_prefix(
                     params, cfg, p["batch"], entry.cache, entry.prefix_len,
                     p["bucket"] + MAX_NEW, engine.cache_dtype)
-                out.append(state.next_logits.float())
+                out.append(state.next_logits.float().clone())
                 if decode_step:
+                    if first is not None:
+                        state.next_logits.copy_(first[2 * i])
                     state, _ = gen.decode_chunk(params, cfg, state, 1, eos,
                                                 capture=False)
                     out.append(state.next_logits.float())
@@ -5719,9 +5727,13 @@ def _check_quant_cache_steps(params, cfg, engine, prep, hit_q,
 
     got = steps()
     with _plain_quant_forms(storage=storage):
-        ref = steps()
+        ref = steps(got)
     with _plain_quant_forms(roll=1, storage=storage):
-        ctl = steps()
+        ctl = steps(got)
+    # rows whose greedy token the plain versions' first step changes
+    flips = sum(int((a.argmax(-1) != b.argmax(-1)).sum())
+                for a, b in zip(got[::2 if decode_step else 1],
+                                ref[::2 if decode_step else 1]))
     diffs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
     diff = max(diffs)
     control = max(float((a - b).abs().max()) for a, b in zip(ctl, ref))
@@ -5736,7 +5748,11 @@ def _check_quant_cache_steps(params, cfg, engine, prep, hit_q,
            f"max |d| {diff:.4f} ("
            + ", ".join(f"{n} {d:.4f}" for n, d in zip(parts, diffs))
            + f"; bound {atol}; |logits| up to "
-           f"{max(float(a.abs().max()) for a in ref):.2f})")
+           f"{max(float(a.abs().max()) for a in ref):.2f}; the plain "
+           f"versions' first step changes the greedy token of {flips} "
+           f"row(s)"
+           + ("; every run's decode step takes the kernels' tokens"
+              if decode_step else "") + ")")
     _check(f"{label}{what} logits control, plain versions with the scales "
            f"one position off", control >= 2 * atol,
            f"max |d| {control:.4f} (must be >= {2 * atol})")

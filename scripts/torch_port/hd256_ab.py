@@ -1,6 +1,8 @@
-"""A/B of the head-width-256 attention kernels (``csrc/attention_hd256.cu``;
-B2's prefill form: ``csrc/flash_attention_hd256.cu``) between two source
-trees, on one CUDA GPU:
+"""A/B of the head-width-256 attention kernels (B2 folded and B7:
+``csrc/attention_hd256.cu``; B2's prefill form:
+``csrc/flash_attention_hd256.cu``; B3: ``csrc/decode_sm90.cuh``; B5:
+``csrc/shared_prefix_hd256.cu``; a parent tree may hold others) between two
+source trees, on one CUDA GPU:
 
     python3 scripts/torch_port/hd256_ab.py --parent DIR [--iters 30]
 
@@ -13,8 +15,11 @@ phase 3's shapes, at Gemma-2B's heads (8 query heads on 1 kv head, head_dim
 L=8192, length 6780), B2 folded (64 queries at 6716 over layer 17 of an
 18-layer cache of 8224 slots) and B3 (kv_len 6812 of 8704, layer 17); a
 tree that has them also times B7 (8 slots of ~6.8k aliasing 52 prefix pages
-of 128, layer 17 of 18-layer pools) and B5 (B=8, L=64, a 6716-token
-prefix). Each time is the median of ``--iters`` CUDA-event timings, each
+of 128, layer 17 of 18-layer pools), B5 (B=8, L=64, a 6716-token prefix),
+B3 over an int8 and an int4 cache and at B=8 (eight rows of 6812), and B5
+over an int8 and an int4 prefix (the values quantized by the tree's own
+cache write, ``quantize_rows``, from the same bf16 inputs). Each time is
+the median of ``--iters`` CUDA-event timings, each
 call queued behind a ~1 ms spin kernel, warm and with the L2 flushed before
 each call. The first turn of a tree that compiled prints the kernel's
 ptxas report (registers, spills).
@@ -91,6 +96,26 @@ def _cases(dev):
                 qp, kp, vp, table, plens, layer, KV), 50),
             ("B5 hd256", lambda: fa.flash_attention_shared_prefix(
                 qs, pk, pv, sk, sv, slens), 10)]
+    from video3d_tpu_torch.models.qwen2 import quantize_rows
+
+    # B3 at B=8 (eight rows of 6812) and the quantized forms of B3 and B5
+    q8, k8c, v8c = bf(8, 1, H, HD), bf(2, 8, 8704, KV * HD), \
+        bf(2, 8, 8704, KV * HD)
+    lens8 = i32([6812] * 8)
+    out.append(("B3 hd256 B=8", lambda: da.decode_attention(
+        q8, k8c, v8c, lens8, 1, KV), 50))
+    for bits, storage in ((8, torch.int8), (4, torch.uint8)):
+        kq, ks = quantize_rows(kd.reshape(NL, 1, 8704, KV, HD), storage)
+        vq, vs = quantize_rows(vd.reshape(NL, 1, 8704, KV, HD), storage)
+        pkq, pks = quantize_rows(pk, storage)
+        pvq, pvs = quantize_rows(pv, storage)
+        pkq, pvq = (x.reshape(PREFIX, KV, -1) for x in (pkq, pvq))
+        out += [(f"B3 hd256 int{bits}", lambda kq=kq, vq=vq, ks=ks, vs=vs:
+                 da.decode_attention(qd, kq, vq, dlen, layer, KV, ks, vs),
+                 50),
+                (f"B5 hd256 int{bits}", lambda pkq=pkq, pvq=pvq, pks=pks,
+                 pvs=pvs: fa.flash_attention_shared_prefix(
+                     qs, pkq, pvq, sk, sv, slens, pks, pvs), 10)]
     return out
 
 
@@ -118,7 +143,8 @@ def _turn(tree: str, tag: str) -> dict:
               f"flushed", flush=True)
     log = _build.build_log.splitlines()
     for i, line in enumerate(log):
-        if "attention_hd256" in line and "Compiling entry" in line:
+        if ("attention_hd256" in line or "shared_prefix_hd256" in line
+                or "Li256E" in line) and "Compiling entry" in line:
             print("  ptxas:", " | ".join(x.strip() for x in log[i:i + 4]),
                   flush=True)
     return times

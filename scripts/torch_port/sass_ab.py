@@ -11,10 +11,12 @@ once); ``cuobjdump -sass`` gives each kernel's opcode sequence (operands
 dropped) and ptxas its registers and spill bytes. For every kernel the
 parent has, the opcode sequences and the registers and spills must be
 equal (a kernel whose template gained a last parameter is matched at that
-parameter's 0: the parent's ``kernel<M>`` is this tree's ``kernel<M, 0>``;
-one whose template lost its last parameter is matched the other way: the
-parent's ``kernel<M, C, 0>`` is this tree's ``kernel<M, C>``, and the
-parent's instantiations at another value of it are gone); kernels only in
+parameter's 0: the parent's ``kernel<M>`` is this tree's ``kernel<M, 0>``,
+or at 128 where the parameter is a head width: the parent's ``kernel<T,
+Map>`` is this tree's ``kernel<T, Map, 128>``; one whose template lost its
+last parameter is matched the other way: the parent's ``kernel<M, C, 0>``
+is this tree's ``kernel<M, C>``, and the parent's instantiations at
+another value of it are gone); kernels only in
 this tree (new instantiations) are listed with their instruction counts,
 registers and spills.
 
@@ -139,17 +141,21 @@ def main() -> None:
                                   for n, r in props.items()})
     # a template parameter added last, whose 0 keeps the old code (the
     # hd-256 kernel's cache form): the parent's kernel<M> is the change's
-    # kernel<M, 0>
+    # kernel<M, 0>; or whose 128 does (the decode template's head width):
+    # the parent's kernel<T, Map> is the change's kernel<T, Map, 128>;
     # and a template parameter dropped last (the hd-256 kernel's kLse): the
     # parent's kernel<M, C, 0> is the change's kernel<M, C>
     for name in list(sass["parent"]):
         zero = "(int)0" if "(int)" in name else "0"
         extended = re.sub(r"<([^<>]*)>\(", rf"<\1, {zero}>(", name, count=1)
+        # (a Map such as <unnamed>::FlatRows nests brackets: the template's
+        # arguments end at the first ">(")
+        widths = [name.replace(">(", f", {c}128>(", 1) for c in ("", "(int)")]
         dropped = re.sub(rf"<([^<>]*), {re.escape(zero)}>\(", r"<\1>(", name,
                          count=1)
         if name in sass["change"]:
             continue
-        for other in (extended, dropped):
+        for other in (extended, *widths, dropped):
             if other != name and other in sass["change"]:
                 sass["parent"][other] = sass["parent"].pop(name)
                 regs["parent"][other] = regs["parent"].pop(name, None)

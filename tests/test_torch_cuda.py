@@ -2507,3 +2507,260 @@ def test_hd256_quant_shared_prefix_kernel(dev, bits, B, L, H, KV, P, slens):
     controls.append(plain(pk8[64:], pv8[64:], pks[64:], pvs[64:]))
     for broken in controls:
         assert _rows_err(broken, ref, slens) > 4 * BF16_ATOL
+
+
+# ---------------------------------------------------------------------------
+# head width 256, the redesigned forms: B3 on the decode template's hd-256
+# instantiation (warp pairs over the two channel halves, a row's slices
+# merged in two levels) and B5 on TMA + wgmma (csrc/shared_prefix_hd256.cu),
+# each in its three cache forms, at their tiles' and splits' edges
+# ---------------------------------------------------------------------------
+
+HD256_FORMS = ["bf16", 8, 4]
+# (H, KV, S, kv_len): a row of 1, 15, 16, 17 (a 16-position block's edges)
+# and of 8704; fewer live positions than CTAs with a kv_len 0 row (B=8);
+# eight ragged rows; a 32k row beside short ones; groups of 2 and of 1
+HD256_DECODE_EDGES = [(8, 1, 8704, [1]), (8, 1, 8704, [15]),
+                      (8, 1, 8704, [16]), (8, 1, 8704, [17]),
+                      (8, 1, 8704, [8704]),
+                      (8, 1, 528, [5, 0, 9, 3, 1, 2, 4, 6]),
+                      (8, 1, 8704, [6812, 17, 8704, 0, 300, 4097, 1, 6000]),
+                      (8, 1, 32768, [32768, 5, 100, 7]),
+                      (4, 2, 2048, [2048, 1500]), (2, 2, 1000, [999, 16])]
+
+
+def _hd256_cache(form, x):
+    """bf16 (..., S, KV, 256) keys or values as the ``form`` cache holds
+    them: (flat bf16, None), or the int8 / packed int4 bytes and scales."""
+    if form == "bf16":
+        return x.reshape(*x.shape[:-2], -1).bfloat16().contiguous(), None
+    return _int8(x.bfloat16(), form)
+
+
+def _live_err(got, ref, rows):
+    """max |got - ref| over each row's first rows[i] entries (none: 0)."""
+    return max([float((got[i, :n].float() - ref[i, :n]).abs().max())
+                for i, n in enumerate(rows) if n] or [0.0])
+
+
+@pytest.mark.parametrize("form", HD256_FORMS)
+@pytest.mark.parametrize("H,KV,S,lens", HD256_DECODE_EDGES)
+def test_hd256_decode_split_and_merge(dev, form, H, KV, S, lens):
+    """B3 at hd 256 in each cache form against its twin in f32 on the same
+    values: live rows within 2e-2, a kv_len 0 row zeros, the same bits
+    twice (the slices merge in a fixed order); controls: the 4 focused
+    last keys dropped, and (quantized) the scales one position off, miss
+    by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    NL, B, hd, layer = 2, len(lens), 256, 1
+    q = _peaked_q(g, dev, B, H, hd)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer, hd)
+    k_all, ks = _hd256_cache(form, k)
+    v_all, vs = _hd256_cache(form, v)
+    del k, v
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k_all, v_all, kv_len, layer, KV,
+                                       ks, vs)
+    name = "decode_attention_hd256" + ("" if form == "bf16"
+                                       else f"_int{form}")
+    got = _launched(name, call)
+
+    def plain(lens_, ks_=ks, vs_=vs):
+        return h256.decode_hd256_plain(q.float(), k_all, v_all, lens_, layer,
+                                       KV, ks_, vs_)
+    ref = plain(kv_len)
+    rows = [1 if n else 0 for n in lens]
+    assert bool(torch.isfinite(got.float()).all())
+    assert _live_err(got, ref, rows) <= BF16_ATOL
+    for b, n in enumerate(lens):
+        if n == 0:
+            assert bool((got[b] == 0).all())
+    _same_bits(call, got)
+    live = [b for b, n in enumerate(lens) if n > 1]
+    if live:
+        dropped = plain((kv_len - 4).clamp(min=1))
+        assert float((dropped[live] - ref[live]).abs().max()) \
+            > 4 * BF16_ATOL
+    if form != "bf16" and live:
+        off = plain(kv_len, *_rolled(ks, vs, 2))
+        assert float((off[live] - ref[live]).abs().max()) > 4 * BF16_ATOL
+
+
+# Gemma-2B's batched answers (chip_smoke phase 19): eight rows over a
+# 6716-position prefix, each with its suffix and the new token
+GEMMA_BATCH_SLENS = [64, 40, 17, 64, 33, 50, 8, 60]
+GEMMA_BATCH_LENS = [6716 + n + 1 for n in GEMMA_BATCH_SLENS]
+
+
+@pytest.mark.parametrize("form", [8, 4])
+def test_hd256_decode_large_value_scales(dev, form):
+    """B3 at hd 256 over a quantized cache whose positions' magnitudes
+    spread over e^-6 .. e^3.5 (scales from ~1e-5 to ~0.5 int8, ~3e-4 to
+    ~11 int4), at Gemma's batched-answer rows: within 2e-2 of the twin in
+    f32 per 4 of the output's magnitude (one bf16 ulp), the same bits
+    twice; control: the scales one position off miss by 4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(41)
+    NL, B, H, KV, hd, layer = 2, 8, 8, 1, 256, 1
+    S = 6716 + 64 + 32
+    lens = GEMMA_BATCH_LENS
+    q = _peaked_q(g, dev, B, H, hd)
+    k, v = _flat_kv(g, dev, NL, S, KV, lens, layer, hd)
+    mag = torch.empty(NL, B, S, 1, 1, device=dev).uniform_(-6, 3.5,
+                                                           generator=g).exp()
+    k_all, ks = _hd256_cache(form, k * mag)
+    v_all, vs = _hd256_cache(form, v * mag.roll(7, 2))
+    del k, v, mag
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    call = lambda: da.decode_attention(q, k_all, v_all, kv_len, layer, KV,
+                                       ks, vs)
+    got = _launched(f"decode_attention_hd256_int{form}", call)
+
+    def plain(ks_=ks, vs_=vs):
+        return h256.decode_hd256_plain(q.float(), k_all, v_all, kv_len,
+                                       layer, KV, ks_, vs_)
+    ref = plain()
+    atol = BF16_ATOL * max(1.0, float(ref.abs().max()) / 4)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - ref).abs().max()) <= atol
+    _same_bits(call, got)
+    off = plain(*_rolled(ks, vs, 2))
+    assert float((off - ref).abs().max()) > 4 * atol
+
+
+@pytest.mark.parametrize("form", HD256_FORMS)
+def test_hd256_decode_after_other_split_kernels(dev, form):
+    """Gemma-2B's first batched decode step in miniature on one stream: B5
+    at hd 256 over the prefix (B=8, L=64), B4's int8 matmul at 8 rows and
+    its matvec (Gemma's q projection), then B3 at hd 256 over the cache
+    of those rows; eagerly and replayed from a CUDA graph captured on a
+    side stream (every kernel shares its stream's workspace and arrival
+    counters): B3 within 2e-2 of its twin in f32, the replay the eager
+    call's bits."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    B, L, H, KV, hd, P, layer = 8, 64, 8, 1, 256, 6716, 0
+    S = P + L + 32
+    lens = GEMMA_BATCH_LENS
+    qp, pk, pv, sk, sv = _hd256_prefix(g, dev, B, L, H, KV, P)
+    pkc, pks = _hd256_cache(form, pk[None])
+    pvc, pvs = _hd256_cache(form, pv[None])
+    pkc, pvc = (x[0].reshape(P, KV, -1) for x in (pkc, pvc))
+    if pks is not None:
+        pks, pvs = pks[0], pvs[0]
+    slens = torch.tensor(GEMMA_BATCH_SLENS, dtype=torch.int32, device=dev)
+    x = torch.randn(B, 2048, generator=g, device=dev).bfloat16()
+    w = quantize_weight(0.02 * torch.randn(2048, 2048, generator=g,
+                                           device=dev))
+    q = _peaked_q(g, dev, B, H, hd)
+    k, v = _flat_kv(g, dev, 1, S, KV, lens, layer, hd)
+    k_all, ks = _hd256_cache(form, k)
+    v_all, vs = _hd256_cache(form, v)
+    del k, v
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+    def step():
+        fa.flash_attention_shared_prefix(qp, pkc, pvc, sk, sv, slens, pks,
+                                         pvs)
+        qm.int8_matmul(x, w["q"], w["scale"])
+        qm.int8_matvec(x[:1], w["q"], w["scale"])
+        return da.decode_attention(q, k_all, v_all, kv_len, layer, KV, ks,
+                                   vs)
+    got = step()
+    torch.cuda.synchronize()
+    ref = h256.decode_hd256_plain(q.float(), k_all, v_all, kv_len, layer,
+                                  KV, ks, vs)
+    assert bool(torch.isfinite(got.float()).all())
+    assert float((got.float() - ref).abs().max()) <= BF16_ATOL
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        step()                              # the side stream's buffers
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = step()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+# (B, L, H, KV, P, suffix_lens): P = 101, 1000 and 6716; suffix lengths 0,
+# 1, 63 and 64; B = 1, 3 and 8; L = 37 and 50 (not multiples of 16), 100
+# and 130 (suffixes of two and three 64-key tiles); groups of 8, 2 and 1
+HD256_PREFIX_EDGES = [(1, 64, 8, 1, 101, [63]),
+                      (3, 64, 8, 1, 1000, [0, 1, 64]),
+                      (8, 64, 8, 1, 6716, [64, 63, 1, 0, 33, 50, 8, 60]),
+                      (3, 37, 4, 2, 1000, [37, 1, 20]),
+                      (2, 50, 2, 2, 6716, [50, 49]),
+                      (2, 100, 8, 1, 300, [100, 70]),
+                      (2, 130, 4, 2, 1000, [130, 65])]
+
+
+@pytest.mark.parametrize("form", HD256_FORMS)
+@pytest.mark.parametrize("B,L,H,KV,P,slens", HD256_PREFIX_EDGES)
+def test_hd256_shared_prefix_splits_and_suffix(dev, form, B, L, H, KV, P,
+                                               slens):
+    """B5 at hd 256 over a bf16, int8 or int4 prefix and a bf16 suffix
+    against its twin in f32 on the same values: rows below suffix_lens
+    within 2e-2, every row finite, the same bits twice; controls: the
+    first prefix tile skipped, and the next row's suffix attended, miss by
+    4x."""
+    from video3d_tpu_torch.kernels import attention_hd256 as h256
+
+    g = torch.Generator(device=dev).manual_seed(37)
+    q, pk, pv, sk, sv = _hd256_prefix(g, dev, B, L, H, KV, P)
+    pkc, pks = _hd256_cache(form, pk[None])
+    pvc, pvs = _hd256_cache(form, pv[None])
+    pkc, pvc = (x[0].reshape(P, KV, -1) for x in (pkc, pvc))
+    if pks is not None:
+        pks, pvs = pks[0], pvs[0]
+    slens_t = torch.tensor(slens, dtype=torch.int32, device=dev)
+    call = lambda: fa.flash_attention_shared_prefix(q, pkc, pvc, sk, sv,
+                                                    slens_t, pks, pvs)
+    name = "shared_prefix_attention_hd256" + ("" if form == "bf16"
+                                              else f"_int{form}")
+    got = _launched(name, call)
+
+    def plain(first=0, sk_=sk, sv_=sv, slens_=slens_t):
+        return h256.shared_prefix_hd256_plain(
+            q.float(), pkc[first:], pvc[first:], sk_, sv_, slens_,
+            None if pks is None else pks[first:],
+            None if pvs is None else pvs[first:])
+    ref = plain()
+    assert bool(torch.isfinite(got.float()).all())
+    assert _live_err(got, ref, slens) <= BF16_ATOL
+    _same_bits(call, got)
+    assert _live_err(plain(first=64), ref, slens) > 4 * BF16_ATOL
+    if B > 1:
+        rolled = plain(sk_=sk.roll(1, 0), sv_=sv.roll(1, 0),
+                       slens_=slens_t.roll(1, 0))
+        assert _live_err(rolled, ref, slens) > 4 * BF16_ATOL
+
+
+@pytest.mark.parametrize("form", HD256_FORMS)
+def test_hd256_shared_prefix_repeats_bit_for_bit(dev, form):
+    """B5 at hd 256 at the batched answers' shape (B=8, L=64, a 6716-key
+    prefix, split four ways): ten calls give the same bits. A race between
+    the warpgroups over a stage (a tile's key scales rewritten while the
+    other warpgroup's softmax still reads them) shows in some calls only,
+    so one repeat is not enough."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    B, L, H, KV, P = 8, 64, 8, 1, 6716
+    q, pk, pv, sk, sv = _hd256_prefix(g, dev, B, L, H, KV, P)
+    pkc, pks = _hd256_cache(form, pk[None])
+    pvc, pvs = _hd256_cache(form, pv[None])
+    pkc, pvc = (x[0].reshape(P, KV, -1) for x in (pkc, pvc))
+    if pks is not None:
+        pks, pvs = pks[0], pvs[0]
+    slens = torch.tensor([64, 40, 17, 64, 33, 50, 8, 60], dtype=torch.int32,
+                         device=dev)
+    first = fa.flash_attention_shared_prefix(q, pkc, pvc, sk, sv, slens,
+                                             pks, pvs)
+    for _ in range(9):
+        assert torch.equal(fa.flash_attention_shared_prefix(
+            q, pkc, pvc, sk, sv, slens, pks, pvs), first)

@@ -1,26 +1,31 @@
 """Host logic of the head-width-256 attention kernels
 (``csrc/attention_hd256.cu``, ``csrc/flash_attention_hd256.cu``,
-``csrc/flash_attention_bwd_hd256.cu``, ``kernels/attention_hd256.py``) on
-the CPU: the plans (``hd256_plan``: row tiles of 64 folded query rows,
-splits of whole 64-key tiles that cover every key slot once, from the
-shapes and the SM count alone; ``bwd_hd256_plan``: B6's split of each
-group's query heads), the launch glue with a stand-in library (the
-pointers, shapes and plan handed to the C entry, the stream's workspace
-where the keys split, nothing but the output allocated on a second call,
-no value of the lengths read on the host), and the kernels' algorithms
-written out in plain torch against the plain twins: the WMMA kernel's
-(each CTA's rows, positions and key range, the online softmax over 64-key
-tiles in base 2, the empty partials of splits past a row's keys and the
-merge) for B2 folded and B3, and the prefill kernel's
+``csrc/flash_attention_bwd_hd256.cu``, B3's hd-256 instantiation of
+``csrc/decode_sm90.cuh``, ``kernels/attention_hd256.py``) on the CPU: the
+plans (``hd256_plan``: row tiles of 64 folded query rows, splits of whole
+64-key tiles that cover every key slot once, from the shapes and the SM
+count alone; ``decode_plan`` at head width 256: every live position in one
+CTA, a row's slices in at most MAX_GROUPS groups; ``bwd_hd256_plan``:
+B6's split of each group's query heads), the launch glue with a stand-in
+library (the pointers, shapes and plan handed to the C entry, the stream's
+workspace where the keys split, nothing but the output allocated on a
+second call, no value of the lengths read on the host), and the kernels'
+algorithms written out in plain torch against the plain twins: the WMMA
+kernel's (each CTA's rows, positions and key range, the online softmax
+over 64-key tiles in base 2, the empty partials of splits past a row's
+keys and the merge) for B2 folded, the decode template's at 256
+(:func:`emulate_decode`) for B3, and the prefill kernel's
 (:func:`emulate_prefill`)."""
 
 import math
+from collections import Counter
 
 import pytest
 import torch
 
 from video3d_tpu_torch.kernels import _build, _launch
 from video3d_tpu_torch.kernels import attention_hd256 as h256
+from video3d_tpu_torch.kernels import decode_attention as da
 
 torch.set_num_threads(1)
 
@@ -101,11 +106,60 @@ def test_bwd_plan_of_gemma_2b():
 
 def test_plan_depends_on_shapes_alone():
     """The decode form's grid never reads kv_len (it stays on the device):
-    the same shapes give the same plan, and the Gemma-2B decode step
-    splits its 136 key tiles over the card in one wave (68 CTAs of two)."""
-    a = h256.hd256_plan(1, 1, 8, 1, 8704, H100_SMS)
-    assert a is h256.hd256_plan(1, 1, 8, 1, 8704, H100_SMS)
-    assert (a.splits, a.split_keys, a.row_tiles) == (68, 128, 1)
+    the same shapes give the same plan; the Gemma-2B decode step (one kv
+    head) takes all 132 SMs, each CTA with two workspace slots of 8 (m, l)
+    pairs and 8 x 256 f32 of O, and a row's counter and its MAX_GROUPS
+    group counters (132 slices merge in 11 groups of 12). At
+    the same shape a one-query WMMA launch (``hd256_plan``) splits its 136
+    key tiles over the card in one wave (68 CTAs of two)."""
+    a = da.decode_plan(1, 1, 8704, H100_SMS, 256)
+    assert a is da.decode_plan(1, 1, 8704, H100_SMS, 256)
+    assert (a.splits, a.head_dim, a.counters) == (132, 256,
+                                                  1 + da.MAX_GROUPS)
+    assert da.group_size(132) == 12
+    assert a.workspace_bytes == 2 * a.splits * (2 * 8 + 8 * 256) * 4
+    assert da.decode_plan(1, 4, 8704, H100_SMS).splits == 33
+    b = h256.hd256_plan(1, 1, 8, 1, 8704, H100_SMS)
+    assert (b.splits, b.split_keys, b.row_tiles) == (68, 128, 1)
+
+
+# (KV, capacity, kv_len) of B3 hd256's calls in chip_smoke.py and the cuda
+# tests: Gemma-2B's row, four rows on two kv heads, fewer live positions
+# than CTAs with a kv_len 0 row, a full row, a 32k row beside short ones,
+# eight equal rows (phase 19's batched decode), rows at a block's edges
+DECODE_SHAPES = [(1, 8704, [6812]), (2, 8704, [8704, 6812, 300, 4097]),
+                 (1, 8704, [7, 0, 9, 3]), (1, 8704, [8704]),
+                 (1, 32768, [32768, 5, 100, 0]), (1, 8704, [6812] * 8),
+                 (1, 64, [1, 15, 16, 17]), (4, 8704, [6812])]
+
+
+@pytest.mark.parametrize("kv_heads,cap,lens", DECODE_SHAPES)
+def test_decode_plan_at_hd256_covers_every_position_once(kv_heads, cap,
+                                                         lens):
+    """At head width 256 the plan's CTAs (one per SM, as at 128) cover
+    every live position of every row once, each within one position of
+    the mean; the workspace holds two hd-256 slices per CTA; a row's
+    slices fall into at most MAX_GROUPS groups of ``group_size``, in
+    order, each group's slices consecutive."""
+    B = len(lens)
+    plan = da.decode_plan(B, kv_heads, cap, H100_SMS, 256)
+    assert plan.splits == min(H100_SMS // kv_heads, B * cap)
+    assert plan.workspace_bytes == 2 * plan.ctas * da.part_floats(256) * 4
+    for ctas in plan.slices(lens):
+        if ctas:
+            gs = da.group_size(len(ctas))
+            assert -(-len(ctas) // gs) <= da.MAX_GROUPS
+            assert gs == len(ctas) or len(ctas) > da.TREE_MIN
+    live = plan.lens(lens)
+    seen = Counter()
+    per_cta = Counter()
+    for cta, b, s0, s1 in plan.segments(lens):
+        per_cta[cta] += s1 - s0
+        seen.update((b, s) for s in range(s0, s1))
+    assert seen == Counter({(b, s): 1 for b, n in enumerate(live)
+                            for s in range(n)})
+    mean = sum(live) / plan.splits
+    assert all(abs(per_cta[c] - mean) <= 1 for c in range(plan.splits))
 
 
 class _Library:
@@ -115,6 +169,10 @@ class _Library:
         self.calls = []
 
     def v3d_attention_hd256(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def v3d_decode_attention_hd256(self, *args):
         self.calls.append(args)
         return 0
 
@@ -142,10 +200,44 @@ def _count_allocations(monkeypatch):
     return made
 
 
+def _check_decode_launch(q, k, v, lens, KV, lib, stream, monkeypatch):
+    """B3 at hd 256 through ``decode_attention._launch_decode``: the
+    hd-256 entry gets the decode template's arguments, the plan of
+    ``decode_plan`` at head width 256 and the stream's workspace and
+    counters; a second call allocates only its output and reads nothing of
+    kv_len on the host."""
+    B, _, H, _ = q.shape
+    k_all, v_all = k[None], v[None]
+    S = k.shape[1]
+    plan = da.decode_plan(B, KV, S, H100_SMS, 256)
+    name = h256.NAMES["decode"]
+    before = _build.LAUNCHES[name]
+    out = da._launch_decode(lib, stream, H100_SMS, "", q, k_all, v_all, lens,
+                            0, KV, None, None)
+    assert _build.LAUNCHES[name] == before + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    (args,) = lib.calls
+    assert len(args) == len(_build._SIGNATURES["v3d_decode_attention_hd256"])
+    assert args[:5] == (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                        lens.data_ptr(), out.data_ptr())
+    ws, ws_bytes, counters = args[5:8]
+    assert ws and counters and ws_bytes >= plan.workspace_bytes
+    assert args[8:] == (0, B, S, H, KV, plan.splits,
+                        pytest.approx(HD ** -0.5), stream)
+    made = _count_allocations(monkeypatch)
+    _no_host_reads(monkeypatch)
+    da._launch_decode(lib, stream, H100_SMS, "", q, k_all, v_all, lens, 0,
+                      KV, None, None)
+    assert made == ["empty_like"]                 # the output alone
+    assert lib.calls[1][5:8] == (ws, ws_bytes, counters)
+
+
 @pytest.mark.parametrize("form,L,S,q_off", [("folded", 64, 900, [700, 100]),
                                             ("decode", 1, 900, None)])
 def test_launch_hands_the_plan_to_the_c_entry(form, L, S, q_off,
                                               monkeypatch):
+    """The folded form's WMMA entry, and B3's decode-template entry at hd
+    256 (:func:`_check_decode_launch`)."""
     B, H, KV = 2, 8, 2
     q = torch.zeros(B, L, H, HD, dtype=torch.bfloat16)
     k = torch.zeros(B, S, KV * HD, dtype=torch.bfloat16)
@@ -153,6 +245,9 @@ def test_launch_hands_the_plan_to_the_c_entry(form, L, S, q_off,
     lens = torch.tensor([S, S // 2], dtype=torch.int32)
     offs = None if q_off is None else torch.tensor(q_off, dtype=torch.int32)
     lib, stream = _Library(), 400 + L
+    if form == "decode":
+        _check_decode_launch(q, k, v, lens, KV, lib, stream, monkeypatch)
+        return
     plan = h256.hd256_plan(B, L, H, KV, S, H100_SMS)
     name = h256.NAMES[form]
     before = _build.LAUNCHES[name]
@@ -359,16 +454,218 @@ def test_algorithm_matches_the_folded_twin():
                                    atol=1e-5)
 
 
+DECODE_BLOCK = 16   # positions of a unit's block (csrc kBlock)
+DECODE_UNITS = 4    # units of a CTA at hd 256: warp pairs (csrc units<256>)
+
+
+def emulate_decode(q, S: int, KV: int, lens, key_rows,
+                   sms: int = H100_SMS):
+    """B3 at hd 256's algorithm (``csrc/decode_sm90.cuh`` at kHd 256) in
+    f32 torch, q (B, 1, H, 256): per kv head g, the CTAs of
+    ``decode_plan(B, KV, S, sms, 256)`` take their segments of the rows'
+    live positions laid end to end (``DecodePlan.segments``); a CTA's walk
+    is cut into blocks of 16 positions per segment, dealt round-robin to
+    its 4 units (a pair of warps, each with half of the 256 channels,
+    whose sums are exchanged, so a unit's score is the whole dot), each
+    unit's online softmax in base 2 over a segment; at a segment's end the
+    units merge in unit order, a row that one CTA holds is normalised, a
+    slice is kept; the slices of a row merge in CTA order
+    (``DecodePlan.slices``), in groups of ``group_size`` consecutive ones
+    and then the groups' partials in order; a kv_len 0 row is zeros.
+    ``key_rows(b, g, s)``: (k, v) of position s, or (k, v, k_scale,
+    v_scale) of a
+    quantized cache (the key scale on the score, the value scale on p, l
+    over the unscaled p)."""
+    B, _, H, hd = q.shape
+    G = H // KV
+    plan = da.decode_plan(B, KV, S, sms, hd)
+    scale = hd ** -0.5 * LOG2E
+    out = torch.zeros(B, 1, H, hd)
+    live = plan.lens(lens)
+    for g in range(KV):
+        qg = q[:, 0, g * G:(g + 1) * G].float()               # (B, G, hd)
+        slices = {}
+        by_cta = {}
+        for cta, b, s0, s1 in plan.segments(lens):
+            by_cta.setdefault(cta, []).append((b, s0, s1))
+        for cta, segs in by_cta.items():
+            block = 0                        # the CTA's block count so far
+            for b, s0, s1 in segs:
+                units = [(torch.full((G,), -math.inf), torch.zeros(G),
+                          torch.zeros(G, hd)) for _ in range(DECODE_UNITS)]
+                for p0 in range(s0, s1, DECODE_BLOCK):
+                    m, lsum, o = units[block % DECODE_UNITS]
+                    rows = [key_rows(b, g, s)
+                            for s in range(p0, min(p0 + DECODE_BLOCK, s1))]
+                    kk = torch.stack([r[0] for r in rows]).float()
+                    vv = torch.stack([r[1] for r in rows]).float()
+                    ksc = torch.tensor([float(r[2]) if len(r) == 4 else 1.0
+                                        for r in rows])
+                    vsc = torch.tensor([float(r[3]) if len(r) == 4 else 1.0
+                                        for r in rows])
+                    x = (qg[b] @ kk.T) * (ksc * scale)[None]    # (G, n)
+                    m_new = torch.maximum(m, x.max(1).values)
+                    p = torch.exp2(x - m_new[:, None])
+                    alpha = torch.exp2(m - m_new)
+                    units[block % DECODE_UNITS] = (
+                        m_new, lsum * alpha + p.sum(1),
+                        o * alpha[:, None] + (p * vsc[None]) @ vv)
+                    block += 1
+                mx = torch.stack([u[0] for u in units]).max(0).values
+                lsum, o = torch.zeros(G), torch.zeros(G, hd)
+                for um, ul, uo in units:
+                    w = torch.exp2(um - mx)
+                    lsum, o = lsum + w * ul, o + w[:, None] * uo
+                if s1 - s0 == live[b]:
+                    out[b, 0, g * G:(g + 1) * G] = o / lsum[:, None]
+                else:
+                    slices[(b, cta)] = (mx, lsum, o)
+        for b, ctas in enumerate(plan.slices(lens)):
+            if not ctas:
+                continue
+            parts = [slices[(b, c)] for c in ctas]
+            gs = da.group_size(len(parts))
+            groups = [_merge_parts(parts[i:i + gs])
+                      for i in range(0, len(parts), gs)]
+            _, lsum, o = _merge_parts(groups)
+            out[b, 0, g * G:(g + 1) * G] = o / lsum[:, None]
+    return out
+
+
+def _merge_parts(parts):
+    """(m, l, O) parts merged in order onto their max: one (m, l, O)."""
+    mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
+    lsum, o = torch.zeros_like(mx), torch.zeros_like(parts[0][2])
+    for pm, pl, po in parts:
+        w = torch.exp2(pm - mx)
+        lsum, o = lsum + w * pl, o + w[:, None] * po
+    return mx, lsum, o
+
+
 def test_algorithm_matches_the_decode_twin():
-    """One token per row at kv_len - 1, fewer live positions than CTAs in
-    some rows, and a kv_len 0 row, which reads zeros."""
-    B, H, KV, S = 4, 8, 1, 700
-    q, k, v = _inputs(3, B, 1, S, H, KV)
-    lens = torch.tensor([700, 5, 0, 129])
-    got = _emulate(q, k, v, lens, None, 2)
-    k_all = k.reshape(1, B, S, KV * HD)
-    v_all = v.reshape(1, B, S, KV * HD)
-    ref = h256.decode_hd256_plain(q, k_all, v_all, lens, 0, KV)
-    live = [0, 1, 3]
-    torch.testing.assert_close(got[live], ref[live], rtol=0, atol=1e-5)
-    assert bool((got[2] == 0).all())
+    """One token per row at kv_len - 1: rows cut into slices over the
+    plan's CTAs and a kv_len 0 row (zeros); then fewer live positions than
+    CTAs (some CTAs' ranges empty, a row's slices those of its positions'
+    CTAs), on two kv heads of groups of 2."""
+    for seed, (B, H, KV, S, lengths) in enumerate(
+            [(4, 8, 1, 700, [700, 5, 0, 129]), (3, 4, 2, 40, [7, 0, 20])]):
+        q, k, v = _inputs(3 + seed, B, 1, S, H, KV)
+        lens = torch.tensor(lengths)
+        got = emulate_decode(q, S, KV, lengths,
+                             lambda b, g, s: (k[b, s, g], v[b, s, g]))
+        k_all = k.reshape(1, B, S, KV * HD)
+        v_all = v.reshape(1, B, S, KV * HD)
+        ref = h256.decode_hd256_plain(q, k_all, v_all, lens, 0, KV)
+        live = [b for b, n in enumerate(lengths) if n]
+        torch.testing.assert_close(got[live], ref[live], rtol=0, atol=1e-5)
+        assert all(bool((got[b] == 0).all())
+                   for b, n in enumerate(lengths) if n == 0)
+
+
+def emulate_shared_prefix(q, P: int, KV: int, prefix_rows, suffix,
+                          sms: int = H100_SMS):
+    """B5 at hd 256's algorithm (``csrc/shared_prefix_hd256.cu``) in f32
+    torch, q (B, L, H, 256): per kv head g and row tile of
+    ``shared_prefix_plan`` (SP_ROWS rows of the B L G rows folded b-major:
+    row f is query (f % LG) // G of batch row f // LG, head g G + f % G),
+    each split walks its prefix tiles of SP_KEYS keys (keys past P masked)
+    and the last split then the suffix tiles of every batch row its rows
+    touch (a row allows key j of its own batch row's suffix when j <= its
+    query index), with the online softmax in base 2; the splits' (O, m, l)
+    merge in split order, a split with no allowed key weighing 0.
+    ``prefix_rows(g, s)``: (k, v) of prefix key s, or (k, v, k_scale,
+    v_scale) of a quantized prefix; ``suffix``: the (B, L, KV, 256) bf16
+    suffix keys and values (sk, sv), at scale 1."""
+    B, L, H, hd = q.shape
+    G = H // KV
+    LG = L * G
+    R = B * LG
+    plan = h256.shared_prefix_plan(B, L, H, KV, P, sms)
+    scale = hd ** -0.5 * LOG2E
+    sk, sv = suffix
+    out = torch.zeros(B, L, H, hd)
+    for g in range(KV):
+        for q0 in range(0, R, h256.SP_ROWS):
+            fs = torch.arange(q0, min(q0 + h256.SP_ROWS, R))
+            bs, rs = fs // LG, (fs % LG) // G
+            heads = g * G + fs % G
+            qt = q[bs, rs, heads].float()                   # (n, hd)
+            tiles = []
+            for split in range(plan.splits):
+                walk = [("p", t * h256.SP_KEYS, None)
+                        for t in plan.tiles(split)]
+                if split == plan.splits - 1:
+                    for b in range(int(bs[0]), int(bs[-1]) + 1):
+                        r_hi = int(rs[bs == b].max())
+                        walk += [("s", j, b) for j in
+                                 range(0, r_hi + 1, h256.SP_KEYS)]
+                tiles.append(walk)
+            parts = []
+            for walk in tiles:
+                m = torch.full((len(fs),), -math.inf)
+                lsum = torch.zeros(len(fs))
+                o = torch.zeros(len(fs), hd)
+                for kind, k0, b in walk:
+                    keys = torch.arange(k0, k0 + h256.SP_KEYS)
+                    kk = torch.zeros(h256.SP_KEYS, hd)
+                    vv = torch.zeros(h256.SP_KEYS, hd)
+                    ksc = torch.ones(h256.SP_KEYS)
+                    vsc = torch.ones(h256.SP_KEYS)
+                    if kind == "p":
+                        ok = (keys < P)[None].expand(len(fs), -1)
+                        for i, s in enumerate(keys.tolist()):
+                            if s < P:
+                                rows = prefix_rows(g, s)
+                                kk[i], vv[i] = rows[0], rows[1]
+                                if len(rows) == 4:
+                                    ksc[i], vsc[i] = rows[2], rows[3]
+                    else:
+                        n = min(h256.SP_KEYS, L - k0)
+                        kk[:n] = sk[b, k0:k0 + n, g].float()
+                        vv[:n] = sv[b, k0:k0 + n, g].float()
+                        ok = (bs[:, None] == b) & (keys[None] <= rs[:, None])
+                    x = (qt @ kk.T) * (ksc * scale)[None]
+                    x = torch.where(ok, x, -math.inf)
+                    m_new = torch.maximum(m, x.max(1).values)
+                    u = torch.where(m_new == -math.inf, 0.0, m_new)
+                    p = torch.exp2(x - u[:, None])
+                    alpha = torch.exp2(m - u)
+                    lsum = lsum * alpha + p.sum(1)
+                    o = o * alpha[:, None] + (p * vsc[None]) @ vv
+                    m = m_new
+                parts.append((m, lsum, o))
+            mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
+            den, acc = torch.zeros(len(fs)), torch.zeros(len(fs), hd)
+            for pm, pl, po in parts:
+                w = torch.where(pm == -math.inf, 0.0, torch.exp2(pm - mx))
+                den, acc = den + w * pl, acc + w[:, None] * po
+            out[bs, rs, heads] = acc / den.clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("B,L,H,KV,P", [(8, 64, 8, 1, 6716),
+                                        (3, 64, 8, 1, 1000),
+                                        (1, 64, 8, 1, 101), (1, 5, 8, 1, 64),
+                                        (2, 40, 4, 2, 300), (4, 17, 8, 1, 0),
+                                        (8, 64, 8, 2, 6716)])
+def test_shared_prefix_plan_splits_every_prefix_tile_once(B, L, H, KV, P):
+    """B5 at hd 256: a row tile of SP_ROWS folded rows per group (kv head
+    x row tiles of the B L G rows), every prefix tile of SP_KEYS keys in
+    exactly one split, no split without one where the prefix splits, one
+    split where the groups fill the card; a split launch's workspace holds
+    one partial per CTA, and the plan reads the shapes alone."""
+    plan = h256.shared_prefix_plan(B, L, H, KV, P, H100_SMS)
+    assert plan is h256.shared_prefix_plan(B, L, H, KV, P, H100_SMS)
+    assert plan.groups == KV * -(-B * L * (H // KV) // h256.SP_ROWS)
+    assert plan.key_tiles == -(-P // h256.SP_KEYS)
+    tiles = [t for s in range(plan.splits) for t in plan.tiles(s)]
+    assert tiles == list(range(plan.key_tiles))
+    if plan.splits > 1:
+        assert all(len(plan.tiles(s)) for s in range(plan.splits))
+        assert plan.workspace_bytes == \
+            plan.ctas * (h256.SP_ROWS * HD + 2 * h256.SP_ROWS) * 4
+    else:
+        assert plan.workspace_bytes == 0
+    if plan.groups >= H100_SMS:
+        assert plan.splits == 1
+    assert plan.ctas <= max(H100_SMS, plan.groups)

@@ -1,15 +1,17 @@
 """Gemma's head width 256 over int8 and int4 KV caches, on the CPU: the
 quantized forms of B2 folded, B3, B7 and B5 at hd 256
-(``csrc/attention_hd256.cu``'s int8 and packed-int4 instantiations,
+(``csrc/attention_hd256.cu``'s int8 and packed-int4 instantiations for B2
+folded, the decode template's hd-256 ones for B3 and B7
+(``csrc/decode_sm90.cuh``), ``csrc/shared_prefix_hd256.cu``'s for B5;
 ``kernels/attention_hd256.py``).
 
 * Their plain twins against JAX's Pallas kernels in interpret mode (hd 256
   takes JAX's kernels, as any ``hd % 128 == 0`` does; JAX is fed a
   ``jnp.int4`` cache, the port the same values packed two per uint8 byte),
   and in f32 against JAX's jnp oracles.
-* The kernel's algorithm written out in plain torch, with the quantized
+* The kernels' algorithms written out in plain torch, with the quantized
   tile load (int8 bytes, or nibbles: channel 2j low, 2j + 1 high, two's
-  complement) and each mode's scale layout, the key scale on the score,
+  complement) and each form's scale layout, the key scale on the score,
   the value scale on p and l over the unscaled p, against the twins.
 * The launch glue with a stand-in library: the quantized C entries, their
   argument order, the scale pointers (a dense layer's scales, the stacked
@@ -44,7 +46,8 @@ from family_configs import data_config, engines, jax_params, model_config, \
     question
 from fixtures import make_fake_scene
 from test_torch_hd256_host import (_count_allocations, _no_host_reads,
-                                   emulate_rows)
+                                   emulate_decode, emulate_rows,
+                                   emulate_shared_prefix)
 
 torch.set_num_threads(1)
 
@@ -318,9 +321,10 @@ def _row_bytes(bits):
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("mode", ["folded", "decode"])
 def test_algorithm_matches_the_dense_twins(mode, bits):
-    """The folded and decode modes: key s of row b is row s of the layer's
-    cache, its scales at (b, s, g) of the layer's (B, S, KV, 1) scales;
-    split over keys, a kv_len 0 row (decode) reads zeros."""
+    """B2 folded (the WMMA kernel) and B3 (the decode template at hd 256):
+    key s of row b is row s of the layer's cache, its scales at (b, s, g)
+    of the layer's (B, S, KV, 1) scales; split over keys, a kv_len 0 row
+    (decode) reads zeros."""
     gen = torch.Generator().manual_seed(71 + bits)
     B, H, KV, S = 3, 4, 2, 300
     L = 20 if mode == "folded" else 1
@@ -347,8 +351,11 @@ def test_algorithm_matches_the_dense_twins(mode, bits):
                 tile_row(v_all[LAYER, b, s, cols], bits),
                 ks[LAYER, b, s, g, 0], vs[LAYER, b, s, g, 0])
 
-    got = emulate_rows(q, S, KV, pos0, lambda b: min(int(lens[b]), S),
-                       key_rows, sms=8)
+    if mode == "folded":
+        got = emulate_rows(q, S, KV, pos0, lambda b: min(int(lens[b]), S),
+                           key_rows, sms=8)
+    else:
+        got = emulate_decode(q, S, KV, lens.tolist(), key_rows, sms=8)
     for b, n in enumerate(rows):
         torch.testing.assert_close(got[b, :n], ref[b, :n], rtol=0,
                                    atol=F32_ATOL)
@@ -359,9 +366,10 @@ def test_algorithm_matches_the_dense_twins(mode, bits):
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("sms", [132, 4])
 def test_algorithm_matches_the_paged_twin(sms, bits):
-    """Keys through each slot's page table (aliased first page, shuffled
-    rest), each key's scales from the layer's (P, KV, 1, page) scale pool
-    at its page and row; a kv_len 0 slot; one split and many."""
+    """B7 at hd 256 (the decode template over the pools): positions
+    through each slot's page table (aliased first page, shuffled rest),
+    each key's scales from the layer's (P, KV, 1, page) scale pool at its
+    page and row; a kv_len 0 slot; few CTAs and many."""
     gen = torch.Generator().manual_seed(81 + bits)
     page, maxp, lens, KV, G = 24, 4, [1, 50, 0, 96], 2, 2
     B = len(lens)
@@ -382,8 +390,7 @@ def test_algorithm_matches_the_paged_twin(sms, bits):
                 tile_row(v[LAYER, pid, r, cols], bits),
                 ksp[LAYER, pid, g, 0, r], vsp[LAYER, pid, g, 0, r])
 
-    got = emulate_rows(q, maxp * page, KV, lambda b: lens[b] - 1,
-                       lambda b: min(lens[b], maxp * page), rows, sms)
+    got = emulate_decode(q, maxp * page, KV, lens, rows, sms)
     ref = h256.paged_hd256_plain(q, k, v, table, torch.tensor(lens), LAYER,
                                  KV, ksp, vsp)
     torch.testing.assert_close(got, ref, rtol=0, atol=F32_ATOL)
@@ -392,12 +399,12 @@ def test_algorithm_matches_the_paged_twin(sms, bits):
 @pytest.mark.parametrize("bits", BITS)
 @pytest.mark.parametrize("B,L,P,slens,sms", [
     (2, 20, 100, [20, 7], 132), (2, 100, 30, [100, 41], 32),
-    (3, 64, 64, [1, 64, 33], 4)])
+    (3, 64, 64, [1, 64, 33], 4), (2, 20, 700, [20, 7], 132)])
 def test_algorithm_matches_the_shared_prefix_twin(B, L, P, slens, sms,
                                                   bits):
-    """The quantized prefix (its scales at (s, g) of the (P, KV, 1)
-    scales), its padding to the next 64-key tile (null rows), then each
-    row's own bf16 suffix at scale 1; rows below suffix_lens."""
+    """B5 at hd 256 over a quantized prefix (its scales at (s, g) of the
+    (P, KV, 1) scales), in one split or many, then each row's own bf16
+    suffix at scale 1; rows below suffix_lens."""
     gen = torch.Generator().manual_seed(91 + bits + P)
     KV, G = 2, 2
     pk, pks = _quant_flat(gen, (P,), KV, bits)
@@ -406,19 +413,11 @@ def test_algorithm_matches_the_shared_prefix_twin(B, L, P, slens, sms,
     q = 3.0 * torch.randn(B, L, KV * G, HD, generator=gen)
     sk = torch.randn(B, L, KV, HD, generator=gen)
     sv = 0.5 * torch.randn(B, L, KV, HD, generator=gen)
-    Pp = h256.prefix_keys(P)
-    one = torch.tensor(1.0)
+    def rows(g, s):
+        return (tile_row(pk[s, g], bits), tile_row(pv[s, g], bits),
+                pks[s, g, 0], pvs[s, g, 0])
 
-    def rows(b, g, s):
-        if s < P:
-            return (tile_row(pk[s, g], bits), tile_row(pv[s, g], bits),
-                    pks[s, g, 0], pvs[s, g, 0])
-        if s < Pp:
-            return None
-        return sk[b, s - Pp, g], sv[b, s - Pp, g], one, one
-
-    got = emulate_rows(q, Pp + L, KV, lambda b: Pp,
-                       lambda b: Pp + min(max(slens[b], 0), L), rows, sms)
+    got = emulate_shared_prefix(q, P, KV, rows, (sk, sv), sms)
     ref = h256.shared_prefix_hd256_plain(q, pk, pv, sk, sv,
                                          torch.tensor(slens), pks, pvs)
     for b, n in enumerate(slens):
@@ -448,12 +447,49 @@ class _Library:
         self.calls = []
 
     def __getattr__(self, name):
-        if not name.startswith("v3d_attention_hd256"):
+        if not name.startswith(("v3d_attention_hd256",
+                                "v3d_decode_attention_hd256",
+                                "v3d_paged_attention_hd256",
+                                "v3d_shared_prefix_attention_hd256")):
             raise AttributeError(name)
         return lambda *args: self.calls.append((name, args)) or 0
 
 
 STORAGE = {8: torch.int8, 4: torch.uint8}
+
+
+def _check_decode_quant_launch(q, k, v, ks, vs, lens, KV, suffix, lib,
+                               stream, monkeypatch):
+    """B3's quantized forms at hd 256: the decode template's hd-256 entry of
+    the form, the stacked cache and scales, the stream's workspace and
+    counters for ``decode_plan`` at head width 256; a second call
+    allocates only its output."""
+    B = q.shape[0]
+    k_all, v_all = k[None], v[None]
+    ks_all, vs_all = ks[None], vs[None]
+    S, H = k.shape[1], q.shape[2]
+    plan = tda.decode_plan(B, KV, S, H100_SMS, 256)
+    name = h256.NAMES["decode"] + suffix
+    before = _build.LAUNCHES[name]
+    out = tda._launch_decode(lib, stream, H100_SMS, suffix, q, k_all, v_all,
+                             lens, 0, KV, ks_all, vs_all)
+    assert _build.LAUNCHES[name] == before + 1
+    ((entry, args),) = lib.calls
+    assert entry == "v3d_decode_attention_hd256" + suffix
+    assert len(args) == len(_build._SIGNATURES[entry])
+    assert args[:7] == (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+                        ks_all.data_ptr(), vs_all.data_ptr(), lens.data_ptr(),
+                        out.data_ptr())
+    ws, ws_bytes, counters = args[7:10]
+    assert ws and counters and ws_bytes >= plan.workspace_bytes
+    assert args[10:] == (0, B, S, H, KV, plan.splits,
+                         pytest.approx(HD ** -0.5), stream)
+    made = _count_allocations(monkeypatch)
+    _no_host_reads(monkeypatch)
+    tda._launch_decode(lib, stream, H100_SMS, suffix, q, k_all, v_all, lens,
+                       0, KV, ks_all, vs_all)
+    assert made == ["empty_like"]
+    assert lib.calls[1][1][7:10] == (ws, ws_bytes, counters)
 
 
 @pytest.mark.parametrize("bits", BITS)
@@ -475,6 +511,10 @@ def test_dense_launch_hands_the_scales_to_the_quant_entry(form, L, S, q_off,
     suffix = "_int8" if bits == 8 else "_int4"
     name = h256.NAMES[form] + suffix
     before = _build.LAUNCHES[name]
+    if form == "decode":
+        _check_decode_quant_launch(q, k, v, ks, vs, lens, KV, suffix, lib,
+                                   stream, monkeypatch)
+        return
     out = h256._launch_form(lib, stream, H100_SMS, form, q, k, v, lens, offs,
                             KV, ks, vs)
     assert _build.LAUNCHES[name] == before + 1
@@ -512,27 +552,30 @@ def test_paged_launch_hands_the_scale_pools_to_the_quant_entry(bits,
     table = torch.arange(1, P, dtype=torch.int32).reshape(B, maxp)
     kv_len = torch.tensor([maxp * page, 5], dtype=torch.int32)
     lib, stream = _Library(), 1000 + bits
-    plan = h256.paged_plan(B, H, KV, maxp, page, H100_SMS)
-    name = h256.NAMES["paged"] + ("_int8" if bits == 8 else "_int4")
+    plan = tda.decode_plan(B, KV, maxp * page, H100_SMS, HD)
+    suffix = "_int8" if bits == 8 else "_int4"
+    name = h256.NAMES["paged"] + suffix
     before = _build.LAUNCHES[name]
-    out = h256._launch_paged(lib, stream, H100_SMS, q, pools, vpools, table,
-                             kv_len, LAYER, KV, ks, vs)
+    out = tpa._launch_paged(lib, stream, H100_SMS, suffix, q, pools, vpools,
+                            table, kv_len, LAYER, KV, ks, vs)
     assert _build.LAUNCHES[name] == before + 1
     ((entry, args),) = lib.calls
-    assert entry == "v3d_attention_hd256_paged_quant"
+    assert entry == "v3d_paged_attention_hd256" + suffix
     assert len(args) == len(_build._SIGNATURES[entry])
     assert args[:8] == (q.data_ptr(), pools.data_ptr(), vpools.data_ptr(),
                         ks.data_ptr(), vs.data_ptr(), table.data_ptr(),
                         kv_len.data_ptr(), out.data_ptr())
-    ws = args[8]
-    assert plan.splits > 1 and ws != 0
-    assert args[9:] == (bits, LAYER, B, P, page, maxp, H, KV, plan.splits,
-                        plan.split_keys, pytest.approx(HD ** -0.5), stream)
+    ws, ws_bytes, counters = args[8:11]
+    assert plan.splits > 1 and ws and counters \
+        and ws_bytes >= plan.workspace_bytes
+    assert args[11:] == (LAYER, B, P, page, maxp, H, KV, plan.splits,
+                         pytest.approx(HD ** -0.5), stream)
     made = _count_allocations(monkeypatch)
     _no_host_reads(monkeypatch)
-    h256._launch_paged(lib, stream, H100_SMS, q, pools, vpools, table,
-                       kv_len, LAYER, KV, ks, vs)
+    tpa._launch_paged(lib, stream, H100_SMS, suffix, q, pools, vpools, table,
+                      kv_len, LAYER, KV, ks, vs)
     assert made == ["empty_like"]
+    assert lib.calls[1][1][8:11] == (ws, ws_bytes, counters)
 
 
 @pytest.mark.parametrize("bits", BITS)
@@ -546,29 +589,31 @@ def test_shared_prefix_launch_hands_the_scales_to_the_quant_entry(
     pvs = torch.ones_like(pks)
     sk = torch.zeros(B, L, KV, HD, dtype=torch.bfloat16)
     sv = torch.zeros_like(sk)
-    slens = torch.full((B,), L, dtype=torch.int32)
     lib, stream = _Library(), 1100 + bits
     plan = h256.shared_prefix_plan(B, L, H, KV, P, H100_SMS)
-    name = h256.NAMES["shared_prefix"] + ("_int8" if bits == 8 else "_int4")
+    suffix = "_int8" if bits == 8 else "_int4"
+    name = h256.NAMES["shared_prefix"] + suffix
     before = _build.LAUNCHES[name]
     out = h256._launch_shared_prefix(lib, stream, H100_SMS, q, pk, pv, sk,
-                                     sv, slens, pks, pvs)
+                                     sv, pks, pvs)
     assert _build.LAUNCHES[name] == before + 1
     ((entry, args),) = lib.calls
-    assert entry == "v3d_attention_hd256_shared_prefix_quant"
+    assert entry == "v3d_shared_prefix_attention_hd256" + suffix
     assert len(args) == len(_build._SIGNATURES[entry])
-    assert args[:9] == (q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+    assert args[:8] == (q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
                         pks.data_ptr(), pvs.data_ptr(), sk.data_ptr(),
-                        sv.data_ptr(), slens.data_ptr(), out.data_ptr())
-    ws = args[9]
-    assert (ws == 0) == (plan.splits == 1)
-    assert args[10:] == (bits, B, L, P, H, KV, plan.splits, plan.split_keys,
-                         pytest.approx(HD ** -0.5), stream)
+                        sv.data_ptr(), out.data_ptr())
+    assert args[8:14] == (B, L, P, H, KV, pytest.approx(HD ** -0.5))
+    ws, ws_bytes, counters = args[14:17]
+    assert plan.splits > 1 and ws and counters \
+        and ws_bytes >= plan.workspace_bytes
+    assert args[17:] == (plan.splits, stream)
     made = _count_allocations(monkeypatch)
     _no_host_reads(monkeypatch)
     h256._launch_shared_prefix(lib, stream, H100_SMS, q, pk, pv, sk, sv,
-                               slens, pks, pvs)
+                               pks, pvs)
     assert made == ["empty_like"]
+    assert lib.calls[1][1][14:17] == (ws, ws_bytes, counters)
 
 
 def test_quantized_forms_check_their_inputs():

@@ -1,20 +1,22 @@
-"""Gemma's head width 256 on the serving paths, on the CPU: the paged form
-of B7 and the shared-prefix form of B5 at hd 256 (``csrc/attention_hd256.cu``,
-``kernels/attention_hd256.py``).
+"""Gemma's head width 256 on the serving paths, on the CPU: B7 (the decode
+template's hd-256 instantiation over the pools, ``csrc/decode_sm90.cuh``)
+and B5 (``csrc/shared_prefix_hd256.cu``) at hd 256
+(``kernels/attention_hd256.py``).
 
 * Their plain twins against JAX's ``paged_decode_attention`` and
   ``flash_attention_shared_prefix``, Pallas kernels run in interpret mode
   (hd 256 takes JAX's kernels, as any ``hd % 128 == 0`` does).
-* Their plans (every key slot in one split, the shapes alone decide) and
-  the captured decode step's reservation of the paged plan's workspace.
+* Their plans (every position or key in one CTA, the shapes alone
+  decide) and the captured decode step's reservation of the paged plan's
+  workspace and counters.
 * The launch glue with a stand-in library (the plan, the page table or the
   prefix and suffix pointers and the stream's workspace handed to the C
   entries, only the output allocated, nothing of kv_len or the suffix
   lengths read on the host).
-* The kernel's algorithm written out in plain torch for the two new
-  modes (each tile's key rows through the page table, or from the prefix,
-  its padding and the suffix; null rows masked; splits past a row's keys
-  and their merge) against the twins.
+* The kernels' algorithms written out in plain torch (B7's positions
+  through the page table, split as B3's and merged in two levels; B5's
+  row tiles folded b-major, the prefix's tiles split, the last split's
+  suffix tiles and the merge in split order) against the twins.
 * ``check_card_path`` for the card (no card needed): the paged,
   shared-prefix and quantized-cache paths take 256; training and ALiBi on
   pages are refused with a ValueError before any work.
@@ -42,6 +44,7 @@ from video3d_tpu.kernels import flash_attention as jfa
 from video3d_tpu.kernels import paged_attention as jpa
 from video3d_tpu_torch.kernels import _build
 from video3d_tpu_torch.kernels import attention_hd256 as h256
+from video3d_tpu_torch.kernels import decode_attention as tda
 from video3d_tpu_torch.kernels import flash_attention as tfa
 from video3d_tpu_torch.kernels import paged_attention as tpa
 from video3d_tpu_torch.models import builder as tb
@@ -54,7 +57,7 @@ from family_configs import (data_config, engines, jax_params, model_config,
 from fixtures import make_fake_scene
 from port_configs import port_config
 from test_torch_hd256_host import (_count_allocations, _no_host_reads,
-                                   emulate_rows)
+                                   emulate_decode, emulate_shared_prefix)
 
 torch.set_num_threads(1)
 
@@ -190,53 +193,59 @@ PREFIX_PLANS = [(8, 64, 8, 1, 6716), (8, 64, 8, 1, 6748), (3, 64, 8, 2, 70),
                 (2, 20, 4, 2, 100), (1, 5, 8, 1, 64), (2, 64, 4, 1, 0)]
 
 
-def _covers_once(plan, S: int) -> None:
-    assert plan.split_keys % h256.KEYS == 0
-    assert (plan.splits - 1) * plan.split_keys < S \
-        <= plan.splits * plan.split_keys
-    groups = plan.bkv * plan.row_tiles
-    assert plan.splits == 1 if groups >= H100_SMS else \
-        plan.ctas <= max(H100_SMS, groups)
-
-
 @pytest.mark.parametrize("B,H,KV,maxp,page", PAGED_PLANS)
 def test_paged_plan_covers_every_position_once(B, H, KV, maxp, page):
-    plan = h256.paged_plan(B, H, KV, maxp, page, H100_SMS)
-    assert plan is h256.hd256_plan(B, 1, H, KV, maxp * page, H100_SMS)
-    assert plan.rows == H // KV and plan.bkv == B * KV
-    _covers_once(plan, maxp * page)
+    """B7 at hd 256 plans as B3: sms // KV CTAs per kv head over maxp *
+    page positions a slot, every position of full slots in exactly one
+    CTA, two hd-256 slices of workspace per CTA."""
+    cap = maxp * page
+    plan = tda.decode_plan(B, KV, cap, H100_SMS, HD)
+    assert plan.splits == min(H100_SMS // KV, B * cap)
+    assert plan.workspace_bytes == 2 * plan.ctas * tda.part_floats(HD) * 4
+    seen = set()
+    for _, b, s0, s1 in plan.segments([cap] * B):
+        for pos in range(s0, s1):
+            assert (b, pos) not in seen
+            seen.add((b, pos))
+    assert len(seen) == B * cap
 
 
 @pytest.mark.parametrize("B,L,H,KV,P", PREFIX_PLANS)
 def test_shared_prefix_plan_covers_every_key_once(B, L, H, KV, P):
-    """The key axis: the prefix padded to whole tiles, then the suffix."""
-    Pp = h256.prefix_keys(P)
-    assert Pp % h256.KEYS == 0 and P <= Pp < P + h256.KEYS
+    """The prefix's keys: its SP_KEYS-key tiles each in one split (the
+    suffix walks with the last split), the split count the chunk kernels'
+    cost model gives the row tiles of the B L H / KV rows folded b-major
+    per kv head."""
     plan = h256.shared_prefix_plan(B, L, H, KV, P, H100_SMS)
-    assert plan is h256.hd256_plan(B, L, H, KV, Pp + L, H100_SMS)
-    assert plan.rows == L * (H // KV)
-    _covers_once(plan, Pp + L)
+    assert plan.groups == KV * -(-B * L * (H // KV) // h256.SP_ROWS)
+    assert plan.splits == tfa.chunk_plan(plan.groups, -(-P // h256.SP_KEYS),
+                                         H100_SMS).splits
+    keys = [k for s in range(plan.splits) for t in plan.tiles(s)
+            for k in range(t * h256.SP_KEYS, (t + 1) * h256.SP_KEYS)]
+    assert keys[:P] == list(range(P)) and len(keys) < P + h256.SP_KEYS
 
 
 def test_plans_depend_on_shapes_alone():
     """No kv_len, page table or suffix length reaches a plan: the same
     shapes give the same plan. At Gemma-2B's heads, phase 3's paged step
-    (8 slots of 56 pages of 128) splits 112 key tiles 16 ways (128 CTAs),
-    and the B=8 suffix batch over a 6716-token prefix splits its 64
-    row-tile CTAs' 106 key tiles two ways."""
-    a = h256.paged_plan(8, 8, 1, 56, 128, H100_SMS)
-    assert a is h256.paged_plan(8, 8, 1, 56, 128, H100_SMS)
-    assert (a.row_tiles, a.splits, a.split_keys) == (1, 16, 448)
+    (8 slots of 56 pages of 128) takes all 132 SMs for its one kv head,
+    and B5's B=8 suffix batch over a 6716-token prefix (4096 folded rows:
+    32 row tiles) splits the prefix's 105 key tiles four ways (128
+    CTAs)."""
+    a = tda.decode_plan(8, 1, 56 * 128, H100_SMS, HD)
+    assert a is tda.decode_plan(8, 1, 56 * 128, H100_SMS, HD)
+    assert (a.splits, a.counters) == (132, 8 * (1 + tda.MAX_GROUPS))
     b = h256.shared_prefix_plan(8, 64, 8, 1, 6716, H100_SMS)
     assert b is h256.shared_prefix_plan(8, 64, 8, 1, 6716, H100_SMS)
-    assert (b.row_tiles, b.splits, b.split_keys) == (8, 2, 3392)
+    assert (b.groups, b.key_tiles, b.splits, b.ctas) == (32, 105, 4, 128)
 
 
 @pytest.mark.parametrize("slots,maxp", [(8, 56), (8, 60), (1, 3)])
 def test_step_buffers_reserve_the_paged_plan(slots, maxp):
-    """A captured paged step of Gemma-2B reserves the paged hd-256 plan's
-    workspace over maxp * page positions, so the replayed launches find it
-    at its size (a capture must not allocate)."""
+    """A captured paged step of Gemma-2B reserves B7's hd-256 plan's
+    workspace and arrival counters over maxp * page positions, so the
+    replayed launches find them at their sizes (a capture must not
+    allocate)."""
     cfg = tb.model_config_from_hf({
         "model_type": "gemma", "vocab_size": 256000, "hidden_size": 2048,
         "intermediate_size": 16384, "num_hidden_layers": 18,
@@ -246,9 +255,11 @@ def test_step_buffers_reserve_the_paged_plan(slots, maxp):
     params = {"llm": {"layers": [{"attn": {"wq": dense}, "mlp": {}}],
                       "lm_head": dense}}
     page = 128
-    _, nbytes = dg.step_buffers(params, cfg, slots, maxp * page, H100_SMS)
-    plan = h256.paged_plan(slots, 8, 1, maxp, page, H100_SMS)
+    counters, nbytes = dg.step_buffers(params, cfg, slots, maxp * page,
+                                       H100_SMS)
+    plan = tda.decode_plan(slots, 1, maxp * page, H100_SMS, HD)
     assert plan.splits > 1 and nbytes >= plan.workspace_bytes > 0
+    assert counters >= plan.counters
 
 
 # ---------------------------------------------------------------------------
@@ -261,11 +272,11 @@ class _Library:
     def __init__(self):
         self.calls = []
 
-    def v3d_attention_hd256_paged(self, *args):
+    def v3d_paged_attention_hd256(self, *args):
         self.calls.append(args)
         return 0
 
-    def v3d_attention_hd256_shared_prefix(self, *args):
+    def v3d_shared_prefix_attention_hd256(self, *args):
         self.calls.append(args)
         return 0
 
@@ -280,27 +291,27 @@ def test_paged_launch_hands_the_table_and_plan_to_the_c_entry(maxp, page,
     table = torch.arange(1, P, dtype=torch.int32).reshape(B, maxp)
     kv_len = torch.tensor([maxp * page, 5], dtype=torch.int32)
     lib, stream = _Library(), 700 + maxp
-    plan = h256.paged_plan(B, H, KV, maxp, page, H100_SMS)
+    plan = tda.decode_plan(B, KV, maxp * page, H100_SMS, HD)
     name = h256.NAMES["paged"]
     before = _build.LAUNCHES[name]
-    out = h256._launch_paged(lib, stream, H100_SMS, q, pools, vpools, table,
-                             kv_len, LAYER, KV)
+    out = tpa._launch_paged(lib, stream, H100_SMS, "", q, pools, vpools,
+                            table, kv_len, LAYER, KV, None, None)
     assert _build.LAUNCHES[name] == before + 1
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     (args,) = lib.calls
-    assert len(args) == len(_build._SIGNATURES["v3d_attention_hd256_paged"])
+    assert len(args) == len(_build._SIGNATURES["v3d_paged_attention_hd256"])
     assert args[:6] == (q.data_ptr(), pools.data_ptr(), vpools.data_ptr(),
                         table.data_ptr(), kv_len.data_ptr(), out.data_ptr())
-    ws = args[6]
-    assert (ws == 0) == (plan.splits == 1)
-    assert args[7:] == (LAYER, B, P, page, maxp, H, KV, plan.splits,
-                        plan.split_keys, pytest.approx(HD ** -0.5), stream)
+    ws, ws_bytes, counters = args[6:9]
+    assert ws and counters and ws_bytes >= plan.workspace_bytes
+    assert args[9:] == (LAYER, B, P, page, maxp, H, KV, plan.splits,
+                        pytest.approx(HD ** -0.5), stream)
     made = _count_allocations(monkeypatch)
     _no_host_reads(monkeypatch)
-    h256._launch_paged(lib, stream, H100_SMS, q, pools, vpools, table,
-                       kv_len, LAYER, KV)
+    tpa._launch_paged(lib, stream, H100_SMS, "", q, pools, vpools, table,
+                      kv_len, LAYER, KV, None, None)
     assert made == ["empty_like"]                 # the output alone
-    assert lib.calls[1][6] == ws                  # the stream's workspace
+    assert lib.calls[1][6:9] == (ws, ws_bytes, counters)  # the stream's
 
 
 @pytest.mark.parametrize("B,L,P", [(8, 64, 6716), (1, 5, 64)])
@@ -312,43 +323,44 @@ def test_shared_prefix_launch_hands_the_pointers_and_plan_to_the_c_entry(
     pv = torch.zeros_like(pk)
     sk = torch.zeros(B, L, KV, HD, dtype=torch.bfloat16)
     sv = torch.zeros_like(sk)
-    slens = torch.full((B,), L, dtype=torch.int32)
     lib, stream = _Library(), 800 + B
     plan = h256.shared_prefix_plan(B, L, H, KV, P, H100_SMS)
     name = h256.NAMES["shared_prefix"]
     before = _build.LAUNCHES[name]
     out = h256._launch_shared_prefix(lib, stream, H100_SMS, q, pk, pv, sk,
-                                     sv, slens)
+                                     sv)
     assert _build.LAUNCHES[name] == before + 1
     (args,) = lib.calls
     assert len(args) == len(
-        _build._SIGNATURES["v3d_attention_hd256_shared_prefix"])
-    assert args[:7] == (q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
-                        sk.data_ptr(), sv.data_ptr(), slens.data_ptr(),
-                        out.data_ptr())
-    ws = args[7]
-    assert (ws == 0) == (plan.splits == 1)
-    assert args[8:] == (B, L, P, H, KV, plan.splits, plan.split_keys,
-                        pytest.approx(HD ** -0.5), stream)
+        _build._SIGNATURES["v3d_shared_prefix_attention_hd256"])
+    assert args[:6] == (q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                        sk.data_ptr(), sv.data_ptr(), out.data_ptr())
+    assert args[6:12] == (B, L, P, H, KV, pytest.approx(HD ** -0.5))
+    ws, ws_bytes, counters = args[12:15]
+    if plan.splits == 1:
+        assert (ws, ws_bytes, counters) == (0, 0, 0)
+    else:
+        assert ws and counters and ws_bytes >= plan.workspace_bytes
+    assert args[15:] == (plan.splits, stream)
     made = _count_allocations(monkeypatch)
     _no_host_reads(monkeypatch)
-    h256._launch_shared_prefix(lib, stream, H100_SMS, q, pk, pv, sk, sv,
-                               slens)
+    h256._launch_shared_prefix(lib, stream, H100_SMS, q, pk, pv, sk, sv)
     assert made == ["empty_like"]
-    assert lib.calls[1][7] == ws
+    assert lib.calls[1][12:15] == (ws, ws_bytes, counters)
 
 
 # ---------------------------------------------------------------------------
-# the kernel's algorithm for the two new modes, in plain torch
+# the kernels' algorithms, in plain torch
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("sms", [132, 4])
 @pytest.mark.parametrize("page,maxp,lens", [(24, 4, [1, 50, 0, 96]),
                                             (128, 2, [129, 3, 256, 7])])
 def test_paged_algorithm_matches_the_twin(sms, page, maxp, lens):
-    """Keys through each slot's page table (aliased first page, shuffled
-    rest), a kv_len 0 slot (zeros), slots with fewer live positions than
-    the splits (empty partials), one split (sms=4) and many (132)."""
+    """B7 at hd 256 (the decode template over the pools): positions
+    through each slot's page table (aliased first page, shuffled rest), a
+    kv_len 0 slot (zeros), slots cut over several CTAs (sms=132: a row's
+    slices merged in groups) and few (sms=4)."""
     rng = np.random.default_rng(page)
     B, KV, G = len(lens), 2, 2
     P = 2 + B * (maxp - 1)
@@ -368,8 +380,7 @@ def test_paged_algorithm_matches_the_twin(sms, page, maxp, lens):
         cols = slice(g * HD, (g + 1) * HD)
         return k[LAYER, pid, r, cols], v[LAYER, pid, r, cols]
 
-    got = emulate_rows(q, maxp * page, KV, lambda b: lens[b] - 1,
-                       lambda b: min(lens[b], maxp * page), rows, sms)
+    got = emulate_decode(q, maxp * page, KV, lens, rows, sms)
     ref = h256.paged_hd256_plain(q, k, v, table, kv_len, LAYER, KV)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
@@ -377,12 +388,15 @@ def test_paged_algorithm_matches_the_twin(sms, page, maxp, lens):
 @pytest.mark.parametrize("B,L,P,slens,sms", [
     (2, 20, 100, [20, 7], 132), (2, 20, 100, [20, 7], 4),
     (3, 64, 64, [1, 64, 33], 132), (2, 70, 0, [70, 5], 132),
-    (2, 100, 30, [100, 41], 32)])
+    (2, 100, 30, [100, 41], 32), (2, 20, 1000, [20, 7], 132),
+    (3, 20, 300, [20, 3, 11], 132), (3, 70, 650, [70, 0, 64], 32)])
 def test_shared_prefix_algorithm_matches_the_twin(B, L, P, slens, sms):
-    """The key axis: the prefix, its padding to the next 64-key tile (null
-    rows), then each row's own suffix; a split per tile (sms=132), one
-    split (sms=4), a split holding the prefix, its padding and the
-    suffix's first tile (P=30, sms=32); rows below suffix_lens."""
+    """B5's row tiles of 128 rows folded b-major (a tile spanning batch
+    rows), the prefix's 64-key tiles (a partial last one masked; none at
+    P=0) in one split or many (P=1000: 16 splits of one tile; P=300: 5),
+    the last split's suffix tiles of each batch row its rows touch (two
+    tiles at L=70; P=650: 4 splits), the merge in split order; rows below
+    suffix_lens."""
     KV, G = 2, 2
     gen = torch.Generator().manual_seed(P + L)
     q = 3.0 * torch.randn(B, L, KV * G, HD, generator=gen)
@@ -390,17 +404,8 @@ def test_shared_prefix_algorithm_matches_the_twin(B, L, P, slens, sms):
     pv = 0.5 * torch.randn(P, KV, HD, generator=gen)
     sk = torch.randn(B, L, KV, HD, generator=gen)
     sv = 0.5 * torch.randn(B, L, KV, HD, generator=gen)
-    Pp = h256.prefix_keys(P)
-
-    def rows(b, g, s):
-        if s < P:
-            return pk[s, g], pv[s, g]
-        if s < Pp:
-            return None
-        return sk[b, s - Pp, g], sv[b, s - Pp, g]
-
-    got = emulate_rows(q, Pp + L, KV, lambda b: Pp,
-                       lambda b: Pp + min(max(slens[b], 0), L), rows, sms)
+    got = emulate_shared_prefix(q, P, KV, lambda g, s: (pk[s, g], pv[s, g]),
+                                (sk, sv), sms)
     ref = h256.shared_prefix_hd256_plain(q, pk, pv, sk, sv,
                                          torch.tensor(slens))
     for b, n in enumerate(slens):

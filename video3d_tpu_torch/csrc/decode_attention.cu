@@ -1,4 +1,5 @@
-// Single-token decode attention over the stacked flat KV cache (kernel B3).
+// Single-token decode attention over the stacked flat KV cache (kernel B3),
+// at head width 128 and at 256 (Gemma).
 //
 // Replaces: video3d_tpu/kernels/decode_attention.py::_decode_kernel_blockdiag
 // (entry decode_attention with kv_heads given: the stacked
@@ -6,12 +7,15 @@
 // bf16 cache, and an int8 or an int4 cache with per-position, per-kv-head
 // f32 scales (quantized=True; stacked scales (layers, B, S, KV, 1)); the
 // int4 cache is packed two channels per byte, (layers, B, S, KV*hd / 2).
+// JAX runs that kernel for any hd % 128 == 0; the port instantiates the
+// template at hd 128 and at hd 256.
 //
 // What bounds it on an H100: HBM. One step of one layer streams
 // 2 * kv_len * KV * hd * 2 bytes of K and V (14 MB at kv_len 6812, KV 4,
-// hd 128) for ~4 FLOP per byte, far below the card's ~295 FLOP/byte ridge;
-// the int8 form streams half of it plus 2 * kv_len * KV * 4 bytes of
-// scales, the int4 form a quarter of it plus the scales.
+// hd 128; 7.0 MB at kv_len 6812, KV 1, hd 256) for ~4 FLOP per byte, far
+// below the card's ~295 FLOP/byte ridge; the int8 form streams half of it
+// plus 2 * kv_len * KV * 4 bytes of scales, the int4 form a quarter of it
+// plus the scales.
 //
 // Design: decode_sm90.cuh, shared with B7 (paged_attention.cu); this file
 // gives it the flat cache's map: position s of batch row b is row
@@ -45,7 +49,7 @@ struct FlatRows {
   }
 };
 
-template <typename T>
+template <typename T, int kHd>
 int launch(const void* q, const void* k_all, const void* v_all,
            const void* k_scale, const void* v_scale, const void* kv_len,
            void* out, void* ws, long long ws_bytes, void* counters,
@@ -70,7 +74,8 @@ int launch(const void* q, const void* k_all, const void* v_all,
   p.cap = S;
   p.splits = splits;
   p.sm_scale = sm_scale;
-  return v3d_decode::launch<T>(p, ws_bytes, static_cast<cudaStream_t>(stream));
+  return v3d_decode::launch<T, FlatRows, kHd>(
+      p, ws_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -81,7 +86,7 @@ extern "C" int v3d_decode_attention(const void* q, const void* k_all,
                                     void* counters, int layer, int B, int S,
                                     int H, int KV, int splits,
                                     float sm_scale, void* stream) {
-  return launch<v3d_decode::bf16>(q, k_all, v_all, nullptr, nullptr, kv_len,
+  return launch<v3d_decode::bf16, 128>(q, k_all, v_all, nullptr, nullptr, kv_len,
                                   out, ws, ws_bytes, counters, layer, B, S,
                                   H, KV, splits, sm_scale, stream);
 }
@@ -91,7 +96,7 @@ extern "C" int v3d_decode_attention_int8(
     const void* v_scale, const void* kv_len, void* out, void* ws,
     long long ws_bytes, void* counters, int layer, int B, int S, int H,
     int KV, int splits, float sm_scale, void* stream) {
-  return launch<int8_t>(q, k_all, v_all, k_scale, v_scale, kv_len, out, ws,
+  return launch<int8_t, 128>(q, k_all, v_all, k_scale, v_scale, kv_len, out, ws,
                         ws_bytes, counters, layer, B, S, H, KV, splits,
                         sm_scale, stream);
 }
@@ -101,7 +106,43 @@ extern "C" int v3d_decode_attention_int4(
     const void* v_scale, const void* kv_len, void* out, void* ws,
     long long ws_bytes, void* counters, int layer, int B, int S, int H,
     int KV, int splits, float sm_scale, void* stream) {
-  return launch<v3d_nib4>(q, k_all, v_all, k_scale, v_scale, kv_len, out, ws,
+  return launch<v3d_nib4, 128>(q, k_all, v_all, k_scale, v_scale, kv_len, out, ws,
                           ws_bytes, counters, layer, B, S, H, KV, splits,
                           sm_scale, stream);
+}
+
+// The same three forms at head width 256 (Gemma): q (B, 1, H, 256), the
+// cache's rows KV * 256 channels (packed int4: KV * 128 bytes); the
+// workspace holds 2 * splits * KV slices of 2 * 8 + 8 * 256 floats.
+extern "C" int v3d_decode_attention_hd256(const void* q, const void* k_all,
+                                          const void* v_all,
+                                          const void* kv_len, void* out,
+                                          void* ws, long long ws_bytes,
+                                          void* counters, int layer, int B,
+                                          int S, int H, int KV, int splits,
+                                          float sm_scale, void* stream) {
+  return launch<v3d_decode::bf16, 256>(q, k_all, v_all, nullptr, nullptr,
+                                       kv_len, out, ws, ws_bytes, counters,
+                                       layer, B, S, H, KV, splits, sm_scale,
+                                       stream);
+}
+
+extern "C" int v3d_decode_attention_hd256_int8(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* kv_len, void* out, void* ws,
+    long long ws_bytes, void* counters, int layer, int B, int S, int H,
+    int KV, int splits, float sm_scale, void* stream) {
+  return launch<int8_t, 256>(q, k_all, v_all, k_scale, v_scale, kv_len, out,
+                             ws, ws_bytes, counters, layer, B, S, H, KV,
+                             splits, sm_scale, stream);
+}
+
+extern "C" int v3d_decode_attention_hd256_int4(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* kv_len, void* out, void* ws,
+    long long ws_bytes, void* counters, int layer, int B, int S, int H,
+    int KV, int splits, float sm_scale, void* stream) {
+  return launch<v3d_nib4, 256>(q, k_all, v_all, k_scale, v_scale, kv_len,
+                               out, ws, ws_bytes, counters, layer, B, S, H,
+                               KV, splits, sm_scale, stream);
 }

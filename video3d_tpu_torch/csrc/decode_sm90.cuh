@@ -2,7 +2,8 @@
 // flat cache, decode_attention.cu) and kernel B7 (stacked page pools,
 // paged_attention.cu), each over a bf16, an int8 or a packed int4 cache.
 // The two instantiate one kernel template with their own position ->
-// cache row map (FlatRows, PagedRows in those files).
+// cache row map (FlatRows, PagedRows in those files) and a head width:
+// 128, or 256 (B3 and B7 at Gemma's width).
 //
 // Replaces: video3d_tpu/kernels/decode_attention.py::_decode_kernel_blockdiag
 // (call :243) and video3d_tpu/kernels/paged_attention.py::_ragged_kernel
@@ -93,6 +94,32 @@
 // of the CTAs of its positions (slice_cta), one per position. At B=1 a row's 33 slices (120 KB) take that one SM
 // ~2.6 us: its read rate, not latency, bounds the merge. One launch per
 // call; the wrapper allocates only the output.
+//
+// Head width 256 (kWidth = 256, decode_hd256; B3 and B7 alike, so that a
+// paged step and a dense one over the same values and capacity give the
+// same bits, as at 128). What bounds it is the same: HBM (7.0 MB at
+// Gemma-2B's kv_len 6812, one kv head, bf16). A position's
+// kv-head row is two halves of 128 channels, and the 8 warps pair up into
+// 4 units: a unit's two warps walk the same blocks, each copying and
+// holding only its half of K and V (copy_half) in its own ring, so the
+// rings, their depths and the shared memory are the hd-128 ones (~130 KB
+// of rings; whole 256-channel rows at these depths would need ~256 KB),
+// with the lane's q and O^T (64 f32) as at 128. A block's S^T is the sum
+// of its halves' products: each warp writes its 16 x 8 sums to the unit's
+// exchange, passes the pair's barrier (one a block: two buffers) and adds
+// its partner's (block_pair), so both run the same softmax; each adds its
+// half of P V. The units merge at a segment's end as the warps do at 128.
+// A slice is then 8.3 KB (8 heads x 256 f32), and Gemma's one kv head puts
+// all 132 CTAs on one row: one CTA merging 132 slices took ~0.17 us a
+// slice (28 us a step), so at 256 a row's slices merge in two levels
+// (merge_tree): groups of group_size(n) = ceil(sqrt(n)) consecutive
+// slices, each group merged by its last CTA to arrive into the slot of
+// its first slice, then the groups by the last group to arrive, all in a
+// fixed order (132 slices: 11 groups of 12). The hd-256 body is a function
+// of its own beside the hd-128 one, which stays as it was written:
+// folding the width into the shared code (warp / 1, + 0 offsets, unused
+// arguments) left the IR and hence the hd-128 kernels' SASS slightly
+// different, and their SASS is held unchanged.
 
 #pragma once
 
@@ -115,6 +142,17 @@ constexpr int kPartFloats = 2 * kMaxG + kMaxG * kHd;   // m, l, O of a slice
 constexpr int kMergeBar = 1;               // named barrier of the CTA
 constexpr int kMaxSplits = 256;            // CTAs per kv head
 constexpr float kLog2e = 1.4426950408889634f;
+// head width 256 (decode_hd256 below): a position's kv-head row is two
+// halves of kHd channels, and the 8 warps are 4 units of two, one warp per
+// half
+constexpr int kHd256 = 2 * kHd;
+constexpr int kUnits256 = kWarps / 2;
+constexpr int kPartFloats256 = 2 * kMaxG + kMaxG * kHd256;
+constexpr int kPairBar = 2;                // unit u syncs its pair on 2 + u
+// hd 256: a row of more than kTreeMin slices merges in two levels, in at
+// most kMaxGroups groups (group_size)
+constexpr int kTreeMin = 12;
+constexpr int kMaxGroups = 16;
 
 // bytes of one kv head's row of a position, and a warp's ring depth
 template <typename T>
@@ -861,19 +899,401 @@ __device__ void merge_row(const Params<Map>& p, int first, int n,
   if (h < p.G) write4(out_at(p.out, b, p.H, p.G, h, d0), acc, l);
 }
 
+// ------------------------------------------------------------ hd 256
+
+// the warps' rings (each holds its half of a block: the hd-128 slots),
+// the units' merge area, the arrival flags, the merge's barrier and the
+// pairs' exchange (per unit two buffers of two halves' 32 lanes x 4 f32)
+template <typename T>
+__host__ __device__ constexpr int smem_bytes_hd256() {
+  return 128 + kWarps * Form<T>::kDepth * slot_bytes<T>() +
+         kUnits256 * kPartFloats256 * 4 + 16 + kUnits256 * 2 * 2 * 32 * 16;
+}
+
+// slices of a row that the rings and the merge area hold at once
+template <typename T>
+__host__ __device__ constexpr int merge_capacity_hd256() {
+  return (kWarps * Form<T>::kDepth * slot_bytes<T>() +
+          kUnits256 * kPartFloats256 * 4) / (kPartFloats256 * 4);
+}
+
+// copy_block for the warp of half `half` (channels 128 half ..): its half
+// of each row of K and of V, and the block's scales
 template <typename T, typename Map>
-__global__ void __launch_bounds__(kThreads, 1)
-split_decode_kernel(const __grid_constant__ Params<Map> p) {
+__device__ __forceinline__ void copy_half(const Params<Map>& p,
+                                          const Blocks<Map>& bl,
+                                          uint32_t slot, int lane, int half) {
+  constexpr int kRowBytes = Form<T>::kRowBytes;
+  constexpr int kCh = kRowBytes / 16;
+  constexpr int kRowsPerLane = kCh / 2;
+  const int n = bl.n(), c = lane % kCh;
+  const long long row_bytes = static_cast<long long>(p.KV) * 2 * kRowBytes;
+  const unsigned char* kb =
+      p.k + (2 * blockIdx.y + half) * kRowBytes + c * 16;
+  const unsigned char* vb =
+      p.v + (2 * blockIdx.y + half) * kRowBytes + c * 16;
+  long long off[kRowsPerLane];
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    const int r = lane / kCh + j * (32 / kCh);
+    off[j] = p.map.row(p, bl.cur, bl.sg.b, bl.pos + r) * row_bytes;
+  }
+  long long si = 0;
+  if constexpr (quantized<T>())
+    si = p.map.scale(p, bl.cur, bl.sg.b, bl.pos + lane % kBlock);
+#pragma unroll
+  for (int j = 0; j < kRowsPerLane; ++j) {
+    const int r = lane / kCh + j * (32 / kCh);
+    const bool ok = r < n;
+    cp_async16(slot + k_off<T>(r, c), ok ? kb + off[j] : kb, ok ? 16 : 0);
+    cp_async16(slot + v_tile<T>() + v_off<T>(r, c), ok ? vb + off[j] : vb,
+               ok ? 16 : 0);
+  }
+  if constexpr (quantized<T>()) {
+    const bool ok = lane % kBlock < n;
+    const float* src = lane < kBlock ? p.k_scale : p.v_scale;
+    cp_async4(slot + 2 * v_tile<T>() + lane * 4, src + (ok ? si : 0),
+              ok ? 4 : 0);
+  }
+}
+
+// hd 256: `block` for one warp of a unit, over its half of the block's
+// channels. Its sums over the half go to `mine` of the unit's exchange and
+// the partner's come from `other` after the pair's barrier `bar`, so both
+// warps hold the same scores (a + b == b + a) and run the same softmax;
+// each then adds its half of P V.
+template <typename T>
+__device__ __forceinline__ void block_pair(const unsigned char* sl, int live,
+                                           const unsigned (&qb)[8][2],
+                                           int lane, float4* mine,
+                                           const float4* other, int bar,
+                                           WarpState& ws) {
+  const int g = lane / 4, t = lane % 4;
+  const float* scales = reinterpret_cast<const float*>(sl + 2 * v_tile<T>());
+  unsigned a[8][4];
+  k_frags<T>(sl, g, t, a);
+  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    mma16816<half_products<T>()>(s0, a[j], qb[j][0], qb[j][1]);
+    mma16816<half_products<T>()>(s1, a[j + 1], qb[j + 1][0], qb[j + 1][1]);
+  }
+  // x[0], x[1]: position g, heads 2t, 2t + 1; x[2], x[3]: position g + 8
+  float x[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x[c] = s0[c] + s1[c];
+  *mine = make_float4(x[0], x[1], x[2], x[3]);
+  named_sync(bar, 64);
+  const float4 y = *other;
+  x[0] += y.x;
+  x[1] += y.y;
+  x[2] += y.z;
+  x[3] += y.w;
+  if constexpr (quantized<T>()) {
+    const float k0 = scales[g], k1 = scales[g + 8];
+    x[0] *= k0; x[1] *= k0; x[2] *= k1; x[3] *= k1;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) x[c] *= kLog2e;
+  const float masked = __int_as_float(0xff800000);   // -inf: p = 0
+  if (g >= live) x[0] = x[1] = masked;
+  if (g + 8 >= live) x[2] = x[3] = masked;
+  float bm[2] = {fmaxf(x[0], x[2]), fmaxf(x[1], x[3])};
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    bm[0] = fmaxf(bm[0], __shfl_xor_sync(0xffffffffu, bm[0], o));
+    bm[1] = fmaxf(bm[1], __shfl_xor_sync(0xffffffffu, bm[1], o));
+  }
+  float alpha[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float mn = fmaxf(ws.m[h], bm[h]);
+    alpha[h] = exp2f(ws.m[h] - mn);
+    ws.m[h] = mn;
+  }
+  float pr[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) pr[c] = exp2f(x[c] - ws.m[c & 1]);
+  ws.l[0] = ws.l[0] * alpha[0] + (pr[0] + pr[2]);
+  ws.l[1] = ws.l[1] * alpha[1] + (pr[1] + pr[3]);
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      ws.o[i][0] *= alpha[0];
+      ws.o[i][1] *= alpha[1];
+      ws.o[i][2] *= alpha[0];
+      ws.o[i][3] *= alpha[1];
+    }
+  }
+  if constexpr (quantized<T>()) {
+    const float v0 = scales[kBlock + g] * p_scale<T>();
+    const float v1 = scales[kBlock + g + 8] * p_scale<T>();
+    pr[0] *= v0; pr[1] *= v0; pr[2] *= v1; pr[3] *= v1;
+  }
+  const unsigned b0 = movmatrix_t(pack16<half_products<T>()>(pr[0], pr[1]));
+  const unsigned b1 = movmatrix_t(pack16<half_products<T>()>(pr[2], pr[3]));
+  unsigned va[8][4];
+  v_frags<T>(sl + v_tile<T>(), lane, va);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    mma16816<half_products<T>()>(ws.o[i], va[i], b0, b1);
+}
+
+// q_load of the warp's half of head g's 256 channels
+template <typename T, typename Map>
+__device__ __forceinline__ void q_load_half(const Params<Map>& p, int b,
+                                            int g, int t, int half,
+                                            uint2 (&raw)[8]) {
+  const bf16* qh = p.q + (static_cast<long long>(b) * p.H +
+                          blockIdx.y * p.G + g) * kHd256 + half * kHd;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    raw[j] = g < p.G ? __ldg(reinterpret_cast<const uint2*>(qh + q_dim<T>(j, t)))
+                     : make_uint2(0u, 0u);
+}
+
+// 4 dims d0 .. d0 + 3 of head h of this kv head's heads in row b (hd 256)
+__device__ __forceinline__ bf16* out_at_hd256(bf16* out, int b, int H, int G,
+                                              int h, int d0) {
+  return out + (static_cast<long long>(b) * H + blockIdx.y * G + h) * kHd256 +
+         d0;
+}
+
+// workspace slot `which` (0, 1) of CTA `cta`: m[8], l[8], O[8][256]
+template <typename Map>
+__device__ __forceinline__ float* part_at_hd256(const Params<Map>& p, int cta,
+                                                int which) {
+  return p.ws +
+         (2LL * (blockIdx.y * p.splits + cta) + which) * kPartFloats256;
+}
+
+// end_segment at hd 256: the units' states merged in unit order (a unit's
+// warps write their halves of its O, its half-0 warp its m and l); thread
+// tid takes head tid / 32, dims 4 (tid % 32) .. + 3 of each half.
+template <typename T, typename Map>
+__device__ void end_segment_hd256(const Params<Map>& p, int b, bool whole,
+                                  int which, WarpState& st, float* mw) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int unit = warp / 2, half = warp % 2;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1)
+      st.l[h] += __shfl_xor_sync(0xffffffffu, st.l[h], o);
+  named_sync(kMergeBar, kThreads);        // the last segment's reads are done
+  float* mine = mw + unit * kPartFloats256;
+  if (g == 0 && half == 0) {
+    mine[2 * t] = st.m[0];
+    mine[2 * t + 1] = st.m[1];
+    mine[kMaxG + 2 * t] = st.l[0];
+    mine[kMaxG + 2 * t + 1] = st.l[1];
+  }
+  float* mo = mine + 2 * kMaxG + half * kHd;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      mo[(2 * t + (c & 1)) * kHd256 + o_dim<T>(i, g, c >> 1)] =
+          st.o[i][c] * (1.f / p_scale<T>());
+  named_sync(kMergeBar, kThreads);
+  st.reset();
+  const int h = tid / 32, d0 = 4 * (tid % 32);
+  if (h >= p.G) return;
+  float mx = V3D_NEG_INF;
+#pragma unroll
+  for (int w = 0; w < kUnits256; ++w)
+    mx = fmaxf(mx, mw[w * kPartFloats256 + h]);
+  float l = 0.f;
+  float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                   make_float4(0.f, 0.f, 0.f, 0.f)};
+#pragma unroll
+  for (int w = 0; w < kUnits256; ++w) {
+    const float* part = mw + w * kPartFloats256 + 2 * kMaxG + h * kHd256 + d0;
+    const float wt = exp2f(mw[w * kPartFloats256 + h] - mx);
+    l += wt * mw[w * kPartFloats256 + kMaxG + h];
+    fma4(acc[0], wt, *reinterpret_cast<const float4*>(part));
+    fma4(acc[1], wt, *reinterpret_cast<const float4*>(part + kHd));
+  }
+  if (whole) {
+    write4(out_at_hd256(p.out, b, p.H, p.G, h, d0), acc[0], l);
+    write4(out_at_hd256(p.out, b, p.H, p.G, h, kHd + d0), acc[1], l);
+    return;
+  }
+  float* part = part_at_hd256(p, blockIdx.x, which);
+  if (d0 == 0) {
+    part[h] = mx;
+    part[kMaxG + h] = l;
+  }
+  float* po = part + 2 * kMaxG + h * kHd256 + d0;
+  *reinterpret_cast<float4*>(po) = acc[0];
+  *reinterpret_cast<float4*>(po + kHd) = acc[1];
+}
+
+// hd 256: the slices of a row of n merge in groups of this many
+// consecutive ones (in merge order), then the groups' partials in group
+// order: ceil(sqrt(n)) where n > kTreeMin, else all n in one group.
+__host__ __device__ __forceinline__ int group_size(int n) {
+  if (n <= kTreeMin) return n;
+  int g = 1;
+  while (g * g < n) ++g;
+  return g;
+}
+
+// workspace slot of slice k of a row (in merge order) whose first slice
+// CTA `first` holds in its slot first_slot
+template <typename Map>
+__device__ __forceinline__ float* slice_at(const Params<Map>& p, int first,
+                                           int k, int first_slot,
+                                           long long base, long long total) {
+  const int c = slice_cta(p.splits, first, k, base, total);
+  return part_at_hd256(p, c, c == first ? first_slot : 0);
+}
+
+// hd 256: slices k0, k0 + stride, ... (cnt_all of them, in merge order) of
+// row b, merged in that order as merge_row merges a row's slices; then
+// written normalised to the output, or (part not null) as one unnormalised
+// slice (m, l, O of the live heads) into `part`.
+template <typename Map>
+__device__ void merge_slices(const Params<Map>& p, int first, int k0,
+                             int stride, int cnt_all, int first_slot, int b,
+                             long long base, long long total,
+                             unsigned char* buf, int cap, uint64_t* bar,
+                             int& phase, float* part) {
+  const int tid = threadIdx.x, h = tid / 32, d0 = 4 * (tid % 32);
+  const int bytes = (2 * kMaxG + p.G * kHd256) * 4;
+  const uint32_t buf_s = smem_u32(buf);
+  const float* sl = reinterpret_cast<const float*>(buf);
+  float mx = V3D_NEG_INF, l = 0.f;
+  float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f),
+                   make_float4(0.f, 0.f, 0.f, 0.f)};
+  for (int c0 = 0; c0 < cnt_all; c0 += cap) {
+    const int cnt = min(cap, cnt_all - c0);
+    if (tid == 0) mbar_arrive_tx(bar, cnt * bytes);
+    named_sync(kMergeBar, kThreads);
+    if (tid < cnt) {
+      // stored by other CTAs (acquired above): ordered before the copy
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+      bulk_copy(buf_s + tid * kPartFloats256 * 4,
+                slice_at(p, first, k0 + (c0 + tid) * stride, first_slot,
+                         base, total),
+                bytes, bar);
+    }
+    mbar_wait(bar, phase);
+    phase ^= 1;
+    if (h < p.G) {
+      float mn = mx;
+      for (int k = 0; k < cnt; ++k) mn = fmaxf(mn, sl[k * kPartFloats256 + h]);
+      const float sa = exp2f(mx - mn);
+      l *= sa;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        acc[j] = make_float4(acc[j].x * sa, acc[j].y * sa, acc[j].z * sa,
+                             acc[j].w * sa);
+      for (int k = 0; k < cnt; ++k) {
+        const float* sk = sl + k * kPartFloats256;
+        const float wt = exp2f(sk[h] - mn);
+        l += wt * sk[kMaxG + h];
+        const float* so = sk + 2 * kMaxG + h * kHd256 + d0;
+        fma4(acc[0], wt, *reinterpret_cast<const float4*>(so));
+        fma4(acc[1], wt, *reinterpret_cast<const float4*>(so + kHd));
+      }
+      mx = mn;
+    }
+    named_sync(kMergeBar, kThreads);      // buf is the next round's
+  }
+  if (h >= p.G) return;
+  if (part == nullptr) {
+    write4(out_at_hd256(p.out, b, p.H, p.G, h, d0), acc[0], l);
+    write4(out_at_hd256(p.out, b, p.H, p.G, h, kHd + d0), acc[1], l);
+    return;
+  }
+  if (d0 == 0) {
+    part[h] = mx;
+    part[kMaxG + h] = l;
+  }
+  float* po = part + 2 * kMaxG + h * kHd256 + d0;
+  *reinterpret_cast<float4*>(po) = acc[0];
+  *reinterpret_cast<float4*>(po + kHd) = acc[1];
+}
+
+// hd 256, after the slices' stores and a barrier: this CTA's pending rows
+// (at most 2) merge in two levels. Each slice arrives on the counter of
+// its group (group_size consecutive slices in merge order; (B, KV,
+// kMaxGroups) counters after the rows' (B, KV)); the last CTA of a group
+// merges it in order, writes the row where the group is the row's only
+// one, else puts the group's partial in the slot of the group's first
+// slice (read by no one else) and arrives on the row's counter, whose last
+// CTA merges the groups' partials in group order. Every counter is reset
+// by its last CTA; the order is fixed, so outputs repeat bit for bit.
+// `flag` (the free exchange area) carries the row level's arrival.
+template <typename T, typename Map>
+__device__ void merge_tree(const Params<Map>& p, const int (&pend_b)[2],
+                           const int (&pend_first)[2], const int (&pend_n)[2],
+                           const int (&pend_slot)[2], const int (&pend_k)[2],
+                           const long long (&pend_base)[2], int pending,
+                           long long total, unsigned char* buf, int* flags,
+                           int* flag, uint64_t* bar) {
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int k = 0; k < pending; ++k) {
+      const int n = pend_n[k], gs = group_size(n), j = pend_k[k] / gs;
+      int* counter = p.counters + p.B * p.KV +
+                     (pend_b[k] * p.KV + blockIdx.y) * kMaxGroups + j;
+      const bool last =
+          atom_add_acq_rel(counter, 1) == min(gs, n - j * gs) - 1;
+      if (last) *counter = 0;          // the next launch finds it zeroed
+      flags[k] = last;
+    }
+  }
+  named_sync(kMergeBar, kThreads);
+  int phase = 0;
+  for (int k = 0; k < pending; ++k) {
+    if (!flags[k]) continue;
+    const int n = pend_n[k], gs = group_size(n), j = pend_k[k] / gs;
+    const int groups = (n + gs - 1) / gs;
+    float* group_part =
+        groups > 1 ? slice_at(p, pend_first[k], j * gs, pend_slot[k],
+                                   pend_base[k], total)
+                   : nullptr;
+    merge_slices(p, pend_first[k], j * gs, 1, min(gs, n - j * gs),
+                      pend_slot[k], pend_b[k], pend_base[k], total, buf,
+                      merge_capacity_hd256<T>(), bar, phase, group_part);
+    if (groups == 1) continue;
+    named_sync(kMergeBar, kThreads);      // the group's partial is stored
+    if (tid == 0) {
+      int* counter = p.counters + pend_b[k] * p.KV + blockIdx.y;
+      const bool last = atom_add_acq_rel(counter, 1) == groups - 1;
+      if (last) *counter = 0;
+      *flag = last;
+    }
+    named_sync(kMergeBar, kThreads);
+    if (*flag)
+      merge_slices(p, pend_first[k], 0, gs, groups, pend_slot[k],
+                        pend_b[k], pend_base[k], total, buf,
+                        merge_capacity_hd256<T>(), bar, phase, nullptr);
+  }
+}
+
+// The kernel's body at hd 256: the hd-128 body with units of two warps
+// (copy_half, q_load_half, block_pair, end_segment_hd256) and the
+// two-level merge (merge_tree).
+template <typename T, typename Map>
+__device__ __forceinline__ void decode_hd256(const Params<Map>& p) {
   constexpr int kDepth = Form<T>::kDepth;
+  constexpr int kUnits = kUnits256;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t a = smem_u32(smem_raw);
   unsigned char* base = smem_raw + (((a + 127) & ~127u) - a);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int unit = warp / 2, half = warp % 2;
   const int g = lane / 4, t = lane % 4;
   unsigned char* ring = base + warp * kDepth * slot_bytes<T>();
   float* mw = reinterpret_cast<float*>(base + kWarps * kDepth * slot_bytes<T>());
-  int* flags = reinterpret_cast<int*>(mw + kWarps * kPartFloats);
+  int* flags = reinterpret_cast<int*>(mw + kUnits * kPartFloats256);
   uint64_t* merge_bar = reinterpret_cast<uint64_t*>(flags + 2);
+  // hd 256: the pair's two exchange buffers of two halves' 32 lanes
+  float4* xch = reinterpret_cast<float4*>(merge_bar + 1) + unit * 2 * 2 * 32;
   const uint32_t ring_s = smem_u32(ring);
   if (tid == 0) {                         // used after the CTA's barriers
     mbar_init(merge_bar, 1);
@@ -881,19 +1301,20 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
   }
 
   // the first segment's q, then this warp's first copies: `in` copies
-  // kDepth - 1 blocks ahead of `use`
+  // kDepth - 1 blocks ahead of `use`; a unit's warps walk the same blocks
   Walk<Map> walk(p, blockIdx.x);
-  Blocks<Map> in(p, walk, warp);
+  Blocks<Map> in(p, walk, unit);
   Blocks<Map> use = in;
   Segment sg;
   bool more = walk.next(sg);
   uint2 raw[8];
-  if (more) q_load<T>(p, sg.b, g, t, raw);
+  if (more) q_load_half<T>(p, sg.b, g, t, half, raw);
   int issued = 0, used = 0;
   auto issue = [&]() {
     if (in.has) {
-      copy_block<T>(p, in, ring_s + (issued % kDepth) * slot_bytes<T>(), lane);
-      in.skip(kWarps);
+      copy_half<T>(p, in, ring_s + (issued % kDepth) * slot_bytes<T>(), lane,
+                   half);
+      in.skip(kUnits);
     }
     cp_async_commit();
     ++issued;
@@ -907,11 +1328,14 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
   {
     const int h = tid / 32, d0 = 4 * (tid % 32);
     for (int b = blockIdx.x; b < p.B; b += p.splits)
-      if (walk.len(b) == 0 && h < p.G)
-        *reinterpret_cast<uint2*>(out_at(p.out, b, p.H, p.G, h, d0)) =
+      if (walk.len(b) == 0 && h < p.G) {
+        *reinterpret_cast<uint2*>(out_at_hd256(p.out, b, p.H, p.G, h, d0)) =
             make_uint2(0u, 0u);
+        *reinterpret_cast<uint2*>(
+            out_at_hd256(p.out, b, p.H, p.G, h, kHd + d0)) = make_uint2(0u, 0u);
+      }
   }
-  int pend_b[2], pend_first[2], pend_n[2], pend_slot[2];
+  int pend_b[2], pend_first[2], pend_n[2], pend_slot[2], pend_k[2];
   long long pend_base[2];
   int pending = 0;
   WarpState st;
@@ -921,20 +1345,23 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
     Walk<Map> peek = walk;
     Segment nx;
     const bool has_next = peek.next(nx);
-    if (has_next) q_load<T>(p, nx.b, g, t, raw);
+    if (has_next) q_load_half<T>(p, nx.b, g, t, half, raw);
     while (use.has && use.seg == si) {
       issue();                                // block used + kDepth - 1
       cp_async_wait<kDepth - 1>();            // block `used` has landed
       __syncwarp();
-      block<T>(ring + (used % kDepth) * slot_bytes<T>(), use.n(), qb, lane, st);
+      float4* x = xch + (used & 1) * 2 * 32 + lane;
+      block_pair<T>(ring + (used % kDepth) * slot_bytes<T>(), use.n(), qb,
+                    lane, x + half * 32, x + (1 - half) * 32,
+                    kPairBar + unit, st);
       __syncwarp();                           // before its slot is refilled
-      use.skip(kWarps, false);
+      use.skip(kUnits, false);
       ++used;
     }
     const int first = walk.cta_of(sg.base);
     const int last = walk.cta_of(sg.base + sg.n - 1);
     const int which = sg.first_of_cta ? 0 : 1;
-    end_segment<T>(p, sg.b, first == last, which, st, mw);
+    end_segment_hd256<T>(p, sg.b, first == last, which, st, mw);
     if (first != last) {
       pend_b[pending] = sg.b;
       pend_first[pending] = first;
@@ -944,6 +1371,10 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
       pend_base[pending] = sg.base;
       // the slot of `first`'s slice: 0 where its range begins in the row
       pend_slot[pending] = first * walk.total / p.splits >= sg.base ? 0 : 1;
+      // this CTA's slice's index in the row's merge order
+      pend_k[pending] = walk.total >= p.splits
+                            ? static_cast<int>(blockIdx.x) - first
+                            : sg.s0;
       ++pending;
     }
     if (has_next) q_frags<T>(p, raw, qb);
@@ -954,41 +1385,149 @@ split_decode_kernel(const __grid_constant__ Params<Map> p) {
   // gpu scope publishes them all with its arrivals (and its acquire, where
   // it arrives last, brings the other slices' stores)
   named_sync(kMergeBar, kThreads);
-  if (tid == 0) {
-    for (int k = 0; k < pending; ++k) {
-      int* counter = p.counters + pend_b[k] * p.KV + blockIdx.y;
-      const bool last = atom_add_acq_rel(counter, 1) == pend_n[k] - 1;
-      if (last) *counter = 0;          // the next launch finds it zeroed
-      flags[k] = last;
-    }
-  }
-  named_sync(kMergeBar, kThreads);
-  int phase = 0;
-  for (int k = 0; k < pending; ++k)
-    if (flags[k])
-      merge_row(p, pend_first[k], pend_n[k], pend_slot[k], pend_b[k],
-                pend_base[k], walk.total, base, merge_capacity<T>(),
-                merge_bar, phase);
+  merge_tree<T>(p, pend_b, pend_first, pend_n, pend_slot, pend_k, pend_base,
+                pending, walk.total, base, flags,
+                reinterpret_cast<int*>(merge_bar + 1), merge_bar);
 }
 
-// Checks the shapes and the plan, launches; returns a cudaError_t. The
-// workspace (2 kPartFloats f32 per CTA) and the (B, KV) counters, zeroed,
+template <typename T, typename Map, int kWidth>
+__global__ void __launch_bounds__(kThreads, 1)
+split_decode_kernel(const __grid_constant__ Params<Map> p) {
+  if constexpr (kWidth == kHd256) {
+    decode_hd256<T, Map>(p);
+  } else {
+    constexpr int kDepth = Form<T>::kDepth;
+    extern __shared__ unsigned char smem_raw[];
+    const uint32_t a = smem_u32(smem_raw);
+    unsigned char* base = smem_raw + (((a + 127) & ~127u) - a);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    unsigned char* ring = base + warp * kDepth * slot_bytes<T>();
+    float* mw = reinterpret_cast<float*>(base + kWarps * kDepth * slot_bytes<T>());
+    int* flags = reinterpret_cast<int*>(mw + kWarps * kPartFloats);
+    uint64_t* merge_bar = reinterpret_cast<uint64_t*>(flags + 2);
+    const uint32_t ring_s = smem_u32(ring);
+    if (tid == 0) {                         // used after the CTA's barriers
+      mbar_init(merge_bar, 1);
+      fence_barrier_init();
+    }
+
+    // the first segment's q, then this warp's first copies: `in` copies
+    // kDepth - 1 blocks ahead of `use`
+    Walk<Map> walk(p, blockIdx.x);
+    Blocks<Map> in(p, walk, warp);
+    Blocks<Map> use = in;
+    Segment sg;
+    bool more = walk.next(sg);
+    uint2 raw[8];
+    if (more) q_load<T>(p, sg.b, g, t, raw);
+    int issued = 0, used = 0;
+    auto issue = [&]() {
+      if (in.has) {
+        copy_block<T>(p, in, ring_s + (issued % kDepth) * slot_bytes<T>(), lane);
+        in.skip(kWarps);
+      }
+      cp_async_commit();
+      ++issued;
+    };
+  #pragma unroll
+    for (int k = 0; k < kDepth - 1; ++k) issue();
+    unsigned qb[8][2];
+    q_frags<T>(p, raw, qb);
+
+    // rows with no live position: zeros, written by one CTA per kv head
+    {
+      const int h = tid / 32, d0 = 4 * (tid % 32);
+      for (int b = blockIdx.x; b < p.B; b += p.splits)
+        if (walk.len(b) == 0 && h < p.G)
+          *reinterpret_cast<uint2*>(out_at(p.out, b, p.H, p.G, h, d0)) =
+              make_uint2(0u, 0u);
+    }
+    int pend_b[2], pend_first[2], pend_n[2], pend_slot[2];
+    long long pend_base[2];
+    int pending = 0;
+    WarpState st;
+    st.reset();
+    for (int si = 0; more; ++si) {
+      // the next segment's q, in flight while this one streams
+      Walk<Map> peek = walk;
+      Segment nx;
+      const bool has_next = peek.next(nx);
+      if (has_next) q_load<T>(p, nx.b, g, t, raw);
+      while (use.has && use.seg == si) {
+        issue();                                // block used + kDepth - 1
+        cp_async_wait<kDepth - 1>();            // block `used` has landed
+        __syncwarp();
+        block<T>(ring + (used % kDepth) * slot_bytes<T>(), use.n(), qb, lane, st);
+        __syncwarp();                           // before its slot is refilled
+        use.skip(kWarps, false);
+        ++used;
+      }
+      const int first = walk.cta_of(sg.base);
+      const int last = walk.cta_of(sg.base + sg.n - 1);
+      const int which = sg.first_of_cta ? 0 : 1;
+      end_segment<T>(p, sg.b, first == last, which, st, mw);
+      if (first != last) {
+        pend_b[pending] = sg.b;
+        pend_first[pending] = first;
+        // the row's slices: every CTA first .. last, or one per position
+        // where some ranges are empty (slice_cta)
+        pend_n[pending] = walk.total >= p.splits ? last - first + 1 : sg.n;
+        pend_base[pending] = sg.base;
+        // the slot of `first`'s slice: 0 where its range begins in the row
+        pend_slot[pending] = first * walk.total / p.splits >= sg.base ? 0 : 1;
+        ++pending;
+      }
+      if (has_next) q_frags<T>(p, raw, qb);
+      more = walk.next(sg);
+    }
+    if (pending == 0) return;
+    // the slices' stores come before the barrier; one thread's release at
+    // gpu scope publishes them all with its arrivals (and its acquire, where
+    // it arrives last, brings the other slices' stores)
+    named_sync(kMergeBar, kThreads);
+    if (tid == 0) {
+      for (int k = 0; k < pending; ++k) {
+        int* counter = p.counters + pend_b[k] * p.KV + blockIdx.y;
+        const bool last = atom_add_acq_rel(counter, 1) == pend_n[k] - 1;
+        if (last) *counter = 0;          // the next launch finds it zeroed
+        flags[k] = last;
+      }
+    }
+    named_sync(kMergeBar, kThreads);
+    int phase = 0;
+    for (int k = 0; k < pending; ++k)
+      if (flags[k])
+        merge_row(p, pend_first[k], pend_n[k], pend_slot[k], pend_b[k],
+                  pend_base[k], walk.total, base, merge_capacity<T>(),
+                  merge_bar, phase);
+  }
+}
+
+// Checks the shapes and the plan, launches at head width kWidth (kHd, or
+// kHd256: decode_hd256); returns a cudaError_t. The workspace (2 slices
+// per CTA: kPartFloats, or kPartFloats256 f32) and the counters, zeroed,
 // are always needed: which rows split depends on kv_len, read on the
-// device.
-template <typename T, typename Map>
+// device. The counters: (B, KV), and at hd 256 after them (B, KV,
+// kMaxGroups) for the groups of merge_tree.
+template <typename T, typename Map, int kWidth = kHd>
 int launch(const Params<Map>& p, long long ws_bytes, cudaStream_t stream) {
+  static_assert(kWidth == kHd || kWidth == kHd256, "head width 128 or 256");
+  constexpr int kPart = kWidth == kHd ? kPartFloats : kPartFloats256;
+  constexpr int kSmem =
+      kWidth == kHd ? smem_bytes<T>() : smem_bytes_hd256<T>();
   if (p.KV <= 0 || p.H % p.KV != 0 || p.H / p.KV > kMaxG || p.cap <= 0 ||
       p.splits < 1 || p.splits > kMaxSplits || p.ws == nullptr ||
       p.counters == nullptr ||
-      ws_bytes < 2LL * p.splits * p.KV * kPartFloats * 4)
+      ws_bytes < 2LL * p.splits * p.KV * kPart * 4)
     return static_cast<int>(cudaErrorInvalidValue);
   if (p.B <= 0) return 0;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      split_decode_kernel<T, Map>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
+      split_decode_kernel<T, Map, kWidth>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  split_decode_kernel<T, Map><<<dim3(p.splits, p.KV), kThreads,
-                                smem_bytes<T>(), stream>>>(p);
+  split_decode_kernel<T, Map, kWidth><<<dim3(p.splits, p.KV), kThreads,
+                                        kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

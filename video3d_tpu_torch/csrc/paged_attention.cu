@@ -1,4 +1,5 @@
-// Paged single-token decode attention over stacked page pools (kernel B7).
+// Paged single-token decode attention over stacked page pools (kernel B7),
+// at head width 128 and at 256 (Gemma).
 //
 // Replaces: video3d_tpu/kernels/paged_attention.py::_ragged_kernel (entry
 // paged_decode_attention with the stacked (layers, P, page, KV*hd) pools
@@ -18,7 +19,10 @@
 // slot's.
 //
 // Design: decode_sm90.cuh, shared with B3 (decode_attention.cu); this file
-// gives it the pools' map. The TPU kernel walks a compacted (slot, page)
+// gives it the pools' map, at either head width (the map gives pool rows,
+// the template their bytes). At hd 256 B3 and B7 thus compute alike, as
+// at 128: a paged step and a dense one over the same values and capacity
+// give the same bits. The TPU kernel walks a compacted (slot, page)
 // worklist on a sequential grid and carries the online softmax across a
 // slot's pages in scratch; here the kernel lays the slots' live positions
 // end to end and gives every CTA an even share, whatever the pool size P,
@@ -107,7 +111,7 @@ struct PagedRows {
   }
 };
 
-template <typename T>
+template <typename T, int kWidth>
 int launch(const void* q, const void* k_pages, const void* v_pages,
            const void* k_scale, const void* v_scale, const void* table,
            const void* kv_len, void* out, void* ws, long long ws_bytes,
@@ -136,7 +140,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
   p.cap = maxp * page;
   p.splits = splits;
   p.sm_scale = sm_scale;
-  return v3d_decode::launch<T>(p, ws_bytes, static_cast<cudaStream_t>(stream));
+  return v3d_decode::launch<T, PagedRows, kWidth>(
+      p, ws_bytes, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -148,7 +153,7 @@ extern "C" int v3d_paged_attention(const void* q, const void* k_pages,
                                    int layer, int B, int P, int page,
                                    int maxp, int H, int KV, int splits,
                                    float sm_scale, void* stream) {
-  return launch<v3d_decode::bf16>(q, k_pages, v_pages, nullptr, nullptr,
+  return launch<v3d_decode::bf16, 128>(q, k_pages, v_pages, nullptr, nullptr,
                                   table, kv_len, out, ws, ws_bytes, counters,
                                   layer, B, P, page, maxp, H, KV, splits,
                                   sm_scale, stream);
@@ -160,7 +165,7 @@ extern "C" int v3d_paged_attention_int8(
     const void* kv_len, void* out, void* ws, long long ws_bytes,
     void* counters, int layer, int B, int P, int page, int maxp, int H,
     int KV, int splits, float sm_scale, void* stream) {
-  return launch<int8_t>(q, k_pages, v_pages, k_scale, v_scale, table, kv_len,
+  return launch<int8_t, 128>(q, k_pages, v_pages, k_scale, v_scale, table, kv_len,
                         out, ws, ws_bytes, counters, layer, B, P, page, maxp,
                         H, KV, splits, sm_scale, stream);
 }
@@ -171,7 +176,48 @@ extern "C" int v3d_paged_attention_int4(
     const void* kv_len, void* out, void* ws, long long ws_bytes,
     void* counters, int layer, int B, int P, int page, int maxp, int H,
     int KV, int splits, float sm_scale, void* stream) {
-  return launch<v3d_nib4>(q, k_pages, v_pages, k_scale, v_scale, table,
+  return launch<v3d_nib4, 128>(q, k_pages, v_pages, k_scale, v_scale, table,
                           kv_len, out, ws, ws_bytes, counters, layer, B, P,
                           page, maxp, H, KV, splits, sm_scale, stream);
+}
+
+// The same three forms at head width 256 (Gemma): q (B, 1, H, 256), the
+// pools' rows KV * 256 channels (packed int4: KV * 128 bytes); the
+// workspace holds 2 * splits * KV slices of 2 * 8 + 8 * 256 floats.
+extern "C" int v3d_paged_attention_hd256(const void* q, const void* k_pages,
+                                         const void* v_pages,
+                                         const void* table,
+                                         const void* kv_len, void* out,
+                                         void* ws, long long ws_bytes,
+                                         void* counters, int layer, int B,
+                                         int P, int page, int maxp, int H,
+                                         int KV, int splits, float sm_scale,
+                                         void* stream) {
+  return launch<v3d_decode::bf16, 256>(q, k_pages, v_pages, nullptr, nullptr,
+                                       table, kv_len, out, ws, ws_bytes,
+                                       counters, layer, B, P, page, maxp, H,
+                                       KV, splits, sm_scale, stream);
+}
+
+extern "C" int v3d_paged_attention_hd256_int8(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* kv_len, void* out, void* ws, long long ws_bytes,
+    void* counters, int layer, int B, int P, int page, int maxp, int H,
+    int KV, int splits, float sm_scale, void* stream) {
+  return launch<int8_t, 256>(q, k_pages, v_pages, k_scale, v_scale, table,
+                             kv_len, out, ws, ws_bytes, counters, layer, B,
+                             P, page, maxp, H, KV, splits, sm_scale, stream);
+}
+
+extern "C" int v3d_paged_attention_hd256_int4(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* k_scale, const void* v_scale, const void* table,
+    const void* kv_len, void* out, void* ws, long long ws_bytes,
+    void* counters, int layer, int B, int P, int page, int maxp, int H,
+    int KV, int splits, float sm_scale, void* stream) {
+  return launch<v3d_nib4, 256>(q, k_pages, v_pages, k_scale, v_scale, table,
+                               kv_len, out, ws, ws_bytes, counters, layer, B,
+                               P, page, maxp, H, KV, splits, sm_scale,
+                               stream);
 }

@@ -155,33 +155,14 @@ _SIGNATURES = {
     # k, v, t, out, checksum, begins (host), ctas, units_per_stream,
     # units_per_block, hd, stream
     "v3d_kv_probe": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # q, k, v, lens, q_off, out, workspace, mode, B, L, S, H, KV, splits,
-    # split_keys, sm_scale, stream
+    # q, k, v, lens, q_off, out, workspace, mode (1: folded), B, L, S, H,
+    # KV, splits, split_keys, sm_scale, stream
     "v3d_attention_hd256": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _I, _I, _I, _F, _P],
-    # q, k_pages, v_pages, table, kv_len, out, workspace, layer, B, P,
-    # page, maxp, H, KV, splits, split_keys, sm_scale, stream
-    "v3d_attention_hd256_paged": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, pk, pv, sk, sv, suffix_lens, out, workspace, B, L, P, H, KV,
-    # splits, split_keys, sm_scale, stream
-    "v3d_attention_hd256_shared_prefix": [_P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                          _I, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, k_scale, v_scale, lens, q_off, out, workspace, mode, bits, B,
     # L, S, H, KV, splits, split_keys, sm_scale, stream
     "v3d_attention_hd256_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    # q, k_pages, v_pages, k_scale, v_scale, table, kv_len, out, workspace,
-    # bits, layer, B, P, page, maxp, H, KV, splits, split_keys, sm_scale,
-    # stream
-    "v3d_attention_hd256_paged_quant": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                        _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                        _I, _F, _P],
-    # q, pk, pv, pk_scale, pv_scale, sk, sv, suffix_lens, out, workspace,
-    # bits, B, L, P, H, KV, splits, split_keys, sm_scale, stream
-    "v3d_attention_hd256_shared_prefix_quant": [_P, _P, _P, _P, _P, _P, _P,
-                                                _P, _P, _P, _I, _I, _I, _I,
-                                                _I, _I, _I, _I, _F, _P],
     # q, k, v, dout, rows (lse and delta), lengths, dq (f32 scratch), dk /
     # dv partials (f32), B, L, S, H, KV, splits, causal, sm_scale, stream
     "v3d_flash_attention_bwd_hd256": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -194,6 +175,11 @@ _SIGNATURES.update({f"{n}_hd256{lse}": _SIGNATURES[n + lse]
 _SIGNATURES.update({f"v3d_{n}_int4": _SIGNATURES[f"v3d_{n}_int8"]
                     for n in ("decode_attention", "flash_attention_folded",
                               "shared_prefix_attention", "paged_attention")})
+# B3, B7 and B5 at head width 256 take their hd-128 forms' arguments
+_SIGNATURES.update({f"v3d_{n}_hd256{form}": _SIGNATURES[f"v3d_{n}{form}"]
+                    for n in ("decode_attention", "paged_attention",
+                              "shared_prefix_attention")
+                    for form in ("", "_int8", "_int4")})
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()   # wrappers launch from several threads

@@ -1,8 +1,12 @@
-"""Attention at head width 256 (Gemma's): B2 folded, B3, B7 and B5 on one
-hand-written kernel (``csrc/attention_hd256.cu``), the prefill form of B2
-and its training form with the logsumexp on another
-(``csrc/flash_attention_hd256.cu``), and B6, their backward, on a third
-(``csrc/flash_attention_bwd_hd256.cu``), with their plain PyTorch twins.
+"""Attention at head width 256 (Gemma's): B2 folded on one hand-written
+kernel (``csrc/attention_hd256.cu``, WMMA), B3 and B7 on the hd-128
+decode template's hd-256 instantiations (``csrc/decode_sm90.cuh`` through
+``csrc/decode_attention.cu`` and ``csrc/paged_attention.cu``), B5 on a
+TMA + wgmma kernel of its own
+(``csrc/shared_prefix_hd256.cu``), the prefill form of B2 and its training
+form with the logsumexp on another (``csrc/flash_attention_hd256.cu``), and
+B6, their backward, on a third (``csrc/flash_attention_bwd_hd256.cu``),
+with their plain PyTorch twins.
 
 The JAX package sends any ``hd % 128 == 0`` to its Pallas kernels
 (``video3d_tpu/kernels/attention.py:181``, ``:195``, ``:223``, ``:401``,
@@ -27,12 +31,15 @@ versions, which take any head width.
 kernel's grid: row tiles of 64 folded query rows per (batch row, kv head),
 and, where those do not fill the card, a split of the keys whose partials
 merge in a second kernel through the stream's f32 workspace (``_launch``).
-The paged form's key axis is a slot's ``maxp * page`` positions
-(:func:`paged_plan`); the shared-prefix form's is the prefix padded to
-whole 64-key tiles, then the suffix (:func:`shared_prefix_plan`). The
-prefill forms need no plan (one CTA per 128-row query tile and head);
-:func:`bwd_hd256_plan` splits B6's query heads over CTAs so that no causal
-walk outlasts an even share of the card's work.
+B3's and B7's grids are ``decode_attention.decode_plan`` at head width
+256 (B7's over a slot's ``maxp * page`` positions); B5's
+(:func:`shared_prefix_plan`) is row tiles of 128 folded rows per kv head,
+the prefix's 64-key tiles split by the hd-128 chunk kernels' cost model,
+the splits merged in the kernel through the stream's workspace and
+arrival counters. The prefill forms need no plan (one CTA
+per 128-row query tile and head); :func:`bwd_hd256_plan` splits B6's query
+heads over CTAs so that no causal walk outlasts an even share of the
+card's work.
 """
 
 from __future__ import annotations
@@ -44,12 +51,14 @@ from typing import Optional
 import torch
 
 from video3d_tpu_torch.kernels import _build, _launch
+from video3d_tpu_torch.kernels import decode_attention as _decode
+from video3d_tpu_torch.kernels import paged_attention as _paged
 from video3d_tpu_torch.kernels.attention import (
     mha_shared_prefix_reference as shared_prefix_hd256_plain)
 from video3d_tpu_torch.kernels.decode_attention import (
     CACHE_FORMS, decode_attention_plain as decode_hd256_plain)
 from video3d_tpu_torch.kernels.flash_attention import (
-    bwd_rows, flash_attention_bwd_plain as bwd_hd256_plain,
+    bwd_rows, chunk_plan, flash_attention_bwd_plain as bwd_hd256_plain,
     flash_attention_fwd_plain as prefill_lse_hd256_plain,
     flash_attention_gqa_folded_plain as folded_hd256_plain,
     flash_attention_plain as prefill_hd256_plain)
@@ -62,10 +71,14 @@ BITS = {"_int8": 8, "_int4": 4}
 ROWS = 64          # folded query rows per CTA (csrc kRows)
 KEYS = 64          # keys per tile (csrc kKeys)
 PART_FLOATS = HEAD_DIM + 2   # one split's O, m and l of a row
-#: the C modes of ``v3d_attention_hd256``'s forms (the paged and
-#: shared-prefix forms have entries of their own) and every bf16 form's
-#: launch-count name (a quantized form's adds ``CACHE_FORMS``' suffix)
-MODES = {"folded": 1, "decode": 2}
+#: the C mode of ``v3d_attention_hd256``'s folded form and every bf16
+#: form's launch-count name (a quantized form's adds ``CACHE_FORMS``'
+#: suffix)
+MODES = {"folded": 1}
+SP_ROWS = 128      # B5: folded query rows per CTA (csrc shared_prefix_hd256
+SP_KEYS = 64       # kBq), keys per tile (kBk)
+#: B5: f32 of one split's partial of a CTA (O, then m and l per row)
+SP_PART_FLOATS = SP_ROWS * HEAD_DIM + 2 * SP_ROWS
 BWD_KEYS = 64      # B6: keys per CTA (csrc flash_attention_bwd_hd256 kBk)
 BWD_ROWS = 64      # B6: query rows per tile of a CTA's walk (kBq)
 NAMES = {"prefill": "flash_attention_hd256",
@@ -76,8 +89,9 @@ NAMES = {"prefill": "flash_attention_hd256",
          "lse": "flash_attention_lse_hd256",
          "bwd": "flash_attention_bwd_hd256"}
 
-__all__ = ["HEAD_DIM", "Hd256Plan", "hd256_plan", "paged_plan",
-           "shared_prefix_plan", "BwdPlan", "bwd_hd256_plan",
+__all__ = ["HEAD_DIM", "Hd256Plan", "hd256_plan",
+           "SharedPrefixPlan", "shared_prefix_plan", "BwdPlan",
+           "bwd_hd256_plan",
            "prefill_hd256", "prefill_hd256_plain",
            "folded_hd256", "folded_hd256_plain", "decode_hd256",
            "decode_hd256_plain", "paged_hd256", "paged_hd256_plain",
@@ -170,26 +184,47 @@ def bwd_hd256_plan(B: int, L: int, H: int, KV: int, causal: bool,
                    q_tiles * (G // splits), share)
 
 
-def paged_plan(B: int, H: int, KV: int, maxp: int, page: int,
-               sms: int) -> Hd256Plan:
-    """The paged form's grid: one query per slot against the slot's maxp *
-    page positions (a split past a slot's kv_len writes an empty
-    partial)."""
-    return hd256_plan(B, 1, H, KV, maxp * page, sms)
+@dataclass(frozen=True)
+class SharedPrefixPlan:
+    """B5's grid at hd 256: ``groups`` row tiles of SP_ROWS folded rows
+    (b-major over the batch, times the kv heads), each over ``splits``
+    CTAs that split the prefix's ``key_tiles`` tiles of SP_KEYS keys (the
+    last split also walks the suffix); a split launch's partials (one per
+    CTA) and one arrival counter per group."""
+    groups: int
+    key_tiles: int
+    splits: int
+
+    @property
+    def ctas(self) -> int:
+        return self.groups * self.splits
+
+    @property
+    def workspace_bytes(self) -> int:
+        if self.splits == 1:
+            return 0
+        return self.ctas * SP_PART_FLOATS * 4
+
+    def tiles(self, split: int) -> range:
+        """The prefix tiles split ``split`` walks: [s n / splits, (s + 1)
+        n / splits), as the kernel's ``split_begin``."""
+        n = self.key_tiles
+        return range(n * split // self.splits,
+                     n * (split + 1) // self.splits)
 
 
-def prefix_keys(P: int) -> int:
-    """The shared-prefix form's key slots before the suffix: the P prefix
-    keys padded to whole KEYS tiles, so no tile mixes prefix and
-    suffix."""
-    return -(-P // KEYS) * KEYS
-
-
+@functools.lru_cache(maxsize=None)
 def shared_prefix_plan(B: int, L: int, H: int, KV: int, P: int,
-                       sms: int) -> Hd256Plan:
-    """The shared-prefix form's grid over its key axis: the padded prefix,
-    then the L suffix keys."""
-    return hd256_plan(B, L, H, KV, prefix_keys(P) + L, sms)
+                       sms: int) -> SharedPrefixPlan:
+    """B5 at hd 256 over B rows of L suffix queries of H heads (KV kv
+    heads) and a P-key prefix on ``sms`` SMs: the row tiles of each kv
+    head's B L H / KV folded rows, the split count of the hd-128 chunk
+    kernels' cost model (``chunk_plan``: one where the row tiles fill the
+    card, never more than the prefix's tiles)."""
+    groups = KV * -(-B * L * (H // KV) // SP_ROWS)
+    key_tiles = -(-P // SP_KEYS)
+    return SharedPrefixPlan(groups, key_tiles,
+                            chunk_plan(groups, key_tiles, sms).splits)
 
 
 def _check_tensors(name: str, device, dtype, align: int = 16,
@@ -373,15 +408,20 @@ def decode_hd256(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                  v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """B3 at hd 256 on the card: q (B, 1, H, 256), the new token at kv_len[b]
     - 1 attending slots < kv_len[b] of ``layer`` of the stacked cache (bf16,
-    or int8 / packed int4 with scales, as :func:`folded_hd256`). Twin:
-    :func:`decode_hd256_plain` (``decode_attention_plain``)."""
-    if q.shape[1] != 1:
-        raise ValueError(f"{NAMES['decode']}: q {tuple(q.shape)}")
-    _check_dense(NAMES["decode"], q, k_all, v_all, layer, kv_heads, k_scale,
-                 v_scale)
-    return _launch_form(*_card(q.device), "decode", q, k_all[layer],
-                        v_all[layer], kv_len, None, kv_heads,
-                        _layer(k_scale, layer), _layer(v_scale, layer))
+    or int8 / packed int4 with scales, as :func:`folded_hd256`), at most
+    ``MAX_GROUP`` query heads per kv head; the hd-128 decode template's
+    hd-256 instantiation, planned by ``decode_plan`` at head width 256.
+    Twin: :func:`decode_hd256_plain` (``decode_attention_plain``)."""
+    name = NAMES["decode"]
+    B, L, H, _ = q.shape
+    form = _check_dense(name, q, k_all, v_all, layer, kv_heads, k_scale,
+                        v_scale)
+    if L != 1 or H // kv_heads > _decode.MAX_GROUP or kv_len.shape != (B,):
+        raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
+                         f"kv_len {tuple(kv_len.shape)} kv_heads {kv_heads}")
+    kv_len = kv_len.to(device=q.device, dtype=torch.int32).contiguous()
+    return _decode._launch_decode(*_card(q.device), form, q, k_all, v_all,
+                                  kv_len, layer, kv_heads, k_scale, v_scale)
 
 
 def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
@@ -393,7 +433,9 @@ def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
     at kv_len[b] - 1 attending its positions < kv_len[b] through
     ``page_table`` (B, maxp) into ``layer`` of the stacked (layers, P,
     page, KV * 256) pools, bf16, or int8 (packed int4: KV * 128 bytes) with
-    the stacked (layers, P, KV, 1, page) f32 scales; any page size. Twin:
+    the stacked (layers, P, KV, 1, page) f32 scales; any page size, at
+    most ``MAX_GROUP`` query heads per kv head; the decode template's
+    hd-256 instantiation over the pools' map, planned as B3. Twin:
     :func:`paged_hd256_plain` (``paged_attention_plain``)."""
     name = NAMES["paged"]
     B, L, H, hd = q.shape
@@ -404,7 +446,8 @@ def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
     if (L != 1 or hd != HEAD_DIM or k_pages.dim() != 4
             or v_pages.shape != k_pages.shape
             or k_pages.shape[-1] != _row_width(kv_heads, form)
-            or H % kv_heads or not 0 <= layer < NL
+            or H % kv_heads or H // kv_heads > _decode.MAX_GROUP
+            or not 0 <= layer < NL
             or page_table.dim() != 2 or page_table.shape[0] != B
             or page_table.shape[1] < 1 or kv_len.shape != (B,)):
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
@@ -414,42 +457,9 @@ def paged_hd256(q: torch.Tensor, k_pages: torch.Tensor,
     dev = q.device
     table = page_table.to(device=dev, dtype=torch.int32).contiguous()
     kv_len = kv_len.to(device=dev, dtype=torch.int32).contiguous()
-    return _launch_paged(*_card(dev), q, k_pages, v_pages, table, kv_len,
-                         layer, kv_heads, k_scale, v_scale)
-
-
-def _launch_paged(lib, stream: int, sms: int, q, k_pages, v_pages, table,
-                  kv_len, layer: int, kv_heads: int, k_scale=None,
-                  v_scale=None) -> torch.Tensor:
-    """Launch the paged form through ``lib`` on ``sms`` SMs: its plan over
-    maxp * page positions per slot and the stream's workspace; allocates
-    only the output and reads nothing of kv_len or the table on the
-    host."""
-    B, _, H, hd = q.shape
-    P, page = k_pages.shape[1], k_pages.shape[2]
-    maxp = table.shape[1]
-    plan = paged_plan(B, H, kv_heads, maxp, page, sms)
-    ws = _workspace(plan, q.device, stream)
-    out = torch.empty_like(q)
-    if k_scale is None:
-        name = NAMES["paged"]
-        err = lib.v3d_attention_hd256_paged(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            table.data_ptr(), kv_len.data_ptr(), out.data_ptr(), _ptr(ws),
-            layer, B, P, page, maxp, H, kv_heads, plan.splits,
-            plan.split_keys, float(hd ** -0.5), stream)
-    else:
-        suffix = CACHE_FORMS[k_pages.dtype]
-        name = NAMES["paged"] + suffix
-        err = lib.v3d_attention_hd256_paged_quant(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), table.data_ptr(),
-            kv_len.data_ptr(), out.data_ptr(), _ptr(ws), BITS[suffix], layer,
-            B, P, page, maxp, H, kv_heads, plan.splits, plan.split_keys,
-            float(hd ** -0.5), stream)
-    _build.check(err, name)
-    _build.count_launch(name)
-    return out
+    return _paged._launch_paged(*_card(dev), form, q, k_pages, v_pages,
+                                table, kv_len, layer, kv_heads, k_scale,
+                                v_scale)
 
 
 def shared_prefix_hd256(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
@@ -462,8 +472,9 @@ def shared_prefix_hd256(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
     position P + r, attending the whole (P, KV, 256) prefix (no batch dim),
     bf16, or int8 (packed int4: (P, KV, 128) bytes) with (P, KV, 1) f32
     scales, then its row's own bf16 (B, L, KV, 256) suffix keys j <= r and
-    j < suffix_lens[b]; rows r >= suffix_lens[b] are undefined by contract.
-    Twin: :func:`shared_prefix_hd256_plain`
+    j < suffix_lens[b]; rows r >= suffix_lens[b] are undefined by contract
+    (the kernel applies the causal mask alone, so suffix_lens is checked
+    but not launched). Twin: :func:`shared_prefix_hd256_plain`
     (``mha_shared_prefix_reference``)."""
     name = NAMES["shared_prefix"]
     B, L, H, hd = q.shape
@@ -477,40 +488,31 @@ def shared_prefix_hd256(q: torch.Tensor, pk: torch.Tensor, pv: torch.Tensor,
         raise ValueError(f"{name}: unsupported shapes q {tuple(q.shape)} "
                          f"prefix {tuple(pk.shape)} suffix "
                          f"{tuple(sk.shape)}")
-    suffix_lens = suffix_lens.to(device=q.device,
-                                 dtype=torch.int32).contiguous()
     return _launch_shared_prefix(*_card(q.device), q, pk, pv, sk, sv,
-                                 suffix_lens, pk_scale, pv_scale)
+                                 pk_scale, pv_scale)
 
 
 def _launch_shared_prefix(lib, stream: int, sms: int, q, pk, pv, sk, sv,
-                          suffix_lens, pk_scale=None,
-                          pv_scale=None) -> torch.Tensor:
-    """Launch the shared-prefix form through ``lib`` on ``sms`` SMs: its
-    plan over the padded prefix and the suffix and the stream's
-    workspace; allocates only the output and reads nothing of suffix_lens
-    on the host."""
+                          pk_scale=None, pv_scale=None) -> torch.Tensor:
+    """Launch B5 at hd 256 in the prefix's form through ``lib`` on ``sms``
+    SMs: its plan, the stream's workspace and arrival counters where the
+    prefix splits; allocates only the output."""
     B, L, H, hd = q.shape
     P, KV = pk.shape[0], pk.shape[1]
     plan = shared_prefix_plan(B, L, H, KV, P, sms)
-    ws = _workspace(plan, q.device, stream)
+    split_args = (0, 0, 0)
+    if plan.splits > 1:
+        ws = _launch.workspace(q.device, stream, plan.workspace_bytes)
+        counters = _launch.arrival_counters(q.device, stream, plan.groups)
+        split_args = (ws.data_ptr(), ws.numel() * 4, counters.data_ptr())
     out = torch.empty_like(q)
-    if pk_scale is None:
-        name = NAMES["shared_prefix"]
-        err = lib.v3d_attention_hd256_shared_prefix(
-            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), sk.data_ptr(),
-            sv.data_ptr(), suffix_lens.data_ptr(), out.data_ptr(), _ptr(ws),
-            B, L, P, H, KV, plan.splits, plan.split_keys, float(hd ** -0.5),
-            stream)
-    else:
-        suffix = CACHE_FORMS[pk.dtype]
-        name = NAMES["shared_prefix"] + suffix
-        err = lib.v3d_attention_hd256_shared_prefix_quant(
-            q.data_ptr(), pk.data_ptr(), pv.data_ptr(), pk_scale.data_ptr(),
-            pv_scale.data_ptr(), sk.data_ptr(), sv.data_ptr(),
-            suffix_lens.data_ptr(), out.data_ptr(), _ptr(ws), BITS[suffix],
-            B, L, P, H, KV, plan.splits, plan.split_keys, float(hd ** -0.5),
-            stream)
+    form = CACHE_FORMS[pk.dtype]
+    name = NAMES["shared_prefix"] + form
+    scales = (pk_scale.data_ptr(), pv_scale.data_ptr()) if form else ()
+    err = getattr(lib, "v3d_shared_prefix_attention_hd256" + form)(
+        q.data_ptr(), pk.data_ptr(), pv.data_ptr(), *scales, sk.data_ptr(),
+        sv.data_ptr(), out.data_ptr(), B, L, P, H, KV, float(hd ** -0.5),
+        *split_args, plan.splits, stream)
     _build.check(err, name)
     _build.count_launch(name)
     return out

@@ -8,21 +8,24 @@ raises. Counterpart of ``video3d_tpu/kernels/decode_attention.py`` with the
 stacked-cache input form (``kv_heads`` given), over a bf16 cache, or an int8
 or a packed int4 one with per-position scales (the kernel's int8 and int4
 instantiations, counted as ``decode_attention_int8`` / ``_int4``). At
-head width 256 every cache form launches ``csrc/attention_hd256.cu``'s
-decode form (``kernels/attention_hd256.py``).
+head width 256 every cache form goes through
+``kernels/attention_hd256.py``'s ``decode_hd256`` to the same template's
+hd-256 instantiations (counted as ``decode_attention_hd256`` and its
+``_int8`` / ``_int4``).
 
 B3 and B7 (``paged_attention.py``) share one Hopper kernel
 (``csrc/decode_sm90.cuh``): one launch per call, :func:`decode_plan` gives
-its grid from the shapes and the SM count alone (the kernel reads kv_len on
-the device and gives each CTA an even share of the live positions), and
-rows split over several CTAs merge in the kernel through the stream's
-workspace and arrival counters (``_launch``). The wrapper allocates only
-the output.
+its grid from the shapes, the head width and the SM count alone (the kernel
+reads kv_len on the device and gives each CTA an even share of the live
+positions), and rows split over several CTAs merge in the kernel through
+the stream's workspace and arrival counters (``_launch``). The wrapper
+allocates only the output.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -31,11 +34,33 @@ import torch
 from video3d_tpu_torch.kernels import _build, _launch
 from video3d_tpu_torch.kernels.attention import cache_values, mha_reference
 
-HEAD_DIM = 128      # the kernel's compiled head dim
+HEAD_DIM = 128      # the kernel's head width here (256: attention_hd256)
 MAX_GROUP = 8       # query heads per kv head (csrc kMaxG)
-#: f32 of one split's (m, l, O) for MAX_GROUP heads (csrc kPartFloats)
-PART_FLOATS = 2 * MAX_GROUP + MAX_GROUP * HEAD_DIM
 MAX_SPLITS = 256    # CTAs per kv head (csrc kMaxSplits)
+#: hd 256: a row of more slices than TREE_MIN merges in two levels, in at
+#: most MAX_GROUPS groups (csrc kTreeMin, kMaxGroups; :func:`group_size`)
+TREE_MIN = 12
+MAX_GROUPS = 16
+
+
+def group_size(n: int) -> int:
+    """hd 256: the slices of a row of ``n`` merge in groups of this many
+    consecutive ones (merge order), then the groups' partials in group
+    order: ceil(sqrt(n)) where n > TREE_MIN, else all n in one group
+    (csrc group_size)."""
+    if n <= TREE_MIN:
+        return n
+    return math.isqrt(n - 1) + 1
+
+
+def part_floats(head_dim: int = HEAD_DIM) -> int:
+    """f32 of one split's (m, l, O) for MAX_GROUP heads of ``head_dim``
+    (csrc part_floats)."""
+    return 2 * MAX_GROUP + MAX_GROUP * head_dim
+
+
+#: f32 of one split's (m, l, O) at head width 128
+PART_FLOATS = part_floats()
 #: a cache's storage dtype -> the name suffix of its kernel instantiation
 #: (int4 values are packed two per uint8 byte)
 CACHE_FORMS = {torch.bfloat16: "", torch.int8: "_int8", torch.uint8: "_int4"}
@@ -48,11 +73,15 @@ class DecodePlan:
     kernel lays the rows' live positions (kv_len, clamped to [0, cap]) end
     to end and gives CTA c positions [c T / splits, (c + 1) T / splits)
     (:meth:`ranges`); a row touched by several CTAs merges through two
-    workspace slots per CTA and one arrival counter per (row, kv head)."""
+    workspace slots per CTA (slices of ``part_floats(head_dim)`` f32) and
+    one arrival counter per (row, kv head); at head width 256 the slices
+    merge in two levels (:func:`group_size`), with MAX_GROUPS more counters
+    per (row, kv head) after those."""
     batch: int
     kv_heads: int
     cap: int
     splits: int
+    head_dim: int = HEAD_DIM
 
     @property
     def ctas(self) -> int:
@@ -60,11 +89,12 @@ class DecodePlan:
 
     @property
     def workspace_bytes(self) -> int:
-        return 2 * self.ctas * PART_FLOATS * 4
+        return 2 * self.ctas * part_floats(self.head_dim) * 4
 
     @property
     def counters(self) -> int:
-        return self.batch * self.kv_heads
+        return self.batch * self.kv_heads * (
+            1 + (MAX_GROUPS if self.head_dim == 256 else 0))
 
     def lens(self, kv_len: Sequence[int]) -> List[int]:
         return [min(max(int(n), 0), self.cap) for n in kv_len]
@@ -118,13 +148,16 @@ class DecodePlan:
 
 
 @functools.lru_cache(maxsize=None)
-def decode_plan(batch: int, kv_heads: int, cap: int, sms: int) -> DecodePlan:
-    """One CTA per SM (its ~165 KB of rings allows no second): sms //
+def decode_plan(batch: int, kv_heads: int, cap: int, sms: int,
+                head_dim: int = HEAD_DIM) -> DecodePlan:
+    """One CTA per SM (its ~165-180 KB of rings allows no second): sms //
     kv_heads splits per kv head, at least one and no more than a full
-    cache's positions or MAX_SPLITS. Nothing here depends on kv_len, which
-    stays on the device."""
+    cache's positions or MAX_SPLITS, at either head width (at 256 a row's
+    slices merge in two levels, so that Gemma's one kv head can take all
+    132 SMs). Nothing here depends on kv_len, which stays on the device."""
     return DecodePlan(batch, kv_heads, cap,
-                      max(1, min(sms // kv_heads, batch * cap, MAX_SPLITS)))
+                      max(1, min(sms // kv_heads, batch * cap, MAX_SPLITS)),
+                      head_dim)
 
 
 def split_args(plan: DecodePlan, device, stream: int):
@@ -244,14 +277,15 @@ def decode_attention(q: torch.Tensor, k_all: torch.Tensor,
 
 def _launch_decode(lib, stream: int, sms: int, form: str, q, k_all, v_all,
                    kv_len, layer: int, kv_heads: int, k_scale, v_scale):
-    """Launch B3's ``form`` through ``lib`` on ``sms`` SMs: its plan, the
+    """Launch B3's ``form`` at q's head width (128, or 256: the
+    ``_hd256`` entries) through ``lib`` on ``sms`` SMs: its plan, the
     stream's workspace and zeroed counters; allocates only the output and
     reads nothing of kv_len on the host."""
     B, _, H, hd = q.shape
     S = k_all.shape[2]
-    plan = decode_plan(B, kv_heads, S, sms)
+    plan = decode_plan(B, kv_heads, S, sms, hd)
     out = torch.empty_like(q)
-    name = "decode_attention" + form
+    name = "decode_attention" + ("" if hd == HEAD_DIM else "_hd256") + form
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
     err = getattr(lib, "v3d_" + name)(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), *scales,

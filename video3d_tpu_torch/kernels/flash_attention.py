@@ -21,10 +21,11 @@ with the per-row logsumexp (:func:`flash_attention_fwd`, counted as
 (:func:`flash_attention_bwd`, ``csrc/flash_attention_bwd.cu``, counted as
 ``flash_attention_bwd``), on the CPU their plain versions.
 
-At head width 256 B2 folded and B5 (each over a bf16, an int8 or a packed
-int4 cache or prefix) launch ``csrc/attention_hd256.cu`` instead, the
-prefill form and B2 with the logsumexp ``csrc/flash_attention_hd256.cu``,
-B6 ``csrc/flash_attention_bwd_hd256.cu`` (``kernels/attention_hd256.py``).
+At head width 256 B2 folded (over a bf16, an int8 or a packed int4
+cache) launches ``csrc/attention_hd256.cu`` instead, B5 (over such a
+prefix) ``csrc/shared_prefix_hd256.cu``, the prefill form and B2 with the
+logsumexp ``csrc/flash_attention_hd256.cu``, B6
+``csrc/flash_attention_bwd_hd256.cu`` (``kernels/attention_hd256.py``).
 
 Every form at hd 128 runs on Hopper kernels fed by TMA: their C entries
 take the shapes, encode the tensor maps from the kernels' own tile sizes

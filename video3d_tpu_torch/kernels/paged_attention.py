@@ -13,9 +13,10 @@ CPU tensor runs :func:`paged_attention_plain`, a CUDA tensor launches
 (``csrc/decode_sm90.cuh``) over the pools' page map, with B3's plan
 (``decode_attention.decode_plan``, over maxp * page positions per slot):
 one launch, only the output allocated, kv_len and the table read on the
-device alone. At head width 256 every pool form launches
-``csrc/attention_hd256.cu``'s paged form instead
-(``kernels/attention_hd256.py``).
+device alone. At head width 256 every pool form goes through
+``kernels/attention_hd256.py``'s ``paged_hd256`` to the same template's
+hd-256 instantiations (counted as ``paged_attention_hd256`` and its
+``_int8`` / ``_int4``), planned as B3 at 256.
 
 Not ported: ``RAGGED_GRID`` (:139-143) and the cumsum / searchsorted
 live-page worklist with its ``lax.cond`` sizing (:198-281). They keep a
@@ -38,7 +39,7 @@ from video3d_tpu_torch.kernels.decode_attention import (CACHE_FORMS,
                                                         _stream, decode_plan,
                                                         split_args)
 
-HEAD_DIM = 128      # the kernel's compiled head dim
+HEAD_DIM = 128      # the kernel's head width here (256: attention_hd256)
 MAX_GROUP = 8       # query heads per kv head (csrc kMaxG)
 
 
@@ -203,16 +204,17 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 def _launch_paged(lib, stream: int, sms: int, form: str, q, k_pages,
                   v_pages, table, kv_len, layer: int, kv_heads: int,
                   k_scale, v_scale):
-    """Launch B7's ``form`` through ``lib`` on ``sms`` SMs: B3's plan over
-    maxp * page positions per slot, the stream's workspace and zeroed
-    counters; allocates only the output and reads nothing of kv_len or the
-    table on the host."""
+    """Launch B7's ``form`` at q's head width (128, or 256: the ``_hd256``
+    entries) through ``lib`` on ``sms`` SMs: B3's plan over maxp * page
+    positions per slot, the stream's workspace and zeroed counters;
+    allocates only the output and reads nothing of kv_len or the table on
+    the host."""
     B, _, H, hd = q.shape
     P, page = k_pages.shape[1], k_pages.shape[2]
     maxp = table.shape[1]
-    plan = decode_plan(B, kv_heads, maxp * page, sms)
+    plan = decode_plan(B, kv_heads, maxp * page, sms, hd)
     out = torch.empty_like(q)
-    name = "paged_attention" + form
+    name = "paged_attention" + ("" if hd == HEAD_DIM else "_hd256") + form
     scales = (k_scale.data_ptr(), v_scale.data_ptr()) if form else ()
     err = getattr(lib, "v3d_" + name)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), *scales,

@@ -52,7 +52,6 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from video3d_tpu_torch.kernels import _build, _launch
-from video3d_tpu_torch.kernels import attention_hd256 as hd256
 from video3d_tpu_torch.kernels import quant_matvec as qm
 from video3d_tpu_torch.kernels.decode_attention import decode_plan
 from video3d_tpu_torch.models import quant
@@ -164,20 +163,16 @@ def step_buffers(params, cfg, rows: int, cap: int,
                  sms: int) -> Tuple[int, int]:
     """(arrival counters, workspace bytes) one decode step of ``rows`` rows
     over ``cap`` positions per row (a paged step: ``maxp * page``) asks of
-    its stream: the largest of the plans of B3 / B7 (``decode_plan``; at
-    head width 256 the hd-256 kernel's decode and paged forms, one plan
-    over ``cap`` keys: ``hd256.paged_plan`` is ``hd256_plan(rows, 1, H,
-    KV, maxp * page)``) and of the weight-streaming kernels at every
+    its stream: the largest of the plans of B3 / B7 (``decode_plan`` at the
+    model's head width, over ``cap`` positions a row: a paged step's
+    ``maxp * page``) and of the weight-streaming kernels at every
     projection and the head (a MoE layer's expert stacks stay dense). The
     plans read shapes alone, so a captured step allocates nothing and
     reads no kv_len or page table on the host."""
     llm_cfg = cfg.llm
-    plan = decode_plan(rows, llm_cfg.num_key_value_heads, cap, sms)
+    plan = decode_plan(rows, llm_cfg.num_key_value_heads, cap, sms,
+                       llm_cfg.head_dim)
     counters, nbytes = plan.counters, plan.workspace_bytes
-    if llm_cfg.head_dim == hd256.HEAD_DIM:
-        nbytes = max(nbytes, hd256.hd256_plan(
-            rows, 1, llm_cfg.num_attention_heads,
-            llm_cfg.num_key_value_heads, cap, sms).workspace_bytes)
     llm = params["llm"]
     layer = llm["layers"][0]
     for w in (*layer["attn"].values(), *layer.get("mlp", {}).values(),
